@@ -14,10 +14,18 @@ Phases, each printing its own lines:
      log_q = 90 (k = 3), h = 64: keygen, encode, encrypt, add, add_plain and
      the 8-term resident plaintext multiply-accumulate, then decrypt and
      decode.  Every launch count is zeroed just before and read just after;
-     each kernel must have launched.  The decoded slots must be [8,16,24,32]
-     and 180, and the card's results must equal the plain path's on the CPU
-     bit for bit.  Then end-to-end times of each op.
-The line before the last is {"kernels": [...]}; the last line is
+     each kernel of the path must have launched.  The decoded slots must be
+     [8,16,24,32] and 180, and the card's results must equal the plain
+     path's on the CPU bit for bit.  Then end-to-end times of each op;
+  5. multiply: the ciphertext multiply path through the facade at the same
+     width: keygen, relinkey_gen, encode and encrypt [5,10,15,20] and
+     [3,6,9,12], multiply_no_relin, 3-component decrypt, relinearize,
+     decrypt, and multiply; every decode must be [15,60,135,240].  Counts
+     are zeroed before and read after, as in phase 4, and the card's
+     relinearization keys, products and decryptions must equal the CPU
+     plain path's bit for bit.  Then end-to-end times of each op.
+The line before the last is {"kernels": [...]}, each kernel with its launches
+on its own path (phase 4 or 5); the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; without
 a card the script exits 1 before printing any result.  Imports no JAX and
 nothing of fhe_tpu.
@@ -35,13 +43,13 @@ import time
 import torch
 
 from fhe_tpu_torch import FHE
-from fhe_tpu_torch.ops import _build, decrypt_cuda, ntt_cuda
+from fhe_tpu_torch.ops import _build, decrypt_cuda, ntt_cuda, rns_cuda
 from fhe_tpu_torch.ops import ntt as plain_ntt
 from fhe_tpu_torch.ops import rns, sampling
 from fhe_tpu_torch.params import SecurityParams, make_scheme_params
 from fhe_tpu_torch.scheme import bfv
 from fhe_tpu_torch.scheme.context import make_context
-from fhe_tpu_torch.scheme.types import Plaintext, SecretKey
+from fhe_tpu_torch.scheme.types import Plaintext, RelinKeys, SecretKey
 
 N, LOG_Q, H = 8192, 90, 64
 REPS = 25
@@ -59,7 +67,7 @@ def helper_ops() -> dict[str, int]:
     text = (_build.CSRC / "modmath.cuh").read_text()
     ops = {m[1]: int(m[2]) for m in re.finditer(r"^//\s+OPS (\w+) (\d+)$", text, re.M)}
     want = {"add_mod", "sub_mod", "mul_shoup", "reduce_shoup", "mul_barrett",
-            "reduce_barrett"}
+            "reduce_barrett", "select", "lane16", "mul16"}
     if set(ops) != want:
         raise RuntimeError(f"modmath.cuh OPS block lists {sorted(ops)}, expected "
                            f"{sorted(want)}")
@@ -69,17 +77,30 @@ def helper_ops() -> dict[str, int]:
 OPS = helper_ops()
 OPS_BUTTERFLY = OPS["mul_shoup"] + OPS["add_mod"] + OPS["sub_mod"]
 
+# path: the phase whose run gives the kernel's launches in the kernels line
 KERNELS = {
     "ntt_forward": dict(fn=ntt_cuda.ntt_forward, source="fhe_tpu_torch/csrc/ntt.cu",
-                        replaces="fhe_tpu/ops/ntt_pallas.py:444"),
+                        replaces="fhe_tpu/ops/ntt_pallas.py:444", path="slice"),
     "ntt_inverse": dict(fn=ntt_cuda.ntt_inverse, source="fhe_tpu_torch/csrc/ntt.cu",
-                        replaces="fhe_tpu/ops/ntt_pallas.py:493"),
+                        replaces="fhe_tpu/ops/ntt_pallas.py:493", path="slice"),
     "mul_by_ntt_operand": dict(fn=ntt_cuda.mul_by_ntt_operand,
                                source="fhe_tpu_torch/csrc/ntt.cu",
-                               replaces="fhe_tpu/ops/ntt_pallas.py:576"),
+                               replaces="fhe_tpu/ops/ntt_pallas.py:576", path="slice"),
     "decrypt_fused": dict(fn=decrypt_cuda.decrypt_fused,
                           source="fhe_tpu_torch/csrc/decrypt.cu",
-                          replaces="fhe_tpu/ops/decrypt_pallas.py:126"),
+                          replaces="fhe_tpu/ops/decrypt_pallas.py:126", path="slice"),
+    "tensor_product": dict(fn=ntt_cuda.tensor_product,
+                           source="fhe_tpu_torch/csrc/ntt.cu",
+                           replaces="fhe_tpu/ops/ntt_pallas.py:879", path="multiply"),
+    "bsk_branch_fused": dict(fn=rns_cuda.bsk_branch_fused,
+                             source="fhe_tpu_torch/csrc/rns.cu",
+                             replaces="fhe_tpu/ops/rns_pallas.py:257", path="multiply"),
+    "fast_bconv_sk_fused": dict(fn=rns_cuda.fast_bconv_sk_fused,
+                                source="fhe_tpu_torch/csrc/rns.cu",
+                                replaces="fhe_tpu/ops/rns_pallas.py:310", path="multiply"),
+    "keyswitch_fused": dict(fn=ntt_cuda.keyswitch_fused,
+                            source="fhe_tpu_torch/csrc/ntt.cu",
+                            replaces="fhe_tpu/ops/ntt_pallas.py:751", path="multiply"),
 }
 
 
@@ -91,6 +112,17 @@ def check(cond: bool, msg: str) -> None:
 def reset_counts() -> None:
     for k in KERNELS.values():
         k["fn"].launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    return {name: k["fn"].launches for name, k in KERNELS.items()}
+
+
+def check_launched(launches: dict[str, int], path: str) -> None:
+    """Every kernel of the path launched at least once in the run."""
+    for name, meta in KERNELS.items():
+        if meta["path"] == path:
+            check(launches[name] > 0, f"{name} was never launched on the {path} path")
 
 
 def device_ms(fn, reps: int = REPS) -> float:
@@ -176,6 +208,65 @@ def decrypt_work(k: int, batch: int) -> tuple[float, float]:
     return nbytes, batch * (k * per_prime + epilogue)
 
 
+def sweeps_ops(fwd_rows: int, inv_rows: int) -> float:
+    """Ops of one prime's forward and inverse sweeps over that many rows,
+    with the inverse's n_inv multiply."""
+    logn = N.bit_length() - 1
+    return ((fwd_rows + inv_rows) * (N // 2) * logn * OPS_BUTTERFLY
+            + inv_rows * N * OPS["mul_shoup"])
+
+
+def product_ops() -> float:
+    """c0, c1, c2 from the four NTT rows: 4 Barrett products and an add."""
+    return N * (4 * OPS["mul_barrett"] + OPS["add_mod"])
+
+
+def tensor_product_work(k: int) -> tuple[float, float]:
+    """x, y [k, 2, N] in, [k, 3, N] out, forward and inverse tables."""
+    nbytes = 4 * (4 * k * N + 3 * k * N + 4 * k * N)
+    return nbytes, k * (sweeps_ops(4, 3) + product_ops())
+
+
+def bsk_branch_work(k: int, kb: int) -> tuple[float, float]:
+    """ab [k, 4, N] and tx_q [k, 3, N] in, [kb, 3, N] out, Bsk tables.  The
+    k source digits of the lift's 4N and the floor's 3N coefficients do not
+    depend on the Bsk prime, so they count once (the kernel forms them again
+    in each block).  Per Bsk prime: each digit's conversion and m~ lane step,
+    the centred correction, the sweeps and product, and the floor."""
+    o = OPS
+    digits = (4 + 3) * N * k * o["mul_shoup"]
+    lift = 4 * N * (k * (o["mul_shoup"] + o["add_mod"] + o["lane16"])
+                    + o["mul16"] + o["select"] + 2 * o["mul_shoup"] + o["sub_mod"])
+    floor = 3 * N * (k * (o["mul_shoup"] + o["add_mod"])
+                     + o["sub_mod"] + o["mul_shoup"])
+    nbytes = 4 * (4 * k * N + 3 * k * N + 3 * kb * N + 4 * kb * N)
+    return nbytes, digits + kb * (lift + sweeps_ops(4, 3) + product_ops() + floor)
+
+
+def fast_bconv_sk_work(kb: int, k: int, batch: int) -> tuple[float, float]:
+    """[kb, batch, N] in, [k, batch, N] out.  Each aux digit once, its
+    conversion into every q prime and into m_sk, alpha per coefficient,
+    and the centred correction per output."""
+    o = OPS
+    m = batch * N
+    l = kb - 1
+    ops = (l * m * o["mul_shoup"]
+           + (k + 1) * l * m * (o["mul_shoup"] + o["add_mod"])
+           + m * (o["sub_mod"] + o["mul_shoup"])
+           + k * m * (o["select"] + o["mul_shoup"] + o["sub_mod"]))
+    return 4 * (kb * m + k * m), ops
+
+
+def keyswitch_work(k: int, kd: int) -> tuple[float, float]:
+    """d [kd, N] and keys [k, kd, 2, N] in, [k, 2, N] out, q tables.  Per
+    prime: kd reductions and forward sweeps, 2 kd key products and sums,
+    and a 2-row inverse sweep."""
+    o = OPS
+    per_prime = (kd * N * o["reduce_barrett"] + sweeps_ops(kd, 2)
+                 + 2 * kd * N * (o["mul_barrett"] + o["add_mod"]))
+    return 4 * (kd * N + 2 * k * kd * N + 2 * k * N + 4 * k * N), k * per_prime
+
+
 def residues(gen: torch.Generator, moduli, rows: int) -> torch.Tensor:
     return torch.stack([torch.randint(0, int(p), (rows, N), generator=gen,
                                       device="cuda", dtype=torch.int64)
@@ -255,6 +346,31 @@ def phase_kernels(gen: torch.Generator) -> dict:
                           lambda a=args: decrypt_cuda.decrypt_fused(*a),
                           lambda a=args: decrypt_cuda.decrypt_fused_plain(*a),
                           decrypt_work(k, batch)))
+    # the multiply's kernels, on the context the facade builds
+    ctx = make_context(prm, device="cuda")
+    tq, tbsk = ctx.mul_tables
+    kb = tbsk.k
+    x, y = residues(gen, qs, 2), residues(gen, qs, 2)
+    cases.append(("tensor_product", f"x, y [{k},2,{N}], t-folded q tables",
+                  lambda: ntt_cuda.tensor_product(x, y, tq),
+                  lambda: plain_ntt.tensor_product(x, y, tq), tensor_product_work(k)))
+    ab, tx_q = residues(gen, qs, 4), residues(gen, qs, 3)
+    cases.append(("bsk_branch_fused", f"ab [{k},4,{N}], tx_q [{k},3,{N}], kb={kb}",
+                  lambda: rns_cuda.bsk_branch_fused(ab, tx_q, ctx.smq, ctx.floor_c, tbsk),
+                  lambda: rns.bsk_branch_fused(ab, tx_q, ctx.smq, ctx.floor_c, tbsk),
+                  bsk_branch_work(k, kb)))
+    xb = residues(gen, prm.bsk_primes, 3)
+    cases.append(("fast_bconv_sk_fused", f"[{kb},3,{N}] -> [{k},3,{N}]",
+                  lambda: rns_cuda.fast_bconv_sk_fused(xb, ctx.sk_c),
+                  lambda: rns.fast_bconv_sk(xb, ctx.sk_c), fast_bconv_sk_work(kb, k, 3)))
+    d = torch.cat([residues(gen, (q,), 1)[0] for q in qs])           # [kd, N]
+    # the stored [kd, k, 2, N] key layout, read through the permuted view
+    keys = torch.stack([residues(gen, qs, 2) for _ in qs])
+    keys_t = keys.permute(1, 0, 2, 3)
+    cases.append(("keyswitch_fused", f"d [{k},{N}], keys [{k},{k},2,{N}] (kd={k})",
+                  lambda: ntt_cuda.keyswitch_fused(d, keys_t, ctx.ntt_q),
+                  lambda: plain_ntt.keyswitch_fused(d, keys_t, ctx.ntt_q),
+                  keyswitch_work(k, k)))
     results = {}
     for name, label, kern, plain, work in cases:
         got, want = kern(), plain()
@@ -300,13 +416,12 @@ def phase_slice() -> dict:
     reset_counts()
     added, plain_added, mac, st = run_slice(fhe)
     torch.cuda.synchronize()
-    launches = {name: k["fn"].launches for name, k in KERNELS.items()}
+    launches = read_counts()
     print("phase slice launches", json.dumps(launches))
     check(list(added) == [8, 16, 24, 32], f"add decoded {list(added)}")
     check(list(plain_added) == [8, 16, 24, 32], f"add_plain decoded {list(plain_added)}")
     check(int(mac[0]) == 180, f"MAC slot 0 decoded {int(mac[0])}")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was never launched on the main path")
+    check_launched(launches, "slice")
 
     # the same state through the plain versions on the CPU, at full size
     cpu = make_context(fhe.params, device="cpu")
@@ -373,6 +488,73 @@ def phase_slice() -> dict:
     return launches
 
 
+PRODUCT = [15, 60, 135, 240]
+
+
+def phase_multiply() -> dict:
+    """The ciphertext multiply path through the facade, then the same state
+    through the plain versions on the CPU, then end-to-end times."""
+    fhe = FHE(poly_degree=N, log_q=LOG_Q, hamming_weight=H, seed=3, device="cuda")
+    dec = lambda ct: [int(v) for v in fhe.decode(fhe.decrypt(ct, sk))[:4]]
+    reset_counts()
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    c1 = fhe.encrypt(fhe.encode([5, 10, 15, 20]), pk)
+    c2 = fhe.encrypt(fhe.encode([3, 6, 9, 12]), pk)
+    m3 = fhe.multiply_no_relin(c1, c2)
+    dec3 = dec(m3)
+    relin = fhe.relinearize(m3, rlk)
+    dec_relin = dec(relin)
+    prod = fhe.multiply(c1, c2, rlk)
+    dec_prod = dec(prod)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print("phase multiply launches", json.dumps(launches))
+    for what, got in (("multiply_no_relin", dec3), ("relinearize", dec_relin),
+                      ("multiply", dec_prod)):
+        check(got == PRODUCT, f"{what} decoded {got}, expected {PRODUCT}")
+    check(m3.num_components == 3 and prod.num_components == 2,
+          "unexpected component counts")
+    check_launched(launches, "multiply")
+
+    # the same state through the plain versions on the CPU, at full size
+    cpu = make_context(fhe.params, device="cpu")
+    to_cpu = lambda ct: ct.replace(data=ct.data.cpu())
+    sk_cpu = SecretKey(data=sk.data.cpu())
+    rlk_cpu = RelinKeys(data=rlk.data.cpu())
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    primes = fhe.ctx.ntt_q.p
+    a = torch.stack([sampling.uniform_rns(gen, primes, 1, N) for _ in range(3)])
+    e = torch.stack([sampling.gaussian_rns(gen, primes, 3.2, 1, N) for _ in range(3)])
+    check(torch.equal(bfv.relinkey_gen_from_noise(fhe.ctx, sk, a, e).data.cpu(),
+                      bfv.relinkey_gen_from_noise(cpu, sk_cpu, a.cpu(), e.cpu()).data),
+          "card relinkey_gen_from_noise differs from the CPU plain path")
+    m3_cpu = bfv.multiply_no_relin(cpu, to_cpu(c1), to_cpu(c2))
+    check(torch.equal(m3.data.cpu(), m3_cpu.data),
+          "card multiply_no_relin differs from the CPU plain path")
+    check(torch.equal(relin.data.cpu(), bfv.relinearize(cpu, m3_cpu, rlk_cpu).data),
+          "card relinearize differs from the CPU plain path")
+    check(torch.equal(prod.data.cpu(),
+                      bfv.multiply(cpu, to_cpu(c1), to_cpu(c2), rlk_cpu).data),
+          "card multiply differs from the CPU plain path")
+    check(torch.equal(fhe.decrypt(m3, sk).data.cpu(), bfv.decrypt(cpu, m3_cpu, sk_cpu).data),
+          "card 3-component decrypt differs from the CPU plain path")
+    print(f"phase multiply check: decoded {PRODUCT} three times; card == CPU plain path "
+          "for relinkey_gen_from_noise, multiply_no_relin, relinearize, multiply and "
+          "the 3-component decrypt")
+
+    timings = {
+        "relinkey_gen": wall_ms(lambda: fhe.relinkey_gen(sk)),
+        "multiply_no_relin": wall_ms(lambda: fhe.multiply_no_relin(c1, c2)),
+        "relinearize": wall_ms(lambda: fhe.relinearize(m3, rlk)),
+        "multiply": wall_ms(lambda: fhe.multiply(c1, c2, rlk)),
+        "decrypt_3_components": wall_ms(lambda: fhe.decrypt(m3, sk)),
+        "decrypt_after_multiply": wall_ms(lambda: fhe.decrypt(prod, sk)),
+    }
+    print("phase multiply wall_ms", json.dumps(timings))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -383,12 +565,13 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results = phase_kernels(gen)
-    launches = phase_slice()
+    launches = {"slice": phase_slice(), "multiply": phase_multiply()}
     rows = []
     for name, meta in KERNELS.items():
         r = results[name]
         rows.append({"name": name, "route": "cuda", "source": meta["source"],
-                     "replaces": meta["replaces"], "launches": launches[name],
+                     "replaces": meta["replaces"],
+                     "launches": launches[meta["path"]][name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,

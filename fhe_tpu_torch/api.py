@@ -1,11 +1,12 @@
 """High-level FHE API — counterpart of the ``FHE`` facade in ``fhe_tpu/api.py``,
-restricted to the linear ops this package has so far.
+restricted to the ops this package has so far, at level 0.
 
     from fhe_tpu_torch import FHE
     fhe = FHE(poly_degree=8192, log_q=90, hamming_weight=64)   # on the card
     pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
     ct = fhe.encrypt(fhe.encode([1, 2, 3]), pk)
-    out = fhe.decode(fhe.decrypt(fhe.add(ct, ct), sk))
+    out = fhe.decode(fhe.decrypt(fhe.multiply(ct, fhe.add(ct, ct), rlk), sk))
 
 Everything runs on ``device`` ("cuda" by default; a CUDA request without a
 card raises).  ``device="cpu"`` runs the plain PyTorch versions of the
@@ -23,7 +24,7 @@ from .params import SchemeParams, SecurityParams, make_scheme_params
 from .scheme import bfv
 from .scheme import encoder as _encoder
 from .scheme.context import SchemeContext, make_context
-from .scheme.types import Ciphertext, Plaintext, PublicKey, SecretKey
+from .scheme.types import Ciphertext, Plaintext, PublicKey, RelinKeys, SecretKey
 
 
 class FHE:
@@ -45,6 +46,9 @@ class FHE:
     # -- keys --
     def keygen(self) -> tuple[PublicKey, SecretKey]:
         return bfv.keygen(self.ctx, self.gen)
+
+    def relinkey_gen(self, sk: SecretKey) -> RelinKeys:
+        return bfv.relinkey_gen(self.ctx, self.gen, sk)
 
     # -- encoding (slot semantics by default) --
     def encode(self, values) -> Plaintext:
@@ -82,6 +86,15 @@ class FHE:
 
     def sub_plain(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
         return bfv.sub_plain(self.ctx, ct, pt)
+
+    def multiply(self, a: Ciphertext, b: Ciphertext, rlk: RelinKeys) -> Ciphertext:
+        return bfv.multiply(self.ctx, a, b, rlk)
+
+    def multiply_no_relin(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        return bfv.multiply_no_relin(self.ctx, a, b)
+
+    def relinearize(self, ct: Ciphertext, rlk: RelinKeys) -> Ciphertext:
+        return bfv.relinearize(self.ctx, ct, rlk)
 
     def multiply_plain(self, ct: Ciphertext, pt: Plaintext,
                        cache_operand: bool = False) -> Ciphertext:

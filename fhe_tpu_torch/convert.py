@@ -1,7 +1,8 @@
 """Carry keys, ciphertexts and plaintexts between this package and numpy.
 
 The JAX package holds residues as uint32 arrays in prime-major layout
-(``[k, c, n]`` for keys and ciphertexts, ``[n]`` for plaintexts); these
+(``[k, c, n]`` for keys and ciphertexts, ``[kd, k, 2, n]`` for
+relinearization keys, ``[n]`` for plaintexts); these
 functions take and return exactly that, so the same state can go through
 both packages.  Residues are below 2^31, so the int32 tensors of this
 package hold the same values.  State goes to the card unless the caller
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from .ops.modmath import resolve_device
-from .scheme.types import Ciphertext, Plaintext, PublicKey, SecretKey
+from .scheme.types import Ciphertext, Plaintext, PublicKey, RelinKeys, SecretKey
 
 
 def _tensor(arr, ndim: int, device) -> torch.Tensor:
@@ -30,6 +31,11 @@ def keys_from_numpy(pk_np, sk_np, device="cuda") -> tuple[PublicKey, SecretKey]:
     """pk [k, 2, n] and sk [k, 1, n] NTT-form residues."""
     return (PublicKey(data=_tensor(pk_np, 3, device)),
             SecretKey(data=_tensor(sk_np, 3, device)))
+
+
+def relin_keys_from_numpy(data, device="cuda") -> RelinKeys:
+    """[kd, k, 2, n] NTT-form relinearization keys."""
+    return RelinKeys(data=_tensor(data, 4, device))
 
 
 def ciphertext_from_numpy(data, level: int = 0, is_ntt_form: bool = False,

@@ -1,7 +1,8 @@
 // Whole-polynomial negacyclic NTT kernels for Hopper (sm_90a).
 //
-// Replaces fhe_tpu/ops/ntt_pallas.py: ntt_forward, ntt_inverse and
-// mul_by_ntt_operand.  Plain versions: fhe_tpu_torch/ops/ntt.py.
+// Replaces fhe_tpu/ops/ntt_pallas.py: ntt_forward, ntt_inverse,
+// mul_by_ntt_operand, tensor_product and keyswitch_fused.  Plain versions:
+// fhe_tpu_torch/ops/ntt.py.
 //
 // Design.  One block per (prime, polynomial) holds the whole n-point
 // polynomial in shared memory (32 KB at n = 8192) and runs all log2(n)
@@ -23,6 +24,15 @@
 // memory across all c operand rows, so the encrypt product is one launch in
 // place of three.  Register-resident radix-16 stages and warp shuffles,
 // which cut the barrier count, are later work.
+//
+// tensor_product and keyswitch_fused (the ciphertext multiply and the
+// relinearization) follow the same plan: one block per prime keeps every
+// polynomial of the step in shared memory from the first forward stage to
+// the last inverse one, and transforms its rows together, so one barrier per
+// stage serves 4 (tensor product) or 2 (key-switch accumulators) rows.  At
+// n = 8192, k = 3 they run on 3 blocks, one per SM, and are bound by the
+// issue rate of those SMs rather than by the barriers (bounds and times:
+// PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -67,9 +77,11 @@ ntt_inverse_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
 }
 
 // out[i, c] = INTT(NTT(u[i]) . w[i, c]) for c = 0 .. num_c-1; block i per prime.
-// Shared memory: NTT(u) (kept for every c) and one working polynomial.
+// u row i starts at u + i * u_stride (a view of one ciphertext component
+// is read in place).  Shared memory: NTT(u) (kept for every c) and one
+// working polynomial.
 __global__ void __launch_bounds__(1024)
-mul_by_ntt_operand_kernel(const uint32_t* __restrict__ u,
+mul_by_ntt_operand_kernel(const uint32_t* __restrict__ u, long long u_stride,
                           const uint32_t* __restrict__ w, uint32_t* __restrict__ out,
                           const uint32_t* __restrict__ p, const uint32_t* __restrict__ mu,
                           const uint32_t* __restrict__ psi,
@@ -86,7 +98,7 @@ mul_by_ntt_operand_kernel(const uint32_t* __restrict__ u,
   const uint32_t pi = p[i];
   const uint32_t mui = mu[i];
   const size_t tab = static_cast<size_t>(i) * n;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) un[j] = u[tab + j];
+  for (int j = threadIdx.x; j < n; j += blockDim.x) un[j] = u[i * u_stride + j];
   __syncthreads();
   fhe::fwd_ntt_smem(un, logn, pi, psi + tab, psi_sh + tab);
   for (int c = 0; c < num_c; ++c) {
@@ -98,6 +110,80 @@ mul_by_ntt_operand_kernel(const uint32_t* __restrict__ u,
     for (int j = threadIdx.x; j < n; j += blockDim.x) out[row + j] = a[j];
     __syncthreads();
   }
+}
+
+// out[i] = INTT(c0, c1, c2) with (c0, c1, c2) the tensor product of
+// NTT(x[i]) and NTT(y[i]); x, y: [k, 2, n], out: [k, 3, n]; block i per
+// prime.  With the multiply's tables n_inv is t * n^-1, so the scale by t
+// costs nothing.  Shared memory: the four input rows (4 * 32 KB at n = 8192).
+__global__ void __launch_bounds__(1024)
+tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                      uint32_t* __restrict__ out, const uint32_t* __restrict__ p,
+                      const uint32_t* __restrict__ mu, const uint32_t* __restrict__ psi,
+                      const uint32_t* __restrict__ psi_sh,
+                      const uint32_t* __restrict__ ipsi,
+                      const uint32_t* __restrict__ ipsi_sh,
+                      const uint32_t* __restrict__ n_inv,
+                      const uint32_t* __restrict__ n_inv_sh, int logn) {
+  extern __shared__ uint32_t sm[];
+  const int n = 1 << logn;
+  const int i = blockIdx.x;
+  const uint32_t pi = p[i];
+  const size_t tab = static_cast<size_t>(i) * n;
+  const size_t in = 2 * tab;
+  for (int j = threadIdx.x; j < 2 * n; j += blockDim.x) {
+    sm[j] = x[in + j];
+    sm[2 * n + j] = y[in + j];
+  }
+  __syncthreads();
+  fhe::fwd_ntt_smem<4>(sm, logn, pi, psi + tab, psi_sh + tab);
+  fhe::tensor_product_smem(sm, logn, pi, mu[i]);
+  fhe::inv_ntt_smem<3>(sm, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i]);
+  for (int j = threadIdx.x; j < 3 * n; j += blockDim.x) out[3 * tab + j] = sm[j];
+}
+
+// Key-switch inner product, block i per prime p_i:
+//   out[i] = INTT( sum_j NTT([d_j]_{p_i}) . key[i, j, c] ),  c = 0, 1.
+// d: [kd, n] gadget digits, digit j a residue mod its own q_j (< 2^30), so
+// it is reduced mod p_i first: mul_barrett is exact only below p.  Key
+// element (i, j, c, x) sits at keys[i * key_prime_stride + j * key_digit_stride
+// + c * n + x], so the stored [digit, prime, 2, n] keys are read in place.
+// The digits go through one working row in turn; the two sums live in shared
+// memory (3 * 32 KB at n = 8192).  Mod-add is exact, so the sequential sum
+// equals the reference's add tree bit for bit.  out: [k, 2, n].
+__global__ void __launch_bounds__(1024)
+keyswitch_kernel(const uint32_t* __restrict__ d, const uint32_t* __restrict__ keys,
+                 long long key_prime_stride, long long key_digit_stride,
+                 uint32_t* __restrict__ out, const uint32_t* __restrict__ p,
+                 const uint32_t* __restrict__ mu, const uint32_t* __restrict__ psi,
+                 const uint32_t* __restrict__ psi_sh, const uint32_t* __restrict__ ipsi,
+                 const uint32_t* __restrict__ ipsi_sh,
+                 const uint32_t* __restrict__ n_inv,
+                 const uint32_t* __restrict__ n_inv_sh, int kd, int logn) {
+  extern __shared__ uint32_t sm[];
+  const int n = 1 << logn;
+  uint32_t* a = sm;
+  uint32_t* acc = sm + n;
+  const int i = blockIdx.x;
+  const uint32_t pi = p[i];
+  const uint32_t mui = mu[i];
+  const size_t tab = static_cast<size_t>(i) * n;
+  for (int j = 0; j < kd; ++j) {
+    for (int x = threadIdx.x; x < n; x += blockDim.x)
+      a[x] = fhe::reduce_barrett(d[static_cast<size_t>(j) * n + x], pi, mui);
+    __syncthreads();
+    fhe::fwd_ntt_smem(a, logn, pi, psi + tab, psi_sh + tab);
+    const uint32_t* key = keys + i * key_prime_stride + j * key_digit_stride;
+    for (int x = threadIdx.x; x < n; x += blockDim.x) {
+      const uint32_t t0 = fhe::mul_barrett(a[x], key[x], pi, mui);
+      const uint32_t t1 = fhe::mul_barrett(a[x], key[n + x], pi, mui);
+      acc[x] = j == 0 ? t0 : fhe::add_mod(acc[x], t0, pi);
+      acc[n + x] = j == 0 ? t1 : fhe::add_mod(acc[n + x], t1, pi);
+    }
+    __syncthreads();
+  }
+  fhe::inv_ntt_smem<2>(acc, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i]);
+  for (int x = threadIdx.x; x < 2 * n; x += blockDim.x) out[2 * tab + x] = acc[x];
 }
 
 }  // namespace
@@ -136,7 +222,8 @@ int fhe_ntt_inverse(const void* x, void* y, const void* p, const void* ipsi,
   return static_cast<int>(cudaGetLastError());
 }
 
-int fhe_mul_by_ntt_operand(const void* u, const void* w, void* out, const void* p,
+int fhe_mul_by_ntt_operand(const void* u, long long u_stride, const void* w, void* out,
+                           const void* p,
                            const void* mu, const void* psi, const void* psi_sh,
                            const void* ipsi, const void* ipsi_sh, const void* n_inv,
                            const void* n_inv_sh, int k, int num_c, int logn,
@@ -148,12 +235,54 @@ int fhe_mul_by_ntt_operand(const void* u, const void* w, void* out, const void* 
   if (err != cudaSuccess) return static_cast<int>(err);
   mul_by_ntt_operand_kernel<<<k, fhe::ntt_threads(logn), smem,
                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(u), static_cast<const uint32_t*>(w),
+      static_cast<const uint32_t*>(u), u_stride, static_cast<const uint32_t*>(w),
       static_cast<uint32_t*>(out), static_cast<const uint32_t*>(p),
       static_cast<const uint32_t*>(mu), static_cast<const uint32_t*>(psi),
       static_cast<const uint32_t*>(psi_sh), static_cast<const uint32_t*>(ipsi),
       static_cast<const uint32_t*>(ipsi_sh), static_cast<const uint32_t*>(n_inv),
       static_cast<const uint32_t*>(n_inv_sh), num_c, logn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fhe_tensor_product(const void* x, const void* y, void* out, const void* p,
+                       const void* mu, const void* psi, const void* psi_sh,
+                       const void* ipsi, const void* ipsi_sh, const void* n_inv,
+                       const void* n_inv_sh, int k, int logn, void* stream) {
+  const size_t smem = 4 * (sizeof(uint32_t) << logn);
+  static std::atomic<size_t> granted[fhe::kMaxDevices];
+  cudaError_t err = fhe::allow_smem(
+      reinterpret_cast<const void*>(tensor_product_kernel), smem, granted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tensor_product_kernel<<<k, fhe::ntt_threads(logn), smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(y),
+      static_cast<uint32_t*>(out), static_cast<const uint32_t*>(p),
+      static_cast<const uint32_t*>(mu), static_cast<const uint32_t*>(psi),
+      static_cast<const uint32_t*>(psi_sh), static_cast<const uint32_t*>(ipsi),
+      static_cast<const uint32_t*>(ipsi_sh), static_cast<const uint32_t*>(n_inv),
+      static_cast<const uint32_t*>(n_inv_sh), logn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fhe_keyswitch(const void* d, const void* keys, long long key_prime_stride,
+                  long long key_digit_stride, void* out, const void* p, const void* mu,
+                  const void* psi, const void* psi_sh, const void* ipsi,
+                  const void* ipsi_sh, const void* n_inv, const void* n_inv_sh, int k,
+                  int kd, int logn, void* stream) {
+  const size_t smem = 3 * (sizeof(uint32_t) << logn);
+  static std::atomic<size_t> granted[fhe::kMaxDevices];
+  cudaError_t err = fhe::allow_smem(
+      reinterpret_cast<const void*>(keyswitch_kernel), smem, granted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  keyswitch_kernel<<<k, fhe::ntt_threads(logn), smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(d), static_cast<const uint32_t*>(keys),
+      key_prime_stride, key_digit_stride, static_cast<uint32_t*>(out),
+      static_cast<const uint32_t*>(p), static_cast<const uint32_t*>(mu),
+      static_cast<const uint32_t*>(psi), static_cast<const uint32_t*>(psi_sh),
+      static_cast<const uint32_t*>(ipsi), static_cast<const uint32_t*>(ipsi_sh),
+      static_cast<const uint32_t*>(n_inv), static_cast<const uint32_t*>(n_inv_sh), kd,
+      logn);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,202 @@
+// BEHZ base-conversion kernels of the ciphertext multiply for Hopper (sm_90a).
+//
+// Replaces fhe_tpu/ops/rns_pallas.py: bsk_branch_fused (body
+// _bsk_branch_kernel) and fast_bconv_sk_fused (body _sk_kernel).  Plain
+// versions: fhe_tpu_torch/ops/rns.py (bsk_branch_fused, fast_bconv_sk).
+//
+// bsk_branch_fused, block j per Bsk prime c_j (shared memory: 4 * 32 KB at
+// n = 8192):
+//   1. SmMRq lift of the four rows a0, a1, b0, b1 from q into c_j: digits
+//      y_i = [x_i * m~ * (q/q_i)^-1]_{q_i}, conv = sum_i y_i * (q/q_i) mod c_j
+//      and the m~ = 2^16 lane sum_i (y_i & 0xFFFF) * (q/q_i) mod 2^16; alpha =
+//      lane * q^-1 mod 2^16, centred; lift = (conv - alpha*q) * m~^-1 mod c_j;
+//   2. forward NTT of the four rows, tensor product, inverse NTT of three
+//      rows with t * n^-1 (the Bsk half of the multiply's tables);
+//   3. FastFloor: (tx_bsk - conv(tx_q)) * q^-1 mod c_j, with tx_q [k, 3, n]
+//      the t-scaled q-side product, its digits converted to c_j.
+// The lift and the Bsk product never leave shared memory.  The TPU grid ran
+// the Bsk primes in order on one core; here they are kb independent blocks.
+//
+// fast_bconv_sk_fused: exact Shenoy-Kumaresan conversion Bsk -> q.  It is
+// elementwise over coefficients with a sum over the kb - 1 aux rows, so one
+// thread per output element (q prime, row, coefficient) recomputes the aux
+// digits it needs; no shared memory.
+//
+// Every digit y_i is a residue mod its own source prime and may exceed the
+// destination prime (m_sk and several aux primes are below some q_i), so
+// every product with a digit is a Shoup multiply, exact for any x < 2^32;
+// mul_barrett only ever sees reduced operands.  The m~ lane is arithmetic
+// mod 2^16 in uint32 with a mask: (2^16 - 1)^2 + 2^16 < 2^32.
+//
+// What bounds them on the H100.  bsk_branch_fused at n = 8192, k = 3,
+// kb = 5 reads 7 * 96 KB of residues and 5 * 128 KB of tables and writes
+// 480 KB: about 0.5 us by memory rate, and about 10 M integer instructions
+// per block, 49 M in all: about 3 us at the whole card's issue rate.  It
+// runs on 5 blocks, one per SM, so what bounds it is the issue rate of
+// those 5 SMs (about half of it is reached; times: PERF.md).
+// fast_bconv_sk_fused moves 480 KB + 288 KB and runs 74 K threads: it is
+// bound by launch latency.
+
+#include <cuda_runtime.h>
+
+#include <atomic>
+#include <cstdint>
+
+#include "modmath.cuh"
+
+namespace {
+
+constexpr uint32_t kMask16 = 0xFFFFu;
+
+// ab: [k, 4, n] (a0, a1, b0, b1 in q), txq: [k, 3, n], out: [kb, 3, n].
+// Per-prime constant arrays follow ops/rns.py (SmMRqConsts, FastFloorConsts);
+// [kb, k] tables are row-major by destination prime.
+__global__ void __launch_bounds__(1024)
+bsk_branch_kernel(const uint32_t* __restrict__ ab, const uint32_t* __restrict__ txq,
+                  uint32_t* __restrict__ out, const uint32_t* __restrict__ q,
+                  const uint32_t* __restrict__ mt_inv_phat,
+                  const uint32_t* __restrict__ mt_inv_phat_sh,
+                  const uint32_t* __restrict__ lift_phat,
+                  const uint32_t* __restrict__ lift_phat_sh,
+                  const uint32_t* __restrict__ phat_mt,
+                  const uint32_t* __restrict__ q_mod_c,
+                  const uint32_t* __restrict__ q_mod_c_sh,
+                  const uint32_t* __restrict__ inv_mt_c,
+                  const uint32_t* __restrict__ inv_mt_c_sh, uint32_t inv_q_mt,
+                  const uint32_t* __restrict__ floor_inv_phat,
+                  const uint32_t* __restrict__ floor_inv_phat_sh,
+                  const uint32_t* __restrict__ floor_phat,
+                  const uint32_t* __restrict__ floor_phat_sh,
+                  const uint32_t* __restrict__ inv_q_c,
+                  const uint32_t* __restrict__ inv_q_c_sh,
+                  const uint32_t* __restrict__ cp, const uint32_t* __restrict__ mu,
+                  const uint32_t* __restrict__ psi, const uint32_t* __restrict__ psi_sh,
+                  const uint32_t* __restrict__ ipsi,
+                  const uint32_t* __restrict__ ipsi_sh,
+                  const uint32_t* __restrict__ n_inv,
+                  const uint32_t* __restrict__ n_inv_sh, int k, int logn) {
+  extern __shared__ uint32_t sm[];
+  const int n = 1 << logn;
+  const int j = blockIdx.x;
+  const uint32_t c = cp[j];
+  const size_t tab = static_cast<size_t>(j) * n;
+  // 1. SmMRq lift of the four rows into c_j
+  const uint32_t qc = q_mod_c[j], qc_sh = q_mod_c_sh[j];
+  const uint32_t imt = inv_mt_c[j], imt_sh = inv_mt_c_sh[j];
+  for (int e = threadIdx.x; e < 4 * n; e += blockDim.x) {
+    uint32_t conv = 0, lane = 0;
+    for (int i = 0; i < k; ++i) {
+      const uint32_t y = fhe::mul_shoup(ab[static_cast<size_t>(i) * 4 * n + e],
+                                        mt_inv_phat[i], mt_inv_phat_sh[i], q[i]);
+      conv = fhe::add_mod(conv, fhe::mul_shoup(y, lift_phat[j * k + i],
+                                               lift_phat_sh[j * k + i], c), c);
+      lane = (lane + (y & kMask16) * phat_mt[i]) & kMask16;
+    }
+    const uint32_t alpha = (lane * inv_q_mt) & kMask16;
+    const uint32_t alpha_c = alpha < (1u << 15) ? alpha : c - ((1u << 16) - alpha);
+    const uint32_t centred = fhe::sub_mod(conv, fhe::mul_shoup(alpha_c, qc, qc_sh, c), c);
+    sm[e] = fhe::mul_shoup(centred, imt, imt_sh, c);
+  }
+  __syncthreads();
+  // 2. tensor product at c_j, t folded into the inverse normalisation
+  fhe::fwd_ntt_smem<4>(sm, logn, c, psi + tab, psi_sh + tab);
+  fhe::tensor_product_smem(sm, logn, c, mu[j]);
+  fhe::inv_ntt_smem<3>(sm, logn, c, ipsi + tab, ipsi_sh + tab, n_inv[j], n_inv_sh[j]);
+  // 3. FastFloor against the q-side product
+  const uint32_t iq = inv_q_c[j], iq_sh = inv_q_c_sh[j];
+  for (int e = threadIdx.x; e < 3 * n; e += blockDim.x) {
+    uint32_t conv = 0;
+    for (int i = 0; i < k; ++i) {
+      const uint32_t y = fhe::mul_shoup(txq[static_cast<size_t>(i) * 3 * n + e],
+                                        floor_inv_phat[i], floor_inv_phat_sh[i], q[i]);
+      conv = fhe::add_mod(conv, fhe::mul_shoup(y, floor_phat[j * k + i],
+                                               floor_phat_sh[j * k + i], c), c);
+    }
+    out[3 * tab + e] = fhe::mul_shoup(fhe::sub_mod(sm[e], conv, c), iq, iq_sh, c);
+  }
+}
+
+// x: [l + 1, count] (aux rows, then the m_sk row), out: [k, count] in q.
+// Thread (j, e) computes out[j, e].
+__global__ void __launch_bounds__(256)
+fast_bconv_sk_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                     const uint32_t* __restrict__ aux,
+                     const uint32_t* __restrict__ inv_phat,
+                     const uint32_t* __restrict__ inv_phat_sh,
+                     const uint32_t* __restrict__ phat_q,
+                     const uint32_t* __restrict__ phat_q_sh,
+                     const uint32_t* __restrict__ phat_sk,
+                     const uint32_t* __restrict__ phat_sk_sh,
+                     const uint32_t* __restrict__ q, const uint32_t* __restrict__ b_mod_q,
+                     const uint32_t* __restrict__ b_mod_q_sh, uint32_t m_sk,
+                     uint32_t inv_b, uint32_t inv_b_sh, int l, int k, long long count) {
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= k * count) return;
+  const int j = static_cast<int>(idx / count);
+  const long long e = idx - j * count;
+  const uint32_t qj = q[j];
+  uint32_t conv_q = 0, conv_sk = 0;
+  for (int i = 0; i < l; ++i) {
+    const uint32_t y = fhe::mul_shoup(x[i * count + e], inv_phat[i], inv_phat_sh[i], aux[i]);
+    conv_q = fhe::add_mod(conv_q, fhe::mul_shoup(y, phat_q[j * l + i],
+                                                 phat_q_sh[j * l + i], qj), qj);
+    conv_sk = fhe::add_mod(conv_sk, fhe::mul_shoup(y, phat_sk[i], phat_sk_sh[i], m_sk),
+                           m_sk);
+  }
+  const uint32_t alpha =
+      fhe::mul_shoup(fhe::sub_mod(conv_sk, x[l * count + e], m_sk), inv_b, inv_b_sh, m_sk);
+  // centred alpha mod q_j: alpha itself, or q_j - (m_sk - alpha) when negative
+  const uint32_t alpha_q = alpha <= (m_sk >> 1) ? alpha : qj - (m_sk - alpha);
+  out[idx] = fhe::sub_mod(conv_q, fhe::mul_shoup(alpha_q, b_mod_q[j], b_mod_q_sh[j], qj),
+                          qj);
+}
+
+}  // namespace
+
+extern "C" {
+
+int fhe_bsk_branch(const void* ab, const void* txq, void* out, const void* q,
+                   const void* mt_inv_phat, const void* mt_inv_phat_sh,
+                   const void* lift_phat, const void* lift_phat_sh, const void* phat_mt,
+                   const void* q_mod_c, const void* q_mod_c_sh, const void* inv_mt_c,
+                   const void* inv_mt_c_sh, uint32_t inv_q_mt, const void* floor_inv_phat,
+                   const void* floor_inv_phat_sh, const void* floor_phat,
+                   const void* floor_phat_sh, const void* inv_q_c, const void* inv_q_c_sh,
+                   const void* cp, const void* mu, const void* psi, const void* psi_sh,
+                   const void* ipsi, const void* ipsi_sh, const void* n_inv,
+                   const void* n_inv_sh, int k, int kb, int logn, void* stream) {
+  const size_t smem = 4 * (sizeof(uint32_t) << logn);
+  static std::atomic<size_t> granted[fhe::kMaxDevices];
+  const cudaError_t err = fhe::allow_smem(
+      reinterpret_cast<const void*>(bsk_branch_kernel), smem, granted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  bsk_branch_kernel<<<kb, fhe::ntt_threads(logn), smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      u(ab), u(txq), static_cast<uint32_t*>(out), u(q), u(mt_inv_phat),
+      u(mt_inv_phat_sh), u(lift_phat), u(lift_phat_sh), u(phat_mt), u(q_mod_c),
+      u(q_mod_c_sh), u(inv_mt_c), u(inv_mt_c_sh), inv_q_mt, u(floor_inv_phat),
+      u(floor_inv_phat_sh), u(floor_phat), u(floor_phat_sh), u(inv_q_c), u(inv_q_c_sh),
+      u(cp), u(mu), u(psi), u(psi_sh), u(ipsi), u(ipsi_sh), u(n_inv), u(n_inv_sh), k,
+      logn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fhe_fast_bconv_sk(const void* x, void* out, const void* aux, const void* inv_phat,
+                      const void* inv_phat_sh, const void* phat_q, const void* phat_q_sh,
+                      const void* phat_sk, const void* phat_sk_sh, const void* q,
+                      const void* b_mod_q, const void* b_mod_q_sh, uint32_t m_sk,
+                      uint32_t inv_b, uint32_t inv_b_sh, int l, int k, long long count,
+                      void* stream) {
+  constexpr int kThreads = 256;
+  const long long total = k * count;
+  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  fast_bconv_sk_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      u(x), static_cast<uint32_t*>(out), u(aux), u(inv_phat), u(inv_phat_sh), u(phat_q),
+      u(phat_q_sh), u(phat_sk), u(phat_sk_sh), u(q), u(b_mod_q), u(b_mod_q_sh), m_sk,
+      inv_b, inv_b_sh, l, k, count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

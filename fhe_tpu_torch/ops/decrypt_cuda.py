@@ -18,7 +18,8 @@ from . import modmath as mm
 from . import ntt as _ntt
 from . import rns as _rns
 from .ntt import NTTTables
-from .ntt_cuda import MAX_SMEM, check_residues, log2_exact, on_card
+from .ntt_cuda import (check_barrett, check_residues, check_smem, log2_exact,
+                       on_card, table_ptrs)
 
 _P = ctypes.c_void_p
 _U = ctypes.c_uint32
@@ -65,18 +66,15 @@ def decrypt_fused(c0: torch.Tensor, c1: torch.Tensor, s_ntt: torch.Tensor,
         raise ValueError("decrypt_fused: constants do not match the tables")
     if not on_card(c0, "decrypt_fused"):
         return decrypt_fused_plain(c0, c1, s_ntt, tb, dc)
-    if not all((1 << 29) < q < (1 << 30) for q in tb.primes):
-        raise ValueError("decrypt_fused: needs 30-bit primes (Barrett)")
+    check_barrett(tb, "decrypt_fused")
     k, batch, n = c0.shape
-    if 3 * 4 * n > MAX_SMEM:
-        raise ValueError(f"decrypt_fused: n={n} does not fit shared memory")
+    check_smem(n, 3, "decrypt_fused")
     out = torch.empty((batch, n), dtype=torch.int32, device=c0.device)
     p = _build.ptr
     _build.launch(
         _lib().fhe_decrypt_fused, "decrypt_fused", c0.device,
-        p(c0), p(c1), c0.stride(0), c0.stride(1), p(s_ntt), p(out), p(tb.p),
-        p(tb.mu), p(tb.psi_br), p(tb.psi_br_shoup), p(tb.ipsi_br), p(tb.ipsi_br_shoup), p(tb.n_inv),
-        p(tb.n_inv_shoup), p(dc.gt_inv_phat), p(dc.gt_inv_phat_shoup),
+        p(c0), p(c1), c0.stride(0), c0.stride(1), p(s_ntt), p(out),
+        *table_ptrs(tb), p(dc.gt_inv_phat), p(dc.gt_inv_phat_shoup),
         p(dc.phat_mod_t), p(dc.phat_shoup_t), p(dc.phat_mod_g),
         dc.t, dc.gamma, dc.gamma_mu, dc.neg_inv_q_t, dc.neg_inv_q_t_shoup,
         dc.neg_inv_q_g, dc.inv_gamma_t, dc.inv_gamma_t_shoup, dc.gamma_mod_t,

@@ -100,6 +100,24 @@ def build_tables(n: int, primes_list, device="cuda") -> NTTTables:
                      primes=primes)
 
 
+def build_mul_tables(q_tables: NTTTables, bsk_tables: NTTTables,
+                     t: int) -> tuple[NTTTables, NTTTables]:
+    """(q-base, Bsk-base) tables for the multiply's tensor products, with
+    the scale by t folded into the inverse normalisation: n_inv is
+    t * n^-1 mod p (and its Shoup companion), so the inverse transform
+    emits t * INTT(...) at no cost.  The twiddle tensors are the given
+    tables' own.  Counterpart of ``fhe_tpu.ops.ntt_pallas.build_mul_tables``
+    at level 0 (all q primes; all Bsk primes, m_sk last)."""
+
+    def scaled(tb: NTTTables) -> NTTTables:
+        t_ninv = [t * pow(tb.n, -1, p) % p for p in tb.primes]
+        return dataclasses.replace(
+            tb, n_inv=mm.u32_tensor(np.array(t_ninv, dtype=np.uint32), tb.device),
+            n_inv_shoup=mm.u32_tensor(mm.shoup_array(t_ninv, tb.primes), tb.device))
+
+    return scaled(q_tables), scaled(bsk_tables)
+
+
 def _p(tb: NTTTables, ndim: int) -> torch.Tensor:
     """[k, 1, ...] int64 prime broadcast for an ndim-dimensional tensor."""
     return tb.p.to(torch.int64).view(-1, *([1] * (ndim - 1)))
@@ -110,7 +128,7 @@ def ntt_forward(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
     bit-reversed order."""
     k, b, n = a.shape
     p = _p(tb, 4)
-    x = a.to(torch.int64)
+    x = a.to(torch.int64).contiguous()
     m = 1
     while m < n:
         t = n // (2 * m)
@@ -128,7 +146,7 @@ def ntt_inverse(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
     """Inverse negacyclic NTT, bit-reversed -> natural order, times n^-1."""
     k, b, n = a.shape
     p = _p(tb, 4)
-    x = a.to(torch.int64)
+    x = a.to(torch.int64).contiguous()
     m = n // 2
     while m >= 1:
         t = n // (2 * m)
@@ -155,3 +173,31 @@ def mul_by_ntt_operand(u: torch.Tensor, w_ntt: torch.Tensor,
     c rows of a [k, c, n] NTT-form operand; returns [k, c, n]."""
     return ntt_inverse(pointwise_mul(ntt_forward(u, tb).expand_as(w_ntt),
                                      w_ntt, tb), tb)
+
+
+def tensor_product(x: torch.Tensor, y: torch.Tensor,
+                   tb: NTTTables) -> torch.Tensor:
+    """(c0, c1, c2) = (x0*y0, x0*y1 + x1*y0, x1*y1) of two [k, 2, n]
+    coefficient-domain ciphertext halves, negacyclic; returns [k, 3, n].
+    With the multiply's tables (``build_mul_tables``) the result is t times
+    the product."""
+    f = ntt_forward(torch.cat([x, y], dim=1), tb)
+    a0, a1, b0, b1 = f[:, 0:1], f[:, 1:2], f[:, 2:3], f[:, 3:4]
+    c1 = mm.add_mod(pointwise_mul(a0, b1, tb), pointwise_mul(a1, b0, tb),
+                    _p(tb, 3))
+    return ntt_inverse(torch.cat([pointwise_mul(a0, b0, tb), c1,
+                                  pointwise_mul(a1, b1, tb)], dim=1), tb)
+
+
+def keyswitch_fused(d: torch.Tensor, keys_t: torch.Tensor,
+                    tb: NTTTables) -> torch.Tensor:
+    """INTT(sum_j NTT([d_j]_{p_i}) ⊙ key[i, j, c]) for c = 0, 1: d a [kd, n]
+    stack of gadget digits (digit j a residue mod its own q_j), keys_t the
+    [k, kd, 2, n] NTT-form key material, prime-major.  Returns the [k, 2, n]
+    coefficient-domain key-switch correction."""
+    k, kd, _, n = keys_t.shape
+    dr = torch.remainder(d.to(torch.int64)[None], _p(tb, 3)).to(torch.int32)
+    f = ntt_forward(dr, tb)                                   # [k, kd, n]
+    prod = mm.mul_mod(f[:, :, None], keys_t, _p(tb, 4))       # [k, kd, 2, n]
+    acc = torch.remainder(prod.to(torch.int64).sum(1), _p(tb, 3))
+    return ntt_inverse(acc.to(torch.int32), tb)

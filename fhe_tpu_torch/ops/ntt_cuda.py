@@ -1,10 +1,11 @@
 """NTT kernel wrappers — counterpart of ``fhe_tpu/ops/ntt_pallas.py``.
 
-``ntt_forward``, ``ntt_inverse`` and ``mul_by_ntt_operand`` launch the
-hand-written CUDA kernels of ``csrc/ntt.cu`` (design and bound: the note at
-the top of that file) for CUDA tensors and use the plain PyTorch versions of
-``ops/ntt.py`` for CPU tensors; any other device raises.  Each wrapper counts
-its kernel launches in ``<wrapper>.launches``.
+``ntt_forward``, ``ntt_inverse``, ``mul_by_ntt_operand``, ``tensor_product``
+and ``keyswitch_fused`` launch the hand-written CUDA kernels of
+``csrc/ntt.cu`` (design and bound: the note at the top of that file) for
+CUDA tensors and use the plain PyTorch versions of ``ops/ntt.py`` for CPU
+tensors; any other device raises.  Each wrapper counts its kernel launches
+in ``<wrapper>.launches``.
 
 Residues are int32 ``[k, batch, n]`` tensors; the kernels read the same bits
 as uint32.
@@ -23,6 +24,7 @@ from .ntt import NTTTables
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 # the kernel keeps a polynomial (or two, for mul_by_ntt_operand) in shared
 # memory; a block may use at most 227 KB of it on Hopper
@@ -34,9 +36,13 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ntt")
     lib.fhe_ntt_forward.argtypes = [_P] * 5 + [_I] * 3 + [_P]
     lib.fhe_ntt_inverse.argtypes = [_P] * 7 + [_I] * 3 + [_P]
-    lib.fhe_mul_by_ntt_operand.argtypes = [_P] * 11 + [_I] * 3 + [_P]
+    lib.fhe_mul_by_ntt_operand.argtypes = ([_P, _L] + [_P] * 10 + [_I] * 3
+                                           + [_P])
+    lib.fhe_tensor_product.argtypes = [_P] * 11 + [_I] * 2 + [_P]
+    lib.fhe_keyswitch.argtypes = [_P] * 2 + [_L] * 2 + [_P] * 9 + [_I] * 3 + [_P]
     for f in (lib.fhe_ntt_forward, lib.fhe_ntt_inverse,
-              lib.fhe_mul_by_ntt_operand):
+              lib.fhe_mul_by_ntt_operand, lib.fhe_tensor_product,
+              lib.fhe_keyswitch):
         f.restype = ctypes.c_int
     return lib
 
@@ -74,10 +80,28 @@ def on_card(x: torch.Tensor, name: str) -> bool:
     raise ValueError(f"{name}: unsupported device {x.device}")
 
 
-def _check_smem(n: int, polys: int, name: str) -> None:
+def check_smem(n: int, polys: int, name: str) -> None:
+    """Raise unless ``polys`` polynomials of n residues fit one block's
+    shared memory."""
     if polys * 4 * n > MAX_SMEM:
         raise ValueError(f"{name}: n={n} needs {polys * 4 * n} bytes of shared "
                          f"memory per block, more than {MAX_SMEM}")
+
+
+def check_barrett(tb: NTTTables, name: str) -> None:
+    """Raise unless every prime of tb is a 30-bit prime (mu != 0), as the
+    kernels' Barrett products need."""
+    if not all((1 << 29) < q < (1 << 30) for q in tb.primes):
+        raise ValueError(f"{name}: needs 30-bit primes (Barrett)")
+
+
+def table_ptrs(tb: NTTTables) -> list:
+    """Pointers to the primes, Barrett constants, twiddles and inverse
+    normalisation, in the order the forward-and-inverse kernels of csrc/
+    take them."""
+    return [_build.ptr(getattr(tb, f)) for f in (
+        "p", "mu", "psi_br", "psi_br_shoup", "ipsi_br", "ipsi_br_shoup",
+        "n_inv", "n_inv_shoup")]
 
 
 def ntt_forward(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
@@ -86,7 +110,7 @@ def ntt_forward(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
     if not on_card(a, "ntt_forward"):
         return _ntt.ntt_forward(a, tb)
     k, batch, n = a.shape
-    _check_smem(n, 1, "ntt_forward")
+    check_smem(n, 1, "ntt_forward")
     out = torch.empty_like(a)
     p = _build.ptr
     _build.launch(_lib().fhe_ntt_forward, "ntt_forward", a.device,
@@ -105,7 +129,7 @@ def ntt_inverse(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
     if not on_card(a, "ntt_inverse"):
         return _ntt.ntt_inverse(a, tb)
     k, batch, n = a.shape
-    _check_smem(n, 1, "ntt_inverse")
+    check_smem(n, 1, "ntt_inverse")
     out = torch.empty_like(a)
     p = _build.ptr
     _build.launch(_lib().fhe_ntt_inverse, "ntt_inverse", a.device,
@@ -122,28 +146,92 @@ def mul_by_ntt_operand(u: torch.Tensor, w_ntt: torch.Tensor,
                        tb: NTTTables) -> torch.Tensor:
     """INTT(NTT(u) ⊙ w_c): u a [k, 1, n] coefficient-domain polynomial, w_ntt
     a [k, c, n] NTT-form operand (the public key in encrypt); returns
-    [k, c, n].  The pointwise product is a Barrett multiply, so every prime
-    of tb must be a 30-bit prime (mu != 0)."""
-    check_residues(u, tb, "mul_by_ntt_operand")
+    [k, c, n].  u may be a view whose rows of n are contiguous (one
+    component of a ciphertext: the kernel reads it in place).  The pointwise
+    product is a Barrett multiply, so every prime of tb must be a 30-bit
+    prime (mu != 0)."""
+    check_residues(u, tb, "mul_by_ntt_operand", strided=True)
     check_residues(w_ntt, tb, "mul_by_ntt_operand")
     if u.shape[1] != 1:
         raise ValueError(f"mul_by_ntt_operand: u must be [k, 1, n], got "
                          f"{list(u.shape)}")
     if not on_card(u, "mul_by_ntt_operand"):
         return _ntt.mul_by_ntt_operand(u, w_ntt, tb)
-    if not all((1 << 29) < q < (1 << 30) for q in tb.primes):
-        raise ValueError("mul_by_ntt_operand: needs 30-bit primes (Barrett)")
+    check_barrett(tb, "mul_by_ntt_operand")
     k, c, n = w_ntt.shape
-    _check_smem(n, 2, "mul_by_ntt_operand")
+    check_smem(n, 2, "mul_by_ntt_operand")
     out = torch.empty_like(w_ntt)
     p = _build.ptr
     _build.launch(_lib().fhe_mul_by_ntt_operand, "mul_by_ntt_operand",
-                  u.device, p(u), p(w_ntt), p(out), p(tb.p), p(tb.mu),
-                  p(tb.psi_br), p(tb.psi_br_shoup), p(tb.ipsi_br),
-                  p(tb.ipsi_br_shoup), p(tb.n_inv), p(tb.n_inv_shoup), k, c,
-                  log2_exact(n))
+                  u.device, p(u), u.stride(0), p(w_ntt), p(out), *table_ptrs(tb),
+                  k, c, log2_exact(n))
     mul_by_ntt_operand.launches += 1
     return out
 
 
 mul_by_ntt_operand.launches = 0
+
+
+def tensor_product(x: torch.Tensor, y: torch.Tensor,
+                   tb: NTTTables) -> torch.Tensor:
+    """(x0*y0, x0*y1 + x1*y0, x1*y1) of two [k, 2, n] coefficient-domain
+    ciphertext halves; returns [k, 3, n].  With the multiply's tables
+    (``ntt.build_mul_tables``) the result is t times the product.  One block
+    per prime holds all four rows in shared memory, so n <= 8192 on Hopper;
+    every prime must be a 30-bit prime (Barrett)."""
+    check_residues(x, tb, "tensor_product")
+    check_residues(y, tb, "tensor_product")
+    if x.shape[1] != 2 or y.shape != x.shape:
+        raise ValueError(f"tensor_product: x {list(x.shape)}, y "
+                         f"{list(y.shape)}; expected two [k, 2, n]")
+    if not on_card(x, "tensor_product"):
+        return _ntt.tensor_product(x, y, tb)
+    check_barrett(tb, "tensor_product")
+    k, _, n = x.shape
+    check_smem(n, 4, "tensor_product")
+    out = torch.empty((k, 3, n), dtype=torch.int32, device=x.device)
+    p = _build.ptr
+    _build.launch(_lib().fhe_tensor_product, "tensor_product", x.device,
+                  p(x), p(y), p(out), *table_ptrs(tb), k, log2_exact(n))
+    tensor_product.launches += 1
+    return out
+
+
+tensor_product.launches = 0
+
+
+def keyswitch_fused(d: torch.Tensor, keys_t: torch.Tensor,
+                    tb: NTTTables) -> torch.Tensor:
+    """Key-switch correction INTT(sum_j NTT([d_j]_{p_i}) ⊙ key[i, j, c]),
+    c = 0, 1: d the [kd, n] gadget digits (digit j a residue mod its own
+    q_j), keys_t the [k, kd, 2, n] NTT-form keys, prime-major.  keys_t may
+    be a view with its last two dimensions contiguous (the stored
+    [digit, prime, 2, n] keys permuted): the kernel reads it in place.
+    Returns [k, 2, n]; every prime must be a 30-bit prime (Barrett)."""
+    if d.dtype != torch.int32 or keys_t.dtype != torch.int32:
+        raise TypeError("keyswitch_fused: expected int32 residues")
+    k, kd, n = tb.k, d.shape[0], tb.n
+    if d.shape != (kd, n) or keys_t.shape != (k, kd, 2, n):
+        raise ValueError(f"keyswitch_fused: d {list(d.shape)}, keys "
+                         f"{list(keys_t.shape)}; expected [kd, {n}] and "
+                         f"[{k}, kd, 2, {n}]")
+    if not d.is_contiguous() or keys_t.stride()[2:] != (n, 1):
+        raise ValueError("keyswitch_fused: d must be contiguous and each "
+                         "key's [2, n] block contiguous")
+    if d.device != tb.device or keys_t.device != tb.device:
+        raise ValueError("keyswitch_fused: tensors and tables on different "
+                         "devices")
+    if not on_card(d, "keyswitch_fused"):
+        return _ntt.keyswitch_fused(d, keys_t, tb)
+    check_barrett(tb, "keyswitch_fused")
+    check_smem(n, 3, "keyswitch_fused")
+    out = torch.empty((k, 2, n), dtype=torch.int32, device=d.device)
+    p = _build.ptr
+    _build.launch(_lib().fhe_keyswitch, "keyswitch_fused", d.device,
+                  p(d), p(keys_t), keys_t.stride(0), keys_t.stride(1), p(out),
+                  *table_ptrs(tb), k, kd, log2_exact(n))
+    keyswitch_fused.launches += 1
+    return out
+
+
+keyswitch_fused.launches = 0

@@ -1,10 +1,21 @@
-"""Exact RNS decryption scaling — the decrypt part of ``fhe_tpu/ops/rns.py``.
+"""RNS / CRT layer — counterpart of ``fhe_tpu/ops/rns.py``.
 
-m = round(t * x / q) mod t for the phase x = c0 + c1*s given by its residues,
-all-integer through the gamma trick: the digits of [gamma*t*x]_q are summed
-into a t lane and a gamma lane, and the centred gamma lane corrects the t
-lane's rounding.  Bit-exact with ``fhe_tpu.ops.rns.decrypt_scale`` for any
-valid t (the JAX package's t = 65537 Fermat lane gives the same bits).
+Base conversions and exact rounded scalings, all-integer (BEHZ):
+
+* fast base conversion q -> C (adds alpha*q, alpha < k);
+* SmMRq: the exact centred lift q -> Bsk through the m~ = 2^16 lane;
+* FastFloor: floor(t*x/q) - alpha in Bsk;
+* FastBConvSK: the exact Shenoy-Kumaresan conversion Bsk -> q;
+* decryption: m = round(t * x / q) mod t for the phase x = c0 + c1*s,
+  through the gamma trick: the digits of [gamma*t*x]_q are summed into a t
+  lane and a gamma lane, and the centred gamma lane corrects the t lane's
+  rounding.
+
+Each is bit-exact with its ``fhe_tpu.ops.rns`` counterpart (the JAX
+package's t = 65537 Fermat decryption lane gives the same bits as the
+generic one here).  ``bsk_branch_fused`` and ``fast_bconv_sk`` are also the
+plain versions of the CUDA kernels in ``ops/rns_cuda.py``.  Residues are
+int32 tensors; products are formed in int64 and reduced with ``%``.
 """
 
 from __future__ import annotations
@@ -17,6 +28,225 @@ import numpy as np
 import torch
 
 from . import modmath as mm
+from . import ntt as _ntt
+
+_MASK16 = 0xFFFF
+
+
+def _col(v: torch.Tensor, ndim: int = 3) -> torch.Tensor:
+    """[m] constants -> [m, 1, ...] int64 for an ndim-dimensional tensor."""
+    return v.to(torch.int64).view(-1, *([1] * (ndim - 1)))
+
+
+def _consts(cls, host: dict, array_fields, device, **extra):
+    return cls(**{f: mm.u32_tensor(v, device) if f in array_fields else v
+                  for f, v in host.items()}, **extra)
+
+
+# ---------------------------------------------------------------------------
+# fast base conversion  (src base P -> dst base C, adds alpha*P, alpha < k)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BaseConvConsts:
+    p_src: torch.Tensor            # [k]
+    inv_phat: torch.Tensor         # [k]     (P/p_i)^-1 mod p_i
+    inv_phat_shoup: torch.Tensor   # [k]
+    p_dst: torch.Tensor            # [l]
+    phat_mod_dst: torch.Tensor     # [l, k]  (P/p_i) mod c_j
+    phat_shoup_dst: torch.Tensor   # [l, k]
+
+
+@functools.lru_cache(maxsize=None)
+def _base_conv_host(src: tuple[int, ...], dst: tuple[int, ...]) -> dict:
+    P = math.prod(src)
+    inv_phat = [pow(P // p, -1, p) for p in src]
+    phat = [[(P // p) % c for p in src] for c in dst]
+    return dict(
+        p_src=np.array(src, dtype=np.uint32),
+        inv_phat=np.array(inv_phat, dtype=np.uint32),
+        inv_phat_shoup=mm.shoup_array(inv_phat, src),
+        p_dst=np.array(dst, dtype=np.uint32),
+        phat_mod_dst=np.array(phat, dtype=np.uint32).reshape(len(dst), len(src)),
+        phat_shoup_dst=np.array(
+            [mm.shoup_array(row, [c] * len(src)) for row, c in zip(phat, dst)],
+            dtype=np.uint32).reshape(len(dst), len(src)),
+    )
+
+
+def make_base_conv(src_primes, dst_primes, device="cuda") -> BaseConvConsts:
+    host = _base_conv_host(tuple(int(p) for p in src_primes),
+                           tuple(int(p) for p in dst_primes))
+    return _consts(BaseConvConsts, host, host.keys(), device)
+
+
+def _accumulate(y: torch.Tensor, cc: BaseConvConsts) -> torch.Tensor:
+    """sum_i y_i * (P/p_i) mod c_j for every dst prime j: [k, B, n] digits
+    -> [l, B, n]."""
+    terms = (y.to(torch.int64)[None] * cc.phat_mod_dst.to(torch.int64)[
+        :, :, None, None]) % _col(cc.p_dst, 4)
+    return (terms.sum(1) % _col(cc.p_dst)).to(torch.int32)
+
+
+def fast_base_conv(x: torch.Tensor, cc: BaseConvConsts) -> torch.Tensor:
+    """[k, B, n] residues in the src base -> [l, B, n] residues of
+    x + alpha*P in the dst base."""
+    y = x.to(torch.int64) * _col(cc.inv_phat) % _col(cc.p_src)
+    return _accumulate(y, cc)
+
+
+# ---------------------------------------------------------------------------
+# SmMRq: exact centred lift q -> Bsk via the m~ correction
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SmMRqConsts:
+    conv: BaseConvConsts              # q -> Bsk
+    mt_times_inv_phat: torch.Tensor   # [k]  [m~ * (q/q_i)^-1]_{q_i}
+    mt_times_inv_phat_shoup: torch.Tensor
+    phat_mod_mt: torch.Tensor         # [k]  (q/q_i) mod 2^16
+    q_mod_dst: torch.Tensor           # [l]  q mod c
+    q_shoup_dst: torch.Tensor
+    inv_mt_dst: torch.Tensor          # [l]  m~^-1 mod c
+    inv_mt_shoup_dst: torch.Tensor
+    inv_q_mt: int                     # q^-1 mod 2^16
+
+
+SM_MRQ_ARRAYS = ("mt_times_inv_phat", "mt_times_inv_phat_shoup", "phat_mod_mt",
+                 "q_mod_dst", "q_shoup_dst", "inv_mt_dst", "inv_mt_shoup_dst")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_mrq_host(src: tuple[int, ...], dst: tuple[int, ...], m_tilde: int) -> dict:
+    if m_tilde != 1 << 16:
+        raise ValueError(f"SmMRq needs m_tilde = 2^16, got {m_tilde}")
+    Q = math.prod(src)
+    mt_inv_phat = [pow(Q // p, -1, p) * m_tilde % p for p in src]
+    q_mod = [Q % c for c in dst]
+    inv_mt = [pow(m_tilde, -1, c) for c in dst]
+    return dict(
+        mt_times_inv_phat=np.array(mt_inv_phat, dtype=np.uint32),
+        mt_times_inv_phat_shoup=mm.shoup_array(mt_inv_phat, src),
+        phat_mod_mt=np.array([(Q // p) % m_tilde for p in src], dtype=np.uint32),
+        q_mod_dst=np.array(q_mod, dtype=np.uint32),
+        q_shoup_dst=mm.shoup_array(q_mod, dst),
+        inv_mt_dst=np.array(inv_mt, dtype=np.uint32),
+        inv_mt_shoup_dst=mm.shoup_array(inv_mt, dst),
+        inv_q_mt=pow(Q, -1, m_tilde),
+    )
+
+
+def make_sm_mrq(src_primes, dst_primes, m_tilde: int = 1 << 16,
+                device="cuda") -> SmMRqConsts:
+    src = tuple(int(p) for p in src_primes)
+    dst = tuple(int(p) for p in dst_primes)
+    return _consts(SmMRqConsts, _sm_mrq_host(src, dst, m_tilde), SM_MRQ_ARRAYS,
+                   device, conv=make_base_conv(src, dst, device))
+
+
+def sm_mrq(x: torch.Tensor, sc: SmMRqConsts) -> torch.Tensor:
+    """Centred lift of x ([k, B, n] residues in q) into the dst base
+    [l, B, n]: the result represents x or x - q, whichever is centred."""
+    cc = sc.conv
+    y = x.to(torch.int64) * _col(sc.mt_times_inv_phat) % _col(cc.p_src)
+    conv = _accumulate(y, cc).to(torch.int64)                   # [l, B, n]
+    lane = ((y & _MASK16) * _col(sc.phat_mod_mt)).sum(0) & _MASK16
+    alpha = (lane * sc.inv_q_mt) & _MASK16                      # [B, n]
+    c = _col(cc.p_dst)
+    # centred alpha mod c: alpha < 2^15 -> alpha, else c - (2^16 - alpha)
+    alpha_c = torch.where(alpha < (1 << 15), alpha, c - ((1 << 16) - alpha))
+    centred = (conv - alpha_c * _col(sc.q_mod_dst) % c) % c
+    return (centred * _col(sc.inv_mt_dst) % c).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# FastFloor: floor(t*x/q) - alpha in the Bsk base
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FastFloorConsts:
+    conv: BaseConvConsts         # q -> Bsk
+    inv_q_dst: torch.Tensor      # [l]  q^-1 mod c
+    inv_q_shoup_dst: torch.Tensor
+
+
+def make_fast_floor(src_primes, dst_primes, device="cuda") -> FastFloorConsts:
+    src = tuple(int(p) for p in src_primes)
+    dst = tuple(int(p) for p in dst_primes)
+    inv_q = [pow(math.prod(src), -1, c) for c in dst]
+    return FastFloorConsts(
+        conv=make_base_conv(src, dst, device),
+        inv_q_dst=mm.u32_tensor(np.array(inv_q, dtype=np.uint32), device),
+        inv_q_shoup_dst=mm.u32_tensor(mm.shoup_array(inv_q, dst), device))
+
+
+def fast_floor(tx_q: torch.Tensor, tx_dst: torch.Tensor,
+               fc: FastFloorConsts) -> torch.Tensor:
+    """Residues of t*x in q ([k, B, n]) and in the dst base ([l, B, n]) ->
+    floor(t*x/q) - alpha (alpha < k) in the dst base."""
+    c = _col(fc.conv.p_dst)
+    conv = fast_base_conv(tx_q, fc.conv).to(torch.int64)
+    diff = (tx_dst.to(torch.int64) - conv) % c
+    return (diff * _col(fc.inv_q_dst) % c).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# FastBConvSK: exact signed conversion Bsk -> q (Shenoy-Kumaresan)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SKConsts:
+    conv_q: BaseConvConsts       # aux base B -> q
+    conv_sk: BaseConvConsts      # B -> {m_sk}
+    B_mod_q: torch.Tensor        # [k]
+    B_shoup_q: torch.Tensor
+    m_sk: int
+    inv_B_sk: int                # B^-1 mod m_sk
+    inv_B_sk_shoup: int
+
+
+def make_sk(aux_primes, m_sk: int, dst_primes, device="cuda") -> SKConsts:
+    aux = tuple(int(p) for p in aux_primes)
+    dst = tuple(int(p) for p in dst_primes)
+    B = math.prod(aux)
+    inv_B_sk = pow(B, -1, m_sk)
+    b_mod = [B % c for c in dst]
+    return SKConsts(
+        conv_q=make_base_conv(aux, dst, device),
+        conv_sk=make_base_conv(aux, (m_sk,), device),
+        B_mod_q=mm.u32_tensor(np.array(b_mod, dtype=np.uint32), device),
+        B_shoup_q=mm.u32_tensor(mm.shoup_array(b_mod, dst), device),
+        m_sk=int(m_sk), inv_B_sk=inv_B_sk,
+        inv_B_sk_shoup=mm.shoup_precompute(inv_B_sk, m_sk))
+
+
+def fast_bconv_sk(x_bsk: torch.Tensor, sk: SKConsts) -> torch.Tensor:
+    """x_bsk [l+1, B, n] (aux rows, then the m_sk row) -> the exact signed
+    value's [k, B, n] residues in q."""
+    x_aux, x_msk = x_bsk[:-1], x_bsk[-1].to(torch.int64)
+    conv_q = fast_base_conv(x_aux, sk.conv_q).to(torch.int64)     # [k, B, n]
+    conv_sk = fast_base_conv(x_aux, sk.conv_sk)[0].to(torch.int64)
+    msk = sk.m_sk
+    alpha = (conv_sk - x_msk) % msk * sk.inv_B_sk % msk           # [B, n]
+    c = _col(sk.conv_q.p_dst)
+    # centred alpha mod c: alpha (alpha <= m_sk/2) or c - (m_sk - alpha)
+    alpha_c = torch.where(alpha <= (msk >> 1), alpha, c - (msk - alpha))
+    return ((conv_q - alpha_c * _col(sk.B_mod_q) % c) % c).to(torch.int32)
+
+
+def bsk_branch_fused(ab: torch.Tensor, tx_q: torch.Tensor, sc: SmMRqConsts,
+                     fc: FastFloorConsts, tb_bsk: _ntt.NTTTables) -> torch.Tensor:
+    """The multiply's whole Bsk branch: SmMRq lift of ab = a || b ([k, 4, n]
+    in q), the tensor product in Bsk with the t-folded tables ``tb_bsk``,
+    then FastFloor against the t-scaled q-side product tx_q [k, 3, n].
+    Returns the floored [kb, 3, n]."""
+    lift = sm_mrq(ab, sc)
+    return fast_floor(tx_q, _ntt.tensor_product(lift[:, :2], lift[:, 2:], tb_bsk),
+                      fc)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,9 +308,7 @@ def make_decrypt(src_primes, t: int, gamma: int, device="cuda") -> DecryptConsts
         raise ValueError(
             f"decrypt_scale needs 65537 <= t < 2^29, got {t} (see params.py)")
     host = _decrypt_host(tuple(int(p) for p in src_primes), t, gamma)
-    return DecryptConsts(**{
-        f: mm.u32_tensor(v, device) if f in ARRAY_FIELDS else v
-        for f, v in host.items()})
+    return _consts(DecryptConsts, host, ARRAY_FIELDS, device)
 
 
 def decrypt_scale(x: torch.Tensor, dc: DecryptConsts) -> torch.Tensor:

@@ -1,0 +1,114 @@
+"""BEHZ conversion kernel wrappers — counterpart of ``fhe_tpu/ops/rns_pallas.py``.
+
+``bsk_branch_fused`` and ``fast_bconv_sk_fused`` launch the hand-written
+CUDA kernels of ``csrc/rns.cu`` (design and bound: the note at the top of
+that file) for CUDA tensors and use the plain PyTorch versions of
+``ops/rns.py`` (``bsk_branch_fused``, ``fast_bconv_sk``) for CPU tensors;
+any other device raises.  Each wrapper counts its kernel launches in
+``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from . import rns as _rns
+from .ntt import NTTTables
+from .ntt_cuda import check_barrett, check_smem, log2_exact, on_card, table_ptrs
+
+_P = ctypes.c_void_p
+_U = ctypes.c_uint32
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("rns")
+    lib.fhe_bsk_branch.argtypes = ([_P] * 13 + [_U] + [_P] * 14 + [_I] * 3
+                                   + [_P])
+    lib.fhe_fast_bconv_sk.argtypes = ([_P] * 12 + [_U] * 3 + [_I] * 2 + [_L]
+                                      + [_P])
+    for f in (lib.fhe_bsk_branch, lib.fhe_fast_bconv_sk):
+        f.restype = ctypes.c_int
+    return lib
+
+
+def _check_int32(x: torch.Tensor, shape: tuple, name: str) -> None:
+    if x.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32 residues, got {x.dtype}")
+    if tuple(x.shape) != shape or not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {list(shape)} tensor, "
+                         f"got {list(x.shape)}")
+
+
+def bsk_branch_fused(ab: torch.Tensor, tx_q: torch.Tensor,
+                     sc: _rns.SmMRqConsts, fc: _rns.FastFloorConsts,
+                     tb_bsk: NTTTables) -> torch.Tensor:
+    """The multiply's Bsk branch in one kernel: SmMRq lift of ab = a || b
+    ([k, 4, n] in q), tensor product in Bsk with the t-folded tables
+    ``tb_bsk``, FastFloor against the t-scaled q-side product tx_q
+    [k, 3, n].  Returns the floored [kb, 3, n]."""
+    k, kb, n = sc.conv.p_src.shape[0], tb_bsk.k, tb_bsk.n
+    _check_int32(ab, (k, 4, n), "bsk_branch_fused ab")
+    _check_int32(tx_q, (k, 3, n), "bsk_branch_fused tx_q")
+    if sc.conv.p_dst.shape[0] != kb or fc.conv.p_dst.shape[0] != kb:
+        raise ValueError("bsk_branch_fused: constants do not match the tables")
+    if not (ab.device == tx_q.device == tb_bsk.device == sc.conv.p_src.device
+            == fc.inv_q_dst.device):
+        raise ValueError("bsk_branch_fused: tensors on different devices")
+    if not on_card(ab, "bsk_branch_fused"):
+        return _rns.bsk_branch_fused(ab, tx_q, sc, fc, tb_bsk)
+    check_barrett(tb_bsk, "bsk_branch_fused")
+    check_smem(n, 4, "bsk_branch_fused")
+    out = torch.empty((kb, 3, n), dtype=torch.int32, device=ab.device)
+    p = _build.ptr
+    _build.launch(
+        _lib().fhe_bsk_branch, "bsk_branch_fused", ab.device,
+        p(ab), p(tx_q), p(out), p(sc.conv.p_src), p(sc.mt_times_inv_phat),
+        p(sc.mt_times_inv_phat_shoup), p(sc.conv.phat_mod_dst),
+        p(sc.conv.phat_shoup_dst), p(sc.phat_mod_mt), p(sc.q_mod_dst),
+        p(sc.q_shoup_dst), p(sc.inv_mt_dst), p(sc.inv_mt_shoup_dst),
+        sc.inv_q_mt, p(fc.conv.inv_phat), p(fc.conv.inv_phat_shoup),
+        p(fc.conv.phat_mod_dst), p(fc.conv.phat_shoup_dst), p(fc.inv_q_dst),
+        p(fc.inv_q_shoup_dst), *table_ptrs(tb_bsk), k, kb, log2_exact(n))
+    bsk_branch_fused.launches += 1
+    return out
+
+
+bsk_branch_fused.launches = 0
+
+
+def fast_bconv_sk_fused(x_bsk: torch.Tensor, sk: _rns.SKConsts) -> torch.Tensor:
+    """Exact Shenoy-Kumaresan conversion of x_bsk [l+1, B, n] (aux rows,
+    then the m_sk row) to its [k, B, n] residues in q."""
+    l, k = sk.conv_q.p_src.shape[0], sk.conv_q.p_dst.shape[0]
+    if x_bsk.dim() != 3:
+        raise ValueError(f"fast_bconv_sk_fused: expected [l+1, B, n], got "
+                         f"{list(x_bsk.shape)}")
+    _, batch, n = x_bsk.shape
+    _check_int32(x_bsk, (l + 1, batch, n), "fast_bconv_sk_fused")
+    if x_bsk.device != sk.B_mod_q.device:
+        raise ValueError("fast_bconv_sk_fused: tensor and constants on "
+                         "different devices")
+    if not on_card(x_bsk, "fast_bconv_sk_fused"):
+        return _rns.fast_bconv_sk(x_bsk, sk)
+    out = torch.empty((k, batch, n), dtype=torch.int32, device=x_bsk.device)
+    p = _build.ptr
+    _build.launch(
+        _lib().fhe_fast_bconv_sk, "fast_bconv_sk_fused", x_bsk.device,
+        p(x_bsk), p(out), p(sk.conv_q.p_src), p(sk.conv_q.inv_phat),
+        p(sk.conv_q.inv_phat_shoup), p(sk.conv_q.phat_mod_dst),
+        p(sk.conv_q.phat_shoup_dst), p(sk.conv_sk.phat_mod_dst),
+        p(sk.conv_sk.phat_shoup_dst), p(sk.conv_q.p_dst), p(sk.B_mod_q),
+        p(sk.B_shoup_q), sk.m_sk, sk.inv_B_sk, sk.inv_B_sk_shoup, l, k,
+        batch * n)
+    fast_bconv_sk_fused.launches += 1
+    return out
+
+
+fast_bconv_sk_fused.launches = 0

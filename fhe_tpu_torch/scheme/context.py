@@ -1,10 +1,11 @@
 """SchemeContext: the precomputed constants on one device.
 
-Counterpart of ``fhe_tpu/scheme/context.py:make_context``, restricted to what
-the linear-ops path (keygen, encrypt, add, plain multiply, decrypt) reads:
-the q-basis NTT tables and the level-0 decryption and Δ constants.  The rest
-of the JAX context (Bsk tables, BEHZ and key-switch constants, the lower
-levels of the modulus chain, Galois tables) comes with the ops that read it.
+Counterpart of ``fhe_tpu/scheme/context.py:make_context``, restricted to
+what the ported ops read at level 0: the q-basis NTT tables, the
+multiply's t-folded q and Bsk tables, the decryption and Δ constants (linear ops), and
+the BEHZ and key-switch digit constants (ciphertext multiply and
+relinearization).  The rest of the JAX context (the lower levels of the
+modulus chain, the BGV and Galois tables) comes with the ops that read it.
 """
 
 from __future__ import annotations
@@ -26,6 +27,16 @@ from ..params import SchemeParams, SecurityParams, make_scheme_params
 class SchemeContext:
     params: SchemeParams
     ntt_q: _ntt.NTTTables                          # q basis
+    # (q, Bsk) tables with t * n^-1 as the inverse normalisation: the
+    # multiply's tensor products come out scaled by t at no cost.  Bsk is
+    # the aux primes + m_sk, m_sk last.
+    mul_tables: tuple[_ntt.NTTTables, _ntt.NTTTables]
+    # BEHZ multiply constants at level 0
+    smq: _rns.SmMRqConsts                          # q -> Bsk centred lift
+    floor_c: _rns.FastFloorConsts                  # q -> Bsk floor(t*x/q)
+    sk_c: _rns.SKConsts                            # Bsk -> q exact conversion
+    # relinearization digits D_j = [c2_j * (q/q_j)^-1]_{q_j}
+    inv_qhat: torch.Tensor                         # [k]
     # per-level constants, index = level; only level 0 exists so far
     dec_levels: tuple[_rns.DecryptConsts, ...]     # gamma-trick decryption
     delta_levels: tuple[tuple[torch.Tensor, torch.Tensor], ...]  # (Δ mod q_i, Shoup)
@@ -44,11 +55,14 @@ class SchemeContext:
 
 
 @functools.lru_cache(maxsize=None)
-def _level_host(primes: tuple[int, ...], t: int) -> tuple[np.ndarray, np.ndarray]:
-    """(Δ_L mod q_i, Shoup companions) for one level, Δ_L = floor(q_L / t)."""
-    delta = math.prod(primes) // t
-    delta_mod = [delta % p for p in primes]
-    return np.array(delta_mod, dtype=np.uint32), mm.shoup_array(delta_mod, primes)
+def _level_host(primes: tuple[int, ...], t: int) -> tuple[np.ndarray, ...]:
+    """(Δ_L mod q_i, Shoup, (q_L/q_i)^-1 mod q_i, Shoup) for one level,
+    Δ_L = floor(q_L / t)."""
+    q = math.prod(primes)
+    delta_mod = [q // t % p for p in primes]
+    inv_qhat = [pow(q // p, -1, p) for p in primes]
+    return (np.array(delta_mod, dtype=np.uint32), mm.shoup_array(delta_mod, primes),
+            np.array(inv_qhat, dtype=np.uint32), mm.shoup_array(inv_qhat, primes))
 
 
 def make_context(params: SchemeParams | None = None, device="cuda",
@@ -57,11 +71,20 @@ def make_context(params: SchemeParams | None = None, device="cuda",
     dev = mm.resolve_device(device)
     if params is None:
         params = make_scheme_params(SecurityParams(**security_kw))
-    chain = params.q_primes
-    delta, delta_sh = _level_host(chain, params.t)
+    chain, aux = params.q_primes, params.aux_primes
+    bsk = params.bsk_primes                  # aux + (m_sk,): m_sk last
+    delta, delta_sh, inv_qhat = (mm.u32_tensor(v, dev)
+                                 for v in _level_host(chain, params.t)[:3])
+    ntt_q = _ntt.build_tables(params.n, chain, dev)
     return SchemeContext(
         params=params,
-        ntt_q=_ntt.build_tables(params.n, chain, dev),
+        ntt_q=ntt_q,
+        mul_tables=_ntt.build_mul_tables(
+            ntt_q, _ntt.build_tables(params.n, bsk, dev), params.t),
+        smq=_rns.make_sm_mrq(chain, bsk, params.m_tilde, dev),
+        floor_c=_rns.make_fast_floor(chain, bsk, dev),
+        sk_c=_rns.make_sk(aux, params.m_sk, chain, dev),
+        inv_qhat=inv_qhat,
         dec_levels=(_rns.make_decrypt(chain, params.t, params.gamma, dev),),
-        delta_levels=((mm.u32_tensor(delta, dev), mm.u32_tensor(delta_sh, dev)),),
+        delta_levels=((delta, delta_sh),),
     )

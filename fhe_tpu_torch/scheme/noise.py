@@ -1,5 +1,5 @@
 """Variance-based noise model — the host-float part of ``fhe_tpu/scheme/noise.py``
-that the linear ops use.
+that the ported ops use.
 
 Every noise coefficient is a zero-mean random variable of variance V, carried
 as log2(V); the budget comes from a D-sigma tail bound on the infinity norm:
@@ -55,3 +55,33 @@ def add(lv1: float, lv2: float) -> float:
 def multiply_plain(params: SchemeParams, lv: float) -> float:
     """e' = e * m, an n-term convolution with E[m^2] = t^2/3."""
     return lv + math.log2(params.n * (params.t ** 2) / 3.0)
+
+
+def bfv_multiply(params: SchemeParams, lv1: float, lv2: float) -> float:
+    """Dominant terms of the BFV tensor-product noise after t/q scaling:
+
+        e' ~ m1*e2 + m2*e1 + t (alpha1*e2 + alpha2*e1) + r
+
+    with alpha_i = (ct_i(s) - Delta m_i - e_i)/q of coefficient variance
+    ~ (h+1)/12, plus a rounding term r of variance ~ (1+h)/12.  All
+    products are n-term convolutions."""
+    n, t = params.n, params.t
+    h = params.security.hamming_weight
+    alpha_var = (h + 1) / 12.0
+    m_var = (t ** 2) / 3.0
+    scale = math.log2(n * (m_var + (t ** 2) * alpha_var))
+    return logaddexp2(scale + logaddexp2(lv1, lv2), math.log2((1 + h) / 12.0))
+
+
+def keyswitch_add(params: SchemeParams, level: int) -> float:
+    """Variance added by RNS-digit key switching: sum over gadget digits of
+    n * ((omega * q_Jd)^2 / 3) * sigma^2 (the digits are uncentred residues
+    in [0, q_Jd); omega primes per digit, 1 for the classic gadget)."""
+    sig2 = params.security.sigma ** 2
+    omega = params.security.ks_omega
+    primes_l = params.q_primes[: params.k - level]
+    v = 0.0
+    for g in range(0, len(primes_l), omega):
+        qj = float(math.prod(primes_l[g: g + omega]))
+        v += params.n * ((omega * qj) ** 2 / 3.0) * sig2
+    return math.log2(v)

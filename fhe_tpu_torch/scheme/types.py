@@ -49,3 +49,11 @@ class SecretKey:
     """Ternary secret in NTT form per prime."""
 
     data: torch.Tensor  # [k, 1, n] int32, NTT domain
+
+
+@dataclasses.dataclass(frozen=True)
+class RelinKeys:
+    """RNS-digit key-switching keys: digit j is a (b, a) pair encrypting
+    (q/q_j) * s^2, in NTT form."""
+
+    data: torch.Tensor  # [kd, k, 2, n] int32, NTT domain

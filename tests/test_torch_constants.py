@@ -1,8 +1,11 @@
 """The port's host constants equal the JAX package's: primes, scheme plan,
-NTT tables (q primes and the encoder's t), decryption and Δ constants.
+NTT tables (q primes and the encoder's t), decryption and Δ constants, and
+the multiply's level-0 context fields (Bsk tables, t-folded mul tables,
+SmMRq / FastFloor / Shenoy-Kumaresan constants, relinearization digits).
 Reference functions: fhe_tpu.params.make_scheme_params,
-fhe_tpu.ops.ntt.build_tables, fhe_tpu.ops.rns.make_decrypt,
-fhe_tpu.scheme.context._level_host.  Integers, tolerance 0."""
+fhe_tpu.ops.ntt.build_tables, fhe_tpu.ops.ntt_pallas.build_mul_tables,
+fhe_tpu.ops.rns.make_decrypt, fhe_tpu.scheme.context.make_context and
+_level_host.  Integers, tolerance 0."""
 
 import numpy as np
 import pytest
@@ -10,6 +13,7 @@ import pytest
 from fhe_tpu import params as jparams
 from fhe_tpu import primes as jprimes
 from fhe_tpu.ops import ntt as jntt
+from fhe_tpu.ops import ntt_pallas as jnpal
 from fhe_tpu.ops import rns as jrns
 from fhe_tpu.scheme import context as jcontext
 
@@ -71,6 +75,54 @@ def test_decrypt_and_delta_consts_match(n, t, k):
     for g, w in zip(tcontext._level_host(jp.q_primes, t),
                     jcontext._level_host(jp.q_primes, t)[:2]):
         np.testing.assert_array_equal(g, w)
+
+
+def _assert_consts_equal(got, want, name):
+    """Every field of a JAX NamedTuple of constants (arrays, scalars or
+    nested tuples) against the port's dataclass of the same field names."""
+    for f in want._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        if hasattr(w, "_fields"):
+            _assert_consts_equal(g, w, f"{name}.{f}")
+            continue
+        g = _u32(g) if hasattr(g, "numpy") else np.uint32(g)
+        np.testing.assert_array_equal(g, np.asarray(w), err_msg=f"{name}.{f}")
+
+
+@pytest.mark.parametrize("n,t,k", CASES)
+def test_multiply_context_consts_match(n, t, k):
+    jp, tp = _plans(n, t, k)
+    jctx = jcontext.make_context(jp, use_pallas=False, use_mxu=False)
+    tctx = tcontext.make_context(tp, device="cpu")
+    kb = jctx.bsk_counts[0]
+    assert len(tp.bsk_primes) == kb and tp.bsk_primes == jp.bsk_primes
+    # the Bsk tables the t-folded ones are made from
+    ntt_bsk = tntt.build_tables(n, tp.bsk_primes, "cpu")
+    for f in tntt.FIELDS:
+        np.testing.assert_array_equal(_u32(getattr(ntt_bsk, f)),
+                                      np.asarray(getattr(jctx.ntt_bsk, f)),
+                                      err_msg=f)
+    # the port keeps compact twiddles: only the scalars carry the t fold,
+    # and the twiddles are the q context's own tensors
+    want_q, want_b = jnpal.build_mul_tables(n, jp.q_primes, jp.bsk_primes, t,
+                                            k, kb)
+    for got, want, base in zip(tctx.mul_tables, (want_q, want_b),
+                               (tctx.ntt_q, ntt_bsk)):
+        assert got.primes == base.primes
+        for f in ("p", "mu", "n_inv", "n_inv_shoup"):
+            np.testing.assert_array_equal(_u32(getattr(got, f)),
+                                          np.asarray(getattr(want, f))[:, 0],
+                                          err_msg=f)
+        for f in ("psi_br", "psi_br_shoup", "ipsi_br", "ipsi_br_shoup"):
+            assert np.array_equal(_u32(getattr(got, f)), _u32(getattr(base, f)))
+    assert tctx.mul_tables[0].psi_br is tctx.ntt_q.psi_br
+    _assert_consts_equal(tctx.smq, jctx.smq, "smq")
+    _assert_consts_equal(tctx.floor_c, jctx.floor_c, "floor_c")
+    _assert_consts_equal(tctx.sk_c, jctx.sk_c, "sk_c")
+    np.testing.assert_array_equal(_u32(tctx.inv_qhat), np.asarray(jctx.inv_qhat))
+    # the relinearization digits' Shoup companions, from the host builder
+    np.testing.assert_array_equal(tcontext._level_host(jp.q_primes, t)[3],
+                                  np.asarray(jctx.inv_qhat_shoup))
 
 
 def test_number_theory_matches():

@@ -12,10 +12,11 @@ import pytest
 import torch
 
 from fhe_tpu_torch import FHE
-from fhe_tpu_torch.ops import decrypt_cuda, ntt_cuda
+from fhe_tpu_torch.ops import decrypt_cuda, ntt_cuda, rns_cuda
 from fhe_tpu_torch.ops import ntt as tntt
 from fhe_tpu_torch.ops import rns as trns
 from fhe_tpu_torch.params import SecurityParams, make_scheme_params
+from fhe_tpu_torch.scheme.context import make_context
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +103,53 @@ def test_slice_on_card(dev):
                                   cache_operand=True)
         acc = term if acc is None else fhe.add(acc, term)
     assert int(fhe.decode(fhe.decrypt(fhe.to_coeff(acc), sk))[0]) == 180
+
+
+@pytest.fixture(scope="module")
+def ctx(dev):
+    return make_context(_params(), device=dev)
+
+
+@pytest.mark.parametrize("t_folded", [True, False])
+def test_tensor_product_kernel_matches_plain(ctx, dev, t_folded):
+    tb = ctx.mul_tables[0] if t_folded else ctx.ntt_q
+    x, y = _residues(tb.primes, 2, dev), _residues(tb.primes, 2, dev)
+    assert torch.equal(ntt_cuda.tensor_product(x, y, tb),
+                       tntt.tensor_product(x, y, tb))
+
+
+def test_bsk_branch_kernel_matches_plain(ctx, dev):
+    qs, tbsk = ctx.ntt_q.primes, ctx.mul_tables[1]
+    assert tbsk.k == 5
+    ab, tx_q = _residues(qs, 4, dev), _residues(qs, 3, dev)
+    args = (ab, tx_q, ctx.smq, ctx.floor_c, tbsk)
+    assert torch.equal(rns_cuda.bsk_branch_fused(*args), trns.bsk_branch_fused(*args))
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_fast_bconv_sk_kernel_matches_plain(ctx, dev, batch):
+    xb = _residues(ctx.params.bsk_primes, batch, dev)
+    assert torch.equal(rns_cuda.fast_bconv_sk_fused(xb, ctx.sk_c),
+                       trns.fast_bconv_sk(xb, ctx.sk_c))
+
+
+def test_keyswitch_kernel_matches_plain(ctx, dev):
+    """Digits of every q prime against keys in the stored [kd, k, 2, n]
+    layout, read through the prime-major view the relinearization passes."""
+    qs = ctx.ntt_q.primes
+    d = torch.cat([_residues((q,), 1, dev)[0] for q in qs])
+    keys_t = torch.stack([_residues(qs, 2, dev) for _ in qs]).permute(1, 0, 2, 3)
+    assert torch.equal(ntt_cuda.keyswitch_fused(d, keys_t, ctx.ntt_q),
+                       tntt.keyswitch_fused(d, keys_t, ctx.ntt_q))
+
+
+def test_multiply_on_card(dev):
+    fhe = FHE(poly_degree=N, log_q=90, hamming_weight=64, seed=6, device=dev)
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    c1 = fhe.encrypt(fhe.encode([5, 10, 15, 20]), pk)
+    c2 = fhe.encrypt(fhe.encode([3, 6, 9, 12]), pk)
+    m3 = fhe.multiply_no_relin(c1, c2)
+    prod = fhe.multiply(c1, c2, rlk)
+    for ct in (m3, fhe.relinearize(m3, rlk), prod):
+        assert list(fhe.decode(fhe.decrypt(ct, sk))[:4]) == [15, 60, 135, 240]
