@@ -23,9 +23,19 @@ Phases, each printing its own lines:
      decrypt, and multiply; every decode must be [15,60,135,240].  Counts
      are zeroed before and read after, as in phase 4, and the card's
      relinearization keys, products and decryptions must equal the CPU
-     plain path's bit for bit.  Then end-to-end times of each op.
+     plain path's bit for bit.  Then end-to-end times of each op;
+  6. serving: the batch and rotation path through the facade at the same
+     width and B = 8: keygen, relinkey_gen, galoiskey_gen for (3, 2n - 1),
+     encrypt_batch and decrypt_batch of two batches, multiply_batch (each
+     element equal to the single multiply), rotate_rows by 1,
+     rotate_columns and rotate_rows_batch by 1; every result decodes to its
+     known slots.  Counts are zeroed before and read after; the batch and
+     Galois kernels must have launched.  The _from_noise entry points and
+     every batch and rotation op must equal the CPU plain path bit for bit.
+     Then end-to-end times of each op and per ciphertext, and
+     multiply_batch at B = 24.
 The line before the last is {"kernels": [...]}, each kernel with its launches
-on its own path (phase 4 or 5); the last line is
+on its own path (phase 4, 5 or 6); the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; without
 a card the script exits 1 before printing any result.  Imports no JAX and
 nothing of fhe_tpu.
@@ -43,15 +53,18 @@ import time
 import torch
 
 from fhe_tpu_torch import FHE
-from fhe_tpu_torch.ops import _build, decrypt_cuda, ntt_cuda, rns_cuda
+from fhe_tpu_torch.ops import _build, decrypt_cuda, galois_cuda, ntt_cuda, rns_cuda
+from fhe_tpu_torch.ops import galois as plain_galois
 from fhe_tpu_torch.ops import ntt as plain_ntt
 from fhe_tpu_torch.ops import rns, sampling
 from fhe_tpu_torch.params import SecurityParams, make_scheme_params
 from fhe_tpu_torch.scheme import bfv
 from fhe_tpu_torch.scheme.context import make_context
-from fhe_tpu_torch.scheme.types import Plaintext, RelinKeys, SecretKey
+from fhe_tpu_torch.scheme.types import (GaloisKeys, Plaintext, PublicKey, RelinKeys,
+                                        SecretKey)
 
 N, LOG_Q, H = 8192, 90, 64
+BATCH = 8           # the serving batch (bench.py mul_b8 / rot_b8 / enc_b8 / dec_b8)
 REPS = 25
 
 # Published H100 SXM peaks (NVIDIA data sheet) at the full 700 W limit.
@@ -67,7 +80,7 @@ def helper_ops() -> dict[str, int]:
     text = (_build.CSRC / "modmath.cuh").read_text()
     ops = {m[1]: int(m[2]) for m in re.finditer(r"^//\s+OPS (\w+) (\d+)$", text, re.M)}
     want = {"add_mod", "sub_mod", "mul_shoup", "reduce_shoup", "mul_barrett",
-            "reduce_barrett", "select", "lane16", "mul16"}
+            "reduce_barrett", "neg_mod", "select", "lane16", "mul16", "galois_index"}
     if set(ops) != want:
         raise RuntimeError(f"modmath.cuh OPS block lists {sorted(ops)}, expected "
                            f"{sorted(want)}")
@@ -101,6 +114,29 @@ KERNELS = {
     "keyswitch_fused": dict(fn=ntt_cuda.keyswitch_fused,
                             source="fhe_tpu_torch/csrc/ntt.cu",
                             replaces="fhe_tpu/ops/ntt_pallas.py:751", path="multiply"),
+    "mul_by_ntt_operand_batch": dict(fn=ntt_cuda.mul_by_ntt_operand_batch,
+                                     source="fhe_tpu_torch/csrc/ntt.cu",
+                                     replaces="fhe_tpu/ops/ntt_pallas.py:655",
+                                     path="serving"),
+    "tensor_product_batch": dict(fn=ntt_cuda.tensor_product_batch,
+                                 source="fhe_tpu_torch/csrc/ntt.cu",
+                                 replaces="fhe_tpu/ops/ntt_pallas.py:973", path="serving"),
+    "keyswitch_fused_batch": dict(fn=ntt_cuda.keyswitch_fused_batch,
+                                  source="fhe_tpu_torch/csrc/ntt.cu",
+                                  replaces="fhe_tpu/ops/ntt_pallas.py:1269",
+                                  path="serving"),
+    # B5 with its batch grid axis (the JAX multiply_batch has no fused Bsk branch)
+    "bsk_branch_fused_batch": dict(fn=rns_cuda.bsk_branch_fused_batch,
+                                   source="fhe_tpu_torch/csrc/rns.cu",
+                                   replaces="fhe_tpu/ops/rns_pallas.py:257",
+                                   path="serving"),
+    "automorphism_fused": dict(fn=galois_cuda.automorphism_fused,
+                               source="fhe_tpu_torch/csrc/galois.cu",
+                               replaces="fhe_tpu/ops/galois_pallas.py:162", path="serving"),
+    "automorphism_single": dict(fn=galois_cuda.automorphism_single,
+                                source="fhe_tpu_torch/csrc/galois.cu",
+                                replaces="fhe_tpu/ops/galois_pallas.py:272",
+                                path="serving"),
 }
 
 
@@ -184,12 +220,15 @@ def ntt_work(k: int, batch: int, inverse: bool) -> tuple[float, float]:
     return 4 * (2 * k * batch * N + 2 * k * N), ops
 
 
-def mul_work(k: int, c: int) -> tuple[float, float]:
+def mul_work(k: int, c: int, batch: int = 1) -> tuple[float, float]:
+    """u [k, batch, N] and the shared w [k, c, N] in, [k, c, batch, N] out,
+    forward and inverse tables; per element and prime one forward sweep,
+    then c products and inverse sweeps."""
     logn = N.bit_length() - 1
-    nbytes = 4 * (k * N + 2 * k * c * N + 4 * k * N)
-    ops = k * ((N // 2) * logn * OPS_BUTTERFLY
-               + c * (N * OPS["mul_barrett"] + (N // 2) * logn * OPS_BUTTERFLY
-                      + N * OPS["mul_shoup"]))
+    nbytes = 4 * (batch * k * N + k * c * N + batch * k * c * N + 4 * k * N)
+    ops = batch * k * ((N // 2) * logn * OPS_BUTTERFLY
+                       + c * (N * OPS["mul_barrett"] + (N // 2) * logn * OPS_BUTTERFLY
+                              + N * OPS["mul_shoup"]))
     return nbytes, ops
 
 
@@ -221,26 +260,29 @@ def product_ops() -> float:
     return N * (4 * OPS["mul_barrett"] + OPS["add_mod"])
 
 
-def tensor_product_work(k: int) -> tuple[float, float]:
-    """x, y [k, 2, N] in, [k, 3, N] out, forward and inverse tables."""
-    nbytes = 4 * (4 * k * N + 3 * k * N + 4 * k * N)
-    return nbytes, k * (sweeps_ops(4, 3) + product_ops())
+def tensor_product_work(k: int, batch: int = 1) -> tuple[float, float]:
+    """x, y [k, 2, batch, N] in, [k, 3, batch, N] out, forward and inverse
+    tables."""
+    nbytes = 4 * (batch * (4 * k * N + 3 * k * N) + 4 * k * N)
+    return nbytes, batch * k * (sweeps_ops(4, 3) + product_ops())
 
 
-def bsk_branch_work(k: int, kb: int) -> tuple[float, float]:
-    """ab [k, 4, N] and tx_q [k, 3, N] in, [kb, 3, N] out, Bsk tables.  The
-    k source digits of the lift's 4N and the floor's 3N coefficients do not
-    depend on the Bsk prime, so they count once (the kernel forms them again
-    in each block).  Per Bsk prime: each digit's conversion and m~ lane step,
-    the centred correction, the sweeps and product, and the floor."""
+def bsk_branch_work(k: int, kb: int, batch: int = 1) -> tuple[float, float]:
+    """ab [k, 4, batch, N] and tx_q [k, 3, batch, N] in, [kb, 3, batch, N]
+    out, Bsk tables.  The k source digits of the lift's 4N and the floor's
+    3N coefficients do not depend on the Bsk prime, so they count once (the
+    kernel forms them again in each block).  Per Bsk prime: each digit's
+    conversion and m~ lane step, the centred correction, the sweeps and
+    product, and the floor; all of it once per element."""
     o = OPS
     digits = (4 + 3) * N * k * o["mul_shoup"]
     lift = 4 * N * (k * (o["mul_shoup"] + o["add_mod"] + o["lane16"])
                     + o["mul16"] + o["select"] + 2 * o["mul_shoup"] + o["sub_mod"])
     floor = 3 * N * (k * (o["mul_shoup"] + o["add_mod"])
                      + o["sub_mod"] + o["mul_shoup"])
-    nbytes = 4 * (4 * k * N + 3 * k * N + 3 * kb * N + 4 * kb * N)
-    return nbytes, digits + kb * (lift + sweeps_ops(4, 3) + product_ops() + floor)
+    nbytes = 4 * (batch * (4 * k * N + 3 * k * N + 3 * kb * N) + 4 * kb * N)
+    return nbytes, batch * (digits + kb * (lift + sweeps_ops(4, 3) + product_ops()
+                                           + floor))
 
 
 def fast_bconv_sk_work(kb: int, k: int, batch: int) -> tuple[float, float]:
@@ -257,14 +299,30 @@ def fast_bconv_sk_work(kb: int, k: int, batch: int) -> tuple[float, float]:
     return 4 * (kb * m + k * m), ops
 
 
-def keyswitch_work(k: int, kd: int) -> tuple[float, float]:
-    """d [kd, N] and keys [k, kd, 2, N] in, [k, 2, N] out, q tables.  Per
-    prime: kd reductions and forward sweeps, 2 kd key products and sums,
-    and a 2-row inverse sweep."""
+def keyswitch_work(k: int, kd: int, batch: int = 1) -> tuple[float, float]:
+    """d [kd, batch, N] and the shared keys [k, kd, 2, N] in, [k, 2, batch, N]
+    out, q tables.  Per element and prime: kd reductions and forward sweeps,
+    2 kd key products and sums, and a 2-row inverse sweep."""
     o = OPS
     per_prime = (kd * N * o["reduce_barrett"] + sweeps_ops(kd, 2)
                  + 2 * kd * N * (o["mul_barrett"] + o["add_mod"]))
-    return 4 * (kd * N + 2 * k * kd * N + 2 * k * N + 4 * k * N), k * per_prime
+    nbytes = 4 * (batch * (kd * N + 2 * k * N) + 2 * k * kd * N + 4 * k * N)
+    return nbytes, batch * k * per_prime
+
+
+def automorphism_work(k: int, c: int, hs: tuple[int, ...],
+                      c0_rows: int) -> tuple[float, float]:
+    """x [k, c, B, N] in and out, the B multipliers, and c0_rows [k, N] rows
+    of c0 (0, 1 shared, or B per element).  Per output residue its source
+    index; the negation where these h negate (h*j mod 2N >= N, counted from
+    hs); one add per component-0 residue when there is a c0."""
+    o = OPS
+    j = torch.arange(N, dtype=torch.int64)
+    negated = sum(int(((h * j) % (2 * N) >= N).sum()) for h in hs)
+    batch = len(hs)
+    ops = (k * c * batch * N * o["galois_index"] + k * c * negated * o["neg_mod"]
+           + (k * batch * N * o["add_mod"] if c0_rows else 0))
+    return 4 * (2 * k * c * batch * N + c0_rows * k * N + batch), ops
 
 
 def residues(gen: torch.Generator, moduli, rows: int) -> torch.Tensor:
@@ -371,6 +429,49 @@ def phase_kernels(gen: torch.Generator) -> dict:
                   lambda: ntt_cuda.keyswitch_fused(d, keys_t, ctx.ntt_q),
                   lambda: plain_ntt.keyswitch_fused(d, keys_t, ctx.ntt_q),
                   keyswitch_work(k, k)))
+    # the serving kernels at B = 8, on the layouts the batch ops pass: views of
+    # a [B, k, c, N] stack of ciphertexts
+    tq = ctx.mul_tables[0]
+    ab_b = residues(gen, qs, 4 * BATCH).view(k, BATCH, 4, N).transpose(0, 1)
+    ab_b = ab_b.contiguous().permute(1, 2, 0, 3)                         # [k, 4, B, N]
+    cases.append(("tensor_product_batch", f"views of [{BATCH},{k},4,{N}], t-folded q tables",
+                  lambda: ntt_cuda.tensor_product_batch(ab_b[:, :2], ab_b[:, 2:], tq),
+                  lambda: plain_ntt.tensor_product_batch(ab_b[:, :2], ab_b[:, 2:], tq),
+                  tensor_product_work(k, BATCH)))
+    tx_b = residues(gen, qs, 3 * BATCH).view(k, 3, BATCH, N)
+    bsk_args = (ab_b, tx_b, ctx.smq, ctx.floor_c, tbsk)
+    cases.append(("bsk_branch_fused_batch",
+                  f"ab views of [{BATCH},{k},4,{N}], tx_q [{k},3,{BATCH},{N}], kb={kb}",
+                  lambda: rns_cuda.bsk_branch_fused_batch(*bsk_args),
+                  lambda: rns.bsk_branch_fused_batch(*bsk_args),
+                  bsk_branch_work(k, kb, BATCH)))
+    d_b = torch.stack([residues(gen, (q,), BATCH)[0] for q in qs])     # [kd, B, N]
+    cases.append(("keyswitch_fused_batch",
+                  f"d [{k},{BATCH},{N}], keys [{k},{k},2,{N}] (kd={k})",
+                  lambda: ntt_cuda.keyswitch_fused_batch(d_b, keys_t, ctx.ntt_q),
+                  lambda: plain_ntt.keyswitch_fused_batch(d_b, keys_t, ctx.ntt_q),
+                  keyswitch_work(k, k, BATCH)))
+    u_b = residues(gen, qs, BATCH)
+    cases.append(("mul_by_ntt_operand_batch", f"u [{k},{BATCH},{N}] w [{k},2,{N}]",
+                  lambda: ntt_cuda.mul_by_ntt_operand_batch(u_b, w, tb),
+                  lambda: plain_ntt.mul_by_ntt_operand_batch(u_b, w, tb),
+                  mul_work(k, 2, BATCH)))
+    x_g = residues(gen, qs, 2 * BATCH).view(k, BATCH, 2, N).transpose(0, 1)
+    x_g = x_g.contiguous().permute(1, 2, 0, 3)                       # [k, 2, B, N]
+    hs = (pow(3, -1, 2 * N),) * BATCH           # rotate_rows_batch by 1
+    c0s = {"no c0": None, "shared c0": residues(gen, qs, 1)[:, 0],
+           "per-element c0": residues(gen, qs, BATCH)}
+    for lane, c0 in c0s.items():
+        cases.append(("automorphism_fused",
+                      f"views of [{BATCH},{k},2,{N}], g=3, {lane}",
+                      lambda c0=c0: galois_cuda.automorphism_fused(x_g, hs, tb.p, c0),
+                      lambda c0=c0: plain_galois.automorphism_fused(x_g, hs, tb.p, c0),
+                      automorphism_work(k, 2, hs, 0 if c0 is None else c0.numel() // N // k)))
+    x_s = residues(gen, qs, 2)
+    cases.append(("automorphism_single", f"[{k},2,{N}], g=3",
+                  lambda: galois_cuda.automorphism_single(x_s, 3, tb.p),
+                  lambda: plain_galois.automorphism_single(x_s, 3, tb.p),
+                  automorphism_work(k, 2, (pow(3, -1, 2 * N),), 0)))
     results = {}
     for name, label, kern, plain, work in cases:
         got, want = kern(), plain()
@@ -555,6 +656,153 @@ def phase_multiply() -> dict:
     return launches
 
 
+VALS_A = [[5 + i, 10 + i, 15 + i, 20 + i] for i in range(BATCH)]
+VALS_B = [[3, 6, 9, 12 + i] for i in range(BATCH)]
+
+
+def rotated(vals: list, steps: int) -> list:
+    """The first slot row of an encoding of vals after rotate_rows(steps)."""
+    row = vals + [0] * (N // 2 - len(vals))
+    return row[steps:] + row[:steps]
+
+
+def run_serving(fhe: FHE, pk: PublicKey, sk: SecretKey, rlk: RelinKeys,
+                gk: GaloisKeys) -> dict:
+    """The serving path once: two batches encrypted and decrypted, their
+    products, and the rotations.  Returns every result."""
+    cts_a = fhe.encrypt_batch([fhe.encode(v) for v in VALS_A], pk)
+    cts_b = fhe.encrypt_batch([fhe.encode(v) for v in VALS_B], pk)
+    prods = fhe.multiply_batch(cts_a, cts_b, rlk)
+    rot = fhe.rotate_rows(cts_a[0], 1, gk)
+    cols = fhe.rotate_columns(cts_a[0], gk)
+    rot_b = fhe.rotate_rows_batch(cts_a, 1, gk)
+    dec = lambda pts: [[int(x) for x in fhe.decode(pt)] for pt in pts]
+    return dict(cts_a=cts_a, cts_b=cts_b, prods=prods, rot=rot, cols=cols, rot_b=rot_b,
+                dec_a=dec(fhe.decrypt_batch(cts_a, sk)),
+                dec_prods=dec(fhe.decrypt_batch(prods, sk)),
+                dec_rot=dec([fhe.decrypt(rot, sk)]), dec_cols=dec([fhe.decrypt(cols, sk)]),
+                dec_rot_b=dec(fhe.decrypt_batch(rot_b, sk)))
+
+
+def phase_serving() -> dict:
+    """The serving batch and rotation path through the facade at B = 8, then
+    the same state through the plain versions on the CPU, then end-to-end
+    times per op and per ciphertext."""
+    fhe = FHE(poly_degree=N, log_q=LOG_Q, hamming_weight=H, seed=5, device="cuda")
+    n2, t = 2 * N, fhe.params.t
+    reset_counts()
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    gk = fhe.galoiskey_gen(sk, elements=(3, n2 - 1))
+    st = run_serving(fhe, pk, sk, rlk, gk)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print("phase serving launches", json.dumps(launches))
+    prods_want = [[x * y % t for x, y in zip(a, b)] for a, b in zip(VALS_A, VALS_B)]
+    check([d[:4] for d in st["dec_a"]] == VALS_A, "encrypt_batch/decrypt_batch decoded "
+          f"{[d[:4] for d in st['dec_a']]}")
+    check([d[:4] for d in st["dec_prods"]] == prods_want,
+          f"multiply_batch decoded {[d[:4] for d in st['dec_prods']]}, expected {prods_want}")
+    check(st["dec_rot"][0][:N // 2] == rotated(VALS_A[0], 1),
+          f"rotate_rows by 1 decoded {st['dec_rot'][0][:6]}")
+    check(st["dec_cols"][0][N // 2:N // 2 + 4] == VALS_A[0]
+          and st["dec_cols"][0][:4] == [0] * 4,
+          f"rotate_columns decoded {st['dec_cols'][0][:4]} / "
+          f"{st['dec_cols'][0][N // 2:N // 2 + 4]}")
+    check(all(d[:N // 2] == rotated(v, 1) for d, v in zip(st["dec_rot_b"], VALS_A)),
+          f"rotate_rows_batch decoded {[d[:4] for d in st['dec_rot_b']]}")
+    check_launched(launches, "serving")
+    for i in range(BATCH):
+        single = fhe.multiply(st["cts_a"][i], st["cts_b"][i], rlk)
+        check(torch.equal(single.data, st["prods"][i].data)
+              and single.noise_budget == st["prods"][i].noise_budget,
+              f"multiply_batch element {i} differs from the single multiply")
+        check(torch.equal(fhe.rotate_rows(st["cts_a"][i], 1, gk).data,
+                          st["rot_b"][i].data),
+              f"rotate_rows_batch element {i} differs from the single rotate_rows")
+
+    # the same state through the plain versions on the CPU, at full size
+    cpu = make_context(fhe.params, device="cpu")
+    to_cpu = lambda ct: ct.replace(data=ct.data.cpu())
+    same = lambda card, plain: all(torch.equal(a.data.cpu(), b.data)
+                                   for a, b in zip(card, plain))
+    sk_cpu, pk_cpu = SecretKey(data=sk.data.cpu()), PublicKey(data=pk.data.cpu())
+    rlk_cpu = RelinKeys(data=rlk.data.cpu())
+    gk_cpu = GaloisKeys(data={g: v.cpu() for g, v in gk.data.items()})
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    primes = fhe.ctx.ntt_q.p
+    u = sampling.ternary_rns(gen, primes, BATCH, N, H)
+    e1, e2 = (sampling.gaussian_rns(gen, primes, 3.2, BATCH, N) for _ in range(2))
+    pts = [fhe.encode(v) for v in VALS_A]
+    enc_card = bfv.encrypt_batch_from_noise(fhe.ctx, pk, pts, u, e1, e2)
+    enc_cpu = bfv.encrypt_batch_from_noise(
+        cpu, pk_cpu, [Plaintext(data=pt.data.cpu()) for pt in pts], u.cpu(), e1.cpu(),
+        e2.cpu())
+    check(same(enc_card, enc_cpu), "card encrypt_batch_from_noise differs from the CPU")
+    col = lambda x, i: x[:, i:i + 1]
+    check(all(torch.equal(bfv.encrypt_from_noise(fhe.ctx, pk, pts[i], col(u, i), col(e1, i),
+                                                 col(e2, i)).data, enc_card[i].data)
+              for i in range(BATCH)), "encrypt_batch element differs from encrypt")
+    a = torch.stack([torch.stack([sampling.uniform_rns(gen, primes, 1, N) for _ in range(3)])
+                     for _ in range(2)])
+    e = torch.stack([torch.stack([sampling.gaussian_rns(gen, primes, 3.2, 1, N)
+                                  for _ in range(3)]) for _ in range(2)])
+    gk_card = bfv.galoiskey_gen_from_noise(fhe.ctx, sk, (3, n2 - 1), a, e)
+    gk_plain = bfv.galoiskey_gen_from_noise(cpu, sk_cpu, (3, n2 - 1), a.cpu(), e.cpu())
+    check(all(torch.equal(gk_card.data[g].cpu(), gk_plain.data[g]) for g in (3, n2 - 1)),
+          "card galoiskey_gen_from_noise differs from the CPU plain path")
+    cts_a_cpu = [to_cpu(c) for c in st["cts_a"]]
+    cts_b_cpu = [to_cpu(c) for c in st["cts_b"]]
+    dec_cpu = bfv.decrypt_batch(cpu, cts_a_cpu, sk_cpu)
+    check(all(torch.equal(x.data.cpu(), y.data) for x, y in
+              zip(fhe.decrypt_batch(st["cts_a"], sk), dec_cpu)),
+          "card decrypt_batch differs from the CPU plain path")
+    check(same(st["prods"], bfv.multiply_batch(cpu, cts_a_cpu, cts_b_cpu, rlk_cpu)),
+          "card multiply_batch differs from the CPU plain path")
+    check(same([st["rot"], st["cols"]],
+               [bfv.rotate_rows(cpu, cts_a_cpu[0], 1, gk_cpu),
+                bfv.rotate_columns(cpu, cts_a_cpu[0], gk_cpu)]),
+          "card rotate_rows / rotate_columns differ from the CPU plain path")
+    check(same(st["rot_b"], bfv.rotate_rows_batch(cpu, cts_a_cpu, 1, gk_cpu)),
+          "card rotate_rows_batch differs from the CPU plain path")
+    print(f"phase serving check: B={BATCH}; decoded the batch, the products, rotate_rows, "
+          "rotate_columns and rotate_rows_batch; multiply_batch and rotate_rows_batch "
+          "element i == the single op; card == CPU plain path for encrypt_batch_from_noise, "
+          "galoiskey_gen_from_noise, decrypt_batch, multiply_batch and the rotations")
+
+    cts_a, cts_b = st["cts_a"], st["cts_b"]
+    pts_a = [fhe.encode(v) for v in VALS_A]
+    timings = {
+        "galoiskey_gen_2_elements": wall_ms(
+            lambda: fhe.galoiskey_gen(sk, elements=(3, n2 - 1))),
+        "encrypt": wall_ms(lambda: fhe.encrypt(pts_a[0], pk)),
+        "encrypt_batch": wall_ms(lambda: fhe.encrypt_batch(pts_a, pk)),
+        "decrypt": wall_ms(lambda: fhe.decrypt(cts_a[0], sk)),
+        "decrypt_batch": wall_ms(lambda: fhe.decrypt_batch(cts_a, sk)),
+        "multiply": wall_ms(lambda: fhe.multiply(cts_a[0], cts_b[0], rlk)),
+        "multiply_batch": wall_ms(lambda: fhe.multiply_batch(cts_a, cts_b, rlk)),
+        "rotate_rows_1": wall_ms(lambda: fhe.rotate_rows(cts_a[0], 1, gk)),
+        "rotate_columns": wall_ms(lambda: fhe.rotate_columns(cts_a[0], gk)),
+        "rotate_rows_batch_1": wall_ms(lambda: fhe.rotate_rows_batch(cts_a, 1, gk)),
+    }
+    per_ct = {op: ms / BATCH for op, ms in timings.items() if "_batch" in op}
+    print("phase serving wall_ms", json.dumps(timings))
+    print(f"phase serving wall_ms per ciphertext (B={BATCH})", json.dumps(per_ct))
+    big = 3 * BATCH
+    a24 = (cts_a * 3)[:big]
+    b24 = (cts_b * 3)[:big]
+    ms24 = wall_ms(lambda: fhe.multiply_batch(a24, b24, rlk))
+    # device time of the whole op (host overhead excluded, device_ms): flat in B
+    # while every kernel of the op still runs in one wave of blocks
+    print("phase serving multiply_batch B=24", json.dumps({
+        "wall_ms": ms24, "per_ciphertext_ms": ms24 / big,
+        "multiply_batch_B8_wall_ms": timings["multiply_batch"],
+        "device_ms_B1_multiply": device_ms(lambda: fhe.multiply(cts_a[0], cts_b[0], rlk)),
+        "device_ms_B8": device_ms(lambda: fhe.multiply_batch(cts_a, cts_b, rlk)),
+        "device_ms_B24": device_ms(lambda: fhe.multiply_batch(a24, b24, rlk))}))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -565,7 +813,8 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results = phase_kernels(gen)
-    launches = {"slice": phase_slice(), "multiply": phase_multiply()}
+    launches = {"slice": phase_slice(), "multiply": phase_multiply(),
+                "serving": phase_serving()}
     rows = []
     for name, meta in KERNELS.items():
         r = results[name]

@@ -5,8 +5,12 @@ restricted to the ops this package has so far, at level 0.
     fhe = FHE(poly_degree=8192, log_q=90, hamming_weight=64)   # on the card
     pk, sk = fhe.keygen()
     rlk = fhe.relinkey_gen(sk)
+    gk = fhe.galoiskey_gen(sk, elements=(3, 2 * 8192 - 1))
     ct = fhe.encrypt(fhe.encode([1, 2, 3]), pk)
     out = fhe.decode(fhe.decrypt(fhe.multiply(ct, fhe.add(ct, ct), rlk), sk))
+    rot = fhe.decode(fhe.decrypt(fhe.rotate_rows(ct, 1, gk), sk))  # [2, 3, ...]
+    cts = fhe.encrypt_batch([fhe.encode([i]) for i in range(8)], pk)
+    prods = fhe.multiply_batch(cts, cts, rlk)                      # serving batch
 
 Everything runs on ``device`` ("cuda" by default; a CUDA request without a
 card raises).  ``device="cpu"`` runs the plain PyTorch versions of the
@@ -24,7 +28,8 @@ from .params import SchemeParams, SecurityParams, make_scheme_params
 from .scheme import bfv
 from .scheme import encoder as _encoder
 from .scheme.context import SchemeContext, make_context
-from .scheme.types import Ciphertext, Plaintext, PublicKey, RelinKeys, SecretKey
+from .scheme.types import (Ciphertext, GaloisKeys, Plaintext, PublicKey,
+                           RelinKeys, SecretKey)
 
 
 class FHE:
@@ -50,6 +55,11 @@ class FHE:
     def relinkey_gen(self, sk: SecretKey) -> RelinKeys:
         return bfv.relinkey_gen(self.ctx, self.gen, sk)
 
+    def galoiskey_gen(self, sk: SecretKey, elements=None) -> GaloisKeys:
+        """Galois keys for ``elements`` (default: the power-of-two row
+        rotations both ways and the column swap)."""
+        return bfv.galoiskey_gen(self.ctx, self.gen, sk, elements)
+
     # -- encoding (slot semantics by default) --
     def encode(self, values) -> Plaintext:
         return self.encoder.encode(values)
@@ -74,6 +84,16 @@ class FHE:
     def decrypt(self, ct: Ciphertext, sk: SecretKey) -> Plaintext:
         return bfv.decrypt(self.ctx, ct, sk)
 
+    def encrypt_batch(self, pts: list, pk: PublicKey) -> list:
+        """Encrypt B plaintexts in one batched pk*u launch; element i is an
+        independent fresh encryption."""
+        return bfv.encrypt_batch(self.ctx, self.gen, pk, pts)
+
+    def decrypt_batch(self, cts: list, sk: SecretKey) -> list:
+        """Decrypt B ciphertexts in one fused launch; element i equals
+        decrypt(cts[i], sk)."""
+        return bfv.decrypt_batch(self.ctx, cts, sk)
+
     # -- homomorphic ops --
     def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         return bfv.add(self.ctx, a, b)
@@ -90,6 +110,12 @@ class FHE:
     def multiply(self, a: Ciphertext, b: Ciphertext, rlk: RelinKeys) -> Ciphertext:
         return bfv.multiply(self.ctx, a, b, rlk)
 
+    def multiply_batch(self, cts_a: list, cts_b: list, rlk: RelinKeys) -> list:
+        """Multiply + relinearize B independent pairs through the batched
+        kernels (the serving path); element i equals
+        multiply(cts_a[i], cts_b[i], rlk)."""
+        return bfv.multiply_batch(self.ctx, cts_a, cts_b, rlk)
+
     def multiply_no_relin(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         return bfv.multiply_no_relin(self.ctx, a, b)
 
@@ -103,6 +129,31 @@ class FHE:
         NTT-form ciphertext costs no transform per term."""
         op = self.plain_operand(pt, ct.level) if cache_operand else None
         return bfv.multiply_plain(self.ctx, ct, pt, op)
+
+    # -- rotations and key switching --
+    def rotate_rows(self, ct: Ciphertext, steps: int,
+                    gal_keys: GaloisKeys) -> Ciphertext:
+        return bfv.rotate_rows(self.ctx, ct, steps, gal_keys)
+
+    def rotate_rows_batch(self, cts: list, steps: int,
+                          gal_keys: GaloisKeys) -> list:
+        """Rotate B ciphertexts by the same step count, one batched
+        automorphism and key switch per hop; element i equals
+        rotate_rows(cts[i], steps)."""
+        return bfv.rotate_rows_batch(self.ctx, cts, steps, gal_keys)
+
+    def rotate_columns(self, ct: Ciphertext, gal_keys: GaloisKeys) -> Ciphertext:
+        return bfv.rotate_columns(self.ctx, ct, gal_keys)
+
+    def key_switch(self, ct: Ciphertext, ks_keys: torch.Tensor) -> Ciphertext:
+        """Switch a 2-component ciphertext under s' to one under s; ks_keys
+        [kd, k, 2, n] encrypt (q/q_j) * s'."""
+        return bfv.key_switch(self.ctx, ct, ks_keys)
+
+    def rotate_rows_hoisted(self, ct, steps_list, gal_keys):
+        raise NotImplementedError(
+            "hoisted rotations (ks_inner_batch, automorphism_fused_sum) are not "
+            "ported yet; use rotate_rows per step")
 
     # -- NTT-form residency --
     def to_ntt(self, ct: Ciphertext) -> Ciphertext:

@@ -2,7 +2,7 @@
 
 The JAX package holds residues as uint32 arrays in prime-major layout
 (``[k, c, n]`` for keys and ciphertexts, ``[kd, k, 2, n]`` for
-relinearization keys, ``[n]`` for plaintexts); these
+relinearization keys and for each Galois key, ``[n]`` for plaintexts); these
 functions take and return exactly that, so the same state can go through
 both packages.  Residues are below 2^31, so the int32 tensors of this
 package hold the same values.  State goes to the card unless the caller
@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from .ops.modmath import resolve_device
-from .scheme.types import Ciphertext, Plaintext, PublicKey, RelinKeys, SecretKey
+from .scheme.types import (Ciphertext, GaloisKeys, Plaintext, PublicKey,
+                           RelinKeys, SecretKey)
 
 
 def _tensor(arr, ndim: int, device) -> torch.Tensor:
@@ -36,6 +37,12 @@ def keys_from_numpy(pk_np, sk_np, device="cuda") -> tuple[PublicKey, SecretKey]:
 def relin_keys_from_numpy(data, device="cuda") -> RelinKeys:
     """[kd, k, 2, n] NTT-form relinearization keys."""
     return RelinKeys(data=_tensor(data, 4, device))
+
+
+def galois_keys_from_numpy(data: dict, device="cuda") -> GaloisKeys:
+    """A dict of Galois element g -> [kd, k, 2, n] NTT-form keys."""
+    return GaloisKeys(data={int(g): _tensor(arr, 4, device)
+                            for g, arr in data.items()})
 
 
 def ciphertext_from_numpy(data, level: int = 0, is_ntt_form: bool = False,

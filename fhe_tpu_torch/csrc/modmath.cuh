@@ -18,6 +18,7 @@
 //   OPS reduce_shoup 5
 //   OPS mul_barrett 11
 //   OPS reduce_barrett 10
+//   OPS neg_mod 3
 // and the steps rns.cu writes inline: centring a correction alpha into the
 // destination prime (compare; add of a per-prime constant, c - 2^16 or
 // q_j - m_sk; select), one step of the m~ = 2^16 lane,
@@ -26,6 +27,10 @@
 //   OPS select 3
 //   OPS lane16 3
 //   OPS mul16 2
+// and the source index galois.cu computes inline for each output residue,
+// hj = (h * j) & (2n - 1), src = hj & (n - 1) and the test hj >= n (a 64-bit
+// multiply, two masks and a compare):
+//   OPS galois_index 4
 #pragma once
 
 #include <cuda_runtime.h>
@@ -83,6 +88,11 @@ __device__ __forceinline__ uint32_t reduce_shoup(uint32_t x, uint32_t p,
   uint32_t q = __umulhi(x, one_sh);
   uint32_t r = x - q * p;
   return r >= p ? r - p : r;
+}
+
+// (-a) mod p for a in [0, p): p - a, and 0 (not p) for a = 0.
+__device__ __forceinline__ uint32_t neg_mod(uint32_t a, uint32_t p) {
+  return a == 0 ? 0u : p - a;
 }
 
 // a * b mod p for a, b in [0, p), 2^29 < p < 2^30, mu = floor(2^61 / p).

@@ -1,8 +1,16 @@
 // Whole-polynomial negacyclic NTT kernels for Hopper (sm_90a).
 //
 // Replaces fhe_tpu/ops/ntt_pallas.py: ntt_forward, ntt_inverse,
-// mul_by_ntt_operand, tensor_product and keyswitch_fused.  Plain versions:
-// fhe_tpu_torch/ops/ntt.py.
+// mul_by_ntt_operand and mul_by_ntt_operand_batch, tensor_product and
+// tensor_product_batch, keyswitch_fused and keyswitch_fused_batch (not its
+// prereduced lane).  Plain versions: fhe_tpu_torch/ops/ntt.py.
+//
+// Each single function and its _batch form share one kernel: grid
+// (B, primes), block (b, i) does element b on prime i, and the single
+// function launches B = 1.  Inputs are read through the strides the wrapper
+// passes, so a [B, k, c, n] stack of ciphertexts is read in place, not
+// transposed; outputs are [k, c, B, n].  The Pallas batch tiles, padding
+// and lazy sweeps are Mosaic artifacts and have no counterpart here.
 //
 // Design.  One block per (prime, polynomial) holds the whole n-point
 // polynomial in shared memory (32 KB at n = 8192) and runs all log2(n)
@@ -32,7 +40,8 @@
 // stage serves 4 (tensor product) or 2 (key-switch accumulators) rows.  At
 // n = 8192, k = 3 they run on 3 blocks, one per SM, and are bound by the
 // issue rate of those SMs rather than by the barriers (bounds and times:
-// PERF.md).
+// PERF.md).  The batch axis is the answer to that at serving batches: B = 8
+// runs 24 blocks on 24 SMs, each doing the single function's work.
 
 #include <cuda_runtime.h>
 
@@ -76,12 +85,14 @@ ntt_inverse_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   for (int j = threadIdx.x; j < n; j += blockDim.x) y[row + j] = a[j];
 }
 
-// out[i, c] = INTT(NTT(u[i]) . w[i, c]) for c = 0 .. num_c-1; block i per prime.
-// u row i starts at u + i * u_stride (a view of one ciphertext component
-// is read in place).  Shared memory: NTT(u) (kept for every c) and one
+// Block (b, i): out[i, c, b] = INTT(NTT(u[i, b]) . w[i, c]) for c = 0 .. num_c-1.
+// Row (i, b) of u starts at u + i * u_sp + b * u_sb, so a view of one
+// ciphertext component, or the rows of a stack, is read in place; w is the
+// shared [k, num_c, n] operand; out is [k, num_c, B, n] (B = gridDim.x, 1 for
+// the single function).  Shared memory: NTT(u) (kept for every c) and one
 // working polynomial.
 __global__ void __launch_bounds__(1024)
-mul_by_ntt_operand_kernel(const uint32_t* __restrict__ u, long long u_stride,
+mul_by_ntt_operand_kernel(const uint32_t* __restrict__ u, long long u_sp, long long u_sb,
                           const uint32_t* __restrict__ w, uint32_t* __restrict__ out,
                           const uint32_t* __restrict__ p, const uint32_t* __restrict__ mu,
                           const uint32_t* __restrict__ psi,
@@ -94,30 +105,38 @@ mul_by_ntt_operand_kernel(const uint32_t* __restrict__ u, long long u_stride,
   const int n = 1 << logn;
   uint32_t* un = sm;
   uint32_t* a = sm + n;
-  const int i = blockIdx.x;
+  const int i = blockIdx.y;
+  const int b = blockIdx.x;
+  const int batch = gridDim.x;
   const uint32_t pi = p[i];
   const uint32_t mui = mu[i];
   const size_t tab = static_cast<size_t>(i) * n;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) un[j] = u[i * u_stride + j];
+  const uint32_t* ur = u + i * u_sp + b * u_sb;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) un[j] = ur[j];
   __syncthreads();
   fhe::fwd_ntt_smem(un, logn, pi, psi + tab, psi_sh + tab);
   for (int c = 0; c < num_c; ++c) {
     const size_t row = (static_cast<size_t>(i) * num_c + c) * n;
+    const size_t orow = ((static_cast<size_t>(i) * num_c + c) * batch + b) * n;
     for (int j = threadIdx.x; j < n; j += blockDim.x)
       a[j] = fhe::mul_barrett(un[j], w[row + j], pi, mui);
     __syncthreads();
     fhe::inv_ntt_smem(a, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i]);
-    for (int j = threadIdx.x; j < n; j += blockDim.x) out[row + j] = a[j];
+    for (int j = threadIdx.x; j < n; j += blockDim.x) out[orow + j] = a[j];
     __syncthreads();
   }
 }
 
-// out[i] = INTT(c0, c1, c2) with (c0, c1, c2) the tensor product of
-// NTT(x[i]) and NTT(y[i]); x, y: [k, 2, n], out: [k, 3, n]; block i per
-// prime.  With the multiply's tables n_inv is t * n^-1, so the scale by t
-// costs nothing.  Shared memory: the four input rows (4 * 32 KB at n = 8192).
+// Block (b, i): out[i, :, b] = INTT(c0, c1, c2) with (c0, c1, c2) the tensor
+// product of NTT(x[i, :, b]) and NTT(y[i, :, b]).  Element (i, c, b, j) of x
+// and of y sits at i * s_p + c * s_c + b * s_b + j, so the [k, 2, B, n] halves
+// may be views of a [B, k, 4, n] stack, read in place; out is [k, 3, B, n]
+// (B = gridDim.x, 1 for the single function).  With the multiply's tables
+// n_inv is t * n^-1, so the scale by t costs nothing.  Shared memory: the
+// four input rows (4 * 32 KB at n = 8192).
 __global__ void __launch_bounds__(1024)
 tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                      long long s_p, long long s_c, long long s_b,
                       uint32_t* __restrict__ out, const uint32_t* __restrict__ p,
                       const uint32_t* __restrict__ mu, const uint32_t* __restrict__ psi,
                       const uint32_t* __restrict__ psi_sh,
@@ -127,50 +146,63 @@ tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
                       const uint32_t* __restrict__ n_inv_sh, int logn) {
   extern __shared__ uint32_t sm[];
   const int n = 1 << logn;
-  const int i = blockIdx.x;
+  const int i = blockIdx.y;
+  const int b = blockIdx.x;
+  const int batch = gridDim.x;
   const uint32_t pi = p[i];
   const size_t tab = static_cast<size_t>(i) * n;
-  const size_t in = 2 * tab;
-  for (int j = threadIdx.x; j < 2 * n; j += blockDim.x) {
+  const long long in = i * s_p + b * s_b;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
     sm[j] = x[in + j];
+    sm[n + j] = x[in + s_c + j];
     sm[2 * n + j] = y[in + j];
+    sm[3 * n + j] = y[in + s_c + j];
   }
   __syncthreads();
   fhe::fwd_ntt_smem<4>(sm, logn, pi, psi + tab, psi_sh + tab);
   fhe::tensor_product_smem(sm, logn, pi, mu[i]);
   fhe::inv_ntt_smem<3>(sm, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i]);
-  for (int j = threadIdx.x; j < 3 * n; j += blockDim.x) out[3 * tab + j] = sm[j];
+  // element c * n + j stays with thread j mod blockDim.x, as the inverse left it
+  for (int c = 0; c < 3; ++c) {
+    const size_t orow = ((static_cast<size_t>(i) * 3 + c) * batch + b) * n;
+    for (int j = threadIdx.x; j < n; j += blockDim.x) out[orow + j] = sm[c * n + j];
+  }
 }
 
-// Key-switch inner product, block i per prime p_i:
-//   out[i] = INTT( sum_j NTT([d_j]_{p_i}) . key[i, j, c] ),  c = 0, 1.
-// d: [kd, n] gadget digits, digit j a residue mod its own q_j (< 2^30), so
-// it is reduced mod p_i first: mul_barrett is exact only below p.  Key
-// element (i, j, c, x) sits at keys[i * key_prime_stride + j * key_digit_stride
-// + c * n + x], so the stored [digit, prime, 2, n] keys are read in place.
-// The digits go through one working row in turn; the two sums live in shared
-// memory (3 * 32 KB at n = 8192).  Mod-add is exact, so the sequential sum
-// equals the reference's add tree bit for bit.  out: [k, 2, n].
+// Key-switch inner product, block (b, i) for element b and prime p_i:
+//   out[i, c, b] = INTT( sum_j NTT([d_j,b]_{p_i}) . key[i, j, c] ),  c = 0, 1.
+// Digit j of element b is the row at d + j * d_sj + b * d_sb, a residue mod
+// its own q_j (< 2^30), so it is reduced mod p_i first: mul_barrett is exact
+// only below p.  Key element (i, j, c, x) sits at keys[i * key_prime_stride +
+// j * key_digit_stride + c * n + x], so the stored [digit, prime, 2, n] keys
+// are read in place and shared by all B elements.  The digits go through
+// one working row in turn; the two sums live in shared memory (3 * 32 KB at
+// n = 8192).  Mod-add is exact, so the sequential sum equals the reference's
+// add tree bit for bit.  out: [k, 2, B, n] (B = gridDim.x, 1 for the single
+// function).
 __global__ void __launch_bounds__(1024)
-keyswitch_kernel(const uint32_t* __restrict__ d, const uint32_t* __restrict__ keys,
-                 long long key_prime_stride, long long key_digit_stride,
-                 uint32_t* __restrict__ out, const uint32_t* __restrict__ p,
-                 const uint32_t* __restrict__ mu, const uint32_t* __restrict__ psi,
-                 const uint32_t* __restrict__ psi_sh, const uint32_t* __restrict__ ipsi,
-                 const uint32_t* __restrict__ ipsi_sh,
+keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sj, long long d_sb,
+                 const uint32_t* __restrict__ keys, long long key_prime_stride,
+                 long long key_digit_stride, uint32_t* __restrict__ out,
+                 const uint32_t* __restrict__ p, const uint32_t* __restrict__ mu,
+                 const uint32_t* __restrict__ psi, const uint32_t* __restrict__ psi_sh,
+                 const uint32_t* __restrict__ ipsi, const uint32_t* __restrict__ ipsi_sh,
                  const uint32_t* __restrict__ n_inv,
                  const uint32_t* __restrict__ n_inv_sh, int kd, int logn) {
   extern __shared__ uint32_t sm[];
   const int n = 1 << logn;
   uint32_t* a = sm;
   uint32_t* acc = sm + n;
-  const int i = blockIdx.x;
+  const int i = blockIdx.y;
+  const int b = blockIdx.x;
+  const int batch = gridDim.x;
   const uint32_t pi = p[i];
   const uint32_t mui = mu[i];
   const size_t tab = static_cast<size_t>(i) * n;
   for (int j = 0; j < kd; ++j) {
+    const uint32_t* dr = d + j * d_sj + b * d_sb;
     for (int x = threadIdx.x; x < n; x += blockDim.x)
-      a[x] = fhe::reduce_barrett(d[static_cast<size_t>(j) * n + x], pi, mui);
+      a[x] = fhe::reduce_barrett(dr[x], pi, mui);
     __syncthreads();
     fhe::fwd_ntt_smem(a, logn, pi, psi + tab, psi_sh + tab);
     const uint32_t* key = keys + i * key_prime_stride + j * key_digit_stride;
@@ -183,7 +215,11 @@ keyswitch_kernel(const uint32_t* __restrict__ d, const uint32_t* __restrict__ ke
     __syncthreads();
   }
   fhe::inv_ntt_smem<2>(acc, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i]);
-  for (int x = threadIdx.x; x < 2 * n; x += blockDim.x) out[2 * tab + x] = acc[x];
+  // element c * n + x stays with thread x mod blockDim.x, as the inverse left it
+  for (int c = 0; c < 2; ++c) {
+    const size_t orow = ((static_cast<size_t>(i) * 2 + c) * batch + b) * n;
+    for (int x = threadIdx.x; x < n; x += blockDim.x) out[orow + x] = acc[c * n + x];
+  }
 }
 
 }  // namespace
@@ -222,20 +258,19 @@ int fhe_ntt_inverse(const void* x, void* y, const void* p, const void* ipsi,
   return static_cast<int>(cudaGetLastError());
 }
 
-int fhe_mul_by_ntt_operand(const void* u, long long u_stride, const void* w, void* out,
-                           const void* p,
-                           const void* mu, const void* psi, const void* psi_sh,
-                           const void* ipsi, const void* ipsi_sh, const void* n_inv,
-                           const void* n_inv_sh, int k, int num_c, int logn,
-                           void* stream) {
+int fhe_mul_by_ntt_operand(const void* u, long long u_sp, long long u_sb, const void* w,
+                           void* out, const void* p, const void* mu, const void* psi,
+                           const void* psi_sh, const void* ipsi, const void* ipsi_sh,
+                           const void* n_inv, const void* n_inv_sh, int k, int num_c,
+                           int batch, int logn, void* stream) {
   const size_t smem = 2 * (sizeof(uint32_t) << logn);
   static std::atomic<size_t> granted[fhe::kMaxDevices];
   cudaError_t err = fhe::allow_smem(
       reinterpret_cast<const void*>(mul_by_ntt_operand_kernel), smem, granted);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mul_by_ntt_operand_kernel<<<k, fhe::ntt_threads(logn), smem,
+  mul_by_ntt_operand_kernel<<<dim3(batch, k), fhe::ntt_threads(logn), smem,
                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(u), u_stride, static_cast<const uint32_t*>(w),
+      static_cast<const uint32_t*>(u), u_sp, u_sb, static_cast<const uint32_t*>(w),
       static_cast<uint32_t*>(out), static_cast<const uint32_t*>(p),
       static_cast<const uint32_t*>(mu), static_cast<const uint32_t*>(psi),
       static_cast<const uint32_t*>(psi_sh), static_cast<const uint32_t*>(ipsi),
@@ -244,18 +279,19 @@ int fhe_mul_by_ntt_operand(const void* u, long long u_stride, const void* w, voi
   return static_cast<int>(cudaGetLastError());
 }
 
-int fhe_tensor_product(const void* x, const void* y, void* out, const void* p,
-                       const void* mu, const void* psi, const void* psi_sh,
-                       const void* ipsi, const void* ipsi_sh, const void* n_inv,
-                       const void* n_inv_sh, int k, int logn, void* stream) {
+int fhe_tensor_product(const void* x, const void* y, long long s_p, long long s_c,
+                       long long s_b, void* out, const void* p, const void* mu,
+                       const void* psi, const void* psi_sh, const void* ipsi,
+                       const void* ipsi_sh, const void* n_inv, const void* n_inv_sh, int k,
+                       int batch, int logn, void* stream) {
   const size_t smem = 4 * (sizeof(uint32_t) << logn);
   static std::atomic<size_t> granted[fhe::kMaxDevices];
   cudaError_t err = fhe::allow_smem(
       reinterpret_cast<const void*>(tensor_product_kernel), smem, granted);
   if (err != cudaSuccess) return static_cast<int>(err);
-  tensor_product_kernel<<<k, fhe::ntt_threads(logn), smem,
+  tensor_product_kernel<<<dim3(batch, k), fhe::ntt_threads(logn), smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(y),
+      static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(y), s_p, s_c, s_b,
       static_cast<uint32_t*>(out), static_cast<const uint32_t*>(p),
       static_cast<const uint32_t*>(mu), static_cast<const uint32_t*>(psi),
       static_cast<const uint32_t*>(psi_sh), static_cast<const uint32_t*>(ipsi),
@@ -264,19 +300,19 @@ int fhe_tensor_product(const void* x, const void* y, void* out, const void* p,
   return static_cast<int>(cudaGetLastError());
 }
 
-int fhe_keyswitch(const void* d, const void* keys, long long key_prime_stride,
-                  long long key_digit_stride, void* out, const void* p, const void* mu,
-                  const void* psi, const void* psi_sh, const void* ipsi,
-                  const void* ipsi_sh, const void* n_inv, const void* n_inv_sh, int k,
-                  int kd, int logn, void* stream) {
+int fhe_keyswitch(const void* d, long long d_sj, long long d_sb, const void* keys,
+                  long long key_prime_stride, long long key_digit_stride, void* out,
+                  const void* p, const void* mu, const void* psi, const void* psi_sh,
+                  const void* ipsi, const void* ipsi_sh, const void* n_inv,
+                  const void* n_inv_sh, int k, int kd, int batch, int logn, void* stream) {
   const size_t smem = 3 * (sizeof(uint32_t) << logn);
   static std::atomic<size_t> granted[fhe::kMaxDevices];
   cudaError_t err = fhe::allow_smem(
       reinterpret_cast<const void*>(keyswitch_kernel), smem, granted);
   if (err != cudaSuccess) return static_cast<int>(err);
-  keyswitch_kernel<<<k, fhe::ntt_threads(logn), smem,
+  keyswitch_kernel<<<dim3(batch, k), fhe::ntt_threads(logn), smem,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(d), static_cast<const uint32_t*>(keys),
+      static_cast<const uint32_t*>(d), d_sj, d_sb, static_cast<const uint32_t*>(keys),
       key_prime_stride, key_digit_stride, static_cast<uint32_t*>(out),
       static_cast<const uint32_t*>(p), static_cast<const uint32_t*>(mu),
       static_cast<const uint32_t*>(psi), static_cast<const uint32_t*>(psi_sh),

@@ -2,10 +2,14 @@
 //
 // Replaces fhe_tpu/ops/rns_pallas.py: bsk_branch_fused (body
 // _bsk_branch_kernel) and fast_bconv_sk_fused (body _sk_kernel).  Plain
-// versions: fhe_tpu_torch/ops/rns.py (bsk_branch_fused, fast_bconv_sk).
+// versions: fhe_tpu_torch/ops/rns.py (bsk_branch_fused and
+// bsk_branch_fused_batch, fast_bconv_sk).  The JAX multiply_batch runs the
+// Bsk branch as vmapped jnp chains around tensor_product_batch; here it is
+// this one kernel with a batch grid axis, which computes the same residues.
 //
-// bsk_branch_fused, block j per Bsk prime c_j (shared memory: 4 * 32 KB at
-// n = 8192):
+// bsk_branch_fused, block (b, j) for element b and Bsk prime c_j (shared
+// memory: 4 * 32 KB at n = 8192; B = 1 for the single multiply, the batch
+// size for multiply_batch):
 //   1. SmMRq lift of the four rows a0, a1, b0, b1 from q into c_j: digits
 //      y_i = [x_i * m~ * (q/q_i)^-1]_{q_i}, conv = sum_i y_i * (q/q_i) mod c_j
 //      and the m~ = 2^16 lane sum_i (y_i & 0xFFFF) * (q/q_i) mod 2^16; alpha =
@@ -33,7 +37,9 @@
 // 480 KB: about 0.5 us by memory rate, and about 10 M integer instructions
 // per block, 49 M in all: about 3 us at the whole card's issue rate.  It
 // runs on 5 blocks, one per SM, so what bounds it is the issue rate of
-// those 5 SMs (about half of it is reached; times: PERF.md).
+// those 5 SMs (about half of it is reached; times: PERF.md).  The batch axis
+// of multiply_batch gives kb * B blocks (40 at B = 8), each doing one
+// element's work on its own SM.
 // fast_bconv_sk_fused moves 480 KB + 288 KB and runs 74 K threads: it is
 // bound by launch latency.
 
@@ -48,11 +54,17 @@ namespace {
 
 constexpr uint32_t kMask16 = 0xFFFFu;
 
-// ab: [k, 4, n] (a0, a1, b0, b1 in q), txq: [k, 3, n], out: [kb, 3, n].
-// Per-prime constant arrays follow ops/rns.py (SmMRqConsts, FastFloorConsts);
-// [kb, k] tables are row-major by destination prime.
+// ab: [k, 4, B, n] (a0, a1, b0, b1 in q), element (i, c, b, x) at
+// i * ab_sp + c * ab_sc + b * ab_sb + x; txq: [k, 3, B, n] with its own
+// strides; so both may be views of per-ciphertext stacks, read in place.
+// The strides are 32-bit (the wrapper checks that every offset fits): 64-bit
+// index products in the lift and floor loops cost the single kernel 2 %.
+// out: [kb, 3, B, n], B = gridDim.x.  Per-prime constant arrays follow
+// ops/rns.py (SmMRqConsts, FastFloorConsts); [kb, k] tables are row-major by
+// destination prime.
 __global__ void __launch_bounds__(1024)
-bsk_branch_kernel(const uint32_t* __restrict__ ab, const uint32_t* __restrict__ txq,
+bsk_branch_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_sb,
+                  const uint32_t* __restrict__ txq, int tx_sp, int tx_sc, int tx_sb,
                   uint32_t* __restrict__ out, const uint32_t* __restrict__ q,
                   const uint32_t* __restrict__ mt_inv_phat,
                   const uint32_t* __restrict__ mt_inv_phat_sh,
@@ -77,25 +89,33 @@ bsk_branch_kernel(const uint32_t* __restrict__ ab, const uint32_t* __restrict__ 
                   const uint32_t* __restrict__ n_inv_sh, int k, int logn) {
   extern __shared__ uint32_t sm[];
   const int n = 1 << logn;
-  const int j = blockIdx.x;
+  const int j = blockIdx.y;
+  const int b = blockIdx.x;
+  const int batch = gridDim.x;
   const uint32_t c = cp[j];
   const size_t tab = static_cast<size_t>(j) * n;
   // 1. SmMRq lift of the four rows into c_j
   const uint32_t qc = q_mod_c[j], qc_sh = q_mod_c_sh[j];
   const uint32_t imt = inv_mt_c[j], imt_sh = inv_mt_c_sh[j];
-  for (int e = threadIdx.x; e < 4 * n; e += blockDim.x) {
-    uint32_t conv = 0, lane = 0;
-    for (int i = 0; i < k; ++i) {
-      const uint32_t y = fhe::mul_shoup(ab[static_cast<size_t>(i) * 4 * n + e],
-                                        mt_inv_phat[i], mt_inv_phat_sh[i], q[i]);
-      conv = fhe::add_mod(conv, fhe::mul_shoup(y, lift_phat[j * k + i],
-                                               lift_phat_sh[j * k + i], c), c);
-      lane = (lane + (y & kMask16) * phat_mt[i]) & kMask16;
+  // row by row, so that each row's base address is formed once; element
+  // row * n + x stays with thread x mod blockDim.x, as in the sweeps
+  for (int row = 0; row < 4; ++row) {
+    const uint32_t* src = ab + row * ab_sc + b * ab_sb;
+    for (int x = threadIdx.x; x < n; x += blockDim.x) {
+      uint32_t conv = 0, lane = 0;
+      for (int i = 0; i < k; ++i) {
+        const uint32_t y = fhe::mul_shoup(src[i * ab_sp + x], mt_inv_phat[i],
+                                          mt_inv_phat_sh[i], q[i]);
+        conv = fhe::add_mod(conv, fhe::mul_shoup(y, lift_phat[j * k + i],
+                                                 lift_phat_sh[j * k + i], c), c);
+        lane = (lane + (y & kMask16) * phat_mt[i]) & kMask16;
+      }
+      const uint32_t alpha = (lane * inv_q_mt) & kMask16;
+      const uint32_t alpha_c = alpha < (1u << 15) ? alpha : c - ((1u << 16) - alpha);
+      const uint32_t centred =
+          fhe::sub_mod(conv, fhe::mul_shoup(alpha_c, qc, qc_sh, c), c);
+      sm[row * n + x] = fhe::mul_shoup(centred, imt, imt_sh, c);
     }
-    const uint32_t alpha = (lane * inv_q_mt) & kMask16;
-    const uint32_t alpha_c = alpha < (1u << 15) ? alpha : c - ((1u << 16) - alpha);
-    const uint32_t centred = fhe::sub_mod(conv, fhe::mul_shoup(alpha_c, qc, qc_sh, c), c);
-    sm[e] = fhe::mul_shoup(centred, imt, imt_sh, c);
   }
   __syncthreads();
   // 2. tensor product at c_j, t folded into the inverse normalisation
@@ -104,15 +124,19 @@ bsk_branch_kernel(const uint32_t* __restrict__ ab, const uint32_t* __restrict__ 
   fhe::inv_ntt_smem<3>(sm, logn, c, ipsi + tab, ipsi_sh + tab, n_inv[j], n_inv_sh[j]);
   // 3. FastFloor against the q-side product
   const uint32_t iq = inv_q_c[j], iq_sh = inv_q_c_sh[j];
-  for (int e = threadIdx.x; e < 3 * n; e += blockDim.x) {
-    uint32_t conv = 0;
-    for (int i = 0; i < k; ++i) {
-      const uint32_t y = fhe::mul_shoup(txq[static_cast<size_t>(i) * 3 * n + e],
-                                        floor_inv_phat[i], floor_inv_phat_sh[i], q[i]);
-      conv = fhe::add_mod(conv, fhe::mul_shoup(y, floor_phat[j * k + i],
-                                               floor_phat_sh[j * k + i], c), c);
+  for (int row = 0; row < 3; ++row) {
+    const uint32_t* src = txq + row * tx_sc + b * tx_sb;
+    uint32_t* dst = out + ((static_cast<size_t>(j) * 3 + row) * batch + b) * n;
+    for (int x = threadIdx.x; x < n; x += blockDim.x) {
+      uint32_t conv = 0;
+      for (int i = 0; i < k; ++i) {
+        const uint32_t y = fhe::mul_shoup(src[i * tx_sp + x], floor_inv_phat[i],
+                                          floor_inv_phat_sh[i], q[i]);
+        conv = fhe::add_mod(conv, fhe::mul_shoup(y, floor_phat[j * k + i],
+                                                 floor_phat_sh[j * k + i], c), c);
+      }
+      dst[x] = fhe::mul_shoup(fhe::sub_mod(sm[row * n + x], conv, c), iq, iq_sh, c);
     }
-    out[3 * tab + e] = fhe::mul_shoup(fhe::sub_mod(sm[e], conv, c), iq, iq_sh, c);
   }
 }
 
@@ -155,7 +179,9 @@ fast_bconv_sk_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
 
 extern "C" {
 
-int fhe_bsk_branch(const void* ab, const void* txq, void* out, const void* q,
+int fhe_bsk_branch(const void* ab, int ab_sp, int ab_sc, int ab_sb, const void* txq,
+                   int tx_sp, int tx_sc, int tx_sb,
+                   void* out, const void* q,
                    const void* mt_inv_phat, const void* mt_inv_phat_sh,
                    const void* lift_phat, const void* lift_phat_sh, const void* phat_mt,
                    const void* q_mod_c, const void* q_mod_c_sh, const void* inv_mt_c,
@@ -164,16 +190,18 @@ int fhe_bsk_branch(const void* ab, const void* txq, void* out, const void* q,
                    const void* floor_phat_sh, const void* inv_q_c, const void* inv_q_c_sh,
                    const void* cp, const void* mu, const void* psi, const void* psi_sh,
                    const void* ipsi, const void* ipsi_sh, const void* n_inv,
-                   const void* n_inv_sh, int k, int kb, int logn, void* stream) {
+                   const void* n_inv_sh, int k, int kb, int batch, int logn,
+                   void* stream) {
   const size_t smem = 4 * (sizeof(uint32_t) << logn);
   static std::atomic<size_t> granted[fhe::kMaxDevices];
   const cudaError_t err = fhe::allow_smem(
       reinterpret_cast<const void*>(bsk_branch_kernel), smem, granted);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  bsk_branch_kernel<<<kb, fhe::ntt_threads(logn), smem,
+  bsk_branch_kernel<<<dim3(batch, kb), fhe::ntt_threads(logn), smem,
                       static_cast<cudaStream_t>(stream)>>>(
-      u(ab), u(txq), static_cast<uint32_t*>(out), u(q), u(mt_inv_phat),
+      u(ab), ab_sp, ab_sc, ab_sb, u(txq), tx_sp, tx_sc, tx_sb,
+      static_cast<uint32_t*>(out), u(q), u(mt_inv_phat),
       u(mt_inv_phat_sh), u(lift_phat), u(lift_phat_sh), u(phat_mt), u(q_mod_c),
       u(q_mod_c_sh), u(inv_mt_c), u(inv_mt_c_sh), inv_q_mt, u(floor_inv_phat),
       u(floor_inv_phat_sh), u(floor_phat), u(floor_phat_sh), u(inv_q_c), u(inv_q_c_sh),

@@ -167,37 +167,66 @@ def pointwise_mul(a: torch.Tensor, b: torch.Tensor,
     return mm.mul_mod(a, b, _p(tb, a.dim()))
 
 
+def mul_by_ntt_operand_batch(u: torch.Tensor, w_ntt: torch.Tensor,
+                             tb: NTTTables) -> torch.Tensor:
+    """INTT(NTT(u_b) ⊙ w_c) for B coefficient-domain polynomials u [k, B, n]
+    against the c rows of a shared [k, c, n] NTT-form operand; returns
+    [k, c, B, n]."""
+    k, batch, n = u.shape
+    c = w_ntt.shape[1]
+    prod = pointwise_mul(ntt_forward(u, tb)[:, None], w_ntt[:, :, None], tb)
+    return ntt_inverse(prod.reshape(k, c * batch, n), tb).view(k, c, batch, n)
+
+
 def mul_by_ntt_operand(u: torch.Tensor, w_ntt: torch.Tensor,
                        tb: NTTTables) -> torch.Tensor:
     """INTT(NTT(u) ⊙ w_c) for a [k, 1, n] coefficient-domain u against the
     c rows of a [k, c, n] NTT-form operand; returns [k, c, n]."""
-    return ntt_inverse(pointwise_mul(ntt_forward(u, tb).expand_as(w_ntt),
-                                     w_ntt, tb), tb)
+    return mul_by_ntt_operand_batch(u, w_ntt, tb)[:, :, 0]
+
+
+def tensor_product_batch(x: torch.Tensor, y: torch.Tensor,
+                         tb: NTTTables) -> torch.Tensor:
+    """(c0, c1, c2) = (x0*y0, x0*y1 + x1*y0, x1*y1) of B pairs of
+    coefficient-domain ciphertext halves x, y [k, 2, B, n], negacyclic;
+    returns [k, 3, B, n].  With the multiply's tables (``build_mul_tables``)
+    the result is t times the product."""
+    k, _, batch, n = x.shape
+    f = ntt_forward(torch.cat([x, y], dim=1).reshape(k, 4 * batch, n), tb)
+    a0, a1, b0, b1 = f.view(k, 4, batch, n).unbind(1)
+    c1 = mm.add_mod(pointwise_mul(a0, b1, tb), pointwise_mul(a1, b0, tb),
+                    _p(tb, 3))
+    prod = torch.stack([pointwise_mul(a0, b0, tb), c1, pointwise_mul(a1, b1, tb)],
+                       dim=1)
+    return ntt_inverse(prod.view(k, 3 * batch, n), tb).view(k, 3, batch, n)
 
 
 def tensor_product(x: torch.Tensor, y: torch.Tensor,
                    tb: NTTTables) -> torch.Tensor:
-    """(c0, c1, c2) = (x0*y0, x0*y1 + x1*y0, x1*y1) of two [k, 2, n]
-    coefficient-domain ciphertext halves, negacyclic; returns [k, 3, n].
-    With the multiply's tables (``build_mul_tables``) the result is t times
-    the product."""
-    f = ntt_forward(torch.cat([x, y], dim=1), tb)
-    a0, a1, b0, b1 = f[:, 0:1], f[:, 1:2], f[:, 2:3], f[:, 3:4]
-    c1 = mm.add_mod(pointwise_mul(a0, b1, tb), pointwise_mul(a1, b0, tb),
-                    _p(tb, 3))
-    return ntt_inverse(torch.cat([pointwise_mul(a0, b0, tb), c1,
-                                  pointwise_mul(a1, b1, tb)], dim=1), tb)
+    """``tensor_product_batch`` of one pair of [k, 2, n] halves; returns
+    [k, 3, n]."""
+    return tensor_product_batch(x[:, :, None], y[:, :, None], tb)[:, :, 0]
+
+
+def keyswitch_fused_batch(d: torch.Tensor, keys_t: torch.Tensor,
+                          tb: NTTTables) -> torch.Tensor:
+    """INTT(sum_j NTT([d_j,b]_{p_i}) ⊙ key[i, j, c]) for c = 0, 1 and each of
+    B elements: d a [kd, B, n] stack of gadget digits (digit j a residue mod
+    its own q_j), keys_t the shared [k, kd, 2, n] NTT-form key material,
+    prime-major.  Returns the [k, 2, B, n] coefficient-domain key-switch
+    corrections."""
+    k, kd, _, n = keys_t.shape
+    batch = d.shape[1]
+    dr = torch.remainder(d.to(torch.int64)[None], _p(tb, 4)).to(torch.int32)
+    f = ntt_forward(dr.reshape(k, kd * batch, n), tb).view(k, kd, 1, batch, n)
+    prod = mm.mul_mod(f, keys_t[:, :, :, None], _p(tb, 5))      # [k, kd, 2, B, n]
+    acc = torch.remainder(prod.to(torch.int64).sum(1), _p(tb, 4))
+    return ntt_inverse(acc.to(torch.int32).view(k, 2 * batch, n),
+                       tb).view(k, 2, batch, n)
 
 
 def keyswitch_fused(d: torch.Tensor, keys_t: torch.Tensor,
                     tb: NTTTables) -> torch.Tensor:
-    """INTT(sum_j NTT([d_j]_{p_i}) ⊙ key[i, j, c]) for c = 0, 1: d a [kd, n]
-    stack of gadget digits (digit j a residue mod its own q_j), keys_t the
-    [k, kd, 2, n] NTT-form key material, prime-major.  Returns the [k, 2, n]
-    coefficient-domain key-switch correction."""
-    k, kd, _, n = keys_t.shape
-    dr = torch.remainder(d.to(torch.int64)[None], _p(tb, 3)).to(torch.int32)
-    f = ntt_forward(dr, tb)                                   # [k, kd, n]
-    prod = mm.mul_mod(f[:, :, None], keys_t, _p(tb, 4))       # [k, kd, 2, n]
-    acc = torch.remainder(prod.to(torch.int64).sum(1), _p(tb, 3))
-    return ntt_inverse(acc.to(torch.int32), tb)
+    """``keyswitch_fused_batch`` of one [kd, n] digit stack; returns the
+    [k, 2, n] coefficient-domain key-switch correction."""
+    return keyswitch_fused_batch(d[:, None], keys_t, tb)[:, :, 0]

@@ -1,11 +1,13 @@
 """NTT kernel wrappers — counterpart of ``fhe_tpu/ops/ntt_pallas.py``.
 
-``ntt_forward``, ``ntt_inverse``, ``mul_by_ntt_operand``, ``tensor_product``
-and ``keyswitch_fused`` launch the hand-written CUDA kernels of
-``csrc/ntt.cu`` (design and bound: the note at the top of that file) for
-CUDA tensors and use the plain PyTorch versions of ``ops/ntt.py`` for CPU
-tensors; any other device raises.  Each wrapper counts its kernel launches
-in ``<wrapper>.launches``.
+``ntt_forward``, ``ntt_inverse``, ``mul_by_ntt_operand`` (and ``_batch``),
+``tensor_product`` (and ``_batch``) and ``keyswitch_fused`` (and ``_batch``)
+launch the hand-written CUDA kernels of ``csrc/ntt.cu`` (design and bound:
+the note at the top of that file) for CUDA tensors and use the plain PyTorch
+versions of ``ops/ntt.py`` for CPU tensors; any other device raises.  A
+single function and its ``_batch`` form launch the same kernel (the single
+one with a batch of 1), but each wrapper counts only its own launches, in
+``<wrapper>.launches``.
 
 Residues are int32 ``[k, batch, n]`` tensors; the kernels read the same bits
 as uint32.
@@ -36,10 +38,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ntt")
     lib.fhe_ntt_forward.argtypes = [_P] * 5 + [_I] * 3 + [_P]
     lib.fhe_ntt_inverse.argtypes = [_P] * 7 + [_I] * 3 + [_P]
-    lib.fhe_mul_by_ntt_operand.argtypes = ([_P, _L] + [_P] * 10 + [_I] * 3
-                                           + [_P])
-    lib.fhe_tensor_product.argtypes = [_P] * 11 + [_I] * 2 + [_P]
-    lib.fhe_keyswitch.argtypes = [_P] * 2 + [_L] * 2 + [_P] * 9 + [_I] * 3 + [_P]
+    lib.fhe_mul_by_ntt_operand.argtypes = ([_P] + [_L] * 2 + [_P] * 10
+                                           + [_I] * 4 + [_P])
+    lib.fhe_tensor_product.argtypes = [_P] * 2 + [_L] * 3 + [_P] * 9 + [_I] * 3 + [_P]
+    lib.fhe_keyswitch.argtypes = ([_P] + [_L] * 2 + [_P] + [_L] * 2 + [_P] * 9
+                                  + [_I] * 4 + [_P])
     for f in (lib.fhe_ntt_forward, lib.fhe_ntt_inverse,
               lib.fhe_mul_by_ntt_operand, lib.fhe_tensor_product,
               lib.fhe_keyswitch):
@@ -142,6 +145,36 @@ def ntt_inverse(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
 ntt_inverse.launches = 0
 
 
+def check_views(x: torch.Tensor, k: int, comps: int, n: int, device,
+                name: str) -> None:
+    """Raise unless x is an int32 [k, comps, B, n] tensor on ``device`` whose
+    rows of n are contiguous (a view of a [B, k, comps, n] stack will do)."""
+    if x.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32 residues, got {x.dtype}")
+    if x.dim() != 4 or (x.shape[0], x.shape[1], x.shape[3]) != (k, comps, n):
+        raise ValueError(f"{name}: expected shape [{k}, {comps}, B, {n}], got "
+                         f"{list(x.shape)}")
+    if x.stride(3) != 1:
+        raise ValueError(f"{name}: rows of n must be contiguous")
+    if x.device != device:
+        raise ValueError(f"{name}: tensor on {x.device}, expected {device}")
+
+
+def _mul_by_ntt_operand_launch(u: torch.Tensor, w_ntt: torch.Tensor,
+                               tb: NTTTables, name: str) -> torch.Tensor:
+    """One launch over the B rows of u [k, B, n] (strided): [k, c, B, n]."""
+    check_barrett(tb, name)
+    k, batch, n = u.shape
+    c = w_ntt.shape[1]
+    check_smem(n, 2, name)
+    out = torch.empty((k, c, batch, n), dtype=torch.int32, device=u.device)
+    p = _build.ptr
+    _build.launch(_lib().fhe_mul_by_ntt_operand, name, u.device, p(u),
+                  u.stride(0), u.stride(1), p(w_ntt), p(out), *table_ptrs(tb),
+                  k, c, batch, log2_exact(n))
+    return out
+
+
 def mul_by_ntt_operand(u: torch.Tensor, w_ntt: torch.Tensor,
                        tb: NTTTables) -> torch.Tensor:
     """INTT(NTT(u) ⊙ w_c): u a [k, 1, n] coefficient-domain polynomial, w_ntt
@@ -157,19 +190,44 @@ def mul_by_ntt_operand(u: torch.Tensor, w_ntt: torch.Tensor,
                          f"{list(u.shape)}")
     if not on_card(u, "mul_by_ntt_operand"):
         return _ntt.mul_by_ntt_operand(u, w_ntt, tb)
-    check_barrett(tb, "mul_by_ntt_operand")
-    k, c, n = w_ntt.shape
-    check_smem(n, 2, "mul_by_ntt_operand")
-    out = torch.empty_like(w_ntt)
-    p = _build.ptr
-    _build.launch(_lib().fhe_mul_by_ntt_operand, "mul_by_ntt_operand",
-                  u.device, p(u), u.stride(0), p(w_ntt), p(out), *table_ptrs(tb),
-                  k, c, log2_exact(n))
+    out = _mul_by_ntt_operand_launch(u, w_ntt, tb, "mul_by_ntt_operand")
     mul_by_ntt_operand.launches += 1
-    return out
+    return out[:, :, 0]
 
 
 mul_by_ntt_operand.launches = 0
+
+
+def mul_by_ntt_operand_batch(u: torch.Tensor, w_ntt: torch.Tensor,
+                             tb: NTTTables) -> torch.Tensor:
+    """INTT(NTT(u_b) ⊙ w_c) for B polynomials u [k, B, n] (coefficient
+    domain; rows of n contiguous, any other strides) against one shared
+    [k, c, n] NTT-form operand, in one launch of B * k blocks; returns
+    [k, c, B, n].  Slice b equals ``mul_by_ntt_operand(u[:, b:b+1], w)``."""
+    check_residues(u, tb, "mul_by_ntt_operand_batch", strided=True)
+    check_residues(w_ntt, tb, "mul_by_ntt_operand_batch")
+    if not on_card(u, "mul_by_ntt_operand_batch"):
+        return _ntt.mul_by_ntt_operand_batch(u, w_ntt, tb)
+    out = _mul_by_ntt_operand_launch(u, w_ntt, tb, "mul_by_ntt_operand_batch")
+    mul_by_ntt_operand_batch.launches += 1
+    return out
+
+
+mul_by_ntt_operand_batch.launches = 0
+
+
+def _tensor_product_launch(x: torch.Tensor, y: torch.Tensor, tb: NTTTables,
+                           name: str) -> torch.Tensor:
+    """One launch over x, y [k, 2, B, n] with equal strides: [k, 3, B, n]."""
+    check_barrett(tb, name)
+    k, _, batch, n = x.shape
+    check_smem(n, 4, name)
+    out = torch.empty((k, 3, batch, n), dtype=torch.int32, device=x.device)
+    p = _build.ptr
+    _build.launch(_lib().fhe_tensor_product, name, x.device, p(x), p(y),
+                  x.stride(0), x.stride(1), x.stride(2), p(out), *table_ptrs(tb),
+                  k, batch, log2_exact(n))
+    return out
 
 
 def tensor_product(x: torch.Tensor, y: torch.Tensor,
@@ -186,18 +244,60 @@ def tensor_product(x: torch.Tensor, y: torch.Tensor,
                          f"{list(y.shape)}; expected two [k, 2, n]")
     if not on_card(x, "tensor_product"):
         return _ntt.tensor_product(x, y, tb)
-    check_barrett(tb, "tensor_product")
-    k, _, n = x.shape
-    check_smem(n, 4, "tensor_product")
-    out = torch.empty((k, 3, n), dtype=torch.int32, device=x.device)
-    p = _build.ptr
-    _build.launch(_lib().fhe_tensor_product, "tensor_product", x.device,
-                  p(x), p(y), p(out), *table_ptrs(tb), k, log2_exact(n))
+    out = _tensor_product_launch(x[:, :, None], y[:, :, None], tb,
+                                 "tensor_product")
     tensor_product.launches += 1
-    return out
+    return out[:, :, 0]
 
 
 tensor_product.launches = 0
+
+
+def tensor_product_batch(x: torch.Tensor, y: torch.Tensor,
+                         tb: NTTTables) -> torch.Tensor:
+    """``tensor_product`` of B pairs at once: x, y [k, 2, B, n] with rows of
+    n contiguous and the same strides (views of one [B, k, 4, n] stack are
+    read in place); one launch of B * k blocks; returns [k, 3, B, n]."""
+    check_views(x, tb.k, 2, tb.n, tb.device, "tensor_product_batch")
+    check_views(y, tb.k, 2, tb.n, tb.device, "tensor_product_batch")
+    if y.shape != x.shape or y.stride() != x.stride():
+        raise ValueError(f"tensor_product_batch: x {list(x.shape)} strides "
+                         f"{x.stride()}, y {list(y.shape)} strides {y.stride()}")
+    if not on_card(x, "tensor_product_batch"):
+        return _ntt.tensor_product_batch(x, y, tb)
+    out = _tensor_product_launch(x, y, tb, "tensor_product_batch")
+    tensor_product_batch.launches += 1
+    return out
+
+
+tensor_product_batch.launches = 0
+
+
+def _check_keys(keys_t: torch.Tensor, kd: int, tb: NTTTables, name: str) -> None:
+    k, n = tb.k, tb.n
+    if keys_t.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32 residues")
+    if keys_t.shape != (k, kd, 2, n):
+        raise ValueError(f"{name}: keys {list(keys_t.shape)}, expected "
+                         f"[{k}, {kd}, 2, {n}]")
+    if keys_t.stride()[2:] != (n, 1):
+        raise ValueError(f"{name}: each key's [2, n] block must be contiguous")
+    if keys_t.device != tb.device:
+        raise ValueError(f"{name}: keys and tables on different devices")
+
+
+def _keyswitch_launch(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables,
+                      name: str) -> torch.Tensor:
+    """One launch over d [kd, B, n] (rows contiguous): [k, 2, B, n]."""
+    check_barrett(tb, name)
+    kd, batch, n = d.shape
+    check_smem(n, 3, name)
+    out = torch.empty((tb.k, 2, batch, n), dtype=torch.int32, device=d.device)
+    p = _build.ptr
+    _build.launch(_lib().fhe_keyswitch, name, d.device, p(d), d.stride(0),
+                  d.stride(1), p(keys_t), keys_t.stride(0), keys_t.stride(1),
+                  p(out), *table_ptrs(tb), tb.k, kd, batch, log2_exact(n))
+    return out
 
 
 def keyswitch_fused(d: torch.Tensor, keys_t: torch.Tensor,
@@ -208,30 +308,45 @@ def keyswitch_fused(d: torch.Tensor, keys_t: torch.Tensor,
     be a view with its last two dimensions contiguous (the stored
     [digit, prime, 2, n] keys permuted): the kernel reads it in place.
     Returns [k, 2, n]; every prime must be a 30-bit prime (Barrett)."""
-    if d.dtype != torch.int32 or keys_t.dtype != torch.int32:
+    if d.dtype != torch.int32:
         raise TypeError("keyswitch_fused: expected int32 residues")
-    k, kd, n = tb.k, d.shape[0], tb.n
-    if d.shape != (kd, n) or keys_t.shape != (k, kd, 2, n):
-        raise ValueError(f"keyswitch_fused: d {list(d.shape)}, keys "
-                         f"{list(keys_t.shape)}; expected [kd, {n}] and "
-                         f"[{k}, kd, 2, {n}]")
-    if not d.is_contiguous() or keys_t.stride()[2:] != (n, 1):
-        raise ValueError("keyswitch_fused: d must be contiguous and each "
-                         "key's [2, n] block contiguous")
-    if d.device != tb.device or keys_t.device != tb.device:
+    if d.dim() != 2 or d.shape[1] != tb.n or not d.is_contiguous():
+        raise ValueError(f"keyswitch_fused: d {list(d.shape)}, expected a "
+                         f"contiguous [kd, {tb.n}]")
+    if d.device != tb.device:
         raise ValueError("keyswitch_fused: tensors and tables on different "
                          "devices")
+    _check_keys(keys_t, d.shape[0], tb, "keyswitch_fused")
     if not on_card(d, "keyswitch_fused"):
         return _ntt.keyswitch_fused(d, keys_t, tb)
-    check_barrett(tb, "keyswitch_fused")
-    check_smem(n, 3, "keyswitch_fused")
-    out = torch.empty((k, 2, n), dtype=torch.int32, device=d.device)
-    p = _build.ptr
-    _build.launch(_lib().fhe_keyswitch, "keyswitch_fused", d.device,
-                  p(d), p(keys_t), keys_t.stride(0), keys_t.stride(1), p(out),
-                  *table_ptrs(tb), k, kd, log2_exact(n))
+    out = _keyswitch_launch(d[:, None], keys_t, tb, "keyswitch_fused")
     keyswitch_fused.launches += 1
-    return out
+    return out[:, :, 0]
 
 
 keyswitch_fused.launches = 0
+
+
+def keyswitch_fused_batch(d: torch.Tensor, keys_t: torch.Tensor,
+                          tb: NTTTables) -> torch.Tensor:
+    """``keyswitch_fused`` for B digit stacks against one key set: d
+    [kd, B, n] (digit-major, rows of n contiguous), keys_t [k, kd, 2, n] as
+    in ``keyswitch_fused``; one launch of B * k blocks; returns
+    [k, 2, B, n], slice b equal to ``keyswitch_fused(d[:, b], keys_t)``."""
+    if d.dtype != torch.int32:
+        raise TypeError("keyswitch_fused_batch: expected int32 residues")
+    if d.dim() != 3 or d.shape[2] != tb.n or d.stride(2) != 1:
+        raise ValueError(f"keyswitch_fused_batch: d {list(d.shape)}, expected "
+                         f"[kd, B, {tb.n}] with rows of n contiguous")
+    if d.device != tb.device:
+        raise ValueError("keyswitch_fused_batch: tensors and tables on "
+                         "different devices")
+    _check_keys(keys_t, d.shape[0], tb, "keyswitch_fused_batch")
+    if not on_card(d, "keyswitch_fused_batch"):
+        return _ntt.keyswitch_fused_batch(d, keys_t, tb)
+    out = _keyswitch_launch(d, keys_t, tb, "keyswitch_fused_batch")
+    keyswitch_fused_batch.launches += 1
+    return out
+
+
+keyswitch_fused_batch.launches = 0

@@ -13,8 +13,9 @@ Base conversions and exact rounded scalings, all-integer (BEHZ):
 
 Each is bit-exact with its ``fhe_tpu.ops.rns`` counterpart (the JAX
 package's t = 65537 Fermat decryption lane gives the same bits as the
-generic one here).  ``bsk_branch_fused`` and ``fast_bconv_sk`` are also the
-plain versions of the CUDA kernels in ``ops/rns_cuda.py``.  Residues are
+generic one here).  ``bsk_branch_fused`` (and ``_batch``) and
+``fast_bconv_sk`` are also the plain versions of the CUDA kernels in
+``ops/rns_cuda.py``.  Residues are
 int32 tensors; products are formed in int64 and reduced with ``%``.
 """
 
@@ -238,15 +239,27 @@ def fast_bconv_sk(x_bsk: torch.Tensor, sk: SKConsts) -> torch.Tensor:
     return ((conv_q - alpha_c * _col(sk.B_mod_q) % c) % c).to(torch.int32)
 
 
+def bsk_branch_fused_batch(ab: torch.Tensor, tx_q: torch.Tensor,
+                           sc: SmMRqConsts, fc: FastFloorConsts,
+                           tb_bsk: _ntt.NTTTables) -> torch.Tensor:
+    """The multiply's whole Bsk branch for B ciphertext pairs: SmMRq lift of
+    ab = a || b ([k, 4, B, n] in q), the tensor product in Bsk with the
+    t-folded tables ``tb_bsk``, then FastFloor against the t-scaled q-side
+    product tx_q [k, 3, B, n].  Returns the floored [kb, 3, B, n]."""
+    k, _, batch, n = ab.shape
+    kb = tb_bsk.k
+    lift = sm_mrq(ab.reshape(k, 4 * batch, n), sc).view(kb, 4, batch, n)
+    tx_bsk = _ntt.tensor_product_batch(lift[:, :2], lift[:, 2:], tb_bsk)
+    return fast_floor(tx_q.reshape(k, 3 * batch, n),
+                      tx_bsk.view(kb, 3 * batch, n), fc).view(kb, 3, batch, n)
+
+
 def bsk_branch_fused(ab: torch.Tensor, tx_q: torch.Tensor, sc: SmMRqConsts,
                      fc: FastFloorConsts, tb_bsk: _ntt.NTTTables) -> torch.Tensor:
-    """The multiply's whole Bsk branch: SmMRq lift of ab = a || b ([k, 4, n]
-    in q), the tensor product in Bsk with the t-folded tables ``tb_bsk``,
-    then FastFloor against the t-scaled q-side product tx_q [k, 3, n].
-    Returns the floored [kb, 3, n]."""
-    lift = sm_mrq(ab, sc)
-    return fast_floor(tx_q, _ntt.tensor_product(lift[:, :2], lift[:, 2:], tb_bsk),
-                      fc)
+    """``bsk_branch_fused_batch`` of one pair: ab [k, 4, n], tx_q [k, 3, n]
+    -> the floored [kb, 3, n]."""
+    return bsk_branch_fused_batch(ab[:, :, None], tx_q[:, :, None], sc, fc,
+                                  tb_bsk)[:, :, 0]
 
 
 @dataclasses.dataclass(frozen=True)

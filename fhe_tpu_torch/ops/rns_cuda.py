@@ -1,11 +1,12 @@
 """BEHZ conversion kernel wrappers — counterpart of ``fhe_tpu/ops/rns_pallas.py``.
 
-``bsk_branch_fused`` and ``fast_bconv_sk_fused`` launch the hand-written
-CUDA kernels of ``csrc/rns.cu`` (design and bound: the note at the top of
-that file) for CUDA tensors and use the plain PyTorch versions of
-``ops/rns.py`` (``bsk_branch_fused``, ``fast_bconv_sk``) for CPU tensors;
-any other device raises.  Each wrapper counts its kernel launches in
-``<wrapper>.launches``.
+``bsk_branch_fused`` (and ``bsk_branch_fused_batch``, the same kernel with
+a batch grid axis) and ``fast_bconv_sk_fused`` launch the hand-written CUDA
+kernels of ``csrc/rns.cu`` (design and bound: the note at the top of that
+file) for CUDA tensors and use the plain PyTorch versions of ``ops/rns.py``
+(``bsk_branch_fused``, ``bsk_branch_fused_batch``, ``fast_bconv_sk``) for
+CPU tensors; any other device raises.  Each wrapper counts its kernel
+launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch
 from . import _build
 from . import rns as _rns
 from .ntt import NTTTables
-from .ntt_cuda import check_barrett, check_smem, log2_exact, on_card, table_ptrs
+from .ntt_cuda import (check_barrett, check_smem, check_views, log2_exact,
+                       on_card, table_ptrs)
 
 _P = ctypes.c_void_p
 _U = ctypes.c_uint32
@@ -29,8 +31,8 @@ _L = ctypes.c_longlong
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rns")
-    lib.fhe_bsk_branch.argtypes = ([_P] * 13 + [_U] + [_P] * 14 + [_I] * 3
-                                   + [_P])
+    lib.fhe_bsk_branch.argtypes = ([_P] + [_I] * 3 + [_P] + [_I] * 3 + [_P] * 11
+                                   + [_U] + [_P] * 14 + [_I] * 4 + [_P])
     lib.fhe_fast_bconv_sk.argtypes = ([_P] * 12 + [_U] * 3 + [_I] * 2 + [_L]
                                       + [_P])
     for f in (lib.fhe_bsk_branch, lib.fhe_fast_bconv_sk):
@@ -46,6 +48,43 @@ def _check_int32(x: torch.Tensor, shape: tuple, name: str) -> None:
                          f"got {list(x.shape)}")
 
 
+def _check_bsk_consts(sc: _rns.SmMRqConsts, fc: _rns.FastFloorConsts,
+                      tb_bsk: NTTTables, ab: torch.Tensor, tx_q: torch.Tensor,
+                      name: str) -> None:
+    if sc.conv.p_dst.shape[0] != tb_bsk.k or fc.conv.p_dst.shape[0] != tb_bsk.k:
+        raise ValueError(f"{name}: constants do not match the tables")
+    if not (ab.device == tx_q.device == tb_bsk.device == sc.conv.p_src.device
+            == fc.inv_q_dst.device):
+        raise ValueError(f"{name}: tensors on different devices")
+
+
+def _bsk_branch_launch(ab: torch.Tensor, tx_q: torch.Tensor,
+                       sc: _rns.SmMRqConsts, fc: _rns.FastFloorConsts,
+                       tb_bsk: NTTTables, name: str) -> torch.Tensor:
+    """One launch over ab [k, 4, B, n] and tx_q [k, 3, B, n] (strided, rows
+    of n contiguous): the floored [kb, 3, B, n]."""
+    k, _, batch, n = ab.shape
+    kb = tb_bsk.k
+    check_barrett(tb_bsk, name)
+    check_smem(n, 4, name)
+    for x in (ab, tx_q):                   # the kernel indexes with 32-bit strides
+        if sum((d - 1) * st for d, st in zip(x.shape, x.stride())) >= 1 << 31:
+            raise ValueError(f"{name}: tensor too large for 32-bit offsets")
+    out = torch.empty((kb, 3, batch, n), dtype=torch.int32, device=ab.device)
+    p = _build.ptr
+    _build.launch(
+        _lib().fhe_bsk_branch, name, ab.device,
+        p(ab), *ab.stride()[:3], p(tx_q), *tx_q.stride()[:3], p(out),
+        p(sc.conv.p_src), p(sc.mt_times_inv_phat),
+        p(sc.mt_times_inv_phat_shoup), p(sc.conv.phat_mod_dst),
+        p(sc.conv.phat_shoup_dst), p(sc.phat_mod_mt), p(sc.q_mod_dst),
+        p(sc.q_shoup_dst), p(sc.inv_mt_dst), p(sc.inv_mt_shoup_dst),
+        sc.inv_q_mt, p(fc.conv.inv_phat), p(fc.conv.inv_phat_shoup),
+        p(fc.conv.phat_mod_dst), p(fc.conv.phat_shoup_dst), p(fc.inv_q_dst),
+        p(fc.inv_q_shoup_dst), *table_ptrs(tb_bsk), k, kb, batch, log2_exact(n))
+    return out
+
+
 def bsk_branch_fused(ab: torch.Tensor, tx_q: torch.Tensor,
                      sc: _rns.SmMRqConsts, fc: _rns.FastFloorConsts,
                      tb_bsk: NTTTables) -> torch.Tensor:
@@ -53,34 +92,44 @@ def bsk_branch_fused(ab: torch.Tensor, tx_q: torch.Tensor,
     ([k, 4, n] in q), tensor product in Bsk with the t-folded tables
     ``tb_bsk``, FastFloor against the t-scaled q-side product tx_q
     [k, 3, n].  Returns the floored [kb, 3, n]."""
-    k, kb, n = sc.conv.p_src.shape[0], tb_bsk.k, tb_bsk.n
+    k, n = sc.conv.p_src.shape[0], tb_bsk.n
     _check_int32(ab, (k, 4, n), "bsk_branch_fused ab")
     _check_int32(tx_q, (k, 3, n), "bsk_branch_fused tx_q")
-    if sc.conv.p_dst.shape[0] != kb or fc.conv.p_dst.shape[0] != kb:
-        raise ValueError("bsk_branch_fused: constants do not match the tables")
-    if not (ab.device == tx_q.device == tb_bsk.device == sc.conv.p_src.device
-            == fc.inv_q_dst.device):
-        raise ValueError("bsk_branch_fused: tensors on different devices")
+    _check_bsk_consts(sc, fc, tb_bsk, ab, tx_q, "bsk_branch_fused")
     if not on_card(ab, "bsk_branch_fused"):
         return _rns.bsk_branch_fused(ab, tx_q, sc, fc, tb_bsk)
-    check_barrett(tb_bsk, "bsk_branch_fused")
-    check_smem(n, 4, "bsk_branch_fused")
-    out = torch.empty((kb, 3, n), dtype=torch.int32, device=ab.device)
-    p = _build.ptr
-    _build.launch(
-        _lib().fhe_bsk_branch, "bsk_branch_fused", ab.device,
-        p(ab), p(tx_q), p(out), p(sc.conv.p_src), p(sc.mt_times_inv_phat),
-        p(sc.mt_times_inv_phat_shoup), p(sc.conv.phat_mod_dst),
-        p(sc.conv.phat_shoup_dst), p(sc.phat_mod_mt), p(sc.q_mod_dst),
-        p(sc.q_shoup_dst), p(sc.inv_mt_dst), p(sc.inv_mt_shoup_dst),
-        sc.inv_q_mt, p(fc.conv.inv_phat), p(fc.conv.inv_phat_shoup),
-        p(fc.conv.phat_mod_dst), p(fc.conv.phat_shoup_dst), p(fc.inv_q_dst),
-        p(fc.inv_q_shoup_dst), *table_ptrs(tb_bsk), k, kb, log2_exact(n))
+    out = _bsk_branch_launch(ab[:, :, None], tx_q[:, :, None], sc, fc, tb_bsk,
+                             "bsk_branch_fused")
     bsk_branch_fused.launches += 1
-    return out
+    return out[:, :, 0]
 
 
 bsk_branch_fused.launches = 0
+
+
+def bsk_branch_fused_batch(ab: torch.Tensor, tx_q: torch.Tensor,
+                           sc: _rns.SmMRqConsts, fc: _rns.FastFloorConsts,
+                           tb_bsk: NTTTables) -> torch.Tensor:
+    """``bsk_branch_fused`` for B ciphertext pairs in one launch of B * kb
+    blocks: ab [k, 4, B, n] and tx_q [k, 3, B, n], each with rows of n
+    contiguous (views of per-ciphertext stacks are read in place).  Returns
+    [kb, 3, B, n], slice b equal to
+    ``bsk_branch_fused(ab[:, :, b], tx_q[:, :, b])``."""
+    k, n, dev = sc.conv.p_src.shape[0], tb_bsk.n, tb_bsk.device
+    check_views(ab, k, 4, n, dev, "bsk_branch_fused_batch ab")
+    check_views(tx_q, k, 3, n, dev, "bsk_branch_fused_batch tx_q")
+    if ab.shape[2] != tx_q.shape[2]:
+        raise ValueError(f"bsk_branch_fused_batch: ab {list(ab.shape)}, tx_q "
+                         f"{list(tx_q.shape)}: batch sizes differ")
+    _check_bsk_consts(sc, fc, tb_bsk, ab, tx_q, "bsk_branch_fused_batch")
+    if not on_card(ab, "bsk_branch_fused_batch"):
+        return _rns.bsk_branch_fused_batch(ab, tx_q, sc, fc, tb_bsk)
+    out = _bsk_branch_launch(ab, tx_q, sc, fc, tb_bsk, "bsk_branch_fused_batch")
+    bsk_branch_fused_batch.launches += 1
+    return out
+
+
+bsk_branch_fused_batch.launches = 0
 
 
 def fast_bconv_sk_fused(x_bsk: torch.Tensor, sk: _rns.SKConsts) -> torch.Tensor:

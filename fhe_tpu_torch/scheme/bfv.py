@@ -1,21 +1,26 @@
 """BFV operations at level 0 — counterpart of ``fhe_tpu/scheme/bfv.py``.
 
-keygen, relinkey_gen, encrypt, decrypt (2 or 3 components), add / sub,
-add_plain / sub_plain, multiply_plain (with a cached NTT-form operand), the
-domain changes to_ntt / to_coeff, and the ciphertext multiply: the BEHZ
-multiply_no_relin, relinearize (RNS-digit key switching) and multiply.
-Rotations and modulus switching come in later slices.
+keygen, relinkey_gen, galoiskey_gen, encrypt, decrypt (2 or 3 components),
+add / sub, add_plain / sub_plain, multiply_plain (with a cached NTT-form
+operand), the domain changes to_ntt / to_coeff, the ciphertext multiply
+(the BEHZ multiply_no_relin, relinearize by RNS-digit key switching, and
+multiply), key_switch and the Galois rotations (apply_galois, rotate_rows,
+rotate_columns), and the serving batches: encrypt_batch, decrypt_batch,
+multiply_batch, apply_galois_batch and rotate_rows_batch.  Hoisted
+rotations and modulus switching come in later slices.
 
 Every transform goes through the kernel wrappers of ``ops/ntt_cuda.py``,
-``ops/rns_cuda.py`` and ``ops/decrypt_cuda.py``: CUDA kernels for tensors on
-the card, their plain PyTorch versions for tensors on the CPU.  The
-elementwise modular ops stay plain PyTorch on either device.
+``ops/rns_cuda.py``, ``ops/galois_cuda.py`` and ``ops/decrypt_cuda.py``:
+CUDA kernels for tensors on the card, their plain PyTorch versions for
+tensors on the CPU.  The elementwise modular ops stay plain PyTorch on
+either device.  A batch op stacks its B ciphertexts once, [B, k, c, n], and
+hands the kernels permuted views of the stack, which they read in place.
 
 Randomness comes from an explicit ``torch.Generator``.  ``keygen``,
-``relinkey_gen`` and ``encrypt`` draw with the port's samplers and call
-``keygen_from_noise``, ``relinkey_gen_from_noise`` and
-``encrypt_from_noise``, which take the draws as arguments so that the same
-draws can be fed to the JAX package and to the port.
+``relinkey_gen``, ``galoiskey_gen``, ``encrypt`` and ``encrypt_batch`` draw
+with the port's samplers and call the matching ``*_from_noise`` function,
+which takes the draws as arguments so that the same draws can be fed to the
+JAX package and to the port.
 """
 
 from __future__ import annotations
@@ -26,13 +31,15 @@ from ..ops import modmath as mm
 from ..ops import ntt as _ntt
 from ..ops import ntt_cuda
 from ..ops import decrypt_cuda
+from ..ops import galois_cuda
 from ..ops import poly as _poly
 from ..ops import rns as _rns
 from ..ops import rns_cuda
 from ..ops import sampling
 from . import noise as _noise
-from .context import SchemeContext
-from .types import Ciphertext, Plaintext, PublicKey, RelinKeys, SecretKey
+from .context import SchemeContext, default_galois_elements
+from .types import (Ciphertext, GaloisKeys, Plaintext, PublicKey, RelinKeys,
+                    SecretKey)
 
 
 # ---------------------------------------------------------------------------
@@ -127,17 +134,20 @@ def _digit_count(ctx: SchemeContext) -> int:
     return ctx.k
 
 
-def relinkey_gen_from_noise(ctx: SchemeContext, sk: SecretKey, a: torch.Tensor,
-                            e: torch.Tensor) -> RelinKeys:
-    """Relinearization keys from explicit draws: a (uniform) and e
+def _keyswitch_keygen_from_noise(ctx: SchemeContext, sk: SecretKey,
+                                 target_ntt: torch.Tensor, a: torch.Tensor,
+                                 e: torch.Tensor) -> torch.Tensor:
+    """Keys switching target -> s from explicit draws: a (uniform) and e
     (Gaussian) are [kd, k, 1, n] residues, one [k, 1, n] draw per gadget
-    digit.  Digit j is (b_j, a_j) with b_j = e_j - a_j*s + (q/q_j)*s^2, in
-    NTT form; returns [kd, k, 2, n]."""
+    digit; target_ntt is the [k, 1, n] NTT-form polynomial to switch from
+    (s^2 for relinearization, s(x^g) for a Galois key).  Digit j is
+    (b_j, a_j) with b_j = e_j - a_j*s + (q/q_j)*target, in NTT form;
+    returns [kd, k, 2, n]."""
     tb = ctx.ntt_q
     k, n = tb.k, tb.n
     kd = _digit_count(ctx)
     if a.shape != (kd, k, 1, n) or e.shape != a.shape:
-        raise ValueError(f"relinkey_gen_from_noise: draws {list(a.shape)} and "
+        raise ValueError(f"keyswitch key draws {list(a.shape)} and "
                          f"{list(e.shape)}, expected [{kd}, {k}, 1, {n}]")
     p3 = _p3(tb)
     # every draw in one batched transform: [k, 2*kd, n]
@@ -145,20 +155,19 @@ def relinkey_gen_from_noise(ctx: SchemeContext, sk: SecretKey, a: torch.Tensor,
         torch.cat([a, e], dim=0)[:, :, 0].permute(1, 0, 2).contiguous(), tb)
     a_ntt, e_ntt = x[:, :kd], x[:, kd:]
     s = sk.data[:k]
-    s2 = _ntt.pointwise_mul(s, s, tb)                            # [k, 1, n]
     q = ctx.params.q
     gadget = torch.tensor([[q // qj % qi for qj in tb.primes] for qi in tb.primes],
                           dtype=torch.int64, device=tb.device)   # [k, kd]
     b_ntt = mm.add_mod(
         mm.sub_mod(e_ntt, _ntt.pointwise_mul(a_ntt, s.expand_as(a_ntt), tb), p3),
-        mm.mul_mod(s2.expand_as(a_ntt), gadget[:, :, None], p3), p3)
+        mm.mul_mod(target_ntt.expand_as(a_ntt), gadget[:, :, None], p3), p3)
     data = torch.stack([b_ntt, a_ntt], dim=2)                    # [k, kd, 2, n]
-    return RelinKeys(data=data.permute(1, 0, 2, 3).contiguous())
+    return data.permute(1, 0, 2, 3).contiguous()
 
 
-def relinkey_gen(ctx: SchemeContext, gen: torch.Generator,
-                 sk: SecretKey) -> RelinKeys:
-    """Keys for s^2 -> s switching, with the port's samplers."""
+def _keyswitch_draws(ctx: SchemeContext,
+                     gen: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
+    """One key's draws with the port's samplers: a and e, [kd, k, 1, n]."""
     p = ctx.params
     primes = ctx.ntt_q.p
     kd = _digit_count(ctx)
@@ -166,7 +175,54 @@ def relinkey_gen(ctx: SchemeContext, gen: torch.Generator,
                      for _ in range(kd)])
     e = torch.stack([sampling.gaussian_rns(gen, primes, p.security.sigma, 1, p.n)
                      for _ in range(kd)])
-    return relinkey_gen_from_noise(ctx, sk, a, e)
+    return a, e
+
+
+def relinkey_gen_from_noise(ctx: SchemeContext, sk: SecretKey, a: torch.Tensor,
+                            e: torch.Tensor) -> RelinKeys:
+    """Relinearization keys (s^2 -> s) from explicit [kd, k, 1, n] draws;
+    see ``_keyswitch_keygen_from_noise``.  Returns [kd, k, 2, n]."""
+    s = sk.data[:ctx.k]
+    return RelinKeys(data=_keyswitch_keygen_from_noise(
+        ctx, sk, _ntt.pointwise_mul(s, s, ctx.ntt_q), a, e))
+
+
+def relinkey_gen(ctx: SchemeContext, gen: torch.Generator,
+                 sk: SecretKey) -> RelinKeys:
+    """Keys for s^2 -> s switching, with the port's samplers."""
+    return relinkey_gen_from_noise(ctx, sk, *_keyswitch_draws(ctx, gen))
+
+
+def galoiskey_gen_from_noise(ctx: SchemeContext, sk: SecretKey, elements,
+                             a: torch.Tensor, e: torch.Tensor) -> GaloisKeys:
+    """Keys for s(x^g) -> s switching, one per Galois element g of
+    ``elements``, from explicit draws a and e [len(elements), kd, k, 1, n]
+    (element i's key takes a[i] and e[i]).  The target of g is
+    s(x^g) = NTT(phi_g(INTT(s)))."""
+    elements = tuple(int(g) for g in elements)
+    if a.shape[0] != len(elements) or e.shape[0] != len(elements):
+        raise ValueError(f"galoiskey_gen_from_noise: {len(elements)} elements, "
+                         f"draws {list(a.shape)} and {list(e.shape)}")
+    tb = ctx.ntt_q
+    s_coeff = ntt_cuda.ntt_inverse(sk.data[:tb.k], tb)          # [k, 1, n]
+    keys = {}
+    for i, g in enumerate(elements):
+        s_g = ntt_cuda.ntt_forward(_apply_galois_coeff(ctx, s_coeff, g), tb)
+        keys[g] = _keyswitch_keygen_from_noise(ctx, sk, s_g, a[i], e[i])
+    return GaloisKeys(data=keys)
+
+
+def galoiskey_gen(ctx: SchemeContext, gen: torch.Generator, sk: SecretKey,
+                  elements=None) -> GaloisKeys:
+    """Galois keys with the port's samplers; by default for the power-of-two
+    row rotations in both directions and the column swap
+    (``context.default_galois_elements``)."""
+    elements = (tuple(elements) if elements is not None
+                else default_galois_elements(ctx.n))
+    draws = [_keyswitch_draws(ctx, gen) for _ in elements]
+    return galoiskey_gen_from_noise(ctx, sk, elements,
+                                    torch.stack([a for a, _ in draws]),
+                                    torch.stack([e for _, e in draws]))
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +287,68 @@ def decrypt(ctx: SchemeContext, ct: Ciphertext, sk: SecretKey) -> Plaintext:
     x = _phase(ctx, ct, sk)
     return Plaintext(data=_rns.decrypt_scale(x[:, None, :],
                                              ctx.dec_levels[ct.level])[0])
+
+
+def _split_batch(data: torch.Tensor, budgets) -> list:
+    """[k, c, B, n] coefficient-domain results -> B level-0 ciphertexts,
+    each a contiguous [k, c, n] slice of one [B, k, c, n] tensor."""
+    data = data.permute(2, 0, 1, 3).contiguous()
+    return [Ciphertext(data=data[i], level=0, is_ntt_form=False, noise_budget=nb)
+            for i, nb in enumerate(budgets)]
+
+
+def encrypt_batch_from_noise(ctx: SchemeContext, pk: PublicKey, pts: list,
+                             u: torch.Tensor, e1: torch.Tensor,
+                             e2: torch.Tensor) -> list:
+    """B fresh encryptions from explicit [k, B, n] draws (element i takes
+    column i of u, e1 and e2): one mul_by_ntt_operand_batch launch forms all
+    B products pk*u_i.  Element i equals ``encrypt_from_noise`` of pts[i]
+    with its own column of draws."""
+    tb = ctx.ntt_q
+    shape = (tb.k, len(pts), tb.n)
+    if not pts or any(x.shape != shape for x in (u, e1, e2)):
+        raise ValueError(f"encrypt_batch_from_noise: {len(pts)} plaintexts, draws "
+                         f"{[list(x.shape) for x in (u, e1, e2)]}, expected "
+                         f"{list(shape)} each")
+    p3 = _p3(tb)
+    pk_u = ntt_cuda.mul_by_ntt_operand_batch(u, pk.data, tb)     # [k, 2, B, n]
+    delta, _ = ctx.delta_levels[0]
+    dm = mm.mul_mod(torch.stack([pt.data for pt in pts])[None],
+                    delta.view(-1, 1, 1), p3)                    # [k, B, n]
+    c0 = mm.add_mod(mm.add_mod(pk_u[:, 0], e1, p3), dm, p3)
+    c1 = mm.add_mod(pk_u[:, 1], e2, p3)
+    return _split_batch(torch.stack([c0, c1], dim=1),
+                        [_fresh_noise_budget(ctx)] * len(pts))
+
+
+def encrypt_batch(ctx: SchemeContext, gen: torch.Generator, pk: PublicKey,
+                  pts: list) -> list:
+    """Encrypt B plaintexts at once, each with its own draws from ``gen``."""
+    p = ctx.params
+    primes = ctx.ntt_q.p
+    batch = len(pts)
+    u = sampling.ternary_rns(gen, primes, batch, p.n, p.security.hamming_weight)
+    e1 = sampling.gaussian_rns(gen, primes, p.security.sigma, batch, p.n)
+    e2 = sampling.gaussian_rns(gen, primes, p.security.sigma, batch, p.n)
+    return encrypt_batch_from_noise(ctx, pk, pts, u, e1, e2)
+
+
+def decrypt_batch(ctx: SchemeContext, cts: list, sk: SecretKey) -> list:
+    """Decrypt B two-component ciphertexts in one decrypt_fused launch: the
+    ciphertexts are stacked once and the kernel reads c0 and c1 as [k, B, n]
+    views of the stack.  One ciphertext, mixed levels or another component
+    count fall back to ``decrypt`` per element, as in the JAX package;
+    element i equals decrypt(cts[i])."""
+    level = cts[0].level if cts else 0
+    if (len(cts) <= 1
+            or any(c.level != level or c.num_components != 2 for c in cts)):
+        return [decrypt(ctx, ct, sk) for ct in cts]
+    tb = _tb(ctx, level)
+    data = torch.stack([to_coeff(ctx, ct).data for ct in cts])  # [B, k, 2, n]
+    m = decrypt_cuda.decrypt_fused(data[:, :, 0].transpose(0, 1),
+                                   data[:, :, 1].transpose(0, 1),
+                                   sk.data[:tb.k], tb, ctx.dec_levels[level])
+    return [Plaintext(data=m[i]) for i in range(len(cts))]
 
 
 # ---------------------------------------------------------------------------
@@ -307,6 +425,23 @@ def multiply_plain(ctx: SchemeContext, ct: Ciphertext, pt: Plaintext,
 # ---------------------------------------------------------------------------
 
 
+def _check_multiply_n(ctx: SchemeContext) -> None:
+    if ctx.n < 1024:
+        raise NotImplementedError(
+            f"n={ctx.n}: the n < 1024 multiply runs sm_mrq_fused and "
+            "fast_floor_fused, which are not ported yet; use n >= 1024")
+
+
+def _multiply_budget(ctx: SchemeContext, a: Ciphertext, b: Ciphertext) -> float:
+    return _b_of(ctx, 0, _noise.bfv_multiply(ctx.params, _v_of(ctx, a),
+                                              _v_of(ctx, b)))
+
+
+def _keyswitch_budget(ctx: SchemeContext, log2_var: float) -> float:
+    """Budget after a key switch adds its noise to variance 2^log2_var."""
+    return _b_of(ctx, 0, _noise.add(log2_var, _noise.keyswitch_add(ctx.params, 0)))
+
+
 def multiply_no_relin(ctx: SchemeContext, a: Ciphertext,
                       b: Ciphertext) -> Ciphertext:
     """BEHZ RNS tensor product and t/q scaling -> 3-component ciphertext:
@@ -320,10 +455,7 @@ def multiply_no_relin(ctx: SchemeContext, a: Ciphertext,
             "multiply needs 2-component ciphertexts; relinearize first "
             f"(got {a.num_components} and {b.num_components})")
     _tb(ctx, a.level)                      # raises above level 0
-    if ctx.n < 1024:
-        raise NotImplementedError(
-            f"n={ctx.n}: the n < 1024 multiply runs sm_mrq_fused and "
-            "fast_floor_fused, which are not ported yet; use n >= 1024")
+    _check_multiply_n(ctx)
     a, b = to_coeff(ctx, a), to_coeff(ctx, b)
     tq, tbsk = ctx.mul_tables
     tx_q = ntt_cuda.tensor_product(a.data, b.data, tq)           # [k, 3, n]
@@ -331,9 +463,7 @@ def multiply_no_relin(ctx: SchemeContext, a: Ciphertext,
         torch.cat([a.data, b.data], dim=1), tx_q, ctx.smq, ctx.floor_c, tbsk)
     return Ciphertext(
         data=rns_cuda.fast_bconv_sk_fused(floored, ctx.sk_c), level=0,
-        is_ntt_form=False,
-        noise_budget=_b_of(ctx, 0, _noise.bfv_multiply(
-            ctx.params, _v_of(ctx, a), _v_of(ctx, b))))
+        is_ntt_form=False, noise_budget=_multiply_budget(ctx, a, b))
 
 
 def _keyswitch_delta(ctx: SchemeContext, poly: torch.Tensor,
@@ -348,6 +478,17 @@ def _keyswitch_delta(ctx: SchemeContext, poly: torch.Tensor,
     return ntt_cuda.keyswitch_fused(d, ks_keys.permute(1, 0, 2, 3), tb)
 
 
+def _keyswitch_delta_batch(ctx: SchemeContext, polys: torch.Tensor,
+                           ks_keys: torch.Tensor) -> torch.Tensor:
+    """``_keyswitch_delta`` of B components at once: polys [k, B, n] (one
+    component per element), one keyswitch_fused_batch launch against the
+    shared [kd, k, 2, n] keys; returns [k, 2, B, n]."""
+    _digit_count(ctx)
+    tb = ctx.ntt_q
+    d = mm.mul_mod(polys, ctx.inv_qhat.view(-1, 1, 1), _p3(tb))
+    return ntt_cuda.keyswitch_fused_batch(d, ks_keys.permute(1, 0, 2, 3), tb)
+
+
 def relinearize(ctx: SchemeContext, ct: Ciphertext, rlk: RelinKeys) -> Ciphertext:
     """3 -> 2 components by RNS-digit key switching of c2 onto s."""
     if ct.num_components != 3:
@@ -356,13 +497,163 @@ def relinearize(ctx: SchemeContext, ct: Ciphertext, rlk: RelinKeys) -> Ciphertex
     tb = _tb(ctx, ct.level)
     ct = to_coeff(ctx, ct)
     delta = _keyswitch_delta(ctx, ct.data[:, 2], rlk.data)
-    return ct.replace(
-        data=mm.add_mod(ct.data[:, :2], delta, _p3(tb)),
-        noise_budget=_b_of(ctx, 0, _noise.add(
-            _v_of(ctx, ct), _noise.keyswitch_add(ctx.params, 0))))
+    return ct.replace(data=mm.add_mod(ct.data[:, :2], delta, _p3(tb)),
+                      noise_budget=_keyswitch_budget(ctx, _v_of(ctx, ct)))
 
 
 def multiply(ctx: SchemeContext, a: Ciphertext, b: Ciphertext,
              rlk: RelinKeys) -> Ciphertext:
     """Full homomorphic multiply: tensor product, scaling, relinearization."""
     return relinearize(ctx, multiply_no_relin(ctx, a, b), rlk)
+
+
+def _check_pairs(ctx: SchemeContext, cts: list, name: str) -> None:
+    """Raise unless cts is a non-empty list of 2-component level-0
+    ciphertexts."""
+    if not cts:
+        raise ValueError(f"{name} needs a non-empty list of ciphertexts")
+    for ct in cts:
+        _tb(ctx, ct.level)                 # raises above level 0
+        if ct.num_components != 2:
+            raise ValueError(f"{name} needs 2-component ciphertexts, got "
+                             f"{ct.num_components}")
+
+
+def multiply_batch(ctx: SchemeContext, cts_a: list, cts_b: list,
+                   rlk: RelinKeys) -> list:
+    """B independent multiply + relinearize ops through the batched kernels:
+    the ciphertexts are stacked once as [B, k, 4, n] (a || b per element);
+    then tensor_product_batch (q side), bsk_branch_fused_batch (lift, Bsk
+    tensor product and floor of all B pairs), one fast_bconv_sk_fused over
+    the 3B rows, and one keyswitch_fused_batch for the B relinearizations.
+    Element i equals multiply(cts_a[i], cts_b[i], rlk) bit for bit, noise
+    budget included.
+
+    The JAX package runs the Bsk branch here as vmapped jnp chains around
+    tensor_product_batch, because XLA fused them well on the TPU; on the
+    card each eager op is a launch, so the port runs the fused kernel with
+    a batch axis, which computes the same residues."""
+    if len(cts_a) != len(cts_b) or not cts_a:
+        raise ValueError("multiply_batch needs equal-length non-empty lists")
+    _check_pairs(ctx, cts_a + cts_b, "multiply_batch")
+    _check_multiply_n(ctx)
+    _digit_count(ctx)
+    batch, k, n = len(cts_a), ctx.k, ctx.n
+    ab = torch.cat([torch.stack([to_coeff(ctx, a).data for a in cts_a]),
+                    torch.stack([to_coeff(ctx, b).data for b in cts_b])],
+                   dim=2).permute(1, 2, 0, 3)                    # [k, 4, B, n]
+    tq, tbsk = ctx.mul_tables
+    tx_q = ntt_cuda.tensor_product_batch(ab[:, :2], ab[:, 2:], tq)
+    floored = rns_cuda.bsk_branch_fused_batch(ab, tx_q, ctx.smq, ctx.floor_c,
+                                              tbsk)              # [kb, 3, B, n]
+    out3 = rns_cuda.fast_bconv_sk_fused(floored.view(tbsk.k, 3 * batch, n),
+                                        ctx.sk_c).view(k, 3, batch, n)
+    delta = _keyswitch_delta_batch(ctx, out3[:, 2], rlk.data)    # [k, 2, B, n]
+    data = mm.add_mod(out3[:, :2], delta, ctx.ntt_q.p.view(-1, 1, 1, 1))
+    # the same two-step bookkeeping as multiply_no_relin -> relinearize (the
+    # budget <-> variance round trip clamps at the 0 floor)
+    budgets = [_keyswitch_budget(ctx, _noise.bfv_variance(
+        ctx.params, 0, _multiply_budget(ctx, a, b))) for a, b in zip(cts_a, cts_b)]
+    return _split_batch(data, budgets)
+
+
+# ---------------------------------------------------------------------------
+# key switching and Galois rotations
+# ---------------------------------------------------------------------------
+
+
+def key_switch(ctx: SchemeContext, ct: Ciphertext,
+               ks_keys: torch.Tensor) -> Ciphertext:
+    """Switch a 2-component ciphertext under s' to one under s, where
+    ks_keys [kd, k, 2, n] encrypt (q/q_j) * s' (a Galois key, or keys from
+    ``_keyswitch_keygen_from_noise``): (c0 + delta0, delta1), delta the
+    key-switch correction of c1 (one keyswitch_fused launch)."""
+    if ct.num_components != 2:
+        raise ValueError(f"key_switch needs 2 components, got {ct.num_components}")
+    tb = _tb(ctx, ct.level)
+    ct = to_coeff(ctx, ct)
+    delta = _keyswitch_delta(ctx, ct.data[:, 1], ks_keys)
+    c0 = mm.add_mod(ct.data[:, :1], delta[:, :1], _p3(tb))
+    return ct.replace(data=torch.cat([c0, delta[:, 1:]], dim=1))
+
+
+def _apply_galois_coeff(ctx: SchemeContext, data: torch.Tensor, g: int) -> torch.Tensor:
+    """a(x) -> a(x^g) on [k, C, n] coefficient-domain residues for any odd
+    g: the automorphism_single kernel, on the card at every n."""
+    return galois_cuda.automorphism_single(data, g, ctx.ntt_q.p[:data.shape[0]])
+
+
+def _galois_budget(ctx: SchemeContext, ct: Ciphertext) -> float:
+    return _keyswitch_budget(ctx, _noise.galois(_v_of(ctx, ct)))
+
+
+def apply_galois(ctx: SchemeContext, ct: Ciphertext, g: int,
+                 gal_keys: GaloisKeys) -> Ciphertext:
+    """Automorphism phi_g, then the key switch s(x^g) -> s."""
+    _check_pairs(ctx, [ct], "apply_galois")
+    ct = to_coeff(ctx, ct)
+    permuted = ct.replace(data=_apply_galois_coeff(ctx, ct.data, g))
+    return key_switch(ctx, permuted, gal_keys.data[g]).replace(
+        noise_budget=_galois_budget(ctx, ct))
+
+
+def _row_elements(ctx: SchemeContext, steps: int, gal_keys: GaloisKeys) -> list:
+    """The power-of-two Galois elements 3^(2^i) mod 2n that rotate the slot
+    rows by ``steps``, in order; raise KeyError for a missing key."""
+    m = 2 * ctx.n
+    steps = steps % (ctx.n // 2)
+    elements = []
+    bit = 1
+    while steps:
+        if steps & bit:
+            g = pow(3, bit, m)
+            if g not in gal_keys.data:
+                raise KeyError(f"no galois key for element {g} (step {bit})")
+            elements.append(g)
+            steps ^= bit
+        bit <<= 1
+    return elements
+
+
+def rotate_rows(ctx: SchemeContext, ct: Ciphertext, steps: int,
+                gal_keys: GaloisKeys) -> Ciphertext:
+    """Cyclic slot rotation within each row of the 2 x (n/2) slot matrix:
+    one apply_galois per power-of-two hop of |steps|."""
+    for g in _row_elements(ctx, steps, gal_keys):
+        ct = apply_galois(ctx, ct, g, gal_keys)
+    return ct
+
+
+def rotate_columns(ctx: SchemeContext, ct: Ciphertext,
+                   gal_keys: GaloisKeys) -> Ciphertext:
+    """Swap the two slot rows: g = 2n - 1."""
+    return apply_galois(ctx, ct, 2 * ctx.n - 1, gal_keys)
+
+
+def apply_galois_batch(ctx: SchemeContext, cts: list, g: int,
+                       gal_keys: GaloisKeys) -> list:
+    """The same automorphism on B ciphertexts: one automorphism_fused
+    launch on a view of their [B, k, 2, n] stack, then one
+    keyswitch_fused_batch launch for the B key switches.  Element i equals
+    apply_galois(cts[i], g)."""
+    _check_pairs(ctx, cts, "apply_galois_batch")
+    g = int(g)
+    keys = gal_keys.data[g]
+    tb = ctx.ntt_q
+    data = torch.stack([to_coeff(ctx, ct).data for ct in cts])   # [B, k, 2, n]
+    h = pow(g, -1, 2 * ctx.n)
+    permuted = galois_cuda.automorphism_fused(
+        data.permute(1, 2, 0, 3), (h,) * len(cts), tb.p)         # [k, 2, B, n]
+    delta = _keyswitch_delta_batch(ctx, permuted[:, 1], keys)    # [k, 2, B, n]
+    c0 = mm.add_mod(permuted[:, 0], delta[:, 0], _p3(tb))
+    return _split_batch(torch.stack([c0, delta[:, 1]], dim=1),
+                        [_galois_budget(ctx, ct) for ct in cts])
+
+
+def rotate_rows_batch(ctx: SchemeContext, cts: list, steps: int,
+                      gal_keys: GaloisKeys) -> list:
+    """rotate_rows over B ciphertexts: one apply_galois_batch per
+    power-of-two hop."""
+    for g in _row_elements(ctx, steps, gal_keys):
+        cts = apply_galois_batch(ctx, cts, g, gal_keys)
+    return cts

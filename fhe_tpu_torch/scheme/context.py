@@ -5,7 +5,9 @@ what the ported ops read at level 0: the q-basis NTT tables, the
 multiply's t-folded q and Bsk tables, the decryption and Δ constants (linear ops), and
 the BEHZ and key-switch digit constants (ciphertext multiply and
 relinearization).  The rest of the JAX context (the lower levels of the
-modulus chain, the BGV and Galois tables) comes with the ops that read it.
+modulus chain, the BGV tables) comes with the ops that read it.  The Galois
+gather tables are not a field: the automorphism kernel computes its indices,
+and ``galois_perm_tables`` builds the host tables on request.
 """
 
 from __future__ import annotations
@@ -52,6 +54,46 @@ class SchemeContext:
     @property
     def device(self) -> torch.device:
         return self.ntt_q.device
+
+
+def galois_permutation(n: int, g: int) -> tuple[np.ndarray, np.ndarray]:
+    """Gather form of the automorphism a(x) -> a(x^g) on Z[x]/(x^n + 1):
+    source coefficient i goes to position g*i mod 2n, negated if that is
+    >= n; returns the inverse map (src [n] int32, neg [n] bool) with
+    out[j] = +-a[src[j]]."""
+    if g % 2 != 1:
+        raise ValueError(f"galois element must be odd, got {g}")
+    e = np.arange(n, dtype=np.int64) * g % (2 * n)
+    src = np.empty(n, dtype=np.int32)
+    neg = np.empty(n, dtype=bool)
+    src[e % n] = np.arange(n, dtype=np.int32)
+    neg[e % n] = e >= n
+    return src, neg
+
+
+@functools.lru_cache(maxsize=None)
+def galois_perm_tables(n: int, g: int) -> tuple[np.ndarray, np.ndarray]:
+    """Cached (src, neg) host tables of ``galois_permutation`` for any odd
+    g, read-only; a caller that needs them on a device copies them there
+    (``torch.as_tensor(src, device=...)``)."""
+    src, neg = galois_permutation(n, g)
+    src.flags.writeable = False
+    neg.flags.writeable = False
+    return src, neg
+
+
+def default_galois_elements(n: int) -> tuple[int, ...]:
+    """Galois elements for power-of-two row rotations in both directions,
+    3^(±2^i) mod 2n for 2^i < n/2, then the column swap g = 2n - 1."""
+    m = 2 * n
+    elems = []
+    step = 1
+    while step < n // 2:
+        elems.append(pow(3, step, m))
+        elems.append(pow(3, -step, m))
+        step *= 2
+    elems.append(m - 1)
+    return tuple(dict.fromkeys(elems))
 
 
 @functools.lru_cache(maxsize=None)

@@ -73,6 +73,12 @@ def bfv_multiply(params: SchemeParams, lv1: float, lv2: float) -> float:
     return logaddexp2(scale + logaddexp2(lv1, lv2), math.log2((1 + h) / 12.0))
 
 
+def galois(lv: float) -> float:
+    """Automorphisms permute (and negate) coefficients: variance unchanged;
+    the key switch that follows adds keyswitch_add."""
+    return lv
+
+
 def keyswitch_add(params: SchemeParams, level: int) -> float:
     """Variance added by RNS-digit key switching: sum over gadget digits of
     n * ((omega * q_Jd)^2 / 3) * sigma^2 (the digits are uncentred residues

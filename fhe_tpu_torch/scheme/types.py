@@ -57,3 +57,11 @@ class RelinKeys:
     (q/q_j) * s^2, in NTT form."""
 
     data: torch.Tensor  # [kd, k, 2, n] int32, NTT domain
+
+
+@dataclasses.dataclass(frozen=True)
+class GaloisKeys:
+    """Key-switching keys per Galois element g: digit j of data[g] is a
+    (b, a) pair encrypting (q/q_j) * s(x^g), in NTT form."""
+
+    data: dict[int, torch.Tensor]  # g -> [kd, k, 2, n] int32, NTT domain

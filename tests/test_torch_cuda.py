@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from fhe_tpu_torch import FHE
-from fhe_tpu_torch.ops import decrypt_cuda, ntt_cuda, rns_cuda
+from fhe_tpu_torch.ops import decrypt_cuda, galois_cuda, ntt_cuda, rns_cuda
+from fhe_tpu_torch.ops import galois as tgalois
 from fhe_tpu_torch.ops import ntt as tntt
 from fhe_tpu_torch.ops import rns as trns
 from fhe_tpu_torch.params import SecurityParams, make_scheme_params
@@ -153,3 +154,70 @@ def test_multiply_on_card(dev):
     prod = fhe.multiply(c1, c2, rlk)
     for ct in (m3, fhe.relinearize(m3, rlk), prod):
         assert list(fhe.decode(fhe.decrypt(ct, sk))[:4]) == [15, 60, 135, 240]
+
+
+# ---------------------------------------------------------------------------
+# serving batches (B = 8) and rotations
+# ---------------------------------------------------------------------------
+
+BATCH = 8
+
+
+def test_batch_ntt_kernels_match_plain(ctx, dev):
+    """tensor_product_batch on views of a [B, k, 4, n] stack,
+    keyswitch_fused_batch against the stored key layout, and
+    mul_by_ntt_operand_batch on a strided [k, B, n] view."""
+    qs, tq = ctx.ntt_q.primes, ctx.mul_tables[0]
+    stack = _residues(qs, 4 * BATCH, dev).view(3, BATCH, 4, N).transpose(0, 1)
+    ab = stack.contiguous().permute(1, 2, 0, 3)                  # [k, 4, B, n]
+    assert torch.equal(ntt_cuda.tensor_product_batch(ab[:, :2], ab[:, 2:], tq),
+                       tntt.tensor_product_batch(ab[:, :2], ab[:, 2:], tq))
+    d = torch.stack([_residues((q,), BATCH, dev)[0] for q in qs])   # [kd, B, n]
+    keys_t = torch.stack([_residues(qs, 2, dev) for _ in qs]).permute(1, 0, 2, 3)
+    assert torch.equal(ntt_cuda.keyswitch_fused_batch(d, keys_t, ctx.ntt_q),
+                       tntt.keyswitch_fused_batch(d, keys_t, ctx.ntt_q))
+    u, w = ab[:, 1], _residues(qs, 2, dev)
+    assert torch.equal(ntt_cuda.mul_by_ntt_operand_batch(u, w, ctx.ntt_q),
+                       tntt.mul_by_ntt_operand_batch(u, w, ctx.ntt_q))
+
+
+def test_bsk_branch_batch_kernel_matches_plain(ctx, dev):
+    qs = ctx.ntt_q.primes
+    ab = _residues(qs, 4 * BATCH, dev).view(3, 4, BATCH, N)
+    tx_q = _residues(qs, 3 * BATCH, dev).view(3, 3, BATCH, N)
+    args = (ab, tx_q, ctx.smq, ctx.floor_c, ctx.mul_tables[1])
+    assert torch.equal(rns_cuda.bsk_branch_fused_batch(*args),
+                       trns.bsk_branch_fused_batch(*args))
+
+
+@pytest.mark.parametrize("lane", ["none", "shared", "per_element"])
+def test_automorphism_kernel_matches_plain(ctx, dev, lane):
+    qs, p = ctx.ntt_q.primes, ctx.ntt_q.p
+    x = _residues(qs, 2 * BATCH, dev).view(3, 2, BATCH, N)
+    hs = tuple(pow(g, -1, 2 * N) for g in range(3, 3 + 2 * BATCH, 2))
+    c0 = {"none": None, "shared": _residues(qs, 1, dev)[:, 0],
+          "per_element": _residues(qs, BATCH, dev)}[lane]
+    assert torch.equal(galois_cuda.automorphism_fused(x, hs, p, c0),
+                       tgalois.automorphism_fused(x, hs, p, c0))
+    xs = x[:, :, 0].contiguous()
+    assert torch.equal(galois_cuda.automorphism_single(xs, 2 * N - 1, p),
+                       tgalois.automorphism_single(xs, 2 * N - 1, p))
+
+
+def test_serving_and_rotations_on_card(dev):
+    fhe = FHE(poly_degree=N, log_q=90, hamming_weight=64, seed=7, device=dev)
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    gk = fhe.galoiskey_gen(sk, elements=(3, 2 * N - 1))
+    vals = [[5 * (i + 1), 10, 15, 20] for i in range(BATCH)]
+    cts = fhe.encrypt_batch([fhe.encode(v) for v in vals], pk)
+    dec = lambda pts: [[int(x) for x in fhe.decode(pt)[:4]] for pt in pts]
+    assert dec(fhe.decrypt_batch(cts, sk)) == vals
+    prods = fhe.multiply_batch(cts, cts, rlk)
+    assert dec(fhe.decrypt_batch(prods, sk)) == [[x * x for x in v] for v in vals]
+    assert torch.equal(prods[3].data, fhe.multiply(cts[3], cts[3], rlk).data)
+    rot = fhe.rotate_rows_batch(cts, 1, gk)
+    assert dec(fhe.decrypt_batch(rot, sk)) == [v[1:] + [0] for v in vals]
+    assert torch.equal(rot[2].data, fhe.rotate_rows(cts[2], 1, gk).data)
+    cols = fhe.decode(fhe.decrypt(fhe.rotate_columns(cts[0], gk), sk))
+    assert [int(x) for x in cols[N // 2:N // 2 + 4]] == vals[0]
