@@ -7,7 +7,8 @@ Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch, nvcc;
   2. build: every CUDA kernel from fhe_tpu_torch/csrc/, with its time;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     n = 8192, k = 3, bit-exact (tolerance 0), with device times (CUDA
+     n = 8192, k = 3 (k = 8 for the prereduced lanes), bit-exact (tolerance
+     0), with device times (CUDA
      events, median of 25 launches after warm-up), the plain version's time
      and the least time the card could take (bound);
   4. slice: the linear-ops main path through the FHE facade at n = 8192,
@@ -33,9 +34,27 @@ Phases, each printing its own lines:
      Galois kernels must have launched.  The _from_noise entry points and
      every batch and rotation op must equal the CPU plain path bit for bit.
      Then end-to-end times of each op and per ciphertext, and
-     multiply_batch at B = 24.
+     multiply_batch at B = 24;
+  7. hoisted: the hoisted rotations through the facade at the same width
+     (the JAX bench's rotations group): keygen, galoiskey_gen for 3^s,
+     s = 1..8, rotate_rows_hoisted of the 8 steps (each decodes to its
+     rotation and decrypts as rotate_rows; the bits differ by design),
+     rotate_rows_hoisted_batch of 4 ciphertexts (element [c][e] equal to
+     rotate_rows_hoisted(cts[c])[e]), and sum_slots with the keys of
+     sum_slots_elements() (every slot decodes to 50).  Card == CPU plain
+     path for hoisted_galois_keys, both hoisted calls and sum_slots.  Then
+     wall and device times, per rotation beside rotate_rows by 1;
+  8. omega: grouped gadget key switching at the JAX bench's k8_omega
+     configuration, n = 8192, log_q = 218 (k = 8, kb = 10), ks_omega = 2
+     (kd = 4): multiply decodes [15,60], multiply_batch at B = 8 equals the
+     single multiply, rotate_rows by 1 decodes 10, and the hoisted calls as
+     in phase 7; card == CPU plain path for relinkey_gen_from_noise,
+     multiply, rotate_rows and rotate_rows_hoisted.  Then times.
+Phases 4 to 8 each zero every launch count just before their path and read
+them just after; each kernel of the path must have launched.  Phase 3 also
+runs the prereduced lanes at the omega path's k = 8, kd = 4.
 The line before the last is {"kernels": [...]}, each kernel with its launches
-on its own path (phase 4, 5 or 6); the last line is
+on its own path (phase 4, 5, 6, 7 or 8); the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; without
 a card the script exits 1 before printing any result.  Imports no JAX and
 nothing of fhe_tpu.
@@ -49,6 +68,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -65,6 +85,7 @@ from fhe_tpu_torch.scheme.types import (GaloisKeys, Plaintext, PublicKey, RelinK
 
 N, LOG_Q, H = 8192, 90, 64
 BATCH = 8           # the serving batch (bench.py mul_b8 / rot_b8 / enc_b8 / dec_b8)
+C_HOIST = 4         # ciphertexts of the hoisted batch (bench.py rot_hoist_k8_b4)
 REPS = 25
 
 # Published H100 SXM peaks (NVIDIA data sheet) at the full 700 W limit.
@@ -137,6 +158,28 @@ KERNELS = {
                                 source="fhe_tpu_torch/csrc/galois.cu",
                                 replaces="fhe_tpu/ops/galois_pallas.py:272",
                                 path="serving"),
+    "ks_inner_batch": dict(fn=ntt_cuda.ks_inner_batch, source="fhe_tpu_torch/csrc/ntt.cu",
+                           replaces="fhe_tpu/ops/ntt_pallas.py:1161", path="hoisted"),
+    # B17's kernel with grouped addressing
+    "ks_inner_grouped": dict(fn=ntt_cuda.ks_inner_grouped,
+                             source="fhe_tpu_torch/csrc/ntt.cu",
+                             replaces="fhe_tpu/ops/ntt_pallas.py:1100", path="hoisted"),
+    "automorphism_fused_sum": dict(fn=galois_cuda.automorphism_fused_sum,
+                                   source="fhe_tpu_torch/csrc/galois.cu",
+                                   replaces="fhe_tpu/ops/galois_pallas.py:228",
+                                   path="hoisted"),
+    # the prereduced lanes of B7 and B12 (grouped gadget digits, ks_omega > 1),
+    # counted apart from the classic lanes
+    "keyswitch_fused_prereduced": dict(fn=ntt_cuda.keyswitch_fused,
+                                       counter="prereduced_launches",
+                                       source="fhe_tpu_torch/csrc/ntt.cu",
+                                       replaces="fhe_tpu/ops/ntt_pallas.py:751",
+                                       path="omega"),
+    "keyswitch_fused_batch_prereduced": dict(fn=ntt_cuda.keyswitch_fused_batch,
+                                             counter="prereduced_launches",
+                                             source="fhe_tpu_torch/csrc/ntt.cu",
+                                             replaces="fhe_tpu/ops/ntt_pallas.py:1269",
+                                             path="omega"),
 }
 
 
@@ -147,11 +190,12 @@ def check(cond: bool, msg: str) -> None:
 
 def reset_counts() -> None:
     for k in KERNELS.values():
-        k["fn"].launches = 0
+        setattr(k["fn"], k.get("counter", "launches"), 0)
 
 
 def read_counts() -> dict[str, int]:
-    return {name: k["fn"].launches for name, k in KERNELS.items()}
+    return {name: getattr(k["fn"], k.get("counter", "launches"))
+            for name, k in KERNELS.items()}
 
 
 def check_launched(launches: dict[str, int], path: str) -> None:
@@ -299,15 +343,30 @@ def fast_bconv_sk_work(kb: int, k: int, batch: int) -> tuple[float, float]:
     return 4 * (kb * m + k * m), ops
 
 
-def keyswitch_work(k: int, kd: int, batch: int = 1) -> tuple[float, float]:
-    """d [kd, batch, N] and the shared keys [k, kd, 2, N] in, [k, 2, batch, N]
-    out, q tables.  Per element and prime: kd reductions and forward sweeps,
-    2 kd key products and sums, and a 2-row inverse sweep."""
+def keyswitch_work(k: int, kd: int, batch: int = 1,
+                   prereduced: bool = False) -> tuple[float, float]:
+    """d [kd, batch, N] (prereduced: [k, kd, batch, N]) and the shared keys
+    [k, kd, 2, N] in, [k, 2, batch, N] out, q tables.  Per element and
+    prime: kd reductions (none when prereduced) and forward sweeps, 2 kd key
+    products and sums, and a 2-row inverse sweep."""
     o = OPS
-    per_prime = (kd * N * o["reduce_barrett"] + sweeps_ops(kd, 2)
+    per_prime = ((0 if prereduced else kd * N * o["reduce_barrett"]) + sweeps_ops(kd, 2)
                  + 2 * kd * N * (o["mul_barrett"] + o["add_mod"]))
-    nbytes = 4 * (batch * (kd * N + 2 * k * N) + 2 * k * kd * N + 4 * k * N)
+    digits = (k if prereduced else 1) * kd * N
+    nbytes = 4 * (batch * (digits + 2 * k * N) + 2 * k * kd * N + 4 * k * N)
     return nbytes, batch * k * per_prime
+
+
+def ks_inner_work(k: int, kd: int, stacks: int, key_sets: int,
+                  batch: int) -> tuple[float, float]:
+    """dg [k, kd, stacks, N] and keys [k, kd, key_sets, 2, N] in,
+    [k, 2, batch, N] out, inverse tables.  Per element and prime: 2 kd key
+    products and sums and a 2-row inverse sweep."""
+    o = OPS
+    nbytes = 4 * (k * kd * stacks * N + 2 * k * kd * key_sets * N + 2 * k * batch * N
+                  + 2 * k * N)
+    ops = batch * k * (2 * kd * N * (o["mul_barrett"] + o["add_mod"]) + sweeps_ops(0, 2))
+    return nbytes, ops
 
 
 def automorphism_work(k: int, c: int, hs: tuple[int, ...],
@@ -323,6 +382,29 @@ def automorphism_work(k: int, c: int, hs: tuple[int, ...],
     ops = (k * c * batch * N * o["galois_index"] + k * c * negated * o["neg_mod"]
            + (k * batch * N * o["add_mod"] if c0_rows else 0))
     return 4 * (2 * k * c * batch * N + c0_rows * k * N + batch), ops
+
+
+def automorphism_sum_work(k: int, c: int, hs: tuple[int, ...]) -> tuple[float, float]:
+    """x [k, c, B, N], c0 [k, N] and base [k, c, N] in, [k, c, N] out, the B
+    multipliers.  Per source residue its index, the c0 add on component 0,
+    the negation where these h negate, and the accumulating add."""
+    o = OPS
+    j = torch.arange(N, dtype=torch.int64)
+    negated = sum(int(((h * j) % (2 * N) >= N).sum()) for h in hs)
+    batch = len(hs)
+    ops = (k * c * batch * N * (o["galois_index"] + o["add_mod"])
+           + k * c * negated * o["neg_mod"] + k * batch * N * o["add_mod"])
+    return 4 * (k * c * batch * N + k * N + 2 * k * c * N + batch), ops
+
+
+def params_k8():
+    """The JAX bench's k8_omega configuration (bench.py:727-775): n = 8192,
+    log_q = 218 (k = 8), h = 64, ks_omega = 2.  It is below 128-bit security
+    at this n, as the bench accepts; the warning is silenced as there."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return make_scheme_params(SecurityParams(poly_degree=N, log_q=218, hamming_weight=H,
+                                                 ks_omega=2))
 
 
 def residues(gen: torch.Generator, moduli, rows: int) -> torch.Tensor:
@@ -472,6 +554,62 @@ def phase_kernels(gen: torch.Generator) -> dict:
                   lambda: galois_cuda.automorphism_single(x_s, 3, tb.p),
                   lambda: plain_galois.automorphism_single(x_s, 3, tb.p),
                   automorphism_work(k, 2, (pow(3, -1, 2 * N),), 0)))
+    # the hoisted rotations (phase 7): a shared digit stack against E = 8
+    # pre-permuted key sets, per-element stacks at B = 8, C = 4 ciphertexts
+    # by E = 8 elements, and a sum_slots stage's epilogue (steps 1, 2, 3)
+    kd = k
+    keys_e = residues(gen, qs, kd * BATCH * 2).view(k, kd, BATCH, 2, N)
+    for label, stacks in (("shared", 1), ("per-element", BATCH)):
+        dg = residues(gen, qs, kd * stacks).view(k, kd, stacks, N)
+        cases.append(("ks_inner_batch",
+                      f"{label} dg [{k},{kd},{stacks},{N}], keys [{k},{kd},{BATCH},2,{N}]",
+                      lambda dg=dg: ntt_cuda.ks_inner_batch(dg, keys_e, tb),
+                      lambda dg=dg: plain_ntt.ks_inner_batch(dg, keys_e, tb),
+                      ks_inner_work(k, kd, stacks, BATCH, BATCH)))
+    dg_c = residues(gen, qs, kd * C_HOIST).view(k, kd, C_HOIST, N)
+    cases.append(("ks_inner_grouped",
+                  f"dg [{k},{kd},{C_HOIST},{N}], keys [{k},{kd},{BATCH},2,{N}]",
+                  lambda: ntt_cuda.ks_inner_grouped(dg_c, keys_e, tb),
+                  lambda: plain_ntt.ks_inner_grouped(dg_c, keys_e, tb),
+                  ks_inner_work(k, kd, C_HOIST, BATCH, C_HOIST * BATCH)))
+    hs3 = tuple(pow(3, -s, 2 * N) for s in (1, 2, 3))
+    x_sum = residues(gen, qs, 2 * 3).view(k, 2, 3, N)
+    c0_sum, base_sum = residues(gen, qs, 1)[:, 0], residues(gen, qs, 2)
+    cases.append(("automorphism_fused_sum", f"x [{k},2,3,{N}], c0 [{k},{N}], base [{k},2,{N}]",
+                  lambda: galois_cuda.automorphism_fused_sum(x_sum, hs3, tb.p, c0_sum,
+                                                             base_sum),
+                  lambda: plain_galois.automorphism_fused_sum(x_sum, hs3, tb.p, c0_sum,
+                                                              base_sum),
+                  automorphism_sum_work(k, 2, hs3)))
+    # the prereduced lanes at the omega path's shapes (phase 8: k = 8, kd = 4),
+    # each beside the classic lane at the same k and kd
+    qs8 = params_k8().q_primes
+    k8, kd8 = len(qs8), 4
+    tb8 = plain_ntt.build_tables(N, qs8, "cuda")
+    keys8 = torch.stack([residues(gen, qs8, 2) for _ in range(kd8)]).permute(1, 0, 2, 3)
+    d8 = residues(gen, qs8, kd8)                                     # [k, kd, N]
+    d8_b = residues(gen, qs8, kd8 * BATCH).view(k8, kd8, BATCH, N)
+    cases.append(("keyswitch_fused_prereduced", f"d [{k8},{kd8},{N}], keys [{k8},{kd8},2,{N}]",
+                  lambda: ntt_cuda.keyswitch_fused(d8, keys8, tb8, prereduced=True),
+                  lambda: plain_ntt.keyswitch_fused(d8, keys8, tb8, prereduced=True),
+                  keyswitch_work(k8, kd8, prereduced=True)))
+    cases.append(("keyswitch_fused_batch_prereduced",
+                  f"d [{k8},{kd8},{BATCH},{N}], keys [{k8},{kd8},2,{N}]",
+                  lambda: ntt_cuda.keyswitch_fused_batch(d8_b, keys8, tb8, prereduced=True),
+                  lambda: plain_ntt.keyswitch_fused_batch(d8_b, keys8, tb8,
+                                                          prereduced=True),
+                  keyswitch_work(k8, kd8, BATCH, prereduced=True)))
+    d8_classic = torch.cat([residues(gen, (q,), 1)[0] for q in qs8[:kd8]])   # [kd, N]
+    d8_classic_b = torch.stack([residues(gen, (q,), BATCH)[0] for q in qs8[:kd8]])
+    cases.append(("keyswitch_fused", f"d [{kd8},{N}], keys [{k8},{kd8},2,{N}] (k=8)",
+                  lambda: ntt_cuda.keyswitch_fused(d8_classic, keys8, tb8),
+                  lambda: plain_ntt.keyswitch_fused(d8_classic, keys8, tb8),
+                  keyswitch_work(k8, kd8)))
+    cases.append(("keyswitch_fused_batch",
+                  f"d [{kd8},{BATCH},{N}], keys [{k8},{kd8},2,{N}] (k=8)",
+                  lambda: ntt_cuda.keyswitch_fused_batch(d8_classic_b, keys8, tb8),
+                  lambda: plain_ntt.keyswitch_fused_batch(d8_classic_b, keys8, tb8),
+                  keyswitch_work(k8, kd8, BATCH)))
     results = {}
     for name, label, kern, plain, work in cases:
         got, want = kern(), plain()
@@ -803,6 +941,196 @@ def phase_serving() -> dict:
     return launches
 
 
+STEPS = tuple(range(1, 9))                      # the bench's hoisted set
+HOIST = tuple(pow(3, s, 2 * N) for s in STEPS)
+VALS_H = [5, 10, 15, 20]
+
+
+def same_cts(card: list, plain: list) -> bool:
+    return all(torch.equal(a.data.cpu(), b.data) for a, b in zip(card, plain))
+
+
+def hoisted_timings(fhe: FHE, ct, cts: list, gk: GaloisKeys) -> dict:
+    """wall_ms and device_ms of the hoisted rotations beside rotate_rows by
+    1, and per rotation (8 elements; C x 8 in the batch)."""
+    ops = {
+        "hoisted_galois_keys_8": lambda: bfv.hoisted_galois_keys(fhe.ctx, gk, HOIST),
+        "rotate_rows_hoisted_8": lambda: fhe.rotate_rows_hoisted(ct, STEPS, gk),
+        f"rotate_rows_hoisted_batch_{len(cts)}x8":
+            lambda: fhe.rotate_rows_hoisted_batch(cts, STEPS, gk),
+        "rotate_rows_1": lambda: fhe.rotate_rows(ct, 1, gk),
+    }
+    wall = {op: wall_ms(fn) for op, fn in ops.items()}
+    dev = {op: device_ms(fn) for op, fn in ops.items()}
+    per_rot = {
+        "rotate_rows_hoisted_ms_per_rot": wall["rotate_rows_hoisted_8"] / len(STEPS),
+        "rotate_rows_hoisted_batch_ms_per_rot":
+            wall[f"rotate_rows_hoisted_batch_{len(cts)}x8"] / (len(cts) * len(STEPS)),
+        "rotate_rows_1_ms": wall["rotate_rows_1"],
+        "device_rotate_rows_hoisted_ms_per_rot": dev["rotate_rows_hoisted_8"] / len(STEPS),
+        "device_rotate_rows_hoisted_batch_ms_per_rot":
+            dev[f"rotate_rows_hoisted_batch_{len(cts)}x8"] / (len(cts) * len(STEPS)),
+        "device_rotate_rows_1_ms": dev["rotate_rows_1"]}
+    return {"wall_ms": wall, "device_ms": dev, "per_rotation": per_rot}
+
+
+def check_hoisted(fhe: FHE, sk: SecretKey, ct, vals: list, outs: list, cts: list,
+                  vals_c: list, outs_b: list, gk: GaloisKeys) -> None:
+    """Element s of the hoisted rotations decodes to the row rotated by s and
+    to the sequential rotate_rows(ct, s) (by decryption only: the hoisted
+    digits carry -d representatives); element [c][e] of the batch equals
+    rotate_rows_hoisted(cts[c])[e] bit for bit and decodes."""
+    dec = lambda c: [int(v) for v in fhe.decode(fhe.decrypt(c, sk))]
+    for s, out in zip(STEPS, outs):
+        got = dec(out)
+        check(got[:N // 2] == rotated(vals, s), f"rotate_rows_hoisted step {s} decoded "
+              f"{got[:6]}")
+        check(got == dec(fhe.rotate_rows(ct, s, gk)),
+              f"rotate_rows_hoisted step {s} decrypts unlike rotate_rows")
+    for c, (row, v) in enumerate(zip(outs_b, vals_c)):
+        single = fhe.rotate_rows_hoisted(cts[c], STEPS, gk)
+        check(all(torch.equal(a.data, b.data) and a.noise_budget == b.noise_budget
+                  for a, b in zip(row, single)),
+              f"rotate_rows_hoisted_batch ciphertext {c} differs from rotate_rows_hoisted")
+        decs = [[int(x) for x in fhe.decode(pt)] for pt in fhe.decrypt_batch(row, sk)]
+        check(all(d[:N // 2] == rotated(v, s) for d, s in zip(decs, STEPS)),
+              f"rotate_rows_hoisted_batch ciphertext {c} decoded {[d[:2] for d in decs]}")
+
+
+def phase_hoisted() -> dict:
+    """The hoisted rotations and sum_slots through the facade at the headline
+    width (the JAX bench's rotations group), then the same state through the
+    plain versions on the CPU, then times."""
+    fhe = FHE(poly_degree=N, log_q=LOG_Q, hamming_weight=H, seed=7, device="cuda")
+    check(fhe.params.k == 3, f"expected k = 3, got {fhe.params.k}")
+    vals_c = [[v + 100 * c for v in VALS_H] for c in range(C_HOIST)]
+    reset_counts()
+    pk, sk = fhe.keygen()
+    gk = fhe.galoiskey_gen(sk, elements=HOIST)
+    ct = fhe.encrypt(fhe.encode(VALS_H), pk)
+    outs = fhe.rotate_rows_hoisted(ct, STEPS, gk)
+    cts = fhe.encrypt_batch([fhe.encode(v) for v in vals_c], pk)
+    outs_b = fhe.rotate_rows_hoisted_batch(cts, STEPS, gk)
+    gk_ss = fhe.galoiskey_gen(sk, elements=fhe.sum_slots_elements())
+    total = fhe.sum_slots(ct, gk_ss)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print("phase hoisted launches", json.dumps(launches))
+    check_hoisted(fhe, sk, ct, VALS_H, outs, cts, vals_c, outs_b, gk)
+    got = {int(v) for v in fhe.decode(fhe.decrypt(total, sk))}
+    check(got == {sum(VALS_H)}, f"sum_slots decoded {sorted(got)[:4]}, expected "
+          f"every slot {sum(VALS_H)}")
+    check_launched(launches, "hoisted")
+
+    # the same state through the plain versions on the CPU, at full size
+    cpu = FHE(fhe.params, device="cpu")
+    to_cpu = lambda c: c.replace(data=c.data.cpu())
+    gk_cpu = GaloisKeys(data={g: v.cpu() for g, v in gk.data.items()})
+    gk_ss_cpu = GaloisKeys(data={g: v.cpu() for g, v in gk_ss.data.items()})
+    check(torch.equal(bfv.hoisted_galois_keys(fhe.ctx, gk, HOIST).cpu(),
+                      bfv.hoisted_galois_keys(cpu.ctx, gk_cpu, HOIST)),
+          "card hoisted_galois_keys differ from the CPU plain path")
+    check(same_cts(outs, bfv.apply_galois_hoisted(cpu.ctx, to_cpu(ct), HOIST, gk_cpu)),
+          "card rotate_rows_hoisted differs from the CPU plain path")
+    plain_b = bfv.apply_galois_hoisted_batch(cpu.ctx, [to_cpu(c) for c in cts], HOIST,
+                                             gk_cpu)
+    check(all(same_cts(a, b) for a, b in zip(outs_b, plain_b)),
+          "card rotate_rows_hoisted_batch differs from the CPU plain path")
+    check(same_cts([total], [cpu.sum_slots(to_cpu(ct), gk_ss_cpu)]),
+          "card sum_slots differs from the CPU plain path")
+    print(f"phase hoisted check: n={N}, k=3, 8 steps; rotate_rows_hoisted decodes each "
+          f"rotation and decrypts as rotate_rows; rotate_rows_hoisted_batch (C={C_HOIST}) "
+          f"element [c][e] == rotate_rows_hoisted(cts[c])[e]; sum_slots decodes "
+          f"{sum(VALS_H)} in every slot; card == CPU plain path for hoisted_galois_keys, "
+          "rotate_rows_hoisted, rotate_rows_hoisted_batch and sum_slots")
+
+    times = hoisted_timings(fhe, ct, cts, gk)
+    times["wall_ms"]["sum_slots"] = wall_ms(lambda: fhe.sum_slots(ct, gk_ss))
+    times["device_ms"]["sum_slots"] = device_ms(lambda: fhe.sum_slots(ct, gk_ss))
+    for key, row in times.items():
+        print(f"phase hoisted {key}", json.dumps(row))
+    return launches
+
+
+def phase_omega() -> dict:
+    """Grouped gadget key switching (ks_omega = 2) at the JAX bench's
+    k8_omega configuration: the multiply, its batch, and the rotations,
+    hoisted and not; then the CPU plain path, then times."""
+    fhe = FHE(params_k8(), seed=2, device="cuda")
+    prm = fhe.params
+    check((prm.k, len(prm.bsk_primes)) == (8, 10), f"expected k = 8, kb = 10, got "
+          f"{prm.k}, {len(prm.bsk_primes)}")
+    t = prm.t
+    vals_a = [[5 + i, 10 + i] for i in range(BATCH)]
+    vals_b = [[3, 6 + i] for i in range(BATCH)]
+    reset_counts()
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    a, b = fhe.encrypt(fhe.encode([5, 10]), pk), fhe.encrypt(fhe.encode([3, 6]), pk)
+    prod = fhe.multiply(a, b, rlk)
+    cts_a = fhe.encrypt_batch([fhe.encode(v) for v in vals_a], pk)
+    cts_b = fhe.encrypt_batch([fhe.encode(v) for v in vals_b], pk)
+    prods = fhe.multiply_batch(cts_a, cts_b, rlk)
+    gk = fhe.galoiskey_gen(sk, elements=HOIST)
+    rot = fhe.rotate_rows(a, 1, gk)
+    outs = fhe.rotate_rows_hoisted(a, STEPS, gk)
+    outs_b = fhe.rotate_rows_hoisted_batch(cts_a[:C_HOIST], STEPS, gk)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print("phase omega launches", json.dumps(launches))
+    check(rlk.data.shape[0] == 4, f"expected kd = 4 gadget digits, got {rlk.data.shape[0]}")
+    dec = lambda c: [int(v) for v in fhe.decode(fhe.decrypt(c, sk))]
+    check(dec(prod)[:2] == [15, 60], f"multiply decoded {dec(prod)[:2]}")
+    want = [[x * y % t for x, y in zip(va, vb)] for va, vb in zip(vals_a, vals_b)]
+    got = [[int(x) for x in fhe.decode(pt)[:2]] for pt in fhe.decrypt_batch(prods, sk)]
+    check(got == want, f"multiply_batch decoded {got}, expected {want}")
+    for i in range(BATCH):
+        single = fhe.multiply(cts_a[i], cts_b[i], rlk)
+        check(torch.equal(single.data, prods[i].data)
+              and single.noise_budget == prods[i].noise_budget,
+              f"multiply_batch element {i} differs from the single multiply")
+    check(dec(rot)[0] == 10, f"rotate_rows by 1 decoded {dec(rot)[:2]}")
+    check_hoisted(fhe, sk, a, [5, 10], outs, cts_a[:C_HOIST], vals_a[:C_HOIST], outs_b, gk)
+    check_launched(launches, "omega")
+
+    # the same state through the plain versions on the CPU, at full size
+    cpu = make_context(prm, device="cpu")
+    to_cpu = lambda c: c.replace(data=c.data.cpu())
+    sk_cpu = SecretKey(data=sk.data.cpu())
+    gk_cpu = GaloisKeys(data={g: v.cpu() for g, v in gk.data.items()})
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    primes = fhe.ctx.ntt_q.p
+    dr_a = torch.stack([sampling.uniform_rns(gen, primes, 1, N) for _ in range(4)])
+    dr_e = torch.stack([sampling.gaussian_rns(gen, primes, 3.2, 1, N) for _ in range(4)])
+    check(torch.equal(bfv.relinkey_gen_from_noise(fhe.ctx, sk, dr_a, dr_e).data.cpu(),
+                      bfv.relinkey_gen_from_noise(cpu, sk_cpu, dr_a.cpu(), dr_e.cpu()).data),
+          "card relinkey_gen_from_noise differs from the CPU plain path")
+    rlk_cpu = RelinKeys(data=rlk.data.cpu())
+    check(same_cts([prod], [bfv.multiply(cpu, to_cpu(a), to_cpu(b), rlk_cpu)]),
+          "card multiply differs from the CPU plain path")
+    check(same_cts([rot], [bfv.rotate_rows(cpu, to_cpu(a), 1, gk_cpu)]),
+          "card rotate_rows differs from the CPU plain path")
+    check(same_cts(outs, bfv.apply_galois_hoisted(cpu, to_cpu(a), HOIST, gk_cpu)),
+          "card rotate_rows_hoisted differs from the CPU plain path")
+    print(f"phase omega check: n={N}, k=8, kb=10, ks_omega=2, kd=4; multiply decoded "
+          f"[15,60]; multiply_batch (B={BATCH}) decoded and element i == multiply; "
+          "rotate_rows by 1 decoded 10; rotate_rows_hoisted and rotate_rows_hoisted_batch "
+          f"(C={C_HOIST}) as in the hoisted phase; card == CPU plain path for "
+          "relinkey_gen_from_noise, multiply, rotate_rows and rotate_rows_hoisted")
+
+    ops = {"multiply": lambda: fhe.multiply(a, b, rlk),
+           "multiply_batch": lambda: fhe.multiply_batch(cts_a, cts_b, rlk)}
+    wall = {op: wall_ms(fn) for op, fn in ops.items()}
+    dev = {op: device_ms(fn) for op, fn in ops.items()}
+    wall["multiply_batch_per_ciphertext"] = wall["multiply_batch"] / BATCH
+    times = hoisted_timings(fhe, a, cts_a[:C_HOIST], gk)
+    times["wall_ms"].update(wall)
+    times["device_ms"].update(dev)
+    for key, row in times.items():
+        print(f"phase omega {key}", json.dumps(row))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -814,7 +1142,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results = phase_kernels(gen)
     launches = {"slice": phase_slice(), "multiply": phase_multiply(),
-                "serving": phase_serving()}
+                "serving": phase_serving(), "hoisted": phase_hoisted(),
+                "omega": phase_omega()}
     rows = []
     for name, meta in KERNELS.items():
         r = results[name]

@@ -11,6 +11,13 @@ restricted to the ops this package has so far, at level 0.
     rot = fhe.decode(fhe.decrypt(fhe.rotate_rows(ct, 1, gk), sk))  # [2, 3, ...]
     cts = fhe.encrypt_batch([fhe.encode([i]) for i in range(8)], pk)
     prods = fhe.multiply_batch(cts, cts, rlk)                      # serving batch
+    gh = fhe.galoiskey_gen(sk, elements=[pow(3, s, 2 * 8192) for s in (1, 2, 3)])
+    rots = fhe.rotate_rows_hoisted(ct, (1, 2, 3), gh)              # one decomposition
+    gs = fhe.galoiskey_gen(sk, elements=fhe.sum_slots_elements())
+    total = fhe.sum_slots(ct, gs)                                  # every slot: 6
+
+``SecurityParams(ks_omega=2)`` (``FHE(..., ks_omega=2)``) groups two q
+primes per gadget digit in every key switch.
 
 Everything runs on ``device`` ("cuda" by default; a CUDA request without a
 card raises).  ``device="cpu"`` runs the plain PyTorch versions of the
@@ -27,14 +34,15 @@ import torch
 from .params import SchemeParams, SecurityParams, make_scheme_params
 from .scheme import bfv
 from .scheme import encoder as _encoder
-from .scheme.context import SchemeContext, make_context
+from .scheme.context import SchemeContext, default_galois_elements, make_context
 from .scheme.types import (Ciphertext, GaloisKeys, Plaintext, PublicKey,
                            RelinKeys, SecretKey)
 
 
 class FHE:
-    """Stateful convenience wrapper.  Mutable state: the random generator and
-    the cache of NTT-form plain operands; all scheme values are immutable."""
+    """Stateful convenience wrapper.  Mutable state: the random generator,
+    the cache of NTT-form plain operands and the cache of pre-permuted
+    hoisted-rotation keys; all scheme values are immutable."""
 
     def __init__(self, params: SchemeParams | None = None, seed: int = 0,
                  device="cuda", **security_kw):
@@ -47,6 +55,7 @@ class FHE:
         self.gen.manual_seed(seed)
         self.encoder = _encoder.BatchEncoder(params, self.device)
         self._plain_ntt_cache: dict = {}
+        self._hoist_cache: dict = {}
 
     # -- keys --
     def keygen(self) -> tuple[PublicKey, SecretKey]:
@@ -150,10 +159,95 @@ class FHE:
         [kd, k, 2, n] encrypt (q/q_j) * s'."""
         return bfv.key_switch(self.ctx, ct, ks_keys)
 
-    def rotate_rows_hoisted(self, ct, steps_list, gal_keys):
-        raise NotImplementedError(
-            "hoisted rotations (ks_inner_batch, automorphism_fused_sum) are not "
-            "ported yet; use rotate_rows per step")
+    def _hoist_elements(self, steps_list, gal_keys: GaloisKeys) -> tuple:
+        """The Galois elements 3^s mod 2n of the steps; KeyError unless each
+        has a direct key."""
+        m = 2 * self.params.n
+        elements = tuple(pow(3, int(s), m) for s in steps_list)
+        for g in elements:
+            if g not in gal_keys.data:
+                raise KeyError(
+                    f"no galois key for element {g}; generate with "
+                    f"galoiskey_gen(sk, elements={list(elements)})")
+        return elements
+
+    def _hoisted_pre(self, gal_keys: GaloisKeys, elements: tuple,
+                     level: int) -> torch.Tensor:
+        """The pre-permuted key stack (bfv.hoisted_galois_keys), cached per
+        (keys, elements, level) and evicted when the caller drops the keys."""
+        ck = (id(gal_keys), elements, level)
+        pre = self._hoist_cache.get(ck)
+        if pre is None:
+            pre = bfv.hoisted_galois_keys(self.ctx, gal_keys, elements)
+            self._hoist_cache[ck] = pre
+            weakref.finalize(gal_keys, _evict, self._hoist_cache, id(gal_keys))
+        return pre
+
+    def rotate_rows_hoisted(self, ct: Ciphertext, steps_list,
+                            gal_keys: GaloisKeys) -> list:
+        """Many row rotations of one ciphertext sharing a single hoisted
+        gadget decomposition; element e equals rotate_rows(ct,
+        steps_list[e]) by decryption.  Each step needs a direct Galois key:
+        galoiskey_gen(sk, elements=[pow(3, s, 2n) for s in steps_list])."""
+        elements = self._hoist_elements(steps_list, gal_keys)
+        return bfv.apply_galois_hoisted(
+            self.ctx, ct, elements, gal_keys,
+            pre_keys=self._hoisted_pre(gal_keys, elements, ct.level))
+
+    def rotate_rows_hoisted_batch(self, cts: list, steps_list,
+                                  gal_keys: GaloisKeys) -> list:
+        """Hoisted rotations of C independent ciphertexts by the same steps
+        through one kernel chain (bfv.apply_galois_hoisted_batch):
+        outs[c][e] equals rotate_rows_hoisted(cts[c], steps_list)[e]."""
+        elements = self._hoist_elements(steps_list, gal_keys)
+        if not cts:
+            return []
+        return bfv.apply_galois_hoisted_batch(
+            self.ctx, cts, elements, gal_keys,
+            pre_keys=self._hoisted_pre(gal_keys, elements, cts[0].level))
+
+    def sum_slots_elements(self) -> tuple:
+        """Galois elements of the fast sum_slots: the default power-of-two
+        set plus the 3 * 4^i hops that each radix-4 stage hoists.  Pass to
+        galoiskey_gen(sk, elements=fhe.sum_slots_elements())."""
+        m = 2 * self.params.n
+        half = self.params.n // 2
+        elems = list(default_galois_elements(self.params.n))
+        step = 1
+        while step < half:
+            for j in (2, 3):
+                if j * step < half:
+                    elems.append(pow(3, j * step, m))
+            step *= 4
+        return tuple(dict.fromkeys(elems))
+
+    def sum_slots(self, ct: Ciphertext, gal_keys: GaloisKeys) -> Ciphertext:
+        """Every slot becomes the sum of all slots.  With keys for
+        sum_slots_elements(), each stage hoists the rotations {s, 2s, 3s} of
+        the running sum through one shared decomposition (radix 4);
+        otherwise a stage is rotate_rows by s and an add (radix 2).  Then
+        the two slot rows are added through rotate_columns."""
+        m = 2 * self.params.n
+        half = self.params.n // 2
+        step = 1
+        while step < half:
+            group = [j * step for j in (1, 2, 3) if j * step < half]
+            if len(group) > 1 and all(pow(3, s, m) in gal_keys.data for s in group):
+                ct = self._rotate_accumulate(ct, group, gal_keys)
+                step *= len(group) + 1
+            else:
+                ct = self.add(ct, self.rotate_rows(ct, step, gal_keys))
+                step *= 2
+        return self.add(ct, self.rotate_columns(ct, gal_keys))
+
+    def _rotate_accumulate(self, ct: Ciphertext, steps_list,
+                           gal_keys: GaloisKeys) -> Ciphertext:
+        """ct + sum_s rotate_rows(ct, s) through one hoisted accumulating
+        chain (bfv.apply_galois_hoisted_sum): the sum_slots stage."""
+        elements = self._hoist_elements(steps_list, gal_keys)
+        return bfv.apply_galois_hoisted_sum(
+            self.ctx, ct, elements, gal_keys,
+            pre_keys=self._hoisted_pre(gal_keys, elements, ct.level))
 
     # -- NTT-form residency --
     def to_ntt(self, ct: Ciphertext) -> Ciphertext:

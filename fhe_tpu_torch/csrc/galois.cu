@@ -1,8 +1,11 @@
 // Coefficient Galois automorphism for Hopper (sm_90a): a signed gather.
 //
 // Replaces fhe_tpu/ops/galois_pallas.py: automorphism_fused, in all three of
-// its lanes (no c0, a c0 shared by every element, a c0 per element), and
-// automorphism_single, which launches it with B = 1.  Plain version:
+// its lanes (no c0, a c0 shared by every element, a c0 per element),
+// automorphism_single, which launches it with B = 1, and
+// automorphism_fused_sum (automorphism_sum_kernel, the same signed gather
+// accumulated over the elements; the Pallas _MAX_ELEMS chunking is a VMEM
+// artifact and is not carried over).  Plain versions:
 // fhe_tpu_torch/ops/galois.py.
 //
 // a(x) -> a(x^g) on Z_p[x]/(x^n + 1) is a permutation with sign flips: with
@@ -23,7 +26,10 @@
 // residue and moves each residue once in and once out (plus c0): at n = 8192,
 // k = 3, C = 2, B = 8 that is 1.5 MB in and 1.5 MB out, about 0.9 us at the
 // memory rate, so it is bound by bytes.  The reads are scattered, but the
-// source rows are 32 KB each and stay in L2; the writes are coalesced.
+// source rows are 32 KB each and stay in L2; the writes are coalesced.  The
+// sum kernel reads the same B * C rows (plus c0 and the base) and writes only
+// C rows: at n = 8192, k = 3, C = 2, B = 3 about 0.8 MB, 0.25 us at the
+// memory rate, so at the slice's shapes both are bound by launch latency.
 
 #include <cuda_runtime.h>
 
@@ -58,6 +64,40 @@ automorphism_kernel(const uint32_t* __restrict__ x, long long x_sp, long long x_
   out[((static_cast<size_t>(i) * num_c + c) * gridDim.y + b) * n + j] = v;
 }
 
+// The accumulating epilogue of a hoisted rotate-and-sum (a sum_slots stage):
+// out[i, c, j] = base[i, c, j] + sum_b phi_{hs[b]}(x_b + c0)[i, c, j] mod p_i,
+// c0 added to component 0 only.  x as in automorphism_kernel; c0: element
+// (i, j) at i * c0_sp + j; base: element (i, c, j) at i * base_sp + c * base_sc
+// + j.  Each thread owns one output residue and loops over the B elements,
+// so the B rotations are never written out.  out: [k, C, n].  Grid
+// (n / blockDim.x, k * C).
+__global__ void __launch_bounds__(256)
+automorphism_sum_kernel(const uint32_t* __restrict__ x, long long x_sp, long long x_sc,
+                        long long x_sb, const uint32_t* __restrict__ c0, long long c0_sp,
+                        const uint32_t* __restrict__ base, long long base_sp,
+                        long long base_sc, uint32_t* __restrict__ out,
+                        const uint32_t* __restrict__ p, const uint32_t* __restrict__ hs,
+                        int num_c, int batch, int logn) {
+  const int n = 1 << logn;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const int i = blockIdx.y / num_c;
+  const int c = blockIdx.y - i * num_c;
+  const uint32_t pi = p[i];
+  const uint32_t* xr = x + i * x_sp + c * x_sc;
+  const uint32_t* c0r = c0 + i * c0_sp;
+  uint32_t acc = base[i * base_sp + c * base_sc + j];
+  for (int b = 0; b < batch; ++b) {
+    const uint64_t hj = (static_cast<uint64_t>(hs[b]) * j) & ((2ull << logn) - 1);
+    const long long src = static_cast<long long>(hj & (n - 1));
+    uint32_t v = xr[b * x_sb + src];
+    if (c == 0) v = fhe::add_mod(v, c0r[src], pi);
+    if (hj >= static_cast<uint64_t>(n)) v = fhe::neg_mod(v, pi);
+    acc = fhe::add_mod(acc, v, pi);
+  }
+  out[(static_cast<size_t>(i) * num_c + c) * n + j] = acc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -73,6 +113,22 @@ int fhe_automorphism(const void* x, long long x_sp, long long x_sc, long long x_
       static_cast<const uint32_t*>(x), x_sp, x_sc, x_sb, static_cast<const uint32_t*>(c0),
       c0_sp, c0_sb, static_cast<uint32_t*>(out), static_cast<const uint32_t*>(p),
       static_cast<const uint32_t*>(hs), num_c, logn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fhe_automorphism_sum(const void* x, long long x_sp, long long x_sc, long long x_sb,
+                         const void* c0, long long c0_sp, const void* base,
+                         long long base_sp, long long base_sc, void* out, const void* p,
+                         const void* hs, int k, int num_c, int batch, int logn,
+                         void* stream) {
+  constexpr int kThreads = 256;
+  const int n = 1 << logn;
+  const dim3 grid((n + kThreads - 1) / kThreads, k * num_c);
+  automorphism_sum_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), x_sp, x_sc, x_sb, static_cast<const uint32_t*>(c0),
+      c0_sp, static_cast<const uint32_t*>(base), base_sp, base_sc,
+      static_cast<uint32_t*>(out), static_cast<const uint32_t*>(p),
+      static_cast<const uint32_t*>(hs), num_c, batch, logn);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,7 +2,7 @@
 
 a(x) -> a(x^g) on Z_p[x]/(x^n + 1) is a signed permutation: with
 h = g^-1 mod 2n, out[j] = x[h*j mod n], negated where h*j mod 2n >= n.
-These are the plain PyTorch versions of the CUDA kernel in
+These are the plain PyTorch versions of the CUDA kernels in
 ``ops/galois_cuda.py``: the source index and sign come from the same
 formula, as int64 tensors, and ``torch.gather`` does the permutation.
 """
@@ -30,6 +30,18 @@ def automorphism_fused(x: torch.Tensor, hs: tuple[int, ...], p: torch.Tensor,
         x = torch.cat([mm.add_mod(x[:, :1], c0, p4), x[:, 1:]], dim=1)
     out = torch.gather(x, 3, (hj % n).expand(k, num_c, batch, n))
     return torch.where(hj >= n, mm.sub_mod(torch.zeros_like(out), out, p4), out)
+
+
+def automorphism_fused_sum(x: torch.Tensor, hs: tuple[int, ...], p: torch.Tensor,
+                           c0: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
+    """base + sum_b phi_{hs[b]}(x_b with c0 added to component 0): x
+    [k, C, B, n], c0 [k, n], base [k, C, n]; returns [k, C, n]."""
+    rot = automorphism_fused(x, hs, p, c0)
+    p3 = p.view(-1, 1, 1)
+    acc = base
+    for b in range(rot.shape[2]):
+        acc = mm.add_mod(acc, rot[:, :, b], p3)
+    return acc
 
 
 def automorphism_single(x: torch.Tensor, g: int, p: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Galois automorphism kernel wrappers — counterpart of ``fhe_tpu/ops/galois_pallas.py``.
 
-``automorphism_fused`` and ``automorphism_single`` launch the hand-written
-CUDA kernel of ``csrc/galois.cu`` (design and bound: the note at the top of
-that file) for CUDA tensors and use the plain PyTorch versions of
+``automorphism_fused``, ``automorphism_single`` and
+``automorphism_fused_sum`` launch the hand-written CUDA kernels of
+``csrc/galois.cu`` (design and bound: the note at the top of that file) for
+CUDA tensors and use the plain PyTorch versions of
 ``ops/galois.py`` for CPU tensors; any other device raises.  Each wrapper
 counts only its own launches, in ``<wrapper>.launches``.
 """
@@ -29,6 +30,9 @@ def _lib() -> ctypes.CDLL:
     lib.fhe_automorphism.argtypes = ([_P] + [_L] * 3 + [_P] + [_L] * 2 + [_P] * 3
                                      + [_I] * 4 + [_P])
     lib.fhe_automorphism.restype = ctypes.c_int
+    lib.fhe_automorphism_sum.argtypes = ([_P] + [_L] * 3 + [_P] + [_L] + [_P] + [_L] * 2
+                                         + [_P] * 3 + [_I] * 4 + [_P])
+    lib.fhe_automorphism_sum.restype = ctypes.c_int
     return lib
 
 
@@ -100,6 +104,43 @@ def automorphism_fused(x: torch.Tensor, hs: tuple[int, ...], p: torch.Tensor,
 
 
 automorphism_fused.launches = 0
+
+
+def automorphism_fused_sum(x: torch.Tensor, hs: tuple[int, ...], p: torch.Tensor,
+                           c0: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
+    """base + sum_b phi_{hs[b]}((x_b0 + c0, x_b1, ...)) in one launch: the
+    accumulating epilogue of a hoisted rotate-and-sum.
+
+    x:    [k, C, B, n] residues, rows of n contiguous (element b gets the
+          multiplier hs[b] = g_b^-1 mod 2n, as in ``automorphism_fused``)
+    c0:   [k, n] added mod p to component 0 of every element before its
+          permutation
+    base: [k, C, n] (rows of n contiguous) accumulated into the output
+    Returns [k, C, n]."""
+    hs = tuple(int(h) for h in hs)
+    _check(x, hs, p, c0, "automorphism_fused_sum")
+    k, num_c, batch, n = x.shape
+    if c0.shape != (k, n):
+        raise ValueError(f"automorphism_fused_sum: c0 {list(c0.shape)}, expected "
+                         f"[{k}, {n}]")
+    if (base.dtype != torch.int32 or base.shape != (k, num_c, n)
+            or base.stride(2) != 1 or base.device != x.device):
+        raise ValueError(f"automorphism_fused_sum: base must be an int32 "
+                         f"[{k}, {num_c}, {n}] tensor on {x.device} with rows of n "
+                         f"contiguous, got {base.dtype} {list(base.shape)}")
+    if not on_card(x, "automorphism_fused_sum"):
+        return _galois.automorphism_fused_sum(x, hs, p, c0, base)
+    out = torch.empty((k, num_c, n), dtype=torch.int32, device=x.device)
+    ptr = _build.ptr
+    _build.launch(_lib().fhe_automorphism_sum, "automorphism_fused_sum", x.device,
+                  ptr(x), *x.stride()[:3], ptr(c0), c0.stride(0), ptr(base),
+                  base.stride(0), base.stride(1), ptr(out), ptr(p),
+                  ptr(_multipliers(hs, x.device)), k, num_c, batch, log2_exact(n))
+    automorphism_fused_sum.launches += 1
+    return out
+
+
+automorphism_fused_sum.launches = 0
 
 
 def automorphism_single(x: torch.Tensor, g: int, p: torch.Tensor) -> torch.Tensor:

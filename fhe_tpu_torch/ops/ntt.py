@@ -209,15 +209,18 @@ def tensor_product(x: torch.Tensor, y: torch.Tensor,
 
 
 def keyswitch_fused_batch(d: torch.Tensor, keys_t: torch.Tensor,
-                          tb: NTTTables) -> torch.Tensor:
+                          tb: NTTTables, prereduced: bool = False) -> torch.Tensor:
     """INTT(sum_j NTT([d_j,b]_{p_i}) ⊙ key[i, j, c]) for c = 0, 1 and each of
     B elements: d a [kd, B, n] stack of gadget digits (digit j a residue mod
     its own q_j), keys_t the shared [k, kd, 2, n] NTT-form key material,
-    prime-major.  Returns the [k, 2, B, n] coefficient-domain key-switch
-    corrections."""
+    prime-major.  ``prereduced=True`` takes d as [k, kd, B, n] per-prime
+    residues (grouped gadget digits span several primes, so one row cannot
+    hold them) and uses them as they are.  Returns the [k, 2, B, n]
+    coefficient-domain key-switch corrections."""
     k, kd, _, n = keys_t.shape
-    batch = d.shape[1]
-    dr = torch.remainder(d.to(torch.int64)[None], _p(tb, 4)).to(torch.int32)
+    batch = d.shape[-2]
+    dr = d if prereduced else torch.remainder(
+        d.to(torch.int64)[None], _p(tb, 4)).to(torch.int32)
     f = ntt_forward(dr.reshape(k, kd * batch, n), tb).view(k, kd, 1, batch, n)
     prod = mm.mul_mod(f, keys_t[:, :, :, None], _p(tb, 5))      # [k, kd, 2, B, n]
     acc = torch.remainder(prod.to(torch.int64).sum(1), _p(tb, 4))
@@ -226,7 +229,40 @@ def keyswitch_fused_batch(d: torch.Tensor, keys_t: torch.Tensor,
 
 
 def keyswitch_fused(d: torch.Tensor, keys_t: torch.Tensor,
-                    tb: NTTTables) -> torch.Tensor:
-    """``keyswitch_fused_batch`` of one [kd, n] digit stack; returns the
-    [k, 2, n] coefficient-domain key-switch correction."""
-    return keyswitch_fused_batch(d[:, None], keys_t, tb)[:, :, 0]
+                    tb: NTTTables, prereduced: bool = False) -> torch.Tensor:
+    """``keyswitch_fused_batch`` of one [kd, n] digit stack ([k, kd, n] when
+    prereduced); returns the [k, 2, n] coefficient-domain key-switch
+    correction."""
+    return keyswitch_fused_batch(d.unsqueeze(-2), keys_t, tb, prereduced)[:, :, 0]
+
+
+def _inverse_pairs(acc: torch.Tensor, tb: NTTTables) -> torch.Tensor:
+    """[k, B, 2, n] NTT-domain sums (int64) -> the [k, 2, B, n] coefficient
+    domain."""
+    k, batch, _, n = acc.shape
+    acc = torch.remainder(acc, _p(tb, 4)).to(torch.int32)
+    return ntt_inverse(acc.transpose(1, 2).reshape(k, 2 * batch, n),
+                       tb).view(k, 2, batch, n)
+
+
+def ks_inner_batch(dg: torch.Tensor, keys: torch.Tensor,
+                   tb: NTTTables) -> torch.Tensor:
+    """INTT(sum_j dg[i, j, b_dg] ⊙ keys[i, j, b, c]) for c = 0, 1 and each of
+    B elements: dg the [k, kd, B_dg, n] NTT-domain digit stacks, B_dg = B
+    (one per element) or 1 (one stack shared by every element, b_dg = 0);
+    keys the per-element [k, kd, B, 2, n] NTT-form key material.  Returns
+    the [k, 2, B, n] coefficient-domain corrections."""
+    prod = mm.mul_mod(dg[:, :, :, None], keys, _p(tb, 5))      # [k, kd, B, 2, n]
+    return _inverse_pairs(prod.to(torch.int64).sum(1), tb)
+
+
+def ks_inner_grouped(dg: torch.Tensor, keys: torch.Tensor,
+                     tb: NTTTables) -> torch.Tensor:
+    """``ks_inner_batch`` of C digit stacks dg [k, kd, C, n] against E key
+    sets keys [k, kd, E, 2, n]: element b = c*E + e pairs stack c with key
+    set e.  Returns [k, 2, C*E, n]."""
+    k, kd, num_c, n = dg.shape
+    num_e = keys.shape[2]
+    prod = mm.mul_mod(dg[:, :, :, None, None], keys[:, :, None], _p(tb, 6))
+    return _inverse_pairs(
+        prod.to(torch.int64).sum(1).view(k, num_c * num_e, 2, n), tb)

@@ -1,13 +1,16 @@
 """NTT kernel wrappers — counterpart of ``fhe_tpu/ops/ntt_pallas.py``.
 
 ``ntt_forward``, ``ntt_inverse``, ``mul_by_ntt_operand`` (and ``_batch``),
-``tensor_product`` (and ``_batch``) and ``keyswitch_fused`` (and ``_batch``)
-launch the hand-written CUDA kernels of ``csrc/ntt.cu`` (design and bound:
-the note at the top of that file) for CUDA tensors and use the plain PyTorch
-versions of ``ops/ntt.py`` for CPU tensors; any other device raises.  A
-single function and its ``_batch`` form launch the same kernel (the single
-one with a batch of 1), but each wrapper counts only its own launches, in
-``<wrapper>.launches``.
+``tensor_product`` (and ``_batch``), ``keyswitch_fused`` (and ``_batch``,
+each with its ``prereduced`` lane), ``ks_inner_batch`` and
+``ks_inner_grouped`` launch the hand-written CUDA kernels of
+``csrc/ntt.cu`` (design and bound: the note at the top of that file) for
+CUDA tensors and use the plain PyTorch versions of ``ops/ntt.py`` for CPU
+tensors; any other device raises.  A single function and its ``_batch``
+form launch the same kernel (the single one with a batch of 1), as do
+``ks_inner_batch`` and ``ks_inner_grouped``, but each wrapper counts only
+its own launches, in ``<wrapper>.launches`` (and the prereduced lanes in
+``<wrapper>.prereduced_launches``).
 
 Residues are int32 ``[k, batch, n]`` tensors; the kernels read the same bits
 as uint32.
@@ -41,11 +44,13 @@ def _lib() -> ctypes.CDLL:
     lib.fhe_mul_by_ntt_operand.argtypes = ([_P] + [_L] * 2 + [_P] * 10
                                            + [_I] * 4 + [_P])
     lib.fhe_tensor_product.argtypes = [_P] * 2 + [_L] * 3 + [_P] * 9 + [_I] * 3 + [_P]
-    lib.fhe_keyswitch.argtypes = ([_P] + [_L] * 2 + [_P] + [_L] * 2 + [_P] * 9
-                                  + [_I] * 4 + [_P])
+    lib.fhe_keyswitch.argtypes = ([_P] + [_L] * 3 + [_P] + [_L] * 2 + [_P] * 9
+                                  + [_I] * 5 + [_P])
+    lib.fhe_ks_inner.argtypes = ([_P] + [_L] * 3 + [_I] + [_P] + [_L] * 3 + [_I]
+                                 + [_P] * 7 + [_I] * 4 + [_P])
     for f in (lib.fhe_ntt_forward, lib.fhe_ntt_inverse,
               lib.fhe_mul_by_ntt_operand, lib.fhe_tensor_product,
-              lib.fhe_keyswitch):
+              lib.fhe_keyswitch, lib.fhe_ks_inner):
         f.restype = ctypes.c_int
     return lib
 
@@ -286,67 +291,173 @@ def _check_keys(keys_t: torch.Tensor, kd: int, tb: NTTTables, name: str) -> None
         raise ValueError(f"{name}: keys and tables on different devices")
 
 
+def _check_digits(d: torch.Tensor, tb: NTTTables, prereduced: bool,
+                  name: str) -> None:
+    """Raise unless d is an int32 [kd, B, n] stack, or [k, kd, B, n] when
+    prereduced, on tb's device with rows of n contiguous."""
+    if d.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32 residues")
+    want = "[k, kd, B, n]" if prereduced else "[kd, B, n]"
+    if (d.dim() != (4 if prereduced else 3) or d.shape[-1] != tb.n
+            or d.stride(-1) != 1 or (prereduced and d.shape[0] != tb.k)):
+        raise ValueError(f"{name}: d {list(d.shape)}, expected {want} with k = "
+                         f"{tb.k}, n = {tb.n} and rows of n contiguous")
+    if d.device != tb.device:
+        raise ValueError(f"{name}: tensors and tables on different devices")
+
+
 def _keyswitch_launch(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables,
-                      name: str) -> torch.Tensor:
-    """One launch over d [kd, B, n] (rows contiguous): [k, 2, B, n]."""
+                      prereduced: bool, name: str) -> torch.Tensor:
+    """One launch over d [kd, B, n] or prereduced [k, kd, B, n] (rows
+    contiguous): [k, 2, B, n]."""
     check_barrett(tb, name)
-    kd, batch, n = d.shape
+    kd, batch, n = d.shape[-3:]
     check_smem(n, 3, name)
     out = torch.empty((tb.k, 2, batch, n), dtype=torch.int32, device=d.device)
+    d_sp = d.stride(0) if prereduced else 0
     p = _build.ptr
-    _build.launch(_lib().fhe_keyswitch, name, d.device, p(d), d.stride(0),
-                  d.stride(1), p(keys_t), keys_t.stride(0), keys_t.stride(1),
-                  p(out), *table_ptrs(tb), tb.k, kd, batch, log2_exact(n))
+    _build.launch(_lib().fhe_keyswitch, name, d.device, p(d), d_sp, d.stride(-3),
+                  d.stride(-2), p(keys_t), keys_t.stride(0), keys_t.stride(1),
+                  p(out), *table_ptrs(tb), tb.k, kd, batch, log2_exact(n),
+                  int(prereduced))
     return out
 
 
-def keyswitch_fused(d: torch.Tensor, keys_t: torch.Tensor,
-                    tb: NTTTables) -> torch.Tensor:
+def _count(fn, prereduced: bool) -> None:
+    if prereduced:
+        fn.prereduced_launches += 1
+    else:
+        fn.launches += 1
+
+
+def keyswitch_fused(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables,
+                    prereduced: bool = False) -> torch.Tensor:
     """Key-switch correction INTT(sum_j NTT([d_j]_{p_i}) ⊙ key[i, j, c]),
     c = 0, 1: d the [kd, n] gadget digits (digit j a residue mod its own
     q_j), keys_t the [k, kd, 2, n] NTT-form keys, prime-major.  keys_t may
     be a view with its last two dimensions contiguous (the stored
     [digit, prime, 2, n] keys permuted): the kernel reads it in place.
-    Returns [k, 2, n]; every prime must be a 30-bit prime (Barrett)."""
-    if d.dtype != torch.int32:
-        raise TypeError("keyswitch_fused: expected int32 residues")
-    if d.dim() != 2 or d.shape[1] != tb.n or not d.is_contiguous():
-        raise ValueError(f"keyswitch_fused: d {list(d.shape)}, expected a "
-                         f"contiguous [kd, {tb.n}]")
-    if d.device != tb.device:
-        raise ValueError("keyswitch_fused: tensors and tables on different "
-                         "devices")
-    _check_keys(keys_t, d.shape[0], tb, "keyswitch_fused")
+    ``prereduced=True`` takes d as [k, kd, n], digit j's residue mod each
+    prime (the grouped gadget digits of ks_omega > 1), and skips the
+    reduction.  Returns [k, 2, n]; every prime must be a 30-bit prime
+    (Barrett).  Launches count in ``launches`` and, for the prereduced
+    lane, ``prereduced_launches``."""
+    _check_digits(d.unsqueeze(-2), tb, prereduced, "keyswitch_fused")
+    _check_keys(keys_t, d.shape[-2], tb, "keyswitch_fused")
     if not on_card(d, "keyswitch_fused"):
-        return _ntt.keyswitch_fused(d, keys_t, tb)
-    out = _keyswitch_launch(d[:, None], keys_t, tb, "keyswitch_fused")
-    keyswitch_fused.launches += 1
+        return _ntt.keyswitch_fused(d, keys_t, tb, prereduced)
+    out = _keyswitch_launch(d.unsqueeze(-2), keys_t, tb, prereduced,
+                            "keyswitch_fused")
+    _count(keyswitch_fused, prereduced)
     return out[:, :, 0]
 
 
 keyswitch_fused.launches = 0
+keyswitch_fused.prereduced_launches = 0
 
 
-def keyswitch_fused_batch(d: torch.Tensor, keys_t: torch.Tensor,
-                          tb: NTTTables) -> torch.Tensor:
+def keyswitch_fused_batch(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables,
+                          prereduced: bool = False) -> torch.Tensor:
     """``keyswitch_fused`` for B digit stacks against one key set: d
-    [kd, B, n] (digit-major, rows of n contiguous), keys_t [k, kd, 2, n] as
-    in ``keyswitch_fused``; one launch of B * k blocks; returns
-    [k, 2, B, n], slice b equal to ``keyswitch_fused(d[:, b], keys_t)``."""
-    if d.dtype != torch.int32:
-        raise TypeError("keyswitch_fused_batch: expected int32 residues")
-    if d.dim() != 3 or d.shape[2] != tb.n or d.stride(2) != 1:
-        raise ValueError(f"keyswitch_fused_batch: d {list(d.shape)}, expected "
-                         f"[kd, B, {tb.n}] with rows of n contiguous")
-    if d.device != tb.device:
-        raise ValueError("keyswitch_fused_batch: tensors and tables on "
-                         "different devices")
-    _check_keys(keys_t, d.shape[0], tb, "keyswitch_fused_batch")
+    [kd, B, n] (digit-major, rows of n contiguous), or [k, kd, B, n] with
+    ``prereduced``; keys_t [k, kd, 2, n] as in ``keyswitch_fused``; one
+    launch of B * k blocks; returns [k, 2, B, n], slice b equal to
+    ``keyswitch_fused`` of element b's digits.  Launches count as in
+    ``keyswitch_fused``."""
+    _check_digits(d, tb, prereduced, "keyswitch_fused_batch")
+    _check_keys(keys_t, d.shape[-3], tb, "keyswitch_fused_batch")
     if not on_card(d, "keyswitch_fused_batch"):
-        return _ntt.keyswitch_fused_batch(d, keys_t, tb)
-    out = _keyswitch_launch(d, keys_t, tb, "keyswitch_fused_batch")
-    keyswitch_fused_batch.launches += 1
+        return _ntt.keyswitch_fused_batch(d, keys_t, tb, prereduced)
+    out = _keyswitch_launch(d, keys_t, tb, prereduced, "keyswitch_fused_batch")
+    _count(keyswitch_fused_batch, prereduced)
     return out
 
 
 keyswitch_fused_batch.launches = 0
+keyswitch_fused_batch.prereduced_launches = 0
+
+
+def _check_ks_inner(dg: torch.Tensor, keys: torch.Tensor, tb: NTTTables,
+                    name: str) -> None:
+    """dg [k, kd, S, n] and keys [k, kd, E, 2, n], int32 on tb's device; rows
+    of dg and each key's [2, n] block contiguous."""
+    k, n = tb.k, tb.n
+    if dg.dtype != torch.int32 or keys.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32 residues")
+    if dg.dim() != 4 or dg.shape[0] != k or dg.shape[3] != n or dg.stride(3) != 1:
+        raise ValueError(f"{name}: digits {list(dg.shape)}, expected [{k}, kd, S, "
+                         f"{n}] with rows of n contiguous")
+    if (keys.dim() != 5 or keys.shape[:2] != dg.shape[:2]
+            or keys.shape[3:] != (2, n) or keys.stride()[3:] != (n, 1)):
+        raise ValueError(f"{name}: keys {list(keys.shape)}, expected "
+                         f"[{k}, {dg.shape[1]}, E, 2, {n}] with each [2, n] block "
+                         "contiguous")
+    if dg.device != tb.device or keys.device != tb.device:
+        raise ValueError(f"{name}: tensors and tables on different devices")
+
+
+def _ks_inner_launch(dg: torch.Tensor, keys: torch.Tensor, tb: NTTTables,
+                     batch: int, dg_div: int, key_mod: int, name: str) -> torch.Tensor:
+    """One launch of batch * k blocks; block b reads digit stack b // dg_div
+    (through stride 0 when there is one stack) and key set b % key_mod."""
+    check_barrett(tb, name)
+    kd, n = dg.shape[1], tb.n
+    check_smem(n, 2, name)
+    out = torch.empty((tb.k, 2, batch, n), dtype=torch.int32, device=dg.device)
+    if batch == 0:
+        return out
+    dg_sb = dg.stride(2) if dg.shape[2] > 1 else 0
+    p = _build.ptr
+    _build.launch(_lib().fhe_ks_inner, name, dg.device, p(dg), dg.stride(0),
+                  dg.stride(1), dg_sb, dg_div, p(keys), keys.stride(0), keys.stride(1),
+                  keys.stride(2), key_mod, p(out), p(tb.p), p(tb.mu), p(tb.ipsi_br),
+                  p(tb.ipsi_br_shoup), p(tb.n_inv), p(tb.n_inv_shoup), tb.k, kd, batch,
+                  log2_exact(n))
+    return out
+
+
+def ks_inner_batch(dg: torch.Tensor, keys: torch.Tensor,
+                   tb: NTTTables) -> torch.Tensor:
+    """Hoisted key-switch inner product and inverse transform for B
+    elements: out[i, c, b] = INTT(sum_j dg[i, j, b_dg] ⊙ keys[i, j, b, c]).
+
+    dg:   [k, kd, B_dg, n] NTT-domain digits, rows of n contiguous; B_dg = B
+          (one stack per element) or 1 (one stack shared by every element,
+          read in place, not repeated: the hoisted rotations, whose
+          per-element automorphism lives in the keys)
+    keys: [k, kd, B, 2, n] per-element NTT-form keys, each [2, n] block
+          contiguous
+    Returns [k, 2, B, n]; every prime must be a 30-bit prime (Barrett)."""
+    _check_ks_inner(dg, keys, tb, "ks_inner_batch")
+    batch = keys.shape[2]
+    if dg.shape[2] not in (1, batch):
+        raise ValueError(f"ks_inner_batch: {dg.shape[2]} digit stacks for {batch} "
+                         "elements; expected 1 or one per element")
+    if not on_card(dg, "ks_inner_batch"):
+        return _ntt.ks_inner_batch(dg, keys, tb)
+    out = _ks_inner_launch(dg, keys, tb, batch, 1, batch, "ks_inner_batch")
+    ks_inner_batch.launches += 1
+    return out
+
+
+ks_inner_batch.launches = 0
+
+
+def ks_inner_grouped(dg: torch.Tensor, keys: torch.Tensor,
+                     tb: NTTTables) -> torch.Tensor:
+    """``ks_inner_batch`` of C digit stacks dg [k, kd, C, n] against E key
+    sets keys [k, kd, E, 2, n] (the hoisted rotations of C ciphertexts):
+    element b = c*E + e pairs stack c with key set e, through the kernel's
+    index maps, so neither operand is repeated in memory.  Returns
+    [k, 2, C*E, n]."""
+    _check_ks_inner(dg, keys, tb, "ks_inner_grouped")
+    num_c, num_e = dg.shape[2], keys.shape[2]
+    if not on_card(dg, "ks_inner_grouped"):
+        return _ntt.ks_inner_grouped(dg, keys, tb)
+    out = _ks_inner_launch(dg, keys, tb, num_c * num_e, num_e, num_e,
+                           "ks_inner_grouped")
+    ks_inner_grouped.launches += 1
+    return out
+
+
+ks_inner_grouped.launches = 0

@@ -5,9 +5,13 @@ add / sub, add_plain / sub_plain, multiply_plain (with a cached NTT-form
 operand), the domain changes to_ntt / to_coeff, the ciphertext multiply
 (the BEHZ multiply_no_relin, relinearize by RNS-digit key switching, and
 multiply), key_switch and the Galois rotations (apply_galois, rotate_rows,
-rotate_columns), and the serving batches: encrypt_batch, decrypt_batch,
-multiply_batch, apply_galois_batch and rotate_rows_batch.  Hoisted
-rotations and modulus switching come in later slices.
+rotate_columns), the serving batches (encrypt_batch, decrypt_batch,
+multiply_batch, apply_galois_batch and rotate_rows_batch) and the hoisted
+rotations (hoisted_galois_keys, apply_galois_hoisted, its accumulating
+form apply_galois_hoisted_sum and its multi-ciphertext form
+apply_galois_hoisted_batch).  Every key switch takes the grouped gadget
+digits of ks_omega > 1 as well as the classic per-prime ones.  Modulus
+switching comes in a later slice.
 
 Every transform goes through the kernel wrappers of ``ops/ntt_cuda.py``,
 ``ops/rns_cuda.py``, ``ops/galois_cuda.py`` and ``ops/decrypt_cuda.py``:
@@ -25,6 +29,8 @@ JAX package and to the port.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..ops import modmath as mm
@@ -37,7 +43,7 @@ from ..ops import rns as _rns
 from ..ops import rns_cuda
 from ..ops import sampling
 from . import noise as _noise
-from .context import SchemeContext, default_galois_elements
+from .context import SchemeContext, default_galois_elements, eval_perm_inv
 from .types import (Ciphertext, GaloisKeys, Plaintext, PublicKey, RelinKeys,
                     SecretKey)
 
@@ -124,14 +130,44 @@ def keygen(ctx: SchemeContext, gen: torch.Generator) -> tuple[PublicKey, SecretK
     return keygen_from_noise(ctx, s, a, e)
 
 
+def _omega(ctx: SchemeContext) -> int:
+    """Key-switch gadget rank: q primes per gadget digit (1 = classic)."""
+    return ctx.params.security.ks_omega
+
+
 def _digit_count(ctx: SchemeContext) -> int:
-    """Gadget digits of the key switch: one per q prime (ks_omega = 1)."""
-    omega = ctx.params.security.ks_omega
-    if omega != 1:
-        raise NotImplementedError(
-            f"ks_omega={omega}: grouped gadget digits (the prereduced lane of "
-            "keyswitch_fused) are not ported yet; use ks_omega=1")
-    return ctx.k
+    """Gadget digits of the key switch: ceil(k / ks_omega), one per group
+    of ks_omega q primes (one per prime at ks_omega = 1)."""
+    return -(-ctx.k // _omega(ctx))
+
+
+def _grouped_digit_residues(ctx: SchemeContext, y: torch.Tensor) -> torch.Tensor:
+    """Grouped gadget digits (ks_omega > 1) from the per-prime digits
+    y [k, *B, n], y[j] = [c * (q/q_j)^-1]_{q_j}: returns [k, kd, *B, n], the
+    residue of digit D_g mod every prime, D_g + alpha*q_Jg =
+    sum_{j in J_g} y_j * (q_Jg/q_j) (``context.ks_group_conv_tables``).  A
+    short last group (k not a multiple of ks_omega) is padded with zero
+    digits, which contribute nothing."""
+    k, omega = ctx.k, _omega(ctx)
+    kd = ctx.ks_conv.shape[1]
+    pad = kd * omega - k
+    if pad:
+        y = torch.cat([y, y.new_zeros((pad, *y.shape[1:]))])
+    extra = (1,) * (y.dim() - 1)
+    p = ctx.ntt_q.p.to(torch.int64).view(k, 1, *extra)
+    yg = y.to(torch.int64).reshape(1, kd, omega, *y.shape[1:])
+    prod = yg * ctx.ks_conv.to(torch.int64).view(k, kd, omega, *extra) % p[:, None]
+    return (prod.sum(2) % p).to(torch.int32)
+
+
+def _gadget_digits(ctx: SchemeContext, d: torch.Tensor) -> torch.Tensor:
+    """Per-prime residues [k, kd, *B, n] of the gadget digits of the
+    per-prime digits d [k, *B, n]: the grouped digits at ks_omega > 1, else
+    digit j reduced mod every prime p_i."""
+    if _omega(ctx) > 1:
+        return _grouped_digit_residues(ctx, d)
+    p = ctx.ntt_q.p.to(torch.int64).view(-1, *([1] * d.dim()))
+    return torch.remainder(d.to(torch.int64)[None], p).to(torch.int32)
 
 
 def _keyswitch_keygen_from_noise(ctx: SchemeContext, sk: SecretKey,
@@ -141,8 +177,9 @@ def _keyswitch_keygen_from_noise(ctx: SchemeContext, sk: SecretKey,
     (Gaussian) are [kd, k, 1, n] residues, one [k, 1, n] draw per gadget
     digit; target_ntt is the [k, 1, n] NTT-form polynomial to switch from
     (s^2 for relinearization, s(x^g) for a Galois key).  Digit j is
-    (b_j, a_j) with b_j = e_j - a_j*s + (q/q_j)*target, in NTT form;
-    returns [kd, k, 2, n]."""
+    (b_j, a_j) with b_j = e_j - a_j*s + (q/q_Jj)*target, in NTT form, q_Jj
+    the product of the j-th group of ks_omega primes (q_j itself at
+    ks_omega = 1); returns [kd, k, 2, n], kd = ceil(k / ks_omega)."""
     tb = ctx.ntt_q
     k, n = tb.k, tb.n
     kd = _digit_count(ctx)
@@ -155,8 +192,9 @@ def _keyswitch_keygen_from_noise(ctx: SchemeContext, sk: SecretKey,
         torch.cat([a, e], dim=0)[:, :, 0].permute(1, 0, 2).contiguous(), tb)
     a_ntt, e_ntt = x[:, :kd], x[:, kd:]
     s = sk.data[:k]
-    q = ctx.params.q
-    gadget = torch.tensor([[q // qj % qi for qj in tb.primes] for qi in tb.primes],
+    q, omega = ctx.params.q, _omega(ctx)
+    groups = [math.prod(tb.primes[j * omega:(j + 1) * omega]) for j in range(kd)]
+    gadget = torch.tensor([[q // qj % qi for qj in groups] for qi in tb.primes],
                           dtype=torch.int64, device=tb.device)   # [k, kd]
     b_ntt = mm.add_mod(
         mm.sub_mod(e_ntt, _ntt.pointwise_mul(a_ntt, s.expand_as(a_ntt), tb), p3),
@@ -471,11 +509,16 @@ def _keyswitch_delta(ctx: SchemeContext, poly: torch.Tensor,
     """Coefficient-domain key-switch correction INTT(sum_j NTT(D_j) ⊙ key_j)
     for a [k, n] component: the digits D_j = [poly_j * (q/q_j)^-1]_{q_j}
     are one elementwise step, the rest is one keyswitch_fused launch reading
-    the stored [kd, k, 2, n] keys in place.  Returns [k, 2, n]."""
-    _digit_count(ctx)
+    the stored [kd, k, 2, n] keys in place.  At ks_omega > 1 the grouped
+    digits' per-prime residues go through its prereduced lane.  Returns
+    [k, 2, n]."""
     tb = ctx.ntt_q
     d = mm.mul_mod(poly, ctx.inv_qhat.view(-1, 1), tb.p.view(-1, 1))
-    return ntt_cuda.keyswitch_fused(d, ks_keys.permute(1, 0, 2, 3), tb)
+    keys_t = ks_keys.permute(1, 0, 2, 3)
+    if _omega(ctx) > 1:
+        return ntt_cuda.keyswitch_fused(_grouped_digit_residues(ctx, d), keys_t, tb,
+                                        prereduced=True)
+    return ntt_cuda.keyswitch_fused(d, keys_t, tb)
 
 
 def _keyswitch_delta_batch(ctx: SchemeContext, polys: torch.Tensor,
@@ -483,10 +526,13 @@ def _keyswitch_delta_batch(ctx: SchemeContext, polys: torch.Tensor,
     """``_keyswitch_delta`` of B components at once: polys [k, B, n] (one
     component per element), one keyswitch_fused_batch launch against the
     shared [kd, k, 2, n] keys; returns [k, 2, B, n]."""
-    _digit_count(ctx)
     tb = ctx.ntt_q
     d = mm.mul_mod(polys, ctx.inv_qhat.view(-1, 1, 1), _p3(tb))
-    return ntt_cuda.keyswitch_fused_batch(d, ks_keys.permute(1, 0, 2, 3), tb)
+    keys_t = ks_keys.permute(1, 0, 2, 3)
+    if _omega(ctx) > 1:
+        return ntt_cuda.keyswitch_fused_batch(_grouped_digit_residues(ctx, d), keys_t,
+                                              tb, prereduced=True)
+    return ntt_cuda.keyswitch_fused_batch(d, keys_t, tb)
 
 
 def relinearize(ctx: SchemeContext, ct: Ciphertext, rlk: RelinKeys) -> Ciphertext:
@@ -537,7 +583,6 @@ def multiply_batch(ctx: SchemeContext, cts_a: list, cts_b: list,
         raise ValueError("multiply_batch needs equal-length non-empty lists")
     _check_pairs(ctx, cts_a + cts_b, "multiply_batch")
     _check_multiply_n(ctx)
-    _digit_count(ctx)
     batch, k, n = len(cts_a), ctx.k, ctx.n
     ab = torch.cat([torch.stack([to_coeff(ctx, a).data for a in cts_a]),
                     torch.stack([to_coeff(ctx, b).data for b in cts_b])],
@@ -657,3 +702,136 @@ def rotate_rows_batch(ctx: SchemeContext, cts: list, steps: int,
     for g in _row_elements(ctx, steps, gal_keys):
         cts = apply_galois_batch(ctx, cts, g, gal_keys)
     return cts
+
+
+# ---------------------------------------------------------------------------
+# hoisted rotations
+# ---------------------------------------------------------------------------
+
+
+def _digits_ntt(ctx: SchemeContext, poly: torch.Tensor) -> torch.Tensor:
+    """Gadget decomposition of a [k, n] coefficient-domain component,
+    reduced mod every prime and transformed: [k, kd, n] NTT form, one
+    ntt_forward launch.  The expensive half of a key switch, which hoisted
+    rotations share across many automorphisms."""
+    tb = ctx.ntt_q
+    d = mm.mul_mod(poly, ctx.inv_qhat.view(-1, 1), tb.p.view(-1, 1))
+    return ntt_cuda.ntt_forward(_gadget_digits(ctx, d), tb)
+
+
+def hoisted_galois_keys(ctx: SchemeContext, gal_keys: GaloisKeys,
+                        elements) -> torch.Tensor:
+    """The pre-permuted key stack of the hoisted rotations: [k, kd, E, 2, n],
+    element e's keys prime-major and gathered along n with
+    ``eval_perm_inv(n, g_e)``, since sum_j perm_g(F_j) K_j ==
+    perm_g(sum_j F_j inv_perm_g(K_j)).  The gathers are the expensive part
+    of a hoisted call: build once per (keys, elements) and pass as
+    ``pre_keys`` (the FHE facade caches it)."""
+    stack = []
+    for g in elements:
+        keys = gal_keys.data[int(g)]
+        idx = torch.tensor(eval_perm_inv(ctx.n, int(g)), dtype=torch.int64,
+                           device=keys.device)
+        stack.append(keys.permute(1, 0, 2, 3).index_select(3, idx))
+    return torch.stack(stack, dim=2)
+
+
+def _hoisted_deltas(ctx: SchemeContext, ct: Ciphertext, elements,
+                    gal_keys: GaloisKeys, pre_keys) -> tuple:
+    """(coefficient-domain ct, [k, 2, E, n] un-permuted key-switch deltas of
+    its c1 for every element, the multipliers g^-1 mod 2n): one digit
+    decomposition, one ks_inner_batch launch with the shared stack."""
+    _check_pairs(ctx, [ct], "hoisted rotation")
+    ct = to_coeff(ctx, ct)
+    keys = (pre_keys if pre_keys is not None
+            else hoisted_galois_keys(ctx, gal_keys, elements))
+    d_ntt = _digits_ntt(ctx, ct.data[:, 1])                       # [k, kd, n]
+    delta = ntt_cuda.ks_inner_batch(d_ntt[:, :, None], keys, ctx.ntt_q)
+    hs = tuple(pow(int(g), -1, 2 * ctx.n) for g in elements)
+    return ct, delta, hs
+
+
+def apply_galois_hoisted(ctx: SchemeContext, ct: Ciphertext, elements,
+                         gal_keys: GaloisKeys,
+                         pre_keys: torch.Tensor | None = None) -> list:
+    """Many automorphisms of one ciphertext sharing a single gadget
+    decomposition: the digits and their transform once, then one
+    ks_inner_batch launch against the pre-permuted keys
+    (``hoisted_galois_keys``) and one automorphism_fused launch that adds
+    c0 and applies every element's automorphism (its shared-c0 lane).
+    Returns one ciphertext per Galois element, in order.
+
+    Each output decrypts as apply_galois(ct, g) does, with the same noise
+    budget, but is not bit-identical to it: the sign-flipped coefficients
+    carry the -d rather than the q_j - d digit representative.  It equals
+    the JAX package's apply_galois_hoisted bit for bit."""
+    elements = tuple(int(g) for g in elements)
+    if not elements:
+        return []
+    ct, delta, hs = _hoisted_deltas(ctx, ct, elements, gal_keys, pre_keys)
+    data = galois_cuda.automorphism_fused(delta, hs, ctx.ntt_q.p, c0=ct.data[:, 0])
+    return _split_batch(data, [_galois_budget(ctx, ct)] * len(elements))
+
+
+def apply_galois_hoisted_sum(ctx: SchemeContext, ct: Ciphertext, elements,
+                             gal_keys: GaloisKeys,
+                             pre_keys: torch.Tensor | None = None) -> Ciphertext:
+    """ct + sum_g apply_galois(ct, g) as one hoisted chain ending in the
+    automorphism_fused_sum launch, which accumulates the rotations without
+    writing them out: the sum_slots stage.  Decrypts as the composition of
+    apply_galois_hoisted with adds, and equals it bit for bit."""
+    elements = tuple(int(g) for g in elements)
+    v = _v_of(ctx, ct)
+    v_rot = _noise.add(_noise.galois(v), _noise.keyswitch_add(ctx.params, 0))
+    acc_v = v
+    for _ in elements:
+        acc_v = _noise.add(acc_v, v_rot)
+    if not elements:
+        return ct.replace(noise_budget=_b_of(ctx, 0, acc_v))
+    ct, delta, hs = _hoisted_deltas(ctx, ct, elements, gal_keys, pre_keys)
+    data = galois_cuda.automorphism_fused_sum(delta, hs, ctx.ntt_q.p, ct.data[:, 0],
+                                              ct.data)
+    return ct.replace(data=data, noise_budget=_b_of(ctx, 0, acc_v))
+
+
+def apply_galois_hoisted_batch(ctx: SchemeContext, cts: list, elements,
+                               gal_keys: GaloisKeys,
+                               pre_keys: torch.Tensor | None = None) -> list:
+    """Hoisted rotations of C independent ciphertexts by the same elements,
+    sharing every launch: one batched digit decomposition (kd * C rows
+    through one ntt_forward), one ks_inner_grouped launch pairing digit
+    stack c with key set e (element c*E + e), and one automorphism_fused
+    launch with each ciphertext's c0 (its per-element-c0 lane).  Returns
+    outs[c][e], equal to apply_galois_hoisted(cts[c], elements)[e] bit for
+    bit.  One ciphertext or mixed levels fall back to apply_galois_hoisted
+    per ciphertext, as in the JAX package."""
+    if not cts:
+        return []
+    elements = tuple(int(g) for g in elements)
+    level = cts[0].level
+    if len(cts) == 1 or any(ct.level != level for ct in cts):
+        return [apply_galois_hoisted(ctx, ct, elements, gal_keys,
+                                     pre_keys if ct.level == level else None)
+                for ct in cts]
+    _check_pairs(ctx, cts, "apply_galois_hoisted_batch")
+    num_e = len(elements)
+    if not num_e:
+        return [[] for _ in cts]
+    tb = ctx.ntt_q
+    k, n = tb.k, tb.n
+    cts = [to_coeff(ctx, ct) for ct in cts]
+    keys = (pre_keys if pre_keys is not None
+            else hoisted_galois_keys(ctx, gal_keys, elements))
+    c1 = torch.stack([ct.data[:, 1] for ct in cts], dim=1)        # [k, C, n]
+    d = mm.mul_mod(c1, ctx.inv_qhat.view(-1, 1, 1), _p3(tb))
+    d_all = _gadget_digits(ctx, d)                                # [k, kd, C, n]
+    kd = d_all.shape[1]
+    d_ntt = ntt_cuda.ntt_forward(d_all.reshape(k, kd * len(cts), n), tb)
+    delta = ntt_cuda.ks_inner_grouped(d_ntt.view(k, kd, len(cts), n), keys, tb)
+    hs = tuple(pow(g, -1, 2 * n) for g in elements) * len(cts)
+    c0s = torch.stack([ct.data[:, 0] for ct in cts], dim=1).repeat_interleave(
+        num_e, dim=1)                                             # [k, C*E, n]
+    data = galois_cuda.automorphism_fused(delta, hs, tb.p, c0=c0s)
+    flat = _split_batch(data, [_galois_budget(ctx, ct) for ct in cts
+                               for _ in range(num_e)])
+    return [flat[c * num_e:(c + 1) * num_e] for c in range(len(cts))]

@@ -3,11 +3,13 @@
 Counterpart of ``fhe_tpu/scheme/context.py:make_context``, restricted to
 what the ported ops read at level 0: the q-basis NTT tables, the
 multiply's t-folded q and Bsk tables, the decryption and Δ constants (linear ops), and
-the BEHZ and key-switch digit constants (ciphertext multiply and
-relinearization).  The rest of the JAX context (the lower levels of the
-modulus chain, the BGV tables) comes with the ops that read it.  The Galois
-gather tables are not a field: the automorphism kernel computes its indices,
-and ``galois_perm_tables`` builds the host tables on request.
+the BEHZ and key-switch digit constants (ciphertext multiply,
+relinearization, and the grouped gadget digits of ks_omega > 1).  The rest
+of the JAX context (the lower levels of the modulus chain, the BGV tables)
+comes with the ops that read it.  The Galois gather tables are not a field:
+the automorphism kernel computes its indices, and ``galois_perm_tables``
+(coefficient domain) and ``eval_perm`` / ``eval_perm_inv`` (NTT domain, the
+hoisted rotations) build the host tables on request.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from .. import primes as _primes
 from ..ops import modmath as mm
 from ..ops import ntt as _ntt
 from ..ops import rns as _rns
@@ -39,6 +42,8 @@ class SchemeContext:
     sk_c: _rns.SKConsts                            # Bsk -> q exact conversion
     # relinearization digits D_j = [c2_j * (q/q_j)^-1]_{q_j}
     inv_qhat: torch.Tensor                         # [k]
+    # grouped gadget weights ks_group_conv_tables(q primes, ks_omega)
+    ks_conv: torch.Tensor                          # [k, kd, ks_omega]
     # per-level constants, index = level; only level 0 exists so far
     dec_levels: tuple[_rns.DecryptConsts, ...]     # gamma-trick decryption
     delta_levels: tuple[tuple[torch.Tensor, torch.Tensor], ...]  # (Δ mod q_i, Shoup)
@@ -82,6 +87,65 @@ def galois_perm_tables(n: int, g: int) -> tuple[np.ndarray, np.ndarray]:
     return src, neg
 
 
+@functools.lru_cache(maxsize=None)
+def _bit_reversal(n: int) -> np.ndarray:
+    bits = n.bit_length() - 1
+    return np.array([_primes.bit_reverse(j, bits) for j in range(n)], dtype=np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def eval_perm(n: int, g: int) -> np.ndarray:
+    """NTT-domain form of the automorphism a(x) -> a(x^g): a pure gather,
+    out[j] = in[src[j]], returned as the read-only src [n] int32.
+
+    The merged-psi forward transform stores at position j the evaluation at
+    psi^(2 brv(j) + 1); phi_g evaluates at the g-th powers, so
+    2 brv(src[j]) + 1 = g (2 brv(j) + 1) mod 2n.  No sign flips: the
+    negacyclic wrap only exists in the coefficient representation."""
+    if g % 2 != 1:
+        raise ValueError(f"galois element must be odd, got {g}")
+    brv = _bit_reversal(n)
+    src = brv[(g * (2 * brv + 1) % (2 * n) - 1) // 2].astype(np.int32)
+    src.flags.writeable = False
+    return src
+
+
+@functools.lru_cache(maxsize=None)
+def eval_perm_inv(n: int, g: int) -> np.ndarray:
+    """Inverse of ``eval_perm``'s gather, inv[src[j]] = j (read-only [n]
+    int32).  Gathering key material with it moves the hoisted rotations'
+    automorphism off the data path:
+    sum_j perm_g(F_j) K_j == perm_g(sum_j F_j inv_perm_g(K_j))."""
+    inv = np.argsort(eval_perm(n, g)).astype(np.int32)
+    inv.flags.writeable = False
+    return inv
+
+
+@functools.lru_cache(maxsize=None)
+def ks_group_conv_tables(primes: tuple[int, ...], omega: int) -> np.ndarray:
+    """Grouped-gadget weights (SecurityParams.ks_omega): read-only cw
+    [k, kd, omega] uint32, kd = ceil(k / omega), with
+    cw[i, g, j] = (q_Jg / q_{J_g[j]}) mod primes[i] for the g-th group
+    J_g = primes[g*omega : (g+1)*omega], zero where the last group is short.
+
+    The grouped digit D_g = [c (q/q_Jg)^-1]_{q_Jg} comes from the per-prime
+    digits y_j = [c (q/q_j)^-1]_{q_j} by CRT interpolation,
+    sum_{j in J_g} y_j (q_Jg/q_j) = D_g + alpha q_Jg with alpha < omega; the
+    gadget absorbs alpha exactly (q_Jg (q/q_Jg) = q = 0 mod q) and it only
+    scales the key error (noise.keyswitch_add)."""
+    k = len(primes)
+    kd = -(-k // omega)
+    cw = np.zeros((k, kd, omega), dtype=np.uint32)
+    for g in range(kd):
+        group = primes[g * omega: (g + 1) * omega]
+        q_group = math.prod(group)
+        for jl, pj in enumerate(group):
+            for i, pi in enumerate(primes):
+                cw[i, g, jl] = q_group // pj % pi
+    cw.flags.writeable = False
+    return cw
+
+
 def default_galois_elements(n: int) -> tuple[int, ...]:
     """Galois elements for power-of-two row rotations in both directions,
     3^(±2^i) mod 2n for 2^i < n/2, then the column swap g = 2n - 1."""
@@ -113,6 +177,8 @@ def make_context(params: SchemeParams | None = None, device="cuda",
     dev = mm.resolve_device(device)
     if params is None:
         params = make_scheme_params(SecurityParams(**security_kw))
+    if params.security.ks_omega < 1:
+        raise ValueError(f"ks_omega must be >= 1, got {params.security.ks_omega}")
     chain, aux = params.q_primes, params.aux_primes
     bsk = params.bsk_primes                  # aux + (m_sk,): m_sk last
     delta, delta_sh, inv_qhat = (mm.u32_tensor(v, dev)
@@ -127,6 +193,7 @@ def make_context(params: SchemeParams | None = None, device="cuda",
         floor_c=_rns.make_fast_floor(chain, bsk, dev),
         sk_c=_rns.make_sk(aux, params.m_sk, chain, dev),
         inv_qhat=inv_qhat,
+        ks_conv=mm.u32_tensor(ks_group_conv_tables(chain, params.security.ks_omega), dev),
         dec_levels=(_rns.make_decrypt(chain, params.t, params.gamma, dev),),
         delta_levels=((delta, delta_sh),),
     )

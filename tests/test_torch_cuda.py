@@ -7,6 +7,8 @@ imports neither JAX nor fhe_tpu, so it also runs where JAX is absent:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -221,3 +223,78 @@ def test_serving_and_rotations_on_card(dev):
     assert torch.equal(rot[2].data, fhe.rotate_rows(cts[2], 1, gk).data)
     cols = fhe.decode(fhe.decrypt(fhe.rotate_columns(cts[0], gk), sk))
     assert [int(x) for x in cols[N // 2:N // 2 + 4]] == vals[0]
+
+
+# ---------------------------------------------------------------------------
+# hoisted rotations (ks_inner_batch, ks_inner_grouped, automorphism_fused_sum)
+# and the prereduced lanes of keyswitch_fused / keyswitch_fused_batch
+# ---------------------------------------------------------------------------
+
+HOIST = tuple(pow(3, s, 2 * N) for s in range(1, 9))
+
+
+@pytest.mark.parametrize("stacks", ["shared", "per_element"])
+def test_ks_inner_batch_kernel_matches_plain(ctx, dev, stacks):
+    """A shared digit stack against E = 8 key sets (the hoisted rotation),
+    and one stack per element at B = 8."""
+    qs, tb = ctx.ntt_q.primes, ctx.ntt_q
+    dg = _residues(qs, 3 * (1 if stacks == "shared" else BATCH), dev).view(3, 3, -1, N)
+    keys = _residues(qs, 3 * BATCH * 2, dev).view(3, 3, BATCH, 2, N)
+    assert torch.equal(ntt_cuda.ks_inner_batch(dg, keys, tb),
+                       tntt.ks_inner_batch(dg, keys, tb))
+
+
+def test_ks_inner_grouped_kernel_matches_plain(ctx, dev):
+    qs, tb = ctx.ntt_q.primes, ctx.ntt_q
+    dg = _residues(qs, 3 * 4, dev).view(3, 3, 4, N)
+    keys = _residues(qs, 3 * BATCH * 2, dev).view(3, 3, BATCH, 2, N)
+    assert torch.equal(ntt_cuda.ks_inner_grouped(dg, keys, tb),
+                       tntt.ks_inner_grouped(dg, keys, tb))
+
+
+def test_automorphism_sum_kernel_matches_plain(ctx, dev):
+    qs, p = ctx.ntt_q.primes, ctx.ntt_q.p
+    hs = tuple(pow(g, -1, 2 * N) for g in HOIST[:3])
+    x = _residues(qs, 2 * 3, dev).view(3, 2, 3, N)
+    c0, base = _residues(qs, 1, dev)[:, 0], _residues(qs, 2, dev)
+    assert torch.equal(galois_cuda.automorphism_fused_sum(x, hs, p, c0, base),
+                       tgalois.automorphism_fused_sum(x, hs, p, c0, base))
+
+
+def _params_k8():
+    """The JAX bench's k8_omega configuration; below 128-bit security at
+    n = 8192, as the bench accepts (its warning silenced here)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return make_scheme_params(SecurityParams(poly_degree=N, log_q=218, hamming_weight=64,
+                                                 ks_omega=2))
+
+
+@pytest.mark.parametrize("batch", [None, BATCH])
+def test_keyswitch_prereduced_kernels_match_plain(dev, batch):
+    """k = 8, kd = 4: the grouped digits of ks_omega = 2 at log_q = 218."""
+    qs = _params_k8().q_primes
+    tb = tntt.build_tables(N, qs, dev)
+    keys_t = torch.stack([_residues(qs, 2, dev) for _ in range(4)]).permute(1, 0, 2, 3)
+    if batch is None:
+        d = _residues(qs, 4, dev)
+        got = ntt_cuda.keyswitch_fused(d, keys_t, tb, prereduced=True)
+    else:
+        d = _residues(qs, 4 * batch, dev).view(8, 4, batch, N)
+        got = ntt_cuda.keyswitch_fused_batch(d, keys_t, tb, prereduced=True)
+    assert torch.equal(got, tntt.keyswitch_fused_batch(
+        d if batch else d[:, :, None], keys_t, tb, prereduced=True).view(got.shape))
+
+
+def test_hoisted_and_omega_on_card(dev):
+    fhe = FHE(poly_degree=N, log_q=90, hamming_weight=64, seed=8, device=dev)
+    pk, sk = fhe.keygen()
+    gk = fhe.galoiskey_gen(sk, elements=HOIST[:3])
+    ct = fhe.encrypt(fhe.encode([5, 10, 15, 20]), pk)
+    outs = fhe.rotate_rows_hoisted(ct, (1, 2, 3), gk)
+    assert [int(fhe.decode(fhe.decrypt(o, sk))[0]) for o in outs] == [10, 15, 20]
+    fhe8 = FHE(_params_k8(), seed=9, device=dev)
+    pk8, sk8 = fhe8.keygen()
+    rlk8 = fhe8.relinkey_gen(sk8)
+    a, b = fhe8.encrypt(fhe8.encode([5, 10]), pk8), fhe8.encrypt(fhe8.encode([3, 6]), pk8)
+    assert list(fhe8.decode(fhe8.decrypt(fhe8.multiply(a, b, rlk8), sk8))[:2]) == [15, 60]

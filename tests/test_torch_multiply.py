@@ -46,6 +46,7 @@ from fhe_tpu_torch.params import SecurityParams, make_scheme_params
 from fhe_tpu_torch.scheme import bfv as tbfv
 from fhe_tpu_torch.scheme.context import make_context
 from fhe_tpu_torch.scheme.encoder import BatchEncoder
+from fhe_tpu_torch.scheme.types import RelinKeys
 
 J = types.SimpleNamespace(**{f: jax.jit(getattr(jbfv, f)) for f in (
     "keygen", "relinkey_gen", "encrypt", "decrypt", "multiply_no_relin",
@@ -271,8 +272,10 @@ def test_facade_multiply_on_cpu():
 
 
 def test_unported_branches_raise():
-    """n < 1024 (sm_mrq_fused / fast_floor_fused) and grouped gadget digits
-    (ks_omega > 1) are not ported: they raise rather than diverge."""
+    """n < 1024 (sm_mrq_fused / fast_floor_fused) is not ported: it raises
+    rather than diverges.  Grouped gadget digits (ks_omega > 1) are ported
+    (tests/test_torch_omega.py); relinearization keys of another gadget
+    raise."""
     small = FHE(seed=1, device="cpu", poly_degree=256, log_q=60,
                 hamming_weight=16, lambda_=0)
     pk, _ = small.keygen()
@@ -280,6 +283,9 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="sm_mrq_fused"):
         small.multiply_no_relin(ct, ct)
     grouped = FHE(seed=1, device="cpu", ks_omega=2, **KW)
-    _, sk = grouped.keygen()
-    with pytest.raises(NotImplementedError, match="ks_omega"):
-        grouped.relinkey_gen(sk)
+    pk, sk = grouped.keygen()
+    assert grouped.relinkey_gen(sk).data.shape == (2, 3, 2, 1024)
+    ct = grouped.encrypt(grouped.encode([1, 2]), pk)
+    classic = RelinKeys(data=torch.zeros((3, 3, 2, 1024), dtype=torch.int32))
+    with pytest.raises(ValueError, match="keys"):
+        grouped.multiply(ct, ct, classic)

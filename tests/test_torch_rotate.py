@@ -334,8 +334,8 @@ def test_facade_rotations_on_cpu():
 
 
 def test_rotation_unported_branches_raise(r):
-    """Levels above 0, ks_omega > 1 and hoisted rotations raise rather than
-    diverge; so does a missing Galois key."""
+    """Levels above 0 raise rather than diverge, in the hoisted rotations
+    too; so do a missing Galois key and keys of another gadget (ks_omega)."""
     deep = r.tcts[0].replace(level=1)
     with pytest.raises(NotImplementedError, match="level 1"):
         tbfv.rotate_rows(r.tctx, deep, 1, r.tgk)
@@ -343,11 +343,14 @@ def test_rotation_unported_branches_raise(r):
         tbfv.apply_galois_batch(r.tctx, [deep, deep], 3, r.tgk)
     with pytest.raises(NotImplementedError, match="level 1"):
         tbfv.key_switch(r.tctx, deep, r.tgk.data[3])
+    with pytest.raises(NotImplementedError, match="level 1"):
+        tbfv.apply_galois_hoisted(r.tctx, deep, (3,), r.tgk)
     with pytest.raises(KeyError, match="element"):
         tbfv.rotate_rows(r.tctx, r.tcts[0], 2, r.tgk)
     grouped = FHE(seed=1, device="cpu", ks_omega=2, **KW)
     _, sk = grouped.keygen()
-    with pytest.raises(NotImplementedError, match="ks_omega"):
-        grouped.galoiskey_gen(sk, elements=(3,))
-    with pytest.raises(NotImplementedError, match="hoisted"):
+    assert grouped.galoiskey_gen(sk, elements=(3,)).data[3].shape == (2, 3, 2, N)
+    with pytest.raises(ValueError, match="keys"):
+        grouped.rotate_rows(r.tcts[0], 1, r.tgk)
+    with pytest.raises(KeyError, match="no galois key"):
         grouped.rotate_rows_hoisted(r.tcts[0], (1, 2), r.tgk)

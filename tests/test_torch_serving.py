@@ -310,9 +310,9 @@ def test_facade_serving_on_cpu():
 
 
 def test_serving_unported_branches_raise(s):
-    """Levels above 0, ks_omega > 1 (the prereduced lane of
-    keyswitch_fused_batch) and n < 1024 (sm_mrq_fused) raise rather than
-    diverge; so do malformed batches."""
+    """Levels above 0 and n < 1024 (sm_mrq_fused) raise rather than
+    diverge; so do malformed batches and relinearization keys of another
+    gadget (ks_omega = 2 takes kd = 2 digits, these keys have 3)."""
     (_, ta), (_, tb) = s.a, s.b
     deep = [ct.replace(level=1) for ct in ta]
     with pytest.raises(NotImplementedError, match="level 1"):
@@ -326,7 +326,7 @@ def test_serving_unported_branches_raise(s):
         tbfv.multiply_batch(s.tctx, [m3], [tb[0]], s.trlk)
     grouped = make_context(make_scheme_params(SecurityParams(ks_omega=2, **KW)),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="ks_omega"):
+    with pytest.raises(ValueError, match="keys"):
         tbfv.multiply_batch(grouped, ta, tb, s.trlk)
     small = FHE(seed=1, device="cpu", poly_degree=256, log_q=60, hamming_weight=16,
                 lambda_=0)
