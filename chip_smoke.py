@@ -49,12 +49,37 @@ Phases, each printing its own lines:
      (kd = 4): multiply decodes [15,60], multiply_batch at B = 8 equals the
      single multiply, rotate_rows by 1 decodes 10, and the hoisted calls as
      in phase 7; card == CPU plain path for relinkey_gen_from_noise,
-     multiply, rotate_rows and rotate_rows_hoisted.  Then times.
-Phases 4 to 8 each zero every launch count just before their path and read
+     multiply, rotate_rows and rotate_rows_hoisted.  Then times;
+  9. leveled: every op below level 0 at the JAX bench's k8 configuration,
+     n = 8192, log_q = 218 (k = 8, kb = 10), h = 64, ks_omega = 1: multiply
+     at level 0, mod_switch_to_next, multiply by the second operand at
+     level 1, mod_switch_to_level 4, then at level 4 multiply_plain,
+     add_plain, rotate_rows by 1, rotate_rows_hoisted of 8 steps and its
+     batch of 4 ciphertexts, sum_slots, and multiply_batch at B = 8 at
+     level 2; every result decodes.  Card == CPU plain path for the switched
+     keys, the products and the mod switches.  With ks_omega = 2 at k = 8
+     a multiply at level 2 decodes and one at level 1 raises.  Then the
+     multiply at levels 0 and 1 (keys of the level, as the JAX bench's
+     multiply_relin_ms_level1) at k = 3 and k = 8 with the per-prime ratio
+     (t_L1 / (k-1)) / (t_L0 / k) (bench.py's leveled_per_prime_ratio), the
+     mod switch, the key down-switch and the rotations at level 4;
+ 10. small: the n < 1024 multiply (sm_mrq_fused, fast_floor_fused) at the
+     JAX tests' leveled configuration, n = 256, log_q = 150 (k = 5), h = 32:
+     multiply at levels 0, 1 and 2 and multiply_batch at B = 8 at level 1
+     decode; card == CPU plain path;
+ 11. roofline: the modmul chain (B19) of every variant at two reps values
+     on a [256, 8192] block; the slope over reps gives each step's rate:
+     G modmul/s for exact, lazy and barrett Shoup/Barrett products, the
+     mul17 and cheap17 op rates, lazy at ilp 2 and 4, and the share of one
+     integer pipe's 16.7 T op/s and of the two pipes' 33.4 T that the
+     measured rates reach by the OPS counts (the bounds use the two pipes).
+Phases 4 to 11 each zero every launch count just before their path and read
 them just after; each kernel of the path must have launched.  Phase 3 also
-runs the prereduced lanes at the omega path's k = 8, kd = 4.
+runs the prereduced lanes at the omega path's k = 8, kd = 4, sm_mrq_fused
+and fast_floor_fused at n = 8192, k = 3 and at n = 256, k = 5, and
+modmul_chain of every variant on a [256, 8192] block.
 The line before the last is {"kernels": [...]}, each kernel with its launches
-on its own path (phase 4, 5, 6, 7 or 8); the last line is
+on its own path (phase 4 to 11); the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; without
 a card the script exits 1 before printing any result.  Imports no JAX and
 nothing of fhe_tpu.
@@ -82,6 +107,7 @@ from fhe_tpu_torch.scheme import bfv
 from fhe_tpu_torch.scheme.context import make_context
 from fhe_tpu_torch.scheme.types import (GaloisKeys, Plaintext, PublicKey, RelinKeys,
                                         SecretKey)
+from fhe_tpu_torch.utils import ubench
 
 N, LOG_Q, H = 8192, 90, 64
 BATCH = 8           # the serving batch (bench.py mul_b8 / rot_b8 / enc_b8 / dec_b8)
@@ -90,9 +116,15 @@ REPS = 25
 
 # Published H100 SXM peaks (NVIDIA data sheet) at the full 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
-# 32-bit integer issue rate: 64 INT32 lanes per SM (half the 128 FP32 lanes
-# behind the data sheet's 67 TFLOP/s), 132 SMs, 1.98 GHz boost clock.
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# 32-bit integer issue rate of one pipe: 64 lanes per SM (half the 128 FP32
+# lanes behind the data sheet's 67 TFLOP/s), 132 SMs, 1.98 GHz boost clock.
+# Integer multiplies issue on the FMA pipe and adds, logic, shifts and
+# selects on the INT32 pipe, 64 lanes each, and a stream that mixes them
+# uses both in one cycle: the roofline phase measures one pipe's rate with
+# mul17 (16.6 T multiplies/s) and an exact Shoup chain above it.  The bounds
+# divide operations by the two pipes' rate.
+INT32_PIPE_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 2 * INT32_PIPE_OPS_PER_S
 
 
 def helper_ops() -> dict[str, int]:
@@ -100,8 +132,9 @@ def helper_ops() -> dict[str, int]:
     "OPS <helper> <count>" block beside the helpers in csrc/modmath.cuh."""
     text = (_build.CSRC / "modmath.cuh").read_text()
     ops = {m[1]: int(m[2]) for m in re.finditer(r"^//\s+OPS (\w+) (\d+)$", text, re.M)}
-    want = {"add_mod", "sub_mod", "mul_shoup", "reduce_shoup", "mul_barrett",
-            "reduce_barrett", "neg_mod", "select", "lane16", "mul16", "galois_index"}
+    want = {"add_mod", "sub_mod", "mul_shoup", "mul_shoup_lazy", "reduce_shoup",
+            "mul_barrett", "reduce_barrett", "neg_mod", "select", "lane16", "mul16",
+            "galois_index"}
     if set(ops) != want:
         raise RuntimeError(f"modmath.cuh OPS block lists {sorted(ops)}, expected "
                            f"{sorted(want)}")
@@ -110,6 +143,10 @@ def helper_ops() -> dict[str, int]:
 
 OPS = helper_ops()
 OPS_BUTTERFLY = OPS["mul_shoup"] + OPS["add_mod"] + OPS["sub_mod"]
+# integer instructions of one step of each modmul_chain variant: the helpers'
+# OPS counts, and 17 for the two calibration chains (csrc/ubench.cu)
+CHAIN_OPS = {"exact": OPS["mul_shoup"], "lazy": OPS["mul_shoup_lazy"],
+             "barrett": OPS["mul_barrett"], "cheap17": 17, "mul17": 17}
 
 # path: the phase whose run gives the kernel's launches in the kernels line
 KERNELS = {
@@ -180,7 +217,24 @@ KERNELS = {
                                              source="fhe_tpu_torch/csrc/ntt.cu",
                                              replaces="fhe_tpu/ops/ntt_pallas.py:1269",
                                              path="omega"),
+    "sm_mrq_fused": dict(fn=rns_cuda.sm_mrq_fused, source="fhe_tpu_torch/csrc/rns.cu",
+                         replaces="fhe_tpu/ops/rns_pallas.py:105", path="small"),
+    "fast_floor_fused": dict(fn=rns_cuda.fast_floor_fused,
+                             source="fhe_tpu_torch/csrc/rns.cu",
+                             replaces="fhe_tpu/ops/rns_pallas.py:147", path="small"),
+    "modmul_chain": dict(fn=ubench.modmul_chain, source="fhe_tpu_torch/csrc/ubench.cu",
+                         replaces="fhe_tpu/utils/ubench.py:113", path="roofline"),
 }
+
+# the kernels each later path runs, besides those whose path it is
+LEVELED_KERNELS = ("ntt_forward", "ntt_inverse", "mul_by_ntt_operand", "decrypt_fused",
+                   "tensor_product", "bsk_branch_fused", "fast_bconv_sk_fused",
+                   "keyswitch_fused", "tensor_product_batch", "keyswitch_fused_batch",
+                   "bsk_branch_fused_batch", "automorphism_fused", "automorphism_single",
+                   "ks_inner_batch", "ks_inner_grouped", "automorphism_fused_sum")
+SMALL_KERNELS = ("ntt_forward", "ntt_inverse", "mul_by_ntt_operand", "decrypt_fused",
+                 "tensor_product", "fast_bconv_sk_fused", "keyswitch_fused",
+                 "tensor_product_batch", "keyswitch_fused_batch", "bsk_branch_fused_batch")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -198,10 +252,11 @@ def read_counts() -> dict[str, int]:
             for name, k in KERNELS.items()}
 
 
-def check_launched(launches: dict[str, int], path: str) -> None:
-    """Every kernel of the path launched at least once in the run."""
+def check_launched(launches: dict[str, int], path: str, also=()) -> None:
+    """Every kernel of the path, and those named in ``also``, launched at
+    least once in the run."""
     for name, meta in KERNELS.items():
-        if meta["path"] == path:
+        if meta["path"] == path or name in also:
             check(launches[name] > 0, f"{name} was never launched on the {path} path")
 
 
@@ -215,6 +270,8 @@ def device_ms(fn, reps: int = REPS) -> float:
     fn()
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    if host_s > 0.01:                  # a slow plain version: fewer runs
+        reps = min(reps, 5)
     cycles = int(max(2 * host_s, 50e-6) * 2.0e9)
     times = []
     for _ in range(reps):
@@ -407,8 +464,59 @@ def params_k8():
                                                  ks_omega=2))
 
 
-def residues(gen: torch.Generator, moduli, rows: int) -> torch.Tensor:
-    return torch.stack([torch.randint(0, int(p), (rows, N), generator=gen,
+def params_leveled():
+    """The JAX bench's k8 configuration (bench.py:668-726): n = 8192,
+    log_q = 218 (k = 8), h = 64, ks_omega = 1; below 128-bit security at
+    this n, as the bench accepts (its warning silenced as there)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return make_scheme_params(SecurityParams(poly_degree=N, log_q=218,
+                                                 hamming_weight=H))
+
+
+def params_small():
+    """The JAX tests' leveled configuration (tests/test_leveled.py):
+    n = 256, log_q = 150 (k = 5), h = 32."""
+    return make_scheme_params(SecurityParams(poly_degree=256, log_q=150,
+                                             hamming_weight=32))
+
+
+def chain_input(gen: torch.Generator, ctx) -> tuple[torch.Tensor, tuple]:
+    """The JAX bench's roofline input: a [256, 8192] block below the first q
+    prime p, and (w, w_sh, p, mu) with w = psi_br[0, 1]."""
+    p = ctx.ntt_q.primes[0]
+    w = int(ctx.ntt_q.psi_br[0, 1])
+    x = residues(gen, (p,), 256)[0]
+    return x, (w, (w << 32) // p, p, (1 << 61) // p)
+
+
+def sm_mrq_work(k: int, kb: int, cols: int) -> tuple[float, float]:
+    """x [k, cols] in, [kb, cols] out.  The k source digits count once per
+    coefficient (the kernel forms them again for each Bsk prime); per
+    output its conversion and m~ lane steps, the centred correction and the
+    m~^-1 scale."""
+    o = OPS
+    per_out = (k * (o["mul_shoup"] + o["add_mod"] + o["lane16"]) + o["mul16"]
+               + o["select"] + 2 * o["mul_shoup"] + o["sub_mod"])
+    return 4 * (k + kb) * cols, cols * k * o["mul_shoup"] + kb * cols * per_out
+
+
+def fast_floor_work(k: int, kb: int, cols: int) -> tuple[float, float]:
+    """tx_q [k, cols] and tx_bsk [kb, cols] in, [kb, cols] out: the digits
+    once, per output the conversion, the subtraction and the q^-1 scale."""
+    o = OPS
+    per_out = k * (o["mul_shoup"] + o["add_mod"]) + o["sub_mod"] + o["mul_shoup"]
+    return 4 * (k + 2 * kb) * cols, cols * k * o["mul_shoup"] + kb * cols * per_out
+
+
+def chain_work(elems: int, reps: int, variant: str, ilp: int = 1) -> tuple[float, float]:
+    """x in and out; reps steps of each of ilp chains per element, and the
+    seeds and the XOR fold of ilp > 1."""
+    return 8 * elems, elems * (reps * ilp * CHAIN_OPS[variant] + 2 * (ilp - 1))
+
+
+def residues(gen: torch.Generator, moduli, rows: int, n: int | None = None) -> torch.Tensor:
+    return torch.stack([torch.randint(0, int(p), (rows, n or N), generator=gen,
                                       device="cuda", dtype=torch.int64)
                         for p in moduli]).to(torch.int32)
 
@@ -610,6 +718,37 @@ def phase_kernels(gen: torch.Generator) -> dict:
                   lambda: ntt_cuda.keyswitch_fused_batch(d8_classic_b, keys8, tb8),
                   lambda: plain_ntt.keyswitch_fused_batch(d8_classic_b, keys8, tb8),
                   keyswitch_work(k8, kd8, BATCH)))
+    # the n < 1024 multiply's lift and floor (B9, B10): at the headline shapes,
+    # beside B5 (the four rows of a multiply, k = 3, kb = 5), and at n = 256,
+    # k = 5 with level 1's constants (the small path)
+    ab, tx_q = residues(gen, qs, 4), residues(gen, qs, 3)
+    tx_bsk = residues(gen, prm.bsk_primes, 3)
+    cases.append(("sm_mrq_fused", f"[{k},4,{N}] -> [{kb},4,{N}]",
+                  lambda: rns_cuda.sm_mrq_fused(ab, ctx.smq),
+                  lambda: rns.sm_mrq(ab, ctx.smq), sm_mrq_work(k, kb, 4 * N)))
+    cases.append(("fast_floor_fused", f"[{k},3,{N}] + [{kb},3,{N}] -> [{kb},3,{N}]",
+                  lambda: rns_cuda.fast_floor_fused(tx_q, tx_bsk, ctx.floor_c),
+                  lambda: rns.fast_floor(tx_q, tx_bsk, ctx.floor_c),
+                  fast_floor_work(k, kb, 3 * N)))
+    ctx_s = make_context(params_small(), device="cuda")
+    qs_s, bsk_s = ctx_s.ntt_q.primes[:4], ctx_s.mul_levels[1][1].primes
+    ab_s, txq_s = residues(gen, qs_s, 4, 256), residues(gen, qs_s, 3, 256)
+    txb_s = residues(gen, bsk_s, 3, 256)
+    sc_s, fc_s = ctx_s.smq_levels[1], ctx_s.floor_levels[1]
+    cases.append(("sm_mrq_fused", f"level 1 of k=5: [4,4,256] -> [{len(bsk_s)},4,256]",
+                  lambda: rns_cuda.sm_mrq_fused(ab_s, sc_s),
+                  lambda: rns.sm_mrq(ab_s, sc_s), sm_mrq_work(4, len(bsk_s), 4 * 256)))
+    cases.append(("fast_floor_fused", f"level 1 of k=5: [4,3,256] -> [{len(bsk_s)},3,256]",
+                  lambda: rns_cuda.fast_floor_fused(txq_s, txb_s, fc_s),
+                  lambda: rns.fast_floor(txq_s, txb_s, fc_s),
+                  fast_floor_work(4, len(bsk_s), 3 * 256)))
+    # the modmul roofline probe (B19) on the JAX bench's [256, 8192] block
+    x_m, consts = chain_input(gen, ctx)
+    for variant in ubench.VARIANTS:
+        cases.append(("modmul_chain", f"{variant} [256,{N}] reps=64",
+                      lambda v=variant: ubench.modmul_chain(x_m, *consts, 64, v),
+                      lambda v=variant: ubench.modmul_chain_plain(x_m, *consts, 64, v),
+                      chain_work(x_m.numel(), 64, variant)))
     results = {}
     for name, label, kern, plain, work in cases:
         got, want = kern(), plain()
@@ -1131,6 +1270,251 @@ def phase_omega() -> dict:
     return launches
 
 
+LEVEL_DEEP = 4      # the leveled path's deeper level: 4 of k = 8 primes left
+SLOTS_A, SLOTS_B = [5, 10, 15, 20], [3, 6, 9, 12]
+
+
+def leveled_times(fhe: FHE, a, b, rlk: RelinKeys) -> dict:
+    """multiply at levels 0 and 1, the level-1 keys passed as they are
+    (keys_at_level, as bench.py's mul_l1), wall and device ms, and the
+    per-prime ratio (t_L1 / (k-1)) / (t_L0 / k) of bench.py's
+    leveled_per_prime_ratio."""
+    k = fhe.params.k
+    a1, b1 = fhe.mod_switch_to_next(a), fhe.mod_switch_to_next(b)
+    rlk1 = fhe._rlk_at(rlk, 1)
+    ops = {"multiply_l0": lambda: bfv.multiply(fhe.ctx, a, b, rlk),
+           "multiply_l1": lambda: bfv.multiply(fhe.ctx, a1, b1, rlk1, keys_at_level=True)}
+    out = {}
+    for what, timer in (("wall_ms", wall_ms), ("device_ms", device_ms)):
+        t = {op: timer(fn) for op, fn in ops.items()}
+        t["per_prime_ratio"] = (t["multiply_l1"] / (k - 1)) / (t["multiply_l0"] / k)
+        out[what] = t
+    return out
+
+
+def phase_leveled() -> dict:
+    """Every op below level 0 through the facade at the JAX bench's k8
+    configuration, then the CPU plain path, the ks_omega = 2 levels, then
+    times (also at the headline k = 3)."""
+    fhe = FHE(params_leveled(), seed=19, device="cuda")
+    prm, t, L = fhe.params, fhe.params.t, LEVEL_DEEP
+    check((prm.k, len(prm.bsk_primes)) == (8, 10), f"expected k = 8, kb = 10, got "
+          f"{prm.k}, {len(prm.bsk_primes)}")
+    vals_a = [[5 + i, 10 + i] for i in range(BATCH)]
+    vals_b = [[3, 6 + i] for i in range(BATCH)]
+    two = fhe.encode([2, 2, 2, 2])
+    reset_counts()
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    gk = fhe.galoiskey_gen(sk, elements=HOIST)
+    gk_ss = fhe.galoiskey_gen(sk, elements=fhe.sum_slots_elements())
+    a, b = fhe.encrypt(fhe.encode(SLOTS_A), pk), fhe.encrypt(fhe.encode(SLOTS_B), pk)
+    p0 = fhe.multiply(a, b, rlk)                                   # level 0
+    p0_1, b1 = fhe.mod_switch_to_next(p0), fhe.mod_switch_to_next(b)
+    p1 = fhe.multiply(p0_1, b1, rlk)                               # level 1
+    d = fhe.mod_switch_to_level(p1, L)
+    mp, ap = fhe.multiply_plain(d, two), fhe.add_plain(d, two)
+    rot = fhe.rotate_rows(d, 1, gk)
+    outs = fhe.rotate_rows_hoisted(d, STEPS, gk)
+    d_c = [fhe.mod_switch_to_level(c, L) for c in fhe.encrypt_batch(
+        [fhe.encode([v + 100 * c for v in SLOTS_A]) for c in range(C_HOIST)], pk)]
+    outs_b = fhe.rotate_rows_hoisted_batch(d_c, STEPS, gk)
+    total = fhe.sum_slots(d, gk_ss)
+    cts_a = [fhe.mod_switch_to_level(c, 2) for c in
+             fhe.encrypt_batch([fhe.encode(v) for v in vals_a], pk)]
+    cts_b = [fhe.mod_switch_to_level(c, 2) for c in
+             fhe.encrypt_batch([fhe.encode(v) for v in vals_b], pk)]
+    prods = fhe.multiply_batch(cts_a, cts_b, rlk)
+    # decryption is on the path too: the counts are read after the decodes
+    dec = lambda c, m=4: [int(v) for v in fhe.decode(fhe.decrypt(c, sk))[:m]]
+    abb = [x * y * y % t for x, y in zip(SLOTS_A, SLOTS_B)]
+    for what, ct, want in (("multiply at level 0", p0, PRODUCT),
+                           ("mod_switch_to_next", p0_1, PRODUCT),
+                           ("multiply at level 1", p1, abb),
+                           (f"mod_switch_to_level {L}", d, abb),
+                           (f"multiply_plain at level {L}", mp, [2 * v for v in abb]),
+                           (f"add_plain at level {L}", ap, [v + 2 for v in abb]),
+                           (f"rotate_rows by 1 at level {L}", rot, abb[1:] + [0])):
+        check(dec(ct) == want, f"{what} decoded {dec(ct)}, expected {want}")
+    check((p1.level, d.level, rot.level) == (1, L, L), "unexpected levels")
+    check_hoisted(fhe, sk, d, abb, outs, d_c,
+                  [[v + 100 * c for v in SLOTS_A] for c in range(C_HOIST)], outs_b, gk)
+    got = {int(v) for v in fhe.decode(fhe.decrypt(total, sk))}
+    check(got == {sum(abb) % t}, f"sum_slots at level {L} decoded {sorted(got)[:4]}")
+    want = [[x * y % t for x, y in zip(va, vb)] for va, vb in zip(vals_a, vals_b)]
+    got = [[int(x) for x in fhe.decode(pt)[:2]] for pt in fhe.decrypt_batch(prods, sk)]
+    check(got == want, f"multiply_batch at level 2 decoded {got}, expected {want}")
+    for i in range(BATCH):
+        check(torch.equal(prods[i].data, fhe.multiply(cts_a[i], cts_b[i], rlk).data),
+              f"multiply_batch element {i} at level 2 differs from the single multiply")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print("phase leveled launches", json.dumps(launches))
+    check_launched(launches, "leveled", LEVELED_KERNELS)
+
+    # the same state through the plain versions on the CPU, at full size
+    cpu = make_context(prm, device="cpu")
+    to_cpu = lambda c: c.replace(data=c.data.cpu())
+    rlk_cpu = RelinKeys(data=rlk.data.cpu())
+    gk3_cpu = GaloisKeys(data={3: gk.data[3].cpu()})
+    check(torch.equal(fhe._rlk_cache[(id(rlk), 1)].data.cpu(),
+                      bfv.switch_relin_keys(cpu, rlk_cpu, 1).data),
+          "card switch_relin_keys (level 1) differs from the CPU plain path")
+    check(torch.equal(fhe._gal_cache[(id(gk), L)].data[3].cpu(),
+                      bfv.switch_galois_keys(cpu, gk3_cpu, L).data[3]),
+          f"card switch_galois_keys (level {L}) differs from the CPU plain path")
+    check(same_cts([p0], [bfv.multiply(cpu, to_cpu(a), to_cpu(b), rlk_cpu)]),
+          "card multiply at level 0 differs from the CPU plain path")
+    p0_1_cpu = bfv.mod_switch_to_next(cpu, to_cpu(p0))
+    check(same_cts([p0_1], [p0_1_cpu]), "card mod_switch_to_next differs from the CPU")
+    p1_cpu = bfv.multiply(cpu, p0_1_cpu, bfv.mod_switch_to_next(cpu, to_cpu(b)), rlk_cpu)
+    check(same_cts([p1], [p1_cpu]), "card multiply at level 1 differs from the CPU")
+    check(same_cts([d], [bfv.mod_switch_to_level(cpu, p1_cpu, L)]),
+          "card mod_switch_to_level differs from the CPU plain path")
+    check(same_cts([rot], [bfv.rotate_rows(cpu, to_cpu(d), 1, gk3_cpu)]),
+          f"card rotate_rows at level {L} differs from the CPU plain path")
+    print(f"phase leveled check: n={N}, k=8, kb=10; decoded multiply at levels 0 and 1, "
+          f"the mod switches, multiply_plain, add_plain, rotate_rows, the hoisted "
+          f"rotations (8 steps, batch of {C_HOIST}) and sum_slots at level {L}, "
+          f"multiply_batch (B={BATCH}) at level 2 (element i == multiply); card == CPU "
+          "plain path for switch_relin_keys, switch_galois_keys, multiply at levels 0 "
+          "and 1, mod_switch_to_next, mod_switch_to_level and rotate_rows")
+
+    # ks_omega = 2 at k = 8: level 2 keeps whole gadget groups, level 1 not
+    fw = FHE(params_k8(), seed=21, device="cuda")
+    pkw, skw = fw.keygen()
+    rlkw = fw.relinkey_gen(skw)
+    aw, bw = (fw.encrypt(fw.encode(v), pkw) for v in (SLOTS_A, SLOTS_B))
+    pw = fw.multiply(fw.mod_switch_to_level(aw, 2), fw.mod_switch_to_level(bw, 2), rlkw)
+    got = [int(v) for v in fw.decode(fw.decrypt(pw, skw))[:4]]
+    check(got == PRODUCT, f"ks_omega=2 multiply at level 2 decoded {got}")
+    a1w = fw.mod_switch_to_next(aw)
+    try:
+        fw.multiply(a1w, a1w, rlkw)
+        raised = False
+    except ValueError as err:
+        raised = "gadget groups" in str(err)
+    check(raised, "ks_omega=2 multiply at level 1 did not raise")
+    print("phase leveled omega check: k=8, ks_omega=2: multiply at level 2 decoded "
+          f"{PRODUCT}; level 1 raised")
+
+    times = {"k8": leveled_times(fhe, a, b, rlk)}
+    head = FHE(poly_degree=N, log_q=LOG_Q, hamming_weight=H, seed=23, device="cuda")
+    pkh, skh = head.keygen()
+    rlkh = head.relinkey_gen(skh)
+    ah, bh = (head.encrypt(head.encode(v), pkh) for v in (SLOTS_A, SLOTS_B))
+    times["k3"] = leveled_times(head, ah, bh, rlkh)
+    for cfg, row in times.items():
+        for what, t in row.items():
+            print(f"phase leveled {cfg} multiply {what}", json.dumps(t))
+    gk_l = fhe._gal_at(gk, L)
+    ops = {"mod_switch_to_next": lambda: fhe.mod_switch_to_next(p0),
+           "switch_relin_keys_l1": lambda: bfv.switch_relin_keys(fhe.ctx, rlk, 1),
+           f"switch_relin_keys_l{L}": lambda: bfv.switch_relin_keys(fhe.ctx, rlk, L),
+           f"rotate_rows_1_l{L}": lambda: bfv.rotate_rows(fhe.ctx, d, 1, gk_l,
+                                                          keys_at_level=True),
+           f"rotate_rows_1_l0": lambda: fhe.rotate_rows(a, 1, gk),
+           f"rotate_rows_hoisted_8_l{L}": lambda: fhe.rotate_rows_hoisted(d, STEPS, gk),
+           f"multiply_batch_B{BATCH}_l2": lambda: fhe.multiply_batch(cts_a, cts_b, rlk)}
+    print("phase leveled k8 wall_ms", json.dumps({op: wall_ms(fn) for op, fn in ops.items()}))
+    print("phase leveled k8 device_ms",
+          json.dumps({op: device_ms(fn) for op, fn in ops.items()}))
+    return launches
+
+
+def phase_small() -> dict:
+    """The n < 1024 multiply (sm_mrq_fused, fast_floor_fused) at levels 0, 1
+    and 2 and multiply_batch at level 1, then the CPU plain path, then
+    times."""
+    fhe = FHE(params_small(), seed=29, device="cuda")
+    n, t = fhe.params.n, fhe.params.t
+    check((n, fhe.params.k) == (256, 5), f"expected n = 256, k = 5, got {n}, {fhe.params.k}")
+    vals_a = [[5 + i, 10 + i] for i in range(BATCH)]
+    vals_b = [[3, 6 + i] for i in range(BATCH)]
+    reset_counts()
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    a, b = fhe.encrypt(fhe.encode(SLOTS_A), pk), fhe.encrypt(fhe.encode(SLOTS_B), pk)
+    pairs = {lv: (fhe.mod_switch_to_level(a, lv), fhe.mod_switch_to_level(b, lv))
+             for lv in (0, 1, 2)}
+    prods = {lv: fhe.multiply(x, y, rlk) for lv, (x, y) in pairs.items()}
+    cts_a = [fhe.mod_switch_to_next(c) for c in
+             fhe.encrypt_batch([fhe.encode(v) for v in vals_a], pk)]
+    cts_b = [fhe.mod_switch_to_next(c) for c in
+             fhe.encrypt_batch([fhe.encode(v) for v in vals_b], pk)]
+    batch = fhe.multiply_batch(cts_a, cts_b, rlk)
+    for lv, ct in prods.items():
+        got = [int(v) for v in fhe.decode(fhe.decrypt(ct, sk))[:4]]
+        check(got == PRODUCT and ct.level == lv,
+              f"multiply at level {lv} (n=256) decoded {got}")
+    want = [[x * y % t for x, y in zip(va, vb)] for va, vb in zip(vals_a, vals_b)]
+    got = [[int(x) for x in fhe.decode(pt)[:2]] for pt in fhe.decrypt_batch(batch, sk)]
+    check(got == want, f"multiply_batch at level 1 (n=256) decoded {got}")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print("phase small launches", json.dumps(launches))
+    check_launched(launches, "small", SMALL_KERNELS)
+
+    cpu = make_context(fhe.params, device="cpu")
+    to_cpu = lambda c: c.replace(data=c.data.cpu())
+    rlk_cpu = RelinKeys(data=rlk.data.cpu())
+    for lv, (x, y) in pairs.items():
+        check(same_cts([prods[lv]], [bfv.multiply(cpu, to_cpu(x), to_cpu(y), rlk_cpu)]),
+              f"card multiply at level {lv} (n=256) differs from the CPU plain path")
+    check(same_cts(batch, bfv.multiply_batch(cpu, [to_cpu(c) for c in cts_a],
+                                             [to_cpu(c) for c in cts_b], rlk_cpu)),
+          "card multiply_batch (n=256) differs from the CPU plain path")
+    print(f"phase small check: n=256, k=5; multiply at levels 0, 1, 2 and multiply_batch "
+          f"(B={BATCH}) at level 1 decoded; card == CPU plain path for each")
+    rlk1 = fhe._rlk_at(rlk, 1)
+    ops = {f"multiply_l{lv}": (lambda x=x, y=y, lv=lv: bfv.multiply(
+        fhe.ctx, x, y, fhe._rlk_at(rlk, lv), keys_at_level=True))
+        for lv, (x, y) in pairs.items()}
+    ops["multiply_no_relin_l1"] = lambda: fhe.multiply_no_relin(*pairs[1])
+    ops[f"multiply_batch_B{BATCH}_l1"] = lambda: bfv.multiply_batch(
+        fhe.ctx, cts_a, cts_b, rlk1, keys_at_level=True)
+    print("phase small wall_ms", json.dumps({op: wall_ms(fn) for op, fn in ops.items()}))
+    print("phase small device_ms", json.dumps({op: device_ms(fn) for op, fn in ops.items()}))
+    return launches
+
+
+ROOF_REPS = (64, 320)
+
+
+def phase_roofline(gen: torch.Generator) -> dict:
+    """B19 at two reps values per variant: the slope over reps cancels the
+    launch and the memory traffic, as the JAX bench's two-point chains do."""
+    ctx = make_context(make_scheme_params(SecurityParams(
+        poly_degree=N, log_q=LOG_Q, hamming_weight=H)), device="cuda")
+    x, consts = chain_input(gen, ctx)
+    elems = x.numel()
+    runs = [(v, 1) for v in ubench.VARIANTS] + [("lazy", 2), ("lazy", 4)]
+    reset_counts()
+    ms = {(v, ilp, r): device_ms(lambda v=v, ilp=ilp, r=r: ubench.modmul_chain(
+        x, *consts, r, v, ilp=ilp)) for v, ilp in runs for r in ROOF_REPS}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_launched(launches, "roofline")
+    steps = {}                              # chain steps per second
+    for v, ilp in runs:
+        slope_s = (ms[(v, ilp, ROOF_REPS[1])] - ms[(v, ilp, ROOF_REPS[0])]) * 1e-3 / (
+            ROOF_REPS[1] - ROOF_REPS[0])
+        check(slope_s > 0, f"modmul_chain {v} ilp={ilp}: no slope over reps")
+        steps[(v, ilp)] = elems * ilp / slope_s
+    out = {f"{v}_gmodmul_per_s": steps[(v, 1)] / 1e9 for v in ("exact", "lazy", "barrett")}
+    out.update({f"{v}_tops_per_s": steps[(v, 1)] * CHAIN_OPS[v] / 1e12
+                for v in ("mul17", "cheap17")})
+    out.update({f"lazy_ilp{i}_gmodmul_per_s": steps[("lazy", i)] / 1e9 for i in (2, 4)})
+    for v in ("exact", "lazy", "barrett"):
+        ops_per_s = steps[(v, 1)] * CHAIN_OPS[v]
+        out[f"{v}_share_of_one_pipe"] = ops_per_s / INT32_PIPE_OPS_PER_S
+        out[f"{v}_share_of_int32_peak"] = ops_per_s / INT32_OPS_PER_S
+    out["exact_one_pipe_gmodmul_per_s"] = INT32_PIPE_OPS_PER_S / CHAIN_OPS["exact"] / 1e9
+    out["device_ms"] = {f"{v}_ilp{ilp}_reps{r}": t for (v, ilp, r), t in ms.items()}
+    print("phase roofline", json.dumps(out))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1143,7 +1527,8 @@ def main() -> int:
     results = phase_kernels(gen)
     launches = {"slice": phase_slice(), "multiply": phase_multiply(),
                 "serving": phase_serving(), "hoisted": phase_hoisted(),
-                "omega": phase_omega()}
+                "omega": phase_omega(), "leveled": phase_leveled(),
+                "small": phase_small(), "roofline": phase_roofline(gen)}
     rows = []
     for name, meta in KERNELS.items():
         r = results[name]

@@ -1,5 +1,5 @@
 """High-level FHE API — counterpart of the ``FHE`` facade in ``fhe_tpu/api.py``,
-restricted to the ops this package has so far, at level 0.
+restricted to the BFV ops this package has so far, at every level.
 
     from fhe_tpu_torch import FHE
     fhe = FHE(poly_degree=8192, log_q=90, hamming_weight=64)   # on the card
@@ -18,6 +18,19 @@ restricted to the ops this package has so far, at level 0.
 
 ``SecurityParams(ks_omega=2)`` (``FHE(..., ks_omega=2)``) groups two q
 primes per gadget digit in every key switch.
+
+Leveled use: ``mod_switch_to_next`` drops the last q prime with rounding
+(``mod_switch_to_level`` several), which keeps the noise of a deep circuit
+in check; every op then runs at the ciphertext's level:
+
+    ab = fhe.mod_switch_to_next(fhe.multiply(a, b, rlk))        # level 1
+    abc = fhe.multiply(ab, fhe.mod_switch_to_next(c), rlk)
+    rot = fhe.rotate_rows(ab, 1, gk)
+
+Keys are made once, at level 0.  A key-switching op at level L switches
+them down to L the first time (``bfv.switch_relin_keys`` /
+``switch_galois_keys``) and caches the result per (keys, level); the entry
+goes when the caller drops the keys.
 
 Everything runs on ``device`` ("cuda" by default; a CUDA request without a
 card raises).  ``device="cpu"`` runs the plain PyTorch versions of the
@@ -41,7 +54,8 @@ from .scheme.types import (Ciphertext, GaloisKeys, Plaintext, PublicKey,
 
 class FHE:
     """Stateful convenience wrapper.  Mutable state: the random generator,
-    the cache of NTT-form plain operands and the cache of pre-permuted
+    the cache of NTT-form plain operands, the per-level caches of switched
+    relinearization and Galois keys and the cache of pre-permuted
     hoisted-rotation keys; all scheme values are immutable."""
 
     def __init__(self, params: SchemeParams | None = None, seed: int = 0,
@@ -56,6 +70,8 @@ class FHE:
         self.encoder = _encoder.BatchEncoder(params, self.device)
         self._plain_ntt_cache: dict = {}
         self._hoist_cache: dict = {}
+        self._rlk_cache: dict = {}
+        self._gal_cache: dict = {}
 
     # -- keys --
     def keygen(self) -> tuple[PublicKey, SecretKey]:
@@ -116,20 +132,45 @@ class FHE:
     def sub_plain(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
         return bfv.sub_plain(self.ctx, ct, pt)
 
+    # -- keys switched down to a level, cached per (keys, level) --
+    def _keys_at(self, cache: dict, keys, level: int, switch):
+        """keys switched to ``level`` by ``switch(ctx, keys, level)``, made
+        once per (keys, level) and evicted when the caller drops the keys;
+        level 0 keys as they are."""
+        if level == 0:
+            return keys
+        ck = (id(keys), level)
+        switched = cache.get(ck)
+        if switched is None:
+            switched = switch(self.ctx, keys, level)
+            cache[ck] = switched
+            weakref.finalize(keys, _evict, cache, id(keys))
+        return switched
+
+    def _rlk_at(self, rlk: RelinKeys, level: int) -> RelinKeys:
+        return self._keys_at(self._rlk_cache, rlk, level, bfv.switch_relin_keys)
+
+    def _gal_at(self, gal_keys: GaloisKeys, level: int) -> GaloisKeys:
+        return self._keys_at(self._gal_cache, gal_keys, level, bfv.switch_galois_keys)
+
     def multiply(self, a: Ciphertext, b: Ciphertext, rlk: RelinKeys) -> Ciphertext:
-        return bfv.multiply(self.ctx, a, b, rlk)
+        return bfv.multiply(self.ctx, a, b, self._rlk_at(rlk, a.level),
+                            keys_at_level=True)
 
     def multiply_batch(self, cts_a: list, cts_b: list, rlk: RelinKeys) -> list:
-        """Multiply + relinearize B independent pairs through the batched
-        kernels (the serving path); element i equals
+        """Multiply + relinearize B independent pairs at one level through
+        the batched kernels (the serving path); element i equals
         multiply(cts_a[i], cts_b[i], rlk)."""
-        return bfv.multiply_batch(self.ctx, cts_a, cts_b, rlk)
+        level = cts_a[0].level if cts_a else 0
+        return bfv.multiply_batch(self.ctx, cts_a, cts_b, self._rlk_at(rlk, level),
+                                  keys_at_level=True)
 
     def multiply_no_relin(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         return bfv.multiply_no_relin(self.ctx, a, b)
 
     def relinearize(self, ct: Ciphertext, rlk: RelinKeys) -> Ciphertext:
-        return bfv.relinearize(self.ctx, ct, rlk)
+        return bfv.relinearize(self.ctx, ct, self._rlk_at(rlk, ct.level),
+                               keys_at_level=True)
 
     def multiply_plain(self, ct: Ciphertext, pt: Plaintext,
                        cache_operand: bool = False) -> Ciphertext:
@@ -142,22 +183,28 @@ class FHE:
     # -- rotations and key switching --
     def rotate_rows(self, ct: Ciphertext, steps: int,
                     gal_keys: GaloisKeys) -> Ciphertext:
-        return bfv.rotate_rows(self.ctx, ct, steps, gal_keys)
+        return bfv.rotate_rows(self.ctx, ct, steps, self._gal_at(gal_keys, ct.level),
+                               keys_at_level=True)
 
     def rotate_rows_batch(self, cts: list, steps: int,
                           gal_keys: GaloisKeys) -> list:
-        """Rotate B ciphertexts by the same step count, one batched
-        automorphism and key switch per hop; element i equals
+        """Rotate B ciphertexts at one level by the same step count, one
+        batched automorphism and key switch per hop; element i equals
         rotate_rows(cts[i], steps)."""
-        return bfv.rotate_rows_batch(self.ctx, cts, steps, gal_keys)
+        level = cts[0].level if cts else 0
+        return bfv.rotate_rows_batch(self.ctx, cts, steps, self._gal_at(gal_keys, level),
+                                     keys_at_level=True)
 
     def rotate_columns(self, ct: Ciphertext, gal_keys: GaloisKeys) -> Ciphertext:
-        return bfv.rotate_columns(self.ctx, ct, gal_keys)
+        return bfv.rotate_columns(self.ctx, ct, self._gal_at(gal_keys, ct.level),
+                                  keys_at_level=True)
 
-    def key_switch(self, ct: Ciphertext, ks_keys: torch.Tensor) -> Ciphertext:
+    def key_switch(self, ct: Ciphertext, ks_keys: torch.Tensor,
+                   keys_at_level: bool = False) -> Ciphertext:
         """Switch a 2-component ciphertext under s' to one under s; ks_keys
-        [kd, k, 2, n] encrypt (q/q_j) * s'."""
-        return bfv.key_switch(self.ctx, ct, ks_keys)
+        [kd, k, 2, n] encrypt (q/q_j) * s' (switched down to the
+        ciphertext's level on each call unless ``keys_at_level``)."""
+        return bfv.key_switch(self.ctx, ct, ks_keys, keys_at_level)
 
     def _hoist_elements(self, steps_list, gal_keys: GaloisKeys) -> tuple:
         """The Galois elements 3^s mod 2n of the steps; KeyError unless each
@@ -173,12 +220,14 @@ class FHE:
 
     def _hoisted_pre(self, gal_keys: GaloisKeys, elements: tuple,
                      level: int) -> torch.Tensor:
-        """The pre-permuted key stack (bfv.hoisted_galois_keys), cached per
-        (keys, elements, level) and evicted when the caller drops the keys."""
+        """The pre-permuted key stack (bfv.hoisted_galois_keys) of the level,
+        from the level's cached keys, cached per (level-0 keys, elements,
+        level) and evicted when the caller drops the keys."""
         ck = (id(gal_keys), elements, level)
         pre = self._hoist_cache.get(ck)
         if pre is None:
-            pre = bfv.hoisted_galois_keys(self.ctx, gal_keys, elements)
+            pre = bfv.hoisted_galois_keys(self.ctx, self._gal_at(gal_keys, level),
+                                          elements, level, keys_at_level=True)
             self._hoist_cache[ck] = pre
             weakref.finalize(gal_keys, _evict, self._hoist_cache, id(gal_keys))
         return pre
@@ -198,10 +247,13 @@ class FHE:
                                   gal_keys: GaloisKeys) -> list:
         """Hoisted rotations of C independent ciphertexts by the same steps
         through one kernel chain (bfv.apply_galois_hoisted_batch):
-        outs[c][e] equals rotate_rows_hoisted(cts[c], steps_list)[e]."""
+        outs[c][e] equals rotate_rows_hoisted(cts[c], steps_list)[e].
+        Ciphertexts at mixed levels go one rotate_rows_hoisted each."""
         elements = self._hoist_elements(steps_list, gal_keys)
         if not cts:
             return []
+        if any(ct.level != cts[0].level for ct in cts):
+            return [self.rotate_rows_hoisted(ct, steps_list, gal_keys) for ct in cts]
         return bfv.apply_galois_hoisted_batch(
             self.ctx, cts, elements, gal_keys,
             pre_keys=self._hoisted_pre(gal_keys, elements, cts[0].level))
@@ -248,6 +300,24 @@ class FHE:
         return bfv.apply_galois_hoisted_sum(
             self.ctx, ct, elements, gal_keys,
             pre_keys=self._hoisted_pre(gal_keys, elements, ct.level))
+
+    # -- noise management --
+    def mod_switch_to_next(self, ct: Ciphertext) -> Ciphertext:
+        """Drop the last q prime with rounding: level L -> L + 1."""
+        return bfv.mod_switch_to_next(self.ctx, ct)
+
+    def mod_switch_to_level(self, ct: Ciphertext, level: int) -> Ciphertext:
+        return bfv.mod_switch_to_level(self.ctx, ct, level)
+
+    def modulus_raise(self, ct: Ciphertext) -> Ciphertext:
+        """Base-extend a leveled ciphertext back to all k primes (adds an
+        alpha * q_L term the caller absorbs as noise)."""
+        return bfv.modulus_raise(self.ctx, ct)
+
+    def bootstrap(self, ct: Ciphertext, sk: SecretKey, pk: PublicKey) -> Ciphertext:
+        """Trusted refresh with the secret key: decrypt, then encrypt afresh
+        at level 0 with the facade's generator."""
+        return bfv.bootstrap(self.ctx, self.gen, ct, sk, pk)
 
     # -- NTT-form residency --
     def to_ntt(self, ct: Ciphertext) -> Ciphertext:

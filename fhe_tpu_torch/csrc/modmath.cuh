@@ -15,6 +15,7 @@
 //   OPS add_mod 4
 //   OPS sub_mod 4
 //   OPS mul_shoup 6
+//   OPS mul_shoup_lazy 3
 //   OPS reduce_shoup 5
 //   OPS mul_barrett 11
 //   OPS reduce_barrett 10
@@ -80,6 +81,13 @@ __device__ __forceinline__ uint32_t mul_shoup(uint32_t x, uint32_t w,
   uint32_t q = __umulhi(x, w_sh);
   uint32_t r = x * w - q * p;
   return r >= p ? r - p : r;
+}
+
+// mul_shoup without its closing subtract: x * w mod p in [0, 2p), for any
+// x < 2^32 (the Harvey lazy form, a valid input to the next product).
+__device__ __forceinline__ uint32_t mul_shoup_lazy(uint32_t x, uint32_t w,
+                                                   uint32_t w_sh, uint32_t p) {
+  return x * w - __umulhi(x, w_sh) * p;
 }
 
 // x mod p for any x < 2^32 and p < 2^31; one_sh = floor(2^32 / p).

@@ -100,6 +100,26 @@ def build_tables(n: int, primes_list, device="cuda") -> NTTTables:
                      primes=primes)
 
 
+def slice_tables(tb: NTTTables, k: int) -> NTTTables:
+    """First-k-primes view (a modulus-switched level): zero-copy row views
+    of every field (tb itself for all of its primes).  The CUDA wrappers
+    pass ``data_ptr()``, which includes a view's offset, so the kernels read
+    a view as they read whole tables."""
+    if k == tb.k:
+        return tb
+    return dataclasses.replace(tb, **{f: getattr(tb, f)[:k] for f in FIELDS},
+                               primes=tb.primes[:k])
+
+
+def slice_tables_last(tb: NTTTables, k: int) -> NTTTables:
+    """Last-k-primes view: the leveled Bsk base shrinks from the front, so
+    m_sk, the Shenoy-Kumaresan anchor, stays last at every level."""
+    if k == tb.k:
+        return tb
+    return dataclasses.replace(tb, **{f: getattr(tb, f)[tb.k - k:] for f in FIELDS},
+                               primes=tb.primes[tb.k - k:])
+
+
 def build_mul_tables(q_tables: NTTTables, bsk_tables: NTTTables,
                      t: int) -> tuple[NTTTables, NTTTables]:
     """(q-base, Bsk-base) tables for the multiply's tensor products, with
@@ -107,7 +127,8 @@ def build_mul_tables(q_tables: NTTTables, bsk_tables: NTTTables,
     t * n^-1 mod p (and its Shoup companion), so the inverse transform
     emits t * INTT(...) at no cost.  The twiddle tensors are the given
     tables' own.  Counterpart of ``fhe_tpu.ops.ntt_pallas.build_mul_tables``
-    at level 0 (all q primes; all Bsk primes, m_sk last)."""
+    at level 0 (all q primes; all Bsk primes, m_sk last); a deeper level's
+    tables are the row views ``slice_tables`` and ``slice_tables_last``."""
 
     def scaled(tb: NTTTables) -> NTTTables:
         t_ninv = [t * pow(tb.n, -1, p) % p for p in tb.primes]

@@ -106,7 +106,9 @@ def check_barrett(tb: NTTTables, name: str) -> None:
 def table_ptrs(tb: NTTTables) -> list:
     """Pointers to the primes, Barrett constants, twiddles and inverse
     normalisation, in the order the forward-and-inverse kernels of csrc/
-    take them."""
+    take them.  The kernels index row i of a [k, n] table at i * n from its
+    pointer, which a row view of contiguous tables (``ntt.slice_tables``,
+    ``slice_tables_last``: a level's primes) keeps, offset included."""
     return [_build.ptr(getattr(tb, f)) for f in (
         "p", "mu", "psi_br", "psi_br_shoup", "ipsi_br", "ipsi_br_shoup",
         "n_inv", "n_inv_shoup")]
@@ -241,12 +243,15 @@ def tensor_product(x: torch.Tensor, y: torch.Tensor,
     ciphertext halves; returns [k, 3, n].  With the multiply's tables
     (``ntt.build_mul_tables``) the result is t times the product.  One block
     per prime holds all four rows in shared memory, so n <= 8192 on Hopper;
-    every prime must be a 30-bit prime (Barrett)."""
-    check_residues(x, tb, "tensor_product")
-    check_residues(y, tb, "tensor_product")
-    if x.shape[1] != 2 or y.shape != x.shape:
-        raise ValueError(f"tensor_product: x {list(x.shape)}, y "
-                         f"{list(y.shape)}; expected two [k, 2, n]")
+    every prime must be a 30-bit prime (Barrett).  x and y may be views
+    with rows of n contiguous and equal strides (the halves of a lifted
+    [k, 4, n] tensor: the kernel reads them in place)."""
+    check_residues(x, tb, "tensor_product", strided=True)
+    check_residues(y, tb, "tensor_product", strided=True)
+    if x.shape[1] != 2 or y.shape != x.shape or y.stride() != x.stride():
+        raise ValueError(f"tensor_product: x {list(x.shape)} strides {x.stride()}, "
+                         f"y {list(y.shape)} strides {y.stride()}; expected two "
+                         "[k, 2, n] with equal strides")
     if not on_card(x, "tensor_product"):
         return _ntt.tensor_product(x, y, tb)
     out = _tensor_product_launch(x[:, :, None], y[:, :, None], tb,

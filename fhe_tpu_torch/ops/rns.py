@@ -9,13 +9,14 @@ Base conversions and exact rounded scalings, all-integer (BEHZ):
 * decryption: m = round(t * x / q) mod t for the phase x = c0 + c1*s,
   through the gamma trick: the digits of [gamma*t*x]_q are summed into a t
   lane and a gamma lane, and the centred gamma lane corrects the t lane's
-  rounding.
+  rounding;
+* modulus switching: round(x / q_last) in the remaining primes.
 
 Each is bit-exact with its ``fhe_tpu.ops.rns`` counterpart (the JAX
 package's t = 65537 Fermat decryption lane gives the same bits as the
-generic one here).  ``bsk_branch_fused`` (and ``_batch``) and
-``fast_bconv_sk`` are also the plain versions of the CUDA kernels in
-``ops/rns_cuda.py``.  Residues are
+generic one here).  ``bsk_branch_fused`` (and ``_batch``),
+``fast_bconv_sk``, ``sm_mrq`` and ``fast_floor`` are also the plain
+versions of the CUDA kernels in ``ops/rns_cuda.py``.  Residues are
 int32 tensors; products are formed in int64 and reduced with ``%``.
 """
 
@@ -337,3 +338,40 @@ def decrypt_scale(x: torch.Tensor, dc: DecryptConsts) -> torch.Tensor:
     # centre s_g: e_hat = s_g (s_g <= gamma/2) or s_g - gamma, taken mod t
     e_mod_t = torch.where(s_g <= (g >> 1), s_g % t, (s_g - dc.gamma_mod_t) % t)
     return ((s_t - e_mod_t) % t * dc.inv_gamma_t % t).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# modulus switching: drop the last prime with rounding
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ModSwitchConsts:
+    p_keep: torch.Tensor          # [k-1]
+    inv_qlast: torch.Tensor       # [k-1]  q_last^-1 mod p_i
+    inv_qlast_shoup: torch.Tensor
+    q_last: int
+
+
+def make_mod_switch(primes, device="cuda") -> ModSwitchConsts:
+    ps = tuple(int(p) for p in primes)
+    keep, last = ps[:-1], ps[-1]
+    inv = [pow(last, -1, p) for p in keep]
+    return ModSwitchConsts(
+        p_keep=mm.u32_tensor(np.array(keep, dtype=np.uint32), device),
+        inv_qlast=mm.u32_tensor(np.array(inv, dtype=np.uint32), device),
+        inv_qlast_shoup=mm.u32_tensor(mm.shoup_array(inv, keep), device),
+        q_last=last)
+
+
+def mod_switch_drop_last(x: torch.Tensor, mc: ModSwitchConsts) -> torch.Tensor:
+    """[k, B, n] -> [k-1, B, n]: round(x / q_last) in the remaining primes,
+    x_last taken centred (x_last or x_last - q_last).  Elementwise, so plain
+    PyTorch on either device, as in the JAX package (which computes it
+    outside any Pallas kernel)."""
+    x_keep, x_last = x[:-1].to(torch.int64), x[-1].to(torch.int64)
+    p = _col(mc.p_keep, x.dim())
+    # x - x_last is divisible by q_last: subtract x_last (centred: x_last, or
+    # x_last - q_last when it is above q_last / 2)
+    corr = torch.where(x_last <= (mc.q_last >> 1), x_last, x_last - mc.q_last)
+    return ((x_keep - corr) % p * _col(mc.inv_qlast, x.dim()) % p).to(torch.int32)

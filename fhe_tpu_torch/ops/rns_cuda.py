@@ -1,12 +1,13 @@
 """BEHZ conversion kernel wrappers — counterpart of ``fhe_tpu/ops/rns_pallas.py``.
 
 ``bsk_branch_fused`` (and ``bsk_branch_fused_batch``, the same kernel with
-a batch grid axis) and ``fast_bconv_sk_fused`` launch the hand-written CUDA
+a batch grid axis), ``fast_bconv_sk_fused``, and the n < 1024 multiply's
+``sm_mrq_fused`` and ``fast_floor_fused`` launch the hand-written CUDA
 kernels of ``csrc/rns.cu`` (design and bound: the note at the top of that
 file) for CUDA tensors and use the plain PyTorch versions of ``ops/rns.py``
-(``bsk_branch_fused``, ``bsk_branch_fused_batch``, ``fast_bconv_sk``) for
-CPU tensors; any other device raises.  Each wrapper counts its kernel
-launches in ``<wrapper>.launches``.
+(``bsk_branch_fused``, ``bsk_branch_fused_batch``, ``fast_bconv_sk``,
+``sm_mrq``, ``fast_floor``) for CPU tensors; any other device raises.  Each
+wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -35,7 +36,10 @@ def _lib() -> ctypes.CDLL:
                                    + [_U] + [_P] * 14 + [_I] * 4 + [_P])
     lib.fhe_fast_bconv_sk.argtypes = ([_P] * 12 + [_U] * 3 + [_I] * 2 + [_L]
                                       + [_P])
-    for f in (lib.fhe_bsk_branch, lib.fhe_fast_bconv_sk):
+    lib.fhe_sm_mrq.argtypes = [_P] * 13 + [_U] + [_I] * 3 + [_P]
+    lib.fhe_fast_floor.argtypes = [_P] * 11 + [_I] * 3 + [_P]
+    for f in (lib.fhe_bsk_branch, lib.fhe_fast_bconv_sk, lib.fhe_sm_mrq,
+              lib.fhe_fast_floor):
         f.restype = ctypes.c_int
     return lib
 
@@ -161,3 +165,70 @@ def fast_bconv_sk_fused(x_bsk: torch.Tensor, sk: _rns.SKConsts) -> torch.Tensor:
 
 
 fast_bconv_sk_fused.launches = 0
+
+
+def _check_conv_input(x: torch.Tensor, rows: int, consts: torch.Tensor,
+                      name: str) -> None:
+    """x an int32 contiguous [rows, B, n] tensor on the constants' device,
+    small enough for the kernels' 32-bit offsets."""
+    if x.dim() != 3:
+        raise ValueError(f"{name}: expected [{rows}, B, n], got {list(x.shape)}")
+    _check_int32(x, (rows, *x.shape[1:]), name)
+    if x.device != consts.device:
+        raise ValueError(f"{name}: tensor and constants on different devices")
+    if x.numel() >= 1 << 31:
+        raise ValueError(f"{name}: tensor too large for 32-bit offsets")
+
+
+def sm_mrq_fused(x: torch.Tensor, sc: _rns.SmMRqConsts) -> torch.Tensor:
+    """SmMRq centred lift of x [k, B, n] (residues in q) into the dst base
+    (the Bsk base of the multiply): [l, B, n], each residue that of x or of
+    x - q, whichever is centred.  The lift step of ``bsk_branch_fused`` on
+    its own (the n < 1024 multiply)."""
+    k, l = sc.conv.p_src.shape[0], sc.conv.p_dst.shape[0]
+    _check_conv_input(x, k, sc.conv.p_src, "sm_mrq_fused")
+    if not on_card(x, "sm_mrq_fused"):
+        return _rns.sm_mrq(x, sc)
+    _, batch, n = x.shape
+    out = torch.empty((l, batch, n), dtype=torch.int32, device=x.device)
+    p = _build.ptr
+    _build.launch(
+        _lib().fhe_sm_mrq, "sm_mrq_fused", x.device, p(x), p(out), p(sc.conv.p_src),
+        p(sc.mt_times_inv_phat), p(sc.mt_times_inv_phat_shoup), p(sc.conv.phat_mod_dst),
+        p(sc.conv.phat_shoup_dst), p(sc.phat_mod_mt), p(sc.conv.p_dst), p(sc.q_mod_dst),
+        p(sc.q_shoup_dst), p(sc.inv_mt_dst), p(sc.inv_mt_shoup_dst), sc.inv_q_mt, k, l,
+        batch * n)
+    sm_mrq_fused.launches += 1
+    return out
+
+
+sm_mrq_fused.launches = 0
+
+
+def fast_floor_fused(tx_q: torch.Tensor, tx_bsk: torch.Tensor,
+                     fc: _rns.FastFloorConsts) -> torch.Tensor:
+    """FastFloor: from the residues of t*x in q (tx_q [k, B, n]) and in the
+    dst base (tx_bsk [l, B, n]), floor(t*x/q) - alpha (alpha < k) in the
+    dst base, [l, B, n].  The floor step of ``bsk_branch_fused`` on its own
+    (the n < 1024 multiply)."""
+    k, l = fc.conv.p_src.shape[0], fc.conv.p_dst.shape[0]
+    _check_conv_input(tx_q, k, fc.inv_q_dst, "fast_floor_fused tx_q")
+    _check_conv_input(tx_bsk, l, fc.inv_q_dst, "fast_floor_fused tx_bsk")
+    if tx_bsk.shape[1:] != tx_q.shape[1:]:
+        raise ValueError(f"fast_floor_fused: tx_q {list(tx_q.shape)}, tx_bsk "
+                         f"{list(tx_bsk.shape)}")
+    if not on_card(tx_q, "fast_floor_fused"):
+        return _rns.fast_floor(tx_q, tx_bsk, fc)
+    _, batch, n = tx_q.shape
+    out = torch.empty_like(tx_bsk)
+    p = _build.ptr
+    _build.launch(
+        _lib().fhe_fast_floor, "fast_floor_fused", tx_q.device, p(tx_q), p(tx_bsk),
+        p(out), p(fc.conv.p_src), p(fc.conv.inv_phat), p(fc.conv.inv_phat_shoup),
+        p(fc.conv.phat_mod_dst), p(fc.conv.phat_shoup_dst), p(fc.conv.p_dst),
+        p(fc.inv_q_dst), p(fc.inv_q_shoup_dst), k, l, batch * n)
+    fast_floor_fused.launches += 1
+    return out
+
+
+fast_floor_fused.launches = 0

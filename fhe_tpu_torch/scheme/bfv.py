@@ -1,4 +1,4 @@
-"""BFV operations at level 0 — counterpart of ``fhe_tpu/scheme/bfv.py``.
+"""BFV operations at every level — counterpart of ``fhe_tpu/scheme/bfv.py``.
 
 keygen, relinkey_gen, galoiskey_gen, encrypt, decrypt (2 or 3 components),
 add / sub, add_plain / sub_plain, multiply_plain (with a cached NTT-form
@@ -9,9 +9,18 @@ rotate_columns), the serving batches (encrypt_batch, decrypt_batch,
 multiply_batch, apply_galois_batch and rotate_rows_batch) and the hoisted
 rotations (hoisted_galois_keys, apply_galois_hoisted, its accumulating
 form apply_galois_hoisted_sum and its multi-ciphertext form
-apply_galois_hoisted_batch).  Every key switch takes the grouped gadget
-digits of ks_omega > 1 as well as the classic per-prime ones.  Modulus
-switching comes in a later slice.
+apply_galois_hoisted_batch), and modulus switching (mod_switch_to_next,
+mod_switch_to_level, modulus_raise, the trusted-refresh bootstrap).  Every
+key switch takes the grouped gadget digits of ks_omega > 1 as well as the
+classic per-prime ones.
+
+Every op runs at any level L of the modulus chain (the first k - L q
+primes), reading the level's constants from the context.  Keys are made at
+level 0; a key-switching op at level L switches them down on the fly
+(_switch_keys_down: inverse transform, L roundings, forward transform at
+level L), unless the caller passes ``keys_at_level=True`` with keys that
+``switch_relin_keys`` / ``switch_galois_keys`` made for that level (the
+FHE facade caches those per level).
 
 Every transform goes through the kernel wrappers of ``ops/ntt_cuda.py``,
 ``ops/rns_cuda.py``, ``ops/galois_cuda.py`` and ``ops/decrypt_cuda.py``:
@@ -54,10 +63,16 @@ from .types import (Ciphertext, GaloisKeys, Plaintext, PublicKey, RelinKeys,
 
 
 def _tb(ctx: SchemeContext, level: int = 0) -> _ntt.NTTTables:
-    if level != 0:
-        raise NotImplementedError(
-            f"level {level}: modulus switching is not ported yet")
-    return ctx.ntt_q
+    """The q tables of level L: row views of its first k - L primes."""
+    return _ntt.slice_tables(ctx.ntt_q, ctx.k - level)
+
+
+def _fwd_q(ctx: SchemeContext, x: torch.Tensor, level: int = 0) -> torch.Tensor:
+    return ntt_cuda.ntt_forward(x, _tb(ctx, level))
+
+
+def _inv_q(ctx: SchemeContext, x: torch.Tensor, level: int = 0) -> torch.Tensor:
+    return ntt_cuda.ntt_inverse(x, _tb(ctx, level))
 
 
 def _p3(tb: _ntt.NTTTables) -> torch.Tensor:
@@ -80,25 +95,23 @@ def _b_of(ctx: SchemeContext, level: int, log2_var: float) -> float:
 def to_ntt(ctx: SchemeContext, ct: Ciphertext) -> Ciphertext:
     if ct.is_ntt_form:
         return ct
-    return ct.replace(data=ntt_cuda.ntt_forward(ct.data, _tb(ctx, ct.level)),
-                      is_ntt_form=True)
+    return ct.replace(data=_fwd_q(ctx, ct.data, ct.level), is_ntt_form=True)
 
 
 def to_coeff(ctx: SchemeContext, ct: Ciphertext) -> Ciphertext:
     if not ct.is_ntt_form:
         return ct
-    return ct.replace(data=ntt_cuda.ntt_inverse(ct.data, _tb(ctx, ct.level)),
-                      is_ntt_form=False)
+    return ct.replace(data=_inv_q(ctx, ct.data, ct.level), is_ntt_form=False)
 
 
 def _lift_plain(ctx: SchemeContext, pt: Plaintext, level: int = 0) -> torch.Tensor:
-    """pt coefficients mod t (< t < every q_i) as residues: [k, 1, n]."""
+    """pt coefficients mod t (< t < every q_i) as residues: [k-L, 1, n]."""
     k = _tb(ctx, level).k
     return pt.data.view(1, 1, ctx.n).expand(k, 1, ctx.n).contiguous()
 
 
 def _scale_by_delta(ctx: SchemeContext, pt: Plaintext, level: int = 0) -> torch.Tensor:
-    """Δ_L * m as residues [k, 1, n], Δ_L = floor(q_L / t)."""
+    """Δ_L * m as residues [k-L, 1, n], Δ_L = floor(q_L / t)."""
     delta, _ = ctx.delta_levels[level]
     return mm.mul_mod(_lift_plain(ctx, pt, level), delta.view(-1, 1, 1),
                       _p3(_tb(ctx, level)))
@@ -141,33 +154,42 @@ def _digit_count(ctx: SchemeContext) -> int:
     return -(-ctx.k // _omega(ctx))
 
 
-def _grouped_digit_residues(ctx: SchemeContext, y: torch.Tensor) -> torch.Tensor:
+def _grouped_digit_residues(ctx: SchemeContext, y: torch.Tensor,
+                            level: int = 0) -> torch.Tensor:
     """Grouped gadget digits (ks_omega > 1) from the per-prime digits
-    y [k, *B, n], y[j] = [c * (q/q_j)^-1]_{q_j}: returns [k, kd, *B, n], the
-    residue of digit D_g mod every prime, D_g + alpha*q_Jg =
-    sum_{j in J_g} y_j * (q_Jg/q_j) (``context.ks_group_conv_tables``).  A
-    short last group (k not a multiple of ks_omega) is padded with zero
-    digits, which contribute nothing."""
-    k, omega = ctx.k, _omega(ctx)
-    kd = ctx.ks_conv.shape[1]
+    y [k-L, *B, n], y[j] = [c * (q_L/q_j)^-1]_{q_j}: returns [k-L, kd, *B, n],
+    the residue of digit D_g mod every prime, D_g + alpha*q_Jg =
+    sum_{j in J_g} y_j * (q_Jg/q_j) (``context.ks_group_conv_tables`` of the
+    level's primes).  A short last group (k-L not a multiple of ks_omega) is
+    padded with zero digits, which contribute nothing."""
+    cw = ctx.ks_conv_levels[level]
+    k, kd, omega = cw.shape
     pad = kd * omega - k
     if pad:
         y = torch.cat([y, y.new_zeros((pad, *y.shape[1:]))])
     extra = (1,) * (y.dim() - 1)
-    p = ctx.ntt_q.p.to(torch.int64).view(k, 1, *extra)
+    p = _tb(ctx, level).p.to(torch.int64).view(k, 1, *extra)
     yg = y.to(torch.int64).reshape(1, kd, omega, *y.shape[1:])
-    prod = yg * ctx.ks_conv.to(torch.int64).view(k, kd, omega, *extra) % p[:, None]
+    prod = yg * cw.to(torch.int64).view(k, kd, omega, *extra) % p[:, None]
     return (prod.sum(2) % p).to(torch.int32)
 
 
-def _gadget_digits(ctx: SchemeContext, d: torch.Tensor) -> torch.Tensor:
-    """Per-prime residues [k, kd, *B, n] of the gadget digits of the
-    per-prime digits d [k, *B, n]: the grouped digits at ks_omega > 1, else
-    digit j reduced mod every prime p_i."""
+def _gadget_digits(ctx: SchemeContext, d: torch.Tensor, level: int = 0) -> torch.Tensor:
+    """Per-prime residues [k-L, kd, *B, n] of the gadget digits of the
+    per-prime digits d [k-L, *B, n]: the grouped digits at ks_omega > 1,
+    else digit j reduced mod every prime p_i."""
     if _omega(ctx) > 1:
-        return _grouped_digit_residues(ctx, d)
-    p = ctx.ntt_q.p.to(torch.int64).view(-1, *([1] * d.dim()))
+        return _grouped_digit_residues(ctx, d, level)
+    p = _tb(ctx, level).p.to(torch.int64).view(-1, *([1] * d.dim()))
     return torch.remainder(d.to(torch.int64)[None], p).to(torch.int32)
+
+
+def _digits(ctx: SchemeContext, polys: torch.Tensor, level: int) -> torch.Tensor:
+    """Per-prime gadget digits [c_j * (q_L/q_j)^-1]_{q_j} of [k-L, *B, n]
+    coefficient-domain components."""
+    tb = _tb(ctx, level)
+    shape = (-1,) + (1,) * (polys.dim() - 1)
+    return mm.mul_mod(polys, ctx.inv_qhat_levels[level].view(shape), tb.p.view(shape))
 
 
 def _keyswitch_keygen_from_noise(ctx: SchemeContext, sk: SecretKey,
@@ -327,11 +349,11 @@ def decrypt(ctx: SchemeContext, ct: Ciphertext, sk: SecretKey) -> Plaintext:
                                              ctx.dec_levels[ct.level])[0])
 
 
-def _split_batch(data: torch.Tensor, budgets) -> list:
-    """[k, c, B, n] coefficient-domain results -> B level-0 ciphertexts,
-    each a contiguous [k, c, n] slice of one [B, k, c, n] tensor."""
+def _split_batch(data: torch.Tensor, budgets, level: int = 0) -> list:
+    """[k-L, c, B, n] coefficient-domain results -> B ciphertexts at level
+    L, each a contiguous [k-L, c, n] slice of one [B, k-L, c, n] tensor."""
     data = data.permute(2, 0, 1, 3).contiguous()
-    return [Ciphertext(data=data[i], level=0, is_ntt_form=False, noise_budget=nb)
+    return [Ciphertext(data=data[i], level=level, is_ntt_form=False, noise_budget=nb)
             for i, nb in enumerate(budgets)]
 
 
@@ -420,7 +442,7 @@ def _plain_c0_op(ctx: SchemeContext, ct: Ciphertext, pt: Plaintext) -> torch.Ten
     the evaluation domain (one [k, 1, n] forward transform)."""
     op = _scale_by_delta(ctx, pt, ct.level)
     if ct.is_ntt_form:
-        op = ntt_cuda.ntt_forward(op, _tb(ctx, ct.level))
+        op = _fwd_q(ctx, op, ct.level)
     return op
 
 
@@ -437,9 +459,9 @@ def sub_plain(ctx: SchemeContext, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
 
 def plain_ntt_operand(ctx: SchemeContext, pt: Plaintext,
                       level: int = 0) -> torch.Tensor:
-    """NTT-form multiply_plain operand [k, 1, n]; compute once and pass as
+    """NTT-form multiply_plain operand [k-L, 1, n]; compute once and pass as
     ``pt_ntt`` when a plaintext is reused across many products."""
-    return ntt_cuda.ntt_forward(_lift_plain(ctx, pt, level), _tb(ctx, level))
+    return _fwd_q(ctx, _lift_plain(ctx, pt, level), level)
 
 
 def multiply_plain(ctx: SchemeContext, ct: Ciphertext, pt: Plaintext,
@@ -463,143 +485,200 @@ def multiply_plain(ctx: SchemeContext, ct: Ciphertext, pt: Plaintext,
 # ---------------------------------------------------------------------------
 
 
-def _check_multiply_n(ctx: SchemeContext) -> None:
-    if ctx.n < 1024:
-        raise NotImplementedError(
-            f"n={ctx.n}: the n < 1024 multiply runs sm_mrq_fused and "
-            "fast_floor_fused, which are not ported yet; use n >= 1024")
-
-
 def _multiply_budget(ctx: SchemeContext, a: Ciphertext, b: Ciphertext) -> float:
-    return _b_of(ctx, 0, _noise.bfv_multiply(ctx.params, _v_of(ctx, a),
-                                              _v_of(ctx, b)))
+    return _b_of(ctx, a.level, _noise.bfv_multiply(ctx.params, _v_of(ctx, a),
+                                                    _v_of(ctx, b)))
 
 
-def _keyswitch_budget(ctx: SchemeContext, log2_var: float) -> float:
-    """Budget after a key switch adds its noise to variance 2^log2_var."""
-    return _b_of(ctx, 0, _noise.add(log2_var, _noise.keyswitch_add(ctx.params, 0)))
+def _keyswitch_budget(ctx: SchemeContext, log2_var: float, level: int) -> float:
+    """Budget at level L after a key switch adds its noise to variance
+    2^log2_var."""
+    return _b_of(ctx, level, _noise.add(log2_var, _noise.keyswitch_add(ctx.params, level)))
 
 
 def multiply_no_relin(ctx: SchemeContext, a: Ciphertext,
                       b: Ciphertext) -> Ciphertext:
-    """BEHZ RNS tensor product and t/q scaling -> 3-component ciphertext:
-    the t-scaled q-side tensor product (one kernel), the whole Bsk branch
-    (lift, Bsk tensor product, floor: one kernel) and the exact
-    Shenoy-Kumaresan conversion back to q (one kernel)."""
+    """BEHZ RNS tensor product and t/q_L scaling -> 3-component ciphertext,
+    at the operands' level with that level's constants and its Bsk base.
+    The t-scaled q-side tensor product (one kernel), the Bsk branch, and
+    the exact Shenoy-Kumaresan conversion back to q_L (one kernel).  At
+    n >= 1024 the Bsk branch (lift, Bsk tensor product, floor) is one
+    kernel; below, as in the JAX package, it is the lift of both operands
+    (sm_mrq_fused), the Bsk tensor product and the floor (fast_floor_fused),
+    three kernels that compute the same residues."""
     if a.level != b.level:
         raise ValueError("ciphertext level mismatch")
     if a.num_components != 2 or b.num_components != 2:
         raise ValueError(
             "multiply needs 2-component ciphertexts; relinearize first "
             f"(got {a.num_components} and {b.num_components})")
-    _tb(ctx, a.level)                      # raises above level 0
-    _check_multiply_n(ctx)
+    level = a.level
     a, b = to_coeff(ctx, a), to_coeff(ctx, b)
-    tq, tbsk = ctx.mul_tables
-    tx_q = ntt_cuda.tensor_product(a.data, b.data, tq)           # [k, 3, n]
-    floored = rns_cuda.bsk_branch_fused(
-        torch.cat([a.data, b.data], dim=1), tx_q, ctx.smq, ctx.floor_c, tbsk)
+    tq, tbsk = ctx.mul_levels[level]
+    smq, floor_c = ctx.smq_levels[level], ctx.floor_levels[level]
+    tx_q = ntt_cuda.tensor_product(a.data, b.data, tq)           # [k-L, 3, n]
+    ab = torch.cat([a.data, b.data], dim=1)                      # [k-L, 4, n]
+    if ctx.n >= 1024:
+        floored = rns_cuda.bsk_branch_fused(ab, tx_q, smq, floor_c, tbsk)
+    else:
+        lift = rns_cuda.sm_mrq_fused(ab, smq)                     # [kb_L, 4, n]
+        tx_bsk = ntt_cuda.tensor_product(lift[:, :2], lift[:, 2:], tbsk)
+        floored = rns_cuda.fast_floor_fused(tx_q, tx_bsk, floor_c)
     return Ciphertext(
-        data=rns_cuda.fast_bconv_sk_fused(floored, ctx.sk_c), level=0,
-        is_ntt_form=False, noise_budget=_multiply_budget(ctx, a, b))
+        data=rns_cuda.fast_bconv_sk_fused(floored, ctx.sk_levels[level]),
+        level=level, is_ntt_form=False, noise_budget=_multiply_budget(ctx, a, b))
 
 
 def _keyswitch_delta(ctx: SchemeContext, poly: torch.Tensor,
-                     ks_keys: torch.Tensor) -> torch.Tensor:
+                     ks_keys: torch.Tensor, level: int = 0) -> torch.Tensor:
     """Coefficient-domain key-switch correction INTT(sum_j NTT(D_j) ⊙ key_j)
-    for a [k, n] component: the digits D_j = [poly_j * (q/q_j)^-1]_{q_j}
+    for a [k-L, n] component: the digits D_j = [poly_j * (q_L/q_j)^-1]_{q_j}
     are one elementwise step, the rest is one keyswitch_fused launch reading
-    the stored [kd, k, 2, n] keys in place.  At ks_omega > 1 the grouped
-    digits' per-prime residues go through its prereduced lane.  Returns
-    [k, 2, n]."""
-    tb = ctx.ntt_q
-    d = mm.mul_mod(poly, ctx.inv_qhat.view(-1, 1), tb.p.view(-1, 1))
+    the stored [kd, k-L, 2, n] keys (keys of the level) in place.  At
+    ks_omega > 1 the grouped digits' per-prime residues go through its
+    prereduced lane.  Returns [k-L, 2, n]."""
+    tb = _tb(ctx, level)
+    d = _digits(ctx, poly, level)
     keys_t = ks_keys.permute(1, 0, 2, 3)
     if _omega(ctx) > 1:
-        return ntt_cuda.keyswitch_fused(_grouped_digit_residues(ctx, d), keys_t, tb,
-                                        prereduced=True)
+        return ntt_cuda.keyswitch_fused(_grouped_digit_residues(ctx, d, level), keys_t,
+                                        tb, prereduced=True)
     return ntt_cuda.keyswitch_fused(d, keys_t, tb)
 
 
 def _keyswitch_delta_batch(ctx: SchemeContext, polys: torch.Tensor,
-                           ks_keys: torch.Tensor) -> torch.Tensor:
-    """``_keyswitch_delta`` of B components at once: polys [k, B, n] (one
+                           ks_keys: torch.Tensor, level: int = 0) -> torch.Tensor:
+    """``_keyswitch_delta`` of B components at once: polys [k-L, B, n] (one
     component per element), one keyswitch_fused_batch launch against the
-    shared [kd, k, 2, n] keys; returns [k, 2, B, n]."""
-    tb = ctx.ntt_q
-    d = mm.mul_mod(polys, ctx.inv_qhat.view(-1, 1, 1), _p3(tb))
+    shared [kd, k-L, 2, n] keys; returns [k-L, 2, B, n]."""
+    tb = _tb(ctx, level)
+    d = _digits(ctx, polys, level)
     keys_t = ks_keys.permute(1, 0, 2, 3)
     if _omega(ctx) > 1:
-        return ntt_cuda.keyswitch_fused_batch(_grouped_digit_residues(ctx, d), keys_t,
-                                              tb, prereduced=True)
+        return ntt_cuda.keyswitch_fused_batch(_grouped_digit_residues(ctx, d, level),
+                                              keys_t, tb, prereduced=True)
     return ntt_cuda.keyswitch_fused_batch(d, keys_t, tb)
 
 
-def relinearize(ctx: SchemeContext, ct: Ciphertext, rlk: RelinKeys) -> Ciphertext:
-    """3 -> 2 components by RNS-digit key switching of c2 onto s."""
+def _switch_keys_down(ctx: SchemeContext, ks_keys: torch.Tensor,
+                      level: int) -> torch.Tensor:
+    """Level-0 key-switching keys [kd, k, 2, n] (NTT form) -> keys of level
+    L, [kd_L, k-L, 2, n]: digit j encrypts (q/q_j) * target mod q, and
+    rounding it down L primes gives an encryption of (q_L/q_j) * target mod
+    q_L for every surviving digit (the gadget coefficient divides exactly)
+    plus a small rounding error.  One inverse transform of the surviving
+    digits, L roundings (mod_switch_drop_last), one forward transform at
+    level L; the result is a view of a prime-major tensor, as the kernels
+    read it.  At ks_omega > 1 only a level whose k-L primes form whole
+    gadget groups has such keys."""
+    if level == 0:
+        return ks_keys
+    k, n = ctx.k, ctx.n
+    kl, omega = k - level, _omega(ctx)
+    if omega > 1 and kl % omega:
+        raise ValueError(
+            f"ks_omega={omega} keys cannot be switched to level {level} "
+            f"({kl} surviving primes is not a whole number of gadget "
+            f"groups); use an aligned level or omega=1 keys")
+    kd_l = kl // omega
+    coeff = _inv_q(ctx, ks_keys[:kd_l].permute(1, 0, 2, 3).reshape(k, kd_l * 2, n))
+    for lvl in range(level):
+        coeff = _rns.mod_switch_drop_last(coeff, ctx.mod_switch[lvl])
+    return _fwd_q(ctx, coeff, level).view(kl, kd_l, 2, n).permute(1, 0, 2, 3)
+
+
+def switch_relin_keys(ctx: SchemeContext, rlk: RelinKeys, level: int) -> RelinKeys:
+    """Relinearization keys of level L from level-0 keys (see
+    _switch_keys_down); pass them with ``keys_at_level=True``.  The FHE
+    facade caches them per level."""
+    return RelinKeys(data=_switch_keys_down(ctx, rlk.data, level))
+
+
+def switch_galois_keys(ctx: SchemeContext, gal_keys: GaloisKeys,
+                       level: int) -> GaloisKeys:
+    """Galois keys of level L from level-0 keys, every element."""
+    return GaloisKeys(data={g: _switch_keys_down(ctx, keys, level)
+                            for g, keys in gal_keys.data.items()})
+
+
+def _keys_of(ctx: SchemeContext, keys: torch.Tensor, level: int,
+             keys_at_level: bool) -> torch.Tensor:
+    return keys if keys_at_level else _switch_keys_down(ctx, keys, level)
+
+
+def relinearize(ctx: SchemeContext, ct: Ciphertext, rlk: RelinKeys,
+                keys_at_level: bool = False) -> Ciphertext:
+    """3 -> 2 components by RNS-digit key switching of c2 onto s, at the
+    ciphertext's level; level-0 keys are switched down unless
+    ``keys_at_level`` says rlk is already the level's."""
     if ct.num_components != 3:
         raise ValueError(f"relinearize needs 3 components, got "
                          f"{ct.num_components}")
-    tb = _tb(ctx, ct.level)
+    level = ct.level
     ct = to_coeff(ctx, ct)
-    delta = _keyswitch_delta(ctx, ct.data[:, 2], rlk.data)
-    return ct.replace(data=mm.add_mod(ct.data[:, :2], delta, _p3(tb)),
-                      noise_budget=_keyswitch_budget(ctx, _v_of(ctx, ct)))
+    delta = _keyswitch_delta(ctx, ct.data[:, 2],
+                             _keys_of(ctx, rlk.data, level, keys_at_level), level)
+    return ct.replace(data=mm.add_mod(ct.data[:, :2], delta, _p3(_tb(ctx, level))),
+                      noise_budget=_keyswitch_budget(ctx, _v_of(ctx, ct), level))
 
 
 def multiply(ctx: SchemeContext, a: Ciphertext, b: Ciphertext,
-             rlk: RelinKeys) -> Ciphertext:
+             rlk: RelinKeys, keys_at_level: bool = False) -> Ciphertext:
     """Full homomorphic multiply: tensor product, scaling, relinearization."""
-    return relinearize(ctx, multiply_no_relin(ctx, a, b), rlk)
+    return relinearize(ctx, multiply_no_relin(ctx, a, b), rlk, keys_at_level)
 
 
-def _check_pairs(ctx: SchemeContext, cts: list, name: str) -> None:
-    """Raise unless cts is a non-empty list of 2-component level-0
-    ciphertexts."""
+def _check_pairs(cts: list, name: str) -> int:
+    """Raise unless cts is a non-empty list of 2-component ciphertexts at one
+    level; return that level."""
     if not cts:
         raise ValueError(f"{name} needs a non-empty list of ciphertexts")
     for ct in cts:
-        _tb(ctx, ct.level)                 # raises above level 0
         if ct.num_components != 2:
             raise ValueError(f"{name} needs 2-component ciphertexts, got "
                              f"{ct.num_components}")
+    if any(ct.level != cts[0].level for ct in cts):
+        raise ValueError(f"{name}: all ciphertexts at one level")
+    return cts[0].level
 
 
 def multiply_batch(ctx: SchemeContext, cts_a: list, cts_b: list,
-                   rlk: RelinKeys) -> list:
-    """B independent multiply + relinearize ops through the batched kernels:
-    the ciphertexts are stacked once as [B, k, 4, n] (a || b per element);
-    then tensor_product_batch (q side), bsk_branch_fused_batch (lift, Bsk
-    tensor product and floor of all B pairs), one fast_bconv_sk_fused over
-    the 3B rows, and one keyswitch_fused_batch for the B relinearizations.
-    Element i equals multiply(cts_a[i], cts_b[i], rlk) bit for bit, noise
-    budget included.
+                   rlk: RelinKeys, keys_at_level: bool = False) -> list:
+    """B independent multiply + relinearize ops at one level through the
+    batched kernels: the ciphertexts are stacked once as [B, k-L, 4, n]
+    (a || b per element); then tensor_product_batch (q side),
+    bsk_branch_fused_batch (lift, Bsk tensor product and floor of all B
+    pairs), one fast_bconv_sk_fused over the 3B rows, and one
+    keyswitch_fused_batch for the B relinearizations.  Element i equals
+    multiply(cts_a[i], cts_b[i], rlk) bit for bit, noise budget included.
 
     The JAX package runs the Bsk branch here as vmapped jnp chains around
-    tensor_product_batch, because XLA fused them well on the TPU; on the
-    card each eager op is a launch, so the port runs the fused kernel with
-    a batch axis, which computes the same residues."""
+    tensor_product_batch, at every n, because XLA fused them well on the
+    TPU; on the card each eager op is a launch, so the port runs the fused
+    kernel with a batch axis, which computes the same residues."""
     if len(cts_a) != len(cts_b) or not cts_a:
         raise ValueError("multiply_batch needs equal-length non-empty lists")
-    _check_pairs(ctx, cts_a + cts_b, "multiply_batch")
-    _check_multiply_n(ctx)
-    batch, k, n = len(cts_a), ctx.k, ctx.n
+    level = _check_pairs(cts_a + cts_b, "multiply_batch")
+    batch, n = len(cts_a), ctx.n
     ab = torch.cat([torch.stack([to_coeff(ctx, a).data for a in cts_a]),
                     torch.stack([to_coeff(ctx, b).data for b in cts_b])],
-                   dim=2).permute(1, 2, 0, 3)                    # [k, 4, B, n]
-    tq, tbsk = ctx.mul_tables
+                   dim=2).permute(1, 2, 0, 3)                    # [k-L, 4, B, n]
+    tq, tbsk = ctx.mul_levels[level]
     tx_q = ntt_cuda.tensor_product_batch(ab[:, :2], ab[:, 2:], tq)
-    floored = rns_cuda.bsk_branch_fused_batch(ab, tx_q, ctx.smq, ctx.floor_c,
-                                              tbsk)              # [kb, 3, B, n]
+    floored = rns_cuda.bsk_branch_fused_batch(
+        ab, tx_q, ctx.smq_levels[level], ctx.floor_levels[level], tbsk)  # [kb, 3, B, n]
     out3 = rns_cuda.fast_bconv_sk_fused(floored.view(tbsk.k, 3 * batch, n),
-                                        ctx.sk_c).view(k, 3, batch, n)
-    delta = _keyswitch_delta_batch(ctx, out3[:, 2], rlk.data)    # [k, 2, B, n]
-    data = mm.add_mod(out3[:, :2], delta, ctx.ntt_q.p.view(-1, 1, 1, 1))
+                                        ctx.sk_levels[level]).view(tq.k, 3, batch, n)
+    delta = _keyswitch_delta_batch(ctx, out3[:, 2],
+                                   _keys_of(ctx, rlk.data, level, keys_at_level),
+                                   level)                        # [k-L, 2, B, n]
+    data = mm.add_mod(out3[:, :2], delta, tq.p.view(-1, 1, 1, 1))
     # the same two-step bookkeeping as multiply_no_relin -> relinearize (the
     # budget <-> variance round trip clamps at the 0 floor)
     budgets = [_keyswitch_budget(ctx, _noise.bfv_variance(
-        ctx.params, 0, _multiply_budget(ctx, a, b))) for a, b in zip(cts_a, cts_b)]
-    return _split_batch(data, budgets)
+        ctx.params, level, _multiply_budget(ctx, a, b)), level)
+        for a, b in zip(cts_a, cts_b)]
+    return _split_batch(data, budgets, level)
 
 
 # ---------------------------------------------------------------------------
@@ -607,38 +686,40 @@ def multiply_batch(ctx: SchemeContext, cts_a: list, cts_b: list,
 # ---------------------------------------------------------------------------
 
 
-def key_switch(ctx: SchemeContext, ct: Ciphertext,
-               ks_keys: torch.Tensor) -> Ciphertext:
+def key_switch(ctx: SchemeContext, ct: Ciphertext, ks_keys: torch.Tensor,
+               keys_at_level: bool = False) -> Ciphertext:
     """Switch a 2-component ciphertext under s' to one under s, where
     ks_keys [kd, k, 2, n] encrypt (q/q_j) * s' (a Galois key, or keys from
     ``_keyswitch_keygen_from_noise``): (c0 + delta0, delta1), delta the
-    key-switch correction of c1 (one keyswitch_fused launch)."""
+    key-switch correction of c1 (one keyswitch_fused launch).  Level-0 keys
+    are switched down to the ciphertext's level unless ``keys_at_level``."""
     if ct.num_components != 2:
         raise ValueError(f"key_switch needs 2 components, got {ct.num_components}")
-    tb = _tb(ctx, ct.level)
+    level = ct.level
     ct = to_coeff(ctx, ct)
-    delta = _keyswitch_delta(ctx, ct.data[:, 1], ks_keys)
-    c0 = mm.add_mod(ct.data[:, :1], delta[:, :1], _p3(tb))
+    delta = _keyswitch_delta(ctx, ct.data[:, 1],
+                             _keys_of(ctx, ks_keys, level, keys_at_level), level)
+    c0 = mm.add_mod(ct.data[:, :1], delta[:, :1], _p3(_tb(ctx, level)))
     return ct.replace(data=torch.cat([c0, delta[:, 1:]], dim=1))
 
 
 def _apply_galois_coeff(ctx: SchemeContext, data: torch.Tensor, g: int) -> torch.Tensor:
-    """a(x) -> a(x^g) on [k, C, n] coefficient-domain residues for any odd
+    """a(x) -> a(x^g) on [k-L, C, n] coefficient-domain residues for any odd
     g: the automorphism_single kernel, on the card at every n."""
     return galois_cuda.automorphism_single(data, g, ctx.ntt_q.p[:data.shape[0]])
 
 
 def _galois_budget(ctx: SchemeContext, ct: Ciphertext) -> float:
-    return _keyswitch_budget(ctx, _noise.galois(_v_of(ctx, ct)))
+    return _keyswitch_budget(ctx, _noise.galois(_v_of(ctx, ct)), ct.level)
 
 
 def apply_galois(ctx: SchemeContext, ct: Ciphertext, g: int,
-                 gal_keys: GaloisKeys) -> Ciphertext:
+                 gal_keys: GaloisKeys, keys_at_level: bool = False) -> Ciphertext:
     """Automorphism phi_g, then the key switch s(x^g) -> s."""
-    _check_pairs(ctx, [ct], "apply_galois")
+    _check_pairs([ct], "apply_galois")
     ct = to_coeff(ctx, ct)
     permuted = ct.replace(data=_apply_galois_coeff(ctx, ct.data, g))
-    return key_switch(ctx, permuted, gal_keys.data[g]).replace(
+    return key_switch(ctx, permuted, gal_keys.data[g], keys_at_level).replace(
         noise_budget=_galois_budget(ctx, ct))
 
 
@@ -661,46 +742,49 @@ def _row_elements(ctx: SchemeContext, steps: int, gal_keys: GaloisKeys) -> list:
 
 
 def rotate_rows(ctx: SchemeContext, ct: Ciphertext, steps: int,
-                gal_keys: GaloisKeys) -> Ciphertext:
+                gal_keys: GaloisKeys, keys_at_level: bool = False) -> Ciphertext:
     """Cyclic slot rotation within each row of the 2 x (n/2) slot matrix:
     one apply_galois per power-of-two hop of |steps|."""
     for g in _row_elements(ctx, steps, gal_keys):
-        ct = apply_galois(ctx, ct, g, gal_keys)
+        ct = apply_galois(ctx, ct, g, gal_keys, keys_at_level)
     return ct
 
 
-def rotate_columns(ctx: SchemeContext, ct: Ciphertext,
-                   gal_keys: GaloisKeys) -> Ciphertext:
+def rotate_columns(ctx: SchemeContext, ct: Ciphertext, gal_keys: GaloisKeys,
+                   keys_at_level: bool = False) -> Ciphertext:
     """Swap the two slot rows: g = 2n - 1."""
-    return apply_galois(ctx, ct, 2 * ctx.n - 1, gal_keys)
+    return apply_galois(ctx, ct, 2 * ctx.n - 1, gal_keys, keys_at_level)
 
 
 def apply_galois_batch(ctx: SchemeContext, cts: list, g: int,
-                       gal_keys: GaloisKeys) -> list:
-    """The same automorphism on B ciphertexts: one automorphism_fused
-    launch on a view of their [B, k, 2, n] stack, then one
-    keyswitch_fused_batch launch for the B key switches.  Element i equals
-    apply_galois(cts[i], g)."""
-    _check_pairs(ctx, cts, "apply_galois_batch")
+                       gal_keys: GaloisKeys, keys_at_level: bool = False) -> list:
+    """The same automorphism on B ciphertexts at one level: one
+    automorphism_fused launch on a view of their [B, k-L, 2, n] stack, then
+    one keyswitch_fused_batch launch for the B key switches.  Element i
+    equals apply_galois(cts[i], g).  Mixed levels fall back to apply_galois
+    per element, as in the JAX package."""
+    if cts and any(ct.level != cts[0].level for ct in cts):
+        return [apply_galois(ctx, ct, g, gal_keys, keys_at_level) for ct in cts]
+    level = _check_pairs(cts, "apply_galois_batch")
     g = int(g)
-    keys = gal_keys.data[g]
-    tb = ctx.ntt_q
-    data = torch.stack([to_coeff(ctx, ct).data for ct in cts])   # [B, k, 2, n]
+    keys = _keys_of(ctx, gal_keys.data[g], level, keys_at_level)
+    tb = _tb(ctx, level)
+    data = torch.stack([to_coeff(ctx, ct).data for ct in cts])   # [B, k-L, 2, n]
     h = pow(g, -1, 2 * ctx.n)
     permuted = galois_cuda.automorphism_fused(
-        data.permute(1, 2, 0, 3), (h,) * len(cts), tb.p)         # [k, 2, B, n]
-    delta = _keyswitch_delta_batch(ctx, permuted[:, 1], keys)    # [k, 2, B, n]
+        data.permute(1, 2, 0, 3), (h,) * len(cts), tb.p)         # [k-L, 2, B, n]
+    delta = _keyswitch_delta_batch(ctx, permuted[:, 1], keys, level)
     c0 = mm.add_mod(permuted[:, 0], delta[:, 0], _p3(tb))
     return _split_batch(torch.stack([c0, delta[:, 1]], dim=1),
-                        [_galois_budget(ctx, ct) for ct in cts])
+                        [_galois_budget(ctx, ct) for ct in cts], level)
 
 
 def rotate_rows_batch(ctx: SchemeContext, cts: list, steps: int,
-                      gal_keys: GaloisKeys) -> list:
+                      gal_keys: GaloisKeys, keys_at_level: bool = False) -> list:
     """rotate_rows over B ciphertexts: one apply_galois_batch per
     power-of-two hop."""
     for g in _row_elements(ctx, steps, gal_keys):
-        cts = apply_galois_batch(ctx, cts, g, gal_keys)
+        cts = apply_galois_batch(ctx, cts, g, gal_keys, keys_at_level)
     return cts
 
 
@@ -709,27 +793,26 @@ def rotate_rows_batch(ctx: SchemeContext, cts: list, steps: int,
 # ---------------------------------------------------------------------------
 
 
-def _digits_ntt(ctx: SchemeContext, poly: torch.Tensor) -> torch.Tensor:
-    """Gadget decomposition of a [k, n] coefficient-domain component,
-    reduced mod every prime and transformed: [k, kd, n] NTT form, one
+def _digits_ntt(ctx: SchemeContext, poly: torch.Tensor, level: int = 0) -> torch.Tensor:
+    """Gadget decomposition of a [k-L, n] coefficient-domain component,
+    reduced mod every prime and transformed: [k-L, kd, n] NTT form, one
     ntt_forward launch.  The expensive half of a key switch, which hoisted
     rotations share across many automorphisms."""
-    tb = ctx.ntt_q
-    d = mm.mul_mod(poly, ctx.inv_qhat.view(-1, 1), tb.p.view(-1, 1))
-    return ntt_cuda.ntt_forward(_gadget_digits(ctx, d), tb)
+    return _fwd_q(ctx, _gadget_digits(ctx, _digits(ctx, poly, level), level), level)
 
 
-def hoisted_galois_keys(ctx: SchemeContext, gal_keys: GaloisKeys,
-                        elements) -> torch.Tensor:
-    """The pre-permuted key stack of the hoisted rotations: [k, kd, E, 2, n],
-    element e's keys prime-major and gathered along n with
+def hoisted_galois_keys(ctx: SchemeContext, gal_keys: GaloisKeys, elements,
+                        level: int = 0, keys_at_level: bool = False) -> torch.Tensor:
+    """The pre-permuted key stack of the hoisted rotations at level L:
+    [k-L, kd, E, 2, n], element e's keys (switched down to the level unless
+    ``keys_at_level``) prime-major and gathered along n with
     ``eval_perm_inv(n, g_e)``, since sum_j perm_g(F_j) K_j ==
     perm_g(sum_j F_j inv_perm_g(K_j)).  The gathers are the expensive part
-    of a hoisted call: build once per (keys, elements) and pass as
+    of a hoisted call: build once per (keys, elements, level) and pass as
     ``pre_keys`` (the FHE facade caches it)."""
     stack = []
     for g in elements:
-        keys = gal_keys.data[int(g)]
+        keys = _keys_of(ctx, gal_keys.data[int(g)], level, keys_at_level)
         idx = torch.tensor(eval_perm_inv(ctx.n, int(g)), dtype=torch.int64,
                            device=keys.device)
         stack.append(keys.permute(1, 0, 2, 3).index_select(3, idx))
@@ -737,29 +820,30 @@ def hoisted_galois_keys(ctx: SchemeContext, gal_keys: GaloisKeys,
 
 
 def _hoisted_deltas(ctx: SchemeContext, ct: Ciphertext, elements,
-                    gal_keys: GaloisKeys, pre_keys) -> tuple:
-    """(coefficient-domain ct, [k, 2, E, n] un-permuted key-switch deltas of
-    its c1 for every element, the multipliers g^-1 mod 2n): one digit
+                    gal_keys: GaloisKeys, pre_keys, keys_at_level: bool) -> tuple:
+    """(coefficient-domain ct, [k-L, 2, E, n] un-permuted key-switch deltas
+    of its c1 for every element, the multipliers g^-1 mod 2n): one digit
     decomposition, one ks_inner_batch launch with the shared stack."""
-    _check_pairs(ctx, [ct], "hoisted rotation")
+    level = _check_pairs([ct], "hoisted rotation")
     ct = to_coeff(ctx, ct)
     keys = (pre_keys if pre_keys is not None
-            else hoisted_galois_keys(ctx, gal_keys, elements))
-    d_ntt = _digits_ntt(ctx, ct.data[:, 1])                       # [k, kd, n]
-    delta = ntt_cuda.ks_inner_batch(d_ntt[:, :, None], keys, ctx.ntt_q)
+            else hoisted_galois_keys(ctx, gal_keys, elements, level, keys_at_level))
+    d_ntt = _digits_ntt(ctx, ct.data[:, 1], level)                # [k-L, kd, n]
+    delta = ntt_cuda.ks_inner_batch(d_ntt[:, :, None], keys, _tb(ctx, level))
     hs = tuple(pow(int(g), -1, 2 * ctx.n) for g in elements)
     return ct, delta, hs
 
 
 def apply_galois_hoisted(ctx: SchemeContext, ct: Ciphertext, elements,
-                         gal_keys: GaloisKeys,
-                         pre_keys: torch.Tensor | None = None) -> list:
+                         gal_keys: GaloisKeys, pre_keys: torch.Tensor | None = None,
+                         keys_at_level: bool = False) -> list:
     """Many automorphisms of one ciphertext sharing a single gadget
     decomposition: the digits and their transform once, then one
     ks_inner_batch launch against the pre-permuted keys
-    (``hoisted_galois_keys``) and one automorphism_fused launch that adds
-    c0 and applies every element's automorphism (its shared-c0 lane).
-    Returns one ciphertext per Galois element, in order.
+    (``hoisted_galois_keys`` of the ciphertext's level) and one
+    automorphism_fused launch that adds c0 and applies every element's
+    automorphism (its shared-c0 lane).  Returns one ciphertext per Galois
+    element, in order.
 
     Each output decrypts as apply_galois(ct, g) does, with the same noise
     budget, but is not bit-identical to it: the sign-flipped coefficients
@@ -768,35 +852,41 @@ def apply_galois_hoisted(ctx: SchemeContext, ct: Ciphertext, elements,
     elements = tuple(int(g) for g in elements)
     if not elements:
         return []
-    ct, delta, hs = _hoisted_deltas(ctx, ct, elements, gal_keys, pre_keys)
-    data = galois_cuda.automorphism_fused(delta, hs, ctx.ntt_q.p, c0=ct.data[:, 0])
-    return _split_batch(data, [_galois_budget(ctx, ct)] * len(elements))
+    ct, delta, hs = _hoisted_deltas(ctx, ct, elements, gal_keys, pre_keys,
+                                    keys_at_level)
+    data = galois_cuda.automorphism_fused(delta, hs, _tb(ctx, ct.level).p,
+                                          c0=ct.data[:, 0])
+    return _split_batch(data, [_galois_budget(ctx, ct)] * len(elements), ct.level)
 
 
 def apply_galois_hoisted_sum(ctx: SchemeContext, ct: Ciphertext, elements,
                              gal_keys: GaloisKeys,
-                             pre_keys: torch.Tensor | None = None) -> Ciphertext:
+                             pre_keys: torch.Tensor | None = None,
+                             keys_at_level: bool = False) -> Ciphertext:
     """ct + sum_g apply_galois(ct, g) as one hoisted chain ending in the
     automorphism_fused_sum launch, which accumulates the rotations without
     writing them out: the sum_slots stage.  Decrypts as the composition of
     apply_galois_hoisted with adds, and equals it bit for bit."""
     elements = tuple(int(g) for g in elements)
+    level = ct.level
     v = _v_of(ctx, ct)
-    v_rot = _noise.add(_noise.galois(v), _noise.keyswitch_add(ctx.params, 0))
+    v_rot = _noise.add(_noise.galois(v), _noise.keyswitch_add(ctx.params, level))
     acc_v = v
     for _ in elements:
         acc_v = _noise.add(acc_v, v_rot)
     if not elements:
-        return ct.replace(noise_budget=_b_of(ctx, 0, acc_v))
-    ct, delta, hs = _hoisted_deltas(ctx, ct, elements, gal_keys, pre_keys)
-    data = galois_cuda.automorphism_fused_sum(delta, hs, ctx.ntt_q.p, ct.data[:, 0],
-                                              ct.data)
-    return ct.replace(data=data, noise_budget=_b_of(ctx, 0, acc_v))
+        return ct.replace(noise_budget=_b_of(ctx, level, acc_v))
+    ct, delta, hs = _hoisted_deltas(ctx, ct, elements, gal_keys, pre_keys,
+                                    keys_at_level)
+    data = galois_cuda.automorphism_fused_sum(delta, hs, _tb(ctx, level).p,
+                                              ct.data[:, 0], ct.data)
+    return ct.replace(data=data, noise_budget=_b_of(ctx, level, acc_v))
 
 
 def apply_galois_hoisted_batch(ctx: SchemeContext, cts: list, elements,
                                gal_keys: GaloisKeys,
-                               pre_keys: torch.Tensor | None = None) -> list:
+                               pre_keys: torch.Tensor | None = None,
+                               keys_at_level: bool = False) -> list:
     """Hoisted rotations of C independent ciphertexts by the same elements,
     sharing every launch: one batched digit decomposition (kd * C rows
     through one ntt_forward), one ks_inner_grouped launch pairing digit
@@ -804,34 +894,83 @@ def apply_galois_hoisted_batch(ctx: SchemeContext, cts: list, elements,
     launch with each ciphertext's c0 (its per-element-c0 lane).  Returns
     outs[c][e], equal to apply_galois_hoisted(cts[c], elements)[e] bit for
     bit.  One ciphertext or mixed levels fall back to apply_galois_hoisted
-    per ciphertext, as in the JAX package."""
+    per ciphertext, as in the JAX package (``pre_keys``, made for the first
+    ciphertext's level, only serves the ciphertexts at that level)."""
     if not cts:
         return []
     elements = tuple(int(g) for g in elements)
     level = cts[0].level
     if len(cts) == 1 or any(ct.level != level for ct in cts):
         return [apply_galois_hoisted(ctx, ct, elements, gal_keys,
-                                     pre_keys if ct.level == level else None)
+                                     pre_keys if ct.level == level else None,
+                                     keys_at_level)
                 for ct in cts]
-    _check_pairs(ctx, cts, "apply_galois_hoisted_batch")
+    _check_pairs(cts, "apply_galois_hoisted_batch")
     num_e = len(elements)
     if not num_e:
         return [[] for _ in cts]
-    tb = ctx.ntt_q
+    tb = _tb(ctx, level)
     k, n = tb.k, tb.n
     cts = [to_coeff(ctx, ct) for ct in cts]
     keys = (pre_keys if pre_keys is not None
-            else hoisted_galois_keys(ctx, gal_keys, elements))
-    c1 = torch.stack([ct.data[:, 1] for ct in cts], dim=1)        # [k, C, n]
-    d = mm.mul_mod(c1, ctx.inv_qhat.view(-1, 1, 1), _p3(tb))
-    d_all = _gadget_digits(ctx, d)                                # [k, kd, C, n]
+            else hoisted_galois_keys(ctx, gal_keys, elements, level, keys_at_level))
+    c1 = torch.stack([ct.data[:, 1] for ct in cts], dim=1)        # [k-L, C, n]
+    d_all = _gadget_digits(ctx, _digits(ctx, c1, level), level)   # [k-L, kd, C, n]
     kd = d_all.shape[1]
     d_ntt = ntt_cuda.ntt_forward(d_all.reshape(k, kd * len(cts), n), tb)
     delta = ntt_cuda.ks_inner_grouped(d_ntt.view(k, kd, len(cts), n), keys, tb)
     hs = tuple(pow(g, -1, 2 * n) for g in elements) * len(cts)
     c0s = torch.stack([ct.data[:, 0] for ct in cts], dim=1).repeat_interleave(
-        num_e, dim=1)                                             # [k, C*E, n]
+        num_e, dim=1)                                             # [k-L, C*E, n]
     data = galois_cuda.automorphism_fused(delta, hs, tb.p, c0=c0s)
     flat = _split_batch(data, [_galois_budget(ctx, ct) for ct in cts
-                               for _ in range(num_e)])
+                               for _ in range(num_e)], level)
     return [flat[c * num_e:(c + 1) * num_e] for c in range(len(cts))]
+
+
+# ---------------------------------------------------------------------------
+# modulus switching and the trusted refresh
+# ---------------------------------------------------------------------------
+
+
+def mod_switch_to_next(ctx: SchemeContext, ct: Ciphertext) -> Ciphertext:
+    """Drop the level's last prime with exact rounding (round(ct / q_last)
+    in the remaining primes): level L -> L + 1.  The noise divides by
+    q_last as q does, and the budget gains the rounding and eps * m terms
+    of noise.bfv_mod_switch."""
+    ct = to_coeff(ctx, ct)
+    if ct.level >= ctx.k - 1:
+        raise ValueError("already at the last level")
+    data = _rns.mod_switch_drop_last(ct.data, ctx.mod_switch[ct.level])
+    v = _noise.bfv_mod_switch(ctx.params, ct.level, _v_of(ctx, ct))
+    return ct.replace(data=data, level=ct.level + 1,
+                      noise_budget=_b_of(ctx, ct.level + 1, v))
+
+
+def mod_switch_to_level(ctx: SchemeContext, ct: Ciphertext, target: int) -> Ciphertext:
+    """mod_switch_to_next until the ciphertext is at level ``target`` (a
+    ciphertext already at or below it is returned as it is)."""
+    while ct.level < target:
+        ct = mod_switch_to_next(ctx, ct)
+    return ct
+
+
+def modulus_raise(ctx: SchemeContext, ct: Ciphertext) -> Ciphertext:
+    """Approximate base extension of a leveled ciphertext back to all k
+    primes (a bootstrapping step): the fast base conversion q_L -> q adds
+    alpha * q_L, alpha < k - L, which the caller absorbs as noise.  The
+    noise budget is carried over unchanged, as in the JAX package."""
+    if ct.level == 0:
+        return ct
+    ct = to_coeff(ctx, ct)
+    src = ctx.params.q_primes[:ctx.k - ct.level]
+    cc = _rns.make_base_conv(src, ctx.params.q_primes, ctx.device)
+    return ct.replace(data=_rns.fast_base_conv(ct.data, cc), level=0)
+
+
+def bootstrap(ctx: SchemeContext, gen: torch.Generator, ct: Ciphertext,
+              sk: SecretKey, pk: PublicKey) -> Ciphertext:
+    """Trusted noise refresh with the secret key: decrypt (at the
+    ciphertext's level) and encrypt the plaintext afresh at level 0 with
+    draws from ``gen``, recovering the fresh noise budget."""
+    return encrypt(ctx, gen, pk, decrypt(ctx, ct, sk))

@@ -1,15 +1,18 @@
-"""SchemeContext: the precomputed constants on one device.
+"""SchemeContext: the precomputed constants on one device, at every level.
 
 Counterpart of ``fhe_tpu/scheme/context.py:make_context``, restricted to
-what the ported ops read at level 0: the q-basis NTT tables, the
-multiply's t-folded q and Bsk tables, the decryption and Δ constants (linear ops), and
-the BEHZ and key-switch digit constants (ciphertext multiply,
-relinearization, and the grouped gadget digits of ks_omega > 1).  The rest
-of the JAX context (the lower levels of the modulus chain, the BGV tables)
-comes with the ops that read it.  The Galois gather tables are not a field:
-the automorphism kernel computes its indices, and ``galois_perm_tables``
-(coefficient domain) and ``eval_perm`` / ``eval_perm_inv`` (NTT domain, the
-hoisted rotations) build the host tables on request.
+what the ported BFV ops read.  Level L is the modulus chain with its last L
+primes dropped (q_L = q_0 * ... * q_{k-1-L}).  For each L the context holds
+the decryption and Δ constants, the relinearization digit constants, the
+BEHZ multiply constants (SmMRq, FastFloor, Shenoy-Kumaresan) for the
+level's Bsk base, the grouped gadget weights, and (for L < k - 1) the
+modulus-switch constants that drop q_{k-1-L}.  The level's NTT and
+multiply tables are zero-copy row views of the level-0 tables: its first
+k - L q primes, and the last ``bsk_counts[L]`` Bsk primes, m_sk last.  The
+BGV tables and the Galois gather tables are not fields: the automorphism
+kernel computes its indices, and ``galois_perm_tables`` (coefficient
+domain) and ``eval_perm`` / ``eval_perm_inv`` (NTT domain, the hoisted
+rotations) build the host tables on request.
 """
 
 from __future__ import annotations
@@ -31,22 +34,24 @@ from ..params import SchemeParams, SecurityParams, make_scheme_params
 @dataclasses.dataclass(frozen=True)
 class SchemeContext:
     params: SchemeParams
-    ntt_q: _ntt.NTTTables                          # q basis
+    ntt_q: _ntt.NTTTables                          # q basis, level 0
+    # Per-level constants; index = level L, 0 .. k-1 (mod_switch: 0 .. k-2).
     # (q, Bsk) tables with t * n^-1 as the inverse normalisation: the
-    # multiply's tensor products come out scaled by t at no cost.  Bsk is
-    # the aux primes + m_sk, m_sk last.
-    mul_tables: tuple[_ntt.NTTTables, _ntt.NTTTables]
-    # BEHZ multiply constants at level 0
-    smq: _rns.SmMRqConsts                          # q -> Bsk centred lift
-    floor_c: _rns.FastFloorConsts                  # q -> Bsk floor(t*x/q)
-    sk_c: _rns.SKConsts                            # Bsk -> q exact conversion
-    # relinearization digits D_j = [c2_j * (q/q_j)^-1]_{q_j}
-    inv_qhat: torch.Tensor                         # [k]
-    # grouped gadget weights ks_group_conv_tables(q primes, ks_omega)
-    ks_conv: torch.Tensor                          # [k, kd, ks_omega]
-    # per-level constants, index = level; only level 0 exists so far
+    # multiply's tensor products come out scaled by t at no cost.  Row views
+    # of level 0's: the first k-L q rows, the last bsk_counts[L] Bsk rows
+    # (the aux primes + m_sk, m_sk last).
+    mul_levels: tuple[tuple[_ntt.NTTTables, _ntt.NTTTables], ...]
+    bsk_counts: tuple[int, ...]                    # Bsk primes of each level
+    smq_levels: tuple[_rns.SmMRqConsts, ...]       # q_L -> Bsk_L centred lift
+    floor_levels: tuple[_rns.FastFloorConsts, ...]  # q_L -> Bsk_L floor(t*x/q_L)
+    sk_levels: tuple[_rns.SKConsts, ...]           # Bsk_L -> q_L exact conversion
+    # relinearization digits D_j = [c2_j * (q_L/q_j)^-1]_{q_j}
+    inv_qhat_levels: tuple[torch.Tensor, ...]      # [k-L]
+    # grouped gadget weights ks_group_conv_tables(q_L primes, ks_omega)
+    ks_conv_levels: tuple[torch.Tensor, ...]       # [k-L, kd_L, ks_omega]
     dec_levels: tuple[_rns.DecryptConsts, ...]     # gamma-trick decryption
-    delta_levels: tuple[tuple[torch.Tensor, torch.Tensor], ...]  # (Δ mod q_i, Shoup)
+    delta_levels: tuple[tuple[torch.Tensor, torch.Tensor], ...]  # (Δ_L mod q_i, Shoup)
+    mod_switch: tuple[_rns.ModSwitchConsts, ...]   # level L -> L + 1
 
     @property
     def k(self) -> int:
@@ -59,6 +64,27 @@ class SchemeContext:
     @property
     def device(self) -> torch.device:
         return self.ntt_q.device
+
+    # level 0's entries under their level-0 names
+    @property
+    def mul_tables(self) -> tuple[_ntt.NTTTables, _ntt.NTTTables]:
+        return self.mul_levels[0]
+
+    @property
+    def smq(self) -> _rns.SmMRqConsts:
+        return self.smq_levels[0]
+
+    @property
+    def floor_c(self) -> _rns.FastFloorConsts:
+        return self.floor_levels[0]
+
+    @property
+    def sk_c(self) -> _rns.SKConsts:
+        return self.sk_levels[0]
+
+    @property
+    def inv_qhat(self) -> torch.Tensor:
+        return self.inv_qhat_levels[0]
 
 
 def galois_permutation(n: int, g: int) -> tuple[np.ndarray, np.ndarray]:
@@ -171,29 +197,55 @@ def _level_host(primes: tuple[int, ...], t: int) -> tuple[np.ndarray, ...]:
             np.array(inv_qhat, dtype=np.uint32), mm.shoup_array(inv_qhat, primes))
 
 
+def level_aux_count(params: SchemeParams, level: int) -> int:
+    """Aux primes of level L's Bsk base.  Level 0 takes them all (the
+    oracle's multiply is bit-exact with it); a deeper level the smallest
+    suffix of aux_primes with prod * m_sk > 4 t n q_L, the bound that sizes
+    the level-0 base, so that m_sk stays the last Bsk prime."""
+    aux = params.aux_primes
+    if level == 0:
+        return len(aux)
+    need = 4 * params.t * params.n * math.prod(params.q_primes[:params.k - level])
+    count, prod = 0, params.m_sk
+    while prod <= need:
+        count += 1
+        prod *= aux[-count]
+    return count
+
+
 def make_context(params: SchemeParams | None = None, device="cuda",
                  **security_kw) -> SchemeContext:
     """Build the constants on ``device`` (default the card)."""
     dev = mm.resolve_device(device)
     if params is None:
         params = make_scheme_params(SecurityParams(**security_kw))
-    if params.security.ks_omega < 1:
-        raise ValueError(f"ks_omega must be >= 1, got {params.security.ks_omega}")
-    chain, aux = params.q_primes, params.aux_primes
-    bsk = params.bsk_primes                  # aux + (m_sk,): m_sk last
-    delta, delta_sh, inv_qhat = (mm.u32_tensor(v, dev)
-                                 for v in _level_host(chain, params.t)[:3])
-    ntt_q = _ntt.build_tables(params.n, chain, dev)
-    return SchemeContext(
-        params=params,
-        ntt_q=ntt_q,
-        mul_tables=_ntt.build_mul_tables(
-            ntt_q, _ntt.build_tables(params.n, bsk, dev), params.t),
-        smq=_rns.make_sm_mrq(chain, bsk, params.m_tilde, dev),
-        floor_c=_rns.make_fast_floor(chain, bsk, dev),
-        sk_c=_rns.make_sk(aux, params.m_sk, chain, dev),
-        inv_qhat=inv_qhat,
-        ks_conv=mm.u32_tensor(ks_group_conv_tables(chain, params.security.ks_omega), dev),
-        dec_levels=(_rns.make_decrypt(chain, params.t, params.gamma, dev),),
-        delta_levels=((delta, delta_sh),),
-    )
+    omega = params.security.ks_omega
+    if omega < 1:
+        raise ValueError(f"ks_omega must be >= 1, got {omega}")
+    ntt_q = _ntt.build_tables(params.n, params.q_primes, dev)
+    tq, tbsk = _ntt.build_mul_tables(
+        ntt_q, _ntt.build_tables(params.n, params.bsk_primes, dev), params.t)
+    lv = {f: [] for f in ("mul_levels", "bsk_counts", "smq_levels", "floor_levels",
+                          "sk_levels", "inv_qhat_levels", "ks_conv_levels",
+                          "dec_levels", "delta_levels", "mod_switch")}
+    for level in range(params.k):
+        chain = params.q_primes[:params.k - level]
+        n_aux = level_aux_count(params, level)
+        aux = params.aux_primes[len(params.aux_primes) - n_aux:]
+        bsk = aux + (params.m_sk,)
+        delta, delta_sh, inv_qhat = (mm.u32_tensor(v, dev)
+                                     for v in _level_host(chain, params.t)[:3])
+        lv["mul_levels"].append((_ntt.slice_tables(tq, len(chain)),
+                                 _ntt.slice_tables_last(tbsk, len(bsk))))
+        lv["bsk_counts"].append(len(bsk))
+        lv["smq_levels"].append(_rns.make_sm_mrq(chain, bsk, params.m_tilde, dev))
+        lv["floor_levels"].append(_rns.make_fast_floor(chain, bsk, dev))
+        lv["sk_levels"].append(_rns.make_sk(aux, params.m_sk, chain, dev))
+        lv["inv_qhat_levels"].append(inv_qhat)
+        lv["ks_conv_levels"].append(mm.u32_tensor(ks_group_conv_tables(chain, omega), dev))
+        lv["dec_levels"].append(_rns.make_decrypt(chain, params.t, params.gamma, dev))
+        lv["delta_levels"].append((delta, delta_sh))
+        if len(chain) >= 2:
+            lv["mod_switch"].append(_rns.make_mod_switch(chain, dev))
+    return SchemeContext(params=params, ntt_q=ntt_q,
+                         **{f: tuple(v) for f, v in lv.items()})

@@ -73,6 +73,20 @@ def bfv_multiply(params: SchemeParams, lv1: float, lv2: float) -> float:
     return logaddexp2(scale + logaddexp2(lv1, lv2), math.log2((1 + h) / 12.0))
 
 
+def bfv_mod_switch(params: SchemeParams, level_from: int, lv: float) -> float:
+    """e' = e / q_last + eps * m + r: the rounding term r = d0 + d1 * s
+    (variance (1 + h)/12), and eps * m because Delta_L / q_last =
+    Delta_{L+1} + eps, eps in (-1, 1), computed exactly in integers
+    (m uniform mod t, E[m^2] = t^2/3)."""
+    t = params.t
+    q_last = params.q_primes[params.k - 1 - level_from]
+    q_from = _q_at(params, level_from)
+    eps = ((q_from // t) - (q_from // q_last // t) * q_last) / q_last
+    h = params.security.hamming_weight
+    const = (1 + h) / 12.0 + (eps ** 2) * (t ** 2) / 3.0
+    return logaddexp2(lv - 2.0 * math.log2(q_last), math.log2(const))
+
+
 def galois(lv: float) -> float:
     """Automorphisms permute (and negate) coefficients: variance unchanged;
     the key switch that follows adds keyswitch_add."""

@@ -133,3 +133,63 @@ def test_number_theory_matches():
             assert tprimes.negacyclic_psi(n, p) == jprimes.negacyclic_psi(n, p)
     for x in (0, 1, 2, 65537, 786433, (1 << 61) - 1, 1_000_000_007 * 3):
         assert tprimes.is_prime(x) == jprimes.is_prime(x)
+
+
+LEVEL_CASES = [dict(poly_degree=256, log_q=150, hamming_weight=32),
+               dict(poly_degree=1024, log_q=90, hamming_weight=16, lambda_=0),
+               dict(poly_degree=256, log_q=120, hamming_weight=16, ks_omega=2)]
+
+
+@pytest.mark.parametrize("kw", LEVEL_CASES, ids=["n256_k5", "n1024_k3", "k4_omega2"])
+def test_level_consts_match(kw):
+    """Every per-level field of the context against the JAX context's: the
+    Bsk base sizes, the BEHZ constants, the relinearization digits, the
+    decryption and Δ constants, the modulus-switch constants, the grouped
+    gadget weights (bfv._grouped_digit_residues builds them per level from
+    ks_group_conv_tables) and the row views of the t-folded tables
+    (ntt_pallas.build_mul_tables(..., k - L, bsk_counts[L]))."""
+    jp = jparams.make_scheme_params(jparams.SecurityParams(**kw))
+    tp = tparams.make_scheme_params(tparams.SecurityParams(**kw))
+    jctx = jcontext.make_context(jp, use_pallas=False, use_mxu=False)
+    tctx = tcontext.make_context(tp, device="cpu")
+    k, omega = jp.k, kw.get("ks_omega", 1)
+    assert tctx.bsk_counts == jctx.bsk_counts
+    assert len(tctx.mod_switch) == len(jctx.mod_switch) == k - 1
+    for lv in range(k):
+        chain = jp.q_primes[:k - lv]
+        assert tcontext.level_aux_count(tp, lv) == jctx.bsk_counts[lv] - 1
+        for name in ("smq", "floor", "sk", "dec"):
+            got = getattr(tctx, f"{name}_levels")[lv]
+            want = getattr(jctx, f"{name}_levels")[lv]
+            if name == "dec":
+                for f in want._fields:
+                    g = getattr(got, f)
+                    np.testing.assert_array_equal(
+                        _u32(g) if f in trns.ARRAY_FIELDS else np.uint32(g),
+                        np.asarray(getattr(want, f)), err_msg=f"dec.{f}")
+            else:
+                _assert_consts_equal(got, want, f"{name}_levels[{lv}]")
+        np.testing.assert_array_equal(_u32(tctx.inv_qhat_levels[lv]),
+                                      np.asarray(jctx.inv_qhat_levels[lv][0]))
+        for g, w in zip(tctx.delta_levels[lv], jctx.delta_levels[lv]):
+            np.testing.assert_array_equal(_u32(g), np.asarray(w))
+        np.testing.assert_array_equal(_u32(tctx.ks_conv_levels[lv]),
+                                      jcontext.ks_group_conv_tables(chain, omega))
+        if lv < k - 1:
+            _assert_consts_equal(tctx.mod_switch[lv], jctx.mod_switch[lv],
+                                 f"mod_switch[{lv}]")
+        want_q, want_b = jnpal.build_mul_tables(tp.n, jp.q_primes, jp.bsk_primes, jp.t,
+                                                k - lv, jctx.bsk_counts[lv])
+        for got, want in zip(tctx.mul_levels[lv], (want_q, want_b)):
+            assert got.k == want.p.shape[0]
+            for f in ("p", "mu", "n_inv", "n_inv_shoup"):
+                np.testing.assert_array_equal(_u32(getattr(got, f)),
+                                              np.asarray(getattr(want, f))[:, 0],
+                                              err_msg=f"level {lv} {f}")
+        # row views of level 0's tables, m_sk last
+        tq0, tb0 = tctx.mul_levels[0]
+        tq, tb = tctx.mul_levels[lv]
+        assert tq.psi_br.data_ptr() == tq0.psi_br.data_ptr()
+        assert tb.psi_br.data_ptr() == tb0.psi_br[tb0.k - tb.k].data_ptr()
+        assert tb.primes[-1] == tp.m_sk and tq.primes == chain
+    assert tctx.smq is tctx.smq_levels[0] and tctx.inv_qhat is tctx.inv_qhat_levels[0]

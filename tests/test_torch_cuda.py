@@ -19,7 +19,10 @@ from fhe_tpu_torch.ops import galois as tgalois
 from fhe_tpu_torch.ops import ntt as tntt
 from fhe_tpu_torch.ops import rns as trns
 from fhe_tpu_torch.params import SecurityParams, make_scheme_params
+from fhe_tpu_torch.scheme import bfv
 from fhe_tpu_torch.scheme.context import make_context
+from fhe_tpu_torch.scheme.types import RelinKeys
+from fhe_tpu_torch.utils import ubench
 
 pytestmark = pytest.mark.cuda
 
@@ -298,3 +301,62 @@ def test_hoisted_and_omega_on_card(dev):
     rlk8 = fhe8.relinkey_gen(sk8)
     a, b = fhe8.encrypt(fhe8.encode([5, 10]), pk8), fhe8.encrypt(fhe8.encode([3, 6]), pk8)
     assert list(fhe8.decode(fhe8.decrypt(fhe8.multiply(a, b, rlk8), sk8))[:2]) == [15, 60]
+
+
+# ---------------------------------------------------------------------------
+# leveled BFV: the n < 1024 multiply's sm_mrq_fused / fast_floor_fused, the
+# modmul roofline probe, and a multiply at level 1 against the CPU plain path
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,log_q,level", [(N, 90, 0), (N, 90, 1), (256, 150, 2)])
+def test_sm_mrq_and_fast_floor_kernels_match_plain(dev, n, log_q, level):
+    """At the headline shapes (k = 3, kb = 5, the four rows of a multiply)
+    and at n = 256, k = 5 with the level's constants."""
+    ctx = make_context(make_scheme_params(SecurityParams(
+        poly_degree=n, log_q=log_q, hamming_weight=32)), device=dev)
+    qs, bsk = ctx.ntt_q.primes[:ctx.k - level], ctx.mul_levels[level][1].primes
+    gen = np.random.default_rng(n + level)
+    res = lambda moduli, rows: torch.from_numpy(np.stack(
+        [gen.integers(0, p, (rows, n), dtype=np.uint32) for p in moduli]
+    ).astype(np.int32)).to(dev)
+    x = res(qs, 4)
+    sc, fc = ctx.smq_levels[level], ctx.floor_levels[level]
+    assert torch.equal(rns_cuda.sm_mrq_fused(x, sc), trns.sm_mrq(x, sc))
+    tx_q, tx_bsk = res(qs, 3), res(bsk, 3)
+    assert torch.equal(rns_cuda.fast_floor_fused(tx_q, tx_bsk, fc),
+                       trns.fast_floor(tx_q, tx_bsk, fc))
+
+
+@pytest.mark.parametrize("ilp", ubench.ILPS)
+@pytest.mark.parametrize("variant", ubench.VARIANTS)
+def test_modmul_chain_kernel_matches_plain(dev, variant, ilp):
+    p = _params().q_primes[0]
+    w = 123456789 % p
+    x = _residues((p,), 64, dev)[0]
+    args = (w, (w << 32) // p, p, (1 << 61) // p, 16, variant)
+    assert torch.equal(ubench.modmul_chain(x, *args, unroll=8, ilp=ilp),
+                       ubench.modmul_chain_plain(x, *args, ilp=ilp))
+    if ilp == 1:
+        assert torch.equal(ubench.modmul_chain(x, *args, unroll=1),
+                           ubench.modmul_chain_plain(x, *args))
+
+
+def test_leveled_multiply_on_card_matches_cpu(dev):
+    """n = 8192, k = 3: mod_switch_to_next, the relinearization keys switched
+    to level 1 and multiply at level 1 on the card equal the CPU plain path
+    bit for bit, and decode."""
+    fhe = FHE(poly_degree=N, log_q=90, hamming_weight=64, seed=10, device=dev)
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    a = fhe.mod_switch_to_next(fhe.encrypt(fhe.encode([5, 10, 15, 20]), pk))
+    b = fhe.mod_switch_to_next(fhe.encrypt(fhe.encode([3, 6, 9, 12]), pk))
+    prod = fhe.multiply(a, b, rlk)
+    assert list(fhe.decode(fhe.decrypt(prod, sk))[:4]) == [15, 60, 135, 240]
+    cpu = make_context(fhe.params, device="cpu")
+    to_cpu = lambda ct: ct.replace(data=ct.data.cpu())
+    rlk_cpu = RelinKeys(data=rlk.data.cpu())
+    assert torch.equal(fhe._rlk_cache[(id(rlk), 1)].data.cpu(),
+                       bfv.switch_relin_keys(cpu, rlk_cpu, 1).data)
+    assert torch.equal(prod.data.cpu(),
+                       bfv.multiply(cpu, to_cpu(a), to_cpu(b), rlk_cpu).data)

@@ -337,6 +337,14 @@ def test_facade_hoisted_cache_and_errors(h):
     del keys
     gc.collect()
     assert not any(k[0] == kid for k in fhe._hoist_cache)
-    deep = h.cts[0].replace(level=1)
-    with pytest.raises(NotImplementedError, match="level 1"):
-        fhe.rotate_rows_hoisted(deep, STEPS, h.gk)
+    # at level 1 the facade switches the keys down once and caches the
+    # level's stack beside level 0's (tests/test_torch_leveled_n1024.py
+    # holds the level-1 hoisted path against fhe_tpu)
+    deep = fhe.mod_switch_to_next(h.cts[0])
+    outs = fhe.rotate_rows_hoisted(deep, STEPS, h.gk)
+    pre1 = fhe._hoist_cache[(id(h.gk), ELEMS, 1)]
+    assert fhe._hoist_cache[key] is pre and pre1.shape == (2, 2, 3, 2, N)
+    keys1 = tbfv.switch_galois_keys(h.tctx, h.gk, 1)
+    want = tbfv.apply_galois_hoisted(h.tctx, deep, ELEMS, keys1, keys_at_level=True)
+    assert all(torch.equal(a.data, b.data) and a.level == 1 for a, b in zip(outs, want))
+    assert [_decode(h, o)[:N // 2] for o in outs] == [_rotated(VALS[0], s) for s in STEPS]

@@ -36,6 +36,7 @@ from fhe_tpu.ops import sampling as jsampling
 from fhe_tpu.params import SecurityParams as JSecurity
 from fhe_tpu.params import make_scheme_params as jmake_params
 from fhe_tpu.scheme import bfv as jbfv
+from fhe_tpu.scheme import types as jtypes
 from fhe_tpu.scheme.context import make_context as jmake_context
 from fhe_tpu.scheme.encoder import BatchEncoder as JEncoder
 
@@ -271,17 +272,25 @@ def test_facade_multiply_on_cpu():
     assert dec(fhe.multiply(fhe.add(c1, c2), c2, rlk)) == [24, 96, 216, 384]
 
 
-def test_unported_branches_raise():
-    """n < 1024 (sm_mrq_fused / fast_floor_fused) is not ported: it raises
-    rather than diverges.  Grouped gadget digits (ks_omega > 1) are ported
+def test_small_ring_multiply_matches_jax_and_foreign_keys_raise():
+    """n < 1024 takes the multiply's sm_mrq_fused / fast_floor_fused branch:
+    it decodes and equals fhe_tpu's multiply_no_relin on the same
+    ciphertext (tests/test_torch_leveled.py holds it at every level).
+    Grouped gadget digits (ks_omega > 1) are ported
     (tests/test_torch_omega.py); relinearization keys of another gadget
     raise."""
     small = FHE(seed=1, device="cpu", poly_degree=256, log_q=60,
                 hamming_weight=16, lambda_=0)
-    pk, _ = small.keygen()
-    ct = small.encrypt(small.encode([1, 2]), pk)
-    with pytest.raises(NotImplementedError, match="sm_mrq_fused"):
-        small.multiply_no_relin(ct, ct)
+    pk, sk = small.keygen()
+    ct = small.encrypt(small.encode([1, 2, 3]), pk)
+    m3 = small.multiply_no_relin(ct, ct)
+    assert list(small.decode(small.decrypt(m3, sk))[:3]) == [1, 4, 9]
+    jctx = jmake_context(jmake_params(JSecurity(poly_degree=256, log_q=60,
+                                                hamming_weight=16, lambda_=0)),
+                         use_pallas=False, use_mxu=False)
+    jct = jtypes.Ciphertext(data=jnp.asarray(convert.to_numpy(ct)),
+                            noise_budget=ct.noise_budget)
+    assert_ct_equal(m3, J.multiply_no_relin(jctx, jct, jct))
     grouped = FHE(seed=1, device="cpu", ks_omega=2, **KW)
     pk, sk = grouped.keygen()
     assert grouped.relinkey_gen(sk).data.shape == (2, 3, 2, 1024)

@@ -333,18 +333,29 @@ def test_facade_rotations_on_cpu():
     assert switched.num_components == 2
 
 
-def test_rotation_unported_branches_raise(r):
-    """Levels above 0 raise rather than diverge, in the hoisted rotations
-    too; so do a missing Galois key and keys of another gadget (ks_omega)."""
-    deep = r.tcts[0].replace(level=1)
-    with pytest.raises(NotImplementedError, match="level 1"):
-        tbfv.rotate_rows(r.tctx, deep, 1, r.tgk)
-    with pytest.raises(NotImplementedError, match="level 1"):
-        tbfv.apply_galois_batch(r.tctx, [deep, deep], 3, r.tgk)
-    with pytest.raises(NotImplementedError, match="level 1"):
-        tbfv.key_switch(r.tctx, deep, r.tgk.data[3])
-    with pytest.raises(NotImplementedError, match="level 1"):
-        tbfv.apply_galois_hoisted(r.tctx, deep, (3,), r.tgk)
+J_MOD_SWITCH = jax.jit(jbfv.mod_switch_to_next)
+J_HOISTED = jax.jit(jbfv.apply_galois_hoisted, static_argnums=2)
+
+
+def test_rotations_at_level_one_and_errors(r):
+    """rotate_rows, apply_galois_batch, key_switch and apply_galois_hoisted
+    at level 1 equal fhe_tpu's (each ciphertext switched down by its own
+    package, the level-0 Galois keys switched down on the fly); a missing
+    Galois key and keys of another gadget (ks_omega) raise."""
+    deep = [tbfv.mod_switch_to_next(r.tctx, ct) for ct in r.tcts[:2]]
+    jdeep = [J_MOD_SWITCH(r.jctx, ct) for ct in r.jcts[:2]]
+    got = tbfv.rotate_rows(r.tctx, deep[0], 1, r.tgk)
+    assert_ct_equal(got, J.rotate_rows(r.jctx, jdeep[0], 1, r.jgk))
+    assert _decode(r, got)[:N // 2] == _rotated(VALS[0], 1)
+    for got, want in zip(tbfv.apply_galois_batch(r.tctx, deep, 3, r.tgk),
+                         J.apply_galois_batch(r.jctx, jdeep, 3, r.jgk)):
+        assert_ct_equal(got, want)
+    assert_ct_equal(tbfv.key_switch(r.tctx, deep[1], r.tgk.data[3]),
+                    J.key_switch(r.jctx, jdeep[1], r.jgk.data[3]))
+    (got,), (want,) = (tbfv.apply_galois_hoisted(r.tctx, deep[1], (3,), r.tgk),
+                       J_HOISTED(r.jctx, jdeep[1], (3,), r.jgk))
+    assert_ct_equal(got, want)
+    assert _decode(r, got)[:N // 2] == _rotated(VALS[1], 1)
     with pytest.raises(KeyError, match="element"):
         tbfv.rotate_rows(r.tctx, r.tcts[0], 2, r.tgk)
     grouped = FHE(seed=1, device="cpu", ks_omega=2, **KW)

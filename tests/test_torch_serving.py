@@ -309,16 +309,34 @@ def test_facade_serving_on_cpu():
     assert all(0 < p.noise_budget < c.noise_budget for p, c in zip(prods, cts_a))
 
 
-def test_serving_unported_branches_raise(s):
-    """Levels above 0 and n < 1024 (sm_mrq_fused) raise rather than
-    diverge; so do malformed batches and relinearization keys of another
-    gadget (ks_omega = 2 takes kd = 2 digits, these keys have 3)."""
-    (_, ta), (_, tb) = s.a, s.b
-    deep = [ct.replace(level=1) for ct in ta]
-    with pytest.raises(NotImplementedError, match="level 1"):
-        tbfv.multiply_batch(s.tctx, deep, deep, s.trlk)
-    with pytest.raises(NotImplementedError, match="level 1"):
-        tbfv.decrypt_batch(s.tctx, deep, s.tsk)
+J_MOD_SWITCH = jax.jit(jbfv.mod_switch_to_next)
+
+
+def test_serving_at_level_one_and_malformed_batches(s):
+    """multiply_batch and decrypt_batch at level 1 equal fhe_tpu's (each
+    ciphertext switched down by its own package; the JAX relinearization
+    keys switched down on the fly); at n = 256 multiply_batch takes the
+    batched Bsk branch and equals the single multiply, which takes the
+    n < 1024 branch.  Mixed levels, malformed batches and relinearization
+    keys of another gadget (ks_omega = 2 takes kd = 2 digits, these keys
+    have 3) raise."""
+    (ja, ta), (jb, tb) = s.a, s.b
+    deep_a = [tbfv.mod_switch_to_next(s.tctx, ct) for ct in ta]
+    deep_b = [tbfv.mod_switch_to_next(s.tctx, ct) for ct in tb]
+    jdeep_a = [J_MOD_SWITCH(s.jctx, ct) for ct in ja]
+    jdeep_b = [J_MOD_SWITCH(s.jctx, ct) for ct in jb]
+    for got, want in zip(deep_a, jdeep_a):
+        assert_ct_equal(got, want)
+    prods = tbfv.multiply_batch(s.tctx, deep_a, deep_b, s.trlk)
+    for got, want in zip(prods, J_MULTIPLY_BATCH(s.jctx, jdeep_a, jdeep_b, s.jrlk)):
+        assert_ct_equal(got, want)
+    dec = tbfv.decrypt_batch(s.tctx, prods, s.tsk)
+    assert [[int(x) for x in s.tenc.decode(pt)[:4]] for pt in dec] == _slots(VALS_A, VALS_B)
+    for got, want in zip(tbfv.decrypt_batch(s.tctx, deep_a, s.tsk),
+                         J_DECRYPT_BATCH(s.jctx, jdeep_a, s.jsk)):
+        np.testing.assert_array_equal(convert.to_numpy(got), _np(want.data))
+    with pytest.raises(ValueError, match="one level"):
+        tbfv.multiply_batch(s.tctx, [deep_a[0], ta[1]], tb[:2], s.trlk)
     with pytest.raises(ValueError, match="equal-length"):
         tbfv.multiply_batch(s.tctx, ta, tb[:2], s.trlk)
     m3 = tbfv.multiply_no_relin(s.tctx, ta[0], tb[0])
@@ -330,9 +348,13 @@ def test_serving_unported_branches_raise(s):
         tbfv.multiply_batch(grouped, ta, tb, s.trlk)
     small = FHE(seed=1, device="cpu", poly_degree=256, log_q=60, hamming_weight=16,
                 lambda_=0)
-    pk, _ = small.keygen()
+    pk, sk = small.keygen()
+    rlk = small.relinkey_gen(sk)
     cts = small.encrypt_batch([small.encode([1, 2]), small.encode([3])], pk)
-    with pytest.raises(NotImplementedError, match="sm_mrq_fused"):
-        small.multiply_batch(cts, cts, None)
+    prods = small.multiply_batch(cts, cts, rlk)
+    assert [list(small.decode(pt)[:2]) for pt in small.decrypt_batch(prods, sk)] == \
+        [[1, 4], [9, 0]]
+    assert all(torch.equal(p.data, small.multiply(c, c, rlk).data)
+               for p, c in zip(prods, cts))
     with pytest.raises(ValueError, match="expected"):
         tbfv.encrypt_batch_from_noise(s.tctx, s.tpk, [s.tenc.encode([1])], *s.draws)
