@@ -10,7 +10,11 @@ Phases, each printing its own lines:
      n = 8192, k = 3 (k = 8 for the prereduced lanes), bit-exact (tolerance
      0), with device times (CUDA
      events, median of 25 launches after warm-up), the plain version's time
-     and the least time the card could take (bound);
+     and the least time the card could take (bound); then the launch shape
+     of each cluster kernel (bsk_branch_fused, decrypt_fused: grid, cluster,
+     CTAs, threads, shared memory) at n = 8192 and 16384, and n = 16384
+     (the JAX bench's g_n16384, log_q = 90): keygen, encrypt and decrypt
+     decode, and the multiply raises in tensor_product and nowhere else;
   4. slice: the linear-ops main path through the FHE facade at n = 8192,
      log_q = 90 (k = 3), h = 64: keygen, encode, encrypt, add, add_plain and
      the 8-term resident plaintext multiply-accumulate, then decrypt and
@@ -24,7 +28,8 @@ Phases, each printing its own lines:
      decrypt, and multiply; every decode must be [15,60,135,240].  Counts
      are zeroed before and read after, as in phase 4, and the card's
      relinearization keys, products and decryptions must equal the CPU
-     plain path's bit for bit.  Then end-to-end times of each op;
+     plain path's bit for bit.  Then end-to-end times of each op, and the
+     device times of the multiply, its halves and the decrypt;
   6. serving: the batch and rotation path through the facade at the same
      width and B = 8: keygen, relinkey_gen, galoiskey_gen for (3, 2n - 1),
      encrypt_batch and decrypt_batch of two batches, multiply_batch (each
@@ -76,8 +81,13 @@ Phases, each printing its own lines:
 Phases 4 to 11 each zero every launch count just before their path and read
 them just after; each kernel of the path must have launched.  Phase 3 also
 runs the prereduced lanes at the omega path's k = 8, kd = 4, sm_mrq_fused
-and fast_floor_fused at n = 8192, k = 3 and at n = 256, k = 5, and
-modmul_chain of every variant on a [256, 8192] block.
+and fast_floor_fused at n = 8192, k = 3 and at n = 256, k = 5,
+modmul_chain of every variant on a [256, 8192] block, and the cluster
+kernels around the main path: bsk_branch_fused (single and batched) at
+k = 8 (kb = 10), B = 8, level views (the Bsk suffix mid-tensor), t = 786433
+tables, n = 256 (k = 5, batched) and n = 16384, decrypt_fused at k = 8,
+k = 12 (more primes than a cluster's 8 CTAs), B = 8, level views,
+t = 786433, n = 256 and n = 16384.
 The line before the last is {"kernels": [...]}, each kernel with its launches
 on its own path (phase 4 to 11); the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; without
@@ -134,7 +144,7 @@ def helper_ops() -> dict[str, int]:
     ops = {m[1]: int(m[2]) for m in re.finditer(r"^//\s+OPS (\w+) (\d+)$", text, re.M)}
     want = {"add_mod", "sub_mod", "mul_shoup", "mul_shoup_lazy", "reduce_shoup",
             "mul_barrett", "reduce_barrett", "neg_mod", "select", "lane16", "mul16",
-            "galois_index"}
+            "galois_index", "ntt_butterfly"}
     if set(ops) != want:
         raise RuntimeError(f"modmath.cuh OPS block lists {sorted(ops)}, expected "
                            f"{sorted(want)}")
@@ -142,7 +152,9 @@ def helper_ops() -> dict[str, int]:
 
 
 OPS = helper_ops()
-OPS_BUTTERFLY = OPS["mul_shoup"] + OPS["add_mod"] + OPS["sub_mod"]
+OPS_BUTTERFLY = OPS["ntt_butterfly"]
+if OPS_BUTTERFLY != OPS["mul_shoup"] + OPS["add_mod"] + OPS["sub_mod"]:
+    raise RuntimeError("modmath.cuh: OPS ntt_butterfly is not mul_shoup + add_mod + sub_mod")
 # integer instructions of one step of each modmul_chain variant: the helpers'
 # OPS counts, and 17 for the two calibration chains (csrc/ubench.cu)
 CHAIN_OPS = {"exact": OPS["mul_shoup"], "lazy": OPS["mul_shoup_lazy"],
@@ -333,32 +345,32 @@ def mul_work(k: int, c: int, batch: int = 1) -> tuple[float, float]:
     return nbytes, ops
 
 
-def decrypt_work(k: int, batch: int) -> tuple[float, float]:
-    logn = N.bit_length() - 1
-    nbytes = 4 * (2 * k * batch * N + k * N + 4 * k * N + batch * N)
+def decrypt_work(k: int, batch: int, n: int = N) -> tuple[float, float]:
+    logn = n.bit_length() - 1
+    nbytes = 4 * (2 * k * batch * n + k * n + 4 * k * n + batch * n)
     o = OPS
     # per prime: forward and inverse sweeps, the key product, the n^-1 and
     # the phase/z/t-lane/gamma-lane step (decrypt.cu); then the epilogue
-    per_prime = (2 * (N // 2) * logn * OPS_BUTTERFLY
-                 + N * (o["mul_barrett"] + o["mul_shoup"] + o["add_mod"]
+    per_prime = (2 * (n // 2) * logn * OPS_BUTTERFLY
+                 + n * (o["mul_barrett"] + o["mul_shoup"] + o["add_mod"]
                         + 2 * o["mul_shoup"] + o["reduce_barrett"]
                         + o["mul_barrett"] + 2 * o["add_mod"]))
-    epilogue = N * (2 * o["mul_shoup"] + o["mul_barrett"] + o["reduce_shoup"]
+    epilogue = n * (2 * o["mul_shoup"] + o["mul_barrett"] + o["reduce_shoup"]
                     + 2 * o["sub_mod"])
     return nbytes, batch * (k * per_prime + epilogue)
 
 
-def sweeps_ops(fwd_rows: int, inv_rows: int) -> float:
+def sweeps_ops(fwd_rows: int, inv_rows: int, n: int = N) -> float:
     """Ops of one prime's forward and inverse sweeps over that many rows,
     with the inverse's n_inv multiply."""
-    logn = N.bit_length() - 1
-    return ((fwd_rows + inv_rows) * (N // 2) * logn * OPS_BUTTERFLY
-            + inv_rows * N * OPS["mul_shoup"])
+    logn = n.bit_length() - 1
+    return ((fwd_rows + inv_rows) * (n // 2) * logn * OPS_BUTTERFLY
+            + inv_rows * n * OPS["mul_shoup"])
 
 
-def product_ops() -> float:
+def product_ops(n: int = N) -> float:
     """c0, c1, c2 from the four NTT rows: 4 Barrett products and an add."""
-    return N * (4 * OPS["mul_barrett"] + OPS["add_mod"])
+    return n * (4 * OPS["mul_barrett"] + OPS["add_mod"])
 
 
 def tensor_product_work(k: int, batch: int = 1) -> tuple[float, float]:
@@ -368,7 +380,7 @@ def tensor_product_work(k: int, batch: int = 1) -> tuple[float, float]:
     return nbytes, batch * k * (sweeps_ops(4, 3) + product_ops())
 
 
-def bsk_branch_work(k: int, kb: int, batch: int = 1) -> tuple[float, float]:
+def bsk_branch_work(k: int, kb: int, batch: int = 1, n: int = N) -> tuple[float, float]:
     """ab [k, 4, batch, N] and tx_q [k, 3, batch, N] in, [kb, 3, batch, N]
     out, Bsk tables.  The k source digits of the lift's 4N and the floor's
     3N coefficients do not depend on the Bsk prime, so they count once (the
@@ -376,13 +388,13 @@ def bsk_branch_work(k: int, kb: int, batch: int = 1) -> tuple[float, float]:
     conversion and m~ lane step, the centred correction, the sweeps and
     product, and the floor; all of it once per element."""
     o = OPS
-    digits = (4 + 3) * N * k * o["mul_shoup"]
-    lift = 4 * N * (k * (o["mul_shoup"] + o["add_mod"] + o["lane16"])
+    digits = (4 + 3) * n * k * o["mul_shoup"]
+    lift = 4 * n * (k * (o["mul_shoup"] + o["add_mod"] + o["lane16"])
                     + o["mul16"] + o["select"] + 2 * o["mul_shoup"] + o["sub_mod"])
-    floor = 3 * N * (k * (o["mul_shoup"] + o["add_mod"])
+    floor = 3 * n * (k * (o["mul_shoup"] + o["add_mod"])
                      + o["sub_mod"] + o["mul_shoup"])
-    nbytes = 4 * (batch * (4 * k * N + 3 * k * N + 3 * kb * N) + 4 * kb * N)
-    return nbytes, batch * (digits + kb * (lift + sweeps_ops(4, 3) + product_ops()
+    nbytes = 4 * (batch * (4 * k * n + 3 * k * n + 3 * kb * n) + 4 * kb * n)
+    return nbytes, batch * (digits + kb * (lift + sweeps_ops(4, 3, n) + product_ops(n)
                                            + floor))
 
 
@@ -454,24 +466,25 @@ def automorphism_sum_work(k: int, c: int, hs: tuple[int, ...]) -> tuple[float, f
     return 4 * (k * c * batch * N + k * N + 2 * k * c * N + batch), ops
 
 
-def params_k8():
-    """The JAX bench's k8_omega configuration (bench.py:727-775): n = 8192,
-    log_q = 218 (k = 8), h = 64, ks_omega = 2.  It is below 128-bit security
-    at this n, as the bench accepts; the warning is silenced as there."""
+def quiet_params(n: int, log_q: int, **kw):
+    """Parameters the JAX bench runs below 128-bit security at this n (its
+    warning silenced, as there)."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        return make_scheme_params(SecurityParams(poly_degree=N, log_q=218, hamming_weight=H,
-                                                 ks_omega=2))
+        return make_scheme_params(SecurityParams(poly_degree=n, log_q=log_q,
+                                                 hamming_weight=H, **kw))
+
+
+def params_k8():
+    """The JAX bench's k8_omega configuration (bench.py:727-775): n = 8192,
+    log_q = 218 (k = 8), h = 64, ks_omega = 2."""
+    return quiet_params(N, 218, ks_omega=2)
 
 
 def params_leveled():
     """The JAX bench's k8 configuration (bench.py:668-726): n = 8192,
-    log_q = 218 (k = 8), h = 64, ks_omega = 1; below 128-bit security at
-    this n, as the bench accepts (its warning silenced as there)."""
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        return make_scheme_params(SecurityParams(poly_degree=N, log_q=218,
-                                                 hamming_weight=H))
+    log_q = 218 (k = 8), h = 64, ks_omega = 1."""
+    return quiet_params(N, 218)
 
 
 def params_small():
@@ -742,6 +755,12 @@ def phase_kernels(gen: torch.Generator) -> dict:
                   lambda: rns_cuda.fast_floor_fused(txq_s, txb_s, fc_s),
                   lambda: rns.fast_floor(txq_s, txb_s, fc_s),
                   fast_floor_work(4, len(bsk_s), 3 * 256)))
+    # the cluster kernels B5 and B8 around the main path's shapes: more
+    # primes (k = 8, kb = 10; B8 at k = 12, more primes than a cluster's 8
+    # CTAs), level-1 views (the Bsk suffix mid-tensor), t = 786433 tables,
+    # batched B5 at n = 256 (k = 5) and both alone at n = 16384 (k = 3, the
+    # JAX bench's g_n16384)
+    cases += cluster_cases(gen, ctx, ctx_s)
     # the modmul roofline probe (B19) on the JAX bench's [256, 8192] block
     x_m, consts = chain_input(gen, ctx)
     for variant in ubench.VARIANTS:
@@ -768,6 +787,104 @@ def phase_kernels(gen: torch.Generator) -> dict:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout
     print("phase kernels clocks:", clocks.strip())
     return results
+
+
+def bsk_case(gen: torch.Generator, ctx, level: int, batch: int | None, label: str):
+    """A bsk_branch_fused case on ctx's level-L constants: the single
+    kernel (batch None) or the batched one on views of a [B, k, 4, n]
+    stack, as multiply_batch passes them."""
+    n, qs = ctx.n, ctx.ntt_q.primes[:ctx.k - level]
+    k, tbsk = len(qs), ctx.mul_levels[level][1]
+    consts = (ctx.smq_levels[level], ctx.floor_levels[level], tbsk)
+    if batch is None:
+        ab, tx_q = residues(gen, qs, 4, n), residues(gen, qs, 3, n)
+        return ("bsk_branch_fused", f"{label}: ab [{k},4,{n}], kb={tbsk.k}",
+                lambda: rns_cuda.bsk_branch_fused(ab, tx_q, *consts),
+                lambda: rns.bsk_branch_fused(ab, tx_q, *consts),
+                bsk_branch_work(k, tbsk.k, 1, n))
+    ab = residues(gen, qs, 4 * batch, n).view(k, batch, 4, n).transpose(0, 1)
+    ab = ab.contiguous().permute(1, 2, 0, 3)
+    tx_q = residues(gen, qs, 3 * batch, n).view(k, 3, batch, n)
+    return ("bsk_branch_fused_batch", f"{label}: ab views of [{batch},{k},4,{n}], kb={tbsk.k}",
+            lambda: rns_cuda.bsk_branch_fused_batch(ab, tx_q, *consts),
+            lambda: rns.bsk_branch_fused_batch(ab, tx_q, *consts),
+            bsk_branch_work(k, tbsk.k, batch, n))
+
+
+def decrypt_case(gen: torch.Generator, prm, level: int, batch: int, label: str):
+    """A decrypt_fused case at prm's level-L primes (row views of the level-0
+    tables), c0 and c1 as views of a [k, B, 2, n] stack."""
+    n, k = prm.n, prm.k - level
+    tb = plain_ntt.slice_tables(plain_ntt.build_tables(n, prm.q_primes, "cuda"), k)
+    dc = rns.make_decrypt(prm.q_primes[:k], prm.t, prm.gamma, "cuda")
+    ct = residues(gen, tb.primes, 2 * batch, n).view(k, batch, 2, n)
+    args = (ct[:, :, 0], ct[:, :, 1], residues(gen, tb.primes, 1, n), tb, dc)
+    return ("decrypt_fused", f"{label}: views of [{k},{batch},2,{n}], t={prm.t}",
+            lambda: decrypt_cuda.decrypt_fused(*args),
+            lambda: decrypt_cuda.decrypt_fused_plain(*args), decrypt_work(k, batch, n))
+
+
+def cluster_cases(gen: torch.Generator, ctx, ctx_s) -> list:
+    """B5 and B8 at k = 8, B = 8, level 1, t = 786433, n = 256 and
+    n = 16384 (B8 also at k = 12)."""
+    ctx8 = make_context(params_leveled(), device="cuda")
+    ctx_t = make_context(quiet_params(N, LOG_Q, plain_modulus=786433), device="cuda")
+    ctx16 = make_context(quiet_params(16384, LOG_Q), device="cuda")
+    prm = ctx.params
+    return [bsk_case(gen, ctx8, 0, None, "k=8"),
+            bsk_case(gen, ctx8, 0, BATCH, "k=8"),
+            bsk_case(gen, ctx, 1, None, "level 1 of k=3"),
+            bsk_case(gen, ctx8, 2, BATCH, "level 2 of k=8"),
+            bsk_case(gen, ctx_t, 0, None, "t=786433"),
+            bsk_case(gen, ctx_t, 0, BATCH, "t=786433"),
+            bsk_case(gen, ctx_s, 0, BATCH, "n=256, k=5"),
+            bsk_case(gen, ctx_s, 1, BATCH, "level 1 of n=256, k=5"),
+            bsk_case(gen, ctx16, 0, None, "n=16384"),
+            bsk_case(gen, ctx16, 0, 2, "n=16384"),
+            decrypt_case(gen, ctx8.params, 0, 1, "k=8"),
+            decrypt_case(gen, ctx8.params, 0, BATCH, "k=8"),
+            decrypt_case(gen, quiet_params(N, 360), 0, 1, "k=12"),
+            decrypt_case(gen, quiet_params(N, 360, plain_modulus=786433), 0, BATCH, "k=12"),
+            decrypt_case(gen, prm, 1, 1, "level 1 of k=3"),
+            decrypt_case(gen, ctx8.params, 3, BATCH, "level 3 of k=8"),
+            decrypt_case(gen, ctx_t.params, 0, BATCH, "k=3"),
+            decrypt_case(gen, ctx_s.params, 2, BATCH, "level 2 of n=256, k=5"),
+            decrypt_case(gen, ctx16.params, 0, 1, "n=16384"),
+            decrypt_case(gen, ctx16.params, 0, BATCH, "n=16384")]
+
+
+def phase_geometry() -> None:
+    """The launch shape of each cluster kernel at the main path's shapes
+    (n = 8192, k = 3, kb = 5; B = 8) and at n = 16384."""
+    for n in (N, 16384):
+        for name, geo in (("bsk_branch_fused", rns_cuda.bsk_branch_geometry(n, 5)),
+                          ("bsk_branch_fused_batch",
+                           rns_cuda.bsk_branch_geometry(n, 5, BATCH)),
+                          ("decrypt_fused", decrypt_cuda.decrypt_geometry(n, 3)),
+                          ("decrypt_fused_batch",
+                           decrypt_cuda.decrypt_geometry(n, 3, BATCH))):
+            print(f"phase geometry {name} n={n}", json.dumps(geo))
+
+
+def phase_n16384() -> None:
+    """n = 16384 (the JAX bench's g_n16384: log_q = 90, k = 3): keygen,
+    encrypt and decrypt (B1, B3, B8) decode; the multiply raises in
+    tensor_product (B4), whose four rows per block do not fit, and nowhere
+    else (B5 at this n: phase 3)."""
+    fhe = FHE(quiet_params(16384, LOG_Q), seed=4, device="cuda")
+    pk, sk = fhe.keygen()
+    a = fhe.encrypt(fhe.encode([5, 10]), pk)
+    got = [int(v) for v in fhe.decode(fhe.decrypt(a, sk))[:2]]
+    check(got == [5, 10], f"n=16384 decrypt decoded {got}")
+    try:
+        fhe.multiply_no_relin(a, a)
+    except ValueError as err:
+        check(str(err).startswith("tensor_product: n=16384"),
+              f"n=16384 multiply raised outside tensor_product: {err}")
+        print(f"phase n16384 check: keygen, encrypt, decrypt decoded [5, 10]; the multiply "
+              f"raised in tensor_product only: {err}")
+    else:
+        raise RuntimeError("n=16384 multiply did not raise in tensor_product")
 
 
 def run_slice(fhe: FHE):
@@ -930,6 +1047,12 @@ def phase_multiply() -> dict:
         "decrypt_after_multiply": wall_ms(lambda: fhe.decrypt(prod, sk)),
     }
     print("phase multiply wall_ms", json.dumps(timings))
+    dev = {op: device_ms(fn) for op, fn in (
+        ("multiply_no_relin", lambda: fhe.multiply_no_relin(c1, c2)),
+        ("relinearize", lambda: fhe.relinearize(m3, rlk)),
+        ("multiply", lambda: fhe.multiply(c1, c2, rlk)),
+        ("decrypt_after_multiply", lambda: fhe.decrypt(prod, sk)))}
+    print("phase multiply device_ms", json.dumps(dev))
     return launches
 
 
@@ -1525,6 +1648,8 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results = phase_kernels(gen)
+    phase_geometry()
+    phase_n16384()
     launches = {"slice": phase_slice(), "multiply": phase_multiply(),
                 "serving": phase_serving(), "hoisted": phase_hoisted(),
                 "omega": phase_omega(), "leveled": phase_leveled(),

@@ -32,6 +32,11 @@
 // hj = (h * j) & (2n - 1), src = hj & (n - 1) and the test hj >= n (a 64-bit
 // multiply, two masks and a compare):
 //   OPS galois_index 4
+// and one butterfly of either NTT sweep, the one-stage fwd_ntt_smem /
+// inv_ntt_smem or the register-blocked fwd_ntt_regs / inv_ntt_regs, which
+// runs the same butterflies (mul_shoup, add_mod and sub_mod; the sweeps'
+// index and address arithmetic is not counted):
+//   OPS ntt_butterfly 14
 #pragma once
 
 #include <cuda_runtime.h>
@@ -60,6 +65,45 @@ inline cudaError_t allow_smem(const void* kernel, size_t bytes,
                              static_cast<int>(bytes));
   if (err == cudaSuccess && dev < kMaxDevices) granted[dev].store(bytes);
   return err;
+}
+
+// A launch of `grid` in clusters of `cluster` CTAs along x; `attr` is the
+// caller's storage for the one launch attribute the config points to.
+inline cudaLaunchConfig_t cluster_config(dim3 grid, int threads, size_t smem, int cluster,
+                                         cudaStream_t stream,
+                                         cudaLaunchAttribute (&attr)[1]) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// cudaErrorLaunchOutOfResources unless the device can hold at least one
+// cluster of cfg's shape (threads, shared memory, cluster size).  `placed`
+// is the calling kernel's record of the last shape found to fit on each
+// device, so the occupancy query runs again only when the shape changes.
+inline cudaError_t check_cluster(const void* kernel, const cudaLaunchConfig_t& cfg,
+                                 std::atomic<size_t> (&placed)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const size_t shape = (cfg.dynamicSmemBytes << 20) | (static_cast<size_t>(cfg.blockDim.x) << 4)
+                       | cfg.attrs[0].val.clusterDim.x;
+  if (dev < kMaxDevices && placed[dev].load() == shape) return cudaSuccess;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  if (dev < kMaxDevices) placed[dev].store(shape);
+  return cudaSuccess;
 }
 
 // (a + b) mod p for a, b in [0, p), p < 2^31.
@@ -210,6 +254,328 @@ __device__ __forceinline__ void tensor_product_smem(uint32_t* a, int logn, uint3
 inline int ntt_threads(int logn) {
   const int half = 1 << (logn - 1);
   return half < 1024 ? half : 1024;
+}
+
+// ---------------------------------------------------------------------------
+// The register-blocked sweep (bsk_branch_fused and decrypt_fused).
+//
+// The same butterflies as fwd_ntt_smem / inv_ntt_smem, grouped so that a
+// thread runs up to kRegLog stages on 2^kRegLog coefficients in registers
+// between barriers: an n = 8192 transform is 4 passes through shared memory
+// (4 barriers) instead of 13.  A pass of L stages whose largest butterfly
+// distance is T works on groups of G = 2^L coefficients, base + i * s
+// (i < G, s = 2T / G), one group per thread and loop step; group g0 * s + r
+// (r < s) has base g0 * 2T + r.  Within the group, stage l (distance
+// T >> l) pairs i with i + 2^(L-1-l) in sub-block b of 2^(L-l) elements, and
+// its twiddle is psi_br[(M0 << l) + b] with M0 = n / (2T) + g0, the
+// butterfly of fwd_ntt_smem's stage m = n / (2t), group g = (g0 << l) + b.
+// So the pass loads G - 1 twiddle pairs for L * G / 2 butterflies, and the
+// output bits are those of the one-stage sweep.
+//
+// Passes.  The first and the last pass have kRegLog stages; where kRegLog
+// does not divide log n, the second pass takes the log n mod kRegLog
+// stages left over (for log n < 2 kRegLog: a full pass, then the rest).
+// The first pass gets its group from `in(x, base, logs)`, which fills x[i]
+// with element base + (i << logs) (natural order for the forward
+// transform), and the last hands its group to `out(x, base, logs)` (the
+// inverse's already times n_inv), so a caller fuses its load and its
+// epilogue into the sweep, a whole group at a time; the passes between use
+// a[], a row padded to padded(n) words, element j at j + j / 32.  The
+// padding leaves every pass free of bank conflicts except one whose stride
+// s is 2 to 16 (two-way).
+//
+// Which thread gets what.  Thread t takes the groups grp = t,
+// t + blockDim.x, ... of every pass (of its share, where CTAs split the
+// row).  For log n >= 2 kRegLog, in the forward transform's last pass
+// (s = 1) group grp is the 16 consecutive elements from 16 grp; in the
+// inverse's (s = n / 16) it is grp + i * n / 16.  That mapping is the same
+// in every call with the same n and blockDim, so a caller that accumulates
+// through out() across calls reads and writes each element from one
+// thread; any other reader of what out() stored synchronises first.  Every
+// pass ends with a barrier, so a[] may be written again when the sweep
+// returns.  Needs log n > kRegLog; the wrappers pick blockDim
+// (ops/ntt_cuda.py, regs_threads).
+// ---------------------------------------------------------------------------
+
+constexpr int kRegLog = 4;
+
+__device__ __forceinline__ int padded_index(int j) { return j + (j >> 5); }
+__host__ __device__ constexpr int padded(int n) { return n + (n >> 5); }
+
+// A group from, and to, a padded shared row.
+struct SmemLoad {
+  const uint32_t* a;
+  template <int G>
+  __device__ __forceinline__ void operator()(uint32_t (&x)[G], int base, int logs) const {
+#pragma unroll
+    for (int i = 0; i < G; ++i) x[i] = a[padded_index(base + (i << logs))];
+  }
+};
+struct SmemStore {
+  uint32_t* a;
+  template <int G>
+  __device__ __forceinline__ void operator()(uint32_t (&x)[G], int base, int logs) const {
+#pragma unroll
+    for (int i = 0; i < G; ++i) a[padded_index(base + (i << logs))] = x[i];
+  }
+};
+
+// The twiddles w[idx .. idx + CNT) of one stage, CNT a power of two: a run
+// that starts at a multiple of CNT, so it is read with 16-byte (or 8-byte)
+// loads where CNT allows; every table row starts 16-byte aligned (the
+// wrappers check).
+template <int CNT>
+__device__ __forceinline__ void load_twiddles(const uint32_t* __restrict__ w, int idx,
+                                              uint32_t (&v)[CNT]) {
+  if constexpr (CNT >= 4) {
+#pragma unroll
+    for (int c = 0; c < CNT; c += 4) {
+      const uint4 t = __ldg(reinterpret_cast<const uint4*>(w + idx + c));
+      v[c] = t.x;
+      v[c + 1] = t.y;
+      v[c + 2] = t.z;
+      v[c + 3] = t.w;
+    }
+  } else if constexpr (CNT == 2) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(w + idx));
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = __ldg(w + idx);
+  }
+}
+
+// Stage l of a pass over the G coefficients x[] of one group: in each of
+// its 2^l sub-blocks b, pairs at distance G >> (l + 1), twiddle index
+// (m0 << l) + b.  Every bound is a template constant, so the loops unroll
+// fully and x[] stays in registers.
+template <int G, int l, bool INVERSE>
+__device__ __forceinline__ void ntt_regs_stage(uint32_t (&x)[G], int m0, uint32_t p,
+                                               const uint32_t* __restrict__ w,
+                                               const uint32_t* __restrict__ w_sh) {
+  constexpr int half = G >> (l + 1);
+  uint32_t wv[1 << l], ws[1 << l];
+  load_twiddles(w, m0 << l, wv);
+  load_twiddles(w_sh, m0 << l, ws);
+#pragma unroll
+  for (int b = 0; b < (1 << l); ++b) {
+#pragma unroll
+    for (int q = 0; q < half; ++q) {
+      const int i1 = 2 * b * half + q, i2 = i1 + half;
+      const uint32_t u = x[i1];
+      if (INVERSE) {
+        const uint32_t v = x[i2];
+        x[i1] = add_mod(u, v, p);
+        x[i2] = mul_shoup(sub_mod(u, v, p), wv[b], ws[b], p);
+      } else {
+        const uint32_t v = mul_shoup(x[i2], wv[b], ws[b], p);
+        x[i1] = add_mod(u, v, p);
+        x[i2] = sub_mod(u, v, p);
+      }
+    }
+  }
+}
+
+// Stages s, s + 1, ..., L - 1 of a pass, in the order of the transform:
+// l = s for the forward one (distance T down), l = L - 1 - s for the
+// inverse (distance up to T).
+template <int G, int L, int s, bool INVERSE>
+__device__ __forceinline__ void ntt_regs_stages(uint32_t (&x)[G], int m0, uint32_t p,
+                                                const uint32_t* __restrict__ w,
+                                                const uint32_t* __restrict__ w_sh) {
+  if constexpr (s < L) {
+    ntt_regs_stage<G, INVERSE ? L - 1 - s : s, INVERSE>(x, m0, p, w, w_sh);
+    ntt_regs_stages<G, L, s + 1, INVERSE>(x, m0, p, w, w_sh);
+  }
+}
+
+// One pass of L stages with largest distance 2^logT over an n-point row,
+// by CTA h of the 2^logH that share the row: it takes the h-th 2^-logH of
+// the pass's groups.
+template <int L, bool INVERSE, class In, class Out>
+__device__ __forceinline__ void ntt_regs_pass(int logn, int logT, uint32_t p,
+                                              const uint32_t* __restrict__ w,
+                                              const uint32_t* __restrict__ w_sh, In in,
+                                              Out out, int h, int logH) {
+  constexpr int G = 1 << L;
+  const int logs = logT + 1 - L;
+  const int per = 1 << (logn - L - logH);
+  for (int grp = h * per + threadIdx.x; grp < (h + 1) * per; grp += blockDim.x) {
+    const int g0 = grp >> logs;
+    const int base = (g0 << (logT + 1)) | (grp & ((1 << logs) - 1));
+    uint32_t x[G];
+    in(x, base, logs);
+    ntt_regs_stages<G, L, 0, INVERSE>(x, (1 << (logn - 1 - logT)) + g0, p, w, w_sh);
+    out(x, base, logs);
+  }
+  __syncthreads();
+}
+
+// A pass of L = 1 .. kRegLog stages chosen at run time.
+template <bool INVERSE, class In, class Out>
+__device__ __forceinline__ void ntt_regs_any(int L, int logn, int logT, uint32_t p,
+                                             const uint32_t* __restrict__ w,
+                                             const uint32_t* __restrict__ w_sh, In in,
+                                             Out out, int h, int logH) {
+  static_assert(kRegLog == 4, "ntt_regs_any lists the pass sizes 1..4");
+  switch (L) {
+    case 1: ntt_regs_pass<1, INVERSE>(logn, logT, p, w, w_sh, in, out, h, logH); break;
+    case 2: ntt_regs_pass<2, INVERSE>(logn, logT, p, w, w_sh, in, out, h, logH); break;
+    case 3: ntt_regs_pass<3, INVERSE>(logn, logT, p, w, w_sh, in, out, h, logH); break;
+    default: ntt_regs_pass<4, INVERSE>(logn, logT, p, w, w_sh, in, out, h, logH); break;
+  }
+}
+
+// A row shared by H = 2^logH CTAs of a cluster (H = 1: one CTA).  CTA h
+// runs the h-th 2^-logH of every pass's groups.  The first pass of the
+// forward transform splits the row by column (element j goes with column
+// j mod n/16 and CTA (j >> (log n - 4 - logH)) mod H); every later pass
+// keeps to blocks of at most n/16 elements, and CTA h's groups are then those
+// of positions [h n/H, (h+1) n/H).  So the second pass reads each element
+// from its column's CTA, after a cluster barrier, and writes its own
+// positions, which no peer reads; the forward result of positions
+// [h n/H, (h+1) n/H) stays with CTA h.  The inverse mirrors it: every pass
+// but the last keeps to CTA h's positions, and the last (the top kRegLog
+// stages, across the row) reads each element from the CTA of its position,
+// after a cluster barrier.  `peer[c]` is CTA c's a[] (distributed shared
+// memory), `sync` the cluster barrier; for H = 1 neither is used.
+template <int H>
+struct RowSplit {
+  const uint32_t* peer[H];
+  int h;
+};
+
+// A group from the padded rows of the CTAs sharing a row: element j from
+// peer[(j >> shift) & (H - 1)].  The pointers are picked with constant
+// indices, so they stay in registers.
+template <int H>
+struct PeerLoad {
+  RowSplit<H> sp;
+  int shift;
+  template <int G>
+  __device__ __forceinline__ void operator()(uint32_t (&x)[G], int base, int logs) const {
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int j = base + (i << logs);
+      const int owner = (j >> shift) & (H - 1);
+      const uint32_t* src = sp.peer[0];
+#pragma unroll
+      for (int c = 1; c < H; ++c)
+        if (owner == c) src = sp.peer[c];
+      x[i] = src[padded_index(j)];
+    }
+  }
+};
+
+template <int H>
+__device__ __forceinline__ auto split_load(const RowSplit<H>& sp, uint32_t* a, int shift) {
+  if constexpr (H == 1)
+    return SmemLoad{a};
+  else
+    return PeerLoad<H>{sp, shift};
+}
+
+template <int H>
+__host__ __device__ constexpr int log2_of() {
+  static_assert(H >= 1 && H <= 16 && (H & (H - 1)) == 0, "H: a power of two up to 16");
+  if constexpr (H == 1)
+    return 0;
+  else
+    return 1 + log2_of<H / 2>();
+}
+
+// Forward negacyclic NTT of one row, merged-psi Cooley-Tukey, natural order
+// in (through in), bit-reversed order out (through out); a[] holds the
+// passes between.  Passes from distance n/2 down.
+template <int H, class In, class Out, class Sync>
+__device__ __forceinline__ void fwd_ntt_regs_split(uint32_t* a, const RowSplit<H>& sp,
+                                                   Sync sync, int logn, uint32_t p,
+                                                   const uint32_t* __restrict__ w,
+                                                   const uint32_t* __restrict__ w_sh, In in,
+                                                   Out out) {
+  constexpr int logH = log2_of<H>();
+  const int h = sp.h;
+  const int rem = logn % kRegLog;
+  ntt_regs_pass<kRegLog, false>(logn, logn - 1, p, w, w_sh, in, SmemStore{a}, h, logH);
+  if constexpr (H > 1) sync();
+  const auto by_column = split_load(sp, a, logn - kRegLog - logH);
+  int logT = logn - 1 - kRegLog;
+  int left = logn - kRegLog;            // stages still to run
+  const int second = logn < 2 * kRegLog ? left : rem ? rem : kRegLog;
+  if (second == left) {
+    ntt_regs_any<false>(second, logn, logT, p, w, w_sh, by_column, out, h, logH);
+    return;
+  }
+  ntt_regs_any<false>(second, logn, logT, p, w, w_sh, by_column, SmemStore{a}, h, logH);
+  logT -= second;
+  left -= second;
+  for (; left > kRegLog; logT -= kRegLog, left -= kRegLog)
+    ntt_regs_pass<kRegLog, false>(logn, logT, p, w, w_sh, SmemLoad{a}, SmemStore{a}, h,
+                                  logH);
+  ntt_regs_pass<kRegLog, false>(logn, logT, p, w, w_sh, SmemLoad{a}, out, h, logH);
+}
+
+// Inverse: Gentleman-Sande, bit-reversed in (through in), natural out,
+// each result times n_inv (n^-1, or t * n^-1 with the multiply's tables)
+// before out.  Passes from distance 1 up.
+template <int H, class In, class Out, class Sync>
+__device__ __forceinline__ void inv_ntt_regs_split(uint32_t* a, const RowSplit<H>& sp,
+                                                   Sync sync, int logn, uint32_t p,
+                                                   const uint32_t* __restrict__ w,
+                                                   const uint32_t* __restrict__ w_sh,
+                                                   uint32_t n_inv, uint32_t n_inv_sh, In in,
+                                                   Out out) {
+  constexpr int logH = log2_of<H>();
+  const int h = sp.h;
+  auto scaled = [&](auto& x, int base, int logs) {
+#pragma unroll
+    for (int i = 0; i < static_cast<int>(sizeof(x) / sizeof(x[0])); ++i)
+      x[i] = mul_shoup(x[i], n_inv, n_inv_sh, p);
+    out(x, base, logs);
+  };
+  const auto by_position = split_load(sp, a, logn - logH);
+  const int rem = logn % kRegLog;
+  ntt_regs_pass<kRegLog, true>(logn, kRegLog - 1, p, w, w_sh, in, SmemStore{a}, h, logH);
+  if (logn < 2 * kRegLog) {
+    if constexpr (H > 1) sync();
+    ntt_regs_any<true>(logn - kRegLog, logn, logn - 1, p, w, w_sh, by_position, scaled, h,
+                       logH);
+    return;
+  }
+  int lo = kRegLog;                     // the lowest stage not yet run
+  if (rem) {
+    ntt_regs_any<true>(rem, logn, lo + rem - 1, p, w, w_sh, SmemLoad{a}, SmemStore{a}, h,
+                       logH);
+    lo += rem;
+  }
+  for (; lo + kRegLog < logn; lo += kRegLog)
+    ntt_regs_pass<kRegLog, true>(logn, lo + kRegLog - 1, p, w, w_sh, SmemLoad{a},
+                                 SmemStore{a}, h, logH);
+  if constexpr (H > 1) sync();
+  ntt_regs_pass<kRegLog, true>(logn, logn - 1, p, w, w_sh, by_position, scaled, h, logH);
+}
+
+struct NoSync {
+  __device__ __forceinline__ void operator()() const {}
+};
+
+// The sweeps of a row that one CTA holds alone.
+template <class In, class Out>
+__device__ __forceinline__ void fwd_ntt_regs(uint32_t* a, int logn, uint32_t p,
+                                             const uint32_t* __restrict__ w,
+                                             const uint32_t* __restrict__ w_sh, In in,
+                                             Out out) {
+  fwd_ntt_regs_split<1>(a, RowSplit<1>{{a}, 0}, NoSync{}, logn, p, w, w_sh, in, out);
+}
+
+template <class In, class Out>
+__device__ __forceinline__ void inv_ntt_regs(uint32_t* a, int logn, uint32_t p,
+                                             const uint32_t* __restrict__ w,
+                                             const uint32_t* __restrict__ w_sh,
+                                             uint32_t n_inv, uint32_t n_inv_sh, In in,
+                                             Out out) {
+  inv_ntt_regs_split<1>(a, RowSplit<1>{{a}, 0}, NoSync{}, logn, p, w, w_sh, n_inv, n_inv_sh,
+                        in, out);
 }
 
 }  // namespace fhe

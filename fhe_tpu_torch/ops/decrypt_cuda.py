@@ -18,8 +18,9 @@ from . import modmath as mm
 from . import ntt as _ntt
 from . import rns as _rns
 from .ntt import NTTTables
-from .ntt_cuda import (check_barrett, check_residues, check_smem, log2_exact,
-                       on_card, table_ptrs)
+from .ntt_cuda import (MAX_GRID_Y, check_aligned_tables, check_barrett,
+                       check_residues, check_smem, log2_exact, on_card,
+                       regs_threads, table_ptrs)
 
 _P = ctypes.c_void_p
 _U = ctypes.c_uint32
@@ -31,9 +32,28 @@ _L = ctypes.c_longlong
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decrypt")
     lib.fhe_decrypt_fused.argtypes = ([_P] * 2 + [_L] * 2 + [_P] * 15 + [_U] * 10
-                                      + [_I] * 3 + [_P])
+                                      + [_I] * 6 + [_P])
     lib.fhe_decrypt_fused.restype = ctypes.c_int
     return lib
+
+
+# the largest portable cluster
+MAX_CLUSTER = 8
+
+
+def decrypt_geometry(n: int, k: int, batch: int = 1) -> dict:
+    """Launch shape of ``decrypt_fused`` for B = ``batch`` ciphertext rows
+    over k primes: one cluster of C = min(k, 8) CTAs per row, CTA r taking
+    the primes r, r + C, ... (``primes_per_cta`` at most) and, after the
+    cluster barrier, the epilogue of n / C coefficients; three padded rows
+    of shared memory per CTA.  Raise where that does not fit the card."""
+    name = "decrypt_fused"
+    if k < 1 or not 1 <= batch <= MAX_GRID_Y:
+        raise ValueError(f"{name}: k={k}, batch {batch} outside 1..{MAX_GRID_Y}")
+    c = min(k, MAX_CLUSTER)
+    return {"grid": (c, batch), "cluster": (c, 1, 1), "ctas": c * batch,
+            "primes_per_cta": -(-k // c), "threads": regs_threads(n, name),
+            "smem": check_smem(n, 3, name, padded=True)}
 
 
 def decrypt_fused_plain(c0: torch.Tensor, c1: torch.Tensor, s_ntt: torch.Tensor,
@@ -67,8 +87,11 @@ def decrypt_fused(c0: torch.Tensor, c1: torch.Tensor, s_ntt: torch.Tensor,
     if not on_card(c0, "decrypt_fused"):
         return decrypt_fused_plain(c0, c1, s_ntt, tb, dc)
     check_barrett(tb, "decrypt_fused")
+    check_aligned_tables(tb, "decrypt_fused")
+    if s_ntt.data_ptr() % 16:
+        raise ValueError("decrypt_fused: s_ntt is not 16-byte aligned")
     k, batch, n = c0.shape
-    check_smem(n, 3, "decrypt_fused")
+    geo = decrypt_geometry(n, k, batch)
     out = torch.empty((batch, n), dtype=torch.int32, device=c0.device)
     p = _build.ptr
     _build.launch(
@@ -78,7 +101,8 @@ def decrypt_fused(c0: torch.Tensor, c1: torch.Tensor, s_ntt: torch.Tensor,
         p(dc.phat_mod_t), p(dc.phat_shoup_t), p(dc.phat_mod_g),
         dc.t, dc.gamma, dc.gamma_mu, dc.neg_inv_q_t, dc.neg_inv_q_t_shoup,
         dc.neg_inv_q_g, dc.inv_gamma_t, dc.inv_gamma_t_shoup, dc.gamma_mod_t,
-        dc.one_shoup_t, k, batch, log2_exact(n))
+        dc.one_shoup_t, k, batch, log2_exact(n), geo["cluster"][0], geo["threads"],
+        geo["smem"])
     decrypt_fused.launches += 1
     return out
 

@@ -34,6 +34,8 @@ _L = ctypes.c_longlong
 # the kernel keeps a polynomial (or two, for mul_by_ntt_operand) in shared
 # memory; a block may use at most 227 KB of it on Hopper
 MAX_SMEM = 232448
+# the largest grid y extent, which the cluster kernels give to the batch
+MAX_GRID_Y = 65535
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,12 +90,47 @@ def on_card(x: torch.Tensor, name: str) -> bool:
     raise ValueError(f"{name}: unsupported device {x.device}")
 
 
-def check_smem(n: int, polys: int, name: str) -> None:
-    """Raise unless ``polys`` polynomials of n residues fit one block's
-    shared memory."""
-    if polys * 4 * n > MAX_SMEM:
-        raise ValueError(f"{name}: n={n} needs {polys * 4 * n} bytes of shared "
+# the register-blocked sweep of csrc/modmath.cuh (kRegLog): 2^REG_LOG
+# coefficients per thread and pass, rows padded by one word in 32
+REG_LOG = 4
+
+
+def row_bytes(n: int, padded: bool = False) -> int:
+    """Shared-memory bytes of one row of n residues; ``padded`` for the
+    register-blocked sweep's rows (element j at j + j // 32)."""
+    return 4 * (n + n // 32 if padded else n)
+
+
+def check_smem(n: int, polys: int, name: str, padded: bool = False) -> int:
+    """Raise unless ``polys`` rows of n residues (padded ones with
+    ``padded``) fit one block's shared memory; return their bytes."""
+    nbytes = polys * row_bytes(n, padded)
+    if nbytes > MAX_SMEM:
+        raise ValueError(f"{name}: n={n} needs {nbytes} bytes of shared "
                          f"memory per block, more than {MAX_SMEM}")
+    return nbytes
+
+
+def check_aligned_tables(tb: NTTTables, name: str) -> None:
+    """Raise unless every twiddle table starts 16-byte aligned, as the
+    register-blocked sweep's vector loads of twiddle runs need (fresh
+    tables and their row views are)."""
+    for f in ("psi_br", "psi_br_shoup", "ipsi_br", "ipsi_br_shoup"):
+        if getattr(tb, f).data_ptr() % 16:
+            raise ValueError(f"{name}: table {f} is not 16-byte aligned")
+
+
+def regs_threads(n: int, name: str, split: int = 1) -> int:
+    """Threads per CTA of a kernel that runs the register-blocked sweep on
+    one row of n, or on its 1/split share where ``split`` CTAs share the
+    row: one group of 2^REG_LOG coefficients per thread and full pass, at
+    least a warp and at most 512.  Raise for n below 2^(REG_LOG+1), which
+    the sweep does not take."""
+    logn = log2_exact(n)
+    if logn <= REG_LOG:
+        raise ValueError(f"{name}: n={n} is below {2 << REG_LOG}, the smallest "
+                         "ring the register-blocked sweep takes")
+    return min(max((n >> REG_LOG) // split, 32), 512)
 
 
 def check_barrett(tb: NTTTables, name: str) -> None:

@@ -20,8 +20,9 @@ import torch
 from . import _build
 from . import rns as _rns
 from .ntt import NTTTables
-from .ntt_cuda import (check_barrett, check_smem, check_views, log2_exact,
-                       on_card, table_ptrs)
+from .ntt_cuda import (MAX_GRID_Y, check_aligned_tables, check_barrett,
+                       check_smem, check_views, log2_exact, on_card,
+                       regs_threads, table_ptrs)
 
 _P = ctypes.c_void_p
 _U = ctypes.c_uint32
@@ -33,7 +34,7 @@ _L = ctypes.c_longlong
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rns")
     lib.fhe_bsk_branch.argtypes = ([_P] + [_I] * 3 + [_P] + [_I] * 3 + [_P] * 11
-                                   + [_U] + [_P] * 14 + [_I] * 4 + [_P])
+                                   + [_U] + [_P] * 14 + [_I] * 6 + [_P])
     lib.fhe_fast_bconv_sk.argtypes = ([_P] * 12 + [_U] * 3 + [_I] * 2 + [_L]
                                       + [_P])
     lib.fhe_sm_mrq.argtypes = [_P] * 13 + [_U] + [_I] * 3 + [_P]
@@ -62,6 +63,29 @@ def _check_bsk_consts(sc: _rns.SmMRqConsts, fc: _rns.FastFloorConsts,
         raise ValueError(f"{name}: tensors on different devices")
 
 
+# bsk_branch_fused: the CTAs that share an input row's transforms
+# (csrc/rns.cu, kRowSplit), and the rows a0, a1, b0, b1
+BSK_ROW_SPLIT = 2
+BSK_CLUSTER = 4 * BSK_ROW_SPLIT
+
+
+def bsk_branch_geometry(n: int, kb: int, batch: int = 1) -> dict:
+    """Launch shape of ``bsk_branch_fused`` for B = ``batch`` elements and
+    kb Bsk primes: one cluster of 8 CTAs per (element, Bsk prime), two per
+    input row, which share the row's lift and forward transform and, for
+    rows 0 to 2, its product row's inverse transform and floor; two padded
+    rows of shared memory per CTA.  Raise where that does not fit the
+    card."""
+    name = "bsk_branch_fused"
+    if not 1 <= batch <= MAX_GRID_Y:
+        raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y}")
+    return {"grid": (BSK_CLUSTER, batch, kb), "cluster": (BSK_CLUSTER, 1, 1),
+            "ctas": BSK_CLUSTER * batch * kb, "ctas_per_prime": BSK_CLUSTER,
+            "ctas_per_row": BSK_ROW_SPLIT,
+            "threads": regs_threads(n, name, BSK_ROW_SPLIT),
+            "smem": check_smem(n, 2, name, padded=True)}
+
+
 def _bsk_branch_launch(ab: torch.Tensor, tx_q: torch.Tensor,
                        sc: _rns.SmMRqConsts, fc: _rns.FastFloorConsts,
                        tb_bsk: NTTTables, name: str) -> torch.Tensor:
@@ -70,7 +94,8 @@ def _bsk_branch_launch(ab: torch.Tensor, tx_q: torch.Tensor,
     k, _, batch, n = ab.shape
     kb = tb_bsk.k
     check_barrett(tb_bsk, name)
-    check_smem(n, 4, name)
+    check_aligned_tables(tb_bsk, name)
+    geo = bsk_branch_geometry(n, kb, batch)
     for x in (ab, tx_q):                   # the kernel indexes with 32-bit strides
         if sum((d - 1) * st for d, st in zip(x.shape, x.stride())) >= 1 << 31:
             raise ValueError(f"{name}: tensor too large for 32-bit offsets")
@@ -85,7 +110,8 @@ def _bsk_branch_launch(ab: torch.Tensor, tx_q: torch.Tensor,
         p(sc.q_shoup_dst), p(sc.inv_mt_dst), p(sc.inv_mt_shoup_dst),
         sc.inv_q_mt, p(fc.conv.inv_phat), p(fc.conv.inv_phat_shoup),
         p(fc.conv.phat_mod_dst), p(fc.conv.phat_shoup_dst), p(fc.inv_q_dst),
-        p(fc.inv_q_shoup_dst), *table_ptrs(tb_bsk), k, kb, batch, log2_exact(n))
+        p(fc.inv_q_shoup_dst), *table_ptrs(tb_bsk), k, kb, batch, log2_exact(n),
+        geo["threads"], geo["smem"])
     return out
 
 
@@ -115,7 +141,7 @@ def bsk_branch_fused_batch(ab: torch.Tensor, tx_q: torch.Tensor,
                            sc: _rns.SmMRqConsts, fc: _rns.FastFloorConsts,
                            tb_bsk: NTTTables) -> torch.Tensor:
     """``bsk_branch_fused`` for B ciphertext pairs in one launch of B * kb
-    blocks: ab [k, 4, B, n] and tx_q [k, 3, B, n], each with rows of n
+    clusters: ab [k, 4, B, n] and tx_q [k, 3, B, n], each with rows of n
     contiguous (views of per-ciphertext stacks are read in place).  Returns
     [kb, 3, B, n], slice b equal to
     ``bsk_branch_fused(ab[:, :, b], tx_q[:, :, b])``."""

@@ -1,0 +1,85 @@
+"""Launch geometry of the cluster kernels, on the host: bsk_branch_fused
+(B5) and decrypt_fused (B8).
+
+The wrappers choose each launch's shape in plain Python (the C entry points
+take it as given), so the choices are held here without a card: B8's
+cluster size and primes per CTA, B5's CTAs per prime, threads and shared
+memory per CTA, and the shared-memory checks that decide which n each
+kernel takes.  tests/test_torch_cuda.py runs the kernels themselves."""
+
+import pytest
+
+from fhe_tpu_torch.ops import decrypt_cuda, ntt_cuda, rns_cuda
+
+MAX_SMEM = ntt_cuda.MAX_SMEM
+
+
+@pytest.mark.parametrize("k", range(1, 17))
+def test_decrypt_cluster_takes_every_prime_once(k):
+    """C = min(k, 8) CTAs per ciphertext row; CTA r takes the primes
+    r, r + C, ...: every prime exactly once, no CTA without one, and at most
+    primes_per_cta each."""
+    geo = decrypt_cuda.decrypt_geometry(8192, k, batch=3)
+    c = min(k, 8)
+    assert geo["cluster"] == (c, 1, 1) and geo["grid"] == (c, 3)
+    assert geo["ctas"] == 3 * c
+    taken = [list(range(r, k, c)) for r in range(c)]
+    assert sorted(i for primes in taken for i in primes) == list(range(k))
+    assert min(map(len, taken)) >= 1
+    assert max(map(len, taken)) == geo["primes_per_cta"] == -(-k // c)
+
+
+@pytest.mark.parametrize("n", [256, 1024, 4096, 8192, 16384])
+def test_bsk_branch_cluster_per_prime(n):
+    """A cluster of 8 CTAs, two per input row, for each (element, Bsk
+    prime), each with two padded rows of shared memory and a thread per
+    group of 16 of its half row."""
+    geo = rns_cuda.bsk_branch_geometry(n, kb=5, batch=8)
+    assert geo["cluster"] == (8, 1, 1) and geo["ctas_per_prime"] == 8
+    assert geo["ctas_per_row"] == 2
+    assert geo["grid"] == (8, 8, 5) and geo["ctas"] == 8 * 8 * 5
+    assert geo["smem"] == 2 * 4 * (n + n // 32) <= MAX_SMEM
+    assert geo["threads"] == min(max(n // 32, 32), 512)
+
+
+def test_n32768_does_not_fit_either_kernel():
+    with pytest.raises(ValueError, match="bsk_branch_fused: n=32768"):
+        rns_cuda.bsk_branch_geometry(32768, kb=5)
+    with pytest.raises(ValueError, match="decrypt_fused: n=32768"):
+        decrypt_cuda.decrypt_geometry(32768, k=3)
+
+
+def test_n16384_fits_b5_and_b8_but_not_tensor_product():
+    """At n = 16384, B5's two and B8's three padded rows fit a CTA; the
+    four rows of tensor_product (B4), the check its wrapper makes before
+    each launch, do not."""
+    assert rns_cuda.bsk_branch_geometry(16384, kb=5)["smem"] == 135168
+    assert decrypt_cuda.decrypt_geometry(16384, k=3)["smem"] == 202752
+    with pytest.raises(ValueError, match="tensor_product: n=16384"):
+        ntt_cuda.check_smem(16384, 4, "tensor_product")
+
+
+@pytest.mark.parametrize("n,threads,split_threads", [
+    (32, 32, 32), (256, 32, 32), (1024, 64, 32), (8192, 512, 256), (16384, 512, 512)])
+def test_register_sweep_threads(n, threads, split_threads):
+    """One group of 16 coefficients per thread and full pass, at least a
+    warp and at most 512 threads (up to 128 registers each); where two CTAs
+    share the row, one group of each CTA's half."""
+    assert ntt_cuda.regs_threads(n, "x") == threads
+    assert ntt_cuda.regs_threads(n, "x", split=2) == split_threads
+
+
+def test_register_sweep_needs_n_of_32():
+    for n in (2, 16):
+        with pytest.raises(ValueError, match="below 32"):
+            ntt_cuda.regs_threads(n, "decrypt_fused")
+    with pytest.raises(ValueError, match="power of two"):
+        ntt_cuda.regs_threads(24, "decrypt_fused")
+
+
+def test_batch_outside_the_grid_raises():
+    for batch in (0, 65536):
+        with pytest.raises(ValueError, match="batch"):
+            rns_cuda.bsk_branch_geometry(8192, kb=5, batch=batch)
+        with pytest.raises(ValueError, match="batch"):
+            decrypt_cuda.decrypt_geometry(8192, k=3, batch=batch)

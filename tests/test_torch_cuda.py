@@ -42,8 +42,8 @@ def _params(t=65537):
         poly_degree=N, log_q=90, hamming_weight=64, plain_modulus=t))
 
 
-def _residues(moduli, rows, dev):
-    a = np.stack([RNG.integers(0, p, (rows, N), dtype=np.uint32)
+def _residues(moduli, rows, dev, n=N):
+    a = np.stack([RNG.integers(0, p, (rows, n), dtype=np.uint32)
                   for p in moduli])
     return torch.from_numpy(a.astype(np.int32)).to(dev)
 
@@ -264,13 +264,18 @@ def test_automorphism_sum_kernel_matches_plain(ctx, dev):
                        tgalois.automorphism_fused_sum(x, hs, p, c0, base))
 
 
-def _params_k8():
-    """The JAX bench's k8_omega configuration; below 128-bit security at
-    n = 8192, as the bench accepts (its warning silenced here)."""
+def _quiet_params(n, log_q, **kw):
+    """Parameters below 128-bit security at this n are accepted here, as the
+    JAX bench accepts them (the warning silenced)."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        return make_scheme_params(SecurityParams(poly_degree=N, log_q=218, hamming_weight=64,
-                                                 ks_omega=2))
+        return make_scheme_params(SecurityParams(poly_degree=n, log_q=log_q,
+                                                 hamming_weight=64, **kw))
+
+
+def _params_k8():
+    """The JAX bench's k8_omega configuration."""
+    return _quiet_params(N, 218, ks_omega=2)
 
 
 @pytest.mark.parametrize("batch", [None, BATCH])
@@ -360,3 +365,71 @@ def test_leveled_multiply_on_card_matches_cpu(dev):
                        bfv.switch_relin_keys(cpu, rlk_cpu, 1).data)
     assert torch.equal(prod.data.cpu(),
                        bfv.multiply(cpu, to_cpu(a), to_cpu(b), rlk_cpu).data)
+
+
+# ---------------------------------------------------------------------------
+# bsk_branch_fused and decrypt_fused as thread-block clusters with the
+# register-blocked sweep: more primes, batches, level views, t = 786433,
+# n = 256 and n = 16384
+# ---------------------------------------------------------------------------
+
+
+# (n, log_q, t, level, batch): k = 8 (kb = 10), B = 8, level 1 (the Bsk
+# suffix starts mid-tensor), t = 786433 tables, n = 256 batched (k = 5, the
+# small path's multiply_batch), n = 16384 (the JAX bench's g_n16384)
+BSK_CASES = [(N, 218, 65537, 0, None), (N, 218, 65537, 0, BATCH), (N, 90, 65537, 1, None),
+             (N, 218, 65537, 2, BATCH), (N, 90, 786433, 0, None),
+             (N, 90, 786433, 0, BATCH), (256, 150, 65537, 1, BATCH),
+             (256, 150, 65537, 0, BATCH), (16384, 90, 65537, 0, None),
+             (16384, 90, 65537, 0, 2)]
+
+
+@pytest.mark.parametrize("n,log_q,t,level,batch", BSK_CASES)
+def test_bsk_branch_cluster_kernel_matches_plain(dev, n, log_q, t, level, batch):
+    ctx = make_context(_quiet_params(n, log_q, plain_modulus=t), device=dev)
+    qs = ctx.ntt_q.primes[:ctx.k - level]
+    tbsk = ctx.mul_levels[level][1]
+    sc, fc = ctx.smq_levels[level], ctx.floor_levels[level]
+    if batch is None:
+        ab, tx_q = _residues(qs, 4, dev, n), _residues(qs, 3, dev, n)
+        args = (ab, tx_q, sc, fc, tbsk)
+        assert torch.equal(rns_cuda.bsk_branch_fused(*args), trns.bsk_branch_fused(*args))
+    else:
+        # ab as views of a [B, k, 4, n] stack, as multiply_batch passes it
+        stack = _residues(qs, 4 * batch, dev, n).view(len(qs), batch, 4, n).transpose(0, 1)
+        ab = stack.contiguous().permute(1, 2, 0, 3)
+        tx_q = _residues(qs, 3 * batch, dev, n).view(len(qs), 3, batch, n)
+        args = (ab, tx_q, sc, fc, tbsk)
+        assert torch.equal(rns_cuda.bsk_branch_fused_batch(*args),
+                           trns.bsk_branch_fused_batch(*args))
+
+
+# (n, log_q, t, level, batch): k = 8 and k = 12 (more primes than a
+# cluster's 8 CTAs), B = 8, level 1 views, t = 786433, n = 16384, n = 256
+DEC_CASES = [(N, 218, 65537, 0, 1), (N, 360, 65537, 0, 1), (N, 360, 786433, 0, BATCH),
+             (N, 90, 65537, 1, 1), (N, 218, 65537, 3, BATCH), (N, 90, 786433, 0, BATCH),
+             (16384, 90, 65537, 0, 1), (16384, 90, 786433, 0, BATCH),
+             (256, 150, 65537, 2, BATCH)]
+
+
+@pytest.mark.parametrize("n,log_q,t,level,batch", DEC_CASES)
+def test_decrypt_cluster_kernel_matches_plain(dev, n, log_q, t, level, batch):
+    prm = _quiet_params(n, log_q, plain_modulus=t)
+    k = prm.k - level
+    tb = tntt.slice_tables(tntt.build_tables(n, prm.q_primes, dev), k)
+    dc = trns.make_decrypt(prm.q_primes[:k], t, prm.gamma, dev)
+    ct = _residues(tb.primes, 2 * batch, dev, n).view(k, batch, 2, n)
+    args = (ct[:, :, 0], ct[:, :, 1], _residues(tb.primes, 1, dev, n), tb, dc)
+    assert torch.equal(decrypt_cuda.decrypt_fused(*args),
+                       decrypt_cuda.decrypt_fused_plain(*args))
+
+
+def test_multiply_n16384_raises_in_tensor_product(dev):
+    """B5 and B8 fit at n = 16384; the multiply still stops in B4, whose
+    four rows per block do not."""
+    fhe = FHE(_quiet_params(16384, 90), seed=4, device=dev)
+    pk, sk = fhe.keygen()
+    ct = fhe.encrypt(fhe.encode([5, 10]), pk)
+    assert list(fhe.decode(fhe.decrypt(ct, sk))[:2]) == [5, 10]
+    with pytest.raises(ValueError, match="^tensor_product: n=16384"):
+        fhe.multiply_no_relin(ct, ct)
