@@ -11,10 +11,12 @@ Phases, each printing its own lines:
      0), with device times (CUDA
      events, median of 25 launches after warm-up), the plain version's time
      and the least time the card could take (bound); then the launch shape
-     of each cluster kernel (bsk_branch_fused, decrypt_fused: grid, cluster,
+     of each cluster kernel (mul_by_ntt_operand, tensor_product,
+     bsk_branch_fused, decrypt_fused and their batch forms: grid, cluster,
      CTAs, threads, shared memory) at n = 8192 and 16384, and n = 16384
-     (the JAX bench's g_n16384, log_q = 90): keygen, encrypt and decrypt
-     decode, and the multiply raises in tensor_product and nowhere else;
+     (the JAX bench's g_n16384, log_q = 90, k = 3, seed 4): the multiply at
+     ks_omega = 1 and 2 decodes [15, 60], equals the CPU plain path and
+     launched each of its kernels, with its device and wall ms;
   4. slice: the linear-ops main path through the FHE facade at n = 8192,
      log_q = 90 (k = 3), h = 64: keygen, encode, encrypt, add, add_plain and
      the 8-term resident plaintext multiply-accumulate, then decrypt and
@@ -83,11 +85,15 @@ them just after; each kernel of the path must have launched.  Phase 3 also
 runs the prereduced lanes at the omega path's k = 8, kd = 4, sm_mrq_fused
 and fast_floor_fused at n = 8192, k = 3 and at n = 256, k = 5,
 modmul_chain of every variant on a [256, 8192] block, and the cluster
-kernels around the main path: bsk_branch_fused (single and batched) at
-k = 8 (kb = 10), B = 8, level views (the Bsk suffix mid-tensor), t = 786433
-tables, n = 256 (k = 5, batched) and n = 16384, decrypt_fused at k = 8,
-k = 12 (more primes than a cluster's 8 CTAs), B = 8, level views,
-t = 786433, n = 256 and n = 16384.
+kernels around the main path: mul_by_ntt_operand and tensor_product (and
+their batch forms) at n = 256 (k = 5), 8192 and 16384, level views (level 1
+of k = 3, level 2 of k = 8, the Bsk suffix at n = 256), t = 786433 tables,
+B = 1, 2 and 8, mul_by_ntt_operand on strided component views with C = 1
+and 2; bsk_branch_fused (single and batched) at k = 8 (kb = 10), B = 8,
+level views (the Bsk suffix mid-tensor), t = 786433 tables, n = 256 (k = 5,
+batched) and n = 16384, decrypt_fused at k = 8, k = 12 (more primes than a
+cluster's 8 CTAs), B = 8, level views, t = 786433, n = 256 and n = 16384;
+and keyswitch_fused (both lanes, single and batched) at n = 16384.
 The line before the last is {"kernels": [...]}, each kernel with its launches
 on its own path (phase 4 to 11); the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; without
@@ -333,15 +339,16 @@ def ntt_work(k: int, batch: int, inverse: bool) -> tuple[float, float]:
     return 4 * (2 * k * batch * N + 2 * k * N), ops
 
 
-def mul_work(k: int, c: int, batch: int = 1) -> tuple[float, float]:
-    """u [k, batch, N] and the shared w [k, c, N] in, [k, c, batch, N] out,
+def mul_work(k: int, c: int, batch: int = 1, n: int = N) -> tuple[float, float]:
+    """u [k, batch, n] and the shared w [k, c, n] in, [k, c, batch, n] out,
     forward and inverse tables; per element and prime one forward sweep,
-    then c products and inverse sweeps."""
-    logn = N.bit_length() - 1
-    nbytes = 4 * (batch * k * N + k * c * N + batch * k * c * N + 4 * k * N)
-    ops = batch * k * ((N // 2) * logn * OPS_BUTTERFLY
-                       + c * (N * OPS["mul_barrett"] + (N // 2) * logn * OPS_BUTTERFLY
-                              + N * OPS["mul_shoup"]))
+    then c products and inverse sweeps (the kernel repeats the forward sweep
+    for each c: not counted)."""
+    logn = n.bit_length() - 1
+    nbytes = 4 * (batch * k * n + k * c * n + batch * k * c * n + 4 * k * n)
+    ops = batch * k * ((n // 2) * logn * OPS_BUTTERFLY
+                       + c * (n * OPS["mul_barrett"] + (n // 2) * logn * OPS_BUTTERFLY
+                              + n * OPS["mul_shoup"]))
     return nbytes, ops
 
 
@@ -373,11 +380,11 @@ def product_ops(n: int = N) -> float:
     return n * (4 * OPS["mul_barrett"] + OPS["add_mod"])
 
 
-def tensor_product_work(k: int, batch: int = 1) -> tuple[float, float]:
-    """x, y [k, 2, batch, N] in, [k, 3, batch, N] out, forward and inverse
+def tensor_product_work(k: int, batch: int = 1, n: int = N) -> tuple[float, float]:
+    """x, y [k, 2, batch, n] in, [k, 3, batch, n] out, forward and inverse
     tables."""
-    nbytes = 4 * (batch * (4 * k * N + 3 * k * N) + 4 * k * N)
-    return nbytes, batch * k * (sweeps_ops(4, 3) + product_ops())
+    nbytes = 4 * (batch * (4 * k * n + 3 * k * n) + 4 * k * n)
+    return nbytes, batch * k * (sweeps_ops(4, 3, n) + product_ops(n))
 
 
 def bsk_branch_work(k: int, kb: int, batch: int = 1, n: int = N) -> tuple[float, float]:
@@ -412,17 +419,17 @@ def fast_bconv_sk_work(kb: int, k: int, batch: int) -> tuple[float, float]:
     return 4 * (kb * m + k * m), ops
 
 
-def keyswitch_work(k: int, kd: int, batch: int = 1,
-                   prereduced: bool = False) -> tuple[float, float]:
-    """d [kd, batch, N] (prereduced: [k, kd, batch, N]) and the shared keys
-    [k, kd, 2, N] in, [k, 2, batch, N] out, q tables.  Per element and
+def keyswitch_work(k: int, kd: int, batch: int = 1, prereduced: bool = False,
+                   n: int = N) -> tuple[float, float]:
+    """d [kd, batch, n] (prereduced: [k, kd, batch, n]) and the shared keys
+    [k, kd, 2, n] in, [k, 2, batch, n] out, q tables.  Per element and
     prime: kd reductions (none when prereduced) and forward sweeps, 2 kd key
     products and sums, and a 2-row inverse sweep."""
     o = OPS
-    per_prime = ((0 if prereduced else kd * N * o["reduce_barrett"]) + sweeps_ops(kd, 2)
-                 + 2 * kd * N * (o["mul_barrett"] + o["add_mod"]))
-    digits = (k if prereduced else 1) * kd * N
-    nbytes = 4 * (batch * (digits + 2 * k * N) + 2 * k * kd * N + 4 * k * N)
+    per_prime = ((0 if prereduced else kd * n * o["reduce_barrett"]) + sweeps_ops(kd, 2, n)
+                 + 2 * kd * n * (o["mul_barrett"] + o["add_mod"]))
+    digits = (k if prereduced else 1) * kd * n
+    nbytes = 4 * (batch * (digits + 2 * k * n) + 2 * k * kd * n + 4 * k * n)
     return nbytes, batch * k * per_prime
 
 
@@ -755,11 +762,9 @@ def phase_kernels(gen: torch.Generator) -> dict:
                   lambda: rns_cuda.fast_floor_fused(txq_s, txb_s, fc_s),
                   lambda: rns.fast_floor(txq_s, txb_s, fc_s),
                   fast_floor_work(4, len(bsk_s), 3 * 256)))
-    # the cluster kernels B5 and B8 around the main path's shapes: more
-    # primes (k = 8, kb = 10; B8 at k = 12, more primes than a cluster's 8
-    # CTAs), level-1 views (the Bsk suffix mid-tensor), t = 786433 tables,
-    # batched B5 at n = 256 (k = 5) and both alone at n = 16384 (k = 3, the
-    # JAX bench's g_n16384)
+    # the cluster kernels B3/B13, B4/B11, B5 and B8 around the main path's
+    # shapes (n = 256, 16384, level views, t = 786433, batches), and B7/B12
+    # at n = 16384
     cases += cluster_cases(gen, ctx, ctx_s)
     # the modmul roofline probe (B19) on the JAX bench's [256, 8192] block
     x_m, consts = chain_input(gen, ctx)
@@ -824,14 +829,118 @@ def decrypt_case(gen: torch.Generator, prm, level: int, batch: int, label: str):
             lambda: decrypt_cuda.decrypt_fused_plain(*args), decrypt_work(k, batch, n))
 
 
+def level_tables(ctx, level: int, kind: str):
+    """The level-L tables a path passes: "q" the q primes' row views (encrypt,
+    decrypt), "mul" the t-folded q tables (the multiply), "bsk" the t-folded
+    Bsk suffix, mid-tensor (the n < 1024 multiply)."""
+    if kind == "q":
+        return plain_ntt.slice_tables(ctx.ntt_q, ctx.k - level)
+    return ctx.mul_levels[level][0 if kind == "mul" else 1]
+
+
+def mul_case(gen: torch.Generator, ctx, level: int, kind: str, c: int, batch: int | None,
+             label: str):
+    """A mul_by_ntt_operand case (batch None) or a mul_by_ntt_operand_batch
+    one, u read in place as one component of a [k, B, 2, n] stack (the
+    decrypt of a 3-component ciphertext passes such a view)."""
+    tb, n = level_tables(ctx, level, kind), ctx.n
+    rows = batch or 1
+    u = residues(gen, tb.primes, 2 * rows, n).view(tb.k, rows, 2, n)[:, :, 1]
+    w = residues(gen, tb.primes, c, n)
+    name = "mul_by_ntt_operand" if batch is None else "mul_by_ntt_operand_batch"
+    return (name, f"{label}: u views of [{tb.k},{rows},2,{n}], w [{tb.k},{c},{n}]",
+            lambda: getattr(ntt_cuda, name)(u, w, tb),
+            lambda: getattr(plain_ntt, name)(u, w, tb), mul_work(tb.k, c, rows, n))
+
+
+def product_case(gen: torch.Generator, ctx, level: int, kind: str, batch: int | None,
+                 label: str):
+    """A tensor_product case on two tensors (the multiply) or on the halves of
+    one [k, 4, n] tensor ("bsk": the n < 1024 multiply's Bsk side), or a
+    tensor_product_batch one on views of a [B, k, 4, n] stack."""
+    tb, n = level_tables(ctx, level, kind), ctx.n
+    if batch is None:
+        if kind == "bsk":
+            lift = residues(gen, tb.primes, 4, n)
+            x, y, what = lift[:, :2], lift[:, 2:], f"halves of [{tb.k},4,{n}]"
+        else:
+            x, y = residues(gen, tb.primes, 2, n), residues(gen, tb.primes, 2, n)
+            what = f"x, y [{tb.k},2,{n}]"
+        return ("tensor_product", f"{label}: {what}, {kind} tables",
+                lambda: ntt_cuda.tensor_product(x, y, tb),
+                lambda: plain_ntt.tensor_product(x, y, tb), tensor_product_work(tb.k, 1, n))
+    ab = residues(gen, tb.primes, 4 * batch, n).view(tb.k, batch, 4, n).transpose(0, 1)
+    ab = ab.contiguous().permute(1, 2, 0, 3)
+    return ("tensor_product_batch", f"{label}: views of [{batch},{tb.k},4,{n}], {kind} tables",
+            lambda: ntt_cuda.tensor_product_batch(ab[:, :2], ab[:, 2:], tb),
+            lambda: plain_ntt.tensor_product_batch(ab[:, :2], ab[:, 2:], tb),
+            tensor_product_work(tb.k, batch, n))
+
+
+def keyswitch_cases_n16384(gen: torch.Generator, ctx16) -> list:
+    """B7 and B12, three rows per block, at n = 16384 (the n = 16384
+    multiply's relinearization): kd = 3 digits, and the grouped gadget's
+    kd = 2 prereduced ones (ks_omega = 2)."""
+    n, tb = 16384, ctx16.ntt_q
+    qs, k = tb.primes, tb.k
+    cases = []
+    for prereduced, kd in ((False, 3), (True, 2)):
+        keys = torch.stack([residues(gen, qs, 2, n) for _ in range(kd)]).permute(1, 0, 2, 3)
+        if prereduced:
+            d = residues(gen, qs, kd * 2, n).view(k, kd, 2, n)
+        else:
+            d = torch.stack([residues(gen, (q,), 2, n)[0] for q in qs])     # [kd, 2, n]
+        lane = "prereduced " if prereduced else ""
+        for name, dd, batch in (("keyswitch_fused", d[..., 0, :], 1),
+                                ("keyswitch_fused_batch", d, 2)):
+            cases.append((name + ("_prereduced" if prereduced else ""),
+                          f"n=16384: {lane}d {list(dd.shape)}, keys [{k},{kd},2,{n}]",
+                          lambda f=getattr(ntt_cuda, name), dd=dd, keys=keys, pr=prereduced:
+                              f(dd, keys, tb, pr),
+                          lambda f=getattr(plain_ntt, name), dd=dd, keys=keys, pr=prereduced:
+                              f(dd, keys, tb, pr),
+                          keyswitch_work(k, kd, batch, prereduced, n)))
+    return cases
+
+
 def cluster_cases(gen: torch.Generator, ctx, ctx_s) -> list:
-    """B5 and B8 at k = 8, B = 8, level 1, t = 786433, n = 256 and
-    n = 16384 (B8 also at k = 12)."""
+    """The cluster kernels around the main path's shapes: B3/B13 and B4/B11
+    at n = 256 (k = 5), 8192 and 16384, level views (level 1 of k = 3, level
+    2 of k = 8; the Bsk suffix at n = 256), t = 786433 tables, B = 1, 2 and
+    8, B3 on strided views and with C = 1 and 2; B5 and B8 at k = 8, B = 8,
+    level 1, t = 786433, n = 256 and n = 16384 (B8 also at k = 12); B7 and
+    B12 at n = 16384, which they fit but no other case runs."""
     ctx8 = make_context(params_leveled(), device="cuda")
     ctx_t = make_context(quiet_params(N, LOG_Q, plain_modulus=786433), device="cuda")
     ctx16 = make_context(quiet_params(16384, LOG_Q), device="cuda")
+    ctx16_t = make_context(quiet_params(16384, LOG_Q, plain_modulus=786433), device="cuda")
     prm = ctx.params
-    return [bsk_case(gen, ctx8, 0, None, "k=8"),
+    return [mul_case(gen, ctx_s, 0, "q", 2, None, "n=256, k=5"),
+            mul_case(gen, ctx_s, 1, "mul", 1, BATCH, "level 1 of n=256, k=5"),
+            mul_case(gen, ctx, 0, "q", 1, None, "C=1"),
+            mul_case(gen, ctx, 1, "q", 2, None, "level 1 of k=3"),
+            mul_case(gen, ctx, 1, "q", 2, 2, "level 1 of k=3"),
+            mul_case(gen, ctx8, 2, "q", 2, None, "level 2 of k=8"),
+            mul_case(gen, ctx8, 2, "q", 1, BATCH, "level 2 of k=8"),
+            mul_case(gen, ctx_t, 0, "mul", 2, None, "t=786433"),
+            mul_case(gen, ctx_t, 0, "mul", 2, BATCH, "t=786433"),
+            mul_case(gen, ctx16, 0, "q", 2, None, "n=16384"),
+            mul_case(gen, ctx16, 0, "q", 1, 2, "n=16384"),
+            mul_case(gen, ctx16_t, 0, "mul", 2, BATCH, "n=16384, t=786433"),
+            product_case(gen, ctx_s, 0, "mul", None, "n=256, k=5"),
+            product_case(gen, ctx_s, 1, "bsk", None, "level 1 of n=256, k=5"),
+            product_case(gen, ctx_s, 1, "mul", BATCH, "level 1 of n=256, k=5"),
+            product_case(gen, ctx, 0, "q", None, "k=3"),
+            product_case(gen, ctx, 1, "mul", None, "level 1 of k=3"),
+            product_case(gen, ctx, 1, "mul", 2, "level 1 of k=3"),
+            product_case(gen, ctx8, 2, "mul", None, "level 2 of k=8"),
+            product_case(gen, ctx8, 2, "bsk", BATCH, "level 2 of k=8"),
+            product_case(gen, ctx_t, 0, "mul", None, "t=786433"),
+            product_case(gen, ctx_t, 0, "mul", BATCH, "t=786433"),
+            product_case(gen, ctx16, 0, "mul", None, "n=16384"),
+            product_case(gen, ctx16, 0, "mul", 2, "n=16384"),
+            product_case(gen, ctx16_t, 0, "mul", BATCH, "n=16384, t=786433"),
+            bsk_case(gen, ctx8, 0, None, "k=8"),
             bsk_case(gen, ctx8, 0, BATCH, "k=8"),
             bsk_case(gen, ctx, 1, None, "level 1 of k=3"),
             bsk_case(gen, ctx8, 2, BATCH, "level 2 of k=8"),
@@ -850,14 +959,21 @@ def cluster_cases(gen: torch.Generator, ctx, ctx_s) -> list:
             decrypt_case(gen, ctx_t.params, 0, BATCH, "k=3"),
             decrypt_case(gen, ctx_s.params, 2, BATCH, "level 2 of n=256, k=5"),
             decrypt_case(gen, ctx16.params, 0, 1, "n=16384"),
-            decrypt_case(gen, ctx16.params, 0, BATCH, "n=16384")]
+            decrypt_case(gen, ctx16.params, 0, BATCH, "n=16384")] + keyswitch_cases_n16384(
+                gen, ctx16)
 
 
 def phase_geometry() -> None:
     """The launch shape of each cluster kernel at the main path's shapes
-    (n = 8192, k = 3, kb = 5; B = 8) and at n = 16384."""
+    (n = 8192, k = 3, kb = 5; c = 2 operand rows; B = 8) and at n = 16384."""
     for n in (N, 16384):
-        for name, geo in (("bsk_branch_fused", rns_cuda.bsk_branch_geometry(n, 5)),
+        for name, geo in (("mul_by_ntt_operand", ntt_cuda.mul_by_ntt_operand_geometry(n, 3, 2)),
+                          ("mul_by_ntt_operand_batch",
+                           ntt_cuda.mul_by_ntt_operand_geometry(n, 3, 2, BATCH)),
+                          ("tensor_product", ntt_cuda.tensor_product_geometry(n, 3)),
+                          ("tensor_product_batch",
+                           ntt_cuda.tensor_product_geometry(n, 3, BATCH)),
+                          ("bsk_branch_fused", rns_cuda.bsk_branch_geometry(n, 5)),
                           ("bsk_branch_fused_batch",
                            rns_cuda.bsk_branch_geometry(n, 5, BATCH)),
                           ("decrypt_fused", decrypt_cuda.decrypt_geometry(n, 3)),
@@ -866,25 +982,47 @@ def phase_geometry() -> None:
             print(f"phase geometry {name} n={n}", json.dumps(geo))
 
 
+# the kernels of the n = 16384 multiply and of what makes and checks its
+# inputs; the key switch is the prereduced lane at ks_omega = 2
+N16384_KERNELS = ("ntt_forward", "mul_by_ntt_operand", "tensor_product", "bsk_branch_fused",
+                  "fast_bconv_sk_fused", "decrypt_fused")
+
+
 def phase_n16384() -> None:
-    """n = 16384 (the JAX bench's g_n16384: log_q = 90, k = 3): keygen,
-    encrypt and decrypt (B1, B3, B8) decode; the multiply raises in
-    tensor_product (B4), whose four rows per block do not fit, and nowhere
-    else (B5 at this n: phase 3)."""
-    fhe = FHE(quiet_params(16384, LOG_Q), seed=4, device="cuda")
-    pk, sk = fhe.keygen()
-    a = fhe.encrypt(fhe.encode([5, 10]), pk)
-    got = [int(v) for v in fhe.decode(fhe.decrypt(a, sk))[:2]]
-    check(got == [5, 10], f"n=16384 decrypt decoded {got}")
-    try:
-        fhe.multiply_no_relin(a, a)
-    except ValueError as err:
-        check(str(err).startswith("tensor_product: n=16384"),
-              f"n=16384 multiply raised outside tensor_product: {err}")
-        print(f"phase n16384 check: keygen, encrypt, decrypt decoded [5, 10]; the multiply "
-              f"raised in tensor_product only: {err}")
-    else:
-        raise RuntimeError("n=16384 multiply did not raise in tensor_product")
+    """n = 16384, the JAX bench's g_n16384 (bench.py:777-815: log_q = 90,
+    k = 3, seed 4) at ks_omega = 1 and 2: keygen, relinkey_gen, encrypt
+    [5, 10] and [3, 6], multiply; it decodes [15, 60] and equals the CPU
+    plain path bit for bit, and each kernel of the multiply launched.  Then
+    the multiply's device and wall ms under the bench's metric names."""
+    times = {}
+    for omega, metric in ((1, "multiply_relin_ms_n16384"),
+                          (2, "multiply_relin_ms_n16384_omega2")):
+        fhe = FHE(quiet_params(16384, LOG_Q, ks_omega=omega), seed=4, device="cuda")
+        reset_counts()
+        pk, sk = fhe.keygen()
+        rlk = fhe.relinkey_gen(sk)
+        a = fhe.encrypt(fhe.encode([5, 10]), pk)
+        b = fhe.encrypt(fhe.encode([3, 6]), pk)
+        prod = fhe.multiply(a, b, rlk)
+        got = [int(v) for v in fhe.decode(fhe.decrypt(prod, sk))[:2]]
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check(got == [15, 60], f"n=16384 multiply (ks_omega={omega}) decoded {got}")
+        for name in N16384_KERNELS + ("keyswitch_fused" if omega == 1
+                                      else "keyswitch_fused_prereduced",):
+            check(launches[name] > 0, f"{name} was never launched in the n=16384 multiply")
+        cpu = make_context(fhe.params, device="cpu")
+        to_cpu = lambda ct: ct.replace(data=ct.data.cpu())
+        want = bfv.multiply(cpu, to_cpu(a), to_cpu(b), RelinKeys(data=rlk.data.cpu()))
+        check(torch.equal(prod.data.cpu(), want.data),
+              f"n=16384 multiply (ks_omega={omega}) differs from the CPU plain path")
+        print(f"phase n16384 launches ks_omega={omega}",
+              json.dumps({k: v for k, v in launches.items() if v}))
+        fn = lambda: fhe.multiply(a, b, rlk)
+        times[metric] = {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
+    print("phase n16384 check: the multiply decoded [15, 60] at ks_omega 1 and 2; card == "
+          "CPU plain path")
+    print("phase n16384", json.dumps(times))
 
 
 def run_slice(fhe: FHE):

@@ -168,44 +168,40 @@ __device__ __forceinline__ uint32_t reduce_barrett(uint32_t x, uint32_t p,
   return r >= p ? r - p : r;
 }
 
-// Forward negacyclic NTT of ROWS polynomials of n = 2^logn residues,
-// stored one after another at a[] (shared memory), in place: merged-psi
-// Cooley-Tukey, natural order in, bit-reversed out.  Stage m (m = 1, 2, ...,
-// n/2) pairs j1 = 2*g*t + r with j2 = j1 + t, t = n / (2m), twiddle
-// psi_br[m + g]; all rows share the prime and its tables, so one barrier per
-// stage serves every row.  ROWS is a template argument so that the one-row
-// sweep compiles without the row arithmetic.  All threads of the block take
-// part; the caller synchronises after filling a[], and the sweep
+// Forward negacyclic NTT of one polynomial of n = 2^logn residues at a[]
+// (shared memory), in place: merged-psi Cooley-Tukey, natural order in,
+// bit-reversed out.  Stage m (m = 1, 2, ..., n/2) pairs j1 = 2*g*t + r with
+// j2 = j1 + t, t = n / (2m), twiddle psi_br[m + g].  All threads of the
+// block take part; the caller synchronises after filling a[], and the sweep
 // synchronises after every stage, so a[] is complete when it returns.
-template <int ROWS = 1>
 __device__ __forceinline__ void fwd_ntt_smem(uint32_t* a, int logn, uint32_t p,
                                              const uint32_t* __restrict__ w,
                                              const uint32_t* __restrict__ w_sh) {
   const int half = 1 << (logn - 1);
   for (int logt = logn - 1, m = 1; logt >= 0; --logt, m <<= 1) {
     const int t = 1 << logt;
-    for (int e = threadIdx.x; e < ROWS * half; e += blockDim.x) {
-      uint32_t* ar = ROWS == 1 ? a : a + ((e >> (logn - 1)) << logn);
-      const int b = ROWS == 1 ? e : e & (half - 1);
+    for (int b = threadIdx.x; b < half; b += blockDim.x) {
       const int g = b >> logt;
       const int j1 = (g << (logt + 1)) | (b & (t - 1));
       const int j2 = j1 + t;
-      const uint32_t u = ar[j1];
-      const uint32_t v = mul_shoup(ar[j2], __ldg(w + m + g), __ldg(w_sh + m + g), p);
-      ar[j1] = add_mod(u, v, p);
-      ar[j2] = sub_mod(u, v, p);
+      const uint32_t u = a[j1];
+      const uint32_t v = mul_shoup(a[j2], __ldg(w + m + g), __ldg(w_sh + m + g), p);
+      a[j1] = add_mod(u, v, p);
+      a[j2] = sub_mod(u, v, p);
     }
     __syncthreads();
   }
 }
 
-// Inverse: Gentleman-Sande stages m = n/2 .. 1, bit-reversed in, natural
-// out, then the x n_inv Shoup multiply (n^-1, or t * n^-1 with the multiply's
-// tables).  Same row layout and barriers, except that the closing multiply
-// has none: it leaves element j (of all ROWS * n) with thread
-// j mod blockDim.x, so a caller that reads the result back with that same
-// mapping, as every kernel here does, needs no barrier; any other reader
-// synchronises first.
+// Inverse of ROWS polynomials stored one after another at a[], in place:
+// Gentleman-Sande stages m = n/2 .. 1, bit-reversed in, natural out, then
+// the x n_inv Shoup multiply (n^-1, or t * n^-1 with the multiply's tables).
+// All rows share the prime and its tables, so one barrier per stage serves
+// every row; ROWS is a template argument so that the one-row sweep compiles
+// without the row arithmetic.  The closing multiply has no barrier: it
+// leaves element j (of all ROWS * n) with thread j mod blockDim.x, so a
+// caller that reads the result back with that same mapping, as every kernel
+// here does, needs no barrier; any other reader synchronises first.
 template <int ROWS = 1>
 __device__ __forceinline__ void inv_ntt_smem(uint32_t* a, int logn, uint32_t p,
                                              const uint32_t* __restrict__ w,
@@ -232,23 +228,6 @@ __device__ __forceinline__ void inv_ntt_smem(uint32_t* a, int logn, uint32_t p,
     a[j] = mul_shoup(a[j], n_inv, n_inv_sh, p);
 }
 
-// Ciphertext tensor product in the NTT domain, in place: a[] holds the four
-// rows x0, x1, y0, y1 (n each); afterwards its first three rows hold
-// c0 = x0*y0, c1 = x0*y1 + x1*y0, c2 = x1*y1 (Barrett, 30-bit p).  Each
-// thread reads and writes only its own coefficients; it synchronises on
-// return, so the inverse sweep that follows may read any of them.
-__device__ __forceinline__ void tensor_product_smem(uint32_t* a, int logn, uint32_t p,
-                                                    uint32_t mu) {
-  const int n = 1 << logn;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const uint32_t a0 = a[j], a1 = a[n + j], b0 = a[2 * n + j], b1 = a[3 * n + j];
-    a[j] = mul_barrett(a0, b0, p, mu);
-    a[n + j] = add_mod(mul_barrett(a0, b1, p, mu), mul_barrett(a1, b0, p, mu), p);
-    a[2 * n + j] = mul_barrett(a1, b1, p, mu);
-  }
-  __syncthreads();
-}
-
 // Threads per block for one n-point transform: one butterfly per thread and
 // stage up to the 1024-thread limit.
 inline int ntt_threads(int logn) {
@@ -257,7 +236,8 @@ inline int ntt_threads(int logn) {
 }
 
 // ---------------------------------------------------------------------------
-// The register-blocked sweep (bsk_branch_fused and decrypt_fused).
+// The register-blocked sweep (mul_by_ntt_operand, tensor_product,
+// bsk_branch_fused and decrypt_fused).
 //
 // The same butterflies as fwd_ntt_smem / inv_ntt_smem, grouped so that a
 // thread runs up to kRegLog stages on 2^kRegLog coefficients in registers
@@ -320,9 +300,10 @@ struct SmemStore {
   }
 };
 
-// The twiddles w[idx .. idx + CNT) of one stage, CNT a power of two: a run
-// that starts at a multiple of CNT, so it is read with 16-byte (or 8-byte)
-// loads where CNT allows; every table row starts 16-byte aligned (the
+// The twiddles w[idx .. idx + CNT) of one stage (or the words of an
+// operand row under a consecutive group), CNT a power of two: a run that
+// starts at a multiple of CNT, so it is read with 16-byte (or 8-byte) loads
+// where CNT allows; every table and operand row starts 16-byte aligned (the
 // wrappers check).
 template <int CNT>
 __device__ __forceinline__ void load_twiddles(const uint32_t* __restrict__ w, int idx,

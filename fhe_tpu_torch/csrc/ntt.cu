@@ -6,44 +6,62 @@
 // lanes), ks_inner_batch and ks_inner_grouped.  Plain versions:
 // fhe_tpu_torch/ops/ntt.py.
 //
-// Each single function and its _batch form share one kernel: grid
-// (B, primes), block (b, i) does element b on prime i, and the single
-// function launches B = 1.  Inputs are read through the strides the wrapper
-// passes, so a [B, k, c, n] stack of ciphertexts is read in place, not
-// transposed; outputs are [k, c, B, n].  The Pallas batch tiles, padding
-// and lazy sweeps are Mosaic artifacts and have no counterpart here.
+// Each single function and its _batch form share one kernel, with the
+// batch on a grid axis, and the single function launches B = 1.  Inputs are
+// read through the strides the wrapper passes, so a [B, k, c, n] stack of
+// ciphertexts is read in place, not transposed; outputs are [k, c, B, n].
+// The Pallas batch tiles, padding and lazy sweeps are Mosaic artifacts and
+// have no counterpart here.  Twiddles come straight from the compact
+// psi_br [k, n] table and its Shoup companions: stage m reads entry
+// m + j / (2t).  The Pallas kernels' [k, log2(n), n] stage-expanded tables
+// exist only because Mosaic cannot index a lane by stage; a GPU thread can,
+// so they are not ported (13x less table memory at n = 8192).
 //
-// Design.  One block per (prime, polynomial) holds the whole n-point
-// polynomial in shared memory (32 KB at n = 8192) and runs all log2(n)
-// radix-2 stages with a __syncthreads() between them.  Twiddles come straight
-// from the compact psi_br [k, n] table and its Shoup companions: stage m reads
-// entry m + j / (2t).  The Pallas kernels' [k, log2(n), n] stage-expanded
-// tables exist only because Mosaic cannot index a lane by stage; a GPU thread
-// can, so they are not ported (13x less table memory at n = 8192).
+// What bounds them on the H100.  At n = 8192, k = 3 one batch row of a
+// transform moves 96 KB of residues in and 96 KB out, plus 192 KB of
+// twiddles and their Shoup companions, and does 3 * 13 * 4096 butterflies
+// of 14 integer operations each: about 0.12 us by memory rate and about
+// 0.05 us by the integer issue rate.  Neither is what limits them: at the
+// main path's shapes a few dozen CTAs run on 132 SMs, so the time is the
+// latency of one (element, prime)'s chain of dependent passes on the SMs
+// it spreads over, plus the launch (measured times: PERF.md).
 //
-// What bounds it on the H100.  At n = 8192, k = 3 one batch row moves
-// 96 KB of residues in and 96 KB out, plus 192 KB of twiddles and their
-// Shoup companions, and does 3 * 13 * 4096 butterflies of about 12 integer
-// operations each: about 0.12 us by memory rate and about 0.1 us by the
-// integer issue rate.  Neither is what limits it: 13 dependent stages each
-// end in a block-wide barrier, and at the slice's shapes only k * B = 3 .. 48
-// blocks run on 132 SMs, so the kernels are launch- and latency-bound
-// (measured times: PERF.md).  The design answers with the fewest launches:
-// one launch for the whole [k, B, n] batch, and mul_by_ntt_operand keeps NTT(u) in shared
-// memory across all c operand rows, so the encrypt product is one launch in
-// place of three.  Register-resident radix-16 stages and warp shuffles,
-// which cut the barrier count, are later work.
+// mul_by_ntt_operand (the pk * u product of encrypt, and each c_j * s^j
+// term of a longer ciphertext's decrypt) and tensor_product (the q-side
+// product of the ciphertext multiply, and the Bsk side at n < 1024) answer
+// that with thread-block clusters on the register-blocked sweep of
+// modmath.cuh: 16 coefficients per thread in registers between barriers,
+// 4 passes per 8192-point transform instead of 13, the load fused into the
+// first pass and the epilogue into the last, and every row split over two
+// CTAs of a cluster (RowSplit), which halves each CTA's chain for one
+// cluster barrier per transform.  mul_by_ntt_operand runs a cluster of 2
+// CTAs per (element, operand row, prime), grid (2, C * B, k): 12 CTAs in
+// encrypt, where one block per (element, prime) ran 3.  Each cluster
+// transforms u again for its own operand row, on other SMs at the same
+// time, and forms the product in the forward's last pass, where the CTA
+// holds its own positions: no peer read, one padded row of shared memory.
+// tensor_product runs the design of bsk_branch_fused's step 2 (csrc/rns.cu),
+// which is the same computation on the Bsk base: a cluster of 8 CTAs per
+// (element, prime), two per input row, grid (8, B, k): 24 CTAs where 3 ran,
+// two padded rows each, so n = 16384 fits (135 KB), where the old four rows
+// per block (256 KB) did not.  The two kernels keep two bodies: with one
+// __device__ template for both, parameterised by the load and epilogue
+// hooks (a strided read and store here, the lift and the floor there),
+// bsk_branch_fused ran 1.3 % slower than the parent at the headline shape
+// and 2.7 % at kb = 10, where its own body ran 0.6 % slower, in the same
+// call (PERF.md).  So a change to the product or to the pass schedule
+// is made in both kernels.
 //
-// tensor_product and keyswitch_fused (the ciphertext multiply and the
-// relinearization) follow the same plan: one block per prime keeps every
-// polynomial of the step in shared memory from the first forward stage to
-// the last inverse one, and transforms its rows together, so one barrier per
-// stage serves 4 (tensor product) or 2 (key-switch accumulators) rows.  At
-// n = 8192, k = 3 they run on 3 blocks, one per SM, and are bound by the
-// issue rate of those SMs rather than by the barriers (bounds and times:
-// PERF.md).  The batch axis is the answer to that at serving batches: B = 8
-// runs 24 blocks on 24 SMs, each doing the single function's work.
-//
+// ntt_forward, ntt_inverse, keyswitch_fused (the relinearization) and
+// ks_inner_batch / ks_inner_grouped still run the one-stage sweep
+// fwd_ntt_smem / inv_ntt_smem: one block per (element, prime) holds the
+// polynomials of the step in shared memory (32 KB each at n = 8192) from
+// the first forward stage to the last inverse one, runs all log2(n)
+// radix-2 stages with a __syncthreads() between them, and transforms its
+// rows together, so one barrier per stage serves 2 rows (the key-switch
+// accumulators).  At n = 8192, k = 3 they run on k * B blocks, one per SM,
+// and are bound by the latency of those SMs' stage chains.
+
 // ks_inner_batch and ks_inner_grouped (the hoisted rotations) are the back
 // half of the key switch: their digits arrive already transformed, so a
 // block (b, i) only forms the two sums sum_j dg_j . key_j, one coefficient
@@ -56,6 +74,7 @@
 // inverse stages on 2 rows; like the key switch it is bound by the issue
 // rate of the k * B SMs it runs on (bound and times: PERF.md).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -64,6 +83,14 @@
 #include "modmath.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
+
+// CTAs per row of mul_by_ntt_operand and tensor_product, and per cluster
+// of tensor_product, one pair per input row x0, x1, y0, y1 (ops/ntt_cuda.py:
+// ROW_SPLIT, PRODUCT_CLUSTER)
+constexpr int kRowSplit = 2;
+constexpr int kProductCluster = 4 * kRowSplit;
 
 // x, y: [k, batch, n]; block (b, i) transforms row (i, b) with prime i.
 __global__ void __launch_bounds__(1024)
@@ -98,13 +125,16 @@ ntt_inverse_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   for (int j = threadIdx.x; j < n; j += blockDim.x) y[row + j] = a[j];
 }
 
-// Block (b, i): out[i, c, b] = INTT(NTT(u[i, b]) . w[i, c]) for c = 0 .. num_c-1.
+// Cluster (i, c, b) of 2 CTAs: out[i, c, b] = INTT(NTT(u[i, b]) . w[i, c]).
 // Row (i, b) of u starts at u + i * u_sp + b * u_sb, so a view of one
 // ciphertext component, or the rows of a stack, is read in place; w is the
-// shared [k, num_c, n] operand; out is [k, num_c, B, n] (B = gridDim.x, 1 for
-// the single function).  Shared memory: NTT(u) (kept for every c) and one
-// working polynomial.
-__global__ void __launch_bounds__(1024)
+// shared [k, num_c, n] operand, each row 16-byte aligned (the wrapper
+// checks); out is [k, num_c, B, n].  Grid (2, num_c * B, k) in clusters of
+// (2, 1, 1), blockIdx.y = c * B + b.  CTA h runs half of each pass of the
+// two transforms (the row split of modmath.cuh's RowSplit note) and keeps
+// positions [h n/2, (h+1) n/2) of NTT(u) between them, where it multiplies
+// them by w[i, c] in the forward's last pass.  Shared memory: one padded row.
+__global__ void __launch_bounds__(512)
 mul_by_ntt_operand_kernel(const uint32_t* __restrict__ u, long long u_sp, long long u_sb,
                           const uint32_t* __restrict__ w, uint32_t* __restrict__ out,
                           const uint32_t* __restrict__ p, const uint32_t* __restrict__ mu,
@@ -115,39 +145,72 @@ mul_by_ntt_operand_kernel(const uint32_t* __restrict__ u, long long u_sp, long l
                           const uint32_t* __restrict__ n_inv,
                           const uint32_t* __restrict__ n_inv_sh, int num_c, int logn) {
   extern __shared__ uint32_t sm[];
+  uint32_t* a = sm;
+  cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
-  uint32_t* un = sm;
-  uint32_t* a = sm + n;
-  const int i = blockIdx.y;
-  const int b = blockIdx.x;
-  const int batch = gridDim.x;
+  const int h = static_cast<int>(cluster.block_rank());
+  const int cb = blockIdx.y;
+  const int batch = gridDim.y / num_c;
+  const int c = cb / batch, b = cb - c * batch;
+  const int i = blockIdx.z;
   const uint32_t pi = p[i];
   const uint32_t mui = mu[i];
   const size_t tab = static_cast<size_t>(i) * n;
+  const fhe::RowSplit<kRowSplit> split{
+      {cluster.map_shared_rank(a, 0), cluster.map_shared_rank(a, 1)}, h};
+  auto sync = [&] { cluster.sync(); };
   const uint32_t* ur = u + i * u_sp + b * u_sb;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) un[j] = ur[j];
-  __syncthreads();
-  fhe::fwd_ntt_smem(un, logn, pi, psi + tab, psi_sh + tab);
-  for (int c = 0; c < num_c; ++c) {
-    const size_t row = (static_cast<size_t>(i) * num_c + c) * n;
-    const size_t orow = ((static_cast<size_t>(i) * num_c + c) * batch + b) * n;
-    for (int j = threadIdx.x; j < n; j += blockDim.x)
-      a[j] = fhe::mul_barrett(un[j], w[row + j], pi, mui);
-    __syncthreads();
-    fhe::inv_ntt_smem(a, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i]);
-    for (int j = threadIdx.x; j < n; j += blockDim.x) out[orow + j] = a[j];
-    __syncthreads();
-  }
+  const uint32_t* wr = w + (static_cast<size_t>(i) * num_c + c) * n;
+  fhe::fwd_ntt_regs_split(
+      a, split, sync, logn, pi, psi + tab, psi_sh + tab,
+      [&](auto& x, int base, int logs) {
+#pragma unroll
+        for (int g = 0; g < static_cast<int>(sizeof(x) / sizeof(x[0])); ++g)
+          x[g] = ur[base + (g << logs)];
+      },
+      [&](auto& x, int base, int logs) {
+        // the last pass's group is consecutive (logs = 0, base a multiple of
+        // its size), and its positions are this CTA's: w's words come in
+        // 16-byte loads, and the product goes back in place
+        constexpr int G = sizeof(x) / sizeof(x[0]);
+        uint32_t wv[G];
+        fhe::load_twiddles(wr, base, wv);
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          a[fhe::padded_index(base + g)] = fhe::mul_barrett(x[g], wv[g], pi, mui);
+      });
+  uint32_t* dst = out + (static_cast<size_t>(i) * gridDim.y + cb) * n;
+  fhe::inv_ntt_regs_split(
+      a, split, sync, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i],
+      fhe::SmemLoad{a}, [&](auto& x, int base, int logs) {
+#pragma unroll
+        for (int g = 0; g < static_cast<int>(sizeof(x) / sizeof(x[0])); ++g)
+          dst[base + (g << logs)] = x[g];
+      });
+  // the partner read this CTA's row in the inverse's last pass: neither
+  // leaves (and frees its shared memory) before both have
+  cluster.sync();
 }
 
-// Block (b, i): out[i, :, b] = INTT(c0, c1, c2) with (c0, c1, c2) the tensor
-// product of NTT(x[i, :, b]) and NTT(y[i, :, b]).  Element (i, c, b, j) of x
-// and of y sits at i * s_p + c * s_c + b * s_b + j, so the [k, 2, B, n] halves
-// may be views of a [B, k, 4, n] stack, read in place; out is [k, 3, B, n]
-// (B = gridDim.x, 1 for the single function).  With the multiply's tables
-// n_inv is t * n^-1, so the scale by t costs nothing.  Shared memory: the
-// four input rows (4 * 32 KB at n = 8192).
-__global__ void __launch_bounds__(1024)
+// Cluster (b, i) of 8 CTAs: out[i, :, b] = INTT(c0, c1, c2) with (c0, c1,
+// c2) = (x0*y0, x0*y1 + x1*y0, x1*y1) the tensor product of NTT(x[i, :, b])
+// and NTT(y[i, :, b]) (Barrett, 30-bit p).  Element (i, c, b, j) of x and of
+// y sits at i * s_p + c * s_c + b * s_b + j, so the [k, 2, B, n] halves may
+// be views of a [B, k, 4, n] stack, read in place; each CTA forms its row
+// pointer once, so the 64-bit strides cost no index product in the passes.
+// out is [k, 3, B, n].  With the multiply's tables n_inv is t * n^-1, so
+// the scale by t costs nothing.  Grid (8, B, k) in clusters of (8, 1, 1):
+// CTA 2r + h (r = 0..3: x0, x1, y0, y1) runs the forward transform of input
+// row r with CTA 2r + 1 - h (RowSplit) and keeps positions
+// [h n/2, (h+1) n/2) of the NTT-form row; after a cluster barrier the CTAs
+// of rows 0 to 2 form product row r of their half from the four rows' CTAs
+// through distributed shared memory, consecutive threads on consecutive
+// words (coalesced remote reads), and run its inverse transform with their
+// partner.  The CTAs of row 3 have no output row: they take the inverse's
+// cluster barrier and stay until the peers have read their rows.  Shared
+// memory: two padded rows, the transformed input row (read by the peers)
+// and the sweeps' working row (read by the partner).
+__global__ void __launch_bounds__(512)
 tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
                       long long s_p, long long s_c, long long s_b,
                       uint32_t* __restrict__ out, const uint32_t* __restrict__ p,
@@ -158,28 +221,62 @@ tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
                       const uint32_t* __restrict__ n_inv,
                       const uint32_t* __restrict__ n_inv_sh, int logn) {
   extern __shared__ uint32_t sm[];
+  cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
-  const int i = blockIdx.y;
-  const int b = blockIdx.x;
-  const int batch = gridDim.x;
+  uint32_t* row = sm;                        // input row r, NTT form
+  uint32_t* work = sm + fhe::padded(n);      // the sweeps' passes
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int r = rank / kRowSplit, h = rank % kRowSplit;
+  const int b = blockIdx.y;
+  const int i = blockIdx.z;
   const uint32_t pi = p[i];
   const size_t tab = static_cast<size_t>(i) * n;
-  const long long in = i * s_p + b * s_b;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    sm[j] = x[in + j];
-    sm[n + j] = x[in + s_c + j];
-    sm[2 * n + j] = y[in + j];
-    sm[3 * n + j] = y[in + s_c + j];
+  static_assert(kRowSplit == 2, "the split below names both CTAs of a row");
+  const fhe::RowSplit<kRowSplit> split{{cluster.map_shared_rank(work, r * kRowSplit),
+                                        cluster.map_shared_rank(work, r * kRowSplit + 1)},
+                                       h};
+  auto sync = [&] { cluster.sync(); };
+  const uint32_t* src = (r < 2 ? x : y) + i * s_p + (r & 1) * s_c + b * s_b;
+  fhe::fwd_ntt_regs_split(
+      work, split, sync, logn, pi, psi + tab, psi_sh + tab,
+      [&](auto& v, int base, int logs) {
+#pragma unroll
+        for (int g = 0; g < static_cast<int>(sizeof(v) / sizeof(v[0])); ++g)
+          v[g] = src[base + (g << logs)];
+      },
+      fhe::SmemStore{row});
+  cluster.sync();
+  if (r < 3) {
+    const uint32_t mui = mu[i];
+    const uint32_t* x0 = cluster.map_shared_rank(row, 0 * kRowSplit + h);
+    const uint32_t* x1 = cluster.map_shared_rank(row, 1 * kRowSplit + h);
+    const uint32_t* y0 = cluster.map_shared_rank(row, 2 * kRowSplit + h);
+    const uint32_t* y1 = cluster.map_shared_rank(row, 3 * kRowSplit + h);
+    const uint32_t* pa = r == 0 ? x0 : x1;
+    const uint32_t* pb = r == 0 ? y0 : y1;
+    const int end = (h + 1) * (n / kRowSplit);
+#pragma unroll 8
+    for (int j = h * (n / kRowSplit) + threadIdx.x; j < end; j += blockDim.x) {
+      const int e = fhe::padded_index(j);
+      work[e] = r == 1 ? fhe::add_mod(fhe::mul_barrett(x0[e], y1[e], pi, mui),
+                                      fhe::mul_barrett(x1[e], y0[e], pi, mui), pi)
+                       : fhe::mul_barrett(pa[e], pb[e], pi, mui);
+    }
+    __syncthreads();
+    uint32_t* dst = out + ((static_cast<size_t>(i) * 3 + r) * gridDim.y + b) * n;
+    fhe::inv_ntt_regs_split(
+        work, split, sync, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i],
+        fhe::SmemLoad{work}, [&](auto& v, int base, int logs) {
+#pragma unroll
+          for (int g = 0; g < static_cast<int>(sizeof(v) / sizeof(v[0])); ++g)
+            dst[base + (g << logs)] = v[g];
+        });
+  } else {
+    cluster.sync();      // the barrier inside the output rows' inverse
   }
-  __syncthreads();
-  fhe::fwd_ntt_smem<4>(sm, logn, pi, psi + tab, psi_sh + tab);
-  fhe::tensor_product_smem(sm, logn, pi, mu[i]);
-  fhe::inv_ntt_smem<3>(sm, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i]);
-  // element c * n + j stays with thread j mod blockDim.x, as the inverse left it
-  for (int c = 0; c < 3; ++c) {
-    const size_t orow = ((static_cast<size_t>(i) * 3 + c) * batch + b) * n;
-    for (int j = threadIdx.x; j < n; j += blockDim.x) out[orow + j] = sm[c * n + j];
-  }
+  // the peers read this CTA's rows above: no CTA leaves (and frees its
+  // shared memory) before all have
+  cluster.sync();
 }
 
 // Key-switch inner product, block (b, i) for element b and prime p_i:
@@ -348,24 +445,33 @@ int fhe_ntt_inverse(const void* x, void* y, const void* p, const void* ipsi,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch geometry of mul_by_ntt_operand and tensor_product comes from
+// the wrapper (ops/ntt_cuda.py, mul_by_ntt_operand_geometry and
+// tensor_product_geometry): `threads` per CTA and `smem` bytes per CTA, at
+// least the one or two padded rows the kernel uses.
 int fhe_mul_by_ntt_operand(const void* u, long long u_sp, long long u_sb, const void* w,
                            void* out, const void* p, const void* mu, const void* psi,
                            const void* psi_sh, const void* ipsi, const void* ipsi_sh,
                            const void* n_inv, const void* n_inv_sh, int k, int num_c,
-                           int batch, int logn, void* stream) {
-  const size_t smem = 2 * (sizeof(uint32_t) << logn);
+                           int batch, int logn, int threads, int smem, void* stream) {
+  if (logn <= fhe::kRegLog || smem < 4 * fhe::padded(1 << logn))
+    return static_cast<int>(cudaErrorInvalidValue);
   static std::atomic<size_t> granted[fhe::kMaxDevices];
-  cudaError_t err = fhe::allow_smem(
-      reinterpret_cast<const void*>(mul_by_ntt_operand_kernel), smem, granted);
+  static std::atomic<size_t> placed[fhe::kMaxDevices];
+  const void* kernel = reinterpret_cast<const void*>(mul_by_ntt_operand_kernel);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mul_by_ntt_operand_kernel<<<dim3(batch, k), fhe::ntt_threads(logn), smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(u), u_sp, u_sb, static_cast<const uint32_t*>(w),
-      static_cast<uint32_t*>(out), static_cast<const uint32_t*>(p),
-      static_cast<const uint32_t*>(mu), static_cast<const uint32_t*>(psi),
-      static_cast<const uint32_t*>(psi_sh), static_cast<const uint32_t*>(ipsi),
-      static_cast<const uint32_t*>(ipsi_sh), static_cast<const uint32_t*>(n_inv),
-      static_cast<const uint32_t*>(n_inv_sh), num_c, logn);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = fhe::cluster_config(
+      dim3(kRowSplit, num_c * batch, k), threads, smem, kRowSplit,
+      static_cast<cudaStream_t>(stream), attr);
+  err = fhe::check_cluster(kernel, cfg, placed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  err = cudaLaunchKernelEx(&cfg, mul_by_ntt_operand_kernel, c(u), u_sp, u_sb, c(w),
+                           static_cast<uint32_t*>(out), c(p), c(mu), c(psi), c(psi_sh),
+                           c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), num_c, logn);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -373,20 +479,25 @@ int fhe_tensor_product(const void* x, const void* y, long long s_p, long long s_
                        long long s_b, void* out, const void* p, const void* mu,
                        const void* psi, const void* psi_sh, const void* ipsi,
                        const void* ipsi_sh, const void* n_inv, const void* n_inv_sh, int k,
-                       int batch, int logn, void* stream) {
-  const size_t smem = 4 * (sizeof(uint32_t) << logn);
+                       int batch, int logn, int threads, int smem, void* stream) {
+  if (logn <= fhe::kRegLog || smem < 2 * 4 * fhe::padded(1 << logn))
+    return static_cast<int>(cudaErrorInvalidValue);
   static std::atomic<size_t> granted[fhe::kMaxDevices];
-  cudaError_t err = fhe::allow_smem(
-      reinterpret_cast<const void*>(tensor_product_kernel), smem, granted);
+  static std::atomic<size_t> placed[fhe::kMaxDevices];
+  const void* kernel = reinterpret_cast<const void*>(tensor_product_kernel);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return static_cast<int>(err);
-  tensor_product_kernel<<<dim3(batch, k), fhe::ntt_threads(logn), smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(y), s_p, s_c, s_b,
-      static_cast<uint32_t*>(out), static_cast<const uint32_t*>(p),
-      static_cast<const uint32_t*>(mu), static_cast<const uint32_t*>(psi),
-      static_cast<const uint32_t*>(psi_sh), static_cast<const uint32_t*>(ipsi),
-      static_cast<const uint32_t*>(ipsi_sh), static_cast<const uint32_t*>(n_inv),
-      static_cast<const uint32_t*>(n_inv_sh), logn);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = fhe::cluster_config(
+      dim3(kProductCluster, batch, k), threads, smem, kProductCluster,
+      static_cast<cudaStream_t>(stream), attr);
+  err = fhe::check_cluster(kernel, cfg, placed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  err = cudaLaunchKernelEx(&cfg, tensor_product_kernel, c(x), c(y), s_p, s_c, s_b,
+                           static_cast<uint32_t*>(out), c(p), c(mu), c(psi), c(psi_sh),
+                           c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), logn);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

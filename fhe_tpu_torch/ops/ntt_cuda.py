@@ -4,7 +4,10 @@
 ``tensor_product`` (and ``_batch``), ``keyswitch_fused`` (and ``_batch``,
 each with its ``prereduced`` lane), ``ks_inner_batch`` and
 ``ks_inner_grouped`` launch the hand-written CUDA kernels of
-``csrc/ntt.cu`` (design and bound: the note at the top of that file) for
+``csrc/ntt.cu`` (design and bound: the note at the top of that file; the
+launch shapes of the cluster kernels ``mul_by_ntt_operand`` and
+``tensor_product``: ``mul_by_ntt_operand_geometry`` and
+``tensor_product_geometry``) for
 CUDA tensors and use the plain PyTorch versions of ``ops/ntt.py`` for CPU
 tensors; any other device raises.  A single function and its ``_batch``
 form launch the same kernel (the single one with a batch of 1), as do
@@ -31,8 +34,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
-# the kernel keeps a polynomial (or two, for mul_by_ntt_operand) in shared
-# memory; a block may use at most 227 KB of it on Hopper
+# the kernels keep their polynomials in shared memory; a block may use at
+# most 227 KB of it on Hopper
 MAX_SMEM = 232448
 # the largest grid y extent, which the cluster kernels give to the batch
 MAX_GRID_Y = 65535
@@ -44,8 +47,8 @@ def _lib() -> ctypes.CDLL:
     lib.fhe_ntt_forward.argtypes = [_P] * 5 + [_I] * 3 + [_P]
     lib.fhe_ntt_inverse.argtypes = [_P] * 7 + [_I] * 3 + [_P]
     lib.fhe_mul_by_ntt_operand.argtypes = ([_P] + [_L] * 2 + [_P] * 10
-                                           + [_I] * 4 + [_P])
-    lib.fhe_tensor_product.argtypes = [_P] * 2 + [_L] * 3 + [_P] * 9 + [_I] * 3 + [_P]
+                                           + [_I] * 6 + [_P])
+    lib.fhe_tensor_product.argtypes = [_P] * 2 + [_L] * 3 + [_P] * 9 + [_I] * 5 + [_P]
     lib.fhe_keyswitch.argtypes = ([_P] + [_L] * 3 + [_P] + [_L] * 2 + [_P] * 9
                                   + [_I] * 5 + [_P])
     lib.fhe_ks_inner.argtypes = ([_P] + [_L] * 3 + [_I] + [_P] + [_L] * 3 + [_I]
@@ -133,6 +136,46 @@ def regs_threads(n: int, name: str, split: int = 1) -> int:
     return min(max((n >> REG_LOG) // split, 32), 512)
 
 
+# mul_by_ntt_operand and tensor_product (and bsk_branch_fused): the CTAs of
+# a cluster that share a row's transforms, and the tensor product's cluster,
+# one pair of CTAs per input row x0, x1, y0, y1 (csrc/ntt.cu and csrc/rns.cu:
+# kRowSplit, kProductCluster)
+ROW_SPLIT = 2
+PRODUCT_CLUSTER = 4 * ROW_SPLIT
+
+
+def mul_by_ntt_operand_geometry(n: int, k: int, c: int, batch: int = 1) -> dict:
+    """Launch shape of ``mul_by_ntt_operand`` (and ``_batch``) for B =
+    ``batch`` rows of u against c operand rows over k primes: one cluster
+    of 2 CTAs per (element, operand row, prime), which share the row's
+    forward transform, product and inverse transform; one padded row of
+    shared memory per CTA.  Raise where that does not fit the card."""
+    name = "mul_by_ntt_operand"
+    if not 1 <= c * batch <= MAX_GRID_Y:
+        raise ValueError(f"{name}: {c} operand rows x batch {batch} outside "
+                         f"1..{MAX_GRID_Y}")
+    return {"grid": (ROW_SPLIT, c * batch, k), "cluster": (ROW_SPLIT, 1, 1),
+            "ctas": ROW_SPLIT * c * batch * k, "ctas_per_row": ROW_SPLIT,
+            "threads": regs_threads(n, name, ROW_SPLIT),
+            "smem": check_smem(n, 1, name, padded=True)}
+
+
+def tensor_product_geometry(n: int, k: int, batch: int = 1,
+                            name: str = "tensor_product") -> dict:
+    """Launch shape of the cluster tensor product (``tensor_product`` and
+    ``_batch``; ``bsk_branch_fused`` passes its name) for B = ``batch``
+    elements over k primes: one cluster of 8 CTAs per (element, prime), two
+    per input row, which share the row's forward transform and, for rows 0
+    to 2, its product row's inverse transform; two padded rows of shared
+    memory per CTA.  Raise where that does not fit the card."""
+    if not 1 <= batch <= MAX_GRID_Y:
+        raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y}")
+    return {"grid": (PRODUCT_CLUSTER, batch, k), "cluster": (PRODUCT_CLUSTER, 1, 1),
+            "ctas": PRODUCT_CLUSTER * batch * k, "ctas_per_prime": PRODUCT_CLUSTER,
+            "ctas_per_row": ROW_SPLIT, "threads": regs_threads(n, name, ROW_SPLIT),
+            "smem": check_smem(n, 2, name, padded=True)}
+
+
 def check_barrett(tb: NTTTables, name: str) -> None:
     """Raise unless every prime of tb is a 30-bit prime (mu != 0), as the
     kernels' Barrett products need."""
@@ -208,14 +251,17 @@ def _mul_by_ntt_operand_launch(u: torch.Tensor, w_ntt: torch.Tensor,
                                tb: NTTTables, name: str) -> torch.Tensor:
     """One launch over the B rows of u [k, B, n] (strided): [k, c, B, n]."""
     check_barrett(tb, name)
+    check_aligned_tables(tb, name)
+    if w_ntt.data_ptr() % 16:
+        raise ValueError(f"{name}: w_ntt is not 16-byte aligned")
     k, batch, n = u.shape
     c = w_ntt.shape[1]
-    check_smem(n, 2, name)
+    geo = mul_by_ntt_operand_geometry(n, k, c, batch)
     out = torch.empty((k, c, batch, n), dtype=torch.int32, device=u.device)
     p = _build.ptr
     _build.launch(_lib().fhe_mul_by_ntt_operand, name, u.device, p(u),
                   u.stride(0), u.stride(1), p(w_ntt), p(out), *table_ptrs(tb),
-                  k, c, batch, log2_exact(n))
+                  k, c, batch, log2_exact(n), geo["threads"], geo["smem"])
     return out
 
 
@@ -226,7 +272,8 @@ def mul_by_ntt_operand(u: torch.Tensor, w_ntt: torch.Tensor,
     [k, c, n].  u may be a view whose rows of n are contiguous (one
     component of a ciphertext: the kernel reads it in place).  The pointwise
     product is a Barrett multiply, so every prime of tb must be a 30-bit
-    prime (mu != 0)."""
+    prime (mu != 0); on the card n must be at least 32 (the
+    register-blocked sweep) and w_ntt 16-byte aligned."""
     check_residues(u, tb, "mul_by_ntt_operand", strided=True)
     check_residues(w_ntt, tb, "mul_by_ntt_operand")
     if u.shape[1] != 1:
@@ -246,8 +293,8 @@ def mul_by_ntt_operand_batch(u: torch.Tensor, w_ntt: torch.Tensor,
                              tb: NTTTables) -> torch.Tensor:
     """INTT(NTT(u_b) ⊙ w_c) for B polynomials u [k, B, n] (coefficient
     domain; rows of n contiguous, any other strides) against one shared
-    [k, c, n] NTT-form operand, in one launch of B * k blocks; returns
-    [k, c, B, n].  Slice b equals ``mul_by_ntt_operand(u[:, b:b+1], w)``."""
+    [k, c, n] NTT-form operand, in one launch of c * B * k clusters;
+    returns [k, c, B, n].  Slice b equals ``mul_by_ntt_operand(u[:, b:b+1], w)``."""
     check_residues(u, tb, "mul_by_ntt_operand_batch", strided=True)
     check_residues(w_ntt, tb, "mul_by_ntt_operand_batch")
     if not on_card(u, "mul_by_ntt_operand_batch"):
@@ -264,13 +311,14 @@ def _tensor_product_launch(x: torch.Tensor, y: torch.Tensor, tb: NTTTables,
                            name: str) -> torch.Tensor:
     """One launch over x, y [k, 2, B, n] with equal strides: [k, 3, B, n]."""
     check_barrett(tb, name)
+    check_aligned_tables(tb, name)
     k, _, batch, n = x.shape
-    check_smem(n, 4, name)
+    geo = tensor_product_geometry(n, k, batch, name)
     out = torch.empty((k, 3, batch, n), dtype=torch.int32, device=x.device)
     p = _build.ptr
     _build.launch(_lib().fhe_tensor_product, name, x.device, p(x), p(y),
                   x.stride(0), x.stride(1), x.stride(2), p(out), *table_ptrs(tb),
-                  k, batch, log2_exact(n))
+                  k, batch, log2_exact(n), geo["threads"], geo["smem"])
     return out
 
 
@@ -278,11 +326,11 @@ def tensor_product(x: torch.Tensor, y: torch.Tensor,
                    tb: NTTTables) -> torch.Tensor:
     """(x0*y0, x0*y1 + x1*y0, x1*y1) of two [k, 2, n] coefficient-domain
     ciphertext halves; returns [k, 3, n].  With the multiply's tables
-    (``ntt.build_mul_tables``) the result is t times the product.  One block
-    per prime holds all four rows in shared memory, so n <= 8192 on Hopper;
-    every prime must be a 30-bit prime (Barrett).  x and y may be views
-    with rows of n contiguous and equal strides (the halves of a lifted
-    [k, 4, n] tensor: the kernel reads them in place)."""
+    (``ntt.build_mul_tables``) the result is t times the product.  Every
+    prime must be a 30-bit prime (Barrett); on the card 32 <= n <= 16384
+    (``tensor_product_geometry``: two padded rows per CTA).  x and y may be
+    views with rows of n contiguous and equal strides (the halves of a
+    lifted [k, 4, n] tensor: the kernel reads them in place)."""
     check_residues(x, tb, "tensor_product", strided=True)
     check_residues(y, tb, "tensor_product", strided=True)
     if x.shape[1] != 2 or y.shape != x.shape or y.stride() != x.stride():
@@ -304,7 +352,7 @@ def tensor_product_batch(x: torch.Tensor, y: torch.Tensor,
                          tb: NTTTables) -> torch.Tensor:
     """``tensor_product`` of B pairs at once: x, y [k, 2, B, n] with rows of
     n contiguous and the same strides (views of one [B, k, 4, n] stack are
-    read in place); one launch of B * k blocks; returns [k, 3, B, n]."""
+    read in place); one launch of B * k clusters; returns [k, 3, B, n]."""
     check_views(x, tb.k, 2, tb.n, tb.device, "tensor_product_batch")
     check_views(y, tb.k, 2, tb.n, tb.device, "tensor_product_batch")
     if y.shape != x.shape or y.stride() != x.stride():

@@ -20,9 +20,8 @@ import torch
 from . import _build
 from . import rns as _rns
 from .ntt import NTTTables
-from .ntt_cuda import (MAX_GRID_Y, check_aligned_tables, check_barrett,
-                       check_smem, check_views, log2_exact, on_card,
-                       regs_threads, table_ptrs)
+from .ntt_cuda import (check_aligned_tables, check_barrett, check_views,
+                       log2_exact, on_card, table_ptrs, tensor_product_geometry)
 
 _P = ctypes.c_void_p
 _U = ctypes.c_uint32
@@ -63,27 +62,14 @@ def _check_bsk_consts(sc: _rns.SmMRqConsts, fc: _rns.FastFloorConsts,
         raise ValueError(f"{name}: tensors on different devices")
 
 
-# bsk_branch_fused: the CTAs that share an input row's transforms
-# (csrc/rns.cu, kRowSplit), and the rows a0, a1, b0, b1
-BSK_ROW_SPLIT = 2
-BSK_CLUSTER = 4 * BSK_ROW_SPLIT
-
-
 def bsk_branch_geometry(n: int, kb: int, batch: int = 1) -> dict:
     """Launch shape of ``bsk_branch_fused`` for B = ``batch`` elements and
-    kb Bsk primes: one cluster of 8 CTAs per (element, Bsk prime), two per
-    input row, which share the row's lift and forward transform and, for
-    rows 0 to 2, its product row's inverse transform and floor; two padded
-    rows of shared memory per CTA.  Raise where that does not fit the
-    card."""
-    name = "bsk_branch_fused"
-    if not 1 <= batch <= MAX_GRID_Y:
-        raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y}")
-    return {"grid": (BSK_CLUSTER, batch, kb), "cluster": (BSK_CLUSTER, 1, 1),
-            "ctas": BSK_CLUSTER * batch * kb, "ctas_per_prime": BSK_CLUSTER,
-            "ctas_per_row": BSK_ROW_SPLIT,
-            "threads": regs_threads(n, name, BSK_ROW_SPLIT),
-            "smem": check_smem(n, 2, name, padded=True)}
+    kb Bsk primes: the cluster tensor product of ``tensor_product`` (8 CTAs
+    per (element, Bsk prime), two per input row, which share the row's lift
+    and forward transform and, for rows 0 to 2, its product row's inverse
+    transform and floor; two padded rows of shared memory per CTA).  Raise
+    where that does not fit the card."""
+    return tensor_product_geometry(n, kb, batch, "bsk_branch_fused")
 
 
 def _bsk_branch_launch(ab: torch.Tensor, tx_q: torch.Tensor,

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device and end-to-end times of the port's multiply and decrypt on one
-NVIDIA card, for comparing two trees of the port (a parent and a change)
+"""Device and end-to-end times of the port's multiply, encrypt and decrypt on
+one NVIDIA card, for comparing two trees of the port (a parent and a change)
 within one run on the card:
 
     python3 scripts/torch_ab.py [TREE]
@@ -13,11 +13,24 @@ the headline configuration (n = 8192, log_q = 90, k = 3, kb = 5):
   - device_ms (CUDA events while the card is kept busy, so host work is
     excluded; median of 25) and wall_ms (CUDA events around the call, host
     work included; median of 10) of multiply_no_relin, relinearize,
-    multiply, the decrypt of the product, and decrypt_batch and
-    multiply_batch at B = 8, with the batch ops also per ciphertext;
-  - the device times of bsk_branch_fused (single, and batched at B = 8) and
-    decrypt_fused (on views of a [3, 2, n] ciphertext, and at B = 8) on
-    random residues.
+    multiply, the decrypt of the product, encrypt, and decrypt_batch,
+    encrypt_batch and multiply_batch at B = 8, with the batch ops also per
+    ciphertext;
+  - the device times of mul_by_ntt_operand (encrypt's u [3,1,n] against
+    pk [3,2,n]; batched at B = 8), tensor_product (the multiply's x, y
+    [3,2,n] on the t-folded tables; batched on views of a [8,3,4,n] stack),
+    bsk_branch_fused (single, and batched at B = 8) and decrypt_fused (on
+    views of a [3, 2, n] ciphertext, and at B = 8) on random residues; and
+    beside them bsk_branch_fused at the k8 configuration (log_q = 218,
+    kb = 10), and mul_by_ntt_operand and tensor_product (the Bsk side) at
+    the n < 1024 multiply's shapes (n = 256, log_q = 150, level 1);
+  - device_ms of multiply_no_relin, relinearize and multiply at the n < 1024
+    configuration (n = 256, log_q = 150, k = 5, h = 32; chip_smoke.py's
+    small phase);
+  - device_ms and wall_ms of the multiply at n = 16384 (the JAX bench's
+    g_n16384: log_q = 90, k = 3, seed 4; multiply_relin_ms_n16384 and, at
+    ks_omega = 2, multiply_relin_ms_n16384_omega2), null for a tree whose
+    multiply raises there.
 The timing methods are those of chip_smoke.py (device_ms, wall_ms).  Imports
 no JAX and nothing of fhe_tpu.
 """
@@ -29,6 +42,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import torch
@@ -37,8 +51,10 @@ TREE = Path(sys.argv[1] if len(sys.argv) > 1 else Path(__file__).resolve().paren
 sys.path.insert(0, str(TREE.resolve()))
 
 from fhe_tpu_torch import FHE  # noqa: E402
-from fhe_tpu_torch.ops import decrypt_cuda, rns_cuda  # noqa: E402
-from fhe_tpu_torch.ops import rns  # noqa: E402
+from fhe_tpu_torch.ops import decrypt_cuda, ntt_cuda, rns_cuda  # noqa: E402
+from fhe_tpu_torch.ops import ntt, rns  # noqa: E402
+from fhe_tpu_torch.params import SecurityParams, make_scheme_params  # noqa: E402
+from fhe_tpu_torch.scheme.context import make_context  # noqa: E402
 
 N, LOG_Q, H, BATCH = 8192, 90, 64, 8
 
@@ -82,9 +98,56 @@ def wall_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def residues(gen: torch.Generator, moduli, rows: int) -> torch.Tensor:
-    return torch.stack([torch.randint(0, int(p), (rows, N), generator=gen, device="cuda",
+def residues(gen: torch.Generator, moduli, rows: int, n: int = N) -> torch.Tensor:
+    return torch.stack([torch.randint(0, int(p), (rows, n), generator=gen, device="cuda",
                                       dtype=torch.int64) for p in moduli]).to(torch.int32)
+
+
+def quiet_context(n: int, log_q: int, h: int):
+    """The context of a configuration below 128-bit security at this n (the
+    warning silenced, as the JAX bench and tests do)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        prm = make_scheme_params(SecurityParams(poly_degree=n, log_q=log_q, hamming_weight=h))
+    return make_context(prm, device="cuda")
+
+
+def multiply_n16384(omega: int) -> dict | None:
+    """device_ms and wall_ms of the n = 16384 multiply at ks_omega = omega,
+    or None where this tree's multiply raises at that n."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        prm = make_scheme_params(SecurityParams(poly_degree=16384, log_q=LOG_Q,
+                                                hamming_weight=H, ks_omega=omega))
+    fhe = FHE(prm, seed=4, device="cuda")
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    a = fhe.encrypt(fhe.encode([5, 10]), pk)
+    b = fhe.encrypt(fhe.encode([3, 6]), pk)
+    try:
+        prod = fhe.multiply(a, b, rlk)
+    except ValueError as err:          # the parent: four rows per block
+        print(f"torch_ab: n=16384 multiply raised: {err}", file=sys.stderr)
+        return None
+    got = [int(v) for v in fhe.decode(fhe.decrypt(prod, sk))[:2]]
+    if got != [15, 60]:
+        raise RuntimeError(f"n=16384 multiply decoded {got}")
+    fn = lambda: fhe.multiply(a, b, rlk)
+    return {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
+
+
+def small_multiply() -> dict:
+    """device_ms of the n = 256 multiply and its halves at level 0."""
+    fhe = FHE(make_scheme_params(SecurityParams(poly_degree=256, log_q=150,
+                                                hamming_weight=32)), seed=29, device="cuda")
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    a = fhe.encrypt(fhe.encode([5, 10]), pk)
+    b = fhe.encrypt(fhe.encode([3, 6]), pk)
+    m3 = fhe.multiply_no_relin(a, b)
+    return {"multiply_no_relin": device_ms(lambda: fhe.multiply_no_relin(a, b)),
+            "relinearize": device_ms(lambda: fhe.relinearize(m3, rlk)),
+            "multiply": device_ms(lambda: fhe.multiply(a, b, rlk))}
 
 
 def main() -> int:
@@ -105,10 +168,14 @@ def main() -> int:
     got = [int(v) for v in fhe.decode(fhe.decrypt(prod, sk))[:4]]
     if got != [15, 60, 135, 240]:
         raise RuntimeError(f"multiply decoded {got}")
+    pt = fhe.encode([5, 10, 15, 20])
+    pts = [fhe.encode([5 + i, 10]) for i in range(BATCH)]
     ops = {"multiply_no_relin": lambda: fhe.multiply_no_relin(a, b),
            "relinearize": lambda: fhe.relinearize(m3, rlk),
            "multiply": lambda: fhe.multiply(a, b, rlk),
            "decrypt_after_multiply": lambda: fhe.decrypt(prod, sk),
+           "encrypt": lambda: fhe.encrypt(pt, pk),
+           "encrypt_batch_B8": lambda: fhe.encrypt_batch(pts, pk),
            "decrypt_batch_B8": lambda: fhe.decrypt_batch(cts_a, sk),
            "multiply_batch_B8": lambda: fhe.multiply_batch(cts_a, cts_b, rlk)}
     out = {"card": card, "tree": str(TREE), "device_ms": {}, "wall_ms": {}}
@@ -116,11 +183,11 @@ def main() -> int:
         out["device_ms"][name] = device_ms(fn)
         out["wall_ms"][name] = wall_ms(fn)
     for what in ("device_ms", "wall_ms"):
-        for name in ("decrypt_batch_B8", "multiply_batch_B8"):
+        for name in ("encrypt_batch_B8", "decrypt_batch_B8", "multiply_batch_B8"):
             out[what][name + "_per_ct"] = out[what][name] / BATCH
     ctx = fhe.ctx
     gen = torch.Generator(device="cuda").manual_seed(7)
-    qs, tbsk = ctx.ntt_q.primes, ctx.mul_tables[1]
+    qs, (tq, tbsk) = ctx.ntt_q.primes, ctx.mul_tables
     ab, tx_q = residues(gen, qs, 4), residues(gen, qs, 3)
     ab_b = residues(gen, qs, 4 * BATCH).view(3, BATCH, 4, N).transpose(0, 1)
     ab_b = ab_b.contiguous().permute(1, 2, 0, 3)
@@ -129,7 +196,15 @@ def main() -> int:
     s = residues(gen, qs, 1)
     c0, c1 = residues(gen, qs, BATCH), residues(gen, qs, BATCH)
     dc = rns.make_decrypt(qs, fhe.params.t, fhe.params.gamma, "cuda")
+    u, u_b = residues(gen, qs, 1), residues(gen, qs, BATCH)
+    x, y = residues(gen, qs, 2), residues(gen, qs, 2)
     kernels = {
+        "mul_by_ntt_operand": lambda: ntt_cuda.mul_by_ntt_operand(u, pk.data, ctx.ntt_q),
+        "mul_by_ntt_operand_batch_B8": lambda: ntt_cuda.mul_by_ntt_operand_batch(
+            u_b, pk.data, ctx.ntt_q),
+        "tensor_product": lambda: ntt_cuda.tensor_product(x, y, tq),
+        "tensor_product_batch_B8": lambda: ntt_cuda.tensor_product_batch(
+            ab_b[:, :2], ab_b[:, 2:], tq),
         "bsk_branch_fused": lambda: rns_cuda.bsk_branch_fused(
             ab, tx_q, ctx.smq, ctx.floor_c, tbsk),
         "bsk_branch_fused_batch_B8": lambda: rns_cuda.bsk_branch_fused_batch(
@@ -137,7 +212,22 @@ def main() -> int:
         "decrypt_fused": lambda: decrypt_cuda.decrypt_fused(
             ct[:, 0:1], ct[:, 1:2], s, ctx.ntt_q, dc),
         "decrypt_fused_B8": lambda: decrypt_cuda.decrypt_fused(c0, c1, s, ctx.ntt_q, dc)}
+    ctx8 = quiet_context(N, 218, H)
+    qs8, tbsk8 = ctx8.ntt_q.primes, ctx8.mul_tables[1]
+    ab8, tx8 = residues(gen, qs8, 4), residues(gen, qs8, 3)
+    kernels["bsk_branch_fused_k8"] = lambda: rns_cuda.bsk_branch_fused(
+        ab8, tx8, ctx8.smq, ctx8.floor_c, tbsk8)
+    ctx_s = quiet_context(256, 150, 32)
+    tq_s, tbsk_s = ntt.slice_tables(ctx_s.ntt_q, ctx_s.k - 1), ctx_s.mul_levels[1][1]
+    u_s, w_s = residues(gen, tq_s.primes, 1, 256), residues(gen, tq_s.primes, 2, 256)
+    lift_s = residues(gen, tbsk_s.primes, 4, 256)
+    kernels["mul_by_ntt_operand_n256"] = lambda: ntt_cuda.mul_by_ntt_operand(u_s, w_s, tq_s)
+    kernels["tensor_product_n256_bsk"] = lambda: ntt_cuda.tensor_product(
+        lift_s[:, :2], lift_s[:, 2:], tbsk_s)
     out["kernel_device_ms"] = {name: device_ms(fn) for name, fn in kernels.items()}
+    out["small_device_ms"] = small_multiply()
+    out["multiply_relin_ms_n16384"] = multiply_n16384(1)
+    out["multiply_relin_ms_n16384_omega2"] = multiply_n16384(2)
     print(json.dumps(out))
     return 0
 

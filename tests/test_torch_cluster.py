@@ -1,11 +1,13 @@
-"""Launch geometry of the cluster kernels, on the host: bsk_branch_fused
-(B5) and decrypt_fused (B8).
+"""Launch geometry of the cluster kernels, on the host: mul_by_ntt_operand
+(B3, B13), tensor_product (B4, B11), bsk_branch_fused (B5) and
+decrypt_fused (B8).
 
 The wrappers choose each launch's shape in plain Python (the C entry points
 take it as given), so the choices are held here without a card: B8's
-cluster size and primes per CTA, B5's CTAs per prime, threads and shared
-memory per CTA, and the shared-memory checks that decide which n each
-kernel takes.  tests/test_torch_cuda.py runs the kernels themselves."""
+cluster size and primes per CTA, B3's CTAs per (element, operand row,
+prime), B4's and B5's CTAs per prime, threads and shared memory per CTA,
+and the shared-memory checks that decide which n each kernel takes.
+tests/test_torch_cuda.py runs the kernels themselves."""
 
 import pytest
 
@@ -49,14 +51,55 @@ def test_n32768_does_not_fit_either_kernel():
         decrypt_cuda.decrypt_geometry(32768, k=3)
 
 
-def test_n16384_fits_b5_and_b8_but_not_tensor_product():
-    """At n = 16384, B5's two and B8's three padded rows fit a CTA; the
-    four rows of tensor_product (B4), the check its wrapper makes before
-    each launch, do not."""
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("c", [1, 2])
+@pytest.mark.parametrize("n", [256, 1024, 8192, 16384])
+def test_mul_by_ntt_operand_cluster_per_operand_row(n, c, batch):
+    """A cluster of 2 CTAs for each (element, operand row, prime), sharing
+    the row's transforms, each with one padded row of shared memory and a
+    thread per group of 16 of its half row: 12 CTAs for encrypt's pk * u
+    (k = 3, c = 2, B = 1), where one block per prime ran 3."""
+    geo = ntt_cuda.mul_by_ntt_operand_geometry(n, k=3, c=c, batch=batch)
+    assert geo["cluster"] == (2, 1, 1) and geo["ctas_per_row"] == 2
+    assert geo["grid"] == (2, c * batch, 3) and geo["ctas"] == 2 * c * batch * 3
+    assert geo["smem"] == 4 * (n + n // 32) <= MAX_SMEM
+    assert geo["threads"] == min(max(n // 32, 32), 512)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("n", [256, 1024, 8192, 16384])
+def test_tensor_product_cluster_per_prime(n, batch):
+    """B5's shape: a cluster of 8 CTAs, two per input row x0, x1, y0, y1,
+    for each (element, prime), two padded rows of shared memory each: 24
+    CTAs for the multiply's q side (k = 3), where one block per prime ran 3."""
+    geo = ntt_cuda.tensor_product_geometry(n, k=3, batch=batch)
+    assert geo == rns_cuda.bsk_branch_geometry(n, kb=3, batch=batch)
+    assert geo["cluster"] == (8, 1, 1) and geo["ctas_per_prime"] == 8
+    assert geo["grid"] == (8, batch, 3) and geo["ctas"] == 8 * batch * 3
+    assert geo["smem"] == 2 * 4 * (n + n // 32) <= MAX_SMEM
+
+
+def test_n16384_fits_b3_b4_b5_and_b8_but_not_b4_at_n32768():
+    """At n = 16384, B3's one, B4's and B5's two and B8's three padded rows
+    fit a CTA, so the whole multiply runs there; B4's two rows at n = 32768
+    do not (B3's one row does)."""
+    assert ntt_cuda.mul_by_ntt_operand_geometry(16384, k=3, c=2)["smem"] == 67584
+    assert ntt_cuda.tensor_product_geometry(16384, k=3)["smem"] == 135168
     assert rns_cuda.bsk_branch_geometry(16384, kb=5)["smem"] == 135168
     assert decrypt_cuda.decrypt_geometry(16384, k=3)["smem"] == 202752
-    with pytest.raises(ValueError, match="tensor_product: n=16384"):
-        ntt_cuda.check_smem(16384, 4, "tensor_product")
+    with pytest.raises(ValueError, match="tensor_product: n=32768"):
+        ntt_cuda.tensor_product_geometry(32768, k=3)
+    assert ntt_cuda.mul_by_ntt_operand_geometry(32768, k=3, c=2)["smem"] == 135168
+
+
+@pytest.mark.parametrize("n", [2, 16])
+def test_cluster_ntt_kernels_need_n_of_32(n):
+    """The register-blocked sweep takes n >= 32: B3 and B4 raise below, as
+    B5 and B8 do, before any launch."""
+    with pytest.raises(ValueError, match="mul_by_ntt_operand: n=.* below 32"):
+        ntt_cuda.mul_by_ntt_operand_geometry(n, k=3, c=2)
+    with pytest.raises(ValueError, match="tensor_product: n=.* below 32"):
+        ntt_cuda.tensor_product_geometry(n, k=3)
 
 
 @pytest.mark.parametrize("n,threads,split_threads", [
@@ -78,7 +121,11 @@ def test_register_sweep_needs_n_of_32():
 
 
 def test_batch_outside_the_grid_raises():
+    with pytest.raises(ValueError, match="batch"):
+        ntt_cuda.mul_by_ntt_operand_geometry(8192, k=3, c=2, batch=32768)
     for batch in (0, 65536):
+        with pytest.raises(ValueError, match="batch"):
+            ntt_cuda.tensor_product_geometry(8192, k=3, batch=batch)
         with pytest.raises(ValueError, match="batch"):
             rns_cuda.bsk_branch_geometry(8192, kb=5, batch=batch)
         with pytest.raises(ValueError, match="batch"):

@@ -7,6 +7,7 @@ imports neither JAX nor fhe_tpu, so it also runs where JAX is absent:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 """
 
+import functools
 import warnings
 
 import numpy as np
@@ -424,12 +425,109 @@ def test_decrypt_cluster_kernel_matches_plain(dev, n, log_q, t, level, batch):
                        decrypt_cuda.decrypt_fused_plain(*args))
 
 
-def test_multiply_n16384_raises_in_tensor_product(dev):
-    """B5 and B8 fit at n = 16384; the multiply still stops in B4, whose
-    four rows per block do not."""
-    fhe = FHE(_quiet_params(16384, 90), seed=4, device=dev)
+# ---------------------------------------------------------------------------
+# mul_by_ntt_operand and tensor_product as thread-block clusters with the
+# register-blocked sweep, and the n = 16384 multiply they let run
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_ctx(n, log_q, t, dev):
+    return make_context(_quiet_params(n, log_q, plain_modulus=t), device=dev)
+
+
+def _level_tables(ctx, level, tables):
+    """The level-L tables a path passes: "q" the q primes' row views (encrypt,
+    decrypt), "mul" the t-folded q tables (the multiply), "bsk" the
+    t-folded Bsk suffix, mid-tensor (the n < 1024 multiply)."""
+    if tables == "q":
+        return tntt.slice_tables(ctx.ntt_q, ctx.k - level)
+    return ctx.mul_levels[level][0 if tables == "mul" else 1]
+
+
+# (n, log_q, t, level, batch, tables): n = 256 (k = 5), 8192 and 16384;
+# level 1 of k = 3 and level 2 of k = 8 (row views of the tables); t = 786433
+# (t-folded n^-1); B = 1, 2 and 8 (None: the single function)
+PRODUCT_CASES = [(256, 150, 65537, 0, None, "q"), (256, 150, 65537, 1, None, "bsk"),
+                 (256, 150, 65537, 1, BATCH, "mul"), (N, 90, 65537, 0, None, "q"),
+                 (N, 90, 65537, 0, None, "mul"), (N, 90, 65537, 1, 2, "mul"),
+                 (N, 218, 65537, 2, None, "q"), (N, 218, 65537, 2, BATCH, "mul"),
+                 (N, 90, 786433, 0, None, "mul"), (N, 90, 786433, 0, BATCH, "mul"),
+                 (16384, 90, 65537, 0, None, "q"), (16384, 90, 65537, 0, 2, "mul"),
+                 (16384, 90, 786433, 0, BATCH, "mul")]
+
+
+@pytest.mark.parametrize("c", [1, 2])
+@pytest.mark.parametrize("n,log_q,t,level,batch,tables", PRODUCT_CASES)
+def test_mul_by_ntt_operand_cluster_kernel_matches_plain(dev, n, log_q, t, level, batch,
+                                                         tables, c):
+    """u read in place as one component of a [k, B, 2, n] stack (the decrypt
+    of a 3-component ciphertext passes such a view), against c operand
+    rows."""
+    tb = _level_tables(_cached_ctx(n, log_q, t, dev), level, tables)
+    rows = batch or 1
+    u = _residues(tb.primes, 2 * rows, dev, n).view(tb.k, rows, 2, n)[:, :, 1]
+    w = _residues(tb.primes, c, dev, n)
+    if batch is None:
+        assert torch.equal(ntt_cuda.mul_by_ntt_operand(u, w, tb),
+                           tntt.mul_by_ntt_operand(u, w, tb))
+    else:
+        assert torch.equal(ntt_cuda.mul_by_ntt_operand_batch(u, w, tb),
+                           tntt.mul_by_ntt_operand_batch(u, w, tb))
+
+
+@pytest.mark.parametrize("n,log_q,t,level,batch,tables", PRODUCT_CASES)
+def test_tensor_product_cluster_kernel_matches_plain(dev, n, log_q, t, level, batch,
+                                                     tables):
+    """The single function on two tensors (the multiply) or on the halves of
+    one [k, 4, n] tensor (the n < 1024 multiply's Bsk side); the batch form
+    on views of a [B, k, 4, n] stack (multiply_batch)."""
+    tb = _level_tables(_cached_ctx(n, log_q, t, dev), level, tables)
+    if batch is None:
+        if tables == "bsk":
+            lift = _residues(tb.primes, 4, dev, n)
+            x, y = lift[:, :2], lift[:, 2:]
+        else:
+            x, y = _residues(tb.primes, 2, dev, n), _residues(tb.primes, 2, dev, n)
+        assert torch.equal(ntt_cuda.tensor_product(x, y, tb), tntt.tensor_product(x, y, tb))
+    else:
+        stack = _residues(tb.primes, 4 * batch, dev, n).view(tb.k, batch, 4, n)
+        ab = stack.transpose(0, 1).contiguous().permute(1, 2, 0, 3)
+        assert torch.equal(ntt_cuda.tensor_product_batch(ab[:, :2], ab[:, 2:], tb),
+                           tntt.tensor_product_batch(ab[:, :2], ab[:, 2:], tb))
+
+
+@pytest.mark.parametrize("prereduced", [False, True])
+def test_keyswitch_kernel_n16384_matches_plain(dev, prereduced):
+    """B7 and B12, whose three rows per block fit at n = 16384, at that n (the
+    relinearization of the n = 16384 multiply): kd = 3 digits of k = 3
+    primes, or the grouped gadget's kd = 2 prereduced digits."""
+    tb = _cached_ctx(16384, 90, 65537, dev).ntt_q
+    qs, kd = tb.primes, 2 if prereduced else 3
+    keys_t = torch.stack([_residues(qs, 2, dev, 16384) for _ in range(kd)]).permute(1, 0, 2, 3)
+    if prereduced:
+        d = _residues(qs, kd * 2, dev, 16384).view(3, kd, 2, 16384)
+    else:
+        d = torch.stack([_residues((q,), 2, dev, 16384)[0] for q in qs])
+    assert torch.equal(ntt_cuda.keyswitch_fused(d[..., 0, :], keys_t, tb, prereduced),
+                       tntt.keyswitch_fused(d[..., 0, :], keys_t, tb, prereduced))
+    assert torch.equal(ntt_cuda.keyswitch_fused_batch(d, keys_t, tb, prereduced),
+                       tntt.keyswitch_fused_batch(d, keys_t, tb, prereduced))
+
+
+@pytest.mark.parametrize("omega", [1, 2])
+def test_multiply_n16384_on_card_matches_cpu(dev, omega):
+    """The JAX bench's g_n16384 (bench.py: log_q = 90, k = 3, seed 4) at
+    ks_omega = 1 and 2: [5, 10] x [3, 6] decodes [15, 60], and the card's
+    product equals the plain path's on the CPU bit for bit."""
+    fhe = FHE(_quiet_params(16384, 90, ks_omega=omega), seed=4, device=dev)
     pk, sk = fhe.keygen()
-    ct = fhe.encrypt(fhe.encode([5, 10]), pk)
-    assert list(fhe.decode(fhe.decrypt(ct, sk))[:2]) == [5, 10]
-    with pytest.raises(ValueError, match="^tensor_product: n=16384"):
-        fhe.multiply_no_relin(ct, ct)
+    rlk = fhe.relinkey_gen(sk)
+    a = fhe.encrypt(fhe.encode([5, 10]), pk)
+    b = fhe.encrypt(fhe.encode([3, 6]), pk)
+    prod = fhe.multiply(a, b, rlk)
+    assert list(fhe.decode(fhe.decrypt(prod, sk))[:2]) == [15, 60]
+    cpu = make_context(fhe.params, device="cpu")
+    to_cpu = lambda ct: ct.replace(data=ct.data.cpu())
+    want = bfv.multiply(cpu, to_cpu(a), to_cpu(b), RelinKeys(data=rlk.data.cpu()))
+    assert torch.equal(prod.data.cpu(), want.data)
