@@ -11,12 +11,14 @@ Phases, each printing its own lines:
      0), with device times (CUDA
      events, median of 25 launches after warm-up), the plain version's time
      and the least time the card could take (bound); then the launch shape
-     of each cluster kernel (mul_by_ntt_operand, tensor_product,
-     bsk_branch_fused, decrypt_fused and their batch forms: grid, cluster,
-     CTAs, threads, shared memory) at n = 8192 and 16384, and n = 16384
-     (the JAX bench's g_n16384, log_q = 90, k = 3, seed 4): the multiply at
-     ks_omega = 1 and 2 decodes [15, 60], equals the CPU plain path and
-     launched each of its kernels, with its device and wall ms;
+     of each cluster kernel (ntt_forward, mul_by_ntt_operand,
+     tensor_product, bsk_branch_fused, keyswitch_fused, decrypt_fused and
+     their batch forms: grid, cluster, CTAs, threads, shared memory) at
+     n = 8192 and 16384, and n = 16384 (the JAX bench's g_n16384,
+     log_q = 90, k = 3, seed 4): the multiply at ks_omega = 1 and 2 decodes
+     [15, 60], equals the CPU plain path and launched each of its kernels,
+     with its device and wall ms; and n = 32768 (the bench's g_n32768, seed
+     5): ntt_forward equals its plain twin, forward_ntt_ms_n32768;
   4. slice: the linear-ops main path through the FHE facade at n = 8192,
      log_q = 90 (k = 3), h = 64: keygen, encode, encrypt, add, add_plain and
      the 8-term resident plaintext multiply-accumulate, then decrypt and
@@ -93,7 +95,10 @@ and 2; bsk_branch_fused (single and batched) at k = 8 (kb = 10), B = 8,
 level views (the Bsk suffix mid-tensor), t = 786433 tables, n = 256 (k = 5,
 batched) and n = 16384, decrypt_fused at k = 8, k = 12 (more primes than a
 cluster's 8 CTAs), B = 8, level views, t = 786433, n = 256 and n = 16384;
-and keyswitch_fused (both lanes, single and batched) at n = 16384.
+ntt_forward at n = 256, 16384, level views, keygen's [k, 3, n] and mod
+t = 786433 at B = 1 and 16; and keyswitch_fused (both lanes, single and
+batched) at kd = 1, 2, 3, 6 and 8 (k = 8: two digits per pair), the
+prereduced kd = 4 and 3, level views, n = 256 and n = 16384, B = 1, 2, 8.
 The line before the last is {"kernels": [...]}, each kernel with its launches
 on its own path (phase 4 to 11); the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; without
@@ -111,9 +116,10 @@ import sys
 import time
 import warnings
 
+import numpy as np
 import torch
 
-from fhe_tpu_torch import FHE
+from fhe_tpu_torch import FHE, primes
 from fhe_tpu_torch.ops import _build, decrypt_cuda, galois_cuda, ntt_cuda, rns_cuda
 from fhe_tpu_torch.ops import galois as plain_galois
 from fhe_tpu_torch.ops import ntt as plain_ntt
@@ -329,14 +335,14 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ntt_work(k: int, batch: int, inverse: bool) -> tuple[float, float]:
-    """(bytes, ops) of one [k, batch, N] transform: rows in and out, one
+def ntt_work(k: int, batch: int, inverse: bool, n: int = N) -> tuple[float, float]:
+    """(bytes, ops) of one [k, batch, n] transform: rows in and out, one
     twiddle table and its Shoup companions per prime."""
-    logn = N.bit_length() - 1
-    ops = k * batch * (N // 2) * logn * OPS_BUTTERFLY
+    logn = n.bit_length() - 1
+    ops = k * batch * (n // 2) * logn * OPS_BUTTERFLY
     if inverse:
-        ops += k * batch * N * OPS["mul_shoup"]
-    return 4 * (2 * k * batch * N + 2 * k * N), ops
+        ops += k * batch * n * OPS["mul_shoup"]
+    return 4 * (2 * k * batch * n + 2 * k * n), ops
 
 
 def mul_work(k: int, c: int, batch: int = 1, n: int = N) -> tuple[float, float]:
@@ -541,11 +547,16 @@ def residues(gen: torch.Generator, moduli, rows: int, n: int | None = None) -> t
                         for p in moduli]).to(torch.int32)
 
 
-def phase_device() -> None:
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
-    print(smi.strip().splitlines()[0])
+    return smi.strip().splitlines()[0]
+
+
+def phase_device() -> None:
+    print(card_name())
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout
     info = {"device": torch.cuda.get_device_name(0),
@@ -762,9 +773,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
                   lambda: rns_cuda.fast_floor_fused(txq_s, txb_s, fc_s),
                   lambda: rns.fast_floor(txq_s, txb_s, fc_s),
                   fast_floor_work(4, len(bsk_s), 3 * 256)))
-    # the cluster kernels B3/B13, B4/B11, B5 and B8 around the main path's
-    # shapes (n = 256, 16384, level views, t = 786433, batches), and B7/B12
-    # at n = 16384
+    # the cluster kernels B1, B3/B13, B4/B11, B5, B7/B12 and B8 around the
+    # main path's shapes (n = 256, 16384, level views, t = 786433, batches)
     cases += cluster_cases(gen, ctx, ctx_s)
     # the modmul roofline probe (B19) on the JAX bench's [256, 8192] block
     x_m, consts = chain_input(gen, ctx)
@@ -877,30 +887,70 @@ def product_case(gen: torch.Generator, ctx, level: int, kind: str, batch: int | 
             tensor_product_work(tb.k, batch, n))
 
 
-def keyswitch_cases_n16384(gen: torch.Generator, ctx16) -> list:
-    """B7 and B12, three rows per block, at n = 16384 (the n = 16384
-    multiply's relinearization): kd = 3 digits, and the grouped gadget's
-    kd = 2 prereduced ones (ks_omega = 2)."""
-    n, tb = 16384, ctx16.ntt_q
-    qs, k = tb.primes, tb.k
-    cases = []
-    for prereduced, kd in ((False, 3), (True, 2)):
-        keys = torch.stack([residues(gen, qs, 2, n) for _ in range(kd)]).permute(1, 0, 2, 3)
-        if prereduced:
-            d = residues(gen, qs, kd * 2, n).view(k, kd, 2, n)
-        else:
-            d = torch.stack([residues(gen, (q,), 2, n)[0] for q in qs])     # [kd, 2, n]
-        lane = "prereduced " if prereduced else ""
-        for name, dd, batch in (("keyswitch_fused", d[..., 0, :], 1),
-                                ("keyswitch_fused_batch", d, 2)):
-            cases.append((name + ("_prereduced" if prereduced else ""),
-                          f"n=16384: {lane}d {list(dd.shape)}, keys [{k},{kd},2,{n}]",
-                          lambda f=getattr(ntt_cuda, name), dd=dd, keys=keys, pr=prereduced:
-                              f(dd, keys, tb, pr),
-                          lambda f=getattr(plain_ntt, name), dd=dd, keys=keys, pr=prereduced:
-                              f(dd, keys, tb, pr),
-                          keyswitch_work(k, kd, batch, prereduced, n)))
-    return cases
+def keyswitch_case(gen: torch.Generator, ctx, level: int, kd: int, batch: int | None,
+                   prereduced: bool, label: str):
+    """A keyswitch_fused case (batch None) or a keyswitch_fused_batch one on
+    ctx's level-L tables (row views): keys in the stored [kd, k, 2, n] layout
+    read through the prime-major view; digit j mod its own q_j ([kd, B, n]),
+    or per-prime residues ([k, kd, B, n]) in the prereduced lane."""
+    tb, n = level_tables(ctx, level, "q"), ctx.n
+    qs, k, rows = tb.primes, tb.k, batch or 1
+    keys = torch.stack([residues(gen, qs, 2, n) for _ in range(kd)]).permute(1, 0, 2, 3)
+    if prereduced:
+        d = residues(gen, qs, kd * rows, n).view(k, kd, rows, n)
+    else:
+        d = torch.stack([residues(gen, (q,), rows, n)[0] for q in qs[:kd]])
+    if batch is None:
+        d = d[..., 0, :]
+    name = "keyswitch_fused" if batch is None else "keyswitch_fused_batch"
+    lane = "_prereduced" if prereduced else ""
+    return (name + lane, f"{label}: d {list(d.shape)}, keys [{k},{kd},2,{n}] (kd={kd})",
+            lambda: getattr(ntt_cuda, name)(d, keys, tb, prereduced),
+            lambda: getattr(plain_ntt, name)(d, keys, tb, prereduced),
+            keyswitch_work(k, kd, rows, prereduced, n))
+
+
+def ntt_forward_case(gen: torch.Generator, tb, batch: int, label: str):
+    """An ntt_forward case on tb (a level's row views, or a table mod t)."""
+    n = tb.n
+    x = residues(gen, tb.primes, batch, n)
+    return ("ntt_forward", f"{label}: [{tb.k},{batch},{n}]",
+            lambda: ntt_cuda.ntt_forward(x, tb), lambda: plain_ntt.ntt_forward(x, tb),
+            ntt_work(tb.k, batch, False, n))
+
+
+def forward_and_keyswitch_cases(gen: torch.Generator, ctx, ctx_s, ctx8, ctx16) -> list:
+    """B1 and B7/B12 around the main path's shapes: B1 at n = 256 (k = 5),
+    16384, level views (level 2 of n = 256, level 1 of k = 3, level 2 of
+    k = 8), keygen's [k, 3, n], mod t = 786433 at B = 1 and 16; B7/B12 at
+    kd = 1 (the top level), 2 and 3 (k = 3), 8 and 6 (k = 8, two digits per
+    pair), the prereduced kd = 4 and 3 (k8_omega, its level 2), n = 256 at
+    levels 0, 2 and 4, n = 16384, B = 1, 2 and 8."""
+    tt = plain_ntt.build_tables(N, (786433,), "cuda")
+    return [ntt_forward_case(gen, level_tables(ctx_s, 0, "q"), 1, "n=256, k=5"),
+            ntt_forward_case(gen, level_tables(ctx_s, 2, "q"), 3, "level 2 of n=256, k=5"),
+            ntt_forward_case(gen, level_tables(ctx, 0, "q"), 3, "keygen's rows"),
+            ntt_forward_case(gen, level_tables(ctx, 1, "q"), 16, "level 1 of k=3"),
+            ntt_forward_case(gen, level_tables(ctx8, 2, "q"), 3, "level 2 of k=8"),
+            ntt_forward_case(gen, tt, 1, "t=786433"),
+            ntt_forward_case(gen, tt, 16, "t=786433"),
+            ntt_forward_case(gen, level_tables(ctx16, 0, "q"), 1, "n=16384"),
+            ntt_forward_case(gen, level_tables(ctx16, 0, "q"), 16, "n=16384"),
+            keyswitch_case(gen, ctx, 0, 3, 2, False, "k=3"),
+            keyswitch_case(gen, ctx, 2, 1, None, False, "level 2 of k=3"),
+            keyswitch_case(gen, ctx, 2, 1, BATCH, False, "level 2 of k=3"),
+            keyswitch_case(gen, ctx, 1, 2, None, False, "level 1 of k=3"),
+            keyswitch_case(gen, ctx8, 0, 8, None, False, "k=8"),
+            keyswitch_case(gen, ctx8, 0, 8, BATCH, False, "k=8"),
+            keyswitch_case(gen, ctx8, 2, 6, 2, False, "level 2 of k=8"),
+            keyswitch_case(gen, ctx8, 2, 3, 2, True, "level 2 of k=8"),
+            keyswitch_case(gen, ctx_s, 0, 5, None, False, "n=256, k=5"),
+            keyswitch_case(gen, ctx_s, 2, 3, BATCH, False, "level 2 of n=256, k=5"),
+            keyswitch_case(gen, ctx_s, 4, 1, None, False, "level 4 of n=256, k=5"),
+            keyswitch_case(gen, ctx16, 0, 3, None, False, "n=16384"),
+            keyswitch_case(gen, ctx16, 0, 3, 2, False, "n=16384"),
+            keyswitch_case(gen, ctx16, 0, 2, None, True, "n=16384"),
+            keyswitch_case(gen, ctx16, 0, 2, 2, True, "n=16384")]
 
 
 def cluster_cases(gen: torch.Generator, ctx, ctx_s) -> list:
@@ -908,8 +958,8 @@ def cluster_cases(gen: torch.Generator, ctx, ctx_s) -> list:
     at n = 256 (k = 5), 8192 and 16384, level views (level 1 of k = 3, level
     2 of k = 8; the Bsk suffix at n = 256), t = 786433 tables, B = 1, 2 and
     8, B3 on strided views and with C = 1 and 2; B5 and B8 at k = 8, B = 8,
-    level 1, t = 786433, n = 256 and n = 16384 (B8 also at k = 12); B7 and
-    B12 at n = 16384, which they fit but no other case runs."""
+    level 1, t = 786433, n = 256 and n = 16384 (B8 also at k = 12); B1 and
+    B7/B12 (forward_and_keyswitch_cases)."""
     ctx8 = make_context(params_leveled(), device="cuda")
     ctx_t = make_context(quiet_params(N, LOG_Q, plain_modulus=786433), device="cuda")
     ctx16 = make_context(quiet_params(16384, LOG_Q), device="cuda")
@@ -959,15 +1009,22 @@ def cluster_cases(gen: torch.Generator, ctx, ctx_s) -> list:
             decrypt_case(gen, ctx_t.params, 0, BATCH, "k=3"),
             decrypt_case(gen, ctx_s.params, 2, BATCH, "level 2 of n=256, k=5"),
             decrypt_case(gen, ctx16.params, 0, 1, "n=16384"),
-            decrypt_case(gen, ctx16.params, 0, BATCH, "n=16384")] + keyswitch_cases_n16384(
-                gen, ctx16)
+            decrypt_case(gen, ctx16.params, 0, BATCH, "n=16384")] + forward_and_keyswitch_cases(
+                gen, ctx, ctx_s, ctx8, ctx16)
 
 
 def phase_geometry() -> None:
     """The launch shape of each cluster kernel at the main path's shapes
-    (n = 8192, k = 3, kb = 5; c = 2 operand rows; B = 8) and at n = 16384."""
+    (n = 8192, k = 3, kb = 5; c = 2 operand rows; kd = 3; B = 8; keygen's
+    three rows) and at n = 16384; keyswitch_fused at k = 8 (kd = 8, and
+    the prereduced kd = 4) and ntt_forward at n = 32768."""
     for n in (N, 16384):
-        for name, geo in (("mul_by_ntt_operand", ntt_cuda.mul_by_ntt_operand_geometry(n, 3, 2)),
+        for name, geo in (("ntt_forward", ntt_cuda.ntt_forward_geometry(n, 3)),
+                          ("ntt_forward keygen", ntt_cuda.ntt_forward_geometry(n, 3, 3)),
+                          ("keyswitch_fused", ntt_cuda.keyswitch_geometry(n, 3, 3)),
+                          ("keyswitch_fused_batch",
+                           ntt_cuda.keyswitch_geometry(n, 3, 3, BATCH)),
+                          ("mul_by_ntt_operand", ntt_cuda.mul_by_ntt_operand_geometry(n, 3, 2)),
                           ("mul_by_ntt_operand_batch",
                            ntt_cuda.mul_by_ntt_operand_geometry(n, 3, 2, BATCH)),
                           ("tensor_product", ntt_cuda.tensor_product_geometry(n, 3)),
@@ -980,6 +1037,11 @@ def phase_geometry() -> None:
                           ("decrypt_fused_batch",
                            decrypt_cuda.decrypt_geometry(n, 3, BATCH))):
             print(f"phase geometry {name} n={n}", json.dumps(geo))
+    for name, n, geo in (("keyswitch_fused k=8 kd=8", N, ntt_cuda.keyswitch_geometry(N, 8, 8)),
+                         ("keyswitch_fused_prereduced k=8 kd=4", N,
+                          ntt_cuda.keyswitch_geometry(N, 8, 4)),
+                         ("ntt_forward", 32768, ntt_cuda.ntt_forward_geometry(32768, 3))):
+        print(f"phase geometry {name} n={n}", json.dumps(geo))
 
 
 # the kernels of the n = 16384 multiply and of what makes and checks its
@@ -1023,6 +1085,25 @@ def phase_n16384() -> None:
     print("phase n16384 check: the multiply decoded [15, 60] at ks_omega 1 and 2; card == "
           "CPU plain path")
     print("phase n16384", json.dumps(times))
+
+
+def phase_n32768() -> None:
+    """n = 32768, the JAX bench's g_n32768 (bench.py:932-945): 3 NTT primes
+    for n = 32768, one [1, 32768] row per prime from numpy seed 5; ntt_forward
+    equals its plain twin on the card, and its device and wall ms print under
+    the bench's metric name beside the card's name and power limit."""
+    ps = primes.find_ntt_primes(32768, 3)
+    x = np.stack([np.random.default_rng(5).integers(0, p, (1, 32768), dtype=np.uint32)
+                  for p in ps])
+    tb = plain_ntt.build_tables(32768, ps, "cuda")
+    a = torch.from_numpy(x.astype(np.int32)).to("cuda")
+    got, want = ntt_cuda.ntt_forward(a, tb), plain_ntt.ntt_forward(a, tb)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "n=32768 ntt_forward differs from its plain twin")
+    fn = lambda: ntt_cuda.ntt_forward(a, tb)
+    print("phase n32768 check: ntt_forward of g_n32768's [3,1,32768] equals its plain twin")
+    print("phase n32768", json.dumps({"card": card_name(), "forward_ntt_ms_n32768": {
+        "device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}}))
 
 
 def run_slice(fhe: FHE):
@@ -1788,6 +1869,7 @@ def main() -> int:
     results = phase_kernels(gen)
     phase_geometry()
     phase_n16384()
+    phase_n32768()
     launches = {"slice": phase_slice(), "multiply": phase_multiply(),
                 "serving": phase_serving(), "hoisted": phase_hoisted(),
                 "omega": phase_omega(), "leveled": phase_leveled(),

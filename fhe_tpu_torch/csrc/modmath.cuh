@@ -169,7 +169,10 @@ __device__ __forceinline__ uint32_t reduce_barrett(uint32_t x, uint32_t p,
 }
 
 // Forward negacyclic NTT of one polynomial of n = 2^logn residues at a[]
-// (shared memory), in place: merged-psi Cooley-Tukey, natural order in,
+// (shared memory), in place (no kernel runs it any more: it is the one-stage
+// side of scripts/ntt_sweep_bench.cu's comparison, and goes with
+// inv_ntt_smem once ntt_inverse and ks_inner move to the register-blocked
+// sweep): merged-psi Cooley-Tukey, natural order in,
 // bit-reversed out.  Stage m (m = 1, 2, ..., n/2) pairs j1 = 2*g*t + r with
 // j2 = j1 + t, t = n / (2m), twiddle psi_br[m + g].  All threads of the
 // block take part; the caller synchronises after filling a[], and the sweep
@@ -236,8 +239,8 @@ inline int ntt_threads(int logn) {
 }
 
 // ---------------------------------------------------------------------------
-// The register-blocked sweep (mul_by_ntt_operand, tensor_product,
-// bsk_branch_fused and decrypt_fused).
+// The register-blocked sweep (ntt_forward, mul_by_ntt_operand,
+// tensor_product, keyswitch_fused, bsk_branch_fused and decrypt_fused).
 //
 // The same butterflies as fwd_ntt_smem / inv_ntt_smem, grouped so that a
 // thread runs up to kRegLog stages on 2^kRegLog coefficients in registers
@@ -323,6 +326,23 @@ __device__ __forceinline__ void load_twiddles(const uint32_t* __restrict__ w, in
     v[1] = t.y;
   } else {
     v[0] = __ldg(w + idx);
+  }
+}
+
+// The words v[0 .. CNT) to dst[idx .. idx + CNT), a run that starts at a
+// multiple of CNT in a 16-byte aligned row: 16-byte (or 8-byte) stores
+// where CNT allows, the mirror of load_twiddles.
+template <int CNT>
+__device__ __forceinline__ void store_run(uint32_t* __restrict__ dst, int idx,
+                                          const uint32_t (&v)[CNT]) {
+  if constexpr (CNT >= 4) {
+#pragma unroll
+    for (int c = 0; c < CNT; c += 4)
+      *reinterpret_cast<uint4*>(dst + idx + c) = make_uint4(v[c], v[c + 1], v[c + 2], v[c + 3]);
+  } else if constexpr (CNT == 2) {
+    *reinterpret_cast<uint2*>(dst + idx) = make_uint2(v[0], v[1]);
+  } else {
+    dst[idx] = v[0];
   }
 }
 

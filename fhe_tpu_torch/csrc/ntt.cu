@@ -52,11 +52,34 @@
 // call (PERF.md).  So a change to the product or to the pass schedule
 // is made in both kernels.
 //
-// ntt_forward, ntt_inverse, keyswitch_fused (the relinearization) and
-// ks_inner_batch / ks_inner_grouped still run the one-stage sweep
-// fwd_ntt_smem / inv_ntt_smem: one block per (element, prime) holds the
-// polynomials of the step in shared memory (32 KB each at n = 8192) from
-// the first forward stage to the last inverse one, runs all log2(n)
+// keyswitch_fused (the relinearization and every key switch of a rotation)
+// and ntt_forward (every domain change: keygen, the key generators, the
+// plaintext operand, key down-switching, the hoisted digits) run the same
+// clusters, every row split over two CTAs.  keyswitch_fused is B3's forward
+// with a fused product done kd times, then B4's DSMEM sum and split
+// inverse: a cluster of 2R CTAs per (element, prime), R = clamp(kd, 2, 4)
+// digit pairs; pair r transforms digits r, r + R, ... and keeps, for its
+// half of the positions, two partial sums of digit x key (output rows 0 and
+// 1) in its own shared memory; after a cluster barrier pairs 0 and 1 sum
+// the R partials of their output row through distributed shared memory and
+// run its inverse.  At kd = 3 that is 18 CTAs where one block per prime
+// (3 in all) ran three one-stage forwards and a two-row inverse in series.
+// R stops at 4, a cluster of 8 (the portable size): at kd = 8 a cluster of
+// 16, one digit per pair, was 2.5 % faster alone and 35 % slower at B = 8.
+// ntt_forward is B3's split forward alone: a cluster of 2 CTAs per (row,
+// prime), the load fused into the first pass and the store into the last
+// (one CTA per row was slower at every B measured, up to 48 rows).
+//
+// The register-blocked kernels are large: 4 K (ntt_forward) to 11 K
+// (keyswitch_fused) SASS instructions, against 0.1-0.7 K for the one-stage
+// ones, and each warp runs a pass's straight-line code once or twice.  So a
+// kernel that follows another one of them on the same SMs fetches its code
+// cold: keyswitch_fused takes 2.5 us more behind tensor_product at n = 8192,
+// 4.3 us more at n = 256, and nothing more behind ntt_inverse (PERF.md).
+//
+// ntt_inverse and ks_inner_batch / ks_inner_grouped still run the one-stage
+// sweep inv_ntt_smem: one block per (element, prime) holds the polynomials
+// of the step in shared memory (32 KB each at n = 8192), runs all log2(n)
 // radix-2 stages with a __syncthreads() between them, and transforms its
 // rows together, so one barrier per stage serves 2 rows (the key-switch
 // accumulators).  At n = 8192, k = 3 they run on k * B blocks, one per SM,
@@ -71,8 +94,8 @@
 // digit stack shared by all elements, or by the E elements of one
 // ciphertext, is read in place and never repeated in memory, nor are the
 // keys tiled.  A block reads kd digit rows and 2 kd key rows and runs 13
-// inverse stages on 2 rows; like the key switch it is bound by the issue
-// rate of the k * B SMs it runs on (bound and times: PERF.md).
+// inverse stages on 2 rows; it is bound by the issue rate of the k * B SMs
+// it runs on (bound and times: PERF.md).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -86,26 +109,48 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-// CTAs per row of mul_by_ntt_operand and tensor_product, and per cluster
-// of tensor_product, one pair per input row x0, x1, y0, y1 (ops/ntt_cuda.py:
-// ROW_SPLIT, PRODUCT_CLUSTER)
+// CTAs per row of every cluster kernel here, per cluster of tensor_product
+// (one pair per input row x0, x1, y0, y1), and the most digit pairs of a
+// keyswitch_fused cluster (ops/ntt_cuda.py: ROW_SPLIT, PRODUCT_CLUSTER,
+// KEYSWITCH_PAIRS)
 constexpr int kRowSplit = 2;
 constexpr int kProductCluster = 4 * kRowSplit;
+constexpr int kKeyswitchPairs = 4;
 
-// x, y: [k, batch, n]; block (b, i) transforms row (i, b) with prime i.
-__global__ void __launch_bounds__(1024)
+// Cluster (b, i) of 2 CTAs: y[i, b] = NTT(x[i, b]) for x, y [k, batch, n],
+// grid (2 * batch, k) in clusters of (2, 1, 1).  CTA h runs half of each
+// pass (modmath.cuh's RowSplit note): it loads its columns of the row in the
+// first pass and stores positions [h n/2, (h+1) n/2), 16 consecutive words
+// per group, in the last.  Shared memory: one padded row.
+__global__ void __launch_bounds__(512)
 ntt_forward_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                    const uint32_t* __restrict__ p, const uint32_t* __restrict__ psi,
                    const uint32_t* __restrict__ psi_sh, int batch, int logn) {
   extern __shared__ uint32_t a[];
+  cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
+  const int b = blockIdx.x / kRowSplit;
   const int i = blockIdx.y;
-  const size_t row = (static_cast<size_t>(i) * batch + blockIdx.x) * n;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) a[j] = x[row + j];
-  __syncthreads();
-  fhe::fwd_ntt_smem(a, logn, p[i], psi + static_cast<size_t>(i) * n,
-                    psi_sh + static_cast<size_t>(i) * n);
-  for (int j = threadIdx.x; j < n; j += blockDim.x) y[row + j] = a[j];
+  const size_t tab = static_cast<size_t>(i) * n;
+  const size_t row = (static_cast<size_t>(i) * batch + b) * n;
+  const uint32_t* src = x + row;
+  uint32_t* dst = y + row;
+  static_assert(kRowSplit == 2, "the split below names both CTAs of a row");
+  const fhe::RowSplit<kRowSplit> split{
+      {cluster.map_shared_rank(a, 0), cluster.map_shared_rank(a, 1)},
+      static_cast<int>(cluster.block_rank())};
+  fhe::fwd_ntt_regs_split(
+      a, split, [&] { cluster.sync(); }, logn, p[i], psi + tab, psi_sh + tab,
+      [&](auto& v, int base, int logs) {
+#pragma unroll
+        for (int g = 0; g < static_cast<int>(sizeof(v) / sizeof(v[0])); ++g)
+          v[g] = src[base + (g << logs)];
+      },
+      // the last pass's group is consecutive (logs = 0, base a multiple of its size)
+      [&](auto& v, int base, int) { fhe::store_run(dst, base, v); });
+  // the partner read this CTA's row in the second pass: neither leaves (and
+  // frees its shared memory) before both have
+  cluster.sync();
 }
 
 __global__ void __launch_bounds__(1024)
@@ -279,62 +324,134 @@ tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
   cluster.sync();
 }
 
-// Key-switch inner product, block (b, i) for element b and prime p_i:
+// Key-switch inner product, cluster (b, i) for element b and prime p_i:
 //   out[i, c, b] = INTT( sum_j NTT([d_j,b]_{p_i}) . key[i, j, c] ),  c = 0, 1.
 // Digit j of element b for prime i is the row at d + i * d_sp + j * d_sj +
 // b * d_sb.  Without PREREDUCED it is a residue mod its own q_j (< 2^30), the
 // same row for every prime (d_sp = 0), so it is reduced mod p_i first:
 // mul_barrett is exact only below p.  With PREREDUCED (grouped gadget
 // digits, ks_omega > 1) the rows are per-prime residues, already below p_i,
-// and are used as they are.  Key element (i, j, c, x) sits at
-// keys[i * key_prime_stride + j * key_digit_stride + c * n + x], so the
-// stored [digit, prime, 2, n] keys are read in place and shared by all B
-// elements.  The digits go through one working row in turn; the two sums
-// live in shared memory (3 * 32 KB at n = 8192).  Mod-add is exact, so the
-// sequential sum equals the reference's add tree bit for bit.  out:
-// [k, 2, B, n] (B = gridDim.x, 1 for the single function).
+// and are used as they are.  Key element (i, j, c, x) sits at keys + i *
+// key_sp + j * key_sj + c * n + x, so the stored [digit, prime, 2, n] keys
+// are read in place and shared by all B elements; every key row starts
+// 16-byte aligned (the wrapper checks).  out: [k, 2, B, n].
+//
+// Grid (2R, B, k) in clusters of (2R, 1, 1), R = `pairs` digit pairs.  CTA
+// 2r + h of pair r runs, with its partner 2r + 1 - h (RowSplit), the split
+// forward transform of digits r, r + R, ... in turn; in each forward's last
+// pass it holds 16 consecutive positions of its half [h n/2, (h+1) n/2),
+// multiplies them by key[i, j, 0] and key[i, j, 1] (16-byte loads) and
+// stores, then adds, them into the pair's two partial half rows in its own
+// shared memory.  A CTA whose pair has no digit in a round takes the
+// barrier of the peers' forward.  After a cluster barrier, pair c = 0, 1
+// sums output row c's R partials over its half through distributed shared
+// memory, consecutive threads on consecutive words (coalesced remote
+// reads), into its working row, and runs that row's inverse with the store
+// to out in the last pass.  Pairs r >= 2 take the inverse's cluster barrier
+// and stay until the peers have read their partials.  Mod-add is exact, so
+// this order of summation gives the reference's bits.  Shared memory: two
+// padded rows, the sweeps' working row (read by the partner) and the two
+// partial half rows (read by pairs 0 and 1).
 template <bool PREREDUCED>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(512)
 keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
-                 long long d_sb, const uint32_t* __restrict__ keys,
-                 long long key_prime_stride,
-                 long long key_digit_stride, uint32_t* __restrict__ out,
+                 long long d_sb, const uint32_t* __restrict__ keys, long long key_sp,
+                 long long key_sj, uint32_t* __restrict__ out,
                  const uint32_t* __restrict__ p, const uint32_t* __restrict__ mu,
                  const uint32_t* __restrict__ psi, const uint32_t* __restrict__ psi_sh,
                  const uint32_t* __restrict__ ipsi, const uint32_t* __restrict__ ipsi_sh,
                  const uint32_t* __restrict__ n_inv,
-                 const uint32_t* __restrict__ n_inv_sh, int kd, int logn) {
+                 const uint32_t* __restrict__ n_inv_sh, int kd, int pairs, int logn) {
   extern __shared__ uint32_t sm[];
+  cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
-  uint32_t* a = sm;
-  uint32_t* acc = sm + n;
-  const int i = blockIdx.y;
-  const int b = blockIdx.x;
-  const int batch = gridDim.x;
+  const int half = n / kRowSplit;
+  const int part_row = fhe::padded(half);
+  uint32_t* work = sm;                        // the sweeps' passes
+  uint32_t* part = sm + fhe::padded(n);       // partial sums of rows 0 and 1, own half
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int r = rank / kRowSplit, h = rank % kRowSplit;
+  const int b = blockIdx.y;
+  const int i = blockIdx.z;
   const uint32_t pi = p[i];
   const uint32_t mui = mu[i];
   const size_t tab = static_cast<size_t>(i) * n;
-  for (int j = 0; j < kd; ++j) {
-    const uint32_t* dr = d + i * d_sp + j * d_sj + b * d_sb;
-    for (int x = threadIdx.x; x < n; x += blockDim.x)
-      a[x] = PREREDUCED ? dr[x] : fhe::reduce_barrett(dr[x], pi, mui);
-    __syncthreads();
-    fhe::fwd_ntt_smem(a, logn, pi, psi + tab, psi_sh + tab);
-    const uint32_t* key = keys + i * key_prime_stride + j * key_digit_stride;
-    for (int x = threadIdx.x; x < n; x += blockDim.x) {
-      const uint32_t t0 = fhe::mul_barrett(a[x], key[x], pi, mui);
-      const uint32_t t1 = fhe::mul_barrett(a[x], key[n + x], pi, mui);
-      acc[x] = j == 0 ? t0 : fhe::add_mod(acc[x], t0, pi);
-      acc[n + x] = j == 0 ? t1 : fhe::add_mod(acc[n + x], t1, pi);
+  static_assert(kRowSplit == 2, "the split below names both CTAs of a row");
+  const fhe::RowSplit<kRowSplit> split{{cluster.map_shared_rank(work, r * kRowSplit),
+                                        cluster.map_shared_rank(work, r * kRowSplit + 1)},
+                                       h};
+  auto sync = [&] { cluster.sync(); };
+  const uint32_t* d_ib = d + i * d_sp + b * d_sb;
+  const uint32_t* key_i = keys + i * key_sp;
+  for (int m = 0, j = r; m * pairs < kd; ++m, j += pairs) {
+    // the partner's second pass of the last round read this CTA's row
+    if (m > 0) cluster.sync();
+    if (j >= kd) {
+      cluster.sync();    // the barrier inside the peers' forward
+      continue;
+    }
+    const uint32_t* dr = d_ib + j * d_sj;
+    const uint32_t* k0 = key_i + j * key_sj;
+    const uint32_t* k1 = k0 + n;
+    const bool first = m == 0;
+    fhe::fwd_ntt_regs_split(
+        work, split, sync, logn, pi, psi + tab, psi_sh + tab,
+        [&](auto& x, int base, int logs) {
+#pragma unroll
+          for (int g = 0; g < static_cast<int>(sizeof(x) / sizeof(x[0])); ++g) {
+            const uint32_t v = dr[base + (g << logs)];
+            x[g] = PREREDUCED ? v : fhe::reduce_barrett(v, pi, mui);
+          }
+        },
+        [&](auto& x, int base, int) {
+          // the last pass's group is consecutive (logs = 0, base a multiple
+          // of its size) and its positions are this CTA's
+          constexpr int G = sizeof(x) / sizeof(x[0]);
+          uint32_t* acc = part + fhe::padded_index(base - h * half);
+          uint32_t kv[G];
+          fhe::load_twiddles(k0, base, kv);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const uint32_t t = fhe::mul_barrett(x[g], kv[g], pi, mui);
+            acc[g] = first ? t : fhe::add_mod(acc[g], t, pi);
+          }
+          fhe::load_twiddles(k1, base, kv);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const uint32_t t = fhe::mul_barrett(x[g], kv[g], pi, mui);
+            acc[part_row + g] = first ? t : fhe::add_mod(acc[part_row + g], t, pi);
+          }
+        });
+  }
+  cluster.sync();        // every partial sum is complete
+  if (r < 2) {
+    const int summed = kd < pairs ? kd : pairs;    // the pairs that had a digit
+    const uint32_t* mine = part + r * part_row;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < half; e += blockDim.x) {
+      const int pe = fhe::padded_index(e);
+      uint32_t s = 0;
+#pragma unroll
+      for (int q = 0; q < kKeyswitchPairs; ++q)
+        if (q < summed)
+          s = fhe::add_mod(s, cluster.map_shared_rank(mine, q * kRowSplit + h)[pe], pi);
+      work[fhe::padded_index(h * half + e)] = s;
     }
     __syncthreads();
+    uint32_t* dst = out + ((static_cast<size_t>(i) * 2 + r) * gridDim.y + b) * n;
+    fhe::inv_ntt_regs_split(
+        work, split, sync, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i],
+        fhe::SmemLoad{work}, [&](auto& x, int base, int logs) {
+#pragma unroll
+          for (int g = 0; g < static_cast<int>(sizeof(x) / sizeof(x[0])); ++g)
+            dst[base + (g << logs)] = x[g];
+        });
+  } else {
+    cluster.sync();      // the barrier inside the output rows' inverse
   }
-  fhe::inv_ntt_smem<2>(acc, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i]);
-  // element c * n + x stays with thread x mod blockDim.x, as the inverse left it
-  for (int c = 0; c < 2; ++c) {
-    const size_t orow = ((static_cast<size_t>(i) * 2 + c) * batch + b) * n;
-    for (int x = threadIdx.x; x < n; x += blockDim.x) out[orow + x] = acc[c * n + x];
-  }
+  // the peers read this CTA's rows above: no CTA leaves (and frees its
+  // shared memory) before all have
+  cluster.sync();
 }
 
 // Hoisted key-switch inner product, block (b, i) for element b and prime p_i:
@@ -387,25 +504,31 @@ ks_inner_kernel(const uint32_t* __restrict__ dg, long long dg_sp, long long dg_s
 
 template <bool PREREDUCED>
 cudaError_t launch_keyswitch(const void* d, long long d_sp, long long d_sj, long long d_sb,
-                             const void* keys, long long key_prime_stride,
-                             long long key_digit_stride, void* out, const void* p,
-                             const void* mu, const void* psi, const void* psi_sh,
-                             const void* ipsi, const void* ipsi_sh, const void* n_inv,
-                             const void* n_inv_sh, int k, int kd, int batch, int logn,
+                             const void* keys, long long key_sp, long long key_sj, void* out,
+                             const void* p, const void* mu, const void* psi,
+                             const void* psi_sh, const void* ipsi, const void* ipsi_sh,
+                             const void* n_inv, const void* n_inv_sh, int k, int kd,
+                             int batch, int logn, int pairs, int threads, int smem,
                              cudaStream_t stream) {
-  const size_t smem = 3 * (sizeof(uint32_t) << logn);
+  if (logn <= fhe::kRegLog || kd < 1 || pairs < 2 || pairs > kKeyswitchPairs
+      || smem < 2 * 4 * fhe::padded(1 << logn))
+    return cudaErrorInvalidValue;
   static std::atomic<size_t> granted[fhe::kMaxDevices];
-  cudaError_t err = fhe::allow_smem(
-      reinterpret_cast<const void*>(keyswitch_kernel<PREREDUCED>), smem, granted);
+  static std::atomic<size_t> placed[fhe::kMaxDevices];
+  const void* kernel = reinterpret_cast<const void*>(keyswitch_kernel<PREREDUCED>);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return err;
-  keyswitch_kernel<PREREDUCED><<<dim3(batch, k), fhe::ntt_threads(logn), smem, stream>>>(
-      static_cast<const uint32_t*>(d), d_sp, d_sj, d_sb, static_cast<const uint32_t*>(keys),
-      key_prime_stride, key_digit_stride, static_cast<uint32_t*>(out),
-      static_cast<const uint32_t*>(p), static_cast<const uint32_t*>(mu),
-      static_cast<const uint32_t*>(psi), static_cast<const uint32_t*>(psi_sh),
-      static_cast<const uint32_t*>(ipsi), static_cast<const uint32_t*>(ipsi_sh),
-      static_cast<const uint32_t*>(n_inv), static_cast<const uint32_t*>(n_inv_sh), kd,
-      logn);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = fhe::cluster_config(
+      dim3(kRowSplit * pairs, batch, k), threads, smem, kRowSplit * pairs, stream, attr);
+  err = fhe::check_cluster(kernel, cfg, placed);
+  if (err != cudaSuccess) return err;
+  auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  err = cudaLaunchKernelEx(&cfg, keyswitch_kernel<PREREDUCED>, c(d), d_sp, d_sj, d_sb,
+                           c(keys), key_sp, key_sj, static_cast<uint32_t*>(out), c(p), c(mu),
+                           c(psi), c(psi_sh), c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), kd,
+                           pairs, logn);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -413,18 +536,31 @@ cudaError_t launch_keyswitch(const void* d, long long d_sp, long long d_sj, long
 
 extern "C" {
 
+// The launch geometry of ntt_forward, mul_by_ntt_operand, tensor_product
+// and keyswitch_fused comes from the wrapper (ops/ntt_cuda.py,
+// ntt_forward_geometry, mul_by_ntt_operand_geometry, tensor_product_geometry
+// and keyswitch_geometry): `threads` per CTA and `smem` bytes per CTA, at
+// least the padded rows the kernel uses, and keyswitch_fused's digit pairs.
 int fhe_ntt_forward(const void* x, void* y, const void* p, const void* psi,
-                    const void* psi_sh, int k, int batch, int logn, void* stream) {
-  const size_t smem = sizeof(uint32_t) << logn;
+                    const void* psi_sh, int k, int batch, int logn, int threads, int smem,
+                    void* stream) {
+  if (logn <= fhe::kRegLog || smem < 4 * fhe::padded(1 << logn))
+    return static_cast<int>(cudaErrorInvalidValue);
   static std::atomic<size_t> granted[fhe::kMaxDevices];
-  cudaError_t err = fhe::allow_smem(
-      reinterpret_cast<const void*>(ntt_forward_kernel), smem, granted);
+  static std::atomic<size_t> placed[fhe::kMaxDevices];
+  const void* kernel = reinterpret_cast<const void*>(ntt_forward_kernel);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ntt_forward_kernel<<<dim3(batch, k), fhe::ntt_threads(logn), smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
-      static_cast<const uint32_t*>(p), static_cast<const uint32_t*>(psi),
-      static_cast<const uint32_t*>(psi_sh), batch, logn);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = fhe::cluster_config(
+      dim3(kRowSplit * batch, k), threads, smem, kRowSplit,
+      static_cast<cudaStream_t>(stream), attr);
+  err = fhe::check_cluster(kernel, cfg, placed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  err = cudaLaunchKernelEx(&cfg, ntt_forward_kernel, c(x), static_cast<uint32_t*>(y), c(p),
+                           c(psi), c(psi_sh), batch, logn);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -445,10 +581,6 @@ int fhe_ntt_inverse(const void* x, void* y, const void* p, const void* ipsi,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch geometry of mul_by_ntt_operand and tensor_product comes from
-// the wrapper (ops/ntt_cuda.py, mul_by_ntt_operand_geometry and
-// tensor_product_geometry): `threads` per CTA and `smem` bytes per CTA, at
-// least the one or two padded rows the kernel uses.
 int fhe_mul_by_ntt_operand(const void* u, long long u_sp, long long u_sb, const void* w,
                            void* out, const void* p, const void* mu, const void* psi,
                            const void* psi_sh, const void* ipsi, const void* ipsi_sh,
@@ -502,16 +634,15 @@ int fhe_tensor_product(const void* x, const void* y, long long s_p, long long s_
 }
 
 int fhe_keyswitch(const void* d, long long d_sp, long long d_sj, long long d_sb,
-                  const void* keys, long long key_prime_stride, long long key_digit_stride,
-                  void* out, const void* p, const void* mu, const void* psi,
-                  const void* psi_sh, const void* ipsi, const void* ipsi_sh,
-                  const void* n_inv, const void* n_inv_sh, int k, int kd, int batch,
-                  int logn, int prereduced, void* stream) {
+                  const void* keys, long long key_sp, long long key_sj, void* out,
+                  const void* p, const void* mu, const void* psi, const void* psi_sh,
+                  const void* ipsi, const void* ipsi_sh, const void* n_inv,
+                  const void* n_inv_sh, int k, int kd, int batch, int logn, int pairs,
+                  int threads, int smem, int prereduced, void* stream) {
   auto* launch = prereduced ? &launch_keyswitch<true> : &launch_keyswitch<false>;
-  return static_cast<int>(launch(d, d_sp, d_sj, d_sb, keys, key_prime_stride,
-                                 key_digit_stride, out, p, mu, psi, psi_sh, ipsi, ipsi_sh,
-                                 n_inv, n_inv_sh, k, kd, batch, logn,
-                                 static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch(d, d_sp, d_sj, d_sb, keys, key_sp, key_sj, out, p, mu, psi,
+                                 psi_sh, ipsi, ipsi_sh, n_inv, n_inv_sh, k, kd, batch, logn,
+                                 pairs, threads, smem, static_cast<cudaStream_t>(stream)));
 }
 
 int fhe_ks_inner(const void* dg, long long dg_sp, long long dg_sj, long long dg_sb,

@@ -5,12 +5,13 @@
 each with its ``prereduced`` lane), ``ks_inner_batch`` and
 ``ks_inner_grouped`` launch the hand-written CUDA kernels of
 ``csrc/ntt.cu`` (design and bound: the note at the top of that file; the
-launch shapes of the cluster kernels ``mul_by_ntt_operand`` and
-``tensor_product``: ``mul_by_ntt_operand_geometry`` and
-``tensor_product_geometry``) for
-CUDA tensors and use the plain PyTorch versions of ``ops/ntt.py`` for CPU
-tensors; any other device raises.  A single function and its ``_batch``
-form launch the same kernel (the single one with a batch of 1), as do
+launch shapes of the cluster kernels ``ntt_forward``, ``mul_by_ntt_operand``,
+``tensor_product`` and ``keyswitch_fused``: ``ntt_forward_geometry``,
+``mul_by_ntt_operand_geometry``, ``tensor_product_geometry`` and
+``keyswitch_geometry``) for CUDA tensors and use the plain PyTorch
+versions of ``ops/ntt.py`` for CPU tensors; any other device raises.  A
+single function and its ``_batch`` form launch the same kernel (the
+single one with a batch of 1), as do
 ``ks_inner_batch`` and ``ks_inner_grouped``, but each wrapper counts only
 its own launches, in ``<wrapper>.launches`` (and the prereduced lanes in
 ``<wrapper>.prereduced_launches``).
@@ -37,20 +38,22 @@ _L = ctypes.c_longlong
 # the kernels keep their polynomials in shared memory; a block may use at
 # most 227 KB of it on Hopper
 MAX_SMEM = 232448
-# the largest grid y extent, which the cluster kernels give to the batch
+# the largest grid x and y extents; the cluster kernels give the batch to y,
+# ntt_forward to x
+MAX_GRID_X = 2 ** 31 - 1
 MAX_GRID_Y = 65535
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ntt")
-    lib.fhe_ntt_forward.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+    lib.fhe_ntt_forward.argtypes = [_P] * 5 + [_I] * 5 + [_P]
     lib.fhe_ntt_inverse.argtypes = [_P] * 7 + [_I] * 3 + [_P]
     lib.fhe_mul_by_ntt_operand.argtypes = ([_P] + [_L] * 2 + [_P] * 10
                                            + [_I] * 6 + [_P])
     lib.fhe_tensor_product.argtypes = [_P] * 2 + [_L] * 3 + [_P] * 9 + [_I] * 5 + [_P]
     lib.fhe_keyswitch.argtypes = ([_P] + [_L] * 3 + [_P] + [_L] * 2 + [_P] * 9
-                                  + [_I] * 5 + [_P])
+                                  + [_I] * 8 + [_P])
     lib.fhe_ks_inner.argtypes = ([_P] + [_L] * 3 + [_I] + [_P] + [_L] * 3 + [_I]
                                  + [_P] * 7 + [_I] * 4 + [_P])
     for f in (lib.fhe_ntt_forward, lib.fhe_ntt_inverse,
@@ -136,12 +139,46 @@ def regs_threads(n: int, name: str, split: int = 1) -> int:
     return min(max((n >> REG_LOG) // split, 32), 512)
 
 
-# mul_by_ntt_operand and tensor_product (and bsk_branch_fused): the CTAs of
-# a cluster that share a row's transforms, and the tensor product's cluster,
-# one pair of CTAs per input row x0, x1, y0, y1 (csrc/ntt.cu and csrc/rns.cu:
-# kRowSplit, kProductCluster)
+# the cluster kernels of csrc/ntt.cu and csrc/rns.cu: the CTAs of a cluster
+# that share a row's transforms, the tensor product's cluster, one pair of
+# CTAs per input row x0, x1, y0, y1, and the most digit pairs of a
+# keyswitch_fused cluster (kRowSplit, kProductCluster, kKeyswitchPairs)
 ROW_SPLIT = 2
 PRODUCT_CLUSTER = 4 * ROW_SPLIT
+KEYSWITCH_PAIRS = 4
+
+
+def ntt_forward_geometry(n: int, k: int, batch: int = 1) -> dict:
+    """Launch shape of ``ntt_forward`` for [k, batch, n]: one cluster of 2
+    CTAs per (row, prime), which share the row's transform, the batch on
+    grid x; one padded row of shared memory per CTA.  Raise where that does
+    not fit the card."""
+    name = "ntt_forward"
+    if not 1 <= ROW_SPLIT * batch <= MAX_GRID_X:
+        raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_X // ROW_SPLIT}")
+    return {"grid": (ROW_SPLIT * batch, k), "cluster": (ROW_SPLIT, 1, 1),
+            "ctas": ROW_SPLIT * batch * k, "ctas_per_row": ROW_SPLIT,
+            "threads": regs_threads(n, name, ROW_SPLIT),
+            "smem": check_smem(n, 1, name, padded=True)}
+
+
+def keyswitch_geometry(n: int, k: int, kd: int, batch: int = 1,
+                       name: str = "keyswitch_fused") -> dict:
+    """Launch shape of ``keyswitch_fused`` (and ``_batch``, both lanes) for
+    kd digits of B = ``batch`` elements over k primes: one cluster of 2R
+    CTAs per (element, prime), R = clamp(kd, 2, 4) digit pairs (two pairs at
+    least, one per output row; at most 8 CTAs, the portable cluster size);
+    pair r transforms digits r, r + R, ...; two padded rows of shared memory
+    per CTA.  Raise where that does not fit the card."""
+    if kd < 1:
+        raise ValueError(f"{name}: kd={kd}, expected at least one digit")
+    if not 1 <= batch <= MAX_GRID_Y:
+        raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y}")
+    pairs = min(max(kd, 2), KEYSWITCH_PAIRS)
+    return {"grid": (ROW_SPLIT * pairs, batch, k), "cluster": (ROW_SPLIT * pairs, 1, 1),
+            "ctas": ROW_SPLIT * pairs * batch * k, "pairs": pairs, "ctas_per_row": ROW_SPLIT,
+            "threads": regs_threads(n, name, ROW_SPLIT),
+            "smem": check_smem(n, 2, name, padded=True)}
 
 
 def mul_by_ntt_operand_geometry(n: int, k: int, c: int, batch: int = 1) -> dict:
@@ -195,17 +232,20 @@ def table_ptrs(tb: NTTTables) -> list:
 
 
 def ntt_forward(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
-    """[k, batch, n] forward NTT, natural -> bit-reversed order."""
+    """[k, batch, n] forward NTT, natural -> bit-reversed order.  Any prime
+    below 2^31 (Shoup twiddles: the q primes and the plaintext modulus t);
+    on the card 32 <= n <= 32768 (``ntt_forward_geometry``)."""
     check_residues(a, tb, "ntt_forward")
     if not on_card(a, "ntt_forward"):
         return _ntt.ntt_forward(a, tb)
     k, batch, n = a.shape
-    check_smem(n, 1, "ntt_forward")
+    geo = ntt_forward_geometry(n, k, batch)
+    check_aligned_tables(tb, "ntt_forward")
     out = torch.empty_like(a)
     p = _build.ptr
     _build.launch(_lib().fhe_ntt_forward, "ntt_forward", a.device,
                   p(a), p(out), p(tb.p), p(tb.psi_br), p(tb.psi_br_shoup),
-                  k, batch, log2_exact(n))
+                  k, batch, log2_exact(n), geo["threads"], geo["smem"])
     ntt_forward.launches += 1
     return out
 
@@ -399,17 +439,22 @@ def _check_digits(d: torch.Tensor, tb: NTTTables, prereduced: bool,
 def _keyswitch_launch(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables,
                       prereduced: bool, name: str) -> torch.Tensor:
     """One launch over d [kd, B, n] or prereduced [k, kd, B, n] (rows
-    contiguous): [k, 2, B, n]."""
+    contiguous): [k, 2, B, n].  The kernel reads each key row with 16-byte
+    loads, so keys_t must start 16-byte aligned with strides of whole
+    16-byte words."""
     check_barrett(tb, name)
+    check_aligned_tables(tb, name)
     kd, batch, n = d.shape[-3:]
-    check_smem(n, 3, name)
+    geo = keyswitch_geometry(n, tb.k, kd, batch, name)
+    if keys_t.data_ptr() % 16 or keys_t.stride(0) % 4 or keys_t.stride(1) % 4:
+        raise ValueError(f"{name}: keys_t rows are not 16-byte aligned")
     out = torch.empty((tb.k, 2, batch, n), dtype=torch.int32, device=d.device)
     d_sp = d.stride(0) if prereduced else 0
     p = _build.ptr
     _build.launch(_lib().fhe_keyswitch, name, d.device, p(d), d_sp, d.stride(-3),
                   d.stride(-2), p(keys_t), keys_t.stride(0), keys_t.stride(1),
                   p(out), *table_ptrs(tb), tb.k, kd, batch, log2_exact(n),
-                  int(prereduced))
+                  geo["pairs"], geo["threads"], geo["smem"], int(prereduced))
     return out
 
 
@@ -451,7 +496,7 @@ def keyswitch_fused_batch(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables,
     """``keyswitch_fused`` for B digit stacks against one key set: d
     [kd, B, n] (digit-major, rows of n contiguous), or [k, kd, B, n] with
     ``prereduced``; keys_t [k, kd, 2, n] as in ``keyswitch_fused``; one
-    launch of B * k blocks; returns [k, 2, B, n], slice b equal to
+    launch of B * k clusters; returns [k, 2, B, n], slice b equal to
     ``keyswitch_fused`` of element b's digits.  Launches count as in
     ``keyswitch_fused``."""
     _check_digits(d, tb, prereduced, "keyswitch_fused_batch")

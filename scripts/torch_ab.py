@@ -12,10 +12,18 @@ It prints one JSON line: the card's name and power limit, the tree, and at
 the headline configuration (n = 8192, log_q = 90, k = 3, kb = 5):
   - device_ms (CUDA events while the card is kept busy, so host work is
     excluded; median of 25) and wall_ms (CUDA events around the call, host
-    work included; median of 10) of multiply_no_relin, relinearize,
+    work included; median of 10) of keygen, multiply_no_relin, relinearize,
     multiply, the decrypt of the product, encrypt, and decrypt_batch,
     encrypt_batch and multiply_batch at B = 8, with the batch ops also per
-    ciphertext;
+    ciphertext, and the multiply at the JAX bench's k8_omega (log_q = 218,
+    k = 8, ks_omega = 2);
+  - the device times of ntt_forward ([3,1,n], keygen's [3,3,n], [3,16,n],
+    and the JAX bench's g_n32768 [3,1,32768], null where a tree raises
+    there), ntt_inverse [3,1,n], keyswitch_fused (the relinearization's
+    d [3,n] against keys [3,3,2,n]; at k = 8 with kd = 8; at n = 256, k = 5
+    and n = 16384; the prereduced lane at k8_omega's k = 8, kd = 4), and
+    keyswitch_fused_batch at B = 8 (both lanes), ks_inner_batch (a shared
+    digit stack against 8 key sets);
   - the device times of mul_by_ntt_operand (encrypt's u [3,1,n] against
     pk [3,2,n]; batched at B = 8), tensor_product (the multiply's x, y
     [3,2,n] on the t-folded tables; batched on views of a [8,3,4,n] stack),
@@ -30,7 +38,13 @@ the headline configuration (n = 8192, log_q = 90, k = 3, kb = 5):
   - device_ms and wall_ms of the multiply at n = 16384 (the JAX bench's
     g_n16384: log_q = 90, k = 3, seed 4; multiply_relin_ms_n16384 and, at
     ks_omega = 2, multiply_relin_ms_n16384_omega2), null for a tree whose
-    multiply raises there.
+    multiply raises there;
+  - a torch.profiler trace of 20 multiplies at n = 256 (level 0), queued
+    behind a busy card so that the gaps between kernels are the device's
+    own, not the host's: the kernels per multiply, each kernel's mean
+    device time and the mean gap before it, and per multiply the span from
+    the first kernel's start to the last one's end, the time inside
+    kernels and the idle share of the span.
 The timing methods are those of chip_smoke.py (device_ms, wall_ms).  Imports
 no JAX and nothing of fhe_tpu.
 """
@@ -50,7 +64,7 @@ import torch
 TREE = Path(sys.argv[1] if len(sys.argv) > 1 else Path(__file__).resolve().parent.parent)
 sys.path.insert(0, str(TREE.resolve()))
 
-from fhe_tpu_torch import FHE  # noqa: E402
+from fhe_tpu_torch import FHE, primes  # noqa: E402
 from fhe_tpu_torch.ops import decrypt_cuda, ntt_cuda, rns_cuda  # noqa: E402
 from fhe_tpu_torch.ops import ntt, rns  # noqa: E402
 from fhe_tpu_torch.params import SecurityParams, make_scheme_params  # noqa: E402
@@ -136,6 +150,48 @@ def multiply_n16384(omega: int) -> dict | None:
     return {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
 
 
+def small_trace(fhe, a, b, rlk) -> dict:
+    """Per-kernel device times and the gaps between kernels of the n = 256
+    multiply, from a torch.profiler trace of 20 multiplies queued behind a
+    busy card (torch.cuda._sleep), so that each kernel waits on the
+    device, not on the host that launches it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn = lambda: fhe.multiply(a, b, rlk)
+    fn()
+    torch.cuda.synchronize()
+    reps = 20
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(int(50e-3 * 2.0e9))
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    # every kernel but the busy wait (torch.cuda._sleep's spin_kernel)
+    kernels = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name)
+    if not kernels or len(kernels) % reps:
+        return {"kernels_traced": len(kernels), "note": "no whole multiplies in the trace"}
+    per = len(kernels) // reps
+    spans, busy = [], []
+    by_pos = [{"dur": [], "gap": []} for _ in range(per)]
+    for r in range(reps):
+        run = kernels[r * per:(r + 1) * per]
+        spans.append(run[-1][1] - run[0][0])
+        busy.append(sum(e - s for s, e, _ in run))
+        for j, (s, e, _) in enumerate(run):
+            by_pos[j]["dur"].append(e - s)
+            if j:
+                by_pos[j]["gap"].append(s - run[j - 1][1])
+    names = [name for _, _, name in kernels[:per]]
+    span, inside = statistics.median(spans), statistics.median(busy)
+    return {"kernels_per_multiply": per, "span_us": span, "in_kernels_us": inside,
+            "idle_share": 1 - inside / span,
+            "kernels": [{"name": names[j][:60], "us": statistics.median(p["dur"]),
+                         "gap_before_us": statistics.median(p["gap"]) if p["gap"] else None}
+                        for j, p in enumerate(by_pos)]}
+
+
 def small_multiply() -> dict:
     """device_ms of the n = 256 multiply and its halves at level 0."""
     fhe = FHE(make_scheme_params(SecurityParams(poly_degree=256, log_q=150,
@@ -147,7 +203,51 @@ def small_multiply() -> dict:
     m3 = fhe.multiply_no_relin(a, b)
     return {"multiply_no_relin": device_ms(lambda: fhe.multiply_no_relin(a, b)),
             "relinearize": device_ms(lambda: fhe.relinearize(m3, rlk)),
-            "multiply": device_ms(lambda: fhe.multiply(a, b, rlk))}
+            "multiply": device_ms(lambda: fhe.multiply(a, b, rlk)),
+            "trace": small_trace(fhe, a, b, rlk)}
+
+
+def multiply_k8_omega() -> dict:
+    """device_ms and wall_ms of the multiply at the JAX bench's k8_omega
+    (n = 8192, log_q = 218, k = 8, ks_omega = 2: the prereduced key switch)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        prm = make_scheme_params(SecurityParams(poly_degree=N, log_q=218, hamming_weight=H,
+                                                ks_omega=2))
+    fhe = FHE(prm, seed=9, device="cuda")
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    a = fhe.encrypt(fhe.encode([5, 10]), pk)
+    b = fhe.encrypt(fhe.encode([3, 6]), pk)
+    got = [int(v) for v in fhe.decode(fhe.decrypt(fhe.multiply(a, b, rlk), sk))[:2]]
+    if got != [15, 60]:
+        raise RuntimeError(f"k8_omega multiply decoded {got}")
+    fn = lambda: fhe.multiply(a, b, rlk)
+    return {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
+
+
+def ntt_forward_n32768(gen: torch.Generator) -> float | None:
+    """Device ms of ntt_forward on the JAX bench's g_n32768 shape [3,1,32768],
+    or None where this tree raises there."""
+    ps = primes.find_ntt_primes(32768, 3)
+    tb = ntt.build_tables(32768, ps, "cuda")
+    x = residues(gen, ps, 1, 32768)
+    try:
+        ntt_cuda.ntt_forward(x, tb)
+    except (ValueError, RuntimeError) as err:
+        print(f"torch_ab: ntt_forward at n=32768 raised: {err}", file=sys.stderr)
+        return None
+    return device_ms(lambda: ntt_cuda.ntt_forward(x, tb))
+
+
+def keyswitch_inputs(gen: torch.Generator, qs, kd: int, batch: int, n: int,
+                     prereduced: bool):
+    """Keys in the stored [kd, k, 2, n] layout, read through the prime-major
+    view, and the digits: d [kd, B, n] (digit j mod q_j), or [k, kd, B, n]."""
+    keys_t = torch.stack([residues(gen, qs, 2, n) for _ in range(kd)]).permute(1, 0, 2, 3)
+    if prereduced:
+        return residues(gen, qs, kd * batch, n).view(len(qs), kd, batch, n), keys_t
+    return torch.stack([residues(gen, (q,), batch, n)[0] for q in qs[:kd]]), keys_t
 
 
 def main() -> int:
@@ -170,7 +270,8 @@ def main() -> int:
         raise RuntimeError(f"multiply decoded {got}")
     pt = fhe.encode([5, 10, 15, 20])
     pts = [fhe.encode([5 + i, 10]) for i in range(BATCH)]
-    ops = {"multiply_no_relin": lambda: fhe.multiply_no_relin(a, b),
+    ops = {"keygen": fhe.keygen,
+           "multiply_no_relin": lambda: fhe.multiply_no_relin(a, b),
            "relinearize": lambda: fhe.relinearize(m3, rlk),
            "multiply": lambda: fhe.multiply(a, b, rlk),
            "decrypt_after_multiply": lambda: fhe.decrypt(prod, sk),
@@ -217,7 +318,35 @@ def main() -> int:
     ab8, tx8 = residues(gen, qs8, 4), residues(gen, qs8, 3)
     kernels["bsk_branch_fused_k8"] = lambda: rns_cuda.bsk_branch_fused(
         ab8, tx8, ctx8.smq, ctx8.floor_c, tbsk8)
+    tb = ctx.ntt_q
+    x1, x3, x16 = residues(gen, qs, 1), residues(gen, qs, 3), residues(gen, qs, 16)
+    kernels["ntt_forward"] = lambda: ntt_cuda.ntt_forward(x1, tb)
+    kernels["ntt_forward_keygen_B3"] = lambda: ntt_cuda.ntt_forward(x3, tb)
+    kernels["ntt_forward_B16"] = lambda: ntt_cuda.ntt_forward(x16, tb)
+    kernels["ntt_inverse"] = lambda: ntt_cuda.ntt_inverse(x1, tb)
+    # each key-switch case: (name, tables, kd, batch (None: the single
+    # function), prereduced)
+    ctx16 = quiet_context(16384, LOG_Q, H)
     ctx_s = quiet_context(256, 150, 32)
+    tb8 = ctx8.ntt_q
+    for name, tks, kd, batch, prereduced in (
+            ("keyswitch_fused", tb, 3, None, False),
+            ("keyswitch_fused_batch_B8", tb, 3, BATCH, False),
+            ("keyswitch_fused_k8_kd8", tb8, 8, None, False),
+            ("keyswitch_fused_prereduced_k8", tb8, 4, None, True),
+            ("keyswitch_fused_batch_prereduced_k8_B8", tb8, 4, BATCH, True),
+            ("keyswitch_fused_n16384", ctx16.ntt_q, 3, None, False),
+            ("keyswitch_fused_n256", ctx_s.ntt_q, 5, None, False)):
+        d, keys_t = keyswitch_inputs(gen, tks.primes, kd, batch or 1, tks.n, prereduced)
+        if batch is None:
+            kernels[name] = (lambda d=d[..., 0, :], k=keys_t, t=tks, pr=prereduced:
+                             ntt_cuda.keyswitch_fused(d, k, t, pr))
+        else:
+            kernels[name] = (lambda d=d, k=keys_t, t=tks, pr=prereduced:
+                             ntt_cuda.keyswitch_fused_batch(d, k, t, pr))
+    dg = residues(gen, qs, 3).view(3, 3, 1, N)
+    keys_e = residues(gen, qs, 3 * BATCH * 2).view(3, 3, BATCH, 2, N)
+    kernels["ks_inner_batch"] = lambda: ntt_cuda.ks_inner_batch(dg, keys_e, tb)
     tq_s, tbsk_s = ntt.slice_tables(ctx_s.ntt_q, ctx_s.k - 1), ctx_s.mul_levels[1][1]
     u_s, w_s = residues(gen, tq_s.primes, 1, 256), residues(gen, tq_s.primes, 2, 256)
     lift_s = residues(gen, tbsk_s.primes, 4, 256)
@@ -225,7 +354,9 @@ def main() -> int:
     kernels["tensor_product_n256_bsk"] = lambda: ntt_cuda.tensor_product(
         lift_s[:, :2], lift_s[:, 2:], tbsk_s)
     out["kernel_device_ms"] = {name: device_ms(fn) for name, fn in kernels.items()}
+    out["kernel_device_ms"]["ntt_forward_n32768"] = ntt_forward_n32768(gen)
     out["small_device_ms"] = small_multiply()
+    out["multiply_k8_omega"] = multiply_k8_omega()
     out["multiply_relin_ms_n16384"] = multiply_n16384(1)
     out["multiply_relin_ms_n16384_omega2"] = multiply_n16384(2)
     print(json.dumps(out))

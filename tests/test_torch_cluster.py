@@ -1,12 +1,13 @@
-"""Launch geometry of the cluster kernels, on the host: mul_by_ntt_operand
-(B3, B13), tensor_product (B4, B11), bsk_branch_fused (B5) and
-decrypt_fused (B8).
+"""Launch geometry of the cluster kernels, on the host: ntt_forward (B1),
+mul_by_ntt_operand (B3, B13), tensor_product (B4, B11), bsk_branch_fused
+(B5), keyswitch_fused (B7, B12) and decrypt_fused (B8).
 
 The wrappers choose each launch's shape in plain Python (the C entry points
 take it as given), so the choices are held here without a card: B8's
 cluster size and primes per CTA, B3's CTAs per (element, operand row,
-prime), B4's and B5's CTAs per prime, threads and shared memory per CTA,
-and the shared-memory checks that decide which n each kernel takes.
+prime), B1's per row, B4's and B5's CTAs per prime, B7's digit pairs per
+(element, prime), threads and shared memory per CTA, and the shared-memory
+checks that decide which n each kernel takes.
 tests/test_torch_cuda.py runs the kernels themselves."""
 
 import pytest
@@ -130,3 +131,72 @@ def test_batch_outside_the_grid_raises():
             rns_cuda.bsk_branch_geometry(8192, kb=5, batch=batch)
         with pytest.raises(ValueError, match="batch"):
             decrypt_cuda.decrypt_geometry(8192, k=3, batch=batch)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("kd", [1, 3, 4, 8])
+@pytest.mark.parametrize("n", [256, 1024, 8192, 16384])
+def test_keyswitch_cluster_of_digit_pairs(n, kd, batch):
+    """A cluster of 2R CTAs per (element, prime), R = clamp(kd, 2, 4) digit
+    pairs: two pairs at least (one per output row), at most 8 CTAs (the
+    portable cluster size), so kd = 8 takes two digits per pair; two padded
+    rows of shared memory and a thread per group of 16 of a half row: 18
+    CTAs for the headline relinearization (k = 3, kd = 3), where one block
+    per prime ran 3."""
+    geo = ntt_cuda.keyswitch_geometry(n, k=3, kd=kd, batch=batch)
+    pairs = min(max(kd, 2), 4)
+    assert geo["pairs"] == pairs
+    assert geo["cluster"] == (2 * pairs, 1, 1) and geo["ctas_per_row"] == 2
+    assert geo["grid"] == (2 * pairs, batch, 3) and geo["ctas"] == 2 * pairs * batch * 3
+    assert geo["smem"] == 2 * 4 * (n + n // 32) <= MAX_SMEM
+    assert geo["threads"] == min(max(n // 32, 32), 512)
+    # pair r takes digits r, r + R, ...: every digit exactly once, in at
+    # most two rounds (kd <= 8)
+    taken = [list(range(r, kd, pairs)) for r in range(pairs)]
+    assert sorted(j for ds in taken for j in ds) == list(range(kd))
+    assert max(map(len, taken)) == -(-kd // pairs) <= 2
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("n", [256, 1024, 8192, 16384, 32768])
+def test_ntt_forward_cluster_per_row(n, batch):
+    """A cluster of 2 CTAs for each (row, prime), the batch on grid x, one
+    padded row of shared memory each: 6 CTAs at [3, 1, 8192], where one
+    block per row ran 3; n = 32768 fits (135 KB)."""
+    geo = ntt_cuda.ntt_forward_geometry(n, k=3, batch=batch)
+    assert geo["cluster"] == (2, 1, 1) and geo["ctas_per_row"] == 2
+    assert geo["grid"] == (2 * batch, 3) and geo["ctas"] == 2 * batch * 3
+    assert geo["smem"] == 4 * (n + n // 32) <= MAX_SMEM
+    assert geo["threads"] == min(max(n // 32, 32), 512)
+
+
+def test_n32768_fits_b1_but_not_b7():
+    """B1's one padded row fits at n = 32768; B7's two do not (nor did its
+    three plain rows before)."""
+    assert ntt_cuda.ntt_forward_geometry(32768, k=3)["smem"] == 135168
+    assert ntt_cuda.keyswitch_geometry(16384, k=3, kd=3)["smem"] == 135168
+    with pytest.raises(ValueError, match="keyswitch_fused: n=32768"):
+        ntt_cuda.keyswitch_geometry(32768, k=3, kd=3)
+
+
+@pytest.mark.parametrize("n", [2, 16])
+def test_b1_and_b7_need_n_of_32(n):
+    """The register-blocked sweep takes n >= 32: B1 and B7 raise below, as
+    B3 and B4 do, before any launch."""
+    with pytest.raises(ValueError, match="ntt_forward: n=.* below 32"):
+        ntt_cuda.ntt_forward_geometry(n, k=3)
+    with pytest.raises(ValueError, match="keyswitch_fused: n=.* below 32"):
+        ntt_cuda.keyswitch_geometry(n, k=3, kd=3)
+    with pytest.raises(ValueError, match="keyswitch_fused_batch: n=.* below 32"):
+        ntt_cuda.keyswitch_geometry(n, k=3, kd=3, batch=8, name="keyswitch_fused_batch")
+
+
+def test_b1_and_b7_batch_and_digits_outside_the_grid_raise():
+    for batch in (0, 2 ** 30):
+        with pytest.raises(ValueError, match="ntt_forward: batch"):
+            ntt_cuda.ntt_forward_geometry(8192, k=3, batch=batch)
+    for batch in (0, 65536):
+        with pytest.raises(ValueError, match="keyswitch_fused: batch"):
+            ntt_cuda.keyswitch_geometry(8192, k=3, kd=3, batch=batch)
+    with pytest.raises(ValueError, match="kd=0"):
+        ntt_cuda.keyswitch_geometry(8192, k=3, kd=0)

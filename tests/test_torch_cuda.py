@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from fhe_tpu_torch import FHE
+from fhe_tpu_torch import FHE, primes
 from fhe_tpu_torch.ops import decrypt_cuda, galois_cuda, ntt_cuda, rns_cuda
 from fhe_tpu_torch.ops import galois as tgalois
 from fhe_tpu_torch.ops import ntt as tntt
@@ -499,8 +499,8 @@ def test_tensor_product_cluster_kernel_matches_plain(dev, n, log_q, t, level, ba
 
 @pytest.mark.parametrize("prereduced", [False, True])
 def test_keyswitch_kernel_n16384_matches_plain(dev, prereduced):
-    """B7 and B12, whose three rows per block fit at n = 16384, at that n (the
-    relinearization of the n = 16384 multiply): kd = 3 digits of k = 3
+    """B7 and B12, whose two padded rows per CTA fit at n = 16384, at that n
+    (the relinearization of the n = 16384 multiply): kd = 3 digits of k = 3
     primes, or the grouped gadget's kd = 2 prereduced digits."""
     tb = _cached_ctx(16384, 90, 65537, dev).ntt_q
     qs, kd = tb.primes, 2 if prereduced else 3
@@ -531,3 +531,86 @@ def test_multiply_n16384_on_card_matches_cpu(dev, omega):
     to_cpu = lambda ct: ct.replace(data=ct.data.cpu())
     want = bfv.multiply(cpu, to_cpu(a), to_cpu(b), RelinKeys(data=rlk.data.cpu()))
     assert torch.equal(prod.data.cpu(), want.data)
+
+
+# ---------------------------------------------------------------------------
+# ntt_forward and keyswitch_fused as thread-block clusters with the
+# register-blocked sweep
+# ---------------------------------------------------------------------------
+
+
+# (n, log_q, level, batch): n = 256 (k = 5), 8192, 16384; level 1 of k = 3
+# and level 2 of k = 8 (row views of the tables); B = 1, 3 (keygen's
+# [k, 3, n]) and 16
+NTT_FORWARD_CASES = [(256, 150, 0, 1), (256, 150, 2, 3), (N, 90, 0, 3), (N, 90, 1, 16),
+                     (N, 218, 2, 3), (16384, 90, 0, 1), (16384, 90, 0, 16)]
+
+
+@pytest.mark.parametrize("n,log_q,level,batch", NTT_FORWARD_CASES)
+def test_ntt_forward_cluster_kernel_matches_plain(dev, n, log_q, level, batch):
+    tb = _level_tables(_cached_ctx(n, log_q, 65537, dev), level, "q")
+    a = _residues(tb.primes, batch, dev, n)
+    assert torch.equal(ntt_cuda.ntt_forward(a, tb), tntt.ntt_forward(a, tb))
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("t", [65537, 786433])
+def test_ntt_forward_mod_t_matches_plain(dev, t, batch):
+    """The encoder's transform mod the plaintext modulus: a 1-prime table of
+    t, Shoup twiddles below 2^31."""
+    tt = tntt.build_tables(N, (t,), dev)
+    a = _residues((t,), batch, dev)
+    assert torch.equal(ntt_cuda.ntt_forward(a, tt), tntt.ntt_forward(a, tt))
+
+
+def test_ntt_forward_n32768_matches_plain(dev):
+    """The JAX bench's g_n32768 input (bench.py: 3 NTT primes for n = 32768,
+    one [1, 32768] row per prime from numpy seed 5)."""
+    ps = primes.find_ntt_primes(32768, 3)
+    x = np.stack([np.random.default_rng(5).integers(0, p, (1, 32768), dtype=np.uint32)
+                  for p in ps])
+    tb = tntt.build_tables(32768, ps, dev)
+    a = torch.from_numpy(x.astype(np.int32)).to(dev)
+    assert torch.equal(ntt_cuda.ntt_forward(a, tb), tntt.ntt_forward(a, tb))
+
+
+# (n, log_q, level, kd, batch, prereduced): the headline kd = 3, its top
+# level kd = 1 and level 1; k = 8 at kd = 8 (two digits per pair) and its
+# level 2 (kd = 6); the grouped gadget's prereduced kd = 4 (k8_omega) and
+# kd = 3 at its level 2; n = 256 (k = 5) at levels 0, 2 and 4 (kd = 1);
+# n = 16384; B = 1 (None: the single function), 2 and 8
+KEYSWITCH_CASES = [(N, 90, 0, 3, None, False), (N, 90, 0, 3, 2, False),
+                   (N, 90, 0, 3, BATCH, False), (N, 90, 2, 1, None, False),
+                   (N, 90, 2, 1, BATCH, False), (N, 90, 1, 2, None, False),
+                   (N, 218, 0, 8, None, False), (N, 218, 0, 8, BATCH, False),
+                   (N, 218, 2, 6, 2, False), (N, 218, 0, 4, None, True),
+                   (N, 218, 0, 4, BATCH, True), (N, 218, 2, 3, 2, True),
+                   (256, 150, 0, 5, None, False), (256, 150, 2, 3, BATCH, False),
+                   (256, 150, 4, 1, None, False), (16384, 90, 0, 3, None, False),
+                   (16384, 90, 0, 3, 2, False), (16384, 90, 0, 2, 2, True)]
+
+
+def keyswitch_inputs(tb, kd: int, batch: int, prereduced: bool, n: int, dev):
+    """Digits and keys as the key switch passes them: keys in the stored
+    [kd, k, 2, n] layout read through the prime-major view; digit j mod its
+    own q_j ([kd, B, n]), or per-prime residues ([k, kd, B, n])."""
+    qs = tb.primes
+    keys_t = torch.stack([_residues(qs, 2, dev, n) for _ in range(kd)]).permute(1, 0, 2, 3)
+    if prereduced:
+        d = _residues(qs, kd * batch, dev, n).view(tb.k, kd, batch, n)
+    else:
+        d = torch.stack([_residues((q,), batch, dev, n)[0] for q in qs[:kd]])
+    return d, keys_t
+
+
+@pytest.mark.parametrize("n,log_q,level,kd,batch,prereduced", KEYSWITCH_CASES)
+def test_keyswitch_cluster_kernel_matches_plain(dev, n, log_q, level, kd, batch, prereduced):
+    tb = _level_tables(_cached_ctx(n, log_q, 65537, dev), level, "q")
+    d, keys_t = keyswitch_inputs(tb, kd, batch or 1, prereduced, n, dev)
+    if batch is None:
+        d = d[..., 0, :]
+        assert torch.equal(ntt_cuda.keyswitch_fused(d, keys_t, tb, prereduced),
+                           tntt.keyswitch_fused(d, keys_t, tb, prereduced))
+    else:
+        assert torch.equal(ntt_cuda.keyswitch_fused_batch(d, keys_t, tb, prereduced),
+                           tntt.keyswitch_fused_batch(d, keys_t, tb, prereduced))
