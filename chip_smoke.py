@@ -11,14 +11,17 @@ Phases, each printing its own lines:
      0), with device times (CUDA
      events, median of 25 launches after warm-up), the plain version's time
      and the least time the card could take (bound); then the launch shape
-     of each cluster kernel (ntt_forward, mul_by_ntt_operand,
-     tensor_product, bsk_branch_fused, keyswitch_fused, decrypt_fused and
-     their batch forms: grid, cluster, CTAs, threads, shared memory) at
+     of each cluster kernel (ntt_forward, ntt_inverse, mul_by_ntt_operand,
+     tensor_product, bsk_branch_fused, keyswitch_fused, decrypt_fused,
+     ks_inner_batch / ks_inner_grouped and the batch forms: grid, cluster,
+     CTAs, threads, shared memory) at
      n = 8192 and 16384, and n = 16384 (the JAX bench's g_n16384,
      log_q = 90, k = 3, seed 4): the multiply at ks_omega = 1 and 2 decodes
      [15, 60], equals the CPU plain path and launched each of its kernels,
      with its device and wall ms; and n = 32768 (the bench's g_n32768, seed
-     5): ntt_forward equals its plain twin, forward_ntt_ms_n32768;
+     5): ntt_forward equals its plain twin, forward_ntt_ms_n32768, and so
+     does ntt_inverse on the same rows (its device ms a check, not a bench
+     metric);
   4. slice: the linear-ops main path through the FHE facade at n = 8192,
      log_q = 90 (k = 3), h = 64: keygen, encode, encrypt, add, add_plain and
      the 8-term resident plaintext multiply-accumulate, then decrypt and
@@ -98,7 +101,12 @@ cluster's 8 CTAs), B = 8, level views, t = 786433, n = 256 and n = 16384;
 ntt_forward at n = 256, 16384, level views, keygen's [k, 3, n] and mod
 t = 786433 at B = 1 and 16; and keyswitch_fused (both lanes, single and
 batched) at kd = 1, 2, 3, 6 and 8 (k = 8: two digits per pair), the
-prereduced kd = 4 and 3, level views, n = 256 and n = 16384, B = 1, 2, 8.
+prereduced kd = 4 and 3, level views, n = 256 and n = 16384, B = 1, 2, 8;
+ntt_inverse at n = 32, 256, 16384, level views, keygen's [k, 3, n], the
+key down-switch's [8, 12, n] rows, mod t = 786433 at B = 1 and 16 and rows
+off a 16-byte boundary; and ks_inner_batch / ks_inner_grouped at kd = 1,
+3, 4 and 8, shared and per-element digit stacks, C x E = 4 x 8, level
+views, n = 256, 1024 and 16384 and rows off a 16-byte boundary.
 The line before the last is {"kernels": [...]}, each kernel with its launches
 on its own path (phase 4 to 11); the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; without
@@ -440,14 +448,15 @@ def keyswitch_work(k: int, kd: int, batch: int = 1, prereduced: bool = False,
 
 
 def ks_inner_work(k: int, kd: int, stacks: int, key_sets: int,
-                  batch: int) -> tuple[float, float]:
-    """dg [k, kd, stacks, N] and keys [k, kd, key_sets, 2, N] in,
-    [k, 2, batch, N] out, inverse tables.  Per element and prime: 2 kd key
-    products and sums and a 2-row inverse sweep."""
+                  batch: int, n: int = N) -> tuple[float, float]:
+    """dg [k, kd, stacks, n] and keys [k, kd, key_sets, 2, n] in,
+    [k, 2, batch, n] out, inverse tables.  Per element and prime: 2 kd key
+    products and sums and a 2-row inverse sweep (the kernel reads the
+    digits once per output row: counted once)."""
     o = OPS
-    nbytes = 4 * (k * kd * stacks * N + 2 * k * kd * key_sets * N + 2 * k * batch * N
-                  + 2 * k * N)
-    ops = batch * k * (2 * kd * N * (o["mul_barrett"] + o["add_mod"]) + sweeps_ops(0, 2))
+    nbytes = 4 * (k * kd * stacks * n + 2 * k * kd * key_sets * n + 2 * k * batch * n
+                  + 2 * k * n)
+    ops = batch * k * (2 * kd * n * (o["mul_barrett"] + o["add_mod"]) + sweeps_ops(0, 2, n))
     return nbytes, ops
 
 
@@ -953,13 +962,95 @@ def forward_and_keyswitch_cases(gen: torch.Generator, ctx, ctx_s, ctx8, ctx16) -
             keyswitch_case(gen, ctx16, 0, 2, 2, True, "n=16384")]
 
 
+def offset_copy(x: torch.Tensor) -> torch.Tensor:
+    """A copy of x whose storage starts one word past a 16-byte boundary, so
+    a kernel reads its rows a word at a time."""
+    out = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    out.copy_(x)
+    check(out.data_ptr() % 16 == 4, "offset_copy: expected a 4-byte offset")
+    return out
+
+
+def ntt_inverse_case(gen: torch.Generator, tb, batch: int, label: str, offset: bool = False):
+    """An ntt_inverse case on tb (a level's row views, or a table mod t);
+    ``offset``: rows off a 16-byte boundary."""
+    n = tb.n
+    x = residues(gen, tb.primes, batch, n)
+    if offset:
+        x, label = offset_copy(x), label + ", rows off 16 bytes"
+    return ("ntt_inverse", f"{label}: [{tb.k},{batch},{n}]",
+            lambda: ntt_cuda.ntt_inverse(x, tb), lambda: plain_ntt.ntt_inverse(x, tb),
+            ntt_work(tb.k, batch, True, n))
+
+
+def ks_inner_case(gen: torch.Generator, ctx, level: int, kd: int, stacks: int,
+                  key_sets: int, grouped: bool, label: str, offset: bool = False):
+    """A ks_inner_batch case (one digit stack shared by the key sets'
+    elements, or one stack per element) or a ks_inner_grouped one (stack c
+    with key set e) on ctx's level-L tables; ``offset``: digits and keys
+    off a 16-byte boundary."""
+    tb, n = level_tables(ctx, level, "q"), ctx.n
+    dg = residues(gen, tb.primes, kd * stacks, n).view(tb.k, kd, stacks, n)
+    keys = residues(gen, tb.primes, kd * key_sets * 2, n).view(tb.k, kd, key_sets, 2, n)
+    if offset:
+        dg, keys, label = offset_copy(dg), offset_copy(keys), label + ", rows off 16 bytes"
+    name = "ks_inner_grouped" if grouped else "ks_inner_batch"
+    batch = stacks * key_sets if grouped else key_sets
+    return (name, f"{label}: dg [{tb.k},{kd},{stacks},{n}], keys [{tb.k},{kd},{key_sets},2,{n}]",
+            lambda: getattr(ntt_cuda, name)(dg, keys, tb),
+            lambda: getattr(plain_ntt, name)(dg, keys, tb),
+            ks_inner_work(tb.k, kd, stacks, key_sets, batch, n))
+
+
+def inverse_and_ks_inner_cases(gen: torch.Generator, ctx, ctx_s, ctx8, ctx16) -> list:
+    """B2 and B17/B18 around the main path's shapes: B2 at n = 32, 256
+    (k = 5, and its level 2), 16384, level views (level 1 of k = 3 at
+    B = 16, level 2 of k = 8), keygen's [k, 3, n], the key down-switch's
+    [k, 2 kd_l, n] rows (level 2 of k = 8: [8, 12, n]), mod t = 786433 at
+    B = 1 and 16, and rows off a 16-byte boundary; B17/B18 at kd = 1, 3, 4
+    and 8, one digit stack shared by every element and one per element,
+    C x E = 4 x 8, level views, n = 256, 1024 and 16384, and digits and keys
+    off a 16-byte boundary."""
+    tb32 = plain_ntt.build_tables(32, primes.find_ntt_primes(32, 3), "cuda")
+    tt = plain_ntt.build_tables(N, (786433,), "cuda")
+    ctx1k = make_context(quiet_params(1024, LOG_Q), device="cuda")
+    return [ntt_inverse_case(gen, tb32, 1, "n=32"),
+            ntt_inverse_case(gen, tb32, 3, "n=32"),
+            ntt_inverse_case(gen, level_tables(ctx_s, 0, "q"), 1, "n=256, k=5"),
+            ntt_inverse_case(gen, level_tables(ctx_s, 2, "q"), 3, "level 2 of n=256, k=5"),
+            ntt_inverse_case(gen, level_tables(ctx, 0, "q"), 3, "keygen's rows"),
+            ntt_inverse_case(gen, level_tables(ctx, 1, "q"), 16, "level 1 of k=3"),
+            ntt_inverse_case(gen, level_tables(ctx8, 2, "q"), 3, "level 2 of k=8"),
+            ntt_inverse_case(gen, ctx8.ntt_q, 12, "key down-switch rows, level 2 of k=8"),
+            ntt_inverse_case(gen, tt, 1, "t=786433"),
+            ntt_inverse_case(gen, tt, 16, "t=786433"),
+            ntt_inverse_case(gen, level_tables(ctx16, 0, "q"), 1, "n=16384"),
+            ntt_inverse_case(gen, level_tables(ctx16, 0, "q"), 16, "n=16384"),
+            ntt_inverse_case(gen, level_tables(ctx, 0, "q"), 3, "k=3", offset=True),
+            ks_inner_case(gen, ctx, 0, 3, BATCH, BATCH, False, "per-element stacks, k=3"),
+            ks_inner_case(gen, ctx, 2, 1, 1, BATCH, False, "level 2 of k=3"),
+            ks_inner_case(gen, ctx8, 0, 8, 1, BATCH, False, "k=8"),
+            ks_inner_case(gen, ctx8, 0, 8, BATCH, BATCH, False, "per-element stacks, k=8"),
+            ks_inner_case(gen, ctx8, 4, 4, 1, BATCH, False, "level 4 of k=8"),
+            ks_inner_case(gen, ctx8, 4, 4, C_HOIST, BATCH, True, "level 4 of k=8"),
+            ks_inner_case(gen, ctx_s, 1, 4, 1, BATCH, False, "level 1 of n=256, k=5"),
+            ks_inner_case(gen, ctx_s, 1, 4, C_HOIST, BATCH, True, "level 1 of n=256, k=5"),
+            ks_inner_case(gen, ctx1k, 0, 3, 1, 3, False, "n=1024"),
+            ks_inner_case(gen, ctx1k, 0, 3, 2, 3, True, "n=1024"),
+            ks_inner_case(gen, ctx16, 0, 3, 1, BATCH, False, "n=16384"),
+            ks_inner_case(gen, ctx16, 0, 3, C_HOIST, 2, True, "n=16384"),
+            ks_inner_case(gen, ctx, 0, 3, 1, BATCH, False, "k=3", offset=True),
+            ks_inner_case(gen, ctx, 0, 3, C_HOIST, BATCH, True, "k=3", offset=True)]
+
+
 def cluster_cases(gen: torch.Generator, ctx, ctx_s) -> list:
     """The cluster kernels around the main path's shapes: B3/B13 and B4/B11
     at n = 256 (k = 5), 8192 and 16384, level views (level 1 of k = 3, level
     2 of k = 8; the Bsk suffix at n = 256), t = 786433 tables, B = 1, 2 and
     8, B3 on strided views and with C = 1 and 2; B5 and B8 at k = 8, B = 8,
     level 1, t = 786433, n = 256 and n = 16384 (B8 also at k = 12); B1 and
-    B7/B12 (forward_and_keyswitch_cases)."""
+    B7/B12 (forward_and_keyswitch_cases); B2 and B17/B18
+    (inverse_and_ks_inner_cases)."""
     ctx8 = make_context(params_leveled(), device="cuda")
     ctx_t = make_context(quiet_params(N, LOG_Q, plain_modulus=786433), device="cuda")
     ctx16 = make_context(quiet_params(16384, LOG_Q), device="cuda")
@@ -1010,17 +1101,25 @@ def cluster_cases(gen: torch.Generator, ctx, ctx_s) -> list:
             decrypt_case(gen, ctx_s.params, 2, BATCH, "level 2 of n=256, k=5"),
             decrypt_case(gen, ctx16.params, 0, 1, "n=16384"),
             decrypt_case(gen, ctx16.params, 0, BATCH, "n=16384")] + forward_and_keyswitch_cases(
+                gen, ctx, ctx_s, ctx8, ctx16) + inverse_and_ks_inner_cases(
                 gen, ctx, ctx_s, ctx8, ctx16)
 
 
 def phase_geometry() -> None:
     """The launch shape of each cluster kernel at the main path's shapes
     (n = 8192, k = 3, kb = 5; c = 2 operand rows; kd = 3; B = 8; keygen's
-    three rows) and at n = 16384; keyswitch_fused at k = 8 (kd = 8, and
-    the prereduced kd = 4) and ntt_forward at n = 32768."""
+    three rows; the hoisted rotations' 8 elements and their batch's 4 x 8)
+    and at n = 16384; keyswitch_fused at k = 8 (kd = 8, and the prereduced
+    kd = 4), ntt_forward and ntt_inverse at n = 32768."""
     for n in (N, 16384):
         for name, geo in (("ntt_forward", ntt_cuda.ntt_forward_geometry(n, 3)),
                           ("ntt_forward keygen", ntt_cuda.ntt_forward_geometry(n, 3, 3)),
+                          ("ntt_inverse", ntt_cuda.ntt_inverse_geometry(n, 3)),
+                          ("ntt_inverse encode", ntt_cuda.ntt_inverse_geometry(n, 1)),
+                          ("ks_inner_batch", ntt_cuda.ks_inner_geometry(n, 3, BATCH)),
+                          ("ks_inner_grouped",
+                           ntt_cuda.ks_inner_geometry(n, 3, C_HOIST * BATCH,
+                                                      "ks_inner_grouped")),
                           ("keyswitch_fused", ntt_cuda.keyswitch_geometry(n, 3, 3)),
                           ("keyswitch_fused_batch",
                            ntt_cuda.keyswitch_geometry(n, 3, 3, BATCH)),
@@ -1040,7 +1139,8 @@ def phase_geometry() -> None:
     for name, n, geo in (("keyswitch_fused k=8 kd=8", N, ntt_cuda.keyswitch_geometry(N, 8, 8)),
                          ("keyswitch_fused_prereduced k=8 kd=4", N,
                           ntt_cuda.keyswitch_geometry(N, 8, 4)),
-                         ("ntt_forward", 32768, ntt_cuda.ntt_forward_geometry(32768, 3))):
+                         ("ntt_forward", 32768, ntt_cuda.ntt_forward_geometry(32768, 3)),
+                         ("ntt_inverse", 32768, ntt_cuda.ntt_inverse_geometry(32768, 3))):
         print(f"phase geometry {name} n={n}", json.dumps(geo))
 
 
@@ -1091,19 +1191,25 @@ def phase_n32768() -> None:
     """n = 32768, the JAX bench's g_n32768 (bench.py:932-945): 3 NTT primes
     for n = 32768, one [1, 32768] row per prime from numpy seed 5; ntt_forward
     equals its plain twin on the card, and its device and wall ms print under
-    the bench's metric name beside the card's name and power limit."""
+    the bench's metric name beside the card's name and power limit.  Then
+    ntt_inverse of the same rows equals its plain twin (a check, with its
+    device ms, not a bench metric)."""
     ps = primes.find_ntt_primes(32768, 3)
     x = np.stack([np.random.default_rng(5).integers(0, p, (1, 32768), dtype=np.uint32)
                   for p in ps])
     tb = plain_ntt.build_tables(32768, ps, "cuda")
     a = torch.from_numpy(x.astype(np.int32)).to("cuda")
-    got, want = ntt_cuda.ntt_forward(a, tb), plain_ntt.ntt_forward(a, tb)
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "n=32768 ntt_forward differs from its plain twin")
-    fn = lambda: ntt_cuda.ntt_forward(a, tb)
-    print("phase n32768 check: ntt_forward of g_n32768's [3,1,32768] equals its plain twin")
-    print("phase n32768", json.dumps({"card": card_name(), "forward_ntt_ms_n32768": {
-        "device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}}))
+    times = {}
+    for name, metric in (("ntt_forward", "forward_ntt_ms_n32768"),
+                         ("ntt_inverse", "ntt_inverse_ms_n32768")):
+        got, want = getattr(ntt_cuda, name)(a, tb), getattr(plain_ntt, name)(a, tb)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"n=32768 {name} differs from its plain twin")
+        fn = lambda name=name: getattr(ntt_cuda, name)(a, tb)
+        times[metric] = {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
+    print("phase n32768 check: ntt_forward and ntt_inverse of g_n32768's [3,1,32768] equal "
+          "their plain twins")
+    print("phase n32768", json.dumps({"card": card_name(), **times}))
 
 
 def run_slice(fhe: FHE):
@@ -1330,7 +1436,7 @@ def phase_serving() -> dict:
           f"{st['dec_cols'][0][N // 2:N // 2 + 4]}")
     check(all(d[:N // 2] == rotated(v, 1) for d, v in zip(st["dec_rot_b"], VALS_A)),
           f"rotate_rows_batch decoded {[d[:4] for d in st['dec_rot_b']]}")
-    check_launched(launches, "serving")
+    check_launched(launches, "serving", ("ntt_inverse",))
     for i in range(BATCH):
         single = fhe.multiply(st["cts_a"][i], st["cts_b"][i], rlk)
         check(torch.equal(single.data, st["prods"][i].data)
@@ -1501,7 +1607,7 @@ def phase_hoisted() -> dict:
     got = {int(v) for v in fhe.decode(fhe.decrypt(total, sk))}
     check(got == {sum(VALS_H)}, f"sum_slots decoded {sorted(got)[:4]}, expected "
           f"every slot {sum(VALS_H)}")
-    check_launched(launches, "hoisted")
+    check_launched(launches, "hoisted", ("ntt_inverse",))
 
     # the same state through the plain versions on the CPU, at full size
     cpu = FHE(fhe.params, device="cpu")

@@ -1,5 +1,5 @@
-// Modular arithmetic on uint32 residues, and the in-shared-memory NTT sweeps
-// that every kernel of the package shares.
+// Modular arithmetic on uint32 residues, and the register-blocked NTT sweep
+// that every transforming kernel of the package shares.
 //
 // Counterpart of fhe_tpu/ops/modmath.py and of the stage sweeps in
 // fhe_tpu/ops/ntt_pallas.py (_fwd_sweep / _inv_sweep).  Hopper multiplies
@@ -32,10 +32,9 @@
 // hj = (h * j) & (2n - 1), src = hj & (n - 1) and the test hj >= n (a 64-bit
 // multiply, two masks and a compare):
 //   OPS galois_index 4
-// and one butterfly of either NTT sweep, the one-stage fwd_ntt_smem /
-// inv_ntt_smem or the register-blocked fwd_ntt_regs / inv_ntt_regs, which
-// runs the same butterflies (mul_shoup, add_mod and sub_mod; the sweeps'
-// index and address arithmetic is not counted):
+// and one butterfly of the register-blocked NTT sweep fwd_ntt_regs /
+// inv_ntt_regs (mul_shoup, add_mod and sub_mod; the sweep's index and
+// address arithmetic is not counted):
 //   OPS ntt_butterfly 14
 #pragma once
 
@@ -168,92 +167,28 @@ __device__ __forceinline__ uint32_t reduce_barrett(uint32_t x, uint32_t p,
   return r >= p ? r - p : r;
 }
 
-// Forward negacyclic NTT of one polynomial of n = 2^logn residues at a[]
-// (shared memory), in place (no kernel runs it any more: it is the one-stage
-// side of scripts/ntt_sweep_bench.cu's comparison, and goes with
-// inv_ntt_smem once ntt_inverse and ks_inner move to the register-blocked
-// sweep): merged-psi Cooley-Tukey, natural order in,
-// bit-reversed out.  Stage m (m = 1, 2, ..., n/2) pairs j1 = 2*g*t + r with
-// j2 = j1 + t, t = n / (2m), twiddle psi_br[m + g].  All threads of the
-// block take part; the caller synchronises after filling a[], and the sweep
-// synchronises after every stage, so a[] is complete when it returns.
-__device__ __forceinline__ void fwd_ntt_smem(uint32_t* a, int logn, uint32_t p,
-                                             const uint32_t* __restrict__ w,
-                                             const uint32_t* __restrict__ w_sh) {
-  const int half = 1 << (logn - 1);
-  for (int logt = logn - 1, m = 1; logt >= 0; --logt, m <<= 1) {
-    const int t = 1 << logt;
-    for (int b = threadIdx.x; b < half; b += blockDim.x) {
-      const int g = b >> logt;
-      const int j1 = (g << (logt + 1)) | (b & (t - 1));
-      const int j2 = j1 + t;
-      const uint32_t u = a[j1];
-      const uint32_t v = mul_shoup(a[j2], __ldg(w + m + g), __ldg(w_sh + m + g), p);
-      a[j1] = add_mod(u, v, p);
-      a[j2] = sub_mod(u, v, p);
-    }
-    __syncthreads();
-  }
-}
-
-// Inverse of ROWS polynomials stored one after another at a[], in place:
-// Gentleman-Sande stages m = n/2 .. 1, bit-reversed in, natural out, then
-// the x n_inv Shoup multiply (n^-1, or t * n^-1 with the multiply's tables).
-// All rows share the prime and its tables, so one barrier per stage serves
-// every row; ROWS is a template argument so that the one-row sweep compiles
-// without the row arithmetic.  The closing multiply has no barrier: it
-// leaves element j (of all ROWS * n) with thread j mod blockDim.x, so a
-// caller that reads the result back with that same mapping, as every kernel
-// here does, needs no barrier; any other reader synchronises first.
-template <int ROWS = 1>
-__device__ __forceinline__ void inv_ntt_smem(uint32_t* a, int logn, uint32_t p,
-                                             const uint32_t* __restrict__ w,
-                                             const uint32_t* __restrict__ w_sh,
-                                             uint32_t n_inv, uint32_t n_inv_sh) {
-  const int n = 1 << logn;
-  const int half = n >> 1;
-  for (int logt = 0, m = half; m >= 1; ++logt, m >>= 1) {
-    const int t = 1 << logt;
-    for (int e = threadIdx.x; e < ROWS * half; e += blockDim.x) {
-      uint32_t* ar = ROWS == 1 ? a : a + ((e >> (logn - 1)) << logn);
-      const int b = ROWS == 1 ? e : e & (half - 1);
-      const int g = b >> logt;
-      const int j1 = (g << (logt + 1)) | (b & (t - 1));
-      const int j2 = j1 + t;
-      const uint32_t u = ar[j1];
-      const uint32_t v = ar[j2];
-      ar[j1] = add_mod(u, v, p);
-      ar[j2] = mul_shoup(sub_mod(u, v, p), __ldg(w + m + g), __ldg(w_sh + m + g), p);
-    }
-    __syncthreads();
-  }
-  for (int j = threadIdx.x; j < ROWS * n; j += blockDim.x)
-    a[j] = mul_shoup(a[j], n_inv, n_inv_sh, p);
-}
-
-// Threads per block for one n-point transform: one butterfly per thread and
-// stage up to the 1024-thread limit.
-inline int ntt_threads(int logn) {
-  const int half = 1 << (logn - 1);
-  return half < 1024 ? half : 1024;
-}
-
 // ---------------------------------------------------------------------------
-// The register-blocked sweep (ntt_forward, mul_by_ntt_operand,
-// tensor_product, keyswitch_fused, bsk_branch_fused and decrypt_fused).
+// The register-blocked sweep (every NTT kernel: ntt_forward, ntt_inverse,
+// mul_by_ntt_operand, tensor_product, keyswitch_fused, ks_inner,
+// bsk_branch_fused and decrypt_fused).
 //
-// The same butterflies as fwd_ntt_smem / inv_ntt_smem, grouped so that a
-// thread runs up to kRegLog stages on 2^kRegLog coefficients in registers
-// between barriers: an n = 8192 transform is 4 passes through shared memory
-// (4 barriers) instead of 13.  A pass of L stages whose largest butterfly
-// distance is T works on groups of G = 2^L coefficients, base + i * s
-// (i < G, s = 2T / G), one group per thread and loop step; group g0 * s + r
-// (r < s) has base g0 * 2T + r.  Within the group, stage l (distance
+// The radix-2 butterflies of the merged-psi transforms (ops/ntt.py), grouped
+// so that a thread runs up to kRegLog stages on 2^kRegLog coefficients in
+// registers between barriers: an n = 8192 transform is 4 passes through
+// shared memory (4 barriers), not one per stage (13).  The forward stage m
+// (m = 1, 2, ..., n/2; distance t = n / (2m)) pairs j1 = 2 g t + r with
+// j1 + t under twiddle psi_br[m + g] (Cooley-Tukey, natural order in,
+// bit-reversed out); the inverse runs the Gentleman-Sande stages m = n/2
+// .. 1 on the same pairs (bit-reversed in, natural out).  A pass of L
+// stages whose largest butterfly distance is T works on groups of G = 2^L
+// coefficients, base + i * s (i < G, s = 2T / G), one group per thread and
+// loop step; group g0 * s + r (r < s) has base g0 * 2T + r.  Within the
+// group, stage l (distance
 // T >> l) pairs i with i + 2^(L-1-l) in sub-block b of 2^(L-l) elements, and
 // its twiddle is psi_br[(M0 << l) + b] with M0 = n / (2T) + g0, the
-// butterfly of fwd_ntt_smem's stage m = n / (2t), group g = (g0 << l) + b.
-// So the pass loads G - 1 twiddle pairs for L * G / 2 butterflies, and the
-// output bits are those of the one-stage sweep.
+// butterfly of stage m = n / (2t), group g = (g0 << l) + b.  So the pass
+// loads G - 1 twiddle pairs for L * G / 2 butterflies, and the output bits
+// are those of the stage-by-stage transform.
 //
 // Passes.  The first and the last pass have kRegLog stages; where kRegLog
 // does not divide log n, the second pass takes the log n mod kRegLog
@@ -269,9 +204,10 @@ inline int ntt_threads(int logn) {
 //
 // Which thread gets what.  Thread t takes the groups grp = t,
 // t + blockDim.x, ... of every pass (of its share, where CTAs split the
-// row).  For log n >= 2 kRegLog, in the forward transform's last pass
-// (s = 1) group grp is the 16 consecutive elements from 16 grp; in the
-// inverse's (s = n / 16) it is grp + i * n / 16.  That mapping is the same
+// row).  In the inverse's first pass and, for log n >= 2 kRegLog, in the
+// forward transform's last pass (s = 1), group grp is the 16 consecutive
+// elements from 16 grp; in the inverse's last pass (s = n / 16) it is
+// grp + i * n / 16.  That mapping is the same
 // in every call with the same n and blockDim, so a caller that accumulates
 // through out() across calls reads and writes each element from one
 // thread; any other reader of what out() stored synchronises first.  Every
@@ -326,6 +262,21 @@ __device__ __forceinline__ void load_twiddles(const uint32_t* __restrict__ w, in
     v[1] = t.y;
   } else {
     v[0] = __ldg(w + idx);
+  }
+}
+
+// The words src[idx .. idx + CNT) of a run that starts at a multiple of
+// CNT: load_twiddles's vector loads where `vec` (src starts 16-byte aligned
+// and idx is a multiple of 4, as the wrappers report), a word at a time
+// otherwise.
+template <int CNT>
+__device__ __forceinline__ void load_run(const uint32_t* __restrict__ src, int idx, bool vec,
+                                         uint32_t (&v)[CNT]) {
+  if (vec) {
+    load_twiddles(src, idx, v);
+  } else {
+#pragma unroll
+    for (int c = 0; c < CNT; ++c) v[c] = __ldg(src + idx + c);
   }
 }
 

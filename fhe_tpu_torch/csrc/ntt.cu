@@ -63,39 +63,37 @@
 // 1) in its own shared memory; after a cluster barrier pairs 0 and 1 sum
 // the R partials of their output row through distributed shared memory and
 // run its inverse.  At kd = 3 that is 18 CTAs where one block per prime
-// (3 in all) ran three one-stage forwards and a two-row inverse in series.
+// (3 in all) ran three forwards and a two-row inverse in series.
 // R stops at 4, a cluster of 8 (the portable size): at kd = 8 a cluster of
 // 16, one digit per pair, was 2.5 % faster alone and 35 % slower at B = 8.
 // ntt_forward is B3's split forward alone: a cluster of 2 CTAs per (row,
 // prime), the load fused into the first pass and the store into the last
 // (one CTA per row was slower at every B measured, up to 48 rows).
 //
-// The register-blocked kernels are large: 4 K (ntt_forward) to 11 K
-// (keyswitch_fused) SASS instructions, against 0.1-0.7 K for the one-stage
-// ones, and each warp runs a pass's straight-line code once or twice.  So a
-// kernel that follows another one of them on the same SMs fetches its code
-// cold: keyswitch_fused takes 2.5 us more behind tensor_product at n = 8192,
-// 4.3 us more at n = 256, and nothing more behind ntt_inverse (PERF.md).
-//
-// ntt_inverse and ks_inner_batch / ks_inner_grouped still run the one-stage
-// sweep inv_ntt_smem: one block per (element, prime) holds the polynomials
-// of the step in shared memory (32 KB each at n = 8192), runs all log2(n)
-// radix-2 stages with a __syncthreads() between them, and transforms its
-// rows together, so one barrier per stage serves 2 rows (the key-switch
-// accumulators).  At n = 8192, k = 3 they run on k * B blocks, one per SM,
-// and are bound by the latency of those SMs' stage chains.
-
+// ntt_inverse (the encoder, to_coeff, the Galois key generator, key
+// down-switching) is ntt_forward's mirror: a cluster of 2 CTAs per (row,
+// prime) on the split inverse, the load fused into the first pass (16
+// consecutive words of the CTA's own half per group, 16-byte loads where
+// the row is aligned) and the n^-1 multiply and the store into the last.
 // ks_inner_batch and ks_inner_grouped (the hoisted rotations) are the back
-// half of the key switch: their digits arrive already transformed, so a
-// block (b, i) only forms the two sums sum_j dg_j . key_j, one coefficient
-// per thread in registers with no barrier between digits, and runs the
-// two-row inverse sweep.  The digits and the keys are read through strides
-// and two index maps (digit stack b / dg_div, key set b % key_mod), so a
-// digit stack shared by all elements, or by the E elements of one
-// ciphertext, is read in place and never repeated in memory, nor are the
-// keys tiled.  A block reads kd digit rows and 2 kd key rows and runs 13
-// inverse stages on 2 rows; it is bound by the issue rate of the k * B SMs
-// it runs on (bound and times: PERF.md).
+// half of the key switch: their digits arrive already transformed, so all
+// that is left per output row is sum_j dg_j . key_j,c and one inverse.  The
+// two output rows never meet, so each (element, output row, prime) is a
+// split inverse of its own, a cluster of 2 CTAs (B3's shape), whose first
+// pass forms the inner product of its group in registers as it loads it:
+// kd digit and kd key words per position, Barrett products summed mod p.
+// The digits are read once per output row, as B3 transforms u once per
+// operand row.  The digits and the keys are read through strides and two
+// index maps (digit stack b / dg_div, key set b % key_mod), so a digit stack
+// shared by all elements, or by the E elements of one ciphertext, is read
+// in place and never repeated in memory, nor are the keys tiled.
+//
+// The register-blocked kernels are large: about 4 K (ntt_forward) to 11 K
+// (keyswitch_fused) SASS instructions, and each warp runs a pass's
+// straight-line code once or twice.  So a kernel that follows another one
+// of them on the same SMs fetches its code cold: keyswitch_fused takes 2.5
+// us more behind tensor_product at n = 8192, 4.3 us more at n = 256
+// (PERF.md, which also times it behind ntt_inverse and ks_inner).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -153,21 +151,45 @@ ntt_forward_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   cluster.sync();
 }
 
-__global__ void __launch_bounds__(1024)
+// Cluster (b, i) of 2 CTAs: y[i, b] = n^-1 INTT(x[i, b]) for x, y [k, batch,
+// n], grid (2 * batch, k) in clusters of (2, 1, 1): ntt_forward's mirror.
+// CTA h runs half of each pass (modmath.cuh's RowSplit note): it loads
+// positions [h n/2, (h+1) n/2), 16 consecutive words per group, in the
+// first pass (16-byte loads where `vec`: x starts 16-byte aligned) and
+// stores its share of the row's columns, times n^-1, in the last.  Shared
+// memory: one padded row.
+__global__ void __launch_bounds__(512)
 ntt_inverse_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                    const uint32_t* __restrict__ p, const uint32_t* __restrict__ ipsi,
                    const uint32_t* __restrict__ ipsi_sh,
                    const uint32_t* __restrict__ n_inv,
-                   const uint32_t* __restrict__ n_inv_sh, int batch, int logn) {
+                   const uint32_t* __restrict__ n_inv_sh, int batch, int logn, int vec) {
   extern __shared__ uint32_t a[];
+  cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
+  const int b = blockIdx.x / kRowSplit;
   const int i = blockIdx.y;
-  const size_t row = (static_cast<size_t>(i) * batch + blockIdx.x) * n;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) a[j] = x[row + j];
-  __syncthreads();
-  fhe::inv_ntt_smem(a, logn, p[i], ipsi + static_cast<size_t>(i) * n,
-                    ipsi_sh + static_cast<size_t>(i) * n, n_inv[i], n_inv_sh[i]);
-  for (int j = threadIdx.x; j < n; j += blockDim.x) y[row + j] = a[j];
+  const size_t tab = static_cast<size_t>(i) * n;
+  const size_t row = (static_cast<size_t>(i) * batch + b) * n;
+  const uint32_t* src = x + row;
+  uint32_t* dst = y + row;
+  static_assert(kRowSplit == 2, "the split below names both CTAs of a row");
+  const fhe::RowSplit<kRowSplit> split{
+      {cluster.map_shared_rank(a, 0), cluster.map_shared_rank(a, 1)},
+      static_cast<int>(cluster.block_rank())};
+  fhe::inv_ntt_regs_split(
+      a, split, [&] { cluster.sync(); }, logn, p[i], ipsi + tab, ipsi_sh + tab, n_inv[i],
+      n_inv_sh[i],
+      // the first pass's group is consecutive (logs = 0, base a multiple of its size)
+      [&](auto& v, int base, int) { fhe::load_run(src, base, vec, v); },
+      [&](auto& v, int base, int logs) {
+#pragma unroll
+        for (int g = 0; g < static_cast<int>(sizeof(v) / sizeof(v[0])); ++g)
+          dst[base + (g << logs)] = v[g];
+      });
+  // the partner read this CTA's row in the last pass: neither leaves (and
+  // frees its shared memory) before both have
+  cluster.sync();
 }
 
 // Cluster (i, c, b) of 2 CTAs: out[i, c, b] = INTT(NTT(u[i, b]) . w[i, c]).
@@ -454,52 +476,72 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
   cluster.sync();
 }
 
-// Hoisted key-switch inner product, block (b, i) for element b and prime p_i:
-//   out[i, c, b] = INTT( sum_j dg[i, j, b / dg_div] . keys[i, j, b % key_mod, c] )
-// for c = 0, 1.  The digits are NTT-domain residues mod p_i: row (i, j, s)
-// at dg + i * dg_sp + j * dg_sj + s * dg_sb (dg_sb = 0 for one stack shared
-// by every element).  Key element (i, j, e, c, x) at keys + i * key_sp +
-// j * key_sj + e * key_se + c * n + x.  ks_inner_batch passes dg_div = 1 and
-// key_mod = B; ks_inner_grouped, element b = s * E + e, dg_div = key_mod = E.
-// Each thread sums its own coefficients in registers and writes the two
-// accumulator rows (2 * 32 KB at n = 8192) once; the one barrier before the
-// inverse sweep is the only one outside it.  out: [k, 2, B, n].
-__global__ void __launch_bounds__(1024)
+// Hoisted key-switch inner product, cluster (i, c, b) of 2 CTAs for element
+// b, output row c and prime p_i:
+//   out[i, c, b] = INTT( sum_j dg[i, j, b / dg_div] . keys[i, j, b % key_mod, c] ).
+// The digits are NTT-domain residues mod p_i: row (i, j, s) at dg + i *
+// dg_sp + j * dg_sj + s * dg_sb (dg_sb = 0 for one stack shared by every
+// element).  Key element (i, j, e, c, x) at keys + i * key_sp + j * key_sj
+// + e * key_se + c * n + x.  ks_inner_batch passes dg_div = 1 and key_mod =
+// B; ks_inner_grouped, element b = s * E + e, dg_div = key_mod = E.  out:
+// [k, 2, B, n].  Grid (2, 2 * B, k) in clusters of (2, 1, 1), blockIdx.y =
+// c * B + b.  CTA h runs half of each pass of output row c's split inverse
+// (modmath.cuh's RowSplit note): the first pass's load forms the sum for
+// its 16 consecutive positions, kd digit runs and kd key runs (16-byte
+// loads where `vec`: every row starts 16-byte aligned), Barrett products
+// added mod p_i in registers, so nothing is written before the first pass;
+// the last pass stores.  Mod-add is exact, so this order of summation gives
+// the reference's bits.  Shared memory: one padded row.
+__global__ void __launch_bounds__(512)
 ks_inner_kernel(const uint32_t* __restrict__ dg, long long dg_sp, long long dg_sj,
                 long long dg_sb, int dg_div, const uint32_t* __restrict__ keys,
                 long long key_sp, long long key_sj, long long key_se, int key_mod,
                 uint32_t* __restrict__ out, const uint32_t* __restrict__ p,
                 const uint32_t* __restrict__ mu, const uint32_t* __restrict__ ipsi,
                 const uint32_t* __restrict__ ipsi_sh, const uint32_t* __restrict__ n_inv,
-                const uint32_t* __restrict__ n_inv_sh, int kd, int logn) {
-  extern __shared__ uint32_t acc[];
+                const uint32_t* __restrict__ n_inv_sh, int kd, int logn, int vec) {
+  extern __shared__ uint32_t a[];
+  cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
-  const int i = blockIdx.y;
-  const int b = blockIdx.x;
-  const int batch = gridDim.x;
+  const int cb = blockIdx.y;
+  const int batch = gridDim.y / 2;
+  const int c = cb / batch, b = cb - c * batch;
+  const int i = blockIdx.z;
   const uint32_t pi = p[i];
   const uint32_t mui = mu[i];
   const size_t tab = static_cast<size_t>(i) * n;
   const uint32_t* dgb = dg + i * dg_sp + (b / dg_div) * dg_sb;
-  const uint32_t* kb = keys + i * key_sp + (b % key_mod) * key_se;
-  for (int x = threadIdx.x; x < n; x += blockDim.x) {
-    uint32_t s0 = 0, s1 = 0;
-    for (int j = 0; j < kd; ++j) {
-      const uint32_t f = dgb[j * dg_sj + x];
-      const uint32_t* key = kb + j * key_sj;
-      s0 = fhe::add_mod(s0, fhe::mul_barrett(f, key[x], pi, mui), pi);
-      s1 = fhe::add_mod(s1, fhe::mul_barrett(f, key[n + x], pi, mui), pi);
-    }
-    acc[x] = s0;
-    acc[n + x] = s1;
-  }
-  __syncthreads();
-  fhe::inv_ntt_smem<2>(acc, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i]);
-  // element c * n + x stays with thread x mod blockDim.x, as the inverse left it
-  for (int c = 0; c < 2; ++c) {
-    const size_t orow = ((static_cast<size_t>(i) * 2 + c) * batch + b) * n;
-    for (int x = threadIdx.x; x < n; x += blockDim.x) out[orow + x] = acc[c * n + x];
-  }
+  const uint32_t* kc = keys + i * key_sp + (b % key_mod) * key_se + c * n;
+  uint32_t* dst = out + (static_cast<size_t>(i) * gridDim.y + cb) * n;
+  static_assert(kRowSplit == 2, "the split below names both CTAs of a row");
+  const fhe::RowSplit<kRowSplit> split{
+      {cluster.map_shared_rank(a, 0), cluster.map_shared_rank(a, 1)},
+      static_cast<int>(cluster.block_rank())};
+  fhe::inv_ntt_regs_split(
+      a, split, [&] { cluster.sync(); }, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i],
+      n_inv_sh[i],
+      // the first pass's group is consecutive (logs = 0, base a multiple of its size)
+      [&](auto& v, int base, int) {
+        constexpr int G = sizeof(v) / sizeof(v[0]);
+#pragma unroll
+        for (int g = 0; g < G; ++g) v[g] = 0;
+        for (int j = 0; j < kd; ++j) {
+          uint32_t f[G], kv[G];
+          fhe::load_run(dgb + j * dg_sj, base, vec, f);
+          fhe::load_run(kc + j * key_sj, base, vec, kv);
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            v[g] = fhe::add_mod(v[g], fhe::mul_barrett(f[g], kv[g], pi, mui), pi);
+        }
+      },
+      [&](auto& v, int base, int logs) {
+#pragma unroll
+        for (int g = 0; g < static_cast<int>(sizeof(v) / sizeof(v[0])); ++g)
+          dst[base + (g << logs)] = v[g];
+      });
+  // the partner read this CTA's row in the last pass: neither leaves (and
+  // frees its shared memory) before both have
+  cluster.sync();
 }
 
 template <bool PREREDUCED>
@@ -536,11 +578,13 @@ cudaError_t launch_keyswitch(const void* d, long long d_sp, long long d_sj, long
 
 extern "C" {
 
-// The launch geometry of ntt_forward, mul_by_ntt_operand, tensor_product
-// and keyswitch_fused comes from the wrapper (ops/ntt_cuda.py,
-// ntt_forward_geometry, mul_by_ntt_operand_geometry, tensor_product_geometry
-// and keyswitch_geometry): `threads` per CTA and `smem` bytes per CTA, at
+// The launch geometry of every kernel here comes from the wrapper
+// (ops/ntt_cuda.py: ntt_forward_geometry, ntt_inverse_geometry,
+// mul_by_ntt_operand_geometry, tensor_product_geometry, keyswitch_geometry
+// and ks_inner_geometry): `threads` per CTA and `smem` bytes per CTA, at
 // least the padded rows the kernel uses, and keyswitch_fused's digit pairs.
+// `vec` (ntt_inverse, ks_inner) says that every input row starts 16-byte
+// aligned, so the first pass may load it in 16-byte words.
 int fhe_ntt_forward(const void* x, void* y, const void* p, const void* psi,
                     const void* psi_sh, int k, int batch, int logn, int threads, int smem,
                     void* stream) {
@@ -566,18 +610,25 @@ int fhe_ntt_forward(const void* x, void* y, const void* p, const void* psi,
 
 int fhe_ntt_inverse(const void* x, void* y, const void* p, const void* ipsi,
                     const void* ipsi_sh, const void* n_inv, const void* n_inv_sh,
-                    int k, int batch, int logn, void* stream) {
-  const size_t smem = sizeof(uint32_t) << logn;
+                    int k, int batch, int logn, int threads, int smem, int vec,
+                    void* stream) {
+  if (logn <= fhe::kRegLog || smem < 4 * fhe::padded(1 << logn))
+    return static_cast<int>(cudaErrorInvalidValue);
   static std::atomic<size_t> granted[fhe::kMaxDevices];
-  cudaError_t err = fhe::allow_smem(
-      reinterpret_cast<const void*>(ntt_inverse_kernel), smem, granted);
+  static std::atomic<size_t> placed[fhe::kMaxDevices];
+  const void* kernel = reinterpret_cast<const void*>(ntt_inverse_kernel);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ntt_inverse_kernel<<<dim3(batch, k), fhe::ntt_threads(logn), smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
-      static_cast<const uint32_t*>(p), static_cast<const uint32_t*>(ipsi),
-      static_cast<const uint32_t*>(ipsi_sh), static_cast<const uint32_t*>(n_inv),
-      static_cast<const uint32_t*>(n_inv_sh), batch, logn);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = fhe::cluster_config(
+      dim3(kRowSplit * batch, k), threads, smem, kRowSplit,
+      static_cast<cudaStream_t>(stream), attr);
+  err = fhe::check_cluster(kernel, cfg, placed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  err = cudaLaunchKernelEx(&cfg, ntt_inverse_kernel, c(x), static_cast<uint32_t*>(y), c(p),
+                           c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), batch, logn, vec);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -649,20 +700,26 @@ int fhe_ks_inner(const void* dg, long long dg_sp, long long dg_sj, long long dg_
                  int dg_div, const void* keys, long long key_sp, long long key_sj,
                  long long key_se, int key_mod, void* out, const void* p, const void* mu,
                  const void* ipsi, const void* ipsi_sh, const void* n_inv,
-                 const void* n_inv_sh, int k, int kd, int batch, int logn, void* stream) {
-  const size_t smem = 2 * (sizeof(uint32_t) << logn);
+                 const void* n_inv_sh, int k, int kd, int batch, int logn, int threads,
+                 int smem, int vec, void* stream) {
+  if (logn <= fhe::kRegLog || kd < 1 || smem < 4 * fhe::padded(1 << logn))
+    return static_cast<int>(cudaErrorInvalidValue);
   static std::atomic<size_t> granted[fhe::kMaxDevices];
-  cudaError_t err = fhe::allow_smem(
-      reinterpret_cast<const void*>(ks_inner_kernel), smem, granted);
+  static std::atomic<size_t> placed[fhe::kMaxDevices];
+  const void* kernel = reinterpret_cast<const void*>(ks_inner_kernel);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ks_inner_kernel<<<dim3(batch, k), fhe::ntt_threads(logn), smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(dg), dg_sp, dg_sj, dg_sb, dg_div,
-      static_cast<const uint32_t*>(keys), key_sp, key_sj, key_se, key_mod,
-      static_cast<uint32_t*>(out), static_cast<const uint32_t*>(p),
-      static_cast<const uint32_t*>(mu), static_cast<const uint32_t*>(ipsi),
-      static_cast<const uint32_t*>(ipsi_sh), static_cast<const uint32_t*>(n_inv),
-      static_cast<const uint32_t*>(n_inv_sh), kd, logn);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = fhe::cluster_config(
+      dim3(kRowSplit, 2 * batch, k), threads, smem, kRowSplit,
+      static_cast<cudaStream_t>(stream), attr);
+  err = fhe::check_cluster(kernel, cfg, placed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  err = cudaLaunchKernelEx(&cfg, ks_inner_kernel, c(dg), dg_sp, dg_sj, dg_sb, dg_div, c(keys),
+                           key_sp, key_sj, key_se, key_mod, static_cast<uint32_t*>(out), c(p),
+                           c(mu), c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), kd, logn, vec);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,11 +4,11 @@
 ``tensor_product`` (and ``_batch``), ``keyswitch_fused`` (and ``_batch``,
 each with its ``prereduced`` lane), ``ks_inner_batch`` and
 ``ks_inner_grouped`` launch the hand-written CUDA kernels of
-``csrc/ntt.cu`` (design and bound: the note at the top of that file; the
-launch shapes of the cluster kernels ``ntt_forward``, ``mul_by_ntt_operand``,
-``tensor_product`` and ``keyswitch_fused``: ``ntt_forward_geometry``,
-``mul_by_ntt_operand_geometry``, ``tensor_product_geometry`` and
-``keyswitch_geometry``) for CUDA tensors and use the plain PyTorch
+``csrc/ntt.cu`` (design and bound: the note at the top of that file; their
+launch shapes, all thread-block clusters: ``ntt_forward_geometry``,
+``ntt_inverse_geometry``, ``mul_by_ntt_operand_geometry``,
+``tensor_product_geometry``, ``keyswitch_geometry`` and
+``ks_inner_geometry``) for CUDA tensors and use the plain PyTorch
 versions of ``ops/ntt.py`` for CPU tensors; any other device raises.  A
 single function and its ``_batch`` form launch the same kernel (the
 single one with a batch of 1), as do
@@ -39,7 +39,7 @@ _L = ctypes.c_longlong
 # most 227 KB of it on Hopper
 MAX_SMEM = 232448
 # the largest grid x and y extents; the cluster kernels give the batch to y,
-# ntt_forward to x
+# ntt_forward and ntt_inverse to x
 MAX_GRID_X = 2 ** 31 - 1
 MAX_GRID_Y = 65535
 
@@ -48,14 +48,14 @@ MAX_GRID_Y = 65535
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ntt")
     lib.fhe_ntt_forward.argtypes = [_P] * 5 + [_I] * 5 + [_P]
-    lib.fhe_ntt_inverse.argtypes = [_P] * 7 + [_I] * 3 + [_P]
+    lib.fhe_ntt_inverse.argtypes = [_P] * 7 + [_I] * 6 + [_P]
     lib.fhe_mul_by_ntt_operand.argtypes = ([_P] + [_L] * 2 + [_P] * 10
                                            + [_I] * 6 + [_P])
     lib.fhe_tensor_product.argtypes = [_P] * 2 + [_L] * 3 + [_P] * 9 + [_I] * 5 + [_P]
     lib.fhe_keyswitch.argtypes = ([_P] + [_L] * 3 + [_P] + [_L] * 2 + [_P] * 9
                                   + [_I] * 8 + [_P])
     lib.fhe_ks_inner.argtypes = ([_P] + [_L] * 3 + [_I] + [_P] + [_L] * 3 + [_I]
-                                 + [_P] * 7 + [_I] * 4 + [_P])
+                                 + [_P] * 7 + [_I] * 7 + [_P])
     for f in (lib.fhe_ntt_forward, lib.fhe_ntt_inverse,
               lib.fhe_mul_by_ntt_operand, lib.fhe_tensor_product,
               lib.fhe_keyswitch, lib.fhe_ks_inner):
@@ -148,16 +148,38 @@ PRODUCT_CLUSTER = 4 * ROW_SPLIT
 KEYSWITCH_PAIRS = 4
 
 
-def ntt_forward_geometry(n: int, k: int, batch: int = 1) -> dict:
+def ntt_forward_geometry(n: int, k: int, batch: int = 1,
+                         name: str = "ntt_forward") -> dict:
     """Launch shape of ``ntt_forward`` for [k, batch, n]: one cluster of 2
     CTAs per (row, prime), which share the row's transform, the batch on
     grid x; one padded row of shared memory per CTA.  Raise where that does
     not fit the card."""
-    name = "ntt_forward"
     if not 1 <= ROW_SPLIT * batch <= MAX_GRID_X:
         raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_X // ROW_SPLIT}")
     return {"grid": (ROW_SPLIT * batch, k), "cluster": (ROW_SPLIT, 1, 1),
             "ctas": ROW_SPLIT * batch * k, "ctas_per_row": ROW_SPLIT,
+            "threads": regs_threads(n, name, ROW_SPLIT),
+            "smem": check_smem(n, 1, name, padded=True)}
+
+
+def ntt_inverse_geometry(n: int, k: int, batch: int = 1) -> dict:
+    """Launch shape of ``ntt_inverse`` for [k, batch, n]: ntt_forward's, the
+    mirror transform (a cluster of 2 CTAs per (row, prime), one padded row
+    each).  Raise where that does not fit the card."""
+    return ntt_forward_geometry(n, k, batch, "ntt_inverse")
+
+
+def ks_inner_geometry(n: int, k: int, batch: int = 1,
+                      name: str = "ks_inner_batch") -> dict:
+    """Launch shape of ``ks_inner_batch`` and ``ks_inner_grouped`` for B =
+    ``batch`` elements over k primes: one cluster of 2 CTAs per (element,
+    output row, prime), which share that row's inner product and inverse
+    transform, grid (2, 2B, k); one padded row of shared memory per CTA.
+    Raise where that does not fit the card."""
+    if not 1 <= 2 * batch <= MAX_GRID_Y:
+        raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y // 2}")
+    return {"grid": (ROW_SPLIT, 2 * batch, k), "cluster": (ROW_SPLIT, 1, 1),
+            "ctas": ROW_SPLIT * 2 * batch * k, "ctas_per_row": ROW_SPLIT,
             "threads": regs_threads(n, name, ROW_SPLIT),
             "smem": check_smem(n, 1, name, padded=True)}
 
@@ -253,18 +275,31 @@ def ntt_forward(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
 ntt_forward.launches = 0
 
 
+def aligned(x: torch.Tensor, *strides: int) -> bool:
+    """True where x starts 16-byte aligned and each of ``strides`` (in
+    elements) is a whole number of 16-byte words: then every row the
+    strides reach starts aligned, and a kernel may read it in 16-byte
+    words."""
+    return x.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in strides)
+
+
 def ntt_inverse(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
-    """[k, batch, n] inverse NTT, bit-reversed -> natural order, times n^-1."""
+    """[k, batch, n] inverse NTT, bit-reversed -> natural order, times n^-1.
+    Any prime below 2^31, as ``ntt_forward``; on the card 32 <= n <= 32768
+    (``ntt_inverse_geometry``).  An input that does not start 16-byte
+    aligned is read a word at a time."""
     check_residues(a, tb, "ntt_inverse")
     if not on_card(a, "ntt_inverse"):
         return _ntt.ntt_inverse(a, tb)
     k, batch, n = a.shape
-    check_smem(n, 1, "ntt_inverse")
+    geo = ntt_inverse_geometry(n, k, batch)
+    check_aligned_tables(tb, "ntt_inverse")
     out = torch.empty_like(a)
     p = _build.ptr
     _build.launch(_lib().fhe_ntt_inverse, "ntt_inverse", a.device,
                   p(a), p(out), p(tb.p), p(tb.ipsi_br), p(tb.ipsi_br_shoup),
-                  p(tb.n_inv), p(tb.n_inv_shoup), k, batch, log2_exact(n))
+                  p(tb.n_inv), p(tb.n_inv_shoup), k, batch, log2_exact(n),
+                  geo["threads"], geo["smem"], int(aligned(a)))
     ntt_inverse.launches += 1
     return out
 
@@ -533,21 +568,25 @@ def _check_ks_inner(dg: torch.Tensor, keys: torch.Tensor, tb: NTTTables,
 
 def _ks_inner_launch(dg: torch.Tensor, keys: torch.Tensor, tb: NTTTables,
                      batch: int, dg_div: int, key_mod: int, name: str) -> torch.Tensor:
-    """One launch of batch * k blocks; block b reads digit stack b // dg_div
-    (through stride 0 when there is one stack) and key set b % key_mod."""
+    """One launch of 2 * batch * k clusters; element b reads digit stack
+    b // dg_div (through stride 0 when there is one stack) and key set
+    b % key_mod.  Rows that do not all start 16-byte aligned are read a
+    word at a time."""
     check_barrett(tb, name)
+    check_aligned_tables(tb, name)
     kd, n = dg.shape[1], tb.n
-    check_smem(n, 2, name)
     out = torch.empty((tb.k, 2, batch, n), dtype=torch.int32, device=dg.device)
     if batch == 0:
         return out
+    geo = ks_inner_geometry(n, tb.k, batch, name)
     dg_sb = dg.stride(2) if dg.shape[2] > 1 else 0
+    vec = aligned(dg, dg.stride(0), dg.stride(1), dg_sb) and aligned(keys, *keys.stride()[:3])
     p = _build.ptr
     _build.launch(_lib().fhe_ks_inner, name, dg.device, p(dg), dg.stride(0),
                   dg.stride(1), dg_sb, dg_div, p(keys), keys.stride(0), keys.stride(1),
                   keys.stride(2), key_mod, p(out), p(tb.p), p(tb.mu), p(tb.ipsi_br),
                   p(tb.ipsi_br_shoup), p(tb.n_inv), p(tb.n_inv_shoup), tb.k, kd, batch,
-                  log2_exact(n))
+                  log2_exact(n), geo["threads"], geo["smem"], int(vec))
     return out
 
 
@@ -562,7 +601,8 @@ def ks_inner_batch(dg: torch.Tensor, keys: torch.Tensor,
           per-element automorphism lives in the keys)
     keys: [k, kd, B, 2, n] per-element NTT-form keys, each [2, n] block
           contiguous
-    Returns [k, 2, B, n]; every prime must be a 30-bit prime (Barrett)."""
+    Returns [k, 2, B, n]; every prime must be a 30-bit prime (Barrett); on
+    the card 32 <= n <= 32768 (``ks_inner_geometry``)."""
     _check_ks_inner(dg, keys, tb, "ks_inner_batch")
     batch = keys.shape[2]
     if dg.shape[2] not in (1, batch):

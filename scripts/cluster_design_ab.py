@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Design A/B of the cluster kernels keyswitch_fused (B7/B12) and
-ntt_forward (B1) on one NVIDIA card, for one tree of the port per run:
+"""Design A/B of the cluster kernels keyswitch_fused (B7/B12), ntt_forward
+(B1), ntt_inverse (B2) and ks_inner_batch / ks_inner_grouped (B17/B18) on
+one NVIDIA card, for one tree of the port per run:
 
     python3 scripts/cluster_design_ab.py [TREE]
 
@@ -16,14 +17,19 @@ and power limit, the tree, and
     (B = 1, 8), the prereduced k = 8, kd = 4 (B = 1, 8), n = 16384 and
     n = 256 (k = 5, kd = 5); each result equals the plain twin.  Absent for
     a tree whose key switch takes no pair count;
-  - ntt_forward: device ms of ntt_forward through the wrapper at [3, B, 8192]
-    for B = 1, 3, 16, 48 and at [3, B, 32768] for B = 1, 16; each result
-    equals the plain twin;
+  - ntt_forward and ntt_inverse: device ms of each through the wrapper at
+    [3, B, 8192] for B = 1, 3, 16, 48, at [3, B, 32768] for B = 1, 16, and
+    (ntt_inverse) the encoder's [1, 1, 8192] mod t = 65537; each result
+    equals the plain twin (null where a tree raises);
+  - ks_inner: device ms of ks_inner_batch (one digit stack shared by 8 key
+    sets, the hoisted rotations; kd = 3 at k = 3, kd = 8 at k = 8) and of
+    ks_inner_grouped (4 stacks by 8 key sets) at n = 8192, each equal to
+    the plain twin;
   - keyswitch_after: the key switch's own duration in a torch.profiler trace
     (µs, median of 20) when it runs alone, behind a small elementwise op,
-    behind tensor_product, behind ntt_inverse, and behind a 64 MB memset
-    that evicts the L2 cache, at n = 256 (k = 5, kd = 5) and at n = 8192
-    (k = 3, kd = 3);
+    behind tensor_product, behind ntt_inverse, behind ks_inner_batch, and
+    behind a 64 MB memset that evicts the L2 cache, at n = 256 (k = 5,
+    kd = 5) and at n = 8192 (k = 3, kd = 3);
   - sass_instructions: the SASS instructions of each kernel in the tree's
     libntt.so (cuobjdump -sass), the code a cold SM fetches.
 Imports no JAX and nothing of fhe_tpu.
@@ -131,15 +137,48 @@ def keyswitch_pairs() -> dict:
     return out
 
 
-def ntt_forward() -> dict:
+def transform(name: str) -> dict:
+    """ntt_forward or ntt_inverse at [3, B, n], and ntt_inverse at the
+    encoder's [1, 1, 8192] mod t."""
     out = {}
-    for n, batches in ((8192, (1, 3, 16, 48)), (32768, (1, 16))):
-        tb = plain.build_tables(n, primes.find_ntt_primes(n, 3), "cuda")
-        for batch in batches:
-            x = residues(tb.primes, batch, n)
-            if not torch.equal(ntt_cuda.ntt_forward(x, tb), plain.ntt_forward(x, tb)):
-                raise RuntimeError(f"ntt_forward [3,{batch},{n}] differs")
-            out[f"[3,{batch},{n}]"] = device_ms(lambda x=x: ntt_cuda.ntt_forward(x, tb))
+    cases = [(tuple(primes.find_ntt_primes(n, 3)), n, batch)
+             for n, batches in ((8192, (1, 3, 16, 48)), (32768, (1, 16))) for batch in batches]
+    if name == "ntt_inverse":
+        cases.append(((65537,), 8192, 1))
+    for moduli, n, batch in cases:
+        tb = plain.build_tables(n, moduli, "cuda")
+        x = residues(moduli, batch, n)
+        fn = lambda x=x, tb=tb: getattr(ntt_cuda, name)(x, tb)
+        label = f"[{len(moduli)},{batch},{n}]" + (" mod t" if len(moduli) == 1 else "")
+        try:
+            got = fn()
+        except (ValueError, RuntimeError) as err:      # a tree that does not take n
+            print(f"cluster_design_ab: {name} {label} raised: {err}", file=sys.stderr)
+            out[label] = None
+            continue
+        if not torch.equal(got, getattr(plain, name)(x, tb)):
+            raise RuntimeError(f"{name} {label} differs")
+        out[label] = device_ms(fn)
+    return out
+
+
+def ks_inner_inputs(tb, kd: int, stacks: int, key_sets: int):
+    n = tb.n
+    return (residues(tb.primes, kd * stacks, n).view(tb.k, kd, stacks, n),
+            residues(tb.primes, kd * key_sets * 2, n).view(tb.k, kd, key_sets, 2, n))
+
+
+def ks_inner() -> dict:
+    out = {}
+    for log_q, kd, stacks, grouped in ((90, 3, 1, False), (218, 8, 1, False),
+                                       (90, 3, 4, True)):
+        tb = q_tables(8192, log_q)
+        dg, keys = ks_inner_inputs(tb, kd, stacks, 8)
+        name = "ks_inner_grouped" if grouped else "ks_inner_batch"
+        fn = lambda name=name, dg=dg, keys=keys, tb=tb: getattr(ntt_cuda, name)(dg, keys, tb)
+        if not torch.equal(fn(), getattr(plain, name)(dg, keys, tb)):
+            raise RuntimeError(f"{name} k={tb.k} kd={kd} differs")
+        out[f"{name} k={tb.k} kd={kd} stacks={stacks} key_sets=8"] = device_ms(fn)
     return out
 
 
@@ -170,10 +209,12 @@ def keyswitch_after() -> dict:
         d, keys_t = keyswitch_inputs(tb, kd, 1, False)
         d = d[:, 0]
         x, y, row = residues(tb.primes, 2, n), residues(tb.primes, 2, n), residues(tb.primes, 1, n)
+        dg, keys = ks_inner_inputs(tb, kd, 1, 8)
         ks = lambda: ntt_cuda.keyswitch_fused(d, keys_t, tb)
         seqs = {"alone": [ks], "after_add": [lambda: row.add_(1), ks],
                 "after_tensor_product": [lambda: ntt_cuda.tensor_product(x, y, tb), ks],
                 "after_ntt_inverse": [lambda: ntt_cuda.ntt_inverse(row, tb), ks],
+                "after_ks_inner": [lambda: ntt_cuda.ks_inner_batch(dg, keys, tb), ks],
                 "after_l2_flush": [lambda: flush.zero_(), ks]}
         out[f"n={n} kd={kd}"] = {what: traced_us(seq, "keyswitch") for what, seq in seqs.items()}
     return out
@@ -208,7 +249,9 @@ def main() -> int:
     out = {"card": card, "tree": str(TREE)}
     if hasattr(ntt_cuda, "keyswitch_geometry"):
         out["keyswitch_pairs"] = keyswitch_pairs()
-    out["ntt_forward"] = ntt_forward()
+    out["ntt_forward"] = transform("ntt_forward")
+    out["ntt_inverse"] = transform("ntt_inverse")
+    out["ks_inner"] = ks_inner()
     out["keyswitch_after"] = keyswitch_after()
     out["sass_instructions"] = sass_instructions()
     print(json.dumps(out))

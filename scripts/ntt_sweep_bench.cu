@@ -1,21 +1,20 @@
-// Time per SM of the two NTT sweeps of fhe_tpu_torch/csrc/modmath.cuh: the
-// register-blocked fwd_ntt_regs / inv_ntt_regs (bsk_branch_fused and
-// decrypt_fused) against the one-stage fwd_ntt_smem / inv_ntt_smem (every
-// other kernel), and the register sweep's butterflies alone.  Build and run
-// on the card:
+// Time per SM of the register-blocked NTT sweep of
+// fhe_tpu_torch/csrc/modmath.cuh (fwd_ntt_regs / inv_ntt_regs, the sweep of
+// every NTT kernel), and of its butterflies alone.  Build and run on the
+// card:
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //        -I fhe_tpu_torch/csrc -o ntt_sweep_bench scripts/ntt_sweep_bench.cu
 //   ./ntt_sweep_bench
 //
 // Each kernel runs `reps` forward + inverse pairs of an n = 8192 row in one
-// CTA (512 threads for the register sweep, 1024 for the one-stage sweep), on
-// 1 CTA and on 132 (one per SM); the slope between reps = 1 and reps = 11
-// is the time of one pair on one SM, launch excluded.  "butterflies" runs
-// the register sweep's 4-stage groups on registers only (twiddles at one
-// broadcast address, no shared memory, no barriers): 6 groups per pair
-// (26 stages / 4), so its slope is the butterflies' share of a pair.  The
-// twiddles are random residues: the timing does not depend on them.
+// CTA of 512 threads, on 1 CTA and on 132 (one per SM); the slope between
+// reps = 1 and reps = 11 is the time of one pair on one SM, launch
+// excluded.  "butterflies" runs the sweep's 4-stage groups on registers
+// only (twiddles at one broadcast address, no shared memory, no barriers):
+// 6 groups per pair (26 stages / 4), so its slope is the butterflies' share
+// of a pair.  The twiddles are random residues: the timing does not depend
+// on them.
 
 #include <cstdio>
 #include <cstdlib>
@@ -53,23 +52,6 @@ regs_kernel(const uint32_t* in, uint32_t* out, const uint32_t* w, const uint32_t
   }
 }
 
-__global__ void __launch_bounds__(1024)
-smem_kernel(const uint32_t* in, uint32_t* out, const uint32_t* w, const uint32_t* w_sh,
-            int reps) {
-  extern __shared__ uint32_t sm[];
-  const int n = 1 << kLogn;
-  const uint32_t* src = in + static_cast<size_t>(blockIdx.x) * n;
-  uint32_t* dst = out + static_cast<size_t>(blockIdx.x) * n;
-  for (int r = 0; r < reps; ++r) {
-    for (int j = threadIdx.x; j < n; j += blockDim.x) sm[j] = src[j];
-    __syncthreads();
-    fhe::fwd_ntt_smem(sm, kLogn, kPrime, w, w_sh);
-    fhe::inv_ntt_smem(sm, kLogn, kPrime, w, w_sh, 12345u, 67890u);
-    for (int j = threadIdx.x; j < n; j += blockDim.x) dst[j] = sm[j];
-    __syncthreads();
-  }
-}
-
 __global__ void __launch_bounds__(512)
 butterflies_kernel(const uint32_t* in, uint32_t* out, const uint32_t* w,
                    const uint32_t* w_sh, int reps) {
@@ -100,7 +82,7 @@ int main() {
   cudaMemcpy(din, h.data(), 4 * h.size(), cudaMemcpyHostToDevice);
   cudaMemcpy(dw, tw.data(), 4 * n, cudaMemcpyHostToDevice);
   cudaMemcpy(dws, tws.data(), 4 * n, cudaMemcpyHostToDevice);
-  const int smem_regs = 4 * fhe::padded(n), smem_stage = 4 * n;
+  const int smem_regs = 4 * fhe::padded(n);
   cudaFuncSetAttribute(regs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_regs);
   cudaEvent_t a, b;
   cudaEventCreate(&a);
@@ -126,9 +108,6 @@ int main() {
   };
   time("register", [&](int nb, int reps) {
     regs_kernel<<<nb, 512, smem_regs>>>(din, dout, dw, dws, reps);
-  });
-  time("one-stage", [&](int nb, int reps) {
-    smem_kernel<<<nb, 1024, smem_stage>>>(din, dout, dw, dws, reps);
   });
   time("butterflies", [&](int nb, int reps) {
     butterflies_kernel<<<nb, 512>>>(din, dout, dw, dws, reps);

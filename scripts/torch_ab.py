@@ -16,14 +16,23 @@ the headline configuration (n = 8192, log_q = 90, k = 3, kb = 5):
     multiply, the decrypt of the product, encrypt, and decrypt_batch,
     encrypt_batch and multiply_batch at B = 8, with the batch ops also per
     ciphertext, and the multiply at the JAX bench's k8_omega (log_q = 218,
-    k = 8, ks_omega = 2);
+    k = 8, ks_omega = 2); and of the ops that launch ntt_inverse or
+    ks_inner: encode, to_coeff of an NTT-form ciphertext, rotate_rows by 1
+    of a coefficient-form and of an NTT-form ciphertext, galoiskey_gen of
+    one element, rotate_rows_hoisted of the 8 steps 1..8 (the JAX bench's
+    hoisted set) and its batch of 4 ciphertexts, sum_slots, and the key
+    down-switch of relinearization keys to level 4 at the k8 configuration
+    (log_q = 218, k = 8, ks_omega = 1; switch_relin_keys);
   - the device times of ntt_forward ([3,1,n], keygen's [3,3,n], [3,16,n],
     and the JAX bench's g_n32768 [3,1,32768], null where a tree raises
-    there), ntt_inverse [3,1,n], keyswitch_fused (the relinearization's
+    there), ntt_inverse ([3,1,n], [3,16,n], the encoder's [1,1,n] mod
+    t = 65537, and [3,1,32768], null where a tree raises there),
+    keyswitch_fused (the relinearization's
     d [3,n] against keys [3,3,2,n]; at k = 8 with kd = 8; at n = 256, k = 5
     and n = 16384; the prereduced lane at k8_omega's k = 8, kd = 4), and
     keyswitch_fused_batch at B = 8 (both lanes), ks_inner_batch (a shared
-    digit stack against 8 key sets);
+    digit stack against 8 key sets) and ks_inner_grouped (4 stacks by 8 key
+    sets);
   - the device times of mul_by_ntt_operand (encrypt's u [3,1,n] against
     pk [3,2,n]; batched at B = 8), tensor_product (the multiply's x, y
     [3,2,n] on the t-folded tables; batched on views of a [8,3,4,n] stack),
@@ -34,15 +43,16 @@ the headline configuration (n = 8192, log_q = 90, k = 3, kb = 5):
     the n < 1024 multiply's shapes (n = 256, log_q = 150, level 1);
   - device_ms of multiply_no_relin, relinearize and multiply at the n < 1024
     configuration (n = 256, log_q = 150, k = 5, h = 32; chip_smoke.py's
-    small phase);
+    small phase), and the ntt_inverse launches of one such multiply;
   - device_ms and wall_ms of the multiply at n = 16384 (the JAX bench's
     g_n16384: log_q = 90, k = 3, seed 4; multiply_relin_ms_n16384 and, at
     ks_omega = 2, multiply_relin_ms_n16384_omega2), null for a tree whose
     multiply raises there;
-  - a torch.profiler trace of 20 multiplies at n = 256 (level 0), queued
+  - a torch.profiler trace of 20 multiplies at n = 256 (level 0), and of
+    20 multiply_batch calls at B = 8 at the headline configuration, queued
     behind a busy card so that the gaps between kernels are the device's
-    own, not the host's: the kernels per multiply, each kernel's mean
-    device time and the mean gap before it, and per multiply the span from
+    own, not the host's: the kernels per call, each kernel's median
+    device time and the median gap before it, and per call the span from
     the first kernel's start to the last one's end, the time inside
     kernels and the idle share of the span.
 The timing methods are those of chip_smoke.py (device_ms, wall_ms).  Imports
@@ -68,6 +78,7 @@ from fhe_tpu_torch import FHE, primes  # noqa: E402
 from fhe_tpu_torch.ops import decrypt_cuda, ntt_cuda, rns_cuda  # noqa: E402
 from fhe_tpu_torch.ops import ntt, rns  # noqa: E402
 from fhe_tpu_torch.params import SecurityParams, make_scheme_params  # noqa: E402
+from fhe_tpu_torch.scheme import bfv  # noqa: E402
 from fhe_tpu_torch.scheme.context import make_context  # noqa: E402
 
 N, LOG_Q, H, BATCH = 8192, 90, 64, 8
@@ -150,15 +161,14 @@ def multiply_n16384(omega: int) -> dict | None:
     return {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
 
 
-def small_trace(fhe, a, b, rlk) -> dict:
-    """Per-kernel device times and the gaps between kernels of the n = 256
-    multiply, from a torch.profiler trace of 20 multiplies queued behind a
-    busy card (torch.cuda._sleep), so that each kernel waits on the
-    device, not on the host that launches it."""
+def trace(fn) -> dict:
+    """Per-kernel device times and the gaps between kernels of fn(), from a
+    torch.profiler trace of 20 calls queued behind a busy card
+    (torch.cuda._sleep), so that each kernel waits on the device, not on
+    the host that launches it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn = lambda: fhe.multiply(a, b, rlk)
     fn()
     torch.cuda.synchronize()
     reps = 20
@@ -171,7 +181,7 @@ def small_trace(fhe, a, b, rlk) -> dict:
     kernels = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                      if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name)
     if not kernels or len(kernels) % reps:
-        return {"kernels_traced": len(kernels), "note": "no whole multiplies in the trace"}
+        return {"kernels_traced": len(kernels), "note": "no whole calls in the trace"}
     per = len(kernels) // reps
     spans, busy = [], []
     by_pos = [{"dur": [], "gap": []} for _ in range(per)]
@@ -185,7 +195,7 @@ def small_trace(fhe, a, b, rlk) -> dict:
                 by_pos[j]["gap"].append(s - run[j - 1][1])
     names = [name for _, _, name in kernels[:per]]
     span, inside = statistics.median(spans), statistics.median(busy)
-    return {"kernels_per_multiply": per, "span_us": span, "in_kernels_us": inside,
+    return {"kernels_per_call": per, "span_us": span, "in_kernels_us": inside,
             "idle_share": 1 - inside / span,
             "kernels": [{"name": names[j][:60], "us": statistics.median(p["dur"]),
                          "gap_before_us": statistics.median(p["gap"]) if p["gap"] else None}
@@ -201,10 +211,15 @@ def small_multiply() -> dict:
     a = fhe.encrypt(fhe.encode([5, 10]), pk)
     b = fhe.encrypt(fhe.encode([3, 6]), pk)
     m3 = fhe.multiply_no_relin(a, b)
-    return {"multiply_no_relin": device_ms(lambda: fhe.multiply_no_relin(a, b)),
+    torch.cuda.synchronize()
+    before = ntt_cuda.ntt_inverse.launches
+    fhe.multiply(a, b, rlk)
+    inverse_launches = ntt_cuda.ntt_inverse.launches - before
+    return {"ntt_inverse_launches_per_multiply": inverse_launches,
+            "multiply_no_relin": device_ms(lambda: fhe.multiply_no_relin(a, b)),
             "relinearize": device_ms(lambda: fhe.relinearize(m3, rlk)),
             "multiply": device_ms(lambda: fhe.multiply(a, b, rlk)),
-            "trace": small_trace(fhe, a, b, rlk)}
+            "trace": trace(lambda: fhe.multiply(a, b, rlk))}
 
 
 def multiply_k8_omega() -> dict:
@@ -226,18 +241,32 @@ def multiply_k8_omega() -> dict:
     return {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
 
 
-def ntt_forward_n32768(gen: torch.Generator) -> float | None:
-    """Device ms of ntt_forward on the JAX bench's g_n32768 shape [3,1,32768],
-    or None where this tree raises there."""
+def transform_n32768(gen: torch.Generator, name: str) -> float | None:
+    """Device ms of ntt_forward or ntt_inverse on the JAX bench's g_n32768
+    shape [3,1,32768], or None where this tree raises there."""
     ps = primes.find_ntt_primes(32768, 3)
     tb = ntt.build_tables(32768, ps, "cuda")
     x = residues(gen, ps, 1, 32768)
+    fn = lambda: getattr(ntt_cuda, name)(x, tb)
     try:
-        ntt_cuda.ntt_forward(x, tb)
+        fn()
     except (ValueError, RuntimeError) as err:
-        print(f"torch_ab: ntt_forward at n=32768 raised: {err}", file=sys.stderr)
+        print(f"torch_ab: {name} at n=32768 raised: {err}", file=sys.stderr)
         return None
-    return device_ms(lambda: ntt_cuda.ntt_forward(x, tb))
+    return device_ms(fn)
+
+
+def key_down_switch_k8() -> float:
+    """device_ms of switch_relin_keys to level 4 at the k8 configuration
+    (n = 8192, log_q = 218, k = 8, ks_omega = 1): an inverse transform of
+    the [8, 8, n] key rows, four roundings and a forward transform."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        prm = make_scheme_params(SecurityParams(poly_degree=N, log_q=218, hamming_weight=H))
+    fhe = FHE(prm, seed=11, device="cuda")
+    _, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    return device_ms(lambda: bfv.switch_relin_keys(fhe.ctx, rlk, 4))
 
 
 def keyswitch_inputs(gen: torch.Generator, qs, kd: int, batch: int, n: int,
@@ -270,6 +299,11 @@ def main() -> int:
         raise RuntimeError(f"multiply decoded {got}")
     pt = fhe.encode([5, 10, 15, 20])
     pts = [fhe.encode([5 + i, 10]) for i in range(BATCH)]
+    hoist = tuple(pow(3, s, 2 * N) for s in range(1, 9))
+    gk = fhe.galoiskey_gen(sk, elements=hoist + (2 * N - 1,))
+    gk_ss = fhe.galoiskey_gen(sk, elements=fhe.sum_slots_elements())
+    a_ntt = fhe.to_ntt(a)
+    steps = tuple(range(1, 9))
     ops = {"keygen": fhe.keygen,
            "multiply_no_relin": lambda: fhe.multiply_no_relin(a, b),
            "relinearize": lambda: fhe.relinearize(m3, rlk),
@@ -278,7 +312,15 @@ def main() -> int:
            "encrypt": lambda: fhe.encrypt(pt, pk),
            "encrypt_batch_B8": lambda: fhe.encrypt_batch(pts, pk),
            "decrypt_batch_B8": lambda: fhe.decrypt_batch(cts_a, sk),
-           "multiply_batch_B8": lambda: fhe.multiply_batch(cts_a, cts_b, rlk)}
+           "multiply_batch_B8": lambda: fhe.multiply_batch(cts_a, cts_b, rlk),
+           "encode": lambda: fhe.encode([5, 10, 15, 20]),
+           "to_coeff": lambda: fhe.to_coeff(a_ntt),
+           "rotate_rows": lambda: fhe.rotate_rows(a, 1, gk),
+           "rotate_rows_ntt_form": lambda: fhe.rotate_rows(a_ntt, 1, gk),
+           "galoiskey_gen_1": lambda: fhe.galoiskey_gen(sk, elements=(3,)),
+           "hoisted_8_steps": lambda: fhe.rotate_rows_hoisted(a, steps, gk),
+           "hoisted_batch_C4": lambda: fhe.rotate_rows_hoisted_batch(cts_a[:4], steps, gk),
+           "sum_slots": lambda: fhe.sum_slots(a, gk_ss)}
     out = {"card": card, "tree": str(TREE), "device_ms": {}, "wall_ms": {}}
     for name, fn in ops.items():
         out["device_ms"][name] = device_ms(fn)
@@ -286,6 +328,7 @@ def main() -> int:
     for what in ("device_ms", "wall_ms"):
         for name in ("encrypt_batch_B8", "decrypt_batch_B8", "multiply_batch_B8"):
             out[what][name + "_per_ct"] = out[what][name] / BATCH
+    out["multiply_batch_B8_trace"] = trace(ops["multiply_batch_B8"])
     ctx = fhe.ctx
     gen = torch.Generator(device="cuda").manual_seed(7)
     qs, (tq, tbsk) = ctx.ntt_q.primes, ctx.mul_tables
@@ -324,6 +367,10 @@ def main() -> int:
     kernels["ntt_forward_keygen_B3"] = lambda: ntt_cuda.ntt_forward(x3, tb)
     kernels["ntt_forward_B16"] = lambda: ntt_cuda.ntt_forward(x16, tb)
     kernels["ntt_inverse"] = lambda: ntt_cuda.ntt_inverse(x1, tb)
+    kernels["ntt_inverse_B16"] = lambda: ntt_cuda.ntt_inverse(x16, tb)
+    tt = ntt.build_tables(N, (fhe.params.t,), "cuda")
+    xt = residues(gen, (fhe.params.t,), 1)
+    kernels["ntt_inverse_t_encode"] = lambda: ntt_cuda.ntt_inverse(xt, tt)
     # each key-switch case: (name, tables, kd, batch (None: the single
     # function), prereduced)
     ctx16 = quiet_context(16384, LOG_Q, H)
@@ -347,6 +394,8 @@ def main() -> int:
     dg = residues(gen, qs, 3).view(3, 3, 1, N)
     keys_e = residues(gen, qs, 3 * BATCH * 2).view(3, 3, BATCH, 2, N)
     kernels["ks_inner_batch"] = lambda: ntt_cuda.ks_inner_batch(dg, keys_e, tb)
+    dg_c = residues(gen, qs, 3 * 4).view(3, 3, 4, N)
+    kernels["ks_inner_grouped_C4_E8"] = lambda: ntt_cuda.ks_inner_grouped(dg_c, keys_e, tb)
     tq_s, tbsk_s = ntt.slice_tables(ctx_s.ntt_q, ctx_s.k - 1), ctx_s.mul_levels[1][1]
     u_s, w_s = residues(gen, tq_s.primes, 1, 256), residues(gen, tq_s.primes, 2, 256)
     lift_s = residues(gen, tbsk_s.primes, 4, 256)
@@ -354,7 +403,9 @@ def main() -> int:
     kernels["tensor_product_n256_bsk"] = lambda: ntt_cuda.tensor_product(
         lift_s[:, :2], lift_s[:, 2:], tbsk_s)
     out["kernel_device_ms"] = {name: device_ms(fn) for name, fn in kernels.items()}
-    out["kernel_device_ms"]["ntt_forward_n32768"] = ntt_forward_n32768(gen)
+    out["kernel_device_ms"]["ntt_forward_n32768"] = transform_n32768(gen, "ntt_forward")
+    out["kernel_device_ms"]["ntt_inverse_n32768"] = transform_n32768(gen, "ntt_inverse")
+    out["device_ms"]["key_down_switch_k8_level4"] = key_down_switch_k8()
     out["small_device_ms"] = small_multiply()
     out["multiply_k8_omega"] = multiply_k8_omega()
     out["multiply_relin_ms_n16384"] = multiply_n16384(1)

@@ -1,13 +1,15 @@
 """Launch geometry of the cluster kernels, on the host: ntt_forward (B1),
-mul_by_ntt_operand (B3, B13), tensor_product (B4, B11), bsk_branch_fused
-(B5), keyswitch_fused (B7, B12) and decrypt_fused (B8).
+ntt_inverse (B2), mul_by_ntt_operand (B3, B13), tensor_product (B4, B11),
+bsk_branch_fused (B5), keyswitch_fused (B7, B12), decrypt_fused (B8) and
+ks_inner_batch / ks_inner_grouped (B17, B18).
 
 The wrappers choose each launch's shape in plain Python (the C entry points
 take it as given), so the choices are held here without a card: B8's
 cluster size and primes per CTA, B3's CTAs per (element, operand row,
-prime), B1's per row, B4's and B5's CTAs per prime, B7's digit pairs per
-(element, prime), threads and shared memory per CTA, and the shared-memory
-checks that decide which n each kernel takes.
+prime), B1's and B2's per row, B17's per (element, output row, prime), B4's
+and B5's CTAs per prime, B7's digit pairs per (element, prime), threads and
+shared memory per CTA, and the shared-memory checks that decide which n
+each kernel takes.
 tests/test_torch_cuda.py runs the kernels themselves."""
 
 import pytest
@@ -200,3 +202,57 @@ def test_b1_and_b7_batch_and_digits_outside_the_grid_raise():
             ntt_cuda.keyswitch_geometry(8192, k=3, kd=3, batch=batch)
     with pytest.raises(ValueError, match="kd=0"):
         ntt_cuda.keyswitch_geometry(8192, k=3, kd=0)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 16])
+@pytest.mark.parametrize("n", [256, 8192, 16384, 32768])
+def test_ntt_inverse_cluster_per_row(n, batch):
+    """B1's shape, the mirror transform: a cluster of 2 CTAs for each (row,
+    prime), the batch on grid x, one padded row of shared memory each: 6
+    CTAs at the encoder's [1, 1, 8192] x 3 rows, where one block per row
+    ran 3; n = 32768 fits (135 KB)."""
+    geo = ntt_cuda.ntt_inverse_geometry(n, k=3, batch=batch)
+    assert geo == ntt_cuda.ntt_forward_geometry(n, k=3, batch=batch)
+    assert geo["cluster"] == (2, 1, 1) and geo["ctas_per_row"] == 2
+    assert geo["grid"] == (2 * batch, 3) and geo["ctas"] == 2 * batch * 3
+    assert geo["smem"] == 4 * (n + n // 32) <= MAX_SMEM
+    assert geo["threads"] == min(max(n // 32, 32), 512)
+
+
+@pytest.mark.parametrize("batch", [1, 8, 32])
+@pytest.mark.parametrize("n", [256, 8192, 16384, 32768])
+def test_ks_inner_cluster_per_output_row(n, batch):
+    """A cluster of 2 CTAs for each (element, output row, prime), grid
+    (2, 2B, k), one padded row of shared memory each: 96 CTAs for the
+    hoisted rotations' 8 elements at k = 3, where one block per (element,
+    prime) ran 24, and 384 for the hoisted batch's 4 x 8."""
+    geo = ntt_cuda.ks_inner_geometry(n, k=3, batch=batch)
+    assert geo["cluster"] == (2, 1, 1) and geo["ctas_per_row"] == 2
+    assert geo["grid"] == (2, 2 * batch, 3) and geo["ctas"] == 2 * 2 * batch * 3
+    assert geo["smem"] == 4 * (n + n // 32) <= MAX_SMEM
+    assert geo["threads"] == min(max(n // 32, 32), 512)
+
+
+GEOMETRY_OF = {"ntt_inverse": lambda n, batch=1: ntt_cuda.ntt_inverse_geometry(n, 3, batch),
+               "ks_inner_batch": lambda n, batch=1: ntt_cuda.ks_inner_geometry(n, 3, batch),
+               "ks_inner_grouped": lambda n, batch=1: ntt_cuda.ks_inner_geometry(
+                   n, 3, batch, name="ks_inner_grouped")}
+
+
+@pytest.mark.parametrize("name", sorted(GEOMETRY_OF))
+@pytest.mark.parametrize("n,match", [(2, "below 32"), (16, "below 32"),
+                                     (65536, "n=65536 needs")])
+def test_b2_and_b17_n_outside_32_to_32768_raises(name, n, match):
+    """The register-blocked sweep takes n >= 32, and one padded row fits a
+    CTA up to n = 32768: B2 and B17/B18 raise outside, naming the
+    function, before any launch."""
+    with pytest.raises(ValueError, match=f"{name}: .*{match}"):
+        GEOMETRY_OF[name](n)
+
+
+@pytest.mark.parametrize("name,batch", [("ntt_inverse", 0), ("ntt_inverse", 2 ** 30),
+                                        ("ks_inner_batch", 0), ("ks_inner_batch", 32768),
+                                        ("ks_inner_grouped", 32768)])
+def test_b2_and_b17_batch_outside_the_grid_raises(name, batch):
+    with pytest.raises(ValueError, match=f"{name}: batch {batch} outside"):
+        GEOMETRY_OF[name](8192, batch)

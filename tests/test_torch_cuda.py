@@ -22,6 +22,7 @@ from fhe_tpu_torch.ops import rns as trns
 from fhe_tpu_torch.params import SecurityParams, make_scheme_params
 from fhe_tpu_torch.scheme import bfv
 from fhe_tpu_torch.scheme.context import make_context
+from fhe_tpu_torch.scheme.encoder import BatchEncoder
 from fhe_tpu_torch.scheme.types import RelinKeys
 from fhe_tpu_torch.utils import ubench
 
@@ -614,3 +615,116 @@ def test_keyswitch_cluster_kernel_matches_plain(dev, n, log_q, level, kd, batch,
     else:
         assert torch.equal(ntt_cuda.keyswitch_fused_batch(d, keys_t, tb, prereduced),
                            tntt.keyswitch_fused_batch(d, keys_t, tb, prereduced))
+
+
+# ---------------------------------------------------------------------------
+# ntt_inverse and ks_inner_batch / ks_inner_grouped as thread-block clusters
+# with the register-blocked sweep
+# ---------------------------------------------------------------------------
+
+
+def _unaligned(x: torch.Tensor) -> torch.Tensor:
+    """A copy of x whose storage starts one word past a 16-byte boundary, so
+    the kernels read its rows a word at a time."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("n,log_q,level,batch", NTT_FORWARD_CASES)
+def test_ntt_inverse_cluster_kernel_matches_plain(dev, n, log_q, level, batch):
+    """B1's cases: n = 256, 8192 and 16384, level views, B = 1, 3 and 16."""
+    tb = _level_tables(_cached_ctx(n, log_q, 65537, dev), level, "q")
+    a = _residues(tb.primes, batch, dev, n)
+    assert torch.equal(ntt_cuda.ntt_inverse(a, tb), tntt.ntt_inverse(a, tb))
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("n", [32, 32768])
+def test_ntt_inverse_smallest_and_largest_n(dev, n, batch):
+    """The sweep's smallest ring (one pass and a short one) and n = 32768
+    (135 KB of shared memory per CTA), three NTT primes."""
+    ps = primes.find_ntt_primes(n, 3)
+    tb = tntt.build_tables(n, ps, dev)
+    a = _residues(ps, batch, dev, n)
+    assert torch.equal(ntt_cuda.ntt_inverse(a, tb), tntt.ntt_inverse(a, tb))
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("t", [65537, 786433])
+def test_ntt_inverse_mod_t_matches_plain(dev, t, batch):
+    tt = tntt.build_tables(N, (t,), dev)
+    a = _residues((t,), batch, dev)
+    assert torch.equal(ntt_cuda.ntt_inverse(a, tt), tntt.ntt_inverse(a, tt))
+
+
+@pytest.mark.parametrize("t", [65537, 786433])
+def test_ntt_inverse_encoder_view_and_unaligned_rows(dev, t):
+    """The encoder's [1, 1, n] view of its slot row mod t, encode itself
+    against the CPU encoder, and rows that start off a 16-byte boundary
+    (read a word at a time)."""
+    tt = tntt.build_tables(N, (t,), dev)
+    row = _residues((t,), 1, dev)[0, 0]
+    view = row.view(1, 1, N)
+    assert torch.equal(ntt_cuda.ntt_inverse(view, tt), tntt.ntt_inverse(view, tt))
+    odd = _unaligned(_residues((t,), 3, dev))
+    assert torch.equal(ntt_cuda.ntt_inverse(odd, tt), tntt.ntt_inverse(odd, tt))
+    prm = _params(t)
+    vals = [int(v) for v in RNG.integers(0, t, 64)]
+    card = BatchEncoder(prm, device=dev).encode(vals)
+    assert torch.equal(card.data.cpu(), BatchEncoder(prm, device="cpu").encode(vals).data)
+
+
+@pytest.mark.parametrize("log_q,level", [(90, 1), (218, 2)])
+def test_ntt_inverse_key_down_switch_rows(dev, log_q, level):
+    """The key down-switch's [k, 2 kd_l, n] rows: the stored [kd, k, 2, n]
+    keys' first kd_l digits, prime-major, at level 0's tables."""
+    ctx = _cached_ctx(N, log_q, 65537, dev)
+    k = ctx.k
+    kd_l = k - level
+    keys = torch.stack([_residues(ctx.ntt_q.primes, 2, dev) for _ in range(k)])
+    rows = keys[:kd_l].permute(1, 0, 2, 3).reshape(k, kd_l * 2, N)
+    assert torch.equal(ntt_cuda.ntt_inverse(rows, ctx.ntt_q), tntt.ntt_inverse(rows, ctx.ntt_q))
+
+
+# (n, log_q, level, kd, stacks, elements, grouped): kd = 1 (level 2 of
+# k = 3), 3, 4 (level 4 of k = 8; level 1 of n = 256, k = 5) and 8 (k = 8);
+# one digit stack shared by every element (stride 0) or one per element;
+# C x E = 4 x 8 stacks by key sets (ks_inner_grouped); n = 256, 1024, 8192
+# and 16384
+KS_INNER_CASES = [(N, 90, 0, 3, 1, BATCH, False), (N, 90, 0, 3, BATCH, BATCH, False),
+                  (N, 90, 2, 1, 1, BATCH, False), (N, 218, 0, 8, 1, BATCH, False),
+                  (N, 218, 4, 4, 1, BATCH, False), (N, 218, 0, 8, BATCH, BATCH, False),
+                  (N, 90, 0, 3, 4, BATCH, True), (N, 218, 4, 4, 4, BATCH, True),
+                  (256, 150, 1, 4, 1, BATCH, False), (256, 150, 1, 4, 4, BATCH, True),
+                  (1024, 90, 0, 3, 1, 3, False), (1024, 90, 0, 3, 2, 3, True),
+                  (16384, 90, 0, 3, 1, BATCH, False), (16384, 90, 0, 3, 4, 2, True)]
+
+
+def ks_inner_inputs(tb, kd: int, stacks: int, elements: int, dev):
+    n = tb.n
+    dg = _residues(tb.primes, kd * stacks, dev, n).view(tb.k, kd, stacks, n)
+    keys = _residues(tb.primes, kd * elements * 2, dev, n).view(tb.k, kd, elements, 2, n)
+    return dg, keys
+
+
+@pytest.mark.parametrize("n,log_q,level,kd,stacks,elements,grouped", KS_INNER_CASES)
+def test_ks_inner_cluster_kernel_matches_plain(dev, n, log_q, level, kd, stacks, elements,
+                                               grouped):
+    tb = _level_tables(_cached_ctx(n, log_q, 65537, dev), level, "q")
+    dg, keys = ks_inner_inputs(tb, kd, stacks, elements, dev)
+    name = "ks_inner_grouped" if grouped else "ks_inner_batch"
+    assert torch.equal(getattr(ntt_cuda, name)(dg, keys, tb), getattr(tntt, name)(dg, keys, tb))
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_ks_inner_unaligned_rows_match_plain(ctx, dev, grouped):
+    """Digits and keys that start off a 16-byte boundary, read a word at a
+    time."""
+    dg, keys = ks_inner_inputs(ctx.ntt_q, 3, 4 if grouped else 1, BATCH, dev)
+    dg, keys = _unaligned(dg), _unaligned(keys)
+    name = "ks_inner_grouped" if grouped else "ks_inner_batch"
+    assert torch.equal(getattr(ntt_cuda, name)(dg, keys, ctx.ntt_q),
+                       getattr(tntt, name)(dg, keys, ctx.ntt_q))
