@@ -35,8 +35,9 @@ Phases, each printing its own lines:
      decrypt, and multiply; every decode must be [15,60,135,240].  Counts
      are zeroed before and read after, as in phase 4, and the card's
      relinearization keys, products and decryptions must equal the CPU
-     plain path's bit for bit.  Then end-to-end times of each op, and the
-     device times of the multiply, its halves and the decrypt;
+     plain path's bit for bit.  Then end-to-end times of each op, the
+     device times of the multiply, its halves and the decrypt, and their
+     device kernels per call (torch.profiler);
   6. serving: the batch and rotation path through the facade at the same
      width and B = 8: keygen, relinkey_gen, galoiskey_gen for (3, 2n - 1),
      encrypt_batch and decrypt_batch of two batches, multiply_batch (each
@@ -46,7 +47,8 @@ Phases, each printing its own lines:
      Galois kernels must have launched.  The _from_noise entry points and
      every batch and rotation op must equal the CPU plain path bit for bit.
      Then end-to-end times of each op and per ciphertext, and
-     multiply_batch at B = 24;
+     multiply_batch at B = 24 (each product equal to the B = 8 one of its
+     pair);
   7. hoisted: the hoisted rotations through the facade at the same width
      (the JAX bench's rotations group): keygen, galoiskey_gen for 3^s,
      s = 1..8, rotate_rows_hoisted of the 8 steps (each decodes to its
@@ -75,10 +77,12 @@ Phases, each printing its own lines:
      multiply_relin_ms_level1) at k = 3 and k = 8 with the per-prime ratio
      (t_L1 / (k-1)) / (t_L0 / k) (bench.py's leveled_per_prime_ratio), the
      mod switch, the key down-switch and the rotations at level 4;
- 10. small: the n < 1024 multiply (sm_mrq_fused, fast_floor_fused) at the
-     JAX tests' leveled configuration, n = 256, log_q = 150 (k = 5), h = 32:
+ 10. small: the n < 1024 multiply (sm_mrq_fused, then fast_floor_fused
+     with the conversion to q and the digits in one launch) at the JAX
+     tests' leveled configuration, n = 256, log_q = 150 (k = 5), h = 32:
      multiply at levels 0, 1 and 2 and multiply_batch at B = 8 at level 1
-     decode; card == CPU plain path;
+     decode; card == CPU plain path; one multiply launches fast_floor_fused
+     once and fast_bconv_sk_fused never; times and kernels per call;
  11. roofline: the modmul chain (B19) of every variant at two reps values
      on a [256, 8192] block; the slope over reps gives each step's rate:
      G modmul/s for exact, lazy and barrett Shoup/Barrett products, the
@@ -87,8 +91,12 @@ Phases, each printing its own lines:
      measured rates reach by the OPS counts (the bounds use the two pipes).
 Phases 4 to 11 each zero every launch count just before their path and read
 them just after; each kernel of the path must have launched.  Phase 3 also
-runs the prereduced lanes at the omega path's k = 8, kd = 4, sm_mrq_fused
-and fast_floor_fused at n = 8192, k = 3 and at n = 256, k = 5,
+runs fast_bconv_sk_fused with the digits lane at [5,3,n], [5,24,n],
+[10,3,n] and [10,24,n] (the multiply and multiply_batch at k = 3 and
+k = 8), without digits, and on rows off an 8-byte boundary; the
+prereduced lanes at the omega path's k = 8, kd = 4; fast_floor_fused with
+the conversion to q (and digits) at n = 256, k = 5, levels 0 to 2, and its
+floor lane alone and sm_mrq_fused at n = 8192, k = 3 and at n = 256, k = 5,
 modmul_chain of every variant on a [256, 8192] block, and the cluster
 kernels around the main path: mul_by_ntt_operand and tensor_product (and
 their batch forms) at n = 256 (k = 5), 8192 and 16384, level views (level 1
@@ -163,8 +171,8 @@ def helper_ops() -> dict[str, int]:
     text = (_build.CSRC / "modmath.cuh").read_text()
     ops = {m[1]: int(m[2]) for m in re.finditer(r"^//\s+OPS (\w+) (\d+)$", text, re.M)}
     want = {"add_mod", "sub_mod", "mul_shoup", "mul_shoup_lazy", "reduce_shoup",
-            "mul_barrett", "reduce_barrett", "neg_mod", "select", "lane16", "mul16",
-            "galois_index", "ntt_butterfly"}
+            "mul_barrett", "reduce_barrett", "neg_mod", "reduce_wide", "mac_wide", "select",
+            "lane16", "mul16", "galois_index", "ntt_butterfly"}
     if set(ops) != want:
         raise RuntimeError(f"modmath.cuh OPS block lists {sorted(ops)}, expected "
                            f"{sorted(want)}")
@@ -419,18 +427,27 @@ def bsk_branch_work(k: int, kb: int, batch: int = 1, n: int = N) -> tuple[float,
                                            + floor))
 
 
-def fast_bconv_sk_work(kb: int, k: int, batch: int) -> tuple[float, float]:
-    """[kb, batch, N] in, [k, batch, N] out.  Each aux digit once, its
-    conversion into every q prime and into m_sk, alpha per coefficient,
-    and the centred correction per output."""
+def sk_ops(kb: int, k: int, m: int) -> float:
+    """Integer ops of the Shenoy-Kumaresan conversion of m coefficients from
+    kb Bsk primes to k q primes: each aux digit once; per coefficient the
+    m_sk sum (an unreduced 64-bit sum, one multiply-add a digit, and its
+    reduction) and alpha; per output the same sum into q_j and the centred
+    correction."""
     o = OPS
-    m = batch * N
     l = kb - 1
-    ops = (l * m * o["mul_shoup"]
-           + (k + 1) * l * m * (o["mul_shoup"] + o["add_mod"])
-           + m * (o["sub_mod"] + o["mul_shoup"])
-           + k * m * (o["select"] + o["mul_shoup"] + o["sub_mod"]))
-    return 4 * (kb * m + k * m), ops
+    conv = l * o["mac_wide"] + o["reduce_wide"]
+    return (l * m * o["mul_shoup"]
+            + m * (conv + o["sub_mod"] + o["mul_shoup"])
+            + k * m * (conv + o["select"] + o["mul_shoup"] + o["sub_mod"]))
+
+
+def fast_bconv_sk_work(kb: int, k: int, rows: int, n: int = N,
+                       digits: bool = False) -> tuple[float, float]:
+    """[kb, rows, n] in, [k, rows, n] out, and with the digits lane the
+    [k, rows / 3, n] digits of the c2 rows out, one Shoup product each."""
+    m = rows * n
+    dig = k * m // 3 if digits else 0
+    return 4 * (kb * m + k * m + dig), sk_ops(kb, k, m) + dig * OPS["mul_shoup"]
 
 
 def keyswitch_work(k: int, kd: int, batch: int = 1, prereduced: bool = False,
@@ -536,12 +553,27 @@ def sm_mrq_work(k: int, kb: int, cols: int) -> tuple[float, float]:
     return 4 * (k + kb) * cols, cols * k * o["mul_shoup"] + kb * cols * per_out
 
 
-def fast_floor_work(k: int, kb: int, cols: int) -> tuple[float, float]:
-    """tx_q [k, cols] and tx_bsk [kb, cols] in, [kb, cols] out: the digits
-    once, per output the conversion, the subtraction and the q^-1 scale."""
+def floor_ops(k: int, kb: int, cols: int) -> float:
+    """FastFloor of cols coefficients into kb primes: the k digits once; per
+    output the conversion (an unreduced 64-bit sum and its reduction), the
+    subtraction and the q^-1 scale."""
     o = OPS
-    per_out = k * (o["mul_shoup"] + o["add_mod"]) + o["sub_mod"] + o["mul_shoup"]
-    return 4 * (k + 2 * kb) * cols, cols * k * o["mul_shoup"] + kb * cols * per_out
+    per_out = k * o["mac_wide"] + o["reduce_wide"] + o["sub_mod"] + o["mul_shoup"]
+    return cols * k * o["mul_shoup"] + kb * cols * per_out
+
+
+def fast_floor_work(k: int, kb: int, cols: int) -> tuple[float, float]:
+    """tx_q [k, cols] and tx_bsk [kb, cols] in, [kb, cols] out."""
+    return 4 * (k + 2 * kb) * cols, floor_ops(k, kb, cols)
+
+
+def fast_floor_sk_work(k: int, kb: int, cols: int, digits: bool) -> tuple[float, float]:
+    """The FloorSK lane: tx_q [k, cols] and tx_bsk [kb, cols] in, [k, cols]
+    out (and the digits of the c2 third); the floor, then the conversion
+    to q of the floored residues, which never leave registers."""
+    dig = k * cols // 3 if digits else 0
+    return (4 * ((k + kb) * cols + k * cols + dig),
+            floor_ops(k, kb, cols) + sk_ops(kb, k, cols) + dig * OPS["mul_shoup"])
 
 
 def chain_work(elems: int, reps: int, variant: str, ilp: int = 1) -> tuple[float, float]:
@@ -587,6 +619,91 @@ def phase_build() -> None:
     print("phase build", json.dumps({"seconds": dt, "dir": out.name}))
     for line in usage:
         print("  ptxas", line)
+
+
+def flat(x) -> torch.Tensor:
+    """A kernel's result, or its tuple of results, as one flat tensor."""
+    return torch.cat([t.flatten() for t in x]) if isinstance(x, tuple) else x.flatten()
+
+
+def digit_consts(ctx, level: int = 0) -> tuple:
+    return ctx.inv_qhat_levels[level], ctx.inv_qhat_shoup_levels[level]
+
+
+def conv_cases(gen: torch.Generator, ctx) -> list:
+    """fast_bconv_sk_fused (B6) at the four shapes its paths give it, with
+    the digits lane as the multiplies call it: [5,3,n] the headline
+    multiply, [5,24,n] its multiply_batch at B = 8, [10,3,n] the k8 and
+    k8_omega multiply, [10,24,n] their batch; then without digits, and on
+    rows that start off an 8-byte boundary (read a word at a time)."""
+    ctx8 = make_context(params_leveled(), device="cuda")
+    out = []
+    for c, rows in ((ctx, 3), (ctx, 3 * BATCH), (ctx8, 3), (ctx8, 3 * BATCH)):
+        kb, k = c.mul_tables[1].k, c.k
+        xb = residues(gen, c.params.bsk_primes, rows)
+        out.append(("fast_bconv_sk_fused", f"digits [{kb},{rows},{N}] -> [{k},{rows},{N}]",
+                    lambda x=xb, c=c: rns_cuda.fast_bconv_sk_fused(x, c.sk_c, digit_consts(c)),
+                    lambda x=xb, c=c: rns.fast_bconv_sk_digits(x, c.sk_c, c.inv_qhat),
+                    fast_bconv_sk_work(kb, k, rows, digits=True)))
+    kb, k = ctx.mul_tables[1].k, ctx.k
+    xb = residues(gen, ctx.params.bsk_primes, 3)
+    out.append(("fast_bconv_sk_fused", f"[{kb},3,{N}] -> [{k},3,{N}]",
+                lambda: rns_cuda.fast_bconv_sk_fused(xb, ctx.sk_c),
+                lambda: rns.fast_bconv_sk(xb, ctx.sk_c), fast_bconv_sk_work(kb, k, 3)))
+    odd = offset_copy(residues(gen, ctx.params.bsk_primes, 3 * BATCH))
+    out.append(("fast_bconv_sk_fused", f"digits, rows off 8 bytes [{kb},{3 * BATCH},{N}]",
+                lambda: rns_cuda.fast_bconv_sk_fused(odd, ctx.sk_c, digit_consts(ctx)),
+                lambda: rns.fast_bconv_sk_digits(odd, ctx.sk_c, ctx.inv_qhat),
+                fast_bconv_sk_work(kb, k, 3 * BATCH, digits=True)))
+    return out
+
+
+def floor_sk_cases(gen: torch.Generator, ctx_s) -> list:
+    """fast_floor_fused with the SK lane and digits (B10 and B6 in one
+    launch) at the n = 256, k = 5 multiply's shapes, levels 0, 1 and 2, and
+    without digits at level 1."""
+    out = []
+    n = ctx_s.n
+    for level, digits in ((0, True), (1, True), (2, True), (1, False)):
+        qs, bsk = ctx_s.ntt_q.primes[:ctx_s.k - level], ctx_s.mul_levels[level][1].primes
+        tx_q, tx_b = residues(gen, qs, 3, n), residues(gen, bsk, 3, n)
+        fc, sk = ctx_s.floor_levels[level], ctx_s.sk_levels[level]
+        dig = digit_consts(ctx_s, level) if digits else None
+        out.append(("fast_floor_fused",
+                    f"floor+SK{' + digits' if digits else ''}, level {level} of k=5: "
+                    f"[{len(qs)},3,{n}] + [{len(bsk)},3,{n}] -> [{len(qs)},3,{n}]",
+                    lambda a=tx_q, b=tx_b, f=fc, s=sk, d=dig:
+                    rns_cuda.fast_floor_fused(a, b, f, s, d),
+                    lambda a=tx_q, b=tx_b, f=fc, s=sk, d=dig:
+                    rns.fast_floor_sk(a, b, f, s, None if d is None else d[0]),
+                    fast_floor_sk_work(len(qs), len(bsk), 3 * n, digits)))
+    return out
+
+
+def profiled_kernels(fn) -> list[str]:
+    """The names of the device kernels one call of fn() launches, from a
+    torch.profiler trace (copies and fills excluded)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def print_profiled(phase: str, ops: dict) -> None:
+    """Each op's device kernels per call (torch.profiler), and the first
+    op's kernel names."""
+    names = {op: profiled_kernels(fn) for op, fn in ops.items()}
+    print(f"phase {phase} profiler kernels_per_call",
+          json.dumps({op: len(v) for op, v in names.items()}))
+    first = next(iter(names))
+    print(f"phase {phase} profiler {first} kernels",
+          json.dumps([name[:48] for name in names[first]]))
 
 
 def phase_kernels(gen: torch.Generator) -> dict:
@@ -647,10 +764,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
                   lambda: rns_cuda.bsk_branch_fused(ab, tx_q, ctx.smq, ctx.floor_c, tbsk),
                   lambda: rns.bsk_branch_fused(ab, tx_q, ctx.smq, ctx.floor_c, tbsk),
                   bsk_branch_work(k, kb)))
-    xb = residues(gen, prm.bsk_primes, 3)
-    cases.append(("fast_bconv_sk_fused", f"[{kb},3,{N}] -> [{k},3,{N}]",
-                  lambda: rns_cuda.fast_bconv_sk_fused(xb, ctx.sk_c),
-                  lambda: rns.fast_bconv_sk(xb, ctx.sk_c), fast_bconv_sk_work(kb, k, 3)))
+    cases += conv_cases(gen, ctx)
     d = torch.cat([residues(gen, (q,), 1)[0] for q in qs])           # [kd, N]
     # the stored [kd, k, 2, N] key layout, read through the permuted view
     keys = torch.stack([residues(gen, qs, 2) for _ in qs])
@@ -758,19 +872,22 @@ def phase_kernels(gen: torch.Generator) -> dict:
                   lambda: ntt_cuda.keyswitch_fused_batch(d8_classic_b, keys8, tb8),
                   lambda: plain_ntt.keyswitch_fused_batch(d8_classic_b, keys8, tb8),
                   keyswitch_work(k8, kd8, BATCH)))
-    # the n < 1024 multiply's lift and floor (B9, B10): at the headline shapes,
-    # beside B5 (the four rows of a multiply, k = 3, kb = 5), and at n = 256,
-    # k = 5 with level 1's constants (the small path)
+    # the n < 1024 multiply's lift (B9) and its floor with the conversion to
+    # q (B10 with B6, the FloorSK lane): at n = 256, k = 5 with each level's
+    # constants (the small path), the lift also at the headline shapes
+    # (the four rows of a multiply, k = 3, kb = 5); then the floor lane
+    # alone (B10) there
+    ctx_s = make_context(params_small(), device="cuda")
+    cases += floor_sk_cases(gen, ctx_s)
     ab, tx_q = residues(gen, qs, 4), residues(gen, qs, 3)
     tx_bsk = residues(gen, prm.bsk_primes, 3)
     cases.append(("sm_mrq_fused", f"[{k},4,{N}] -> [{kb},4,{N}]",
                   lambda: rns_cuda.sm_mrq_fused(ab, ctx.smq),
                   lambda: rns.sm_mrq(ab, ctx.smq), sm_mrq_work(k, kb, 4 * N)))
-    cases.append(("fast_floor_fused", f"[{k},3,{N}] + [{kb},3,{N}] -> [{kb},3,{N}]",
+    cases.append(("fast_floor_fused", f"floor lane [{k},3,{N}] + [{kb},3,{N}] -> [{kb},3,{N}]",
                   lambda: rns_cuda.fast_floor_fused(tx_q, tx_bsk, ctx.floor_c),
                   lambda: rns.fast_floor(tx_q, tx_bsk, ctx.floor_c),
                   fast_floor_work(k, kb, 3 * N)))
-    ctx_s = make_context(params_small(), device="cuda")
     qs_s, bsk_s = ctx_s.ntt_q.primes[:4], ctx_s.mul_levels[1][1].primes
     ab_s, txq_s = residues(gen, qs_s, 4, 256), residues(gen, qs_s, 3, 256)
     txb_s = residues(gen, bsk_s, 3, 256)
@@ -778,7 +895,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
     cases.append(("sm_mrq_fused", f"level 1 of k=5: [4,4,256] -> [{len(bsk_s)},4,256]",
                   lambda: rns_cuda.sm_mrq_fused(ab_s, sc_s),
                   lambda: rns.sm_mrq(ab_s, sc_s), sm_mrq_work(4, len(bsk_s), 4 * 256)))
-    cases.append(("fast_floor_fused", f"level 1 of k=5: [4,3,256] -> [{len(bsk_s)},3,256]",
+    cases.append(("fast_floor_fused",
+                  f"floor lane, level 1 of k=5: [4,3,256] -> [{len(bsk_s)},3,256]",
                   lambda: rns_cuda.fast_floor_fused(txq_s, txb_s, fc_s),
                   lambda: rns.fast_floor(txq_s, txb_s, fc_s),
                   fast_floor_work(4, len(bsk_s), 3 * 256)))
@@ -794,7 +912,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
                       chain_work(x_m.numel(), 64, variant)))
     results = {}
     for name, label, kern, plain, work in cases:
-        got, want = kern(), plain()
+        got, want = flat(kern()), flat(plain())
         torch.cuda.synchronize()
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
         check(got.shape == want.shape and err == 0,
@@ -1378,6 +1496,10 @@ def phase_multiply() -> dict:
         ("multiply", lambda: fhe.multiply(c1, c2, rlk)),
         ("decrypt_after_multiply", lambda: fhe.decrypt(prod, sk)))}
     print("phase multiply device_ms", json.dumps(dev))
+    print_profiled("multiply", {
+        "multiply": lambda: fhe.multiply(c1, c2, rlk),
+        "multiply_no_relin": lambda: fhe.multiply_no_relin(c1, c2),
+        "relinearize": lambda: fhe.relinearize(m3, rlk)})
     return launches
 
 
@@ -1516,6 +1638,12 @@ def phase_serving() -> dict:
     big = 3 * BATCH
     a24 = (cts_a * 3)[:big]
     b24 = (cts_b * 3)[:big]
+    # the B = 24 batch repeats the B = 8 pairs: each product equals the
+    # B = 8 one, which equals the CPU plain path (above)
+    prods24 = fhe.multiply_batch(a24, b24, rlk)
+    check(len(prods24) == big and all(torch.equal(x.data, y.data)
+                                      for x, y in zip(prods24, st["prods"] * 3)),
+          f"card multiply_batch at B={big} differs from the B={BATCH} products")
     ms24 = wall_ms(lambda: fhe.multiply_batch(a24, b24, rlk))
     # device time of the whole op (host overhead excluded, device_ms): flat in B
     # while every kernel of the op still runs in one wave of blocks
@@ -1923,6 +2051,16 @@ def phase_small() -> dict:
         fhe.ctx, cts_a, cts_b, rlk1, keys_at_level=True)
     print("phase small wall_ms", json.dumps({op: wall_ms(fn) for op, fn in ops.items()}))
     print("phase small device_ms", json.dumps({op: device_ms(fn) for op, fn in ops.items()}))
+    # one multiply floors and converts to q in one launch: no B6 of its own
+    before = read_counts()
+    ops["multiply_l0"]()
+    torch.cuda.synchronize()
+    one = {name: c - before[name] for name, c in read_counts().items()}
+    check(one["fast_floor_fused"] == 1 and one["fast_bconv_sk_fused"] == 0,
+          f"the n=256 multiply launched fast_floor_fused {one['fast_floor_fused']} and "
+          f"fast_bconv_sk_fused {one['fast_bconv_sk_fused']} times, expected 1 and 0")
+    print_profiled("small", {op: ops[op] for op in ("multiply_l0", "multiply_l1",
+                                                    "multiply_no_relin_l1")})
     return launches
 
 

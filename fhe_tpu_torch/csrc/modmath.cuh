@@ -20,6 +20,10 @@
 //   OPS mul_barrett 11
 //   OPS reduce_barrett 10
 //   OPS neg_mod 3
+//   OPS reduce_wide 15
+// and one term of an unreduced 64-bit sum of products, s += (uint64) y * w
+// (one IMAD.WIDE), which reduce_wide closes:
+//   OPS mac_wide 1
 // and the steps rns.cu writes inline: centring a correction alpha into the
 // destination prime (compare; add of a per-prime constant, c - 2^16 or
 // q_j - m_sk; select), one step of the m~ = 2^16 lane,
@@ -139,6 +143,17 @@ __device__ __forceinline__ uint32_t reduce_shoup(uint32_t x, uint32_t p,
   uint32_t q = __umulhi(x, one_sh);
   uint32_t r = x - q * p;
   return r >= p ? r - p : r;
+}
+
+// x mod p for any x < 2^64 and p < 2^31, with pw = (p, r, r_sh, one_sh):
+// r = 2^32 mod p and its Shoup companion, one_sh = floor(2^32 / p).  The
+// high word goes through the Shoup product by r, the low word through
+// reduce_shoup.  A sum of up to 16 products of residues below 2^30 stays
+// below 2^64, so the base-conversion kernels accumulate such sums with
+// 32x32 -> 64 multiply-adds and reduce once.
+__device__ __forceinline__ uint32_t reduce_wide(uint64_t x, uint4 pw) {
+  const uint32_t hi = static_cast<uint32_t>(x >> 32), lo = static_cast<uint32_t>(x);
+  return add_mod(mul_shoup(hi, pw.y, pw.z, pw.x), reduce_shoup(lo, pw.x, pw.w), pw.x);
 }
 
 // (-a) mod p for a in [0, p): p - a, and 0 (not p) for a = 0.

@@ -30,22 +30,36 @@
 // transform between them and floor it.  The CTAs of row 3 have no output
 // row and stay (cluster barriers) until the peers have read their rows.
 //
-// fast_bconv_sk_fused: exact Shenoy-Kumaresan conversion Bsk -> q.  It is
-// elementwise over coefficients with a sum over the kb - 1 aux rows, so one
-// thread per output element (q prime, row, coefficient) recomputes the aux
-// digits it needs; no shared memory.
+// fast_bconv_sk_fused, the exact Shenoy-Kumaresan conversion Bsk -> q, and
+// fast_floor_fused, the FastFloor step of bsk_branch_fused on its own, are
+// lanes of one kernel template, base_conv_kernel<Lane, V, KB>.  Both are
+// elementwise over coefficients with sums over the source primes, and the
+// TPU kernels (grid over destination primes) formed every source digit again
+// for each destination prime: k times over for the conversion to q, kb times
+// for the floor.  Here one thread owns V consecutive coefficients of every
+// row: it forms each source digit once, keeps the digits in registers (KB,
+// the Bsk prime count, is a template parameter, so their arrays are indexed
+// at compile time) and loops over the destination primes.  The lanes are
+// template parameters: SK (Bsk -> q; given the relinearization's inv_qhat it
+// also stores the gadget digits [c2_j * (q/q_j)^-1]_{q_j} of the c2 rows
+// beside them, which spares the multiply a chain of elementwise launches),
+// Floor (t*x in q and in Bsk -> floor(t*x/q) in Bsk) and FloorSK (the floor
+// into every Bsk prime, its residues kept in registers and converted to q
+// at once: the n < 1024 multiply's floor and conversion in one launch).  The
+// lanes' constant tables (a few hundred words) are staged once per CTA in
+// shared memory while the thread's input words are in flight.
 //
-// sm_mrq_fused and fast_floor_fused are steps 1 and 3 of bsk_branch_fused on
-// their own, for the n < 1024 multiply, which runs the Bsk tensor product as
-// a separate tensor_product launch, as the JAX package does.  They are built
-// like fast_bconv_sk_fused: one thread per output residue (Bsk prime j, row,
-// coefficient) recomputes the k source digits it needs, and the arithmetic
-// is the same __device__ function that bsk_branch_fused calls (sm_mrq_coeff,
-// fast_floor_coeff), so the two paths cannot drift.
+// sm_mrq_fused is step 1 of bsk_branch_fused on its own, for the n < 1024
+// multiply, which runs the Bsk tensor product as a separate tensor_product
+// launch, as the JAX package does.  One thread per output residue (Bsk
+// prime j, row, coefficient) forms the k source digits it needs, with the
+// __device__ function that bsk_branch_fused calls (sm_mrq_coeff), so the
+// two paths cannot drift.
 //
 // Every digit y_i is a residue mod its own source prime and may exceed the
 // destination prime (m_sk and several aux primes are below some q_i), so
-// every product with a digit is a Shoup multiply, exact for any x < 2^32;
+// every product with a digit is a Shoup multiply, exact for any x < 2^32,
+// or (base_conv_kernel) an unreduced 64-bit product of two words below 2^30;
 // mul_barrett only ever sees reduced operands.  The m~ lane is arithmetic
 // mod 2^16 in uint32 with a mask: (2^16 - 1)^2 + 2^16 < 2^32.
 //
@@ -63,11 +77,13 @@
 // thread), and the product read from the peers with consecutive threads on
 // consecutive coefficients (the remote reads coalesced).  What each step of
 // the design bought: PERF.md.
-// fast_bconv_sk_fused moves 480 KB + 288 KB and runs 74 K threads: it is
-// bound by launch latency.  So are sm_mrq_fused and fast_floor_fused: at
-// n = 8192, k = 3, kb = 5 the lift of the four rows reads 393 KB and writes
-// 655 KB (0.3 us by memory rate, about 1 us by the issue rate) in 164 K
-// threads, and the n = 256 multiply that runs them gives them 7 K or fewer.
+// base_conv_kernel moves little: fast_bconv_sk_fused at [5, 3, 8192] reads
+// 480 KB and writes 288 KB (0.23 us by memory rate), so one launch of it is
+// bound by launch latency; at [10, 24, 8192] (the k = 8 multiply_batch) it
+// reads 7.9 MB and writes 6.3 MB, and there the memory rate and the digit
+// arithmetic bound it, which forming each digit once cuts k-fold.  The
+// n < 1024 multiply gives sm_mrq_fused and the FloorSK lane 7 K
+// coefficients or fewer: they are bound by launch latency.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -142,20 +158,6 @@ __device__ __forceinline__ void fast_floor_step(uint32_t tx_i, uint32_t qi, uint
 __device__ __forceinline__ uint32_t fast_floor_close(uint32_t tx_c, uint32_t conv, uint32_t c,
                                                      uint32_t iq, uint32_t iq_sh) {
   return fhe::mul_shoup(fhe::sub_mod(tx_c, conv, c), iq, iq_sh, c);
-}
-
-// The floor of one coefficient whose residues of t*x mod q_i are
-// src[i * sp], i < k; phat / phat_sh are c's row of the [l, k] table.
-__device__ __forceinline__ uint32_t fast_floor_coeff(
-    const uint32_t* __restrict__ src, int sp, int k, const uint32_t* __restrict__ q,
-    const uint32_t* __restrict__ inv_phat, const uint32_t* __restrict__ inv_phat_sh,
-    const uint32_t* __restrict__ phat, const uint32_t* __restrict__ phat_sh,
-    uint32_t tx_c, uint32_t c, uint32_t iq, uint32_t iq_sh) {
-  uint32_t conv = 0;
-  for (int i = 0; i < k; ++i)
-    fast_floor_step(src[i * sp], q[i], inv_phat[i], inv_phat_sh[i], phat[i], phat_sh[i], c,
-                    conv);
-  return fast_floor_close(tx_c, conv, c, iq, iq_sh);
 }
 
 // ab: [k, 4, B, n] (a0, a1, b0, b1 in q), element (i, c, b, x) at
@@ -300,39 +302,320 @@ bsk_branch_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_
   cluster.sync();
 }
 
-// x: [l + 1, count] (aux rows, then the m_sk row), out: [k, count] in q.
-// Thread (j, e) computes out[j, e].
-__global__ void __launch_bounds__(256)
-fast_bconv_sk_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-                     const uint32_t* __restrict__ aux,
-                     const uint32_t* __restrict__ inv_phat,
-                     const uint32_t* __restrict__ inv_phat_sh,
-                     const uint32_t* __restrict__ phat_q,
-                     const uint32_t* __restrict__ phat_q_sh,
-                     const uint32_t* __restrict__ phat_sk,
-                     const uint32_t* __restrict__ phat_sk_sh,
-                     const uint32_t* __restrict__ q, const uint32_t* __restrict__ b_mod_q,
-                     const uint32_t* __restrict__ b_mod_q_sh, uint32_t m_sk,
-                     uint32_t inv_b, uint32_t inv_b_sh, int l, int k, long long count) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= k * count) return;
-  const int j = static_cast<int>(idx / count);
-  const long long e = idx - j * count;
-  const uint32_t qj = q[j];
-  uint32_t conv_q = 0, conv_sk = 0;
-  for (int i = 0; i < l; ++i) {
-    const uint32_t y = fhe::mul_shoup(x[i * count + e], inv_phat[i], inv_phat_sh[i], aux[i]);
-    conv_q = fhe::add_mod(conv_q, fhe::mul_shoup(y, phat_q[j * l + i],
-                                                 phat_q_sh[j * l + i], qj), qj);
-    conv_sk = fhe::add_mod(conv_sk, fhe::mul_shoup(y, phat_sk[i], phat_sk_sh[i], m_sk),
-                           m_sk);
+// The base-conversion kernel: fast_bconv_sk_fused (lane SK, with or without
+// the digits lane) and fast_floor_fused (lane Floor alone, and lane FloorSK,
+// the floor with the Shenoy-Kumaresan conversion after it).  One thread owns
+// V consecutive coefficients of every row: it forms each source digit once
+// and reuses it for every destination prime.  A conversion sum
+// sum_i y_i * w_i mod c of L <= 16 digits y_i < 2^30 and table words
+// w_i < 2^30 accumulates unreduced in 64 bits (one IMAD.WIDE a term) and is
+// reduced once (fhe::reduce_wide): the Shoup product and modular add per
+// term of the TPU kernels' form take ten instructions, and the sum in that
+// form is one dependent chain of modular adds.
+enum Lane : int { kLaneSK = 0, kLaneFloor = 1, kLaneFloorSK = 2 };
+
+// Bsk bases the kernel is instantiated for (KB primes: KB - 1 aux + m_sk;
+// the aux sum has KB - 1 <= 16 terms), and the most q primes the floor
+// sums; ops/rns_cuda.py (CONV_KB, CONV_MAX_FLOOR_K) checks a call against
+// them.
+constexpr int kMinKb = 2;
+constexpr int kMaxKb = 17;
+constexpr int kMaxFloorK = 16;
+
+// The lanes' constants: pointers to the wrapper's per-prime tensors
+// (ops/rns.py SKConsts, FastFloorConsts, the relinearization's inv_qhat),
+// passed by value.  A lane stages what it reads in shared memory, so every
+// thread reads each table word from there, not from global memory.
+struct ConvConsts {
+  const uint32_t* aux;              // [L] aux primes b_i (Bsk = aux + m_sk)
+  const uint32_t* aux_inv_phat;     // [L] (B/b_i)^-1 mod b_i, Shoup
+  const uint32_t* aux_inv_phat_sh;
+  const uint32_t* phat_q;           // [k, L] (B/b_i) mod q_j
+  const uint32_t* phat_sk;          // [L] (B/b_i) mod m_sk
+  const uint32_t* q;                // [k] SK destination primes
+  const uint32_t* q_wide;           // [k, 3] 2^32 mod q_j, Shoup, floor(2^32/q_j)
+  const uint32_t* msk_wide;         // [1, 3] the same for m_sk
+  const uint32_t* b_mod_q;          // [k] B mod q_j, Shoup
+  const uint32_t* b_mod_q_sh;
+  const uint32_t* w;                // [k] digits: (q/q_j)^-1 mod q_j, Shoup
+  const uint32_t* w_sh;
+  const uint32_t* fq;               // [k] floor source primes
+  const uint32_t* f_inv_phat;       // [k] (q/q_i)^-1 mod q_i, Shoup
+  const uint32_t* f_inv_phat_sh;
+  const uint32_t* f_phat;           // [KB, k] (q/q_i) mod c_j
+  const uint32_t* cp;               // [KB] floor destination primes
+  const uint32_t* c_wide;           // [KB, 3] as q_wide
+  const uint32_t* inv_q_c;          // [KB] q^-1 mod c_j, Shoup
+  const uint32_t* inv_q_c_sh;
+  uint32_t m_sk, inv_b, inv_b_sh;   // B^-1 mod m_sk, Shoup
+  int k;
+};
+
+// Where a lane's staged constants lie in shared memory: 16-byte quads
+// (p, 2^32 mod p, its Shoup companion, floor(2^32/p)) of the destination
+// primes, then 8-byte pairs (value, Shoup companion), then single words.
+// Offsets in quads, pairs and words.
+struct ConvSmem {
+  int qw, cw, quads;
+  int ainv, bq, w, finv, iq, pairs;
+  int phq, psk, fph, aux, fq, words;
+  __host__ __device__ ConvSmem(int lane, int k, int kb, bool digits) {
+    const bool sk = lane != kLaneFloor, fl = lane != kLaneSK;
+    const int l = kb - 1;
+    int u = 0;
+    qw = u;   u += sk ? k + 1 : 0;      // the k q primes, then m_sk
+    cw = u;   u += fl ? kb : 0;
+    quads = u;
+    int p = 0;
+    ainv = p; p += sk ? l : 0;
+    bq = p;   p += sk ? k : 0;
+    w = p;    p += sk && digits ? k : 0;
+    finv = p; p += fl ? k : 0;
+    iq = p;   p += fl ? kb : 0;
+    pairs = p;
+    int o = 0;
+    phq = o;  o += sk ? k * l : 0;
+    psk = o;  o += sk ? l : 0;
+    fph = o;  o += fl ? kb * k : 0;
+    aux = o;  o += sk ? l : 0;
+    fq = o;   o += fl ? k : 0;
+    words = o;
   }
-  const uint32_t alpha =
-      fhe::mul_shoup(fhe::sub_mod(conv_sk, x[l * count + e], m_sk), inv_b, inv_b_sh, m_sk);
-  // centred alpha mod q_j: alpha itself, or q_j - (m_sk - alpha) when negative
-  const uint32_t alpha_q = alpha <= (m_sk >> 1) ? alpha : qj - (m_sk - alpha);
-  out[idx] = fhe::sub_mod(conv_q, fhe::mul_shoup(alpha_q, b_mod_q[j], b_mod_q_sh[j], qj),
-                          qj);
+  __host__ __device__ size_t bytes() const {
+    return 16 * static_cast<size_t>(quads) + 8 * pairs + 4 * words;
+  }
+};
+
+__device__ __forceinline__ void stage_quads(uint4* dst, const uint32_t* p, const uint32_t* wide,
+                                            int count) {
+  for (int t = threadIdx.x; t < count; t += blockDim.x)
+    dst[t] = make_uint4(p[t], wide[3 * t], wide[3 * t + 1], wide[3 * t + 2]);
+}
+
+__device__ __forceinline__ void stage_pairs(uint2* dst, const uint32_t* v, const uint32_t* sh,
+                                            int count) {
+  for (int t = threadIdx.x; t < count; t += blockDim.x) dst[t] = make_uint2(v[t], sh[t]);
+}
+
+__device__ __forceinline__ void stage_words(uint32_t* dst, const uint32_t* v, int count) {
+  for (int t = threadIdx.x; t < count; t += blockDim.x) dst[t] = v[t];
+}
+
+// V consecutive words at p: one 8-byte access where `vec` says p is aligned
+// to it, else a word at a time.
+template <int V>
+__device__ __forceinline__ void load_words(uint32_t (&x)[V], const uint32_t* p, bool vec) {
+  if constexpr (V == 2) {
+    if (vec) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      x[0] = u.x; x[1] = u.y;
+      return;
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) x[v] = p[v];
+}
+
+// The outputs the wrapper allocates start 16-byte aligned, and every offset
+// a thread stores at is a multiple of V words.
+template <int V>
+__device__ __forceinline__ void store_words(uint32_t* p, const uint32_t (&x)[V]) {
+  if constexpr (V == 2) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(x[0], x[1]);
+  } else {
+    p[0] = x[0];
+  }
+}
+
+// Lane SK: src [KB, count] (the L = KB - 1 aux rows, then the m_sk row),
+// out [k, count] in q; with the digits lane (dig not null), also
+// dig [k, count - dstart]: the digits [out_j * (q/q_j)^-1]_{q_j} of the
+// words from dstart on (the c2 rows, component-major).  Lane Floor: src
+// [k, count] the residues of t*x in q, txb [KB, count] those in Bsk, out
+// [KB, count] = (txb - conv(src)) * q^-1.  Lane FloorSK: the floored
+// residues stay in registers and go through lane SK, out [k, count] (and
+// dig).  Thread t of block b owns words e .. e + V - 1, e = (b * blockDim
+// + t) * V, of every row.  The wrapper keeps every offset below 2^31.
+template <int LaneT, int V, int KB>
+__global__ void __launch_bounds__(256)
+base_conv_kernel(const uint32_t* __restrict__ src, const uint32_t* __restrict__ txb,
+                 uint32_t* __restrict__ out, uint32_t* __restrict__ dig, const ConvConsts cc,
+                 int count, int dstart, int vec) {
+  constexpr int L = KB - 1;
+  constexpr bool kSK = LaneT != kLaneFloor;
+  constexpr bool kFloor = LaneT != kLaneSK;
+  extern __shared__ uint4 conv_quads[];
+  const int k = cc.k;
+  const bool digits = kSK && dig != nullptr;
+  const ConvSmem lay(LaneT, k, KB, digits);
+  uint2* pairs = reinterpret_cast<uint2*>(conv_quads + lay.quads);
+  uint32_t* words = reinterpret_cast<uint32_t*>(pairs + lay.pairs);
+  const int e = (blockIdx.x * blockDim.x + threadIdx.x) * V;
+  const bool active = e < count;
+  // 1. this thread's KB rows first (the aux and m_sk rows, or t*x in Bsk),
+  // so that their loads are in flight while the constants are staged
+  const uint32_t* rows = kFloor ? txb : src;
+  uint32_t x[KB][V];
+  if (active) {
+#pragma unroll
+    for (int r = 0; r < KB; ++r) load_words<V>(x[r], rows + r * count + e, vec);
+  }
+  if constexpr (kSK) {
+    stage_quads(conv_quads + lay.qw, cc.q, cc.q_wide, k);
+    if (threadIdx.x == 0)
+      conv_quads[lay.qw + k] = make_uint4(cc.m_sk, cc.msk_wide[0], cc.msk_wide[1],
+                                          cc.msk_wide[2]);
+    stage_pairs(pairs + lay.ainv, cc.aux_inv_phat, cc.aux_inv_phat_sh, L);
+    stage_pairs(pairs + lay.bq, cc.b_mod_q, cc.b_mod_q_sh, k);
+    if (digits) stage_pairs(pairs + lay.w, cc.w, cc.w_sh, k);
+    stage_words(words + lay.phq, cc.phat_q, k * L);
+    stage_words(words + lay.psk, cc.phat_sk, L);
+    stage_words(words + lay.aux, cc.aux, L);
+  }
+  if constexpr (kFloor) {
+    stage_quads(conv_quads + lay.cw, cc.cp, cc.c_wide, KB);
+    stage_pairs(pairs + lay.finv, cc.f_inv_phat, cc.f_inv_phat_sh, k);
+    stage_pairs(pairs + lay.iq, cc.inv_q_c, cc.inv_q_c_sh, KB);
+    stage_words(words + lay.fph, cc.f_phat, KB * k);
+    stage_words(words + lay.fq, cc.fq, k);
+  }
+  __syncthreads();
+  if (!active) return;
+  const uint2* ainv = pairs + lay.ainv;
+  const uint32_t* aux = words + lay.aux;
+  uint32_t y[L][V];   // the aux digits [x_i * (B/b_i)^-1]_{b_i}
+  uint32_t xm[V];     // the m_sk residue
+  if constexpr (kFloor) {
+    // 2a. FastFloor into all KB primes: each digit of t*x in q once, its
+    // products with every Bsk prime's table word summed unreduced
+    const uint4* cw = conv_quads + lay.cw;
+    const uint2* finv = pairs + lay.finv;
+    const uint2* iq = pairs + lay.iq;
+    const uint32_t* fph = words + lay.fph;
+    const uint32_t* fq = words + lay.fq;
+    uint64_t acc[KB][V];
+#pragma unroll
+    for (int c = 0; c < KB; ++c)
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[c][v] = 0;
+    // the k <= kMaxFloorK source rows: every load in flight at once
+    uint32_t t[kMaxFloorK][V];
+#pragma unroll
+    for (int i = 0; i < kMaxFloorK; ++i)
+      if (i < k) load_words<V>(t[i], src + i * count + e, vec);
+#pragma unroll
+    for (int i = 0; i < kMaxFloorK; ++i) {
+      if (i >= k) break;
+      const uint2 fi = finv[i];
+      const uint32_t qi = fq[i];
+#pragma unroll
+      for (int v = 0; v < V; ++v) t[i][v] = fhe::mul_shoup(t[i][v], fi.x, fi.y, qi);
+#pragma unroll
+      for (int c = 0; c < KB; ++c) {
+        const uint32_t ph = fph[c * k + i];
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[c][v] += static_cast<uint64_t>(t[i][v]) * ph;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < KB; ++c) {
+      const uint4 pw = cw[c];
+      const uint2 iqc = iq[c];
+      uint32_t fl[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        fl[v] = fhe::mul_shoup(fhe::sub_mod(x[c][v], fhe::reduce_wide(acc[c][v], pw), pw.x),
+                               iqc.x, iqc.y, pw.x);
+      if constexpr (LaneT == kLaneFloor) {
+        store_words<V>(out + c * count + e, fl);
+      } else if (c < L) {
+        // 2b. the floored residue goes straight into its aux digit
+#pragma unroll
+        for (int v = 0; v < V; ++v) y[c][v] = fhe::mul_shoup(fl[v], ainv[c].x, ainv[c].y, aux[c]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) xm[v] = fl[v];
+      }
+    }
+    if constexpr (LaneT == kLaneFloor) return;
+  } else {
+    // 2. the aux digits, once per coefficient
+#pragma unroll
+    for (int i = 0; i < L; ++i)
+#pragma unroll
+      for (int v = 0; v < V; ++v) y[i][v] = fhe::mul_shoup(x[i][v], ainv[i].x, ainv[i].y, aux[i]);
+#pragma unroll
+    for (int v = 0; v < V; ++v) xm[v] = x[L][v];
+  }
+  if constexpr (kSK) {
+    // 3. alpha = (conv_sk - x_msk) * B^-1 mod m_sk, once per coefficient
+    const uint4* qw = conv_quads + lay.qw;
+    const uint32_t* psk = words + lay.psk;
+    const uint4 mw = qw[k];
+    const uint32_t msk = mw.x;
+    uint32_t alpha[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      uint64_t s = 0;
+#pragma unroll
+      for (int i = 0; i < L; ++i) s += static_cast<uint64_t>(y[i][v]) * psk[i];
+      alpha[v] = fhe::mul_shoup(fhe::sub_mod(fhe::reduce_wide(s, mw), xm[v], msk), cc.inv_b,
+                                cc.inv_b_sh, msk);
+    }
+    // 4. every destination prime q_j from the same digits: the conversion,
+    // the centred correction alpha * B, and the relinearization digit
+    const uint32_t* phq = words + lay.phq;
+    const uint2* bq = pairs + lay.bq;
+    const uint2* wd = pairs + lay.w;
+    const bool dig_word = digits && e >= dstart;
+    const int dcount = count - dstart;
+    for (int j = 0; j < k; ++j) {
+      const uint4 pw = qw[j];
+      const uint32_t qj = pw.x;
+      const uint32_t* ph = phq + j * L;
+      const uint2 b = bq[j];
+      uint32_t o[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        uint64_t s = 0;
+#pragma unroll
+        for (int i = 0; i < L; ++i) s += static_cast<uint64_t>(y[i][v]) * ph[i];
+        // centred alpha mod q_j: alpha itself, or q_j - (m_sk - alpha)
+        const uint32_t aq = alpha[v] <= (msk >> 1) ? alpha[v] : qj - (msk - alpha[v]);
+        o[v] = fhe::sub_mod(fhe::reduce_wide(s, pw), fhe::mul_shoup(aq, b.x, b.y, qj), qj);
+      }
+      store_words<V>(out + j * count + e, o);
+      if (dig_word) {
+        const uint2 wj = wd[j];
+#pragma unroll
+        for (int v = 0; v < V; ++v) o[v] = fhe::mul_shoup(o[v], wj.x, wj.y, qj);
+        store_words<V>(dig + j * dcount + (e - dstart), o);
+      }
+    }
+  }
+}
+
+// The instance for kb Bsk primes, or null outside [kMinKb, kMaxKb].
+template <int LaneT, int V, int KB = kMinKb>
+const void* conv_kernel(int kb) {
+  if constexpr (KB > kMaxKb) {
+    return nullptr;
+  } else {
+    return kb == KB ? reinterpret_cast<const void*>(base_conv_kernel<LaneT, V, KB>)
+                    : conv_kernel<LaneT, V, KB + 1>(kb);
+  }
+}
+
+// The lanes and words per thread the wrapper may ask for: SK at 1 or 2, the
+// floor lanes at 1 (ops/rns_cuda.py: conv_geometry).
+const void* pick_conv_kernel(int lane, int per_thread, int kb) {
+  switch (lane * 8 + per_thread) {
+    case kLaneSK * 8 + 1: return conv_kernel<kLaneSK, 1>(kb);
+    case kLaneSK * 8 + 2: return conv_kernel<kLaneSK, 2>(kb);
+    case kLaneFloor * 8 + 1: return conv_kernel<kLaneFloor, 1>(kb);
+    case kLaneFloorSK * 8 + 1: return conv_kernel<kLaneFloorSK, 1>(kb);
+    default: return nullptr;
+  }
 }
 
 // sm_mrq_fused.  x: [k, count] residues in q, out: [l, count] in the dst
@@ -355,25 +638,6 @@ sm_mrq_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
       sm_mrq_coeff(x + e, count, k, q, mt_inv_phat, mt_inv_phat_sh, phat + j * k,
                    phat_sh + j * k, phat_mt, inv_q_mt, cp[j], q_mod_c[j], q_mod_c_sh[j],
                    inv_mt_c[j], inv_mt_c_sh[j]);
-}
-
-// fast_floor_fused.  txq: [k, count] residues of t*x in q, txb: [l, count] in
-// the dst primes cp, out: [l, count]; block (e-block, j), thread e floors
-// element e in c_j.
-__global__ void __launch_bounds__(256)
-fast_floor_kernel(const uint32_t* __restrict__ txq, const uint32_t* __restrict__ txb,
-                  uint32_t* __restrict__ out, const uint32_t* __restrict__ q,
-                  const uint32_t* __restrict__ inv_phat,
-                  const uint32_t* __restrict__ inv_phat_sh,
-                  const uint32_t* __restrict__ phat, const uint32_t* __restrict__ phat_sh,
-                  const uint32_t* __restrict__ cp, const uint32_t* __restrict__ inv_q_c,
-                  const uint32_t* __restrict__ inv_q_c_sh, int k, int count) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= count) return;
-  const int j = blockIdx.y;
-  const size_t o = static_cast<size_t>(j) * count + e;
-  out[o] = fast_floor_coeff(txq + e, count, k, q, inv_phat, inv_phat_sh, phat + j * k,
-                            phat_sh + j * k, txb[o], cp[j], inv_q_c[j], inv_q_c_sh[j]);
 }
 
 constexpr int kConvThreads = 256;
@@ -424,20 +688,41 @@ int fhe_bsk_branch(const void* ab, int ab_sp, int ab_sc, int ab_sb, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-int fhe_fast_bconv_sk(const void* x, void* out, const void* aux, const void* inv_phat,
-                      const void* inv_phat_sh, const void* phat_q, const void* phat_q_sh,
-                      const void* phat_sk, const void* phat_sk_sh, const void* q,
-                      const void* b_mod_q, const void* b_mod_q_sh, uint32_t m_sk,
-                      uint32_t inv_b, uint32_t inv_b_sh, int l, int k, long long count,
-                      void* stream) {
-  constexpr int kThreads = 256;
-  const long long total = k * count;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+// One launch of base_conv_kernel: lane (kLaneSK, kLaneFloor, kLaneFloorSK),
+// per_thread words per thread, kb Bsk primes, k q primes, count words per
+// row, the digits from word dstart on (dig null: no digits lane), vec where
+// every input row starts aligned to per_thread words, threads per CTA (the
+// wrapper's conv_geometry).  Unused constants may be null.
+int fhe_base_conv(int lane, int per_thread, int kb, int k, int count, int dstart, int vec,
+                  int threads, const void* src, const void* txb, void* out, void* dig,
+                  const void* aux, const void* aux_inv_phat, const void* aux_inv_phat_sh,
+                  const void* phat_q, const void* phat_sk, const void* q, const void* q_wide,
+                  const void* msk_wide, const void* b_mod_q, const void* b_mod_q_sh,
+                  const void* w, const void* w_sh, const void* fq, const void* f_inv_phat,
+                  const void* f_inv_phat_sh, const void* f_phat, const void* cp,
+                  const void* c_wide, const void* inv_q_c, const void* inv_q_c_sh,
+                  uint32_t m_sk, uint32_t inv_b, uint32_t inv_b_sh, void* stream) {
+  const void* kernel = pick_conv_kernel(lane, per_thread, kb);
+  if (kernel == nullptr || k < 1 || count < 1 || count % per_thread || threads < 32
+      || threads > 256 || (lane != kLaneSK && k > kMaxFloorK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ConvSmem lay(lane, k, kb, dig != nullptr);
+  if (lay.bytes() > fhe::kDefaultSmem) return static_cast<int>(cudaErrorInvalidValue);
   auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  fast_bconv_sk_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      u(x), static_cast<uint32_t*>(out), u(aux), u(inv_phat), u(inv_phat_sh), u(phat_q),
-      u(phat_q_sh), u(phat_sk), u(phat_sk_sh), u(q), u(b_mod_q), u(b_mod_q_sh), m_sk,
-      inv_b, inv_b_sh, l, k, count);
+  ConvConsts cc{u(aux), u(aux_inv_phat), u(aux_inv_phat_sh), u(phat_q), u(phat_sk), u(q),
+                u(q_wide), u(msk_wide), u(b_mod_q), u(b_mod_q_sh), u(w), u(w_sh), u(fq),
+                u(f_inv_phat), u(f_inv_phat_sh), u(f_phat), u(cp), u(c_wide), u(inv_q_c),
+                u(inv_q_c_sh), m_sk, inv_b, inv_b_sh, k};
+  const uint32_t* src_p = u(src);
+  const uint32_t* txb_p = u(txb);
+  uint32_t* out_p = static_cast<uint32_t*>(out);
+  uint32_t* dig_p = static_cast<uint32_t*>(dig);
+  void* args[] = {&src_p, &txb_p, &out_p, &dig_p, &cc, &count, &dstart, &vec};
+  const int groups = count / per_thread;
+  const dim3 grid((groups + threads - 1) / threads);
+  const cudaError_t err = cudaLaunchKernel(kernel, grid, dim3(threads), args, lay.bytes(),
+                                           static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -452,18 +737,6 @@ int fhe_sm_mrq(const void* x, void* out, const void* q, const void* mt_inv_phat,
       u(x), static_cast<uint32_t*>(out), u(q), u(mt_inv_phat), u(mt_inv_phat_sh), u(phat),
       u(phat_sh), u(phat_mt), u(cp), u(q_mod_c), u(q_mod_c_sh), u(inv_mt_c),
       u(inv_mt_c_sh), inv_q_mt, k, count);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int fhe_fast_floor(const void* txq, const void* txb, void* out, const void* q,
-                   const void* inv_phat, const void* inv_phat_sh, const void* phat,
-                   const void* phat_sh, const void* cp, const void* inv_q_c,
-                   const void* inv_q_c_sh, int k, int l, int count, void* stream) {
-  const dim3 grid((count + kConvThreads - 1) / kConvThreads, l);
-  auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  fast_floor_kernel<<<grid, kConvThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      u(txq), u(txb), static_cast<uint32_t*>(out), u(q), u(inv_phat), u(inv_phat_sh),
-      u(phat), u(phat_sh), u(cp), u(inv_q_c), u(inv_q_c_sh), k, count);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,8 +15,9 @@ Base conversions and exact rounded scalings, all-integer (BEHZ):
 Each is bit-exact with its ``fhe_tpu.ops.rns`` counterpart (the JAX
 package's t = 65537 Fermat decryption lane gives the same bits as the
 generic one here).  ``bsk_branch_fused`` (and ``_batch``),
-``fast_bconv_sk``, ``sm_mrq`` and ``fast_floor`` are also the plain
-versions of the CUDA kernels in ``ops/rns_cuda.py``.  Residues are
+``fast_bconv_sk`` (and ``fast_bconv_sk_digits``), ``sm_mrq``, ``fast_floor``
+and ``fast_floor_sk`` are also the plain versions of the CUDA kernels in
+``ops/rns_cuda.py``.  Residues are
 int32 tensors; products are formed in int64 and reduced with ``%``.
 """
 
@@ -58,6 +59,19 @@ class BaseConvConsts:
     p_dst: torch.Tensor            # [l]
     phat_mod_dst: torch.Tensor     # [l, k]  (P/p_i) mod c_j
     phat_shoup_dst: torch.Tensor   # [l, k]
+    # [l, 3] per dst prime: 2^32 mod c_j, its Shoup companion, floor(2^32/c_j)
+    # (the CUDA kernels reduce a 64-bit sum of products with them)
+    dst_wide: torch.Tensor
+
+
+def wide_consts(primes) -> np.ndarray:
+    """[m, 3] uint32: 2^32 mod p, its Shoup companion and floor(2^32 / p)
+    for each prime p < 2^30."""
+    if any(not 1 < p < 1 << 30 for p in primes):
+        raise ValueError(f"expected primes below 2^30, got {primes}")
+    r = [(1 << 32) % p for p in primes]
+    return np.array([[ri, mm.shoup_precompute(ri, p), (1 << 32) // p]
+                     for ri, p in zip(r, primes)], dtype=np.uint32).reshape(len(primes), 3)
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,6 +80,7 @@ def _base_conv_host(src: tuple[int, ...], dst: tuple[int, ...]) -> dict:
     inv_phat = [pow(P // p, -1, p) for p in src]
     phat = [[(P // p) % c for p in src] for c in dst]
     return dict(
+        dst_wide=wide_consts(dst),
         p_src=np.array(src, dtype=np.uint32),
         inv_phat=np.array(inv_phat, dtype=np.uint32),
         inv_phat_shoup=mm.shoup_array(inv_phat, src),
@@ -238,6 +253,36 @@ def fast_bconv_sk(x_bsk: torch.Tensor, sk: SKConsts) -> torch.Tensor:
     # centred alpha mod c: alpha (alpha <= m_sk/2) or c - (m_sk - alpha)
     alpha_c = torch.where(alpha <= (msk >> 1), alpha, c - (msk - alpha))
     return ((conv_q - alpha_c * _col(sk.B_mod_q) % c) % c).to(torch.int32)
+
+
+def relin_digits(c: torch.Tensor, inv_qhat: torch.Tensor,
+                 primes: torch.Tensor) -> torch.Tensor:
+    """The relinearization's per-prime gadget digits [c_j * (q/q_j)^-1]_{q_j}
+    of [k, *B, n] coefficient-domain residues c (inv_qhat: the [k] table
+    (q/q_j)^-1 mod q_j of the primes)."""
+    return (c.to(torch.int64) * _col(inv_qhat, c.dim())
+            % _col(primes, c.dim())).to(torch.int32)
+
+
+def fast_bconv_sk_digits(x_bsk: torch.Tensor, sk: SKConsts,
+                         inv_qhat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``fast_bconv_sk`` of x_bsk [l+1, 3B, n], whose rows are components 0,
+    1 and 2 of B elements (component-major), and the relinearization digits
+    of its c2 rows: ([k, 3B, n], [k, B, n])."""
+    out = fast_bconv_sk(x_bsk, sk)
+    k, rows, n = out.shape
+    c2 = out.view(k, 3, rows // 3, n)[:, 2]
+    return out, relin_digits(c2, inv_qhat, sk.conv_q.p_dst)
+
+
+def fast_floor_sk(tx_q: torch.Tensor, tx_bsk: torch.Tensor, fc: FastFloorConsts,
+                  sk: SKConsts, inv_qhat: torch.Tensor | None = None):
+    """The floor into Bsk and the exact conversion back to q: [k, B, n], and
+    with ``inv_qhat`` also the digits of the c2 rows (``fast_bconv_sk_digits``)."""
+    floored = fast_floor(tx_q, tx_bsk, fc)
+    if inv_qhat is None:
+        return fast_bconv_sk(floored, sk)
+    return fast_bconv_sk_digits(floored, sk, inv_qhat)
 
 
 def bsk_branch_fused_batch(ab: torch.Tensor, tx_q: torch.Tensor,

@@ -187,9 +187,13 @@ def _gadget_digits(ctx: SchemeContext, d: torch.Tensor, level: int = 0) -> torch
 def _digits(ctx: SchemeContext, polys: torch.Tensor, level: int) -> torch.Tensor:
     """Per-prime gadget digits [c_j * (q_L/q_j)^-1]_{q_j} of [k-L, *B, n]
     coefficient-domain components."""
-    tb = _tb(ctx, level)
-    shape = (-1,) + (1,) * (polys.dim() - 1)
-    return mm.mul_mod(polys, ctx.inv_qhat_levels[level].view(shape), tb.p.view(shape))
+    return _rns.relin_digits(polys, ctx.inv_qhat_levels[level], _tb(ctx, level).p)
+
+
+def _digit_consts(ctx: SchemeContext, level: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(q_L/q_j)^-1 mod q_j and its Shoup companions: the digits lane of the
+    multiply's conversion kernels, which store ``_digits`` of c2 beside it."""
+    return ctx.inv_qhat_levels[level], ctx.inv_qhat_shoup_levels[level]
 
 
 def _keyswitch_keygen_from_noise(ctx: SchemeContext, sk: SecretKey,
@@ -496,16 +500,11 @@ def _keyswitch_budget(ctx: SchemeContext, log2_var: float, level: int) -> float:
     return _b_of(ctx, level, _noise.add(log2_var, _noise.keyswitch_add(ctx.params, level)))
 
 
-def multiply_no_relin(ctx: SchemeContext, a: Ciphertext,
-                      b: Ciphertext) -> Ciphertext:
-    """BEHZ RNS tensor product and t/q_L scaling -> 3-component ciphertext,
-    at the operands' level with that level's constants and its Bsk base.
-    The t-scaled q-side tensor product (one kernel), the Bsk branch, and
-    the exact Shenoy-Kumaresan conversion back to q_L (one kernel).  At
-    n >= 1024 the Bsk branch (lift, Bsk tensor product, floor) is one
-    kernel; below, as in the JAX package, it is the lift of both operands
-    (sm_mrq_fused), the Bsk tensor product and the floor (fast_floor_fused),
-    three kernels that compute the same residues."""
+def _multiply_scaled(ctx: SchemeContext, a: Ciphertext, b: Ciphertext,
+                     digits: bool) -> tuple[Ciphertext, torch.Tensor | None]:
+    """``multiply_no_relin``, and with ``digits`` also the gadget digits
+    [k-L, 1, n] of its c2 (``_digits``), which the conversion kernel stores
+    beside c2 (None without)."""
     if a.level != b.level:
         raise ValueError("ciphertext level mismatch")
     if a.num_components != 2 or b.num_components != 2:
@@ -515,49 +514,59 @@ def multiply_no_relin(ctx: SchemeContext, a: Ciphertext,
     level = a.level
     a, b = to_coeff(ctx, a), to_coeff(ctx, b)
     tq, tbsk = ctx.mul_levels[level]
-    smq, floor_c = ctx.smq_levels[level], ctx.floor_levels[level]
+    smq, floor_c, sk = ctx.smq_levels[level], ctx.floor_levels[level], ctx.sk_levels[level]
+    dig = _digit_consts(ctx, level) if digits else None
     tx_q = ntt_cuda.tensor_product(a.data, b.data, tq)           # [k-L, 3, n]
     ab = torch.cat([a.data, b.data], dim=1)                      # [k-L, 4, n]
     if ctx.n >= 1024:
         floored = rns_cuda.bsk_branch_fused(ab, tx_q, smq, floor_c, tbsk)
+        out = rns_cuda.fast_bconv_sk_fused(floored, sk, dig)
     else:
         lift = rns_cuda.sm_mrq_fused(ab, smq)                     # [kb_L, 4, n]
         tx_bsk = ntt_cuda.tensor_product(lift[:, :2], lift[:, 2:], tbsk)
-        floored = rns_cuda.fast_floor_fused(tx_q, tx_bsk, floor_c)
-    return Ciphertext(
-        data=rns_cuda.fast_bconv_sk_fused(floored, ctx.sk_levels[level]),
-        level=level, is_ntt_form=False, noise_budget=_multiply_budget(ctx, a, b))
+        out = rns_cuda.fast_floor_fused(tx_q, tx_bsk, floor_c, sk, dig)
+    data, d = out if digits else (out, None)
+    return Ciphertext(data=data, level=level, is_ntt_form=False,
+                      noise_budget=_multiply_budget(ctx, a, b)), d
 
 
-def _keyswitch_delta(ctx: SchemeContext, poly: torch.Tensor,
-                     ks_keys: torch.Tensor, level: int = 0) -> torch.Tensor:
+def multiply_no_relin(ctx: SchemeContext, a: Ciphertext,
+                      b: Ciphertext) -> Ciphertext:
+    """BEHZ RNS tensor product and t/q_L scaling -> 3-component ciphertext,
+    at the operands' level with that level's constants and its Bsk base.
+    The t-scaled q-side tensor product (one kernel), the Bsk branch, and
+    the exact Shenoy-Kumaresan conversion back to q_L.  At n >= 1024 the
+    Bsk branch (lift, Bsk tensor product, floor) is one kernel and the
+    conversion another; below, as in the JAX package, the lift of both
+    operands (sm_mrq_fused) and the Bsk tensor product come first, then the
+    floor and the conversion in one launch (fast_floor_fused with sk): the
+    same residues."""
+    return _multiply_scaled(ctx, a, b, digits=False)[0]
+
+
+def _delta_from_digits(ctx: SchemeContext, d: torch.Tensor, ks_keys: torch.Tensor,
+                       level: int = 0) -> torch.Tensor:
     """Coefficient-domain key-switch correction INTT(sum_j NTT(D_j) ⊙ key_j)
-    for a [k-L, n] component: the digits D_j = [poly_j * (q_L/q_j)^-1]_{q_j}
-    are one elementwise step, the rest is one keyswitch_fused launch reading
-    the stored [kd, k-L, 2, n] keys (keys of the level) in place.  At
-    ks_omega > 1 the grouped digits' per-prime residues go through its
-    prereduced lane.  Returns [k-L, 2, n]."""
+    from the per-prime digits d (``_digits``): one keyswitch_fused launch
+    for one component (d [k-L, n], returns [k-L, 2, n]) or one
+    keyswitch_fused_batch launch for B (d [k-L, B, n], returns
+    [k-L, 2, B, n]), reading the stored [kd, k-L, 2, n] keys (keys of the
+    level) in place.  At ks_omega > 1 the grouped digits' per-prime
+    residues go through the kernels' prereduced lane."""
     tb = _tb(ctx, level)
-    d = _digits(ctx, poly, level)
     keys_t = ks_keys.permute(1, 0, 2, 3)
+    fn = ntt_cuda.keyswitch_fused if d.dim() == 2 else ntt_cuda.keyswitch_fused_batch
     if _omega(ctx) > 1:
-        return ntt_cuda.keyswitch_fused(_grouped_digit_residues(ctx, d, level), keys_t,
-                                        tb, prereduced=True)
-    return ntt_cuda.keyswitch_fused(d, keys_t, tb)
+        return fn(_grouped_digit_residues(ctx, d, level), keys_t, tb, prereduced=True)
+    return fn(d, keys_t, tb)
 
 
-def _keyswitch_delta_batch(ctx: SchemeContext, polys: torch.Tensor,
-                           ks_keys: torch.Tensor, level: int = 0) -> torch.Tensor:
-    """``_keyswitch_delta`` of B components at once: polys [k-L, B, n] (one
-    component per element), one keyswitch_fused_batch launch against the
-    shared [kd, k-L, 2, n] keys; returns [k-L, 2, B, n]."""
-    tb = _tb(ctx, level)
-    d = _digits(ctx, polys, level)
-    keys_t = ks_keys.permute(1, 0, 2, 3)
-    if _omega(ctx) > 1:
-        return ntt_cuda.keyswitch_fused_batch(_grouped_digit_residues(ctx, d, level),
-                                              keys_t, tb, prereduced=True)
-    return ntt_cuda.keyswitch_fused_batch(d, keys_t, tb)
+def _keyswitch_delta(ctx: SchemeContext, polys: torch.Tensor,
+                     ks_keys: torch.Tensor, level: int = 0) -> torch.Tensor:
+    """The key-switch correction of one component [k-L, n] ([k-L, 2, n]) or
+    of B components [k-L, B, n] ([k-L, 2, B, n]): their digits (one
+    elementwise step), then ``_delta_from_digits``."""
+    return _delta_from_digits(ctx, _digits(ctx, polys, level), ks_keys, level)
 
 
 def _switch_keys_down(ctx: SchemeContext, ks_keys: torch.Tensor,
@@ -606,6 +615,15 @@ def _keys_of(ctx: SchemeContext, keys: torch.Tensor, level: int,
     return keys if keys_at_level else _switch_keys_down(ctx, keys, level)
 
 
+def _relinearize_from_digits(ctx: SchemeContext, ct3: Ciphertext, d: torch.Tensor,
+                             keys: torch.Tensor, level: int) -> Ciphertext:
+    """3 -> 2 components of the coefficient-form ct3 at level L, given the
+    gadget digits d [k-L, n] of its c2 and the level's keys."""
+    delta = _delta_from_digits(ctx, d, keys, level)
+    return ct3.replace(data=mm.add_mod(ct3.data[:, :2], delta, _p3(_tb(ctx, level))),
+                       noise_budget=_keyswitch_budget(ctx, _v_of(ctx, ct3), level))
+
+
 def relinearize(ctx: SchemeContext, ct: Ciphertext, rlk: RelinKeys,
                 keys_at_level: bool = False) -> Ciphertext:
     """3 -> 2 components by RNS-digit key switching of c2 onto s, at the
@@ -616,16 +634,19 @@ def relinearize(ctx: SchemeContext, ct: Ciphertext, rlk: RelinKeys,
                          f"{ct.num_components}")
     level = ct.level
     ct = to_coeff(ctx, ct)
-    delta = _keyswitch_delta(ctx, ct.data[:, 2],
-                             _keys_of(ctx, rlk.data, level, keys_at_level), level)
-    return ct.replace(data=mm.add_mod(ct.data[:, :2], delta, _p3(_tb(ctx, level))),
-                      noise_budget=_keyswitch_budget(ctx, _v_of(ctx, ct), level))
+    keys = _keys_of(ctx, rlk.data, level, keys_at_level)
+    return _relinearize_from_digits(ctx, ct, _digits(ctx, ct.data[:, 2], level), keys, level)
 
 
 def multiply(ctx: SchemeContext, a: Ciphertext, b: Ciphertext,
              rlk: RelinKeys, keys_at_level: bool = False) -> Ciphertext:
-    """Full homomorphic multiply: tensor product, scaling, relinearization."""
-    return relinearize(ctx, multiply_no_relin(ctx, a, b), rlk, keys_at_level)
+    """Full homomorphic multiply: tensor product, scaling, relinearization;
+    relinearize(multiply_no_relin(a, b)) bit for bit.  The conversion
+    kernel of the scaling stores c2's gadget digits as it stores c2, so no
+    digit step runs between the halves."""
+    ct3, d = _multiply_scaled(ctx, a, b, digits=True)
+    keys = _keys_of(ctx, rlk.data, ct3.level, keys_at_level)
+    return _relinearize_from_digits(ctx, ct3, d[:, 0], keys, ct3.level)
 
 
 def _check_pairs(cts: list, name: str) -> int:
@@ -648,8 +669,9 @@ def multiply_batch(ctx: SchemeContext, cts_a: list, cts_b: list,
     batched kernels: the ciphertexts are stacked once as [B, k-L, 4, n]
     (a || b per element); then tensor_product_batch (q side),
     bsk_branch_fused_batch (lift, Bsk tensor product and floor of all B
-    pairs), one fast_bconv_sk_fused over the 3B rows, and one
-    keyswitch_fused_batch for the B relinearizations.  Element i equals
+    pairs), one fast_bconv_sk_fused over the 3B rows, which also stores the
+    gadget digits of the B c2 rows, and one keyswitch_fused_batch for the B
+    relinearizations.  Element i equals
     multiply(cts_a[i], cts_b[i], rlk) bit for bit, noise budget included.
 
     The JAX package runs the Bsk branch here as vmapped jnp chains around
@@ -667,11 +689,11 @@ def multiply_batch(ctx: SchemeContext, cts_a: list, cts_b: list,
     tx_q = ntt_cuda.tensor_product_batch(ab[:, :2], ab[:, 2:], tq)
     floored = rns_cuda.bsk_branch_fused_batch(
         ab, tx_q, ctx.smq_levels[level], ctx.floor_levels[level], tbsk)  # [kb, 3, B, n]
-    out3 = rns_cuda.fast_bconv_sk_fused(floored.view(tbsk.k, 3 * batch, n),
-                                        ctx.sk_levels[level]).view(tq.k, 3, batch, n)
-    delta = _keyswitch_delta_batch(ctx, out3[:, 2],
-                                   _keys_of(ctx, rlk.data, level, keys_at_level),
-                                   level)                        # [k-L, 2, B, n]
+    out3, d = rns_cuda.fast_bconv_sk_fused(floored.view(tbsk.k, 3 * batch, n),
+                                           ctx.sk_levels[level], _digit_consts(ctx, level))
+    out3 = out3.view(tq.k, 3, batch, n)
+    delta = _delta_from_digits(ctx, d, _keys_of(ctx, rlk.data, level, keys_at_level),
+                               level)                            # [k-L, 2, B, n]
     data = mm.add_mod(out3[:, :2], delta, tq.p.view(-1, 1, 1, 1))
     # the same two-step bookkeeping as multiply_no_relin -> relinearize (the
     # budget <-> variance round trip clamps at the 0 floor)
@@ -773,7 +795,7 @@ def apply_galois_batch(ctx: SchemeContext, cts: list, g: int,
     h = pow(g, -1, 2 * ctx.n)
     permuted = galois_cuda.automorphism_fused(
         data.permute(1, 2, 0, 3), (h,) * len(cts), tb.p)         # [k-L, 2, B, n]
-    delta = _keyswitch_delta_batch(ctx, permuted[:, 1], keys, level)
+    delta = _keyswitch_delta(ctx, permuted[:, 1], keys, level)
     c0 = mm.add_mod(permuted[:, 0], delta[:, 0], _p3(tb))
     return _split_batch(torch.stack([c0, delta[:, 1]], dim=1),
                         [_galois_budget(ctx, ct) for ct in cts], level)

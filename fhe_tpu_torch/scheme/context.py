@@ -47,6 +47,7 @@ class SchemeContext:
     sk_levels: tuple[_rns.SKConsts, ...]           # Bsk_L -> q_L exact conversion
     # relinearization digits D_j = [c2_j * (q_L/q_j)^-1]_{q_j}
     inv_qhat_levels: tuple[torch.Tensor, ...]      # [k-L]
+    inv_qhat_shoup_levels: tuple[torch.Tensor, ...]  # [k-L] Shoup companions
     # grouped gadget weights ks_group_conv_tables(q_L primes, ks_omega)
     ks_conv_levels: tuple[torch.Tensor, ...]       # [k-L, kd_L, ks_omega]
     dec_levels: tuple[_rns.DecryptConsts, ...]     # gamma-trick decryption
@@ -226,15 +227,15 @@ def make_context(params: SchemeParams | None = None, device="cuda",
     tq, tbsk = _ntt.build_mul_tables(
         ntt_q, _ntt.build_tables(params.n, params.bsk_primes, dev), params.t)
     lv = {f: [] for f in ("mul_levels", "bsk_counts", "smq_levels", "floor_levels",
-                          "sk_levels", "inv_qhat_levels", "ks_conv_levels",
-                          "dec_levels", "delta_levels", "mod_switch")}
+                          "sk_levels", "inv_qhat_levels", "inv_qhat_shoup_levels",
+                          "ks_conv_levels", "dec_levels", "delta_levels", "mod_switch")}
     for level in range(params.k):
         chain = params.q_primes[:params.k - level]
         n_aux = level_aux_count(params, level)
         aux = params.aux_primes[len(params.aux_primes) - n_aux:]
         bsk = aux + (params.m_sk,)
-        delta, delta_sh, inv_qhat = (mm.u32_tensor(v, dev)
-                                     for v in _level_host(chain, params.t)[:3])
+        delta, delta_sh, inv_qhat, inv_qhat_sh = (mm.u32_tensor(v, dev)
+                                                  for v in _level_host(chain, params.t))
         lv["mul_levels"].append((_ntt.slice_tables(tq, len(chain)),
                                  _ntt.slice_tables_last(tbsk, len(bsk))))
         lv["bsk_counts"].append(len(bsk))
@@ -242,6 +243,7 @@ def make_context(params: SchemeParams | None = None, device="cuda",
         lv["floor_levels"].append(_rns.make_fast_floor(chain, bsk, dev))
         lv["sk_levels"].append(_rns.make_sk(aux, params.m_sk, chain, dev))
         lv["inv_qhat_levels"].append(inv_qhat)
+        lv["inv_qhat_shoup_levels"].append(inv_qhat_sh)
         lv["ks_conv_levels"].append(mm.u32_tensor(ks_group_conv_tables(chain, omega), dev))
         lv["dec_levels"].append(_rns.make_decrypt(chain, params.t, params.gamma, dev))
         lv["delta_levels"].append((delta, delta_sh))

@@ -48,7 +48,19 @@ the headline configuration (n = 8192, log_q = 90, k = 3, kb = 5):
     g_n16384: log_q = 90, k = 3, seed 4; multiply_relin_ms_n16384 and, at
     ks_omega = 2, multiply_relin_ms_n16384_omega2), null for a tree whose
     multiply raises there;
-  - a torch.profiler trace of 20 multiplies at n = 256 (level 0), and of
+  - fast_bconv_sk_fused (B6) at the four shapes its paths give it ([5,3,n]
+    the headline multiply, [5,24,n] its multiply_batch at B = 8, [10,3,n]
+    the k8 multiply, [10,24,n] its batch) without the digits lane (both
+    trees have it) and with it (null where a tree lacks it), and
+    fast_floor_fused (B10) alone at [3,3,n] + [5,3,n] and at the n = 256
+    multiply's level-1 shapes, and with the conversion to q and the digits
+    there (null where a tree lacks it): device ms and each kernel's own
+    duration from a torch.profiler trace of 20 launches;
+  - device_ms and wall_ms of the multiply and device_ms of multiply_batch
+    at B = 8 at the JAX bench's k8 (log_q = 218, k = 8, ks_omega = 1) and
+    k8_omega (ks_omega = 2) configurations;
+  - a torch.profiler trace of 20 multiplies at n = 256 (level 0) and at the
+    headline configuration, and of
     20 multiply_batch calls at B = 8 at the headline configuration, queued
     behind a busy card so that the gaps between kernels are the device's
     own, not the host's: the kernels per call, each kernel's median
@@ -222,13 +234,15 @@ def small_multiply() -> dict:
             "trace": trace(lambda: fhe.multiply(a, b, rlk))}
 
 
-def multiply_k8_omega() -> dict:
-    """device_ms and wall_ms of the multiply at the JAX bench's k8_omega
-    (n = 8192, log_q = 218, k = 8, ks_omega = 2: the prereduced key switch)."""
+def multiply_k8(omega: int) -> dict:
+    """device_ms and wall_ms of the multiply, and device_ms of multiply_batch
+    at B = 8, at the JAX bench's k8 (omega 1) or k8_omega (omega 2)
+    configuration: n = 8192, log_q = 218, k = 8 (omega 2: the prereduced
+    key switch)."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         prm = make_scheme_params(SecurityParams(poly_degree=N, log_q=218, hamming_weight=H,
-                                                ks_omega=2))
+                                                ks_omega=omega))
     fhe = FHE(prm, seed=9, device="cuda")
     pk, sk = fhe.keygen()
     rlk = fhe.relinkey_gen(sk)
@@ -236,9 +250,53 @@ def multiply_k8_omega() -> dict:
     b = fhe.encrypt(fhe.encode([3, 6]), pk)
     got = [int(v) for v in fhe.decode(fhe.decrypt(fhe.multiply(a, b, rlk), sk))[:2]]
     if got != [15, 60]:
-        raise RuntimeError(f"k8_omega multiply decoded {got}")
+        raise RuntimeError(f"k8 (omega {omega}) multiply decoded {got}")
     fn = lambda: fhe.multiply(a, b, rlk)
-    return {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
+    cts_a = fhe.encrypt_batch([fhe.encode([5 + i, 10]) for i in range(BATCH)], pk)
+    cts_b = fhe.encrypt_batch([fhe.encode([3, 6 + i]) for i in range(BATCH)], pk)
+    return {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn),
+            "multiply_batch_B8_device_ms": device_ms(
+                lambda: fhe.multiply_batch(cts_a, cts_b, rlk))}
+
+
+def digit_consts(ctx, level: int) -> tuple:
+    """The digits lane's constants (an AttributeError in a tree without it)."""
+    return ctx.inv_qhat_levels[level], ctx.inv_qhat_shoup_levels[level]
+
+
+def conv_kernels(gen: torch.Generator) -> dict:
+    """B6 and B10 on random residues: device ms and the kernel's own duration
+    (torch.profiler) per shape, null where this tree lacks the lane."""
+    calls = {}
+    for log_q, rows in ((LOG_Q, 3), (LOG_Q, 3 * BATCH), (218, 3), (218, 3 * BATCH)):
+        ctx = quiet_context(N, log_q, H)
+        kb = ctx.mul_tables[1].k
+        xb = residues(gen, ctx.params.bsk_primes, rows)
+        calls[f"fast_bconv_sk_{kb}x{rows}"] = lambda x=xb, c=ctx: rns_cuda.fast_bconv_sk_fused(
+            x, c.sk_c)
+        calls[f"fast_bconv_sk_digits_{kb}x{rows}"] = (
+            lambda x=xb, c=ctx: rns_cuda.fast_bconv_sk_fused(x, c.sk_c, digit_consts(c, 0)))
+    ctx = quiet_context(N, LOG_Q, H)
+    tx_q = residues(gen, ctx.ntt_q.primes, 3)
+    tx_b = residues(gen, ctx.params.bsk_primes, 3)
+    calls["fast_floor_3x3_5x3"] = lambda: rns_cuda.fast_floor_fused(tx_q, tx_b, ctx.floor_c)
+    ctx_s = quiet_context(256, 150, 32)
+    qs, bsk = ctx_s.ntt_q.primes[:ctx_s.k - 1], ctx_s.mul_levels[1][1].primes
+    txq_s, txb_s = residues(gen, qs, 3, 256), residues(gen, bsk, 3, 256)
+    fc, sk = ctx_s.floor_levels[1], ctx_s.sk_levels[1]
+    calls["fast_floor_n256_l1"] = lambda: rns_cuda.fast_floor_fused(txq_s, txb_s, fc)
+    calls["fast_floor_sk_digits_n256_l1"] = lambda: rns_cuda.fast_floor_fused(
+        txq_s, txb_s, fc, sk, digit_consts(ctx_s, 1))
+    out = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+        except (AttributeError, TypeError) as err:      # a tree without the lane
+            print(f"torch_ab: {name}: {err}", file=sys.stderr)
+            out[name] = None
+            continue
+        out[name] = {"device_ms": device_ms(fn), "profiler_us": trace(fn)["kernels"][0]["us"]}
+    return out
 
 
 def transform_n32768(gen: torch.Generator, name: str) -> float | None:
@@ -329,6 +387,7 @@ def main() -> int:
         for name in ("encrypt_batch_B8", "decrypt_batch_B8", "multiply_batch_B8"):
             out[what][name + "_per_ct"] = out[what][name] / BATCH
     out["multiply_batch_B8_trace"] = trace(ops["multiply_batch_B8"])
+    out["multiply_trace"] = trace(ops["multiply"])
     ctx = fhe.ctx
     gen = torch.Generator(device="cuda").manual_seed(7)
     qs, (tq, tbsk) = ctx.ntt_q.primes, ctx.mul_tables
@@ -407,7 +466,9 @@ def main() -> int:
     out["kernel_device_ms"]["ntt_inverse_n32768"] = transform_n32768(gen, "ntt_inverse")
     out["device_ms"]["key_down_switch_k8_level4"] = key_down_switch_k8()
     out["small_device_ms"] = small_multiply()
-    out["multiply_k8_omega"] = multiply_k8_omega()
+    out["multiply_k8"] = multiply_k8(1)
+    out["multiply_k8_omega"] = multiply_k8(2)
+    out["conv_kernels"] = conv_kernels(gen)
     out["multiply_relin_ms_n16384"] = multiply_n16384(1)
     out["multiply_relin_ms_n16384_omega2"] = multiply_n16384(2)
     print(json.dumps(out))

@@ -728,3 +728,80 @@ def test_ks_inner_unaligned_rows_match_plain(ctx, dev, grouped):
     name = "ks_inner_grouped" if grouped else "ks_inner_batch"
     assert torch.equal(getattr(ntt_cuda, name)(dg, keys, ctx.ntt_q),
                        getattr(tntt, name)(dg, keys, ctx.ntt_q))
+
+
+# ---------------------------------------------------------------------------
+# the base-conversion kernel: fast_bconv_sk_fused (with the digits lane) and
+# fast_floor_fused (the floor lane, and the floor with the conversion to q)
+# ---------------------------------------------------------------------------
+
+
+def _conv_equal(got, want) -> bool:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# (log_q, rows): [5,3,n] the multiply, [5,24,n] multiply_batch at B = 8,
+# [10,3,n] the k8 multiply, [10,24,n] its batch; odd B = 3 and 9
+@pytest.mark.parametrize("log_q,rows", [(90, 3), (90, 24), (218, 3), (218, 24), (90, 9),
+                                        (218, 27)])
+def test_fast_bconv_sk_digits_kernel_matches_plain(dev, log_q, rows):
+    ctx = _cached_ctx(N, log_q, 65537, dev)
+    xb = _residues(ctx.params.bsk_primes, rows, dev)
+    digits = (ctx.inv_qhat, ctx.inv_qhat_shoup_levels[0])
+    want = trns.fast_bconv_sk_digits(xb, ctx.sk_c, ctx.inv_qhat)
+    assert _conv_equal(rns_cuda.fast_bconv_sk_fused(xb, ctx.sk_c, digits), want)
+    assert torch.equal(rns_cuda.fast_bconv_sk_fused(xb, ctx.sk_c), want[0])
+
+
+@pytest.mark.parametrize("rows", [3, 24])
+def test_fast_bconv_sk_unaligned_rows_match_plain(ctx, dev, rows):
+    """Rows that start off an 8-byte boundary, read a word at a time, at a
+    shape that takes one word per thread and at one that takes two."""
+    xb = _unaligned(_residues(ctx.params.bsk_primes, rows, dev))
+    digits = (ctx.inv_qhat, ctx.inv_qhat_shoup_levels[0])
+    assert _conv_equal(rns_cuda.fast_bconv_sk_fused(xb, ctx.sk_c, digits),
+                       trns.fast_bconv_sk_digits(xb, ctx.sk_c, ctx.inv_qhat))
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+@pytest.mark.parametrize("unaligned", [False, True])
+def test_floor_sk_kernel_matches_plain(dev, level, unaligned):
+    """The n = 256, k = 5 multiply's floor and conversion at the level's
+    constants, with and without digits, and the floor lane alone."""
+    ctx = _cached_ctx(256, 150, 65537, dev)
+    qs, bsk = ctx.ntt_q.primes[:ctx.k - level], ctx.mul_levels[level][1].primes
+    tx_q, tx_b = _residues(qs, 3, dev, 256), _residues(bsk, 3, dev, 256)
+    if unaligned:
+        tx_q, tx_b = _unaligned(tx_q), _unaligned(tx_b)
+    fc, sk = ctx.floor_levels[level], ctx.sk_levels[level]
+    w = ctx.inv_qhat_levels[level]
+    digits = (w, ctx.inv_qhat_shoup_levels[level])
+    assert _conv_equal(rns_cuda.fast_floor_fused(tx_q, tx_b, fc, sk, digits),
+                       trns.fast_floor_sk(tx_q, tx_b, fc, sk, w))
+    assert torch.equal(rns_cuda.fast_floor_fused(tx_q, tx_b, fc, sk),
+                       trns.fast_floor_sk(tx_q, tx_b, fc, sk))
+    assert torch.equal(rns_cuda.fast_floor_fused(tx_q, tx_b, fc), trns.fast_floor(tx_q, tx_b, fc))
+
+
+def test_small_multiply_floors_and_converts_in_one_launch(dev):
+    """The n = 256 multiply launches fast_floor_fused once and no
+    fast_bconv_sk_fused of its own, and equals the CPU plain path."""
+    fhe = FHE(poly_degree=256, log_q=150, hamming_weight=32, seed=12, device=dev)
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    a = fhe.encrypt(fhe.encode([5, 10, 15, 20]), pk)
+    b = fhe.encrypt(fhe.encode([3, 6, 9, 12]), pk)
+    fhe.multiply(a, b, rlk)
+    torch.cuda.synchronize()
+    floor0, sk0 = rns_cuda.fast_floor_fused.launches, rns_cuda.fast_bconv_sk_fused.launches
+    prod = fhe.multiply(a, b, rlk)
+    torch.cuda.synchronize()
+    assert rns_cuda.fast_floor_fused.launches - floor0 == 1
+    assert rns_cuda.fast_bconv_sk_fused.launches == sk0
+    assert list(fhe.decode(fhe.decrypt(prod, sk))[:4]) == [15, 60, 135, 240]
+    cpu = make_context(fhe.params, device="cpu")
+    to_cpu = lambda ct: ct.replace(data=ct.data.cpu())
+    assert torch.equal(prod.data.cpu(), bfv.multiply(cpu, to_cpu(a), to_cpu(b),
+                                                     RelinKeys(data=rlk.data.cpu())).data)

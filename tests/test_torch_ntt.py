@@ -2,15 +2,18 @@
 kernels, run in interpreter mode: fhe_tpu.ops.ntt_pallas.ntt_forward,
 ntt_inverse and mul_by_ntt_operand.  On the CPU the wrappers take the plain
 PyTorch versions of ops/ntt.py; tests/test_torch_cuda.py holds the CUDA
-kernels against those same plain versions on the card.  Integers,
-tolerance 0."""
+kernels against those same plain versions on the card.  At n = 16384 and
+32768, the sizes only the card runs otherwise, the plain transforms equal
+fhe_tpu.ops.ntt's jnp transforms.  Integers, tolerance 0."""
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
 from fhe_tpu import primes as jprimes
+from fhe_tpu.ops import ntt as jntt
 from fhe_tpu.ops import ntt_pallas as npal
 
 from fhe_tpu_torch.ops import ntt as tntt
@@ -54,6 +57,22 @@ def test_ntt_inverse_matches_pallas(n, k, batch):
     want = np.asarray(npal.ntt_inverse(jnp.asarray(a), pt, interpret=True))
     got = ntt_cuda.ntt_inverse(_t(a), tb).numpy().astype(np.uint32)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [16384, 32768])
+def test_plain_ntt_matches_jax_at_large_n(n):
+    """The multiply's n = 16384 and the JAX bench's g_n32768 input (one
+    prime row, numpy seed 5, bench.py:932-945): the plain forward and
+    inverse transforms, which the card's B1 and B2 equal there, against
+    fhe_tpu.ops.ntt.ntt_forward / ntt_inverse."""
+    p = jprimes.find_ntt_primes(n, 3)[0]
+    x = np.random.default_rng(5).integers(0, p, (1, 1, n), dtype=np.uint32)
+    jtb, tb = jntt.build_tables(n, (p,)), tntt.build_tables(n, (p,), "cpu")
+    fwd = np.asarray(jax.jit(jntt.ntt_forward)(jnp.asarray(x), jtb))
+    np.testing.assert_array_equal(tntt.ntt_forward(_t(x), tb).numpy().astype(np.uint32), fwd)
+    inv = np.asarray(jax.jit(jntt.ntt_inverse)(jnp.asarray(x), jtb))
+    np.testing.assert_array_equal(tntt.ntt_inverse(_t(x), tb).numpy().astype(np.uint32), inv)
+    np.testing.assert_array_equal(tntt.ntt_inverse(_t(fwd), tb).numpy().astype(np.uint32), x)
 
 
 @pytest.mark.parametrize("n,t", [(256, 65537), (1024, 786433)])
