@@ -43,12 +43,14 @@ Phases, each printing its own lines:
      encrypt_batch and decrypt_batch of two batches, multiply_batch (each
      element equal to the single multiply), rotate_rows by 1,
      rotate_columns and rotate_rows_batch by 1; every result decodes to its
-     known slots.  Counts are zeroed before and read after; the batch and
-     Galois kernels must have launched.  The _from_noise entry points and
-     every batch and rotation op must equal the CPU plain path bit for bit.
-     Then end-to-end times of each op and per ciphertext, and
-     multiply_batch at B = 24 (each product equal to the B = 8 one of its
-     pair);
+     known slots.  Counts are zeroed before and read after; the batch
+     kernels and keyswitch_fused's Galois lane must have launched.  The
+     _from_noise entry points and every batch and rotation op must equal
+     the CPU plain path bit for bit.  The three rotations alone launch the
+     Galois lane only (no automorphism kernel, no classic key switch), with
+     their profiler kernels per call.  Then end-to-end times of each op and
+     per ciphertext, and multiply_batch at B = 24 (each product equal to
+     the B = 8 one of its pair);
   7. hoisted: the hoisted rotations through the facade at the same width
      (the JAX bench's rotations group): keygen, galoiskey_gen for 3^s,
      s = 1..8, rotate_rows_hoisted of the 8 steps (each decodes to its
@@ -56,14 +58,22 @@ Phases, each printing its own lines:
      rotate_rows_hoisted_batch of 4 ciphertexts (element [c][e] equal to
      rotate_rows_hoisted(cts[c])[e]), and sum_slots with the keys of
      sum_slots_elements() (every slot decodes to 50).  Card == CPU plain
-     path for hoisted_galois_keys, both hoisted calls and sum_slots.  Then
-     wall and device times, per rotation beside rotate_rows by 1;
+     path for hoisted_galois_keys, both hoisted calls and sum_slots.  The
+     hoisted calls launch the Galois lanes of ks_inner_batch and
+     ks_inner_grouped once each, and sum_slots ks_inner_batch's Inner lane
+     and automorphism_fused_sum six times each (one per radix-4 stage) and
+     keyswitch_fused's Galois lane once, with no other automorphism kernel,
+     with their profiler kernels per call.  Then wall and device times, per
+     rotation beside rotate_rows by 1;
   8. omega: grouped gadget key switching at the JAX bench's k8_omega
      configuration, n = 8192, log_q = 218 (k = 8, kb = 10), ks_omega = 2
      (kd = 4): multiply decodes [15,60], multiply_batch at B = 8 equals the
-     single multiply, rotate_rows by 1 decodes 10, and the hoisted calls as
-     in phase 7; card == CPU plain path for relinkey_gen_from_noise,
-     multiply, rotate_rows and rotate_rows_hoisted.  Then times;
+     single multiply, rotate_rows by 1 decodes 10 and rotate_rows_batch by
+     1 decodes (element i == rotate_rows; at ks_omega = 2 they launch
+     automorphism_single and automorphism_fused before the prereduced key
+     switch), and the hoisted calls as in phase 7; card == CPU plain path
+     for relinkey_gen_from_noise, multiply, rotate_rows and
+     rotate_rows_hoisted.  Then times;
   9. leveled: every op below level 0 at the JAX bench's k8 configuration,
      n = 8192, log_q = 218 (k = 8, kb = 10), h = 64, ks_omega = 1: multiply
      at level 0, mod_switch_to_next, multiply by the second operand at
@@ -114,7 +124,12 @@ ntt_inverse at n = 32, 256, 16384, level views, keygen's [k, 3, n], the
 key down-switch's [8, 12, n] rows, mod t = 786433 at B = 1 and 16 and rows
 off a 16-byte boundary; and ks_inner_batch / ks_inner_grouped at kd = 1,
 3, 4 and 8, shared and per-element digit stacks, C x E = 4 x 8, level
-views, n = 256, 1024 and 16384 and rows off a 16-byte boundary.
+views, n = 256, 1024 and 16384 and rows off a 16-byte boundary; the Galois
+lanes of keyswitch_fused (B = 1 and 8, g = 3 and 2n - 1, level views,
+n = 256 and 16384) and of ks_inner_batch / ks_inner_grouped (E = 8, C x E =
+4 x 8), each also at level views, n = 256, 1024, 16384 and 32768 and rows
+off a 16-byte boundary, with a run of zeros in c0 and the digits; a
+sum_slots stage's B17 and B15 (E = 3, and at k8_omega's k = 8, kd = 4).
 The line before the last is {"kernels": [...]}, each kernel with its launches
 on its own path (phase 4 to 11); the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; without
@@ -172,7 +187,7 @@ def helper_ops() -> dict[str, int]:
     ops = {m[1]: int(m[2]) for m in re.finditer(r"^//\s+OPS (\w+) (\d+)$", text, re.M)}
     want = {"add_mod", "sub_mod", "mul_shoup", "mul_shoup_lazy", "reduce_shoup",
             "mul_barrett", "reduce_barrett", "neg_mod", "reduce_wide", "mac_wide", "select",
-            "lane16", "mul16", "galois_index", "ntt_butterfly"}
+            "lane16", "mul16", "galois_index", "galois_ntt_index", "ntt_butterfly"}
     if set(ops) != want:
         raise RuntimeError(f"modmath.cuh OPS block lists {sorted(ops)}, expected "
                            f"{sorted(want)}")
@@ -228,23 +243,41 @@ KERNELS = {
                                    source="fhe_tpu_torch/csrc/rns.cu",
                                    replaces="fhe_tpu/ops/rns_pallas.py:257",
                                    path="serving"),
-    "automorphism_fused": dict(fn=galois_cuda.automorphism_fused,
-                               source="fhe_tpu_torch/csrc/galois.cu",
-                               replaces="fhe_tpu/ops/galois_pallas.py:162", path="serving"),
-    "automorphism_single": dict(fn=galois_cuda.automorphism_single,
-                                source="fhe_tpu_torch/csrc/galois.cu",
-                                replaces="fhe_tpu/ops/galois_pallas.py:272",
-                                path="serving"),
+    # the Galois lanes of B7 and B12 (a rotation at ks_omega = 1 in one launch:
+    # B16, and B14 without c0, folded into the key switch)
+    "keyswitch_fused_galois": dict(fn=ntt_cuda.keyswitch_fused, counter="galois_launches",
+                                   source="fhe_tpu_torch/csrc/ntt.cu",
+                                   replaces="fhe_tpu/ops/galois_pallas.py:272",
+                                   path="serving"),
+    "keyswitch_fused_batch_galois": dict(fn=ntt_cuda.keyswitch_fused_batch,
+                                         counter="galois_launches",
+                                         source="fhe_tpu_torch/csrc/ntt.cu",
+                                         replaces="fhe_tpu/ops/galois_pallas.py:162",
+                                         path="serving"),
+    # B17's Inner lane and B15: each sum_slots stage; B17 and B18 with B14's
+    # shared-c0 and per-element-c0 lanes folded in (the hoisted rotations'
+    # Galois lanes)
     "ks_inner_batch": dict(fn=ntt_cuda.ks_inner_batch, source="fhe_tpu_torch/csrc/ntt.cu",
                            replaces="fhe_tpu/ops/ntt_pallas.py:1161", path="hoisted"),
-    # B17's kernel with grouped addressing
-    "ks_inner_grouped": dict(fn=ntt_cuda.ks_inner_grouped,
-                             source="fhe_tpu_torch/csrc/ntt.cu",
-                             replaces="fhe_tpu/ops/ntt_pallas.py:1100", path="hoisted"),
     "automorphism_fused_sum": dict(fn=galois_cuda.automorphism_fused_sum,
                                    source="fhe_tpu_torch/csrc/galois.cu",
                                    replaces="fhe_tpu/ops/galois_pallas.py:228",
                                    path="hoisted"),
+    "ks_inner_batch_galois": dict(fn=ntt_cuda.ks_inner_batch, counter="galois_launches",
+                                  source="fhe_tpu_torch/csrc/ntt.cu",
+                                  replaces="fhe_tpu/ops/galois_pallas.py:162", path="hoisted"),
+    "ks_inner_grouped_galois": dict(fn=ntt_cuda.ks_inner_grouped, counter="galois_launches",
+                                    source="fhe_tpu_torch/csrc/ntt.cu",
+                                    replaces="fhe_tpu/ops/ntt_pallas.py:1100",
+                                    path="hoisted"),
+    # B14 and B16 as launches of their own: the rotations at ks_omega = 2 (and
+    # the Galois key generator on every path)
+    "automorphism_fused": dict(fn=galois_cuda.automorphism_fused,
+                               source="fhe_tpu_torch/csrc/galois.cu",
+                               replaces="fhe_tpu/ops/galois_pallas.py:162", path="omega"),
+    "automorphism_single": dict(fn=galois_cuda.automorphism_single,
+                                source="fhe_tpu_torch/csrc/galois.cu",
+                                replaces="fhe_tpu/ops/galois_pallas.py:272", path="omega"),
     # the prereduced lanes of B7 and B12 (grouped gadget digits, ks_omega > 1),
     # counted apart from the classic lanes
     "keyswitch_fused_prereduced": dict(fn=ntt_cuda.keyswitch_fused,
@@ -270,8 +303,9 @@ KERNELS = {
 LEVELED_KERNELS = ("ntt_forward", "ntt_inverse", "mul_by_ntt_operand", "decrypt_fused",
                    "tensor_product", "bsk_branch_fused", "fast_bconv_sk_fused",
                    "keyswitch_fused", "tensor_product_batch", "keyswitch_fused_batch",
-                   "bsk_branch_fused_batch", "automorphism_fused", "automorphism_single",
-                   "ks_inner_batch", "ks_inner_grouped", "automorphism_fused_sum")
+                   "bsk_branch_fused_batch", "keyswitch_fused_galois", "automorphism_single",
+                   "ks_inner_batch", "automorphism_fused_sum", "ks_inner_batch_galois",
+                   "ks_inner_grouped_galois")
 SMALL_KERNELS = ("ntt_forward", "ntt_inverse", "mul_by_ntt_operand", "decrypt_fused",
                  "tensor_product", "fast_bconv_sk_fused", "keyswitch_fused",
                  "tensor_product_batch", "keyswitch_fused_batch", "bsk_branch_fused_batch")
@@ -492,6 +526,35 @@ def automorphism_work(k: int, c: int, hs: tuple[int, ...],
     return 4 * (2 * k * c * batch * N + c0_rows * k * N + batch), ops
 
 
+def coeff_gather_ops(k: int, hs: tuple[int, ...], n: int = N) -> float:
+    """Gathering phi(c0) into k rows for each multiplier of hs and adding it:
+    per residue its source index and the add, and the negation where these
+    h negate (h*j mod 2n >= n, counted from hs)."""
+    o = OPS
+    j = torch.arange(n, dtype=torch.int64)
+    negated = sum(int(((h * j) % (2 * n) >= n).sum()) for h in hs)
+    return k * (len(hs) * n * (o["galois_index"] + o["add_mod"]) + negated * o["neg_mod"])
+
+
+def ks_inner_galois_work(k: int, kd: int, stacks: int, key_sets: int, outputs: tuple,
+                         c0_rows: int, n: int = N) -> tuple[float, float]:
+    """The Galois lane of ks_inner: dg [k, kd, stacks, n], pre-permuted keys
+    [k, kd, key_sets, 2, n] and c0_rows [k, n] rows in, [k, 2, B, n] out
+    (``outputs``: the Galois element of each of the B), inverse tables.  Per
+    element, prime and output row: kd products and sums, the in-block
+    source and the add of the permuted sum per position, and a 2-row
+    inverse sweep per element and prime; phi(c0) gathered into row 0."""
+    o = OPS
+    batch = len(outputs)
+    hs = tuple(pow(g, -1, 2 * n) for g in outputs)
+    per_row = n * (kd * (o["mul_barrett"] + o["add_mod"]) + o["galois_ntt_index"]
+                   + o["add_mod"])
+    ops = batch * k * (2 * per_row + sweeps_ops(0, 2, n)) + coeff_gather_ops(k, hs, n)
+    nbytes = 4 * (k * kd * stacks * n + 2 * k * kd * key_sets * n + c0_rows * k * n
+                  + 2 * k * batch * n + 2 * k * n)
+    return nbytes, ops
+
+
 def automorphism_sum_work(k: int, c: int, hs: tuple[int, ...]) -> tuple[float, float]:
     """x [k, c, B, N], c0 [k, N] and base [k, c, N] in, [k, c, N] out, the B
     multipliers.  Per source residue its index, the c0 add on component 0,
@@ -503,6 +566,22 @@ def automorphism_sum_work(k: int, c: int, hs: tuple[int, ...]) -> tuple[float, f
     ops = (k * c * batch * N * (o["galois_index"] + o["add_mod"])
            + k * c * negated * o["neg_mod"] + k * batch * N * o["add_mod"])
     return 4 * (k * c * batch * N + k * N + 2 * k * c * N + batch), ops
+
+
+def keyswitch_galois_work(k: int, g: int, batch: int = 1,
+                          n: int = N) -> tuple[float, float]:
+    """keyswitch_fused's Galois lane (kd = k): keyswitch_work's bytes and
+    operations, c0 [k, B, n] in, and per element and prime the source index
+    of every digit word it gathers, with the negation mod q_j where g
+    negates, and phi(c0) gathered into row 0."""
+    o = OPS
+    nbytes, ops = keyswitch_work(k, k, batch, n=n)
+    h = pow(g, -1, 2 * n)
+    j = torch.arange(n, dtype=torch.int64)
+    negated = int(((h * j) % (2 * n) >= n).sum())
+    digit_ops = k * (n * o["galois_index"] + negated * o["neg_mod"])
+    ops += batch * k * digit_ops + batch * coeff_gather_ops(k, (h,), n)
+    return nbytes + 4 * k * batch * n, ops
 
 
 def quiet_params(n: int, log_q: int, **kw):
@@ -800,6 +879,26 @@ def phase_kernels(gen: torch.Generator) -> dict:
                   lambda: ntt_cuda.mul_by_ntt_operand_batch(u_b, w, tb),
                   lambda: plain_ntt.mul_by_ntt_operand_batch(u_b, w, tb),
                   mul_work(k, 2, BATCH)))
+    # the rotations at ks_omega = 1 (phase 6): keyswitch_fused's Galois lane on
+    # the digits of an un-permuted c1, c0 a view of a [B, k, 2, N] stack
+    ct_g = residues(gen, qs, 2 * BATCH).view(k, BATCH, 2, N).transpose(0, 1).contiguous()
+    c0_g = ct_g.permute(1, 2, 0, 3)[:, 0]                              # [k, B, N]
+    for g in (3, 2 * N - 1):
+        cases.append(("keyswitch_fused_galois",
+                      f"d [{k},{N}], keys [{k},{k},2,{N}], c0 view of [1,{k},2,{N}], g={g}",
+                      lambda g=g: ntt_cuda.keyswitch_fused(d, keys_t, ctx.ntt_q, g=g,
+                                                           c0=c0_g[:, 0]),
+                      lambda g=g: plain_ntt.keyswitch_fused(d, keys_t, ctx.ntt_q, g=g,
+                                                            c0=c0_g[:, 0]),
+                      keyswitch_galois_work(k, g)))
+    cases.append(("keyswitch_fused_batch_galois",
+                  f"d [{k},{BATCH},{N}], keys [{k},{k},2,{N}], c0 views of "
+                  f"[{BATCH},{k},2,{N}], g=3",
+                  lambda: ntt_cuda.keyswitch_fused_batch(d_b, keys_t, ctx.ntt_q, g=3, c0=c0_g),
+                  lambda: plain_ntt.keyswitch_fused_batch(d_b, keys_t, ctx.ntt_q, g=3, c0=c0_g),
+                  keyswitch_galois_work(k, 3, BATCH)))
+    # B14 and B16 as launches of their own (the rotations at ks_omega = 2 and
+    # the Galois key generator), on views of a [B, k, 2, N] stack
     x_g = residues(gen, qs, 2 * BATCH).view(k, BATCH, 2, N).transpose(0, 1)
     x_g = x_g.contiguous().permute(1, 2, 0, 3)                       # [k, 2, B, N]
     hs = (pow(3, -1, 2 * N),) * BATCH           # rotate_rows_batch by 1
@@ -816,38 +915,79 @@ def phase_kernels(gen: torch.Generator) -> dict:
                   lambda: galois_cuda.automorphism_single(x_s, 3, tb.p),
                   lambda: plain_galois.automorphism_single(x_s, 3, tb.p),
                   automorphism_work(k, 2, (pow(3, -1, 2 * N),), 0)))
-    # the hoisted rotations (phase 7): a shared digit stack against E = 8
-    # pre-permuted key sets, per-element stacks at B = 8, C = 4 ciphertexts
-    # by E = 8 elements, and a sum_slots stage's epilogue (steps 1, 2, 3)
+    # the hoisted rotations (phase 7): the Galois lanes of ks_inner_batch (a
+    # shared digit stack and c0 against E = 8 pre-permuted key sets) and of
+    # ks_inner_grouped (C = 4 ciphertexts by E = 8 elements), their Inner
+    # lanes (B17, B18) at the same shapes, then a sum_slots stage
     kd = k
     keys_e = residues(gen, qs, kd * BATCH * 2).view(k, kd, BATCH, 2, N)
+    dg_1 = residues(gen, qs, kd).view(k, kd, 1, N)
+    c0_1 = residues(gen, qs, 1)[:, 0]
+    cases.append(("ks_inner_batch_galois",
+                  f"shared dg [{k},{kd},1,{N}] and c0, keys [{k},{kd},{BATCH},2,{N}], "
+                  "g=3^1..3^8",
+                  lambda: ntt_cuda.ks_inner_batch(dg_1, keys_e, tb, HOIST, c0_1),
+                  lambda: plain_ntt.ks_inner_batch(dg_1, keys_e, tb, HOIST, c0_1),
+                  ks_inner_galois_work(k, kd, 1, BATCH, HOIST, 1)))
+    dg_c = residues(gen, qs, kd * C_HOIST).view(k, kd, C_HOIST, N)
+    c0_c = residues(gen, qs, C_HOIST)
+    cases.append(("ks_inner_grouped_galois",
+                  f"dg [{k},{kd},{C_HOIST},{N}], c0 [{k},{C_HOIST},{N}], keys "
+                  f"[{k},{kd},{BATCH},2,{N}]",
+                  lambda: ntt_cuda.ks_inner_grouped(dg_c, keys_e, tb, HOIST, c0_c),
+                  lambda: plain_ntt.ks_inner_grouped(dg_c, keys_e, tb, HOIST, c0_c),
+                  ks_inner_galois_work(k, kd, C_HOIST, BATCH, HOIST * C_HOIST, C_HOIST)))
     for label, stacks in (("shared", 1), ("per-element", BATCH)):
         dg = residues(gen, qs, kd * stacks).view(k, kd, stacks, N)
         cases.append(("ks_inner_batch",
-                      f"{label} dg [{k},{kd},{stacks},{N}], keys [{k},{kd},{BATCH},2,{N}]",
+                      f"Inner lane, {label} dg [{k},{kd},{stacks},{N}], keys "
+                      f"[{k},{kd},{BATCH},2,{N}]",
                       lambda dg=dg: ntt_cuda.ks_inner_batch(dg, keys_e, tb),
                       lambda dg=dg: plain_ntt.ks_inner_batch(dg, keys_e, tb),
                       ks_inner_work(k, kd, stacks, BATCH, BATCH)))
-    dg_c = residues(gen, qs, kd * C_HOIST).view(k, kd, C_HOIST, N)
     cases.append(("ks_inner_grouped",
-                  f"dg [{k},{kd},{C_HOIST},{N}], keys [{k},{kd},{BATCH},2,{N}]",
+                  f"Inner lane, dg [{k},{kd},{C_HOIST},{N}], keys [{k},{kd},{BATCH},2,{N}]",
                   lambda: ntt_cuda.ks_inner_grouped(dg_c, keys_e, tb),
                   lambda: plain_ntt.ks_inner_grouped(dg_c, keys_e, tb),
                   ks_inner_work(k, kd, C_HOIST, BATCH, C_HOIST * BATCH)))
-    hs3 = tuple(pow(3, -s, 2 * N) for s in (1, 2, 3))
+    # a sum_slots stage (steps 1, 2, 3): B17's Inner lane, then B15; and at
+    # k8_omega's k = 8, kd = 4; a run of x and c0 is zero
+    hoist3 = HOIST[:3]
+    hs3 = tuple(pow(g, -1, 2 * N) for g in hoist3)
     x_sum = residues(gen, qs, 2 * 3).view(k, 2, 3, N)
     c0_sum, base_sum = residues(gen, qs, 1)[:, 0], residues(gen, qs, 2)
+    x_sum[..., :64] = 0
+    c0_sum[:, :64] = 0
     cases.append(("automorphism_fused_sum", f"x [{k},2,3,{N}], c0 [{k},{N}], base [{k},2,{N}]",
                   lambda: galois_cuda.automorphism_fused_sum(x_sum, hs3, tb.p, c0_sum,
                                                              base_sum),
                   lambda: plain_galois.automorphism_fused_sum(x_sum, hs3, tb.p, c0_sum,
                                                               base_sum),
                   automorphism_sum_work(k, 2, hs3)))
-    # the prereduced lanes at the omega path's shapes (phase 8: k = 8, kd = 4),
-    # each beside the classic lane at the same k and kd
+    keys_3 = residues(gen, qs, kd * 3 * 2).view(k, kd, 3, 2, N)
+    cases.append(("ks_inner_batch",
+                  f"Inner lane, a sum_slots stage: dg [{k},{kd},1,{N}], keys [{k},{kd},3,2,{N}]",
+                  lambda: ntt_cuda.ks_inner_batch(dg_1, keys_3, tb),
+                  lambda: plain_ntt.ks_inner_batch(dg_1, keys_3, tb),
+                  ks_inner_work(k, kd, 1, 3, 3)))
     qs8 = params_k8().q_primes
     k8, kd8 = len(qs8), 4
     tb8 = plain_ntt.build_tables(N, qs8, "cuda")
+    dg8 = residues(gen, qs8, kd8).view(k8, kd8, 1, N)
+    keys8_3 = residues(gen, qs8, kd8 * 3 * 2).view(k8, kd8, 3, 2, N)
+    x8 = residues(gen, qs8, 2 * 3).view(k8, 2, 3, N)
+    c0_8, base_8 = residues(gen, qs8, 1)[:, 0], residues(gen, qs8, 2)
+    cases.append(("ks_inner_batch",
+                  f"Inner lane, k8_omega: dg [{k8},{kd8},1,{N}], keys [{k8},{kd8},3,2,{N}]",
+                  lambda: ntt_cuda.ks_inner_batch(dg8, keys8_3, tb8),
+                  lambda: plain_ntt.ks_inner_batch(dg8, keys8_3, tb8),
+                  ks_inner_work(k8, kd8, 1, 3, 3)))
+    cases.append(("automorphism_fused_sum", f"k8_omega: x [{k8},2,3,{N}]",
+                  lambda: galois_cuda.automorphism_fused_sum(x8, hs3, tb8.p, c0_8, base_8),
+                  lambda: plain_galois.automorphism_fused_sum(x8, hs3, tb8.p, c0_8, base_8),
+                  automorphism_sum_work(k8, 2, hs3)))
+    # the prereduced lanes at the omega path's shapes (phase 8: k = 8, kd = 4),
+    # each beside the classic lane at the same k and kd (qs8, tb8 above)
     keys8 = torch.stack([residues(gen, qs8, 2) for _ in range(kd8)]).permute(1, 0, 2, 3)
     d8 = residues(gen, qs8, kd8)                                     # [k, kd, N]
     d8_b = residues(gen, qs8, kd8 * BATCH).view(k8, kd8, BATCH, N)
@@ -1037,6 +1177,29 @@ def keyswitch_case(gen: torch.Generator, ctx, level: int, kd: int, batch: int | 
             keyswitch_work(k, kd, rows, prereduced, n))
 
 
+def keyswitch_galois_case(gen: torch.Generator, ctx, level: int, batch: int | None,
+                          label: str, g: int = 3):
+    """keyswitch_fused's Galois lane (batch None) or keyswitch_fused_batch's
+    on ctx's level-L tables: classic digits of every prime, c0 a view of a
+    [B, k, 2, n] stack; a run of c0 and of the digits is zero, so the
+    negations meet zeros."""
+    tb, n = level_tables(ctx, level, "q"), ctx.n
+    qs, k, rows = tb.primes, tb.k, batch or 1
+    keys = torch.stack([residues(gen, qs, 2, n) for _ in range(k)]).permute(1, 0, 2, 3)
+    d = torch.stack([residues(gen, (q,), rows, n)[0] for q in qs])
+    d[..., :64] = 0
+    ct = residues(gen, qs, 2 * rows, n).view(k, rows, 2, n).transpose(0, 1).contiguous()
+    ct[..., :64] = 0
+    c0 = ct.permute(1, 2, 0, 3)[:, 0]
+    if batch is None:
+        d, c0 = d[:, 0], c0[:, 0]
+    name = "keyswitch_fused" if batch is None else "keyswitch_fused_batch"
+    return (name + "_galois", f"{label}: d {list(d.shape)}, keys [{k},{k},2,{n}], g={g}",
+            lambda: getattr(ntt_cuda, name)(d, keys, tb, g=g, c0=c0),
+            lambda: getattr(plain_ntt, name)(d, keys, tb, g=g, c0=c0),
+            keyswitch_galois_work(k, g, rows, n))
+
+
 def ntt_forward_case(gen: torch.Generator, tb, batch: int, label: str):
     """An ntt_forward case on tb (a level's row views, or a table mod t)."""
     n = tb.n
@@ -1102,22 +1265,72 @@ def ntt_inverse_case(gen: torch.Generator, tb, batch: int, label: str, offset: b
 
 
 def ks_inner_case(gen: torch.Generator, ctx, level: int, kd: int, stacks: int,
-                  key_sets: int, grouped: bool, label: str, offset: bool = False):
+                  key_sets: int, grouped: bool, label: str, offset: bool = False,
+                  lane: str = "inner"):
     """A ks_inner_batch case (one digit stack shared by the key sets'
     elements, or one stack per element) or a ks_inner_grouped one (stack c
-    with key set e) on ctx's level-L tables; ``offset``: digits and keys
-    off a 16-byte boundary."""
+    with key set e) on ctx's level-L tables; ``offset``: digits, keys and c0
+    off a 16-byte boundary.  ``lane``: "inner" or "galois" (the key sets'
+    elements 3^1, 3^2, ..., a c0 per digit stack; a run of c0 and of the
+    digits is zero, so the negations of c0 meet zeros)."""
     tb, n = level_tables(ctx, level, "q"), ctx.n
     dg = residues(gen, tb.primes, kd * stacks, n).view(tb.k, kd, stacks, n)
     keys = residues(gen, tb.primes, kd * key_sets * 2, n).view(tb.k, kd, key_sets, 2, n)
+    c0 = residues(gen, tb.primes, stacks, n)
+    c0 = c0[:, 0] if stacks == 1 else c0
+    if lane != "inner":
+        c0[..., :64] = 0
+        dg[..., :64] = 0
     if offset:
-        dg, keys, label = offset_copy(dg), offset_copy(keys), label + ", rows off 16 bytes"
+        dg, keys, c0 = offset_copy(dg), offset_copy(keys), offset_copy(c0)
+        label += ", rows off 16 bytes"
+    elements = tuple(pow(3, s, 2 * n) for s in range(1, key_sets + 1))
     name = "ks_inner_grouped" if grouped else "ks_inner_batch"
     batch = stacks * key_sets if grouped else key_sets
-    return (name, f"{label}: dg [{tb.k},{kd},{stacks},{n}], keys [{tb.k},{kd},{key_sets},2,{n}]",
+    shape = f"dg [{tb.k},{kd},{stacks},{n}], keys [{tb.k},{kd},{key_sets},2,{n}]"
+    if lane == "galois":
+        outputs = elements * (stacks if grouped else 1)
+        return (name + "_galois", f"{label}: {shape}",
+                lambda: getattr(ntt_cuda, name)(dg, keys, tb, elements, c0),
+                lambda: getattr(plain_ntt, name)(dg, keys, tb, elements, c0),
+                ks_inner_galois_work(tb.k, kd, stacks, key_sets, outputs, stacks, n))
+    return (name, f"Inner lane, {label}: {shape}",
             lambda: getattr(ntt_cuda, name)(dg, keys, tb),
             lambda: getattr(plain_ntt, name)(dg, keys, tb),
             ks_inner_work(tb.k, kd, stacks, key_sets, batch, n))
+
+
+def lane_cases(gen: torch.Generator, ctx, ctx_s, ctx8, ctx16) -> list:
+    """The Galois lanes of ks_inner and keyswitch_fused around the paths'
+    shapes: level views, n = 256, 1024, 16384 and (ks_inner, c0 read in
+    place) 32768, the grouped digits of k8_omega, B = 2 and rows off a
+    16-byte boundary."""
+    ctx1k = make_context(quiet_params(1024, LOG_Q), device="cuda")
+    ctx32k = make_context(quiet_params(32768, LOG_Q), device="cuda")
+    cases = []
+    for c, lvl, kd, stacks, sets, grouped, label in (
+            (ctx, 1, 2, 1, 3, False, "level 1 of k=3"),
+            (ctx8, 4, 4, 1, 3, False, "level 4 of k=8"),
+            (ctx_s, 1, 4, 1, 3, False, "level 1 of n=256, k=5"),
+            (ctx1k, 0, 3, 1, 3, False, "n=1024"),
+            (ctx16, 0, 3, 1, 3, False, "n=16384"),
+            (ctx32k, 0, 3, 1, 3, False, "n=32768"),
+            (ctx32k, 0, 3, 2, 2, True, "n=32768"),
+            (ctx, 0, 3, 1, 8, False, "k=3")):
+        cases.append(ks_inner_case(gen, c, lvl, kd, stacks, sets, grouped, label,
+                                   offset=label == "k=3", lane="galois"))
+    cases += [ks_inner_case(gen, ctx, 0, 3, BATCH, BATCH, False, "per-element stacks, k=3",
+                            lane="galois"),
+              ks_inner_case(gen, ctx8, 4, 4, C_HOIST, BATCH, True, "level 4 of k=8",
+                            lane="galois"),
+              ks_inner_case(gen, ctx_s, 1, 4, C_HOIST, BATCH, True, "level 1 of n=256, k=5",
+                            lane="galois"),
+              ks_inner_case(gen, ctx16, 0, 3, C_HOIST, 2, True, "n=16384", lane="galois")]
+    for c, lvl, batch, label in ((ctx, 1, None, "level 1 of k=3"),
+                                 (ctx8, 0, 2, "k=8"), (ctx_s, 2, None, "level 2 of n=256"),
+                                 (ctx16, 0, None, "n=16384"), (ctx16, 0, 2, "n=16384")):
+        cases.append(keyswitch_galois_case(gen, c, lvl, batch, label))
+    return cases
 
 
 def inverse_and_ks_inner_cases(gen: torch.Generator, ctx, ctx_s, ctx8, ctx16) -> list:
@@ -1168,7 +1381,7 @@ def cluster_cases(gen: torch.Generator, ctx, ctx_s) -> list:
     8, B3 on strided views and with C = 1 and 2; B5 and B8 at k = 8, B = 8,
     level 1, t = 786433, n = 256 and n = 16384 (B8 also at k = 12); B1 and
     B7/B12 (forward_and_keyswitch_cases); B2 and B17/B18
-    (inverse_and_ks_inner_cases)."""
+    (inverse_and_ks_inner_cases); the Galois lanes (lane_cases)."""
     ctx8 = make_context(params_leveled(), device="cuda")
     ctx_t = make_context(quiet_params(N, LOG_Q, plain_modulus=786433), device="cuda")
     ctx16 = make_context(quiet_params(16384, LOG_Q), device="cuda")
@@ -1220,15 +1433,16 @@ def cluster_cases(gen: torch.Generator, ctx, ctx_s) -> list:
             decrypt_case(gen, ctx16.params, 0, 1, "n=16384"),
             decrypt_case(gen, ctx16.params, 0, BATCH, "n=16384")] + forward_and_keyswitch_cases(
                 gen, ctx, ctx_s, ctx8, ctx16) + inverse_and_ks_inner_cases(
-                gen, ctx, ctx_s, ctx8, ctx16)
+                gen, ctx, ctx_s, ctx8, ctx16) + lane_cases(gen, ctx, ctx_s, ctx8, ctx16)
 
 
 def phase_geometry() -> None:
     """The launch shape of each cluster kernel at the main path's shapes
     (n = 8192, k = 3, kb = 5; c = 2 operand rows; kd = 3; B = 8; keygen's
-    three rows; the hoisted rotations' 8 elements and their batch's 4 x 8)
-    and at n = 16384; keyswitch_fused at k = 8 (kd = 8, and the prereduced
-    kd = 4), ntt_forward and ntt_inverse at n = 32768."""
+    three rows; the hoisted rotations' 8 elements and their batch's 4 x 8;
+    keyswitch_fused's Galois lane and a sum_slots stage's 3 elements) and at
+    n = 16384; keyswitch_fused at k = 8 (kd = 8, and the prereduced kd = 4),
+    ntt_forward and ntt_inverse at n = 32768."""
     for n in (N, 16384):
         for name, geo in (("ntt_forward", ntt_cuda.ntt_forward_geometry(n, 3)),
                           ("ntt_forward keygen", ntt_cuda.ntt_forward_geometry(n, 3, 3)),
@@ -1238,7 +1452,11 @@ def phase_geometry() -> None:
                           ("ks_inner_grouped",
                            ntt_cuda.ks_inner_geometry(n, 3, C_HOIST * BATCH,
                                                       "ks_inner_grouped")),
+                          ("ks_inner_batch Galois lane",
+                           ntt_cuda.ks_inner_geometry(n, 3, BATCH, c0=True)),
                           ("keyswitch_fused", ntt_cuda.keyswitch_geometry(n, 3, 3)),
+                          ("keyswitch_fused Galois lane",
+                           ntt_cuda.keyswitch_geometry(n, 3, 3, galois=True)),
                           ("keyswitch_fused_batch",
                            ntt_cuda.keyswitch_geometry(n, 3, 3, BATCH)),
                           ("mul_by_ntt_operand", ntt_cuda.mul_by_ntt_operand_geometry(n, 3, 2)),
@@ -1617,6 +1835,24 @@ def phase_serving() -> dict:
           "element i == the single op; card == CPU plain path for encrypt_batch_from_noise, "
           "galoiskey_gen_from_noise, decrypt_batch, multiply_batch and the rotations")
 
+    # a rotation at ks_omega = 1 is one launch of the key switch's Galois lane,
+    # with no automorphism kernel and no classic key switch of its own
+    rot_ops = {"rotate_rows_1": lambda: fhe.rotate_rows(st["cts_a"][0], 1, gk),
+               "rotate_columns": lambda: fhe.rotate_columns(st["cts_a"][0], gk),
+               "rotate_rows_batch_1": lambda: fhe.rotate_rows_batch(st["cts_a"], 1, gk)}
+    reset_counts()
+    for fn in rot_ops.values():
+        fn()
+    torch.cuda.synchronize()
+    rc = read_counts()
+    print("phase serving rotation launches", json.dumps(
+        {name: c for name, c in rc.items() if c}))
+    check(rc["keyswitch_fused_galois"] == 2 and rc["keyswitch_fused_batch_galois"] == 1
+          and rc["automorphism_single"] == 0 and rc["automorphism_fused"] == 0
+          and rc["keyswitch_fused"] == 0 and rc["keyswitch_fused_batch"] == 0,
+          f"the rotations launched {rc}, expected the Galois lanes only")
+    print_profiled("serving", rot_ops)
+
     cts_a, cts_b = st["cts_a"], st["cts_b"]
     pts_a = [fhe.encode(v) for v in VALS_A]
     timings = {
@@ -1759,6 +1995,31 @@ def phase_hoisted() -> dict:
           f"{sum(VALS_H)} in every slot; card == CPU plain path for hoisted_galois_keys, "
           "rotate_rows_hoisted, rotate_rows_hoisted_batch and sum_slots")
 
+    # the hoisted rotations run their automorphisms inside ks_inner (its
+    # Galois lanes, once each); each sum_slots stage is ks_inner_batch's
+    # Inner lane and automorphism_fused_sum (six radix-4 stages at n = 8192),
+    # and its closing rotate_columns the key switch's Galois lane; no other
+    # automorphism kernel
+    hoisted_ops = {"rotate_rows_hoisted_8": lambda: fhe.rotate_rows_hoisted(ct, STEPS, gk),
+                   f"rotate_rows_hoisted_batch_{C_HOIST}x8":
+                       lambda: fhe.rotate_rows_hoisted_batch(cts, STEPS, gk),
+                   "sum_slots": lambda: fhe.sum_slots(ct, gk_ss)}
+    grouped0 = ntt_cuda.ks_inner_grouped.launches
+    reset_counts()
+    for fn in hoisted_ops.values():
+        fn()
+    torch.cuda.synchronize()
+    rc = read_counts()
+    grouped = ntt_cuda.ks_inner_grouped.launches - grouped0
+    print("phase hoisted lane launches", json.dumps(
+        {name: c for name, c in rc.items() if c}), "ks_inner_grouped Inner lane", grouped)
+    check(rc["ks_inner_batch"] == 6 and rc["automorphism_fused_sum"] == 6
+          and rc["ks_inner_batch_galois"] == 1 and rc["ks_inner_grouped_galois"] == 1
+          and rc["keyswitch_fused_galois"] == 1 and rc["automorphism_fused"] == 0
+          and rc["automorphism_single"] == 0 and grouped == 0,
+          f"the hoisted calls and sum_slots launched {rc} and {grouped} grouped Inner lanes")
+    print_profiled("hoisted", hoisted_ops)
+
     times = hoisted_timings(fhe, ct, cts, gk)
     times["wall_ms"]["sum_slots"] = wall_ms(lambda: fhe.sum_slots(ct, gk_ss))
     times["device_ms"]["sum_slots"] = device_ms(lambda: fhe.sum_slots(ct, gk_ss))
@@ -1788,11 +2049,29 @@ def phase_omega() -> dict:
     prods = fhe.multiply_batch(cts_a, cts_b, rlk)
     gk = fhe.galoiskey_gen(sk, elements=HOIST)
     rot = fhe.rotate_rows(a, 1, gk)
+    rot_b = fhe.rotate_rows_batch(cts_a, 1, gk)
     outs = fhe.rotate_rows_hoisted(a, STEPS, gk)
     outs_b = fhe.rotate_rows_hoisted_batch(cts_a[:C_HOIST], STEPS, gk)
     torch.cuda.synchronize()
     launches = read_counts()
     print("phase omega launches", json.dumps(launches))
+    # at ks_omega = 2 a rotation keeps its automorphism launch (B16, and B14
+    # for the batch) before the prereduced key switch
+    reset_counts()
+    fhe.rotate_rows(a, 1, gk)
+    fhe.rotate_rows_batch(cts_a, 1, gk)
+    torch.cuda.synchronize()
+    rc = read_counts()
+    check(rc["automorphism_single"] == 1 and rc["automorphism_fused"] == 1
+          and rc["keyswitch_fused_prereduced"] == 1
+          and rc["keyswitch_fused_batch_prereduced"] == 1
+          and rc["keyswitch_fused_galois"] == 0 and rc["keyswitch_fused_batch_galois"] == 0,
+          f"the rotations at ks_omega = 2 launched {rc}")
+    for i in (0, BATCH - 1):
+        check(torch.equal(rot_b[i].data, fhe.rotate_rows(cts_a[i], 1, gk).data),
+              f"rotate_rows_batch element {i} differs from rotate_rows at ks_omega = 2")
+    got = [int(fhe.decode(pt)[0]) for pt in fhe.decrypt_batch(rot_b, sk)]
+    check(got == [v[1] for v in vals_a], f"rotate_rows_batch by 1 decoded {got}")
     check(rlk.data.shape[0] == 4, f"expected kd = 4 gadget digits, got {rlk.data.shape[0]}")
     dec = lambda c: [int(v) for v in fhe.decode(fhe.decrypt(c, sk))]
     check(dec(prod)[:2] == [15, 60], f"multiply decoded {dec(prod)[:2]}")
@@ -1829,7 +2108,8 @@ def phase_omega() -> dict:
           "card rotate_rows_hoisted differs from the CPU plain path")
     print(f"phase omega check: n={N}, k=8, kb=10, ks_omega=2, kd=4; multiply decoded "
           f"[15,60]; multiply_batch (B={BATCH}) decoded and element i == multiply; "
-          "rotate_rows by 1 decoded 10; rotate_rows_hoisted and rotate_rows_hoisted_batch "
+          "rotate_rows by 1 decoded 10, rotate_rows_batch (B16/B14 launches) decoded and "
+          "element i == rotate_rows; rotate_rows_hoisted and rotate_rows_hoisted_batch "
           f"(C={C_HOIST}) as in the hoisted phase; card == CPU plain path for "
           "relinkey_gen_from_noise, multiply, rotate_rows and rotate_rows_hoisted")
 

@@ -6,7 +6,15 @@
 // automorphism_fused_sum (automorphism_sum_kernel, the same signed gather
 // accumulated over the elements; the Pallas _MAX_ELEMS chunking is a VMEM
 // artifact and is not carried over).  Plain versions:
-// fhe_tpu_torch/ops/galois.py.
+// fhe_tpu_torch/ops/galois.py.  The port launches automorphism_kernel for
+// the Galois key generator and the rotations at ks_omega >= 2, whose grouped
+// digits are a CRT interpolation of the per-prime digits, with which the
+// automorphism's negation does not commute; at ks_omega = 1 a rotation and
+// the hoisted rotations run it inside the key switch (the Galois lanes of
+// keyswitch_fused and ks_inner, csrc/ntt.cu).  automorphism_sum_kernel
+// closes every sum_slots stage, after ks_inner's plain inner products: sum
+// lanes of ks_inner that did its work in the same launch ran longer
+// (PERF.md).
 //
 // a(x) -> a(x^g) on Z_p[x]/(x^n + 1) is a permutation with sign flips: with
 // h = g^-1 mod 2n, out[j] = x[h*j mod n], negated where h*j mod 2n >= n.

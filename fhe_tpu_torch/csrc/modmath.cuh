@@ -32,10 +32,16 @@
 //   OPS select 3
 //   OPS lane16 3
 //   OPS mul16 2
-// and the source index galois.cu computes inline for each output residue,
-// hj = (h * j) & (2n - 1), src = hj & (n - 1) and the test hj >= n (a 64-bit
-// multiply, two masks and a compare):
+// and the source index of a coefficient automorphism that galois.cu and the
+// Galois lanes of ntt.cu (coeff_source) compute inline for each residue,
+// hj = (h * j) & (2n - 1), src = hj & (n - 1) and the test hj >= n (a
+// multiply, two masks and a compare or shift):
 //   OPS galois_index 4
+// and the in-block source of the NTT-domain automorphism that ntt.cu's
+// gathered_products (the Galois lanes of ks_inner) computes
+// for each position and element, (g * brv4(l) + Q) & 15 (a multiply-add and
+// a mask; the source block, formed once per group of 16, is not counted):
+//   OPS galois_ntt_index 2
 // and one butterfly of the register-blocked NTT sweep fwd_ntt_regs /
 // inv_ntt_regs (mul_shoup, add_mod and sub_mod; the sweep's index and
 // address arithmetic is not counted):

@@ -3,8 +3,11 @@
 // Replaces fhe_tpu/ops/ntt_pallas.py: ntt_forward, ntt_inverse,
 // mul_by_ntt_operand and mul_by_ntt_operand_batch, tensor_product and
 // tensor_product_batch, keyswitch_fused and keyswitch_fused_batch (both
-// lanes), ks_inner_batch and ks_inner_grouped.  Plain versions:
-// fhe_tpu_torch/ops/ntt.py.
+// lanes), ks_inner_batch and ks_inner_grouped; and, as lanes of the
+// key-switch kernels, fhe_tpu/ops/galois_pallas.py: automorphism_fused /
+// automorphism_single where a rotation's key switch consumes or produces
+// their rows (the Galois lanes of keyswitch_fused at ks_omega = 1 and of
+// ks_inner).  Plain versions: fhe_tpu_torch/ops/ntt.py.
 //
 // Each single function and its _batch form share one kernel, with the
 // batch on a grid axis, and the single function launches B = 1.  Inputs are
@@ -88,6 +91,19 @@
 // shared by all elements, or by the E elements of one ciphertext, is read
 // in place and never repeated in memory, nor are the keys tiled.
 //
+// The automorphisms that follow or precede a key switch ride in its
+// passes.  A rotation at ks_omega = 1 is keyswitch_fused's Galois lane: the
+// first pass loads each digit of c1 at phi's source (negated mod q_j where
+// the sign flips), the last adds phi(c0) to output row 0, so phi, the key
+// switch and the add are one launch.  The hoisted rotations are ks_inner's
+// Galois lane: phi is a sign-free gather in the NTT domain, so the first
+// pass gathers each element's inner products by its automorphism before
+// the inverse, and the last adds phi(c0).  A sum_slots stage stays
+// ks_inner's Inner lane and galois.cu's automorphism_sum_kernel: every sum
+// lane tried here (one inverse of the summed products, the E inverses
+// summed through distributed shared memory, or by the last CTA to finish)
+// ran longer than those two launches (PERF.md).
+//
 // The register-blocked kernels are large: about 4 K (ntt_forward) to 11 K
 // (keyswitch_fused) SASS instructions, and each warp runs a pass's
 // straight-line code once or twice.  So a kernel that follows another one
@@ -96,6 +112,7 @@
 // (PERF.md, which also times it behind ntt_inverse and ks_inner).
 
 #include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -346,17 +363,70 @@ tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
   cluster.sync();
 }
 
+// The lanes of keyswitch_kernel: Classic (digit j a residue mod its own
+// q_j, reduced mod p_i as it loads), Prereduced (per-prime residues, used as
+// they are) and Galois (a rotation: the digits of the un-permuted c1, each
+// read at its automorphism's source and negated mod q_j where the sign
+// flips, and phi(c0) added to output row 0 as it is stored).
+enum class KsLane { Classic, Prereduced, Galois };
+
+// n words from src to the unpadded shared row dst (16-byte aligned), by the
+// whole CTA, as asynchronous copies (cp.async, every copy of a thread in
+// flight at once): 16 bytes each where `vec` (src starts 16-byte aligned),
+// a word each otherwise.  Each thread waits for its copies (stage_wait)
+// before the barrier that publishes dst.
+__device__ __forceinline__ void stage_row(uint32_t* dst, const uint32_t* __restrict__ src,
+                                          int n, bool vec) {
+  if (vec) {
+    for (int q = 4 * threadIdx.x; q < n; q += 4 * blockDim.x)
+      __pipeline_memcpy_async(dst + q, src + q, 16);
+  } else {
+    for (int q = threadIdx.x; q < n; q += blockDim.x) __pipeline_memcpy_async(dst + q, src + q, 4);
+  }
+  __pipeline_commit();
+}
+
+__device__ __forceinline__ void stage_wait() { __pipeline_wait_prior(0); }
+
+// The words of shared memory before a staged row: the kernel's `words`
+// rounded up to whole 16-byte words (ops/ntt_cuda.py: staged_smem).
+__host__ __device__ constexpr int stage_offset(int words) { return (words + 3) & ~3; }
+
+// The coefficient automorphism a(x) -> a(x^g) in gather form, h = g^-1 mod
+// 2n: out[x] = +-a[src], src = h x mod n, negated where h x mod 2n >= n.
+// h < 2n and 2n divides 2^32, so the 32-bit product wraps exactly mod 2n
+// (modmath.cuh's OPS galois_index).
+__device__ __forceinline__ uint32_t coeff_source(uint32_t h, int x, int logn, bool& neg) {
+  const uint32_t hx = (h * static_cast<uint32_t>(x)) & ((2u << logn) - 1);
+  neg = hx >> logn;
+  return hx & ((1u << logn) - 1);
+}
+
 // Key-switch inner product, cluster (b, i) for element b and prime p_i:
 //   out[i, c, b] = INTT( sum_j NTT([d_j,b]_{p_i}) . key[i, j, c] ),  c = 0, 1.
 // Digit j of element b for prime i is the row at d + i * d_sp + j * d_sj +
-// b * d_sb.  Without PREREDUCED it is a residue mod its own q_j (< 2^30), the
-// same row for every prime (d_sp = 0), so it is reduced mod p_i first:
-// mul_barrett is exact only below p.  With PREREDUCED (grouped gadget
-// digits, ks_omega > 1) the rows are per-prime residues, already below p_i,
-// and are used as they are.  Key element (i, j, c, x) sits at keys + i *
-// key_sp + j * key_sj + c * n + x, so the stored [digit, prime, 2, n] keys
-// are read in place and shared by all B elements; every key row starts
-// 16-byte aligned (the wrapper checks).  out: [k, 2, B, n].
+// b * d_sb.  In the Classic and Galois lanes it is a residue mod its own q_j
+// (< 2^30, q_j = p[j]), the same row for every prime (d_sp = 0), so it is
+// reduced mod p_i first: mul_barrett is exact only below p.  In the
+// Prereduced lane (grouped gadget digits, ks_omega > 1) the rows are
+// per-prime residues, already below p_i, and are used as they are.  Key
+// element (i, j, c, x) sits at keys + i * key_sp + j * key_sj + c * n + x,
+// so the stored [digit, prime, 2, n] keys are read in place and shared by
+// all B elements; every key row starts 16-byte aligned (the wrapper
+// checks).  out: [k, 2, B, n].
+//
+// The Galois lane is a whole rotation phi_g then key switch (apply_galois
+// at ks_omega = 1): d holds the digits of the un-permuted c1, and digit j of
+// phi_g(c1) at x is d_j[src] negated mod q_j where the sign flips
+// (coeff_source, h = g^-1 mod 2n), the same bits as the digits of the
+// permuted c1; output row 0 is stored as delta0 + phi_g(c0), with c0 of
+// element b for prime i the row at c0 + i * c0_sp + b * c0_sb (mod p_i), and
+// row 1 as delta1, so out is the rotated ciphertext.  The gathers are
+// scattered over a whole row, so each CTA first stages the row it gathers
+// from (digit j before its forward, c0 before output row 0's inverse) in a
+// shared row of n words, coalesced (16-byte loads where `vec`), and reads it
+// there: consecutive threads hold consecutive positions, whose sources lie
+// h words apart, h odd, so the reads hit 32 distinct banks.
 //
 // Grid (2R, B, k) in clusters of (2R, 1, 1), R = `pairs` digit pairs.  CTA
 // 2r + h of pair r runs, with its partner 2r + 1 - h (RowSplit), the split
@@ -373,8 +443,9 @@ tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
 // and stay until the peers have read their partials.  Mod-add is exact, so
 // this order of summation gives the reference's bits.  Shared memory: two
 // padded rows, the sweeps' working row (read by the partner) and the two
-// partial half rows (read by pairs 0 and 1).
-template <bool PREREDUCED>
+// partial half rows (read by pairs 0 and 1); the Galois lane adds the
+// staged row.
+template <KsLane LANE>
 __global__ void __launch_bounds__(512)
 keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
                  long long d_sb, const uint32_t* __restrict__ keys, long long key_sp,
@@ -383,7 +454,9 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
                  const uint32_t* __restrict__ psi, const uint32_t* __restrict__ psi_sh,
                  const uint32_t* __restrict__ ipsi, const uint32_t* __restrict__ ipsi_sh,
                  const uint32_t* __restrict__ n_inv,
-                 const uint32_t* __restrict__ n_inv_sh, int kd, int pairs, int logn) {
+                 const uint32_t* __restrict__ n_inv_sh, int kd, int pairs, int logn,
+                 uint32_t h_gal, const uint32_t* __restrict__ c0, long long c0_sp,
+                 long long c0_sb, int vec) {
   extern __shared__ uint32_t sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
@@ -391,6 +464,7 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
   const int part_row = fhe::padded(half);
   uint32_t* work = sm;                        // the sweeps' passes
   uint32_t* part = sm + fhe::padded(n);       // partial sums of rows 0 and 1, own half
+  uint32_t* stage = sm + stage_offset(2 * fhe::padded(n));  // Galois: the row gathered from
   const int rank = static_cast<int>(cluster.block_rank());
   const int r = rank / kRowSplit, h = rank % kRowSplit;
   const int b = blockIdx.y;
@@ -406,7 +480,8 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
   const uint32_t* d_ib = d + i * d_sp + b * d_sb;
   const uint32_t* key_i = keys + i * key_sp;
   for (int m = 0, j = r; m * pairs < kd; ++m, j += pairs) {
-    // the partner's second pass of the last round read this CTA's row
+    // the partner's second pass of the last round read this CTA's row (and,
+    // in the Galois lane, this CTA's first pass its staged row)
     if (m > 0) cluster.sync();
     if (j >= kd) {
       cluster.sync();    // the barrier inside the peers' forward
@@ -416,13 +491,26 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
     const uint32_t* k0 = key_i + j * key_sj;
     const uint32_t* k1 = k0 + n;
     const bool first = m == 0;
+    if constexpr (LANE == KsLane::Galois) {
+      stage_row(stage, dr, n, vec);
+      stage_wait();
+      __syncthreads();
+    }
+    const uint32_t qj = LANE == KsLane::Galois ? p[j] : 0;
     fhe::fwd_ntt_regs_split(
         work, split, sync, logn, pi, psi + tab, psi_sh + tab,
         [&](auto& x, int base, int logs) {
 #pragma unroll
           for (int g = 0; g < static_cast<int>(sizeof(x) / sizeof(x[0])); ++g) {
-            const uint32_t v = dr[base + (g << logs)];
-            x[g] = PREREDUCED ? v : fhe::reduce_barrett(v, pi, mui);
+            if constexpr (LANE == KsLane::Galois) {
+              bool neg;
+              uint32_t v = stage[coeff_source(h_gal, base + (g << logs), logn, neg)];
+              if (neg) v = fhe::neg_mod(v, qj);
+              x[g] = fhe::reduce_barrett(v, pi, mui);
+            } else {
+              const uint32_t v = dr[base + (g << logs)];
+              x[g] = LANE == KsLane::Prereduced ? v : fhe::reduce_barrett(v, pi, mui);
+            }
           }
         },
         [&](auto& x, int base, int) {
@@ -447,6 +535,10 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
   }
   cluster.sync();        // every partial sum is complete
   if (r < 2) {
+    const bool add_c0 = LANE == KsLane::Galois && r == 0;
+    // the forwards are over, so the staged row is free for c0, copied while
+    // the partials are summed (the __syncthreads below publishes it)
+    if (add_c0) stage_row(stage, c0 + i * c0_sp + b * c0_sb, n, vec);
     const int summed = kd < pairs ? kd : pairs;    // the pairs that had a digit
     const uint32_t* mine = part + r * part_row;
 #pragma unroll 4
@@ -459,14 +551,23 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
           s = fhe::add_mod(s, cluster.map_shared_rank(mine, q * kRowSplit + h)[pe], pi);
       work[fhe::padded_index(h * half + e)] = s;
     }
+    if (add_c0) stage_wait();
     __syncthreads();
     uint32_t* dst = out + ((static_cast<size_t>(i) * 2 + r) * gridDim.y + b) * n;
     fhe::inv_ntt_regs_split(
         work, split, sync, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i],
         fhe::SmemLoad{work}, [&](auto& x, int base, int logs) {
 #pragma unroll
-          for (int g = 0; g < static_cast<int>(sizeof(x) / sizeof(x[0])); ++g)
-            dst[base + (g << logs)] = x[g];
+          for (int g = 0; g < static_cast<int>(sizeof(x) / sizeof(x[0])); ++g) {
+            const int pos = base + (g << logs);
+            uint32_t v = x[g];
+            if (add_c0) {
+              bool neg;
+              uint32_t w = stage[coeff_source(h_gal, pos, logn, neg)];
+              v = fhe::add_mod(v, neg ? fhe::neg_mod(w, pi) : w, pi);
+            }
+            dst[pos] = v;
+          }
         });
   } else {
     cluster.sync();      // the barrier inside the output rows' inverse
@@ -474,6 +575,69 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
   // the peers read this CTA's rows above: no CTA leaves (and frees its
   // shared memory) before all have
   cluster.sync();
+}
+
+// The lanes of ks_inner_kernel: Inner (the key-switch inner products of
+// ks_inner_batch and ks_inner_grouped, one per element), Galois (each
+// element's products also gathered by its automorphism, with phi(c0) added
+// to output row 0: a hoisted rotation each; c0 staged in shared memory) and
+// GaloisInPlace (the same with c0 read in place, where the staged row does
+// not fit: n = 32768).
+enum class InnerLane { Inner, Galois, GaloisInPlace };
+
+// The Galois elements gs[e] of the key sets and their inverses hs[e] =
+// g_e^-1 mod 2n; c0 of digit stack s for prime i at c0 + i * c0_sp + s *
+// c0_ss (mod p_i).
+struct GaloisOperands {
+  const uint32_t* gs;
+  const uint32_t* hs;
+  const uint32_t* c0;
+  long long c0_sp, c0_ss;
+};
+
+__host__ __device__ constexpr int brev4(int l) {
+  return ((l & 1) << 3) | ((l & 2) << 1) | ((l & 4) >> 1) | ((l & 8) >> 3);
+}
+
+// v[l] = P_g(sum_j D_j . K'_j)[base + l], l < 16, for the 16 consecutive
+// NTT-domain positions from base (a multiple of 16): P_g the sign-free
+// gather of the automorphism phi_g (eval_perm), D_j the digit row at dgb +
+// j * dg_sj, K'_j the pre-permuted key row at ke + j * key_sj (Barrett
+// products added mod p).  For x = 16 q + l, 2 brv(src) + 1 = g (2 brv(x) +
+// 1) mod 2n gives src = 16 brv'(R) + brv4((g brv4(l) + Q) mod 16), with g
+// brv'(q) + (g - 1) / 2 = Q 2^(log n - 4) + R (brv' reverses log n - 4
+// bits): one aligned source block of 16, permuted.  So the block's digit and
+// key runs come in with 16-byte loads (where `vec`), the 16 sums of
+// products are formed in source order, and the permutation goes through
+// `slot`, 16 words of shared memory that no other thread touches
+// meanwhile.
+__device__ __forceinline__ void gathered_products(
+    uint32_t (&v)[16], int base, int logn, const uint32_t* __restrict__ dgb,
+    long long dg_sj, const uint32_t* __restrict__ ke, long long key_sj, int kd, uint32_t ge,
+    bool vec, uint32_t pi, uint32_t mui, uint32_t* slot) {
+  constexpr int G = 16;
+  const int lq = logn - 4;                                // >= 1: log n > kRegLog
+  const uint32_t q_rev = __brev(static_cast<uint32_t>(base) >> 4) >> (32 - lq);
+  const uint32_t t = ge * q_rev + (ge >> 1);
+  const uint32_t qtop = (t >> lq) & 15;
+  const int src = static_cast<int>(__brev(t & ((1u << lq) - 1)) >> (32 - lq)) << 4;
+  uint32_t acc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = 0;
+  for (int j = 0; j < kd; ++j) {
+    uint32_t f[G], kv[G];
+    fhe::load_run(dgb + j * dg_sj, src, vec, f);
+    fhe::load_run(ke + j * key_sj, src, vec, kv);
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      acc[g] = fhe::add_mod(acc[g], fhe::mul_barrett(f[g], kv[g], pi, mui), pi);
+  }
+  // slot[brv4(l)] = the sum at source position src + l; position base + l
+  // reads slot[(g brv4(l) + Q) mod 16]
+#pragma unroll
+  for (int g = 0; g < G; ++g) slot[brev4(g)] = acc[g];
+#pragma unroll
+  for (int g = 0; g < G; ++g) v[g] = slot[(ge * brev4(g) + qtop) & 15];
 }
 
 // Hoisted key-switch inner product, cluster (i, c, b) of 2 CTAs for element
@@ -492,6 +656,22 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
 // added mod p_i in registers, so nothing is written before the first pass;
 // the last pass stores.  Mod-add is exact, so this order of summation gives
 // the reference's bits.  Shared memory: one padded row.
+//
+// The Galois lanes fold in the automorphism that follows a hoisted key
+// switch (galois_pallas.py's automorphism_fused, c0 shared by the elements
+// of one digit stack), with the keys pre-permuted as hoisted_galois_keys
+// makes them (K'_e = K_e gathered by eval_perm_inv).  In the NTT domain
+// phi_g is the sign-free gather P_g(Y)[x] = Y[src_g(x)], so phi_g(INTT(Y)) =
+// INTT(P_g(Y)), and the first pass gathers the element's products by its
+// automorphism (gathered_products; the slot is the 16 words of the working
+// row that the group's own first-pass store fills next).  The last pass
+// adds phi_g(c0)[x] = +-c0[h x mod n] (coeff_source) to output row 0.  In
+// the Galois lane c0 is first copied into shared memory behind the working
+// row, coalesced, while the first passes run, and read there (sources h
+// apart, h odd: 32 distinct banks); that row does not fit beside the
+// working row at n = 32768, where GaloisInPlace reads c0 in place, each
+// word a scattered L2 read (at n = 8192 1.4 us slower than staged, PERF.md).
+template <InnerLane LANE>
 __global__ void __launch_bounds__(512)
 ks_inner_kernel(const uint32_t* __restrict__ dg, long long dg_sp, long long dg_sj,
                 long long dg_sb, int dg_div, const uint32_t* __restrict__ keys,
@@ -499,7 +679,10 @@ ks_inner_kernel(const uint32_t* __restrict__ dg, long long dg_sp, long long dg_s
                 uint32_t* __restrict__ out, const uint32_t* __restrict__ p,
                 const uint32_t* __restrict__ mu, const uint32_t* __restrict__ ipsi,
                 const uint32_t* __restrict__ ipsi_sh, const uint32_t* __restrict__ n_inv,
-                const uint32_t* __restrict__ n_inv_sh, int kd, int logn, int vec) {
+                const uint32_t* __restrict__ n_inv_sh, int kd, int logn, int vec,
+                GaloisOperands go) {
+  constexpr bool galois = LANE != InnerLane::Inner;
+  constexpr bool staged = LANE == InnerLane::Galois;
   extern __shared__ uint32_t a[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
@@ -511,53 +694,88 @@ ks_inner_kernel(const uint32_t* __restrict__ dg, long long dg_sp, long long dg_s
   const uint32_t mui = mu[i];
   const size_t tab = static_cast<size_t>(i) * n;
   const uint32_t* dgb = dg + i * dg_sp + (b / dg_div) * dg_sb;
-  const uint32_t* kc = keys + i * key_sp + (b % key_mod) * key_se + c * n;
+  const int e = b % key_mod;                        // the element's key set
+  const uint32_t* ke = keys + i * key_sp + c * n + e * key_se;
   uint32_t* dst = out + (static_cast<size_t>(i) * gridDim.y + cb) * n;
   static_assert(kRowSplit == 2, "the split below names both CTAs of a row");
   const fhe::RowSplit<kRowSplit> split{
       {cluster.map_shared_rank(a, 0), cluster.map_shared_rank(a, 1)},
       static_cast<int>(cluster.block_rank())};
+  const bool add_c0 = galois && c == 0;
+  const uint32_t* c0 = galois ? go.c0 + i * go.c0_sp + (b / dg_div) * go.c0_ss : nullptr;
+  uint32_t* c0s = a + stage_offset(fhe::padded(n));
+  // copied while the first passes run; the cluster barrier before the last
+  // pass publishes it
+  if (staged && add_c0) stage_row(c0s, c0, n, vec);
   fhe::inv_ntt_regs_split(
-      a, split, [&] { cluster.sync(); }, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i],
-      n_inv_sh[i],
+      a, split,
+      [&] {
+        if (staged && add_c0) stage_wait();
+        cluster.sync();
+      },
+      logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i],
       // the first pass's group is consecutive (logs = 0, base a multiple of its size)
       [&](auto& v, int base, int) {
         constexpr int G = sizeof(v) / sizeof(v[0]);
+        if constexpr (galois) {
+          gathered_products(v, base, logn, dgb, dg_sj, ke, key_sj, kd, __ldg(go.gs + e), vec,
+                            pi, mui, a + fhe::padded_index(base));
+        } else {
 #pragma unroll
-        for (int g = 0; g < G; ++g) v[g] = 0;
-        for (int j = 0; j < kd; ++j) {
-          uint32_t f[G], kv[G];
-          fhe::load_run(dgb + j * dg_sj, base, vec, f);
-          fhe::load_run(kc + j * key_sj, base, vec, kv);
+          for (int g = 0; g < G; ++g) v[g] = 0;
+          for (int j = 0; j < kd; ++j) {
+            uint32_t f[G], kv[G];
+            fhe::load_run(dgb + j * dg_sj, base, vec, f);
+            fhe::load_run(ke + j * key_sj, base, vec, kv);
 #pragma unroll
-          for (int g = 0; g < G; ++g)
-            v[g] = fhe::add_mod(v[g], fhe::mul_barrett(f[g], kv[g], pi, mui), pi);
+            for (int g = 0; g < G; ++g)
+              v[g] = fhe::add_mod(v[g], fhe::mul_barrett(f[g], kv[g], pi, mui), pi);
+          }
         }
       },
       [&](auto& v, int base, int logs) {
+        const uint32_t he = add_c0 ? __ldg(go.hs + e) : 0;
 #pragma unroll
-        for (int g = 0; g < static_cast<int>(sizeof(v) / sizeof(v[0])); ++g)
-          dst[base + (g << logs)] = v[g];
+        for (int g = 0; g < static_cast<int>(sizeof(v) / sizeof(v[0])); ++g) {
+          const int pos = base + (g << logs);
+          uint32_t val = v[g];
+          if (add_c0) {
+            bool neg;
+            const int src = coeff_source(he, pos, logn, neg);
+            const uint32_t w = staged ? c0s[src] : __ldg(c0 + src);
+            val = fhe::add_mod(val, neg ? fhe::neg_mod(w, pi) : w, pi);
+          }
+          dst[pos] = val;
+        }
       });
   // the partner read this CTA's row in the last pass: neither leaves (and
   // frees its shared memory) before both have
   cluster.sync();
 }
 
-template <bool PREREDUCED>
+// Shared memory of `words` words of rows and, where a lane gathers, a
+// staged row of n words behind them (stage_offset).
+inline int lane_smem(int words, int n, bool staged) {
+  return 4 * (staged ? stage_offset(words) + n : words);
+}
+
+template <KsLane LANE>
 cudaError_t launch_keyswitch(const void* d, long long d_sp, long long d_sj, long long d_sb,
                              const void* keys, long long key_sp, long long key_sj, void* out,
                              const void* p, const void* mu, const void* psi,
                              const void* psi_sh, const void* ipsi, const void* ipsi_sh,
                              const void* n_inv, const void* n_inv_sh, int k, int kd,
                              int batch, int logn, int pairs, int threads, int smem,
-                             cudaStream_t stream) {
+                             unsigned h_gal, const void* c0, long long c0_sp, long long c0_sb,
+                             int vec, cudaStream_t stream) {
+  constexpr bool galois = LANE == KsLane::Galois;
   if (logn <= fhe::kRegLog || kd < 1 || pairs < 2 || pairs > kKeyswitchPairs
-      || smem < 2 * 4 * fhe::padded(1 << logn))
+      || smem < lane_smem(2 * fhe::padded(1 << logn), 1 << logn, galois)
+      || (galois && (kd > k || c0 == nullptr)))
     return cudaErrorInvalidValue;
   static std::atomic<size_t> granted[fhe::kMaxDevices];
   static std::atomic<size_t> placed[fhe::kMaxDevices];
-  const void* kernel = reinterpret_cast<const void*>(keyswitch_kernel<PREREDUCED>);
+  const void* kernel = reinterpret_cast<const void*>(keyswitch_kernel<LANE>);
   cudaError_t err = fhe::allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
@@ -566,10 +784,43 @@ cudaError_t launch_keyswitch(const void* d, long long d_sp, long long d_sj, long
   err = fhe::check_cluster(kernel, cfg, placed);
   if (err != cudaSuccess) return err;
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  err = cudaLaunchKernelEx(&cfg, keyswitch_kernel<PREREDUCED>, c(d), d_sp, d_sj, d_sb,
-                           c(keys), key_sp, key_sj, static_cast<uint32_t*>(out), c(p), c(mu),
-                           c(psi), c(psi_sh), c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), kd,
-                           pairs, logn);
+  err = cudaLaunchKernelEx(&cfg, keyswitch_kernel<LANE>, c(d), d_sp, d_sj, d_sb, c(keys),
+                           key_sp, key_sj, static_cast<uint32_t*>(out), c(p), c(mu), c(psi),
+                           c(psi_sh), c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), kd, pairs,
+                           logn, static_cast<uint32_t>(h_gal), c(c0), c0_sp, c0_sb, vec);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <InnerLane LANE>
+cudaError_t launch_ks_inner(const void* dg, long long dg_sp, long long dg_sj,
+                            long long dg_sb, int dg_div, const void* keys, long long key_sp,
+                            long long key_sj, long long key_se, int key_mod, void* out,
+                            const void* p, const void* mu, const void* ipsi,
+                            const void* ipsi_sh, const void* n_inv, const void* n_inv_sh,
+                            int k, int kd, int batch, int logn, int threads, int smem,
+                            int vec, const GaloisOperands& go, cudaStream_t stream) {
+  constexpr bool galois = LANE != InnerLane::Inner;
+  const int n = 1 << logn;
+  if (logn <= fhe::kRegLog || kd < 1
+      || smem < lane_smem(fhe::padded(n), n, LANE == InnerLane::Galois)
+      || (galois && (go.gs == nullptr || go.hs == nullptr || go.c0 == nullptr)))
+    return cudaErrorInvalidValue;
+  static std::atomic<size_t> granted[fhe::kMaxDevices];
+  static std::atomic<size_t> placed[fhe::kMaxDevices];
+  const void* kernel = reinterpret_cast<const void*>(ks_inner_kernel<LANE>);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = fhe::cluster_config(
+      dim3(kRowSplit, 2 * batch, k), threads, smem, kRowSplit, stream, attr);
+  err = fhe::check_cluster(kernel, cfg, placed);
+  if (err != cudaSuccess) return err;
+  auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  err = cudaLaunchKernelEx(&cfg, ks_inner_kernel<LANE>, c(dg), dg_sp, dg_sj, dg_sb, dg_div,
+                           c(keys), key_sp, key_sj, key_se, key_mod,
+                           static_cast<uint32_t*>(out), c(p), c(mu), c(ipsi), c(ipsi_sh),
+                           c(n_inv), c(n_inv_sh), kd, logn, vec, go);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -684,43 +935,44 @@ int fhe_tensor_product(const void* x, const void* y, long long s_p, long long s_
   return static_cast<int>(cudaGetLastError());
 }
 
+// keyswitch_fused's lanes: 0 Classic, 1 Prereduced, 2 Galois (h_gal =
+// g^-1 mod 2n, c0 of element b for prime i at c0 + i * c0_sp + b * c0_sb).
 int fhe_keyswitch(const void* d, long long d_sp, long long d_sj, long long d_sb,
                   const void* keys, long long key_sp, long long key_sj, void* out,
                   const void* p, const void* mu, const void* psi, const void* psi_sh,
                   const void* ipsi, const void* ipsi_sh, const void* n_inv,
                   const void* n_inv_sh, int k, int kd, int batch, int logn, int pairs,
-                  int threads, int smem, int prereduced, void* stream) {
-  auto* launch = prereduced ? &launch_keyswitch<true> : &launch_keyswitch<false>;
+                  int threads, int smem, int lane, unsigned h_gal, const void* c0,
+                  long long c0_sp, long long c0_sb, int vec, void* stream) {
+  auto* launch = lane == 2   ? &launch_keyswitch<KsLane::Galois>
+                 : lane == 1 ? &launch_keyswitch<KsLane::Prereduced>
+                             : &launch_keyswitch<KsLane::Classic>;
   return static_cast<int>(launch(d, d_sp, d_sj, d_sb, keys, key_sp, key_sj, out, p, mu, psi,
                                  psi_sh, ipsi, ipsi_sh, n_inv, n_inv_sh, k, kd, batch, logn,
-                                 pairs, threads, smem, static_cast<cudaStream_t>(stream)));
+                                 pairs, threads, smem, h_gal, c0, c0_sp, c0_sb, vec,
+                                 static_cast<cudaStream_t>(stream)));
 }
 
+// ks_inner's lanes: 0 Inner, 1 Galois, 2 GaloisInPlace (gs, hs: the key
+// sets' Galois elements and their inverses mod 2n; c0 of digit stack s for
+// prime i at c0 + i * c0_sp + s * c0_ss; lane 1 stages it behind the padded
+// row in smem).
 int fhe_ks_inner(const void* dg, long long dg_sp, long long dg_sj, long long dg_sb,
                  int dg_div, const void* keys, long long key_sp, long long key_sj,
                  long long key_se, int key_mod, void* out, const void* p, const void* mu,
                  const void* ipsi, const void* ipsi_sh, const void* n_inv,
                  const void* n_inv_sh, int k, int kd, int batch, int logn, int threads,
-                 int smem, int vec, void* stream) {
-  if (logn <= fhe::kRegLog || kd < 1 || smem < 4 * fhe::padded(1 << logn))
-    return static_cast<int>(cudaErrorInvalidValue);
-  static std::atomic<size_t> granted[fhe::kMaxDevices];
-  static std::atomic<size_t> placed[fhe::kMaxDevices];
-  const void* kernel = reinterpret_cast<const void*>(ks_inner_kernel);
-  cudaError_t err = fhe::allow_smem(kernel, smem, granted);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = fhe::cluster_config(
-      dim3(kRowSplit, 2 * batch, k), threads, smem, kRowSplit,
-      static_cast<cudaStream_t>(stream), attr);
-  err = fhe::check_cluster(kernel, cfg, placed);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                 int smem, int vec, int lane, const void* gs, const void* hs,
+                 const void* c0, long long c0_sp, long long c0_ss, void* stream) {
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  err = cudaLaunchKernelEx(&cfg, ks_inner_kernel, c(dg), dg_sp, dg_sj, dg_sb, dg_div, c(keys),
-                           key_sp, key_sj, key_se, key_mod, static_cast<uint32_t*>(out), c(p),
-                           c(mu), c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), kd, logn, vec);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  const GaloisOperands go{c(gs), c(hs), c(c0), c0_sp, c0_ss};
+  auto* launch = lane == 2   ? &launch_ks_inner<InnerLane::GaloisInPlace>
+                 : lane == 1 ? &launch_ks_inner<InnerLane::Galois>
+                             : &launch_ks_inner<InnerLane::Inner>;
+  return static_cast<int>(launch(dg, dg_sp, dg_sj, dg_sb, dg_div, keys, key_sp, key_sj,
+                                 key_se, key_mod, out, p, mu, ipsi, ipsi_sh, n_inv, n_inv_sh,
+                                 k, kd, batch, logn, threads, smem, vec, go,
+                                 static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -5,7 +5,11 @@
 ``csrc/galois.cu`` (design and bound: the note at the top of that file) for
 CUDA tensors and use the plain PyTorch versions of
 ``ops/galois.py`` for CPU tensors; any other device raises.  Each wrapper
-counts only its own launches, in ``<wrapper>.launches``.
+counts only its own launches, in ``<wrapper>.launches``.  The rotations at
+ks_omega = 1 and the hoisted ones run their automorphisms inside the
+key-switch kernels instead (``ops/ntt_cuda.py``: the Galois lanes of
+``keyswitch_fused`` and ``ks_inner_batch``); ``automorphism_fused_sum``
+closes each sum_slots stage.
 """
 
 from __future__ import annotations

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import primes as _primes
+from . import galois as _galois
 from . import modmath as mm
 
 
@@ -229,32 +230,61 @@ def tensor_product(x: torch.Tensor, y: torch.Tensor,
     return tensor_product_batch(x[:, :, None], y[:, :, None], tb)[:, :, 0]
 
 
+def _galois_digits(d: torch.Tensor, tb: NTTTables, g: int) -> torch.Tensor:
+    """The per-prime digits [kd, B, n] of phi_g(c1) from those of c1: digit
+    j at x is d_j[src] negated mod its own q_j where the automorphism flips
+    the sign (``galois.coeff_source``), the same residues as the digits of
+    the permuted c1."""
+    kd, _, n = d.shape
+    src, neg = _galois.coeff_source(n, pow(g, -1, 2 * n), d.device)
+    q = tb.p[:kd].to(torch.int64).view(kd, 1, 1)
+    dg = d.to(torch.int64).index_select(2, src)
+    return torch.where(neg, (q - dg) % q, dg).to(torch.int32)
+
+
 def keyswitch_fused_batch(d: torch.Tensor, keys_t: torch.Tensor,
-                          tb: NTTTables, prereduced: bool = False) -> torch.Tensor:
+                          tb: NTTTables, prereduced: bool = False,
+                          g: int | None = None,
+                          c0: torch.Tensor | None = None) -> torch.Tensor:
     """INTT(sum_j NTT([d_j,b]_{p_i}) ⊙ key[i, j, c]) for c = 0, 1 and each of
     B elements: d a [kd, B, n] stack of gadget digits (digit j a residue mod
     its own q_j), keys_t the shared [k, kd, 2, n] NTT-form key material,
     prime-major.  ``prereduced=True`` takes d as [k, kd, B, n] per-prime
     residues (grouped gadget digits span several primes, so one row cannot
     hold them) and uses them as they are.  Returns the [k, 2, B, n]
-    coefficient-domain key-switch corrections."""
+    coefficient-domain key-switch corrections.
+
+    With a Galois element ``g`` (the Galois lane, classic digits, kd = k): d
+    holds the digits of an un-permuted c1, and the result is the rotated
+    ciphertext (phi_g(c0) + delta0, delta1) of the key switch of phi_g(c1),
+    c0 the [k, B, n] component 0."""
     k, kd, _, n = keys_t.shape
     batch = d.shape[-2]
+    if g is not None:
+        d = _galois_digits(d, tb, g)
     dr = d if prereduced else torch.remainder(
         d.to(torch.int64)[None], _p(tb, 4)).to(torch.int32)
     f = ntt_forward(dr.reshape(k, kd * batch, n), tb).view(k, kd, 1, batch, n)
     prod = mm.mul_mod(f, keys_t[:, :, :, None], _p(tb, 5))      # [k, kd, 2, B, n]
     acc = torch.remainder(prod.to(torch.int64).sum(1), _p(tb, 4))
-    return ntt_inverse(acc.to(torch.int32).view(k, 2 * batch, n),
-                       tb).view(k, 2, batch, n)
+    out = ntt_inverse(acc.to(torch.int32).view(k, 2 * batch, n),
+                      tb).view(k, 2, batch, n)
+    if g is None:
+        return out
+    rot = _galois.automorphism_fused(c0[:, None], (pow(g, -1, 2 * n),) * batch, tb.p)
+    return torch.stack([mm.add_mod(out[:, 0], rot[:, 0], tb.p.view(-1, 1, 1)), out[:, 1]], dim=1)
 
 
 def keyswitch_fused(d: torch.Tensor, keys_t: torch.Tensor,
-                    tb: NTTTables, prereduced: bool = False) -> torch.Tensor:
+                    tb: NTTTables, prereduced: bool = False,
+                    g: int | None = None,
+                    c0: torch.Tensor | None = None) -> torch.Tensor:
     """``keyswitch_fused_batch`` of one [kd, n] digit stack ([k, kd, n] when
-    prereduced); returns the [k, 2, n] coefficient-domain key-switch
-    correction."""
-    return keyswitch_fused_batch(d.unsqueeze(-2), keys_t, tb, prereduced)[:, :, 0]
+    prereduced; with ``g``, c0 [k, n]); returns the [k, 2, n]
+    coefficient-domain key-switch correction, or with ``g`` the rotated
+    ciphertext."""
+    return keyswitch_fused_batch(d.unsqueeze(-2), keys_t, tb, prereduced, g,
+                                 None if c0 is None else c0[:, None])[:, :, 0]
 
 
 def _inverse_pairs(acc: torch.Tensor, tb: NTTTables) -> torch.Tensor:
@@ -266,24 +296,68 @@ def _inverse_pairs(acc: torch.Tensor, tb: NTTTables) -> torch.Tensor:
                        tb).view(k, 2, batch, n)
 
 
+def _gathered(acc: torch.Tensor, elements) -> torch.Tensor:
+    """Element b of the [k, B, 2, n] NTT-domain sums gathered by
+    phi_{elements[b]} (``galois.ntt_source``)."""
+    n = acc.shape[-1]
+    return torch.stack([acc[:, b].index_select(-1, _galois.ntt_source(n, int(g), acc.device))
+                        for b, g in enumerate(elements)], dim=1)
+
+
+def _galois_rows(acc: torch.Tensor, tb: NTTTables, elements,
+                 c0: torch.Tensor) -> torch.Tensor:
+    """The Galois lane's result from the un-permuted [k, B, 2, n] sums:
+    element b's sums gathered by phi_{g_b} in the NTT domain, one inverse,
+    and phi_{g_b}(c0_b) added to row 0 (c0 [k, B, n])."""
+    out = _inverse_pairs(_gathered(acc, elements), tb)
+    n = acc.shape[-1]
+    hs = tuple(pow(int(g), -1, 2 * n) for g in elements)
+    rot = _galois.automorphism_fused(c0[:, None], hs, tb.p)[:, 0]   # [k, B, n]
+    return torch.stack([mm.add_mod(out[:, 0], rot, tb.p.view(-1, 1, 1)), out[:, 1]], dim=1)
+
+
+def _per_element(c0: torch.Tensor, batch: int, k: int, n: int) -> torch.Tensor:
+    """c0 [k, n] (shared) or [k, S, n] (one per digit stack) as [k, batch, n]
+    rows, stack s serving batch / S consecutive elements."""
+    if c0.dim() == 2:
+        return c0[:, None].expand(k, batch, n)
+    return c0.repeat_interleave(batch // c0.shape[1], dim=1)
+
+
 def ks_inner_batch(dg: torch.Tensor, keys: torch.Tensor,
-                   tb: NTTTables) -> torch.Tensor:
+                   tb: NTTTables, elements=None,
+                   c0: torch.Tensor | None = None) -> torch.Tensor:
     """INTT(sum_j dg[i, j, b_dg] ⊙ keys[i, j, b, c]) for c = 0, 1 and each of
     B elements: dg the [k, kd, B_dg, n] NTT-domain digit stacks, B_dg = B
     (one per element) or 1 (one stack shared by every element, b_dg = 0);
     keys the per-element [k, kd, B, 2, n] NTT-form key material.  Returns
-    the [k, 2, B, n] coefficient-domain corrections."""
+    the [k, 2, B, n] coefficient-domain corrections.
+
+    With the B Galois ``elements`` and c0 ([k, n] shared, or [k, B, n]) (the
+    Galois lane; keys pre-permuted as ``hoisted_galois_keys`` makes them):
+    element b is phi_{g_b}(correction + (c0, 0)), computed the kernel's way,
+    by the gather of the NTT-domain sums before the inverse."""
     prod = mm.mul_mod(dg[:, :, :, None], keys, _p(tb, 5))      # [k, kd, B, 2, n]
-    return _inverse_pairs(prod.to(torch.int64).sum(1), tb)
+    acc = prod.to(torch.int64).sum(1)
+    if elements is None:
+        return _inverse_pairs(acc, tb)
+    k, n, batch = dg.shape[0], dg.shape[-1], keys.shape[2]
+    return _galois_rows(acc, tb, elements, _per_element(c0, batch, k, n))
 
 
 def ks_inner_grouped(dg: torch.Tensor, keys: torch.Tensor,
-                     tb: NTTTables) -> torch.Tensor:
+                     tb: NTTTables, elements=None,
+                     c0: torch.Tensor | None = None) -> torch.Tensor:
     """``ks_inner_batch`` of C digit stacks dg [k, kd, C, n] against E key
     sets keys [k, kd, E, 2, n]: element b = c*E + e pairs stack c with key
-    set e.  Returns [k, 2, C*E, n]."""
+    set e.  Returns [k, 2, C*E, n].  With the E Galois ``elements`` and c0
+    [k, C, n] (the Galois lane): element c*E + e is
+    phi_{g_e}(correction + (c0_c, 0))."""
     k, kd, num_c, n = dg.shape
     num_e = keys.shape[2]
     prod = mm.mul_mod(dg[:, :, :, None, None], keys[:, :, None], _p(tb, 6))
-    return _inverse_pairs(
-        prod.to(torch.int64).sum(1).view(k, num_c * num_e, 2, n), tb)
+    acc = prod.to(torch.int64).sum(1).view(k, num_c * num_e, 2, n)
+    if elements is None:
+        return _inverse_pairs(acc, tb)
+    return _galois_rows(acc, tb, tuple(elements) * num_c,
+                        _per_element(c0, num_c * num_e, k, n))

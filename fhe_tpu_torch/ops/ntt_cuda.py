@@ -2,19 +2,23 @@
 
 ``ntt_forward``, ``ntt_inverse``, ``mul_by_ntt_operand`` (and ``_batch``),
 ``tensor_product`` (and ``_batch``), ``keyswitch_fused`` (and ``_batch``,
-each with its ``prereduced`` lane), ``ks_inner_batch`` and
-``ks_inner_grouped`` launch the hand-written CUDA kernels of
-``csrc/ntt.cu`` (design and bound: the note at the top of that file; their
-launch shapes, all thread-block clusters: ``ntt_forward_geometry``,
-``ntt_inverse_geometry``, ``mul_by_ntt_operand_geometry``,
-``tensor_product_geometry``, ``keyswitch_geometry`` and
-``ks_inner_geometry``) for CUDA tensors and use the plain PyTorch
-versions of ``ops/ntt.py`` for CPU tensors; any other device raises.  A
-single function and its ``_batch`` form launch the same kernel (the
-single one with a batch of 1), as do
-``ks_inner_batch`` and ``ks_inner_grouped``, but each wrapper counts only
-its own launches, in ``<wrapper>.launches`` (and the prereduced lanes in
-``<wrapper>.prereduced_launches``).
+each with its ``prereduced`` and Galois lanes), ``ks_inner_batch`` and
+``ks_inner_grouped`` (each with its Galois lane) launch the hand-written
+CUDA kernels of ``csrc/ntt.cu`` (design and bound: the note at the top of
+that file; their launch shapes, all thread-block clusters:
+``ntt_forward_geometry``, ``ntt_inverse_geometry``,
+``mul_by_ntt_operand_geometry``, ``tensor_product_geometry``,
+``keyswitch_geometry`` and ``ks_inner_geometry``) for CUDA tensors and use
+the plain PyTorch versions of ``ops/ntt.py`` for CPU tensors; any other
+device raises.  A single function and its ``_batch`` form launch the same
+kernel (the single one with a batch of 1), as do ``ks_inner_batch`` and
+``ks_inner_grouped``, but each wrapper counts only
+its own launches, in ``<wrapper>.launches`` (and its lanes in
+``<wrapper>.prereduced_launches`` and ``<wrapper>.galois_launches``).
+
+The Galois lanes (galois_pallas.py's automorphisms, fused into the key
+switch that consumes or produces their rows) take Galois elements g, not
+the multipliers g^-1 mod 2n of ``ops/galois_cuda.py``.
 
 Residues are int32 ``[k, batch, n]`` tensors; the kernels read the same bits
 as uint32.
@@ -53,9 +57,9 @@ def _lib() -> ctypes.CDLL:
                                            + [_I] * 6 + [_P])
     lib.fhe_tensor_product.argtypes = [_P] * 2 + [_L] * 3 + [_P] * 9 + [_I] * 5 + [_P]
     lib.fhe_keyswitch.argtypes = ([_P] + [_L] * 3 + [_P] + [_L] * 2 + [_P] * 9
-                                  + [_I] * 8 + [_P])
+                                  + [_I] * 8 + [ctypes.c_uint, _P] + [_L] * 2 + [_I, _P])
     lib.fhe_ks_inner.argtypes = ([_P] + [_L] * 3 + [_I] + [_P] + [_L] * 3 + [_I]
-                                 + [_P] * 7 + [_I] * 7 + [_P])
+                                 + [_P] * 7 + [_I] * 8 + [_P] * 3 + [_L] * 2 + [_P])
     for f in (lib.fhe_ntt_forward, lib.fhe_ntt_inverse,
               lib.fhe_mul_by_ntt_operand, lib.fhe_tensor_product,
               lib.fhe_keyswitch, lib.fhe_ks_inner):
@@ -169,38 +173,61 @@ def ntt_inverse_geometry(n: int, k: int, batch: int = 1) -> dict:
     return ntt_forward_geometry(n, k, batch, "ntt_inverse")
 
 
+def staged_smem(n: int, words: int, name: str) -> int:
+    """Shared-memory bytes of ``words`` words of rows and a staged row of n
+    words behind them, at a 16-byte boundary (csrc/ntt.cu: stage_offset), as
+    the Galois lanes of keyswitch_fused and ks_inner use; raise where that
+    does not fit a block."""
+    total = -(-words // 4) * 4 + n
+    if 4 * total > MAX_SMEM:
+        raise ValueError(f"{name}: n={n} needs {4 * total} bytes of shared memory "
+                         f"per block, more than {MAX_SMEM}")
+    return 4 * total
+
+
+def _padded(n: int) -> int:
+    return row_bytes(n, padded=True) // 4
+
+
 def ks_inner_geometry(n: int, k: int, batch: int = 1,
-                      name: str = "ks_inner_batch") -> dict:
+                      name: str = "ks_inner_batch", c0: bool = False) -> dict:
     """Launch shape of ``ks_inner_batch`` and ``ks_inner_grouped`` for B =
     ``batch`` elements over k primes: one cluster of 2 CTAs per (element,
     output row, prime), which share that row's inner product and inverse
-    transform, grid (2, 2B, k); one padded row of shared memory per CTA.
-    Raise where that does not fit the card."""
+    transform, grid (2, 2B, k); one padded row of shared memory per CTA,
+    and with ``c0`` (the Galois lane adds phi_g(c0)) the c0 row staged
+    behind it where both fit a block (n <= 16384; ``stage_c0``), else c0 is
+    read in place.  Raise where that does not fit the card."""
     if not 1 <= 2 * batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y // 2}")
+    smem = check_smem(n, 1, name, padded=True)
+    stage = c0 and 4 * (-(-_padded(n) // 4) * 4 + n) <= MAX_SMEM
+    if stage:
+        smem = staged_smem(n, _padded(n), name)
     return {"grid": (ROW_SPLIT, 2 * batch, k), "cluster": (ROW_SPLIT, 1, 1),
             "ctas": ROW_SPLIT * 2 * batch * k, "ctas_per_row": ROW_SPLIT,
-            "threads": regs_threads(n, name, ROW_SPLIT),
-            "smem": check_smem(n, 1, name, padded=True)}
+            "threads": regs_threads(n, name, ROW_SPLIT), "smem": smem, "stage_c0": stage}
 
 
 def keyswitch_geometry(n: int, k: int, kd: int, batch: int = 1,
-                       name: str = "keyswitch_fused") -> dict:
-    """Launch shape of ``keyswitch_fused`` (and ``_batch``, both lanes) for
+                       name: str = "keyswitch_fused", galois: bool = False) -> dict:
+    """Launch shape of ``keyswitch_fused`` (and ``_batch``, every lane) for
     kd digits of B = ``batch`` elements over k primes: one cluster of 2R
     CTAs per (element, prime), R = clamp(kd, 2, 4) digit pairs (two pairs at
     least, one per output row; at most 8 CTAs, the portable cluster size);
     pair r transforms digits r, r + R, ...; two padded rows of shared memory
-    per CTA.  Raise where that does not fit the card."""
+    per CTA, and with ``galois`` (the Galois lane) the staged row it gathers
+    from.  Raise where that does not fit the card."""
     if kd < 1:
         raise ValueError(f"{name}: kd={kd}, expected at least one digit")
     if not 1 <= batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y}")
     pairs = min(max(kd, 2), KEYSWITCH_PAIRS)
+    smem = (staged_smem(n, 2 * _padded(n), name) if galois
+            else check_smem(n, 2, name, padded=True))
     return {"grid": (ROW_SPLIT * pairs, batch, k), "cluster": (ROW_SPLIT * pairs, 1, 1),
             "ctas": ROW_SPLIT * pairs * batch * k, "pairs": pairs, "ctas_per_row": ROW_SPLIT,
-            "threads": regs_threads(n, name, ROW_SPLIT),
-            "smem": check_smem(n, 2, name, padded=True)}
+            "threads": regs_threads(n, name, ROW_SPLIT), "smem": smem}
 
 
 def mul_by_ntt_operand_geometry(n: int, k: int, c: int, batch: int = 1) -> dict:
@@ -471,37 +498,93 @@ def _check_digits(d: torch.Tensor, tb: NTTTables, prereduced: bool,
         raise ValueError(f"{name}: tensors and tables on different devices")
 
 
+@functools.lru_cache(maxsize=64)
+def _galois_operands(elements: tuple[int, ...], n: int,
+                     device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Galois elements and their inverses g^-1 mod 2n as int32 tensors
+    on the card, built once per (elements, n, device)."""
+    hs = tuple(pow(g, -1, 2 * n) for g in elements)
+    return (torch.tensor(elements, dtype=torch.int32, device=device),
+            torch.tensor(hs, dtype=torch.int32, device=device))
+
+
+def _check_elements(elements, n: int, count: int, name: str) -> tuple[int, ...]:
+    elements = tuple(int(g) for g in elements)
+    if len(elements) != count or not all(0 < g < 2 * n and g % 2 for g in elements):
+        raise ValueError(f"{name}: need {count} odd Galois elements in (0, {2 * n}), "
+                         f"got {elements}")
+    return elements
+
+
+def _check_rows(x: torch.Tensor, shape: tuple, device, name: str, what: str) -> None:
+    """x an int32 tensor of the given shape on device, rows of n contiguous."""
+    if x.dtype != torch.int32 or tuple(x.shape) != shape or x.stride(-1) != 1:
+        raise ValueError(f"{name}: {what} must be an int32 {list(shape)} tensor with rows "
+                         f"of n contiguous, got {x.dtype} {list(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"{name}: {what} on {x.device}, tables on {device}")
+
+
 def _keyswitch_launch(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables,
-                      prereduced: bool, name: str) -> torch.Tensor:
+                      lane: int, name: str, g: int = 0,
+                      c0: torch.Tensor | None = None) -> torch.Tensor:
     """One launch over d [kd, B, n] or prereduced [k, kd, B, n] (rows
     contiguous): [k, 2, B, n].  The kernel reads each key row with 16-byte
     loads, so keys_t must start 16-byte aligned with strides of whole
-    16-byte words."""
+    16-byte words.  lane 0 classic, 1 prereduced, 2 Galois (element g, c0
+    [k, B, n]), as the C entry point numbers them."""
     check_barrett(tb, name)
     check_aligned_tables(tb, name)
     kd, batch, n = d.shape[-3:]
-    geo = keyswitch_geometry(n, tb.k, kd, batch, name)
+    geo = keyswitch_geometry(n, tb.k, kd, batch, name, galois=lane == 2)
     if keys_t.data_ptr() % 16 or keys_t.stride(0) % 4 or keys_t.stride(1) % 4:
         raise ValueError(f"{name}: keys_t rows are not 16-byte aligned")
     out = torch.empty((tb.k, 2, batch, n), dtype=torch.int32, device=d.device)
-    d_sp = d.stride(0) if prereduced else 0
+    d_sp = d.stride(0) if lane == 1 else 0
+    if lane == 2:
+        h = pow(g, -1, 2 * n)
+        c0_args = (_build.ptr(c0), c0.stride(0), c0.stride(1))
+        vec = aligned(d, d.stride(0), d.stride(1)) and aligned(c0, c0.stride(0), c0.stride(1))
+    else:
+        h, c0_args, vec = 0, (None, 0, 0), False
     p = _build.ptr
     _build.launch(_lib().fhe_keyswitch, name, d.device, p(d), d_sp, d.stride(-3),
                   d.stride(-2), p(keys_t), keys_t.stride(0), keys_t.stride(1),
                   p(out), *table_ptrs(tb), tb.k, kd, batch, log2_exact(n),
-                  geo["pairs"], geo["threads"], geo["smem"], int(prereduced))
+                  geo["pairs"], geo["threads"], geo["smem"], lane, h, *c0_args, int(vec))
     return out
 
 
-def _count(fn, prereduced: bool) -> None:
-    if prereduced:
+def _count(fn, prereduced: bool, g: int | None = None) -> None:
+    if g is not None:
+        fn.galois_launches += 1
+    elif prereduced:
         fn.prereduced_launches += 1
     else:
         fn.launches += 1
 
 
+def _check_galois_lane(d: torch.Tensor, tb: NTTTables, prereduced: bool,
+                       g: int | None, c0: torch.Tensor | None, name: str) -> None:
+    """The Galois lane takes classic digits of every prime (kd = k), one
+    Galois element and c0 [k, B, n]."""
+    if g is None:
+        if c0 is not None:
+            raise ValueError(f"{name}: c0 is given only with a Galois element g")
+        return
+    kd, batch, n = d.shape
+    if prereduced or kd != tb.k:
+        raise ValueError(f"{name}: the Galois lane takes the classic digits of all "
+                         f"{tb.k} primes, got prereduced={prereduced}, kd={kd}")
+    _check_elements((g,), n, 1, name)
+    if c0 is None:
+        raise ValueError(f"{name}: the Galois lane needs c0")
+    _check_rows(c0, (tb.k, batch, n), tb.device, name, "c0")
+
+
 def keyswitch_fused(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables,
-                    prereduced: bool = False) -> torch.Tensor:
+                    prereduced: bool = False, g: int | None = None,
+                    c0: torch.Tensor | None = None) -> torch.Tensor:
     """Key-switch correction INTT(sum_j NTT([d_j]_{p_i}) ⊙ key[i, j, c]),
     c = 0, 1: d the [kd, n] gadget digits (digit j a residue mod its own
     q_j), keys_t the [k, kd, 2, n] NTT-form keys, prime-major.  keys_t may
@@ -509,42 +592,56 @@ def keyswitch_fused(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables,
     [digit, prime, 2, n] keys permuted): the kernel reads it in place.
     ``prereduced=True`` takes d as [k, kd, n], digit j's residue mod each
     prime (the grouped gadget digits of ks_omega > 1), and skips the
-    reduction.  Returns [k, 2, n]; every prime must be a 30-bit prime
-    (Barrett).  Launches count in ``launches`` and, for the prereduced
-    lane, ``prereduced_launches``."""
+    reduction.  With a Galois element ``g`` and c0 [k, n] (rows
+    contiguous), the Galois lane: d holds the digits of the un-permuted c1
+    (kd = k), and the result is the rotated ciphertext
+    (phi_g(c0) + delta0, delta1) of phi_g then the key switch, in one
+    launch.  Returns [k, 2, n]; every prime must be a 30-bit prime
+    (Barrett).  Launches count in ``launches``, ``prereduced_launches`` and
+    ``galois_launches`` by lane."""
+    c0b = None if c0 is None else c0[:, None]
     _check_digits(d.unsqueeze(-2), tb, prereduced, "keyswitch_fused")
     _check_keys(keys_t, d.shape[-2], tb, "keyswitch_fused")
+    _check_galois_lane(d.unsqueeze(-2), tb, prereduced, g, c0b, "keyswitch_fused")
     if not on_card(d, "keyswitch_fused"):
-        return _ntt.keyswitch_fused(d, keys_t, tb, prereduced)
-    out = _keyswitch_launch(d.unsqueeze(-2), keys_t, tb, prereduced,
-                            "keyswitch_fused")
-    _count(keyswitch_fused, prereduced)
+        return _ntt.keyswitch_fused(d, keys_t, tb, prereduced, g, c0)
+    out = _keyswitch_launch(d.unsqueeze(-2), keys_t, tb,
+                            2 if g is not None else int(prereduced), "keyswitch_fused",
+                            g or 0, c0b)
+    _count(keyswitch_fused, prereduced, g)
     return out[:, :, 0]
 
 
 keyswitch_fused.launches = 0
 keyswitch_fused.prereduced_launches = 0
+keyswitch_fused.galois_launches = 0
 
 
 def keyswitch_fused_batch(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables,
-                          prereduced: bool = False) -> torch.Tensor:
+                          prereduced: bool = False, g: int | None = None,
+                          c0: torch.Tensor | None = None) -> torch.Tensor:
     """``keyswitch_fused`` for B digit stacks against one key set: d
     [kd, B, n] (digit-major, rows of n contiguous), or [k, kd, B, n] with
-    ``prereduced``; keys_t [k, kd, 2, n] as in ``keyswitch_fused``; one
+    ``prereduced``; keys_t [k, kd, 2, n] as in ``keyswitch_fused``; with
+    ``g``, the same automorphism on every element and c0 [k, B, n] (rows
+    contiguous: a view of a [B, k, 2, n] stack is read in place); one
     launch of B * k clusters; returns [k, 2, B, n], slice b equal to
     ``keyswitch_fused`` of element b's digits.  Launches count as in
     ``keyswitch_fused``."""
     _check_digits(d, tb, prereduced, "keyswitch_fused_batch")
     _check_keys(keys_t, d.shape[-3], tb, "keyswitch_fused_batch")
+    _check_galois_lane(d, tb, prereduced, g, c0, "keyswitch_fused_batch")
     if not on_card(d, "keyswitch_fused_batch"):
-        return _ntt.keyswitch_fused_batch(d, keys_t, tb, prereduced)
-    out = _keyswitch_launch(d, keys_t, tb, prereduced, "keyswitch_fused_batch")
-    _count(keyswitch_fused_batch, prereduced)
+        return _ntt.keyswitch_fused_batch(d, keys_t, tb, prereduced, g, c0)
+    out = _keyswitch_launch(d, keys_t, tb, 2 if g is not None else int(prereduced),
+                            "keyswitch_fused_batch", g or 0, c0)
+    _count(keyswitch_fused_batch, prereduced, g)
     return out
 
 
 keyswitch_fused_batch.launches = 0
 keyswitch_fused_batch.prereduced_launches = 0
+keyswitch_fused_batch.galois_launches = 0
 
 
 def _check_ks_inner(dg: torch.Tensor, keys: torch.Tensor, tb: NTTTables,
@@ -567,31 +664,60 @@ def _check_ks_inner(dg: torch.Tensor, keys: torch.Tensor, tb: NTTTables,
 
 
 def _ks_inner_launch(dg: torch.Tensor, keys: torch.Tensor, tb: NTTTables,
-                     batch: int, dg_div: int, key_mod: int, name: str) -> torch.Tensor:
+                     batch: int, dg_div: int, key_mod: int, name: str,
+                     elements: tuple[int, ...] | None = None,
+                     c0: torch.Tensor | None = None) -> torch.Tensor:
     """One launch of 2 * batch * k clusters; element b reads digit stack
     b // dg_div (through stride 0 when there is one stack) and key set
-    b % key_mod.  Rows that do not all start 16-byte aligned are read a
-    word at a time."""
+    b % key_mod.  With the key sets' Galois ``elements`` and c0 (of stack
+    b // dg_div, stride 0 when shared) a Galois lane: c0 staged in shared
+    memory where it fits (``ks_inner_geometry``), else read in place.  Rows
+    that do not all start 16-byte aligned are read a word at a time."""
     check_barrett(tb, name)
     check_aligned_tables(tb, name)
     kd, n = dg.shape[1], tb.n
     out = torch.empty((tb.k, 2, batch, n), dtype=torch.int32, device=dg.device)
     if batch == 0:
         return out
-    geo = ks_inner_geometry(n, tb.k, batch, name)
+    geo = ks_inner_geometry(n, tb.k, batch, name, c0=elements is not None)
     dg_sb = dg.stride(2) if dg.shape[2] > 1 else 0
     vec = aligned(dg, dg.stride(0), dg.stride(1), dg_sb) and aligned(keys, *keys.stride()[:3])
     p = _build.ptr
+    if elements is not None:
+        gs, hs = _galois_operands(elements, n, dg.device)
+        c0_ss = c0.stride(1) if c0.dim() == 3 and c0.shape[1] > 1 else 0
+        if geo["stage_c0"]:
+            vec = vec and aligned(c0, c0.stride(0), c0_ss)
+        galois_args = (1 if geo["stage_c0"] else 2, p(gs), p(hs), p(c0), c0.stride(0), c0_ss)
+    else:
+        galois_args = (0, None, None, None, 0, 0)
     _build.launch(_lib().fhe_ks_inner, name, dg.device, p(dg), dg.stride(0),
                   dg.stride(1), dg_sb, dg_div, p(keys), keys.stride(0), keys.stride(1),
                   keys.stride(2), key_mod, p(out), p(tb.p), p(tb.mu), p(tb.ipsi_br),
                   p(tb.ipsi_br_shoup), p(tb.n_inv), p(tb.n_inv_shoup), tb.k, kd, batch,
-                  log2_exact(n), geo["threads"], geo["smem"], int(vec))
+                  log2_exact(n), geo["threads"], geo["smem"], int(vec), *galois_args)
     return out
 
 
+def _check_c0(c0: torch.Tensor | None, stacks: tuple[int, ...], tb: NTTTables,
+              name: str) -> None:
+    """c0 [k, n] (shared) or [k, S, n] with S one of ``stacks``, rows of n
+    contiguous."""
+    if c0 is None:
+        raise ValueError(f"{name}: the Galois lane needs c0")
+    k, n = tb.k, tb.n
+    if c0.dim() == 2:
+        _check_rows(c0, (k, n), tb.device, name, "c0")
+    else:
+        if c0.dim() != 3 or c0.shape[1] not in stacks:
+            raise ValueError(f"{name}: c0 {list(c0.shape)}, expected [{k}, {n}] or "
+                             f"[{k}, S, {n}] with S in {stacks}")
+        _check_rows(c0, (k, c0.shape[1], n), tb.device, name, "c0")
+
+
 def ks_inner_batch(dg: torch.Tensor, keys: torch.Tensor,
-                   tb: NTTTables) -> torch.Tensor:
+                   tb: NTTTables, elements=None,
+                   c0: torch.Tensor | None = None) -> torch.Tensor:
     """Hoisted key-switch inner product and inverse transform for B
     elements: out[i, c, b] = INTT(sum_j dg[i, j, b_dg] ⊙ keys[i, j, b, c]).
 
@@ -602,37 +728,63 @@ def ks_inner_batch(dg: torch.Tensor, keys: torch.Tensor,
     keys: [k, kd, B, 2, n] per-element NTT-form keys, each [2, n] block
           contiguous
     Returns [k, 2, B, n]; every prime must be a 30-bit prime (Barrett); on
-    the card 32 <= n <= 32768 (``ks_inner_geometry``)."""
+    the card 32 <= n <= 32768 (``ks_inner_geometry``).
+
+    With the B Galois ``elements`` of the key sets and c0 ([k, n] shared,
+    or [k, B, n]), the Galois lane: keys pre-permuted as
+    ``hoisted_galois_keys`` makes them, element b is
+    phi_{g_b}(correction + (c0, 0)), the hoisted rotation, gathered in the
+    NTT domain before the inverse (c0 staged in shared memory up to
+    n = 16384, read in place at n = 32768).  Launches count in
+    ``launches`` and ``galois_launches`` by lane."""
     _check_ks_inner(dg, keys, tb, "ks_inner_batch")
     batch = keys.shape[2]
     if dg.shape[2] not in (1, batch):
         raise ValueError(f"ks_inner_batch: {dg.shape[2]} digit stacks for {batch} "
                          "elements; expected 1 or one per element")
+    if elements is not None:
+        elements = _check_elements(elements, tb.n, batch, "ks_inner_batch")
+        _check_c0(c0, (batch,), tb, "ks_inner_batch")
     if not on_card(dg, "ks_inner_batch"):
-        return _ntt.ks_inner_batch(dg, keys, tb)
-    out = _ks_inner_launch(dg, keys, tb, batch, 1, batch, "ks_inner_batch")
-    ks_inner_batch.launches += 1
+        return _ntt.ks_inner_batch(dg, keys, tb, elements, c0)
+    out = _ks_inner_launch(dg, keys, tb, batch, 1, batch, "ks_inner_batch", elements, c0)
+    if elements is None:
+        ks_inner_batch.launches += 1
+    else:
+        ks_inner_batch.galois_launches += 1
     return out
 
 
 ks_inner_batch.launches = 0
+ks_inner_batch.galois_launches = 0
 
 
 def ks_inner_grouped(dg: torch.Tensor, keys: torch.Tensor,
-                     tb: NTTTables) -> torch.Tensor:
+                     tb: NTTTables, elements=None,
+                     c0: torch.Tensor | None = None) -> torch.Tensor:
     """``ks_inner_batch`` of C digit stacks dg [k, kd, C, n] against E key
     sets keys [k, kd, E, 2, n] (the hoisted rotations of C ciphertexts):
     element b = c*E + e pairs stack c with key set e, through the kernel's
     index maps, so neither operand is repeated in memory.  Returns
-    [k, 2, C*E, n]."""
+    [k, 2, C*E, n].  With the E Galois ``elements`` and c0 [k, C, n] (one
+    row per ciphertext), the Galois lane: element c*E + e is
+    phi_{g_e}(correction + (c0_c, 0)).  Launches count in ``launches`` and
+    ``galois_launches`` by lane."""
     _check_ks_inner(dg, keys, tb, "ks_inner_grouped")
     num_c, num_e = dg.shape[2], keys.shape[2]
+    if elements is not None:
+        elements = _check_elements(elements, tb.n, num_e, "ks_inner_grouped")
+        _check_c0(c0, (num_c,), tb, "ks_inner_grouped")
     if not on_card(dg, "ks_inner_grouped"):
-        return _ntt.ks_inner_grouped(dg, keys, tb)
+        return _ntt.ks_inner_grouped(dg, keys, tb, elements, c0)
     out = _ks_inner_launch(dg, keys, tb, num_c * num_e, num_e, num_e,
-                           "ks_inner_grouped")
-    ks_inner_grouped.launches += 1
+                           "ks_inner_grouped", elements, c0)
+    if elements is None:
+        ks_inner_grouped.launches += 1
+    else:
+        ks_inner_grouped.galois_launches += 1
     return out
 
 
 ks_inner_grouped.launches = 0
+ks_inner_grouped.galois_launches = 0

@@ -737,12 +737,26 @@ def _galois_budget(ctx: SchemeContext, ct: Ciphertext) -> float:
 
 def apply_galois(ctx: SchemeContext, ct: Ciphertext, g: int,
                  gal_keys: GaloisKeys, keys_at_level: bool = False) -> Ciphertext:
-    """Automorphism phi_g, then the key switch s(x^g) -> s."""
+    """Automorphism phi_g, then the key switch s(x^g) -> s.  At ks_omega = 1
+    one launch, keyswitch_fused's Galois lane, does both from the digits of
+    the un-permuted c1 (the digits of phi_g(c1) are theirs gathered, with
+    the sign flips negated mod q_j); at ks_omega > 1 the grouped digits are
+    a CRT interpolation of the per-prime ones, with which the negation does
+    not commute, so phi_g runs first (automorphism_single), then
+    key_switch."""
     _check_pairs([ct], "apply_galois")
     ct = to_coeff(ctx, ct)
-    permuted = ct.replace(data=_apply_galois_coeff(ctx, ct.data, g))
-    return key_switch(ctx, permuted, gal_keys.data[g], keys_at_level).replace(
-        noise_budget=_galois_budget(ctx, ct))
+    budget = _galois_budget(ctx, ct)
+    if _omega(ctx) > 1:
+        permuted = ct.replace(data=_apply_galois_coeff(ctx, ct.data, g))
+        return key_switch(ctx, permuted, gal_keys.data[g], keys_at_level).replace(
+            noise_budget=budget)
+    level = ct.level
+    keys = _keys_of(ctx, gal_keys.data[int(g)], level, keys_at_level)
+    data = ntt_cuda.keyswitch_fused(_digits(ctx, ct.data[:, 1], level),
+                                    keys.permute(1, 0, 2, 3), _tb(ctx, level),
+                                    g=int(g), c0=ct.data[:, 0])
+    return ct.replace(data=data, noise_budget=budget)
 
 
 def _row_elements(ctx: SchemeContext, steps: int, gal_keys: GaloisKeys) -> list:
@@ -780,25 +794,30 @@ def rotate_columns(ctx: SchemeContext, ct: Ciphertext, gal_keys: GaloisKeys,
 
 def apply_galois_batch(ctx: SchemeContext, cts: list, g: int,
                        gal_keys: GaloisKeys, keys_at_level: bool = False) -> list:
-    """The same automorphism on B ciphertexts at one level: one
-    automorphism_fused launch on a view of their [B, k-L, 2, n] stack, then
-    one keyswitch_fused_batch launch for the B key switches.  Element i
-    equals apply_galois(cts[i], g).  Mixed levels fall back to apply_galois
-    per element, as in the JAX package."""
+    """The same automorphism on B ciphertexts at one level, from views of
+    their [B, k-L, 2, n] stack: at ks_omega = 1 one keyswitch_fused_batch
+    launch in its Galois lane (as apply_galois); at ks_omega > 1 one
+    automorphism_fused launch, then one keyswitch_fused_batch launch for the
+    B key switches.  Element i equals apply_galois(cts[i], g).  Mixed
+    levels fall back to apply_galois per element, as in the JAX package."""
     if cts and any(ct.level != cts[0].level for ct in cts):
         return [apply_galois(ctx, ct, g, gal_keys, keys_at_level) for ct in cts]
     level = _check_pairs(cts, "apply_galois_batch")
     g = int(g)
     keys = _keys_of(ctx, gal_keys.data[g], level, keys_at_level)
     tb = _tb(ctx, level)
-    data = torch.stack([to_coeff(ctx, ct).data for ct in cts])   # [B, k-L, 2, n]
+    data = torch.stack([to_coeff(ctx, ct).data for ct in cts]).permute(1, 2, 0, 3)
+    budgets = [_galois_budget(ctx, ct) for ct in cts]
+    if _omega(ctx) == 1:                                          # [k-L, 2, B, n]
+        out = ntt_cuda.keyswitch_fused_batch(_digits(ctx, data[:, 1], level),
+                                             keys.permute(1, 0, 2, 3), tb, g=g,
+                                             c0=data[:, 0])
+        return _split_batch(out, budgets, level)
     h = pow(g, -1, 2 * ctx.n)
-    permuted = galois_cuda.automorphism_fused(
-        data.permute(1, 2, 0, 3), (h,) * len(cts), tb.p)         # [k-L, 2, B, n]
+    permuted = galois_cuda.automorphism_fused(data, (h,) * len(cts), tb.p)
     delta = _keyswitch_delta(ctx, permuted[:, 1], keys, level)
     c0 = mm.add_mod(permuted[:, 0], delta[:, 0], _p3(tb))
-    return _split_batch(torch.stack([c0, delta[:, 1]], dim=1),
-                        [_galois_budget(ctx, ct) for ct in cts], level)
+    return _split_batch(torch.stack([c0, delta[:, 1]], dim=1), budgets, level)
 
 
 def rotate_rows_batch(ctx: SchemeContext, cts: list, steps: int,
@@ -841,19 +860,16 @@ def hoisted_galois_keys(ctx: SchemeContext, gal_keys: GaloisKeys, elements,
     return torch.stack(stack, dim=2)
 
 
-def _hoisted_deltas(ctx: SchemeContext, ct: Ciphertext, elements,
+def _hoisted_digits(ctx: SchemeContext, ct: Ciphertext, elements,
                     gal_keys: GaloisKeys, pre_keys, keys_at_level: bool) -> tuple:
-    """(coefficient-domain ct, [k-L, 2, E, n] un-permuted key-switch deltas
-    of its c1 for every element, the multipliers g^-1 mod 2n): one digit
-    decomposition, one ks_inner_batch launch with the shared stack."""
+    """(coefficient-domain ct, the [k-L, kd, 1, n] NTT-domain digits of its
+    c1, the pre-permuted keys of the elements): the shared half of the
+    hoisted rotations."""
     level = _check_pairs([ct], "hoisted rotation")
     ct = to_coeff(ctx, ct)
     keys = (pre_keys if pre_keys is not None
             else hoisted_galois_keys(ctx, gal_keys, elements, level, keys_at_level))
-    d_ntt = _digits_ntt(ctx, ct.data[:, 1], level)                # [k-L, kd, n]
-    delta = ntt_cuda.ks_inner_batch(d_ntt[:, :, None], keys, _tb(ctx, level))
-    hs = tuple(pow(int(g), -1, 2 * ctx.n) for g in elements)
-    return ct, delta, hs
+    return ct, _digits_ntt(ctx, ct.data[:, 1], level)[:, :, None], keys
 
 
 def apply_galois_hoisted(ctx: SchemeContext, ct: Ciphertext, elements,
@@ -861,11 +877,10 @@ def apply_galois_hoisted(ctx: SchemeContext, ct: Ciphertext, elements,
                          keys_at_level: bool = False) -> list:
     """Many automorphisms of one ciphertext sharing a single gadget
     decomposition: the digits and their transform once, then one
-    ks_inner_batch launch against the pre-permuted keys
-    (``hoisted_galois_keys`` of the ciphertext's level) and one
-    automorphism_fused launch that adds c0 and applies every element's
-    automorphism (its shared-c0 lane).  Returns one ciphertext per Galois
-    element, in order.
+    ks_inner_batch launch in its Galois lane against the pre-permuted keys
+    (``hoisted_galois_keys`` of the ciphertext's level), which gathers each
+    element's inner products by its automorphism before the inverse and
+    adds phi_g(c0).  Returns one ciphertext per Galois element, in order.
 
     Each output decrypts as apply_galois(ct, g) does, with the same noise
     budget, but is not bit-identical to it: the sign-flipped coefficients
@@ -874,10 +889,10 @@ def apply_galois_hoisted(ctx: SchemeContext, ct: Ciphertext, elements,
     elements = tuple(int(g) for g in elements)
     if not elements:
         return []
-    ct, delta, hs = _hoisted_deltas(ctx, ct, elements, gal_keys, pre_keys,
-                                    keys_at_level)
-    data = galois_cuda.automorphism_fused(delta, hs, _tb(ctx, ct.level).p,
-                                          c0=ct.data[:, 0])
+    ct, d_ntt, keys = _hoisted_digits(ctx, ct, elements, gal_keys, pre_keys,
+                                      keys_at_level)
+    data = ntt_cuda.ks_inner_batch(d_ntt, keys, _tb(ctx, ct.level), elements,
+                                   c0=ct.data[:, 0])
     return _split_batch(data, [_galois_budget(ctx, ct)] * len(elements), ct.level)
 
 
@@ -885,10 +900,14 @@ def apply_galois_hoisted_sum(ctx: SchemeContext, ct: Ciphertext, elements,
                              gal_keys: GaloisKeys,
                              pre_keys: torch.Tensor | None = None,
                              keys_at_level: bool = False) -> Ciphertext:
-    """ct + sum_g apply_galois(ct, g) as one hoisted chain ending in the
-    automorphism_fused_sum launch, which accumulates the rotations without
-    writing them out: the sum_slots stage.  Decrypts as the composition of
-    apply_galois_hoisted with adds, and equals it bit for bit."""
+    """ct + sum_g apply_galois(ct, g) as one hoisted chain: the digits and
+    their transform once, one ks_inner_batch launch of the plain inner
+    products against the pre-permuted keys, then the automorphism_fused_sum
+    launch, which adds c0, applies every element's automorphism and
+    accumulates the rotations without writing them out: the sum_slots
+    stage.  (Sum lanes of ks_inner that did all of it in one launch ran
+    longer than these two launches: PERF.md.)  Decrypts as the composition
+    of apply_galois_hoisted with adds, and equals it bit for bit."""
     elements = tuple(int(g) for g in elements)
     level = ct.level
     v = _v_of(ctx, ct)
@@ -898,10 +917,12 @@ def apply_galois_hoisted_sum(ctx: SchemeContext, ct: Ciphertext, elements,
         acc_v = _noise.add(acc_v, v_rot)
     if not elements:
         return ct.replace(noise_budget=_b_of(ctx, level, acc_v))
-    ct, delta, hs = _hoisted_deltas(ctx, ct, elements, gal_keys, pre_keys,
-                                    keys_at_level)
-    data = galois_cuda.automorphism_fused_sum(delta, hs, _tb(ctx, level).p,
-                                              ct.data[:, 0], ct.data)
+    ct, d_ntt, keys = _hoisted_digits(ctx, ct, elements, gal_keys, pre_keys,
+                                      keys_at_level)
+    tb = _tb(ctx, level)
+    delta = ntt_cuda.ks_inner_batch(d_ntt, keys, tb)
+    hs = tuple(pow(g, -1, 2 * ctx.n) for g in elements)
+    data = galois_cuda.automorphism_fused_sum(delta, hs, tb.p, ct.data[:, 0], ct.data)
     return ct.replace(data=data, noise_budget=_b_of(ctx, level, acc_v))
 
 
@@ -911,13 +932,13 @@ def apply_galois_hoisted_batch(ctx: SchemeContext, cts: list, elements,
                                keys_at_level: bool = False) -> list:
     """Hoisted rotations of C independent ciphertexts by the same elements,
     sharing every launch: one batched digit decomposition (kd * C rows
-    through one ntt_forward), one ks_inner_grouped launch pairing digit
-    stack c with key set e (element c*E + e), and one automorphism_fused
-    launch with each ciphertext's c0 (its per-element-c0 lane).  Returns
-    outs[c][e], equal to apply_galois_hoisted(cts[c], elements)[e] bit for
-    bit.  One ciphertext or mixed levels fall back to apply_galois_hoisted
-    per ciphertext, as in the JAX package (``pre_keys``, made for the first
-    ciphertext's level, only serves the ciphertexts at that level)."""
+    through one ntt_forward), then one ks_inner_grouped launch in its Galois
+    lane pairing digit stack c with key set e (element c*E + e) and adding
+    phi_{g_e}(c0_c).  Returns outs[c][e], equal to
+    apply_galois_hoisted(cts[c], elements)[e] bit for bit.  One ciphertext
+    or mixed levels fall back to apply_galois_hoisted per ciphertext, as in
+    the JAX package (``pre_keys``, made for the first ciphertext's level,
+    only serves the ciphertexts at that level)."""
     if not cts:
         return []
     elements = tuple(int(g) for g in elements)
@@ -933,20 +954,16 @@ def apply_galois_hoisted_batch(ctx: SchemeContext, cts: list, elements,
         return [[] for _ in cts]
     tb = _tb(ctx, level)
     k, n = tb.k, tb.n
-    cts = [to_coeff(ctx, ct) for ct in cts]
+    data = torch.stack([to_coeff(ctx, ct).data for ct in cts], dim=2)   # [k-L, 2, C, n]
     keys = (pre_keys if pre_keys is not None
             else hoisted_galois_keys(ctx, gal_keys, elements, level, keys_at_level))
-    c1 = torch.stack([ct.data[:, 1] for ct in cts], dim=1)        # [k-L, C, n]
-    d_all = _gadget_digits(ctx, _digits(ctx, c1, level), level)   # [k-L, kd, C, n]
+    d_all = _gadget_digits(ctx, _digits(ctx, data[:, 1], level), level)  # [k-L, kd, C, n]
     kd = d_all.shape[1]
     d_ntt = ntt_cuda.ntt_forward(d_all.reshape(k, kd * len(cts), n), tb)
-    delta = ntt_cuda.ks_inner_grouped(d_ntt.view(k, kd, len(cts), n), keys, tb)
-    hs = tuple(pow(g, -1, 2 * n) for g in elements) * len(cts)
-    c0s = torch.stack([ct.data[:, 0] for ct in cts], dim=1).repeat_interleave(
-        num_e, dim=1)                                             # [k-L, C*E, n]
-    data = galois_cuda.automorphism_fused(delta, hs, tb.p, c0=c0s)
-    flat = _split_batch(data, [_galois_budget(ctx, ct) for ct in cts
-                               for _ in range(num_e)], level)
+    out = ntt_cuda.ks_inner_grouped(d_ntt.view(k, kd, len(cts), n), keys, tb, elements,
+                                    c0=data[:, 0])
+    flat = _split_batch(out, [_galois_budget(ctx, ct) for ct in cts
+                              for _ in range(num_e)], level)
     return [flat[c * num_e:(c + 1) * num_e] for c in range(len(cts))]
 
 

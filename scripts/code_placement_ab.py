@@ -55,7 +55,7 @@ def main() -> int:
     cts_a = fhe.encrypt_batch([card_pt([5 + i, 10]) for i in range(torch_ab.BATCH)], pk)
     cts_b = fhe.encrypt_batch([card_pt([3, 6 + i]) for i in range(torch_ab.BATCH)], pk)
     fn = lambda: fhe.multiply_batch(cts_a, cts_b, rlk)
-    if ntt_cuda.ntt_inverse.launches or ntt_cuda.ks_inner_batch.launches:
+    if ntt_cuda.ntt_inverse.launches or ntt_cuda.ks_inner_batch.galois_launches:
         raise RuntimeError("ntt_inverse or ks_inner_batch launched before multiply_batch")
     out = {"card": card, "tree": str(torch_ab.TREE),
            "cuda_module_loading": os.environ.get("CUDA_MODULE_LOADING"),
@@ -63,8 +63,9 @@ def main() -> int:
     gk = fhe.galoiskey_gen(sk, elements=(3, 9))
     fhe.rotate_rows_hoisted(fhe.encrypt(fhe.encode([1, 2]), pk), (1, 2), gk)
     torch.cuda.synchronize()
-    if not (ntt_cuda.ntt_inverse.launches and ntt_cuda.ks_inner_batch.launches):
-        raise RuntimeError("ntt_inverse and ks_inner_batch were expected to launch")
+    if not (ntt_cuda.ntt_inverse.launches and ntt_cuda.ks_inner_batch.galois_launches):
+        raise RuntimeError("ntt_inverse and ks_inner_batch's Galois lane were expected "
+                           "to launch")
     out["after"] = {"device_ms": torch_ab.device_ms(fn), "trace": torch_ab.trace(fn)}
     print(json.dumps(out))
     return 0

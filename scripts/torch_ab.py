@@ -3,7 +3,7 @@
 one NVIDIA card, for comparing two trees of the port (a parent and a change)
 within one run on the card:
 
-    python3 scripts/torch_ab.py [TREE]
+    python3 scripts/torch_ab.py [TREE] [--lanes]
 
 TREE (default: the checkout this script lies in) is the root of a checkout
 whose fhe_tpu_torch package is imported, and whose kernels are built, for
@@ -59,6 +59,18 @@ the headline configuration (n = 8192, log_q = 90, k = 3, kb = 5):
   - device_ms and wall_ms of the multiply and device_ms of multiply_batch
     at B = 8 at the JAX bench's k8 (log_q = 218, k = 8, ks_omega = 1) and
     k8_omega (ks_omega = 2) configurations;
+  - the rotations: device_ms and wall_ms of rotate_columns and
+    rotate_rows_batch by 1 at B = 8, and a trace (below) of rotate_rows by
+    1, rotate_columns, rotate_rows_batch, the 8 hoisted steps, their batch
+    of 4 ciphertexts and sum_slots;
+  - galois_lanes: the automorphisms with the key switch around them on
+    random residues (a rotation at B = 1 and 8, the hoisted rotations'
+    E = 8 and C x E = 4 x 8, a sum_slots stage at E = 3, also at k8_omega's
+    k = 8, kd = 4): one launch of a Galois lane where the tree has it, else
+    the parent's kernels for the same result; and
+    ks_inner_batch / ks_inner_grouped without elements (E = 8, 4 x 8, and
+    E = 3 with the hoisted lane at E = 3 beside it);
+    device ms, kernels per call and span;
   - a torch.profiler trace of 20 multiplies at n = 256 (level 0) and at the
     headline configuration, and of
     20 multiply_batch calls at B = 8 at the headline configuration, queued
@@ -67,7 +79,9 @@ the headline configuration (n = 8192, log_q = 90, k = 3, kb = 5):
     device time and the median gap before it, and per call the span from
     the first kernel's start to the last one's end, the time inside
     kernels and the idle share of the span.
-The timing methods are those of chip_smoke.py (device_ms, wall_ms).  Imports
+With --lanes it prints only the rotations' device ms and traces and
+galois_lanes, for a design A/B of the lanes across trees (in turns).  The
+timing methods are those of chip_smoke.py (device_ms, wall_ms).  Imports
 no JAX and nothing of fhe_tpu.
 """
 
@@ -83,12 +97,14 @@ from pathlib import Path
 
 import torch
 
-TREE = Path(sys.argv[1] if len(sys.argv) > 1 else Path(__file__).resolve().parent.parent)
+ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
+TREE = Path(ARGS[0] if ARGS else Path(__file__).resolve().parent.parent)
+LANES_ONLY = "--lanes" in sys.argv[1:]
 sys.path.insert(0, str(TREE.resolve()))
 
 from fhe_tpu_torch import FHE, primes  # noqa: E402
-from fhe_tpu_torch.ops import decrypt_cuda, ntt_cuda, rns_cuda  # noqa: E402
-from fhe_tpu_torch.ops import ntt, rns  # noqa: E402
+from fhe_tpu_torch.ops import decrypt_cuda, galois_cuda, ntt_cuda, rns_cuda  # noqa: E402
+from fhe_tpu_torch.ops import modmath, ntt, rns  # noqa: E402
 from fhe_tpu_torch.params import SecurityParams, make_scheme_params  # noqa: E402
 from fhe_tpu_torch.scheme import bfv  # noqa: E402
 from fhe_tpu_torch.scheme.context import make_context  # noqa: E402
@@ -337,6 +353,110 @@ def keyswitch_inputs(gen: torch.Generator, qs, kd: int, batch: int, n: int,
     return torch.stack([residues(gen, (q,), batch, n)[0] for q in qs[:kd]]), keys_t
 
 
+def galois_lanes(gen: torch.Generator) -> dict:
+    """The automorphisms with the key switch around them, at the rotations'
+    shapes (n = 8192, k = 3, kd = 3; a sum_slots stage also at k8_omega's
+    k = 8, kd = 4), on random residues: in a tree with the Galois lanes one
+    launch each, in a tree without them the parent's kernels for the same
+    result (B16 + B7 + add_mod + cat; B17 + B14; B18 + B14); a sum_slots
+    stage (B17 + B15) and B17 / B18 without elements in every tree.
+    Each: device ms, and the chain's device kernels per call and span from
+    a torch.profiler trace (trace)."""
+    lanes = hasattr(ntt_cuda.ks_inner_batch, "galois_launches")
+    ctx = quiet_context(N, LOG_Q, H)
+    tb, qs, k = ctx.ntt_q, ctx.ntt_q.primes, ctx.k
+    p3 = tb.p.view(-1, 1, 1)
+    hoist = tuple(pow(3, s, 2 * N) for s in range(1, 9))
+    keys_t = torch.stack([residues(gen, qs, 2) for _ in qs]).permute(1, 0, 2, 3)
+    calls = {}
+    for batch in (1, BATCH):
+        d = torch.stack([residues(gen, (q,), batch)[0] for q in qs])       # [kd, B, n]
+        ct = residues(gen, qs, 2 * batch).view(k, batch, 2, N).transpose(0, 1).contiguous()
+        view = ct.permute(1, 2, 0, 3)                                      # [k, 2, B, n]
+        if lanes:
+            fn = (lambda d=d, v=view: ntt_cuda.keyswitch_fused_batch(d, keys_t, tb, g=3,
+                                                                     c0=v[:, 0]))
+        else:
+            def fn(d=d, v=view, b=batch):
+                rot = galois_cuda.automorphism_fused(v, (pow(3, -1, 2 * N),) * b, tb.p)
+                delta = ntt_cuda.keyswitch_fused_batch(d, keys_t, tb)
+                return torch.stack([modmath.add_mod(rot[:, 0], delta[:, 0], p3),
+                                    delta[:, 1]], dim=1)
+        calls[f"rotation_B{batch}"] = fn
+    keys_e = residues(gen, qs, 3 * BATCH * 2).view(3, 3, BATCH, 2, N)
+    hs8 = tuple(pow(g, -1, 2 * N) for g in hoist)
+    dg1, c01 = residues(gen, qs, 3).view(3, 3, 1, N), residues(gen, qs, 1)[:, 0]
+    dg4, c04 = residues(gen, qs, 3 * 4).view(3, 3, 4, N), residues(gen, qs, 4)
+    if lanes:
+        calls["hoisted_E8"] = lambda: ntt_cuda.ks_inner_batch(dg1, keys_e, tb, hoist, c01)
+        calls["hoisted_grouped_C4_E8"] = lambda: ntt_cuda.ks_inner_grouped(
+            dg4, keys_e, tb, hoist, c04)
+    else:
+        calls["hoisted_E8"] = lambda: galois_cuda.automorphism_fused(
+            ntt_cuda.ks_inner_batch(dg1, keys_e, tb), hs8, tb.p, c01)
+        calls["hoisted_grouped_C4_E8"] = lambda: galois_cuda.automorphism_fused(
+            ntt_cuda.ks_inner_grouped(dg4, keys_e, tb), hs8 * 4, tb.p,
+            c04.repeat_interleave(BATCH, dim=1))
+    # B17 and B18 without elements, the plain inner product; and at a
+    # sum_slots stage's E = 3, with and without the Galois lane
+    calls["ks_inner_batch_E8"] = lambda: ntt_cuda.ks_inner_batch(dg1, keys_e, tb)
+    keys_3 = keys_e[:, :, :3]
+    calls["ks_inner_batch_E3"] = lambda: ntt_cuda.ks_inner_batch(dg1, keys_3, tb)
+    calls["hoisted_E3"] = (lambda: ntt_cuda.ks_inner_batch(dg1, keys_3, tb, hoist[:3], c01)
+                           if lanes else galois_cuda.automorphism_fused(
+                               ntt_cuda.ks_inner_batch(dg1, keys_3, tb), hs8[:3], tb.p, c01))
+    calls["ks_inner_grouped_C4_E8"] = lambda: ntt_cuda.ks_inner_grouped(dg4, keys_e, tb)
+    ctx8 = quiet_context(N, 218, H)
+    for label, t, kd in (("sum_E3", tb, 3), ("sum_E3_k8_omega", ctx8.ntt_q, 4)):
+        kk = t.k
+        dg = residues(gen, t.primes, kd).view(kk, kd, 1, N)
+        keys = residues(gen, t.primes, kd * 3 * 2).view(kk, kd, 3, 2, N)
+        c0, base = residues(gen, t.primes, 1)[:, 0], residues(gen, t.primes, 2)
+        calls[label] = (lambda dg=dg, keys=keys, t=t, c0=c0, base=base:
+                        galois_cuda.automorphism_fused_sum(
+                            ntt_cuda.ks_inner_batch(dg, keys, t), hs8[:3], t.p, c0, base))
+    out = {}
+    for name, fn in calls.items():
+        tr = trace(fn)
+        out[name] = {"device_ms": device_ms(fn), "kernels_per_call": tr.get("kernels_per_call"),
+                     "span_us": tr.get("span_us")}
+    return out
+
+
+def rotation_ops(fhe, sk, pk) -> tuple[dict, dict]:
+    """The rotation ops of the headline configuration: rotate_rows by 1,
+    rotate_columns, rotate_rows_batch by 1 at B = 8, the 8 hoisted steps
+    and their batch of 4, sum_slots.  Returns the ops and the Galois keys'
+    owner (to keep them alive)."""
+    cts = fhe.encrypt_batch([fhe.encode([5 + i, 10, 15, 20]) for i in range(BATCH)], pk)
+    a = cts[0]
+    hoist = tuple(pow(3, s, 2 * N) for s in range(1, 9))
+    gk = fhe.galoiskey_gen(sk, elements=hoist + (2 * N - 1,))
+    gk_ss = fhe.galoiskey_gen(sk, elements=fhe.sum_slots_elements())
+    steps = tuple(range(1, 9))
+    ops = {"rotate_rows": lambda: fhe.rotate_rows(a, 1, gk),
+           "rotate_columns": lambda: fhe.rotate_columns(a, gk),
+           "rotate_rows_batch_B8": lambda: fhe.rotate_rows_batch(cts, 1, gk),
+           "hoisted_8_steps": lambda: fhe.rotate_rows_hoisted(a, steps, gk),
+           "hoisted_batch_C4": lambda: fhe.rotate_rows_hoisted_batch(cts[:4], steps, gk),
+           "sum_slots": lambda: fhe.sum_slots(a, gk_ss)}
+    return ops, (gk, gk_ss, cts)
+
+
+def lanes_main(card: str) -> int:
+    """--lanes: the rotation ops (device ms and traces) and galois_lanes
+    only, for a design A/B across trees."""
+    fhe = FHE(poly_degree=N, log_q=LOG_Q, hamming_weight=H, seed=3, device="cuda")
+    pk, sk = fhe.keygen()
+    ops, _keep = rotation_ops(fhe, sk, pk)
+    out = {"card": card, "tree": str(TREE),
+           "device_ms": {name: device_ms(fn) for name, fn in ops.items()},
+           "traces": {name: trace(fn) for name, fn in ops.items()},
+           "galois_lanes": galois_lanes(torch.Generator(device="cuda").manual_seed(5))}
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_ab: no CUDA device", file=sys.stderr)
@@ -344,6 +464,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
+    if LANES_ONLY:
+        return lanes_main(card)
     fhe = FHE(poly_degree=N, log_q=LOG_Q, hamming_weight=H, seed=3, device="cuda")
     pk, sk = fhe.keygen()
     rlk = fhe.relinkey_gen(sk)
@@ -388,6 +510,11 @@ def main() -> int:
             out[what][name + "_per_ct"] = out[what][name] / BATCH
     out["multiply_batch_B8_trace"] = trace(ops["multiply_batch_B8"])
     out["multiply_trace"] = trace(ops["multiply"])
+    rot_ops, _keep = rotation_ops(fhe, sk, pk)
+    for name in ("rotate_columns", "rotate_rows_batch_B8"):
+        out["device_ms"][name] = device_ms(rot_ops[name])
+        out["wall_ms"][name] = wall_ms(rot_ops[name])
+    out["rotation_traces"] = {name: trace(fn) for name, fn in rot_ops.items()}
     ctx = fhe.ctx
     gen = torch.Generator(device="cuda").manual_seed(7)
     qs, (tq, tbsk) = ctx.ntt_q.primes, ctx.mul_tables
@@ -469,6 +596,7 @@ def main() -> int:
     out["multiply_k8"] = multiply_k8(1)
     out["multiply_k8_omega"] = multiply_k8(2)
     out["conv_kernels"] = conv_kernels(gen)
+    out["galois_lanes"] = galois_lanes(gen)
     out["multiply_relin_ms_n16384"] = multiply_n16384(1)
     out["multiply_relin_ms_n16384_omega2"] = multiply_n16384(2)
     print(json.dumps(out))

@@ -1,7 +1,8 @@
 """Launch geometry of the cluster kernels, on the host: ntt_forward (B1),
 ntt_inverse (B2), mul_by_ntt_operand (B3, B13), tensor_product (B4, B11),
-bsk_branch_fused (B5), keyswitch_fused (B7, B12), decrypt_fused (B8) and
-ks_inner_batch / ks_inner_grouped (B17, B18).
+bsk_branch_fused (B5), keyswitch_fused (B7, B12), decrypt_fused (B8),
+ks_inner_batch / ks_inner_grouped (B17, B18), and the Galois lanes of B7
+and B17.
 
 The wrappers choose each launch's shape in plain Python (the C entry points
 take it as given), so the choices are held here without a card: B8's
@@ -256,3 +257,40 @@ def test_b2_and_b17_n_outside_32_to_32768_raises(name, n, match):
 def test_b2_and_b17_batch_outside_the_grid_raises(name, batch):
     with pytest.raises(ValueError, match=f"{name}: batch {batch} outside"):
         GEOMETRY_OF[name](8192, batch)
+
+
+@pytest.mark.parametrize("n", [32, 256, 8192, 16384, 32768])
+@pytest.mark.parametrize("elems", [1, 2, 3, 8])
+def test_ks_inner_galois_lane_cluster_per_element_row(n, elems):
+    """The Galois lane of ks_inner (the hoisted rotations) keeps the Inner
+    lane's grid, a cluster of 2 CTAs per (element, output row, prime), and
+    adds the staged c0 row to its shared memory where both fit a block."""
+    geo = ntt_cuda.ks_inner_geometry(n, k=3, batch=elems, c0=True)
+    inner = ntt_cuda.ks_inner_geometry(n, k=3, batch=elems)
+    assert {key: geo[key] for key in ("grid", "cluster", "ctas", "threads")} == {
+        key: inner[key] for key in ("grid", "cluster", "ctas", "threads")}
+    padded = n + n // 32
+    staged = 4 * (-(-padded // 4) * 4 + n)
+    assert geo["stage_c0"] == (staged <= MAX_SMEM) == (n <= 16384)
+    assert geo["smem"] == (staged if n <= 16384 else 4 * padded)
+
+
+def test_galois_lanes_stage_a_row_and_ks_inner_runs_at_n32768():
+    """keyswitch_fused's Galois lane stages the digit row it gathers from
+    beside its two padded rows: it fits up to n = 16384 and raises above,
+    naming the function; its classic lane keeps its shape.  ks_inner's
+    Galois lane stages c0 where it fits and reads it in place at
+    n = 32768."""
+    n = 16384
+    padded = n + n // 32
+    assert ntt_cuda.keyswitch_geometry(n, 3, 3, galois=True)["smem"] == 4 * (2 * padded + n)
+    assert ntt_cuda.keyswitch_geometry(n, 3, 3)["smem"] == 4 * 2 * padded
+    with pytest.raises(ValueError, match="keyswitch_fused: n=32768 needs"):
+        ntt_cuda.keyswitch_geometry(32768, 3, 3, galois=True)
+    # ks_inner stages its c0 row where it fits (n <= 16384), and reads it in
+    # place above
+    geo = ntt_cuda.ks_inner_geometry(n, 3, 8, c0=True)
+    assert geo["stage_c0"] and geo["smem"] == 4 * (padded + n)
+    geo = ntt_cuda.ks_inner_geometry(32768, 3, 8, c0=True)
+    assert not geo["stage_c0"] and geo["smem"] == 4 * (32768 + 32768 // 32)
+    assert not ntt_cuda.ks_inner_geometry(n, 3, 8)["stage_c0"]

@@ -231,8 +231,9 @@ def test_serving_and_rotations_on_card(dev):
 
 
 # ---------------------------------------------------------------------------
-# hoisted rotations (ks_inner_batch, ks_inner_grouped, automorphism_fused_sum)
-# and the prereduced lanes of keyswitch_fused / keyswitch_fused_batch
+# hoisted rotations (ks_inner_batch, ks_inner_grouped and their Galois lanes,
+# automorphism_fused_sum), keyswitch_fused's Galois lane, and the prereduced
+# lanes of keyswitch_fused / keyswitch_fused_batch
 # ---------------------------------------------------------------------------
 
 HOIST = tuple(pow(3, s, 2 * N) for s in range(1, 9))
@@ -257,13 +258,116 @@ def test_ks_inner_grouped_kernel_matches_plain(ctx, dev):
                        tntt.ks_inner_grouped(dg, keys, tb))
 
 
+def _sum_stage_case(qs, tb, kd, elements, dev, n=N):
+    """A sum_slots stage on the card (ks_inner_batch's Inner lane, then
+    automorphism_fused_sum) and its plain chain; a run of c0 and of the
+    digits is zero."""
+    dg = _residues(qs, kd, dev, n).view(len(qs), kd, 1, n)
+    keys = _residues(qs, kd * len(elements) * 2, dev, n).view(len(qs), kd, len(elements), 2, n)
+    c0, base = _residues(qs, 1, dev, n)[:, 0], _residues(qs, 2, dev, n)
+    c0[:, :64] = 0
+    dg[..., :64] = 0
+    hs = tuple(pow(g, -1, 2 * n) for g in elements)
+    got = galois_cuda.automorphism_fused_sum(ntt_cuda.ks_inner_batch(dg, keys, tb), hs, tb.p,
+                                             c0, base)
+    want = tgalois.automorphism_fused_sum(tntt.ks_inner_batch(dg, keys, tb), hs, tb.p, c0, base)
+    return got, want
+
+
 def test_automorphism_sum_kernel_matches_plain(ctx, dev):
+    """B15 at a sum_slots stage's E = 3; a run of x and of c0 is zero, so
+    the negations meet zeros."""
     qs, p = ctx.ntt_q.primes, ctx.ntt_q.p
     hs = tuple(pow(g, -1, 2 * N) for g in HOIST[:3])
     x = _residues(qs, 2 * 3, dev).view(3, 2, 3, N)
     c0, base = _residues(qs, 1, dev)[:, 0], _residues(qs, 2, dev)
+    x[..., :64] = 0
+    c0[:, :64] = 0
     assert torch.equal(galois_cuda.automorphism_fused_sum(x, hs, p, c0, base),
                        tgalois.automorphism_fused_sum(x, hs, p, c0, base))
+
+
+@pytest.mark.parametrize("case", ["E1", "E3", "E8", "k8_omega"])
+def test_sum_stage_chain_matches_plain(ctx, dev, case):
+    """A sum_slots stage, B17 then B15, at E = 1, 3 and 8, and at
+    k8_omega's shapes (k = 8, the grouped digits' kd = 4), E = 3."""
+    if case == "k8_omega":
+        qs = _params_k8().q_primes
+        tb, kd, elements = tntt.build_tables(N, qs, dev), 4, HOIST[:3]
+    else:
+        qs, tb, kd = ctx.ntt_q.primes, ctx.ntt_q, 3
+        elements = HOIST[:int(case[1:])]
+    got, want = _sum_stage_case(qs, tb, kd, elements, dev)
+    assert got.shape == (len(qs), 2, N) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("lane", ["shared", "per_element", "grouped"])
+def test_ks_inner_galois_lane_matches_plain(ctx, dev, lane):
+    """The hoisted rotations' lane: one stack and one c0 shared by E = 8
+    elements, a stack and a c0 per element (B = 8), and C = 4 ciphertexts
+    by E = 8 elements; a run of each c0 and digit row is zero."""
+    qs, tb = ctx.ntt_q.primes, ctx.ntt_q
+    keys = _residues(qs, 3 * BATCH * 2, dev).view(3, 3, BATCH, 2, N)
+    if lane == "grouped":
+        dg = _residues(qs, 3 * 4, dev).view(3, 3, 4, N)
+        c0 = _residues(qs, 4, dev)
+        c0[..., :64] = 0
+        dg[..., :64] = 0
+        got = ntt_cuda.ks_inner_grouped(dg, keys, tb, HOIST, c0)
+        want = tntt.ks_inner_grouped(dg, keys, tb, HOIST, c0)
+    else:
+        stacks = 1 if lane == "shared" else BATCH
+        dg = _residues(qs, 3 * stacks, dev).view(3, 3, stacks, N)
+        c0 = _residues(qs, 1, dev)[:, 0] if lane == "shared" else _residues(qs, BATCH, dev)
+        c0[..., :64] = 0
+        dg[..., :64] = 0
+        got = ntt_cuda.ks_inner_batch(dg, keys, tb, HOIST, c0)
+        want = tntt.ks_inner_batch(dg, keys, tb, HOIST, c0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("lane", ["galois", "sum"])
+def test_ks_inner_lanes_at_n32768_match_plain(dev, lane):
+    """At n = 32768 the Galois lane reads c0 in place (GaloisInPlace), so
+    the hoisted rotation runs there, as does the sum_slots stage (k = 3,
+    E = 3)."""
+    n = 32768
+    qs = primes.find_ntt_primes(n, 3)
+    tb = tntt.build_tables(n, qs, dev)
+    elements = tuple(pow(3, s, 2 * n) for s in range(1, 4))
+    if lane == "sum":
+        got, want = _sum_stage_case(qs, tb, 3, elements, dev, n)
+    else:
+        dg = _residues(qs, 3, dev, n).view(3, 3, 1, n)
+        keys = _residues(qs, 3 * 3 * 2, dev, n).view(3, 3, 3, 2, n)
+        c0 = _residues(qs, 1, dev, n)[:, 0]
+        got = ntt_cuda.ks_inner_batch(dg, keys, tb, elements, c0)
+        want = tntt.ks_inner_batch(dg, keys, tb, elements, c0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("batch", [None, BATCH])
+def test_keyswitch_galois_lane_matches_plain(ctx, dev, batch):
+    """A rotation in one launch: the digits of an un-permuted c1, g = 3,
+    3^4 and 2n - 1, at B = 1 and 8; c0 read through a view of a
+    [B, k, 2, n] stack; a run of c0 and of the digits is zero, so the
+    negations meet zeros."""
+    qs, tb = ctx.ntt_q.primes, ctx.ntt_q
+    keys_t = torch.stack([_residues(qs, 2, dev) for _ in qs]).permute(1, 0, 2, 3)
+    rows = batch or 1
+    ct = _residues(qs, 2 * rows, dev).view(3, rows, 2, N).transpose(0, 1).contiguous()
+    ct[..., :64] = 0
+    c0 = ct.permute(1, 2, 0, 3)[:, 0]                                 # [k, B, n]
+    d = torch.stack([_residues((q,), rows, dev)[0] for q in qs])      # [kd, B, n]
+    d[..., :64] = 0
+    for g in (3, pow(3, 4, 2 * N), 2 * N - 1):
+        if batch is None:
+            got = ntt_cuda.keyswitch_fused(d[:, 0], keys_t, tb, g=g, c0=c0[:, 0])
+            want = tntt.keyswitch_fused(d[:, 0], keys_t, tb, g=g, c0=c0[:, 0])
+        else:
+            got = ntt_cuda.keyswitch_fused_batch(d, keys_t, tb, g=g, c0=c0)
+            want = tntt.keyswitch_fused_batch(d, keys_t, tb, g=g, c0=c0)
+        assert torch.equal(got, want), g
 
 
 def _quiet_params(n, log_q, **kw):

@@ -15,7 +15,8 @@ log_q = 90 (k = 3, kd = 2: a short last group).  relinkey_gen_from_noise
 and galoiskey_gen_from_noise from the JAX package's own draws (re-derived
 from the same key splits as bfv.relinkey_gen / galoiskey_gen and
 bfv._keyswitch_keygen); relinearize, multiply, multiply_batch, key_switch,
-rotate_rows, apply_galois_batch and apply_galois_hoisted against
+rotate_rows, apply_galois_batch, apply_galois_hoisted and
+apply_galois_hoisted_sum (a sum_slots stage on grouped digits) against
 fhe_tpu.scheme.bfv, jitted, on a use_pallas=False context (where
 bfv.multiply_batch is the single multiply per pair).  The secret key
 and the ciphertexts come from the port's *_from_noise entry points with
@@ -60,7 +61,7 @@ _gaussian = jax.jit(jsampling.gaussian_rns, static_argnums=(2, 3, 4))
 J = dataclasses.make_dataclass("J", [
     "relinkey_gen", "galoiskey_gen", "multiply_no_relin", "relinearize",
     "key_switch", "rotate_rows", "apply_galois_batch",
-    "apply_galois_hoisted", "grouped_digit_residues"])(
+    "apply_galois_hoisted", "apply_galois_hoisted_sum", "grouped_digit_residues"])(
     jax.jit(jbfv.relinkey_gen),
     jax.jit(jbfv.galoiskey_gen, static_argnames=("elements",)),
     jax.jit(jbfv.multiply_no_relin),
@@ -69,6 +70,7 @@ J = dataclasses.make_dataclass("J", [
     jax.jit(jbfv.rotate_rows, static_argnums=2),
     jax.jit(jbfv.apply_galois_batch, static_argnums=2),
     jax.jit(jbfv.apply_galois_hoisted, static_argnums=2),
+    jax.jit(jbfv.apply_galois_hoisted_sum, static_argnums=2),
     jax.jit(jbfv._grouped_digit_residues, static_argnums=2))
 
 
@@ -280,3 +282,13 @@ def test_apply_galois_hoisted_matches_jax(w):
         assert _decode(w, gi) == _decode(w, w.fhe.rotate_rows(w.cts[1], s, w.tgk))
     batch = w.fhe.rotate_rows_hoisted_batch(w.cts, (1, 2), w.tgk)
     assert all(torch.equal(x.data, y.data) for x, y in zip(batch[1], got))
+
+
+def test_apply_galois_hoisted_sum_matches_jax(w):
+    """A sum_slots stage on the grouped digits of ks_omega = 2 (prereduced
+    per-prime residues, transformed): ct + both rotations, bit for bit."""
+    ct = w.cts[0]
+    got = tbfv.apply_galois_hoisted_sum(w.tctx, ct, ELEMS, w.tgk)
+    assert_ct_equal(got, J.apply_galois_hoisted_sum(w.jctx, _jct(ct), ELEMS, w.jgk))
+    # slot j of the sum is v[j] + v[j+1] + v[j+2]
+    assert _decode(w, got)[:2] == [5 + 10 + 15, 10 + 15 + 20]
