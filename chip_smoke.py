@@ -87,12 +87,14 @@ Phases, each printing its own lines:
      multiply_relin_ms_level1) at k = 3 and k = 8 with the per-prime ratio
      (t_L1 / (k-1)) / (t_L0 / k) (bench.py's leveled_per_prime_ratio), the
      mod switch, the key down-switch and the rotations at level 4;
- 10. small: the n < 1024 multiply (sm_mrq_fused, then fast_floor_fused
-     with the conversion to q and the digits in one launch) at the JAX
-     tests' leveled configuration, n = 256, log_q = 150 (k = 5), h = 32:
-     multiply at levels 0, 1 and 2 and multiply_batch at B = 8 at level 1
-     decode; card == CPU plain path; one multiply launches fast_floor_fused
-     once and fast_bconv_sk_fused never; times and kernels per call;
+ 10. small: the n < 1024 multiply (tensor_product's Lift lane, the
+     products in q and, with the lift q -> Bsk, in Bsk in one launch, then
+     fast_floor_fused with the conversion to q and the digits in one
+     launch) at the JAX tests' leveled configuration, n = 256, log_q = 150
+     (k = 5), h = 32: multiply at levels 0, 1 and 2 and multiply_batch at
+     B = 8 at level 1 decode; card == CPU plain path; one multiply launches
+     the Lift lane once, fast_floor_fused once, and neither tensor_product's
+     plain lane, fast_bconv_sk_fused nor a cat; times and kernels per call;
  11. roofline: the modmul chain (B19) of every variant at two reps values
      on a [256, 8192] block; the slope over reps gives each step's rate:
      G modmul/s for exact, lazy and barrett Shoup/Barrett products, the
@@ -106,7 +108,10 @@ runs fast_bconv_sk_fused with the digits lane at [5,3,n], [5,24,n],
 k = 8), without digits, and on rows off an 8-byte boundary; the
 prereduced lanes at the omega path's k = 8, kd = 4; fast_floor_fused with
 the conversion to q (and digits) at n = 256, k = 5, levels 0 to 2, and its
-floor lane alone and sm_mrq_fused at n = 8192, k = 3 and at n = 256, k = 5,
+floor lane alone at n = 8192, k = 3 and at n = 256, k = 5; tensor_product's
+Lift lane (both products) at n = 256, k = 5, levels 0 to 2 (x and y as
+views of one [k, 4, n] tensor at level 1), at n = 8192, k = 3 (kb = 5)
+and k = 8 (kb = 10),
 modmul_chain of every variant on a [256, 8192] block, and the cluster
 kernels around the main path: mul_by_ntt_operand and tensor_product (and
 their batch forms) at n = 256 (k = 5), 8192 and 16384, level views (level 1
@@ -290,8 +295,11 @@ KERNELS = {
                                              source="fhe_tpu_torch/csrc/ntt.cu",
                                              replaces="fhe_tpu/ops/ntt_pallas.py:1269",
                                              path="omega"),
-    "sm_mrq_fused": dict(fn=rns_cuda.sm_mrq_fused, source="fhe_tpu_torch/csrc/rns.cu",
-                         replaces="fhe_tpu/ops/rns_pallas.py:105", path="small"),
+    # B9 as tensor_product's Lift lane: the n < 1024 multiply's products in q
+    # and, with the lift q -> Bsk, in Bsk in one launch
+    "tensor_product_lift": dict(fn=ntt_cuda.tensor_product, counter="lift_launches",
+                                source="fhe_tpu_torch/csrc/ntt.cu",
+                                replaces="fhe_tpu/ops/rns_pallas.py:105", path="small"),
     "fast_floor_fused": dict(fn=rns_cuda.fast_floor_fused,
                              source="fhe_tpu_torch/csrc/rns.cu",
                              replaces="fhe_tpu/ops/rns_pallas.py:147", path="small"),
@@ -307,8 +315,8 @@ LEVELED_KERNELS = ("ntt_forward", "ntt_inverse", "mul_by_ntt_operand", "decrypt_
                    "ks_inner_batch", "automorphism_fused_sum", "ks_inner_batch_galois",
                    "ks_inner_grouped_galois")
 SMALL_KERNELS = ("ntt_forward", "ntt_inverse", "mul_by_ntt_operand", "decrypt_fused",
-                 "tensor_product", "fast_bconv_sk_fused", "keyswitch_fused",
-                 "tensor_product_batch", "keyswitch_fused_batch", "bsk_branch_fused_batch")
+                 "fast_bconv_sk_fused", "keyswitch_fused", "tensor_product_batch",
+                 "keyswitch_fused_batch", "bsk_branch_fused_batch")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -443,17 +451,25 @@ def tensor_product_work(k: int, batch: int = 1, n: int = N) -> tuple[float, floa
     return nbytes, batch * k * (sweeps_ops(4, 3, n) + product_ops(n))
 
 
+def lift_ops(k: int, cols: int) -> float:
+    """The SmMRq lift of cols coefficients from k q primes into one Bsk
+    prime, its k source digits aside (they do not depend on the Bsk prime):
+    per output each digit's conversion and m~ lane step, the lane's close,
+    the centred correction and the m~^-1 scale."""
+    o = OPS
+    return cols * (k * (o["mul_shoup"] + o["add_mod"] + o["lane16"])
+                   + o["mul16"] + o["select"] + 2 * o["mul_shoup"] + o["sub_mod"])
+
+
 def bsk_branch_work(k: int, kb: int, batch: int = 1, n: int = N) -> tuple[float, float]:
     """ab [k, 4, batch, N] and tx_q [k, 3, batch, N] in, [kb, 3, batch, N]
     out, Bsk tables.  The k source digits of the lift's 4N and the floor's
     3N coefficients do not depend on the Bsk prime, so they count once (the
-    kernel forms them again in each block).  Per Bsk prime: each digit's
-    conversion and m~ lane step, the centred correction, the sweeps and
-    product, and the floor; all of it once per element."""
+    kernel forms them again in each block).  Per Bsk prime: the lift, the
+    sweeps and product, and the floor; all of it once per element."""
     o = OPS
     digits = (4 + 3) * n * k * o["mul_shoup"]
-    lift = 4 * n * (k * (o["mul_shoup"] + o["add_mod"] + o["lane16"])
-                    + o["mul16"] + o["select"] + 2 * o["mul_shoup"] + o["sub_mod"])
+    lift = lift_ops(k, 4 * n)
     floor = 3 * n * (k * (o["mul_shoup"] + o["add_mod"])
                      + o["sub_mod"] + o["mul_shoup"])
     nbytes = 4 * (batch * (4 * k * n + 3 * k * n + 3 * kb * n) + 4 * kb * n)
@@ -621,15 +637,15 @@ def chain_input(gen: torch.Generator, ctx) -> tuple[torch.Tensor, tuple]:
     return x, (w, (w << 32) // p, p, (1 << 61) // p)
 
 
-def sm_mrq_work(k: int, kb: int, cols: int) -> tuple[float, float]:
-    """x [k, cols] in, [kb, cols] out.  The k source digits count once per
-    coefficient (the kernel forms them again for each Bsk prime); per
-    output its conversion and m~ lane steps, the centred correction and the
-    m~^-1 scale."""
-    o = OPS
-    per_out = (k * (o["mul_shoup"] + o["add_mod"] + o["lane16"]) + o["mul16"]
-               + o["select"] + 2 * o["mul_shoup"] + o["sub_mod"])
-    return 4 * (k + kb) * cols, cols * k * o["mul_shoup"] + kb * cols * per_out
+def tensor_product_lift_work(k: int, kb: int, n: int = N) -> tuple[float, float]:
+    """tensor_product's Lift lane: x, y [k, 2, n] in q in, [k + kb, 3, n]
+    out, the q and Bsk tables; the q side's sweeps and product, and on the
+    Bsk side the k source digits of the 4n coefficients once (the kernel
+    forms them again for each Bsk prime) and per Bsk prime the lift, the
+    sweeps and the product."""
+    ops = (k * (sweeps_ops(4, 3, n) + product_ops(n)) + 4 * n * k * OPS["mul_shoup"]
+           + kb * (lift_ops(k, 4 * n) + sweeps_ops(4, 3, n) + product_ops(n)))
+    return 4 * (4 * k * n + 3 * (k + kb) * n + 4 * (k + kb) * n), ops
 
 
 def floor_ops(k: int, kb: int, cols: int) -> float:
@@ -734,6 +750,34 @@ def conv_cases(gen: torch.Generator, ctx) -> list:
                 lambda: rns_cuda.fast_bconv_sk_fused(odd, ctx.sk_c, digit_consts(ctx)),
                 lambda: rns.fast_bconv_sk_digits(odd, ctx.sk_c, ctx.inv_qhat),
                 fast_bconv_sk_work(kb, k, 3 * BATCH, digits=True)))
+    return out
+
+
+def lift_cases(gen: torch.Generator, ctx_s, ctx) -> list:
+    """tensor_product's Lift lane (B9 folded into B4: the products in q and
+    of the lifts in Bsk, one launch) at the n = 256, k = 5 multiply's
+    shapes, levels 0, 1 and 2 (level 1: x and y as views of one [k, 4, n]
+    tensor, read in place), then at the headline [3, 2, 8192] (kb = 5) and
+    at k = 8 (kb = 10)."""
+    out = []
+    ctx8 = make_context(params_leveled(), device="cuda")
+    shapes = [(ctx_s, level) for level in (0, 1, 2)] + [(ctx, 0), (ctx8, 0)]
+    for c, level in shapes:
+        n, (tq, tbsk), sc = c.n, c.mul_levels[level], c.smq_levels[level]
+        k, kb = tq.k, tbsk.k
+        if c is ctx_s and level == 1:
+            xy = residues(gen, tq.primes, 4, n)
+            x, y, what = xy[:, :2], xy[:, 2:], f"views of [{k},4,{n}]"
+        else:
+            x, y = residues(gen, tq.primes, 2, n), residues(gen, tq.primes, 2, n)
+            what = f"x, y [{k},2,{n}]"
+        label = f"level {level} of k={c.k}: " if c is ctx_s else ""
+        args = (x, y, tq, sc, tbsk)
+        out.append(("tensor_product_lift", f"{label}{what} -> [{k},3,{n}] + [{kb},3,{n}]",
+                    lambda a=args: ntt_cuda.tensor_product(*a[:3], lift=a[3:]),
+                    lambda a=args: (plain_ntt.tensor_product(*a[:3]),
+                                    rns.tensor_product_lift(a[0], a[1], *a[3:])),
+                    tensor_product_lift_work(k, kb, n)))
     return out
 
 
@@ -1012,29 +1056,24 @@ def phase_kernels(gen: torch.Generator) -> dict:
                   lambda: ntt_cuda.keyswitch_fused_batch(d8_classic_b, keys8, tb8),
                   lambda: plain_ntt.keyswitch_fused_batch(d8_classic_b, keys8, tb8),
                   keyswitch_work(k8, kd8, BATCH)))
-    # the n < 1024 multiply's lift (B9) and its floor with the conversion to
-    # q (B10 with B6, the FloorSK lane): at n = 256, k = 5 with each level's
-    # constants (the small path), the lift also at the headline shapes
-    # (the four rows of a multiply, k = 3, kb = 5); then the floor lane
-    # alone (B10) there
+    # the n < 1024 multiply's products with the lift (B9 as B4's Lift
+    # lane) and its floor with the conversion to q (B10 with B6, the
+    # FloorSK lane): at n = 256, k = 5 with each level's constants (the
+    # small path), the lane also at the headline shapes (k = 3, kb = 5) and
+    # at k = 8 (kb = 10); then the floor lane alone (B10) at the headline
+    # shapes
     ctx_s = make_context(params_small(), device="cuda")
+    cases += lift_cases(gen, ctx_s, ctx)
     cases += floor_sk_cases(gen, ctx_s)
-    ab, tx_q = residues(gen, qs, 4), residues(gen, qs, 3)
+    tx_q = residues(gen, qs, 3)
     tx_bsk = residues(gen, prm.bsk_primes, 3)
-    cases.append(("sm_mrq_fused", f"[{k},4,{N}] -> [{kb},4,{N}]",
-                  lambda: rns_cuda.sm_mrq_fused(ab, ctx.smq),
-                  lambda: rns.sm_mrq(ab, ctx.smq), sm_mrq_work(k, kb, 4 * N)))
     cases.append(("fast_floor_fused", f"floor lane [{k},3,{N}] + [{kb},3,{N}] -> [{kb},3,{N}]",
                   lambda: rns_cuda.fast_floor_fused(tx_q, tx_bsk, ctx.floor_c),
                   lambda: rns.fast_floor(tx_q, tx_bsk, ctx.floor_c),
                   fast_floor_work(k, kb, 3 * N)))
     qs_s, bsk_s = ctx_s.ntt_q.primes[:4], ctx_s.mul_levels[1][1].primes
-    ab_s, txq_s = residues(gen, qs_s, 4, 256), residues(gen, qs_s, 3, 256)
-    txb_s = residues(gen, bsk_s, 3, 256)
-    sc_s, fc_s = ctx_s.smq_levels[1], ctx_s.floor_levels[1]
-    cases.append(("sm_mrq_fused", f"level 1 of k=5: [4,4,256] -> [{len(bsk_s)},4,256]",
-                  lambda: rns_cuda.sm_mrq_fused(ab_s, sc_s),
-                  lambda: rns.sm_mrq(ab_s, sc_s), sm_mrq_work(4, len(bsk_s), 4 * 256)))
+    txq_s, txb_s = residues(gen, qs_s, 3, 256), residues(gen, bsk_s, 3, 256)
+    fc_s = ctx_s.floor_levels[1]
     cases.append(("fast_floor_fused",
                   f"floor lane, level 1 of k=5: [4,3,256] -> [{len(bsk_s)},3,256]",
                   lambda: rns_cuda.fast_floor_fused(txq_s, txb_s, fc_s),
@@ -2279,9 +2318,9 @@ def phase_leveled() -> dict:
 
 
 def phase_small() -> dict:
-    """The n < 1024 multiply (sm_mrq_fused, fast_floor_fused) at levels 0, 1
-    and 2 and multiply_batch at level 1, then the CPU plain path, then
-    times."""
+    """The n < 1024 multiply (tensor_product's Lift lane, fast_floor_fused)
+    at levels 0, 1 and 2 and multiply_batch at level 1, then the CPU plain
+    path, then times, and what one multiply launches."""
     fhe = FHE(params_small(), seed=29, device="cuda")
     n, t = fhe.params.n, fhe.params.t
     check((n, fhe.params.k) == (256, 5), f"expected n = 256, k = 5, got {n}, {fhe.params.k}")
@@ -2331,14 +2370,22 @@ def phase_small() -> dict:
         fhe.ctx, cts_a, cts_b, rlk1, keys_at_level=True)
     print("phase small wall_ms", json.dumps({op: wall_ms(fn) for op, fn in ops.items()}))
     print("phase small device_ms", json.dumps({op: device_ms(fn) for op, fn in ops.items()}))
-    # one multiply floors and converts to q in one launch: no B6 of its own
+    # one multiply forms both products and the lift in one launch (the Lift
+    # lane), and floors and converts to q in one more: no B6 of its own, and
+    # no cat
     before = read_counts()
     ops["multiply_l0"]()
     torch.cuda.synchronize()
     one = {name: c - before[name] for name, c in read_counts().items()}
-    check(one["fast_floor_fused"] == 1 and one["fast_bconv_sk_fused"] == 0,
-          f"the n=256 multiply launched fast_floor_fused {one['fast_floor_fused']} and "
-          f"fast_bconv_sk_fused {one['fast_bconv_sk_fused']} times, expected 1 and 0")
+    want = {"tensor_product_lift": 1, "tensor_product": 0, "fast_floor_fused": 1,
+            "fast_bconv_sk_fused": 0, "bsk_branch_fused": 0}
+    got = {name: one[name] for name in want}
+    check(got == want, f"the n=256 multiply launched {got}, expected {want}")
+    names = profiled_kernels(ops["multiply_l0"])
+    cats = [name for name in names if "CatArray" in name]      # torch.cat's kernels
+    check(not cats, f"the n=256 multiply launched {cats}")
+    print("phase small one multiply", json.dumps({"launches": got,
+                                                  "kernels_per_call": len(names)}))
     print_profiled("small", {op: ops[op] for op in ("multiply_l0", "multiply_l1",
                                                     "multiply_no_relin_l1")})
     return launches

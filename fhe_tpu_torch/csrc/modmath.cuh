@@ -24,9 +24,9 @@
 // and one term of an unreduced 64-bit sum of products, s += (uint64) y * w
 // (one IMAD.WIDE), which reduce_wide closes:
 //   OPS mac_wide 1
-// and the steps rns.cu writes inline: centring a correction alpha into the
-// destination prime (compare; add of a per-prime constant, c - 2^16 or
-// q_j - m_sk; select), one step of the m~ = 2^16 lane,
+// and the steps rns.cu and lift.cuh write inline: centring a correction
+// alpha into the destination prime (compare; add of a per-prime constant,
+// c - 2^16 or q_j - m_sk; select), one step of the m~ = 2^16 lane,
 // (lane + (y & 0xFFFF) * w) & 0xFFFF (mask, multiply-add, mask), and the
 // lane's closing (lane * q^-1) & 0xFFFF (multiply, mask):
 //   OPS select 3

@@ -53,7 +53,15 @@
 // bsk_branch_fused ran 1.3 % slower than the parent at the headline shape
 // and 2.7 % at kb = 10, where its own body ran 0.6 % slower, in the same
 // call (PERF.md).  So a change to the product or to the pass schedule
-// is made in both kernels.
+// is made in both kernels.  The n < 1024 multiply's two products are
+// tensor_product's Lift lane (a template parameter, so the plain lane's
+// code is what it was): one launch of k + kb clusters, the q side's beside
+// the Bsk side's, whose CTAs first lift their input row from the k q
+// primes into the cluster's Bsk prime with the lift of csrc/lift.cuh that
+// bsk_branch_fused runs.  That replaces fhe_tpu/ops/rns_pallas.py
+// sm_mrq_fused, which wrote a [kb, 4, n] lift that a second tensor_product
+// launch read back after the q side's; the floor and the conversion to q
+// follow in one base_conv_kernel launch (csrc/rns.cu, FloorSK lane).
 //
 // keyswitch_fused (the relinearization and every key switch of a rotation)
 // and ntt_forward (every domain change: keygen, the key generators, the
@@ -118,6 +126,7 @@
 #include <atomic>
 #include <cstdint>
 
+#include "lift.cuh"
 #include "modmath.cuh"
 
 namespace {
@@ -276,6 +285,24 @@ mul_by_ntt_operand_kernel(const uint32_t* __restrict__ u, long long u_sp, long l
   cluster.sync();
 }
 
+// The lanes of tensor_product_kernel: Plain (x and y residues in the
+// tables' primes, row i of each for prime i) and Lift (the n < 1024
+// multiply's two products in one launch: that of x and y in q, and that of
+// their lifts into the Bsk base).
+enum class ProductLane { Plain, Lift };
+
+// The tables of one base (ops/ntt.py NTTTables, in table_ptrs' order).
+struct ProductTables {
+  const uint32_t* p;
+  const uint32_t* mu;
+  const uint32_t* psi;
+  const uint32_t* psi_sh;
+  const uint32_t* ipsi;
+  const uint32_t* ipsi_sh;
+  const uint32_t* n_inv;
+  const uint32_t* n_inv_sh;
+};
+
 // Cluster (b, i) of 8 CTAs: out[i, :, b] = INTT(c0, c1, c2) with (c0, c1,
 // c2) = (x0*y0, x0*y1 + x1*y0, x1*y1) the tensor product of NTT(x[i, :, b])
 // and NTT(y[i, :, b]) (Barrett, 30-bit p).  Element (i, c, b, j) of x and of
@@ -294,6 +321,17 @@ mul_by_ntt_operand_kernel(const uint32_t* __restrict__ u, long long u_sp, long l
 // cluster barrier and stay until the peers have read their rows.  Shared
 // memory: two padded rows, the transformed input row (read by the peers)
 // and the sweeps' working row (read by the partner).
+//
+// The Lift lane: x and y hold residues in the k = lo.k q primes, and the
+// grid's k + kb clusters per element form both products of the n < 1024
+// multiply side by side, on other SMs at the same time.  Cluster z < k is
+// the q side, on the tables tq; cluster z >= k the Bsk side: its CTAs lift
+// their input row from the k q primes into the Bsk prime c_i, i = z - k
+// (row i of the kernel's tables and of lo's [l] and [l, k] tables), with
+// lift.cuh's lift, before the forward transform.  out is [k + kb, 3, B, n]:
+// t x (x) y in q, then in Bsk.  The source prime of the lift runs over x's
+// rows (stride s_p), the output prime i over the tables and constants.
+template <ProductLane LANE>
 __global__ void __launch_bounds__(512)
 tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
                       long long s_p, long long s_c, long long s_b,
@@ -303,7 +341,9 @@ tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
                       const uint32_t* __restrict__ ipsi,
                       const uint32_t* __restrict__ ipsi_sh,
                       const uint32_t* __restrict__ n_inv,
-                      const uint32_t* __restrict__ n_inv_sh, int logn) {
+                      const uint32_t* __restrict__ n_inv_sh, int logn,
+                      const fhe::SmMRqOperands lo, const ProductTables tq) {
+  constexpr bool lifted = LANE == ProductLane::Lift;
   extern __shared__ uint32_t sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
@@ -312,26 +352,60 @@ tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
   const int rank = static_cast<int>(cluster.block_rank());
   const int r = rank / kRowSplit, h = rank % kRowSplit;
   const int b = blockIdx.y;
-  const int i = blockIdx.z;
-  const uint32_t pi = p[i];
+  const int z = blockIdx.z;                  // the output prime
+  // the Lift lane's q side takes tq; its Bsk side, prime i of the tables,
+  // lifts (in the Plain lane both are false and i = z)
+  const bool qside = lifted && z < lo.k;
+  const bool lift_row = lifted && !qside;
+  const int i = lift_row ? z - lo.k : z;
+  const uint32_t* __restrict__ tp = qside ? tq.p : p;
+  const uint32_t* __restrict__ tmu = qside ? tq.mu : mu;
+  const uint32_t* __restrict__ tpsi = qside ? tq.psi : psi;
+  const uint32_t* __restrict__ tpsi_sh = qside ? tq.psi_sh : psi_sh;
+  const uint32_t* __restrict__ tipsi = qside ? tq.ipsi : ipsi;
+  const uint32_t* __restrict__ tipsi_sh = qside ? tq.ipsi_sh : ipsi_sh;
+  const uint32_t* __restrict__ tn_inv = qside ? tq.n_inv : n_inv;
+  const uint32_t* __restrict__ tn_inv_sh = qside ? tq.n_inv_sh : n_inv_sh;
+  const uint32_t pi = tp[i];
   const size_t tab = static_cast<size_t>(i) * n;
   static_assert(kRowSplit == 2, "the split below names both CTAs of a row");
   const fhe::RowSplit<kRowSplit> split{{cluster.map_shared_rank(work, r * kRowSplit),
                                         cluster.map_shared_rank(work, r * kRowSplit + 1)},
                                        h};
   auto sync = [&] { cluster.sync(); };
-  const uint32_t* src = (r < 2 ? x : y) + i * s_p + (r & 1) * s_c + b * s_b;
+  // a lifting CTA reads source prime 0's row and steps by s_p over the k
+  const uint32_t* src = (r < 2 ? x : y) + (lift_row ? 0 : z * s_p) + (r & 1) * s_c + b * s_b;
+  if (lift_row) {
+    // the first pass's elements of row r for this CTA (its columns j mod
+    // n/16, modmath.cuh's RowSplit note) lifted into c_i and staged in the
+    // working row by every thread of the CTA, a coefficient each with its
+    // k source loads in flight: at n < 1024 the first pass has n/32 groups
+    // per CTA, and lifting a group of 16 in one thread, k loads after one
+    // another, took 3 us (PERF.md)
+    const fhe::SmMRqLift lift(lo, i, pi);
+    const int cols = (n >> fhe::kRegLog) / kRowSplit;
+    const int logc = logn - fhe::kRegLog - 1;
+    for (int e = threadIdx.x; e < n / kRowSplit; e += blockDim.x) {
+      const int j = ((e >> logc) << (logn - fhe::kRegLog)) + h * cols + (e & (cols - 1));
+      work[fhe::padded_index(j)] = lift.one(src + j, s_p);
+    }
+    __syncthreads();
+  }
   fhe::fwd_ntt_regs_split(
-      work, split, sync, logn, pi, psi + tab, psi_sh + tab,
+      work, split, sync, logn, pi, tpsi + tab, tpsi_sh + tab,
       [&](auto& v, int base, int logs) {
+        if (lift_row) {
+          fhe::SmemLoad{work}(v, base, logs);
+        } else {
 #pragma unroll
-        for (int g = 0; g < static_cast<int>(sizeof(v) / sizeof(v[0])); ++g)
-          v[g] = src[base + (g << logs)];
+          for (int g = 0; g < static_cast<int>(sizeof(v) / sizeof(v[0])); ++g)
+            v[g] = src[base + (g << logs)];
+        }
       },
       fhe::SmemStore{row});
   cluster.sync();
   if (r < 3) {
-    const uint32_t mui = mu[i];
+    const uint32_t mui = tmu[i];
     const uint32_t* x0 = cluster.map_shared_rank(row, 0 * kRowSplit + h);
     const uint32_t* x1 = cluster.map_shared_rank(row, 1 * kRowSplit + h);
     const uint32_t* y0 = cluster.map_shared_rank(row, 2 * kRowSplit + h);
@@ -347,9 +421,9 @@ tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
                        : fhe::mul_barrett(pa[e], pb[e], pi, mui);
     }
     __syncthreads();
-    uint32_t* dst = out + ((static_cast<size_t>(i) * 3 + r) * gridDim.y + b) * n;
+    uint32_t* dst = out + ((static_cast<size_t>(z) * 3 + r) * gridDim.y + b) * n;
     fhe::inv_ntt_regs_split(
-        work, split, sync, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i],
+        work, split, sync, logn, pi, tipsi + tab, tipsi_sh + tab, tn_inv[i], tn_inv_sh[i],
         fhe::SmemLoad{work}, [&](auto& v, int base, int logs) {
 #pragma unroll
           for (int g = 0; g < static_cast<int>(sizeof(v) / sizeof(v[0])); ++g)
@@ -759,6 +833,36 @@ inline int lane_smem(int words, int n, bool staged) {
   return 4 * (staged ? stage_offset(words) + n : words);
 }
 
+template <ProductLane LANE>
+cudaError_t launch_tensor_product(const void* x, const void* y, long long s_p, long long s_c,
+                                  long long s_b, void* out, const void* p, const void* mu,
+                                  const void* psi, const void* psi_sh, const void* ipsi,
+                                  const void* ipsi_sh, const void* n_inv,
+                                  const void* n_inv_sh, int k, int batch, int logn,
+                                  int threads, int smem, const fhe::SmMRqOperands& lo,
+                                  const ProductTables& tq, cudaStream_t stream) {
+  if (logn <= fhe::kRegLog || smem < 2 * 4 * fhe::padded(1 << logn)
+      || (LANE == ProductLane::Lift
+          && (lo.k < 1 || lo.k > fhe::kMaxLiftK || k <= lo.k || tq.p == nullptr)))
+    return cudaErrorInvalidValue;
+  static std::atomic<size_t> granted[fhe::kMaxDevices];
+  static std::atomic<size_t> placed[fhe::kMaxDevices];
+  const void* kernel = reinterpret_cast<const void*>(tensor_product_kernel<LANE>);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = fhe::cluster_config(
+      dim3(kProductCluster, batch, k), threads, smem, kProductCluster, stream, attr);
+  err = fhe::check_cluster(kernel, cfg, placed);
+  if (err != cudaSuccess) return err;
+  auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  err = cudaLaunchKernelEx(&cfg, tensor_product_kernel<LANE>, c(x), c(y), s_p, s_c, s_b,
+                           static_cast<uint32_t*>(out), c(p), c(mu), c(psi), c(psi_sh),
+                           c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), logn, lo, tq);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 template <KsLane LANE>
 cudaError_t launch_keyswitch(const void* d, long long d_sp, long long d_sj, long long d_sb,
                              const void* keys, long long key_sp, long long key_sj, void* out,
@@ -909,30 +1013,35 @@ int fhe_mul_by_ntt_operand(const void* u, long long u_sp, long long u_sb, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// tensor_product's lanes: Plain where lift_q is null, else Lift, with the
+// lift's constants (lift.cuh SmMRqOperands: lift_k source primes) and the
+// q tables (tq_*, table_ptrs' order); then k counts the lift_k q primes and
+// the Bsk primes of the tables p .. n_inv_sh.
 int fhe_tensor_product(const void* x, const void* y, long long s_p, long long s_c,
                        long long s_b, void* out, const void* p, const void* mu,
                        const void* psi, const void* psi_sh, const void* ipsi,
                        const void* ipsi_sh, const void* n_inv, const void* n_inv_sh, int k,
-                       int batch, int logn, int threads, int smem, void* stream) {
-  if (logn <= fhe::kRegLog || smem < 2 * 4 * fhe::padded(1 << logn))
-    return static_cast<int>(cudaErrorInvalidValue);
-  static std::atomic<size_t> granted[fhe::kMaxDevices];
-  static std::atomic<size_t> placed[fhe::kMaxDevices];
-  const void* kernel = reinterpret_cast<const void*>(tensor_product_kernel);
-  cudaError_t err = fhe::allow_smem(kernel, smem, granted);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = fhe::cluster_config(
-      dim3(kProductCluster, batch, k), threads, smem, kProductCluster,
-      static_cast<cudaStream_t>(stream), attr);
-  err = fhe::check_cluster(kernel, cfg, placed);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                       int batch, int logn, int threads, int smem, const void* lift_q,
+                       const void* lift_w, const void* lift_w_sh, const void* lift_phat,
+                       const void* lift_phat_sh, const void* lift_phat_mt,
+                       const void* lift_q_mod_c, const void* lift_q_mod_c_sh,
+                       const void* lift_inv_mt_c, const void* lift_inv_mt_c_sh,
+                       unsigned lift_inv_q_mt, int lift_k, const void* tq_p,
+                       const void* tq_mu, const void* tq_psi, const void* tq_psi_sh,
+                       const void* tq_ipsi, const void* tq_ipsi_sh, const void* tq_n_inv,
+                       const void* tq_n_inv_sh, void* stream) {
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  err = cudaLaunchKernelEx(&cfg, tensor_product_kernel, c(x), c(y), s_p, s_c, s_b,
-                           static_cast<uint32_t*>(out), c(p), c(mu), c(psi), c(psi_sh),
-                           c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), logn);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  const fhe::SmMRqOperands lo{c(lift_q), c(lift_w), c(lift_w_sh), c(lift_phat),
+                              c(lift_phat_sh), c(lift_phat_mt), c(lift_q_mod_c),
+                              c(lift_q_mod_c_sh), c(lift_inv_mt_c), c(lift_inv_mt_c_sh),
+                              static_cast<uint32_t>(lift_inv_q_mt), lift_k};
+  const ProductTables tq{c(tq_p), c(tq_mu), c(tq_psi), c(tq_psi_sh), c(tq_ipsi),
+                         c(tq_ipsi_sh), c(tq_n_inv), c(tq_n_inv_sh)};
+  auto* launch = lift_q != nullptr ? &launch_tensor_product<ProductLane::Lift>
+                                   : &launch_tensor_product<ProductLane::Plain>;
+  return static_cast<int>(launch(x, y, s_p, s_c, s_b, out, p, mu, psi, psi_sh, ipsi, ipsi_sh,
+                                 n_inv, n_inv_sh, k, batch, logn, threads, smem, lo, tq,
+                                 static_cast<cudaStream_t>(stream)));
 }
 
 // keyswitch_fused's lanes: 0 Classic, 1 Prereduced, 2 Galois (h_gal =

@@ -1,20 +1,19 @@
 // BEHZ base-conversion kernels of the ciphertext multiply for Hopper (sm_90a).
 //
 // Replaces fhe_tpu/ops/rns_pallas.py: bsk_branch_fused (body
-// _bsk_branch_kernel), fast_bconv_sk_fused (body _sk_kernel), and the n < 1024
-// multiply's sm_mrq_fused (body _smq_kernel) and fast_floor_fused (body
-// _floor_kernel).  Plain versions: fhe_tpu_torch/ops/rns.py (bsk_branch_fused
-// and bsk_branch_fused_batch, fast_bconv_sk, sm_mrq, fast_floor).  The JAX
-// multiply_batch runs the Bsk branch as vmapped jnp chains around
-// tensor_product_batch; here it is this one kernel with a batch grid axis,
-// which computes the same residues.
+// _bsk_branch_kernel), fast_bconv_sk_fused (body _sk_kernel) and the n < 1024
+// multiply's fast_floor_fused (body _floor_kernel).  Plain versions:
+// fhe_tpu_torch/ops/rns.py (bsk_branch_fused and bsk_branch_fused_batch,
+// fast_bconv_sk, fast_floor).  The n < 1024 multiply's sm_mrq_fused is the
+// Lift lane of tensor_product (csrc/ntt.cu), with the lift of csrc/lift.cuh
+// that bsk_branch_fused runs too.  The JAX multiply_batch runs the Bsk
+// branch as vmapped jnp chains around tensor_product_batch; here it is this
+// one kernel with a batch grid axis, which computes the same residues.
 //
 // bsk_branch_fused, for element b and Bsk prime c_j (B = 1 for the single
 // multiply, the batch size for multiply_batch):
-//   1. SmMRq lift of the four rows a0, a1, b0, b1 from q into c_j: digits
-//      y_i = [x_i * m~ * (q/q_i)^-1]_{q_i}, conv = sum_i y_i * (q/q_i) mod c_j
-//      and the m~ = 2^16 lane sum_i (y_i & 0xFFFF) * (q/q_i) mod 2^16; alpha =
-//      lane * q^-1 mod 2^16, centred; lift = (conv - alpha*q) * m~^-1 mod c_j;
+//   1. SmMRq lift of the four rows a0, a1, b0, b1 from q into c_j
+//      (csrc/lift.cuh);
 //   2. forward NTT of the four rows, tensor product, inverse NTT of three
 //      rows with t * n^-1 (the Bsk half of the multiply's tables);
 //   3. FastFloor: (tx_bsk - conv(tx_q)) * q^-1 mod c_j, with tx_q [k, 3, n]
@@ -49,19 +48,12 @@
 // lanes' constant tables (a few hundred words) are staged once per CTA in
 // shared memory while the thread's input words are in flight.
 //
-// sm_mrq_fused is step 1 of bsk_branch_fused on its own, for the n < 1024
-// multiply, which runs the Bsk tensor product as a separate tensor_product
-// launch, as the JAX package does.  One thread per output residue (Bsk
-// prime j, row, coefficient) forms the k source digits it needs, with the
-// __device__ function that bsk_branch_fused calls (sm_mrq_coeff), so the
-// two paths cannot drift.
-//
-// Every digit y_i is a residue mod its own source prime and may exceed the
-// destination prime (m_sk and several aux primes are below some q_i), so
-// every product with a digit is a Shoup multiply, exact for any x < 2^32,
-// or (base_conv_kernel) an unreduced 64-bit product of two words below 2^30;
-// mul_barrett only ever sees reduced operands.  The m~ lane is arithmetic
-// mod 2^16 in uint32 with a mask: (2^16 - 1)^2 + 2^16 < 2^32.
+// Every digit of the floor and the conversions is a residue mod its own
+// source prime and may exceed the destination prime (m_sk and several aux
+// primes are below some q_i), so every product with a digit is a Shoup
+// multiply, exact for any x < 2^32, or (base_conv_kernel) an unreduced
+// 64-bit product of two words below 2^30; mul_barrett only ever sees
+// reduced operands.
 //
 // What bounds them on the H100.  bsk_branch_fused at n = 8192, k = 3,
 // kb = 5 reads 7 * 96 KB of residues and 5 * 128 KB of tables and writes
@@ -82,8 +74,8 @@
 // bound by launch latency; at [10, 24, 8192] (the k = 8 multiply_batch) it
 // reads 7.9 MB and writes 6.3 MB, and there the memory rate and the digit
 // arithmetic bound it, which forming each digit once cuts k-fold.  The
-// n < 1024 multiply gives sm_mrq_fused and the FloorSK lane 7 K
-// coefficients or fewer: they are bound by launch latency.
+// n < 1024 multiply gives the FloorSK lane 1.5 K coefficients or fewer: it
+// is bound by launch latency.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -91,56 +83,15 @@
 #include <atomic>
 #include <cstdint>
 
+#include "lift.cuh"
 #include "modmath.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr uint32_t kMask16 = 0xFFFFu;
 // CTAs per input row of bsk_branch_fused (ops/rns_cuda.py: BSK_ROW_SPLIT)
 constexpr int kRowSplit = 2;
-
-// The SmMRq centred lift into the destination prime c (bsk_branch_fused
-// step 1, sm_mrq_fused), one source prime at a time.  sm_mrq_step folds in
-// the residue x_i of source prime q_i: the digit y_i = [x_i * m~ *
-// (q/q_i)^-1]_{q_i} (w, w_sh), conv += y_i * (q/q_i) mod c (phat, phat_sh:
-// c's entry of the [l, k] table) and the m~ = 2^16 lane, lane += (y_i &
-// 0xFFFF) * (q/q_i) mod 2^16 (phat_mt).  sm_mrq_close: alpha = lane * q^-1
-// mod 2^16, centred; the lift is (conv - alpha*q) * m~^-1 mod c, with qc, imt
-// = q mod c and m~^-1 mod c and their Shoup companions.
-__device__ __forceinline__ void sm_mrq_step(uint32_t x_i, uint32_t qi, uint32_t w,
-                                            uint32_t w_sh, uint32_t phat, uint32_t phat_sh,
-                                            uint32_t phat_mt, uint32_t c, uint32_t& conv,
-                                            uint32_t& lane) {
-  const uint32_t y = fhe::mul_shoup(x_i, w, w_sh, qi);
-  conv = fhe::add_mod(conv, fhe::mul_shoup(y, phat, phat_sh, c), c);
-  lane = (lane + (y & kMask16) * phat_mt) & kMask16;
-}
-
-__device__ __forceinline__ uint32_t sm_mrq_close(uint32_t conv, uint32_t lane,
-                                                 uint32_t inv_q_mt, uint32_t c, uint32_t qc,
-                                                 uint32_t qc_sh, uint32_t imt,
-                                                 uint32_t imt_sh) {
-  const uint32_t alpha = (lane * inv_q_mt) & kMask16;
-  const uint32_t alpha_c = alpha < (1u << 15) ? alpha : c - ((1u << 16) - alpha);
-  const uint32_t centred = fhe::sub_mod(conv, fhe::mul_shoup(alpha_c, qc, qc_sh, c), c);
-  return fhe::mul_shoup(centred, imt, imt_sh, c);
-}
-
-// The lift of one coefficient whose residue mod q_i is src[i * sp], i < k.
-__device__ __forceinline__ uint32_t sm_mrq_coeff(
-    const uint32_t* __restrict__ src, int sp, int k, const uint32_t* __restrict__ q,
-    const uint32_t* __restrict__ mt_inv_phat, const uint32_t* __restrict__ mt_inv_phat_sh,
-    const uint32_t* __restrict__ phat, const uint32_t* __restrict__ phat_sh,
-    const uint32_t* __restrict__ phat_mt, uint32_t inv_q_mt, uint32_t c, uint32_t qc,
-    uint32_t qc_sh, uint32_t imt, uint32_t imt_sh) {
-  uint32_t conv = 0, lane = 0;
-  for (int i = 0; i < k; ++i)
-    sm_mrq_step(src[i * sp], q[i], mt_inv_phat[i], mt_inv_phat_sh[i], phat[i], phat_sh[i],
-                phat_mt[i], c, conv, lane);
-  return sm_mrq_close(conv, lane, inv_q_mt, c, qc, qc_sh, imt, imt_sh);
-}
 
 // FastFloor in the destination prime c (bsk_branch_fused step 3,
 // fast_floor_fused), one source prime at a time: fast_floor_step folds in
@@ -216,9 +167,10 @@ bsk_branch_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_
                                         cluster.map_shared_rank(work, r * kRowSplit + 1)},
                                        h};
   auto sync = [&] { cluster.sync(); };
-  // 1. SmMRq lift of row r into c_j, fused into the forward transform's
-  // first pass: a group of coefficients at once, source prime by source
-  // prime, so that a thread has a whole group's loads in flight
+  // 1. SmMRq lift of row r into c_j (lift.cuh's steps), fused into the
+  // forward transform's first pass: a group of coefficients at once,
+  // source prime by source prime, so that a thread has a whole group's
+  // loads in flight
   const uint32_t qc = q_mod_c[j], qc_sh = q_mod_c_sh[j];
   const uint32_t imt = inv_mt_c[j], imt_sh = inv_mt_c_sh[j];
   const uint32_t* src = ab + r * ab_sc + b * ab_sb;
@@ -235,11 +187,11 @@ bsk_branch_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_
       const uint32_t ph = lp[i], ph_sh = lp_sh[i], pm = phat_mt[i];
 #pragma unroll
       for (int g = 0; g < G; ++g)
-        sm_mrq_step(si[g << logs], qi, w, w_sh, ph, ph_sh, pm, c, conv[g], lane[g]);
+        fhe::sm_mrq_step(si[g << logs], qi, w, w_sh, ph, ph_sh, pm, c, conv[g], lane[g]);
     }
 #pragma unroll
     for (int g = 0; g < G; ++g)
-      x[g] = sm_mrq_close(conv[g], lane[g], inv_q_mt, c, qc, qc_sh, imt, imt_sh);
+      x[g] = fhe::sm_mrq_close(conv[g], lane[g], inv_q_mt, c, qc, qc_sh, imt, imt_sh);
   };
   fhe::fwd_ntt_regs_split(work, split, sync, logn, c, psi + tab, psi_sh + tab, lift,
                           fhe::SmemStore{row});
@@ -618,30 +570,6 @@ const void* pick_conv_kernel(int lane, int per_thread, int kb) {
   }
 }
 
-// sm_mrq_fused.  x: [k, count] residues in q, out: [l, count] in the dst
-// primes cp; block (e-block, j), thread e lifts element e into c_j.  The
-// wrapper keeps k * count below 2^31 (32-bit offsets).
-__global__ void __launch_bounds__(256)
-sm_mrq_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-              const uint32_t* __restrict__ q, const uint32_t* __restrict__ mt_inv_phat,
-              const uint32_t* __restrict__ mt_inv_phat_sh,
-              const uint32_t* __restrict__ phat, const uint32_t* __restrict__ phat_sh,
-              const uint32_t* __restrict__ phat_mt, const uint32_t* __restrict__ cp,
-              const uint32_t* __restrict__ q_mod_c, const uint32_t* __restrict__ q_mod_c_sh,
-              const uint32_t* __restrict__ inv_mt_c,
-              const uint32_t* __restrict__ inv_mt_c_sh, uint32_t inv_q_mt, int k,
-              int count) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= count) return;
-  const int j = blockIdx.y;
-  out[static_cast<size_t>(j) * count + e] =
-      sm_mrq_coeff(x + e, count, k, q, mt_inv_phat, mt_inv_phat_sh, phat + j * k,
-                   phat_sh + j * k, phat_mt, inv_q_mt, cp[j], q_mod_c[j], q_mod_c_sh[j],
-                   inv_mt_c[j], inv_mt_c_sh[j]);
-}
-
-constexpr int kConvThreads = 256;
-
 }  // namespace
 
 extern "C" {
@@ -723,20 +651,6 @@ int fhe_base_conv(int lane, int per_thread, int kb, int k, int count, int dstart
   const cudaError_t err = cudaLaunchKernel(kernel, grid, dim3(threads), args, lay.bytes(),
                                            static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int fhe_sm_mrq(const void* x, void* out, const void* q, const void* mt_inv_phat,
-               const void* mt_inv_phat_sh, const void* phat, const void* phat_sh,
-               const void* phat_mt, const void* cp, const void* q_mod_c,
-               const void* q_mod_c_sh, const void* inv_mt_c, const void* inv_mt_c_sh,
-               uint32_t inv_q_mt, int k, int l, int count, void* stream) {
-  const dim3 grid((count + kConvThreads - 1) / kConvThreads, l);
-  auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  sm_mrq_kernel<<<grid, kConvThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      u(x), static_cast<uint32_t*>(out), u(q), u(mt_inv_phat), u(mt_inv_phat_sh), u(phat),
-      u(phat_sh), u(phat_mt), u(cp), u(q_mod_c), u(q_mod_c_sh), u(inv_mt_c),
-      u(inv_mt_c_sh), inv_q_mt, k, count);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,10 @@
 """NTT kernel wrappers — counterpart of ``fhe_tpu/ops/ntt_pallas.py``.
 
 ``ntt_forward``, ``ntt_inverse``, ``mul_by_ntt_operand`` (and ``_batch``),
-``tensor_product`` (and ``_batch``), ``keyswitch_fused`` (and ``_batch``,
+``tensor_product`` (and ``_batch``; the single one with its Lift lane, the
+n < 1024 multiply's products in q and in Bsk in one launch, with the lift
+q -> Bsk, rns_pallas.py's ``sm_mrq_fused``, folded in), ``keyswitch_fused``
+(and ``_batch``,
 each with its ``prereduced`` and Galois lanes), ``ks_inner_batch`` and
 ``ks_inner_grouped`` (each with its Galois lane) launch the hand-written
 CUDA kernels of ``csrc/ntt.cu`` (design and bound: the note at the top of
@@ -14,7 +17,8 @@ device raises.  A single function and its ``_batch`` form launch the same
 kernel (the single one with a batch of 1), as do ``ks_inner_batch`` and
 ``ks_inner_grouped``, but each wrapper counts only
 its own launches, in ``<wrapper>.launches`` (and its lanes in
-``<wrapper>.prereduced_launches`` and ``<wrapper>.galois_launches``).
+``<wrapper>.prereduced_launches``, ``<wrapper>.galois_launches`` and
+``tensor_product.lift_launches``).
 
 The Galois lanes (galois_pallas.py's automorphisms, fused into the key
 switch that consumes or produces their rows) take Galois elements g, not
@@ -33,6 +37,7 @@ import torch
 
 from . import _build
 from . import ntt as _ntt
+from . import rns as _rns
 from .ntt import NTTTables
 
 _P = ctypes.c_void_p
@@ -55,7 +60,8 @@ def _lib() -> ctypes.CDLL:
     lib.fhe_ntt_inverse.argtypes = [_P] * 7 + [_I] * 6 + [_P]
     lib.fhe_mul_by_ntt_operand.argtypes = ([_P] + [_L] * 2 + [_P] * 10
                                            + [_I] * 6 + [_P])
-    lib.fhe_tensor_product.argtypes = [_P] * 2 + [_L] * 3 + [_P] * 9 + [_I] * 5 + [_P]
+    lib.fhe_tensor_product.argtypes = ([_P] * 2 + [_L] * 3 + [_P] * 9 + [_I] * 5 + [_P] * 10
+                                       + [ctypes.c_uint, _I] + [_P] * 9)
     lib.fhe_keyswitch.argtypes = ([_P] + [_L] * 3 + [_P] + [_L] * 2 + [_P] * 9
                                   + [_I] * 8 + [ctypes.c_uint, _P] + [_L] * 2 + [_I, _P])
     lib.fhe_ks_inner.argtypes = ([_P] + [_L] * 3 + [_I] + [_P] + [_L] * 3 + [_I]
@@ -150,6 +156,10 @@ def regs_threads(n: int, name: str, split: int = 1) -> int:
 ROW_SPLIT = 2
 PRODUCT_CLUSTER = 4 * ROW_SPLIT
 KEYSWITCH_PAIRS = 4
+# tensor_product's Lift lane: the most source primes it lifts from
+# (csrc/lift.cuh: kMaxLiftK) and the most threads a CTA gives the lift
+LIFT_MAX_K = 16
+LIFT_THREADS = 256
 
 
 def ntt_forward_geometry(n: int, k: int, batch: int = 1,
@@ -247,18 +257,23 @@ def mul_by_ntt_operand_geometry(n: int, k: int, c: int, batch: int = 1) -> dict:
 
 
 def tensor_product_geometry(n: int, k: int, batch: int = 1,
-                            name: str = "tensor_product") -> dict:
+                            name: str = "tensor_product", lift: bool = False) -> dict:
     """Launch shape of the cluster tensor product (``tensor_product`` and
     ``_batch``; ``bsk_branch_fused`` passes its name) for B = ``batch``
     elements over k primes: one cluster of 8 CTAs per (element, prime), two
     per input row, which share the row's forward transform and, for rows 0
     to 2, its product row's inverse transform; two padded rows of shared
-    memory per CTA.  Raise where that does not fit the card."""
+    memory per CTA.  The Lift lane (``lift``) has a thread per coefficient
+    of the CTA's half row, up to LIFT_THREADS, for the lift before the
+    first pass.  Raise where that does not fit the card."""
     if not 1 <= batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y}")
+    threads = regs_threads(n, name, ROW_SPLIT)
+    if lift:
+        threads = max(threads, min(n // ROW_SPLIT, LIFT_THREADS))
     return {"grid": (PRODUCT_CLUSTER, batch, k), "cluster": (PRODUCT_CLUSTER, 1, 1),
             "ctas": PRODUCT_CLUSTER * batch * k, "ctas_per_prime": PRODUCT_CLUSTER,
-            "ctas_per_row": ROW_SPLIT, "threads": regs_threads(n, name, ROW_SPLIT),
+            "ctas_per_row": ROW_SPLIT, "threads": threads,
             "smem": check_smem(n, 2, name, padded=True)}
 
 
@@ -409,45 +424,95 @@ def mul_by_ntt_operand_batch(u: torch.Tensor, w_ntt: torch.Tensor,
 mul_by_ntt_operand_batch.launches = 0
 
 
+def _lift_args(lift, tq: NTTTables) -> list:
+    """The Lift lane's operands in the order fhe_tensor_product takes them
+    after the launch shape: the lift's constants (csrc/lift.cuh
+    SmMRqOperands) and the q tables tq, or nulls for the plain lane."""
+    if lift is None:
+        return [None] * 10 + [0, 0] + [None] * 8
+    sc = lift[0]
+    p = _build.ptr
+    return [p(sc.conv.p_src), p(sc.mt_times_inv_phat), p(sc.mt_times_inv_phat_shoup),
+            p(sc.conv.phat_mod_dst), p(sc.conv.phat_shoup_dst), p(sc.phat_mod_mt),
+            p(sc.q_mod_dst), p(sc.q_shoup_dst), p(sc.inv_mt_dst), p(sc.inv_mt_shoup_dst),
+            sc.inv_q_mt, tq.k, *table_ptrs(tq)]
+
+
 def _tensor_product_launch(x: torch.Tensor, y: torch.Tensor, tb: NTTTables,
-                           name: str) -> torch.Tensor:
-    """One launch over x, y [k, 2, B, n] with equal strides: [k, 3, B, n]."""
-    check_barrett(tb, name)
-    check_aligned_tables(tb, name)
-    k, _, batch, n = x.shape
-    geo = tensor_product_geometry(n, k, batch, name)
+                           name: str, lift=None) -> torch.Tensor:
+    """One launch over x, y [k, 2, B, n] (the k primes of tb) with equal
+    strides: [k, 3, B, n]; with ``lift`` = (sc, tb_bsk), [k + kb, 3, B, n],
+    the product in q, then that of the lifts in Bsk.  The kernel's own
+    tables are those of its last primes (tb_bsk in the Lift lane)."""
+    tabs = [tb] if lift is None else [tb, lift[1]]
+    for t in tabs:
+        check_barrett(t, name)
+        check_aligned_tables(t, name)
+    _, _, batch, n = x.shape
+    k = sum(t.k for t in tabs)
+    geo = tensor_product_geometry(n, k, batch, name, lift=lift is not None)
     out = torch.empty((k, 3, batch, n), dtype=torch.int32, device=x.device)
     p = _build.ptr
     _build.launch(_lib().fhe_tensor_product, name, x.device, p(x), p(y),
-                  x.stride(0), x.stride(1), x.stride(2), p(out), *table_ptrs(tb),
-                  k, batch, log2_exact(n), geo["threads"], geo["smem"])
+                  x.stride(0), x.stride(1), x.stride(2), p(out), *table_ptrs(tabs[-1]),
+                  k, batch, log2_exact(n), geo["threads"], geo["smem"], *_lift_args(lift, tb))
     return out
 
 
-def tensor_product(x: torch.Tensor, y: torch.Tensor,
-                   tb: NTTTables) -> torch.Tensor:
+def _check_lift(sc: "_rns.SmMRqConsts", tb: NTTTables, tb_bsk: NTTTables) -> None:
+    """sc lifts from the k primes of tb into the kb of tb_bsk, on their
+    device, and k is at most LIFT_MAX_K."""
+    k, kb = sc.conv.p_src.shape[0], sc.conv.p_dst.shape[0]
+    if k > LIFT_MAX_K:
+        raise ValueError(f"tensor_product: the Lift lane lifts from at most {LIFT_MAX_K} "
+                         f"primes, got {k}")
+    if (k, kb, tb.n) != (tb.k, tb_bsk.k, tb_bsk.n):
+        raise ValueError(f"tensor_product: lift constants from {k} into {kb} primes, "
+                         f"tables of {tb.k} and {tb_bsk.k} primes at n = {tb.n}, {tb_bsk.n}")
+    if not sc.q_mod_dst.device == tb_bsk.device == tb.device:
+        raise ValueError("tensor_product: lift constants and tables on different devices")
+
+
+def tensor_product(x: torch.Tensor, y: torch.Tensor, tb: NTTTables, lift=None):
     """(x0*y0, x0*y1 + x1*y0, x1*y1) of two [k, 2, n] coefficient-domain
     ciphertext halves; returns [k, 3, n].  With the multiply's tables
     (``ntt.build_mul_tables``) the result is t times the product.  Every
     prime must be a 30-bit prime (Barrett); on the card 32 <= n <= 16384
     (``tensor_product_geometry``: two padded rows per CTA).  x and y may be
     views with rows of n contiguous and equal strides (the halves of a
-    lifted [k, 4, n] tensor: the kernel reads them in place)."""
+    lifted [k, 4, n] tensor: the kernel reads them in place).
+
+    The Lift lane, the n < 1024 multiply's two products in one launch:
+    given ``lift`` = (sc, tb_bsk), the SmMRq constants from tb's k primes
+    into the kb primes of tb_bsk and tb_bsk, it returns (tx_q, tx_bsk):
+    ``tensor_product(x, y, tb)`` [k, 3, n] and the [kb, 3, n] product of
+    the centred lifts of x and y, ``rns.tensor_product_lift(x, y, sc,
+    tb_bsk)`` (the lift, rns_pallas.py's ``sm_mrq_fused``, then the product
+    in Bsk), both views of one [k + kb, 3, n] tensor.  Launches count in
+    ``launches`` and ``lift_launches`` by lane."""
     check_residues(x, tb, "tensor_product", strided=True)
     check_residues(y, tb, "tensor_product", strided=True)
     if x.shape[1] != 2 or y.shape != x.shape or y.stride() != x.stride():
         raise ValueError(f"tensor_product: x {list(x.shape)} strides {x.stride()}, "
                          f"y {list(y.shape)} strides {y.stride()}; expected two "
                          "[k, 2, n] with equal strides")
+    if lift is not None:
+        _check_lift(lift[0], tb, lift[1])
     if not on_card(x, "tensor_product"):
-        return _ntt.tensor_product(x, y, tb)
-    out = _tensor_product_launch(x[:, :, None], y[:, :, None], tb,
-                                 "tensor_product")
-    tensor_product.launches += 1
-    return out[:, :, 0]
+        if lift is None:
+            return _ntt.tensor_product(x, y, tb)
+        return _ntt.tensor_product(x, y, tb), _rns.tensor_product_lift(x, y, *lift)
+    out = _tensor_product_launch(x[:, :, None], y[:, :, None], tb, "tensor_product",
+                                 lift)[:, :, 0]
+    if lift is None:
+        tensor_product.launches += 1
+        return out
+    tensor_product.lift_launches += 1
+    return out[:tb.k], out[tb.k:]
 
 
 tensor_product.launches = 0
+tensor_product.lift_launches = 0
 
 
 def tensor_product_batch(x: torch.Tensor, y: torch.Tensor,

@@ -15,9 +15,10 @@ Base conversions and exact rounded scalings, all-integer (BEHZ):
 Each is bit-exact with its ``fhe_tpu.ops.rns`` counterpart (the JAX
 package's t = 65537 Fermat decryption lane gives the same bits as the
 generic one here).  ``bsk_branch_fused`` (and ``_batch``),
-``fast_bconv_sk`` (and ``fast_bconv_sk_digits``), ``sm_mrq``, ``fast_floor``
-and ``fast_floor_sk`` are also the plain versions of the CUDA kernels in
-``ops/rns_cuda.py``.  Residues are
+``fast_bconv_sk`` (and ``fast_bconv_sk_digits``), ``fast_floor`` and
+``fast_floor_sk`` are also the plain versions of the CUDA kernels in
+``ops/rns_cuda.py``, and ``tensor_product_lift`` (``sm_mrq``, then the
+tensor product) that of ``ntt_cuda.tensor_product``'s Lift lane.  Residues are
 int32 tensors; products are formed in int64 and reduced with ``%``.
 """
 
@@ -176,6 +177,15 @@ def sm_mrq(x: torch.Tensor, sc: SmMRqConsts) -> torch.Tensor:
     alpha_c = torch.where(alpha < (1 << 15), alpha, c - ((1 << 16) - alpha))
     centred = (conv - alpha_c * _col(sc.q_mod_dst) % c) % c
     return (centred * _col(sc.inv_mt_dst) % c).to(torch.int32)
+
+
+def tensor_product_lift(x: torch.Tensor, y: torch.Tensor, sc: SmMRqConsts,
+                        tb_dst: _ntt.NTTTables) -> torch.Tensor:
+    """The n < 1024 multiply's Bsk side: the centred lift of the
+    ciphertext halves x, y ([k, 2, n] in q) into the dst base, then their
+    tensor product there with the (t-folded) tables ``tb_dst``; [l, 3, n]."""
+    lift = sm_mrq(torch.cat([x, y], dim=1), sc)                 # [l, 4, n]
+    return _ntt.tensor_product(lift[:, :2], lift[:, 2:], tb_dst)
 
 
 # ---------------------------------------------------------------------------

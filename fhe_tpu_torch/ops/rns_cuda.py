@@ -2,14 +2,15 @@
 
 ``bsk_branch_fused`` (and ``bsk_branch_fused_batch``, the same kernel with
 a batch grid axis), ``fast_bconv_sk_fused`` (with the relinearization
-digits as an option), and the n < 1024 multiply's ``sm_mrq_fused`` and
-``fast_floor_fused`` (with the conversion to q as an option) launch the
-hand-written CUDA kernels of ``csrc/rns.cu`` (design and bound: the note at
-the top of that file) for CUDA tensors and use the plain PyTorch versions
-of ``ops/rns.py`` (``bsk_branch_fused``, ``bsk_branch_fused_batch``,
-``fast_bconv_sk`` and ``fast_bconv_sk_digits``, ``sm_mrq``, ``fast_floor``
-and ``fast_floor_sk``) for CPU tensors; any other device raises.  Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+digits as an option) and the n < 1024 multiply's ``fast_floor_fused`` (with
+the conversion to q as an option) launch the hand-written CUDA kernels of
+``csrc/rns.cu`` (design and bound: the note at the top of that file) for
+CUDA tensors and use the plain PyTorch versions of ``ops/rns.py``
+(``bsk_branch_fused``, ``bsk_branch_fused_batch``, ``fast_bconv_sk`` and
+``fast_bconv_sk_digits``, ``fast_floor`` and ``fast_floor_sk``) for CPU
+tensors; any other device raises.  Each wrapper counts its kernel launches
+in ``<wrapper>.launches``.  The n < 1024 multiply's lift, rns_pallas.py's
+``sm_mrq_fused``, is the Lift lane of ``ntt_cuda.tensor_product``.
 """
 
 from __future__ import annotations
@@ -36,8 +37,7 @@ def _lib() -> ctypes.CDLL:
     lib.fhe_bsk_branch.argtypes = ([_P] + [_I] * 3 + [_P] + [_I] * 3 + [_P] * 11
                                    + [_U] + [_P] * 14 + [_I] * 6 + [_P])
     lib.fhe_base_conv.argtypes = [_I] * 8 + [_P] * 24 + [_U] * 3 + [_P]
-    lib.fhe_sm_mrq.argtypes = [_P] * 13 + [_U] + [_I] * 3 + [_P]
-    for f in (lib.fhe_bsk_branch, lib.fhe_base_conv, lib.fhe_sm_mrq):
+    for f in (lib.fhe_bsk_branch, lib.fhe_base_conv):
         f.restype = ctypes.c_int
     return lib
 
@@ -270,31 +270,6 @@ def fast_bconv_sk_fused(x_bsk: torch.Tensor, sk: _rns.SKConsts, digits=None):
 
 
 fast_bconv_sk_fused.launches = 0
-
-
-def sm_mrq_fused(x: torch.Tensor, sc: _rns.SmMRqConsts) -> torch.Tensor:
-    """SmMRq centred lift of x [k, B, n] (residues in q) into the dst base
-    (the Bsk base of the multiply): [l, B, n], each residue that of x or of
-    x - q, whichever is centred.  The lift step of ``bsk_branch_fused`` on
-    its own (the n < 1024 multiply)."""
-    k, l = sc.conv.p_src.shape[0], sc.conv.p_dst.shape[0]
-    _check_conv_input(x, k, sc.conv.p_src, "sm_mrq_fused")
-    if not on_card(x, "sm_mrq_fused"):
-        return _rns.sm_mrq(x, sc)
-    _, batch, n = x.shape
-    out = torch.empty((l, batch, n), dtype=torch.int32, device=x.device)
-    p = _build.ptr
-    _build.launch(
-        _lib().fhe_sm_mrq, "sm_mrq_fused", x.device, p(x), p(out), p(sc.conv.p_src),
-        p(sc.mt_times_inv_phat), p(sc.mt_times_inv_phat_shoup), p(sc.conv.phat_mod_dst),
-        p(sc.conv.phat_shoup_dst), p(sc.phat_mod_mt), p(sc.conv.p_dst), p(sc.q_mod_dst),
-        p(sc.q_shoup_dst), p(sc.inv_mt_dst), p(sc.inv_mt_shoup_dst), sc.inv_q_mt, k, l,
-        batch * n)
-    sm_mrq_fused.launches += 1
-    return out
-
-
-sm_mrq_fused.launches = 0
 
 
 def fast_floor_fused(tx_q: torch.Tensor, tx_bsk: torch.Tensor,

@@ -516,14 +516,14 @@ def _multiply_scaled(ctx: SchemeContext, a: Ciphertext, b: Ciphertext,
     tq, tbsk = ctx.mul_levels[level]
     smq, floor_c, sk = ctx.smq_levels[level], ctx.floor_levels[level], ctx.sk_levels[level]
     dig = _digit_consts(ctx, level) if digits else None
-    tx_q = ntt_cuda.tensor_product(a.data, b.data, tq)           # [k-L, 3, n]
-    ab = torch.cat([a.data, b.data], dim=1)                      # [k-L, 4, n]
     if ctx.n >= 1024:
+        tx_q = ntt_cuda.tensor_product(a.data, b.data, tq)       # [k-L, 3, n]
+        ab = torch.cat([a.data, b.data], dim=1)                  # [k-L, 4, n]
         floored = rns_cuda.bsk_branch_fused(ab, tx_q, smq, floor_c, tbsk)
         out = rns_cuda.fast_bconv_sk_fused(floored, sk, dig)
     else:
-        lift = rns_cuda.sm_mrq_fused(ab, smq)                     # [kb_L, 4, n]
-        tx_bsk = ntt_cuda.tensor_product(lift[:, :2], lift[:, 2:], tbsk)
+        # [k-L, 3, n] and [kb_L, 3, n] in one launch
+        tx_q, tx_bsk = ntt_cuda.tensor_product(a.data, b.data, tq, lift=(smq, tbsk))
         out = rns_cuda.fast_floor_fused(tx_q, tx_bsk, floor_c, sk, dig)
     data, d = out if digits else (out, None)
     return Ciphertext(data=data, level=level, is_ntt_form=False,
@@ -534,13 +534,15 @@ def multiply_no_relin(ctx: SchemeContext, a: Ciphertext,
                       b: Ciphertext) -> Ciphertext:
     """BEHZ RNS tensor product and t/q_L scaling -> 3-component ciphertext,
     at the operands' level with that level's constants and its Bsk base.
-    The t-scaled q-side tensor product (one kernel), the Bsk branch, and
-    the exact Shenoy-Kumaresan conversion back to q_L.  At n >= 1024 the
+    The t-scaled q-side tensor product, the Bsk branch, and the exact
+    Shenoy-Kumaresan conversion back to q_L.  At n >= 1024 the
     Bsk branch (lift, Bsk tensor product, floor) is one kernel and the
-    conversion another; below, as in the JAX package, the lift of both
-    operands (sm_mrq_fused) and the Bsk tensor product come first, then the
-    floor and the conversion in one launch (fast_floor_fused with sk): the
-    same residues."""
+    conversion another; below, where the JAX package runs the q-side
+    product, the lift of both operands (sm_mrq_fused) and the Bsk tensor
+    product as three kernels, both products and the lift are one launch
+    (tensor_product's Lift lane, reading a and b in place), then the floor
+    and the conversion one more (fast_floor_fused with sk): the same
+    residues."""
     return _multiply_scaled(ctx, a, b, digits=False)[0]
 
 

@@ -3,7 +3,7 @@
 (B1), ntt_inverse (B2) and ks_inner_batch / ks_inner_grouped (B17/B18) on
 one NVIDIA card, for one tree of the port per run:
 
-    python3 scripts/cluster_design_ab.py [TREE]
+    python3 scripts/cluster_design_ab.py [TREE] [--sass]
 
 TREE (default: the checkout this script lies in) is the root of a checkout
 whose fhe_tpu_torch package is imported, and whose kernels are built, for
@@ -31,12 +31,17 @@ and power limit, the tree, and
     behind a 64 MB memset that evicts the L2 cache, at n = 256 (k = 5,
     kd = 5) and at n = 8192 (k = 3, kd = 3);
   - sass_instructions: the SASS instructions of each kernel in the tree's
-    libntt.so (cuobjdump -sass), the code a cold SM fetches.
+    libraries (cuobjdump -sass), the code a cold SM fetches, and
+    sass_digest: a digest of each kernel's instructions (addresses and
+    encodings left out), equal across trees where the compiler emitted the
+    same code for it.
+With --sass it prints only the card, the tree and the two SASS fields.
 Imports no JAX and nothing of fhe_tpu.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import statistics
@@ -48,7 +53,9 @@ from pathlib import Path
 
 import torch
 
-TREE = Path(sys.argv[1] if len(sys.argv) > 1 else Path(__file__).resolve().parent.parent)
+ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
+TREE = Path(ARGS[0] if ARGS else Path(__file__).resolve().parent.parent)
+SASS_ONLY = "--sass" in sys.argv[1:]
 sys.path.insert(0, str(TREE.resolve()))
 
 from fhe_tpu_torch import primes  # noqa: E402
@@ -220,23 +227,31 @@ def keyswitch_after() -> dict:
     return out
 
 
-def sass_instructions() -> dict | None:
-    """SASS instruction count per kernel of the tree's libntt.so, or None
-    where the toolkit has no cuobjdump."""
+def sass_instructions() -> tuple[dict, dict] | None:
+    """SASS instruction count per kernel of each of the tree's libraries,
+    and a digest of each kernel's instruction text (the /*address*/ and
+    encoding comments left out), or None where the toolkit has no
+    cuobjdump.  A template kernel's name carries its arguments' numbers
+    (<0>, <2,1,7>, ...)."""
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     if not tool.exists():
         return None
-    text = subprocess.run([str(tool), "-sass", str(_build.build_dir() / "libntt.so")],
-                          capture_output=True, text=True, check=True, timeout=300).stdout
-    sizes, cur = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function : \S*?([a-z_]+_kernel)(ILb([01])E)?", line)
-        if m:
-            cur = m[1] + (f"<{m[3]}>" if m[3] else "")
-            sizes[cur] = 0
-        elif cur and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
-            sizes[cur] += 1
-    return sizes
+    _build.load_all()
+    code, cur = {}, None
+    for lib in _build.SOURCES:
+        text = subprocess.run([str(tool), "-sass", str(_build.build_dir() / f"lib{lib}.so")],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        for line in text.splitlines():
+            m = re.search(r"Function : \S*?([a-z_]+_kernel)(?:I(.*?)EEv)?", line)
+            if m:
+                args = re.findall(r"(?:Li|Lb|E)(\d+)E", m[2] or "")
+                cur = m[1] + (f"<{','.join(args)}>" if args else "")
+                code[cur] = []
+            elif cur and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+                code[cur].append(re.sub(r"/\*.*?\*/", "", line).strip())
+    return ({name: len(v) for name, v in code.items()},
+            {name: hashlib.sha256("\n".join(v).encode()).hexdigest()[:16]
+             for name, v in code.items()})
 
 
 def main() -> int:
@@ -247,13 +262,17 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     out = {"card": card, "tree": str(TREE)}
+    sass = sass_instructions()
+    out["sass_instructions"], out["sass_digest"] = sass or (None, None)
+    if SASS_ONLY:
+        print(json.dumps(out))
+        return 0
     if hasattr(ntt_cuda, "keyswitch_geometry"):
         out["keyswitch_pairs"] = keyswitch_pairs()
     out["ntt_forward"] = transform("ntt_forward")
     out["ntt_inverse"] = transform("ntt_inverse")
     out["ks_inner"] = ks_inner()
     out["keyswitch_after"] = keyswitch_after()
-    out["sass_instructions"] = sass_instructions()
     print(json.dumps(out))
     return 0
 

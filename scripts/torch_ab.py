@@ -43,7 +43,15 @@ the headline configuration (n = 8192, log_q = 90, k = 3, kb = 5):
     the n < 1024 multiply's shapes (n = 256, log_q = 150, level 1);
   - device_ms of multiply_no_relin, relinearize and multiply at the n < 1024
     configuration (n = 256, log_q = 150, k = 5, h = 32; chip_smoke.py's
-    small phase), and the ntt_inverse launches of one such multiply;
+    small phase), multiply_no_relin at level 1, and the ntt_inverse
+    launches of one such multiply;
+  - lift_arms: that multiply's products, lift, floor and conversion to q,
+    as (i) tensor_product on q, the standalone lift kernel, tensor_product
+    on Bsk and fast_floor_fused, (ii) tensor_product's Lift lane and
+    fast_floor_fused, (iii) tensor_product on q, bsk_branch_fused and
+    fast_bconv_sk_fused (null where a tree lacks the arm), and the Lift
+    lane alone beside tensor_product alone on q and on the Bsk base: device
+    ms, kernels per call, span and idle share;
   - device_ms and wall_ms of the multiply at n = 16384 (the JAX bench's
     g_n16384: log_q = 90, k = 3, seed 4; multiply_relin_ms_n16384 and, at
     ks_omega = 2, multiply_relin_ms_n16384_omega2), null for a tree whose
@@ -231,13 +239,15 @@ def trace(fn) -> dict:
 
 
 def small_multiply() -> dict:
-    """device_ms of the n = 256 multiply and its halves at level 0."""
+    """device_ms of the n = 256 multiply and its halves at level 0, and of
+    multiply_no_relin at level 1."""
     fhe = FHE(make_scheme_params(SecurityParams(poly_degree=256, log_q=150,
                                                 hamming_weight=32)), seed=29, device="cuda")
     pk, sk = fhe.keygen()
     rlk = fhe.relinkey_gen(sk)
     a = fhe.encrypt(fhe.encode([5, 10]), pk)
     b = fhe.encrypt(fhe.encode([3, 6]), pk)
+    a1, b1 = fhe.mod_switch_to_next(a), fhe.mod_switch_to_next(b)
     m3 = fhe.multiply_no_relin(a, b)
     torch.cuda.synchronize()
     before = ntt_cuda.ntt_inverse.launches
@@ -245,6 +255,7 @@ def small_multiply() -> dict:
     inverse_launches = ntt_cuda.ntt_inverse.launches - before
     return {"ntt_inverse_launches_per_multiply": inverse_launches,
             "multiply_no_relin": device_ms(lambda: fhe.multiply_no_relin(a, b)),
+            "multiply_no_relin_l1": device_ms(lambda: fhe.multiply_no_relin(a1, b1)),
             "relinearize": device_ms(lambda: fhe.relinearize(m3, rlk)),
             "multiply": device_ms(lambda: fhe.multiply(a, b, rlk)),
             "trace": trace(lambda: fhe.multiply(a, b, rlk))}
@@ -312,6 +323,76 @@ def conv_kernels(gen: torch.Generator) -> dict:
             out[name] = None
             continue
         out[name] = {"device_ms": device_ms(fn), "profiler_us": trace(fn)["kernels"][0]["us"]}
+    return out
+
+
+def lift_arms(gen: torch.Generator) -> dict:
+    """The n < 1024 multiply's products, lift, floor and conversion at
+    n = 256, k = 5, level 0, from the halves a, b [5, 2, 256] to the
+    [5, 3, 256] result in q and the c2 digits, three ways (null where this
+    tree lacks one): (i) tensor_product on q, the standalone lift
+    (sm_mrq_fused) of cat(a, b), tensor_product on the Bsk base and
+    fast_floor_fused with the conversion to q; (ii) tensor_product's Lift
+    lane (``lift_products``) and the same fast_floor_fused; (iii)
+    tensor_product on q, bsk_branch_fused and fast_bconv_sk_fused
+    (multiply_batch's kernels at every n).  Device ms, and from a trace the
+    kernels per call, the span and the idle share; and beside them the Lift
+    lane alone, tensor_product alone on q and on the Bsk base, and the two
+    after one another.  The arms' results must agree."""
+    ctx = quiet_context(256, 150, 32)
+    tq, tbsk = ctx.mul_levels[0]
+    sc, fc, sk = ctx.smq_levels[0], ctx.floor_levels[0], ctx.sk_levels[0]
+    dig = digit_consts(ctx, 0)
+    a, b = residues(gen, tq.primes, 2, 256), residues(gen, tq.primes, 2, 256)
+    lift = residues(gen, tbsk.primes, 4, 256)
+
+    def lane():
+        """The tree's Lift lane: both products in one launch, or (the design
+        A/B's variant whose lane forms the Bsk side only) that lane alone."""
+        try:
+            return ntt_cuda.tensor_product(a, b, tq, lift=(sc, tbsk))
+        except AttributeError:
+            return ntt_cuda.tensor_product(a, b, tbsk, lift=sc)
+
+    def lift_products():
+        out = lane()
+        return out if isinstance(out, tuple) else (ntt_cuda.tensor_product(a, b, tq), out)
+
+    def chain():
+        lifted = rns_cuda.sm_mrq_fused(torch.cat([a, b], dim=1), sc)
+        tx_bsk = ntt_cuda.tensor_product(lifted[:, :2], lifted[:, 2:], tbsk)
+        return rns_cuda.fast_floor_fused(ntt_cuda.tensor_product(a, b, tq), tx_bsk, fc, sk, dig)
+
+    def branch():
+        tx_q = ntt_cuda.tensor_product(a, b, tq)
+        floored = rns_cuda.bsk_branch_fused(torch.cat([a, b], dim=1), tx_q, sc, fc, tbsk)
+        return rns_cuda.fast_bconv_sk_fused(floored, sk, dig)
+
+    arms = {"i_chain": chain,
+            "ii_lane": lambda: rns_cuda.fast_floor_fused(*lift_products(), fc, sk, dig),
+            "iii_bsk_branch": branch, "lane_alone": lane,
+            "tensor_product_q": lambda: ntt_cuda.tensor_product(a, b, tq),
+            "tensor_product_bsk": lambda: ntt_cuda.tensor_product(
+                lift[:, :2], lift[:, 2:], tbsk),
+            "tensor_product_q_then_bsk": lambda: (
+                ntt_cuda.tensor_product(a, b, tq),
+                ntt_cuda.tensor_product(lift[:, :2], lift[:, 2:], tbsk))}
+    out, results = {}, {}
+    for name, fn in arms.items():
+        try:
+            results[name] = fn()
+        except (AttributeError, TypeError) as err:      # a tree without the arm
+            print(f"torch_ab: {name}: {err}", file=sys.stderr)
+            out[name] = None
+            continue
+        t = trace(fn)
+        out[name] = {"device_ms": device_ms(fn), "kernels_per_call": t.get("kernels_per_call"),
+                     "span_us": t.get("span_us"), "idle_share": t.get("idle_share")}
+    done = [results[name] for name in ("i_chain", "ii_lane", "iii_bsk_branch")
+            if name in results]
+    for got in done[1:]:
+        if not all(torch.equal(x, y) for x, y in zip(got, done[0])):
+            raise RuntimeError("lift arms disagree")
     return out
 
 
@@ -593,6 +674,7 @@ def main() -> int:
     out["kernel_device_ms"]["ntt_inverse_n32768"] = transform_n32768(gen, "ntt_inverse")
     out["device_ms"]["key_down_switch_k8_level4"] = key_down_switch_k8()
     out["small_device_ms"] = small_multiply()
+    out["lift_arms"] = lift_arms(gen)
     out["multiply_k8"] = multiply_k8(1)
     out["multiply_k8_omega"] = multiply_k8(2)
     out["conv_kernels"] = conv_kernels(gen)

@@ -1,5 +1,6 @@
 """Launch geometry of the cluster kernels, on the host: ntt_forward (B1),
-ntt_inverse (B2), mul_by_ntt_operand (B3, B13), tensor_product (B4, B11),
+ntt_inverse (B2), mul_by_ntt_operand (B3, B13), tensor_product (B4, B11,
+and B4's Lift lane at the n < 1024 multiply's rings),
 bsk_branch_fused (B5), keyswitch_fused (B7, B12), decrypt_fused (B8),
 ks_inner_batch / ks_inner_grouped (B17, B18), and the Galois lanes of B7
 and B17.
@@ -16,6 +17,8 @@ tests/test_torch_cuda.py runs the kernels themselves."""
 import pytest
 
 from fhe_tpu_torch.ops import decrypt_cuda, ntt_cuda, rns_cuda
+from fhe_tpu_torch.params import SecurityParams, make_scheme_params
+from fhe_tpu_torch.scheme.context import make_context
 
 MAX_SMEM = ntt_cuda.MAX_SMEM
 
@@ -81,6 +84,30 @@ def test_tensor_product_cluster_per_prime(n, batch):
     assert geo["cluster"] == (8, 1, 1) and geo["ctas_per_prime"] == 8
     assert geo["grid"] == (8, batch, 3) and geo["ctas"] == 8 * batch * 3
     assert geo["smem"] == 2 * 4 * (n + n // 32) <= MAX_SMEM
+
+
+@pytest.mark.parametrize("n", [32, 64, 128, 256, 512])
+def test_tensor_product_lift_lane_takes_every_small_ring(n):
+    """The n < 1024 multiply's products (B4's Lift lane: the q side and the
+    lifted Bsk side in one launch) at every ring below 1024 the sweep takes
+    (32 to 512) and every level of the leveled configuration (n = 256,
+    log_q = 150, k = 5): B4's shape on the level's k + kb primes, a cluster
+    of 8 CTAs per prime with two padded rows each, and a thread per
+    coefficient of the CTA's half row for the lift; rings of 8 and 16
+    raise, as for B4 alone."""
+    ctx = make_context(make_scheme_params(SecurityParams(
+        poly_degree=256, log_q=150, hamming_weight=32)), device="cpu")
+    assert len(ctx.bsk_counts) == ctx.k == 5
+    for level, kb in enumerate(ctx.bsk_counts):
+        primes = ctx.k - level + kb
+        geo = ntt_cuda.tensor_product_geometry(n, primes, lift=True)
+        assert geo["grid"] == (8, 1, primes) and geo["cluster"] == (8, 1, 1)
+        assert geo["ctas"] == 8 * primes and geo["threads"] == max(n // 2, 32)
+        assert geo["smem"] == 2 * 4 * (n + n // 32) <= MAX_SMEM
+        assert geo == {**ntt_cuda.tensor_product_geometry(n, primes), "threads": geo["threads"]}
+    for small in (8, 16):
+        with pytest.raises(ValueError, match="below 32"):
+            ntt_cuda.tensor_product_geometry(small, ctx.k + ctx.bsk_counts[0], lift=True)
 
 
 def test_n16384_fits_b3_b4_b5_and_b8_but_not_b4_at_n32768():

@@ -16,8 +16,9 @@ lanes against the same plain twins on the card.
 
 The scheme: the port's multiply against fhe_tpu.scheme.bfv.multiply,
 jitted, on a use_pallas=False context (pinned equal to the Pallas path by
-tests/test_pallas.py), at n = 1024 (ks_omega 1 and 2) and at n = 256,
-levels 0 to 2, on keys and ciphertexts made by the port's *_from_noise
+tests/test_pallas.py), at n = 1024 (ks_omega 1 and 2), at n = 256,
+levels 0 to 2, and at the headline n = 8192, log_q = 90 (k = 3), on keys
+and ciphertexts made by the port's *_from_noise
 entry points from numpy draws and carried to JAX as arrays; and the port's
 multiply equal to relinearize(multiply_no_relin) bit for bit.
 
@@ -49,6 +50,7 @@ from fhe_tpu_torch.scheme.types import Ciphertext
 RNG = np.random.default_rng(20261017)
 SMALL = dict(poly_degree=256, log_q=150, hamming_weight=32)             # k = 5
 WIDE = dict(poly_degree=1024, log_q=90, hamming_weight=16, lambda_=0)    # k = 3
+HEADLINE = dict(poly_degree=8192, log_q=90, hamming_weight=64)           # k = 3, kb = 5
 PRODUCT = [15, 60, 135, 240]
 
 _jmultiply = jax.jit(jbfv.multiply)
@@ -263,8 +265,11 @@ def test_lanes_reject_mismatched_constants():
 
 
 @pytest.mark.parametrize("kw,level", [(WIDE, 0), ({**WIDE, "ks_omega": 2}, 0),
-                                      (SMALL, 0), (SMALL, 1), (SMALL, 2)])
+                                      (SMALL, 0), (SMALL, 1), (SMALL, 2), (HEADLINE, 0)])
 def test_multiply_matches_jax(kw, level):
+    """At n = 1024, at n = 256 (levels 0-2) and at the headline shape,
+    n = 8192, log_q = 90 (k = 3): the port's plain multiply (the twins of
+    B4-B7 on CPU tensors) equals fhe_tpu's."""
     s = _state(tuple(kw.items()))
     tctx = s.fhe.ctx
     a, b = (tbfv.mod_switch_to_level(tctx, c, level) for c in s.cts)

@@ -415,25 +415,32 @@ def test_hoisted_and_omega_on_card(dev):
 
 
 # ---------------------------------------------------------------------------
-# leveled BFV: the n < 1024 multiply's sm_mrq_fused / fast_floor_fused, the
-# modmul roofline probe, and a multiply at level 1 against the CPU plain path
+# leveled BFV: the n < 1024 multiply's tensor_product Lift lane and
+# fast_floor_fused, the modmul roofline probe, and a multiply at level 1
+# against the CPU plain path
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("n,log_q,level", [(N, 90, 0), (N, 90, 1), (256, 150, 2)])
 def test_sm_mrq_and_fast_floor_kernels_match_plain(dev, n, log_q, level):
-    """At the headline shapes (k = 3, kb = 5, the four rows of a multiply)
-    and at n = 256, k = 5 with the level's constants."""
+    """The products in q and, of the lifts, in Bsk (tensor_product's Lift
+    lane) and the floor, at the headline shapes (k = 3, kb = 5, the halves
+    of a multiply, also as views of one [k, 4, n] tensor) and at n = 256,
+    k = 5 with the level's constants."""
     ctx = make_context(make_scheme_params(SecurityParams(
         poly_degree=n, log_q=log_q, hamming_weight=32)), device=dev)
-    qs, bsk = ctx.ntt_q.primes[:ctx.k - level], ctx.mul_levels[level][1].primes
+    qs, (tq, tbsk) = ctx.ntt_q.primes[:ctx.k - level], ctx.mul_levels[level]
+    bsk = tbsk.primes
     gen = np.random.default_rng(n + level)
     res = lambda moduli, rows: torch.from_numpy(np.stack(
         [gen.integers(0, p, (rows, n), dtype=np.uint32) for p in moduli]
     ).astype(np.int32)).to(dev)
     x = res(qs, 4)
     sc, fc = ctx.smq_levels[level], ctx.floor_levels[level]
-    assert torch.equal(rns_cuda.sm_mrq_fused(x, sc), trns.sm_mrq(x, sc))
+    for a, b in ((x[:, :2].contiguous(), x[:, 2:].contiguous()), (x[:, :2], x[:, 2:])):
+        got_q, got = ntt_cuda.tensor_product(a, b, tq, lift=(sc, tbsk))
+        assert torch.equal(got_q, tntt.tensor_product(a, b, tq))
+        assert torch.equal(got, trns.tensor_product_lift(a, b, sc, tbsk))
     tx_q, tx_bsk = res(qs, 3), res(bsk, 3)
     assert torch.equal(rns_cuda.fast_floor_fused(tx_q, tx_bsk, fc),
                        trns.fast_floor(tx_q, tx_bsk, fc))
@@ -890,8 +897,10 @@ def test_floor_sk_kernel_matches_plain(dev, level, unaligned):
 
 
 def test_small_multiply_floors_and_converts_in_one_launch(dev):
-    """The n = 256 multiply launches fast_floor_fused once and no
-    fast_bconv_sk_fused of its own, and equals the CPU plain path."""
+    """The n = 256 multiply launches tensor_product's Lift lane once (both
+    products and the lift), fast_floor_fused once, and neither
+    tensor_product's plain lane nor a fast_bconv_sk_fused of its own, and
+    equals the CPU plain path."""
     fhe = FHE(poly_degree=256, log_q=150, hamming_weight=32, seed=12, device=dev)
     pk, sk = fhe.keygen()
     rlk = fhe.relinkey_gen(sk)
@@ -900,8 +909,11 @@ def test_small_multiply_floors_and_converts_in_one_launch(dev):
     fhe.multiply(a, b, rlk)
     torch.cuda.synchronize()
     floor0, sk0 = rns_cuda.fast_floor_fused.launches, rns_cuda.fast_bconv_sk_fused.launches
+    lift0, plain0 = ntt_cuda.tensor_product.lift_launches, ntt_cuda.tensor_product.launches
     prod = fhe.multiply(a, b, rlk)
     torch.cuda.synchronize()
+    assert ntt_cuda.tensor_product.lift_launches - lift0 == 1
+    assert ntt_cuda.tensor_product.launches == plain0
     assert rns_cuda.fast_floor_fused.launches - floor0 == 1
     assert rns_cuda.fast_bconv_sk_fused.launches == sk0
     assert list(fhe.decode(fhe.decrypt(prod, sk))[:4]) == [15, 60, 135, 240]

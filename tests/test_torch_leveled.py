@@ -1,9 +1,12 @@
 """Leveled BFV and the n < 1024 multiply, held bit for bit against the JAX package.
 
-Kernel modules: the plain twins of sm_mrq_fused and fast_floor_fused (the
-port's wrappers on CPU tensors) against rns_pallas.sm_mrq_fused /
-fast_floor_fused in interpreter mode with the level-0, level-1 and level-2
-constants; mod_switch_drop_last against fhe_tpu.ops.rns's.
+Kernel modules: the plain twins of tensor_product's Lift lane and of
+fast_floor_fused (the port's wrappers on CPU tensors) against
+ntt_pallas.tensor_product on the level's q base, rns_pallas.sm_mrq_fused
+followed by ntt_pallas.tensor_product on its Bsk base, and
+rns_pallas.fast_floor_fused, in interpreter mode with
+the level-0, level-1 and level-2 constants; mod_switch_drop_last against
+fhe_tpu.ops.rns's.
 tests/test_torch_cuda.py holds the CUDA kernels against the same plain
 versions on the card.
 
@@ -32,6 +35,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from fhe_tpu.ops import ntt_pallas as npal
 from fhe_tpu.ops import rns as jrns
 from fhe_tpu.ops import rns_pallas as rpal
 from fhe_tpu.params import SecurityParams as JSecurity
@@ -41,6 +45,7 @@ from fhe_tpu.scheme import context as jcontext
 from fhe_tpu.scheme import types as jtypes
 
 from fhe_tpu_torch import FHE, convert
+from fhe_tpu_torch.ops import ntt_cuda
 from fhe_tpu_torch.ops import rns as trns
 from fhe_tpu_torch.ops import rns_cuda
 from fhe_tpu_torch.scheme import bfv as tbfv
@@ -173,16 +178,29 @@ def _dec(s, ct, m=4):
 
 @pytest.mark.parametrize("level", [0, 1, 2])
 def test_sm_mrq_and_fast_floor_match_pallas(s, level):
-    """The n < 1024 multiply's lift and floor with the level's constants."""
+    """The n < 1024 multiply's products in q and, of the lifts, in Bsk (one
+    launch on the card: tensor_product's Lift lane) and its floor, with the
+    level's constants."""
     k = 5 - level
-    qs = s.fhe.params.q_primes[:k]
-    bsk = s.tctx.mul_levels[level][1].primes
+    prm = s.jctx.params
+    qs = prm.q_primes[:k]
+    tq, tbsk = s.tctx.mul_levels[level]
+    bsk = tbsk.primes
     assert len(bsk) == s.jctx.bsk_counts[level]
-    x = _residues(qs, (4, N))
-    want = np.asarray(rpal.sm_mrq_fused(jnp.asarray(x), s.jctx.smq_levels[level],
-                                        interpret=True))
-    got = rns_cuda.sm_mrq_fused(_t(x), s.tctx.smq_levels[level])
-    np.testing.assert_array_equal(convert.to_numpy(got), want)
+    tq_pl, tbsk_pl = npal.build_mul_tables(N, prm.q_primes, prm.bsk_primes, prm.t, k,
+                                           len(bsk))
+    x, y = _residues(qs, (2, N)), _residues(qs, (2, N))
+    jx, jy = jnp.asarray(x), jnp.asarray(y)
+    lift = rpal.sm_mrq_fused(jnp.concatenate([jx, jy], axis=1), s.jctx.smq_levels[level],
+                             interpret=True)
+    got_q, got = ntt_cuda.tensor_product(_t(x), _t(y), tq,
+                                         lift=(s.tctx.smq_levels[level], tbsk))
+    np.testing.assert_array_equal(
+        convert.to_numpy(got_q), np.asarray(npal.tensor_product(jx, jy, tq_pl, interpret=True)))
+    np.testing.assert_array_equal(
+        convert.to_numpy(got),
+        np.asarray(npal.tensor_product(lift[:, :2], lift[:, 2:], tbsk_pl, interpret=True)))
+    assert got.shape == (len(bsk), 3, N)
     tx_q, tx_bsk = _residues(qs, (3, N)), _residues(bsk, (3, N))
     want = np.asarray(rpal.fast_floor_fused(jnp.asarray(tx_q), jnp.asarray(tx_bsk),
                                             s.jctx.floor_levels[level], interpret=True))

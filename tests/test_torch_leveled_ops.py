@@ -1,8 +1,9 @@
 """The ops at a level of the leveled BFV slice, held bit for bit against the JAX package.
 
 At tests/test_leveled.py's configuration, n = 256, log_q = 150 (k = 5),
-h = 32, which takes the n < 1024 branch of the multiply (B4 on q,
-sm_mrq_fused, B4 on the level's Bsk base, fast_floor_fused, B6):
+h = 32, which takes the n < 1024 branch of the multiply (B4 on q, B4's
+Lift lane on the level's Bsk base, which is sm_mrq_fused and B4 there in
+one launch, fast_floor_fused with B6):
 multiply_no_relin, relinearize and multiply at levels 0, 1 and 2, the chain
 multiply -> mod_switch_to_next -> multiply, the plain ops, multiply_batch
 and the rotations at level 1, against fhe_tpu.scheme.bfv, jitted, on a

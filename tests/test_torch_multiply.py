@@ -3,8 +3,9 @@
 Kernel modules: the port's wrappers on CPU tensors (their plain PyTorch
 versions) against the Pallas kernels in interpreter mode, on the same random
 residues: ntt_pallas.tensor_product (with and without the t fold),
-rns_pallas.bsk_branch_fused, rns_pallas.fast_bconv_sk_fused and
-ntt_pallas.keyswitch_fused.  tests/test_torch_cuda.py holds the CUDA kernels
+rns_pallas.bsk_branch_fused, tensor_product's Lift lane (rns_pallas.sm_mrq_fused
+then ntt_pallas.tensor_product on the Bsk base), rns_pallas.fast_bconv_sk_fused
+and ntt_pallas.keyswitch_fused.  tests/test_torch_cuda.py holds the CUDA kernels
 against the same plain versions on the card.
 
 The slice: relinkey_gen_from_noise, multiply_no_relin, relinearize,
@@ -161,6 +162,29 @@ def test_bsk_branch_matches_pallas(s):
     np.testing.assert_array_equal(convert.to_numpy(got), want)
 
 
+def test_tensor_product_lift_matches_pallas(s):
+    """tensor_product's Lift lane (the n < 1024 multiply's two products) at
+    n = 1024, where the multiply runs bsk_branch_fused instead: the
+    product in q equals ntt_pallas.tensor_product, and that of the lifts of
+    x || y into Bsk rns_pallas.sm_mrq_fused, then ntt_pallas.tensor_product
+    on the Bsk base."""
+    prm, jctx, tctx = s.jctx.params, s.jctx, s.tctx
+    n, kb = prm.n, jctx.bsk_counts[0]
+    tq_pl, tbsk_pl = npal.build_mul_tables(n, prm.q_primes, prm.bsk_primes, prm.t,
+                                           prm.k, kb)
+    x, y = _residues(prm.q_primes, (2, n)), _residues(prm.q_primes, (2, n))
+    jx, jy = jnp.asarray(x), jnp.asarray(y)
+    lift = rpal.sm_mrq_fused(jnp.concatenate([jx, jy], axis=1), jctx.smq, interpret=True)
+    tq, tbsk = tctx.mul_tables
+    got_q, got = ntt_cuda.tensor_product(_t(x), _t(y), tq, lift=(tctx.smq, tbsk))
+    np.testing.assert_array_equal(
+        convert.to_numpy(got_q), np.asarray(npal.tensor_product(jx, jy, tq_pl, interpret=True)))
+    np.testing.assert_array_equal(
+        convert.to_numpy(got),
+        np.asarray(npal.tensor_product(lift[:, :2], lift[:, 2:], tbsk_pl, interpret=True)))
+    assert got.shape == (kb, 3, n)
+
+
 def test_fast_bconv_sk_matches_pallas(s):
     prm = s.jctx.params
     xb = _residues(prm.bsk_primes, (3, prm.n))
@@ -273,7 +297,8 @@ def test_facade_multiply_on_cpu():
 
 
 def test_small_ring_multiply_matches_jax_and_foreign_keys_raise():
-    """n < 1024 takes the multiply's sm_mrq_fused / fast_floor_fused branch:
+    """n < 1024 takes the multiply's tensor_product Lift lane /
+    fast_floor_fused branch:
     it decodes and equals fhe_tpu's multiply_no_relin on the same
     ciphertext (tests/test_torch_leveled.py holds it at every level).
     Grouped gadget digits (ks_omega > 1) are ported
