@@ -100,8 +100,29 @@ Phases, each printing its own lines:
      G modmul/s for exact, lazy and barrett Shoup/Barrett products, the
      mul17 and cheap17 op rates, lazy at ilp 2 and 4, and the share of one
      integer pipe's 16.7 T op/s and of the two pipes' 33.4 T that the
-     measured rates reach by the OPS counts (the bounds use the two pipes).
-Phases 4 to 11 each zero every launch count just before their path and read
+     measured rates reach by the OPS counts (the bounds use the two pipes);
+ 12. bgv: BGV through the facade (FHE(..., scheme="bgv")) at the JAX bench's
+     g_bgv configuration, n = 8192, log_q = 90 (k = 3), h = 64, t = 65537,
+     seed 1: keygen, relinkey_gen, galoiskey_gen for (3, 2n - 1), for 3^s,
+     s = 1..8, and for sum_slots_elements(), encrypt [5,10,15,20] and
+     [3,6,9,12], multiply_no_relin, the 3-component decrypt, relinearize
+     and multiply (each decodes [15,60,135,240]), multiply_batch at B = 8
+     (element i == multiply), rotate_rows by 1, rotate_columns,
+     rotate_rows_hoisted of the 8 steps and its batch of 4 ciphertexts,
+     sum_slots (50 in every slot), mod_switch_to_next, and at level 1
+     (scale_t = q_last mod t != 1) add_plain, multiply_plain and
+     rotate_rows by 1, which decode, and an add of mismatched scale_t,
+     which must raise.  B1-B4, B7 (both lanes), B11, B12 and the Galois
+     lanes of B17/B18 must have launched, and B5, B6, B8, B9, B10 and B13
+     (BFV's) never.  Card == CPU plain path bit for bit for the keys from
+     noise, encrypt_from_noise, the products, relinearize, multiply_batch,
+     the mod switch, the rotations, the ops at level 1 and the decrypts,
+     scale_t included.  Then bgv_multiply_relin_ms (wall and device ms)
+     beside BFV's headline multiply in the same run, the other BGV ops'
+     times, the profiler's kernels per call, and estimate_noise_budget /
+     exact_noise_budget of a fresh ciphertext and a product in both
+     schemes.
+Phases 4 to 12 each zero every launch count just before their path and read
 them just after; each kernel of the path must have launched.  Phase 3 also
 runs fast_bconv_sk_fused with the digits lane at [5,3,n], [5,24,n],
 [10,3,n] and [10,24,n] (the multiply and multiply_batch at k = 3 and
@@ -136,7 +157,8 @@ n = 256 and 16384) and of ks_inner_batch / ks_inner_grouped (E = 8, C x E =
 off a 16-byte boundary, with a run of zeros in c0 and the digits; a
 sum_slots stage's B17 and B15 (E = 3, and at k8_omega's k = 8, kd = 4).
 The line before the last is {"kernels": [...]}, each kernel with its launches
-on its own path (phase 4 to 11); the last line is
+on its own path (phase 4 to 11) and on the bgv path (bgv_launches); the last
+line is
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; without
 a card the script exits 1 before printing any result.  Imports no JAX and
 nothing of fhe_tpu.
@@ -161,7 +183,7 @@ from fhe_tpu_torch.ops import galois as plain_galois
 from fhe_tpu_torch.ops import ntt as plain_ntt
 from fhe_tpu_torch.ops import rns, sampling
 from fhe_tpu_torch.params import SecurityParams, make_scheme_params
-from fhe_tpu_torch.scheme import bfv
+from fhe_tpu_torch.scheme import bfv, bgv
 from fhe_tpu_torch.scheme.context import make_context
 from fhe_tpu_torch.scheme.types import (GaloisKeys, Plaintext, PublicKey, RelinKeys,
                                         SecretKey)
@@ -2428,6 +2450,202 @@ def phase_roofline(gen: torch.Generator) -> dict:
     return launches
 
 
+# the BGV path's kernels (B1-B4, B7 and its Galois lane, B11, B12, the Galois
+# lanes of B17/B18, and sum_slots' B17 Inner lane and B15), and the kernels
+# only BFV runs: the BEHZ branch and conversions (B5, B6, B9, B10), B8's
+# fused BFV decrypt, and B13 (BGV has no encrypt_batch)
+BGV_KERNELS = ("ntt_forward", "ntt_inverse", "mul_by_ntt_operand", "tensor_product",
+               "keyswitch_fused", "keyswitch_fused_galois", "tensor_product_batch",
+               "keyswitch_fused_batch", "ks_inner_batch_galois", "ks_inner_grouped_galois",
+               "ks_inner_batch", "automorphism_fused_sum")
+BFV_ONLY_KERNELS = ("bsk_branch_fused", "fast_bconv_sk_fused", "decrypt_fused",
+                    "bsk_branch_fused_batch", "tensor_product_lift", "fast_floor_fused",
+                    "mul_by_ntt_operand_batch")
+
+
+def phase_bgv() -> dict:
+    """BGV through the facade at the JAX bench's g_bgv configuration, then the
+    same state through the plain versions on the CPU, then the multiply's
+    times and kernels beside BFV's, and the noise budgets of both schemes."""
+    fhe = FHE(poly_degree=N, log_q=LOG_Q, hamming_weight=H, seed=1, scheme="bgv",
+              device="cuda")
+    prm, t = fhe.params, fhe.params.t
+    check((prm.k, t) == (3, 65537), f"expected k = 3, t = 65537, got {prm.k}, {t}")
+    dec = lambda ct, count=4: [int(v) for v in fhe.decode(fhe.decrypt(ct, sk))[:count]]
+    vals_c = [[v + 100 * c for v in VALS_H] for c in range(C_HOIST)]
+    reset_counts()
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    gk = fhe.galoiskey_gen(sk, elements=(3, 2 * N - 1))
+    gk_h = fhe.galoiskey_gen(sk, elements=HOIST)
+    gk_ss = fhe.galoiskey_gen(sk, elements=fhe.sum_slots_elements())
+    p1 = fhe.encode([5, 10, 15, 20])
+    c1, c2 = fhe.encrypt(p1, pk), fhe.encrypt(fhe.encode([3, 6, 9, 12]), pk)
+    m3 = fhe.multiply_no_relin(c1, c2)
+    relin = fhe.relinearize(m3, rlk)
+    prod = fhe.multiply(c1, c2, rlk)
+    cts_a = [fhe.encrypt(fhe.encode(v), pk) for v in VALS_A]
+    cts_b = [fhe.encrypt(fhe.encode(v), pk) for v in VALS_B]
+    prods = fhe.multiply_batch(cts_a, cts_b, rlk)
+    rot, cols = fhe.rotate_rows(c1, 1, gk), fhe.rotate_columns(c1, gk)
+    cts_h = [fhe.encrypt(fhe.encode(v), pk) for v in vals_c]
+    outs = fhe.rotate_rows_hoisted(c1, STEPS, gk_h)
+    outs_b = fhe.rotate_rows_hoisted_batch(cts_h, STEPS, gk_h)
+    total = fhe.sum_slots(c1, gk_ss)
+    low = fhe.mod_switch_to_next(prod)
+    low_add = fhe.add_plain(low, fhe.encode([1, 2, 3, 4]))
+    low_mul = fhe.multiply_plain(low, fhe.encode([2, 2, 2, 2]))
+    low_rot = fhe.rotate_rows(low, 1, gk)
+    low_sq = fhe.multiply(low, low, rlk)
+    decoded = {"multiply_no_relin": dec(m3), "relinearize": dec(relin), "multiply": dec(prod),
+               "mod_switch_to_next": dec(low), "add_plain_l1": dec(low_add),
+               "multiply_plain_l1": dec(low_mul), "rotate_rows_l1": dec(low_rot, 3),
+               "rotate_rows": dec(rot, N // 2), "rotate_columns": dec(cols, N),
+               "multiply_batch": [dec(c) for c in prods],
+               "sum_slots": sorted({int(v) for v in fhe.decode(fhe.decrypt(total, sk))})}
+    mismatch = None
+    try:
+        fhe.add(low_sq, low)
+    except ValueError as err:
+        mismatch = str(err)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print("phase bgv launches", json.dumps(launches))
+    for what in ("multiply_no_relin", "relinearize", "multiply", "mod_switch_to_next"):
+        check(decoded[what] == PRODUCT, f"BGV {what} decoded {decoded[what]}")
+    check(decoded["add_plain_l1"] == [16, 62, 138, 244]
+          and decoded["multiply_plain_l1"] == [30, 120, 270, 480]
+          and decoded["rotate_rows_l1"] == [60, 135, 240],
+          f"BGV at level 1 decoded {decoded}")
+    check(low.level == 1 and low.scale_t == prm.q_primes[-1] % t != 1
+          and low_sq.scale_t == low.scale_t ** 2 % t, f"BGV scale_t {low.scale_t}")
+    check(mismatch is not None and "scale_t" in mismatch,
+          "BGV add of mismatched scale_t did not raise")
+    check(decoded["rotate_rows"] == rotated([5, 10, 15, 20], 1),
+          f"BGV rotate_rows decoded {decoded['rotate_rows'][:6]}")
+    check(decoded["rotate_columns"][N // 2:N // 2 + 4] == [5, 10, 15, 20]
+          and decoded["rotate_columns"][:4] == [0] * 4, "BGV rotate_columns decoded wrong")
+    want_b = [[x * y % t for x, y in zip(a, b)] for a, b in zip(VALS_A, VALS_B)]
+    check(decoded["multiply_batch"] == want_b,
+          f"BGV multiply_batch decoded {decoded['multiply_batch']}")
+    check(decoded["sum_slots"] == [50], f"BGV sum_slots decoded {decoded['sum_slots'][:4]}")
+    check_hoisted(fhe, sk, c1, [5, 10, 15, 20], outs, cts_h, vals_c, outs_b, gk_h)
+    for i in range(BATCH):
+        single = fhe.multiply(cts_a[i], cts_b[i], rlk)
+        check(torch.equal(single.data, prods[i].data)
+              and single.noise_budget == prods[i].noise_budget,
+              f"BGV multiply_batch element {i} differs from the single multiply")
+    check_launched(launches, "bgv", BGV_KERNELS)
+    ran = {name: launches[name] for name in BFV_ONLY_KERNELS if launches[name]}
+    check(not ran, f"the BGV path launched BFV-only kernels {ran}")
+
+    # the same state through the plain versions on the CPU, at full size
+    cpu = make_context(prm, device="cpu")
+    to_cpu = lambda c: c.replace(data=c.data.cpu())
+    sk_cpu, pk_cpu = SecretKey(data=sk.data.cpu()), PublicKey(data=pk.data.cpu())
+    rlk_cpu = RelinKeys(data=rlk.data.cpu())
+    gk_cpu = GaloisKeys(data={g: v.cpu() for g, v in gk.data.items()})
+    gk_h_cpu = GaloisKeys(data={g: v.cpu() for g, v in gk_h.data.items()})
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    primes = fhe.ctx.ntt_q.p
+    s, a, e = (sampling.ternary_rns(gen, primes, 1, N, H), sampling.uniform_rns(gen, primes, 1, N),
+               sampling.gaussian_rns(gen, primes, 3.2, 1, N))
+    keys_card, keys_cpu = (bgv.keygen_from_noise(fhe.ctx, s, a, e),
+                           bgv.keygen_from_noise(cpu, s.cpu(), a.cpu(), e.cpu()))
+    check(all(torch.equal(x.data.cpu(), y.data) for x, y in zip(keys_card, keys_cpu)),
+          "card BGV keygen_from_noise differs from the CPU plain path")
+    ka = torch.stack([torch.stack([sampling.uniform_rns(gen, primes, 1, N) for _ in range(3)])
+                      for _ in range(2)])
+    ke = torch.stack([torch.stack([sampling.gaussian_rns(gen, primes, 3.2, 1, N)
+                                   for _ in range(3)]) for _ in range(2)])
+    check(torch.equal(bgv.relinkey_gen_from_noise(fhe.ctx, sk, ka[0], ke[0]).data.cpu(),
+                      bgv.relinkey_gen_from_noise(cpu, sk_cpu, ka[0].cpu(), ke[0].cpu()).data),
+          "card BGV relinkey_gen_from_noise differs from the CPU plain path")
+    gcard = bgv.galoiskey_gen_from_noise(fhe.ctx, sk, (3, 2 * N - 1), ka, ke)
+    gplain = bgv.galoiskey_gen_from_noise(cpu, sk_cpu, (3, 2 * N - 1), ka.cpu(), ke.cpu())
+    check(all(torch.equal(gcard.data[g].cpu(), gplain.data[g]) for g in gplain.data),
+          "card BGV galoiskey_gen_from_noise differs from the CPU plain path")
+    # u = s and e1 = e2 = e: any residues serve to compare the two paths
+    enc_card = bgv.encrypt_from_noise(fhe.ctx, pk, p1, s, e, e)
+    enc_cpu = bgv.encrypt_from_noise(cpu, pk_cpu, Plaintext(data=p1.data.cpu()), s.cpu(),
+                                     e.cpu(), e.cpu())
+    check(torch.equal(enc_card.data.cpu(), enc_cpu.data),
+          "card BGV encrypt_from_noise differs from the CPU plain path")
+    m3_cpu = bgv.multiply_no_relin(cpu, to_cpu(c1), to_cpu(c2))
+    prod_cpu = bgv.multiply(cpu, to_cpu(c1), to_cpu(c2), rlk_cpu)
+    low_cpu = bgv.mod_switch_to_next(cpu, prod_cpu)
+    pairs = {
+        "multiply_no_relin": ([m3], [m3_cpu]),
+        "relinearize": ([relin], [bgv.relinearize(cpu, m3_cpu, rlk_cpu)]),
+        "multiply": ([prod], [prod_cpu]),
+        "multiply_batch": (prods, bgv.multiply_batch(cpu, [to_cpu(c) for c in cts_a],
+                                                     [to_cpu(c) for c in cts_b], rlk_cpu)),
+        "mod_switch_to_next": ([low], [low_cpu]),
+        "rotate_rows": ([rot], [bgv.rotate_rows(cpu, to_cpu(c1), 1, gk_cpu)]),
+        "rotate_columns": ([cols], [bgv.rotate_columns(cpu, to_cpu(c1), gk_cpu)]),
+        "rotate_rows_hoisted": (outs, bgv.apply_galois_hoisted(cpu, to_cpu(c1), HOIST,
+                                                               gk_h_cpu)),
+        "add_plain_l1": ([low_add], [bgv.add_plain(cpu, low_cpu, Plaintext(
+            data=fhe.encode([1, 2, 3, 4]).data.cpu()))]),
+        "rotate_rows_l1": ([low_rot], [bgv.rotate_rows(cpu, low_cpu, 1, gk_cpu)]),
+    }
+    for what, (card, plain) in pairs.items():
+        check(same_cts(card, plain) and all(x.scale_t == y.scale_t and x.level == y.level
+                                            for x, y in zip(card, plain)),
+              f"card BGV {what} differs from the CPU plain path")
+    for what, ct, ct_cpu in (("3-component", m3, m3_cpu), ("level-1", low, low_cpu)):
+        check(torch.equal(fhe.decrypt(ct, sk).data.cpu(), bgv.decrypt(cpu, ct_cpu, sk_cpu).data),
+              f"card BGV {what} decrypt differs from the CPU plain path")
+    print(f"phase bgv check: n={N}, k=3, t={t}; decoded {PRODUCT} (multiply_no_relin, the "
+          "3-component decrypt, relinearize, multiply, mod_switch_to_next), multiply_batch "
+          f"(B={BATCH}, element i == multiply), rotate_rows, rotate_columns, the hoisted "
+          f"rotations, sum_slots; at level 1 (scale_t {low.scale_t}) add_plain, "
+          "multiply_plain, rotate_rows, and the mismatched add raised; no BFV-only kernel "
+          "launched; card == CPU plain path for the keys from noise, encrypt_from_noise, "
+          f"{', '.join(pairs)} and the decrypts, scale_t included")
+
+    # BGV's multiply beside the BFV headline multiply, measured in the same run
+    bfv_fhe = FHE(poly_degree=N, log_q=LOG_Q, hamming_weight=H, seed=3, device="cuda")
+    bpk, bsk = bfv_fhe.keygen()
+    brlk = bfv_fhe.relinkey_gen(bsk)
+    b1 = bfv_fhe.encrypt(bfv_fhe.encode([5, 10, 15, 20]), bpk)
+    b2 = bfv_fhe.encrypt(bfv_fhe.encode([3, 6, 9, 12]), bpk)
+    bprod = bfv_fhe.multiply(b1, b2, brlk)
+    ops = {"bgv_multiply_relin": lambda: fhe.multiply(c1, c2, rlk),
+           "bfv_multiply_relin": lambda: bfv_fhe.multiply(b1, b2, brlk),
+           "bgv_multiply_no_relin": lambda: fhe.multiply_no_relin(c1, c2),
+           "bgv_relinearize": lambda: fhe.relinearize(m3, rlk),
+           "bgv_decrypt": lambda: fhe.decrypt(prod, sk),
+           "bgv_mod_switch_to_next": lambda: fhe.mod_switch_to_next(prod),
+           "bgv_rotate_rows_1": lambda: fhe.rotate_rows(c1, 1, gk),
+           f"bgv_multiply_batch_B{BATCH}": lambda: fhe.multiply_batch(cts_a, cts_b, rlk)}
+    wall = {op: wall_ms(fn) for op, fn in ops.items()}
+    dev = {op: device_ms(fn) for op, fn in ops.items()}
+    print("phase bgv wall_ms", json.dumps(wall))
+    print("phase bgv device_ms", json.dumps(dev))
+    print("phase bgv bgv_multiply_relin_ms", json.dumps({
+        "wall_ms": wall["bgv_multiply_relin"], "device_ms": dev["bgv_multiply_relin"],
+        "bfv_headline_wall_ms": wall["bfv_multiply_relin"],
+        "bfv_headline_device_ms": dev["bfv_multiply_relin"]}))
+    print_profiled("bgv", {op: ops[op] for op in (
+        "bgv_multiply_relin", "bfv_multiply_relin", "bgv_multiply_no_relin", "bgv_decrypt")})
+    budgets = {}
+    for scheme, f, s_, fresh, product, vals in (
+            ("bgv", fhe, sk, c1, prod, [5, 10, 15, 20]),
+            ("bfv", bfv_fhe, bsk, b1, bprod, [5, 10, 15, 20])):
+        budgets[scheme] = {
+            "fresh_estimate": f.estimate_noise_budget(fresh, s_),
+            "fresh_exact": f.exact_noise_budget(fresh, s_, f.encode(vals)),
+            "fresh_tracked": fresh.noise_budget,
+            "product_estimate": f.estimate_noise_budget(product, s_),
+            "product_exact": f.exact_noise_budget(product, s_, f.encode(PRODUCT)),
+            "product_tracked": product.noise_budget}
+        check(budgets[scheme]["fresh_estimate"] > budgets[scheme]["product_estimate"] > 10,
+              f"{scheme} noise budgets {budgets[scheme]}")
+    print("phase bgv noise_budget_bits", json.dumps(budgets))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2444,13 +2662,15 @@ def main() -> int:
     launches = {"slice": phase_slice(), "multiply": phase_multiply(),
                 "serving": phase_serving(), "hoisted": phase_hoisted(),
                 "omega": phase_omega(), "leveled": phase_leveled(),
-                "small": phase_small(), "roofline": phase_roofline(gen)}
+                "small": phase_small(), "roofline": phase_roofline(gen),
+                "bgv": phase_bgv()}
     rows = []
     for name, meta in KERNELS.items():
         r = results[name]
         rows.append({"name": name, "route": "cuda", "source": meta["source"],
                      "replaces": meta["replaces"],
                      "launches": launches[meta["path"]][name],
+                     "bgv_launches": launches["bgv"][name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,

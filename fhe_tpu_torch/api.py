@@ -1,5 +1,6 @@
 """High-level FHE API — counterpart of the ``FHE`` facade in ``fhe_tpu/api.py``,
-restricted to the BFV ops this package has so far, at every level.
+for BFV (``scheme="bfv"``, the default) and BGV (``scheme="bgv"``), at every
+level.
 
     from fhe_tpu_torch import FHE
     fhe = FHE(poly_degree=8192, log_q=90, hamming_weight=64)   # on the card
@@ -18,6 +19,15 @@ restricted to the BFV ops this package has so far, at every level.
 
 ``SecurityParams(ks_omega=2)`` (``FHE(..., ks_omega=2)``) groups two q
 primes per gadget digit in every key switch.
+
+``FHE(..., scheme="bgv")`` runs the same calls on BGV (``scheme/bgv.py``):
+the plaintext in the low bits of the phase, t-scaled key and encryption
+errors, a plain tensor product mod q, and the t-corrected modulus switch,
+which a ciphertext tracks as ``scale_t``.  BGV has no batched
+encrypt / decrypt or rotate_rows_batch: those calls run the single op per
+ciphertext, as in the JAX facade; modulus_raise is BFV's alone.
+``estimate_noise_budget`` and ``exact_noise_budget`` measure a ciphertext's
+budget with the secret key in either scheme.
 
 Leveled use: ``mod_switch_to_next`` drops the last q prime with rounding
 (``mod_switch_to_level`` several), which keeps the noise of a deep circuit
@@ -45,7 +55,7 @@ import numpy as np
 import torch
 
 from .params import SchemeParams, SecurityParams, make_scheme_params
-from .scheme import bfv
+from .scheme import bfv, bgv
 from .scheme import encoder as _encoder
 from .scheme.context import SchemeContext, default_galois_elements, make_context
 from .scheme.types import (Ciphertext, GaloisKeys, Plaintext, PublicKey,
@@ -56,12 +66,18 @@ class FHE:
     """Stateful convenience wrapper.  Mutable state: the random generator,
     the cache of NTT-form plain operands, the per-level caches of switched
     relinearization and Galois keys and the cache of pre-permuted
-    hoisted-rotation keys; all scheme values are immutable."""
+    hoisted-rotation keys; all scheme values are immutable.  The key caches
+    belong to the instance, so keys of one scheme are only ever switched
+    down with that scheme's constants."""
 
     def __init__(self, params: SchemeParams | None = None, seed: int = 0,
-                 device="cuda", **security_kw):
+                 scheme: str = "bfv", device="cuda", **security_kw):
+        if scheme not in ("bfv", "bgv"):
+            raise ValueError(f"unknown scheme {scheme!r}; use 'bfv' or 'bgv'")
         if params is None:
             params = make_scheme_params(SecurityParams(**security_kw))
+        self.scheme_name = scheme
+        self._scheme = bfv if scheme == "bfv" else bgv
         self.params = params
         self.ctx: SchemeContext = make_context(params, device=device)
         self.device = self.ctx.device
@@ -75,15 +91,15 @@ class FHE:
 
     # -- keys --
     def keygen(self) -> tuple[PublicKey, SecretKey]:
-        return bfv.keygen(self.ctx, self.gen)
+        return self._scheme.keygen(self.ctx, self.gen)
 
     def relinkey_gen(self, sk: SecretKey) -> RelinKeys:
-        return bfv.relinkey_gen(self.ctx, self.gen, sk)
+        return self._scheme.relinkey_gen(self.ctx, self.gen, sk)
 
     def galoiskey_gen(self, sk: SecretKey, elements=None) -> GaloisKeys:
         """Galois keys for ``elements`` (default: the power-of-two row
         rotations both ways and the column swap)."""
-        return bfv.galoiskey_gen(self.ctx, self.gen, sk, elements)
+        return self._scheme.galoiskey_gen(self.ctx, self.gen, sk, elements)
 
     # -- encoding (slot semantics by default) --
     def encode(self, values) -> Plaintext:
@@ -104,33 +120,39 @@ class FHE:
 
     # -- encrypt / decrypt --
     def encrypt(self, pt: Plaintext, pk: PublicKey) -> Ciphertext:
-        return bfv.encrypt(self.ctx, self.gen, pk, pt)
+        return self._scheme.encrypt(self.ctx, self.gen, pk, pt)
 
     def decrypt(self, ct: Ciphertext, sk: SecretKey) -> Plaintext:
-        return bfv.decrypt(self.ctx, ct, sk)
+        return self._scheme.decrypt(self.ctx, ct, sk)
 
     def encrypt_batch(self, pts: list, pk: PublicKey) -> list:
         """Encrypt B plaintexts in one batched pk*u launch; element i is an
-        independent fresh encryption."""
-        return bfv.encrypt_batch(self.ctx, self.gen, pk, pts)
+        independent fresh encryption (BGV: one encrypt each)."""
+        fn = getattr(self._scheme, "encrypt_batch", None)
+        if fn is None:
+            return [self.encrypt(pt, pk) for pt in pts]
+        return fn(self.ctx, self.gen, pk, pts)
 
     def decrypt_batch(self, cts: list, sk: SecretKey) -> list:
         """Decrypt B ciphertexts in one fused launch; element i equals
-        decrypt(cts[i], sk)."""
-        return bfv.decrypt_batch(self.ctx, cts, sk)
+        decrypt(cts[i], sk) (BGV: one decrypt each)."""
+        fn = getattr(self._scheme, "decrypt_batch", None)
+        if fn is None:
+            return [self.decrypt(ct, sk) for ct in cts]
+        return fn(self.ctx, cts, sk)
 
     # -- homomorphic ops --
     def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-        return bfv.add(self.ctx, a, b)
+        return self._scheme.add(self.ctx, a, b)
 
     def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-        return bfv.sub(self.ctx, a, b)
+        return self._scheme.sub(self.ctx, a, b)
 
     def add_plain(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
-        return bfv.add_plain(self.ctx, ct, pt)
+        return self._scheme.add_plain(self.ctx, ct, pt)
 
     def sub_plain(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
-        return bfv.sub_plain(self.ctx, ct, pt)
+        return self._scheme.sub_plain(self.ctx, ct, pt)
 
     # -- keys switched down to a level, cached per (keys, level) --
     def _keys_at(self, cache: dict, keys, level: int, switch):
@@ -148,29 +170,30 @@ class FHE:
         return switched
 
     def _rlk_at(self, rlk: RelinKeys, level: int) -> RelinKeys:
-        return self._keys_at(self._rlk_cache, rlk, level, bfv.switch_relin_keys)
+        return self._keys_at(self._rlk_cache, rlk, level, self._scheme.switch_relin_keys)
 
     def _gal_at(self, gal_keys: GaloisKeys, level: int) -> GaloisKeys:
-        return self._keys_at(self._gal_cache, gal_keys, level, bfv.switch_galois_keys)
+        return self._keys_at(self._gal_cache, gal_keys, level,
+                             self._scheme.switch_galois_keys)
 
     def multiply(self, a: Ciphertext, b: Ciphertext, rlk: RelinKeys) -> Ciphertext:
-        return bfv.multiply(self.ctx, a, b, self._rlk_at(rlk, a.level),
-                            keys_at_level=True)
+        return self._scheme.multiply(self.ctx, a, b, self._rlk_at(rlk, a.level),
+                                     keys_at_level=True)
 
     def multiply_batch(self, cts_a: list, cts_b: list, rlk: RelinKeys) -> list:
         """Multiply + relinearize B independent pairs at one level through
         the batched kernels (the serving path); element i equals
         multiply(cts_a[i], cts_b[i], rlk)."""
         level = cts_a[0].level if cts_a else 0
-        return bfv.multiply_batch(self.ctx, cts_a, cts_b, self._rlk_at(rlk, level),
-                                  keys_at_level=True)
+        return self._scheme.multiply_batch(self.ctx, cts_a, cts_b,
+                                           self._rlk_at(rlk, level), keys_at_level=True)
 
     def multiply_no_relin(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-        return bfv.multiply_no_relin(self.ctx, a, b)
+        return self._scheme.multiply_no_relin(self.ctx, a, b)
 
     def relinearize(self, ct: Ciphertext, rlk: RelinKeys) -> Ciphertext:
-        return bfv.relinearize(self.ctx, ct, self._rlk_at(rlk, ct.level),
-                               keys_at_level=True)
+        return self._scheme.relinearize(self.ctx, ct, self._rlk_at(rlk, ct.level),
+                                        keys_at_level=True)
 
     def multiply_plain(self, ct: Ciphertext, pt: Plaintext,
                        cache_operand: bool = False) -> Ciphertext:
@@ -178,33 +201,35 @@ class FHE:
         (pt, level) and reuses it, so a K-term plaintext dot product on an
         NTT-form ciphertext costs no transform per term."""
         op = self.plain_operand(pt, ct.level) if cache_operand else None
-        return bfv.multiply_plain(self.ctx, ct, pt, op)
+        return self._scheme.multiply_plain(self.ctx, ct, pt, op)
 
     # -- rotations and key switching --
     def rotate_rows(self, ct: Ciphertext, steps: int,
                     gal_keys: GaloisKeys) -> Ciphertext:
-        return bfv.rotate_rows(self.ctx, ct, steps, self._gal_at(gal_keys, ct.level),
-                               keys_at_level=True)
+        return self._scheme.rotate_rows(self.ctx, ct, steps,
+                                        self._gal_at(gal_keys, ct.level), keys_at_level=True)
 
     def rotate_rows_batch(self, cts: list, steps: int,
                           gal_keys: GaloisKeys) -> list:
         """Rotate B ciphertexts at one level by the same step count, one
         batched automorphism and key switch per hop; element i equals
-        rotate_rows(cts[i], steps)."""
+        rotate_rows(cts[i], steps) (BGV: one rotate_rows each)."""
+        fn = getattr(self._scheme, "rotate_rows_batch", None)
+        if fn is None:
+            return [self.rotate_rows(ct, steps, gal_keys) for ct in cts]
         level = cts[0].level if cts else 0
-        return bfv.rotate_rows_batch(self.ctx, cts, steps, self._gal_at(gal_keys, level),
-                                     keys_at_level=True)
+        return fn(self.ctx, cts, steps, self._gal_at(gal_keys, level), keys_at_level=True)
 
     def rotate_columns(self, ct: Ciphertext, gal_keys: GaloisKeys) -> Ciphertext:
-        return bfv.rotate_columns(self.ctx, ct, self._gal_at(gal_keys, ct.level),
-                                  keys_at_level=True)
+        return self._scheme.rotate_columns(self.ctx, ct, self._gal_at(gal_keys, ct.level),
+                                           keys_at_level=True)
 
     def key_switch(self, ct: Ciphertext, ks_keys: torch.Tensor,
                    keys_at_level: bool = False) -> Ciphertext:
         """Switch a 2-component ciphertext under s' to one under s; ks_keys
         [kd, k, 2, n] encrypt (q/q_j) * s' (switched down to the
         ciphertext's level on each call unless ``keys_at_level``)."""
-        return bfv.key_switch(self.ctx, ct, ks_keys, keys_at_level)
+        return self._scheme.key_switch(self.ctx, ct, ks_keys, keys_at_level)
 
     def _hoist_elements(self, steps_list, gal_keys: GaloisKeys) -> tuple:
         """The Galois elements 3^s mod 2n of the steps; KeyError unless each
@@ -226,8 +251,8 @@ class FHE:
         ck = (id(gal_keys), elements, level)
         pre = self._hoist_cache.get(ck)
         if pre is None:
-            pre = bfv.hoisted_galois_keys(self.ctx, self._gal_at(gal_keys, level),
-                                          elements, level, keys_at_level=True)
+            pre = self._scheme.hoisted_galois_keys(self.ctx, self._gal_at(gal_keys, level),
+                                                   elements, level, keys_at_level=True)
             self._hoist_cache[ck] = pre
             weakref.finalize(gal_keys, _evict, self._hoist_cache, id(gal_keys))
         return pre
@@ -239,7 +264,7 @@ class FHE:
         steps_list[e]) by decryption.  Each step needs a direct Galois key:
         galoiskey_gen(sk, elements=[pow(3, s, 2n) for s in steps_list])."""
         elements = self._hoist_elements(steps_list, gal_keys)
-        return bfv.apply_galois_hoisted(
+        return self._scheme.apply_galois_hoisted(
             self.ctx, ct, elements, gal_keys,
             pre_keys=self._hoisted_pre(gal_keys, elements, ct.level))
 
@@ -254,7 +279,7 @@ class FHE:
             return []
         if any(ct.level != cts[0].level for ct in cts):
             return [self.rotate_rows_hoisted(ct, steps_list, gal_keys) for ct in cts]
-        return bfv.apply_galois_hoisted_batch(
+        return self._scheme.apply_galois_hoisted_batch(
             self.ctx, cts, elements, gal_keys,
             pre_keys=self._hoisted_pre(gal_keys, elements, cts[0].level))
 
@@ -297,27 +322,40 @@ class FHE:
         """ct + sum_s rotate_rows(ct, s) through one hoisted accumulating
         chain (bfv.apply_galois_hoisted_sum): the sum_slots stage."""
         elements = self._hoist_elements(steps_list, gal_keys)
-        return bfv.apply_galois_hoisted_sum(
+        return self._scheme.apply_galois_hoisted_sum(
             self.ctx, ct, elements, gal_keys,
             pre_keys=self._hoisted_pre(gal_keys, elements, ct.level))
 
     # -- noise management --
     def mod_switch_to_next(self, ct: Ciphertext) -> Ciphertext:
-        """Drop the last q prime with rounding: level L -> L + 1."""
-        return bfv.mod_switch_to_next(self.ctx, ct)
+        """Drop the last q prime with rounding (BGV: with the mod-t
+        correction, tracked in scale_t): level L -> L + 1."""
+        return self._scheme.mod_switch_to_next(self.ctx, ct)
 
     def mod_switch_to_level(self, ct: Ciphertext, level: int) -> Ciphertext:
-        return bfv.mod_switch_to_level(self.ctx, ct, level)
+        return self._scheme.mod_switch_to_level(self.ctx, ct, level)
 
     def modulus_raise(self, ct: Ciphertext) -> Ciphertext:
-        """Base-extend a leveled ciphertext back to all k primes (adds an
+        """Base-extend a leveled BFV ciphertext back to all k primes (adds an
         alpha * q_L term the caller absorbs as noise)."""
+        if self.scheme_name != "bfv":
+            raise NotImplementedError("modulus_raise is BFV-only")
         return bfv.modulus_raise(self.ctx, ct)
 
     def bootstrap(self, ct: Ciphertext, sk: SecretKey, pk: PublicKey) -> Ciphertext:
         """Trusted refresh with the secret key: decrypt, then encrypt afresh
         at level 0 with the facade's generator."""
-        return bfv.bootstrap(self.ctx, self.gen, ct, sk, pk)
+        return self._scheme.bootstrap(self.ctx, self.gen, ct, sk, pk)
+
+    def estimate_noise_budget(self, ct: Ciphertext, sk: SecretKey) -> float:
+        """The remaining budget in bits, measured with the secret key (a host
+        CRT of the phase) against what the ciphertext decrypts to."""
+        return self._scheme.estimate_noise_budget(self.ctx, ct, sk)
+
+    def exact_noise_budget(self, ct: Ciphertext, sk: SecretKey, pt: Plaintext) -> float:
+        """The budget against a known plaintext: negative once the ciphertext
+        is corrupted."""
+        return self._scheme.exact_noise_budget(self.ctx, ct, sk, pt)
 
     # -- NTT-form residency --
     def to_ntt(self, ct: Ciphertext) -> Ciphertext:

@@ -46,9 +46,13 @@ def galois_keys_from_numpy(data: dict, device="cuda") -> GaloisKeys:
 
 
 def ciphertext_from_numpy(data, level: int = 0, is_ntt_form: bool = False,
-                          noise_budget: float = 0.0, device="cuda") -> Ciphertext:
+                          noise_budget: float = 0.0, device="cuda",
+                          scale_t: int = 1) -> Ciphertext:
+    """A [k, c, n] residue stack; ``scale_t`` (BGV's correction factor) may be
+    any integer or a 0-d array, as the JAX package carries it."""
     return Ciphertext(data=_tensor(data, 3, device), level=level,
-                      is_ntt_form=is_ntt_form, noise_budget=float(noise_budget))
+                      is_ntt_form=is_ntt_form, noise_budget=float(noise_budget),
+                      scale_t=int(scale_t))
 
 
 def plaintext_from_numpy(data, device="cuda") -> Plaintext:

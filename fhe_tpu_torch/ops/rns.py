@@ -10,7 +10,10 @@ Base conversions and exact rounded scalings, all-integer (BEHZ):
   through the gamma trick: the digits of [gamma*t*x]_q are summed into a t
   lane and a gamma lane, and the centred gamma lane corrects the t lane's
   rounding;
-* modulus switching: round(x / q_last) in the remaining primes.
+* modulus switching: round(x / q_last) in the remaining primes, and BGV's
+  t-corrected form (x - d) / q_last with d = x mod q_last, d = 0 mod t;
+* the exact host CRT (``to_rns_host`` / ``from_rns_host``) of the noise
+  diagnostics, in pure Python.
 
 Each is bit-exact with its ``fhe_tpu.ops.rns`` counterpart (the JAX
 package's t = 65537 Fermat decryption lane gives the same bits as the
@@ -430,3 +433,62 @@ def mod_switch_drop_last(x: torch.Tensor, mc: ModSwitchConsts) -> torch.Tensor:
     # x_last - q_last when it is above q_last / 2)
     corr = torch.where(x_last <= (mc.q_last >> 1), x_last, x_last - mc.q_last)
     return ((x_keep - corr) % p * _col(mc.inv_qlast, x.dim()) % p).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# BGV modulus switching: drop the last prime with the mod-t correction
+# d = t * [[x * t^-1]]_{q_last}, so that d = x (mod q_last) and d = 0 (mod t)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BGVModSwitchConsts:
+    p_keep: torch.Tensor          # [k-1]
+    inv_qlast: torch.Tensor       # [k-1]  q_last^-1 mod p_i
+    inv_qlast_shoup: torch.Tensor
+    q_last: int
+    t: int
+    inv_t_qlast: int              # t^-1 mod q_last
+
+
+def make_bgv_mod_switch(primes, t: int, device="cuda") -> BGVModSwitchConsts:
+    ms = make_mod_switch(primes, device)
+    return BGVModSwitchConsts(p_keep=ms.p_keep, inv_qlast=ms.inv_qlast,
+                              inv_qlast_shoup=ms.inv_qlast_shoup, q_last=ms.q_last,
+                              t=int(t), inv_t_qlast=pow(int(t), -1, ms.q_last))
+
+
+def bgv_mod_switch_drop_last(x: torch.Tensor, mc: BGVModSwitchConsts) -> torch.Tensor:
+    """[k, B, n] -> [k-1, B, n]: (x - d) / q_last in the remaining primes, with
+    d = t * v, v = [x_last * t^-1]_{q_last} taken centred (v, or v - q_last
+    above q_last / 2).  Elementwise, so plain PyTorch on either device, as in
+    the JAX package (which computes it outside any Pallas kernel)."""
+    x_keep, x_last = x[:-1].to(torch.int64), x[-1].to(torch.int64)
+    p = _col(mc.p_keep, x.dim())
+    v = x_last * mc.inv_t_qlast % mc.q_last
+    vc = torch.where(v <= (mc.q_last >> 1), v, v - mc.q_last)
+    d = torch.remainder(vc * mc.t, p)
+    return ((x_keep - d) % p * _col(mc.inv_qlast, x.dim()) % p).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# host big integers <-> RNS (the noise diagnostics)
+# ---------------------------------------------------------------------------
+
+
+def to_rns_host(coeffs, primes_list) -> np.ndarray:
+    """[n] Python ints -> [k, n] uint32 residues."""
+    return np.stack([np.array([int(c) % int(p) for c in coeffs], dtype=np.uint32)
+                     for p in primes_list])
+
+
+def from_rns_host(res, primes_list) -> list[int]:
+    """[k, n] residues (numpy, or a tensor on any device) -> [n] Python ints
+    in [0, Q): the exact CRT on the host."""
+    if isinstance(res, torch.Tensor):
+        res = res.cpu().numpy()
+    rows = np.asarray(res).astype(np.int64).tolist()
+    ps = [int(p) for p in primes_list]
+    Q = math.prod(ps)
+    mults = [Q // p * pow(Q // p, -1, p) % Q for p in ps]
+    return [sum(r * m for r, m in zip(col, mults)) % Q for col in zip(*rows)]

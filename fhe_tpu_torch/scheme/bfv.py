@@ -10,9 +10,12 @@ multiply_batch, apply_galois_batch and rotate_rows_batch) and the hoisted
 rotations (hoisted_galois_keys, apply_galois_hoisted, its accumulating
 form apply_galois_hoisted_sum and its multi-ciphertext form
 apply_galois_hoisted_batch), and modulus switching (mod_switch_to_next,
-mod_switch_to_level, modulus_raise, the trusted-refresh bootstrap).  Every
-key switch takes the grouped gadget digits of ks_omega > 1 as well as the
-classic per-prime ones.
+mod_switch_to_level, modulus_raise, the trusted-refresh bootstrap), and the
+noise-budget diagnostics (estimate_noise_budget, exact_noise_budget: the
+phase's exact CRT on the host).  Every key switch takes the grouped gadget
+digits of ks_omega > 1 as well as the classic per-prime ones.  The
+key-switching ops and the key down-switch take ``bgv=True`` for BGV keys
+(``scheme/bgv.py``), which switch down with the t-corrected modulus switch.
 
 Every op runs at any level L of the modulus chain (the first k - L q
 primes), reading the level's constants from the context.  Keys are made at
@@ -134,13 +137,18 @@ def keygen_from_noise(ctx: SchemeContext, s: torch.Tensor, a: torch.Tensor,
             SecretKey(data=s_ntt.contiguous()))
 
 
-def keygen(ctx: SchemeContext, gen: torch.Generator) -> tuple[PublicKey, SecretKey]:
+def _keygen_draws(ctx: SchemeContext, gen: torch.Generator) -> tuple:
+    """A keypair's draws with the port's samplers: s, a, e, [k, 1, n] each."""
     p = ctx.params
     primes = ctx.ntt_q.p
     s = sampling.ternary_rns(gen, primes, 1, p.n, p.security.hamming_weight)
     a = sampling.uniform_rns(gen, primes, 1, p.n)
     e = sampling.gaussian_rns(gen, primes, p.security.sigma, 1, p.n)
-    return keygen_from_noise(ctx, s, a, e)
+    return s, a, e
+
+
+def keygen(ctx: SchemeContext, gen: torch.Generator) -> tuple[PublicKey, SecretKey]:
+    return keygen_from_noise(ctx, *_keygen_draws(ctx, gen))
 
 
 def _omega(ctx: SchemeContext) -> int:
@@ -276,17 +284,22 @@ def galoiskey_gen_from_noise(ctx: SchemeContext, sk: SecretKey, elements,
     return GaloisKeys(data=keys)
 
 
-def galoiskey_gen(ctx: SchemeContext, gen: torch.Generator, sk: SecretKey,
-                  elements=None) -> GaloisKeys:
-    """Galois keys with the port's samplers; by default for the power-of-two
-    row rotations in both directions and the column swap
-    (``context.default_galois_elements``)."""
+def _galois_draws(ctx: SchemeContext, gen: torch.Generator, elements) -> tuple:
+    """(elements, a, e): the Galois elements (by default the power-of-two
+    row rotations in both directions and the column swap,
+    ``context.default_galois_elements``) and their keys' draws,
+    [E, kd, k, 1, n] each."""
     elements = (tuple(elements) if elements is not None
                 else default_galois_elements(ctx.n))
     draws = [_keyswitch_draws(ctx, gen) for _ in elements]
-    return galoiskey_gen_from_noise(ctx, sk, elements,
-                                    torch.stack([a for a, _ in draws]),
-                                    torch.stack([e for _, e in draws]))
+    return (elements, torch.stack([a for a, _ in draws]),
+            torch.stack([e for _, e in draws]))
+
+
+def galoiskey_gen(ctx: SchemeContext, gen: torch.Generator, sk: SecretKey,
+                  elements=None) -> GaloisKeys:
+    """Galois keys with the port's samplers (``_galois_draws``)."""
+    return galoiskey_gen_from_noise(ctx, sk, *_galois_draws(ctx, gen, elements))
 
 
 # ---------------------------------------------------------------------------
@@ -309,14 +322,20 @@ def encrypt_from_noise(ctx: SchemeContext, pk: PublicKey, pt: Plaintext,
                       is_ntt_form=False, noise_budget=_fresh_noise_budget(ctx))
 
 
-def encrypt(ctx: SchemeContext, gen: torch.Generator, pk: PublicKey,
-            pt: Plaintext) -> Ciphertext:
+def _encrypt_draws(ctx: SchemeContext, gen: torch.Generator) -> tuple:
+    """An encryption's draws with the port's samplers: u, e1, e2, [k, 1, n]
+    each."""
     p = ctx.params
     primes = ctx.ntt_q.p
     u = sampling.ternary_rns(gen, primes, 1, p.n, p.security.hamming_weight)
     e1 = sampling.gaussian_rns(gen, primes, p.security.sigma, 1, p.n)
     e2 = sampling.gaussian_rns(gen, primes, p.security.sigma, 1, p.n)
-    return encrypt_from_noise(ctx, pk, pt, u, e1, e2)
+    return u, e1, e2
+
+
+def encrypt(ctx: SchemeContext, gen: torch.Generator, pk: PublicKey,
+            pt: Plaintext) -> Ciphertext:
+    return encrypt_from_noise(ctx, pk, pt, *_encrypt_draws(ctx, gen))
 
 
 def _phase(ctx: SchemeContext, ct: Ciphertext, sk: SecretKey) -> torch.Tensor:
@@ -353,12 +372,15 @@ def decrypt(ctx: SchemeContext, ct: Ciphertext, sk: SecretKey) -> Plaintext:
                                              ctx.dec_levels[ct.level])[0])
 
 
-def _split_batch(data: torch.Tensor, budgets, level: int = 0) -> list:
+def _split_batch(data: torch.Tensor, budgets, level: int = 0, scales=None) -> list:
     """[k-L, c, B, n] coefficient-domain results -> B ciphertexts at level
-    L, each a contiguous [k-L, c, n] slice of one [B, k-L, c, n] tensor."""
+    L, each a contiguous [k-L, c, n] slice of one [B, k-L, c, n] tensor,
+    with BGV's scale_t of each (``scales``; 1 without)."""
     data = data.permute(2, 0, 1, 3).contiguous()
-    return [Ciphertext(data=data[i], level=level, is_ntt_form=False, noise_budget=nb)
-            for i, nb in enumerate(budgets)]
+    scales = scales or [1] * len(budgets)
+    return [Ciphertext(data=data[i], level=level, is_ntt_form=False, noise_budget=nb,
+                       scale_t=st)
+            for i, (nb, st) in enumerate(zip(budgets, scales))]
 
 
 def encrypt_batch_from_noise(ctx: SchemeContext, pk: PublicKey, pts: list,
@@ -572,7 +594,7 @@ def _keyswitch_delta(ctx: SchemeContext, polys: torch.Tensor,
 
 
 def _switch_keys_down(ctx: SchemeContext, ks_keys: torch.Tensor,
-                      level: int) -> torch.Tensor:
+                      level: int, bgv: bool = False) -> torch.Tensor:
     """Level-0 key-switching keys [kd, k, 2, n] (NTT form) -> keys of level
     L, [kd_L, k-L, 2, n]: digit j encrypts (q/q_j) * target mod q, and
     rounding it down L primes gives an encryption of (q_L/q_j) * target mod
@@ -581,7 +603,10 @@ def _switch_keys_down(ctx: SchemeContext, ks_keys: torch.Tensor,
     digits, L roundings (mod_switch_drop_last), one forward transform at
     level L; the result is a view of a prime-major tensor, as the kernels
     read it.  At ks_omega > 1 only a level whose k-L primes form whole
-    gadget groups has such keys."""
+    gadget groups has such keys.  BGV keys (``bgv``), whose error is t*e,
+    take the t-corrected switch (bgv_mod_switch_drop_last) at every dropped
+    prime: the plain rounding breaks that structure, and a BGV multiply
+    with such keys decodes wrong from level 1 on."""
     if level == 0:
         return ks_keys
     k, n = ctx.k, ctx.n
@@ -594,27 +619,29 @@ def _switch_keys_down(ctx: SchemeContext, ks_keys: torch.Tensor,
     kd_l = kl // omega
     coeff = _inv_q(ctx, ks_keys[:kd_l].permute(1, 0, 2, 3).reshape(k, kd_l * 2, n))
     for lvl in range(level):
-        coeff = _rns.mod_switch_drop_last(coeff, ctx.mod_switch[lvl])
+        coeff = (_rns.bgv_mod_switch_drop_last(coeff, ctx.bgv_mod_switch[lvl]) if bgv
+                 else _rns.mod_switch_drop_last(coeff, ctx.mod_switch[lvl]))
     return _fwd_q(ctx, coeff, level).view(kl, kd_l, 2, n).permute(1, 0, 2, 3)
 
 
-def switch_relin_keys(ctx: SchemeContext, rlk: RelinKeys, level: int) -> RelinKeys:
+def switch_relin_keys(ctx: SchemeContext, rlk: RelinKeys, level: int,
+                      bgv: bool = False) -> RelinKeys:
     """Relinearization keys of level L from level-0 keys (see
     _switch_keys_down); pass them with ``keys_at_level=True``.  The FHE
     facade caches them per level."""
-    return RelinKeys(data=_switch_keys_down(ctx, rlk.data, level))
+    return RelinKeys(data=_switch_keys_down(ctx, rlk.data, level, bgv))
 
 
 def switch_galois_keys(ctx: SchemeContext, gal_keys: GaloisKeys,
-                       level: int) -> GaloisKeys:
+                       level: int, bgv: bool = False) -> GaloisKeys:
     """Galois keys of level L from level-0 keys, every element."""
-    return GaloisKeys(data={g: _switch_keys_down(ctx, keys, level)
+    return GaloisKeys(data={g: _switch_keys_down(ctx, keys, level, bgv)
                             for g, keys in gal_keys.data.items()})
 
 
 def _keys_of(ctx: SchemeContext, keys: torch.Tensor, level: int,
-             keys_at_level: bool) -> torch.Tensor:
-    return keys if keys_at_level else _switch_keys_down(ctx, keys, level)
+             keys_at_level: bool, bgv: bool = False) -> torch.Tensor:
+    return keys if keys_at_level else _switch_keys_down(ctx, keys, level, bgv)
 
 
 def _relinearize_from_digits(ctx: SchemeContext, ct3: Ciphertext, d: torch.Tensor,
@@ -627,16 +654,17 @@ def _relinearize_from_digits(ctx: SchemeContext, ct3: Ciphertext, d: torch.Tenso
 
 
 def relinearize(ctx: SchemeContext, ct: Ciphertext, rlk: RelinKeys,
-                keys_at_level: bool = False) -> Ciphertext:
+                keys_at_level: bool = False, bgv: bool = False) -> Ciphertext:
     """3 -> 2 components by RNS-digit key switching of c2 onto s, at the
-    ciphertext's level; level-0 keys are switched down unless
-    ``keys_at_level`` says rlk is already the level's."""
+    ciphertext's level; level-0 keys are switched down (t-corrected for
+    BGV keys, ``bgv``) unless ``keys_at_level`` says rlk is already the
+    level's."""
     if ct.num_components != 3:
         raise ValueError(f"relinearize needs 3 components, got "
                          f"{ct.num_components}")
     level = ct.level
     ct = to_coeff(ctx, ct)
-    keys = _keys_of(ctx, rlk.data, level, keys_at_level)
+    keys = _keys_of(ctx, rlk.data, level, keys_at_level, bgv)
     return _relinearize_from_digits(ctx, ct, _digits(ctx, ct.data[:, 2], level), keys, level)
 
 
@@ -711,7 +739,7 @@ def multiply_batch(ctx: SchemeContext, cts_a: list, cts_b: list,
 
 
 def key_switch(ctx: SchemeContext, ct: Ciphertext, ks_keys: torch.Tensor,
-               keys_at_level: bool = False) -> Ciphertext:
+               keys_at_level: bool = False, bgv: bool = False) -> Ciphertext:
     """Switch a 2-component ciphertext under s' to one under s, where
     ks_keys [kd, k, 2, n] encrypt (q/q_j) * s' (a Galois key, or keys from
     ``_keyswitch_keygen_from_noise``): (c0 + delta0, delta1), delta the
@@ -722,7 +750,7 @@ def key_switch(ctx: SchemeContext, ct: Ciphertext, ks_keys: torch.Tensor,
     level = ct.level
     ct = to_coeff(ctx, ct)
     delta = _keyswitch_delta(ctx, ct.data[:, 1],
-                             _keys_of(ctx, ks_keys, level, keys_at_level), level)
+                             _keys_of(ctx, ks_keys, level, keys_at_level, bgv), level)
     c0 = mm.add_mod(ct.data[:, :1], delta[:, :1], _p3(_tb(ctx, level)))
     return ct.replace(data=torch.cat([c0, delta[:, 1:]], dim=1))
 
@@ -737,8 +765,8 @@ def _galois_budget(ctx: SchemeContext, ct: Ciphertext) -> float:
     return _keyswitch_budget(ctx, _noise.galois(_v_of(ctx, ct)), ct.level)
 
 
-def apply_galois(ctx: SchemeContext, ct: Ciphertext, g: int,
-                 gal_keys: GaloisKeys, keys_at_level: bool = False) -> Ciphertext:
+def apply_galois(ctx: SchemeContext, ct: Ciphertext, g: int, gal_keys: GaloisKeys,
+                 keys_at_level: bool = False, bgv: bool = False) -> Ciphertext:
     """Automorphism phi_g, then the key switch s(x^g) -> s.  At ks_omega = 1
     one launch, keyswitch_fused's Galois lane, does both from the digits of
     the un-permuted c1 (the digits of phi_g(c1) are theirs gathered, with
@@ -751,10 +779,10 @@ def apply_galois(ctx: SchemeContext, ct: Ciphertext, g: int,
     budget = _galois_budget(ctx, ct)
     if _omega(ctx) > 1:
         permuted = ct.replace(data=_apply_galois_coeff(ctx, ct.data, g))
-        return key_switch(ctx, permuted, gal_keys.data[g], keys_at_level).replace(
+        return key_switch(ctx, permuted, gal_keys.data[g], keys_at_level, bgv).replace(
             noise_budget=budget)
     level = ct.level
-    keys = _keys_of(ctx, gal_keys.data[int(g)], level, keys_at_level)
+    keys = _keys_of(ctx, gal_keys.data[int(g)], level, keys_at_level, bgv)
     data = ntt_cuda.keyswitch_fused(_digits(ctx, ct.data[:, 1], level),
                                     keys.permute(1, 0, 2, 3), _tb(ctx, level),
                                     g=int(g), c0=ct.data[:, 0])
@@ -779,55 +807,57 @@ def _row_elements(ctx: SchemeContext, steps: int, gal_keys: GaloisKeys) -> list:
     return elements
 
 
-def rotate_rows(ctx: SchemeContext, ct: Ciphertext, steps: int,
-                gal_keys: GaloisKeys, keys_at_level: bool = False) -> Ciphertext:
+def rotate_rows(ctx: SchemeContext, ct: Ciphertext, steps: int, gal_keys: GaloisKeys,
+                keys_at_level: bool = False, bgv: bool = False) -> Ciphertext:
     """Cyclic slot rotation within each row of the 2 x (n/2) slot matrix:
     one apply_galois per power-of-two hop of |steps|."""
     for g in _row_elements(ctx, steps, gal_keys):
-        ct = apply_galois(ctx, ct, g, gal_keys, keys_at_level)
+        ct = apply_galois(ctx, ct, g, gal_keys, keys_at_level, bgv)
     return ct
 
 
 def rotate_columns(ctx: SchemeContext, ct: Ciphertext, gal_keys: GaloisKeys,
-                   keys_at_level: bool = False) -> Ciphertext:
+                   keys_at_level: bool = False, bgv: bool = False) -> Ciphertext:
     """Swap the two slot rows: g = 2n - 1."""
-    return apply_galois(ctx, ct, 2 * ctx.n - 1, gal_keys, keys_at_level)
+    return apply_galois(ctx, ct, 2 * ctx.n - 1, gal_keys, keys_at_level, bgv)
 
 
-def apply_galois_batch(ctx: SchemeContext, cts: list, g: int,
-                       gal_keys: GaloisKeys, keys_at_level: bool = False) -> list:
+def apply_galois_batch(ctx: SchemeContext, cts: list, g: int, gal_keys: GaloisKeys,
+                       keys_at_level: bool = False, bgv: bool = False) -> list:
     """The same automorphism on B ciphertexts at one level, from views of
     their [B, k-L, 2, n] stack: at ks_omega = 1 one keyswitch_fused_batch
     launch in its Galois lane (as apply_galois); at ks_omega > 1 one
     automorphism_fused launch, then one keyswitch_fused_batch launch for the
     B key switches.  Element i equals apply_galois(cts[i], g).  Mixed
-    levels fall back to apply_galois per element, as in the JAX package."""
+    levels fall back to apply_galois per element, as in the JAX package.
+    Each element keeps its own scale_t (BGV)."""
     if cts and any(ct.level != cts[0].level for ct in cts):
-        return [apply_galois(ctx, ct, g, gal_keys, keys_at_level) for ct in cts]
+        return [apply_galois(ctx, ct, g, gal_keys, keys_at_level, bgv) for ct in cts]
     level = _check_pairs(cts, "apply_galois_batch")
     g = int(g)
-    keys = _keys_of(ctx, gal_keys.data[g], level, keys_at_level)
+    keys = _keys_of(ctx, gal_keys.data[g], level, keys_at_level, bgv)
     tb = _tb(ctx, level)
     data = torch.stack([to_coeff(ctx, ct).data for ct in cts]).permute(1, 2, 0, 3)
     budgets = [_galois_budget(ctx, ct) for ct in cts]
+    scales = [ct.scale_t for ct in cts]
     if _omega(ctx) == 1:                                          # [k-L, 2, B, n]
         out = ntt_cuda.keyswitch_fused_batch(_digits(ctx, data[:, 1], level),
                                              keys.permute(1, 0, 2, 3), tb, g=g,
                                              c0=data[:, 0])
-        return _split_batch(out, budgets, level)
+        return _split_batch(out, budgets, level, scales)
     h = pow(g, -1, 2 * ctx.n)
     permuted = galois_cuda.automorphism_fused(data, (h,) * len(cts), tb.p)
     delta = _keyswitch_delta(ctx, permuted[:, 1], keys, level)
     c0 = mm.add_mod(permuted[:, 0], delta[:, 0], _p3(tb))
-    return _split_batch(torch.stack([c0, delta[:, 1]], dim=1), budgets, level)
+    return _split_batch(torch.stack([c0, delta[:, 1]], dim=1), budgets, level, scales)
 
 
-def rotate_rows_batch(ctx: SchemeContext, cts: list, steps: int,
-                      gal_keys: GaloisKeys, keys_at_level: bool = False) -> list:
+def rotate_rows_batch(ctx: SchemeContext, cts: list, steps: int, gal_keys: GaloisKeys,
+                      keys_at_level: bool = False, bgv: bool = False) -> list:
     """rotate_rows over B ciphertexts: one apply_galois_batch per
     power-of-two hop."""
     for g in _row_elements(ctx, steps, gal_keys):
-        cts = apply_galois_batch(ctx, cts, g, gal_keys, keys_at_level)
+        cts = apply_galois_batch(ctx, cts, g, gal_keys, keys_at_level, bgv)
     return cts
 
 
@@ -845,7 +875,8 @@ def _digits_ntt(ctx: SchemeContext, poly: torch.Tensor, level: int = 0) -> torch
 
 
 def hoisted_galois_keys(ctx: SchemeContext, gal_keys: GaloisKeys, elements,
-                        level: int = 0, keys_at_level: bool = False) -> torch.Tensor:
+                        level: int = 0, keys_at_level: bool = False,
+                        bgv: bool = False) -> torch.Tensor:
     """The pre-permuted key stack of the hoisted rotations at level L:
     [k-L, kd, E, 2, n], element e's keys (switched down to the level unless
     ``keys_at_level``) prime-major and gathered along n with
@@ -855,28 +886,28 @@ def hoisted_galois_keys(ctx: SchemeContext, gal_keys: GaloisKeys, elements,
     ``pre_keys`` (the FHE facade caches it)."""
     stack = []
     for g in elements:
-        keys = _keys_of(ctx, gal_keys.data[int(g)], level, keys_at_level)
+        keys = _keys_of(ctx, gal_keys.data[int(g)], level, keys_at_level, bgv)
         idx = torch.tensor(eval_perm_inv(ctx.n, int(g)), dtype=torch.int64,
                            device=keys.device)
         stack.append(keys.permute(1, 0, 2, 3).index_select(3, idx))
     return torch.stack(stack, dim=2)
 
 
-def _hoisted_digits(ctx: SchemeContext, ct: Ciphertext, elements,
-                    gal_keys: GaloisKeys, pre_keys, keys_at_level: bool) -> tuple:
+def _hoisted_digits(ctx: SchemeContext, ct: Ciphertext, elements, gal_keys: GaloisKeys,
+                    pre_keys, keys_at_level: bool, bgv: bool) -> tuple:
     """(coefficient-domain ct, the [k-L, kd, 1, n] NTT-domain digits of its
     c1, the pre-permuted keys of the elements): the shared half of the
     hoisted rotations."""
     level = _check_pairs([ct], "hoisted rotation")
     ct = to_coeff(ctx, ct)
     keys = (pre_keys if pre_keys is not None
-            else hoisted_galois_keys(ctx, gal_keys, elements, level, keys_at_level))
+            else hoisted_galois_keys(ctx, gal_keys, elements, level, keys_at_level, bgv))
     return ct, _digits_ntt(ctx, ct.data[:, 1], level)[:, :, None], keys
 
 
 def apply_galois_hoisted(ctx: SchemeContext, ct: Ciphertext, elements,
                          gal_keys: GaloisKeys, pre_keys: torch.Tensor | None = None,
-                         keys_at_level: bool = False) -> list:
+                         keys_at_level: bool = False, bgv: bool = False) -> list:
     """Many automorphisms of one ciphertext sharing a single gadget
     decomposition: the digits and their transform once, then one
     ks_inner_batch launch in its Galois lane against the pre-permuted keys
@@ -892,16 +923,17 @@ def apply_galois_hoisted(ctx: SchemeContext, ct: Ciphertext, elements,
     if not elements:
         return []
     ct, d_ntt, keys = _hoisted_digits(ctx, ct, elements, gal_keys, pre_keys,
-                                      keys_at_level)
+                                      keys_at_level, bgv)
     data = ntt_cuda.ks_inner_batch(d_ntt, keys, _tb(ctx, ct.level), elements,
                                    c0=ct.data[:, 0])
-    return _split_batch(data, [_galois_budget(ctx, ct)] * len(elements), ct.level)
+    return _split_batch(data, [_galois_budget(ctx, ct)] * len(elements), ct.level,
+                        [ct.scale_t] * len(elements))
 
 
 def apply_galois_hoisted_sum(ctx: SchemeContext, ct: Ciphertext, elements,
                              gal_keys: GaloisKeys,
                              pre_keys: torch.Tensor | None = None,
-                             keys_at_level: bool = False) -> Ciphertext:
+                             keys_at_level: bool = False, bgv: bool = False) -> Ciphertext:
     """ct + sum_g apply_galois(ct, g) as one hoisted chain: the digits and
     their transform once, one ks_inner_batch launch of the plain inner
     products against the pre-permuted keys, then the automorphism_fused_sum
@@ -920,7 +952,7 @@ def apply_galois_hoisted_sum(ctx: SchemeContext, ct: Ciphertext, elements,
     if not elements:
         return ct.replace(noise_budget=_b_of(ctx, level, acc_v))
     ct, d_ntt, keys = _hoisted_digits(ctx, ct, elements, gal_keys, pre_keys,
-                                      keys_at_level)
+                                      keys_at_level, bgv)
     tb = _tb(ctx, level)
     delta = ntt_cuda.ks_inner_batch(d_ntt, keys, tb)
     hs = tuple(pow(g, -1, 2 * ctx.n) for g in elements)
@@ -931,7 +963,7 @@ def apply_galois_hoisted_sum(ctx: SchemeContext, ct: Ciphertext, elements,
 def apply_galois_hoisted_batch(ctx: SchemeContext, cts: list, elements,
                                gal_keys: GaloisKeys,
                                pre_keys: torch.Tensor | None = None,
-                               keys_at_level: bool = False) -> list:
+                               keys_at_level: bool = False, bgv: bool = False) -> list:
     """Hoisted rotations of C independent ciphertexts by the same elements,
     sharing every launch: one batched digit decomposition (kd * C rows
     through one ntt_forward), then one ks_inner_grouped launch in its Galois
@@ -948,7 +980,7 @@ def apply_galois_hoisted_batch(ctx: SchemeContext, cts: list, elements,
     if len(cts) == 1 or any(ct.level != level for ct in cts):
         return [apply_galois_hoisted(ctx, ct, elements, gal_keys,
                                      pre_keys if ct.level == level else None,
-                                     keys_at_level)
+                                     keys_at_level, bgv)
                 for ct in cts]
     _check_pairs(cts, "apply_galois_hoisted_batch")
     num_e = len(elements)
@@ -958,14 +990,14 @@ def apply_galois_hoisted_batch(ctx: SchemeContext, cts: list, elements,
     k, n = tb.k, tb.n
     data = torch.stack([to_coeff(ctx, ct).data for ct in cts], dim=2)   # [k-L, 2, C, n]
     keys = (pre_keys if pre_keys is not None
-            else hoisted_galois_keys(ctx, gal_keys, elements, level, keys_at_level))
+            else hoisted_galois_keys(ctx, gal_keys, elements, level, keys_at_level, bgv))
     d_all = _gadget_digits(ctx, _digits(ctx, data[:, 1], level), level)  # [k-L, kd, C, n]
     kd = d_all.shape[1]
     d_ntt = ntt_cuda.ntt_forward(d_all.reshape(k, kd * len(cts), n), tb)
     out = ntt_cuda.ks_inner_grouped(d_ntt.view(k, kd, len(cts), n), keys, tb, elements,
                                     c0=data[:, 0])
-    flat = _split_batch(out, [_galois_budget(ctx, ct) for ct in cts
-                              for _ in range(num_e)], level)
+    flat = _split_batch(out, [_galois_budget(ctx, ct) for ct in cts for _ in range(num_e)],
+                        level, [ct.scale_t for ct in cts for _ in range(num_e)])
     return [flat[c * num_e:(c + 1) * num_e] for c in range(len(cts))]
 
 
@@ -1015,3 +1047,52 @@ def bootstrap(ctx: SchemeContext, gen: torch.Generator, ct: Ciphertext,
     ciphertext's level) and encrypt the plaintext afresh at level 0 with
     draws from ``gen``, recovering the fresh noise budget."""
     return encrypt(ctx, gen, pk, decrypt(ctx, ct, sk))
+
+
+# ---------------------------------------------------------------------------
+# noise-budget diagnostics (host-exact)
+# ---------------------------------------------------------------------------
+
+
+def _modulus(ctx: SchemeContext, level: int) -> int:
+    """q_L, the product of the level's primes, as a Python int."""
+    return math.prod(ctx.params.q_primes[:ctx.k - level])
+
+
+def _max_noise(ctx: SchemeContext, level: int, x: torch.Tensor, expected) -> int:
+    """The largest centred |[x_j - expected_j]_{q_L}| over the coefficients
+    of the phase x [k-L, n] (at least 1), against the Python ints
+    ``expected`` [n]: the one big-integer step, the exact CRT on the host."""
+    q = _modulus(ctx, level)
+    worst = 1
+    for c, m in zip(_rns.from_rns_host(x, ctx.params.q_primes[:ctx.k - level]), expected):
+        v = (c - m) % q
+        worst = max(worst, q - v if v > q // 2 else v)
+    return worst
+
+
+def estimate_noise_budget(ctx: SchemeContext, ct: Ciphertext, sk: SecretKey) -> float:
+    """Remaining noise budget in bits, log2(q_L / (2t)) - log2(||v||_inf)
+    for the noise v of the phase against Δ_L times the plaintext the
+    ciphertext decrypts to.  Once the noise passes the decryption bound the
+    decryption flips and the residual against it can still be small, so
+    budgets under about 2 bits are unreliable (``exact_noise_budget``
+    measures against a known plaintext)."""
+    q, t = _modulus(ctx, ct.level), ctx.params.t
+    x = _phase(ctx, ct, sk)
+    m = _rns.decrypt_scale(x[:, None, :], ctx.dec_levels[ct.level])[0]
+    worst = _max_noise(ctx, ct.level, x, [q // t * mj for mj in m.tolist()])
+    return max(0.0, math.log2(q / (2 * t)) - math.log2(worst))
+
+
+def exact_noise_budget(ctx: SchemeContext, ct: Ciphertext, sk: SecretKey,
+                       pt: Plaintext) -> float:
+    """The noise budget against a known plaintext pt (coefficients mod t):
+    it goes negative once the noise crosses the decryption bound.  Residues
+    mod q cannot tell noise v from v - q, so past q/2 the reading wraps and
+    may look small and positive again: a reading under about 1 bit means at
+    or past exhaustion; the tracked noise_budget tells which."""
+    q, t = _modulus(ctx, ct.level), ctx.params.t
+    worst = _max_noise(ctx, ct.level, _phase(ctx, ct, sk),
+                       [q // t * mj for mj in pt.data.tolist()])
+    return math.log2(q / (2 * t)) - math.log2(worst)

@@ -1,18 +1,19 @@
 """SchemeContext: the precomputed constants on one device, at every level.
 
 Counterpart of ``fhe_tpu/scheme/context.py:make_context``, restricted to
-what the ported BFV ops read.  Level L is the modulus chain with its last L
-primes dropped (q_L = q_0 * ... * q_{k-1-L}).  For each L the context holds
-the decryption and Δ constants, the relinearization digit constants, the
-BEHZ multiply constants (SmMRq, FastFloor, Shenoy-Kumaresan) for the
-level's Bsk base, the grouped gadget weights, and (for L < k - 1) the
-modulus-switch constants that drop q_{k-1-L}.  The level's NTT and
-multiply tables are zero-copy row views of the level-0 tables: its first
-k - L q primes, and the last ``bsk_counts[L]`` Bsk primes, m_sk last.  The
-BGV tables and the Galois gather tables are not fields: the automorphism
-kernel computes its indices, and ``galois_perm_tables`` (coefficient
-domain) and ``eval_perm`` / ``eval_perm_inv`` (NTT domain, the hoisted
-rotations) build the host tables on request.
+what the ported BFV and BGV ops read.  Level L is the modulus chain with
+its last L primes dropped (q_L = q_0 * ... * q_{k-1-L}).  For each L the
+context holds the decryption and Δ constants, the relinearization digit
+constants, the BEHZ multiply constants (SmMRq, FastFloor,
+Shenoy-Kumaresan) for the level's Bsk base, the grouped gadget weights,
+BGV's exact centred reduction q_L -> {t}, and (for L < k - 1) the
+modulus-switch constants that drop q_{k-1-L}, BFV's and BGV's.  The
+level's NTT and multiply tables are zero-copy row views of the level-0
+tables: its first k - L q primes, and the last ``bsk_counts[L]`` Bsk
+primes, m_sk last.  The Galois gather tables are not fields: the
+automorphism kernel computes its indices, and ``galois_perm_tables``
+(coefficient domain) and ``eval_perm`` / ``eval_perm_inv`` (NTT domain,
+the hoisted rotations) build the host tables on request.
 """
 
 from __future__ import annotations
@@ -53,6 +54,10 @@ class SchemeContext:
     dec_levels: tuple[_rns.DecryptConsts, ...]     # gamma-trick decryption
     delta_levels: tuple[tuple[torch.Tensor, torch.Tensor], ...]  # (Δ_L mod q_i, Shoup)
     mod_switch: tuple[_rns.ModSwitchConsts, ...]   # level L -> L + 1
+    # BGV: decryption's centred reduction q_L -> {t}, and the t-corrected
+    # modulus switch, level L -> L + 1
+    bgv_dec_levels: tuple[_rns.SmMRqConsts, ...]
+    bgv_mod_switch: tuple[_rns.BGVModSwitchConsts, ...]
 
     @property
     def k(self) -> int:
@@ -228,7 +233,8 @@ def make_context(params: SchemeParams | None = None, device="cuda",
         ntt_q, _ntt.build_tables(params.n, params.bsk_primes, dev), params.t)
     lv = {f: [] for f in ("mul_levels", "bsk_counts", "smq_levels", "floor_levels",
                           "sk_levels", "inv_qhat_levels", "inv_qhat_shoup_levels",
-                          "ks_conv_levels", "dec_levels", "delta_levels", "mod_switch")}
+                          "ks_conv_levels", "dec_levels", "delta_levels", "mod_switch",
+                          "bgv_dec_levels", "bgv_mod_switch")}
     for level in range(params.k):
         chain = params.q_primes[:params.k - level]
         n_aux = level_aux_count(params, level)
@@ -247,7 +253,10 @@ def make_context(params: SchemeParams | None = None, device="cuda",
         lv["ks_conv_levels"].append(mm.u32_tensor(ks_group_conv_tables(chain, omega), dev))
         lv["dec_levels"].append(_rns.make_decrypt(chain, params.t, params.gamma, dev))
         lv["delta_levels"].append((delta, delta_sh))
+        lv["bgv_dec_levels"].append(_rns.make_sm_mrq(chain, (params.t,), params.m_tilde,
+                                                      dev))
         if len(chain) >= 2:
             lv["mod_switch"].append(_rns.make_mod_switch(chain, dev))
+            lv["bgv_mod_switch"].append(_rns.make_bgv_mod_switch(chain, params.t, dev))
     return SchemeContext(params=params, ntt_q=ntt_q,
                          **{f: tuple(v) for f, v in lv.items()})

@@ -5,6 +5,9 @@ Every noise coefficient is a zero-mean random variable of variance V, carried
 as log2(V); the budget comes from a D-sigma tail bound on the infinity norm:
 
     BFV:  phase = Delta*m + e,   budget = log2(q_L / (2 t)) - log2(D sqrt(V))
+    BGV:  phase = m + t*e,       budget = log2(q_L / 2) - log2(t D sqrt(V))
+
+(the same number: BGV's budget functions are BFV's).
 """
 
 from __future__ import annotations
@@ -41,6 +44,14 @@ def bfv_variance(params: SchemeParams, level: int, budget: float) -> float:
     return 2.0 * (_cap(params, level) - _LOG_D - budget)
 
 
+def bgv_budget(params: SchemeParams, level: int, log2_var: float) -> float:
+    return bfv_budget(params, level, log2_var)
+
+
+def bgv_variance(params: SchemeParams, level: int, budget: float) -> float:
+    return bfv_variance(params, level, budget)
+
+
 def fresh_variance(params: SchemeParams) -> float:
     """e = u * e_pk + e1 + s * e2 (u, s ternary of weight h, e_* Gaussian):
     V = sigma^2 (2h + 1)."""
@@ -73,6 +84,14 @@ def bfv_multiply(params: SchemeParams, lv1: float, lv2: float) -> float:
     return logaddexp2(scale + logaddexp2(lv1, lv2), math.log2((1 + h) / 12.0))
 
 
+def bgv_multiply(params: SchemeParams, lv1: float, lv2: float) -> float:
+    """The phase product: e' = m1*e2 + m2*e1 + t*e1*e2 (n-term convolutions)."""
+    n, t = params.n, params.t
+    cross = math.log2(n * (t ** 2) / 3.0) + logaddexp2(lv1, lv2)
+    prod = math.log2(n) + 2 * math.log2(t) + lv1 + lv2
+    return logaddexp2(cross, prod)
+
+
 def bfv_mod_switch(params: SchemeParams, level_from: int, lv: float) -> float:
     """e' = e / q_last + eps * m + r: the rounding term r = d0 + d1 * s
     (variance (1 + h)/12), and eps * m because Delta_L / q_last =
@@ -85,6 +104,14 @@ def bfv_mod_switch(params: SchemeParams, level_from: int, lv: float) -> float:
     h = params.security.hamming_weight
     const = (1 + h) / 12.0 + (eps ** 2) * (t ** 2) / 3.0
     return logaddexp2(lv - 2.0 * math.log2(q_last), math.log2(const))
+
+
+def bgv_mod_switch(params: SchemeParams, level_from: int, lv: float) -> float:
+    """BGV's t-corrected switch keeps the plaintext in the low bits exactly
+    (no eps * m term): e' = e / q_last + r, Var(r) = (1 + h)/12."""
+    q_last = float(params.q_primes[params.k - 1 - level_from])
+    h = params.security.hamming_weight
+    return logaddexp2(lv - 2.0 * math.log2(q_last), math.log2((1 + h) / 12.0))
 
 
 def galois(lv: float) -> float:

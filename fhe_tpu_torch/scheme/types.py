@@ -2,7 +2,7 @@
 
 Frozen dataclasses over int32 residue tensors, prime-major ``[k, ..., n]``.
 ``noise_budget`` is a host float following the variance model of
-``scheme/noise.py``.
+``scheme/noise.py``; BGV's ``scale_t`` is a host int.
 """
 
 from __future__ import annotations
@@ -28,6 +28,10 @@ class Ciphertext:
     level: int = 0
     is_ntt_form: bool = False
     noise_budget: float = 0.0
+    # BGV: each mod switch divides the plaintext the phase holds by q_last
+    # mod t; decrypt multiplies back by scale_t = prod(dropped primes) mod t,
+    # kept reduced below t.  Always 1 for BFV.
+    scale_t: int = 1
 
     @property
     def num_components(self) -> int:

@@ -56,6 +56,12 @@ the headline configuration (n = 8192, log_q = 90, k = 3, kb = 5):
     g_n16384: log_q = 90, k = 3, seed 4; multiply_relin_ms_n16384 and, at
     ks_omega = 2, multiply_relin_ms_n16384_omega2), null for a tree whose
     multiply raises there;
+  - bgv: at the JAX bench's g_bgv configuration (the headline one, seed 1,
+    scheme="bgv"), device_ms and wall_ms of BGV's multiply, its halves,
+    the decrypt of the product (the phase, then the centred lift onto {t}
+    in torch ops), mod_switch_to_next and multiply_batch at B = 8, and a
+    trace (below) of the multiply, the decrypt and the mod switch; null for
+    a tree whose facade has no BGV;
   - fast_bconv_sk_fused (B6) at the four shapes its paths give it ([5,3,n]
     the headline multiply, [5,24,n] its multiply_batch at B = 8, [10,3,n]
     the k8 multiply, [10,24,n] its batch) without the digits lane (both
@@ -236,6 +242,38 @@ def trace(fn) -> dict:
             "kernels": [{"name": names[j][:60], "us": statistics.median(p["dur"]),
                          "gap_before_us": statistics.median(p["gap"]) if p["gap"] else None}
                         for j, p in enumerate(by_pos)]}
+
+
+def bgv_ops() -> dict | None:
+    """BGV's multiply, decrypt, mod switch and multiply_batch at the
+    headline width: device and wall ms, and traces (None where the tree's
+    FHE takes no scheme)."""
+    try:
+        fhe = FHE(poly_degree=N, log_q=LOG_Q, hamming_weight=H, seed=1, scheme="bgv",
+                  device="cuda")
+    except TypeError:
+        return None
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    cts_a = [fhe.encrypt(fhe.encode([5 + i, 10, 15, 20]), pk) for i in range(BATCH)]
+    cts_b = [fhe.encrypt(fhe.encode([3, 6, 9, 12 + i]), pk) for i in range(BATCH)]
+    a, b = cts_a[0], cts_b[0]
+    m3 = fhe.multiply_no_relin(a, b)
+    prod = fhe.multiply(a, b, rlk)
+    got = [int(v) for v in fhe.decode(fhe.decrypt(prod, sk))[:4]]
+    if got != [15, 60, 135, 240]:
+        raise RuntimeError(f"BGV multiply decoded {got}")
+    ops = {"multiply": lambda: fhe.multiply(a, b, rlk),
+           "multiply_no_relin": lambda: fhe.multiply_no_relin(a, b),
+           "relinearize": lambda: fhe.relinearize(m3, rlk),
+           "decrypt_after_multiply": lambda: fhe.decrypt(prod, sk),
+           "mod_switch_to_next": lambda: fhe.mod_switch_to_next(prod),
+           "multiply_batch_B8": lambda: fhe.multiply_batch(cts_a, cts_b, rlk)}
+    out = {"device_ms": {name: device_ms(fn) for name, fn in ops.items()},
+           "wall_ms": {name: wall_ms(fn) for name, fn in ops.items()}}
+    out["traces"] = {name: trace(ops[name]) for name in (
+        "multiply", "decrypt_after_multiply", "mod_switch_to_next")}
+    return out
 
 
 def small_multiply() -> dict:
@@ -681,6 +719,7 @@ def main() -> int:
     out["galois_lanes"] = galois_lanes(gen)
     out["multiply_relin_ms_n16384"] = multiply_n16384(1)
     out["multiply_relin_ms_n16384_omega2"] = multiply_n16384(2)
+    out["bgv"] = bgv_ops()
     print(json.dumps(out))
     return 0
 

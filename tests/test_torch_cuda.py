@@ -20,10 +20,10 @@ from fhe_tpu_torch.ops import galois as tgalois
 from fhe_tpu_torch.ops import ntt as tntt
 from fhe_tpu_torch.ops import rns as trns
 from fhe_tpu_torch.params import SecurityParams, make_scheme_params
-from fhe_tpu_torch.scheme import bfv
+from fhe_tpu_torch.scheme import bfv, bgv
 from fhe_tpu_torch.scheme.context import make_context
 from fhe_tpu_torch.scheme.encoder import BatchEncoder
-from fhe_tpu_torch.scheme.types import RelinKeys
+from fhe_tpu_torch.scheme.types import GaloisKeys, RelinKeys, SecretKey
 from fhe_tpu_torch.utils import ubench
 
 pytestmark = pytest.mark.cuda
@@ -921,3 +921,48 @@ def test_small_multiply_floors_and_converts_in_one_launch(dev):
     to_cpu = lambda ct: ct.replace(data=ct.data.cpu())
     assert torch.equal(prod.data.cpu(), bfv.multiply(cpu, to_cpu(a), to_cpu(b),
                                                      RelinKeys(data=rlk.data.cpu())).data)
+
+
+def test_bgv_on_card(dev):
+    """BGV through the facade at the headline width: the multiply (B4 on the
+    plain q tables, then B7), multiply_batch (B11, B12), the mod switch and
+    a rotation at level 1 (scale_t != 1) decode, launch no BFV-only kernel
+    (B5, B6, B8), and equal the CPU plain path."""
+    fhe = FHE(poly_degree=N, log_q=90, hamming_weight=64, seed=14, scheme="bgv",
+              device=dev)
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    gk = fhe.galoiskey_gen(sk, elements=(3,))
+    dec = lambda ct: [int(x) for x in fhe.decode(fhe.decrypt(ct, sk))[:4]]
+    a = fhe.encrypt(fhe.encode([5, 10, 15, 20]), pk)
+    b = fhe.encrypt(fhe.encode([3, 6, 9, 12]), pk)
+    torch.cuda.synchronize()
+    before = (rns_cuda.bsk_branch_fused.launches, rns_cuda.fast_bconv_sk_fused.launches,
+              decrypt_cuda.decrypt_fused.launches, ntt_cuda.tensor_product.launches)
+    prod = fhe.multiply(a, b, rlk)
+    batch = fhe.multiply_batch([a, b], [b, a], rlk)
+    low = fhe.mod_switch_to_next(prod)
+    rot = fhe.rotate_rows(low, 1, gk)
+    assert dec(prod) == dec(low) == [15, 60, 135, 240] and dec(rot)[:3] == [60, 135, 240]
+    assert [dec(c) for c in batch] == [[15, 60, 135, 240]] * 2
+    torch.cuda.synchronize()
+    after = (rns_cuda.bsk_branch_fused.launches, rns_cuda.fast_bconv_sk_fused.launches,
+             decrypt_cuda.decrypt_fused.launches, ntt_cuda.tensor_product.launches)
+    assert after[:3] == before[:3] and after[3] == before[3] + 1
+    assert low.scale_t == fhe.params.q_primes[-1] % fhe.params.t
+    cpu = make_context(fhe.params, device="cpu")
+    to_cpu = lambda ct: ct.replace(data=ct.data.cpu())
+    rlk_cpu = RelinKeys(data=rlk.data.cpu())
+    prod_cpu = bgv.multiply(cpu, to_cpu(a), to_cpu(b), rlk_cpu)
+    assert torch.equal(prod.data.cpu(), prod_cpu.data)
+    assert all(torch.equal(x.data.cpu(), y.data) for x, y in zip(
+        batch, bgv.multiply_batch(cpu, [to_cpu(a), to_cpu(b)], [to_cpu(b), to_cpu(a)],
+                                  rlk_cpu)))
+    low_cpu = bgv.mod_switch_to_next(cpu, prod_cpu)
+    assert torch.equal(low.data.cpu(), low_cpu.data) and low.scale_t == low_cpu.scale_t
+    rot_cpu = bgv.rotate_rows(cpu, low_cpu, 1, GaloisKeys(data={3: gk.data[3].cpu()}))
+    assert torch.equal(rot.data.cpu(), rot_cpu.data)
+    sk_cpu = SecretKey(data=sk.data.cpu())
+    assert torch.equal(fhe.decrypt(low, sk).data.cpu(), bgv.decrypt(cpu, low_cpu, sk_cpu).data)
+    assert fhe.estimate_noise_budget(prod, sk) == bgv.estimate_noise_budget(cpu, prod_cpu,
+                                                                           sk_cpu)

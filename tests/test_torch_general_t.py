@@ -1,7 +1,7 @@
 """The ciphertext multiply and the rotations at a non-Fermat plaintext
 modulus, held bit for bit against the JAX package.
 
-The BFV half of tests/test_general_t.py, at its configuration: n = 1024,
+tests/test_general_t.py's BFV tests and BGV pipeline, at its configuration: n = 1024,
 log_q = 90 (k = 3), t = 786433 = 3 * 2^18 + 1, lambda_ = 0.  At this t the
 t-folded tables (t * n^-1 in the inverse normalisation of the q and Bsk
 tensor products) differ from those of t = 65537, so the multiply's kernel
@@ -11,7 +11,10 @@ random residues: ntt_pallas.tensor_product and rns_pallas.bsk_branch_fused.
 The slice: multiply_no_relin, relinearize, multiply, rotate_rows and the
 decrypt of each result against fhe_tpu.scheme.bfv, jitted, on a
 use_pallas=False context (pinned equal to the Pallas path by
-tests/test_pallas.py).  Every input is made from one numpy seed and fed to
+tests/test_pallas.py).  And BGV's pipeline of tests/test_general_t.py:
+multiply, mod_switch_to_next (scale_t != 1, the generic-t correction in
+decrypt) and add_plain on the switched ciphertext (the inverse of scale_t
+mod t), against fhe_tpu.scheme.bgv.  Every input is made from one numpy seed and fed to
 both packages: the secret key, the relinearization and Galois keys and the
 two ciphertexts come from the port's _from_noise entry points on numpy
 draws, and cross to JAX as arrays.  Residues are compared with tolerance
@@ -31,6 +34,7 @@ from fhe_tpu.ops import rns_pallas as rpal
 from fhe_tpu.params import SecurityParams as JSecurity
 from fhe_tpu.params import make_scheme_params as jmake_params
 from fhe_tpu.scheme import bfv as jbfv
+from fhe_tpu.scheme import bgv as jbgv
 from fhe_tpu.scheme import context as jcontext
 from fhe_tpu.scheme import types as jtypes
 
@@ -39,6 +43,7 @@ from fhe_tpu_torch.ops import ntt as tntt
 from fhe_tpu_torch.ops import ntt_cuda, rns_cuda
 from fhe_tpu_torch.params import SecurityParams, make_scheme_params
 from fhe_tpu_torch.scheme import bfv as tbfv
+from fhe_tpu_torch.scheme import bgv as tbgv
 from fhe_tpu_torch.scheme.context import make_context
 from fhe_tpu_torch.scheme.encoder import BatchEncoder
 
@@ -220,3 +225,73 @@ def test_rotate_rows_matches_jax(g, steps):
     got = tbfv.rotate_rows(g.tctx, g.tcts[0], steps, g.tgk)
     assert_ct_equal(got, J.rotate_rows(g.jctx, g.jcts[0], steps, g.jgk))
     assert _decode(g, got)[:N // 2] == _rotated(VALS[0], steps)
+
+
+# ---------------------------------------------------------------------------
+# BGV's pipeline against fhe_tpu.scheme.bgv
+# ---------------------------------------------------------------------------
+
+JB = dataclasses.make_dataclass("JB", ["multiply", "mod_switch_to_next", "decrypt",
+                                       "add_plain"])(
+    jax.jit(jbgv.multiply), jax.jit(jbgv.mod_switch_to_next), jax.jit(jbgv.decrypt),
+    jax.jit(jbgv.add_plain))
+
+
+def _jct_bgv(ct):
+    return jtypes.Ciphertext(data=jnp.asarray(convert.to_numpy(ct)), level=ct.level,
+                             noise_budget=ct.noise_budget, scale_t=ct.scale_t)
+
+
+@pytest.fixture(scope="module")
+def gb(g):
+    """BGV keys and two encryptions of VALS[:4] from numpy draws (the port's
+    *_from_noise entry points), and the product switched down a level, in
+    both packages."""
+    tctx, qs, k = g.tctx, g.tctx.params.q_primes, g.tctx.k
+    h, sig = tctx.params.security.hamming_weight, tctx.params.security.sigma
+    tpk, tsk = tbgv.keygen_from_noise(tctx, _t(_ternary(qs, h)), _t(_uniform(qs)),
+                                      _t(_gaussian(qs, sig)))
+    trlk = tbgv.relinkey_gen_from_noise(
+        tctx, tsk, _t(_uniform(qs, (k, 1)).transpose(1, 0, 2, 3)),
+        _t(_gaussian(qs, sig, (k, 1)).transpose(1, 0, 2, 3)))
+    tcts = [tbgv.encrypt_from_noise(tctx, tpk, g.tenc.encode(v[:4]), _t(_ternary(qs, h)),
+                                    _t(_gaussian(qs, sig)), _t(_gaussian(qs, sig)))
+            for v in VALS]
+    jsk = jtypes.SecretKey(data=jnp.asarray(convert.to_numpy(tsk)))
+    jrlk = jtypes.RelinKeys(data=jnp.asarray(convert.to_numpy(trlk)))
+    prod = tbgv.multiply(tctx, *tcts, trlk)
+    jprod = JB.multiply(g.jctx, *[_jct_bgv(c) for c in tcts], jrlk)
+    return dataclasses.make_dataclass("GB", ["tsk", "jsk", "prod", "jprod"])(
+        tsk, jsk, prod, jprod)
+
+
+def _assert_bgv_equal(got, want):
+    assert_ct_equal(got, want)
+    assert got.scale_t == int(want.scale_t)
+
+
+def _decode_bgv(g, gb, ct):
+    got = tbgv.decrypt(g.tctx, ct, gb.tsk)
+    np.testing.assert_array_equal(
+        convert.to_numpy(got), _np(JB.decrypt(g.jctx, _jct_bgv(ct), gb.jsk).data))
+    return [int(x) for x in g.tenc.decode(got)[:4]]
+
+
+def test_bgv_multiply_matches_jax(g, gb):
+    _assert_bgv_equal(gb.prod, gb.jprod)
+    assert _decode_bgv(g, gb, gb.prod) == PRODUCT[:4]
+
+
+def test_bgv_mod_switch_and_add_plain_match_jax(g, gb):
+    """The switched product's scale_t is q_last mod t != 1; add_plain divides
+    its operand by it (the inverse mod t = 786433, not Fermat's 65537)."""
+    switched = tbgv.mod_switch_to_next(g.tctx, gb.prod)
+    jswitched = JB.mod_switch_to_next(g.jctx, gb.jprod)
+    _assert_bgv_equal(switched, jswitched)
+    assert switched.scale_t == g.tctx.params.q_primes[-1] % T_ALT != 1
+    assert _decode_bgv(g, gb, switched) == PRODUCT[:4]
+    pt = g.tenc.encode([1, 2, 3, 4])
+    got = tbgv.add_plain(g.tctx, switched, pt)
+    _assert_bgv_equal(got, JB.add_plain(g.jctx, jswitched, jtypes.Plaintext(
+        data=jnp.asarray(convert.to_numpy(pt)))))
+    assert _decode_bgv(g, gb, got) == [16, 62, 138, 244]

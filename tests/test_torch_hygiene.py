@@ -15,7 +15,8 @@ FORBIDDEN = re.compile(
 def test_import_leaves_jax_and_fhe_tpu_unloaded():
     code = ("import sys, fhe_tpu_torch, fhe_tpu_torch.convert, "
             "fhe_tpu_torch.ops.decrypt_cuda, fhe_tpu_torch.ops.rns_cuda, "
-            "fhe_tpu_torch.ops.galois_cuda, fhe_tpu_torch.utils.ubench\n"
+            "fhe_tpu_torch.ops.galois_cuda, fhe_tpu_torch.utils.ubench, "
+            "fhe_tpu_torch.scheme.bgv\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'fhe_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
