@@ -121,8 +121,33 @@ Phases, each printing its own lines:
      beside BFV's headline multiply in the same run, the other BGV ops'
      times, the profiler's kernels per call, and estimate_noise_budget /
      exact_noise_budget of a fresh ciphertext and a product in both
-     schemes.
-Phases 4 to 12 each zero every launch count just before their path and read
+     schemes;
+ 13. bootstrap: the bootstrapping pipeline through the facade at the JAX
+     bench's g_bootstrap configuration, n = 1024, log_q = 120 (k = 4),
+     lambda_ = 0, h = 16, seed 5: make_bootstrap_key at levels 0 and 1,
+     bootstrap_binary of the bits 0 and 1 and of a level-1 input (each
+     decodes its bit), bootstrap_lut [0, 1, 4, 4] of m = 0..3 (decodes
+     lut[m]) and bootstrap_binary_batch of 8 bits i % 2 (decodes them, and
+     elements 0 and 1 equal bootstrap_binary bit for bit).  One
+     bootstrap_binary launches keyswitch_fused 2n + 1 times (two external
+     products per secret coefficient, then the final key switch) and the
+     batch keyswitch_fused_batch 2n times and keyswitch_fused once per
+     element; B1, B2, B3 and B8 launch for keys, inputs and decrypts, and no
+     other kernel.  Card == CPU plain path: the whole pipeline at n = 256
+     (tests/test_bootstrap.py's configuration: extract_payload,
+     make_bootstrap_key_from_noise, bootstrap_binary), and at n = 1024 one
+     CMUX gate as the rotation calls it (bootstrap._cmux) and the external
+     product in it (one keyswitch_fused launch each; batched, one
+     keyswitch_fused_batch launch) and the first 16 steps of blind_rotate
+     on a truncated key.  B7 and B12 at the external products' shapes
+     against their plain versions; bootstrap_ms_n1024 and
+     bootstrap_ms_n1024_b8 (per ciphertext; wall medians of 5, as
+     bench.py), the time inside kernels of one call (torch.profiler), the
+     device ms of a CMUX gate and of its external product, single and
+     batched, make_bootstrap_key's seconds and the key's bytes, and traces:
+     the kernels per CMUX gate (a 16-step rotation against a 0-step one),
+     span and idle share.
+Phases 4 to 13 each zero every launch count just before their path and read
 them just after; each kernel of the path must have launched.  Phase 3 also
 runs fast_bconv_sk_fused with the digits lane at [5,3,n], [5,24,n],
 [10,3,n] and [10,24,n] (the multiply and multiply_batch at k = 3 and
@@ -157,8 +182,8 @@ n = 256 and 16384) and of ks_inner_batch / ks_inner_grouped (E = 8, C x E =
 off a 16-byte boundary, with a run of zeros in c0 and the digits; a
 sum_slots stage's B17 and B15 (E = 3, and at k8_omega's k = 8, kd = 4).
 The line before the last is {"kernels": [...]}, each kernel with its launches
-on its own path (phase 4 to 11) and on the bgv path (bgv_launches); the last
-line is
+on its own path (phase 4 to 11), on the bgv path (bgv_launches) and on the
+bootstrap path (bootstrap_launches); the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; without
 a card the script exits 1 before printing any result.  Imports no JAX and
 nothing of fhe_tpu.
@@ -184,9 +209,10 @@ from fhe_tpu_torch.ops import ntt as plain_ntt
 from fhe_tpu_torch.ops import rns, sampling
 from fhe_tpu_torch.params import SecurityParams, make_scheme_params
 from fhe_tpu_torch.scheme import bfv, bgv
+from fhe_tpu_torch.scheme import bootstrap
 from fhe_tpu_torch.scheme.context import make_context
-from fhe_tpu_torch.scheme.types import (GaloisKeys, Plaintext, PublicKey, RelinKeys,
-                                        SecretKey)
+from fhe_tpu_torch.scheme.types import (BootstrapKey, GaloisKeys, LWECiphertext, Plaintext,
+                                        PublicKey, RelinKeys, SecretKey)
 from fhe_tpu_torch.utils import ubench
 
 N, LOG_Q, H = 8192, 90, 64
@@ -825,9 +851,10 @@ def floor_sk_cases(gen: torch.Generator, ctx_s) -> list:
     return out
 
 
-def profiled_kernels(fn) -> list[str]:
-    """The names of the device kernels one call of fn() launches, from a
-    torch.profiler trace (copies and fills excluded)."""
+def device_kernels(fn) -> list[tuple]:
+    """(start, end, name) of the device kernels one call of fn() launches,
+    in order, from a torch.profiler trace after a warm-up call (copies and
+    fills excluded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -836,8 +863,14 @@ def profiled_kernels(fn) -> list[str]:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.name.startswith(("Memcpy", "Memset"))]
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith(("Memcpy", "Memset")))
+
+
+def profiled_kernels(fn) -> list[str]:
+    """The names of the device kernels one call of fn() launches."""
+    return [name for _, _, name in device_kernels(fn)]
 
 
 def print_profiled(phase: str, ops: dict) -> None:
@@ -2646,6 +2679,285 @@ def phase_bgv() -> dict:
     return launches
 
 
+# the JAX bench's g_bootstrap (bench.py:833-840): n = 1024, log_q = 120 (k = 4),
+# lambda_ = 0, h = 16, seed 5; and tests/test_bootstrap.py's n = 256
+BOOT_N, BOOT_LOG_Q, BOOT_H = 1024, 120, 16
+BOOT_LUT = [0, 1, 4, 4]
+BOOT_TRUNC = 16        # steps of the truncated rotation held against the CPU
+# the kernels of the bootstrap path (its input's keygen and encrypt, and the
+# decrypt of its outputs included) and those it must never launch
+BOOTSTRAP_KERNELS = ("ntt_forward", "ntt_inverse", "mul_by_ntt_operand", "decrypt_fused",
+                     "keyswitch_fused", "keyswitch_fused_batch")
+NOT_BOOTSTRAP_KERNELS = tuple(name for name in KERNELS if name not in BOOTSTRAP_KERNELS)
+
+
+def boot_fhe(n: int, seed: int) -> FHE:
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return FHE(poly_degree=n, log_q=BOOT_LOG_Q, lambda_=0, hamming_weight=BOOT_H,
+                   seed=seed, device="cuda")
+
+
+def trace_span(fn) -> dict:
+    """Device kernels of one call of fn() (``device_kernels``), the span from
+    the first kernel's start to the last one's end, the time inside kernels,
+    and the idle share of the span."""
+    ks = device_kernels(fn)
+    if not ks:
+        return {"kernels": 0}
+    span = ks[-1][1] - ks[0][0]
+    inside = sum(e - s for s, e, _ in ks)
+    return {"kernels": len(ks), "keyswitch_kernels": sum("keyswitch" in x for *_, x in ks),
+            "span_us": span, "in_kernels_us": inside, "idle_share": 1 - inside / span}
+
+
+def bootstrap_kernel_cases(gen: torch.Generator, ctx) -> list:
+    """Each kernel of the bootstrap path at the shapes it gives it, n = 1024,
+    k = 4: B7 on an external product's digits [2k, n] of both accumulator
+    components against a coefficient's RGSW rows read in place ([k, 2k, 2, n]
+    view of the stored [2k, k, 2, n] rows; the final key switch is B7's
+    headline lane), B12 on the batch's [2k, 8, n]; B1 on the key's draw
+    stack [k, 4nk, n] (make_bootstrap_key transforms a and e so), B2 on
+    the secret [k, 1, n], B3 on encrypt's u [k, 1, n] against pk [k, 2, n],
+    and B8 on views of a [k, 1, 2, n] ciphertext."""
+    tb, n, k = ctx.ntt_q, ctx.n, ctx.k
+    qs = tb.primes
+    rows = torch.stack([residues(gen, qs, 2, n) for _ in range(2 * k)])   # [2k, k, 2, n]
+    keys_t = rows.permute(1, 0, 2, 3)
+    d = torch.cat([torch.stack([residues(gen, (q,), 1, n)[0, 0] for q in qs])] * 2)
+    db = torch.cat([torch.stack([residues(gen, (q,), BATCH, n)[0] for q in qs])] * 2)
+    draws = residues(gen, qs, 4 * n * k, n)          # a (or e): n * 2 signs * 2k rows
+    s1, u, w = residues(gen, qs, 1, n), residues(gen, qs, 1, n), residues(gen, qs, 2, n)
+    return [("keyswitch_fused", f"external product: d [{2 * k},{n}], rows [{2 * k},{k},2,{n}]",
+             lambda: ntt_cuda.keyswitch_fused(d, keys_t, tb),
+             lambda: plain_ntt.keyswitch_fused(d, keys_t, tb),
+             keyswitch_work(k, 2 * k, 1, n=n)),
+            ("keyswitch_fused_batch",
+             f"batched external product: d [{2 * k},{BATCH},{n}], rows [{2 * k},{k},2,{n}]",
+             lambda: ntt_cuda.keyswitch_fused_batch(db, keys_t, tb),
+             lambda: plain_ntt.keyswitch_fused_batch(db, keys_t, tb),
+             keyswitch_work(k, 2 * k, BATCH, n=n)),
+            ("ntt_forward", f"bootstrap key draws [{k},{draws.shape[1]},{n}]",
+             lambda: ntt_cuda.ntt_forward(draws, tb), lambda: plain_ntt.ntt_forward(draws, tb),
+             ntt_work(k, draws.shape[1], False, n)),
+            ("ntt_inverse", f"secret [{k},1,{n}]",
+             lambda: ntt_cuda.ntt_inverse(s1, tb), lambda: plain_ntt.ntt_inverse(s1, tb),
+             ntt_work(k, 1, True, n)),
+            ("mul_by_ntt_operand", f"u [{k},1,{n}], w [{k},2,{n}]",
+             lambda: ntt_cuda.mul_by_ntt_operand(u, w, tb),
+             lambda: plain_ntt.mul_by_ntt_operand(u, w, tb), mul_work(k, 2, 1, n)),
+            decrypt_case(gen, ctx.params, 0, 1, "bootstrap decrypt")]
+
+
+def check_bootstrap_small() -> None:
+    """tests/test_bootstrap.py's configuration (n = 256, k = 4): the whole
+    pipeline on the card equals the CPU plain path: extract_payload (w = 1
+    and 3), make_bootstrap_key_from_noise and bootstrap_binary."""
+    fhe = boot_fhe(256, 3)
+    ctx, n = fhe.ctx, fhe.params.n
+    cpu = make_context(fhe.params, device="cpu")
+    pk, sk = fhe.keygen()
+    sk_cpu = SecretKey(data=sk.data.cpu())
+    to_cpu = lambda ct: ct.replace(data=ct.data.cpu())
+    ct = fhe.encrypt(fhe.encode_coeff([1]), pk)
+    for w in (1, 3):
+        lwe, lwe_cpu = (bootstrap.extract_payload(ctx, ct, w),
+                        bootstrap.extract_payload(cpu, to_cpu(ct), w))
+        check(torch.equal(lwe.a.cpu(), lwe_cpu.a) and int(lwe.b) == int(lwe_cpu.b),
+              f"card extract_payload (w={w}) differs from the CPU plain path")
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    total = n * 2 * 2 * ctx.k
+    a = sampling.uniform_rns(gen, ctx.ntt_q.p, total, n)
+    e = sampling.gaussian_rns(gen, ctx.ntt_q.p, 3.2, total, n)
+    bsk = bootstrap.make_bootstrap_key_from_noise(ctx, sk, a, e)
+    bsk_c = bootstrap.make_bootstrap_key_from_noise(cpu, sk_cpu, a.cpu(), e.cpu())
+    check(torch.equal(bsk.pos.cpu(), bsk_c.pos) and torch.equal(bsk.neg.cpu(), bsk_c.neg),
+          "card make_bootstrap_key_from_noise differs from the CPU plain path")
+    ks = bootstrap.keyswitch_keygen(ctx, fhe.gen, sk, sk)
+    out = bootstrap.bootstrap_binary(ctx, None, ct, sk, bsk, ks)
+    out_cpu = bootstrap.bootstrap_binary(cpu, None, to_cpu(ct), sk_cpu, bsk_c, ks.cpu())
+    check(torch.equal(out.data.cpu(), out_cpu.data) and out.noise_budget == out_cpu.noise_budget,
+          "card bootstrap_binary at n=256 differs from the CPU plain path")
+    check(int(fhe.decode_coeff(fhe.decrypt(out, sk))[0]) == 1, "n=256 bootstrap decoded wrong")
+    print("phase bootstrap check n=256: card == CPU plain path for extract_payload (w = 1, "
+          "3), make_bootstrap_key_from_noise and bootstrap_binary (decodes 1)")
+
+
+def phase_bootstrap(gen: torch.Generator) -> dict:
+    """The bootstrapping pipeline through the facade at the JAX bench's
+    g_bootstrap configuration, then the card against the CPU plain path
+    (whole at n = 256, a CMUX gate, its external product and the first
+    BOOT_TRUNC steps of the rotation at n = 1024), then times and a
+    trace."""
+    fhe = boot_fhe(BOOT_N, 5)
+    ctx, n, prm = fhe.ctx, BOOT_N, fhe.params
+    check(prm.k == 4, f"expected k = 4 at log_q = {BOOT_LOG_Q}, got {prm.k}")
+    dec0 = lambda ct: int(fhe.decode_coeff(fhe.decrypt(ct, sk))[0])
+    enc = lambda m: fhe.encrypt(fhe.encode_coeff([m]), pk)
+    reset_counts()
+    pk, sk = fhe.keygen()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bsk = fhe.make_bootstrap_key(sk)
+    torch.cuda.synchronize()
+    bsk_s = time.perf_counter() - t0
+    bsk1 = fhe.make_bootstrap_key(sk, level=1)
+    cts8 = [enc(i % 2) for i in range(BATCH)]
+    cts_bit = cts8[:2]                 # bits 0 and 1, also elements 0 and 1 of the batch
+    ct_l1 = fhe.mod_switch_to_next(enc(1))
+    cts_lut = [enc(m) for m in range(len(BOOT_LUT))]
+    fhe._bootstrap_ks(sk)              # the facade's switching keys, made once per sk
+    torch.cuda.synchronize()
+    before = read_counts()
+    out_bit = [fhe.bootstrap_binary(c, sk, bsk) for c in cts_bit]
+    torch.cuda.synchronize()
+    mid = read_counts()
+    outs8 = fhe.bootstrap_binary_batch(cts8, sk, bsk)
+    torch.cuda.synchronize()
+    after = read_counts()
+    out_l1 = fhe.bootstrap_binary(ct_l1, sk, bsk1)
+    outs_lut = [fhe.bootstrap_lut(c, BOOT_LUT, sk, bsk) for c in cts_lut]
+    decoded = {"binary": [dec0(o) for o in out_bit], "level1": dec0(out_l1),
+               "lut": [dec0(o) for o in outs_lut], "batch": [dec0(o) for o in outs8]}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print("phase bootstrap launches", json.dumps(launches))
+    print("phase bootstrap decoded", json.dumps(decoded))
+    check(decoded["binary"] == [0, 1] and decoded["level1"] == 1, f"decoded {decoded}")
+    check(decoded["lut"] == BOOT_LUT, f"bootstrap_lut decoded {decoded['lut']}")
+    check(decoded["batch"] == [i % 2 for i in range(BATCH)], f"batch decoded {decoded}")
+    check(out_l1.level == 0 and all(o.level == 0 for o in out_bit + outs8 + outs_lut),
+          "a bootstrap output is not at level 0")
+    for i in (0, 1):
+        check(torch.equal(outs8[i].data, out_bit[i].data)
+              and outs8[i].noise_budget == out_bit[i].noise_budget,
+              f"bootstrap_binary_batch element {i} differs from bootstrap_binary")
+    delta = lambda a, b, name: b[name] - a[name]
+    per_single = {name: delta(before, mid, name) / 2 for name in ("keyswitch_fused",
+                                                                  "keyswitch_fused_batch")}
+    per_batch = {name: delta(mid, after, name) for name in ("keyswitch_fused",
+                                                            "keyswitch_fused_batch")}
+    print("phase bootstrap launches per call", json.dumps(
+        {"bootstrap_binary": per_single, f"bootstrap_binary_batch_B{BATCH}": per_batch}))
+    # n steps of two external products, then the final key switch
+    check(per_single == {"keyswitch_fused": 2 * n + 1, "keyswitch_fused_batch": 0},
+          f"bootstrap_binary launched {per_single}, expected {2 * n + 1} keyswitch_fused")
+    check(per_batch == {"keyswitch_fused": BATCH, "keyswitch_fused_batch": 2 * n},
+          f"bootstrap_binary_batch launched {per_batch}")
+    check_launched(launches, "bootstrap", BOOTSTRAP_KERNELS)
+    ran = {name: launches[name] for name in NOT_BOOTSTRAP_KERNELS if launches[name]}
+    check(not ran, f"the bootstrap path launched {ran}")
+
+    # card == CPU plain path: the whole pipeline at n = 256; at n = 1024 a
+    # CMUX gate, its external product and the first BOOT_TRUNC steps of the
+    # rotation
+    check_bootstrap_small()
+    cpu = make_context(prm, device="cpu")
+    # one CMUX gate, as the rotation calls it, and the external product in
+    # it, on a contiguous component-major accumulator, as the rotation holds
+    # it: [2, k, n], and [2, k, B, n] with a rotation per sample
+    acc = cts_bit[1].data.transpose(0, 1).contiguous()
+    acc_b = torch.stack([c.data for c in cts8], dim=2).transpose(0, 1).contiguous()
+    rows = bsk.pos[3]
+    table = bootstrap._shift_table(n, acc.device)
+    idx, idx_b = table[5], table[torch.arange(BATCH, device=acc.device) + 5]
+
+    def gate_args(c, x: torch.Tensor) -> tuple:
+        tb = bfv._tb(c, 0)
+        return (bootstrap._keys_t(rows.to(tb.device)), tb,
+                *bootstrap._cmux_consts(tb, c.inv_qhat_levels[0], x.dim()))
+
+    args, args_b = gate_args(ctx, acc), gate_args(ctx, acc_b)
+    gates = {"_external_product": (lambda: bootstrap._external_product(acc, *args),
+                                   lambda: bootstrap._external_product(
+                                       acc.cpu(), *gate_args(cpu, acc)), "keyswitch_fused"),
+             "_external_product batch": (lambda: bootstrap._external_product(acc_b, *args_b),
+                                         lambda: bootstrap._external_product(
+                                             acc_b.cpu(), *gate_args(cpu, acc_b)),
+                                         "keyswitch_fused_batch"),
+             "_cmux": (lambda: bootstrap._cmux(acc, idx, *args),
+                       lambda: bootstrap._cmux(acc.cpu(), idx.cpu(), *gate_args(cpu, acc)),
+                       "keyswitch_fused"),
+             "_cmux batch": (lambda: bootstrap._cmux(acc_b, idx_b, *args_b),
+                             lambda: bootstrap._cmux(acc_b.cpu(), idx_b.cpu(),
+                                                     *gate_args(cpu, acc_b)),
+                             "keyswitch_fused_batch")}
+    for label, (card_fn, cpu_fn, kernel) in gates.items():
+        c0 = read_counts()
+        got = card_fn()
+        c1 = read_counts()
+        check(delta(c0, c1, kernel) == 1 and sum(c1.values()) - sum(c0.values()) == 1,
+              f"{label} is not one {kernel} launch")
+        check(torch.equal(got.cpu(), cpu_fn()), f"card {label} differs from the CPU plain path")
+    lwe = fhe.extract_lsb(cts_bit[1])
+    trunc = LWECiphertext(a=lwe.a[:BOOT_TRUNC], b=lwe.b)
+    bsk_t = BootstrapKey(pos=bsk.pos[:BOOT_TRUNC], neg=bsk.neg[:BOOT_TRUNC], level=0)
+    rot = bootstrap.blind_rotate(ctx, trunc, bsk_t)
+    rot_cpu = bootstrap.blind_rotate(cpu, LWECiphertext(a=trunc.a.cpu(), b=trunc.b.cpu()),
+                                     BootstrapKey(pos=bsk_t.pos.cpu(), neg=bsk_t.neg.cpu()))
+    check(torch.equal(rot.data.cpu(), rot_cpu.data),
+          f"card blind_rotate ({BOOT_TRUNC} steps) differs from the CPU plain path")
+    print(f"phase bootstrap check: n={n}, k={prm.k}; bootstrap_binary of 0 and 1 and of a "
+          f"level-1 input decode, bootstrap_lut {BOOT_LUT} decodes lut[m] for m = 0..3, "
+          f"bootstrap_binary_batch of {BATCH} decodes and equals bootstrap_binary; "
+          f"launches per bootstrap {per_single}, per batch {per_batch}; card == CPU plain "
+          f"path for _external_product and _cmux (single and B={BATCH}, one launch each) "
+          f"and {BOOT_TRUNC} steps of blind_rotate")
+
+    # the path's kernels at the bootstrap's shapes
+    for name, label, kern, plain, work in bootstrap_kernel_cases(gen, ctx):
+        got, want = flat(kern()), flat(plain())
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
+        check(err == 0, f"{name} {label}: kernel differs from its plain version")
+        b_ms, b_by = bound(*work)
+        print("phase bootstrap kernel", name, json.dumps(
+            {"shape": label, "max_abs_err": err, "ms": device_ms(kern),
+             "plain_ms": device_ms(plain), "bound_ms": b_ms, "bound_by": b_by}))
+
+    # times: wall medians of 5 as bench.py:863-871 (per ciphertext for the
+    # batch); the time inside kernels of one call (torch.profiler: a
+    # bootstrap is host-bound, so events behind a busy card would time the
+    # host's launches); the device ms of a CMUX gate and of the external
+    # product in it; key generation;
+    # and a trace of the truncated rotation
+    def wall5(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    boot = lambda: fhe.bootstrap_binary(cts_bit[1], sk, bsk)
+    boot8 = lambda: fhe.bootstrap_binary_batch(cts8, sk, bsk)
+    tr_boot, tr_boot8 = trace_span(boot), trace_span(boot8)
+    times = {"bootstrap_ms_n1024": wall5(boot),
+             "bootstrap_ms_n1024_b8": wall5(boot8) / BATCH,
+             "bootstrap_in_kernels_ms_n1024": tr_boot["in_kernels_us"] / 1e3,
+             "bootstrap_b8_in_kernels_ms_n1024": tr_boot8["in_kernels_us"] / 1e3,
+             "cmux_device_ms": device_ms(gates["_cmux"][0]),
+             "cmux_b8_device_ms": device_ms(gates["_cmux batch"][0]),
+             "external_product_device_ms": device_ms(gates["_external_product"][0]),
+             "external_product_b8_device_ms": device_ms(gates["_external_product batch"][0]),
+             "make_bootstrap_key_s": bsk_s,
+             "bootstrap_key_bytes": bsk.pos.numel() * 4 + bsk.neg.numel() * 4}
+    print("phase bootstrap times", json.dumps(times))
+    empty = LWECiphertext(a=lwe.a[:0], b=lwe.b)
+    tr = trace_span(lambda: bootstrap.blind_rotate(ctx, trunc, bsk_t))
+    tr0 = trace_span(lambda: bootstrap.blind_rotate(ctx, empty, bsk_t))
+    tr["kernels_per_cmux"] = (tr["kernels"] - tr0["kernels"]) / (2 * BOOT_TRUNC)
+    tr["kernels_per_step"] = 2 * tr["kernels_per_cmux"]
+    print(f"phase bootstrap trace blind_rotate {BOOT_TRUNC} steps", json.dumps(tr))
+    print("phase bootstrap trace bootstrap_binary", json.dumps(tr_boot))
+    print(f"phase bootstrap trace bootstrap_binary_batch B={BATCH}", json.dumps(tr_boot8))
+    print("phase bootstrap profiler kernels of one _cmux gate", json.dumps(
+        [name[:48] for name in profiled_kernels(gates["_cmux"][0])]))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2663,7 +2975,7 @@ def main() -> int:
                 "serving": phase_serving(), "hoisted": phase_hoisted(),
                 "omega": phase_omega(), "leveled": phase_leveled(),
                 "small": phase_small(), "roofline": phase_roofline(gen),
-                "bgv": phase_bgv()}
+                "bgv": phase_bgv(), "bootstrap": phase_bootstrap(gen)}
     rows = []
     for name, meta in KERNELS.items():
         r = results[name]
@@ -2671,6 +2983,7 @@ def main() -> int:
                      "replaces": meta["replaces"],
                      "launches": launches[meta["path"]][name],
                      "bgv_launches": launches["bgv"][name],
+                     "bootstrap_launches": launches["bootstrap"][name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,

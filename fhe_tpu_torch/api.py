@@ -29,6 +29,19 @@ ciphertext, as in the JAX facade; modulus_raise is BFV's alone.
 ``estimate_noise_budget`` and ``exact_noise_budget`` measure a ciphertext's
 budget with the secret key in either scheme.
 
+BFV bootstrapping (``scheme/bootstrap.py``; BGV raises NotImplementedError):
+
+    bsk = fhe.make_bootstrap_key(sk)                # RGSW keys of s's bits
+    ct = fhe.encrypt(fhe.encode_coeff([1]), pk)
+    fresh = fhe.bootstrap_binary(ct, sk, bsk)       # decodes [1], fresh noise
+    f = fhe.bootstrap_lut(ct, [0, 1, 4, 4], sk, bsk)  # m -> lut[m], m < 4
+    outs = fhe.bootstrap_binary_batch(cts, sk, bsk)   # one batched rotation
+
+The pipeline's final key-switching keys are made once per secret key and
+cached (evicted when the caller drops the key).  ``fhe.monitor`` (a
+``utils.perf.PerformanceMonitor``) times every op under the JAX facade's
+names.
+
 Leveled use: ``mod_switch_to_next`` drops the last q prime with rounding
 (``mod_switch_to_level`` several), which keeps the noise of a deep circuit
 in check; every op then runs at the ciphertext's level:
@@ -56,17 +69,20 @@ import torch
 
 from .params import SchemeParams, SecurityParams, make_scheme_params
 from .scheme import bfv, bgv
+from .scheme import bootstrap as _bs
 from .scheme import encoder as _encoder
 from .scheme.context import SchemeContext, default_galois_elements, make_context
-from .scheme.types import (Ciphertext, GaloisKeys, Plaintext, PublicKey,
-                           RelinKeys, SecretKey)
+from .scheme.types import (BootstrapKey, Ciphertext, GaloisKeys, LWECiphertext,
+                           Plaintext, PublicKey, RelinKeys, SecretKey)
+from .utils.perf import PerformanceMonitor
 
 
 class FHE:
     """Stateful convenience wrapper.  Mutable state: the random generator,
-    the cache of NTT-form plain operands, the per-level caches of switched
-    relinearization and Galois keys and the cache of pre-permuted
-    hoisted-rotation keys; all scheme values are immutable.  The key caches
+    the performance monitor, the cache of NTT-form plain operands, the
+    per-level caches of switched relinearization and Galois keys, the cache
+    of pre-permuted hoisted-rotation keys and the bootstrap's key-switching
+    keys per secret key; all scheme values are immutable.  The key caches
     belong to the instance, so keys of one scheme are only ever switched
     down with that scheme's constants."""
 
@@ -88,18 +104,23 @@ class FHE:
         self._hoist_cache: dict = {}
         self._rlk_cache: dict = {}
         self._gal_cache: dict = {}
+        self._bootstrap_ks_cache: dict = {}
+        self.monitor = PerformanceMonitor()
 
     # -- keys --
     def keygen(self) -> tuple[PublicKey, SecretKey]:
-        return self._scheme.keygen(self.ctx, self.gen)
+        with self.monitor.time("keygen"):
+            return self._scheme.keygen(self.ctx, self.gen)
 
     def relinkey_gen(self, sk: SecretKey) -> RelinKeys:
-        return self._scheme.relinkey_gen(self.ctx, self.gen, sk)
+        with self.monitor.time("relinkey_gen"):
+            return self._scheme.relinkey_gen(self.ctx, self.gen, sk)
 
     def galoiskey_gen(self, sk: SecretKey, elements=None) -> GaloisKeys:
         """Galois keys for ``elements`` (default: the power-of-two row
         rotations both ways and the column swap)."""
-        return self._scheme.galoiskey_gen(self.ctx, self.gen, sk, elements)
+        with self.monitor.time("galoiskey_gen"):
+            return self._scheme.galoiskey_gen(self.ctx, self.gen, sk, elements)
 
     # -- encoding (slot semantics by default) --
     def encode(self, values) -> Plaintext:
@@ -120,10 +141,12 @@ class FHE:
 
     # -- encrypt / decrypt --
     def encrypt(self, pt: Plaintext, pk: PublicKey) -> Ciphertext:
-        return self._scheme.encrypt(self.ctx, self.gen, pk, pt)
+        with self.monitor.time("encrypt"):
+            return self._scheme.encrypt(self.ctx, self.gen, pk, pt)
 
     def decrypt(self, ct: Ciphertext, sk: SecretKey) -> Plaintext:
-        return self._scheme.decrypt(self.ctx, ct, sk)
+        with self.monitor.time("decrypt"):
+            return self._scheme.decrypt(self.ctx, ct, sk)
 
     def encrypt_batch(self, pts: list, pk: PublicKey) -> list:
         """Encrypt B plaintexts in one batched pk*u launch; element i is an
@@ -131,7 +154,8 @@ class FHE:
         fn = getattr(self._scheme, "encrypt_batch", None)
         if fn is None:
             return [self.encrypt(pt, pk) for pt in pts]
-        return fn(self.ctx, self.gen, pk, pts)
+        with self.monitor.time("encrypt_batch"):
+            return fn(self.ctx, self.gen, pk, pts)
 
     def decrypt_batch(self, cts: list, sk: SecretKey) -> list:
         """Decrypt B ciphertexts in one fused launch; element i equals
@@ -139,14 +163,17 @@ class FHE:
         fn = getattr(self._scheme, "decrypt_batch", None)
         if fn is None:
             return [self.decrypt(ct, sk) for ct in cts]
-        return fn(self.ctx, cts, sk)
+        with self.monitor.time("decrypt_batch"):
+            return fn(self.ctx, cts, sk)
 
     # -- homomorphic ops --
     def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-        return self._scheme.add(self.ctx, a, b)
+        with self.monitor.time("add"):
+            return self._scheme.add(self.ctx, a, b)
 
     def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-        return self._scheme.sub(self.ctx, a, b)
+        with self.monitor.time("sub"):
+            return self._scheme.sub(self.ctx, a, b)
 
     def add_plain(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
         return self._scheme.add_plain(self.ctx, ct, pt)
@@ -155,45 +182,51 @@ class FHE:
         return self._scheme.sub_plain(self.ctx, ct, pt)
 
     # -- keys switched down to a level, cached per (keys, level) --
-    def _keys_at(self, cache: dict, keys, level: int, switch):
-        """keys switched to ``level`` by ``switch(ctx, keys, level)``, made
-        once per (keys, level) and evicted when the caller drops the keys;
-        level 0 keys as they are."""
+    def _keys_at(self, cache: dict, keys, level: int, switch, label: str):
+        """keys switched to ``level`` by ``switch(ctx, keys, level)`` (timed
+        as ``label``), made once per (keys, level) and evicted when the
+        caller drops the keys; level 0 keys as they are."""
         if level == 0:
             return keys
         ck = (id(keys), level)
         switched = cache.get(ck)
         if switched is None:
-            switched = switch(self.ctx, keys, level)
+            with self.monitor.time(label):
+                switched = switch(self.ctx, keys, level)
             cache[ck] = switched
             weakref.finalize(keys, _evict, cache, id(keys))
         return switched
 
     def _rlk_at(self, rlk: RelinKeys, level: int) -> RelinKeys:
-        return self._keys_at(self._rlk_cache, rlk, level, self._scheme.switch_relin_keys)
+        return self._keys_at(self._rlk_cache, rlk, level, self._scheme.switch_relin_keys,
+                             "switch_relin_keys")
 
     def _gal_at(self, gal_keys: GaloisKeys, level: int) -> GaloisKeys:
         return self._keys_at(self._gal_cache, gal_keys, level,
-                             self._scheme.switch_galois_keys)
+                             self._scheme.switch_galois_keys, "switch_galois_keys")
 
     def multiply(self, a: Ciphertext, b: Ciphertext, rlk: RelinKeys) -> Ciphertext:
-        return self._scheme.multiply(self.ctx, a, b, self._rlk_at(rlk, a.level),
-                                     keys_at_level=True)
+        rlk_l = self._rlk_at(rlk, a.level)
+        with self.monitor.time("multiply"):
+            return self._scheme.multiply(self.ctx, a, b, rlk_l, keys_at_level=True)
 
     def multiply_batch(self, cts_a: list, cts_b: list, rlk: RelinKeys) -> list:
         """Multiply + relinearize B independent pairs at one level through
         the batched kernels (the serving path); element i equals
         multiply(cts_a[i], cts_b[i], rlk)."""
         level = cts_a[0].level if cts_a else 0
-        return self._scheme.multiply_batch(self.ctx, cts_a, cts_b,
-                                           self._rlk_at(rlk, level), keys_at_level=True)
+        rlk_l = self._rlk_at(rlk, level)
+        with self.monitor.time("multiply_batch"):
+            return self._scheme.multiply_batch(self.ctx, cts_a, cts_b, rlk_l,
+                                               keys_at_level=True)
 
     def multiply_no_relin(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         return self._scheme.multiply_no_relin(self.ctx, a, b)
 
     def relinearize(self, ct: Ciphertext, rlk: RelinKeys) -> Ciphertext:
-        return self._scheme.relinearize(self.ctx, ct, self._rlk_at(rlk, ct.level),
-                                        keys_at_level=True)
+        rlk_l = self._rlk_at(rlk, ct.level)
+        with self.monitor.time("relinearize"):
+            return self._scheme.relinearize(self.ctx, ct, rlk_l, keys_at_level=True)
 
     def multiply_plain(self, ct: Ciphertext, pt: Plaintext,
                        cache_operand: bool = False) -> Ciphertext:
@@ -206,8 +239,9 @@ class FHE:
     # -- rotations and key switching --
     def rotate_rows(self, ct: Ciphertext, steps: int,
                     gal_keys: GaloisKeys) -> Ciphertext:
-        return self._scheme.rotate_rows(self.ctx, ct, steps,
-                                        self._gal_at(gal_keys, ct.level), keys_at_level=True)
+        gk = self._gal_at(gal_keys, ct.level)
+        with self.monitor.time("rotate"):
+            return self._scheme.rotate_rows(self.ctx, ct, steps, gk, keys_at_level=True)
 
     def rotate_rows_batch(self, cts: list, steps: int,
                           gal_keys: GaloisKeys) -> list:
@@ -218,7 +252,9 @@ class FHE:
         if fn is None:
             return [self.rotate_rows(ct, steps, gal_keys) for ct in cts]
         level = cts[0].level if cts else 0
-        return fn(self.ctx, cts, steps, self._gal_at(gal_keys, level), keys_at_level=True)
+        gk = self._gal_at(gal_keys, level)
+        with self.monitor.time("rotate_batch"):
+            return fn(self.ctx, cts, steps, gk, keys_at_level=True)
 
     def rotate_columns(self, ct: Ciphertext, gal_keys: GaloisKeys) -> Ciphertext:
         return self._scheme.rotate_columns(self.ctx, ct, self._gal_at(gal_keys, ct.level),
@@ -229,7 +265,8 @@ class FHE:
         """Switch a 2-component ciphertext under s' to one under s; ks_keys
         [kd, k, 2, n] encrypt (q/q_j) * s' (switched down to the
         ciphertext's level on each call unless ``keys_at_level``)."""
-        return self._scheme.key_switch(self.ctx, ct, ks_keys, keys_at_level)
+        with self.monitor.time("key_switch"):
+            return self._scheme.key_switch(self.ctx, ct, ks_keys, keys_at_level)
 
     def _hoist_elements(self, steps_list, gal_keys: GaloisKeys) -> tuple:
         """The Galois elements 3^s mod 2n of the steps; KeyError unless each
@@ -251,8 +288,10 @@ class FHE:
         ck = (id(gal_keys), elements, level)
         pre = self._hoist_cache.get(ck)
         if pre is None:
-            pre = self._scheme.hoisted_galois_keys(self.ctx, self._gal_at(gal_keys, level),
-                                                   elements, level, keys_at_level=True)
+            gk = self._gal_at(gal_keys, level)
+            with self.monitor.time("hoisted_galois_keys"):
+                pre = self._scheme.hoisted_galois_keys(self.ctx, gk, elements, level,
+                                                       keys_at_level=True)
             self._hoist_cache[ck] = pre
             weakref.finalize(gal_keys, _evict, self._hoist_cache, id(gal_keys))
         return pre
@@ -264,9 +303,10 @@ class FHE:
         steps_list[e]) by decryption.  Each step needs a direct Galois key:
         galoiskey_gen(sk, elements=[pow(3, s, 2n) for s in steps_list])."""
         elements = self._hoist_elements(steps_list, gal_keys)
-        return self._scheme.apply_galois_hoisted(
-            self.ctx, ct, elements, gal_keys,
-            pre_keys=self._hoisted_pre(gal_keys, elements, ct.level))
+        pre = self._hoisted_pre(gal_keys, elements, ct.level)
+        with self.monitor.time("rotate_hoisted"):
+            return self._scheme.apply_galois_hoisted(self.ctx, ct, elements, gal_keys,
+                                                     pre_keys=pre)
 
     def rotate_rows_hoisted_batch(self, cts: list, steps_list,
                                   gal_keys: GaloisKeys) -> list:
@@ -279,9 +319,10 @@ class FHE:
             return []
         if any(ct.level != cts[0].level for ct in cts):
             return [self.rotate_rows_hoisted(ct, steps_list, gal_keys) for ct in cts]
-        return self._scheme.apply_galois_hoisted_batch(
-            self.ctx, cts, elements, gal_keys,
-            pre_keys=self._hoisted_pre(gal_keys, elements, cts[0].level))
+        pre = self._hoisted_pre(gal_keys, elements, cts[0].level)
+        with self.monitor.time("rotate_hoisted_batch"):
+            return self._scheme.apply_galois_hoisted_batch(self.ctx, cts, elements, gal_keys,
+                                                           pre_keys=pre)
 
     def sum_slots_elements(self) -> tuple:
         """Galois elements of the fast sum_slots: the default power-of-two
@@ -306,16 +347,17 @@ class FHE:
         the two slot rows are added through rotate_columns."""
         m = 2 * self.params.n
         half = self.params.n // 2
-        step = 1
-        while step < half:
-            group = [j * step for j in (1, 2, 3) if j * step < half]
-            if len(group) > 1 and all(pow(3, s, m) in gal_keys.data for s in group):
-                ct = self._rotate_accumulate(ct, group, gal_keys)
-                step *= len(group) + 1
-            else:
-                ct = self.add(ct, self.rotate_rows(ct, step, gal_keys))
-                step *= 2
-        return self.add(ct, self.rotate_columns(ct, gal_keys))
+        with self.monitor.time("sum_slots"):
+            step = 1
+            while step < half:
+                group = [j * step for j in (1, 2, 3) if j * step < half]
+                if len(group) > 1 and all(pow(3, s, m) in gal_keys.data for s in group):
+                    ct = self._rotate_accumulate(ct, group, gal_keys)
+                    step *= len(group) + 1
+                else:
+                    ct = self.add(ct, self.rotate_rows(ct, step, gal_keys))
+                    step *= 2
+            return self.add(ct, self.rotate_columns(ct, gal_keys))
 
     def _rotate_accumulate(self, ct: Ciphertext, steps_list,
                            gal_keys: GaloisKeys) -> Ciphertext:
@@ -340,12 +382,85 @@ class FHE:
         alpha * q_L term the caller absorbs as noise)."""
         if self.scheme_name != "bfv":
             raise NotImplementedError("modulus_raise is BFV-only")
-        return bfv.modulus_raise(self.ctx, ct)
+        with self.monitor.time("modulus_raise"):
+            return bfv.modulus_raise(self.ctx, ct)
 
     def bootstrap(self, ct: Ciphertext, sk: SecretKey, pk: PublicKey) -> Ciphertext:
         """Trusted refresh with the secret key: decrypt, then encrypt afresh
         at level 0 with the facade's generator."""
-        return self._scheme.bootstrap(self.ctx, self.gen, ct, sk, pk)
+        with self.monitor.time("bootstrap"):
+            return self._scheme.bootstrap(self.ctx, self.gen, ct, sk, pk)
+
+    # -- the bootstrapping pipeline (scheme/bootstrap.py): extract_lsb ->
+    # blind_rotate -> modulus_raise -> key_switch.  BFV only.
+    def _bfv_only(self) -> None:
+        if self.scheme_name != "bfv":
+            raise NotImplementedError("bootstrap pipeline is BFV-only")
+
+    def _bootstrap_ks(self, sk: SecretKey) -> torch.Tensor:
+        """The pipeline's final key-switching keys (s -> s), made once per
+        secret key and evicted when the caller drops the key."""
+        ck = id(sk)
+        ks = self._bootstrap_ks_cache.get(ck)
+        if ks is None:
+            ks = _bs.keyswitch_keygen(self.ctx, self.gen, sk, sk)
+            self._bootstrap_ks_cache[ck] = ks
+            weakref.finalize(sk, dict.pop, self._bootstrap_ks_cache, ck, None)
+        return ks
+
+    def make_bootstrap_key(self, sk: SecretKey, level: int = 0) -> BootstrapKey:
+        """RGSW bootstrap keys of the secret's bits at ``level`` (the level of
+        the ciphertexts they will refresh)."""
+        self._bfv_only()
+        with self.monitor.time("make_bootstrap_key"):
+            return _bs.make_bootstrap_key(self.ctx, self.gen, sk, level)
+
+    def bootstrap_binary(self, ct: Ciphertext, sk: SecretKey,
+                         bsk: BootstrapKey | None = None) -> Ciphertext:
+        """Refresh a ciphertext whose constant coefficient is a bit, through
+        the whole pipeline; returns a level-0 ciphertext of the same bit at
+        fresh noise.  Without ``bsk`` one is made from sk for this call."""
+        self._bfv_only()
+        ks = self._bootstrap_ks(sk)
+        with self.monitor.time("bootstrap_binary"):
+            return _bs.bootstrap_binary(self.ctx, self.gen, ct, sk, bsk, ks_keys=ks)
+
+    def bootstrap_lut(self, ct: Ciphertext, lut, sk: SecretKey,
+                      bsk: BootstrapKey | None = None,
+                      payload_bits: int | None = None) -> Ciphertext:
+        """Programmable bootstrap: the output encrypts lut[m] at fresh noise
+        for a constant-coefficient plaintext m < len(lut).  lut = [0, 1]
+        is the binary refresh, [1, 0] an encrypted NOT."""
+        self._bfv_only()
+        ks = self._bootstrap_ks(sk)
+        with self.monitor.time("bootstrap_lut"):
+            return _bs.bootstrap_lut(self.ctx, self.gen, ct, lut, sk,
+                                     payload_bits=payload_bits, bsk=bsk, ks_keys=ks)
+
+    def bootstrap_binary_batch(self, cts: list, sk: SecretKey, bsk: BootstrapKey) -> list:
+        """B binary bootstraps through one batched blind rotation; element i
+        equals bootstrap_binary(cts[i], sk, bsk)."""
+        self._bfv_only()
+        ks = self._bootstrap_ks(sk)
+        with self.monitor.time("bootstrap_binary_batch"):
+            return _bs.bootstrap_binary_batch(self.ctx, cts, bsk, ks)
+
+    def extract_lsb(self, ct: Ciphertext, index: int = 0) -> LWECiphertext:
+        """RLWE -> LWE over Z_2n of the bit in coefficient ``index``."""
+        self._bfv_only()
+        with self.monitor.time("extract_lsb"):
+            return _bs.extract_lsb(self.ctx, ct, index)
+
+    def blind_rotate(self, lwe: LWECiphertext, bsk: BootstrapKey | None = None,
+                     sk: SecretKey | None = None, test_poly: torch.Tensor | None = None,
+                     level: int = 0) -> Ciphertext:
+        """The accumulator blind rotation: pass a ``bsk`` (make_bootstrap_key)
+        or ``sk`` to make one for this call."""
+        self._bfv_only()
+        with self.monitor.time("blind_rotate"):
+            return _bs.blind_rotate(self.ctx, lwe, bsk, sk=sk,
+                                    gen=None if sk is None else self.gen,
+                                    test_poly=test_poly, level=level)
 
     def estimate_noise_budget(self, ct: Ciphertext, sk: SecretKey) -> float:
         """The remaining budget in bits, measured with the secret key (a host
@@ -370,7 +485,8 @@ class FHE:
         ck = (id(pt), level)
         op = self._plain_ntt_cache.get(ck)
         if op is None:
-            op = bfv.plain_ntt_operand(self.ctx, pt, level)
+            with self.monitor.time("plain_ntt_operand"):
+                op = bfv.plain_ntt_operand(self.ctx, pt, level)
             self._plain_ntt_cache[ck] = op
             weakref.finalize(pt, _evict, self._plain_ntt_cache, id(pt))
         return op

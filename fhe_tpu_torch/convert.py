@@ -2,7 +2,9 @@
 
 The JAX package holds residues as uint32 arrays in prime-major layout
 (``[k, c, n]`` for keys and ciphertexts, ``[kd, k, 2, n]`` for
-relinearization keys and for each Galois key, ``[n]`` for plaintexts); these
+relinearization keys and for each Galois key, ``[n]`` for plaintexts,
+``[n, 2kl, kl, 2, n]`` for each half of a bootstrap key, ``[n]`` and ``[]``
+for an LWE sample over Z_2n); these
 functions take and return exactly that, so the same state can go through
 both packages.  Residues are below 2^31, so the int32 tensors of this
 package hold the same values.  State goes to the card unless the caller
@@ -15,8 +17,8 @@ import numpy as np
 import torch
 
 from .ops.modmath import resolve_device
-from .scheme.types import (Ciphertext, GaloisKeys, Plaintext, PublicKey,
-                           RelinKeys, SecretKey)
+from .scheme.types import (BootstrapKey, Ciphertext, GaloisKeys, LWECiphertext,
+                           Plaintext, PublicKey, RelinKeys, SecretKey)
 
 
 def _tensor(arr, ndim: int, device) -> torch.Tensor:
@@ -57,6 +59,18 @@ def ciphertext_from_numpy(data, level: int = 0, is_ntt_form: bool = False,
 
 def plaintext_from_numpy(data, device="cuda") -> Plaintext:
     return Plaintext(data=_tensor(data, 1, device))
+
+
+def lwe_from_numpy(a, b, device="cuda") -> LWECiphertext:
+    """An LWE sample over Z_2n: mask a [n] and body b (0-d), both in [0, 2n)."""
+    return LWECiphertext(a=_tensor(a, 1, device), b=_tensor(b, 0, device))
+
+
+def bootstrap_key_from_numpy(pos, neg, level: int = 0, device="cuda") -> BootstrapKey:
+    """The RGSW rows of s+ (pos) and s- (neg), [n, 2kl, kl, 2, n] NTT-form
+    residues each, made at ``level``."""
+    return BootstrapKey(pos=_tensor(pos, 5, device), neg=_tensor(neg, 5, device),
+                        level=int(level))
 
 
 def to_numpy(obj) -> np.ndarray:

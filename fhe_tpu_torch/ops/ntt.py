@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import primes as _primes
+from ..utils import native as _native
 from . import galois as _galois
 from . import modmath as mm
 
@@ -60,9 +61,34 @@ FIELDS = tuple(f.name for f in dataclasses.fields(NTTTables)
                if f.name != "primes")
 
 
+def _mu(p: int) -> int:
+    """Barrett constant of a 30-bit prime; 0 for a small modulus (t for the
+    encoder), whose transforms use Shoup butterflies only."""
+    return mm.barrett_precompute(p) if (1 << 29) < p < (1 << 30) else 0
+
+
+def _native_tables(n: int, prime_tuple: tuple[int, ...]) -> dict | None:
+    """The tables from the native library (``utils/native.py``), or None
+    unless it makes every prime's."""
+    built = [_native.build_ntt_tables(n, p) for p in prime_tuple]
+    if any(b is None for b in built):
+        return None
+    cols = list(zip(*built))
+    return {"p": np.array(prime_tuple, dtype=np.uint32),
+            "mu": np.array([_mu(p) for p in prime_tuple], dtype=np.uint32),
+            **{f: np.stack(c) for f, c in zip(FIELDS[2:6], cols[:4])},
+            "n_inv": np.array(cols[4], dtype=np.uint32),
+            "n_inv_shoup": np.array(cols[5], dtype=np.uint32)}
+
+
 @functools.lru_cache(maxsize=None)
 def _build_tables_np(n: int, prime_tuple: tuple[int, ...]) -> dict:
-    """Host-side table build, exact Python ints -> numpy uint32."""
+    """Host-side table build, exact Python ints -> numpy uint32: the native
+    library's where it is loaded, else the Python body below (the same
+    bits)."""
+    fast = _native_tables(n, prime_tuple)
+    if fast is not None:
+        return fast
     bits = n.bit_length() - 1
     brv = np.array([_primes.bit_reverse(i, bits) for i in range(n)])
     rows = {f: [] for f in FIELDS}
@@ -81,9 +107,7 @@ def _build_tables_np(n: int, prime_tuple: tuple[int, ...]) -> dict:
         ipsi_br = ipows[brv]
         n_inv = pow(n, -1, p)
         rows["p"].append(p)
-        # small moduli (t for the encoder) only use Shoup butterflies
-        rows["mu"].append(
-            mm.barrett_precompute(p) if (1 << 29) < p < (1 << 30) else 0)
+        rows["mu"].append(_mu(p))
         rows["psi_br"].append(psi_br.astype(np.uint32))
         rows["psi_br_shoup"].append(mm.shoup_array(psi_br, [p] * n))
         rows["ipsi_br"].append(ipsi_br.astype(np.uint32))

@@ -1,13 +1,17 @@
 """NTT-friendly prime generation and number-theory host utilities.
 
-Counterpart of ``fhe_tpu/primes.py`` (pure-Python path only).  Everything here
-is exact host arithmetic that runs once when a context is built; the device
-only ever sees the tables derived from it.
+Counterpart of ``fhe_tpu/primes.py``.  Everything here is exact host
+arithmetic that runs once when a context is built; the device only ever sees
+the tables derived from it.  ``is_prime``, ``find_ntt_primes`` and
+``negacyclic_psi`` take the native library's results where it is loaded
+(``utils/native.py``), bit-identical to the Python bodies below.
 """
 
 from __future__ import annotations
 
 import functools
+
+from .utils import native as _native
 
 # Deterministic Miller-Rabin witness set: correct for all n < 3.3 * 10^24.
 _MR_WITNESSES = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37)
@@ -15,6 +19,9 @@ _MR_WITNESSES = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37)
 
 def is_prime(n: int) -> bool:
     """Deterministic Miller-Rabin primality test."""
+    fast = _native.is_prime(n) if n >= 0 else None
+    if fast is not None:
+        return fast
     if n < 2:
         return False
     for p in _MR_WITNESSES:
@@ -42,6 +49,9 @@ def find_ntt_primes(n: int, count: int, bits: int = 30,
                     exclude: tuple[int, ...] = ()) -> list[int]:
     """``count`` primes p ≡ 1 (mod 2n), descending from 2**bits, all inside
     (2**(bits-1), 2**bits)."""
+    fast = _native.find_ntt_primes(n, count, bits, tuple(exclude))
+    if fast is not None:
+        return fast
     two_n = 2 * n
     p = (1 << bits) - 1
     p -= (p - 1) % two_n
@@ -98,6 +108,9 @@ def root_of_unity(order: int, p: int) -> int:
 
 def negacyclic_psi(n: int, p: int) -> int:
     """Primitive 2n-th root of unity ψ mod p (ψ^n ≡ -1), for X^n + 1."""
+    fast = _native.negacyclic_psi(n, p)
+    if fast is not None:
+        return fast
     return root_of_unity(2 * n, p)
 
 

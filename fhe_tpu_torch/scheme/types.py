@@ -1,4 +1,5 @@
-"""Key / ciphertext / plaintext types — counterpart of ``fhe_tpu/scheme/types.py``.
+"""Key / ciphertext / plaintext types — counterpart of ``fhe_tpu/scheme/types.py``,
+and the bootstrapping types of ``fhe_tpu/scheme/bootstrap.py``.
 
 Frozen dataclasses over int32 residue tensors, prime-major ``[k, ..., n]``.
 ``noise_budget`` is a host float following the variance model of
@@ -69,3 +70,25 @@ class GaloisKeys:
     (b, a) pair encrypting (q/q_j) * s(x^g), in NTT form."""
 
     data: dict[int, torch.Tensor]  # g -> [kd, k, 2, n] int32, NTT domain
+
+
+@dataclasses.dataclass(frozen=True)
+class LWECiphertext:
+    """LWE sample over Z_{2n}: phase = b + <a, s> = (2n/2^w) * m + e (mod 2n),
+    the output of ``bootstrap.extract_payload``."""
+
+    a: torch.Tensor  # [n] int32 in [0, 2n)
+    b: torch.Tensor  # [] int32 in [0, 2n)
+
+
+@dataclasses.dataclass(frozen=True)
+class BootstrapKey:
+    """RGSW encryptions of the ternary secret's bits s = s+ - s-, RNS-digit
+    gadget, at one level: for each secret coefficient j and each of the
+    2*kl gadget rows (kl digits of acc0, kl of acc1) an RLWE pair in NTT
+    form.  pos[j] and neg[j] are the [2kl, kl, 2, n] rows of one external
+    product."""
+
+    pos: torch.Tensor  # [n, 2kl, kl, 2, n] int32, NTT domain
+    neg: torch.Tensor  # [n, 2kl, kl, 2, n] int32, NTT domain
+    level: int = 0

@@ -3,7 +3,7 @@
 one NVIDIA card, for comparing two trees of the port (a parent and a change)
 within one run on the card:
 
-    python3 scripts/torch_ab.py [TREE] [--lanes]
+    python3 scripts/torch_ab.py [TREE] [--lanes | --bootstrap | --host]
 
 TREE (default: the checkout this script lies in) is the root of a checkout
 whose fhe_tpu_torch package is imported, and whose kernels are built, for
@@ -62,6 +62,20 @@ the headline configuration (n = 8192, log_q = 90, k = 3, kb = 5):
     in torch ops), mod_switch_to_next and multiply_batch at B = 8, and a
     trace (below) of the multiply, the decrypt and the mod switch; null for
     a tree whose facade has no BGV;
+  - bootstrap: at the JAX bench's g_bootstrap configuration (n = 1024,
+    log_q = 120, k = 4, lambda_ = 0, h = 16, seed 5), wall_ms (median of 5)
+    of bootstrap_binary of a level-0 bit and its time inside kernels from a
+    torch.profiler trace of one call (host-bound, so events behind a busy
+    card would time the host), the
+    device_ms and wall_ms of one CMUX gate as the rotation calls it
+    (scheme/bootstrap._cmux on a [2, k, n] accumulator) and the device_ms
+    of the external product inside it (scheme/bootstrap._external_product;
+    null where a tree's gate has another form) and, from torch.profiler
+    traces of one
+    blind_rotate over the first 16 secret coefficients and over none, the
+    kernels per CMUX gate and per step (two gates), and the span, time in
+    kernels and idle share of the 16 steps; null for a tree without the
+    bootstrapping pipeline;
   - fast_bconv_sk_fused (B6) at the four shapes its paths give it ([5,3,n]
     the headline multiply, [5,24,n] its multiply_batch at B = 8, [10,3,n]
     the k8 multiply, [10,24,n] its batch) without the digits lane (both
@@ -94,7 +108,10 @@ the headline configuration (n = 8192, log_q = 90, k = 3, kb = 5):
     the first kernel's start to the last one's end, the time inside
     kernels and the idle share of the span.
 With --lanes it prints only the rotations' device ms and traces and
-galois_lanes, for a design A/B of the lanes across trees (in turns).  The
+galois_lanes, for a design A/B of the lanes across trees (in turns); with
+--bootstrap only the bootstrap entry; with --host only the wall and device
+ms of the headline multiply, rotate_rows and sum_slots and the context
+build times with and without the native library (host_main).  The
 timing methods are those of chip_smoke.py (device_ms, wall_ms).  Imports
 no JAX and nothing of fhe_tpu.
 """
@@ -102,6 +119,7 @@ no JAX and nothing of fhe_tpu.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -114,6 +132,9 @@ import torch
 ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
 TREE = Path(ARGS[0] if ARGS else Path(__file__).resolve().parent.parent)
 LANES_ONLY = "--lanes" in sys.argv[1:]
+BOOTSTRAP_ONLY = "--bootstrap" in sys.argv[1:]
+HOST_ONLY = "--host" in sys.argv[1:]
+CONTEXT_BUILD = "--context-build" in sys.argv[1:]
 sys.path.insert(0, str(TREE.resolve()))
 
 from fhe_tpu_torch import FHE, primes  # noqa: E402
@@ -274,6 +295,84 @@ def bgv_ops() -> dict | None:
     out["traces"] = {name: trace(ops[name]) for name in (
         "multiply", "decrypt_after_multiply", "mod_switch_to_next")}
     return out
+
+
+def span_trace(fn) -> dict:
+    """Device kernels of one call of fn(), as the host launches them (not
+    queued behind a busy card): their count, the span from the first
+    kernel's start to the last one's end, the time inside kernels and the
+    idle share of the span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and not e.name.startswith(("Memcpy", "Memset")))
+    span = ks[-1][1] - ks[0][0] if ks else 0.0
+    inside = sum(e - s for s, e in ks)
+    return {"kernels": len(ks), "span_us": span, "in_kernels_us": inside,
+            "idle_share": 1 - inside / span if span else None}
+
+
+def bootstrap_ops() -> dict | None:
+    """bootstrap_binary at the JAX bench's g_bootstrap configuration: wall ms
+    and time in kernels, the external product's device ms, and the kernels per CMUX
+    from traces of a 16-step and a 0-step rotation (None where the tree has
+    no bootstrapping pipeline)."""
+    try:
+        from fhe_tpu_torch.scheme import bootstrap
+        from fhe_tpu_torch.scheme.types import BootstrapKey, LWECiphertext
+    except ImportError:
+        return None
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fhe = FHE(poly_degree=1024, log_q=120, lambda_=0, hamming_weight=16, seed=5,
+                  device="cuda")
+    pk, sk = fhe.keygen()
+    bsk = fhe.make_bootstrap_key(sk)
+    ct = fhe.encrypt(fhe.encode_coeff([1]), pk)
+    boot = lambda: fhe.bootstrap_binary(ct, sk, bsk)
+    got = int(fhe.decode_coeff(fhe.decrypt(boot(), sk))[0])
+    if got != 1:
+        raise RuntimeError(f"bootstrap_binary decoded {got}")
+    lwe = fhe.extract_lsb(ct)
+    steps = 16
+    bsk_t = BootstrapKey(pos=bsk.pos[:steps], neg=bsk.neg[:steps], level=0)
+    rot = lambda m: bootstrap.blind_rotate(fhe.ctx, LWECiphertext(a=lwe.a[:m], b=lwe.b), bsk_t)
+    tr, tr0 = span_trace(lambda: rot(steps)), span_trace(lambda: rot(0))
+    per_cmux = (tr["kernels"] - tr0["kernels"]) / (2 * steps)
+    return {"in_kernels_ms": span_trace(boot)["in_kernels_us"] / 1e3,
+            "wall_ms": wall_ms(boot, reps=5), **cmux_gate(bootstrap, fhe.ctx, ct, bsk),
+            "kernels_per_cmux": per_cmux, "kernels_per_step": 2 * per_cmux,
+            f"trace_{steps}_steps": tr}
+
+
+def cmux_gate(bootstrap, ctx, ct, bsk) -> dict:
+    """device_ms and wall_ms (median of 50) of one CMUX gate as the rotation
+    calls it, on a contiguous component-major [2, k, n] accumulator (as the
+    rotation holds it), and device_ms of
+    the external product inside it; null where the tree's gate has another
+    form."""
+    try:
+        acc = ct.data.transpose(0, 1).contiguous()
+        tb = bfv._tb(ctx, 0)
+        p, inv = bootstrap._cmux_consts(tb, ctx.inv_qhat_levels[0], acc.dim())
+        keys_t = bootstrap._keys_t(bsk.pos[0])
+        idx = bootstrap._shift_table(ctx.n, acc.device)[5]
+        gate = lambda: bootstrap._cmux(acc, idx, keys_t, tb, p, inv)
+        ext = lambda: bootstrap._external_product(acc, keys_t, tb, p, inv)
+        gate(), ext()
+    except (AttributeError, TypeError) as err:
+        print(f"torch_ab: no CMUX gate of this form: {err}", file=sys.stderr)
+        return {"cmux_device_ms": None, "cmux_wall_ms": None,
+                "external_product_device_ms": None}
+    return {"cmux_device_ms": device_ms(gate), "cmux_wall_ms": wall_ms(gate, reps=50),
+            "external_product_device_ms": device_ms(ext)}
 
 
 def small_multiply() -> dict:
@@ -576,6 +675,66 @@ def lanes_main(card: str) -> int:
     return 0
 
 
+def context_build() -> dict:
+    """--context-build, run by host_main in a fresh process: the seconds to
+    load the native library (utils/native.py; with a make first where it is
+    absent, unless the environment forbids it), and of make_scheme_params
+    plus make_context on the card at the headline and g_bootstrap
+    configurations, on whichever path the environment selects
+    (FHE_TPU_NO_NATIVE=1: the Python bodies).  null where the tree has no
+    native loader."""
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    try:
+        from fhe_tpu_torch.utils import native
+    except ImportError:
+        native = None
+    t0 = time.perf_counter()
+    loaded = native is not None and native.available()
+    out = {"native": loaded,
+           "native_load_s": None if native is None else time.perf_counter() - t0}
+    for label, kw in (("n8192_log_q90", dict(poly_degree=N, log_q=LOG_Q, hamming_weight=H)),
+                      ("n1024_log_q120", dict(poly_degree=1024, log_q=120, lambda_=0,
+                                              hamming_weight=16))):
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            make_context(make_scheme_params(SecurityParams(**kw)), device="cuda")
+        torch.cuda.synchronize()
+        out[f"{label}_s"] = time.perf_counter() - t0
+    return out
+
+
+def host_main(card: str) -> int:
+    """--host: wall_ms (median of 50; host work included) and device_ms of
+    the headline multiply, rotate_rows by 1 and sum_slots, which carry the
+    facade's per-op timer where the tree has one; and, first, so that in a
+    fresh checkout the native library's build falls in its load time,
+    context_build in a fresh process with the environment as it is and,
+    where the tree has a native loader, again with FHE_TPU_NO_NATIVE=1."""
+    builds = {}
+    for label, extra in (("default", {}), ("no_native", {"FHE_TPU_NO_NATIVE": "1"})):
+        run = subprocess.run([sys.executable, str(Path(__file__).resolve()), str(TREE),
+                              "--context-build"], env={**os.environ, **extra},
+                             capture_output=True, text=True, timeout=600, check=True)
+        builds[label] = json.loads(run.stdout.strip().splitlines()[-1])
+        if builds[label]["native_load_s"] is None:
+            break
+    fhe = FHE(poly_degree=N, log_q=LOG_Q, hamming_weight=H, seed=3, device="cuda")
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    rot_ops, _keep = rotation_ops(fhe, sk, pk)
+    a, b = _keep[2][0], _keep[2][1]
+    ops = {"multiply": lambda: fhe.multiply(a, b, rlk),
+           "rotate_rows": rot_ops["rotate_rows"], "sum_slots": rot_ops["sum_slots"]}
+    out = {"card": card, "tree": str(TREE),
+           "wall_ms": {name: wall_ms(fn, reps=50) for name, fn in ops.items()},
+           "device_ms": {name: device_ms(fn) for name, fn in ops.items()},
+           "context_build": builds}
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_ab: no CUDA device", file=sys.stderr)
@@ -583,8 +742,16 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
+    if CONTEXT_BUILD:
+        print(json.dumps(context_build()))
+        return 0
+    if HOST_ONLY:
+        return host_main(card)
     if LANES_ONLY:
         return lanes_main(card)
+    if BOOTSTRAP_ONLY:
+        print(json.dumps({"card": card, "tree": str(TREE), "bootstrap": bootstrap_ops()}))
+        return 0
     fhe = FHE(poly_degree=N, log_q=LOG_Q, hamming_weight=H, seed=3, device="cuda")
     pk, sk = fhe.keygen()
     rlk = fhe.relinkey_gen(sk)
@@ -720,6 +887,7 @@ def main() -> int:
     out["multiply_relin_ms_n16384"] = multiply_n16384(1)
     out["multiply_relin_ms_n16384_omega2"] = multiply_n16384(2)
     out["bgv"] = bgv_ops()
+    out["bootstrap"] = bootstrap_ops()
     print(json.dumps(out))
     return 0
 

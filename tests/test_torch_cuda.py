@@ -21,6 +21,7 @@ from fhe_tpu_torch.ops import ntt as tntt
 from fhe_tpu_torch.ops import rns as trns
 from fhe_tpu_torch.params import SecurityParams, make_scheme_params
 from fhe_tpu_torch.scheme import bfv, bgv
+from fhe_tpu_torch.scheme import bootstrap as tbs
 from fhe_tpu_torch.scheme.context import make_context
 from fhe_tpu_torch.scheme.encoder import BatchEncoder
 from fhe_tpu_torch.scheme.types import GaloisKeys, RelinKeys, SecretKey
@@ -966,3 +967,35 @@ def test_bgv_on_card(dev):
     assert torch.equal(fhe.decrypt(low, sk).data.cpu(), bgv.decrypt(cpu, low_cpu, sk_cpu).data)
     assert fhe.estimate_noise_budget(prod, sk) == bgv.estimate_noise_budget(cpu, prod_cpu,
                                                                            sk_cpu)
+
+
+def test_bootstrap_on_card(dev):
+    """The bootstrapping pipeline at n = 256 (tests/test_bootstrap.py's
+    configuration): bootstrap_binary (2n + 1 launches of keyswitch_fused: two
+    external products per secret coefficient and the final key switch) and
+    bootstrap_binary_batch (keyswitch_fused_batch for the external products)
+    decode their bits and equal the CPU plain path bit for bit."""
+    fhe = FHE(poly_degree=256, log_q=120, lambda_=0, hamming_weight=16, seed=21, device=dev)
+    n = fhe.params.n
+    pk, sk = fhe.keygen()
+    bsk = fhe.make_bootstrap_key(sk)
+    ks = tbs.keyswitch_keygen(fhe.ctx, fhe.gen, sk, sk)
+    cts = [fhe.encrypt(fhe.encode_coeff([i % 2]), pk) for i in range(3)]
+    torch.cuda.synchronize()
+    ks_before = (ntt_cuda.keyswitch_fused.launches, ntt_cuda.keyswitch_fused_batch.launches)
+    out = tbs.bootstrap_binary(fhe.ctx, None, cts[1], sk, bsk, ks)
+    torch.cuda.synchronize()
+    assert (ntt_cuda.keyswitch_fused.launches - ks_before[0],
+            ntt_cuda.keyswitch_fused_batch.launches - ks_before[1]) == (2 * n + 1, 0)
+    outs = tbs.bootstrap_binary_batch(fhe.ctx, cts, bsk, ks)
+    assert ntt_cuda.keyswitch_fused_batch.launches - ks_before[1] == 2 * n
+    assert [int(fhe.decode_coeff(fhe.decrypt(o, sk))[0]) for o in [out] + outs] == [1, 0, 1, 0]
+    assert torch.equal(outs[1].data, out.data)
+    cpu = make_context(fhe.params, device="cpu")
+    sk_cpu = SecretKey(data=sk.data.cpu())
+    bsk_cpu = tbs.BootstrapKey(pos=bsk.pos.cpu(), neg=bsk.neg.cpu(), level=0)
+    to_cpu = lambda ct: ct.replace(data=ct.data.cpu())
+    out_cpu = tbs.bootstrap_binary(cpu, None, to_cpu(cts[1]), sk_cpu, bsk_cpu, ks.cpu())
+    assert torch.equal(out.data.cpu(), out_cpu.data) and out.noise_budget == out_cpu.noise_budget
+    outs_cpu = tbs.bootstrap_binary_batch(cpu, [to_cpu(c) for c in cts], bsk_cpu, ks.cpu())
+    assert all(torch.equal(x.data.cpu(), y.data) for x, y in zip(outs, outs_cpu))
