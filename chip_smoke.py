@@ -146,8 +146,35 @@ Phases, each printing its own lines:
      device ms of a CMUX gate and of its external product, single and
      batched, make_bootstrap_key's seconds and the key's bytes, and traces:
      the kernels per CMUX gate (a 16-step rotation against a 0-step one),
-     span and idle share.
-Phases 4 to 13 each zero every launch count just before their path and read
+     span and idle share;
+ 14. plain_ops: the plain twins of the JAX package's uint32 arithmetic
+     (ops/modmath.py: the wide product, Shoup with its lazy form, Barrett,
+     Montgomery, the powers, mul_mod_var, Fermat-16, neg_mod and
+     add_mod_tree), the rest of ops/poly.py, uniform_mod_t_host and
+     default_params on card tensors equal the same calls on the CPU (on
+     [3, n] words at n = 8192; mul_negacyclic at n = 64); the lazy Shoup
+     product stays in [0, 2p).  ntt_cuda.polymul_negacyclic at n = 8192,
+     k = 3 launches ntt_forward twice and ntt_inverse once and equals the
+     plain twin;
+ 15. mxu: the four-step int8 GEMM engine (ops/ntt_mxu.py, torch._int_mm on
+     the tensor cores) at the headline width: its forward and inverse at
+     [3, 1, n] and [3, 64, n] equal the CPU's and round-trip, its
+     polymul_negacyclic equals ntt_cuda.polymul_negacyclic (B1, B2);
+     FHE(use_mxu=True)'s multiply_no_relin and multiply equal the default
+     multiply's residues and decode [15, 60, 135, 240] for BFV and BGV;
+     one engine multiply launches fast_floor_fused (the FloorSK lane) and
+     keyswitch_fused once each and no tensor_product, bsk_branch_fused or
+     fast_bconv_sk_fused; n = 16384 (n1 = 128) for the forward and the
+     multiply; then forward_ntt_mxu_ms, forward_ntt_mxu_ms_batched (B = 64,
+     per row) and multiply_relin_ms_mxu_engine (bench.py's names) beside
+     ntt_forward's and the default multiply's device ms, and kernels per
+     call;
+ 16. examples: the five examples_torch/ scripts, each in a subprocess on
+     the card at its default degree, exit 0; their launches and wall times;
+ 17. fuzz: 24 circuits of scripts/fuzz_torch.py from seed 1000 on the card
+     all pass, and each final ciphertext equals a replay of its circuit on
+     the CPU plain path from the same keys and fresh ciphertexts.
+Phases 4 to 17 each zero every launch count just before their path and read
 them just after; each kernel of the path must have launched.  Phase 3 also
 runs fast_bconv_sk_fused with the digits lane at [5,3,n], [5,24,n],
 [10,3,n] and [10,24,n] (the multiply and multiply_batch at k = 3 and
@@ -182,8 +209,10 @@ n = 256 and 16384) and of ks_inner_batch / ks_inner_grouped (E = 8, C x E =
 off a 16-byte boundary, with a run of zeros in c0 and the digits; a
 sum_slots stage's B17 and B15 (E = 3, and at k8_omega's k = 8, kd = 4).
 The line before the last is {"kernels": [...]}, each kernel with its launches
-on its own path (phase 4 to 11), on the bgv path (bgv_launches) and on the
-bootstrap path (bootstrap_launches); the last line is
+on its own path (phase 4 to 11), on the bgv path (bgv_launches), on the
+bootstrap path (bootstrap_launches) and on the paths of phases 14 to 17
+(plain_ops_launches, mxu_launches, examples_launches, fuzz_launches); the
+last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; without
 a card the script exits 1 before printing any result.  Imports no JAX and
 nothing of fhe_tpu.
@@ -191,7 +220,9 @@ nothing of fhe_tpu.
 
 from __future__ import annotations
 
+import importlib.util
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -199,15 +230,18 @@ import sys
 import time
 import warnings
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
 from fhe_tpu_torch import FHE, primes
-from fhe_tpu_torch.ops import _build, decrypt_cuda, galois_cuda, ntt_cuda, rns_cuda
+from fhe_tpu_torch.ops import _build, decrypt_cuda, galois_cuda, ntt_cuda, ntt_mxu, rns_cuda
 from fhe_tpu_torch.ops import galois as plain_galois
+from fhe_tpu_torch.ops import modmath as mm
 from fhe_tpu_torch.ops import ntt as plain_ntt
-from fhe_tpu_torch.ops import rns, sampling
-from fhe_tpu_torch.params import SecurityParams, make_scheme_params
+from fhe_tpu_torch.ops import poly, rns, sampling
+from fhe_tpu_torch.params import SecurityParams, default_params, make_scheme_params
 from fhe_tpu_torch.scheme import bfv, bgv
 from fhe_tpu_torch.scheme import bootstrap
 from fhe_tpu_torch.scheme.context import make_context
@@ -215,6 +249,7 @@ from fhe_tpu_torch.scheme.types import (BootstrapKey, GaloisKeys, LWECiphertext,
                                         PublicKey, RelinKeys, SecretKey)
 from fhe_tpu_torch.utils import ubench
 
+ROOT = Path(__file__).resolve().parent
 N, LOG_Q, H = 8192, 90, 64
 BATCH = 8           # the serving batch (bench.py mul_b8 / rot_b8 / enc_b8 / dec_b8)
 C_HOIST = 4         # ciphertexts of the hoisted batch (bench.py rot_hoist_k8_b4)
@@ -2958,6 +2993,318 @@ def phase_bootstrap(gen: torch.Generator) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 14-17: the plain twins, the four-step engine, the examples, the fuzz
+# ---------------------------------------------------------------------------
+
+
+def same(card, plain) -> bool:
+    """A card result (a tensor, or a tuple of them) equals the CPU's bit for bit."""
+    if isinstance(card, tuple):
+        return len(card) == len(plain) and all(same(c, p) for c, p in zip(card, plain))
+    return card.dtype == plain.dtype and torch.equal(card.cpu(), plain)
+
+
+def twin_cases(gen: torch.Generator, qs) -> dict:
+    """Each uint32 twin of ops/modmath.py (and the rest of ops/poly.py) as a
+    function of card or CPU inputs, on [3, n] words: full 32-bit words for
+    the lazy inputs, residues with the edges 0 and p - 1 for the others."""
+    p, t_var = qs[0], 786433
+    words = lambda: torch.randint(0, 1 << 32, (3, N), generator=gen, device="cuda",
+                                  dtype=torch.int64)
+    res = lambda m: torch.randint(0, m, (3, N), generator=gen, device="cuda",
+                                  dtype=torch.int64)
+    x, y, a, b = words(), words(), res(p), res(p)
+    a[:, :2] = torch.tensor([0, p - 1], device="cuda")
+    b[:, :2] = p - 1
+    w = res(p)
+    w_sh = torch.div(w << 32, p, rounding_mode="floor")
+    av, bv, af, bf = res(t_var), res(t_var), res(65537), res(65537)
+    mu, two32 = mm.barrett_precompute(p), (1 << 32) % p
+    one_t, two32_t = (1 << 32) // t_var, (1 << 32) % t_var
+    two32_t_sh = mm.shoup_precompute(two32_t, t_var)
+    p_neg_inv = mm.montgomery_precompute(p)[0]
+    tb_card = plain_ntt.build_tables(64, primes.find_ntt_primes(64, 2), "cuda")
+    tb_cpu = plain_ntt.build_tables(64, tb_card.primes, "cpu")
+    poly_a = residues(gen, tb_card.primes, 2, 64)
+    poly_b = residues(gen, tb_card.primes, 2, 64)
+    raw2n = residues(gen, tb_card.primes, 2, 128)
+    chain = make_scheme_params(SecurityParams(poly_degree=N, log_q=LOG_Q, hamming_weight=H))
+    msc = {d: rns.make_mod_switch(chain.q_primes, d) for d in ("cuda", "cpu")}
+    x3 = residues(gen, chain.q_primes, 2)
+    tbs = {"cuda": tb_card, "cpu": tb_cpu}
+    return {
+        "umul32_wide": (lambda d: mm.umul32_wide(x.to(d), y.to(d))),
+        "umul32_hi": (lambda d: mm.umul32_hi(x.to(d), y.to(d))),
+        "neg_mod": (lambda d: mm.neg_mod(a.to(d), p)),
+        "mul_mod_shoup": (lambda d: mm.mul_mod_shoup(x.to(d), w.to(d), w_sh.to(d), p)),
+        "reduce_mod_shoup": (lambda d: mm.reduce_mod_shoup(x.to(d), p, (1 << 32) // p)),
+        "mul_mod_shoup_lazy": (lambda d: mm.mul_mod_shoup_lazy(x.to(d), w.to(d),
+                                                               w_sh.to(d), p)),
+        "add_mod_tree": (lambda d: mm.add_mod_tree(a.to(d), p, 0)),
+        "mul_mod_barrett": (lambda d: mm.mul_mod_barrett(a.to(d), b.to(d), p, mu)),
+        "reduce_u64_mod": (lambda d: mm.reduce_u64_mod(x.to(d), y.to(d), p, mu, two32)),
+        "barrett_reduce_u32": (lambda d: mm.barrett_reduce_u32(x.to(d), p, mu)),
+        "mul_mod_montgomery": (lambda d: mm.mul_mod_montgomery(a.to(d), b.to(d), p,
+                                                               p_neg_inv)),
+        "pow_mod": (lambda d: mm.pow_mod(a.to(d), p - 2, p, mu)),
+        "mul_mod_var": (lambda d: mm.mul_mod_var(av.to(d), bv.to(d), t_var, one_t, two32_t,
+                                                 two32_t_sh)),
+        "pow_mod_var": (lambda d: mm.pow_mod_var(av.to(d), t_var - 2, t_var, one_t, two32_t,
+                                                 two32_t_sh)),
+        "reduce_mod_fermat16": (lambda d: mm.reduce_mod_fermat16(x.to(d))),
+        "mul_mod_fermat16": (lambda d: mm.mul_mod_fermat16(af.to(d), bf.to(d))),
+        "poly.add_scalar": (lambda d: poly.add_scalar(poly_a.to(d), 99999, tbs[d])),
+        "poly.mul_ntt": (lambda d: poly.mul_ntt(poly_a.to(d), poly_b.to(d), tbs[d])),
+        "poly.mul_negacyclic": (lambda d: poly.mul_negacyclic(poly_a.to(d), poly_b.to(d),
+                                                              tbs[d])),
+        "poly.negacyclic_reduce": (lambda d: poly.negacyclic_reduce(raw2n.to(d), tbs[d])),
+        "poly.mod_switch": (lambda d: poly.mod_switch(x3.to(d), None, None, msc[d])),
+    }
+
+
+def phase_plain_ops(gen: torch.Generator) -> dict:
+    """The A18 twins on card tensors against the same calls on the CPU, and
+    ntt_cuda.polymul_negacyclic's launches and result at the headline width."""
+    prm = make_scheme_params(SecurityParams(poly_degree=N, log_q=LOG_Q, hamming_weight=H))
+    qs = prm.q_primes
+    reset_counts()
+    cases = twin_cases(gen, qs)
+    for name, fn in cases.items():
+        check(same(fn("cuda"), fn("cpu")), f"{name} on the card differs from the CPU")
+    lazy = cases["mul_mod_shoup_lazy"]("cuda")
+    check(bool((lazy < 2 * qs[0]).all()), "mul_mod_shoup_lazy left [0, 2p)")
+    check(bool((lazy >= qs[0]).any()), "mul_mod_shoup_lazy never returned a lazy value")
+    tb64 = plain_ntt.build_tables(64, primes.find_ntt_primes(64, 2), "cuda")
+    noisy = residues(gen, tb64.primes, 2, 64)
+    check(poly.estimate_noise(noisy, tb64) == poly.estimate_noise(
+        noisy.cpu(), plain_ntt.build_tables(64, tb64.primes, "cpu")),
+        "poly.estimate_noise on the card differs from the CPU")
+    ugen = torch.Generator(device="cuda").manual_seed(5)
+    u = sampling.uniform_mod_t_host(ugen, 65537, 2, N)
+    check(u.device.type == "cuda" and u.dtype == torch.int32 and tuple(u.shape) == (2, N)
+          and int(u.min()) >= 0 and int(u.max()) < 65537,
+          "uniform_mod_t_host: wrong device, dtype, shape or range")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # 4096 / 120 is below 128-bit security
+        check(default_params() == make_scheme_params(SecurityParams(poly_degree=4096,
+                                                                    log_q=120)),
+              "default_params differs from SecurityParams(4096, 120)")
+    tb, tb_cpu = plain_ntt.build_tables(N, qs, "cuda"), plain_ntt.build_tables(N, qs, "cpu")
+    a, b = residues(gen, qs, 2), residues(gen, qs, 2)
+    before = read_counts()
+    got = ntt_cuda.polymul_negacyclic(a, b, tb)
+    torch.cuda.synchronize()
+    one = {k: v - before[k] for k, v in read_counts().items() if v != before[k]}
+    check(one == {"ntt_forward": 2, "ntt_inverse": 1},
+          f"polymul_negacyclic launched {one}, expected ntt_forward 2, ntt_inverse 1")
+    check(same(got, plain_ntt.polymul_negacyclic(a.cpu(), b.cpu(), tb_cpu)),
+          "ntt_cuda.polymul_negacyclic differs from the plain twin")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print("phase plain_ops launches", json.dumps({k: v for k, v in launches.items() if v}))
+    print(f"phase plain_ops check: {len(cases)} twins, estimate_noise, uniform_mod_t_host and "
+          "default_params: card == CPU; polymul_negacyclic [3,2,8192] == plain twin with "
+          "ntt_forward x2, ntt_inverse x1")
+    print("phase plain_ops device_ms", json.dumps({
+        "polymul_negacyclic_3x2x8192": device_ms(lambda: ntt_cuda.polymul_negacyclic(a, b, tb)),
+        "mul_mod_barrett_3x8192": device_ms(lambda: cases["mul_mod_barrett"]("cuda")),
+        "mul_mod_shoup_3x8192": device_ms(lambda: cases["mul_mod_shoup"]("cuda"))}))
+    return launches
+
+
+def mxu_multiply_checks(fhe: FHE, fhe_m: FHE, vals, want) -> tuple:
+    """Keys of fhe, two encryptions, and multiply_no_relin and multiply of
+    both facades: the engine's residues equal the default's and decode."""
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    c1, c2 = (fhe.encrypt(fhe.encode(v), pk) for v in vals)
+    dec = lambda ct: [int(v) for v in fhe.decode(fhe.decrypt(ct, sk))[:len(want)]]
+    name = f"{fhe.scheme_name} n={fhe.params.n}"
+    m3, m3_m = fhe.multiply_no_relin(c1, c2), fhe_m.multiply_no_relin(c1, c2)
+    prod, prod_m = fhe.multiply(c1, c2, rlk), fhe_m.multiply(c1, c2, rlk)
+    check(torch.equal(m3.data, m3_m.data), f"{name}: the engine's multiply_no_relin differs")
+    check(torch.equal(prod.data, prod_m.data), f"{name}: the engine's multiply differs")
+    check(dec(m3_m) == want and dec(prod_m) == want,
+          f"{name}: the engine's products decoded {dec(m3_m)}, {dec(prod_m)}")
+    return c1, c2, rlk
+
+
+def phase_mxu(gen: torch.Generator) -> dict:
+    """The four-step engine at the headline width and at n = 16384: against
+    the CPU, against B1/B2, inside FHE(use_mxu=True)'s multiply of both
+    schemes; then bench.py's mxu times beside B1's and the default multiply's."""
+    fhe = FHE(poly_degree=N, log_q=LOG_Q, hamming_weight=H, seed=3, device="cuda")
+    fhe_m = FHE(fhe.params, seed=3, device="cuda", use_mxu=True)
+    qs = fhe.params.q_primes
+    tbm, tb = fhe_m.ctx.ntt_q_mxu, fhe.ctx.ntt_q
+    check((tbm.n1, tbm.n2) == (64, 128), f"n = 8192 split {tbm.n1} x {tbm.n2}")
+    tbm_cpu = ntt_mxu.build_mxu_tables(N, qs, device="cpu")
+    x1, x64 = residues(gen, qs, 1), residues(gen, qs, 64)
+    reset_counts()
+    for x in (x1, x64):
+        f = ntt_mxu.ntt_forward(x, tbm)
+        check(same(f, ntt_mxu.ntt_forward(x.cpu(), tbm_cpu)),
+              f"engine forward {list(x.shape)} differs from the CPU")
+        check(same(ntt_mxu.ntt_inverse(x, tbm), ntt_mxu.ntt_inverse(x.cpu(), tbm_cpu)),
+              f"engine inverse {list(x.shape)} differs from the CPU")
+        check(torch.equal(ntt_mxu.ntt_inverse(f, tbm), x),
+              f"engine round trip {list(x.shape)} differs")
+    a, b = residues(gen, qs, 2), residues(gen, qs, 2)
+    check(torch.equal(ntt_mxu.polymul_negacyclic(a, b, tbm),
+                      ntt_cuda.polymul_negacyclic(a, b, tb)),
+          "engine polymul_negacyclic differs from B1, B2's")
+    before = read_counts()
+    c1, c2, rlk = mxu_multiply_checks(fhe, fhe_m, ([5, 10, 15, 20], [3, 6, 9, 12]), PRODUCT)
+    gb = FHE(fhe.params, seed=1, scheme="bgv", device="cuda")
+    gb_m = FHE(fhe.params, seed=1, scheme="bgv", device="cuda", use_mxu=True)
+    g1, g2, grlk = mxu_multiply_checks(gb, gb_m, ([5, 10, 15, 20], [3, 6, 9, 12]), PRODUCT)
+    f16 = FHE(quiet_params(16384, LOG_Q), seed=4, device="cuda")
+    f16_m = FHE(f16.params, seed=4, device="cuda", use_mxu=True)
+    tbm16 = f16_m.ctx.ntt_q_mxu
+    check((tbm16.n1, tbm16.n2) == (128, 128), f"n = 16384 split {tbm16.n1} x {tbm16.n2}")
+    x16 = residues(gen, f16.params.q_primes, 1, 16384)
+    check(same(ntt_mxu.ntt_forward(x16, tbm16),
+               ntt_mxu.ntt_forward(x16.cpu(), ntt_mxu.build_mxu_tables(
+                   16384, f16.params.q_primes, device="cpu"))),
+          "engine forward at n = 16384 differs from the CPU")
+    mxu_multiply_checks(f16, f16_m, ([5, 10], [3, 6]), [15, 60])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print("phase mxu launches", json.dumps({k: v for k, v in launches.items() if v}))
+    mark = read_counts()
+    fhe_m.multiply(c1, c2, rlk)
+    torch.cuda.synchronize()
+    one = {k: v - mark[k] for k, v in read_counts().items() if v != mark[k]}
+    want = {"fast_floor_fused": 1, "keyswitch_fused": 1}
+    check(one == want, f"one engine multiply launched {one}, expected {want}")
+    print("phase mxu check: engine forward/inverse [3,1,8192], [3,64,8192] == CPU and round "
+          "trip; polymul == B1/B2's; FHE(use_mxu=True) multiply_no_relin and multiply == "
+          "default (BFV, BGV, n = 8192 and 16384), decoded; one multiply:", json.dumps(one))
+    fwd_mxu_1 = device_ms(lambda: ntt_mxu.ntt_forward(x1, tbm))
+    fwd_mxu_64 = device_ms(lambda: ntt_mxu.ntt_forward(x64, tbm))
+    fwd_b1_1 = device_ms(lambda: ntt_cuda.ntt_forward(x1, tb))
+    fwd_b1_64 = device_ms(lambda: ntt_cuda.ntt_forward(x64, tb))
+    mul = lambda f, c, d, r: (lambda: f.multiply(c, d, r))
+    times = {
+        "card": card_name(),
+        "forward_ntt_mxu_ms": fwd_mxu_1, "forward_ntt_ms": fwd_b1_1,
+        "forward_ntt_mxu_ms_batched": fwd_mxu_64 / 64, "forward_ntt_ms_batched": fwd_b1_64 / 64,
+        "forward_ntt_mxu_call_ms_b64": fwd_mxu_64, "forward_ntt_call_ms_b64": fwd_b1_64,
+        "inverse_ntt_mxu_ms": device_ms(lambda: ntt_mxu.ntt_inverse(x1, tbm)),
+        "forward_ntt_mxu_ms_n16384": device_ms(lambda: ntt_mxu.ntt_forward(x16, tbm16)),
+        "multiply_relin_ms_mxu_engine": device_ms(mul(fhe_m, c1, c2, rlk)),
+        "multiply_relin_ms": device_ms(mul(fhe, c1, c2, rlk)),
+        "multiply_relin_wall_ms_mxu_engine": wall_ms(mul(fhe_m, c1, c2, rlk)),
+        "multiply_relin_wall_ms": wall_ms(mul(fhe, c1, c2, rlk)),
+        "bgv_multiply_relin_ms_mxu_engine": device_ms(mul(gb_m, g1, g2, grlk)),
+        "bgv_multiply_relin_ms": device_ms(mul(gb, g1, g2, grlk)),
+    }
+    print("phase mxu times", json.dumps(times))
+    print_profiled("mxu", {"multiply_mxu_engine": mul(fhe_m, c1, c2, rlk),
+                           "multiply": mul(fhe, c1, c2, rlk),
+                           "ntt_forward_mxu": lambda: ntt_mxu.ntt_forward(x1, tbm),
+                           "ntt_forward": lambda: ntt_cuda.ntt_forward(x1, tb),
+                           "bgv_multiply_mxu_engine": mul(gb_m, g1, g2, grlk)})
+    print("phase mxu trace multiply_mxu_engine", json.dumps(trace_span(mul(fhe_m, c1, c2, rlk))))
+    return launches
+
+
+EXAMPLES = ("basic_encryption.py", "homomorphic_operations.py", "batch_processing.py",
+            "bgv_operations.py", "bootstrapping.py")
+# runs one example script as its own __main__ in a fresh process, then prints
+# that process's launch counts
+EXAMPLE_RUNNER = """\
+import json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.reset_counts()
+script = sys.argv[2]
+sys.argv = [script]
+try:
+    runpy.run_path(script, run_name="__main__")
+    rc = 0
+except SystemExit as e:
+    rc = e.code if isinstance(e.code, int) else int(e.code is not None)
+print("LAUNCHES " + json.dumps(chip_smoke.read_counts()))
+sys.exit(rc)
+"""
+
+
+def phase_examples() -> dict:
+    """Each examples_torch/ script in a subprocess on the card at its default
+    degree: exit 0; its launch counts (summed over the five) and wall time."""
+    env = {k: v for k, v in os.environ.items() if k != "FHE_EXAMPLE_POLY_DEGREE"}
+    env["FHE_EXAMPLE_DEVICE"] = "cuda"
+    launches = dict.fromkeys(KERNELS, 0)
+    walls = {}
+    for script in EXAMPLES:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", EXAMPLE_RUNNER, str(ROOT),
+                              str(ROOT / "examples_torch" / script)],
+                             capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+        walls[script] = time.perf_counter() - t0
+        check(res.returncode == 0, f"examples_torch/{script} exited {res.returncode}:\n"
+              f"{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+        counts = json.loads(res.stdout.rsplit("LAUNCHES ", 1)[1])
+        for name, c in counts.items():
+            launches[name] += c
+        print(f"phase examples {script}: exit 0, {walls[script]:.1f} s; last line: "
+              f"{res.stdout.split('LAUNCHES ')[0].strip().splitlines()[-1]}")
+    for name in ("ntt_forward", "ntt_inverse", "mul_by_ntt_operand", "decrypt_fused",
+                 "keyswitch_fused", "tensor_product", "bsk_branch_fused",
+                 "fast_bconv_sk_fused", "mul_by_ntt_operand_batch", "tensor_product_batch",
+                 "bsk_branch_fused_batch", "keyswitch_fused_batch"):
+        check(launches[name] > 0, f"{name} was never launched by the examples")
+    print("phase examples launches", json.dumps({k: v for k, v in launches.items() if v}))
+    print("phase examples wall_s", json.dumps(walls))
+    return launches
+
+
+def phase_fuzz() -> dict:
+    """24 circuits of scripts/fuzz_torch.py from seed 1000 on the card: each
+    passes, and its final ciphertext equals the replay of the circuit on the
+    CPU plain path from the same keys and fresh ciphertexts."""
+    spec = importlib.util.spec_from_file_location("fuzz_torch", ROOT / "scripts" / "fuzz_torch.py")
+    fuzz = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = fuzz          # its dataclasses look their module up
+    spec.loader.exec_module(fuzz)
+    t0 = time.perf_counter()
+    reset_counts()
+    runs = {}
+    for seed in range(1000, 1024):
+        ok, desc, record = fuzz.run_circuit(seed, "cuda")
+        print("phase fuzz", ("PASS " if ok else "FAIL ") + desc)
+        check(ok, f"fuzz circuit {seed} failed on the card: {desc}")
+        runs[seed] = record
+    torch.cuda.synchronize()
+    launches = read_counts()
+    card_s = time.perf_counter() - t0
+    for seed, record in runs.items():
+        cpu = fuzz.replay(seed, record, "cpu")
+        card = record.run.ct
+        check(cpu.ops == record.run.ops, f"fuzz circuit {seed}: the CPU replay ran {cpu.ops}")
+        check(torch.equal(card.data.cpu(), cpu.ct.data)
+              and (card.level, card.is_ntt_form, card.scale_t)
+              == (cpu.ct.level, cpu.ct.is_ntt_form, cpu.ct.scale_t),
+              f"fuzz circuit {seed}: the card's final ciphertext differs from the CPU replay")
+    for name in ("ntt_forward", "ntt_inverse", "mul_by_ntt_operand", "decrypt_fused",
+                 "keyswitch_fused", "keyswitch_fused_galois", "tensor_product",
+                 "tensor_product_lift", "fast_floor_fused", "automorphism_single"):
+        check(launches[name] > 0, f"{name} was never launched by the fuzz")
+    draws = [fuzz.draw(seed) for seed in runs]
+    print("phase fuzz launches", json.dumps({k: v for k, v in launches.items() if v}))
+    print(f"phase fuzz check: {len(runs)} circuits PASS on the card, card == CPU replay",
+          json.dumps({"schemes": sorted({d.scheme for d in draws}),
+                      "n": sorted({d.params.n for d in draws}),
+                      "log_q": sorted({d.log_q for d in draws}),
+                      "t": sorted({d.params.t for d in draws}),
+                      "ks_omega": sorted({d.params.security.ks_omega for d in draws}),
+                      "ops": sum(len(r.run.ops) for r in runs.values()),
+                      "card_s": card_s, "total_s": time.perf_counter() - t0}))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2975,7 +3322,9 @@ def main() -> int:
                 "serving": phase_serving(), "hoisted": phase_hoisted(),
                 "omega": phase_omega(), "leveled": phase_leveled(),
                 "small": phase_small(), "roofline": phase_roofline(gen),
-                "bgv": phase_bgv(), "bootstrap": phase_bootstrap(gen)}
+                "bgv": phase_bgv(), "bootstrap": phase_bootstrap(gen),
+                "plain_ops": phase_plain_ops(gen), "mxu": phase_mxu(gen),
+                "examples": phase_examples(), "fuzz": phase_fuzz()}
     rows = []
     for name, meta in KERNELS.items():
         r = results[name]
@@ -2984,6 +3333,8 @@ def main() -> int:
                      "launches": launches[meta["path"]][name],
                      "bgv_launches": launches["bgv"][name],
                      "bootstrap_launches": launches["bootstrap"][name],
+                     **{f"{path}_launches": launches[path][name]
+                        for path in ("plain_ops", "mxu", "examples", "fuzz")},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,

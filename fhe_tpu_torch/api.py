@@ -18,7 +18,9 @@ level.
     total = fhe.sum_slots(ct, gs)                                  # every slot: 6
 
 ``SecurityParams(ks_omega=2)`` (``FHE(..., ks_omega=2)``) groups two q
-primes per gadget digit in every key switch.
+primes per gadget digit in every key switch.  ``FHE(..., use_mxu=True)``
+runs the ciphertext multiply's tensor products on the four-step int8 GEMM
+engine (``ops/ntt_mxu.py``) instead of the NTT kernels: the same residues.
 
 ``FHE(..., scheme="bgv")`` runs the same calls on BGV (``scheme/bgv.py``):
 the plaintext in the low bits of the phase, t-scaled key and encryption
@@ -87,7 +89,8 @@ class FHE:
     down with that scheme's constants."""
 
     def __init__(self, params: SchemeParams | None = None, seed: int = 0,
-                 scheme: str = "bfv", device="cuda", **security_kw):
+                 scheme: str = "bfv", device="cuda", use_mxu: bool = False,
+                 **security_kw):
         if scheme not in ("bfv", "bgv"):
             raise ValueError(f"unknown scheme {scheme!r}; use 'bfv' or 'bgv'")
         if params is None:
@@ -95,7 +98,7 @@ class FHE:
         self.scheme_name = scheme
         self._scheme = bfv if scheme == "bfv" else bgv
         self.params = params
-        self.ctx: SchemeContext = make_context(params, device=device)
+        self.ctx: SchemeContext = make_context(params, device=device, use_mxu=use_mxu)
         self.device = self.ctx.device
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)

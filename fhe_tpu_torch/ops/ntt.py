@@ -213,6 +213,13 @@ def pointwise_mul(a: torch.Tensor, b: torch.Tensor,
     return mm.mul_mod(a, b, _p(tb, a.dim()))
 
 
+def polymul_negacyclic(a: torch.Tensor, b: torch.Tensor,
+                       tb: NTTTables) -> torch.Tensor:
+    """Negacyclic product of [k, batch, n] coefficient-domain residues:
+    forward transforms, the pointwise product, the inverse transform."""
+    return ntt_inverse(pointwise_mul(ntt_forward(a, tb), ntt_forward(b, tb), tb), tb)
+
+
 def mul_by_ntt_operand_batch(u: torch.Tensor, w_ntt: torch.Tensor,
                              tb: NTTTables) -> torch.Tensor:
     """INTT(NTT(u_b) ⊙ w_c) for B coefficient-domain polynomials u [k, B, n]

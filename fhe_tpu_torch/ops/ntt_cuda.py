@@ -1,6 +1,7 @@
 """NTT kernel wrappers — counterpart of ``fhe_tpu/ops/ntt_pallas.py``.
 
-``ntt_forward``, ``ntt_inverse``, ``mul_by_ntt_operand`` (and ``_batch``),
+``ntt_forward``, ``ntt_inverse`` (and ``polymul_negacyclic``, which composes
+them), ``mul_by_ntt_operand`` (and ``_batch``),
 ``tensor_product`` (and ``_batch``; the single one with its Lift lane, the
 n < 1024 multiply's products in q and in Bsk in one launch, with the lift
 q -> Bsk, rns_pallas.py's ``sm_mrq_fused``, folded in), ``keyswitch_fused``
@@ -347,6 +348,14 @@ def ntt_inverse(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
 
 
 ntt_inverse.launches = 0
+
+
+def polymul_negacyclic(a: torch.Tensor, b: torch.Tensor, tb: NTTTables) -> torch.Tensor:
+    """Negacyclic product of [k, batch, n] coefficient-domain residues, as
+    ntt_pallas.py's ``polymul_negacyclic`` composes it: ``ntt_forward`` of
+    each operand, the pointwise product (a torch op), one ``ntt_inverse``;
+    no kernel of its own.  CPU tensors take the plain transforms."""
+    return ntt_inverse(_ntt.pointwise_mul(ntt_forward(a, tb), ntt_forward(b, tb), tb), tb)
 
 
 def check_views(x: torch.Tensor, k: int, comps: int, n: int, device,

@@ -54,3 +54,10 @@ def ternary_rns(gen: torch.Generator, primes: torch.Tensor, batch: int, n: int,
         signs = torch.randint(0, 2, (h,), generator=gen, device=dev) * 2 - 1
         v[b, idx] = signs
     return small_signed_to_rns(v, primes)
+
+
+def uniform_mod_t_host(gen: torch.Generator, t: int, batch: int, n: int) -> torch.Tensor:
+    """Uniform plaintext coefficients in [0, t), [batch, n] int32 on the
+    generator's device (a test helper, as in the JAX package)."""
+    return torch.randint(0, int(t), (batch, n), generator=gen, device=gen.device,
+                         dtype=torch.int64).to(torch.int32)

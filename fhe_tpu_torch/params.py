@@ -129,3 +129,8 @@ def make_scheme_params(security: SecurityParams = SecurityParams()) -> SchemePar
                         q_primes=tuple(pool[:k]),
                         aux_primes=tuple(pool[k:k + l]),
                         m_sk=pool[k + l], gamma=gamma)
+
+
+def default_params(poly_degree: int = 4096, log_q: int = 120, **kw) -> SchemeParams:
+    """``make_scheme_params`` of ``SecurityParams(poly_degree, log_q, **kw)``."""
+    return make_scheme_params(SecurityParams(poly_degree=poly_degree, log_q=log_q, **kw))

@@ -48,6 +48,7 @@ import torch
 from ..ops import modmath as mm
 from ..ops import ntt as _ntt
 from ..ops import ntt_cuda
+from ..ops import ntt_mxu
 from ..ops import decrypt_cuda
 from ..ops import galois_cuda
 from ..ops import poly as _poly
@@ -522,6 +523,24 @@ def _keyswitch_budget(ctx: SchemeContext, log2_var: float, level: int) -> float:
     return _b_of(ctx, level, _noise.add(log2_var, _noise.keyswitch_add(ctx.params, level)))
 
 
+def _mxu_tensor_product(ctx: SchemeContext, x: torch.Tensor, y: torch.Tensor,
+                        level: int, base: str = "q") -> torch.Tensor:
+    """(c0, c1, c2) = x (x) y of [k, 2, n] coefficient-domain halves over
+    level L's q base or its Bsk base (``base="bsk"``) on the four-step
+    engine (``ops/ntt_mxu.py``; ``ctx.use_mxu``): both operands through one
+    forward call, the pointwise products, one inverse call; [k, 3, n], not
+    scaled by t.  A closed loop, so the engine's own NTT order never leaves
+    it.  BFV (both bases) and BGV (q) multiply through it."""
+    tbm = (ntt_mxu.slice_tables(ctx.ntt_q_mxu, ctx.k - level) if base == "q"
+           else ntt_mxu.slice_tables_last(ctx.ntt_bsk_mxu, ctx.bsk_counts[level]))
+    a0, a1, b0, b1 = ntt_mxu.ntt_forward(torch.cat([x, y], dim=1), tbm).unbind(1)
+    mul = lambda u, v: ntt_mxu.pointwise_mul(u, v, tbm)
+    # a0 b1 + a1 b0 mod p, summed exactly in int64
+    c1 = torch.remainder(a0.to(torch.int64) * b1 + a1.to(torch.int64) * b0,
+                         tbm.p.view(-1, 1)).to(torch.int32)
+    return ntt_mxu.ntt_inverse(torch.stack([mul(a0, b0), c1, mul(a1, b1)], dim=1), tbm)
+
+
 def _multiply_scaled(ctx: SchemeContext, a: Ciphertext, b: Ciphertext,
                      digits: bool) -> tuple[Ciphertext, torch.Tensor | None]:
     """``multiply_no_relin``, and with ``digits`` also the gadget digits
@@ -538,7 +557,17 @@ def _multiply_scaled(ctx: SchemeContext, a: Ciphertext, b: Ciphertext,
     tq, tbsk = ctx.mul_levels[level]
     smq, floor_c, sk = ctx.smq_levels[level], ctx.floor_levels[level], ctx.sk_levels[level]
     dig = _digit_consts(ctx, level) if digits else None
-    if ctx.n >= 1024:
+    if ctx.use_mxu:
+        # JAX's non-Pallas chain: the centred lift into Bsk, both tensor
+        # products on the engine, times t (t < every prime), then the floor
+        # and the conversion to q in one launch (fast_floor_fused with sk)
+        lift = _rns.sm_mrq(torch.cat([a.data, b.data], dim=1), smq)   # [kb_L, 4, n]
+        t = ctx.params.t
+        tx_q = mm.mul_mod(_mxu_tensor_product(ctx, a.data, b.data, level), t, _p3(tq))
+        tx_bsk = mm.mul_mod(_mxu_tensor_product(ctx, lift[:, :2], lift[:, 2:], level, "bsk"),
+                            t, _p3(tbsk))
+        out = rns_cuda.fast_floor_fused(tx_q, tx_bsk, floor_c, sk, dig)
+    elif ctx.n >= 1024:
         tx_q = ntt_cuda.tensor_product(a.data, b.data, tq)       # [k-L, 3, n]
         ab = torch.cat([a.data, b.data], dim=1)                  # [k-L, 4, n]
         floored = rns_cuda.bsk_branch_fused(ab, tx_q, smq, floor_c, tbsk)
@@ -564,7 +593,9 @@ def multiply_no_relin(ctx: SchemeContext, a: Ciphertext,
     product as three kernels, both products and the lift are one launch
     (tensor_product's Lift lane, reading a and b in place), then the floor
     and the conversion one more (fast_floor_fused with sk): the same
-    residues."""
+    residues.  With ``ctx.use_mxu`` the lift is ``rns.sm_mrq`` in torch ops,
+    both tensor products run on the four-step engine, and the floor and the
+    conversion are one fast_floor_fused launch, at any n."""
     return _multiply_scaled(ctx, a, b, digits=False)[0]
 
 
@@ -707,10 +738,13 @@ def multiply_batch(ctx: SchemeContext, cts_a: list, cts_b: list,
     The JAX package runs the Bsk branch here as vmapped jnp chains around
     tensor_product_batch, at every n, because XLA fused them well on the
     TPU; on the card each eager op is a launch, so the port runs the fused
-    kernel with a batch axis, which computes the same residues."""
+    kernel with a batch axis, which computes the same residues.  With
+    ``ctx.use_mxu`` it runs ``multiply`` per pair, as the JAX package does."""
     if len(cts_a) != len(cts_b) or not cts_a:
         raise ValueError("multiply_batch needs equal-length non-empty lists")
     level = _check_pairs(cts_a + cts_b, "multiply_batch")
+    if ctx.use_mxu:
+        return [multiply(ctx, a, b, rlk, keys_at_level) for a, b in zip(cts_a, cts_b)]
     batch, n = len(cts_a), ctx.n
     ab = torch.cat([torch.stack([to_coeff(ctx, a).data for a in cts_a]),
                     torch.stack([to_coeff(ctx, b).data for b in cts_b])],

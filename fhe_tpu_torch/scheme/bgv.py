@@ -242,7 +242,9 @@ def multiply_no_relin(ctx: SchemeContext, a: Ciphertext, b: Ciphertext) -> Ciphe
     """The plain tensor product mod q_L -> 3 components, no rescaling.
     Coefficient-domain operands go through one tensor_product launch on the
     level's plain q tables; two NTT-form operands skip the forward
-    transforms: pointwise products, then one ntt_inverse launch."""
+    transforms: pointwise products, then one ntt_inverse launch.  With
+    ``ctx.use_mxu`` the coefficient-domain product runs on the four-step
+    engine (``bfv._mxu_tensor_product``)."""
     _check_product(a, b)
     level = a.level
     tb = _tb(ctx, level)
@@ -253,6 +255,9 @@ def multiply_no_relin(ctx: SchemeContext, a: Ciphertext, b: Ciphertext) -> Ciphe
         c1 = mm.add_mod(_ntt.pointwise_mul(af[:, :1], bf[:, 1:], tb),
                         _ntt.pointwise_mul(af[:, 1:], bf[:, :1], tb), _p3(tb))
         data = _bfv._inv_q(ctx, torch.cat([c0, c1, c2], dim=1), level)
+    elif ctx.use_mxu:
+        data = _bfv._mxu_tensor_product(ctx, to_coeff(ctx, a).data, to_coeff(ctx, b).data,
+                                        level)
     else:
         data = ntt_cuda.tensor_product(to_coeff(ctx, a).data, to_coeff(ctx, b).data, tb)
     return Ciphertext(data=data, level=level, is_ntt_form=False,
@@ -279,12 +284,13 @@ def multiply_batch(ctx: SchemeContext, cts_a: list, cts_b: list, rlk: RelinKeys,
     tensor_product_batch launch on the plain q tables, the gadget digits of
     the B c2 rows, one keyswitch_fused_batch launch and one add_mod.
     Element i equals multiply(cts_a[i], cts_b[i], rlk) bit for bit, budget
-    and scale_t included.  One pair, mixed levels or an NTT-form operand
-    fall back to multiply per pair, as in the JAX package."""
+    and scale_t included.  One pair, mixed levels, an NTT-form operand or
+    ``ctx.use_mxu`` fall back to multiply per pair, as in the JAX package."""
     if len(cts_a) != len(cts_b) or not cts_a:
         raise ValueError("multiply_batch needs equal-length non-empty lists")
     level = cts_a[0].level
-    if len(cts_a) == 1 or any(ct.level != level or ct.is_ntt_form for ct in cts_a + cts_b):
+    if (ctx.use_mxu or len(cts_a) == 1
+            or any(ct.level != level or ct.is_ntt_form for ct in cts_a + cts_b)):
         return [multiply(ctx, a, b, rlk, keys_at_level) for a, b in zip(cts_a, cts_b)]
     for a, b in zip(cts_a, cts_b):
         _check_product(a, b)

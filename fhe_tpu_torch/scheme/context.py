@@ -7,7 +7,8 @@ context holds the decryption and Δ constants, the relinearization digit
 constants, the BEHZ multiply constants (SmMRq, FastFloor,
 Shenoy-Kumaresan) for the level's Bsk base, the grouped gadget weights,
 BGV's exact centred reduction q_L -> {t}, and (for L < k - 1) the
-modulus-switch constants that drop q_{k-1-L}, BFV's and BGV's.  The
+modulus-switch constants that drop q_{k-1-L}, BFV's and BGV's.  With
+``use_mxu`` it also holds the four-step engine's tables.  The
 level's NTT and multiply tables are zero-copy row views of the level-0
 tables: its first k - L q primes, and the last ``bsk_counts[L]`` Bsk
 primes, m_sk last.  The Galois gather tables are not fields: the
@@ -28,6 +29,7 @@ import torch
 from .. import primes as _primes
 from ..ops import modmath as mm
 from ..ops import ntt as _ntt
+from ..ops import ntt_mxu as _ntt_mxu
 from ..ops import rns as _rns
 from ..params import SchemeParams, SecurityParams, make_scheme_params
 
@@ -58,6 +60,11 @@ class SchemeContext:
     # modulus switch, level L -> L + 1
     bgv_dec_levels: tuple[_rns.SmMRqConsts, ...]
     bgv_mod_switch: tuple[_rns.BGVModSwitchConsts, ...]
+    # the four-step engine's tables (ops/ntt_mxu.py) of the q and Bsk bases,
+    # level 0 (a level's are row views), or None: with them the multiply's
+    # tensor products run on the engine (use_mxu)
+    ntt_q_mxu: _ntt_mxu.MXUNTTTables | None = None
+    ntt_bsk_mxu: _ntt_mxu.MXUNTTTables | None = None
 
     @property
     def k(self) -> int:
@@ -70,6 +77,10 @@ class SchemeContext:
     @property
     def device(self) -> torch.device:
         return self.ntt_q.device
+
+    @property
+    def use_mxu(self) -> bool:
+        return self.ntt_q_mxu is not None
 
     # level 0's entries under their level-0 names
     @property
@@ -220,8 +231,11 @@ def level_aux_count(params: SchemeParams, level: int) -> int:
 
 
 def make_context(params: SchemeParams | None = None, device="cuda",
-                 **security_kw) -> SchemeContext:
-    """Build the constants on ``device`` (default the card)."""
+                 use_mxu: bool = False, **security_kw) -> SchemeContext:
+    """Build the constants on ``device`` (default the card).  ``use_mxu``
+    routes the ciphertext multiply's tensor products through the four-step
+    int8 GEMM engine (``ops/ntt_mxu.py``) and builds its tables; the JAX
+    package keeps it an explicit opt-in, as here."""
     dev = mm.resolve_device(device)
     if params is None:
         params = make_scheme_params(SecurityParams(**security_kw))
@@ -258,5 +272,10 @@ def make_context(params: SchemeParams | None = None, device="cuda",
         if len(chain) >= 2:
             lv["mod_switch"].append(_rns.make_mod_switch(chain, dev))
             lv["bgv_mod_switch"].append(_rns.make_bgv_mod_switch(chain, params.t, dev))
-    return SchemeContext(params=params, ntt_q=ntt_q,
+    mxu = {}
+    if use_mxu:
+        mxu = dict(ntt_q_mxu=_ntt_mxu.build_mxu_tables(params.n, params.q_primes, device=dev),
+                   ntt_bsk_mxu=_ntt_mxu.build_mxu_tables(params.n, params.bsk_primes,
+                                                         device=dev))
+    return SchemeContext(params=params, ntt_q=ntt_q, **mxu,
                          **{f: tuple(v) for f, v in lv.items()})

@@ -44,12 +44,17 @@ _CLS_TO_TAG = {cls: tag for tag, (cls, _) in _TYPES.items()}
 def _params_to_meta(params: SchemeParams) -> dict:
     return {
         "type": "SchemeParams",
-        "security": dataclasses.asdict(params.security),
+        "security": dataclasses_asdict(params.security),
         "q_primes": list(params.q_primes),
         "aux_primes": list(params.aux_primes),
         "m_sk": params.m_sk, "gamma": params.gamma,
         "m_tilde": params.m_tilde, "n": params.n, "t": params.t,
     }
+
+
+def dataclasses_asdict(obj) -> dict:
+    """``dataclasses.asdict`` under the JAX package's helper name."""
+    return dataclasses.asdict(obj)
 
 
 def _params_from_meta(meta: dict) -> SchemeParams:

@@ -3,7 +3,7 @@
 one NVIDIA card, for comparing two trees of the port (a parent and a change)
 within one run on the card:
 
-    python3 scripts/torch_ab.py [TREE] [--lanes | --bootstrap | --host]
+    python3 scripts/torch_ab.py [TREE] [--lanes | --bootstrap | --host | --mxu]
 
 TREE (default: the checkout this script lies in) is the root of a checkout
 whose fhe_tpu_torch package is imported, and whose kernels are built, for
@@ -111,7 +111,15 @@ With --lanes it prints only the rotations' device ms and traces and
 galois_lanes, for a design A/B of the lanes across trees (in turns); with
 --bootstrap only the bootstrap entry; with --host only the wall and device
 ms of the headline multiply, rotate_rows and sum_slots and the context
-build times with and without the native library (host_main).  The
+build times with and without the native library (host_main); with --mxu
+only the mxu entry (mxu_main): the four-step int8 GEMM engine
+(ops/ntt_mxu.py) against ntt_forward and the default multiply at the
+headline configuration, under bench.py's names: forward_ntt_mxu_ms
+([3,1,n]), forward_ntt_mxu_ms_batched ([3,64,n], per row),
+multiply_relin_ms_mxu_engine (FHE(use_mxu=True)'s multiply, device and wall
+ms), each beside ntt_forward's or the default multiply's, BGV's multiply
+both ways, and traces (kernels per call, span, idle share) of both
+multiplies; the engine's numbers are null for a tree without it.  The
 timing methods are those of chip_smoke.py (device_ms, wall_ms).  Imports
 no JAX and nothing of fhe_tpu.
 """
@@ -135,6 +143,7 @@ LANES_ONLY = "--lanes" in sys.argv[1:]
 BOOTSTRAP_ONLY = "--bootstrap" in sys.argv[1:]
 HOST_ONLY = "--host" in sys.argv[1:]
 CONTEXT_BUILD = "--context-build" in sys.argv[1:]
+MXU_ONLY = "--mxu" in sys.argv[1:]
 sys.path.insert(0, str(TREE.resolve()))
 
 from fhe_tpu_torch import FHE, primes  # noqa: E402
@@ -735,6 +744,51 @@ def host_main(card: str) -> int:
     return 0
 
 
+def mxu_main(card: str) -> int:
+    """--mxu: the engine's forward at B = 1 and 64 and FHE(use_mxu=True)'s
+    multiply (BFV and BGV) beside ntt_forward and the default multiply, all
+    from this one process; the engine's entries are None for a tree that
+    lacks ops/ntt_mxu.py."""
+    try:
+        from fhe_tpu_torch.ops import ntt_mxu
+    except ImportError:
+        ntt_mxu = None
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    out = {"card": card, "tree": str(TREE)}
+    for scheme, seed in (("bfv", 3), ("bgv", 1)):
+        fhe = FHE(poly_degree=N, log_q=LOG_Q, hamming_weight=H, seed=seed, scheme=scheme,
+                  device="cuda")
+        pk, sk = fhe.keygen()
+        rlk = fhe.relinkey_gen(sk)
+        a, b = (fhe.encrypt(fhe.encode(v), pk) for v in ([5, 10, 15, 20], [3, 6, 9, 12]))
+        x1, x64 = residues(gen, fhe.params.q_primes, 1), residues(gen, fhe.params.q_primes, 64)
+        mul = lambda f: (lambda: f.multiply(a, b, rlk))
+        entry = {"multiply_relin_ms": device_ms(mul(fhe)),
+                 "multiply_relin_wall_ms": wall_ms(mul(fhe)), "trace_multiply": trace(mul(fhe))}
+        if scheme == "bfv":
+            tb = fhe.ctx.ntt_q
+            entry["forward_ntt_ms"] = device_ms(lambda: ntt_cuda.ntt_forward(x1, tb))
+            entry["forward_ntt_ms_batched"] = device_ms(
+                lambda: ntt_cuda.ntt_forward(x64, tb)) / 64
+        engine = None
+        if ntt_mxu is not None:
+            fm = FHE(fhe.params, seed=seed, scheme=scheme, device="cuda", use_mxu=True)
+            if not torch.equal(fm.multiply(a, b, rlk).data, fhe.multiply(a, b, rlk).data):
+                raise RuntimeError(f"{scheme}: the engine's multiply differs from the default")
+            engine = {"multiply_relin_ms_mxu_engine": device_ms(mul(fm)),
+                      "multiply_relin_wall_ms_mxu_engine": wall_ms(mul(fm)),
+                      "trace_multiply_mxu_engine": trace(mul(fm))}
+            if scheme == "bfv":
+                tbm = fm.ctx.ntt_q_mxu
+                engine["forward_ntt_mxu_ms"] = device_ms(lambda: ntt_mxu.ntt_forward(x1, tbm))
+                engine["forward_ntt_mxu_ms_batched"] = device_ms(
+                    lambda: ntt_mxu.ntt_forward(x64, tbm)) / 64
+                engine["trace_forward_ntt_mxu"] = trace(lambda: ntt_mxu.ntt_forward(x1, tbm))
+        out[scheme] = {**entry, "engine": engine}
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_ab: no CUDA device", file=sys.stderr)
@@ -749,6 +803,8 @@ def main() -> int:
         return host_main(card)
     if LANES_ONLY:
         return lanes_main(card)
+    if MXU_ONLY:
+        return mxu_main(card)
     if BOOTSTRAP_ONLY:
         print(json.dumps({"card": card, "tree": str(TREE), "bootstrap": bootstrap_ops()}))
         return 0

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from fhe_tpu_torch import FHE, primes
-from fhe_tpu_torch.ops import decrypt_cuda, galois_cuda, ntt_cuda, rns_cuda
+from fhe_tpu_torch.ops import decrypt_cuda, galois_cuda, ntt_cuda, ntt_mxu, rns_cuda
 from fhe_tpu_torch.ops import galois as tgalois
 from fhe_tpu_torch.ops import ntt as tntt
 from fhe_tpu_torch.ops import rns as trns
@@ -999,3 +999,54 @@ def test_bootstrap_on_card(dev):
     assert torch.equal(out.data.cpu(), out_cpu.data) and out.noise_budget == out_cpu.noise_budget
     outs_cpu = tbs.bootstrap_binary_batch(cpu, [to_cpu(c) for c in cts], bsk_cpu, ks.cpu())
     assert all(torch.equal(x.data.cpu(), y.data) for x, y in zip(outs, outs_cpu))
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_polymul_negacyclic_on_card(dev, batch):
+    """ntt_cuda.polymul_negacyclic (ntt_forward twice, ntt_inverse once)
+    equals the plain twin on the same inputs."""
+    qs = _params().q_primes
+    tb = tntt.build_tables(N, qs, dev)
+    a, b = _residues(qs, batch, dev), _residues(qs, batch, dev)
+    fwd, inv = ntt_cuda.ntt_forward.launches, ntt_cuda.ntt_inverse.launches
+    got = ntt_cuda.polymul_negacyclic(a, b, tb)
+    assert (ntt_cuda.ntt_forward.launches - fwd, ntt_cuda.ntt_inverse.launches - inv) == (2, 1)
+    assert torch.equal(got, tntt.polymul_negacyclic(a, b, tb))
+
+
+@pytest.mark.parametrize("n,batch", [(256, 2), (N, 1), (N, 16), (16384, 1)])
+def test_ntt_mxu_engine_on_card(dev, n, batch):
+    """The four-step engine (torch._int_mm on the card) equals its CPU run,
+    round-trips, and its polymul equals ntt_cuda.polymul_negacyclic."""
+    qs = primes.find_ntt_primes(n, 3)
+    tbm = ntt_mxu.build_mxu_tables(n, qs, device=dev)
+    tbm_cpu = ntt_mxu.build_mxu_tables(n, qs, device="cpu")
+    x, y = _residues(qs, batch, dev, n), _residues(qs, batch, dev, n)
+    f = ntt_mxu.ntt_forward(x, tbm)
+    assert torch.equal(f.cpu(), ntt_mxu.ntt_forward(x.cpu(), tbm_cpu))
+    assert torch.equal(ntt_mxu.ntt_inverse(x, tbm).cpu(), ntt_mxu.ntt_inverse(x.cpu(), tbm_cpu))
+    assert torch.equal(ntt_mxu.ntt_inverse(f, tbm), x)
+    tb = tntt.build_tables(n, qs, dev)
+    assert torch.equal(ntt_mxu.polymul_negacyclic(x, y, tbm),
+                       ntt_cuda.polymul_negacyclic(x, y, tb))
+
+
+@pytest.mark.parametrize("scheme", ["bfv", "bgv"])
+def test_mxu_multiply_on_card(dev, scheme):
+    """FHE(use_mxu=True)'s multiply equals the default multiply's residues on
+    the card and decodes; one BFV multiply launches the FloorSK lane and the
+    key switch once each and no other conversion or product kernel."""
+    fhe = FHE(_params(), seed=3, scheme=scheme, device=dev)
+    fm = FHE(fhe.params, seed=3, scheme=scheme, device=dev, use_mxu=True)
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    a, b = (fhe.encrypt(fhe.encode(v), pk) for v in ([5, 10, 15, 20], [3, 6, 9, 12]))
+    want = fhe.multiply(a, b, rlk)
+    counters = (rns_cuda.fast_floor_fused, ntt_cuda.keyswitch_fused, ntt_cuda.tensor_product,
+                rns_cuda.bsk_branch_fused, rns_cuda.fast_bconv_sk_fused)
+    before = [f.launches for f in counters]
+    got = fm.multiply(a, b, rlk)
+    launched = [f.launches - b0 for f, b0 in zip(counters, before)]
+    assert torch.equal(got.data, want.data)
+    assert [int(v) for v in fm.decode(fm.decrypt(got, sk))[:4]] == [15, 60, 135, 240]
+    assert launched == ([1, 1, 0, 0, 0] if scheme == "bfv" else [0, 1, 0, 0, 0])
