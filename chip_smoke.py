@@ -173,9 +173,28 @@ Phases, each printing its own lines:
      the card at its default degree, exit 0; their launches and wall times;
  17. fuzz: 24 circuits of scripts/fuzz_torch.py from seed 1000 on the card
      all pass, and each final ciphertext equals a replay of its circuit on
-     the CPU plain path from the same keys and fresh ciphertexts.
-Phases 4 to 17 each zero every launch count just before their path and read
-them just after; each kernel of the path must have launched.  Phase 3 also
+     the CPU plain path from the same keys and fresh ciphertexts;
+ 18. parallel: fhe_tpu_torch/parallel/ in spawned worlds whose ranks all
+     share the one card (PARALLEL_WORLDS; the kernels built before any rank
+     starts): gloo worlds of 2 and 4 ranks run __graft_entry__.py's
+     dryrun_multichip steps at n = 256, k = max(2, P) (the rns layout
+     through ShardedFHE, the coeff polymul, dp add and multiply_batch, the
+     explicit multiply_relin_shardmap and multiply_relin_coeff_sharded),
+     each equal to the card's single-device result and decoding
+     [28, 40, 54]; multiply_relin_shardmap at the headline width over a
+     gloo world of 3 and an NCCL world of 1, and at k8 (log_q = 218, k = 8,
+     ks_omega = 1) over 4, each equal to the card's single-device multiply,
+     one call launching tensor_product twice and keyswitch_fused once per
+     rank and nothing else; multiply_relin_coeff_sharded at n = 32768,
+     log_q = 90, lambda_ = 0, h = 16 over a gloo world of 8, equal on every
+     rank to the CPU plain multiply of rank 0's keys and ciphertexts and
+     decoded there to [28, 40, 54] (the card's single-device multiply and
+     decrypt raise at this n).  Then each world's wall ms per sharded call
+     (P processes sharing one card: no multi-GPU scaling), its five
+     all-gathers alone, and kernels per call.
+Phases 4 to 18 each zero every launch count just before their path and read
+them just after (phase 18 in every rank, summed); each kernel of the path
+must have launched.  Phase 3 also
 runs fast_bconv_sk_fused with the digits lane at [5,3,n], [5,24,n],
 [10,3,n] and [10,24,n] (the multiply and multiply_batch at k = 3 and
 k = 8), without digits, and on rows off an 8-byte boundary; the
@@ -210,8 +229,9 @@ off a 16-byte boundary, with a run of zeros in c0 and the digits; a
 sum_slots stage's B17 and B15 (E = 3, and at k8_omega's k = 8, kd = 4).
 The line before the last is {"kernels": [...]}, each kernel with its launches
 on its own path (phase 4 to 11), on the bgv path (bgv_launches), on the
-bootstrap path (bootstrap_launches) and on the paths of phases 14 to 17
-(plain_ops_launches, mxu_launches, examples_launches, fuzz_launches); the
+bootstrap path (bootstrap_launches) and on the paths of phases 14 to 18
+(plain_ops_launches, mxu_launches, examples_launches, fuzz_launches,
+parallel_launches); the
 last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; without
 a card the script exits 1 before printing any result.  Imports no JAX and
@@ -3305,6 +3325,269 @@ def phase_fuzz() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# parallel: the sharded multiplies (fhe_tpu_torch/parallel/) in spawned worlds
+# ---------------------------------------------------------------------------
+
+DRYRUN_N = 256                  # __graft_entry__.dryrun_multichip's shapes
+PARALLEL_REPS = 5
+
+
+def dryrun_params(k: int):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return make_scheme_params(SecurityParams(poly_degree=DRYRUN_N, log_q=30 * k,
+                                                 hamming_weight=16))
+
+
+def coeff32768_params():
+    """tests/test_parallel.py:168-189's largest shape: n = 32768, log_q = 90
+    (k = 3), lambda_ = 0, h = 16."""
+    return make_scheme_params(SecurityParams(poly_degree=32768, log_q=90, lambda_=0,
+                                             hamming_weight=16))
+
+
+def sharded_wall_ms(fn) -> float:
+    """Median wall ms of fn() over PARALLEL_REPS calls after a warm-up, each
+    ending in a synchronise; every rank of the world calls it together."""
+    fn()
+    times = []
+    for _ in range(PARALLEL_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _pair(fhe: FHE, vals_a, vals_b):
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    return pk, sk, rlk, fhe.encrypt(fhe.encode(vals_a), pk), fhe.encrypt(fhe.encode(vals_b), pk)
+
+
+def _dryrun_rank(world: int) -> dict:
+    """dryrun_multichip's steps at n = 256, k = max(2, P): the rns layout
+    through ShardedFHE, the coeff polymul, dp add and multiply_batch, the
+    explicit multiply and the coefficient-sharded one; each held against the
+    card's single-device result."""
+    from fhe_tpu_torch.parallel import distributed_ntt as dntt
+    from fhe_tpu_torch.parallel import mesh as pmesh
+    from fhe_tpu_torch.parallel import shard_scheme
+    from fhe_tpu_torch.parallel.sharded import ShardedFHE, shard_batch
+    k = max(2, world)
+    fhe = FHE(dryrun_params(k), seed=0, device="cuda")
+    check(fhe.params.k == k, f"dryrun: expected k = {k}, got {fhe.params.k}")
+    pk, sk, rlk, a, b = _pair(fhe, [4, 5, 6], [7, 8, 9])
+    want = bfv.multiply(fhe.ctx, a, b, rlk)
+    dec = lambda data: [int(v) for v in fhe.decode(fhe.decrypt(a.replace(data=data), sk))[:3]]
+    mesh = pmesh.make_mesh({"rns": world})
+    cmesh = pmesh.make_mesh({"coeff": world})
+    dmesh = pmesh.make_mesh({"dp": world})
+    reset_counts()
+    sf = ShardedFHE(fhe, mesh)
+    outs = {"rns": sf.multiply(sf.shard(a), sf.shard(b), sf.shard(rlk)).data,
+            "explicit": shard_scheme.multiply_relin_shardmap(fhe.ctx, a, b, rlk, mesh).data}
+    ps = primes.find_ntt_primes(DRYRUN_N, 2)
+    tb = plain_ntt.build_tables(DRYRUN_N, ps, "cuda")
+    x = torch.stack([torch.arange(DRYRUN_N, device="cuda") % p for p in ps])[:, None]
+    x = x.to(torch.int32)
+    poly = dntt.make_distributed_polymul(cmesh, tb, DRYRUN_N)(x, x)
+    stacks = [shard_batch(dmesh, torch.stack([c.data] * world)) for c in (a, b)]
+    mine = [pmesh.rns_sharding(dmesh, 4, "dp").local(s) for s in stacks]
+    doubled = pmesh.assemble(torch.stack([bfv.add(fhe.ctx, a.replace(data=d), a.replace(data=d)).data
+                                          for d in mine[0]]), dmesh, "dp")
+    prods = bfv.multiply_batch(fhe.ctx, [a.replace(data=d) for d in mine[0]],
+                               [b.replace(data=d) for d in mine[1]], rlk)
+    dp_mul = pmesh.assemble(torch.stack([o.data for o in prods]), dmesh, "dp")
+    if world & (world - 1) == 0:
+        outs["coeff_sharded"] = dntt.multiply_relin_coeff_sharded(fhe.ctx, a, b, rlk, cmesh).data
+    torch.cuda.synchronize()
+    launches = read_counts()
+    checks = {name: torch.equal(d, want.data) and dec(d) == [28, 40, 54]
+              for name, d in outs.items()}
+    checks["coeff_polymul"] = torch.equal(poly, ntt_cuda.polymul_negacyclic(x, x, tb))
+    checks["dp_add"] = all(dec(d) == [8, 10, 12] for d in doubled)
+    checks["dp_multiply_batch"] = all(torch.equal(d, want.data) and dec(d) == [28, 40, 54]
+                                      for d in dp_mul)
+    return {"checks": checks, "launches": launches}
+
+
+def _full_rank(world: int, prm, what: str) -> dict:
+    """multiply_relin_shardmap at full width over the world against the
+    card's single-device multiply: the kernels one sharded multiply launches
+    on this rank, then wall ms per call of both (and, on a coeff axis of a
+    power of two, the coefficient-sharded multiply's)."""
+    from fhe_tpu_torch.parallel import distributed_ntt as dntt
+    from fhe_tpu_torch.parallel import mesh as pmesh
+    from fhe_tpu_torch.parallel import shard_scheme
+    from fhe_tpu_torch.parallel.sharded import ShardedFHE
+    fhe = FHE(prm, seed=1, device="cuda")
+    pk, sk, rlk, a, b = _pair(fhe, [5, 10, 15, 20], [3, 6, 9, 12])
+    want = bfv.multiply(fhe.ctx, a, b, rlk)
+    mesh = pmesh.make_mesh({"rns": world})
+    reset_counts()
+    pmesh.reset_collective_counts()
+    out = shard_scheme.multiply_relin_shardmap(fhe.ctx, a, b, rlk, mesh)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    res = {"launches": launches, "collectives": pmesh.collective_counts(),
+           "checks": {what: torch.equal(out.data, want.data)
+                      and [int(v) for v in fhe.decode(fhe.decrypt(out, sk))[:4]] == PRODUCT}}
+    sf = ShardedFHE(fhe, mesh)
+    res["checks"]["sharded_fhe"] = torch.equal(sf.multiply(a, b, rlk).data, want.data)
+    sharded = lambda: shard_scheme.multiply_relin_shardmap(fhe.ctx, a, b, rlk, mesh)
+    single = lambda: bfv.multiply(fhe.ctx, a, b, rlk)
+    # the multiply's five all-gathers alone, at its shapes: the collectives'
+    # share of its wall time
+    kl, kbl = fhe.params.k // world, shard_scheme.build_plan(fhe.ctx, world)["kb_pad"] // world
+    bufs = [torch.zeros(shape, dtype=torch.int32, device="cuda") for shape in
+            ((kl, 4, fhe.params.n), (kl, 3, fhe.params.n), (kbl, 3, fhe.params.n),
+             (kl, fhe.params.n), (kl, 2, fhe.params.n))]
+    gathers = lambda: [pmesh.all_gather(x, mesh, "rns") for x in bufs]
+    res["wall_ms"] = {"sharded": sharded_wall_ms(sharded), "single": sharded_wall_ms(single),
+                      "gathers_alone": sharded_wall_ms(gathers)}
+    res["kernels_per_call"] = {"sharded": len(profiled_kernels(sharded)),
+                               "single": len(profiled_kernels(single))}
+    if world & (world - 1) == 0:
+        cmesh = pmesh.make_mesh({"coeff": world})
+        fn = lambda: dntt.multiply_relin_coeff_sharded(fhe.ctx, a, b, rlk, cmesh)
+        res["checks"]["coeff_sharded"] = torch.equal(fn().data, want.data)
+        res["wall_ms"]["coeff_sharded"] = sharded_wall_ms(fn)
+    return res
+
+
+def _coeff32768_rank(world: int) -> dict:
+    """multiply_relin_coeff_sharded at n = 32768 over the world (keys and
+    ciphertexts made on the card: B1 and B3 run at this n); rank 0 returns
+    the state for the CPU plain multiply and decrypt in the parent, where
+    the card's single-device multiply and decrypt raise."""
+    from fhe_tpu_torch import convert
+    from fhe_tpu_torch.parallel import distributed_ntt as dntt
+    from fhe_tpu_torch.parallel import mesh as pmesh
+    fhe = FHE(coeff32768_params(), seed=11, device="cuda")
+    pk, sk, rlk, a, b = _pair(fhe, [4, 5, 6], [7, 8, 9])
+    cmesh = pmesh.make_mesh({"coeff": world})
+    reset_counts()
+    pmesh.reset_collective_counts()
+    out = dntt.multiply_relin_coeff_sharded(fhe.ctx, a, b, rlk, cmesh)
+    torch.cuda.synchronize()
+    res = {"launches": read_counts(), "collectives": pmesh.collective_counts(),
+           "out": convert.to_numpy(out), "budget": out.noise_budget,
+           "wall_ms": {"coeff_sharded": sharded_wall_ms(
+               lambda: dntt.multiply_relin_coeff_sharded(fhe.ctx, a, b, rlk, cmesh))}}
+    if torch.distributed.get_rank() == 0:
+        res["state"] = {name: convert.to_numpy(x) for name, x in
+                        (("sk", sk), ("rlk", rlk), ("a", a), ("b", b))}
+        res["budgets"] = (a.noise_budget, b.noise_budget)
+    return res
+
+
+def parallel_rank(case: str, world: int) -> dict:
+    """One rank of a world of the parallel phase (launch.start runs it in
+    every rank).  Builds nothing: the parent built the kernels."""
+    torch.cuda.set_device(0)
+    if case == "dryrun":
+        return _dryrun_rank(world)
+    if case == "headline":
+        return _full_rank(world, quiet_params(N, LOG_Q), "headline")
+    if case == "k8":
+        return {"dryrun": _dryrun_rank(world), "k8": _full_rank(world, params_leveled(), "k8")}
+    if case == "coeff32768":
+        return _coeff32768_rank(world)
+    raise ValueError(f"unknown parallel case {case!r}")
+
+
+# (world, backend, case): the dryrun shapes at P = 2 and 4, the headline
+# width over 3 ranks, k8 over 4, n = 32768 over 8 coefficient blocks, and
+# the NCCL world of one rank at the headline width
+PARALLEL_WORLDS = ((2, "gloo", "dryrun"), (4, "gloo", "k8"), (3, "gloo", "headline"),
+                   (8, "gloo", "coeff32768"), (1, "nccl", "headline"))
+
+
+def check_coeff32768_on_cpu(results: list) -> list:
+    """The n = 32768 product of every rank equals the CPU plain multiply of
+    rank 0's state and decodes [28, 40, 54] through the CPU decrypt;
+    returns the decoded slots."""
+    from fhe_tpu_torch import convert
+    from fhe_tpu_torch.scheme.encoder import BatchEncoder
+    st = results[0]["state"]
+    prm = coeff32768_params()
+    cpu = make_context(prm, device="cpu")
+    a, b = (convert.ciphertext_from_numpy(st[x], noise_budget=nb, device="cpu")
+            for x, nb in zip("ab", results[0]["budgets"]))
+    want = bfv.multiply(cpu, a, b, convert.relin_keys_from_numpy(st["rlk"], device="cpu"))
+    check(all(np.array_equal(r["out"], convert.to_numpy(want)) for r in results),
+          "n=32768 coefficient-sharded multiply differs from the CPU plain multiply")
+    sk = SecretKey(data=torch.from_numpy(st["sk"].astype(np.int32)))
+    decoded = [int(v) for v in BatchEncoder(prm, "cpu").decode(bfv.decrypt(cpu, want, sk))[:3]]
+    check(decoded == [28, 40, 54], f"n=32768 coefficient-sharded product decoded {decoded}")
+    return decoded
+
+
+def phase_parallel() -> dict:
+    """The sharded multiplies of fhe_tpu_torch/parallel/ in spawned worlds,
+    every rank on the one card (PARALLEL_WORLDS): gloo worlds (CUDA
+    tensors staged through the host for each collective) and an NCCL world
+    of one rank.  Each rank zeroes the launch counts just before its path
+    and reads them just after; the phase's launches are the sums over every
+    rank.  These runs prove the sharded algorithms with the kernels on the
+    card; P processes share one card, so their times measure no multi-GPU
+    scaling."""
+    from fhe_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+    _build.load_all()          # built before any rank starts: no rank runs nvcc
+    launches = dict.fromkeys(KERNELS, 0)
+    for world, backend, case in PARALLEL_WORLDS:
+        ts = time.perf_counter()
+        results = launch.start(parallel_rank, world, backend, args=(case, world)).wait(timeout=300)
+        seconds = time.perf_counter() - ts
+        parts = {"k8": ("dryrun", "k8")}.get(case, (None,))
+        for res in results:
+            for part in parts:
+                r = res if part is None else res[part]
+                failed = sorted(name for name, ok in r.get("checks", {}).items() if not ok)
+                check(not failed, f"parallel {case} (P = {world}, {backend}): {failed} differ "
+                      "from the card's single-device result or decode wrong")
+                for name, c in r["launches"].items():
+                    launches[name] += c
+        label = f"P = {world} process{'es' if world > 1 else ''} sharing one card through {backend}"
+        for part in parts:
+            r0 = results[0] if part is None else results[0][part]
+            what = part or case
+            if what in ("headline", "k8"):
+                per_rank = [(res if part is None else res[part])["launches"] for res in results]
+                for lr in per_rank:
+                    check(lr["tensor_product"] == 2 and lr["keyswitch_fused"] == 1
+                          and sum(lr.values()) == 3,
+                          f"parallel {what}: one sharded multiply launched "
+                          f"{ {k: v for k, v in lr.items() if v} } on a rank")
+                print(f"phase parallel {what} launches per rank of one sharded multiply",
+                      json.dumps({k: v for k, v in per_rank[0].items() if v}),
+                      "collectives", json.dumps(r0["collectives"]))
+            if what == "coeff32768":
+                decoded = check_coeff32768_on_cpu(results)
+                check(sum(r0["launches"].values()) == 0,
+                      "the coefficient-sharded multiply launched a kernel")
+                print(f"phase parallel coeff32768 check: every rank's product == the CPU plain "
+                      f"multiply, decoded on the CPU {decoded}; collectives per rank",
+                      json.dumps(r0["collectives"]))
+            if "wall_ms" in r0:
+                print(f"phase parallel {what} wall_ms per call ({label})",
+                      json.dumps(r0["wall_ms"]))
+            if "kernels_per_call" in r0:
+                print(f"phase parallel {what} profiler kernels_per_call",
+                      json.dumps(r0["kernels_per_call"]))
+            if r0.get("checks"):
+                print(f"phase parallel {what} check ({label}): "
+                      + ", ".join(sorted(r0["checks"])) + " == the card's single-device result")
+        print(f"phase parallel world P = {world} ({backend}, {case}): {seconds:.1f} s")
+    print("phase parallel launches", json.dumps({k: v for k, v in launches.items() if v}))
+    print(f"phase parallel seconds {time.perf_counter() - t0:.1f}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3324,7 +3607,8 @@ def main() -> int:
                 "small": phase_small(), "roofline": phase_roofline(gen),
                 "bgv": phase_bgv(), "bootstrap": phase_bootstrap(gen),
                 "plain_ops": phase_plain_ops(gen), "mxu": phase_mxu(gen),
-                "examples": phase_examples(), "fuzz": phase_fuzz()}
+                "examples": phase_examples(), "fuzz": phase_fuzz(),
+                "parallel": phase_parallel()}
     rows = []
     for name, meta in KERNELS.items():
         r = results[name]
@@ -3334,7 +3618,7 @@ def main() -> int:
                      "bgv_launches": launches["bgv"][name],
                      "bootstrap_launches": launches["bootstrap"][name],
                      **{f"{path}_launches": launches[path][name]
-                        for path in ("plain_ops", "mxu", "examples", "fuzz")},
+                        for path in ("plain_ops", "mxu", "examples", "fuzz", "parallel")},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,

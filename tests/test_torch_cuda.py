@@ -15,10 +15,11 @@ import pytest
 import torch
 
 from fhe_tpu_torch import FHE, primes
-from fhe_tpu_torch.ops import decrypt_cuda, galois_cuda, ntt_cuda, ntt_mxu, rns_cuda
+from fhe_tpu_torch.ops import _build, decrypt_cuda, galois_cuda, ntt_cuda, ntt_mxu, rns_cuda
 from fhe_tpu_torch.ops import galois as tgalois
 from fhe_tpu_torch.ops import ntt as tntt
 from fhe_tpu_torch.ops import rns as trns
+from fhe_tpu_torch.parallel import launch
 from fhe_tpu_torch.params import SecurityParams, make_scheme_params
 from fhe_tpu_torch.scheme import bfv, bgv
 from fhe_tpu_torch.scheme import bootstrap as tbs
@@ -26,6 +27,8 @@ from fhe_tpu_torch.scheme.context import make_context
 from fhe_tpu_torch.scheme.encoder import BatchEncoder
 from fhe_tpu_torch.scheme.types import GaloisKeys, RelinKeys, SecretKey
 from fhe_tpu_torch.utils import ubench
+
+import torch_ranks
 
 pytestmark = pytest.mark.cuda
 
@@ -1050,3 +1053,22 @@ def test_mxu_multiply_on_card(dev, scheme):
     assert torch.equal(got.data, want.data)
     assert [int(v) for v in fm.decode(fm.decrypt(got, sk))[:4]] == [15, 60, 135, 240]
     assert launched == ([1, 1, 0, 0, 0] if scheme == "bfv" else [0, 1, 0, 0, 0])
+
+
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+def test_sharded_multiply_on_card(dev, tmp_path, backend, world):
+    """The rns-sharded multiply (fhe_tpu_torch.parallel.shard_scheme) and the
+    coefficient-sharded one on the card, in an NCCL world of one rank and a
+    gloo world of two ranks sharing the card, at n = 8192, k = 4: each
+    equals the card's single-device multiply on every rank and decodes, and
+    each rank launches tensor_product twice and keyswitch_fused once."""
+    kw = dict(poly_degree=N, log_q=120, hamming_weight=64)
+    make_context(make_scheme_params(SecurityParams(**kw)), device=dev)
+    _build.load_all()                  # the kernels are built before any rank starts
+    results = launch.start(torch_ranks.card_world, world, backend, args=(kw,),
+                           workdir=tmp_path).wait(timeout=300)
+    for res in results:
+        assert res["backend"] == backend and res["device"].startswith("cuda")
+        assert res["rns_equal"] and res["coeff_equal"]
+        assert res["rns_decoded"] == [28, 40, 54]
+        assert (res["tensor_product"], res["keyswitch_fused"]) == (2, 1)

@@ -16,7 +16,8 @@ def test_import_leaves_jax_and_fhe_tpu_unloaded():
     code = ("import sys, fhe_tpu_torch, fhe_tpu_torch.convert, "
             "fhe_tpu_torch.ops.decrypt_cuda, fhe_tpu_torch.ops.rns_cuda, "
             "fhe_tpu_torch.ops.galois_cuda, fhe_tpu_torch.utils.ubench, "
-            "fhe_tpu_torch.scheme.bgv\n"
+            "fhe_tpu_torch.scheme.bgv, fhe_tpu_torch.parallel, "
+            "fhe_tpu_torch.parallel.launch\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'fhe_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -46,10 +47,9 @@ PORT_MODULE = {"ntt_pallas": "ntt_cuda", "rns_pallas": "rns_cuda",
 TPU_ONLY = {"fhe_tpu.ops.ntt_pallas": {"PallasNTTTables", "build_pallas_tables",
                                        "from_tables", "slice_tables", "slice_tables_last"}}
 TPU_ONLY_KEYWORDS = {"use_pallas"}
-# parallel/ (A15) is the one module still to port; oracle.py is the
-# arbitrary-precision ground truth both packages' tests share, not a part
-# of either library to port
-NOT_PORTED = ("fhe_tpu.parallel", "fhe_tpu.oracle")
+# oracle.py is the arbitrary-precision ground truth both packages' tests
+# share, not a part of either library to port; every other module is ported
+NOT_PORTED = ("fhe_tpu.oracle",)
 
 
 def _public(mod) -> set:
@@ -64,8 +64,7 @@ def test_every_public_name_of_fhe_tpu_is_ported():
     fhe_tpu_torch, the Pallas modules' the *_cuda wrappers), each public
     function and class defined there exists in the port's module, but for
     the TPU-only names; and make_context and FHE take every keyword of
-    theirs but use_pallas.  parallel/ and oracle.py are the listed
-    exceptions."""
+    theirs but use_pallas.  oracle.py is the listed exception."""
     import importlib
     import inspect
     import pkgutil
