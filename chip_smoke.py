@@ -15,13 +15,26 @@ Phases, each printing its own lines:
      tensor_product, bsk_branch_fused, keyswitch_fused, decrypt_fused,
      ks_inner_batch / ks_inner_grouped and the batch forms: grid, cluster,
      CTAs, threads, shared memory) at
-     n = 8192 and 16384, and n = 16384 (the JAX bench's g_n16384,
+     n = 8192, 16384 and 32768, and n = 16384 (the JAX bench's g_n16384,
      log_q = 90, k = 3, seed 4): the multiply at ks_omega = 1 and 2 decodes
      [15, 60], equals the CPU plain path and launched each of its kernels,
-     with its device and wall ms; and n = 32768 (the bench's g_n32768, seed
-     5): ntt_forward equals its plain twin, forward_ntt_ms_n32768, and so
-     does ntt_inverse on the same rows (its device ms a check, not a bench
-     metric);
+     with its device and wall ms; and n = 32768 (phase n32768): the bench's
+     g_n32768 (seed 5): ntt_forward equals its plain twin,
+     forward_ntt_ms_n32768, and so does ntt_inverse on the same rows (its
+     device ms a check, not a bench metric); then at
+     tests/test_parallel.py:168-189's configuration (log_q = 90, k = 3,
+     kb = 5, kd = 3, lambda_ = 0, h = 16, seed 11) B4/B11 and B5 (single and
+     B = 2, a half row per CTA), B7/B12 (classic, Galois and prereduced
+     lanes, single and B = 2, the wide form: partials in global scratch)
+     and B8 (the wide form: accumulators in global scratch) equal their
+     plain twins, with device ms and bounds; the BFV path through the facade
+     with the counts zeroed (keygen, relin and Galois keys, encrypt,
+     multiply, rotate_rows by 1, multiply_batch and rotate_rows_batch at
+     B = 2, decrypt) decodes [28, 40, 54] and launches each of those
+     kernels (`n32768_launches` in the kernels line); the card equals the
+     CPU plain path for encrypt_from_noise, multiply, rotate_rows, decrypt
+     and BGV's multiply; multiply_relin_ms_n32768 and rotate_rows_ms_n32768
+     (device and wall ms);
   4. slice: the linear-ops main path through the FHE facade at n = 8192,
      log_q = 90 (k = 3), h = 64: keygen, encode, encrypt, add, add_plain and
      the 8-term resident plaintext multiply-accumulate, then decrypt and
@@ -187,14 +200,14 @@ Phases, each printing its own lines:
      one call launching tensor_product twice and keyswitch_fused once per
      rank and nothing else; multiply_relin_coeff_sharded at n = 32768,
      log_q = 90, lambda_ = 0, h = 16 over a gloo world of 8, equal on every
-     rank to the CPU plain multiply of rank 0's keys and ciphertexts and
-     decoded there to [28, 40, 54] (the card's single-device multiply and
-     decrypt raise at this n).  Then each world's wall ms per sharded call
+     rank to the card's single-device multiply and to the CPU plain
+     multiply of rank 0's keys and ciphertexts, each decoded to
+     [28, 40, 54] by its own decrypt.  Then each world's wall ms per sharded call
      (P processes sharing one card: no multi-GPU scaling), its five
      all-gathers alone, and kernels per call.
-Phases 4 to 18 each zero every launch count just before their path and read
-them just after (phase 18 in every rank, summed); each kernel of the path
-must have launched.  Phase 3 also
+Phase 3's n32768 path and phases 4 to 18 each zero every launch count just
+before their path and read them just after (phase 18 in every rank,
+summed); each kernel of the path must have launched.  Phase 3 also
 runs fast_bconv_sk_fused with the digits lane at [5,3,n], [5,24,n],
 [10,3,n] and [10,24,n] (the multiply and multiply_batch at k = 3 and
 k = 8), without digits, and on rows off an 8-byte boundary; the
@@ -731,6 +744,13 @@ def params_small():
                                              hamming_weight=32))
 
 
+def coeff32768_params():
+    """tests/test_parallel.py:168-189's largest shape: n = 32768, log_q = 90
+    (k = 3, kb = 5, kd = 3), lambda_ = 0, h = 16."""
+    return make_scheme_params(SecurityParams(poly_degree=32768, log_q=90, lambda_=0,
+                                             hamming_weight=16))
+
+
 def chain_input(gen: torch.Generator, ctx) -> tuple[torch.Tensor, tuple]:
     """The JAX bench's roofline input: a [256, 8192] block below the first q
     prime p, and (w, w_sh, p, mu) with w = psi_br[0, 1]."""
@@ -937,6 +957,28 @@ def print_profiled(phase: str, ops: dict) -> None:
     first = next(iter(names))
     print(f"phase {phase} profiler {first} kernels",
           json.dumps([name[:48] for name in names[first]]))
+
+
+def run_cases(cases: list, tag: str) -> dict:
+    """Each case's kernel call against its plain call on the same inputs
+    (max_abs_err 0), then both device times and the bound of its work; one
+    line per case after ``tag``.  Returns each kernel's first row, its
+    max_abs_err the largest over its cases."""
+    results = {}
+    for name, label, kern, plain, work in cases:
+        got, want = flat(kern()), flat(plain())
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
+        check(got.shape == want.shape and err == 0,
+              f"{name} {label}: kernel differs from its plain version (max err {err})")
+        ms, plain_ms = device_ms(kern), device_ms(plain)
+        b_ms, b_by = bound(*work)
+        row = {"shape": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by}
+        print(tag, name, json.dumps(row))
+        results.setdefault(name, row)          # the first shape goes in the table
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    return results
 
 
 def phase_kernels(gen: torch.Generator) -> dict:
@@ -1199,20 +1241,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
                       lambda v=variant: ubench.modmul_chain(x_m, *consts, 64, v),
                       lambda v=variant: ubench.modmul_chain_plain(x_m, *consts, 64, v),
                       chain_work(x_m.numel(), 64, variant)))
-    results = {}
-    for name, label, kern, plain, work in cases:
-        got, want = flat(kern()), flat(plain())
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
-        check(got.shape == want.shape and err == 0,
-              f"{name} {label}: kernel differs from its plain version (max err {err})")
-        ms, plain_ms = device_ms(kern), device_ms(plain)
-        b_ms, b_by = bound(*work)
-        row = {"shape": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by}
-        print("phase kernel", name, json.dumps(row))
-        results.setdefault(name, row)          # the first shape goes in the table
-        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    results = run_cases(cases, "phase kernel")
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout
@@ -1590,9 +1619,10 @@ def phase_geometry() -> None:
     (n = 8192, k = 3, kb = 5; c = 2 operand rows; kd = 3; B = 8; keygen's
     three rows; the hoisted rotations' 8 elements and their batch's 4 x 8;
     keyswitch_fused's Galois lane and a sum_slots stage's 3 elements) and at
-    n = 16384; keyswitch_fused at k = 8 (kd = 8, and the prereduced kd = 4),
-    ntt_forward and ntt_inverse at n = 32768."""
-    for n in (N, 16384):
+    n = 16384 and 32768 (B4/B11 and B5 with a half row, B7/B12 and B8 in
+    their wide form); keyswitch_fused at k = 8 (kd = 8, and the prereduced
+    kd = 4)."""
+    for n in (N, 16384, 32768):
         for name, geo in (("ntt_forward", ntt_cuda.ntt_forward_geometry(n, 3)),
                           ("ntt_forward keygen", ntt_cuda.ntt_forward_geometry(n, 3, 3)),
                           ("ntt_inverse", ntt_cuda.ntt_inverse_geometry(n, 3)),
@@ -1623,9 +1653,7 @@ def phase_geometry() -> None:
             print(f"phase geometry {name} n={n}", json.dumps(geo))
     for name, n, geo in (("keyswitch_fused k=8 kd=8", N, ntt_cuda.keyswitch_geometry(N, 8, 8)),
                          ("keyswitch_fused_prereduced k=8 kd=4", N,
-                          ntt_cuda.keyswitch_geometry(N, 8, 4)),
-                         ("ntt_forward", 32768, ntt_cuda.ntt_forward_geometry(32768, 3)),
-                         ("ntt_inverse", 32768, ntt_cuda.ntt_inverse_geometry(32768, 3))):
+                          ntt_cuda.keyswitch_geometry(N, 8, 4))):
         print(f"phase geometry {name} n={n}", json.dumps(geo))
 
 
@@ -1672,13 +1700,54 @@ def phase_n16384() -> None:
     print("phase n16384", json.dumps(times))
 
 
-def phase_n32768() -> None:
-    """n = 32768, the JAX bench's g_n32768 (bench.py:932-945): 3 NTT primes
-    for n = 32768, one [1, 32768] row per prime from numpy seed 5; ntt_forward
-    equals its plain twin on the card, and its device and wall ms print under
-    the bench's metric name beside the card's name and power limit.  Then
-    ntt_inverse of the same rows equals its plain twin (a check, with its
-    device ms, not a bench metric)."""
+# the kernels whose n <= 16384 layout does not fit a block at n = 32768,
+# each of which the n = 32768 path must launch
+N32768_KERNELS = ("tensor_product", "tensor_product_batch", "bsk_branch_fused",
+                  "bsk_branch_fused_batch", "keyswitch_fused", "keyswitch_fused_galois",
+                  "keyswitch_fused_batch", "keyswitch_fused_batch_galois", "decrypt_fused")
+VALS_32K = ([4, 5, 6], [7, 8, 9])
+PRODUCT_32K = [28, 40, 54]
+
+
+def n32768_cases(gen: torch.Generator, ctx) -> list:
+    """B4/B11, B5 (single and B = 2), B7/B12 (classic, Galois and
+    prereduced lanes) and B8 at n = 32768 on ctx's tables (k = 3, kb = 5,
+    kd = 3): the wide and half-row launch shapes."""
+    k, n = ctx.k, ctx.n
+    s = residues(gen, ctx.ntt_q.primes, 1, n)
+    ct = residues(gen, ctx.ntt_q.primes, 2, n)
+    dec_args = (ct[:, 0:1], ct[:, 1:2], s, ctx.ntt_q, ctx.dec_levels[0])
+    return [product_case(gen, ctx, 0, "mul", None, "n=32768"),
+            product_case(gen, ctx, 0, "mul", 2, "n=32768"),
+            bsk_case(gen, ctx, 0, None, "n=32768"),
+            bsk_case(gen, ctx, 0, 2, "n=32768"),
+            keyswitch_case(gen, ctx, 0, 3, None, False, "n=32768"),
+            keyswitch_case(gen, ctx, 0, 3, 2, False, "n=32768"),
+            keyswitch_case(gen, ctx, 0, 2, None, True, "n=32768"),
+            keyswitch_galois_case(gen, ctx, 0, None, "n=32768"),
+            keyswitch_galois_case(gen, ctx, 0, None, "n=32768", g=2 * n - 1),
+            keyswitch_galois_case(gen, ctx, 0, 2, "n=32768"),
+            ("decrypt_fused", f"n=32768: views of [{k},2,{n}], t={ctx.params.t}",
+             lambda: decrypt_cuda.decrypt_fused(*dec_args),
+             lambda: decrypt_cuda.decrypt_fused_plain(*dec_args), decrypt_work(k, 1, n)),
+            decrypt_case(gen, ctx.params, 0, 2, "n=32768")]
+
+
+def phase_n32768(gen: torch.Generator) -> dict:
+    """n = 32768.  The JAX bench's g_n32768 (bench.py:932-945): 3 NTT primes
+    for n = 32768, one [1, 32768] row per prime from numpy seed 5;
+    ntt_forward equals its plain twin on the card, and its device and wall
+    ms print under the bench's metric name beside the card's name and power
+    limit; ntt_inverse of the same rows too (a check, with its device ms).
+    Then tests/test_parallel.py:168-189's configuration (log_q = 90, k = 3,
+    lambda_ = 0, h = 16, seed 11): B4/B11, B5, B7/B12 (both lanes) and B8
+    against their plain twins on the card at its shapes, with their device
+    ms; the BFV path through the facade (keygen, relin and Galois keys,
+    encrypt, multiply, rotate_rows by 1, multiply_batch and rotate_rows_batch
+    at B = 2, decrypt, decode; [28, 40, 54]), every kernel of N32768_KERNELS
+    launched; the card == the CPU plain path for encrypt_from_noise,
+    multiply, rotate_rows and decrypt from the same keys and noise, and for
+    BGV's multiply.  Returns the path's launches."""
     ps = primes.find_ntt_primes(32768, 3)
     x = np.stack([np.random.default_rng(5).integers(0, p, (1, 32768), dtype=np.uint32)
                   for p in ps])
@@ -1694,7 +1763,91 @@ def phase_n32768() -> None:
         times[metric] = {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
     print("phase n32768 check: ntt_forward and ntt_inverse of g_n32768's [3,1,32768] equal "
           "their plain twins")
+
+    prm = coeff32768_params()
+    n = prm.n
+    fhe = FHE(prm, seed=11, device="cuda")
+    check((prm.k, fhe.ctx.mul_tables[1].k) == (3, 5), f"expected k = 3, kb = 5 at n={n}")
+    run_cases(n32768_cases(gen, fhe.ctx), "phase n32768 kernel")
+    dec = lambda ct, count=3: [int(v) for v in fhe.decode(fhe.decrypt(ct, sk))[:count]]
+    reset_counts()
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    gk = fhe.galoiskey_gen(sk, elements=(3,))
+    ca, cb = (fhe.encrypt(fhe.encode(v), pk) for v in VALS_32K)
+    prod = fhe.multiply(ca, cb, rlk)
+    rot = fhe.rotate_rows(ca, 1, gk)
+    prods = fhe.multiply_batch([ca, cb], [cb, ca], rlk)
+    rots = fhe.rotate_rows_batch([ca, cb], 1, gk)
+    decoded = {"multiply": dec(prod), "rotate_rows": dec(rot, n // 2),
+               "multiply_batch": [dec(c) for c in prods],
+               "rotate_rows_batch": [dec(c, n // 2) for c in rots]}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print("phase n32768 launches", json.dumps({k: v for k, v in launches.items() if v}))
+    for name in N32768_KERNELS:
+        check(launches[name] > 0, f"{name} was never launched on the n=32768 path")
+    check(decoded["multiply"] == PRODUCT_32K, f"n=32768 multiply decoded {decoded['multiply']}")
+    check(decoded["rotate_rows"] == rotated(VALS_32K[0], 1, n),
+          f"n=32768 rotate_rows by 1 decoded {decoded['rotate_rows'][:6]}")
+    check(decoded["multiply_batch"] == [PRODUCT_32K] * 2,
+          f"n=32768 multiply_batch decoded {decoded['multiply_batch']}")
+    check(decoded["rotate_rows_batch"] == [rotated(v, 1, n) for v in VALS_32K],
+          "n=32768 rotate_rows_batch decoded wrong")
+    check(all(torch.equal(c.data, prod.data) for c in prods)
+          and torch.equal(rots[0].data, rot.data),
+          "n=32768 multiply_batch or rotate_rows_batch differs from the single op")
+
+    # the same keys and noise through the plain versions on the CPU
+    cpu = make_context(prm, device="cpu")
+    sk_cpu, pk_cpu = SecretKey(data=sk.data.cpu()), PublicKey(data=pk.data.cpu())
+    rlk_cpu = RelinKeys(data=rlk.data.cpu())
+    gk_cpu = GaloisKeys(data={g: v.cpu() for g, v in gk.data.items()})
+    noise = torch.Generator(device="cuda").manual_seed(17)
+    qs = fhe.ctx.ntt_q.p
+    enc = {"cuda": [], "cpu": []}
+    for v in VALS_32K:
+        draws = (sampling.ternary_rns(noise, qs, 1, n, prm.security.hamming_weight),
+                 sampling.gaussian_rns(noise, qs, 3.2, 1, n),
+                 sampling.gaussian_rns(noise, qs, 3.2, 1, n))
+        pt = fhe.encode(v)
+        enc["cuda"].append(bfv.encrypt_from_noise(fhe.ctx, pk, pt, *draws))
+        enc["cpu"].append(bfv.encrypt_from_noise(cpu, pk_cpu, Plaintext(data=pt.data.cpu()),
+                                                 *(d.cpu() for d in draws)))
+    check(same_cts(enc["cuda"], enc["cpu"]), "n=32768 encrypt_from_noise: card != CPU")
+    prod_card = fhe.multiply(*enc["cuda"], rlk)
+    prod_cpu = bfv.multiply(cpu, *enc["cpu"], rlk_cpu)
+    check(same_cts([prod_card], [prod_cpu]), "n=32768 multiply: card != CPU plain path")
+    check(same_cts([fhe.rotate_rows(enc["cuda"][0], 1, gk)],
+                   [bfv.rotate_rows(cpu, enc["cpu"][0], 1, gk_cpu)]),
+          "n=32768 rotate_rows: card != CPU plain path")
+    plain_card, plain_cpu = fhe.decrypt(prod_card, sk), bfv.decrypt(cpu, prod_cpu, sk_cpu)
+    check(torch.equal(plain_card.data.cpu(), plain_cpu.data)
+          and [int(v) for v in fhe.decode(plain_card)[:3]] == PRODUCT_32K,
+          "n=32768 decrypt: card != CPU plain path, or wrong product")
+    # BGV's multiply at the same shape (B4, B7 and the plain q tables)
+    bfhe = FHE(prm, seed=11, scheme="bgv", device="cuda")
+    bcpu = make_context(prm, device="cpu")
+    bpk, bsk = bfhe.keygen()
+    brlk = bfhe.relinkey_gen(bsk)
+    ba, bb = (bfhe.encrypt(bfhe.encode(v), bpk) for v in VALS_32K)
+    bprod = bfhe.multiply(ba, bb, brlk)
+    to_cpu = lambda c: c.replace(data=c.data.cpu())
+    check(same_cts([bprod], [bgv.multiply(bcpu, to_cpu(ba), to_cpu(bb),
+                                          RelinKeys(data=brlk.data.cpu()))])
+          and [int(v) for v in bfhe.decode(bfhe.decrypt(bprod, bsk))[:3]] == PRODUCT_32K,
+          "n=32768 BGV multiply: card != CPU plain path, or wrong product")
+    print(f"phase n32768 check: n={n}, k=3, kb=5, kd=3; B4/B11, B5, B7/B12 (both lanes) and B8 "
+          f"== their plain twins; multiply, multiply_batch (B=2) and BGV's multiply decoded "
+          f"{PRODUCT_32K}, rotate_rows and rotate_rows_batch by 1 decoded; batch element "
+          "== the single op; card == CPU plain path for "
+          "encrypt_from_noise, multiply, rotate_rows, decrypt and BGV's multiply")
+    times["multiply_relin_ms_n32768"] = {"device_ms": device_ms(lambda: fhe.multiply(ca, cb, rlk)),
+                                         "wall_ms": wall_ms(lambda: fhe.multiply(ca, cb, rlk))}
+    times["rotate_rows_ms_n32768"] = {"device_ms": device_ms(lambda: fhe.rotate_rows(ca, 1, gk)),
+                                      "wall_ms": wall_ms(lambda: fhe.rotate_rows(ca, 1, gk))}
     print("phase n32768", json.dumps({"card": card_name(), **times}))
+    return launches
 
 
 def run_slice(fhe: FHE):
@@ -1874,9 +2027,9 @@ VALS_A = [[5 + i, 10 + i, 15 + i, 20 + i] for i in range(BATCH)]
 VALS_B = [[3, 6, 9, 12 + i] for i in range(BATCH)]
 
 
-def rotated(vals: list, steps: int) -> list:
+def rotated(vals: list, steps: int, n: int = N) -> list:
     """The first slot row of an encoding of vals after rotate_rows(steps)."""
-    row = vals + [0] * (N // 2 - len(vals))
+    row = vals + [0] * (n // 2 - len(vals))
     return row[steps:] + row[:steps]
 
 
@@ -3340,13 +3493,6 @@ def dryrun_params(k: int):
                                                  hamming_weight=16))
 
 
-def coeff32768_params():
-    """tests/test_parallel.py:168-189's largest shape: n = 32768, log_q = 90
-    (k = 3), lambda_ = 0, h = 16."""
-    return make_scheme_params(SecurityParams(poly_degree=32768, log_q=90, lambda_=0,
-                                             hamming_weight=16))
-
-
 def sharded_wall_ms(fn) -> float:
     """Median wall ms of fn() over PARALLEL_REPS calls after a warm-up, each
     ending in a synchronise; every rank of the world calls it together."""
@@ -3460,9 +3606,9 @@ def _full_rank(world: int, prm, what: str) -> dict:
 
 def _coeff32768_rank(world: int) -> dict:
     """multiply_relin_coeff_sharded at n = 32768 over the world (keys and
-    ciphertexts made on the card: B1 and B3 run at this n); rank 0 returns
-    the state for the CPU plain multiply and decrypt in the parent, where
-    the card's single-device multiply and decrypt raise."""
+    ciphertexts made on the card); rank 0 returns the state for the card's
+    single-device multiply and the CPU plain one, with their decrypts, in
+    the parent."""
     from fhe_tpu_torch import convert
     from fhe_tpu_torch.parallel import distributed_ntt as dntt
     from fhe_tpu_torch.parallel import mesh as pmesh
@@ -3506,24 +3652,29 @@ PARALLEL_WORLDS = ((2, "gloo", "dryrun"), (4, "gloo", "k8"), (3, "gloo", "headli
                    (8, "gloo", "coeff32768"), (1, "nccl", "headline"))
 
 
-def check_coeff32768_on_cpu(results: list) -> list:
-    """The n = 32768 product of every rank equals the CPU plain multiply of
-    rank 0's state and decodes [28, 40, 54] through the CPU decrypt;
-    returns the decoded slots."""
+def check_coeff32768(results: list) -> list:
+    """The n = 32768 product of every rank equals the single-device
+    multiply of rank 0's state on the card and the CPU plain multiply, and
+    decodes [28, 40, 54] through each one's decrypt; returns the decoded
+    slots."""
     from fhe_tpu_torch import convert
     from fhe_tpu_torch.scheme.encoder import BatchEncoder
     st = results[0]["state"]
     prm = coeff32768_params()
-    cpu = make_context(prm, device="cpu")
-    a, b = (convert.ciphertext_from_numpy(st[x], noise_budget=nb, device="cpu")
-            for x, nb in zip("ab", results[0]["budgets"]))
-    want = bfv.multiply(cpu, a, b, convert.relin_keys_from_numpy(st["rlk"], device="cpu"))
-    check(all(np.array_equal(r["out"], convert.to_numpy(want)) for r in results),
-          "n=32768 coefficient-sharded multiply differs from the CPU plain multiply")
-    sk = SecretKey(data=torch.from_numpy(st["sk"].astype(np.int32)))
-    decoded = [int(v) for v in BatchEncoder(prm, "cpu").decode(bfv.decrypt(cpu, want, sk))[:3]]
-    check(decoded == [28, 40, 54], f"n=32768 coefficient-sharded product decoded {decoded}")
-    return decoded
+    decoded = {}
+    for dev, what in (("cuda", "the card's single-device"), ("cpu", "the CPU plain")):
+        ctx = make_context(prm, device=dev)
+        a, b = (convert.ciphertext_from_numpy(st[x], noise_budget=nb, device=dev)
+                for x, nb in zip("ab", results[0]["budgets"]))
+        want = bfv.multiply(ctx, a, b, convert.relin_keys_from_numpy(st["rlk"], device=dev))
+        check(all(np.array_equal(r["out"], convert.to_numpy(want)) for r in results),
+              f"n=32768 coefficient-sharded multiply differs from {what} multiply")
+        sk = SecretKey(data=torch.from_numpy(st["sk"].astype(np.int32)).to(dev))
+        decoded[dev] = [int(v) for v in
+                        BatchEncoder(prm, dev).decode(bfv.decrypt(ctx, want, sk))[:3]]
+        check(decoded[dev] == PRODUCT_32K,
+              f"n=32768 coefficient-sharded product decoded {decoded[dev]} on {dev}")
+    return decoded["cuda"]
 
 
 def phase_parallel() -> dict:
@@ -3567,12 +3718,12 @@ def phase_parallel() -> dict:
                       json.dumps({k: v for k, v in per_rank[0].items() if v}),
                       "collectives", json.dumps(r0["collectives"]))
             if what == "coeff32768":
-                decoded = check_coeff32768_on_cpu(results)
+                decoded = check_coeff32768(results)
                 check(sum(r0["launches"].values()) == 0,
                       "the coefficient-sharded multiply launched a kernel")
-                print(f"phase parallel coeff32768 check: every rank's product == the CPU plain "
-                      f"multiply, decoded on the CPU {decoded}; collectives per rank",
-                      json.dumps(r0["collectives"]))
+                print(f"phase parallel coeff32768 check: every rank's product == the card's "
+                      f"single-device multiply and the CPU plain multiply, decoded on both "
+                      f"{decoded}; collectives per rank", json.dumps(r0["collectives"]))
             if "wall_ms" in r0:
                 print(f"phase parallel {what} wall_ms per call ({label})",
                       json.dumps(r0["wall_ms"]))
@@ -3600,8 +3751,8 @@ def main() -> int:
     results = phase_kernels(gen)
     phase_geometry()
     phase_n16384()
-    phase_n32768()
-    launches = {"slice": phase_slice(), "multiply": phase_multiply(),
+    launches = {"n32768": phase_n32768(gen),
+                "slice": phase_slice(), "multiply": phase_multiply(),
                 "serving": phase_serving(), "hoisted": phase_hoisted(),
                 "omega": phase_omega(), "leveled": phase_leveled(),
                 "small": phase_small(), "roofline": phase_roofline(gen),
@@ -3618,7 +3769,8 @@ def main() -> int:
                      "bgv_launches": launches["bgv"][name],
                      "bootstrap_launches": launches["bootstrap"][name],
                      **{f"{path}_launches": launches[path][name]
-                        for path in ("plain_ops", "mxu", "examples", "fuzz", "parallel")},
+                        for path in ("plain_ops", "mxu", "examples", "fuzz", "parallel",
+                                     "n32768")},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,

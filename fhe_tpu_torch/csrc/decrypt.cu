@@ -16,7 +16,10 @@
 // ciphertext row is a thread-block cluster of C = min(k, 8) CTAs, grid
 // (C, B): CTA r takes the primes r, r + C, ... (more than one where k > 8)
 // and adds their terms into its own partial acc_t / acc_g in shared memory
-// (3 padded rows: 99 KB at n = 8192, 198 KB at n = 16384).  The transforms
+// (3 padded rows: 99 KB at n = 8192, 198 KB at n = 16384; at n = 32768,
+// where they would take 396 KB, the WIDE form keeps the two accumulators in
+// a global scratch buffer, 2n words per CTA, well inside L2, and shared
+// memory holds the working row alone, 132 KB).  The transforms
 // are the register-blocked sweep of modmath.cuh with the loads and the
 // epilogues fused into their first and last passes: c1 in, the key product
 // in the forward transform's last pass, c0 and the two lanes' terms in the
@@ -60,7 +63,12 @@ struct DecryptScalars {
 // s: [k, 1, n] NTT form, contiguous; out: [batch, n] mod t.  Grid
 // (C, batch) in clusters of (C, 1, 1): CTA r of ciphertext b's cluster takes
 // the primes i = r, r + C, ...  Shared memory: three padded rows, the
-// working polynomial and the CTA's partial acc_t and acc_g.
+// working polynomial and the CTA's partial acc_t and acc_g.  WIDE: the
+// working polynomial only; CTA r's acc_t at scratch + (b * C + r) * 2n and
+// its acc_g n words further.  Each word of them is written and read back
+// by one thread for every prime, and the cluster barrier before the
+// epilogue publishes them to the peers.
+template <bool WIDE>
 __global__ void __launch_bounds__(512)
 decrypt_fused_kernel(const uint32_t* __restrict__ c0, const uint32_t* __restrict__ c1,
                      long long prime_stride, long long batch_stride,
@@ -76,16 +84,21 @@ decrypt_fused_kernel(const uint32_t* __restrict__ c0, const uint32_t* __restrict
                      const uint32_t* __restrict__ phat_t,
                      const uint32_t* __restrict__ phat_t_sh,
                      const uint32_t* __restrict__ phat_g, DecryptScalars sc, int k,
-                     int logn) {
+                     int logn, uint32_t* scratch) {
   extern __shared__ uint32_t sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
-  uint32_t* a = sm;
-  uint32_t* acc_t = sm + fhe::padded(n);
-  uint32_t* acc_g = sm + 2 * fhe::padded(n);
   const int r = static_cast<int>(cluster.block_rank());
   const int csize = static_cast<int>(cluster.num_blocks());
   const int b = blockIdx.y;
+  // coefficient j of an accumulator at acc[at(j)]; the cluster's in global
+  // memory (WIDE), 2n words per CTA
+  auto at = [](int j) { return WIDE ? j : fhe::padded_index(j); };
+  const int acc_row = WIDE ? n : fhe::padded(n);
+  uint32_t* ours = WIDE ? scratch + static_cast<size_t>(b) * csize * 2 * n : nullptr;
+  uint32_t* a = sm;
+  uint32_t* acc_t = WIDE ? ours + static_cast<size_t>(r) * 2 * n : sm + acc_row;
+  uint32_t* acc_g = acc_t + acc_row;
   for (int i = r; i < k; i += csize) {
     const uint32_t pi = p[i];
     const uint32_t mui = mu[i];
@@ -141,12 +154,13 @@ decrypt_fused_kernel(const uint32_t* __restrict__ c0, const uint32_t* __restrict
             const uint32_t term_t = fhe::mul_shoup(z, pt, pt_sh, sc.t);
             const uint32_t term_g = fhe::mul_barrett(
                 fhe::reduce_barrett(z, sc.gamma, sc.gamma_mu), pg, sc.gamma, sc.gamma_mu);
-            const int e = fhe::padded_index(j);
+            const int e = at(j);
             acc_t[e] = first ? term_t : fhe::add_mod(acc_t[e], term_t, sc.t);
             acc_g[e] = first ? term_g : fhe::add_mod(acc_g[e], term_g, sc.gamma);
           }
         });
   }
+  if constexpr (WIDE) __threadfence();    // the accumulators, to the peers
   cluster.sync();
   // Epilogue: CTA r owns coefficients [r n / C, (r + 1) n / C).  It sums the
   // C partial accumulators of each through distributed shared memory (mod
@@ -155,11 +169,14 @@ decrypt_fused_kernel(const uint32_t* __restrict__ c0, const uint32_t* __restrict
   const int hi = static_cast<int>((static_cast<long long>(r + 1) << logn) / csize);
 #pragma unroll 4
   for (int j = lo + threadIdx.x; j < hi; j += blockDim.x) {
-    const int e = fhe::padded_index(j);
+    const int e = at(j);
     uint32_t sum_t = 0, sum_g = 0;
     for (int c = 0; c < csize; ++c) {
-      sum_t = fhe::add_mod(sum_t, cluster.map_shared_rank(acc_t, c)[e], sc.t);
-      sum_g = fhe::add_mod(sum_g, cluster.map_shared_rank(acc_g, c)[e], sc.gamma);
+      const uint32_t* their_t = WIDE ? ours + static_cast<size_t>(c) * 2 * n
+                                     : cluster.map_shared_rank(acc_t, c);
+      const uint32_t* their_g = WIDE ? their_t + n : cluster.map_shared_rank(acc_g, c);
+      sum_t = fhe::add_mod(sum_t, their_t[e], sc.t);
+      sum_g = fhe::add_mod(sum_g, their_g[e], sc.gamma);
     }
     const uint32_t s_t = fhe::mul_shoup(sum_t, sc.neg_inv_q_t, sc.neg_inv_q_t_sh, sc.t);
     const uint32_t s_g = fhe::mul_barrett(sum_g, sc.neg_inv_q_g, sc.gamma, sc.gamma_mu);
@@ -180,7 +197,8 @@ decrypt_fused_kernel(const uint32_t* __restrict__ c0, const uint32_t* __restrict
 // The launch geometry comes from the wrapper (ops/decrypt_cuda.py,
 // decrypt_geometry): clusters of `cluster` CTAs (1 <= cluster <= min(k, 8)),
 // `threads` per CTA and `smem` bytes per CTA, at least the three padded rows
-// the kernel uses.
+// the kernel uses; a scratch buffer (2n words per CTA) picks the WIDE form,
+// which uses one.
 extern "C" int fhe_decrypt_fused(
     const void* c0, const void* c1, long long prime_stride, long long batch_stride,
     const void* s, void* out, const void* p,
@@ -191,29 +209,33 @@ extern "C" int fhe_decrypt_fused(
     uint32_t gamma_mu, uint32_t neg_inv_q_t, uint32_t neg_inv_q_t_sh,
     uint32_t neg_inv_q_g, uint32_t inv_gamma_t, uint32_t inv_gamma_t_sh,
     uint32_t gamma_mod_t, uint32_t one_sh_t, int k, int batch, int logn, int cluster,
-    int threads, int smem, void* stream) {
+    int threads, int smem, void* scratch, void* stream) {
+  const bool wide = scratch != nullptr;
   if (logn <= fhe::kRegLog || cluster < 1 || cluster > 8 || cluster > k
-      || smem < 3 * 4 * fhe::padded(1 << logn))
+      || smem < (wide ? 1 : 3) * 4 * fhe::padded(1 << logn))
     return static_cast<int>(cudaErrorInvalidValue);
-  static std::atomic<size_t> granted[fhe::kMaxDevices];
-  static std::atomic<size_t> placed[fhe::kMaxDevices];
-  const void* kernel = reinterpret_cast<const void*>(decrypt_fused_kernel);
-  cudaError_t err = fhe::allow_smem(kernel, smem, granted);
+  // each instantiation keeps its own records
+  static std::atomic<size_t> granted[2][fhe::kMaxDevices];
+  static std::atomic<size_t> placed[2][fhe::kMaxDevices];
+  const void* kernel = wide ? reinterpret_cast<const void*>(decrypt_fused_kernel<true>)
+                            : reinterpret_cast<const void*>(decrypt_fused_kernel<false>);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted[wide]);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = fhe::cluster_config(
       dim3(cluster, batch), threads, smem, cluster, static_cast<cudaStream_t>(stream), attr);
-  err = fhe::check_cluster(kernel, cfg, placed);
+  err = fhe::check_cluster(kernel, cfg, placed[wide]);
   if (err != cudaSuccess) return static_cast<int>(err);
   const DecryptScalars sc{t, gamma, gamma_mu, neg_inv_q_t, neg_inv_q_t_sh,
                           neg_inv_q_g, inv_gamma_t, inv_gamma_t_sh, gamma_mod_t,
                           one_sh_t};
   auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
   err = cudaLaunchKernelEx(
-      &cfg, decrypt_fused_kernel, u(c0), u(c1), prime_stride, batch_stride, u(s),
-      static_cast<uint32_t*>(out), u(p), u(mu), u(psi), u(psi_sh), u(ipsi), u(ipsi_sh),
-      u(n_inv), u(n_inv_sh), u(gt_inv_phat), u(gt_inv_phat_sh), u(phat_t), u(phat_t_sh),
-      u(phat_g), sc, k, logn);
+      &cfg, wide ? decrypt_fused_kernel<true> : decrypt_fused_kernel<false>, u(c0), u(c1),
+      prime_stride, batch_stride, u(s), static_cast<uint32_t*>(out), u(p), u(mu), u(psi),
+      u(psi_sh), u(ipsi), u(ipsi_sh), u(n_inv), u(n_inv_sh), u(gt_inv_phat),
+      u(gt_inv_phat_sh), u(phat_t), u(phat_t_sh), u(phat_g), sc, k, logn,
+      static_cast<uint32_t*>(scratch));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -259,6 +259,18 @@ struct SmemStore {
     for (int i = 0; i < G; ++i) a[padded_index(base + (i << logs))] = x[i];
   }
 };
+// A group to a padded shared row that holds only positions from `first` on
+// (a multiple of 32, so its padding is the whole row's): a CTA of a
+// RowSplit that keeps just its own positions of the forward's result.
+struct SmemStoreFrom {
+  uint32_t* a;
+  int first;
+  template <int G>
+  __device__ __forceinline__ void operator()(uint32_t (&x)[G], int base, int logs) const {
+#pragma unroll
+    for (int i = 0; i < G; ++i) a[padded_index(base + (i << logs) - first)] = x[i];
+  }
+};
 
 // The twiddles w[idx .. idx + CNT) of one stage (or the words of an
 // operand row under a consecutive group), CNT a power of two: a run that

@@ -47,7 +47,9 @@
 // which is the same computation on the Bsk base: a cluster of 8 CTAs per
 // (element, prime), two per input row, grid (8, B, k): 24 CTAs where 3 ran,
 // two padded rows each, so n = 16384 fits (135 KB), where the old four rows
-// per block (256 KB) did not.  The two kernels keep two bodies: with one
+// per block (256 KB) did not; at n = 32768, where two padded rows take
+// 264 KB, a CTA keeps only its half of the transformed row (HALF, 198 KB).
+// The two kernels keep two bodies: with one
 // __device__ template for both, parameterised by the load and epilogue
 // hooks (a strided read and store here, the lift and the floor there),
 // bsk_branch_fused ran 1.3 % slower than the parent at the headline shape
@@ -74,7 +76,8 @@
 // 1) in its own shared memory; after a cluster barrier pairs 0 and 1 sum
 // the R partials of their output row through distributed shared memory and
 // run its inverse.  At kd = 3 that is 18 CTAs where one block per prime
-// (3 in all) ran three forwards and a two-row inverse in series.
+// (3 in all) ran three forwards and a two-row inverse in series.  At
+// n = 32768 its WIDE form keeps the partial sums in global scratch.
 // R stops at 4, a cluster of 8 (the portable size): at kd = 8 a cluster of
 // 16, one digit per pair, was 2.5 % faster alone and 35 % slower at B = 8.
 // ntt_forward is B3's split forward alone: a cluster of 2 CTAs per (row,
@@ -320,7 +323,11 @@ struct ProductTables {
 // partner.  The CTAs of row 3 have no output row: they take the inverse's
 // cluster barrier and stay until the peers have read their rows.  Shared
 // memory: two padded rows, the transformed input row (read by the peers)
-// and the sweeps' working row (read by the partner).
+// and the sweeps' working row (read by the partner).  With HALF (n = 32768,
+// where two padded rows exceed a block's shared memory) the transformed
+// input row holds only the CTA's own positions [h n/2, (h+1) n/2), the only
+// ones it keeps after the forward and the only ones its peers read:
+// padded(n) + padded(n/2) words, 198 KB.
 //
 // The Lift lane: x and y hold residues in the k = lo.k q primes, and the
 // grid's k + kb clusters per element form both products of the n < 1024
@@ -331,7 +338,7 @@ struct ProductTables {
 // lift.cuh's lift, before the forward transform.  out is [k + kb, 3, B, n]:
 // t x (x) y in q, then in Bsk.  The source prime of the lift runs over x's
 // rows (stride s_p), the output prime i over the tables and constants.
-template <ProductLane LANE>
+template <ProductLane LANE, bool HALF>
 __global__ void __launch_bounds__(512)
 tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
                       long long s_p, long long s_c, long long s_b,
@@ -344,13 +351,16 @@ tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
                       const uint32_t* __restrict__ n_inv_sh, int logn,
                       const fhe::SmMRqOperands lo, const ProductTables tq) {
   constexpr bool lifted = LANE == ProductLane::Lift;
+  static_assert(!(lifted && HALF), "the Lift lane runs at n < 1024 only");
   extern __shared__ uint32_t sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
-  uint32_t* row = sm;                        // input row r, NTT form
-  uint32_t* work = sm + fhe::padded(n);      // the sweeps' passes
   const int rank = static_cast<int>(cluster.block_rank());
   const int r = rank / kRowSplit, h = rank % kRowSplit;
+  // input row r, NTT form (with HALF its positions from `first` on only)
+  uint32_t* row = sm;
+  const int first = HALF ? h * (n / kRowSplit) : 0;
+  uint32_t* work = sm + fhe::padded(HALF ? n / kRowSplit : n);   // the sweeps' passes
   const int b = blockIdx.y;
   const int z = blockIdx.z;                  // the output prime
   // the Lift lane's q side takes tq; its Bsk side, prime i of the tables,
@@ -402,7 +412,7 @@ tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
             v[g] = src[base + (g << logs)];
         }
       },
-      fhe::SmemStore{row});
+      fhe::SmemStoreFrom{row, first});
   cluster.sync();
   if (r < 3) {
     const uint32_t mui = tmu[i];
@@ -415,10 +425,10 @@ tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
     const int end = (h + 1) * (n / kRowSplit);
 #pragma unroll 8
     for (int j = h * (n / kRowSplit) + threadIdx.x; j < end; j += blockDim.x) {
-      const int e = fhe::padded_index(j);
-      work[e] = r == 1 ? fhe::add_mod(fhe::mul_barrett(x0[e], y1[e], pi, mui),
-                                      fhe::mul_barrett(x1[e], y0[e], pi, mui), pi)
-                       : fhe::mul_barrett(pa[e], pb[e], pi, mui);
+      const int e = fhe::padded_index(j), f = fhe::padded_index(j - first);
+      work[e] = r == 1 ? fhe::add_mod(fhe::mul_barrett(x0[f], y1[f], pi, mui),
+                                      fhe::mul_barrett(x1[f], y0[f], pi, mui), pi)
+                       : fhe::mul_barrett(pa[f], pb[f], pi, mui);
     }
     __syncthreads();
     uint32_t* dst = out + ((static_cast<size_t>(z) * 3 + r) * gridDim.y + b) * n;
@@ -463,7 +473,7 @@ __device__ __forceinline__ void stage_row(uint32_t* dst, const uint32_t* __restr
 __device__ __forceinline__ void stage_wait() { __pipeline_wait_prior(0); }
 
 // The words of shared memory before a staged row: the kernel's `words`
-// rounded up to whole 16-byte words (ops/ntt_cuda.py: staged_smem).
+// rounded up to whole 16-byte words (ops/ntt_cuda.py: staged_bytes).
 __host__ __device__ constexpr int stage_offset(int words) { return (words + 3) & ~3; }
 
 // The coefficient automorphism a(x) -> a(x^g) in gather form, h = g^-1 mod
@@ -519,7 +529,19 @@ __device__ __forceinline__ uint32_t coeff_source(uint32_t h, int x, int logn, bo
 // padded rows, the sweeps' working row (read by the partner) and the two
 // partial half rows (read by pairs 0 and 1); the Galois lane adds the
 // staged row.
-template <KsLane LANE>
+//
+// WIDE (n = 32768, where the working row and the partials exceed a block's
+// shared memory, 264 KB): shared memory is the working row alone (132 KB).
+// Each CTA keeps its two partial half rows in `scratch`, a global buffer of
+// n words per CTA (the wrapper's; 2.4 MB at k = 3, kd = 3, inside L2):
+// CTA `rank` of cluster (b, i) at scratch + ((i * B + b) * 2R + rank) * n,
+// output row c's half at + c * n/2.  Each word of it is written and read
+// back by one thread in every round (the forward's last pass maps the same
+// positions to the same thread), and the cluster barrier after the last
+// round publishes it to pairs 0 and 1.  The Galois lane reads the digit
+// row and c0 in place, each word a scattered L2 read, as ks_inner's
+// GaloisInPlace lane does.
+template <KsLane LANE, bool WIDE>
 __global__ void __launch_bounds__(512)
 keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
                  long long d_sb, const uint32_t* __restrict__ keys, long long key_sp,
@@ -530,19 +552,26 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
                  const uint32_t* __restrict__ n_inv,
                  const uint32_t* __restrict__ n_inv_sh, int kd, int pairs, int logn,
                  uint32_t h_gal, const uint32_t* __restrict__ c0, long long c0_sp,
-                 long long c0_sb, int vec) {
+                 long long c0_sb, int vec, uint32_t* scratch) {
+  constexpr bool staged = LANE == KsLane::Galois && !WIDE;
   extern __shared__ uint32_t sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
   const int half = n / kRowSplit;
-  const int part_row = fhe::padded(half);
-  uint32_t* work = sm;                        // the sweeps' passes
-  uint32_t* part = sm + fhe::padded(n);       // partial sums of rows 0 and 1, own half
-  uint32_t* stage = sm + stage_offset(2 * fhe::padded(n));  // Galois: the row gathered from
   const int rank = static_cast<int>(cluster.block_rank());
   const int r = rank / kRowSplit, h = rank % kRowSplit;
   const int b = blockIdx.y;
   const int i = blockIdx.z;
+  // the cluster's partials in global memory (WIDE), n words per CTA
+  uint32_t* ours = WIDE ? scratch + (static_cast<size_t>(i) * gridDim.y + b) * gridDim.x * n
+                        : nullptr;
+  // partial sum of output row c, own half, at part + c * part_row; position
+  // e of the half at part[at(e)]
+  const int part_row = WIDE ? half : fhe::padded(half);
+  auto at = [](int e) { return WIDE ? e : fhe::padded_index(e); };
+  uint32_t* work = sm;                        // the sweeps' passes
+  uint32_t* part = WIDE ? ours + static_cast<size_t>(rank) * n : sm + fhe::padded(n);
+  uint32_t* stage = sm + stage_offset(2 * fhe::padded(n));  // Galois: the row gathered from
   const uint32_t pi = p[i];
   const uint32_t mui = mu[i];
   const size_t tab = static_cast<size_t>(i) * n;
@@ -565,7 +594,7 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
     const uint32_t* k0 = key_i + j * key_sj;
     const uint32_t* k1 = k0 + n;
     const bool first = m == 0;
-    if constexpr (LANE == KsLane::Galois) {
+    if constexpr (staged) {
       stage_row(stage, dr, n, vec);
       stage_wait();
       __syncthreads();
@@ -578,7 +607,8 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
           for (int g = 0; g < static_cast<int>(sizeof(x) / sizeof(x[0])); ++g) {
             if constexpr (LANE == KsLane::Galois) {
               bool neg;
-              uint32_t v = stage[coeff_source(h_gal, base + (g << logs), logn, neg)];
+              const uint32_t src = coeff_source(h_gal, base + (g << logs), logn, neg);
+              uint32_t v = staged ? stage[src] : __ldg(dr + src);
               if (neg) v = fhe::neg_mod(v, qj);
               x[g] = fhe::reduce_barrett(v, pi, mui);
             } else {
@@ -591,7 +621,7 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
           // the last pass's group is consecutive (logs = 0, base a multiple
           // of its size) and its positions are this CTA's
           constexpr int G = sizeof(x) / sizeof(x[0]);
-          uint32_t* acc = part + fhe::padded_index(base - h * half);
+          uint32_t* acc = part + at(base - h * half);
           uint32_t kv[G];
           fhe::load_twiddles(k0, base, kv);
 #pragma unroll
@@ -607,25 +637,30 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
           }
         });
   }
+  if constexpr (WIDE) __threadfence();    // the partials, to the peers
   cluster.sync();        // every partial sum is complete
   if (r < 2) {
     const bool add_c0 = LANE == KsLane::Galois && r == 0;
+    const uint32_t* c0r = c0 + i * c0_sp + b * c0_sb;
     // the forwards are over, so the staged row is free for c0, copied while
     // the partials are summed (the __syncthreads below publishes it)
-    if (add_c0) stage_row(stage, c0 + i * c0_sp + b * c0_sb, n, vec);
+    if (staged && add_c0) stage_row(stage, c0r, n, vec);
     const int summed = kd < pairs ? kd : pairs;    // the pairs that had a digit
     const uint32_t* mine = part + r * part_row;
 #pragma unroll 4
     for (int e = threadIdx.x; e < half; e += blockDim.x) {
-      const int pe = fhe::padded_index(e);
       uint32_t s = 0;
 #pragma unroll
-      for (int q = 0; q < kKeyswitchPairs; ++q)
-        if (q < summed)
-          s = fhe::add_mod(s, cluster.map_shared_rank(mine, q * kRowSplit + h)[pe], pi);
+      for (int q = 0; q < kKeyswitchPairs; ++q) {
+        if (q >= summed) continue;
+        const int peer = q * kRowSplit + h;
+        const uint32_t* theirs = WIDE ? ours + static_cast<size_t>(peer) * n + r * half
+                                      : cluster.map_shared_rank(mine, peer);
+        s = fhe::add_mod(s, theirs[at(e)], pi);
+      }
       work[fhe::padded_index(h * half + e)] = s;
     }
-    if (add_c0) stage_wait();
+    if (staged && add_c0) stage_wait();
     __syncthreads();
     uint32_t* dst = out + ((static_cast<size_t>(i) * 2 + r) * gridDim.y + b) * n;
     fhe::inv_ntt_regs_split(
@@ -637,7 +672,8 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
             uint32_t v = x[g];
             if (add_c0) {
               bool neg;
-              uint32_t w = stage[coeff_source(h_gal, pos, logn, neg)];
+              const uint32_t src = coeff_source(h_gal, pos, logn, neg);
+              const uint32_t w = staged ? stage[src] : __ldg(c0r + src);
               v = fhe::add_mod(v, neg ? fhe::neg_mod(w, pi) : w, pi);
             }
             dst[pos] = v;
@@ -833,7 +869,7 @@ inline int lane_smem(int words, int n, bool staged) {
   return 4 * (staged ? stage_offset(words) + n : words);
 }
 
-template <ProductLane LANE>
+template <ProductLane LANE, bool HALF>
 cudaError_t launch_tensor_product(const void* x, const void* y, long long s_p, long long s_c,
                                   long long s_b, void* out, const void* p, const void* mu,
                                   const void* psi, const void* psi_sh, const void* ipsi,
@@ -841,13 +877,14 @@ cudaError_t launch_tensor_product(const void* x, const void* y, long long s_p, l
                                   const void* n_inv_sh, int k, int batch, int logn,
                                   int threads, int smem, const fhe::SmMRqOperands& lo,
                                   const ProductTables& tq, cudaStream_t stream) {
-  if (logn <= fhe::kRegLog || smem < 2 * 4 * fhe::padded(1 << logn)
+  const int n = 1 << logn;
+  if (logn <= fhe::kRegLog || smem < 4 * (fhe::padded(n) + fhe::padded(HALF ? n / 2 : n))
       || (LANE == ProductLane::Lift
           && (lo.k < 1 || lo.k > fhe::kMaxLiftK || k <= lo.k || tq.p == nullptr)))
     return cudaErrorInvalidValue;
   static std::atomic<size_t> granted[fhe::kMaxDevices];
   static std::atomic<size_t> placed[fhe::kMaxDevices];
-  const void* kernel = reinterpret_cast<const void*>(tensor_product_kernel<LANE>);
+  const void* kernel = reinterpret_cast<const void*>(tensor_product_kernel<LANE, HALF>);
   cudaError_t err = fhe::allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
@@ -856,14 +893,14 @@ cudaError_t launch_tensor_product(const void* x, const void* y, long long s_p, l
   err = fhe::check_cluster(kernel, cfg, placed);
   if (err != cudaSuccess) return err;
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  err = cudaLaunchKernelEx(&cfg, tensor_product_kernel<LANE>, c(x), c(y), s_p, s_c, s_b,
+  err = cudaLaunchKernelEx(&cfg, tensor_product_kernel<LANE, HALF>, c(x), c(y), s_p, s_c, s_b,
                            static_cast<uint32_t*>(out), c(p), c(mu), c(psi), c(psi_sh),
                            c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), logn, lo, tq);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <KsLane LANE>
+template <KsLane LANE, bool WIDE>
 cudaError_t launch_keyswitch(const void* d, long long d_sp, long long d_sj, long long d_sb,
                              const void* keys, long long key_sp, long long key_sj, void* out,
                              const void* p, const void* mu, const void* psi,
@@ -871,15 +908,16 @@ cudaError_t launch_keyswitch(const void* d, long long d_sp, long long d_sj, long
                              const void* n_inv, const void* n_inv_sh, int k, int kd,
                              int batch, int logn, int pairs, int threads, int smem,
                              unsigned h_gal, const void* c0, long long c0_sp, long long c0_sb,
-                             int vec, cudaStream_t stream) {
+                             int vec, void* scratch, cudaStream_t stream) {
   constexpr bool galois = LANE == KsLane::Galois;
+  const int n = 1 << logn;
   if (logn <= fhe::kRegLog || kd < 1 || pairs < 2 || pairs > kKeyswitchPairs
-      || smem < lane_smem(2 * fhe::padded(1 << logn), 1 << logn, galois)
-      || (galois && (kd > k || c0 == nullptr)))
+      || smem < (WIDE ? 4 * fhe::padded(n) : lane_smem(2 * fhe::padded(n), n, galois))
+      || (WIDE && scratch == nullptr) || (galois && (kd > k || c0 == nullptr)))
     return cudaErrorInvalidValue;
   static std::atomic<size_t> granted[fhe::kMaxDevices];
   static std::atomic<size_t> placed[fhe::kMaxDevices];
-  const void* kernel = reinterpret_cast<const void*>(keyswitch_kernel<LANE>);
+  const void* kernel = reinterpret_cast<const void*>(keyswitch_kernel<LANE, WIDE>);
   cudaError_t err = fhe::allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
@@ -888,10 +926,11 @@ cudaError_t launch_keyswitch(const void* d, long long d_sp, long long d_sj, long
   err = fhe::check_cluster(kernel, cfg, placed);
   if (err != cudaSuccess) return err;
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  err = cudaLaunchKernelEx(&cfg, keyswitch_kernel<LANE>, c(d), d_sp, d_sj, d_sb, c(keys),
-                           key_sp, key_sj, static_cast<uint32_t*>(out), c(p), c(mu), c(psi),
-                           c(psi_sh), c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), kd, pairs,
-                           logn, static_cast<uint32_t>(h_gal), c(c0), c0_sp, c0_sb, vec);
+  err = cudaLaunchKernelEx(&cfg, keyswitch_kernel<LANE, WIDE>, c(d), d_sp, d_sj, d_sb,
+                           c(keys), key_sp, key_sj, static_cast<uint32_t*>(out), c(p), c(mu),
+                           c(psi), c(psi_sh), c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), kd, pairs,
+                           logn, static_cast<uint32_t>(h_gal), c(c0), c0_sp, c0_sb, vec,
+                           static_cast<uint32_t*>(scratch));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -1016,12 +1055,14 @@ int fhe_mul_by_ntt_operand(const void* u, long long u_sp, long long u_sb, const 
 // tensor_product's lanes: Plain where lift_q is null, else Lift, with the
 // lift's constants (lift.cuh SmMRqOperands: lift_k source primes) and the
 // q tables (tq_*, table_ptrs' order); then k counts the lift_k q primes and
-// the Bsk primes of the tables p .. n_inv_sh.
+// the Bsk primes of the tables p .. n_inv_sh.  half_row: the Plain lane
+// keeps only the CTA's half of the transformed row (n = 32768).
 int fhe_tensor_product(const void* x, const void* y, long long s_p, long long s_c,
                        long long s_b, void* out, const void* p, const void* mu,
                        const void* psi, const void* psi_sh, const void* ipsi,
                        const void* ipsi_sh, const void* n_inv, const void* n_inv_sh, int k,
-                       int batch, int logn, int threads, int smem, const void* lift_q,
+                       int batch, int logn, int threads, int smem, int half_row,
+                       const void* lift_q,
                        const void* lift_w, const void* lift_w_sh, const void* lift_phat,
                        const void* lift_phat_sh, const void* lift_phat_mt,
                        const void* lift_q_mod_c, const void* lift_q_mod_c_sh,
@@ -1037,8 +1078,10 @@ int fhe_tensor_product(const void* x, const void* y, long long s_p, long long s_
                               static_cast<uint32_t>(lift_inv_q_mt), lift_k};
   const ProductTables tq{c(tq_p), c(tq_mu), c(tq_psi), c(tq_psi_sh), c(tq_ipsi),
                          c(tq_ipsi_sh), c(tq_n_inv), c(tq_n_inv_sh)};
-  auto* launch = lift_q != nullptr ? &launch_tensor_product<ProductLane::Lift>
-                                   : &launch_tensor_product<ProductLane::Plain>;
+  if (lift_q != nullptr && half_row) return static_cast<int>(cudaErrorInvalidValue);
+  auto* launch = lift_q != nullptr ? &launch_tensor_product<ProductLane::Lift, false>
+                 : half_row        ? &launch_tensor_product<ProductLane::Plain, true>
+                                   : &launch_tensor_product<ProductLane::Plain, false>;
   return static_cast<int>(launch(x, y, s_p, s_c, s_b, out, p, mu, psi, psi_sh, ipsi, ipsi_sh,
                                  n_inv, n_inv_sh, k, batch, logn, threads, smem, lo, tq,
                                  static_cast<cudaStream_t>(stream)));
@@ -1046,19 +1089,25 @@ int fhe_tensor_product(const void* x, const void* y, long long s_p, long long s_
 
 // keyswitch_fused's lanes: 0 Classic, 1 Prereduced, 2 Galois (h_gal =
 // g^-1 mod 2n, c0 of element b for prime i at c0 + i * c0_sp + b * c0_sb).
+// A scratch buffer (n words per CTA) picks the WIDE form: the partials in
+// it, one padded row of shared memory (n = 32768).
 int fhe_keyswitch(const void* d, long long d_sp, long long d_sj, long long d_sb,
                   const void* keys, long long key_sp, long long key_sj, void* out,
                   const void* p, const void* mu, const void* psi, const void* psi_sh,
                   const void* ipsi, const void* ipsi_sh, const void* n_inv,
                   const void* n_inv_sh, int k, int kd, int batch, int logn, int pairs,
                   int threads, int smem, int lane, unsigned h_gal, const void* c0,
-                  long long c0_sp, long long c0_sb, int vec, void* stream) {
-  auto* launch = lane == 2   ? &launch_keyswitch<KsLane::Galois>
-                 : lane == 1 ? &launch_keyswitch<KsLane::Prereduced>
-                             : &launch_keyswitch<KsLane::Classic>;
+                  long long c0_sp, long long c0_sb, int vec, void* scratch, void* stream) {
+  const bool wide = scratch != nullptr;
+  auto* launch = lane == 2   ? (wide ? &launch_keyswitch<KsLane::Galois, true>
+                                     : &launch_keyswitch<KsLane::Galois, false>)
+                 : lane == 1 ? (wide ? &launch_keyswitch<KsLane::Prereduced, true>
+                                     : &launch_keyswitch<KsLane::Prereduced, false>)
+                             : (wide ? &launch_keyswitch<KsLane::Classic, true>
+                                     : &launch_keyswitch<KsLane::Classic, false>);
   return static_cast<int>(launch(d, d_sp, d_sj, d_sb, keys, key_sp, key_sj, out, p, mu, psi,
                                  psi_sh, ipsi, ipsi_sh, n_inv, n_inv_sh, k, kd, batch, logn,
-                                 pairs, threads, smem, h_gal, c0, c0_sp, c0_sb, vec,
+                                 pairs, threads, smem, h_gal, c0, c0_sp, c0_sb, vec, scratch,
                                  static_cast<cudaStream_t>(stream)));
 }
 

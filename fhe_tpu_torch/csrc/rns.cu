@@ -123,7 +123,9 @@ __device__ __forceinline__ uint32_t fast_floor_close(uint32_t tx_c, uint32_t con
 // r < 3 output row r, with CTA 2r + 1 - h, and keeps positions
 // [h n/2, (h+1) n/2) of the transformed row.  Shared memory: two padded
 // rows, the transformed input row (read by the peers) and the sweeps'
-// working row (read by the partner).
+// working row (read by the partner); with HALF (n = 32768) the transformed
+// row holds only those positions, as in tensor_product (csrc/ntt.cu).
+template <bool HALF>
 __global__ void __launch_bounds__(512)
 bsk_branch_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_sb,
                   const uint32_t* __restrict__ txq, int tx_sp, int tx_sc, int tx_sb,
@@ -152,10 +154,12 @@ bsk_branch_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_
   extern __shared__ uint32_t sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
-  uint32_t* row = sm;                        // input row r, NTT form
-  uint32_t* work = sm + fhe::padded(n);      // the sweeps' passes
   const int rank = static_cast<int>(cluster.block_rank());
   const int r = rank / kRowSplit, h = rank % kRowSplit;
+  // input row r, NTT form (with HALF its positions from `first` on only)
+  uint32_t* row = sm;
+  const int first = HALF ? h * (n / kRowSplit) : 0;
+  uint32_t* work = sm + fhe::padded(HALF ? n / kRowSplit : n);   // the sweeps' passes
   const int b = blockIdx.y;
   const int j = blockIdx.z;
   const int batch = gridDim.y;
@@ -194,7 +198,7 @@ bsk_branch_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_
       x[g] = fhe::sm_mrq_close(conv[g], lane[g], inv_q_mt, c, qc, qc_sh, imt, imt_sh);
   };
   fhe::fwd_ntt_regs_split(work, split, sync, logn, c, psi + tab, psi_sh + tab, lift,
-                          fhe::SmemStore{row});
+                          fhe::SmemStoreFrom{row, first});
   cluster.sync();
   if (r < 3) {
     // 2. tensor product row r, positions [h n/2, (h+1) n/2), from the
@@ -214,10 +218,10 @@ bsk_branch_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_
     const int end = (h + 1) * (n / kRowSplit);
 #pragma unroll 8
     for (int x = h * (n / kRowSplit) + threadIdx.x; x < end; x += blockDim.x) {
-      const int e = fhe::padded_index(x);
-      work[e] = r == 1 ? fhe::add_mod(fhe::mul_barrett(x0[e], y1[e], c, muj),
-                                      fhe::mul_barrett(x1[e], y0[e], c, muj), c)
-                       : fhe::mul_barrett(pa[e], pb[e], c, muj);
+      const int e = fhe::padded_index(x), f = fhe::padded_index(x - first);
+      work[e] = r == 1 ? fhe::add_mod(fhe::mul_barrett(x0[f], y1[f], c, muj),
+                                      fhe::mul_barrett(x1[f], y0[f], c, muj), c)
+                       : fhe::mul_barrett(pa[f], pb[f], c, muj);
     }
     __syncthreads();
     // 3. FastFloor against row r of the q-side product, fused into the
@@ -576,7 +580,8 @@ extern "C" {
 
 // The launch geometry comes from the wrapper (ops/rns_cuda.py,
 // bsk_branch_geometry): `threads` per CTA and `smem` bytes per CTA, at least
-// the two padded rows the kernel uses.
+// the two padded rows the kernel uses (with half_row, a padded row and a
+// padded half row).
 int fhe_bsk_branch(const void* ab, int ab_sp, int ab_sc, int ab_sb, const void* txq,
                    int tx_sp, int tx_sc, int tx_sb,
                    void* out, const void* q,
@@ -589,24 +594,27 @@ int fhe_bsk_branch(const void* ab, int ab_sp, int ab_sc, int ab_sb, const void* 
                    const void* cp, const void* mu, const void* psi, const void* psi_sh,
                    const void* ipsi, const void* ipsi_sh, const void* n_inv,
                    const void* n_inv_sh, int k, int kb, int batch, int logn, int threads,
-                   int smem, void* stream) {
-  if (logn <= fhe::kRegLog || smem < 2 * 4 * fhe::padded(1 << logn))
+                   int smem, int half_row, void* stream) {
+  const int n = 1 << logn;
+  if (logn <= fhe::kRegLog || smem < 4 * (fhe::padded(n) + fhe::padded(half_row ? n / 2 : n)))
     return static_cast<int>(cudaErrorInvalidValue);
-  static std::atomic<size_t> granted[fhe::kMaxDevices];
-  static std::atomic<size_t> placed[fhe::kMaxDevices];
-  const void* kernel = reinterpret_cast<const void*>(bsk_branch_kernel);
-  cudaError_t err = fhe::allow_smem(kernel, smem, granted);
+  // each instantiation keeps its own records (launch_tensor_product's way)
+  static std::atomic<size_t> granted[2][fhe::kMaxDevices];
+  static std::atomic<size_t> placed[2][fhe::kMaxDevices];
+  const void* kernel = half_row ? reinterpret_cast<const void*>(bsk_branch_kernel<true>)
+                                : reinterpret_cast<const void*>(bsk_branch_kernel<false>);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted[half_row != 0]);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = fhe::cluster_config(
       dim3(4 * kRowSplit, batch, kb), threads, smem, 4 * kRowSplit,
       static_cast<cudaStream_t>(stream), attr);
-  err = fhe::check_cluster(kernel, cfg, placed);
+  err = fhe::check_cluster(kernel, cfg, placed[half_row != 0]);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
   err = cudaLaunchKernelEx(
-      &cfg, bsk_branch_kernel, u(ab), ab_sp, ab_sc, ab_sb, u(txq), tx_sp, tx_sc, tx_sb,
-      static_cast<uint32_t*>(out), u(q), u(mt_inv_phat),
+      &cfg, half_row ? bsk_branch_kernel<true> : bsk_branch_kernel<false>, u(ab), ab_sp,
+      ab_sc, ab_sb, u(txq), tx_sp, tx_sc, tx_sb, static_cast<uint32_t*>(out), u(q), u(mt_inv_phat),
       u(mt_inv_phat_sh), u(lift_phat), u(lift_phat_sh), u(phat_mt), u(q_mod_c),
       u(q_mod_c_sh), u(inv_mt_c), u(inv_mt_c_sh), inv_q_mt, u(floor_inv_phat),
       u(floor_inv_phat_sh), u(floor_phat), u(floor_phat_sh), u(inv_q_c), u(inv_q_c_sh),

@@ -61,10 +61,10 @@ def _lib() -> ctypes.CDLL:
     lib.fhe_ntt_inverse.argtypes = [_P] * 7 + [_I] * 6 + [_P]
     lib.fhe_mul_by_ntt_operand.argtypes = ([_P] + [_L] * 2 + [_P] * 10
                                            + [_I] * 6 + [_P])
-    lib.fhe_tensor_product.argtypes = ([_P] * 2 + [_L] * 3 + [_P] * 9 + [_I] * 5 + [_P] * 10
+    lib.fhe_tensor_product.argtypes = ([_P] * 2 + [_L] * 3 + [_P] * 9 + [_I] * 6 + [_P] * 10
                                        + [ctypes.c_uint, _I] + [_P] * 9)
     lib.fhe_keyswitch.argtypes = ([_P] + [_L] * 3 + [_P] + [_L] * 2 + [_P] * 9
-                                  + [_I] * 8 + [ctypes.c_uint, _P] + [_L] * 2 + [_I, _P])
+                                  + [_I] * 8 + [ctypes.c_uint, _P] + [_L] * 2 + [_I, _P, _P])
     lib.fhe_ks_inner.argtypes = ([_P] + [_L] * 3 + [_I] + [_P] + [_L] * 3 + [_I]
                                  + [_P] * 7 + [_I] * 8 + [_P] * 3 + [_L] * 2 + [_P])
     for f in (lib.fhe_ntt_forward, lib.fhe_ntt_inverse,
@@ -121,11 +121,18 @@ def row_bytes(n: int, padded: bool = False) -> int:
 def check_smem(n: int, polys: int, name: str, padded: bool = False) -> int:
     """Raise unless ``polys`` rows of n residues (padded ones with
     ``padded``) fit one block's shared memory; return their bytes."""
-    nbytes = polys * row_bytes(n, padded)
-    if nbytes > MAX_SMEM:
-        raise ValueError(f"{name}: n={n} needs {nbytes} bytes of shared "
-                         f"memory per block, more than {MAX_SMEM}")
-    return nbytes
+    return fit_smem(n, name, polys * row_bytes(n, padded))[1]
+
+
+def fit_smem(n: int, name: str, *layouts: int) -> tuple[int, int]:
+    """The first of a kernel's shared-memory ``layouts`` (bytes per block,
+    in its order of preference) that fits a block, as (index, bytes); raise,
+    naming the function and n, where none does."""
+    for i, nbytes in enumerate(layouts):
+        if nbytes <= MAX_SMEM:
+            return i, nbytes
+    raise ValueError(f"{name}: n={n} needs {layouts[-1]} bytes of shared "
+                     f"memory per block, more than {MAX_SMEM}")
 
 
 def check_aligned_tables(tb: NTTTables, name: str) -> None:
@@ -184,16 +191,11 @@ def ntt_inverse_geometry(n: int, k: int, batch: int = 1) -> dict:
     return ntt_forward_geometry(n, k, batch, "ntt_inverse")
 
 
-def staged_smem(n: int, words: int, name: str) -> int:
+def staged_bytes(n: int, words: int) -> int:
     """Shared-memory bytes of ``words`` words of rows and a staged row of n
     words behind them, at a 16-byte boundary (csrc/ntt.cu: stage_offset), as
-    the Galois lanes of keyswitch_fused and ks_inner use; raise where that
-    does not fit a block."""
-    total = -(-words // 4) * 4 + n
-    if 4 * total > MAX_SMEM:
-        raise ValueError(f"{name}: n={n} needs {4 * total} bytes of shared memory "
-                         f"per block, more than {MAX_SMEM}")
-    return 4 * total
+    the Galois lanes of keyswitch_fused and ks_inner use."""
+    return 4 * (-(-words // 4) * 4 + n)
 
 
 def _padded(n: int) -> int:
@@ -211,10 +213,9 @@ def ks_inner_geometry(n: int, k: int, batch: int = 1,
     read in place.  Raise where that does not fit the card."""
     if not 1 <= 2 * batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y // 2}")
-    smem = check_smem(n, 1, name, padded=True)
-    stage = c0 and 4 * (-(-_padded(n) // 4) * 4 + n) <= MAX_SMEM
-    if stage:
-        smem = staged_smem(n, _padded(n), name)
+    staged = (staged_bytes(n, _padded(n)),) if c0 else ()
+    layout, smem = fit_smem(n, name, *staged, row_bytes(n, padded=True))
+    stage = bool(staged) and layout == 0
     return {"grid": (ROW_SPLIT, 2 * batch, k), "cluster": (ROW_SPLIT, 1, 1),
             "ctas": ROW_SPLIT * 2 * batch * k, "ctas_per_row": ROW_SPLIT,
             "threads": regs_threads(n, name, ROW_SPLIT), "smem": smem, "stage_c0": stage}
@@ -226,19 +227,27 @@ def keyswitch_geometry(n: int, k: int, kd: int, batch: int = 1,
     kd digits of B = ``batch`` elements over k primes: one cluster of 2R
     CTAs per (element, prime), R = clamp(kd, 2, 4) digit pairs (two pairs at
     least, one per output row; at most 8 CTAs, the portable cluster size);
-    pair r transforms digits r, r + R, ...; two padded rows of shared memory
-    per CTA, and with ``galois`` (the Galois lane) the staged row it gathers
-    from.  Raise where that does not fit the card."""
+    pair r transforms digits r, r + R, ...; CTA 2r + h keeps the partial sums
+    of positions [h n/2, (h+1) n/2) of both output rows.  Shared memory:
+    two padded rows per CTA (the working row and the two partial half
+    rows), and with ``galois`` (the Galois lane) the staged row it gathers
+    from; where that does not fit a block (n = 32768), the ``wide`` form:
+    the working row alone, the partials in a global scratch buffer of n
+    words per CTA (``scratch`` words in all) and the Galois lane's rows read
+    in place.  Raise where neither fits the card."""
     if kd < 1:
         raise ValueError(f"{name}: kd={kd}, expected at least one digit")
     if not 1 <= batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y}")
     pairs = min(max(kd, 2), KEYSWITCH_PAIRS)
-    smem = (staged_smem(n, 2 * _padded(n), name) if galois
-            else check_smem(n, 2, name, padded=True))
+    threads = regs_threads(n, name, ROW_SPLIT)
+    rows = 2 * _padded(n)
+    layout, smem = fit_smem(n, name, staged_bytes(n, rows) if galois else 4 * rows,
+                            row_bytes(n, padded=True))
+    ctas = ROW_SPLIT * pairs * batch * k
     return {"grid": (ROW_SPLIT * pairs, batch, k), "cluster": (ROW_SPLIT * pairs, 1, 1),
-            "ctas": ROW_SPLIT * pairs * batch * k, "pairs": pairs, "ctas_per_row": ROW_SPLIT,
-            "threads": regs_threads(n, name, ROW_SPLIT), "smem": smem}
+            "ctas": ctas, "pairs": pairs, "ctas_per_row": ROW_SPLIT, "threads": threads,
+            "smem": smem, "wide": layout == 1, "scratch": ctas * n if layout == 1 else 0}
 
 
 def mul_by_ntt_operand_geometry(n: int, k: int, c: int, batch: int = 1) -> dict:
@@ -263,19 +272,26 @@ def tensor_product_geometry(n: int, k: int, batch: int = 1,
     ``_batch``; ``bsk_branch_fused`` passes its name) for B = ``batch``
     elements over k primes: one cluster of 8 CTAs per (element, prime), two
     per input row, which share the row's forward transform and, for rows 0
-    to 2, its product row's inverse transform; two padded rows of shared
-    memory per CTA.  The Lift lane (``lift``) has a thread per coefficient
-    of the CTA's half row, up to LIFT_THREADS, for the lift before the
-    first pass.  Raise where that does not fit the card."""
+    to 2, its product row's inverse transform; CTA 2r + h keeps positions
+    [h n/2, (h+1) n/2) of NTT(row r) and forms them into product row r.
+    Shared memory: two padded rows per CTA (the transformed row and the
+    working row); where that does not fit a block (n = 32768), the
+    ``half_row`` form keeps only the CTA's own half of the transformed row:
+    a padded row and a padded half row.  The Lift lane (``lift``) has a
+    thread per coefficient of the CTA's half row, up to LIFT_THREADS, for
+    the lift before the first pass, and no half_row form.  Raise where
+    nothing fits the card."""
     if not 1 <= batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y}")
     threads = regs_threads(n, name, ROW_SPLIT)
     if lift:
         threads = max(threads, min(n // ROW_SPLIT, LIFT_THREADS))
+    halved = () if lift else (row_bytes(n, True) + row_bytes(n // ROW_SPLIT, True),)
+    layout, smem = fit_smem(n, name, 2 * row_bytes(n, padded=True), *halved)
     return {"grid": (PRODUCT_CLUSTER, batch, k), "cluster": (PRODUCT_CLUSTER, 1, 1),
             "ctas": PRODUCT_CLUSTER * batch * k, "ctas_per_prime": PRODUCT_CLUSTER,
-            "ctas_per_row": ROW_SPLIT, "threads": threads,
-            "smem": check_smem(n, 2, name, padded=True)}
+            "ctas_per_row": ROW_SPLIT, "threads": threads, "smem": smem,
+            "half_row": layout == 1}
 
 
 def check_barrett(tb: NTTTables, name: str) -> None:
@@ -464,7 +480,8 @@ def _tensor_product_launch(x: torch.Tensor, y: torch.Tensor, tb: NTTTables,
     p = _build.ptr
     _build.launch(_lib().fhe_tensor_product, name, x.device, p(x), p(y),
                   x.stride(0), x.stride(1), x.stride(2), p(out), *table_ptrs(tabs[-1]),
-                  k, batch, log2_exact(n), geo["threads"], geo["smem"], *_lift_args(lift, tb))
+                  k, batch, log2_exact(n), geo["threads"], geo["smem"], int(geo["half_row"]),
+                  *_lift_args(lift, tb))
     return out
 
 
@@ -486,8 +503,8 @@ def tensor_product(x: torch.Tensor, y: torch.Tensor, tb: NTTTables, lift=None):
     """(x0*y0, x0*y1 + x1*y0, x1*y1) of two [k, 2, n] coefficient-domain
     ciphertext halves; returns [k, 3, n].  With the multiply's tables
     (``ntt.build_mul_tables``) the result is t times the product.  Every
-    prime must be a 30-bit prime (Barrett); on the card 32 <= n <= 16384
-    (``tensor_product_geometry``: two padded rows per CTA).  x and y may be
+    prime must be a 30-bit prime (Barrett); on the card 32 <= n <= 32768
+    (``tensor_product_geometry``).  x and y may be
     views with rows of n contiguous and equal strides (the halves of a
     lifted [k, 4, n] tensor: the kernel reads them in place).
 
@@ -606,7 +623,8 @@ def _keyswitch_launch(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables,
     contiguous): [k, 2, B, n].  The kernel reads each key row with 16-byte
     loads, so keys_t must start 16-byte aligned with strides of whole
     16-byte words.  lane 0 classic, 1 prereduced, 2 Galois (element g, c0
-    [k, B, n]), as the C entry point numbers them."""
+    [k, B, n]), as the C entry point numbers them.  The wide form
+    (``keyswitch_geometry``, n = 32768) gets its scratch buffer here."""
     check_barrett(tb, name)
     check_aligned_tables(tb, name)
     kd, batch, n = d.shape[-3:]
@@ -622,10 +640,13 @@ def _keyswitch_launch(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables,
     else:
         h, c0_args, vec = 0, (None, 0, 0), False
     p = _build.ptr
+    scratch = (torch.empty(geo["scratch"], dtype=torch.int32, device=d.device)
+               if geo["wide"] else None)
     _build.launch(_lib().fhe_keyswitch, name, d.device, p(d), d_sp, d.stride(-3),
                   d.stride(-2), p(keys_t), keys_t.stride(0), keys_t.stride(1),
                   p(out), *table_ptrs(tb), tb.k, kd, batch, log2_exact(n),
-                  geo["pairs"], geo["threads"], geo["smem"], lane, h, *c0_args, int(vec))
+                  geo["pairs"], geo["threads"], geo["smem"], lane, h, *c0_args, int(vec),
+                  None if scratch is None else p(scratch))
     return out
 
 

@@ -35,7 +35,7 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rns")
     lib.fhe_bsk_branch.argtypes = ([_P] + [_I] * 3 + [_P] + [_I] * 3 + [_P] * 11
-                                   + [_U] + [_P] * 14 + [_I] * 6 + [_P])
+                                   + [_U] + [_P] * 14 + [_I] * 7 + [_P])
     lib.fhe_base_conv.argtypes = [_I] * 8 + [_P] * 24 + [_U] * 3 + [_P]
     for f in (lib.fhe_bsk_branch, lib.fhe_base_conv):
         f.restype = ctypes.c_int
@@ -65,8 +65,9 @@ def bsk_branch_geometry(n: int, kb: int, batch: int = 1) -> dict:
     kb Bsk primes: the cluster tensor product of ``tensor_product`` (8 CTAs
     per (element, Bsk prime), two per input row, which share the row's lift
     and forward transform and, for rows 0 to 2, its product row's inverse
-    transform and floor; two padded rows of shared memory per CTA).  Raise
-    where that does not fit the card."""
+    transform and floor; two padded rows of shared memory per CTA, or at
+    n = 32768 the ``half_row`` form).  Raise where that does not fit the
+    card."""
     return tensor_product_geometry(n, kb, batch, "bsk_branch_fused")
 
 
@@ -95,7 +96,7 @@ def _bsk_branch_launch(ab: torch.Tensor, tx_q: torch.Tensor,
         sc.inv_q_mt, p(fc.conv.inv_phat), p(fc.conv.inv_phat_shoup),
         p(fc.conv.phat_mod_dst), p(fc.conv.phat_shoup_dst), p(fc.inv_q_dst),
         p(fc.inv_q_shoup_dst), *table_ptrs(tb_bsk), k, kb, batch, log2_exact(n),
-        geo["threads"], geo["smem"])
+        geo["threads"], geo["smem"], int(geo["half_row"]))
     return out
 
 

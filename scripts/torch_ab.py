@@ -54,8 +54,10 @@ the headline configuration (n = 8192, log_q = 90, k = 3, kb = 5):
     ms, kernels per call, span and idle share;
   - device_ms and wall_ms of the multiply at n = 16384 (the JAX bench's
     g_n16384: log_q = 90, k = 3, seed 4; multiply_relin_ms_n16384 and, at
-    ks_omega = 2, multiply_relin_ms_n16384_omega2), null for a tree whose
-    multiply raises there;
+    ks_omega = 2, multiply_relin_ms_n16384_omega2), and at n = 32768
+    (tests/test_parallel.py:168-189: log_q = 90, k = 3, lambda_ = 0, h = 16,
+    seed 11; multiply_relin_ms_n32768), null for a tree whose multiply
+    raises there;
   - bgv: at the JAX bench's g_bgv configuration (the headline one, seed 1,
     scheme="bgv"), device_ms and wall_ms of BGV's multiply, its halves,
     the decrypt of the product (the phase, then the centred lift onto {t}
@@ -229,6 +231,29 @@ def multiply_n16384(omega: int) -> dict | None:
     got = [int(v) for v in fhe.decode(fhe.decrypt(prod, sk))[:2]]
     if got != [15, 60]:
         raise RuntimeError(f"n=16384 multiply decoded {got}")
+    fn = lambda: fhe.multiply(a, b, rlk)
+    return {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
+
+
+def multiply_n32768() -> dict | None:
+    """device_ms and wall_ms of the multiply at tests/test_parallel.py:168-189's
+    n = 32768 configuration (log_q = 90, k = 3, lambda_ = 0, h = 16, seed
+    11), or None where this tree's multiply raises at that n."""
+    prm = make_scheme_params(SecurityParams(poly_degree=32768, log_q=LOG_Q, lambda_=0,
+                                            hamming_weight=16))
+    fhe = FHE(prm, seed=11, device="cuda")
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    a = fhe.encrypt(fhe.encode([4, 5, 6]), pk)
+    b = fhe.encrypt(fhe.encode([7, 8, 9]), pk)
+    try:
+        prod = fhe.multiply(a, b, rlk)
+    except ValueError as err:          # a tree without the n = 32768 launch shapes
+        print(f"torch_ab: n=32768 multiply raised: {err}", file=sys.stderr)
+        return None
+    got = [int(v) for v in fhe.decode(fhe.decrypt(prod, sk))[:3]]
+    if got != [28, 40, 54]:
+        raise RuntimeError(f"n=32768 multiply decoded {got}")
     fn = lambda: fhe.multiply(a, b, rlk)
     return {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
 
@@ -942,6 +967,7 @@ def main() -> int:
     out["galois_lanes"] = galois_lanes(gen)
     out["multiply_relin_ms_n16384"] = multiply_n16384(1)
     out["multiply_relin_ms_n16384_omega2"] = multiply_n16384(2)
+    out["multiply_relin_ms_n32768"] = multiply_n32768()
     out["bgv"] = bgv_ops()
     out["bootstrap"] = bootstrap_ops()
     print(json.dumps(out))

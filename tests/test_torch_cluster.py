@@ -11,9 +11,12 @@ cluster size and primes per CTA, B3's CTAs per (element, operand row,
 prime), B1's and B2's per row, B17's per (element, output row, prime), B4's
 and B5's CTAs per prime, B7's digit pairs per (element, prime), threads and
 shared memory per CTA, and the shared-memory checks that decide which n
-each kernel takes.
+each kernel takes, with the forms that take n = 32768 where the n <= 16384
+layout does not fit a block (B4's and B5's half row, B7's and B8's wide
+form).
 tests/test_torch_cuda.py runs the kernels themselves."""
 
+import numpy as np
 import pytest
 
 from fhe_tpu_torch.ops import decrypt_cuda, ntt_cuda, rns_cuda
@@ -21,6 +24,31 @@ from fhe_tpu_torch.params import SecurityParams, make_scheme_params
 from fhe_tpu_torch.scheme.context import make_context
 
 MAX_SMEM = ntt_cuda.MAX_SMEM
+
+
+def padded(n: int) -> int:
+    """Words of a padded row of n (one pad word in 32)."""
+    return n + n // 32
+
+
+def assert_owned_once(n: int, parts: int) -> None:
+    """The positions [h n/parts, (h+1) n/parts) that CTA h of ``parts``
+    sharing a row keeps (a pair's half rows; B8's epilogue, floor division)
+    take every coefficient of the row exactly once."""
+    hits = np.zeros(n, dtype=np.int64)
+    for h in range(parts):
+        hits[h * n // parts:(h + 1) * n // parts] += 1
+    assert (hits == 1).all()
+
+
+def assert_half_row_form(geo: dict, n: int) -> None:
+    """B4's and B5's shape at n = 32768: two CTAs per input row, each keeping
+    its half of the transformed row in a padded half row beside the padded
+    working row, inside a block and a portable cluster."""
+    assert geo["half_row"] and geo["ctas_per_row"] == 2 and geo["cluster"] == (8, 1, 1)
+    assert geo["smem"] == 4 * (padded(n) + padded(n // 2)) <= MAX_SMEM
+    assert geo["threads"] == 512
+    assert_owned_once(n, geo["ctas_per_row"])
 
 
 @pytest.mark.parametrize("k", range(1, 17))
@@ -38,24 +66,44 @@ def test_decrypt_cluster_takes_every_prime_once(k):
     assert max(map(len, taken)) == geo["primes_per_cta"] == -(-k // c)
 
 
-@pytest.mark.parametrize("n", [256, 1024, 4096, 8192, 16384])
+@pytest.mark.parametrize("n", [256, 1024, 4096, 8192, 16384, 32768])
 def test_bsk_branch_cluster_per_prime(n):
     """A cluster of 8 CTAs, two per input row, for each (element, Bsk
-    prime), each with two padded rows of shared memory and a thread per
-    group of 16 of its half row."""
+    prime), each with two padded rows of shared memory (at n = 32768 a
+    padded row and a padded half row) and a thread per group of 16 of its
+    half row."""
     geo = rns_cuda.bsk_branch_geometry(n, kb=5, batch=8)
     assert geo["cluster"] == (8, 1, 1) and geo["ctas_per_prime"] == 8
     assert geo["ctas_per_row"] == 2
     assert geo["grid"] == (8, 8, 5) and geo["ctas"] == 8 * 8 * 5
-    assert geo["smem"] == 2 * 4 * (n + n // 32) <= MAX_SMEM
+    if n <= 16384:
+        assert geo["smem"] == 2 * 4 * (n + n // 32) <= MAX_SMEM and not geo["half_row"]
+    else:
+        assert_half_row_form(geo, n)
     assert geo["threads"] == min(max(n // 32, 32), 512)
 
 
 def test_n32768_does_not_fit_either_kernel():
-    with pytest.raises(ValueError, match="bsk_branch_fused: n=32768"):
-        rns_cuda.bsk_branch_geometry(32768, kb=5)
-    with pytest.raises(ValueError, match="decrypt_fused: n=32768"):
-        decrypt_cuda.decrypt_geometry(32768, k=3)
+    """At n = 32768 neither B5's two padded rows (270 KB) nor B8's three
+    (396 KB) fit a block: B5 keeps only its half of the transformed row
+    (198 KB), B8 its working row (132 KB) with the two accumulators of
+    each CTA (2n words) in a global scratch buffer, and CTA r of B8's
+    cluster sums coefficients [r n / C, (r + 1) n / C) in the epilogue.  At
+    n = 65536 neither form fits, and each raises, naming the function."""
+    n = 32768
+    assert 2 * 4 * padded(n) > MAX_SMEM and 3 * 4 * padded(n) > MAX_SMEM
+    assert_half_row_form(rns_cuda.bsk_branch_geometry(n, kb=5), n)
+    for k, batch in ((3, 1), (3, 8), (8, 2), (12, 1)):
+        geo = decrypt_cuda.decrypt_geometry(n, k=k, batch=batch)
+        c = min(k, 8)
+        assert geo["wide"] and geo["cluster"] == (c, 1, 1) and geo["grid"] == (c, batch)
+        assert geo["smem"] == 4 * padded(n) <= MAX_SMEM and geo["threads"] == 512
+        assert geo["scratch"] == 2 * n * c * batch
+        assert_owned_once(n, c)
+    with pytest.raises(ValueError, match="bsk_branch_fused: n=65536 needs"):
+        rns_cuda.bsk_branch_geometry(65536, kb=5)
+    with pytest.raises(ValueError, match="decrypt_fused: n=65536 needs"):
+        decrypt_cuda.decrypt_geometry(65536, k=3)
 
 
 @pytest.mark.parametrize("batch", [1, 8])
@@ -74,16 +122,20 @@ def test_mul_by_ntt_operand_cluster_per_operand_row(n, c, batch):
 
 
 @pytest.mark.parametrize("batch", [1, 8])
-@pytest.mark.parametrize("n", [256, 1024, 8192, 16384])
+@pytest.mark.parametrize("n", [256, 1024, 8192, 16384, 32768])
 def test_tensor_product_cluster_per_prime(n, batch):
     """B5's shape: a cluster of 8 CTAs, two per input row x0, x1, y0, y1,
-    for each (element, prime), two padded rows of shared memory each: 24
-    CTAs for the multiply's q side (k = 3), where one block per prime ran 3."""
+    for each (element, prime), two padded rows of shared memory each (at
+    n = 32768 a padded row and a padded half row): 24 CTAs for the
+    multiply's q side (k = 3), where one block per prime ran 3."""
     geo = ntt_cuda.tensor_product_geometry(n, k=3, batch=batch)
     assert geo == rns_cuda.bsk_branch_geometry(n, kb=3, batch=batch)
     assert geo["cluster"] == (8, 1, 1) and geo["ctas_per_prime"] == 8
     assert geo["grid"] == (8, batch, 3) and geo["ctas"] == 8 * batch * 3
-    assert geo["smem"] == 2 * 4 * (n + n // 32) <= MAX_SMEM
+    if n <= 16384:
+        assert geo["smem"] == 2 * 4 * (n + n // 32) <= MAX_SMEM and not geo["half_row"]
+    else:
+        assert_half_row_form(geo, n)
 
 
 @pytest.mark.parametrize("n", [32, 64, 128, 256, 512])
@@ -112,14 +164,25 @@ def test_tensor_product_lift_lane_takes_every_small_ring(n):
 
 def test_n16384_fits_b3_b4_b5_and_b8_but_not_b4_at_n32768():
     """At n = 16384, B3's one, B4's and B5's two and B8's three padded rows
-    fit a CTA, so the whole multiply runs there; B4's two rows at n = 32768
-    do not (B3's one row does)."""
+    fit a CTA, so the whole multiply runs there in that layout; B4's two
+    rows at n = 32768 do not (B3's one row does), so there B4 keeps only
+    its half of the transformed row (the multiply's and multiply_batch's
+    shapes, k = 3); the Lift lane (n < 1024) has no half-row form, and at
+    n = 65536 B4 raises, naming the function."""
     assert ntt_cuda.mul_by_ntt_operand_geometry(16384, k=3, c=2)["smem"] == 67584
     assert ntt_cuda.tensor_product_geometry(16384, k=3)["smem"] == 135168
     assert rns_cuda.bsk_branch_geometry(16384, kb=5)["smem"] == 135168
     assert decrypt_cuda.decrypt_geometry(16384, k=3)["smem"] == 202752
-    with pytest.raises(ValueError, match="tensor_product: n=32768"):
-        ntt_cuda.tensor_product_geometry(32768, k=3)
+    assert not decrypt_cuda.decrypt_geometry(16384, k=3)["wide"]
+    assert 2 * 4 * padded(32768) > MAX_SMEM
+    for batch in (1, 2):
+        geo = ntt_cuda.tensor_product_geometry(32768, k=3, batch=batch)
+        assert_half_row_form(geo, 32768)
+        assert geo["smem"] == 202752 and geo["grid"] == (8, batch, 3)
+    with pytest.raises(ValueError, match="tensor_product: n=32768 needs"):
+        ntt_cuda.tensor_product_geometry(32768, k=3, lift=True)
+    with pytest.raises(ValueError, match="tensor_product: n=65536 needs"):
+        ntt_cuda.tensor_product_geometry(65536, k=3)
     assert ntt_cuda.mul_by_ntt_operand_geometry(32768, k=3, c=2)["smem"] == 135168
 
 
@@ -165,12 +228,13 @@ def test_batch_outside_the_grid_raises():
 
 @pytest.mark.parametrize("batch", [1, 8])
 @pytest.mark.parametrize("kd", [1, 3, 4, 8])
-@pytest.mark.parametrize("n", [256, 1024, 8192, 16384])
+@pytest.mark.parametrize("n", [256, 1024, 8192, 16384, 32768])
 def test_keyswitch_cluster_of_digit_pairs(n, kd, batch):
     """A cluster of 2R CTAs per (element, prime), R = clamp(kd, 2, 4) digit
     pairs: two pairs at least (one per output row), at most 8 CTAs (the
     portable cluster size), so kd = 8 takes two digits per pair; two padded
-    rows of shared memory and a thread per group of 16 of a half row: 18
+    rows of shared memory (at n = 32768 the wide form: one, and n words of
+    global scratch per CTA) and a thread per group of 16 of a half row: 18
     CTAs for the headline relinearization (k = 3, kd = 3), where one block
     per prime ran 3."""
     geo = ntt_cuda.keyswitch_geometry(n, k=3, kd=kd, batch=batch)
@@ -178,7 +242,12 @@ def test_keyswitch_cluster_of_digit_pairs(n, kd, batch):
     assert geo["pairs"] == pairs
     assert geo["cluster"] == (2 * pairs, 1, 1) and geo["ctas_per_row"] == 2
     assert geo["grid"] == (2 * pairs, batch, 3) and geo["ctas"] == 2 * pairs * batch * 3
-    assert geo["smem"] == 2 * 4 * (n + n // 32) <= MAX_SMEM
+    if n <= 16384:
+        assert geo["smem"] == 2 * 4 * (n + n // 32) <= MAX_SMEM
+        assert not geo["wide"] and geo["scratch"] == 0
+    else:
+        assert geo["wide"] and geo["smem"] == 4 * padded(n) <= MAX_SMEM
+        assert geo["scratch"] == geo["ctas"] * n
     assert geo["threads"] == min(max(n // 32, 32), 512)
     # pair r takes digits r, r + R, ...: every digit exactly once, in at
     # most two rounds (kd <= 8)
@@ -201,12 +270,23 @@ def test_ntt_forward_cluster_per_row(n, batch):
 
 
 def test_n32768_fits_b1_but_not_b7():
-    """B1's one padded row fits at n = 32768; B7's two do not (nor did its
-    three plain rows before)."""
-    assert ntt_cuda.ntt_forward_geometry(32768, k=3)["smem"] == 135168
+    """B1's one padded row fits at n = 32768; B7's two do not, so there it
+    takes its wide form: the working row alone in shared memory (B1's
+    135 KB) and the two partial half rows of each CTA (n words: positions
+    [h n/2, (h+1) n/2) of both output rows) in a global scratch buffer, for
+    the relinearization (kd = 3) and multiply_batch's B = 2 alike; at
+    n = 65536 it raises, naming the function."""
+    n = 32768
+    assert ntt_cuda.ntt_forward_geometry(n, k=3)["smem"] == 135168
     assert ntt_cuda.keyswitch_geometry(16384, k=3, kd=3)["smem"] == 135168
-    with pytest.raises(ValueError, match="keyswitch_fused: n=32768"):
-        ntt_cuda.keyswitch_geometry(32768, k=3, kd=3)
+    assert 2 * 4 * padded(n) > MAX_SMEM
+    for batch in (1, 2):
+        geo = ntt_cuda.keyswitch_geometry(n, k=3, kd=3, batch=batch)
+        assert geo["wide"] and geo["smem"] == 135168 and geo["cluster"] == (6, 1, 1)
+        assert geo["scratch"] == 6 * batch * 3 * n and geo["threads"] == 512
+        assert_owned_once(n, geo["ctas_per_row"])
+    with pytest.raises(ValueError, match="keyswitch_fused: n=65536 needs"):
+        ntt_cuda.keyswitch_geometry(65536, k=3, kd=3)
 
 
 @pytest.mark.parametrize("n", [2, 16])
@@ -304,16 +384,23 @@ def test_ks_inner_galois_lane_cluster_per_element_row(n, elems):
 
 def test_galois_lanes_stage_a_row_and_ks_inner_runs_at_n32768():
     """keyswitch_fused's Galois lane stages the digit row it gathers from
-    beside its two padded rows: it fits up to n = 16384 and raises above,
-    naming the function; its classic lane keeps its shape.  ks_inner's
-    Galois lane stages c0 where it fits and reads it in place at
+    beside its two padded rows up to n = 16384; at n = 32768 it takes the
+    classic lane's wide form (the working row alone, partials in global
+    scratch) and reads the digit rows and c0 in place; at n = 65536 it
+    raises, naming the function; its classic lane keeps its shape.
+    ks_inner's Galois lane stages c0 where it fits and reads it in place at
     n = 32768."""
     n = 16384
     padded = n + n // 32
     assert ntt_cuda.keyswitch_geometry(n, 3, 3, galois=True)["smem"] == 4 * (2 * padded + n)
     assert ntt_cuda.keyswitch_geometry(n, 3, 3)["smem"] == 4 * 2 * padded
-    with pytest.raises(ValueError, match="keyswitch_fused: n=32768 needs"):
-        ntt_cuda.keyswitch_geometry(32768, 3, 3, galois=True)
+    assert not ntt_cuda.keyswitch_geometry(n, 3, 3, galois=True)["wide"]
+    for batch in (1, 2):
+        geo = ntt_cuda.keyswitch_geometry(32768, 3, 3, batch, galois=True)
+        assert geo == ntt_cuda.keyswitch_geometry(32768, 3, 3, batch)
+        assert geo["wide"] and geo["smem"] == 4 * (32768 + 32768 // 32) <= MAX_SMEM
+    with pytest.raises(ValueError, match="keyswitch_fused_batch: n=65536 needs"):
+        ntt_cuda.keyswitch_geometry(65536, 3, 3, 2, "keyswitch_fused_batch", galois=True)
     # ks_inner stages its c0 row where it fits (n <= 16384), and reads it in
     # place above
     geo = ntt_cuda.ks_inner_geometry(n, 3, 8, c0=True)

@@ -498,7 +498,7 @@ BSK_CASES = [(N, 218, 65537, 0, None), (N, 218, 65537, 0, BATCH), (N, 90, 65537,
              (N, 218, 65537, 2, BATCH), (N, 90, 786433, 0, None),
              (N, 90, 786433, 0, BATCH), (256, 150, 65537, 1, BATCH),
              (256, 150, 65537, 0, BATCH), (16384, 90, 65537, 0, None),
-             (16384, 90, 65537, 0, 2)]
+             (16384, 90, 65537, 0, 2), (32768, 90, 65537, 0, None), (32768, 90, 65537, 0, 2)]
 
 
 @pytest.mark.parametrize("n,log_q,t,level,batch", BSK_CASES)
@@ -526,7 +526,8 @@ def test_bsk_branch_cluster_kernel_matches_plain(dev, n, log_q, t, level, batch)
 DEC_CASES = [(N, 218, 65537, 0, 1), (N, 360, 65537, 0, 1), (N, 360, 786433, 0, BATCH),
              (N, 90, 65537, 1, 1), (N, 218, 65537, 3, BATCH), (N, 90, 786433, 0, BATCH),
              (16384, 90, 65537, 0, 1), (16384, 90, 786433, 0, BATCH),
-             (256, 150, 65537, 2, BATCH)]
+             (256, 150, 65537, 2, BATCH), (32768, 90, 65537, 0, 1),
+             (32768, 90, 786433, 0, BATCH)]
 
 
 @pytest.mark.parametrize("n,log_q,t,level,batch", DEC_CASES)
@@ -570,7 +571,8 @@ PRODUCT_CASES = [(256, 150, 65537, 0, None, "q"), (256, 150, 65537, 1, None, "bs
                  (N, 218, 65537, 2, None, "q"), (N, 218, 65537, 2, BATCH, "mul"),
                  (N, 90, 786433, 0, None, "mul"), (N, 90, 786433, 0, BATCH, "mul"),
                  (16384, 90, 65537, 0, None, "q"), (16384, 90, 65537, 0, 2, "mul"),
-                 (16384, 90, 786433, 0, BATCH, "mul")]
+                 (16384, 90, 786433, 0, BATCH, "mul"), (32768, 90, 65537, 0, None, "mul"),
+                 (32768, 90, 65537, 0, 2, "mul")]
 
 
 @pytest.mark.parametrize("c", [1, 2])
@@ -629,6 +631,55 @@ def test_keyswitch_kernel_n16384_matches_plain(dev, prereduced):
                        tntt.keyswitch_fused(d[..., 0, :], keys_t, tb, prereduced))
     assert torch.equal(ntt_cuda.keyswitch_fused_batch(d, keys_t, tb, prereduced),
                        tntt.keyswitch_fused_batch(d, keys_t, tb, prereduced))
+
+
+@pytest.mark.parametrize("lane", ["classic", "prereduced", "galois"])
+def test_keyswitch_kernel_n32768_matches_plain(dev, lane):
+    """B7 and B12 in their wide form at n = 32768 (partials in global
+    scratch; the Galois lane reads its rows in place): kd = 3 digits of
+    k = 3 primes, the grouped gadget's kd = 2 prereduced digits, and the
+    Galois lane of a rotation by g = 3, single and at B = 2."""
+    n = 32768
+    tb = _cached_ctx(n, 90, 65537, dev).ntt_q
+    qs, kd = tb.primes, 2 if lane == "prereduced" else 3
+    keys_t = torch.stack([_residues(qs, 2, dev, n) for _ in range(kd)]).permute(1, 0, 2, 3)
+    if lane == "prereduced":
+        d = _residues(qs, kd * 2, dev, n).view(3, kd, 2, n)
+    else:
+        d = torch.stack([_residues((q,), 2, dev, n)[0] for q in qs])
+    kw = dict(prereduced=lane == "prereduced")
+    if lane == "galois":
+        c0 = _residues(qs, 2, dev, n)
+        kw = dict(g=3, c0=c0)
+    one = {**kw, "c0": kw["c0"][:, 0]} if lane == "galois" else kw
+    assert torch.equal(ntt_cuda.keyswitch_fused(d[..., 0, :], keys_t, tb, **one),
+                       tntt.keyswitch_fused(d[..., 0, :], keys_t, tb, **one))
+    assert torch.equal(ntt_cuda.keyswitch_fused_batch(d, keys_t, tb, **kw),
+                       tntt.keyswitch_fused_batch(d, keys_t, tb, **kw))
+
+
+def test_multiply_n32768_on_card_matches_cpu(dev):
+    """tests/test_parallel.py:168-189's configuration (n = 32768,
+    log_q = 90, k = 3, lambda_ = 0, h = 16, seed 11): [4, 5, 6] x [7, 8, 9]
+    decodes [28, 40, 54], rotate_rows by 1 decodes, and the card's product
+    and rotation equal the plain path's on the CPU bit for bit."""
+    prm = make_scheme_params(SecurityParams(poly_degree=32768, log_q=90, lambda_=0,
+                                            hamming_weight=16))
+    fhe = FHE(prm, seed=11, device=dev)
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    gk = fhe.galoiskey_gen(sk, elements=(3,))
+    a = fhe.encrypt(fhe.encode([4, 5, 6]), pk)
+    b = fhe.encrypt(fhe.encode([7, 8, 9]), pk)
+    prod, rot = fhe.multiply(a, b, rlk), fhe.rotate_rows(a, 1, gk)
+    assert list(fhe.decode(fhe.decrypt(prod, sk))[:3]) == [28, 40, 54]
+    assert list(fhe.decode(fhe.decrypt(rot, sk))[:3]) == [5, 6, 0]
+    cpu = make_context(prm, device="cpu")
+    to_cpu = lambda ct: ct.replace(data=ct.data.cpu())
+    want = bfv.multiply(cpu, to_cpu(a), to_cpu(b), RelinKeys(data=rlk.data.cpu()))
+    assert torch.equal(prod.data.cpu(), want.data)
+    gk_cpu = GaloisKeys(data={g: v.cpu() for g, v in gk.data.items()})
+    assert torch.equal(rot.data.cpu(), bfv.rotate_rows(cpu, to_cpu(a), 1, gk_cpu).data)
 
 
 @pytest.mark.parametrize("omega", [1, 2])
