@@ -34,7 +34,23 @@ Phases, each printing its own lines:
      kernels (`n32768_launches` in the kernels line); the card equals the
      CPU plain path for encrypt_from_noise, multiply, rotate_rows, decrypt
      and BGV's multiply; multiply_relin_ms_n32768 and rotate_rows_ms_n32768
-     (device and wall ms);
+     (device and wall ms); then (phase secure128) the 128-bit sets of the two
+     largest rings at lambda_ = 128, h = 64, seed 11: n = 32768,
+     log_q = 870 (k = 29, kb = 32, kd = 29; kb = 30 at level 1) and
+     n = 16384, log_q = 420 (k = 14, kb = 16).  At n = 32768, B6 with the
+     digits in the base conversion's wide instance ([32,3,n] on random
+     residues, on every residue p - 1 and on every digit b_i - 1,
+     [32,6,n], level 1's [30,3,n]),
+     B4, B5 (kb = 32), B7 (kd = 29) and B8 equal their plain twins, with
+     device ms and bounds; with the counts zeroed, the BFV path through the
+     facade at both sets (keys, relin and Galois keys, encrypt, multiply,
+     multiply_batch at B = 2, rotate_rows by 1, mod_switch_to_next and the
+     multiply at level 1) decodes, each kernel of SECURE128_KERNELS
+     launched (`secure128_launches` in the kernels line); the card equals
+     the CPU plain path from the same keys and noise for
+     encrypt_from_noise, the multiply at levels 0 and 1, decrypt and
+     rotate_rows at both sets and for BGV's multiply at n = 32768; device
+     and wall ms of the multiply (levels 0 and 1) and rotate_rows;
   4. slice: the linear-ops main path through the FHE facade at n = 8192,
      log_q = 90 (k = 3), h = 64: keygen, encode, encrypt, add, add_plain and
      the 8-term resident plaintext multiply-accumulate, then decrypt and
@@ -242,9 +258,10 @@ off a 16-byte boundary, with a run of zeros in c0 and the digits; a
 sum_slots stage's B17 and B15 (E = 3, and at k8_omega's k = 8, kd = 4).
 The line before the last is {"kernels": [...]}, each kernel with its launches
 on its own path (phase 4 to 11), on the bgv path (bgv_launches), on the
-bootstrap path (bootstrap_launches) and on the paths of phases 14 to 18
+bootstrap path (bootstrap_launches), on the paths of phases 14 to 18
 (plain_ops_launches, mxu_launches, examples_launches, fuzz_launches,
-parallel_launches); the
+parallel_launches) and on those of n32768 and secure128
+(n32768_launches, secure128_launches); the
 last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; without
 a card the script exits 1 before printing any result.  Imports no JAX and
@@ -255,6 +272,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import os
 import re
 import statistics
@@ -593,15 +611,21 @@ def bsk_branch_work(k: int, kb: int, batch: int = 1, n: int = N) -> tuple[float,
                                            + floor))
 
 
+def folds(terms: int) -> int:
+    """reduce_wide calls of an unreduced 64-bit sum of ``terms`` products:
+    one after every 16 terms that more terms follow, and the last."""
+    return 1 + (terms - 1) // 16
+
+
 def sk_ops(kb: int, k: int, m: int) -> float:
     """Integer ops of the Shenoy-Kumaresan conversion of m coefficients from
     kb Bsk primes to k q primes: each aux digit once; per coefficient the
     m_sk sum (an unreduced 64-bit sum, one multiply-add a digit, and its
-    reduction) and alpha; per output the same sum into q_j and the centred
+    reductions: ``folds``) and alpha; per output the same sum into q_j and the centred
     correction."""
     o = OPS
     l = kb - 1
-    conv = l * o["mac_wide"] + o["reduce_wide"]
+    conv = l * o["mac_wide"] + folds(l) * o["reduce_wide"]
     return (l * m * o["mul_shoup"]
             + m * (conv + o["sub_mod"] + o["mul_shoup"])
             + k * m * (conv + o["select"] + o["mul_shoup"] + o["sub_mod"]))
@@ -773,10 +797,10 @@ def tensor_product_lift_work(k: int, kb: int, n: int = N) -> tuple[float, float]
 
 def floor_ops(k: int, kb: int, cols: int) -> float:
     """FastFloor of cols coefficients into kb primes: the k digits once; per
-    output the conversion (an unreduced 64-bit sum and its reduction), the
+    output the conversion (an unreduced 64-bit sum and its reductions), the
     subtraction and the q^-1 scale."""
     o = OPS
-    per_out = k * o["mac_wide"] + o["reduce_wide"] + o["sub_mod"] + o["mul_shoup"]
+    per_out = k * o["mac_wide"] + folds(k) * o["reduce_wide"] + o["sub_mod"] + o["mul_shoup"]
     return cols * k * o["mul_shoup"] + kb * cols * per_out
 
 
@@ -1733,6 +1757,65 @@ def n32768_cases(gen: torch.Generator, ctx) -> list:
             decrypt_case(gen, ctx.params, 0, 2, "n=32768")]
 
 
+def check_card_vs_cpu(fhe: FHE, pk: PublicKey, sk: SecretKey, rlk: RelinKeys,
+                      gk: GaloisKeys, label: str, levels: tuple = (0,)) -> None:
+    """fhe's keys and the same noise through the plain versions on the
+    CPU: encrypt_from_noise of VALS_32K, the multiply at each of ``levels``
+    (after as many mod_switch_to_next), its decrypt (which must decode
+    PRODUCT_32K) and rotate_rows by 1 equal the card's bit for bit."""
+    prm, n = fhe.ctx.params, fhe.ctx.n
+    cpu = make_context(prm, device="cpu")
+    sk_cpu, pk_cpu = SecretKey(data=sk.data.cpu()), PublicKey(data=pk.data.cpu())
+    rlk_cpu = RelinKeys(data=rlk.data.cpu())
+    gk_cpu = GaloisKeys(data={g: v.cpu() for g, v in gk.data.items()})
+    noise = torch.Generator(device="cuda").manual_seed(17)
+    qs = fhe.ctx.ntt_q.p
+    enc = {"cuda": [], "cpu": []}
+    for v in VALS_32K:
+        draws = (sampling.ternary_rns(noise, qs, 1, n, prm.security.hamming_weight),
+                 sampling.gaussian_rns(noise, qs, 3.2, 1, n),
+                 sampling.gaussian_rns(noise, qs, 3.2, 1, n))
+        pt = fhe.encode(v)
+        enc["cuda"].append(bfv.encrypt_from_noise(fhe.ctx, pk, pt, *draws))
+        enc["cpu"].append(bfv.encrypt_from_noise(cpu, pk_cpu, Plaintext(data=pt.data.cpu()),
+                                                 *(d.cpu() for d in draws)))
+    check(same_cts(enc["cuda"], enc["cpu"]), f"{label} encrypt_from_noise: card != CPU")
+    cts = enc
+    for level in levels:
+        while cts["cuda"][0].level < level:
+            cts = {"cuda": [fhe.mod_switch_to_next(c) for c in cts["cuda"]],
+                   "cpu": [bfv.mod_switch_to_next(cpu, c) for c in cts["cpu"]]}
+            check(same_cts(cts["cuda"], cts["cpu"]), f"{label} mod_switch_to_next: card != CPU")
+        prod_card = fhe.multiply(*cts["cuda"], rlk)
+        prod_cpu = bfv.multiply(cpu, *cts["cpu"], rlk_cpu)
+        check(same_cts([prod_card], [prod_cpu]),
+              f"{label} multiply at level {level}: card != CPU plain path")
+        plain_card, plain_cpu = fhe.decrypt(prod_card, sk), bfv.decrypt(cpu, prod_cpu, sk_cpu)
+        check(torch.equal(plain_card.data.cpu(), plain_cpu.data)
+              and [int(v) for v in fhe.decode(plain_card)[:3]] == PRODUCT_32K,
+              f"{label} decrypt at level {level}: card != CPU plain path, or wrong product")
+    check(same_cts([fhe.rotate_rows(enc["cuda"][0], 1, gk)],
+                   [bfv.rotate_rows(cpu, enc["cpu"][0], 1, gk_cpu)]),
+          f"{label} rotate_rows: card != CPU plain path")
+
+
+def check_bgv_multiply(prm, label: str) -> None:
+    """BGV's multiply of VALS_32K at prm (B4, B7 and the plain q tables)
+    decodes PRODUCT_32K and equals the CPU plain path from the same keys
+    and ciphertexts."""
+    bfhe = FHE(prm, seed=11, scheme="bgv", device="cuda")
+    bcpu = make_context(prm, device="cpu")
+    bpk, bsk = bfhe.keygen()
+    brlk = bfhe.relinkey_gen(bsk)
+    ba, bb = (bfhe.encrypt(bfhe.encode(v), bpk) for v in VALS_32K)
+    bprod = bfhe.multiply(ba, bb, brlk)
+    to_cpu = lambda c: c.replace(data=c.data.cpu())
+    check(same_cts([bprod], [bgv.multiply(bcpu, to_cpu(ba), to_cpu(bb),
+                                          RelinKeys(data=brlk.data.cpu()))])
+          and [int(v) for v in bfhe.decode(bfhe.decrypt(bprod, bsk))[:3]] == PRODUCT_32K,
+          f"{label} BGV multiply: card != CPU plain path, or wrong product")
+
+
 def phase_n32768(gen: torch.Generator) -> dict:
     """n = 32768.  The JAX bench's g_n32768 (bench.py:932-945): 3 NTT primes
     for n = 32768, one [1, 32768] row per prime from numpy seed 5;
@@ -1798,45 +1881,10 @@ def phase_n32768(gen: torch.Generator) -> dict:
           and torch.equal(rots[0].data, rot.data),
           "n=32768 multiply_batch or rotate_rows_batch differs from the single op")
 
-    # the same keys and noise through the plain versions on the CPU
-    cpu = make_context(prm, device="cpu")
-    sk_cpu, pk_cpu = SecretKey(data=sk.data.cpu()), PublicKey(data=pk.data.cpu())
-    rlk_cpu = RelinKeys(data=rlk.data.cpu())
-    gk_cpu = GaloisKeys(data={g: v.cpu() for g, v in gk.data.items()})
-    noise = torch.Generator(device="cuda").manual_seed(17)
-    qs = fhe.ctx.ntt_q.p
-    enc = {"cuda": [], "cpu": []}
-    for v in VALS_32K:
-        draws = (sampling.ternary_rns(noise, qs, 1, n, prm.security.hamming_weight),
-                 sampling.gaussian_rns(noise, qs, 3.2, 1, n),
-                 sampling.gaussian_rns(noise, qs, 3.2, 1, n))
-        pt = fhe.encode(v)
-        enc["cuda"].append(bfv.encrypt_from_noise(fhe.ctx, pk, pt, *draws))
-        enc["cpu"].append(bfv.encrypt_from_noise(cpu, pk_cpu, Plaintext(data=pt.data.cpu()),
-                                                 *(d.cpu() for d in draws)))
-    check(same_cts(enc["cuda"], enc["cpu"]), "n=32768 encrypt_from_noise: card != CPU")
-    prod_card = fhe.multiply(*enc["cuda"], rlk)
-    prod_cpu = bfv.multiply(cpu, *enc["cpu"], rlk_cpu)
-    check(same_cts([prod_card], [prod_cpu]), "n=32768 multiply: card != CPU plain path")
-    check(same_cts([fhe.rotate_rows(enc["cuda"][0], 1, gk)],
-                   [bfv.rotate_rows(cpu, enc["cpu"][0], 1, gk_cpu)]),
-          "n=32768 rotate_rows: card != CPU plain path")
-    plain_card, plain_cpu = fhe.decrypt(prod_card, sk), bfv.decrypt(cpu, prod_cpu, sk_cpu)
-    check(torch.equal(plain_card.data.cpu(), plain_cpu.data)
-          and [int(v) for v in fhe.decode(plain_card)[:3]] == PRODUCT_32K,
-          "n=32768 decrypt: card != CPU plain path, or wrong product")
+    # the same keys and noise through the plain versions on the CPU, and
     # BGV's multiply at the same shape (B4, B7 and the plain q tables)
-    bfhe = FHE(prm, seed=11, scheme="bgv", device="cuda")
-    bcpu = make_context(prm, device="cpu")
-    bpk, bsk = bfhe.keygen()
-    brlk = bfhe.relinkey_gen(bsk)
-    ba, bb = (bfhe.encrypt(bfhe.encode(v), bpk) for v in VALS_32K)
-    bprod = bfhe.multiply(ba, bb, brlk)
-    to_cpu = lambda c: c.replace(data=c.data.cpu())
-    check(same_cts([bprod], [bgv.multiply(bcpu, to_cpu(ba), to_cpu(bb),
-                                          RelinKeys(data=brlk.data.cpu()))])
-          and [int(v) for v in bfhe.decode(bfhe.decrypt(bprod, bsk))[:3]] == PRODUCT_32K,
-          "n=32768 BGV multiply: card != CPU plain path, or wrong product")
+    check_card_vs_cpu(fhe, pk, sk, rlk, gk, f"n={n}")
+    check_bgv_multiply(prm, f"n={n}")
     print(f"phase n32768 check: n={n}, k=3, kb=5, kd=3; B4/B11, B5, B7/B12 (both lanes) and B8 "
           f"== their plain twins; multiply, multiply_batch (B=2) and BGV's multiply decoded "
           f"{PRODUCT_32K}, rotate_rows and rotate_rows_batch by 1 decoded; batch element "
@@ -1847,6 +1895,141 @@ def phase_n32768(gen: torch.Generator) -> dict:
     times["rotate_rows_ms_n32768"] = {"device_ms": device_ms(lambda: fhe.rotate_rows(ca, 1, gk)),
                                       "wall_ms": wall_ms(lambda: fhe.rotate_rows(ca, 1, gk))}
     print("phase n32768", json.dumps({"card": card_name(), **times}))
+    return launches
+
+
+# the 128-bit sets of the two largest rings (fhe_tpu/params.py's table at
+# the default lambda_ = 128, h = 64): n = 32768, log_q = 870 (k = 29,
+# kb = 32, kd = 29; kb = 30 at level 1) and n = 16384, log_q = 420 (k = 14,
+# kb = 16)
+SECURE128 = ((32768, 870), (16384, 420))
+# the kernels the secure128 path must launch
+SECURE128_KERNELS = ("ntt_forward", "ntt_inverse", "mul_by_ntt_operand", "decrypt_fused",
+                     "tensor_product", "bsk_branch_fused", "fast_bconv_sk_fused",
+                     "keyswitch_fused", "keyswitch_fused_galois", "tensor_product_batch",
+                     "bsk_branch_fused_batch", "keyswitch_fused_batch")
+
+
+def secure128_params(n: int, log_q: int):
+    """The 128-bit set at n, at the defaults lambda_ = 128 and h = 64; the
+    below-security warning is an error here."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        return make_scheme_params(SecurityParams(poly_degree=n, log_q=log_q))
+
+
+def secure128_cases(gen: torch.Generator, ctx) -> list:
+    """The kernels at the n = 32768, k = 29 set's shapes: B6 with the
+    digits (the wide instance of the base conversion) at [32,3,n] on
+    random residues, on every residue p - 1 and on the aux residues whose
+    digits [x_i * (B/b_i)^-1]_{b_i} are all b_i - 1 (the largest terms of
+    its unreduced sums), at multiply_batch's [32,6,n] (B = 2) and at level
+    1's [30,3,n] -> [28,3,n]; B4 at k = 29, B5 at kb = 32, B7 at kd = 29
+    and B8 at k = 29."""
+    k, n = ctx.k, ctx.n
+    out = []
+    for level, rows, inputs in ((0, 3, "random"), (0, 3, "every residue p - 1"),
+                                (0, 3, "every digit b_i - 1"), (0, 6, "random"),
+                                (1, 3, "random")):
+        sk, bsk, kl = ctx.sk_levels[level], ctx.mul_levels[level][1].primes, k - level
+        if inputs == "random":
+            xb = residues(gen, bsk, rows, n)
+        else:
+            big = math.prod(bsk[:-1])
+            vals = [p - 1 if "residue" in inputs else (p - 1) * (big // p) % p
+                    for p in bsk[:-1]] + [bsk[-1] - 1]
+            xb = torch.stack([torch.full((rows, n), v, dtype=torch.int64, device="cuda")
+                              for v in vals]).to(torch.int32)
+        label = (f"n={n}, level {level}: digits [{len(bsk)},{rows},{n}] -> [{kl},{rows},{n}]"
+                 f", {inputs}")
+        out.append(("fast_bconv_sk_fused", label,
+                    lambda x=xb, s=sk, d=digit_consts(ctx, level):
+                    rns_cuda.fast_bconv_sk_fused(x, s, d),
+                    lambda x=xb, s=sk, d=digit_consts(ctx, level):
+                    rns.fast_bconv_sk_digits(x, s, d[0]),
+                    fast_bconv_sk_work(len(bsk), kl, rows, n, digits=True)))
+    s = residues(gen, ctx.ntt_q.primes, 1, n)
+    ct = residues(gen, ctx.ntt_q.primes, 2, n)
+    dec_args = (ct[:, 0:1], ct[:, 1:2], s, ctx.ntt_q, ctx.dec_levels[0])
+    label = f"n={n}, k={k}"
+    return out + [product_case(gen, ctx, 0, "mul", None, label),
+                  bsk_case(gen, ctx, 0, None, label),
+                  keyswitch_case(gen, ctx, 0, k, None, False, label),
+                  ("decrypt_fused", f"{label}: views of [{k},2,{n}], t={ctx.params.t}",
+                   lambda: decrypt_cuda.decrypt_fused(*dec_args),
+                   lambda: decrypt_cuda.decrypt_fused_plain(*dec_args), decrypt_work(k, 1, n))]
+
+
+def secure128_run(fhe: FHE):
+    """The BFV path through the facade at one set: keygen, relin and Galois
+    (3) keys, encrypt, multiply, multiply_batch at B = 2, rotate_rows by 1,
+    mod_switch_to_next and the multiply at level 1, each decoded."""
+    n = fhe.ctx.n
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    gk = fhe.galoiskey_gen(sk, elements=(3,))
+    ca, cb = (fhe.encrypt(fhe.encode(v), pk) for v in VALS_32K)
+    prod = fhe.multiply(ca, cb, rlk)
+    prods = fhe.multiply_batch([ca, cb], [cb, ca], rlk)
+    rot = fhe.rotate_rows(ca, 1, gk)
+    a1, b1 = fhe.mod_switch_to_next(ca), fhe.mod_switch_to_next(cb)
+    prod1 = fhe.multiply(a1, b1, rlk)
+    dec = lambda ct, count=3: [int(v) for v in fhe.decode(fhe.decrypt(ct, sk))[:count]]
+    label = f"n={n}, k={fhe.ctx.k}"
+    check(dec(prod) == PRODUCT_32K, f"{label} multiply decoded {dec(prod)}")
+    check([dec(c) for c in prods] == [PRODUCT_32K] * 2
+          and all(torch.equal(c.data, prod.data) for c in prods),
+          f"{label} multiply_batch decoded wrong or differs from the single multiply")
+    check(dec(rot, n // 2) == rotated(VALS_32K[0], 1, n), f"{label} rotate_rows by 1 decoded wrong")
+    check(prod1.level == 1 and dec(prod1) == PRODUCT_32K,
+          f"{label} multiply at level 1 decoded {dec(prod1)}")
+    return dict(pk=pk, sk=sk, rlk=rlk, gk=gk, ca=ca, cb=cb, a1=a1, b1=b1)
+
+
+def phase_secure128(gen: torch.Generator) -> dict:
+    """The 128-bit sets (SECURE128) on the card.  At n = 32768, k = 29
+    (kb = 32, kd = 29): B6 in the wide instance of the base conversion, B4,
+    B5, B7 and B8 against their plain twins; then, with the counts zeroed,
+    the BFV path through the facade at both sets (secure128_run), every
+    kernel of SECURE128_KERNELS launched; the card == the CPU plain path
+    from the same keys and noise for encrypt_from_noise, the multiply at
+    levels 0 and 1, its decrypt and rotate_rows, and for BGV's multiply at
+    n = 32768; device and wall ms of the multiply (levels 0 and 1) and of
+    rotate_rows at each set.  Returns the path's launches."""
+    t0 = time.perf_counter()
+    fhes = [FHE(secure128_params(n, log_q), seed=11, device="cuda") for n, log_q in SECURE128]
+    ctx = fhes[0].ctx
+    counts = (ctx.k, ctx.mul_levels[0][1].k, ctx.mul_levels[1][1].k)
+    check(counts == (29, 32, 30), f"n=32768, log_q=870: k, kb, level-1 kb {counts}")
+    check((fhes[1].ctx.k, fhes[1].ctx.mul_levels[0][1].k) == (14, 16),
+          "n=16384, log_q=420: expected k = 14, kb = 16")
+    run_cases(secure128_cases(gen, ctx), "phase secure128 kernel")
+    reset_counts()
+    runs = [secure128_run(f) for f in fhes]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print("phase secure128 launches", json.dumps({k: v for k, v in launches.items() if v}))
+    for name in SECURE128_KERNELS:
+        check(launches[name] > 0, f"{name} was never launched on the secure128 path")
+    times = {}
+    for fhe, r in zip(fhes, runs):
+        n, label = fhe.ctx.n, f"n={fhe.ctx.n}, k={fhe.ctx.k}"
+        check_card_vs_cpu(fhe, r["pk"], r["sk"], r["rlk"], r["gk"], label, levels=(0, 1))
+        for op, fn in (("multiply_relin", lambda: fhe.multiply(r["ca"], r["cb"], r["rlk"])),
+                       ("multiply_relin_level1",
+                        lambda: fhe.multiply(r["a1"], r["b1"], r["rlk"])),
+                       ("rotate_rows", lambda: fhe.rotate_rows(r["ca"], 1, r["gk"]))):
+            times[f"{op}_ms_secure128_n{n}"] = {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
+    check_bgv_multiply(fhes[0].ctx.params, "n=32768, k=29")
+    print("phase secure128 check: n=32768, log_q=870 (k=29, kb=32, kd=29; level 1 kb=30) and "
+          "n=16384, log_q=420 (k=14, kb=16) at lambda_=128, h=64: B6 (wide instance, also on "
+          "every residue p - 1 and every digit b_i - 1), B4, B5, B7 and B8 == their plain "
+          "twins at n=32768; multiply, "
+          f"multiply_batch (B=2), the level-1 multiply and BGV's multiply decoded {PRODUCT_32K}, "
+          "rotate_rows by 1 decoded; card == CPU plain path for encrypt_from_noise, the "
+          "multiply at levels 0 and 1, decrypt, rotate_rows and BGV's multiply")
+    print("phase secure128", json.dumps({"card": card_name(), **times,
+                                         "seconds": time.perf_counter() - t0}))
     return launches
 
 
@@ -3751,7 +3934,7 @@ def main() -> int:
     results = phase_kernels(gen)
     phase_geometry()
     phase_n16384()
-    launches = {"n32768": phase_n32768(gen),
+    launches = {"n32768": phase_n32768(gen), "secure128": phase_secure128(gen),
                 "slice": phase_slice(), "multiply": phase_multiply(),
                 "serving": phase_serving(), "hoisted": phase_hoisted(),
                 "omega": phase_omega(), "leveled": phase_leveled(),
@@ -3770,7 +3953,7 @@ def main() -> int:
                      "bootstrap_launches": launches["bootstrap"][name],
                      **{f"{path}_launches": launches[path][name]
                         for path in ("plain_ops", "mxu", "examples", "fuzz", "parallel",
-                                     "n32768")},
+                                     "n32768", "secure128")},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,

@@ -28,8 +28,12 @@
 namespace fhe {
 
 constexpr uint32_t kMask16 = 0xFFFFu;
-// The most source primes SmMRqLift::one takes (ops/ntt_cuda.py: LIFT_MAX_K)
-constexpr int kMaxLiftK = 16;
+// SmMRqLift::one loads the source rows in groups of kLiftGroup and takes at
+// most kMaxLiftK source primes (ops/ntt_cuda.py: LIFT_MAX_K); sm_mrq_step
+// reduces at every step, so nothing but the loads depends on the group.
+constexpr int kLiftGroup = 16;
+constexpr int kMaxLiftK = 32;
+static_assert(kMaxLiftK % kLiftGroup == 0, "the lift loads whole groups");
 
 // sm_mrq_step folds in the residue x_i of source prime q_i: the digit y_i
 // (w, w_sh = [m~ (q/q_i)^-1]_{q_i} and its Shoup companion), conv += y_i *
@@ -92,18 +96,25 @@ struct SmMRqLift {
         imt(__ldg(o.inv_mt_c + j)), imt_sh(__ldg(o.inv_mt_c_sh + j)) {}
 
   // The lift of the one coefficient whose residue mod q_i is src[i * sp],
-  // i < k <= kMaxLiftK, with its k source loads in flight at once.
+  // i < k <= kMaxLiftK, with the source loads of a group of kLiftGroup
+  // primes in flight at once.
   __device__ __forceinline__ uint32_t one(const uint32_t* __restrict__ src, long long sp) const {
-    uint32_t x[kMaxLiftK];
-#pragma unroll
-    for (int i = 0; i < kMaxLiftK; ++i)
-      if (i < op.k) x[i] = __ldg(src + i * sp);
     uint32_t conv = 0, lane = 0;
 #pragma unroll
-    for (int i = 0; i < kMaxLiftK; ++i) {
-      if (i >= op.k) break;
-      sm_mrq_step(x[i], __ldg(op.q + i), __ldg(op.w + i), __ldg(op.w_sh + i), __ldg(phat + i),
-                  __ldg(phat_sh + i), __ldg(op.phat_mt + i), c, conv, lane);
+    for (int g = 0; g < kMaxLiftK / kLiftGroup; ++g) {
+      const int i0 = g * kLiftGroup;
+      if (g > 0 && i0 >= op.k) break;
+      uint32_t x[kLiftGroup];
+#pragma unroll
+      for (int i = 0; i < kLiftGroup; ++i)
+        if (i0 + i < op.k) x[i] = __ldg(src + (i0 + i) * sp);
+#pragma unroll
+      for (int i = 0; i < kLiftGroup; ++i) {
+        const int s = i0 + i;
+        if (s >= op.k) break;
+        sm_mrq_step(x[i], __ldg(op.q + s), __ldg(op.w + s), __ldg(op.w_sh + s), __ldg(phat + s),
+                    __ldg(phat_sh + s), __ldg(op.phat_mt + s), c, conv, lane);
+      }
     }
     return sm_mrq_close(conv, lane, op.inv_q_mt, c, qc, qc_sh, imt, imt_sh);
   }

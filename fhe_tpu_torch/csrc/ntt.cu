@@ -389,9 +389,9 @@ tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
     // the first pass's elements of row r for this CTA (its columns j mod
     // n/16, modmath.cuh's RowSplit note) lifted into c_i and staged in the
     // working row by every thread of the CTA, a coefficient each with its
-    // k source loads in flight: at n < 1024 the first pass has n/32 groups
-    // per CTA, and lifting a group of 16 in one thread, k loads after one
-    // another, took 3 us (PERF.md)
+    // source loads in flight (16 primes at a time, lift.cuh): at n < 1024
+    // the first pass has n/32 groups per CTA, and lifting a group of 16 in
+    // one thread, k loads after one another, took 3 us (PERF.md)
     const fhe::SmMRqLift lift(lo, i, pi);
     const int cols = (n >> fhe::kRegLog) / kRowSplit;
     const int logc = logn - fhe::kRegLog - 1;

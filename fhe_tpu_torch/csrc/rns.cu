@@ -38,7 +38,11 @@
 // for the floor.  Here one thread owns V consecutive coefficients of every
 // row: it forms each source digit once, keeps the digits in registers (KB,
 // the Bsk prime count, is a template parameter, so their arrays are indexed
-// at compile time) and loops over the destination primes.  The lanes are
+// at compile time) and loops over the destination primes.  The instances for
+// KB = 2 .. 17 serve every base up to k = 15; one wide instance, with room
+// for 33 Bsk primes and the actual kb given at run time, takes the larger
+// bases up to the top of the JAX package's security table (n = 32768,
+// log_q = 881: k = 30, kb = 33).  The lanes are
 // template parameters: SK (Bsk -> q; given the relinearization's inv_qhat it
 // also stores the gadget digits [c2_j * (q/q_j)^-1]_{q_j} of the c2 rows
 // beside them, which spares the multiply a chain of elementwise launches),
@@ -52,8 +56,8 @@
 // source prime and may exceed the destination prime (m_sk and several aux
 // primes are below some q_i), so every product with a digit is a Shoup
 // multiply, exact for any x < 2^32, or (base_conv_kernel) an unreduced
-// 64-bit product of two words below 2^30; mul_barrett only ever sees
-// reduced operands.
+// 64-bit product of two words below 2^30, at most 16 of them in one sum
+// between reductions; mul_barrett only ever sees reduced operands.
 //
 // What bounds them on the H100.  bsk_branch_fused at n = 8192, k = 3,
 // kb = 5 reads 7 * 96 KB of residues and 5 * 128 KB of tables and writes
@@ -263,20 +267,31 @@ bsk_branch_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_
 // the floor with the Shenoy-Kumaresan conversion after it).  One thread owns
 // V consecutive coefficients of every row: it forms each source digit once
 // and reuses it for every destination prime.  A conversion sum
-// sum_i y_i * w_i mod c of L <= 16 digits y_i < 2^30 and table words
-// w_i < 2^30 accumulates unreduced in 64 bits (one IMAD.WIDE a term) and is
-// reduced once (fhe::reduce_wide): the Shoup product and modular add per
-// term of the TPU kernels' form take ten instructions, and the sum in that
-// form is one dependent chain of modular adds.
+// sum_i y_i * w_i mod c of digits y_i < 2^30 and table words w_i < 2^30
+// accumulates unreduced in 64 bits (one IMAD.WIDE a term) and is reduced
+// once (fhe::reduce_wide): the Shoup product and modular add per term of
+// the TPU kernels' form take ten instructions, and the sum in that form is
+// one dependent chain of modular adds.  Sixteen such products stay below
+// 2^64 and seventeen can wrap, so a longer sum is folded with reduce_wide
+// after every kFold terms and goes on adding: a value below 2^30 plus 16
+// products below 2^60 is still below 2^64.
 enum Lane : int { kLaneSK = 0, kLaneFloor = 1, kLaneFloorSK = 2 };
 
-// Bsk bases the kernel is instantiated for (KB primes: KB - 1 aux + m_sk;
-// the aux sum has KB - 1 <= 16 terms), and the most q primes the floor
-// sums; ops/rns_cuda.py (CONV_KB, CONV_MAX_FLOOR_K) checks a call against
-// them.
+// The fixed instances: KB = kMinKb .. kMaxKb Bsk primes (KB - 1 aux + m_sk;
+// their aux sums have at most 16 terms and never fold) and a floor from at
+// most kMaxFloorK q primes (one group of loads).  The wide instance (WIDE,
+// one word per thread) has room for kWideKb Bsk primes and takes kb at run
+// time; its floor loads the q rows in groups of kFold, up to kWideFloorK.
+// ops/rns_cuda.py (CONV_KB, CONV_MAX_FLOOR_K, CONV_FIXED_KB,
+// CONV_FIXED_FLOOR_K) picks the instance and checks a call against them.
 constexpr int kMinKb = 2;
 constexpr int kMaxKb = 17;
 constexpr int kMaxFloorK = 16;
+constexpr int kWideKb = 33;
+constexpr int kWideFloorK = 32;
+constexpr int kFold = 16;
+static_assert(kMaxKb - 1 <= kFold && kMaxFloorK == kFold && kWideFloorK % kFold == 0,
+              "the fixed instances' sums must not fold; the wide floor loads whole groups");
 
 // The lanes' constants: pointers to the wrapper's per-prime tensors
 // (ops/rns.py SKConsts, FastFloorConsts, the relinearization's inv_qhat),
@@ -305,6 +320,7 @@ struct ConvConsts {
   const uint32_t* inv_q_c_sh;
   uint32_t m_sk, inv_b, inv_b_sh;   // B^-1 mod m_sk, Shoup
   int k;
+  int kb;                           // Bsk primes (the wide instance reads it)
 };
 
 // Where a lane's staged constants lie in shared memory: 16-byte quads
@@ -383,16 +399,18 @@ __device__ __forceinline__ void store_words(uint32_t* p, const uint32_t (&x)[V])
   }
 }
 
-// Lane SK: src [KB, count] (the L = KB - 1 aux rows, then the m_sk row),
+// Lane SK: src [kb, count] (the l = kb - 1 aux rows, then the m_sk row),
 // out [k, count] in q; with the digits lane (dig not null), also
 // dig [k, count - dstart]: the digits [out_j * (q/q_j)^-1]_{q_j} of the
 // words from dstart on (the c2 rows, component-major).  Lane Floor: src
-// [k, count] the residues of t*x in q, txb [KB, count] those in Bsk, out
-// [KB, count] = (txb - conv(src)) * q^-1.  Lane FloorSK: the floored
+// [k, count] the residues of t*x in q, txb [kb, count] those in Bsk, out
+// [kb, count] = (txb - conv(src)) * q^-1.  Lane FloorSK: the floored
 // residues stay in registers and go through lane SK, out [k, count] (and
 // dig).  Thread t of block b owns words e .. e + V - 1, e = (b * blockDim
 // + t) * V, of every row.  The wrapper keeps every offset below 2^31.
-template <int LaneT, int V, int KB>
+// kb is KB, or with WIDE cc.kb <= KB: the register arrays are sized by KB
+// and indexed at compile time, each loop over them stopping at kb or l.
+template <int LaneT, int V, int KB, bool WIDE>
 __global__ void __launch_bounds__(256)
 base_conv_kernel(const uint32_t* __restrict__ src, const uint32_t* __restrict__ txb,
                  uint32_t* __restrict__ out, uint32_t* __restrict__ dig, const ConvConsts cc,
@@ -402,37 +420,40 @@ base_conv_kernel(const uint32_t* __restrict__ src, const uint32_t* __restrict__ 
   constexpr bool kFloor = LaneT != kLaneSK;
   extern __shared__ uint4 conv_quads[];
   const int k = cc.k;
+  const int kb = WIDE ? cc.kb : KB;
+  const int l = kb - 1;
   const bool digits = kSK && dig != nullptr;
-  const ConvSmem lay(LaneT, k, KB, digits);
+  const ConvSmem lay(LaneT, k, kb, digits);
   uint2* pairs = reinterpret_cast<uint2*>(conv_quads + lay.quads);
   uint32_t* words = reinterpret_cast<uint32_t*>(pairs + lay.pairs);
   const int e = (blockIdx.x * blockDim.x + threadIdx.x) * V;
   const bool active = e < count;
-  // 1. this thread's KB rows first (the aux and m_sk rows, or t*x in Bsk),
+  // 1. this thread's kb rows first (the aux and m_sk rows, or t*x in Bsk),
   // so that their loads are in flight while the constants are staged
   const uint32_t* rows = kFloor ? txb : src;
   uint32_t x[KB][V];
   if (active) {
 #pragma unroll
-    for (int r = 0; r < KB; ++r) load_words<V>(x[r], rows + r * count + e, vec);
+    for (int r = 0; r < KB; ++r)
+      if (r < kb) load_words<V>(x[r], rows + r * count + e, vec);
   }
   if constexpr (kSK) {
     stage_quads(conv_quads + lay.qw, cc.q, cc.q_wide, k);
     if (threadIdx.x == 0)
       conv_quads[lay.qw + k] = make_uint4(cc.m_sk, cc.msk_wide[0], cc.msk_wide[1],
                                           cc.msk_wide[2]);
-    stage_pairs(pairs + lay.ainv, cc.aux_inv_phat, cc.aux_inv_phat_sh, L);
+    stage_pairs(pairs + lay.ainv, cc.aux_inv_phat, cc.aux_inv_phat_sh, l);
     stage_pairs(pairs + lay.bq, cc.b_mod_q, cc.b_mod_q_sh, k);
     if (digits) stage_pairs(pairs + lay.w, cc.w, cc.w_sh, k);
-    stage_words(words + lay.phq, cc.phat_q, k * L);
-    stage_words(words + lay.psk, cc.phat_sk, L);
-    stage_words(words + lay.aux, cc.aux, L);
+    stage_words(words + lay.phq, cc.phat_q, k * l);
+    stage_words(words + lay.psk, cc.phat_sk, l);
+    stage_words(words + lay.aux, cc.aux, l);
   }
   if constexpr (kFloor) {
-    stage_quads(conv_quads + lay.cw, cc.cp, cc.c_wide, KB);
+    stage_quads(conv_quads + lay.cw, cc.cp, cc.c_wide, kb);
     stage_pairs(pairs + lay.finv, cc.f_inv_phat, cc.f_inv_phat_sh, k);
-    stage_pairs(pairs + lay.iq, cc.inv_q_c, cc.inv_q_c_sh, KB);
-    stage_words(words + lay.fph, cc.f_phat, KB * k);
+    stage_pairs(pairs + lay.iq, cc.inv_q_c, cc.inv_q_c_sh, kb);
+    stage_words(words + lay.fph, cc.f_phat, kb * k);
     stage_words(words + lay.fq, cc.fq, k);
   }
   __syncthreads();
@@ -442,7 +463,7 @@ base_conv_kernel(const uint32_t* __restrict__ src, const uint32_t* __restrict__ 
   uint32_t y[L][V];   // the aux digits [x_i * (B/b_i)^-1]_{b_i}
   uint32_t xm[V];     // the m_sk residue
   if constexpr (kFloor) {
-    // 2a. FastFloor into all KB primes: each digit of t*x in q once, its
+    // 2a. FastFloor into all kb primes: each digit of t*x in q once, its
     // products with every Bsk prime's table word summed unreduced
     const uint4* cw = conv_quads + lay.cw;
     const uint2* finv = pairs + lay.finv;
@@ -454,27 +475,44 @@ base_conv_kernel(const uint32_t* __restrict__ src, const uint32_t* __restrict__ 
     for (int c = 0; c < KB; ++c)
 #pragma unroll
       for (int v = 0; v < V; ++v) acc[c][v] = 0;
-    // the k <= kMaxFloorK source rows: every load in flight at once
-    uint32_t t[kMaxFloorK][V];
+    // the k source rows in groups of kFold (the fixed instances: one group),
+    // every load of a group in flight at once; the sums fold between groups
+    constexpr int kGroups = WIDE ? kWideFloorK / kFold : 1;
 #pragma unroll
-    for (int i = 0; i < kMaxFloorK; ++i)
-      if (i < k) load_words<V>(t[i], src + i * count + e, vec);
+    for (int g = 0; g < kGroups; ++g) {
+      const int i0 = g * kFold;
+      if (g > 0 && i0 >= k) break;
+      uint32_t t[kFold][V];
 #pragma unroll
-    for (int i = 0; i < kMaxFloorK; ++i) {
-      if (i >= k) break;
-      const uint2 fi = finv[i];
-      const uint32_t qi = fq[i];
+      for (int i = 0; i < kFold; ++i)
+        if (i0 + i < k) load_words<V>(t[i], src + (i0 + i) * count + e, vec);
 #pragma unroll
-      for (int v = 0; v < V; ++v) t[i][v] = fhe::mul_shoup(t[i][v], fi.x, fi.y, qi);
+      for (int i = 0; i < kFold; ++i) {
+        if (i0 + i >= k) break;
+        const uint2 fi = finv[i0 + i];
+        const uint32_t qi = fq[i0 + i];
 #pragma unroll
-      for (int c = 0; c < KB; ++c) {
-        const uint32_t ph = fph[c * k + i];
+        for (int v = 0; v < V; ++v) t[i][v] = fhe::mul_shoup(t[i][v], fi.x, fi.y, qi);
 #pragma unroll
-        for (int v = 0; v < V; ++v) acc[c][v] += static_cast<uint64_t>(t[i][v]) * ph;
+        for (int c = 0; c < KB; ++c) {
+          if (c >= kb) break;
+          const uint32_t ph = fph[c * k + i0 + i];
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[c][v] += static_cast<uint64_t>(t[i][v]) * ph;
+        }
+      }
+      if (g + 1 < kGroups && i0 + kFold < k) {
+#pragma unroll
+        for (int c = 0; c < KB; ++c) {
+          if (c >= kb) break;
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[c][v] = fhe::reduce_wide(acc[c][v], cw[c]);
+        }
       }
     }
 #pragma unroll
     for (int c = 0; c < KB; ++c) {
+      if (c >= kb) break;
       const uint4 pw = cw[c];
       const uint2 iqc = iq[c];
       uint32_t fl[V];
@@ -484,7 +522,7 @@ base_conv_kernel(const uint32_t* __restrict__ src, const uint32_t* __restrict__ 
                                iqc.x, iqc.y, pw.x);
       if constexpr (LaneT == kLaneFloor) {
         store_words<V>(out + c * count + e, fl);
-      } else if (c < L) {
+      } else if (c < l) {
         // 2b. the floored residue goes straight into its aux digit
 #pragma unroll
         for (int v = 0; v < V; ++v) y[c][v] = fhe::mul_shoup(fl[v], ainv[c].x, ainv[c].y, aux[c]);
@@ -495,13 +533,18 @@ base_conv_kernel(const uint32_t* __restrict__ src, const uint32_t* __restrict__ 
     }
     if constexpr (LaneT == kLaneFloor) return;
   } else {
-    // 2. the aux digits, once per coefficient
+    // 2. the aux digits, once per coefficient, and the m_sk residue (row l)
 #pragma unroll
-    for (int i = 0; i < L; ++i)
+    for (int i = 0; i < L; ++i) {
+      if (i >= l) break;
 #pragma unroll
       for (int v = 0; v < V; ++v) y[i][v] = fhe::mul_shoup(x[i][v], ainv[i].x, ainv[i].y, aux[i]);
+    }
 #pragma unroll
-    for (int v = 0; v < V; ++v) xm[v] = x[L][v];
+    for (int r = 0; r < KB; ++r)
+      if (r == l)
+#pragma unroll
+        for (int v = 0; v < V; ++v) xm[v] = x[r][v];
   }
   if constexpr (kSK) {
     // 3. alpha = (conv_sk - x_msk) * B^-1 mod m_sk, once per coefficient
@@ -514,7 +557,11 @@ base_conv_kernel(const uint32_t* __restrict__ src, const uint32_t* __restrict__ 
     for (int v = 0; v < V; ++v) {
       uint64_t s = 0;
 #pragma unroll
-      for (int i = 0; i < L; ++i) s += static_cast<uint64_t>(y[i][v]) * psk[i];
+      for (int i = 0; i < L; ++i) {
+        if (i >= l) break;
+        s += static_cast<uint64_t>(y[i][v]) * psk[i];
+        if (i % kFold == kFold - 1 && i + 1 < l) s = fhe::reduce_wide(s, mw);
+      }
       alpha[v] = fhe::mul_shoup(fhe::sub_mod(fhe::reduce_wide(s, mw), xm[v], msk), cc.inv_b,
                                 cc.inv_b_sh, msk);
     }
@@ -528,14 +575,18 @@ base_conv_kernel(const uint32_t* __restrict__ src, const uint32_t* __restrict__ 
     for (int j = 0; j < k; ++j) {
       const uint4 pw = qw[j];
       const uint32_t qj = pw.x;
-      const uint32_t* ph = phq + j * L;
+      const uint32_t* ph = phq + j * l;
       const uint2 b = bq[j];
       uint32_t o[V];
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         uint64_t s = 0;
 #pragma unroll
-        for (int i = 0; i < L; ++i) s += static_cast<uint64_t>(y[i][v]) * ph[i];
+        for (int i = 0; i < L; ++i) {
+          if (i >= l) break;
+          s += static_cast<uint64_t>(y[i][v]) * ph[i];
+          if (i % kFold == kFold - 1 && i + 1 < l) s = fhe::reduce_wide(s, pw);
+        }
         // centred alpha mod q_j: alpha itself, or q_j - (m_sk - alpha)
         const uint32_t aq = alpha[v] <= (msk >> 1) ? alpha[v] : qj - (msk - alpha[v]);
         o[v] = fhe::sub_mod(fhe::reduce_wide(s, pw), fhe::mul_shoup(aq, b.x, b.y, qj), qj);
@@ -551,25 +602,40 @@ base_conv_kernel(const uint32_t* __restrict__ src, const uint32_t* __restrict__ 
   }
 }
 
-// The instance for kb Bsk primes, or null outside [kMinKb, kMaxKb].
+// The fixed instance for kb Bsk primes, or null outside [kMinKb, kMaxKb].
 template <int LaneT, int V, int KB = kMinKb>
-const void* conv_kernel(int kb) {
+const void* fixed_conv_kernel(int kb) {
   if constexpr (KB > kMaxKb) {
     return nullptr;
   } else {
-    return kb == KB ? reinterpret_cast<const void*>(base_conv_kernel<LaneT, V, KB>)
-                    : conv_kernel<LaneT, V, KB + 1>(kb);
+    return kb == KB ? reinterpret_cast<const void*>(base_conv_kernel<LaneT, V, KB, false>)
+                    : fixed_conv_kernel<LaneT, V, KB + 1>(kb);
   }
 }
 
-// The lanes and words per thread the wrapper may ask for: SK at 1 or 2, the
-// floor lanes at 1 (ops/rns_cuda.py: conv_geometry).
-const void* pick_conv_kernel(int lane, int per_thread, int kb) {
+// The instance for kb Bsk primes and k q primes: the fixed one where kb <=
+// kMaxKb and a floor lane sums at most kMaxFloorK q primes, else the wide
+// one (one word per thread) up to kWideKb and kWideFloorK; null outside.
+template <int LaneT, int V>
+const void* conv_kernel(int kb, int k) {
+  const bool fixed_k = LaneT == kLaneSK || k <= kMaxFloorK;
+  if (kb >= kMinKb && kb <= kMaxKb && fixed_k) return fixed_conv_kernel<LaneT, V>(kb);
+  if constexpr (V == 1) {
+    if (kb >= kMinKb && kb <= kWideKb && (LaneT == kLaneSK || k <= kWideFloorK))
+      return reinterpret_cast<const void*>(base_conv_kernel<LaneT, 1, kWideKb, true>);
+  }
+  return nullptr;
+}
+
+// The lanes and words per thread the wrapper may ask for: SK at 1 or 2 (the
+// wide instance at 1), the floor lanes at 1 (ops/rns_cuda.py:
+// conv_geometry).
+const void* pick_conv_kernel(int lane, int per_thread, int kb, int k) {
   switch (lane * 8 + per_thread) {
-    case kLaneSK * 8 + 1: return conv_kernel<kLaneSK, 1>(kb);
-    case kLaneSK * 8 + 2: return conv_kernel<kLaneSK, 2>(kb);
-    case kLaneFloor * 8 + 1: return conv_kernel<kLaneFloor, 1>(kb);
-    case kLaneFloorSK * 8 + 1: return conv_kernel<kLaneFloorSK, 1>(kb);
+    case kLaneSK * 8 + 1: return conv_kernel<kLaneSK, 1>(kb, k);
+    case kLaneSK * 8 + 2: return conv_kernel<kLaneSK, 2>(kb, k);
+    case kLaneFloor * 8 + 1: return conv_kernel<kLaneFloor, 1>(kb, k);
+    case kLaneFloorSK * 8 + 1: return conv_kernel<kLaneFloorSK, 1>(kb, k);
     default: return nullptr;
   }
 }
@@ -628,7 +694,8 @@ int fhe_bsk_branch(const void* ab, int ab_sp, int ab_sc, int ab_sb, const void* 
 // per_thread words per thread, kb Bsk primes, k q primes, count words per
 // row, the digits from word dstart on (dig null: no digits lane), vec where
 // every input row starts aligned to per_thread words, threads per CTA (the
-// wrapper's conv_geometry).  Unused constants may be null.
+// wrapper's conv_geometry); kb and k pick the fixed or the wide instance.
+// Unused constants may be null.
 int fhe_base_conv(int lane, int per_thread, int kb, int k, int count, int dstart, int vec,
                   int threads, const void* src, const void* txb, void* out, void* dig,
                   const void* aux, const void* aux_inv_phat, const void* aux_inv_phat_sh,
@@ -638,9 +705,9 @@ int fhe_base_conv(int lane, int per_thread, int kb, int k, int count, int dstart
                   const void* f_inv_phat_sh, const void* f_phat, const void* cp,
                   const void* c_wide, const void* inv_q_c, const void* inv_q_c_sh,
                   uint32_t m_sk, uint32_t inv_b, uint32_t inv_b_sh, void* stream) {
-  const void* kernel = pick_conv_kernel(lane, per_thread, kb);
+  const void* kernel = pick_conv_kernel(lane, per_thread, kb, k);
   if (kernel == nullptr || k < 1 || count < 1 || count % per_thread || threads < 32
-      || threads > 256 || (lane != kLaneSK && k > kMaxFloorK))
+      || threads > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const ConvSmem lay(lane, k, kb, dig != nullptr);
   if (lay.bytes() > fhe::kDefaultSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -648,7 +715,7 @@ int fhe_base_conv(int lane, int per_thread, int kb, int k, int count, int dstart
   ConvConsts cc{u(aux), u(aux_inv_phat), u(aux_inv_phat_sh), u(phat_q), u(phat_sk), u(q),
                 u(q_wide), u(msk_wide), u(b_mod_q), u(b_mod_q_sh), u(w), u(w_sh), u(fq),
                 u(f_inv_phat), u(f_inv_phat_sh), u(f_phat), u(cp), u(c_wide), u(inv_q_c),
-                u(inv_q_c_sh), m_sk, inv_b, inv_b_sh, k};
+                u(inv_q_c_sh), m_sk, inv_b, inv_b_sh, k, kb};
   const uint32_t* src_p = u(src);
   const uint32_t* txb_p = u(txb);
   uint32_t* out_p = static_cast<uint32_t*>(out);

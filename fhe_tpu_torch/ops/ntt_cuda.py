@@ -164,9 +164,10 @@ def regs_threads(n: int, name: str, split: int = 1) -> int:
 ROW_SPLIT = 2
 PRODUCT_CLUSTER = 4 * ROW_SPLIT
 KEYSWITCH_PAIRS = 4
-# tensor_product's Lift lane: the most source primes it lifts from
-# (csrc/lift.cuh: kMaxLiftK) and the most threads a CTA gives the lift
-LIFT_MAX_K = 16
+# tensor_product's Lift lane: the most source primes it lifts from, 16 at
+# a time (csrc/lift.cuh: kMaxLiftK, kLiftGroup), and the most threads a CTA
+# gives the lift
+LIFT_MAX_K = 32
 LIFT_THREADS = 256
 
 

@@ -160,17 +160,28 @@ def _check_conv_input(x: torch.Tensor, rows: int, consts: torch.Tensor,
         raise ValueError(f"{name}: tensor too large for 32-bit offsets")
 
 
-# Bsk prime counts the base-conversion kernel is instantiated for
-# (csrc/rns.cu: kMinKb, kMaxKb), the most q primes its floor sums, and its
-# lanes
-CONV_KB = (2, 17)
-CONV_MAX_FLOOR_K = 16
+# Bsk prime counts the base-conversion kernel takes (csrc/rns.cu: kMinKb,
+# kWideKb) and the most q primes its floor sums (kWideFloorK); the fixed
+# instances take up to CONV_FIXED_KB Bsk primes and floor from up to
+# CONV_FIXED_FLOOR_K q primes (kMaxKb, kMaxFloorK), the wide instance the
+# rest at one word per thread; and its lanes
+CONV_KB = (2, 33)
+CONV_MAX_FLOOR_K = 32
+CONV_FIXED_KB = 17
+CONV_FIXED_FLOOR_K = 16
 CONV_LANES = {"sk": 0, "floor": 1, "floor_sk": 2}
 # SMs of an H100 SXM
 CARD_SMS = 132
 
 
-def conv_geometry(count: int, lane: str) -> dict:
+def conv_wide(lane: str, kb: int, k: int) -> bool:
+    """True where a call of ``lane`` with kb Bsk primes and k q primes takes
+    the wide instance: kb above CONV_FIXED_KB, or a floor from more than
+    CONV_FIXED_FLOOR_K q primes."""
+    return kb > CONV_FIXED_KB or (lane != "sk" and k > CONV_FIXED_FLOOR_K)
+
+
+def conv_geometry(count: int, lane: str, wide: bool = False) -> dict:
     """Launch shape of the base-conversion kernel (``csrc/rns.cu``
     base_conv_kernel) over rows of ``count`` words: ``per_thread``
     consecutive words of every row per thread, ``threads`` per CTA and
@@ -179,11 +190,13 @@ def conv_geometry(count: int, lane: str) -> dict:
     where 256 would leave SMs idle (scripts/conv_geometry_sweep.py, PERF.md:
     1 word at [5,3,8192] and [10,3,8192], 2 at [5,24,8192] and
     [10,24,8192], 128 threads at n = 256; 4 words were slower at all four
-    B6 shapes)."""
+    B6 shapes).  The wide instance (``conv_wide``) takes one word per
+    thread: its registers hold up to 33 rows of digits."""
     if lane not in CONV_LANES:
         raise ValueError(f"unknown base-conversion lane {lane!r}")
     per_thread = 1
-    if lane == "sk" and count % 2 == 0 and count // (2 * 256) >= 2 * CARD_SMS:
+    if (lane == "sk" and not wide and count % 2 == 0
+            and count // (2 * 256) >= 2 * CARD_SMS):
         per_thread = 2
     groups = count // per_thread
     threads = 256 if groups >= 256 * CARD_SMS else 128
@@ -224,7 +237,7 @@ def _conv_launch(lane: str, src: torch.Tensor, txb, sk, fc, digits,
     if lane != "sk" and k > CONV_MAX_FLOOR_K:
         raise ValueError(f"{name}: the kernel floors from at most {CONV_MAX_FLOOR_K} q "
                          f"primes, got {k}")
-    geo = conv_geometry(count, lane)
+    geo = conv_geometry(count, lane, conv_wide(lane, kb, k))
     v = geo["per_thread"]
     vec = conv_vec(v, *(x for x in (src, txb) if x is not None))
     out = torch.empty((rows_out, rows, n), dtype=torch.int32, device=src.device)

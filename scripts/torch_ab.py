@@ -56,8 +56,9 @@ the headline configuration (n = 8192, log_q = 90, k = 3, kb = 5):
     g_n16384: log_q = 90, k = 3, seed 4; multiply_relin_ms_n16384 and, at
     ks_omega = 2, multiply_relin_ms_n16384_omega2), and at n = 32768
     (tests/test_parallel.py:168-189: log_q = 90, k = 3, lambda_ = 0, h = 16,
-    seed 11; multiply_relin_ms_n32768), null for a tree whose multiply
-    raises there;
+    seed 11; multiply_relin_ms_n32768) and at the 128-bit n = 32768 set
+    (log_q = 870, k = 29, kb = 32; multiply_relin_ms_secure128_n32768),
+    null for a tree whose multiply raises there;
   - bgv: at the JAX bench's g_bgv configuration (the headline one, seed 1,
     scheme="bgv"), device_ms and wall_ms of BGV's multiply, its halves,
     the decrypt of the product (the phase, then the centred lift onto {t}
@@ -235,12 +236,14 @@ def multiply_n16384(omega: int) -> dict | None:
     return {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
 
 
-def multiply_n32768() -> dict | None:
-    """device_ms and wall_ms of the multiply at tests/test_parallel.py:168-189's
-    n = 32768 configuration (log_q = 90, k = 3, lambda_ = 0, h = 16, seed
-    11), or None where this tree's multiply raises at that n."""
-    prm = make_scheme_params(SecurityParams(poly_degree=32768, log_q=LOG_Q, lambda_=0,
-                                            hamming_weight=16))
+def multiply_n32768(log_q: int = LOG_Q) -> dict | None:
+    """device_ms and wall_ms of the multiply at n = 32768, seed 11: at
+    log_q = 90 tests/test_parallel.py:168-189's configuration (k = 3,
+    lambda_ = 0, h = 16), at log_q = 870 the 128-bit set (k = 29, kb = 32,
+    lambda_ = 128, h = 64); or None where this tree's multiply raises
+    there."""
+    kw = dict(lambda_=0, hamming_weight=16) if log_q == LOG_Q else {}
+    prm = make_scheme_params(SecurityParams(poly_degree=32768, log_q=log_q, **kw))
     fhe = FHE(prm, seed=11, device="cuda")
     pk, sk = fhe.keygen()
     rlk = fhe.relinkey_gen(sk)
@@ -248,8 +251,8 @@ def multiply_n32768() -> dict | None:
     b = fhe.encrypt(fhe.encode([7, 8, 9]), pk)
     try:
         prod = fhe.multiply(a, b, rlk)
-    except ValueError as err:          # a tree without the n = 32768 launch shapes
-        print(f"torch_ab: n=32768 multiply raised: {err}", file=sys.stderr)
+    except ValueError as err:          # a tree without these launch shapes or bases
+        print(f"torch_ab: n=32768, log_q={log_q} multiply raised: {err}", file=sys.stderr)
         return None
     got = [int(v) for v in fhe.decode(fhe.decrypt(prod, sk))[:3]]
     if got != [28, 40, 54]:
@@ -968,6 +971,7 @@ def main() -> int:
     out["multiply_relin_ms_n16384"] = multiply_n16384(1)
     out["multiply_relin_ms_n16384_omega2"] = multiply_n16384(2)
     out["multiply_relin_ms_n32768"] = multiply_n32768()
+    out["multiply_relin_ms_secure128_n32768"] = multiply_n32768(870)
     out["bgv"] = bgv_ops()
     out["bootstrap"] = bootstrap_ops()
     print(json.dumps(out))

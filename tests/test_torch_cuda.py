@@ -8,6 +8,7 @@ imports neither JAX nor fhe_tpu, so it also runs where JAX is absent:
 """
 
 import functools
+import math
 import warnings
 
 import numpy as np
@@ -17,6 +18,7 @@ import torch
 from fhe_tpu_torch import FHE, primes
 from fhe_tpu_torch.ops import _build, decrypt_cuda, galois_cuda, ntt_cuda, ntt_mxu, rns_cuda
 from fhe_tpu_torch.ops import galois as tgalois
+from fhe_tpu_torch.ops import modmath as tmm
 from fhe_tpu_torch.ops import ntt as tntt
 from fhe_tpu_torch.ops import rns as trns
 from fhe_tpu_torch.parallel import launch
@@ -949,6 +951,110 @@ def test_floor_sk_kernel_matches_plain(dev, level, unaligned):
     assert torch.equal(rns_cuda.fast_floor_fused(tx_q, tx_b, fc, sk),
                        trns.fast_floor_sk(tx_q, tx_b, fc, sk))
     assert torch.equal(rns_cuda.fast_floor_fused(tx_q, tx_b, fc), trns.fast_floor(tx_q, tx_b, fc))
+
+
+# (k q primes, kb Bsk primes): the fixed instances' largest bases (kb = 16
+# and 17, a floor from 16 q primes), the wide instance just above them
+# (kb = 18; a floor from 17 q primes), the 128-bit n = 32768 set (k = 29,
+# kb = 32), the top of the JAX package's security table (k = 30, kb = 33)
+# and the floor's cap (32 q primes)
+CONV_BASES = [(13, 16), (14, 17), (16, 17), (15, 18), (17, 18), (29, 32), (30, 33),
+              (32, 33)]
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_base(k, kb, dev):
+    """k q primes and kb Bsk primes (kb - 1 aux, then m_sk), their SK and
+    FastFloor constants, and the digits' (q/q_j)^-1 mod q_j with Shoup
+    companions."""
+    ps = primes.find_ntt_primes(N, k + kb)
+    qs, bsk = ps[:k], ps[k:]
+    inv_qhat = [pow(math.prod(qs) // p, -1, p) for p in qs]
+    digits = (tmm.u32_tensor(np.array(inv_qhat, dtype=np.uint32), dev),
+              tmm.u32_tensor(tmm.shoup_array(inv_qhat, qs), dev))
+    return (qs, bsk, trns.make_sk(bsk[:-1], bsk[-1], qs, dev),
+            trns.make_fast_floor(qs, bsk, dev), digits)
+
+
+def _conv_rows(moduli, rows, inputs, dev, n=N):
+    """Random residues ("random"), every residue p - 1 ("p-1"), or
+    ("max digits") the residues whose conversion digits
+    [x_i * (P/p_i)^-1]_{p_i} over the base P of ``moduli`` are all p_i - 1,
+    the largest terms an unreduced sum of the kernel meets."""
+    if inputs == "random":
+        return _residues(moduli, rows, dev, n)
+    big = math.prod(moduli)
+    vals = [p - 1 if inputs == "p-1" else (p - 1) * (big // p) % p for p in moduli]
+    return torch.stack([torch.full((rows, n), v, dtype=torch.int64)
+                        for v in vals]).to(torch.int32).to(dev)
+
+
+@pytest.mark.parametrize("inputs", ["random", "p-1", "max digits"])
+@pytest.mark.parametrize("rows", [3, 24])
+@pytest.mark.parametrize("k,kb", CONV_BASES)
+def test_base_conv_kernel_every_base_matches_plain(dev, k, kb, rows, inputs):
+    """Every lane of base_conv_kernel, fixed and wide instances, against its
+    plain twin: the SK conversion with and without digits, the floor, and
+    the floor with the conversion to q, on random residues, on every
+    residue p - 1 and on the residues whose digits are all p - 1 (the aux
+    rows of the SK input, the q rows of the floor's).  At 3 rows of
+    n = 8192 a thread takes one word; at 24 the SK lane of a fixed instance
+    takes two, the wide instance one."""
+    qs, bsk, sk, fc, digits = _conv_base(k, kb, dev)
+    wide = rns_cuda.conv_wide("sk", kb, k)
+    assert wide == (kb > 17)
+    assert rns_cuda.conv_geometry(rows * N, "sk", wide)["per_thread"] == (
+        2 if rows == 24 and not wide else 1)
+    # the m_sk row and the floor's Bsk rows are no digits: p - 1 stands for them
+    plain = "random" if inputs == "random" else "p-1"
+    xb = torch.cat([_conv_rows(bsk[:-1], rows, inputs, dev),
+                    _conv_rows(bsk[-1:], rows, plain, dev)])
+    want = trns.fast_bconv_sk_digits(xb, sk, digits[0])
+    assert _conv_equal(rns_cuda.fast_bconv_sk_fused(xb, sk, digits), want)
+    assert torch.equal(rns_cuda.fast_bconv_sk_fused(xb, sk), want[0])
+    tx_q = _conv_rows(qs, rows, inputs, dev)
+    tx_b = _conv_rows(bsk, rows, plain, dev)
+    assert torch.equal(rns_cuda.fast_floor_fused(tx_q, tx_b, fc), trns.fast_floor(tx_q, tx_b, fc))
+    assert _conv_equal(rns_cuda.fast_floor_fused(tx_q, tx_b, fc, sk, digits),
+                       trns.fast_floor_sk(tx_q, tx_b, fc, sk, digits[0]))
+    assert torch.equal(rns_cuda.fast_floor_fused(tx_q, tx_b, fc, sk),
+                       trns.fast_floor_sk(tx_q, tx_b, fc, sk))
+
+
+@pytest.mark.parametrize("inputs", ["random", "p-1"])
+@pytest.mark.parametrize("log_q", [480, 510, 870])
+def test_lift_lane_past_16_primes_matches_plain(dev, log_q, inputs):
+    """tensor_product's Lift lane at n = 256 from k = 16, 17 and 29 q primes
+    (the lift loads them 16 at a time) against its plain twins, on random
+    residues and on every residue p - 1."""
+    ctx = make_context(_quiet_params(256, log_q, lambda_=0), device=dev)
+    assert ctx.k == -(-log_q // 30)
+    (tq, tbsk), sc = ctx.mul_levels[0], ctx.smq_levels[0]
+    x = _conv_rows(tq.primes, 4, inputs, dev, 256)
+    a, b = x[:, :2], x[:, 2:]
+    got_q, got = ntt_cuda.tensor_product(a, b, tq, lift=(sc, tbsk))
+    assert torch.equal(got_q, tntt.tensor_product(a, b, tq))
+    assert torch.equal(got, trns.tensor_product_lift(a, b, sc, tbsk))
+
+
+def test_small_multiply_past_16_primes_on_card_matches_cpu(dev):
+    """The n < 1024 multiply (the Lift lane and the FloorSK lane) at n = 256,
+    log_q = 870 (k = 29), lambda_ = 0: [4, 5, 6] x [7, 8, 9] decodes
+    [28, 40, 54] and equals the CPU plain path bit for bit."""
+    prm = make_scheme_params(SecurityParams(poly_degree=256, log_q=870, lambda_=0,
+                                            hamming_weight=16))
+    fhe = FHE(prm, seed=11, device=dev)
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    a, b = (fhe.encrypt(fhe.encode(v), pk) for v in ([4, 5, 6], [7, 8, 9]))
+    lifts = ntt_cuda.tensor_product.lift_launches
+    prod = fhe.multiply(a, b, rlk)
+    assert ntt_cuda.tensor_product.lift_launches == lifts + 1
+    assert list(fhe.decode(fhe.decrypt(prod, sk))[:3]) == [28, 40, 54]
+    cpu = make_context(prm, device="cpu")
+    to_cpu = lambda ct: ct.replace(data=ct.data.cpu())
+    want = bfv.multiply(cpu, to_cpu(a), to_cpu(b), RelinKeys(data=rlk.data.cpu()))
+    assert torch.equal(prod.data.cpu(), want.data)
 
 
 def test_small_multiply_floors_and_converts_in_one_launch(dev):
