@@ -50,7 +50,24 @@ Phases, each printing its own lines:
      the CPU plain path from the same keys and noise for
      encrypt_from_noise, the multiply at levels 0 and 1, decrypt and
      rotate_rows at both sets and for BGV's multiply at n = 32768; device
-     and wall ms of the multiply (levels 0 and 1) and rotate_rows;
+     and wall ms of the multiply (levels 0 and 1) and rotate_rows; and
+     ks_omega = 2 at k = 30 (n = 32768, log_q = 881, kd = 15: keys,
+     encrypt, multiply and rotate_rows decode, card == CPU plain path for
+     encrypt_from_noise, multiply, decrypt and rotate_rows; device and wall
+     ms); then (phase n65536) the ring n = 65536 at log_q = 90 (k = 3,
+     kb = 5, kd = 3) and log_q = 900 (k = 30, kb = 33, kd = 30),
+     t = 786433, lambda_ = 0, h = 16, seed 11: B1, B2 (also rows off 16
+     bytes and mod t), B3/B13, B4/B11, B5, B7/B12 (classic, Galois at
+     g = 3 and 2n - 1, prereduced) and B8, single and B = 2, on the compact
+     split, equal their plain twins, with device ms and bounds; with the
+     counts zeroed, the BFV path through the facade at both sets (keys,
+     relin and Galois keys, encrypt, multiply, multiply_batch at B = 2,
+     multiply_no_relin then relinearize, rotate_rows by 1, decrypt)
+     decodes [28, 40, 54], each kernel of N65536_KERNELS launched
+     (`n65536_launches` in the kernels line); the card equals the CPU
+     plain path for encrypt_from_noise, multiply, decrypt, rotate_rows and
+     BGV's multiply at both sets; device and wall ms of the multiply,
+     relinearize, rotate_rows, encrypt and decrypt;
   4. slice: the linear-ops main path through the FHE facade at n = 8192,
      log_q = 90 (k = 3), h = 64: keygen, encode, encrypt, add, add_plain and
      the 8-term resident plaintext multiply-accumulate, then decrypt and
@@ -261,7 +278,7 @@ on its own path (phase 4 to 11), on the bgv path (bgv_launches), on the
 bootstrap path (bootstrap_launches), on the paths of phases 14 to 18
 (plain_ops_launches, mxu_launches, examples_launches, fuzz_launches,
 parallel_launches) and on those of n32768 and secure128
-(n32768_launches, secure128_launches); the
+(n32768_launches, secure128_launches, n65536_launches); the
 last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; without
 a card the script exits 1 before printing any result.  Imports no JAX and
@@ -1645,7 +1662,8 @@ def phase_geometry() -> None:
     keyswitch_fused's Galois lane and a sum_slots stage's 3 elements) and at
     n = 16384 and 32768 (B4/B11 and B5 with a half row, B7/B12 and B8 in
     their wide form); keyswitch_fused at k = 8 (kd = 8, and the prereduced
-    kd = 4)."""
+    kd = 4); and at n = 65536 the compact forms of the n65536 path's
+    kernels at k = 3 and k = 30."""
     for n in (N, 16384, 32768):
         for name, geo in (("ntt_forward", ntt_cuda.ntt_forward_geometry(n, 3)),
                           ("ntt_forward keygen", ntt_cuda.ntt_forward_geometry(n, 3, 3)),
@@ -1675,6 +1693,17 @@ def phase_geometry() -> None:
                           ("decrypt_fused_batch",
                            decrypt_cuda.decrypt_geometry(n, 3, BATCH))):
             print(f"phase geometry {name} n={n}", json.dumps(geo))
+    n = 65536
+    for k, kb in ((3, 5), (30, 33)):
+        for name, geo in (("ntt_forward", ntt_cuda.ntt_forward_geometry(n, k)),
+                          ("ntt_inverse", ntt_cuda.ntt_inverse_geometry(n, k)),
+                          ("mul_by_ntt_operand", ntt_cuda.mul_by_ntt_operand_geometry(n, k, 2)),
+                          ("tensor_product", ntt_cuda.tensor_product_geometry(n, k)),
+                          ("bsk_branch_fused", rns_cuda.bsk_branch_geometry(n, kb)),
+                          ("keyswitch_fused", ntt_cuda.keyswitch_geometry(n, k, k)),
+                          ("keyswitch_fused_batch", ntt_cuda.keyswitch_geometry(n, k, k, 2)),
+                          ("decrypt_fused", decrypt_cuda.decrypt_geometry(n, k))):
+            print(f"phase geometry {name} n={n} k={k}", json.dumps(geo))
     for name, n, geo in (("keyswitch_fused k=8 kd=8", N, ntt_cuda.keyswitch_geometry(N, 8, 8)),
                          ("keyswitch_fused_prereduced k=8 kd=4", N,
                           ntt_cuda.keyswitch_geometry(N, 8, 4))):
@@ -2021,15 +2050,178 @@ def phase_secure128(gen: torch.Generator) -> dict:
                        ("rotate_rows", lambda: fhe.rotate_rows(r["ca"], 1, r["gk"]))):
             times[f"{op}_ms_secure128_n{n}"] = {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
     check_bgv_multiply(fhes[0].ctx.params, "n=32768, k=29")
+    times.update(check_omega2_k30())
     print("phase secure128 check: n=32768, log_q=870 (k=29, kb=32, kd=29; level 1 kb=30) and "
           "n=16384, log_q=420 (k=14, kb=16) at lambda_=128, h=64: B6 (wide instance, also on "
           "every residue p - 1 and every digit b_i - 1), B4, B5, B7 and B8 == their plain "
           "twins at n=32768; multiply, "
           f"multiply_batch (B=2), the level-1 multiply and BGV's multiply decoded {PRODUCT_32K}, "
           "rotate_rows by 1 decoded; card == CPU plain path for encrypt_from_noise, the "
-          "multiply at levels 0 and 1, decrypt, rotate_rows and BGV's multiply")
+          "multiply at levels 0 and 1, decrypt, rotate_rows and BGV's multiply; at "
+          "n=32768, log_q=881 (k=30) with ks_omega=2 (kd=15): multiply and rotate_rows "
+          "decoded, card == CPU plain path for encrypt_from_noise, multiply, decrypt and "
+          "rotate_rows")
     print("phase secure128", json.dumps({"card": card_name(), **times,
                                          "seconds": time.perf_counter() - t0}))
+    return launches
+
+
+# ks_omega = 2 at k = 30 (n = 32768, log_q = 881: 30 primes, 15 whole
+# groups of 2 at level 0, kd = 15); the set realizes 900 bits, 19 past the
+# 128-bit table's 881, so its below-security warning is silenced
+OMEGA_K30 = (32768, 881)
+
+
+def check_omega2_k30() -> dict:
+    """ks_omega = 2 at k = 30 on the card (OMEGA_K30, lambda_ = 128, h = 64,
+    seed 11): keys, encrypt, multiply and rotate_rows by 1 decode; the card
+    == the CPU plain path from the same keys and noise for
+    encrypt_from_noise, the multiply, decrypt and rotate_rows
+    (check_card_vs_cpu); device and wall ms of the multiply and
+    rotate_rows."""
+    n, log_q = OMEGA_K30
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        prm = make_scheme_params(SecurityParams(poly_degree=n, log_q=log_q, ks_omega=2))
+    fhe = FHE(prm, seed=11, device="cuda")
+    label = f"n={n}, k={prm.k}, ks_omega=2"
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    gk = fhe.galoiskey_gen(sk, elements=(3,))
+    check((prm.k, rlk.data.shape[0]) == (30, 15), f"{label}: k, kd {prm.k}, {rlk.data.shape[0]}")
+    ca, cb = (fhe.encrypt(fhe.encode(v), pk) for v in VALS_32K)
+    prod, rot = fhe.multiply(ca, cb, rlk), fhe.rotate_rows(ca, 1, gk)
+    dec = lambda ct, count=3: [int(v) for v in fhe.decode(fhe.decrypt(ct, sk))[:count]]
+    check(dec(prod) == PRODUCT_32K, f"{label} multiply decoded {dec(prod)}")
+    check(dec(rot, n // 2) == rotated(VALS_32K[0], 1, n), f"{label} rotate_rows decoded wrong")
+    check_card_vs_cpu(fhe, pk, sk, rlk, gk, label)
+    return {f"{op}_ms_omega2_k30_n{n}": {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
+            for op, fn in (("multiply_relin", lambda: fhe.multiply(ca, cb, rlk)),
+                           ("rotate_rows", lambda: fhe.rotate_rows(ca, 1, gk)))}
+
+
+# the ring n = 65536, after the 128-bit table's last row, at log_q = 90
+# (k = 3, kb = 5, kd = 3) and log_q = 900 (k = 30, kb = 33, kd = 30):
+# plain_modulus = 786433 (65537 is not 1 mod 2n there), lambda_ = 0, h = 16
+N65536_LOG_Q = (90, 900)
+# the kernels the n65536 path must launch at each set
+N65536_KERNELS = ("ntt_forward", "ntt_inverse", "mul_by_ntt_operand", "decrypt_fused",
+                  "tensor_product", "bsk_branch_fused", "fast_bconv_sk_fused",
+                  "keyswitch_fused", "keyswitch_fused_galois", "tensor_product_batch",
+                  "bsk_branch_fused_batch", "keyswitch_fused_batch")
+
+
+def n65536_params(log_q: int):
+    return make_scheme_params(SecurityParams(poly_degree=65536, log_q=log_q, lambda_=0,
+                                             hamming_weight=16, plain_modulus=786433))
+
+
+def n65536_cases(gen: torch.Generator, ctx) -> list:
+    """Each kernel's n = 65536 form (the compact split) at ctx's shapes: B1
+    at [k,1,n] and keygen's [k,3,n]; B2 at [k,1,n], on rows off 16 bytes and
+    mod t; B3/B13 (encrypt's pk * u, c = 2) single and B = 2; B4/B11, B5
+    and B7/B12 (classic at kd = k) single and B = 2; B7's Galois lane at
+    g = 3 and 2n - 1 and B12's at B = 2; B7's prereduced lane at kd = 2; B8
+    single and B = 2."""
+    k, n, t = ctx.k, ctx.n, ctx.params.t
+    label = f"n={n}, k={k}"
+    q = level_tables(ctx, 0, "q")
+    s = residues(gen, ctx.ntt_q.primes, 1, n)
+    ct = residues(gen, ctx.ntt_q.primes, 2, n)
+    dec_args = (ct[:, 0:1], ct[:, 1:2], s, ctx.ntt_q, ctx.dec_levels[0])
+    tt = plain_ntt.build_tables(n, (t,), "cuda")
+    return [ntt_forward_case(gen, q, 1, label),
+            ntt_forward_case(gen, q, 3, f"{label}, keygen's rows"),
+            ntt_inverse_case(gen, q, 1, label),
+            ntt_inverse_case(gen, q, 1, label, offset=True),
+            ntt_inverse_case(gen, tt, 1, f"n={n}, t={t}"),
+            mul_case(gen, ctx, 0, "q", 2, None, label),
+            mul_case(gen, ctx, 0, "q", 2, 2, label),
+            product_case(gen, ctx, 0, "mul", None, label),
+            product_case(gen, ctx, 0, "mul", 2, label),
+            bsk_case(gen, ctx, 0, None, label),
+            bsk_case(gen, ctx, 0, 2, label),
+            keyswitch_case(gen, ctx, 0, k, None, False, label),
+            keyswitch_case(gen, ctx, 0, k, 2, False, label),
+            keyswitch_case(gen, ctx, 0, 2, None, True, label),
+            keyswitch_galois_case(gen, ctx, 0, None, label),
+            keyswitch_galois_case(gen, ctx, 0, None, label, g=2 * n - 1),
+            keyswitch_galois_case(gen, ctx, 0, 2, label),
+            ("decrypt_fused", f"{label}: views of [{k},2,{n}], t={t}",
+             lambda: decrypt_cuda.decrypt_fused(*dec_args),
+             lambda: decrypt_cuda.decrypt_fused_plain(*dec_args), decrypt_work(k, 1, n)),
+            decrypt_case(gen, ctx.params, 0, 2, label)]
+
+
+def n65536_run(fhe: FHE) -> dict:
+    """The BFV path through the facade at one n = 65536 set: keygen, relin
+    and Galois (3) keys, encrypt, multiply, multiply_batch at B = 2,
+    multiply_no_relin then relinearize, rotate_rows by 1 and decrypt; each
+    decoded, the batch and the relinearized product equal to the multiply."""
+    n = fhe.ctx.n
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    gk = fhe.galoiskey_gen(sk, elements=(3,))
+    ca, cb = (fhe.encrypt(fhe.encode(v), pk) for v in VALS_32K)
+    prod = fhe.multiply(ca, cb, rlk)
+    prods = fhe.multiply_batch([ca, cb], [cb, ca], rlk)
+    raw = fhe.multiply_no_relin(ca, cb)
+    relin = fhe.relinearize(raw, rlk)
+    rot = fhe.rotate_rows(ca, 1, gk)
+    dec = lambda ct, count=3: [int(v) for v in fhe.decode(fhe.decrypt(ct, sk))[:count]]
+    label = f"n={n}, k={fhe.ctx.k}"
+    check(dec(prod) == PRODUCT_32K, f"{label} multiply decoded {dec(prod)}")
+    check([dec(c) for c in prods] == [PRODUCT_32K] * 2
+          and all(torch.equal(c.data, prod.data) for c in prods),
+          f"{label} multiply_batch decoded wrong or differs from the single multiply")
+    check(torch.equal(relin.data, prod.data) and dec(relin) == PRODUCT_32K,
+          f"{label} relinearize of multiply_no_relin differs from the multiply")
+    check(dec(rot, n // 2) == rotated(VALS_32K[0], 1, n), f"{label} rotate_rows by 1 decoded wrong")
+    return dict(pk=pk, sk=sk, rlk=rlk, gk=gk, ca=ca, cb=cb, raw=raw, prod=prod)
+
+
+def phase_n65536(gen: torch.Generator) -> dict:
+    """The ring n = 65536 on the card at both sets of N65536_LOG_Q: each
+    kernel's compact form against its plain twin (n65536_cases), then, with
+    the counts zeroed, the BFV path through the facade at both sets
+    (n65536_run), every kernel of N65536_KERNELS launched; the card == the
+    CPU plain path from the same keys and noise for encrypt_from_noise, the
+    multiply, decrypt and rotate_rows, and for BGV's multiply, at both
+    sets; device and wall ms of the multiply, relinearize, rotate_rows,
+    encrypt and decrypt.  Returns the path's launches."""
+    t0 = time.perf_counter()
+    fhes = [FHE(n65536_params(log_q), seed=11, device="cuda") for log_q in N65536_LOG_Q]
+    counts = [(f.ctx.k, f.ctx.mul_tables[1].k, f.ctx.params.t) for f in fhes]
+    check(counts == [(3, 5, 786433), (30, 33, 786433)], f"n=65536: k, kb, t {counts}")
+    for f in fhes:
+        run_cases(n65536_cases(gen, f.ctx), "phase n65536 kernel")
+    reset_counts()
+    runs = [n65536_run(f) for f in fhes]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print("phase n65536 launches", json.dumps({k: v for k, v in launches.items() if v}))
+    for name in N65536_KERNELS:
+        check(launches[name] > 0, f"{name} was never launched on the n=65536 path")
+    times = {}
+    for fhe, r in zip(fhes, runs):
+        k = fhe.ctx.k
+        check_card_vs_cpu(fhe, r["pk"], r["sk"], r["rlk"], r["gk"], f"n=65536, k={k}")
+        check_bgv_multiply(fhe.ctx.params, f"n=65536, k={k}")
+        pt = fhe.encode(VALS_32K[0])
+        for op, fn in (("multiply_relin", lambda: fhe.multiply(r["ca"], r["cb"], r["rlk"])),
+                       ("relinearize", lambda: fhe.relinearize(r["raw"], r["rlk"])),
+                       ("rotate_rows", lambda: fhe.rotate_rows(r["ca"], 1, r["gk"])),
+                       ("encrypt", lambda: fhe.encrypt(pt, r["pk"])),
+                       ("decrypt", lambda: fhe.decrypt(r["prod"], r["sk"]))):
+            times[f"{op}_ms_n65536_k{k}"] = {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
+    print("phase n65536 check: n=65536, t=786433, log_q=90 (k=3, kb=5, kd=3) and log_q=900 "
+          "(k=30, kb=33, kd=30): B1, B2, B3/B13, B4/B11, B5, B7/B12 (classic, Galois, "
+          "prereduced) and B8 on the compact split == their plain twins; keys, encrypt, "
+          f"multiply, multiply_batch (B=2), relinearize and BGV's multiply decoded "
+          f"{PRODUCT_32K}, rotate_rows by 1 decoded; card == CPU plain path for "
+          "encrypt_from_noise, multiply, decrypt, rotate_rows and BGV's multiply at both sets")
+    print("phase n65536", json.dumps({"card": card_name(), **times,
+                                      "seconds": time.perf_counter() - t0}))
     return launches
 
 
@@ -3935,6 +4127,7 @@ def main() -> int:
     phase_geometry()
     phase_n16384()
     launches = {"n32768": phase_n32768(gen), "secure128": phase_secure128(gen),
+                "n65536": phase_n65536(gen),
                 "slice": phase_slice(), "multiply": phase_multiply(),
                 "serving": phase_serving(), "hoisted": phase_hoisted(),
                 "omega": phase_omega(), "leveled": phase_leveled(),
@@ -3953,7 +4146,7 @@ def main() -> int:
                      "bootstrap_launches": launches["bootstrap"][name],
                      **{f"{path}_launches": launches[path][name]
                         for path in ("plain_ops", "mxu", "examples", "fuzz", "parallel",
-                                     "n32768", "secure128")},
+                                     "n32768", "secure128", "n65536")},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,

@@ -53,11 +53,69 @@ namespace {
 
 namespace cg = cooperative_groups;
 
+// CTAs per prime's row of the compact form (ops/decrypt_cuda.py: ROW_SPLIT)
+constexpr int kRowSplit = 2;
+
 struct DecryptScalars {
   uint32_t t, gamma, gamma_mu;
   uint32_t neg_inv_q_t, neg_inv_q_t_sh, neg_inv_q_g;
   uint32_t inv_gamma_t, inv_gamma_t_sh, gamma_mod_t, one_sh_t;
 };
+
+// One prime's constants: z = [phase * gt]_{p} (Shoup), its terms
+// [z * pt]_t (Shoup) and [z * pg]_gamma.
+struct PrimeTerms {
+  uint32_t p, gt, gt_sh, pt, pt_sh, pg;
+};
+
+// The two lanes' terms of one coefficient's phase: acc_t += term_t mod t,
+// acc_g += term_g mod gamma (first: the accumulators start here).
+__device__ __forceinline__ void add_terms(uint32_t phase, const PrimeTerms& c,
+                                          const DecryptScalars& sc, bool first,
+                                          uint32_t& acc_t, uint32_t& acc_g) {
+  const uint32_t z = fhe::mul_shoup(phase, c.gt, c.gt_sh, c.p);
+  const uint32_t term_t = fhe::mul_shoup(z, c.pt, c.pt_sh, sc.t);
+  const uint32_t term_g = fhe::mul_barrett(fhe::reduce_barrett(z, sc.gamma, sc.gamma_mu), c.pg,
+                                           sc.gamma, sc.gamma_mu);
+  acc_t = first ? term_t : fhe::add_mod(acc_t, term_t, sc.t);
+  acc_g = first ? term_g : fhe::add_mod(acc_g, term_g, sc.gamma);
+}
+
+// m = (s_t - e_hat) * gamma^-1 mod t from the summed accumulators.
+__device__ __forceinline__ uint32_t scaled_message(uint32_t sum_t, uint32_t sum_g,
+                                                   const DecryptScalars& sc) {
+  const uint32_t s_t = fhe::mul_shoup(sum_t, sc.neg_inv_q_t, sc.neg_inv_q_t_sh, sc.t);
+  const uint32_t s_g = fhe::mul_barrett(sum_g, sc.neg_inv_q_g, sc.gamma, sc.gamma_mu);
+  const uint32_t s_g_t = fhe::reduce_shoup(s_g, sc.t, sc.one_sh_t);
+  const uint32_t e_mod_t =
+      s_g <= (sc.gamma >> 1) ? s_g_t : fhe::sub_mod(s_g_t, sc.gamma_mod_t, sc.t);
+  const uint32_t num = fhe::sub_mod(s_t, e_mod_t, sc.t);
+  return fhe::mul_shoup(num, sc.inv_gamma_t, sc.inv_gamma_t_sh, sc.t);
+}
+
+// The key product of the forward's last pass: a[at + g] = x[g] * s[base + g]
+// for the group's consecutive positions (logs = 0, base a multiple of its
+// size), the key's words in 16-byte loads.
+template <int G>
+__device__ __forceinline__ void key_product(const uint32_t (&x)[G], const uint32_t* si, int base,
+                                            uint32_t* a, int at, uint32_t p, uint32_t mu) {
+  uint32_t sv[G];
+  if constexpr (G % 4 == 0) {
+#pragma unroll
+    for (int g = 0; g < G; g += 4) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(si + base + g));
+      sv[g] = v.x;
+      sv[g + 1] = v.y;
+      sv[g + 2] = v.z;
+      sv[g + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int g = 0; g < G; ++g) sv[g] = si[base + g];
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) a[fhe::padded_index(at + g)] = fhe::mul_barrett(x[g], sv[g], p, mu);
+}
 
 // c0, c1: [k, batch, n] with element strides (prime_stride, batch_stride, 1);
 // s: [k, 1, n] NTT form, contiguous; out: [batch, n] mod t.  Grid
@@ -114,33 +172,12 @@ decrypt_fused_kernel(const uint32_t* __restrict__ c0, const uint32_t* __restrict
           for (int g = 0; g < static_cast<int>(sizeof(x) / sizeof(x[0])); ++g)
             x[g] = c1r[base + (g << logs)];
         },
-        [&](auto& x, int base, int logs) {
-          // the last pass's group is consecutive (logs = 0, base a multiple
-          // of its size): the key's words come in 16-byte loads
-          constexpr int G = sizeof(x) / sizeof(x[0]);
-          uint32_t sv[G];
-          if constexpr (G % 4 == 0) {
-#pragma unroll
-            for (int g = 0; g < G; g += 4) {
-              const uint4 v = __ldg(reinterpret_cast<const uint4*>(si + base + g));
-              sv[g] = v.x;
-              sv[g + 1] = v.y;
-              sv[g + 2] = v.z;
-              sv[g + 3] = v.w;
-            }
-          } else {
-#pragma unroll
-            for (int g = 0; g < G; ++g) sv[g] = si[base + g];
-          }
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-            a[fhe::padded_index(base + g)] = fhe::mul_barrett(x[g], sv[g], pi, mui);
-        });
+        [&](auto& x, int base, int) { key_product(x, si, base, a, base, pi, mui); });
     // INTT, then phase_i, z_i and the two lanes' terms, fused into the
     // inverse's last pass.  Each j reaches out() from the same thread for
     // every prime, so acc_t / acc_g need no barrier between primes.
-    const uint32_t gt = gt_inv_phat[i], gt_sh = gt_inv_phat_sh[i];
-    const uint32_t pt = phat_t[i], pt_sh = phat_t_sh[i], pg = phat_g[i];
+    const PrimeTerms pc{pi, gt_inv_phat[i], gt_inv_phat_sh[i], phat_t[i], phat_t_sh[i],
+                        phat_g[i]};
     const uint32_t* c0r = c0 + row;
     const bool first = i == r;
     fhe::inv_ntt_regs(
@@ -149,14 +186,8 @@ decrypt_fused_kernel(const uint32_t* __restrict__ c0, const uint32_t* __restrict
 #pragma unroll
           for (int g = 0; g < static_cast<int>(sizeof(x) / sizeof(x[0])); ++g) {
             const int j = base + (g << logs);
-            const uint32_t phase = fhe::add_mod(c0r[j], x[g], pi);
-            const uint32_t z = fhe::mul_shoup(phase, gt, gt_sh, pi);
-            const uint32_t term_t = fhe::mul_shoup(z, pt, pt_sh, sc.t);
-            const uint32_t term_g = fhe::mul_barrett(
-                fhe::reduce_barrett(z, sc.gamma, sc.gamma_mu), pg, sc.gamma, sc.gamma_mu);
             const int e = at(j);
-            acc_t[e] = first ? term_t : fhe::add_mod(acc_t[e], term_t, sc.t);
-            acc_g[e] = first ? term_g : fhe::add_mod(acc_g[e], term_g, sc.gamma);
+            add_terms(fhe::add_mod(c0r[j], x[g], pi), pc, sc, first, acc_t[e], acc_g[e]);
           }
         });
   }
@@ -178,17 +209,123 @@ decrypt_fused_kernel(const uint32_t* __restrict__ c0, const uint32_t* __restrict
       sum_t = fhe::add_mod(sum_t, their_t[e], sc.t);
       sum_g = fhe::add_mod(sum_g, their_g[e], sc.gamma);
     }
-    const uint32_t s_t = fhe::mul_shoup(sum_t, sc.neg_inv_q_t, sc.neg_inv_q_t_sh, sc.t);
-    const uint32_t s_g = fhe::mul_barrett(sum_g, sc.neg_inv_q_g, sc.gamma, sc.gamma_mu);
-    const uint32_t s_g_t = fhe::reduce_shoup(s_g, sc.t, sc.one_sh_t);
-    const uint32_t e_mod_t =
-        s_g <= (sc.gamma >> 1) ? s_g_t : fhe::sub_mod(s_g_t, sc.gamma_mod_t, sc.t);
-    const uint32_t num = fhe::sub_mod(s_t, e_mod_t, sc.t);
-    out[static_cast<size_t>(b) * n + j] =
-        fhe::mul_shoup(num, sc.inv_gamma_t, sc.inv_gamma_t_sh, sc.t);
+    out[static_cast<size_t>(b) * n + j] = scaled_message(sum_t, sum_g, sc);
   }
   // the peers read this CTA's accumulators above: no CTA leaves (and frees
   // its shared memory) before all have
+  cluster.sync();
+}
+
+// The compact form (n = 65536, where one padded row exceeds a block's
+// shared memory): each prime's row is split over a pair of CTAs on the
+// compact split of modmath.cuh, a padded half row each (132 KB).  Cluster
+// of C = 2P CTAs per ciphertext row b, P = min(k, 4) pairs (a portable
+// cluster of 8 at most), grid (C, batch); CTA 2q + h of pair q takes, with
+// its partner, the primes q, q + P, ... in ceil(k / P) rounds (a pair
+// without a prime in the last round takes the three cluster barriers of
+// the peers' transforms).  The inverse's last pass hands CTA h the columns
+// [h n/32, (h+1) n/32) of the row, element base + (g << (log n - 4)) of
+// column base, which it accumulates at g n/32 + base - h n/32 of its acc_t
+// and acc_g, n/2 words each at scratch + (b * C + rank) * n (and + n/2):
+// the same words from the same thread for every prime.  After the cluster
+// barrier, CTA `rank` owns coefficients [rank n / C, (rank + 1) n / C) and
+// sums the P partials of each (from the pairs' CTAs of its column half).
+__global__ void __launch_bounds__(512)
+decrypt_fused_compact_kernel(const uint32_t* __restrict__ c0, const uint32_t* __restrict__ c1,
+                             long long prime_stride, long long batch_stride,
+                             const uint32_t* __restrict__ s, uint32_t* __restrict__ out,
+                             const uint32_t* __restrict__ p, const uint32_t* __restrict__ mu,
+                             const uint32_t* __restrict__ psi,
+                             const uint32_t* __restrict__ psi_sh,
+                             const uint32_t* __restrict__ ipsi,
+                             const uint32_t* __restrict__ ipsi_sh,
+                             const uint32_t* __restrict__ n_inv,
+                             const uint32_t* __restrict__ n_inv_sh,
+                             const uint32_t* __restrict__ gt_inv_phat,
+                             const uint32_t* __restrict__ gt_inv_phat_sh,
+                             const uint32_t* __restrict__ phat_t,
+                             const uint32_t* __restrict__ phat_t_sh,
+                             const uint32_t* __restrict__ phat_g, DecryptScalars sc, int k,
+                             int logn, uint32_t* scratch) {
+  extern __shared__ uint32_t a[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = 1 << logn;
+  const int half = n / kRowSplit;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int pairs = csize / kRowSplit;
+  const int q = rank / kRowSplit, h = rank % kRowSplit;
+  const int b = blockIdx.y;
+  const int first = h * half;                 // a[]'s first position
+  const int logc = logn - fhe::kRegLog - 1;   // log2 of a CTA's columns, n/32
+  uint32_t* ours = scratch + static_cast<size_t>(b) * csize * n;
+  uint32_t* acc_t = ours + static_cast<size_t>(rank) * n;
+  uint32_t* acc_g = acc_t + half;
+  static_assert(kRowSplit == 2, "the split below names both CTAs of a row");
+  const fhe::RowSplit<kRowSplit> split{{cluster.map_shared_rank(a, q * kRowSplit),
+                                        cluster.map_shared_rank(a, q * kRowSplit + 1)},
+                                       h};
+  auto sync = [&] { cluster.sync(); };
+  const int rounds = (k + pairs - 1) / pairs;
+  for (int m = 0; m < rounds; ++m) {
+    const int i = q + m * pairs;
+    if (i >= k) {
+      // the barriers inside the peers' forward (2) and inverse (1)
+      cluster.sync();
+      cluster.sync();
+      cluster.sync();
+      continue;
+    }
+    const uint32_t pi = p[i];
+    const uint32_t mui = mu[i];
+    const size_t tab = static_cast<size_t>(i) * n;
+    const long long row = i * prime_stride + b * batch_stride;
+    const uint32_t* c1r = c1 + row;
+    const uint32_t* si = s + tab;
+    fhe::fwd_ntt_regs_split<kRowSplit, true>(
+        a, split, sync, logn, pi, psi + tab, psi_sh + tab,
+        [&](auto& x, int base, int logs) {
+#pragma unroll
+          for (int g = 0; g < static_cast<int>(sizeof(x) / sizeof(x[0])); ++g)
+            x[g] = c1r[base + (g << logs)];
+        },
+        [&](auto& x, int base, int) { key_product(x, si, base, a, base - first, pi, mui); });
+    const PrimeTerms pc{pi, gt_inv_phat[i], gt_inv_phat_sh[i], phat_t[i], phat_t_sh[i],
+                        phat_g[i]};
+    const uint32_t* c0r = c0 + row;
+    fhe::inv_ntt_regs_split<kRowSplit, true>(
+        a, split, sync, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i],
+        fhe::SmemLoadFrom{a, first}, [&](auto& x, int base, int logs) {
+          // a column group: base in [h n/32, (h+1) n/32), logs = log n - 4
+          const int col = base - (h << logc);
+#pragma unroll
+          for (int g = 0; g < static_cast<int>(sizeof(x) / sizeof(x[0])); ++g) {
+            const int e = (g << logc) + col;
+            add_terms(fhe::add_mod(c0r[base + (g << logs)], x[g], pi), pc, sc, m == 0,
+                      acc_t[e], acc_g[e]);
+          }
+        });
+  }
+  __threadfence();    // the accumulators, to the peers
+  cluster.sync();
+  const int lo = static_cast<int>((static_cast<long long>(rank) << logn) / csize);
+  const int hi = static_cast<int>((static_cast<long long>(rank + 1) << logn) / csize);
+#pragma unroll 4
+  for (int j = lo + threadIdx.x; j < hi; j += blockDim.x) {
+    // coefficient j: column j mod n/16 of CTA hj of every pair, at e
+    const int cols = j & ((2 << logc) - 1);
+    const int hj = cols >> logc;
+    const int e = ((j >> (logc + 1)) << logc) + (cols & ((1 << logc) - 1));
+    uint32_t sum_t = 0, sum_g = 0;
+    for (int c = 0; c < pairs; ++c) {
+      const uint32_t* their_t = ours + static_cast<size_t>(c * kRowSplit + hj) * n;
+      sum_t = fhe::add_mod(sum_t, their_t[e], sc.t);
+      sum_g = fhe::add_mod(sum_g, their_t[half + e], sc.gamma);
+    }
+    out[static_cast<size_t>(b) * n + j] = scaled_message(sum_t, sum_g, sc);
+  }
+  // the partners read this CTA's row in the inverse's last pass: no CTA
+  // leaves (and frees its shared memory) before all have
   cluster.sync();
 }
 
@@ -198,7 +335,8 @@ decrypt_fused_kernel(const uint32_t* __restrict__ c0, const uint32_t* __restrict
 // decrypt_geometry): clusters of `cluster` CTAs (1 <= cluster <= min(k, 8)),
 // `threads` per CTA and `smem` bytes per CTA, at least the three padded rows
 // the kernel uses; a scratch buffer (2n words per CTA) picks the WIDE form,
-// which uses one.
+// which uses one; `compact` with a scratch buffer (n words per CTA) the
+// compact form, clusters of 2 min(k, 4) CTAs and a padded half row each.
 extern "C" int fhe_decrypt_fused(
     const void* c0, const void* c1, long long prime_stride, long long batch_stride,
     const void* s, void* out, const void* p,
@@ -209,29 +347,35 @@ extern "C" int fhe_decrypt_fused(
     uint32_t gamma_mu, uint32_t neg_inv_q_t, uint32_t neg_inv_q_t_sh,
     uint32_t neg_inv_q_g, uint32_t inv_gamma_t, uint32_t inv_gamma_t_sh,
     uint32_t gamma_mod_t, uint32_t one_sh_t, int k, int batch, int logn, int cluster,
-    int threads, int smem, void* scratch, void* stream) {
+    int threads, int smem, void* scratch, int compact, void* stream) {
   const bool wide = scratch != nullptr;
-  if (logn <= fhe::kRegLog || cluster < 1 || cluster > 8 || cluster > k
-      || smem < (wide ? 1 : 3) * 4 * fhe::padded(1 << logn))
+  const int n = 1 << logn;
+  if (logn <= fhe::kRegLog || cluster < 1 || cluster > 8
+      || (compact ? !wide || cluster % kRowSplit || cluster > kRowSplit * k
+                      || smem < 4 * fhe::padded(n / kRowSplit)
+                  : cluster > k || smem < (wide ? 1 : 3) * 4 * fhe::padded(n)))
     return static_cast<int>(cudaErrorInvalidValue);
-  // each instantiation keeps its own records
-  static std::atomic<size_t> granted[2][fhe::kMaxDevices];
-  static std::atomic<size_t> placed[2][fhe::kMaxDevices];
-  const void* kernel = wide ? reinterpret_cast<const void*>(decrypt_fused_kernel<true>)
-                            : reinterpret_cast<const void*>(decrypt_fused_kernel<false>);
-  cudaError_t err = fhe::allow_smem(kernel, smem, granted[wide]);
+  // each form keeps its own records
+  static std::atomic<size_t> granted[3][fhe::kMaxDevices];
+  static std::atomic<size_t> placed[3][fhe::kMaxDevices];
+  const int form = compact ? 2 : wide ? 1 : 0;
+  auto* fn = compact ? &decrypt_fused_compact_kernel
+             : wide  ? &decrypt_fused_kernel<true>
+                     : &decrypt_fused_kernel<false>;
+  const void* kernel = reinterpret_cast<const void*>(fn);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted[form]);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = fhe::cluster_config(
       dim3(cluster, batch), threads, smem, cluster, static_cast<cudaStream_t>(stream), attr);
-  err = fhe::check_cluster(kernel, cfg, placed[wide]);
+  err = fhe::check_cluster(kernel, cfg, placed[form]);
   if (err != cudaSuccess) return static_cast<int>(err);
   const DecryptScalars sc{t, gamma, gamma_mu, neg_inv_q_t, neg_inv_q_t_sh,
                           neg_inv_q_g, inv_gamma_t, inv_gamma_t_sh, gamma_mod_t,
                           one_sh_t};
   auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
   err = cudaLaunchKernelEx(
-      &cfg, wide ? decrypt_fused_kernel<true> : decrypt_fused_kernel<false>, u(c0), u(c1),
+      &cfg, fn, u(c0), u(c1),
       prime_stride, batch_stride, u(s), static_cast<uint32_t*>(out), u(p), u(mu), u(psi),
       u(psi_sh), u(ipsi), u(ipsi_sh), u(n_inv), u(n_inv_sh), u(gt_inv_phat),
       u(gt_inv_phat_sh), u(phat_t), u(phat_t_sh), u(phat_g), sc, k, logn,

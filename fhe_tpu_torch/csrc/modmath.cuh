@@ -233,14 +233,22 @@ __device__ __forceinline__ uint32_t reduce_barrett(uint32_t x, uint32_t p,
 // through out() across calls reads and writes each element from one
 // thread; any other reader of what out() stored synchronises first.  Every
 // pass ends with a barrier, so a[] may be written again when the sweep
-// returns.  Needs log n > kRegLog; the wrappers pick blockDim
-// (ops/ntt_cuda.py, regs_threads).
+// returns (but see the compact split below).  Needs log n > kRegLog; the
+// wrappers pick blockDim (ops/ntt_cuda.py, regs_threads).
 // ---------------------------------------------------------------------------
 
 constexpr int kRegLog = 4;
 
 __device__ __forceinline__ int padded_index(int j) { return j + (j >> 5); }
 __host__ __device__ constexpr int padded(int n) { return n + (n >> 5); }
+
+// The shared-memory words of the cluster tensor products (ntt.cu's
+// tensor_product and rns.cu's bsk_branch_fused) in each form: two padded
+// rows (0), a padded row and a padded half row (1, HALF), or the padded
+// half row alone (2, COMPACT).
+__host__ __device__ constexpr int product_words(int form, int n) {
+  return form == 2 ? padded(n / 2) : padded(n) + padded(form == 1 ? n / 2 : n);
+}
 
 // A group from, and to, a padded shared row.
 struct SmemLoad {
@@ -460,6 +468,68 @@ __device__ __forceinline__ auto split_load(const RowSplit<H>& sp, uint32_t* a, i
     return PeerLoad<H>{sp, shift};
 }
 
+// The compact split (n = 65536, where one padded row exceeds a block's
+// shared memory): CTA h's a[] holds only positions [h n/H, (h+1) n/H),
+// element j at padded_index(j - h n/H).  A group of the forward's first
+// pass and of the inverse's last (the top stages, across the row) is a
+// column, elements base + (i << logs) with base < n/G and span = n/H =
+// (G/H) << logs, so element i lies with CTA i / (G/H), at base + ((i mod
+// G/H) << logs) of its row: the owner of every element is a constant, and
+// the pointers are picked at compile time.
+struct SmemLoadFrom {
+  const uint32_t* a;
+  int first;
+  template <int G>
+  __device__ __forceinline__ void operator()(uint32_t (&x)[G], int base, int logs) const {
+#pragma unroll
+    for (int i = 0; i < G; ++i) x[i] = a[padded_index(base + (i << logs) - first)];
+  }
+};
+
+// The forward's first pass: each element straight into its owner's row.
+template <int H>
+struct ColumnToOwner {
+  RowSplit<H> sp;
+  template <int G>
+  __device__ __forceinline__ void operator()(uint32_t (&x)[G], int base, int logs) const {
+    constexpr int per = G / H;
+    static_assert(per >= 1, "a column group spans every CTA of the split");
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      const_cast<uint32_t*>(sp.peer[i / per])[padded_index(base + ((i % per) << logs))] = x[i];
+  }
+};
+
+// The inverse's last pass: each element from its owner's row.
+template <int H>
+struct ColumnFromOwner {
+  RowSplit<H> sp;
+  template <int G>
+  __device__ __forceinline__ void operator()(uint32_t (&x)[G], int base, int logs) const {
+    constexpr int per = G / H;
+    static_assert(per >= 1, "a column group spans every CTA of the split");
+#pragma unroll
+    for (int i = 0; i < G; ++i) x[i] = sp.peer[i / per][padded_index(base + ((i % per) << logs))];
+  }
+};
+
+// The loads and stores of the passes a CTA keeps to its own positions:
+// the whole padded row, or (COMPACT) the row from `first` on.
+template <bool COMPACT>
+__device__ __forceinline__ auto own_load(uint32_t* a, int first) {
+  if constexpr (COMPACT)
+    return SmemLoadFrom{a, first};
+  else
+    return SmemLoad{a};
+}
+template <bool COMPACT>
+__device__ __forceinline__ auto own_store(uint32_t* a, int first) {
+  if constexpr (COMPACT)
+    return SmemStoreFrom{a, first};
+  else
+    return SmemStore{a};
+}
+
 template <int H>
 __host__ __device__ constexpr int log2_of() {
   static_assert(H >= 1 && H <= 16 && (H & (H - 1)) == 0, "H: a power of two up to 16");
@@ -471,19 +541,40 @@ __host__ __device__ constexpr int log2_of() {
 
 // Forward negacyclic NTT of one row, merged-psi Cooley-Tukey, natural order
 // in (through in), bit-reversed order out (through out); a[] holds the
-// passes between.  Passes from distance n/2 down.
-template <int H, class In, class Out, class Sync>
+// passes between.  Passes from distance n/2 down.  COMPACT (the compact
+// split above): the first pass stores each element into its owner's row,
+// a cluster barrier publishes them, and every later pass is local, so
+// out() gets positions [h n/H, (h+1) n/H) as in the full-row split.  The
+// sweep then begins with a cluster barrier: the peers' rows are written
+// in the first pass, so every CTA of the cluster must have started, and
+// no peer may still be reading its row (the last pass of an inverse
+// before); a caller that hands out() a[] addresses it from h n/H on.
+template <int H, bool COMPACT = false, class In, class Out, class Sync>
 __device__ __forceinline__ void fwd_ntt_regs_split(uint32_t* a, const RowSplit<H>& sp,
                                                    Sync sync, int logn, uint32_t p,
                                                    const uint32_t* __restrict__ w,
                                                    const uint32_t* __restrict__ w_sh, In in,
                                                    Out out) {
+  static_assert(!COMPACT || H > 1, "a compact row is a share of a split row");
   constexpr int logH = log2_of<H>();
   const int h = sp.h;
   const int rem = logn % kRegLog;
-  ntt_regs_pass<kRegLog, false>(logn, logn - 1, p, w, w_sh, in, SmemStore{a}, h, logH);
+  const auto load = own_load<COMPACT>(a, h << (logn - logH));
+  const auto store = own_store<COMPACT>(a, h << (logn - logH));
+  if constexpr (COMPACT) {
+    sync();
+    ntt_regs_pass<kRegLog, false>(logn, logn - 1, p, w, w_sh, in, ColumnToOwner<H>{sp}, h,
+                                  logH);
+  } else {
+    ntt_regs_pass<kRegLog, false>(logn, logn - 1, p, w, w_sh, in, SmemStore{a}, h, logH);
+  }
   if constexpr (H > 1) sync();
-  const auto by_column = split_load(sp, a, logn - kRegLog - logH);
+  const auto by_column = [&] {
+    if constexpr (COMPACT)
+      return load;
+    else
+      return split_load(sp, a, logn - kRegLog - logH);
+  }();
   int logT = logn - 1 - kRegLog;
   int left = logn - kRegLog;            // stages still to run
   const int second = logn < 2 * kRegLog ? left : rem ? rem : kRegLog;
@@ -491,25 +582,28 @@ __device__ __forceinline__ void fwd_ntt_regs_split(uint32_t* a, const RowSplit<H
     ntt_regs_any<false>(second, logn, logT, p, w, w_sh, by_column, out, h, logH);
     return;
   }
-  ntt_regs_any<false>(second, logn, logT, p, w, w_sh, by_column, SmemStore{a}, h, logH);
+  ntt_regs_any<false>(second, logn, logT, p, w, w_sh, by_column, store, h, logH);
   logT -= second;
   left -= second;
   for (; left > kRegLog; logT -= kRegLog, left -= kRegLog)
-    ntt_regs_pass<kRegLog, false>(logn, logT, p, w, w_sh, SmemLoad{a}, SmemStore{a}, h,
-                                  logH);
-  ntt_regs_pass<kRegLog, false>(logn, logT, p, w, w_sh, SmemLoad{a}, out, h, logH);
+    ntt_regs_pass<kRegLog, false>(logn, logT, p, w, w_sh, load, store, h, logH);
+  ntt_regs_pass<kRegLog, false>(logn, logT, p, w, w_sh, load, out, h, logH);
 }
 
 // Inverse: Gentleman-Sande, bit-reversed in (through in), natural out,
 // each result times n_inv (n^-1, or t * n^-1 with the multiply's tables)
-// before out.  Passes from distance 1 up.
-template <int H, class In, class Out, class Sync>
+// before out.  Passes from distance 1 up.  COMPACT: every pass but the last
+// keeps to the CTA's own row, and the last reads each element from its
+// owner's row after the cluster barrier; a[] may not be written again
+// before a cluster barrier (a peer may still read it).
+template <int H, bool COMPACT = false, class In, class Out, class Sync>
 __device__ __forceinline__ void inv_ntt_regs_split(uint32_t* a, const RowSplit<H>& sp,
                                                    Sync sync, int logn, uint32_t p,
                                                    const uint32_t* __restrict__ w,
                                                    const uint32_t* __restrict__ w_sh,
                                                    uint32_t n_inv, uint32_t n_inv_sh, In in,
                                                    Out out) {
+  static_assert(!COMPACT || H > 1, "a compact row is a share of a split row");
   constexpr int logH = log2_of<H>();
   const int h = sp.h;
   auto scaled = [&](auto& x, int base, int logs) {
@@ -518,9 +612,16 @@ __device__ __forceinline__ void inv_ntt_regs_split(uint32_t* a, const RowSplit<H
       x[i] = mul_shoup(x[i], n_inv, n_inv_sh, p);
     out(x, base, logs);
   };
-  const auto by_position = split_load(sp, a, logn - logH);
+  const auto load = own_load<COMPACT>(a, h << (logn - logH));
+  const auto store = own_store<COMPACT>(a, h << (logn - logH));
+  const auto by_position = [&] {
+    if constexpr (COMPACT)
+      return ColumnFromOwner<H>{sp};
+    else
+      return split_load(sp, a, logn - logH);
+  }();
   const int rem = logn % kRegLog;
-  ntt_regs_pass<kRegLog, true>(logn, kRegLog - 1, p, w, w_sh, in, SmemStore{a}, h, logH);
+  ntt_regs_pass<kRegLog, true>(logn, kRegLog - 1, p, w, w_sh, in, store, h, logH);
   if (logn < 2 * kRegLog) {
     if constexpr (H > 1) sync();
     ntt_regs_any<true>(logn - kRegLog, logn, logn - 1, p, w, w_sh, by_position, scaled, h,
@@ -529,13 +630,11 @@ __device__ __forceinline__ void inv_ntt_regs_split(uint32_t* a, const RowSplit<H
   }
   int lo = kRegLog;                     // the lowest stage not yet run
   if (rem) {
-    ntt_regs_any<true>(rem, logn, lo + rem - 1, p, w, w_sh, SmemLoad{a}, SmemStore{a}, h,
-                       logH);
+    ntt_regs_any<true>(rem, logn, lo + rem - 1, p, w, w_sh, load, store, h, logH);
     lo += rem;
   }
   for (; lo + kRegLog < logn; lo += kRegLog)
-    ntt_regs_pass<kRegLog, true>(logn, lo + kRegLog - 1, p, w, w_sh, SmemLoad{a},
-                                 SmemStore{a}, h, logH);
+    ntt_regs_pass<kRegLog, true>(logn, lo + kRegLog - 1, p, w, w_sh, load, store, h, logH);
   if constexpr (H > 1) sync();
   ntt_regs_pass<kRegLog, true>(logn, logn - 1, p, w, w_sh, by_position, scaled, h, logH);
 }

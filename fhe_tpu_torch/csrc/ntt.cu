@@ -48,7 +48,11 @@
 // (element, prime), two per input row, grid (8, B, k): 24 CTAs where 3 ran,
 // two padded rows each, so n = 16384 fits (135 KB), where the old four rows
 // per block (256 KB) did not; at n = 32768, where two padded rows take
-// 264 KB, a CTA keeps only its half of the transformed row (HALF, 198 KB).
+// 264 KB, a CTA keeps only its half of the transformed row (HALF, 198 KB);
+// at n = 65536, where one padded row takes 264 KB, every kernel here but
+// ks_inner runs on modmath.cuh's compact split (each CTA of a pair holds
+// only its half of the row, 132 KB), and what a CTA kept beside its working
+// row (B4's transformed half row, B7's partials) lies in global scratch.
 // The two kernels keep two bodies: with one
 // __device__ template for both, parameterised by the load and epilogue
 // hooks (a strided read and store here, the lift and the floor there),
@@ -148,7 +152,10 @@ constexpr int kKeyswitchPairs = 4;
 // grid (2 * batch, k) in clusters of (2, 1, 1).  CTA h runs half of each
 // pass (modmath.cuh's RowSplit note): it loads its columns of the row in the
 // first pass and stores positions [h n/2, (h+1) n/2), 16 consecutive words
-// per group, in the last.  Shared memory: one padded row.
+// per group, in the last.  Shared memory: one padded row, or with COMPACT
+// (n = 65536, where one padded row exceeds a block's shared memory) the
+// CTA's padded half row, the compact split of modmath.cuh.
+template <bool COMPACT>
 __global__ void __launch_bounds__(512)
 ntt_forward_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                    const uint32_t* __restrict__ p, const uint32_t* __restrict__ psi,
@@ -166,7 +173,7 @@ ntt_forward_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   const fhe::RowSplit<kRowSplit> split{
       {cluster.map_shared_rank(a, 0), cluster.map_shared_rank(a, 1)},
       static_cast<int>(cluster.block_rank())};
-  fhe::fwd_ntt_regs_split(
+  fhe::fwd_ntt_regs_split<kRowSplit, COMPACT>(
       a, split, [&] { cluster.sync(); }, logn, p[i], psi + tab, psi_sh + tab,
       [&](auto& v, int base, int logs) {
 #pragma unroll
@@ -186,7 +193,8 @@ ntt_forward_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
 // positions [h n/2, (h+1) n/2), 16 consecutive words per group, in the
 // first pass (16-byte loads where `vec`: x starts 16-byte aligned) and
 // stores its share of the row's columns, times n^-1, in the last.  Shared
-// memory: one padded row.
+// memory: one padded row, or with COMPACT (n = 65536) the padded half row.
+template <bool COMPACT>
 __global__ void __launch_bounds__(512)
 ntt_inverse_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                    const uint32_t* __restrict__ p, const uint32_t* __restrict__ ipsi,
@@ -206,7 +214,7 @@ ntt_inverse_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   const fhe::RowSplit<kRowSplit> split{
       {cluster.map_shared_rank(a, 0), cluster.map_shared_rank(a, 1)},
       static_cast<int>(cluster.block_rank())};
-  fhe::inv_ntt_regs_split(
+  fhe::inv_ntt_regs_split<kRowSplit, COMPACT>(
       a, split, [&] { cluster.sync(); }, logn, p[i], ipsi + tab, ipsi_sh + tab, n_inv[i],
       n_inv_sh[i],
       // the first pass's group is consecutive (logs = 0, base a multiple of its size)
@@ -229,7 +237,10 @@ ntt_inverse_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
 // (2, 1, 1), blockIdx.y = c * B + b.  CTA h runs half of each pass of the
 // two transforms (the row split of modmath.cuh's RowSplit note) and keeps
 // positions [h n/2, (h+1) n/2) of NTT(u) between them, where it multiplies
-// them by w[i, c] in the forward's last pass.  Shared memory: one padded row.
+// them by w[i, c] in the forward's last pass.  Shared memory: one padded row,
+// or with COMPACT (n = 65536) the padded half row of those positions, which
+// is all the CTA keeps between the transforms.
+template <bool COMPACT>
 __global__ void __launch_bounds__(512)
 mul_by_ntt_operand_kernel(const uint32_t* __restrict__ u, long long u_sp, long long u_sb,
                           const uint32_t* __restrict__ w, uint32_t* __restrict__ out,
@@ -257,7 +268,8 @@ mul_by_ntt_operand_kernel(const uint32_t* __restrict__ u, long long u_sp, long l
   auto sync = [&] { cluster.sync(); };
   const uint32_t* ur = u + i * u_sp + b * u_sb;
   const uint32_t* wr = w + (static_cast<size_t>(i) * num_c + c) * n;
-  fhe::fwd_ntt_regs_split(
+  const int first = COMPACT ? h * (n / kRowSplit) : 0;   // a[]'s first position
+  fhe::fwd_ntt_regs_split<kRowSplit, COMPACT>(
       a, split, sync, logn, pi, psi + tab, psi_sh + tab,
       [&](auto& x, int base, int logs) {
 #pragma unroll
@@ -273,12 +285,12 @@ mul_by_ntt_operand_kernel(const uint32_t* __restrict__ u, long long u_sp, long l
         fhe::load_twiddles(wr, base, wv);
 #pragma unroll
         for (int g = 0; g < G; ++g)
-          a[fhe::padded_index(base + g)] = fhe::mul_barrett(x[g], wv[g], pi, mui);
+          a[fhe::padded_index(base - first + g)] = fhe::mul_barrett(x[g], wv[g], pi, mui);
       });
   uint32_t* dst = out + (static_cast<size_t>(i) * gridDim.y + cb) * n;
-  fhe::inv_ntt_regs_split(
+  fhe::inv_ntt_regs_split<kRowSplit, COMPACT>(
       a, split, sync, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i],
-      fhe::SmemLoad{a}, [&](auto& x, int base, int logs) {
+      fhe::own_load<COMPACT>(a, first), [&](auto& x, int base, int logs) {
 #pragma unroll
         for (int g = 0; g < static_cast<int>(sizeof(x) / sizeof(x[0])); ++g)
           dst[base + (g << logs)] = x[g];
@@ -327,7 +339,14 @@ struct ProductTables {
 // where two padded rows exceed a block's shared memory) the transformed
 // input row holds only the CTA's own positions [h n/2, (h+1) n/2), the only
 // ones it keeps after the forward and the only ones its peers read:
-// padded(n) + padded(n/2) words, 198 KB.
+// padded(n) + padded(n/2) words, 198 KB.  The form is FORM: 0 the two
+// padded rows, 1 HALF, 2 COMPACT (n = 65536, where even a padded half row
+// beside the working row exceeds a block: two padded half rows are 264 KB):
+// the working row is the compact split's half row (modmath.cuh), 132 KB,
+// and the transformed half row goes to `scratch`, a global buffer of n/2
+// words per CTA (the wrapper's), CTA `rank` of cluster (b, z) at scratch +
+// ((z * B + b) * 8 + rank) * n/2, published to the peers by the cluster
+// barrier after a __threadfence.
 //
 // The Lift lane: x and y hold residues in the k = lo.k q primes, and the
 // grid's k + kb clusters per element form both products of the n < 1024
@@ -338,7 +357,7 @@ struct ProductTables {
 // lift.cuh's lift, before the forward transform.  out is [k + kb, 3, B, n]:
 // t x (x) y in q, then in Bsk.  The source prime of the lift runs over x's
 // rows (stride s_p), the output prime i over the tables and constants.
-template <ProductLane LANE, bool HALF>
+template <ProductLane LANE, int FORM>
 __global__ void __launch_bounds__(512)
 tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
                       long long s_p, long long s_c, long long s_b,
@@ -349,18 +368,26 @@ tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
                       const uint32_t* __restrict__ ipsi_sh,
                       const uint32_t* __restrict__ n_inv,
                       const uint32_t* __restrict__ n_inv_sh, int logn,
-                      const fhe::SmMRqOperands lo, const ProductTables tq) {
+                      const fhe::SmMRqOperands lo, const ProductTables tq,
+                      uint32_t* scratch) {
   constexpr bool lifted = LANE == ProductLane::Lift;
+  constexpr bool HALF = FORM >= 1, COMPACT = FORM == 2;
   static_assert(!(lifted && HALF), "the Lift lane runs at n < 1024 only");
   extern __shared__ uint32_t sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
+  const int half = n / kRowSplit;
   const int rank = static_cast<int>(cluster.block_rank());
   const int r = rank / kRowSplit, h = rank % kRowSplit;
-  // input row r, NTT form (with HALF its positions from `first` on only)
-  uint32_t* row = sm;
-  const int first = HALF ? h * (n / kRowSplit) : 0;
-  uint32_t* work = sm + fhe::padded(HALF ? n / kRowSplit : n);   // the sweeps' passes
+  // input row r, NTT form (with HALF its positions from `first` on only;
+  // COMPACT: in global scratch, unpadded, the cluster's rows together)
+  uint32_t* ours = COMPACT ? scratch + (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y)
+                                           * kProductCluster * half
+                           : nullptr;
+  uint32_t* row = COMPACT ? ours + static_cast<size_t>(rank) * half : sm;
+  const int first = HALF ? h * half : 0;
+  // the sweeps' passes
+  uint32_t* work = COMPACT ? sm : sm + fhe::padded(HALF ? half : n);
   const int b = blockIdx.y;
   const int z = blockIdx.z;                  // the output prime
   // the Lift lane's q side takes tq; its Bsk side, prime i of the tables,
@@ -401,7 +428,13 @@ tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
     }
     __syncthreads();
   }
-  fhe::fwd_ntt_regs_split(
+  auto kept = [&] {
+    if constexpr (COMPACT)   // the last pass's group is consecutive (logs = 0)
+      return [=](auto& v, int base, int) { fhe::store_run(row, base - first, v); };
+    else
+      return fhe::SmemStoreFrom{row, first};
+  }();
+  fhe::fwd_ntt_regs_split<kRowSplit, COMPACT>(
       work, split, sync, logn, pi, tpsi + tab, tpsi_sh + tab,
       [&](auto& v, int base, int logs) {
         if (lift_row) {
@@ -412,29 +445,37 @@ tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
             v[g] = src[base + (g << logs)];
         }
       },
-      fhe::SmemStoreFrom{row, first});
+      kept);
+  if constexpr (COMPACT) __threadfence();    // the transformed rows, to the peers
   cluster.sync();
   if (r < 3) {
     const uint32_t mui = tmu[i];
-    const uint32_t* x0 = cluster.map_shared_rank(row, 0 * kRowSplit + h);
-    const uint32_t* x1 = cluster.map_shared_rank(row, 1 * kRowSplit + h);
-    const uint32_t* y0 = cluster.map_shared_rank(row, 2 * kRowSplit + h);
-    const uint32_t* y1 = cluster.map_shared_rank(row, 3 * kRowSplit + h);
+    auto peer_row = [&](int q) -> const uint32_t* {
+      const int peer = q * kRowSplit + h;
+      return COMPACT ? ours + static_cast<size_t>(peer) * half : cluster.map_shared_rank(row, peer);
+    };
+    const uint32_t* x0 = peer_row(0);
+    const uint32_t* x1 = peer_row(1);
+    const uint32_t* y0 = peer_row(2);
+    const uint32_t* y1 = peer_row(3);
     const uint32_t* pa = r == 0 ? x0 : x1;
     const uint32_t* pb = r == 0 ? y0 : y1;
-    const int end = (h + 1) * (n / kRowSplit);
+    // position j of the half: work[e] (e from `first` on where COMPACT),
+    // the peers' rows at f (unpadded in scratch)
+    const int end = (h + 1) * half;
 #pragma unroll 8
-    for (int j = h * (n / kRowSplit) + threadIdx.x; j < end; j += blockDim.x) {
-      const int e = fhe::padded_index(j), f = fhe::padded_index(j - first);
+    for (int j = h * half + threadIdx.x; j < end; j += blockDim.x) {
+      const int e = fhe::padded_index(COMPACT ? j - first : j);
+      const int f = COMPACT ? j - first : fhe::padded_index(j - first);
       work[e] = r == 1 ? fhe::add_mod(fhe::mul_barrett(x0[f], y1[f], pi, mui),
                                       fhe::mul_barrett(x1[f], y0[f], pi, mui), pi)
                        : fhe::mul_barrett(pa[f], pb[f], pi, mui);
     }
     __syncthreads();
     uint32_t* dst = out + ((static_cast<size_t>(z) * 3 + r) * gridDim.y + b) * n;
-    fhe::inv_ntt_regs_split(
+    fhe::inv_ntt_regs_split<kRowSplit, COMPACT>(
         work, split, sync, logn, pi, tipsi + tab, tipsi_sh + tab, tn_inv[i], tn_inv_sh[i],
-        fhe::SmemLoad{work}, [&](auto& v, int base, int logs) {
+        fhe::own_load<COMPACT>(work, first), [&](auto& v, int base, int logs) {
 #pragma unroll
           for (int g = 0; g < static_cast<int>(sizeof(v) / sizeof(v[0])); ++g)
             dst[base + (g << logs)] = v[g];
@@ -540,8 +581,12 @@ __device__ __forceinline__ uint32_t coeff_source(uint32_t h, int x, int logn, bo
 // positions to the same thread), and the cluster barrier after the last
 // round publishes it to pairs 0 and 1.  The Galois lane reads the digit
 // row and c0 in place, each word a scattered L2 read, as ks_inner's
-// GaloisInPlace lane does.
-template <KsLane LANE, bool WIDE>
+// GaloisInPlace lane does.  FORM: 0 the rows in shared memory, 1 WIDE, 2
+// WIDE on the compact split (n = 65536, where the working row alone
+// exceeds a block): the working row is the CTA's padded half row (132 KB),
+// the scratch as WIDE's (n words per CTA: 63 MB at k = kd = 30, more than
+// L2).
+template <KsLane LANE, int FORM>
 __global__ void __launch_bounds__(512)
 keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
                  long long d_sb, const uint32_t* __restrict__ keys, long long key_sp,
@@ -553,6 +598,7 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
                  const uint32_t* __restrict__ n_inv_sh, int kd, int pairs, int logn,
                  uint32_t h_gal, const uint32_t* __restrict__ c0, long long c0_sp,
                  long long c0_sb, int vec, uint32_t* scratch) {
+  constexpr bool WIDE = FORM >= 1, COMPACT = FORM == 2;
   constexpr bool staged = LANE == KsLane::Galois && !WIDE;
   extern __shared__ uint32_t sm[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -584,10 +630,12 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
   const uint32_t* key_i = keys + i * key_sp;
   for (int m = 0, j = r; m * pairs < kd; ++m, j += pairs) {
     // the partner's second pass of the last round read this CTA's row (and,
-    // in the Galois lane, this CTA's first pass its staged row)
-    if (m > 0) cluster.sync();
+    // in the Galois lane, this CTA's first pass its staged row); the
+    // compact forward begins with that barrier itself
+    if (m > 0 && !COMPACT) cluster.sync();
     if (j >= kd) {
-      cluster.sync();    // the barrier inside the peers' forward
+      cluster.sync();    // the barriers inside the peers' forward
+      if constexpr (COMPACT) cluster.sync();
       continue;
     }
     const uint32_t* dr = d_ib + j * d_sj;
@@ -600,7 +648,7 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
       __syncthreads();
     }
     const uint32_t qj = LANE == KsLane::Galois ? p[j] : 0;
-    fhe::fwd_ntt_regs_split(
+    fhe::fwd_ntt_regs_split<kRowSplit, COMPACT>(
         work, split, sync, logn, pi, psi + tab, psi_sh + tab,
         [&](auto& x, int base, int logs) {
 #pragma unroll
@@ -658,14 +706,14 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
                                       : cluster.map_shared_rank(mine, peer);
         s = fhe::add_mod(s, theirs[at(e)], pi);
       }
-      work[fhe::padded_index(h * half + e)] = s;
+      work[fhe::padded_index(COMPACT ? e : h * half + e)] = s;
     }
     if (staged && add_c0) stage_wait();
     __syncthreads();
     uint32_t* dst = out + ((static_cast<size_t>(i) * 2 + r) * gridDim.y + b) * n;
-    fhe::inv_ntt_regs_split(
+    fhe::inv_ntt_regs_split<kRowSplit, COMPACT>(
         work, split, sync, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i],
-        fhe::SmemLoad{work}, [&](auto& x, int base, int logs) {
+        fhe::own_load<COMPACT>(work, COMPACT ? h * half : 0), [&](auto& x, int base, int logs) {
 #pragma unroll
           for (int g = 0; g < static_cast<int>(sizeof(x) / sizeof(x[0])); ++g) {
             const int pos = base + (g << logs);
@@ -869,22 +917,24 @@ inline int lane_smem(int words, int n, bool staged) {
   return 4 * (staged ? stage_offset(words) + n : words);
 }
 
-template <ProductLane LANE, bool HALF>
+template <ProductLane LANE, int FORM>
 cudaError_t launch_tensor_product(const void* x, const void* y, long long s_p, long long s_c,
                                   long long s_b, void* out, const void* p, const void* mu,
                                   const void* psi, const void* psi_sh, const void* ipsi,
                                   const void* ipsi_sh, const void* n_inv,
                                   const void* n_inv_sh, int k, int batch, int logn,
                                   int threads, int smem, const fhe::SmMRqOperands& lo,
-                                  const ProductTables& tq, cudaStream_t stream) {
+                                  const ProductTables& tq, void* scratch,
+                                  cudaStream_t stream) {
   const int n = 1 << logn;
-  if (logn <= fhe::kRegLog || smem < 4 * (fhe::padded(n) + fhe::padded(HALF ? n / 2 : n))
+  if (logn <= fhe::kRegLog || smem < 4 * fhe::product_words(FORM, n)
+      || (FORM == 2) != (scratch != nullptr)
       || (LANE == ProductLane::Lift
           && (lo.k < 1 || lo.k > fhe::kMaxLiftK || k <= lo.k || tq.p == nullptr)))
     return cudaErrorInvalidValue;
   static std::atomic<size_t> granted[fhe::kMaxDevices];
   static std::atomic<size_t> placed[fhe::kMaxDevices];
-  const void* kernel = reinterpret_cast<const void*>(tensor_product_kernel<LANE, HALF>);
+  const void* kernel = reinterpret_cast<const void*>(tensor_product_kernel<LANE, FORM>);
   cudaError_t err = fhe::allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
@@ -893,14 +943,15 @@ cudaError_t launch_tensor_product(const void* x, const void* y, long long s_p, l
   err = fhe::check_cluster(kernel, cfg, placed);
   if (err != cudaSuccess) return err;
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  err = cudaLaunchKernelEx(&cfg, tensor_product_kernel<LANE, HALF>, c(x), c(y), s_p, s_c, s_b,
+  err = cudaLaunchKernelEx(&cfg, tensor_product_kernel<LANE, FORM>, c(x), c(y), s_p, s_c, s_b,
                            static_cast<uint32_t*>(out), c(p), c(mu), c(psi), c(psi_sh),
-                           c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), logn, lo, tq);
+                           c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), logn, lo, tq,
+                           static_cast<uint32_t*>(scratch));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <KsLane LANE, bool WIDE>
+template <KsLane LANE, int FORM>
 cudaError_t launch_keyswitch(const void* d, long long d_sp, long long d_sj, long long d_sb,
                              const void* keys, long long key_sp, long long key_sj, void* out,
                              const void* p, const void* mu, const void* psi,
@@ -911,13 +962,14 @@ cudaError_t launch_keyswitch(const void* d, long long d_sp, long long d_sj, long
                              int vec, void* scratch, cudaStream_t stream) {
   constexpr bool galois = LANE == KsLane::Galois;
   const int n = 1 << logn;
+  const int words = FORM == 2 ? fhe::padded(n / 2) : fhe::padded(n);   // a wide form's
   if (logn <= fhe::kRegLog || kd < 1 || pairs < 2 || pairs > kKeyswitchPairs
-      || smem < (WIDE ? 4 * fhe::padded(n) : lane_smem(2 * fhe::padded(n), n, galois))
-      || (WIDE && scratch == nullptr) || (galois && (kd > k || c0 == nullptr)))
+      || smem < (FORM ? 4 * words : lane_smem(2 * fhe::padded(n), n, galois))
+      || (FORM && scratch == nullptr) || (galois && (kd > k || c0 == nullptr)))
     return cudaErrorInvalidValue;
   static std::atomic<size_t> granted[fhe::kMaxDevices];
   static std::atomic<size_t> placed[fhe::kMaxDevices];
-  const void* kernel = reinterpret_cast<const void*>(keyswitch_kernel<LANE, WIDE>);
+  const void* kernel = reinterpret_cast<const void*>(keyswitch_kernel<LANE, FORM>);
   cudaError_t err = fhe::allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
@@ -926,7 +978,7 @@ cudaError_t launch_keyswitch(const void* d, long long d_sp, long long d_sj, long
   err = fhe::check_cluster(kernel, cfg, placed);
   if (err != cudaSuccess) return err;
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  err = cudaLaunchKernelEx(&cfg, keyswitch_kernel<LANE, WIDE>, c(d), d_sp, d_sj, d_sb,
+  err = cudaLaunchKernelEx(&cfg, keyswitch_kernel<LANE, FORM>, c(d), d_sp, d_sj, d_sb,
                            c(keys), key_sp, key_sj, static_cast<uint32_t*>(out), c(p), c(mu),
                            c(psi), c(psi_sh), c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), kd, pairs,
                            logn, static_cast<uint32_t>(h_gal), c(c0), c0_sp, c0_sb, vec,
@@ -968,6 +1020,14 @@ cudaError_t launch_ks_inner(const void* dg, long long dg_sp, long long dg_sj,
   return cudaGetLastError();
 }
 
+// The launcher of keyswitch_fused's lane for its form (fhe_keyswitch).
+template <KsLane LANE>
+auto keyswitch_form(bool wide, bool compact) {
+  return compact ? &launch_keyswitch<LANE, 2>
+         : wide  ? &launch_keyswitch<LANE, 1>
+                 : &launch_keyswitch<LANE, 0>;
+}
+
 }  // namespace
 
 extern "C" {
@@ -978,50 +1038,55 @@ extern "C" {
 // and ks_inner_geometry): `threads` per CTA and `smem` bytes per CTA, at
 // least the padded rows the kernel uses, and keyswitch_fused's digit pairs.
 // `vec` (ntt_inverse, ks_inner) says that every input row starts 16-byte
-// aligned, so the first pass may load it in 16-byte words.
+// aligned, so the first pass may load it in 16-byte words.  `compact`
+// (ntt_forward, ntt_inverse, mul_by_ntt_operand) picks the compact split:
+// a padded half row per CTA (n = 65536).
 int fhe_ntt_forward(const void* x, void* y, const void* p, const void* psi,
                     const void* psi_sh, int k, int batch, int logn, int threads, int smem,
-                    void* stream) {
-  if (logn <= fhe::kRegLog || smem < 4 * fhe::padded(1 << logn))
+                    int compact, void* stream) {
+  if (logn <= fhe::kRegLog || smem < 4 * fhe::padded((1 << logn) >> (compact ? 1 : 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  static std::atomic<size_t> granted[fhe::kMaxDevices];
-  static std::atomic<size_t> placed[fhe::kMaxDevices];
-  const void* kernel = reinterpret_cast<const void*>(ntt_forward_kernel);
-  cudaError_t err = fhe::allow_smem(kernel, smem, granted);
+  // each instantiation keeps its own records
+  static std::atomic<size_t> granted[2][fhe::kMaxDevices];
+  static std::atomic<size_t> placed[2][fhe::kMaxDevices];
+  auto* fn = compact ? &ntt_forward_kernel<true> : &ntt_forward_kernel<false>;
+  const void* kernel = reinterpret_cast<const void*>(fn);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted[compact != 0]);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = fhe::cluster_config(
       dim3(kRowSplit * batch, k), threads, smem, kRowSplit,
       static_cast<cudaStream_t>(stream), attr);
-  err = fhe::check_cluster(kernel, cfg, placed);
+  err = fhe::check_cluster(kernel, cfg, placed[compact != 0]);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  err = cudaLaunchKernelEx(&cfg, ntt_forward_kernel, c(x), static_cast<uint32_t*>(y), c(p),
-                           c(psi), c(psi_sh), batch, logn);
+  err = cudaLaunchKernelEx(&cfg, fn, c(x), static_cast<uint32_t*>(y), c(p), c(psi), c(psi_sh),
+                           batch, logn);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 int fhe_ntt_inverse(const void* x, void* y, const void* p, const void* ipsi,
                     const void* ipsi_sh, const void* n_inv, const void* n_inv_sh,
-                    int k, int batch, int logn, int threads, int smem, int vec,
+                    int k, int batch, int logn, int threads, int smem, int vec, int compact,
                     void* stream) {
-  if (logn <= fhe::kRegLog || smem < 4 * fhe::padded(1 << logn))
+  if (logn <= fhe::kRegLog || smem < 4 * fhe::padded((1 << logn) >> (compact ? 1 : 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  static std::atomic<size_t> granted[fhe::kMaxDevices];
-  static std::atomic<size_t> placed[fhe::kMaxDevices];
-  const void* kernel = reinterpret_cast<const void*>(ntt_inverse_kernel);
-  cudaError_t err = fhe::allow_smem(kernel, smem, granted);
+  static std::atomic<size_t> granted[2][fhe::kMaxDevices];
+  static std::atomic<size_t> placed[2][fhe::kMaxDevices];
+  auto* fn = compact ? &ntt_inverse_kernel<true> : &ntt_inverse_kernel<false>;
+  const void* kernel = reinterpret_cast<const void*>(fn);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted[compact != 0]);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = fhe::cluster_config(
       dim3(kRowSplit * batch, k), threads, smem, kRowSplit,
       static_cast<cudaStream_t>(stream), attr);
-  err = fhe::check_cluster(kernel, cfg, placed);
+  err = fhe::check_cluster(kernel, cfg, placed[compact != 0]);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  err = cudaLaunchKernelEx(&cfg, ntt_inverse_kernel, c(x), static_cast<uint32_t*>(y), c(p),
-                           c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), batch, logn, vec);
+  err = cudaLaunchKernelEx(&cfg, fn, c(x), static_cast<uint32_t*>(y), c(p), c(ipsi),
+                           c(ipsi_sh), c(n_inv), c(n_inv_sh), batch, logn, vec);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1030,24 +1095,27 @@ int fhe_mul_by_ntt_operand(const void* u, long long u_sp, long long u_sb, const 
                            void* out, const void* p, const void* mu, const void* psi,
                            const void* psi_sh, const void* ipsi, const void* ipsi_sh,
                            const void* n_inv, const void* n_inv_sh, int k, int num_c,
-                           int batch, int logn, int threads, int smem, void* stream) {
-  if (logn <= fhe::kRegLog || smem < 4 * fhe::padded(1 << logn))
+                           int batch, int logn, int threads, int smem, int compact,
+                           void* stream) {
+  if (logn <= fhe::kRegLog || smem < 4 * fhe::padded((1 << logn) >> (compact ? 1 : 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  static std::atomic<size_t> granted[fhe::kMaxDevices];
-  static std::atomic<size_t> placed[fhe::kMaxDevices];
-  const void* kernel = reinterpret_cast<const void*>(mul_by_ntt_operand_kernel);
-  cudaError_t err = fhe::allow_smem(kernel, smem, granted);
+  static std::atomic<size_t> granted[2][fhe::kMaxDevices];
+  static std::atomic<size_t> placed[2][fhe::kMaxDevices];
+  auto* fn = compact ? &mul_by_ntt_operand_kernel<true>
+                     : &mul_by_ntt_operand_kernel<false>;
+  const void* kernel = reinterpret_cast<const void*>(fn);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted[compact != 0]);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = fhe::cluster_config(
       dim3(kRowSplit, num_c * batch, k), threads, smem, kRowSplit,
       static_cast<cudaStream_t>(stream), attr);
-  err = fhe::check_cluster(kernel, cfg, placed);
+  err = fhe::check_cluster(kernel, cfg, placed[compact != 0]);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  err = cudaLaunchKernelEx(&cfg, mul_by_ntt_operand_kernel, c(u), u_sp, u_sb, c(w),
-                           static_cast<uint32_t*>(out), c(p), c(mu), c(psi), c(psi_sh),
-                           c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), num_c, logn);
+  err = cudaLaunchKernelEx(&cfg, fn, c(u), u_sp, u_sb, c(w), static_cast<uint32_t*>(out),
+                           c(p), c(mu), c(psi), c(psi_sh), c(ipsi), c(ipsi_sh), c(n_inv),
+                           c(n_inv_sh), num_c, logn);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1055,13 +1123,15 @@ int fhe_mul_by_ntt_operand(const void* u, long long u_sp, long long u_sb, const 
 // tensor_product's lanes: Plain where lift_q is null, else Lift, with the
 // lift's constants (lift.cuh SmMRqOperands: lift_k source primes) and the
 // q tables (tq_*, table_ptrs' order); then k counts the lift_k q primes and
-// the Bsk primes of the tables p .. n_inv_sh.  half_row: the Plain lane
-// keeps only the CTA's half of the transformed row (n = 32768).
+// the Bsk primes of the tables p .. n_inv_sh.  form: the Plain lane's 0 (two
+// padded rows), 1 (half_row: only the CTA's half of the transformed row,
+// n = 32768) or 2 (compact: the compact working row, the transformed half
+// rows in `scratch`, n/2 words per CTA; n = 65536).
 int fhe_tensor_product(const void* x, const void* y, long long s_p, long long s_c,
                        long long s_b, void* out, const void* p, const void* mu,
                        const void* psi, const void* psi_sh, const void* ipsi,
                        const void* ipsi_sh, const void* n_inv, const void* n_inv_sh, int k,
-                       int batch, int logn, int threads, int smem, int half_row,
+                       int batch, int logn, int threads, int smem, int form,
                        const void* lift_q,
                        const void* lift_w, const void* lift_w_sh, const void* lift_phat,
                        const void* lift_phat_sh, const void* lift_phat_mt,
@@ -1070,7 +1140,7 @@ int fhe_tensor_product(const void* x, const void* y, long long s_p, long long s_
                        unsigned lift_inv_q_mt, int lift_k, const void* tq_p,
                        const void* tq_mu, const void* tq_psi, const void* tq_psi_sh,
                        const void* tq_ipsi, const void* tq_ipsi_sh, const void* tq_n_inv,
-                       const void* tq_n_inv_sh, void* stream) {
+                       const void* tq_n_inv_sh, void* scratch, void* stream) {
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
   const fhe::SmMRqOperands lo{c(lift_q), c(lift_w), c(lift_w_sh), c(lift_phat),
                               c(lift_phat_sh), c(lift_phat_mt), c(lift_q_mod_c),
@@ -1078,33 +1148,35 @@ int fhe_tensor_product(const void* x, const void* y, long long s_p, long long s_
                               static_cast<uint32_t>(lift_inv_q_mt), lift_k};
   const ProductTables tq{c(tq_p), c(tq_mu), c(tq_psi), c(tq_psi_sh), c(tq_ipsi),
                          c(tq_ipsi_sh), c(tq_n_inv), c(tq_n_inv_sh)};
-  if (lift_q != nullptr && half_row) return static_cast<int>(cudaErrorInvalidValue);
-  auto* launch = lift_q != nullptr ? &launch_tensor_product<ProductLane::Lift, false>
-                 : half_row        ? &launch_tensor_product<ProductLane::Plain, true>
-                                   : &launch_tensor_product<ProductLane::Plain, false>;
+  if ((lift_q != nullptr && form != 0) || form < 0 || form > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* launch = lift_q != nullptr ? &launch_tensor_product<ProductLane::Lift, 0>
+                 : form == 2       ? &launch_tensor_product<ProductLane::Plain, 2>
+                 : form == 1       ? &launch_tensor_product<ProductLane::Plain, 1>
+                                   : &launch_tensor_product<ProductLane::Plain, 0>;
   return static_cast<int>(launch(x, y, s_p, s_c, s_b, out, p, mu, psi, psi_sh, ipsi, ipsi_sh,
                                  n_inv, n_inv_sh, k, batch, logn, threads, smem, lo, tq,
-                                 static_cast<cudaStream_t>(stream)));
+                                 scratch, static_cast<cudaStream_t>(stream)));
 }
 
 // keyswitch_fused's lanes: 0 Classic, 1 Prereduced, 2 Galois (h_gal =
 // g^-1 mod 2n, c0 of element b for prime i at c0 + i * c0_sp + b * c0_sb).
 // A scratch buffer (n words per CTA) picks the WIDE form: the partials in
-// it, one padded row of shared memory (n = 32768).
+// it, one padded row of shared memory (n = 32768); with `compact` too, the
+// working row on the compact split, a padded half row (n = 65536).
 int fhe_keyswitch(const void* d, long long d_sp, long long d_sj, long long d_sb,
                   const void* keys, long long key_sp, long long key_sj, void* out,
                   const void* p, const void* mu, const void* psi, const void* psi_sh,
                   const void* ipsi, const void* ipsi_sh, const void* n_inv,
                   const void* n_inv_sh, int k, int kd, int batch, int logn, int pairs,
                   int threads, int smem, int lane, unsigned h_gal, const void* c0,
-                  long long c0_sp, long long c0_sb, int vec, void* scratch, void* stream) {
+                  long long c0_sp, long long c0_sb, int vec, void* scratch, int compact,
+                  void* stream) {
   const bool wide = scratch != nullptr;
-  auto* launch = lane == 2   ? (wide ? &launch_keyswitch<KsLane::Galois, true>
-                                     : &launch_keyswitch<KsLane::Galois, false>)
-                 : lane == 1 ? (wide ? &launch_keyswitch<KsLane::Prereduced, true>
-                                     : &launch_keyswitch<KsLane::Prereduced, false>)
-                             : (wide ? &launch_keyswitch<KsLane::Classic, true>
-                                     : &launch_keyswitch<KsLane::Classic, false>);
+  if (compact && !wide) return static_cast<int>(cudaErrorInvalidValue);
+  auto* launch = lane == 2   ? keyswitch_form<KsLane::Galois>(wide, compact)
+                 : lane == 1 ? keyswitch_form<KsLane::Prereduced>(wide, compact)
+                             : keyswitch_form<KsLane::Classic>(wide, compact);
   return static_cast<int>(launch(d, d_sp, d_sj, d_sb, keys, key_sp, key_sj, out, p, mu, psi,
                                  psi_sh, ipsi, ipsi_sh, n_inv, n_inv_sh, k, kd, batch, logn,
                                  pairs, threads, smem, h_gal, c0, c0_sp, c0_sb, vec, scratch,

@@ -18,7 +18,9 @@
 //      rows with t * n^-1 (the Bsk half of the multiply's tables);
 //   3. FastFloor: (tx_bsk - conv(tx_q)) * q^-1 mod c_j, with tx_q [k, 3, n]
 //      the t-scaled q-side product, its digits converted to c_j.
-// The lift and the Bsk product never leave shared memory.  The TPU grid ran
+// The lift and the Bsk product never leave shared memory (at n = 65536,
+// the compact form, the transformed half rows pass through a global
+// scratch buffer).  The TPU grid ran
 // the Bsk primes in order on one core.  Here each (b, j) is a thread-block
 // cluster of 8 CTAs, two per input row (kRowSplit), grid (8, B, kb): the two
 // CTAs of row r lift it and run its forward transform between them (the
@@ -128,8 +130,12 @@ __device__ __forceinline__ uint32_t fast_floor_close(uint32_t tx_c, uint32_t con
 // [h n/2, (h+1) n/2) of the transformed row.  Shared memory: two padded
 // rows, the transformed input row (read by the peers) and the sweeps'
 // working row (read by the partner); with HALF (n = 32768) the transformed
-// row holds only those positions, as in tensor_product (csrc/ntt.cu).
-template <bool HALF>
+// row holds only those positions, as in tensor_product (csrc/ntt.cu).  FORM:
+// 0 the two padded rows, 1 HALF, 2 COMPACT (n = 65536), tensor_product's
+// compact form: the working row the compact split's padded half row, the
+// transformed half rows in `scratch` (n/2 words per CTA, CTA `rank` of
+// cluster (b, j) at scratch + ((j * B + b) * 8 + rank) * n/2).
+template <int FORM>
 __global__ void __launch_bounds__(512)
 bsk_branch_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_sb,
                   const uint32_t* __restrict__ txq, int tx_sp, int tx_sc, int tx_sb,
@@ -154,16 +160,24 @@ bsk_branch_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_
                   const uint32_t* __restrict__ ipsi,
                   const uint32_t* __restrict__ ipsi_sh,
                   const uint32_t* __restrict__ n_inv,
-                  const uint32_t* __restrict__ n_inv_sh, int k, int logn) {
+                  const uint32_t* __restrict__ n_inv_sh, int k, int logn,
+                  uint32_t* scratch) {
+  constexpr bool HALF = FORM >= 1, COMPACT = FORM == 2;
   extern __shared__ uint32_t sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
+  const int half = n / kRowSplit;
   const int rank = static_cast<int>(cluster.block_rank());
   const int r = rank / kRowSplit, h = rank % kRowSplit;
-  // input row r, NTT form (with HALF its positions from `first` on only)
-  uint32_t* row = sm;
-  const int first = HALF ? h * (n / kRowSplit) : 0;
-  uint32_t* work = sm + fhe::padded(HALF ? n / kRowSplit : n);   // the sweeps' passes
+  // input row r, NTT form (with HALF its positions from `first` on only;
+  // COMPACT: in global scratch, unpadded, the cluster's rows together)
+  uint32_t* ours = COMPACT ? scratch + (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y)
+                                           * (4 * kRowSplit) * half
+                           : nullptr;
+  uint32_t* row = COMPACT ? ours + static_cast<size_t>(rank) * half : sm;
+  const int first = HALF ? h * half : 0;
+  // the sweeps' passes
+  uint32_t* work = COMPACT ? sm : sm + fhe::padded(HALF ? half : n);
   const int b = blockIdx.y;
   const int j = blockIdx.z;
   const int batch = gridDim.y;
@@ -201,8 +215,15 @@ bsk_branch_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_
     for (int g = 0; g < G; ++g)
       x[g] = fhe::sm_mrq_close(conv[g], lane[g], inv_q_mt, c, qc, qc_sh, imt, imt_sh);
   };
-  fhe::fwd_ntt_regs_split(work, split, sync, logn, c, psi + tab, psi_sh + tab, lift,
-                          fhe::SmemStoreFrom{row, first});
+  auto kept = [&] {
+    if constexpr (COMPACT)   // the last pass's group is consecutive (logs = 0)
+      return [=](auto& v, int base, int) { fhe::store_run(row, base - first, v); };
+    else
+      return fhe::SmemStoreFrom{row, first};
+  }();
+  fhe::fwd_ntt_regs_split<kRowSplit, COMPACT>(work, split, sync, logn, c, psi + tab,
+                                              psi_sh + tab, lift, kept);
+  if constexpr (COMPACT) __threadfence();    // the transformed rows, to the peers
   cluster.sync();
   if (r < 3) {
     // 2. tensor product row r, positions [h n/2, (h+1) n/2), from the
@@ -213,16 +234,23 @@ bsk_branch_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_
     // consecutive words per thread, every remote request scatters, and the
     // kernel took 1.5 times as long (PERF.md).  t is folded into n_inv.
     const uint32_t muj = mu[j];
-    const uint32_t* x0 = cluster.map_shared_rank(row, 0 * kRowSplit + h);
-    const uint32_t* x1 = cluster.map_shared_rank(row, 1 * kRowSplit + h);
-    const uint32_t* y0 = cluster.map_shared_rank(row, 2 * kRowSplit + h);
-    const uint32_t* y1 = cluster.map_shared_rank(row, 3 * kRowSplit + h);
+    auto peer_row = [&](int q) -> const uint32_t* {
+      const int peer = q * kRowSplit + h;
+      return COMPACT ? ours + static_cast<size_t>(peer) * half : cluster.map_shared_rank(row, peer);
+    };
+    const uint32_t* x0 = peer_row(0);
+    const uint32_t* x1 = peer_row(1);
+    const uint32_t* y0 = peer_row(2);
+    const uint32_t* y1 = peer_row(3);
     const uint32_t* pa = r == 0 ? x0 : x1;
     const uint32_t* pb = r == 0 ? y0 : y1;
-    const int end = (h + 1) * (n / kRowSplit);
+    // position x of the half: work[e] (e from `first` on where COMPACT),
+    // the peers' rows at f (unpadded in scratch)
+    const int end = (h + 1) * half;
 #pragma unroll 8
-    for (int x = h * (n / kRowSplit) + threadIdx.x; x < end; x += blockDim.x) {
-      const int e = fhe::padded_index(x), f = fhe::padded_index(x - first);
+    for (int x = h * half + threadIdx.x; x < end; x += blockDim.x) {
+      const int e = fhe::padded_index(COMPACT ? x - first : x);
+      const int f = COMPACT ? x - first : fhe::padded_index(x - first);
       work[e] = r == 1 ? fhe::add_mod(fhe::mul_barrett(x0[f], y1[f], c, muj),
                                       fhe::mul_barrett(x1[f], y0[f], c, muj), c)
                        : fhe::mul_barrett(pa[f], pb[f], c, muj);
@@ -252,8 +280,9 @@ bsk_branch_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_
       for (int g = 0; g < G; ++g)
         dst[base + (g << logs)] = fast_floor_close(x[g], conv[g], c, iq, iq_sh);
     };
-    fhe::inv_ntt_regs_split(work, split, sync, logn, c, ipsi + tab, ipsi_sh + tab, n_inv[j],
-                            n_inv_sh[j], fhe::SmemLoad{work}, floored);
+    fhe::inv_ntt_regs_split<kRowSplit, COMPACT>(work, split, sync, logn, c, ipsi + tab,
+                                                ipsi_sh + tab, n_inv[j], n_inv_sh[j],
+                                                fhe::own_load<COMPACT>(work, first), floored);
   } else {
     cluster.sync();      // the barrier inside the output rows' inverse
   }
@@ -646,8 +675,9 @@ extern "C" {
 
 // The launch geometry comes from the wrapper (ops/rns_cuda.py,
 // bsk_branch_geometry): `threads` per CTA and `smem` bytes per CTA, at least
-// the two padded rows the kernel uses (with half_row, a padded row and a
-// padded half row).
+// the rows the kernel's form uses (fhe::product_words): form 0 two padded
+// rows, 1 (half_row) a padded row and a padded half row, 2 (compact) a
+// padded half row, with `scratch` (n/2 words per CTA).
 int fhe_bsk_branch(const void* ab, int ab_sp, int ab_sc, int ab_sb, const void* txq,
                    int tx_sp, int tx_sc, int tx_sb,
                    void* out, const void* q,
@@ -660,32 +690,34 @@ int fhe_bsk_branch(const void* ab, int ab_sp, int ab_sc, int ab_sb, const void* 
                    const void* cp, const void* mu, const void* psi, const void* psi_sh,
                    const void* ipsi, const void* ipsi_sh, const void* n_inv,
                    const void* n_inv_sh, int k, int kb, int batch, int logn, int threads,
-                   int smem, int half_row, void* stream) {
+                   int smem, int form, void* scratch, void* stream) {
   const int n = 1 << logn;
-  if (logn <= fhe::kRegLog || smem < 4 * (fhe::padded(n) + fhe::padded(half_row ? n / 2 : n)))
+  if (logn <= fhe::kRegLog || form < 0 || form > 2 || smem < 4 * fhe::product_words(form, n)
+      || (form == 2) != (scratch != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   // each instantiation keeps its own records (launch_tensor_product's way)
-  static std::atomic<size_t> granted[2][fhe::kMaxDevices];
-  static std::atomic<size_t> placed[2][fhe::kMaxDevices];
-  const void* kernel = half_row ? reinterpret_cast<const void*>(bsk_branch_kernel<true>)
-                                : reinterpret_cast<const void*>(bsk_branch_kernel<false>);
-  cudaError_t err = fhe::allow_smem(kernel, smem, granted[half_row != 0]);
+  static std::atomic<size_t> granted[3][fhe::kMaxDevices];
+  static std::atomic<size_t> placed[3][fhe::kMaxDevices];
+  auto* fn = form == 2 ? &bsk_branch_kernel<2> : form == 1 ? &bsk_branch_kernel<1>
+                                                            : &bsk_branch_kernel<0>;
+  const void* kernel = reinterpret_cast<const void*>(fn);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted[form]);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = fhe::cluster_config(
       dim3(4 * kRowSplit, batch, kb), threads, smem, 4 * kRowSplit,
       static_cast<cudaStream_t>(stream), attr);
-  err = fhe::check_cluster(kernel, cfg, placed[half_row != 0]);
+  err = fhe::check_cluster(kernel, cfg, placed[form]);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
   err = cudaLaunchKernelEx(
-      &cfg, half_row ? bsk_branch_kernel<true> : bsk_branch_kernel<false>, u(ab), ab_sp,
+      &cfg, fn, u(ab), ab_sp,
       ab_sc, ab_sb, u(txq), tx_sp, tx_sc, tx_sb, static_cast<uint32_t*>(out), u(q), u(mt_inv_phat),
       u(mt_inv_phat_sh), u(lift_phat), u(lift_phat_sh), u(phat_mt), u(q_mod_c),
       u(q_mod_c_sh), u(inv_mt_c), u(inv_mt_c_sh), inv_q_mt, u(floor_inv_phat),
       u(floor_inv_phat_sh), u(floor_phat), u(floor_phat_sh), u(inv_q_c), u(inv_q_c_sh),
       u(cp), u(mu), u(psi), u(psi_sh), u(ipsi), u(ipsi_sh), u(n_inv), u(n_inv_sh), k,
-      logn);
+      logn, static_cast<uint32_t*>(scratch));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

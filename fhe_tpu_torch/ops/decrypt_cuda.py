@@ -18,9 +18,9 @@ from . import modmath as mm
 from . import ntt as _ntt
 from . import rns as _rns
 from .ntt import NTTTables
-from .ntt_cuda import (MAX_GRID_Y, check_aligned_tables, check_barrett,
+from .ntt_cuda import (MAX_GRID_Y, ROW_SPLIT, check_aligned_tables, check_barrett,
                        check_residues, fit_smem, log2_exact, on_card,
-                       regs_threads, row_bytes, table_ptrs)
+                       regs_threads, row_bytes, scratch_for, table_ptrs)
 
 _P = ctypes.c_void_p
 _U = ctypes.c_uint32
@@ -32,7 +32,7 @@ _L = ctypes.c_longlong
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decrypt")
     lib.fhe_decrypt_fused.argtypes = ([_P] * 2 + [_L] * 2 + [_P] * 15 + [_U] * 10
-                                      + [_I] * 6 + [_P] * 2)
+                                      + [_I] * 6 + [_P, _I, _P])
     lib.fhe_decrypt_fused.restype = ctypes.c_int
     return lib
 
@@ -49,17 +49,26 @@ def decrypt_geometry(n: int, k: int, batch: int = 1) -> dict:
     three padded rows of shared memory per CTA (the working row and the
     CTA's two accumulators).  Where they do not fit a block (n = 32768),
     the ``wide`` form: the working row alone, the accumulators in a global
-    scratch buffer of 2n words per CTA (``scratch`` words in all).  Raise
-    where neither fits the card."""
+    scratch buffer of 2n words per CTA (``scratch`` words in all).  Where
+    the working row does not fit either (n = 65536), the ``compact`` form:
+    each prime's row split over a pair of CTAs (``ctas_per_row``), a padded
+    half row each, P = min(k, 4) pairs per cluster (C = 2P, portable), pair
+    q taking the primes q, q + P, ...; each CTA's accumulators are n words
+    of scratch (n/2 each).  Raise where nothing fits the card."""
     name = "decrypt_fused"
     if k < 1 or not 1 <= batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: k={k}, batch {batch} outside 1..{MAX_GRID_Y}")
-    c = min(k, MAX_CLUSTER)
-    threads = regs_threads(n, name)
-    layout, smem = fit_smem(n, name, 3 * row_bytes(n, padded=True), row_bytes(n, padded=True))
+    row = row_bytes(n, padded=True)
+    layout, smem = fit_smem(n, name, 3 * row, row, row_bytes(n // ROW_SPLIT, padded=True))
+    compact = layout == 2
+    split = ROW_SPLIT if compact else 1
+    c = split * min(k, MAX_CLUSTER // split)
+    threads = regs_threads(n, name, split)
+    scratch = {0: 0, 1: 2 * n * c * batch, 2: n * c * batch}[layout]
     return {"grid": (c, batch), "cluster": (c, 1, 1), "ctas": c * batch,
-            "primes_per_cta": -(-k // c), "threads": threads, "smem": smem,
-            "wide": layout == 1, "scratch": 2 * n * c * batch if layout == 1 else 0}
+            "ctas_per_row": split, "primes_per_cta": -(-k // (c // split)),
+            "threads": threads, "smem": smem, "wide": layout >= 1, "compact": compact,
+            "scratch": scratch}
 
 
 def decrypt_fused_plain(c0: torch.Tensor, c1: torch.Tensor, s_ntt: torch.Tensor,
@@ -99,8 +108,7 @@ def decrypt_fused(c0: torch.Tensor, c1: torch.Tensor, s_ntt: torch.Tensor,
     k, batch, n = c0.shape
     geo = decrypt_geometry(n, k, batch)
     out = torch.empty((batch, n), dtype=torch.int32, device=c0.device)
-    scratch = (torch.empty(geo["scratch"], dtype=torch.int32, device=c0.device)
-               if geo["wide"] else None)
+    scratch = scratch_for(geo, c0.device)
     p = _build.ptr
     _build.launch(
         _lib().fhe_decrypt_fused, "decrypt_fused", c0.device,
@@ -110,7 +118,7 @@ def decrypt_fused(c0: torch.Tensor, c1: torch.Tensor, s_ntt: torch.Tensor,
         dc.t, dc.gamma, dc.gamma_mu, dc.neg_inv_q_t, dc.neg_inv_q_t_shoup,
         dc.neg_inv_q_g, dc.inv_gamma_t, dc.inv_gamma_t_shoup, dc.gamma_mod_t,
         dc.one_shoup_t, k, batch, log2_exact(n), geo["cluster"][0], geo["threads"],
-        geo["smem"], None if scratch is None else p(scratch))
+        geo["smem"], None if scratch is None else p(scratch), int(geo["compact"]))
     decrypt_fused.launches += 1
     return out
 

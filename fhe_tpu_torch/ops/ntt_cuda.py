@@ -57,14 +57,15 @@ MAX_GRID_Y = 65535
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ntt")
-    lib.fhe_ntt_forward.argtypes = [_P] * 5 + [_I] * 5 + [_P]
-    lib.fhe_ntt_inverse.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+    lib.fhe_ntt_forward.argtypes = [_P] * 5 + [_I] * 6 + [_P]
+    lib.fhe_ntt_inverse.argtypes = [_P] * 7 + [_I] * 7 + [_P]
     lib.fhe_mul_by_ntt_operand.argtypes = ([_P] + [_L] * 2 + [_P] * 10
-                                           + [_I] * 6 + [_P])
+                                           + [_I] * 7 + [_P])
     lib.fhe_tensor_product.argtypes = ([_P] * 2 + [_L] * 3 + [_P] * 9 + [_I] * 6 + [_P] * 10
-                                       + [ctypes.c_uint, _I] + [_P] * 9)
+                                       + [ctypes.c_uint, _I] + [_P] * 10)
     lib.fhe_keyswitch.argtypes = ([_P] + [_L] * 3 + [_P] + [_L] * 2 + [_P] * 9
-                                  + [_I] * 8 + [ctypes.c_uint, _P] + [_L] * 2 + [_I, _P, _P])
+                                  + [_I] * 8 + [ctypes.c_uint, _P] + [_L] * 2
+                                  + [_I, _P, _I, _P])
     lib.fhe_ks_inner.argtypes = ([_P] + [_L] * 3 + [_I] + [_P] + [_L] * 3 + [_I]
                                  + [_P] * 7 + [_I] * 8 + [_P] * 3 + [_L] * 2 + [_P])
     for f in (lib.fhe_ntt_forward, lib.fhe_ntt_inverse,
@@ -118,16 +119,11 @@ def row_bytes(n: int, padded: bool = False) -> int:
     return 4 * (n + n // 32 if padded else n)
 
 
-def check_smem(n: int, polys: int, name: str, padded: bool = False) -> int:
-    """Raise unless ``polys`` rows of n residues (padded ones with
-    ``padded``) fit one block's shared memory; return their bytes."""
-    return fit_smem(n, name, polys * row_bytes(n, padded))[1]
-
-
 def fit_smem(n: int, name: str, *layouts: int) -> tuple[int, int]:
     """The first of a kernel's shared-memory ``layouts`` (bytes per block,
     in its order of preference) that fits a block, as (index, bytes); raise,
-    naming the function and n, where none does."""
+    naming the function and n, where none does (n = 131072: even the
+    compact split's padded half row takes 264 KB)."""
     for i, nbytes in enumerate(layouts):
         if nbytes <= MAX_SMEM:
             return i, nbytes
@@ -160,7 +156,10 @@ def regs_threads(n: int, name: str, split: int = 1) -> int:
 # the cluster kernels of csrc/ntt.cu and csrc/rns.cu: the CTAs of a cluster
 # that share a row's transforms, the tensor product's cluster, one pair of
 # CTAs per input row x0, x1, y0, y1, and the most digit pairs of a
-# keyswitch_fused cluster (kRowSplit, kProductCluster, kKeyswitchPairs)
+# keyswitch_fused cluster (kRowSplit, kProductCluster, kKeyswitchPairs).
+# Where one padded row exceeds a block (n = 65536), each CTA of a pair holds
+# only its own half of the row, padded (modmath.cuh's compact split:
+# ``compact`` in the geometries)
 ROW_SPLIT = 2
 PRODUCT_CLUSTER = 4 * ROW_SPLIT
 KEYSWITCH_PAIRS = 4
@@ -171,24 +170,36 @@ LIFT_MAX_K = 32
 LIFT_THREADS = 256
 
 
+def split_row_smem(n: int, name: str, *full: int) -> tuple[int, bool]:
+    """Shared memory of a kernel whose CTAs split each row in pairs: the
+    first of its ``full`` layouts (bytes, in its order of preference) that
+    fits a block, else the compact split's padded half row; as (bytes,
+    compact).  Raise, naming the function, where nothing fits."""
+    layout, smem = fit_smem(n, name, *full, row_bytes(n // ROW_SPLIT, padded=True))
+    return smem, layout == len(full)
+
+
 def ntt_forward_geometry(n: int, k: int, batch: int = 1,
                          name: str = "ntt_forward") -> dict:
     """Launch shape of ``ntt_forward`` for [k, batch, n]: one cluster of 2
     CTAs per (row, prime), which share the row's transform, the batch on
-    grid x; one padded row of shared memory per CTA.  Raise where that does
-    not fit the card."""
+    grid x; one padded row of shared memory per CTA, or where that does not
+    fit a block (n = 65536) the ``compact`` split, a padded half row each.
+    Raise where nothing fits the card."""
     if not 1 <= ROW_SPLIT * batch <= MAX_GRID_X:
         raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_X // ROW_SPLIT}")
+    threads = regs_threads(n, name, ROW_SPLIT)
+    smem, compact = split_row_smem(n, name, row_bytes(n, padded=True))
     return {"grid": (ROW_SPLIT * batch, k), "cluster": (ROW_SPLIT, 1, 1),
             "ctas": ROW_SPLIT * batch * k, "ctas_per_row": ROW_SPLIT,
-            "threads": regs_threads(n, name, ROW_SPLIT),
-            "smem": check_smem(n, 1, name, padded=True)}
+            "threads": threads, "smem": smem, "compact": compact}
 
 
 def ntt_inverse_geometry(n: int, k: int, batch: int = 1) -> dict:
     """Launch shape of ``ntt_inverse`` for [k, batch, n]: ntt_forward's, the
     mirror transform (a cluster of 2 CTAs per (row, prime), one padded row
-    each).  Raise where that does not fit the card."""
+    each, or the compact split's half row).  Raise where nothing fits the
+    card."""
     return ntt_forward_geometry(n, k, batch, "ntt_inverse")
 
 
@@ -235,7 +246,9 @@ def keyswitch_geometry(n: int, k: int, kd: int, batch: int = 1,
     from; where that does not fit a block (n = 32768), the ``wide`` form:
     the working row alone, the partials in a global scratch buffer of n
     words per CTA (``scratch`` words in all) and the Galois lane's rows read
-    in place.  Raise where neither fits the card."""
+    in place; where the working row does not fit either (n = 65536), the
+    wide form on the ``compact`` split, a padded half row per CTA.  Raise
+    where nothing fits the card."""
     if kd < 1:
         raise ValueError(f"{name}: kd={kd}, expected at least one digit")
     if not 1 <= batch <= MAX_GRID_Y:
@@ -243,12 +256,14 @@ def keyswitch_geometry(n: int, k: int, kd: int, batch: int = 1,
     pairs = min(max(kd, 2), KEYSWITCH_PAIRS)
     threads = regs_threads(n, name, ROW_SPLIT)
     rows = 2 * _padded(n)
-    layout, smem = fit_smem(n, name, staged_bytes(n, rows) if galois else 4 * rows,
-                            row_bytes(n, padded=True))
+    smem, compact = split_row_smem(n, name, staged_bytes(n, rows) if galois else 4 * rows,
+                                   row_bytes(n, padded=True))
+    wide = smem < 4 * rows
     ctas = ROW_SPLIT * pairs * batch * k
     return {"grid": (ROW_SPLIT * pairs, batch, k), "cluster": (ROW_SPLIT * pairs, 1, 1),
             "ctas": ctas, "pairs": pairs, "ctas_per_row": ROW_SPLIT, "threads": threads,
-            "smem": smem, "wide": layout == 1, "scratch": ctas * n if layout == 1 else 0}
+            "smem": smem, "wide": wide, "compact": compact,
+            "scratch": ctas * n if wide else 0}
 
 
 def mul_by_ntt_operand_geometry(n: int, k: int, c: int, batch: int = 1) -> dict:
@@ -256,15 +271,18 @@ def mul_by_ntt_operand_geometry(n: int, k: int, c: int, batch: int = 1) -> dict:
     ``batch`` rows of u against c operand rows over k primes: one cluster
     of 2 CTAs per (element, operand row, prime), which share the row's
     forward transform, product and inverse transform; one padded row of
-    shared memory per CTA.  Raise where that does not fit the card."""
+    shared memory per CTA, or at n = 65536 the ``compact`` split's half row
+    (all a CTA keeps of NTT(u) between the transforms).  Raise where nothing
+    fits the card."""
     name = "mul_by_ntt_operand"
     if not 1 <= c * batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: {c} operand rows x batch {batch} outside "
                          f"1..{MAX_GRID_Y}")
+    threads = regs_threads(n, name, ROW_SPLIT)
+    smem, compact = split_row_smem(n, name, row_bytes(n, padded=True))
     return {"grid": (ROW_SPLIT, c * batch, k), "cluster": (ROW_SPLIT, 1, 1),
             "ctas": ROW_SPLIT * c * batch * k, "ctas_per_row": ROW_SPLIT,
-            "threads": regs_threads(n, name, ROW_SPLIT),
-            "smem": check_smem(n, 1, name, padded=True)}
+            "threads": threads, "smem": smem, "compact": compact}
 
 
 def tensor_product_geometry(n: int, k: int, batch: int = 1,
@@ -278,21 +296,42 @@ def tensor_product_geometry(n: int, k: int, batch: int = 1,
     Shared memory: two padded rows per CTA (the transformed row and the
     working row); where that does not fit a block (n = 32768), the
     ``half_row`` form keeps only the CTA's own half of the transformed row:
-    a padded row and a padded half row.  The Lift lane (``lift``) has a
-    thread per coefficient of the CTA's half row, up to LIFT_THREADS, for
-    the lift before the first pass, and no half_row form.  Raise where
-    nothing fits the card."""
+    a padded row and a padded half row; where that does not fit either
+    (n = 65536), the ``compact`` form: the working row is the compact
+    split's padded half row, and the transformed half rows go to a global
+    scratch buffer of n/2 words per CTA (``scratch`` words in all).  The
+    Lift lane (``lift``) has a thread per coefficient of the CTA's half row,
+    up to LIFT_THREADS, for the lift before the first pass, and neither
+    form.  Raise where nothing fits the card."""
     if not 1 <= batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y}")
     threads = regs_threads(n, name, ROW_SPLIT)
     if lift:
         threads = max(threads, min(n // ROW_SPLIT, LIFT_THREADS))
-    halved = () if lift else (row_bytes(n, True) + row_bytes(n // ROW_SPLIT, True),)
-    layout, smem = fit_smem(n, name, 2 * row_bytes(n, padded=True), *halved)
+    forms = (() if lift else (row_bytes(n, True) + row_bytes(n // ROW_SPLIT, True),
+                              row_bytes(n // ROW_SPLIT, True)))
+    layout, smem = fit_smem(n, name, 2 * row_bytes(n, padded=True), *forms)
+    ctas = PRODUCT_CLUSTER * batch * k
     return {"grid": (PRODUCT_CLUSTER, batch, k), "cluster": (PRODUCT_CLUSTER, 1, 1),
-            "ctas": PRODUCT_CLUSTER * batch * k, "ctas_per_prime": PRODUCT_CLUSTER,
+            "ctas": ctas, "ctas_per_prime": PRODUCT_CLUSTER,
             "ctas_per_row": ROW_SPLIT, "threads": threads, "smem": smem,
-            "half_row": layout == 1}
+            "half_row": layout == 1, "compact": layout == 2,
+            "scratch": ctas * (n // ROW_SPLIT) if layout == 2 else 0}
+
+
+def product_form(geo: dict) -> int:
+    """The form number the C entry points of the cluster tensor products
+    take (csrc/modmath.cuh: product_words): 0 two padded rows, 1 the half
+    row, 2 compact."""
+    return 2 if geo["compact"] else int(geo["half_row"])
+
+
+def scratch_for(geo: dict, device) -> torch.Tensor | None:
+    """The global scratch buffer a launch shape asks for (``scratch``
+    words), or None."""
+    if not geo.get("scratch"):
+        return None
+    return torch.empty(geo["scratch"], dtype=torch.int32, device=device)
 
 
 def check_barrett(tb: NTTTables, name: str) -> None:
@@ -316,7 +355,7 @@ def table_ptrs(tb: NTTTables) -> list:
 def ntt_forward(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
     """[k, batch, n] forward NTT, natural -> bit-reversed order.  Any prime
     below 2^31 (Shoup twiddles: the q primes and the plaintext modulus t);
-    on the card 32 <= n <= 32768 (``ntt_forward_geometry``)."""
+    on the card 32 <= n <= 65536 (``ntt_forward_geometry``)."""
     check_residues(a, tb, "ntt_forward")
     if not on_card(a, "ntt_forward"):
         return _ntt.ntt_forward(a, tb)
@@ -327,7 +366,7 @@ def ntt_forward(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
     p = _build.ptr
     _build.launch(_lib().fhe_ntt_forward, "ntt_forward", a.device,
                   p(a), p(out), p(tb.p), p(tb.psi_br), p(tb.psi_br_shoup),
-                  k, batch, log2_exact(n), geo["threads"], geo["smem"])
+                  k, batch, log2_exact(n), geo["threads"], geo["smem"], int(geo["compact"]))
     ntt_forward.launches += 1
     return out
 
@@ -345,7 +384,7 @@ def aligned(x: torch.Tensor, *strides: int) -> bool:
 
 def ntt_inverse(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
     """[k, batch, n] inverse NTT, bit-reversed -> natural order, times n^-1.
-    Any prime below 2^31, as ``ntt_forward``; on the card 32 <= n <= 32768
+    Any prime below 2^31, as ``ntt_forward``; on the card 32 <= n <= 65536
     (``ntt_inverse_geometry``).  An input that does not start 16-byte
     aligned is read a word at a time."""
     check_residues(a, tb, "ntt_inverse")
@@ -359,7 +398,7 @@ def ntt_inverse(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
     _build.launch(_lib().fhe_ntt_inverse, "ntt_inverse", a.device,
                   p(a), p(out), p(tb.p), p(tb.ipsi_br), p(tb.ipsi_br_shoup),
                   p(tb.n_inv), p(tb.n_inv_shoup), k, batch, log2_exact(n),
-                  geo["threads"], geo["smem"], int(aligned(a)))
+                  geo["threads"], geo["smem"], int(aligned(a)), int(geo["compact"]))
     ntt_inverse.launches += 1
     return out
 
@@ -404,7 +443,8 @@ def _mul_by_ntt_operand_launch(u: torch.Tensor, w_ntt: torch.Tensor,
     p = _build.ptr
     _build.launch(_lib().fhe_mul_by_ntt_operand, name, u.device, p(u),
                   u.stride(0), u.stride(1), p(w_ntt), p(out), *table_ptrs(tb),
-                  k, c, batch, log2_exact(n), geo["threads"], geo["smem"])
+                  k, c, batch, log2_exact(n), geo["threads"], geo["smem"],
+                  int(geo["compact"]))
     return out
 
 
@@ -478,11 +518,12 @@ def _tensor_product_launch(x: torch.Tensor, y: torch.Tensor, tb: NTTTables,
     k = sum(t.k for t in tabs)
     geo = tensor_product_geometry(n, k, batch, name, lift=lift is not None)
     out = torch.empty((k, 3, batch, n), dtype=torch.int32, device=x.device)
+    scratch = scratch_for(geo, x.device)
     p = _build.ptr
     _build.launch(_lib().fhe_tensor_product, name, x.device, p(x), p(y),
                   x.stride(0), x.stride(1), x.stride(2), p(out), *table_ptrs(tabs[-1]),
-                  k, batch, log2_exact(n), geo["threads"], geo["smem"], int(geo["half_row"]),
-                  *_lift_args(lift, tb))
+                  k, batch, log2_exact(n), geo["threads"], geo["smem"], product_form(geo),
+                  *_lift_args(lift, tb), None if scratch is None else p(scratch))
     return out
 
 
@@ -504,7 +545,7 @@ def tensor_product(x: torch.Tensor, y: torch.Tensor, tb: NTTTables, lift=None):
     """(x0*y0, x0*y1 + x1*y0, x1*y1) of two [k, 2, n] coefficient-domain
     ciphertext halves; returns [k, 3, n].  With the multiply's tables
     (``ntt.build_mul_tables``) the result is t times the product.  Every
-    prime must be a 30-bit prime (Barrett); on the card 32 <= n <= 32768
+    prime must be a 30-bit prime (Barrett); on the card 32 <= n <= 65536
     (``tensor_product_geometry``).  x and y may be
     views with rows of n contiguous and equal strides (the halves of a
     lifted [k, 4, n] tensor: the kernel reads them in place).
@@ -624,8 +665,8 @@ def _keyswitch_launch(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables,
     contiguous): [k, 2, B, n].  The kernel reads each key row with 16-byte
     loads, so keys_t must start 16-byte aligned with strides of whole
     16-byte words.  lane 0 classic, 1 prereduced, 2 Galois (element g, c0
-    [k, B, n]), as the C entry point numbers them.  The wide form
-    (``keyswitch_geometry``, n = 32768) gets its scratch buffer here."""
+    [k, B, n]), as the C entry point numbers them.  The wide forms
+    (``keyswitch_geometry``, n >= 32768) get their scratch buffer here."""
     check_barrett(tb, name)
     check_aligned_tables(tb, name)
     kd, batch, n = d.shape[-3:]
@@ -641,13 +682,12 @@ def _keyswitch_launch(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables,
     else:
         h, c0_args, vec = 0, (None, 0, 0), False
     p = _build.ptr
-    scratch = (torch.empty(geo["scratch"], dtype=torch.int32, device=d.device)
-               if geo["wide"] else None)
+    scratch = scratch_for(geo, d.device)
     _build.launch(_lib().fhe_keyswitch, name, d.device, p(d), d_sp, d.stride(-3),
                   d.stride(-2), p(keys_t), keys_t.stride(0), keys_t.stride(1),
                   p(out), *table_ptrs(tb), tb.k, kd, batch, log2_exact(n),
                   geo["pairs"], geo["threads"], geo["smem"], lane, h, *c0_args, int(vec),
-                  None if scratch is None else p(scratch))
+                  None if scratch is None else p(scratch), int(geo["compact"]))
     return out
 
 

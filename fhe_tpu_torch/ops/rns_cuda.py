@@ -24,7 +24,8 @@ from . import _build
 from . import rns as _rns
 from .ntt import NTTTables
 from .ntt_cuda import (check_aligned_tables, check_barrett, check_views,
-                       log2_exact, on_card, table_ptrs, tensor_product_geometry)
+                       log2_exact, on_card, product_form, scratch_for, table_ptrs,
+                       tensor_product_geometry)
 
 _P = ctypes.c_void_p
 _U = ctypes.c_uint32
@@ -35,7 +36,7 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rns")
     lib.fhe_bsk_branch.argtypes = ([_P] + [_I] * 3 + [_P] + [_I] * 3 + [_P] * 11
-                                   + [_U] + [_P] * 14 + [_I] * 7 + [_P])
+                                   + [_U] + [_P] * 14 + [_I] * 7 + [_P] * 2)
     lib.fhe_base_conv.argtypes = [_I] * 8 + [_P] * 24 + [_U] * 3 + [_P]
     for f in (lib.fhe_bsk_branch, lib.fhe_base_conv):
         f.restype = ctypes.c_int
@@ -65,9 +66,9 @@ def bsk_branch_geometry(n: int, kb: int, batch: int = 1) -> dict:
     kb Bsk primes: the cluster tensor product of ``tensor_product`` (8 CTAs
     per (element, Bsk prime), two per input row, which share the row's lift
     and forward transform and, for rows 0 to 2, its product row's inverse
-    transform and floor; two padded rows of shared memory per CTA, or at
-    n = 32768 the ``half_row`` form).  Raise where that does not fit the
-    card."""
+    transform and floor; two padded rows of shared memory per CTA, at
+    n = 32768 the ``half_row`` form, at n = 65536 the ``compact`` form with
+    its ``scratch`` words).  Raise where nothing fits the card."""
     return tensor_product_geometry(n, kb, batch, "bsk_branch_fused")
 
 
@@ -85,6 +86,7 @@ def _bsk_branch_launch(ab: torch.Tensor, tx_q: torch.Tensor,
         if sum((d - 1) * st for d, st in zip(x.shape, x.stride())) >= 1 << 31:
             raise ValueError(f"{name}: tensor too large for 32-bit offsets")
     out = torch.empty((kb, 3, batch, n), dtype=torch.int32, device=ab.device)
+    scratch = scratch_for(geo, ab.device)
     p = _build.ptr
     _build.launch(
         _lib().fhe_bsk_branch, name, ab.device,
@@ -96,7 +98,7 @@ def _bsk_branch_launch(ab: torch.Tensor, tx_q: torch.Tensor,
         sc.inv_q_mt, p(fc.conv.inv_phat), p(fc.conv.inv_phat_shoup),
         p(fc.conv.phat_mod_dst), p(fc.conv.phat_shoup_dst), p(fc.inv_q_dst),
         p(fc.inv_q_shoup_dst), *table_ptrs(tb_bsk), k, kb, batch, log2_exact(n),
-        geo["threads"], geo["smem"], int(geo["half_row"]))
+        geo["threads"], geo["smem"], product_form(geo), None if scratch is None else p(scratch))
     return out
 
 

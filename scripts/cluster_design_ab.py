@@ -120,7 +120,7 @@ def keyswitch_at(d, keys_t, tb, prereduced: bool, pairs: int) -> torch.Tensor:
                   d.stride(0) if prereduced else 0, d.stride(-3), d.stride(-2), p(keys_t),
                   keys_t.stride(0), keys_t.stride(1), p(out), *ntt_cuda.table_ptrs(tb), tb.k,
                   kd, batch, ntt_cuda.log2_exact(n), pairs, geo["threads"], geo["smem"],
-                  int(prereduced), 0, None, 0, 0, 0, None)
+                  int(prereduced), 0, None, 0, 0, 0, None, 0)
     return out
 
 

@@ -57,7 +57,9 @@ the headline configuration (n = 8192, log_q = 90, k = 3, kb = 5):
     ks_omega = 2, multiply_relin_ms_n16384_omega2), and at n = 32768
     (tests/test_parallel.py:168-189: log_q = 90, k = 3, lambda_ = 0, h = 16,
     seed 11; multiply_relin_ms_n32768) and at the 128-bit n = 32768 set
-    (log_q = 870, k = 29, kb = 32; multiply_relin_ms_secure128_n32768),
+    (log_q = 870, k = 29, kb = 32; multiply_relin_ms_secure128_n32768), and
+    at n = 65536, log_q = 90, t = 786433 (multiply_relin_ms_n65536, null
+    where a tree raises there),
     null for a tree whose multiply raises there;
   - bgv: at the JAX bench's g_bgv configuration (the headline one, seed 1,
     scheme="bgv"), device_ms and wall_ms of BGV's multiply, its halves,
@@ -236,27 +238,30 @@ def multiply_n16384(omega: int) -> dict | None:
     return {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
 
 
-def multiply_n32768(log_q: int = LOG_Q) -> dict | None:
-    """device_ms and wall_ms of the multiply at n = 32768, seed 11: at
-    log_q = 90 tests/test_parallel.py:168-189's configuration (k = 3,
-    lambda_ = 0, h = 16), at log_q = 870 the 128-bit set (k = 29, kb = 32,
-    lambda_ = 128, h = 64); or None where this tree's multiply raises
-    there."""
-    kw = dict(lambda_=0, hamming_weight=16) if log_q == LOG_Q else {}
-    prm = make_scheme_params(SecurityParams(poly_degree=32768, log_q=log_q, **kw))
+def multiply_large(log_q: int = LOG_Q, n: int = 32768) -> dict | None:
+    """device_ms and wall_ms of the multiply at n = 32768 or 65536, seed 11:
+    at n = 32768, log_q = 90 tests/test_parallel.py:168-189's configuration
+    (k = 3, lambda_ = 0, h = 16), at log_q = 870 the 128-bit set (k = 29,
+    kb = 32, lambda_ = 128, h = 64); at n = 65536 chip_smoke.py's n65536
+    sets (t = 786433, lambda_ = 0, h = 16); or None where this tree's
+    multiply raises there."""
+    kw = dict(lambda_=0, hamming_weight=16) if log_q == LOG_Q or n == 65536 else {}
+    if n == 65536:
+        kw["plain_modulus"] = 786433
+    prm = make_scheme_params(SecurityParams(poly_degree=n, log_q=log_q, **kw))
     fhe = FHE(prm, seed=11, device="cuda")
-    pk, sk = fhe.keygen()
-    rlk = fhe.relinkey_gen(sk)
-    a = fhe.encrypt(fhe.encode([4, 5, 6]), pk)
-    b = fhe.encrypt(fhe.encode([7, 8, 9]), pk)
     try:
+        pk, sk = fhe.keygen()
+        rlk = fhe.relinkey_gen(sk)
+        a = fhe.encrypt(fhe.encode([4, 5, 6]), pk)
+        b = fhe.encrypt(fhe.encode([7, 8, 9]), pk)
         prod = fhe.multiply(a, b, rlk)
     except ValueError as err:          # a tree without these launch shapes or bases
-        print(f"torch_ab: n=32768, log_q={log_q} multiply raised: {err}", file=sys.stderr)
+        print(f"torch_ab: n={n}, log_q={log_q} multiply raised: {err}", file=sys.stderr)
         return None
     got = [int(v) for v in fhe.decode(fhe.decrypt(prod, sk))[:3]]
     if got != [28, 40, 54]:
-        raise RuntimeError(f"n=32768 multiply decoded {got}")
+        raise RuntimeError(f"n={n} multiply decoded {got}")
     fn = lambda: fhe.multiply(a, b, rlk)
     return {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
 
@@ -970,8 +975,9 @@ def main() -> int:
     out["galois_lanes"] = galois_lanes(gen)
     out["multiply_relin_ms_n16384"] = multiply_n16384(1)
     out["multiply_relin_ms_n16384_omega2"] = multiply_n16384(2)
-    out["multiply_relin_ms_n32768"] = multiply_n32768()
-    out["multiply_relin_ms_secure128_n32768"] = multiply_n32768(870)
+    out["multiply_relin_ms_n32768"] = multiply_large()
+    out["multiply_relin_ms_secure128_n32768"] = multiply_large(870)
+    out["multiply_relin_ms_n65536"] = multiply_large(LOG_Q, 65536)
     out["bgv"] = bgv_ops()
     out["bootstrap"] = bootstrap_ops()
     print(json.dumps(out))

@@ -13,7 +13,9 @@ and B5's CTAs per prime, B7's digit pairs per (element, prime), threads and
 shared memory per CTA, and the shared-memory checks that decide which n
 each kernel takes, with the forms that take n = 32768 where the n <= 16384
 layout does not fit a block (B4's and B5's half row, B7's and B8's wide
-form).
+form) and the compact split at n = 65536, where one padded row does not
+fit (a padded half row per CTA; B4's and B5's transformed half rows and
+B7's and B8's partials in global scratch).
 tests/test_torch_cuda.py runs the kernels themselves."""
 
 import numpy as np
@@ -39,6 +41,18 @@ def assert_owned_once(n: int, parts: int) -> None:
     for h in range(parts):
         hits[h * n // parts:(h + 1) * n // parts] += 1
     assert (hits == 1).all()
+
+
+def assert_compact_form(geo: dict, n: int, scratch_per_cta: int) -> None:
+    """The compact split at n = 65536: two CTAs per row, each holding its
+    own half of the row in a padded half row (132 KB), inside a block and a
+    portable cluster, every position owned by one CTA of the pair, and
+    ``scratch_per_cta`` words of global scratch per CTA."""
+    assert geo["compact"] and geo["ctas_per_row"] == 2 and geo["cluster"][0] <= 8
+    assert geo["smem"] == 4 * padded(n // 2) <= MAX_SMEM < 4 * padded(n)
+    assert geo["threads"] == 512
+    assert geo.get("scratch", 0) == geo["ctas"] * scratch_per_cta
+    assert_owned_once(n, geo["ctas_per_row"])
 
 
 def assert_half_row_form(geo: dict, n: int) -> None:
@@ -89,7 +103,10 @@ def test_n32768_does_not_fit_either_kernel():
     (198 KB), B8 its working row (132 KB) with the two accumulators of
     each CTA (2n words) in a global scratch buffer, and CTA r of B8's
     cluster sums coefficients [r n / C, (r + 1) n / C) in the epilogue.  At
-    n = 65536 neither form fits, and each raises, naming the function."""
+    n = 65536 neither form fits: both take the compact split (B5 its
+    transformed half rows in scratch, n/2 words per CTA; B8 a pair of CTAs
+    per prime, 2 min(k, 4) per cluster, its accumulators n words per CTA);
+    at n = 131072 each raises, naming the function."""
     n = 32768
     assert 2 * 4 * padded(n) > MAX_SMEM and 3 * 4 * padded(n) > MAX_SMEM
     assert_half_row_form(rns_cuda.bsk_branch_geometry(n, kb=5), n)
@@ -100,10 +117,15 @@ def test_n32768_does_not_fit_either_kernel():
         assert geo["smem"] == 4 * padded(n) <= MAX_SMEM and geo["threads"] == 512
         assert geo["scratch"] == 2 * n * c * batch
         assert_owned_once(n, c)
-    with pytest.raises(ValueError, match="bsk_branch_fused: n=65536 needs"):
-        rns_cuda.bsk_branch_geometry(65536, kb=5)
-    with pytest.raises(ValueError, match="decrypt_fused: n=65536 needs"):
-        decrypt_cuda.decrypt_geometry(65536, k=3)
+    assert_compact_form(rns_cuda.bsk_branch_geometry(65536, kb=5), 65536, 32768)
+    for k in (1, 3, 8):
+        geo = decrypt_cuda.decrypt_geometry(65536, k=k)
+        assert geo["cluster"] == (2 * min(k, 4), 1, 1)
+        assert_compact_form(geo, 65536, 65536)
+    with pytest.raises(ValueError, match="bsk_branch_fused: n=131072 needs"):
+        rns_cuda.bsk_branch_geometry(131072, kb=5)
+    with pytest.raises(ValueError, match="decrypt_fused: n=131072 needs"):
+        decrypt_cuda.decrypt_geometry(131072, k=3)
 
 
 @pytest.mark.parametrize("batch", [1, 8])
@@ -167,8 +189,9 @@ def test_n16384_fits_b3_b4_b5_and_b8_but_not_b4_at_n32768():
     fit a CTA, so the whole multiply runs there in that layout; B4's two
     rows at n = 32768 do not (B3's one row does), so there B4 keeps only
     its half of the transformed row (the multiply's and multiply_batch's
-    shapes, k = 3); the Lift lane (n < 1024) has no half-row form, and at
-    n = 65536 B4 raises, naming the function."""
+    shapes, k = 3); the Lift lane (n < 1024) has no half-row form; at
+    n = 65536 B4 takes the compact form (the transformed half rows in
+    scratch), and at n = 131072 it raises, naming the function."""
     assert ntt_cuda.mul_by_ntt_operand_geometry(16384, k=3, c=2)["smem"] == 67584
     assert ntt_cuda.tensor_product_geometry(16384, k=3)["smem"] == 135168
     assert rns_cuda.bsk_branch_geometry(16384, kb=5)["smem"] == 135168
@@ -181,8 +204,9 @@ def test_n16384_fits_b3_b4_b5_and_b8_but_not_b4_at_n32768():
         assert geo["smem"] == 202752 and geo["grid"] == (8, batch, 3)
     with pytest.raises(ValueError, match="tensor_product: n=32768 needs"):
         ntt_cuda.tensor_product_geometry(32768, k=3, lift=True)
-    with pytest.raises(ValueError, match="tensor_product: n=65536 needs"):
-        ntt_cuda.tensor_product_geometry(65536, k=3)
+    assert_compact_form(ntt_cuda.tensor_product_geometry(65536, k=3), 65536, 32768)
+    with pytest.raises(ValueError, match="tensor_product: n=131072 needs"):
+        ntt_cuda.tensor_product_geometry(131072, k=3)
     assert ntt_cuda.mul_by_ntt_operand_geometry(32768, k=3, c=2)["smem"] == 135168
 
 
@@ -275,7 +299,9 @@ def test_n32768_fits_b1_but_not_b7():
     135 KB) and the two partial half rows of each CTA (n words: positions
     [h n/2, (h+1) n/2) of both output rows) in a global scratch buffer, for
     the relinearization (kd = 3) and multiply_batch's B = 2 alike; at
-    n = 65536 it raises, naming the function."""
+    n = 65536 it takes the wide form on the compact split (a padded half
+    row per CTA, the same scratch), and at n = 131072 it raises, naming the
+    function."""
     n = 32768
     assert ntt_cuda.ntt_forward_geometry(n, k=3)["smem"] == 135168
     assert ntt_cuda.keyswitch_geometry(16384, k=3, kd=3)["smem"] == 135168
@@ -285,8 +311,11 @@ def test_n32768_fits_b1_but_not_b7():
         assert geo["wide"] and geo["smem"] == 135168 and geo["cluster"] == (6, 1, 1)
         assert geo["scratch"] == 6 * batch * 3 * n and geo["threads"] == 512
         assert_owned_once(n, geo["ctas_per_row"])
-    with pytest.raises(ValueError, match="keyswitch_fused: n=65536 needs"):
-        ntt_cuda.keyswitch_geometry(65536, k=3, kd=3)
+    geo = ntt_cuda.keyswitch_geometry(65536, k=3, kd=3)
+    assert geo["wide"] and geo["cluster"] == (6, 1, 1)
+    assert_compact_form(geo, 65536, 65536)
+    with pytest.raises(ValueError, match="keyswitch_fused: n=131072 needs"):
+        ntt_cuda.keyswitch_geometry(131072, k=3, kd=3)
 
 
 @pytest.mark.parametrize("n", [2, 16])
@@ -352,8 +381,13 @@ GEOMETRY_OF = {"ntt_inverse": lambda n, batch=1: ntt_cuda.ntt_inverse_geometry(n
                                      (65536, "n=65536 needs")])
 def test_b2_and_b17_n_outside_32_to_32768_raises(name, n, match):
     """The register-blocked sweep takes n >= 32, and one padded row fits a
-    CTA up to n = 32768: B2 and B17/B18 raise outside, naming the
-    function, before any launch."""
+    CTA up to n = 32768: B17/B18 raise outside, naming the function, before
+    any launch.  B2 takes n = 65536 on the compact split (a padded half row
+    per CTA), so its top case is the next ring, n = 131072, where it
+    raises."""
+    if name == "ntt_inverse" and n == 65536:
+        assert_compact_form(GEOMETRY_OF[name](n), n, 0)
+        n, match = 2 * n, "n=131072 needs"
     with pytest.raises(ValueError, match=f"{name}: .*{match}"):
         GEOMETRY_OF[name](n)
 
@@ -386,7 +420,8 @@ def test_galois_lanes_stage_a_row_and_ks_inner_runs_at_n32768():
     """keyswitch_fused's Galois lane stages the digit row it gathers from
     beside its two padded rows up to n = 16384; at n = 32768 it takes the
     classic lane's wide form (the working row alone, partials in global
-    scratch) and reads the digit rows and c0 in place; at n = 65536 it
+    scratch) and reads the digit rows and c0 in place; at n = 65536 the
+    classic lane's wide form on the compact split, and at n = 131072 it
     raises, naming the function; its classic lane keeps its shape.
     ks_inner's Galois lane stages c0 where it fits and reads it in place at
     n = 32768."""
@@ -399,8 +434,11 @@ def test_galois_lanes_stage_a_row_and_ks_inner_runs_at_n32768():
         geo = ntt_cuda.keyswitch_geometry(32768, 3, 3, batch, galois=True)
         assert geo == ntt_cuda.keyswitch_geometry(32768, 3, 3, batch)
         assert geo["wide"] and geo["smem"] == 4 * (32768 + 32768 // 32) <= MAX_SMEM
-    with pytest.raises(ValueError, match="keyswitch_fused_batch: n=65536 needs"):
-        ntt_cuda.keyswitch_geometry(65536, 3, 3, 2, "keyswitch_fused_batch", galois=True)
+    geo = ntt_cuda.keyswitch_geometry(65536, 3, 3, 2, "keyswitch_fused_batch", galois=True)
+    assert geo == ntt_cuda.keyswitch_geometry(65536, 3, 3, 2)
+    assert_compact_form(geo, 65536, 65536)
+    with pytest.raises(ValueError, match="keyswitch_fused_batch: n=131072 needs"):
+        ntt_cuda.keyswitch_geometry(131072, 3, 3, 2, "keyswitch_fused_batch", galois=True)
     # ks_inner stages its c0 row where it fits (n <= 16384), and reads it in
     # place above
     geo = ntt_cuda.ks_inner_geometry(n, 3, 8, c0=True)
@@ -408,3 +446,82 @@ def test_galois_lanes_stage_a_row_and_ks_inner_runs_at_n32768():
     geo = ntt_cuda.ks_inner_geometry(32768, 3, 8, c0=True)
     assert not geo["stage_c0"] and geo["smem"] == 4 * (32768 + 32768 // 32)
     assert not ntt_cuda.ks_inner_geometry(n, 3, 8)["stage_c0"]
+
+
+N65536 = 65536
+
+
+@pytest.mark.parametrize("k,kd,batch", [(3, 3, 1), (3, 3, 2), (30, 30, 1), (30, 30, 2)])
+def test_n65536_compact_forms(k, kd, batch):
+    """Every cluster kernel of the BFV path at n = 65536, at log_q = 90
+    (k = 3) and log_q = 900 (k = kd = 30, kb = 33), single and B = 2: B1,
+    B2 and B3 on the compact split alone (no scratch); B4 and B5 with the
+    transformed half rows in scratch (n/2 words per CTA); B7/B12 (every
+    lane) in the wide form on the compact split (n words per CTA); B8 a
+    pair of CTAs per prime, min(k, 4) pairs per cluster (n words per CTA).
+    Every cluster is portable (at most 8 CTAs) and no block exceeds its
+    shared memory.  B4's Lift lane has no such form (n < 1024 only)."""
+    n = N65536
+    for geo in (ntt_cuda.ntt_forward_geometry(n, k, batch),
+                ntt_cuda.ntt_inverse_geometry(n, k, batch),
+                ntt_cuda.mul_by_ntt_operand_geometry(n, k, c=2, batch=batch)):
+        assert_compact_form(geo, n, 0)
+    kb = 33 if k == 30 else 5
+    for geo in (ntt_cuda.tensor_product_geometry(n, k, batch),
+                rns_cuda.bsk_branch_geometry(n, kb, batch)):
+        assert not geo["half_row"] and geo["cluster"] == (8, 1, 1)
+        assert_compact_form(geo, n, n // 2)
+    for galois in (False, True):
+        geo = ntt_cuda.keyswitch_geometry(n, k, kd, batch, galois=galois)
+        assert geo["wide"] and geo["pairs"] == min(kd, 4)
+        assert_compact_form(geo, n, n)
+    geo = decrypt_cuda.decrypt_geometry(n, k, batch)
+    pairs = min(k, 4)
+    assert geo["cluster"] == (2 * pairs, 1, 1) and geo["grid"] == (2 * pairs, batch)
+    assert geo["primes_per_cta"] == -(-k // pairs)
+    # pair q takes the primes q, q + P, ...: every prime once, ceil(k / P)
+    # rounds for every pair (a pair without a prime in a round idles)
+    taken = [list(range(q, k, pairs)) for q in range(pairs)]
+    assert sorted(i for primes in taken for i in primes) == list(range(k))
+    assert_compact_form(geo, n, n)
+    with pytest.raises(ValueError, match="tensor_product: n=65536 needs"):
+        ntt_cuda.tensor_product_geometry(n, k, lift=True)
+
+
+def test_n65536_scratch_of_the_k30_multiply():
+    """The global scratch the k = 30 multiply's kernels ask for at
+    n = 65536: B4 and B5 n/2 words for each CTA of a cluster of 8 per
+    prime, B8 n words for each of its 8 CTAs, and B7 at kd = 30 240 CTAs x
+    n words, 63 MB: more than the card's 50 MB L2."""
+    n, k = N65536, 30
+    assert ntt_cuda.keyswitch_geometry(n, k, k)["scratch"] * 4 == 8 * k * n * 4 == 62914560
+    assert ntt_cuda.tensor_product_geometry(n, k)["scratch"] == 8 * k * n // 2
+    assert rns_cuda.bsk_branch_geometry(n, 33)["scratch"] == 8 * 33 * n // 2
+    assert decrypt_cuda.decrypt_geometry(n, k)["scratch"] == 8 * n
+
+
+@pytest.mark.parametrize("col", [0, 1, 2047, 2048, 4095])
+def test_decrypt_compact_accumulator_index(col):
+    """B8's compact form accumulates element base + (g << (log n - 4)) of
+    column base (the inverse's last pass; CTA h holds columns
+    [h n/32, (h+1) n/32)) at g n/32 + base - h n/32 of its n/2-word
+    accumulator, and its epilogue finds coefficient j at the same word of
+    CTA hj: the two index maps agree, and every coefficient of the row has
+    one (CTA, word)."""
+    n = N65536
+    logc = n.bit_length() - 1 - 5
+    seen = set()
+    for g in range(16):
+        j = col + (g << (logc + 1))
+        h = col >> logc
+        e_pass = (g << logc) + col - (h << logc)
+        cols = j & ((2 << logc) - 1)
+        hj = cols >> logc
+        e_epi = ((j >> (logc + 1)) << logc) + (cols & ((1 << logc) - 1))
+        assert (h, e_pass) == (hj, e_epi) and 0 <= e_pass < n // 2
+        seen.add((hj, e_epi))
+    assert len(seen) == 16
+    j = np.arange(n)
+    cols = j & ((2 << logc) - 1)
+    word = (cols >> logc) * (n // 2) + ((j >> (logc + 1)) << logc) + (cols & ((1 << logc) - 1))
+    assert np.array_equal(np.sort(word), j)
