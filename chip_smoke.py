@@ -55,19 +55,26 @@ Phases, each printing its own lines:
      encrypt, multiply and rotate_rows decode, card == CPU plain path for
      encrypt_from_noise, multiply, decrypt and rotate_rows; device and wall
      ms); then (phase n65536) the ring n = 65536 at log_q = 90 (k = 3,
-     kb = 5, kd = 3) and log_q = 900 (k = 30, kb = 33, kd = 30),
-     t = 786433, lambda_ = 0, h = 16, seed 11: B1, B2 (also rows off 16
-     bytes and mod t), B3/B13, B4/B11, B5, B7/B12 (classic, Galois at
-     g = 3 and 2n - 1, prereduced) and B8, single and B = 2, on the compact
-     split, equal their plain twins, with device ms and bounds; with the
-     counts zeroed, the BFV path through the facade at both sets (keys,
-     relin and Galois keys, encrypt, multiply, multiply_batch at B = 2,
-     multiply_no_relin then relinearize, rotate_rows by 1, decrypt)
-     decodes [28, 40, 54], each kernel of N65536_KERNELS launched
+     kb = 5, kd = 3), log_q = 900 (k = 30, kb = 33, kd = 30) and
+     log_q = 1770 (k = 59, kb = 63, kd = 59), t = 786433, lambda_ = 0,
+     h = 16, seed 11: at k = 3 and 30 B1, B2 (also rows off 16 bytes and
+     mod t), B3/B13, B4/B11, B5, B7/B12 (classic, Galois at g = 3 and
+     2n - 1, prereduced) and B8, single and B = 2, on the compact split,
+     and B17 (Inner and Galois lanes, E = 8), a sum_slots stage, B18's
+     Galois lane (4 x 8), B14, B15 and B16; at k = 59 B4, B5, B7 and B8,
+     and B6's deep instance at kb = 63 and 68, the floor lanes from k = 59
+     and 64 and the Lift lane from k = 59 at n = 256; each equal to its
+     plain twin, with device ms and bounds; with the counts zeroed, the
+     BFV path through the facade at every set (keys, relin and Galois
+     keys, encrypt, multiply, multiply_batch at B = 2, multiply_no_relin
+     then relinearize, rotate_rows by 1, decrypt) decodes [28, 40, 54],
+     and the hoisted rotations (8 steps) at k = 3 and 30, their batch of 4
+     and sum_slots at k = 3 decode, each kernel of N65536_KERNELS launched
      (`n65536_launches` in the kernels line); the card equals the CPU
-     plain path for encrypt_from_noise, multiply, decrypt, rotate_rows and
-     BGV's multiply at both sets; device and wall ms of the multiply,
-     relinearize, rotate_rows, encrypt and decrypt;
+     plain path for encrypt_from_noise, multiply, decrypt and rotate_rows
+     at every set, BGV's multiply at k = 3 and 30, and the hoisted calls;
+     device and wall ms of the multiply, relinearize, rotate_rows, encrypt,
+     decrypt and the hoisted calls;
   4. slice: the linear-ops main path through the FHE facade at n = 8192,
      log_q = 90 (k = 3), h = 64: keygen, encode, encrypt, add, add_plain and
      the 8-term resident plaintext multiply-accumulate, then decrypt and
@@ -685,18 +692,18 @@ def ks_inner_work(k: int, kd: int, stacks: int, key_sets: int,
 
 
 def automorphism_work(k: int, c: int, hs: tuple[int, ...],
-                      c0_rows: int) -> tuple[float, float]:
-    """x [k, c, B, N] in and out, the B multipliers, and c0_rows [k, N] rows
+                      c0_rows: int, n: int = N) -> tuple[float, float]:
+    """x [k, c, B, n] in and out, the B multipliers, and c0_rows [k, n] rows
     of c0 (0, 1 shared, or B per element).  Per output residue its source
-    index; the negation where these h negate (h*j mod 2N >= N, counted from
+    index; the negation where these h negate (h*j mod 2n >= n, counted from
     hs); one add per component-0 residue when there is a c0."""
     o = OPS
-    j = torch.arange(N, dtype=torch.int64)
-    negated = sum(int(((h * j) % (2 * N) >= N).sum()) for h in hs)
+    j = torch.arange(n, dtype=torch.int64)
+    negated = sum(int(((h * j) % (2 * n) >= n).sum()) for h in hs)
     batch = len(hs)
-    ops = (k * c * batch * N * o["galois_index"] + k * c * negated * o["neg_mod"]
-           + (k * batch * N * o["add_mod"] if c0_rows else 0))
-    return 4 * (2 * k * c * batch * N + c0_rows * k * N + batch), ops
+    ops = (k * c * batch * n * o["galois_index"] + k * c * negated * o["neg_mod"]
+           + (k * batch * n * o["add_mod"] if c0_rows else 0))
+    return 4 * (2 * k * c * batch * n + c0_rows * k * n + batch), ops
 
 
 def coeff_gather_ops(k: int, hs: tuple[int, ...], n: int = N) -> float:
@@ -728,17 +735,18 @@ def ks_inner_galois_work(k: int, kd: int, stacks: int, key_sets: int, outputs: t
     return nbytes, ops
 
 
-def automorphism_sum_work(k: int, c: int, hs: tuple[int, ...]) -> tuple[float, float]:
-    """x [k, c, B, N], c0 [k, N] and base [k, c, N] in, [k, c, N] out, the B
+def automorphism_sum_work(k: int, c: int, hs: tuple[int, ...],
+                          n: int = N) -> tuple[float, float]:
+    """x [k, c, B, n], c0 [k, n] and base [k, c, n] in, [k, c, n] out, the B
     multipliers.  Per source residue its index, the c0 add on component 0,
     the negation where these h negate, and the accumulating add."""
     o = OPS
-    j = torch.arange(N, dtype=torch.int64)
-    negated = sum(int(((h * j) % (2 * N) >= N).sum()) for h in hs)
+    j = torch.arange(n, dtype=torch.int64)
+    negated = sum(int(((h * j) % (2 * n) >= n).sum()) for h in hs)
     batch = len(hs)
-    ops = (k * c * batch * N * (o["galois_index"] + o["add_mod"])
-           + k * c * negated * o["neg_mod"] + k * batch * N * o["add_mod"])
-    return 4 * (k * c * batch * N + k * N + 2 * k * c * N + batch), ops
+    ops = (k * c * batch * n * (o["galois_index"] + o["add_mod"])
+           + k * c * negated * o["neg_mod"] + k * batch * n * o["add_mod"])
+    return 4 * (k * c * batch * n + k * n + 2 * k * c * n + batch), ops
 
 
 def keyswitch_galois_work(k: int, g: int, batch: int = 1,
@@ -923,26 +931,27 @@ def lift_cases(gen: torch.Generator, ctx_s, ctx) -> list:
     shapes, levels 0, 1 and 2 (level 1: x and y as views of one [k, 4, n]
     tensor, read in place), then at the headline [3, 2, 8192] (kb = 5) and
     at k = 8 (kb = 10)."""
-    out = []
     ctx8 = make_context(params_leveled(), device="cuda")
     shapes = [(ctx_s, level) for level in (0, 1, 2)] + [(ctx, 0), (ctx8, 0)]
-    for c, level in shapes:
-        n, (tq, tbsk), sc = c.n, c.mul_levels[level], c.smq_levels[level]
-        k, kb = tq.k, tbsk.k
-        if c is ctx_s and level == 1:
-            xy = residues(gen, tq.primes, 4, n)
-            x, y, what = xy[:, :2], xy[:, 2:], f"views of [{k},4,{n}]"
-        else:
-            x, y = residues(gen, tq.primes, 2, n), residues(gen, tq.primes, 2, n)
-            what = f"x, y [{k},2,{n}]"
-        label = f"level {level} of k={c.k}: " if c is ctx_s else ""
-        args = (x, y, tq, sc, tbsk)
-        out.append(("tensor_product_lift", f"{label}{what} -> [{k},3,{n}] + [{kb},3,{n}]",
-                    lambda a=args: ntt_cuda.tensor_product(*a[:3], lift=a[3:]),
-                    lambda a=args: (plain_ntt.tensor_product(*a[:3]),
-                                    rns.tensor_product_lift(a[0], a[1], *a[3:])),
-                    tensor_product_lift_work(k, kb, n)))
-    return out
+    return [lift_case(gen, c, level, f"level {level} of k={c.k}: " if c is ctx_s else "",
+                      views=c is ctx_s and level == 1) for c, level in shapes]
+
+
+def lift_case(gen: torch.Generator, c, level: int, label: str, views: bool = False):
+    """tensor_product's Lift lane on c's level-L tables and lift constants;
+    ``views``: x and y as views of one [k, 4, n] tensor, read in place."""
+    n, (tq, tbsk), sc = c.n, c.mul_levels[level], c.smq_levels[level]
+    k, kb = tq.k, tbsk.k
+    if views:
+        xy = residues(gen, tq.primes, 4, n)
+        x, y, what = xy[:, :2], xy[:, 2:], f"views of [{k},4,{n}]"
+    else:
+        x, y = residues(gen, tq.primes, 2, n), residues(gen, tq.primes, 2, n)
+        what = f"x, y [{k},2,{n}]"
+    return ("tensor_product_lift", f"{label}{what} -> [{k},3,{n}] + [{kb},3,{n}]",
+            lambda: ntt_cuda.tensor_product(x, y, tq, lift=(sc, tbsk)),
+            lambda: (plain_ntt.tensor_product(x, y, tq), rns.tensor_product_lift(x, y, sc, tbsk)),
+            tensor_product_lift_work(k, kb, n))
 
 
 def floor_sk_cases(gen: torch.Generator, ctx_s) -> list:
@@ -1485,13 +1494,15 @@ def ntt_inverse_case(gen: torch.Generator, tb, batch: int, label: str, offset: b
 
 def ks_inner_case(gen: torch.Generator, ctx, level: int, kd: int, stacks: int,
                   key_sets: int, grouped: bool, label: str, offset: bool = False,
-                  lane: str = "inner"):
+                  lane: str = "inner", plain=None):
     """A ks_inner_batch case (one digit stack shared by the key sets'
     elements, or one stack per element) or a ks_inner_grouped one (stack c
     with key set e) on ctx's level-L tables; ``offset``: digits, keys and c0
     off a 16-byte boundary.  ``lane``: "inner" or "galois" (the key sets'
     elements 3^1, 3^2, ..., a c0 per digit stack; a run of c0 and of the
-    digits is zero, so the negations of c0 meet zeros)."""
+    digits is zero, so the negations of c0 meet zeros); ``plain``: the
+    Galois lane's plain result as f(dg, keys, tb, elements, c0), in place of
+    the twin in plain_ntt."""
     tb, n = level_tables(ctx, level, "q"), ctx.n
     dg = residues(gen, tb.primes, kd * stacks, n).view(tb.k, kd, stacks, n)
     keys = residues(gen, tb.primes, kd * key_sets * 2, n).view(tb.k, kd, key_sets, 2, n)
@@ -1509,9 +1520,10 @@ def ks_inner_case(gen: torch.Generator, ctx, level: int, kd: int, stacks: int,
     shape = f"dg [{tb.k},{kd},{stacks},{n}], keys [{tb.k},{kd},{key_sets},2,{n}]"
     if lane == "galois":
         outputs = elements * (stacks if grouped else 1)
+        plain = plain or getattr(plain_ntt, name)
         return (name + "_galois", f"{label}: {shape}",
                 lambda: getattr(ntt_cuda, name)(dg, keys, tb, elements, c0),
-                lambda: getattr(plain_ntt, name)(dg, keys, tb, elements, c0),
+                lambda: plain(dg, keys, tb, elements, c0),
                 ks_inner_galois_work(tb.k, kd, stacks, key_sets, outputs, stacks, n))
     return (name, f"Inner lane, {label}: {shape}",
             lambda: getattr(ntt_cuda, name)(dg, keys, tb),
@@ -1663,7 +1675,8 @@ def phase_geometry() -> None:
     n = 16384 and 32768 (B4/B11 and B5 with a half row, B7/B12 and B8 in
     their wide form); keyswitch_fused at k = 8 (kd = 8, and the prereduced
     kd = 4); and at n = 65536 the compact forms of the n65536 path's
-    kernels at k = 3 and k = 30."""
+    kernels at k = 3, 30 and 59 (B17/B18 at k = 3 and 30), and the base
+    conversion's deep instance at [63,3,n] and [68,3,n]."""
     for n in (N, 16384, 32768):
         for name, geo in (("ntt_forward", ntt_cuda.ntt_forward_geometry(n, 3)),
                           ("ntt_forward keygen", ntt_cuda.ntt_forward_geometry(n, 3, 3)),
@@ -1694,8 +1707,12 @@ def phase_geometry() -> None:
                            decrypt_cuda.decrypt_geometry(n, 3, BATCH))):
             print(f"phase geometry {name} n={n}", json.dumps(geo))
     n = 65536
-    for k, kb in ((3, 5), (30, 33)):
-        for name, geo in (("ntt_forward", ntt_cuda.ntt_forward_geometry(n, k)),
+    for k, kb in ((3, 5), (30, 33), (59, 63)):
+        hoisted = (() if k > 30 else (
+            ("ks_inner_batch Galois lane", ntt_cuda.ks_inner_geometry(n, k, BATCH, c0=True)),
+            ("ks_inner_grouped Galois lane",
+             ntt_cuda.ks_inner_geometry(n, k, C_HOIST * BATCH, "ks_inner_grouped", c0=True))))
+        for name, geo in (*hoisted, ("ntt_forward", ntt_cuda.ntt_forward_geometry(n, k)),
                           ("ntt_inverse", ntt_cuda.ntt_inverse_geometry(n, k)),
                           ("mul_by_ntt_operand", ntt_cuda.mul_by_ntt_operand_geometry(n, k, 2)),
                           ("tensor_product", ntt_cuda.tensor_product_geometry(n, k)),
@@ -1704,6 +1721,10 @@ def phase_geometry() -> None:
                           ("keyswitch_fused_batch", ntt_cuda.keyswitch_geometry(n, k, k, 2)),
                           ("decrypt_fused", decrypt_cuda.decrypt_geometry(n, k))):
             print(f"phase geometry {name} n={n} k={k}", json.dumps(geo))
+    for k, kb in ((59, 63), (64, 68)):
+        geo = rns_cuda.conv_geometry(3 * n, "sk", rns_cuda.conv_wide("sk", kb, k),
+                                     rns_cuda.conv_deep("sk", kb, k))
+        print(f"phase geometry fast_bconv_sk_fused [{kb},3,{n}] -> [{k},3,{n}]", json.dumps(geo))
     for name, n, geo in (("keyswitch_fused k=8 kd=8", N, ntt_cuda.keyswitch_geometry(N, 8, 8)),
                          ("keyswitch_fused_prereduced k=8 kd=4", N,
                           ntt_cuda.keyswitch_geometry(N, 8, 4))):
@@ -1956,27 +1977,7 @@ def secure128_cases(gen: torch.Generator, ctx) -> list:
     1's [30,3,n] -> [28,3,n]; B4 at k = 29, B5 at kb = 32, B7 at kd = 29
     and B8 at k = 29."""
     k, n = ctx.k, ctx.n
-    out = []
-    for level, rows, inputs in ((0, 3, "random"), (0, 3, "every residue p - 1"),
-                                (0, 3, "every digit b_i - 1"), (0, 6, "random"),
-                                (1, 3, "random")):
-        sk, bsk, kl = ctx.sk_levels[level], ctx.mul_levels[level][1].primes, k - level
-        if inputs == "random":
-            xb = residues(gen, bsk, rows, n)
-        else:
-            big = math.prod(bsk[:-1])
-            vals = [p - 1 if "residue" in inputs else (p - 1) * (big // p) % p
-                    for p in bsk[:-1]] + [bsk[-1] - 1]
-            xb = torch.stack([torch.full((rows, n), v, dtype=torch.int64, device="cuda")
-                              for v in vals]).to(torch.int32)
-        label = (f"n={n}, level {level}: digits [{len(bsk)},{rows},{n}] -> [{kl},{rows},{n}]"
-                 f", {inputs}")
-        out.append(("fast_bconv_sk_fused", label,
-                    lambda x=xb, s=sk, d=digit_consts(ctx, level):
-                    rns_cuda.fast_bconv_sk_fused(x, s, d),
-                    lambda x=xb, s=sk, d=digit_consts(ctx, level):
-                    rns.fast_bconv_sk_digits(x, s, d[0]),
-                    fast_bconv_sk_work(len(bsk), kl, rows, n, digits=True)))
+    out = [sk_digits_case(gen, ctx, *shape) for shape in SK_DIGIT_SHAPES]
     s = residues(gen, ctx.ntt_q.primes, 1, n)
     ct = residues(gen, ctx.ntt_q.primes, 2, n)
     dec_args = (ct[:, 0:1], ct[:, 1:2], s, ctx.ntt_q, ctx.dec_levels[0])
@@ -1987,6 +1988,38 @@ def secure128_cases(gen: torch.Generator, ctx) -> list:
                   ("decrypt_fused", f"{label}: views of [{k},2,{n}], t={ctx.params.t}",
                    lambda: decrypt_cuda.decrypt_fused(*dec_args),
                    lambda: decrypt_cuda.decrypt_fused_plain(*dec_args), decrypt_work(k, 1, n))]
+
+
+# B6's cases past the fixed instances, as (level, rows, inputs): the
+# multiply's [kb,3,n] on three inputs, multiply_batch's [kb,6,n] (B = 2)
+# and level 1's
+SK_DIGIT_SHAPES = ((0, 3, "random"), (0, 3, "every residue p - 1"),
+                   (0, 3, "every digit b_i - 1"), (0, 6, "random"), (1, 3, "random"))
+
+
+def sk_digits_case(gen: torch.Generator, ctx, level: int, rows: int, inputs: str):
+    """B6 with the digits lane from ctx's level-L Bsk base: [kb, rows, n]
+    -> [k - L, rows, n] on ``inputs``: "random" residues, "every residue
+    p - 1", or "every digit b_i - 1" (the aux residues whose digits
+    [x_i * (B/b_i)^-1]_{b_i} are all b_i - 1, the largest terms of the
+    kernel's unreduced sums; the m_sk row at m_sk - 1)."""
+    n = ctx.n
+    sk, bsk, kl = ctx.sk_levels[level], ctx.mul_levels[level][1].primes, ctx.k - level
+    if inputs == "random":
+        xb = residues(gen, bsk, rows, n)
+    else:
+        big = math.prod(bsk[:-1])
+        vals = [p - 1 if "residue" in inputs else (p - 1) * (big // p) % p
+                for p in bsk[:-1]] + [bsk[-1] - 1]
+        xb = torch.stack([torch.full((rows, n), v, dtype=torch.int64, device="cuda")
+                          for v in vals]).to(torch.int32)
+    dig = digit_consts(ctx, level)
+    return ("fast_bconv_sk_fused",
+            f"n={n}, level {level}: digits [{len(bsk)},{rows},{n}] -> [{kl},{rows},{n}], "
+            f"{inputs}",
+            lambda: rns_cuda.fast_bconv_sk_fused(xb, sk, dig),
+            lambda: rns.fast_bconv_sk_digits(xb, sk, dig[0]),
+            fast_bconv_sk_work(len(bsk), kl, rows, n, digits=True))
 
 
 def secure128_run(fhe: FHE):
@@ -2101,14 +2134,20 @@ def check_omega2_k30() -> dict:
 
 
 # the ring n = 65536, after the 128-bit table's last row, at log_q = 90
-# (k = 3, kb = 5, kd = 3) and log_q = 900 (k = 30, kb = 33, kd = 30):
-# plain_modulus = 786433 (65537 is not 1 mod 2n there), lambda_ = 0, h = 16
-N65536_LOG_Q = (90, 900)
+# (k = 3, kb = 5, kd = 3), log_q = 900 (k = 30, kb = 33, kd = 30) and
+# log_q = 1770 (k = 59, kb = 63, kd = 59): plain_modulus = 786433 (65537
+# is not 1 mod 2n there), lambda_ = 0, h = 16; log_q = 1920 (k = 64,
+# kb = 68), the deepest set, for the base conversion's kernel cases
+N65536_LOG_Q = (90, 900, 1770)
+N65536_DEEPEST = 1920
 # the kernels the n65536 path must launch at each set
 N65536_KERNELS = ("ntt_forward", "ntt_inverse", "mul_by_ntt_operand", "decrypt_fused",
                   "tensor_product", "bsk_branch_fused", "fast_bconv_sk_fused",
                   "keyswitch_fused", "keyswitch_fused_galois", "tensor_product_batch",
-                  "bsk_branch_fused_batch", "keyswitch_fused_batch")
+                  "bsk_branch_fused_batch", "keyswitch_fused_batch", "ks_inner_batch",
+                  "ks_inner_batch_galois", "ks_inner_grouped_galois", "automorphism_fused_sum")
+# the hoisted rotations' 8 steps at n = 65536
+HOIST_65536 = tuple(pow(3, s, 2 * 65536) for s in range(1, 9))
 
 
 def n65536_params(log_q: int):
@@ -2153,6 +2192,156 @@ def n65536_cases(gen: torch.Generator, ctx) -> list:
             decrypt_case(gen, ctx.params, 0, 2, label)]
 
 
+def grouped_per_stack(dg, keys, tb, elements, c0) -> torch.Tensor:
+    """ks_inner_grouped's plain result one digit stack at a time, through
+    ks_inner_batch's plain twin: element c*E + e is stack c against key set
+    e, the same residues, with the products of one stack in memory at a
+    time (the grouped twin's [k, kd, C, E, 2, n] products take 60 GB at
+    k = 30, n = 65536)."""
+    return torch.cat([plain_ntt.ks_inner_batch(dg[:, :, c:c + 1], keys, tb, elements,
+                                               c0[:, c]) for c in range(dg.shape[2])], dim=2)
+
+
+def n65536_hoist_cases(gen: torch.Generator, ctx) -> list:
+    """The hoisted rotations' kernels at ctx's n = 65536 shapes: B17 on the
+    compact split, its Inner lane and its Galois lane against one shared
+    digit stack and E = 8 key sets (kd = k), a sum_slots stage (B17's Inner
+    lane against 3 key sets, then B15 on its rows), B18's Galois lane at
+    C x E = 4 x 8 (above k = 3 against ks_inner_batch's twin per stack,
+    grouped_per_stack), and B14 (B = 2, shared c0) and B16 (g = 3), which
+    take any n."""
+    k, n = ctx.k, ctx.n
+    tb, qs = level_tables(ctx, 0, "q"), ctx.ntt_q.primes
+    label = f"n={n}, k={k}"
+    per_stack = k > 3
+    cases = [ks_inner_case(gen, ctx, 0, k, 1, BATCH, False, label),
+             ks_inner_case(gen, ctx, 0, k, 1, BATCH, False, label, lane="galois"),
+             ks_inner_case(gen, ctx, 0, k, 1, 3, False, f"{label}, a sum_slots stage"),
+             ks_inner_case(gen, ctx, 0, k, C_HOIST, BATCH, True,
+                           label + (", plain per stack" if per_stack else ""), lane="galois",
+                           plain=grouped_per_stack if per_stack else None)]
+    hs3 = tuple(pow(g, -1, 2 * n) for g in HOIST_65536[:3])
+    x_sum = residues(gen, qs, 2 * 3, n).view(k, 2, 3, n)
+    c0_sum, base_sum = residues(gen, qs, 1, n)[:, 0], residues(gen, qs, 2, n)
+    cases.append(("automorphism_fused_sum",
+                  f"{label}: x [{k},2,3,{n}], c0 [{k},{n}], base [{k},2,{n}]",
+                  lambda: galois_cuda.automorphism_fused_sum(x_sum, hs3, tb.p, c0_sum, base_sum),
+                  lambda: plain_galois.automorphism_fused_sum(x_sum, hs3, tb.p, c0_sum,
+                                                              base_sum),
+                  automorphism_sum_work(k, 2, hs3, n)))
+    x_g = residues(gen, qs, 2 * 2, n).view(k, 2, 2, n)
+    hs = (pow(3, -1, 2 * n),) * 2
+    c0_g = residues(gen, qs, 1, n)[:, 0]
+    cases.append(("automorphism_fused", f"{label}: x [{k},2,2,{n}], g=3, shared c0",
+                  lambda: galois_cuda.automorphism_fused(x_g, hs, tb.p, c0_g),
+                  lambda: plain_galois.automorphism_fused(x_g, hs, tb.p, c0_g),
+                  automorphism_work(k, 2, hs, 1, n)))
+    x_s = residues(gen, qs, 2, n)
+    cases.append(("automorphism_single", f"{label}: [{k},2,{n}], g=3",
+                  lambda: galois_cuda.automorphism_single(x_s, 3, tb.p),
+                  lambda: plain_galois.automorphism_single(x_s, 3, tb.p),
+                  automorphism_work(k, 2, (pow(3, -1, 2 * n),), 0, n)))
+    return cases
+
+
+def deep_cases(gen: torch.Generator, ctx59) -> list:
+    """The multiply's kernels past 30 primes at n = 65536, log_q = 1770
+    (ctx59: k = 59, kb = 63, kd = 59): B4, B5, B7 (kd = 59) and B8 on the
+    compact split; the base conversion's deep instance past 33 Bsk primes
+    and a floor past 32 q primes, and the Lift lane past 32 source primes:
+    B6 with the digits at [63,3,n] on random residues, every residue p - 1
+    and every digit b_i - 1, at multiply_batch's [63,6,n] and level 1's
+    [60,3,n], and at [68,3,n] (log_q = 1920); the Floor and FloorSK (with
+    digits) lanes from k = 59 and 64 q primes at n = 256 (kb = 62 and 68);
+    the Lift lane from k = 59 at n = 256."""
+    k, n = ctx59.k, ctx59.n
+    label = f"n={n}, k={k}"
+    s = residues(gen, ctx59.ntt_q.primes, 1, n)
+    ct = residues(gen, ctx59.ntt_q.primes, 2, n)
+    dec_args = (ct[:, 0:1], ct[:, 1:2], s, ctx59.ntt_q, ctx59.dec_levels[0])
+    path = [product_case(gen, ctx59, 0, "mul", None, label),
+            bsk_case(gen, ctx59, 0, None, label),
+            keyswitch_case(gen, ctx59, 0, k, None, False, label),
+            ("decrypt_fused", f"{label}: views of [{k},2,{n}], t={ctx59.params.t}",
+             lambda: decrypt_cuda.decrypt_fused(*dec_args),
+             lambda: decrypt_cuda.decrypt_fused_plain(*dec_args), decrypt_work(k, 1, n))]
+    ctx64 = make_context(n65536_params(N65536_DEEPEST), device="cuda")
+    small = [make_context(make_scheme_params(SecurityParams(
+        poly_degree=256, log_q=log_q, lambda_=0, hamming_weight=16)), device="cuda")
+        for log_q in (1770, N65536_DEEPEST)]
+    cases = path + [sk_digits_case(gen, ctx59, *shape) for shape in SK_DIGIT_SHAPES]
+    cases.append(sk_digits_case(gen, ctx64, 0, 3, "random"))
+    for c in small:
+        n, k, kb = c.n, c.k, c.mul_levels[0][1].k
+        tx_q, tx_b = residues(gen, c.ntt_q.primes, 3, n), residues(gen, c.params.bsk_primes, 3, n)
+        fc, sk, dig = c.floor_levels[0], c.sk_levels[0], digit_consts(c)
+        shape = f"n={n}: [{k},3,{n}] + [{kb},3,{n}]"
+        cases += [("fast_floor_fused", f"floor, {shape} -> [{kb},3,{n}]",
+                   lambda a=tx_q, b=tx_b, f=fc: rns_cuda.fast_floor_fused(a, b, f),
+                   lambda a=tx_q, b=tx_b, f=fc: rns.fast_floor(a, b, f),
+                   fast_floor_work(k, kb, 3 * n)),
+                  ("fast_floor_fused", f"floor+SK + digits, {shape} -> [{k},3,{n}]",
+                   lambda a=tx_q, b=tx_b, f=fc, s=sk, d=dig:
+                   rns_cuda.fast_floor_fused(a, b, f, s, d),
+                   lambda a=tx_q, b=tx_b, f=fc, s=sk, d=dig: rns.fast_floor_sk(a, b, f, s, d[0]),
+                   fast_floor_sk_work(k, kb, 3 * n, True))]
+    return cases + [lift_case(gen, small[0], 0, f"k={small[0].k}: ")]
+
+
+def n65536_hoisted_run(fhe: FHE, sk: SecretKey, pk: PublicKey, batch: bool) -> dict:
+    """The hoisted rotations through the facade at an n = 65536 set:
+    rotate_rows_hoisted of 8 steps, and with ``batch`` also
+    rotate_rows_hoisted_batch of C_HOIST ciphertexts and sum_slots; each
+    rotation decodes to its rotated row, element [c][e] of the batch equals
+    the single hoisted call, and sum_slots decodes the sum in every slot."""
+    n, label = fhe.ctx.n, f"n={fhe.ctx.n}, k={fhe.ctx.k}"
+    dec = lambda c: [int(v) for v in fhe.decode(fhe.decrypt(c, sk))]
+    gk = fhe.galoiskey_gen(sk, elements=HOIST_65536)
+    ct = fhe.encrypt(fhe.encode(VALS_H), pk)
+    outs = fhe.rotate_rows_hoisted(ct, STEPS, gk)
+    for s, out in zip(STEPS, outs):
+        check(dec(out)[:n // 2] == rotated(VALS_H, s, n),
+              f"{label} rotate_rows_hoisted step {s} decoded wrong")
+    run = dict(gk=gk, ct=ct, outs=outs)
+    if batch:
+        vals_c = [[v + 100 * c for v in VALS_H] for c in range(C_HOIST)]
+        cts = fhe.encrypt_batch([fhe.encode(v) for v in vals_c], pk)
+        outs_b = fhe.rotate_rows_hoisted_batch(cts, STEPS, gk)
+        for c, row in enumerate(outs_b):
+            single = fhe.rotate_rows_hoisted(cts[c], STEPS, gk)
+            check(all(torch.equal(a.data, b.data) for a, b in zip(row, single))
+                  and dec(row[-1])[:n // 2] == rotated(vals_c[c], STEPS[-1], n),
+                  f"{label} rotate_rows_hoisted_batch ciphertext {c} differs or decodes wrong")
+        gk_ss = fhe.galoiskey_gen(sk, elements=fhe.sum_slots_elements())
+        total = fhe.sum_slots(ct, gk_ss)
+        got = set(dec(total))
+        check(got == {sum(VALS_H)}, f"{label} sum_slots decoded {sorted(got)[:4]}, expected "
+              f"every slot {sum(VALS_H)}")
+        run.update(cts=cts, outs_b=outs_b, gk_ss=gk_ss, total=total)
+    return run
+
+
+def check_hoisted_vs_cpu(fhe: FHE, run: dict) -> None:
+    """The card's hoisted calls of n65536_hoisted_run equal the CPU plain
+    path on the same ciphertexts and keys."""
+    cpu = make_context(fhe.ctx.params, device="cpu")
+    label = f"n={fhe.ctx.n}, k={fhe.ctx.k}"
+    to_cpu = lambda c: c.replace(data=c.data.cpu())
+    gk = GaloisKeys(data={g: v.cpu() for g, v in run["gk"].data.items()})
+    check(same_cts(run["outs"], bfv.apply_galois_hoisted(cpu, to_cpu(run["ct"]), HOIST_65536,
+                                                         gk)),
+          f"{label} rotate_rows_hoisted: card != CPU plain path")
+    if "outs_b" in run:
+        plain_b = bfv.apply_galois_hoisted_batch(cpu, [to_cpu(c) for c in run["cts"]],
+                                                 HOIST_65536, gk)
+        check(all(same_cts(a, b) for a, b in zip(run["outs_b"], plain_b)),
+              f"{label} rotate_rows_hoisted_batch: card != CPU plain path")
+        cpu_fhe = FHE(fhe.ctx.params, device="cpu")
+        gk_ss = GaloisKeys(data={g: v.cpu() for g, v in run["gk_ss"].data.items()})
+        check(same_cts([run["total"]], [cpu_fhe.sum_slots(to_cpu(run["ct"]), gk_ss)]),
+              f"{label} sum_slots: card != CPU plain path")
+
+
 def n65536_run(fhe: FHE) -> dict:
     """The BFV path through the facade at one n = 65536 set: keygen, relin
     and Galois (3) keys, encrypt, multiply, multiply_batch at B = 2,
@@ -2181,32 +2370,48 @@ def n65536_run(fhe: FHE) -> dict:
 
 
 def phase_n65536(gen: torch.Generator) -> dict:
-    """The ring n = 65536 on the card at both sets of N65536_LOG_Q: each
-    kernel's compact form against its plain twin (n65536_cases), then, with
-    the counts zeroed, the BFV path through the facade at both sets
-    (n65536_run), every kernel of N65536_KERNELS launched; the card == the
-    CPU plain path from the same keys and noise for encrypt_from_noise, the
-    multiply, decrypt and rotate_rows, and for BGV's multiply, at both
-    sets; device and wall ms of the multiply, relinearize, rotate_rows,
-    encrypt and decrypt.  Returns the path's launches."""
+    """The ring n = 65536 on the card at the sets of N65536_LOG_Q: each
+    kernel's compact form against its plain twin at k = 3 and 30
+    (n65536_cases), B17/B18, B14, B15 and B16 at k = 3 and 30
+    (n65536_hoist_cases), and at k = 59 the multiply's kernels, the deep
+    base conversion and the Lift lane past 32 primes (deep_cases); then,
+    with the counts zeroed, the BFV path through the facade at every set
+    (n65536_run), with the hoisted rotations, their batch and sum_slots at
+    k = 3 and the hoisted rotations at k = 30 (n65536_hoisted_run), every
+    kernel of N65536_KERNELS launched; the card == the CPU plain path from
+    the same keys and noise for encrypt_from_noise, the multiply, decrypt
+    and rotate_rows at every set, for BGV's multiply at k = 3 and 30, and
+    for the hoisted calls; device and wall ms of the multiply, relinearize,
+    rotate_rows, encrypt, decrypt and the hoisted calls; the phase's seconds
+    in its kernel cases, the path on the card and the CPU plain path's
+    checks.  Returns the path's launches."""
     t0 = time.perf_counter()
     fhes = [FHE(n65536_params(log_q), seed=11, device="cuda") for log_q in N65536_LOG_Q]
     counts = [(f.ctx.k, f.ctx.mul_tables[1].k, f.ctx.params.t) for f in fhes]
-    check(counts == [(3, 5, 786433), (30, 33, 786433)], f"n=65536: k, kb, t {counts}")
-    for f in fhes:
-        run_cases(n65536_cases(gen, f.ctx), "phase n65536 kernel")
+    check(counts == [(3, 5, 786433), (30, 33, 786433), (59, 63, 786433)],
+          f"n=65536: k, kb, t {counts}")
+    for f in fhes[:2]:
+        run_cases(n65536_cases(gen, f.ctx) + n65536_hoist_cases(gen, f.ctx),
+                  "phase n65536 kernel")
+    run_cases(deep_cases(gen, fhes[2].ctx), "phase n65536 kernel")
+    t_cases = time.perf_counter() - t0
     reset_counts()
     runs = [n65536_run(f) for f in fhes]
+    hoisted = [n65536_hoisted_run(f, r["sk"], r["pk"], batch=f.ctx.k == 3)
+               for f, r in zip(fhes[:2], runs)]
     torch.cuda.synchronize()
     launches = read_counts()
+    t_path, t_cpu = time.perf_counter() - t0 - t_cases, 0.0
     print("phase n65536 launches", json.dumps({k: v for k, v in launches.items() if v}))
     for name in N65536_KERNELS:
         check(launches[name] > 0, f"{name} was never launched on the n=65536 path")
     times = {}
     for fhe, r in zip(fhes, runs):
-        k = fhe.ctx.k
+        k, t = fhe.ctx.k, time.perf_counter()
         check_card_vs_cpu(fhe, r["pk"], r["sk"], r["rlk"], r["gk"], f"n=65536, k={k}")
-        check_bgv_multiply(fhe.ctx.params, f"n=65536, k={k}")
+        if k <= 30:
+            check_bgv_multiply(fhe.ctx.params, f"n=65536, k={k}")
+        t_cpu += time.perf_counter() - t
         pt = fhe.encode(VALS_32K[0])
         for op, fn in (("multiply_relin", lambda: fhe.multiply(r["ca"], r["cb"], r["rlk"])),
                        ("relinearize", lambda: fhe.relinearize(r["raw"], r["rlk"])),
@@ -2214,13 +2419,32 @@ def phase_n65536(gen: torch.Generator) -> dict:
                        ("encrypt", lambda: fhe.encrypt(pt, r["pk"])),
                        ("decrypt", lambda: fhe.decrypt(r["prod"], r["sk"]))):
             times[f"{op}_ms_n65536_k{k}"] = {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
-    print("phase n65536 check: n=65536, t=786433, log_q=90 (k=3, kb=5, kd=3) and log_q=900 "
-          "(k=30, kb=33, kd=30): B1, B2, B3/B13, B4/B11, B5, B7/B12 (classic, Galois, "
-          "prereduced) and B8 on the compact split == their plain twins; keys, encrypt, "
-          f"multiply, multiply_batch (B=2), relinearize and BGV's multiply decoded "
-          f"{PRODUCT_32K}, rotate_rows by 1 decoded; card == CPU plain path for "
-          "encrypt_from_noise, multiply, decrypt, rotate_rows and BGV's multiply at both sets")
-    print("phase n65536", json.dumps({"card": card_name(), **times,
+    for fhe, h in zip(fhes, hoisted):
+        k, t = fhe.ctx.k, time.perf_counter()
+        check_hoisted_vs_cpu(fhe, h)
+        t_cpu += time.perf_counter() - t
+        ops = {"rotate_rows_hoisted_8": lambda: fhe.rotate_rows_hoisted(h["ct"], STEPS, h["gk"])}
+        if "cts" in h:
+            ops[f"rotate_rows_hoisted_batch_{C_HOIST}x8"] = \
+                lambda: fhe.rotate_rows_hoisted_batch(h["cts"], STEPS, h["gk"])
+            ops["sum_slots"] = lambda: fhe.sum_slots(h["ct"], h["gk_ss"])
+        for op, fn in ops.items():
+            times[f"{op}_ms_n65536_k{k}"] = {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
+    print("phase n65536 check: n=65536, t=786433, log_q=90 (k=3, kb=5, kd=3), 900 (k=30, "
+          "kb=33, kd=30) and 1770 (k=59, kb=63, kd=59): B1, B2, B3/B13, B4/B11, B5, B7/B12 "
+          "(classic, Galois, prereduced) and B8 on the compact split == their plain twins "
+          "at k=3 and 30, B4, B5, B7 and B8 at k=59; "
+          "B17 (Inner and Galois lanes, E=8), a sum_slots stage, B18's Galois lane (4x8), "
+          "B14, B15 and B16 at k=3 and 30 == their plain twins; B6 at kb=63 and 68 and the "
+          "floor lanes from k=59 and 64 (the deep instance) and the Lift lane from k=59 == "
+          "their plain twins; keys, encrypt, "
+          f"multiply, multiply_batch (B=2), relinearize decoded {PRODUCT_32K}, rotate_rows "
+          "by 1 decoded at every set, BGV's multiply at k=3 and 30; rotate_rows_hoisted "
+          "(8 steps) at k=3 and 30, rotate_rows_hoisted_batch (4x8) and sum_slots at k=3 "
+          "decoded; card == CPU plain path for encrypt_from_noise, multiply, decrypt, "
+          "rotate_rows at every set, BGV's multiply, and the hoisted calls")
+    print("phase n65536", json.dumps({"card": card_name(), **times, "cases_seconds": t_cases,
+                                      "path_seconds": t_path, "cpu_check_seconds": t_cpu,
                                       "seconds": time.perf_counter() - t0}))
     return launches
 

@@ -28,12 +28,11 @@
 namespace fhe {
 
 constexpr uint32_t kMask16 = 0xFFFFu;
-// SmMRqLift::one loads the source rows in groups of kLiftGroup and takes at
-// most kMaxLiftK source primes (ops/ntt_cuda.py: LIFT_MAX_K); sm_mrq_step
-// reduces at every step, so nothing but the loads depends on the group.
+// SmMRqLift::one loads the source rows in groups of kLiftGroup, in a loop
+// over the groups at run time, so it takes any number of source primes;
+// sm_mrq_step reduces at every step, so nothing but the loads depends on the
+// group.
 constexpr int kLiftGroup = 16;
-constexpr int kMaxLiftK = 32;
-static_assert(kMaxLiftK % kLiftGroup == 0, "the lift loads whole groups");
 
 // sm_mrq_step folds in the residue x_i of source prime q_i: the digit y_i
 // (w, w_sh = [m~ (q/q_i)^-1]_{q_i} and its Shoup companion), conv += y_i *
@@ -96,14 +95,12 @@ struct SmMRqLift {
         imt(__ldg(o.inv_mt_c + j)), imt_sh(__ldg(o.inv_mt_c_sh + j)) {}
 
   // The lift of the one coefficient whose residue mod q_i is src[i * sp],
-  // i < k <= kMaxLiftK, with the source loads of a group of kLiftGroup
-  // primes in flight at once.
+  // i < k, with the source loads of a group of kLiftGroup primes in flight
+  // at once.
   __device__ __forceinline__ uint32_t one(const uint32_t* __restrict__ src, long long sp) const {
     uint32_t conv = 0, lane = 0;
-#pragma unroll
-    for (int g = 0; g < kMaxLiftK / kLiftGroup; ++g) {
-      const int i0 = g * kLiftGroup;
-      if (g > 0 && i0 >= op.k) break;
+#pragma unroll 1
+    for (int i0 = 0; i0 < op.k; i0 += kLiftGroup) {
       uint32_t x[kLiftGroup];
 #pragma unroll
       for (int i = 0; i < kLiftGroup; ++i)

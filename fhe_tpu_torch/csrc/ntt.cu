@@ -49,8 +49,8 @@
 // two padded rows each, so n = 16384 fits (135 KB), where the old four rows
 // per block (256 KB) did not; at n = 32768, where two padded rows take
 // 264 KB, a CTA keeps only its half of the transformed row (HALF, 198 KB);
-// at n = 65536, where one padded row takes 264 KB, every kernel here but
-// ks_inner runs on modmath.cuh's compact split (each CTA of a pair holds
+// at n = 65536, where one padded row takes 264 KB, every kernel here runs
+// on modmath.cuh's compact split (each CTA of a pair holds
 // only its half of the row, 132 KB), and what a CTA kept beside its working
 // row (B4's transformed half row, B7's partials) lies in global scratch.
 // The two kernels keep two bodies: with one
@@ -829,7 +829,15 @@ __device__ __forceinline__ void gathered_products(
 // apart, h odd: 32 distinct banks); that row does not fit beside the
 // working row at n = 32768, where GaloisInPlace reads c0 in place, each
 // word a scattered L2 read (at n = 8192 1.4 us slower than staged, PERF.md).
-template <InnerLane LANE>
+//
+// COMPACT (n = 65536, where one padded row exceeds a block's shared memory):
+// the working row is the compact split's padded half row (modmath.cuh), the
+// CTA's own positions [h n/2, (h+1) n/2) from `first` on; the inverse's first
+// pass forms exactly those positions' sums, and its last reads the peer's
+// half through distributed shared memory.  The Galois lane's gather reads
+// its digit and key runs from global memory in every form, so only its slot
+// moves with the row; c0 is read in place (GaloisInPlace).
+template <InnerLane LANE, bool COMPACT>
 __global__ void __launch_bounds__(512)
 ks_inner_kernel(const uint32_t* __restrict__ dg, long long dg_sp, long long dg_sj,
                 long long dg_sb, int dg_div, const uint32_t* __restrict__ keys,
@@ -841,6 +849,7 @@ ks_inner_kernel(const uint32_t* __restrict__ dg, long long dg_sp, long long dg_s
                 GaloisOperands go) {
   constexpr bool galois = LANE != InnerLane::Inner;
   constexpr bool staged = LANE == InnerLane::Galois;
+  static_assert(!(staged && COMPACT), "the compact split reads c0 in place");
   extern __shared__ uint32_t a[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
@@ -859,13 +868,14 @@ ks_inner_kernel(const uint32_t* __restrict__ dg, long long dg_sp, long long dg_s
   const fhe::RowSplit<kRowSplit> split{
       {cluster.map_shared_rank(a, 0), cluster.map_shared_rank(a, 1)},
       static_cast<int>(cluster.block_rank())};
+  const int first = COMPACT ? split.h * (n / kRowSplit) : 0;   // a[]'s first position
   const bool add_c0 = galois && c == 0;
   const uint32_t* c0 = galois ? go.c0 + i * go.c0_sp + (b / dg_div) * go.c0_ss : nullptr;
   uint32_t* c0s = a + stage_offset(fhe::padded(n));
   // copied while the first passes run; the cluster barrier before the last
   // pass publishes it
   if (staged && add_c0) stage_row(c0s, c0, n, vec);
-  fhe::inv_ntt_regs_split(
+  fhe::inv_ntt_regs_split<kRowSplit, COMPACT>(
       a, split,
       [&] {
         if (staged && add_c0) stage_wait();
@@ -877,7 +887,7 @@ ks_inner_kernel(const uint32_t* __restrict__ dg, long long dg_sp, long long dg_s
         constexpr int G = sizeof(v) / sizeof(v[0]);
         if constexpr (galois) {
           gathered_products(v, base, logn, dgb, dg_sj, ke, key_sj, kd, __ldg(go.gs + e), vec,
-                            pi, mui, a + fhe::padded_index(base));
+                            pi, mui, a + fhe::padded_index(base - first));
         } else {
 #pragma unroll
           for (int g = 0; g < G; ++g) v[g] = 0;
@@ -930,7 +940,7 @@ cudaError_t launch_tensor_product(const void* x, const void* y, long long s_p, l
   if (logn <= fhe::kRegLog || smem < 4 * fhe::product_words(FORM, n)
       || (FORM == 2) != (scratch != nullptr)
       || (LANE == ProductLane::Lift
-          && (lo.k < 1 || lo.k > fhe::kMaxLiftK || k <= lo.k || tq.p == nullptr)))
+          && (lo.k < 1 || k <= lo.k || tq.p == nullptr)))
     return cudaErrorInvalidValue;
   static std::atomic<size_t> granted[fhe::kMaxDevices];
   static std::atomic<size_t> placed[fhe::kMaxDevices];
@@ -987,7 +997,7 @@ cudaError_t launch_keyswitch(const void* d, long long d_sp, long long d_sj, long
   return cudaGetLastError();
 }
 
-template <InnerLane LANE>
+template <InnerLane LANE, bool COMPACT>
 cudaError_t launch_ks_inner(const void* dg, long long dg_sp, long long dg_sj,
                             long long dg_sb, int dg_div, const void* keys, long long key_sp,
                             long long key_sj, long long key_se, int key_mod, void* out,
@@ -998,12 +1008,13 @@ cudaError_t launch_ks_inner(const void* dg, long long dg_sp, long long dg_sj,
   constexpr bool galois = LANE != InnerLane::Inner;
   const int n = 1 << logn;
   if (logn <= fhe::kRegLog || kd < 1
-      || smem < lane_smem(fhe::padded(n), n, LANE == InnerLane::Galois)
+      || smem < lane_smem(fhe::padded(COMPACT ? n / kRowSplit : n), n,
+                          LANE == InnerLane::Galois)
       || (galois && (go.gs == nullptr || go.hs == nullptr || go.c0 == nullptr)))
     return cudaErrorInvalidValue;
   static std::atomic<size_t> granted[fhe::kMaxDevices];
   static std::atomic<size_t> placed[fhe::kMaxDevices];
-  const void* kernel = reinterpret_cast<const void*>(ks_inner_kernel<LANE>);
+  const void* kernel = reinterpret_cast<const void*>(ks_inner_kernel<LANE, COMPACT>);
   cudaError_t err = fhe::allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
@@ -1012,7 +1023,7 @@ cudaError_t launch_ks_inner(const void* dg, long long dg_sp, long long dg_sj,
   err = fhe::check_cluster(kernel, cfg, placed);
   if (err != cudaSuccess) return err;
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  err = cudaLaunchKernelEx(&cfg, ks_inner_kernel<LANE>, c(dg), dg_sp, dg_sj, dg_sb, dg_div,
+  err = cudaLaunchKernelEx(&cfg, ks_inner_kernel<LANE, COMPACT>, c(dg), dg_sp, dg_sj, dg_sb, dg_div,
                            c(keys), key_sp, key_sj, key_se, key_mod,
                            static_cast<uint32_t*>(out), c(p), c(mu), c(ipsi), c(ipsi_sh),
                            c(n_inv), c(n_inv_sh), kd, logn, vec, go);
@@ -1039,7 +1050,7 @@ extern "C" {
 // least the padded rows the kernel uses, and keyswitch_fused's digit pairs.
 // `vec` (ntt_inverse, ks_inner) says that every input row starts 16-byte
 // aligned, so the first pass may load it in 16-byte words.  `compact`
-// (ntt_forward, ntt_inverse, mul_by_ntt_operand) picks the compact split:
+// (ntt_forward, ntt_inverse, mul_by_ntt_operand, ks_inner) picks the compact split:
 // a padded half row per CTA (n = 65536).
 int fhe_ntt_forward(const void* x, void* y, const void* p, const void* psi,
                     const void* psi_sh, int k, int batch, int logn, int threads, int smem,
@@ -1186,19 +1197,24 @@ int fhe_keyswitch(const void* d, long long d_sp, long long d_sj, long long d_sb,
 // ks_inner's lanes: 0 Inner, 1 Galois, 2 GaloisInPlace (gs, hs: the key
 // sets' Galois elements and their inverses mod 2n; c0 of digit stack s for
 // prime i at c0 + i * c0_sp + s * c0_ss; lane 1 stages it behind the padded
-// row in smem).
+// row in smem).  `compact` picks the compact split (n = 65536: a padded half
+// row per CTA), which lanes 0 and 2 take.
 int fhe_ks_inner(const void* dg, long long dg_sp, long long dg_sj, long long dg_sb,
                  int dg_div, const void* keys, long long key_sp, long long key_sj,
                  long long key_se, int key_mod, void* out, const void* p, const void* mu,
                  const void* ipsi, const void* ipsi_sh, const void* n_inv,
                  const void* n_inv_sh, int k, int kd, int batch, int logn, int threads,
                  int smem, int vec, int lane, const void* gs, const void* hs,
-                 const void* c0, long long c0_sp, long long c0_ss, void* stream) {
+                 const void* c0, long long c0_sp, long long c0_ss, int compact,
+                 void* stream) {
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
   const GaloisOperands go{c(gs), c(hs), c(c0), c0_sp, c0_ss};
-  auto* launch = lane == 2   ? &launch_ks_inner<InnerLane::GaloisInPlace>
-                 : lane == 1 ? &launch_ks_inner<InnerLane::Galois>
-                             : &launch_ks_inner<InnerLane::Inner>;
+  if (compact && lane == 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto* launch = lane == 2   ? compact ? &launch_ks_inner<InnerLane::GaloisInPlace, true>
+                                       : &launch_ks_inner<InnerLane::GaloisInPlace, false>
+                 : lane == 1 ? &launch_ks_inner<InnerLane::Galois, false>
+                 : compact   ? &launch_ks_inner<InnerLane::Inner, true>
+                             : &launch_ks_inner<InnerLane::Inner, false>;
   return static_cast<int>(launch(dg, dg_sp, dg_sj, dg_sb, dg_div, keys, key_sp, key_sj,
                                  key_se, key_mod, out, p, mu, ipsi, ipsi_sh, n_inv, n_inv_sh,
                                  k, kd, batch, logn, threads, smem, vec, go,

@@ -44,7 +44,10 @@
 // KB = 2 .. 17 serve every base up to k = 15; one wide instance, with room
 // for 33 Bsk primes and the actual kb given at run time, takes the larger
 // bases up to the top of the JAX package's security table (n = 32768,
-// log_q = 881: k = 30, kb = 33).  The lanes are
+// log_q = 881: k = 30, kb = 33); past it a deep instance,
+// base_conv_deep_kernel, keeps a thread's digits in its own row of shared
+// memory and takes k and kb at run time up to kDeepMaxK and kDeepMaxKb
+// (log_q = 1920 at n = 65536 is k = 64, kb = 68).  The lanes are
 // template parameters: SK (Bsk -> q; given the relinearization's inv_qhat it
 // also stores the gadget digits [c2_j * (q/q_j)^-1]_{q_j} of the c2 rows
 // beside them, which spares the multiply a chain of elementwise launches),
@@ -311,13 +314,18 @@ enum Lane : int { kLaneSK = 0, kLaneFloor = 1, kLaneFloorSK = 2 };
 // most kMaxFloorK q primes (one group of loads).  The wide instance (WIDE,
 // one word per thread) has room for kWideKb Bsk primes and takes kb at run
 // time; its floor loads the q rows in groups of kFold, up to kWideFloorK.
+// Past either, the deep instance takes up to kDeepMaxK q primes and
+// kDeepMaxKb Bsk primes (DeepSmem at these counts fits a block).
 // ops/rns_cuda.py (CONV_KB, CONV_MAX_FLOOR_K, CONV_FIXED_KB,
-// CONV_FIXED_FLOOR_K) picks the instance and checks a call against them.
+// CONV_FIXED_FLOOR_K, CONV_DEEP_MAX_K, CONV_DEEP_MAX_KB) picks the instance
+// and checks a call against them.
 constexpr int kMinKb = 2;
 constexpr int kMaxKb = 17;
 constexpr int kMaxFloorK = 16;
 constexpr int kWideKb = 33;
 constexpr int kWideFloorK = 32;
+constexpr int kDeepMaxK = 108;
+constexpr int kDeepMaxKb = 112;
 constexpr int kFold = 16;
 static_assert(kMaxKb - 1 <= kFold && kMaxFloorK == kFold && kWideFloorK % kFold == 0,
               "the fixed instances' sums must not fold; the wide floor loads whole groups");
@@ -631,6 +639,228 @@ base_conv_kernel(const uint32_t* __restrict__ src, const uint32_t* __restrict__ 
   }
 }
 
+// The deep instance of the base-conversion kernel's lanes, for the bases
+// past the wide instance (kb > kWideKb, or a floor from more than
+// kWideFloorK q primes): k and kb at run time, up to kDeepMaxK and
+// kDeepMaxKb.  A thread owns one word of every row, as the wide instance,
+// but keeps its digits in its own row of shared memory, not in registers
+// (at kb = 68 the register form would need 135 words of digits and 136 of
+// floor sums a thread): the floor's digits of t*x in q (lanes Floor and
+// FloorSK) and the aux digits (SK, FloorSK).  Every sum over them is a
+// wide_dot against a staged table row, a 16-byte word of each at a time.
+constexpr bool conv_deep(int lane, int kb, int k) {
+  return kb > kWideKb || (lane != kLaneSK && k > kWideFloorK);
+}
+
+// Threads per CTA of the deep instance (ops/rns_cuda.py: CONV_DEEP_THREADS),
+// and the shared memory a block may have on sm_90
+constexpr int kDeepThreads = 128;
+constexpr size_t kMaxSmem = 227 * 1024;
+
+// The deep instance's row stride for `count` words: the least number at
+// least count that is 4 mod 8, so a row is read in 16-byte words and the
+// rows of 8 consecutive threads start in 8 distinct quarters of the banks
+// (a quarter warp's 16-byte loads without a conflict).
+__host__ __device__ constexpr int deep_stride(int count) { return (count + 3) / 8 * 8 + 4; }
+
+// Where the deep instance's staged constants and digit rows lie in shared
+// memory: ConvSmem's quads, then its pairs (rounded up to whole 16-byte
+// words), then words: the [k, l] and [kb, k] tables (phat_q, f_phat) and
+// phat_sk with rows of deep_stride words, zero past the last term; aux and
+// fq; then from a 16-byte boundary each thread's row of `row` words: its
+// floor digits (stride_k words) and its aux digits.
+struct DeepSmem {
+  int stride_l = 0, stride_k = 0, row = 0;
+  int qw = 0, cw = 0, quads = 0;
+  int ainv = 0, bq = 0, w = 0, finv = 0, iq = 0, pairs = 0;
+  int phq = 0, psk = 0, fph = 0, aux = 0, fq = 0, words = 0;
+  __host__ __device__ constexpr DeepSmem(int lane, int k, int kb, bool digits) {
+    const bool sk = lane != kLaneFloor, fl = lane != kLaneSK;
+    const int l = kb - 1;
+    stride_l = deep_stride(l);
+    stride_k = deep_stride(k);
+    row = deep_stride((fl ? stride_k : 0) + (sk ? stride_l : 0));
+    int u = 0;
+    qw = u;   u += sk ? k + 1 : 0;      // the k q primes, then m_sk
+    cw = u;   u += fl ? kb : 0;
+    quads = u;
+    int p = 0;
+    ainv = p; p += sk ? l : 0;
+    bq = p;   p += sk ? k : 0;
+    w = p;    p += sk && digits ? k : 0;
+    finv = p; p += fl ? k : 0;
+    iq = p;   p += fl ? kb : 0;
+    pairs = (p + 1) & ~1;
+    int o = 0;
+    phq = o;  o += sk ? k * stride_l : 0;
+    psk = o;  o += sk ? stride_l : 0;
+    fph = o;  o += fl ? kb * stride_k : 0;
+    aux = o;  o += sk ? l : 0;
+    fq = o;   o += fl ? k : 0;
+    words = (o + 3) & ~3;
+  }
+  __host__ __device__ constexpr size_t bytes() const {
+    return 16 * static_cast<size_t>(quads) + 8 * static_cast<size_t>(pairs)
+           + 4 * (static_cast<size_t>(words) + static_cast<size_t>(kDeepThreads) * row);
+  }
+};
+// FloorSK with the digits at the caps is the largest layout of all
+static_assert(DeepSmem(kLaneFloorSK, kDeepMaxK, kDeepMaxKb, true).bytes() <= kMaxSmem,
+              "the deep instance must fit a block at its caps");
+
+// A row-major [rows, cols] table into rows of `stride` words, zero from
+// column cols on.
+__device__ __forceinline__ void stage_rows(uint32_t* dst, const uint32_t* v, int rows, int cols,
+                                           int stride) {
+  for (int t = threadIdx.x; t < rows * stride; t += blockDim.x) {
+    const int r = t / stride, c = t - r * stride;
+    dst[t] = c < cols ? v[r * cols + c] : 0u;
+  }
+}
+
+// sum_i y[i] * w[i] mod pw.x over i < count: y and w 16-byte aligned rows,
+// w zero from count on to the next multiple of 4.  A 16-byte word of each
+// at a time into four unreduced 64-bit sums of a term each, which fold
+// into one with reduce_wide after every kFold terms while more follow: the
+// four together hold a value below 2^30 and at most 16 products below 2^60.
+__device__ __forceinline__ uint32_t wide_dot(const uint32_t* y, const uint32_t* w, int count,
+                                             uint4 pw) {
+  uint64_t s0 = 0, s1 = 0, s2 = 0, s3 = 0;
+#pragma unroll 4
+  for (int i = 0; i < count; i += 4) {
+    if (i > 0 && i % kFold == 0) {
+      s0 = fhe::reduce_wide(s0 + s1 + s2 + s3, pw);
+      s1 = s2 = s3 = 0;
+    }
+    const uint4 a = *reinterpret_cast<const uint4*>(y + i);
+    const uint4 b = *reinterpret_cast<const uint4*>(w + i);
+    s0 += static_cast<uint64_t>(a.x) * b.x;
+    s1 += static_cast<uint64_t>(a.y) * b.y;
+    s2 += static_cast<uint64_t>(a.z) * b.z;
+    s3 += static_cast<uint64_t>(a.w) * b.w;
+  }
+  return fhe::reduce_wide(s0 + s1 + s2 + s3, pw);
+}
+
+// f(i, src[i * count + e]) for each of `rows` rows, the loads of a group
+// of 8 in flight at once.
+template <class F>
+__device__ __forceinline__ void each_row(const uint32_t* __restrict__ src, int rows, int count,
+                                         int e, F f) {
+  constexpr int kGroup = 8;
+  for (int i0 = 0; i0 < rows; i0 += kGroup) {
+    uint32_t x[kGroup];
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i)
+      if (i0 + i < rows) x[i] = __ldg(src + (i0 + i) * count + e);
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i)
+      if (i0 + i < rows) f(i0 + i, x[i]);
+  }
+}
+
+// The lanes as base_conv_kernel computes them, with one word per thread,
+// e = blockIdx.x * blockDim.x + threadIdx.x, and the digits in shared memory.
+template <int LaneT>
+__global__ void __launch_bounds__(256)
+base_conv_deep_kernel(const uint32_t* __restrict__ src, const uint32_t* __restrict__ txb,
+                      uint32_t* __restrict__ out, uint32_t* __restrict__ dig,
+                      const ConvConsts cc, int count, int dstart, int) {
+  constexpr bool kSK = LaneT != kLaneFloor;
+  constexpr bool kFloor = LaneT != kLaneSK;
+  extern __shared__ uint4 conv_quads[];
+  const int k = cc.k, kb = cc.kb, l = kb - 1;
+  const bool digits = kSK && dig != nullptr;
+  const DeepSmem lay(LaneT, k, kb, digits);
+  uint2* pairs = reinterpret_cast<uint2*>(conv_quads + lay.quads);
+  uint32_t* words = reinterpret_cast<uint32_t*>(pairs + lay.pairs);
+  if constexpr (kSK) {
+    stage_quads(conv_quads + lay.qw, cc.q, cc.q_wide, k);
+    if (threadIdx.x == 0)
+      conv_quads[lay.qw + k] = make_uint4(cc.m_sk, cc.msk_wide[0], cc.msk_wide[1],
+                                          cc.msk_wide[2]);
+    stage_pairs(pairs + lay.ainv, cc.aux_inv_phat, cc.aux_inv_phat_sh, l);
+    stage_pairs(pairs + lay.bq, cc.b_mod_q, cc.b_mod_q_sh, k);
+    if (digits) stage_pairs(pairs + lay.w, cc.w, cc.w_sh, k);
+    stage_rows(words + lay.phq, cc.phat_q, k, l, lay.stride_l);
+    stage_rows(words + lay.psk, cc.phat_sk, 1, l, lay.stride_l);
+    stage_words(words + lay.aux, cc.aux, l);
+  }
+  if constexpr (kFloor) {
+    stage_quads(conv_quads + lay.cw, cc.cp, cc.c_wide, kb);
+    stage_pairs(pairs + lay.finv, cc.f_inv_phat, cc.f_inv_phat_sh, k);
+    stage_pairs(pairs + lay.iq, cc.inv_q_c, cc.inv_q_c_sh, kb);
+    stage_rows(words + lay.fph, cc.f_phat, kb, k, lay.stride_k);
+    stage_words(words + lay.fq, cc.fq, k);
+  }
+  __syncthreads();
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= count) return;
+  uint32_t* fd = words + lay.words + threadIdx.x * lay.row;   // the floor's digits
+  uint32_t* yd = fd + (kFloor ? lay.stride_k : 0);             // the aux digits
+  const uint2* ainv = pairs + lay.ainv;
+  const uint32_t* aux = words + lay.aux;
+  [[maybe_unused]] uint32_t xm = 0;                            // the m_sk residue
+  if constexpr (kFloor) {
+    // 1a. the digits of t*x in q, then FastFloor into each Bsk prime c
+    const uint4* cw = conv_quads + lay.cw;
+    const uint2* finv = pairs + lay.finv;
+    const uint2* iq = pairs + lay.iq;
+    const uint32_t* fq = words + lay.fq;
+    each_row(src, k, count, e, [&](int i, uint32_t x) {
+      fd[i] = fhe::mul_shoup(x, finv[i].x, finv[i].y, fq[i]);
+    });
+    for (int c = 0; c < kb; ++c) {
+      const uint32_t xc = __ldg(txb + c * count + e);
+      const uint4 pw = cw[c];
+      const uint32_t conv = wide_dot(fd, words + lay.fph + c * lay.stride_k, k, pw);
+      const uint32_t fl = fhe::mul_shoup(fhe::sub_mod(xc, conv, pw.x), iq[c].x, iq[c].y, pw.x);
+      if constexpr (LaneT == kLaneFloor) {
+        out[c * count + e] = fl;
+      } else if (c < l) {
+        // 1b. the floored residue goes straight into its aux digit
+        yd[c] = fhe::mul_shoup(fl, ainv[c].x, ainv[c].y, aux[c]);
+      } else {
+        xm = fl;
+      }
+    }
+    if constexpr (LaneT == kLaneFloor) return;
+  } else {
+    // 1. the aux digits and the m_sk residue (row l)
+    each_row(src, kb, count, e, [&](int i, uint32_t x) {
+      if (i < l)
+        yd[i] = fhe::mul_shoup(x, ainv[i].x, ainv[i].y, aux[i]);
+      else
+        xm = x;
+    });
+  }
+  if constexpr (kSK) {
+    // 2. alpha = (conv_sk - x_msk) * B^-1 mod m_sk
+    const uint4* qw = conv_quads + lay.qw;
+    const uint4 mw = qw[k];
+    const uint32_t msk = mw.x;
+    const uint32_t alpha = fhe::mul_shoup(
+        fhe::sub_mod(wide_dot(yd, words + lay.psk, l, mw), xm, msk), cc.inv_b, cc.inv_b_sh, msk);
+    // 3. every destination prime q_j from the same digits: the conversion,
+    // the centred correction alpha * B, and the relinearization digit
+    const uint2* bq = pairs + lay.bq;
+    const uint2* wd = pairs + lay.w;
+    const bool dig_word = digits && e >= dstart;
+    const int dcount = count - dstart;
+    for (int j = 0; j < k; ++j) {
+      const uint4 pw = qw[j];
+      const uint32_t qj = pw.x;
+      const uint2 b = bq[j];
+      // centred alpha mod q_j: alpha itself, or q_j - (m_sk - alpha)
+      const uint32_t aq = alpha <= (msk >> 1) ? alpha : qj - (msk - alpha);
+      uint32_t o = fhe::sub_mod(wide_dot(yd, words + lay.phq + j * lay.stride_l, l, pw),
+                                fhe::mul_shoup(aq, b.x, b.y, qj), qj);
+      out[j * count + e] = o;
+      if (dig_word) dig[j * dcount + (e - dstart)] = fhe::mul_shoup(o, wd[j].x, wd[j].y, qj);
+    }
+  }
+}
+
 // The fixed instance for kb Bsk primes, or null outside [kMinKb, kMaxKb].
 template <int LaneT, int V, int KB = kMinKb>
 const void* fixed_conv_kernel(int kb) {
@@ -644,7 +874,8 @@ const void* fixed_conv_kernel(int kb) {
 
 // The instance for kb Bsk primes and k q primes: the fixed one where kb <=
 // kMaxKb and a floor lane sums at most kMaxFloorK q primes, else the wide
-// one (one word per thread) up to kWideKb and kWideFloorK; null outside.
+// one (one word per thread) up to kWideKb and kWideFloorK, else the deep
+// one up to kDeepMaxKb and kDeepMaxK; null outside.
 template <int LaneT, int V>
 const void* conv_kernel(int kb, int k) {
   const bool fixed_k = LaneT == kLaneSK || k <= kMaxFloorK;
@@ -652,6 +883,8 @@ const void* conv_kernel(int kb, int k) {
   if constexpr (V == 1) {
     if (kb >= kMinKb && kb <= kWideKb && (LaneT == kLaneSK || k <= kWideFloorK))
       return reinterpret_cast<const void*>(base_conv_kernel<LaneT, 1, kWideKb, true>);
+    if (kb >= kMinKb && kb <= kDeepMaxKb && k <= kDeepMaxK)
+      return reinterpret_cast<const void*>(base_conv_deep_kernel<LaneT>);
   }
   return nullptr;
 }
@@ -726,8 +959,8 @@ int fhe_bsk_branch(const void* ab, int ab_sp, int ab_sc, int ab_sb, const void* 
 // per_thread words per thread, kb Bsk primes, k q primes, count words per
 // row, the digits from word dstart on (dig null: no digits lane), vec where
 // every input row starts aligned to per_thread words, threads per CTA (the
-// wrapper's conv_geometry); kb and k pick the fixed or the wide instance.
-// Unused constants may be null.
+// wrapper's conv_geometry); kb and k pick the fixed, the wide or the deep
+// instance, which takes kDeepThreads threads.  Unused constants may be null.
 int fhe_base_conv(int lane, int per_thread, int kb, int k, int count, int dstart, int vec,
                   int threads, const void* src, const void* txb, void* out, void* dig,
                   const void* aux, const void* aux_inv_phat, const void* aux_inv_phat_sh,
@@ -741,8 +974,17 @@ int fhe_base_conv(int lane, int per_thread, int kb, int k, int count, int dstart
   if (kernel == nullptr || k < 1 || count < 1 || count % per_thread || threads < 32
       || threads > 256)
     return static_cast<int>(cudaErrorInvalidValue);
-  const ConvSmem lay(lane, k, kb, dig != nullptr);
-  if (lay.bytes() > fhe::kDefaultSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const bool deep = conv_deep(lane, kb, k);
+  if (deep && threads != kDeepThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = deep ? DeepSmem(lane, k, kb, dig != nullptr).bytes()
+                           : ConvSmem(lane, k, kb, dig != nullptr).bytes();
+  if (!deep && smem > fhe::kDefaultSmem) return static_cast<int>(cudaErrorInvalidValue);
+  // the deep instance of each lane keeps its own record
+  static std::atomic<size_t> granted[3][fhe::kMaxDevices];
+  if (deep) {
+    const cudaError_t err = fhe::allow_smem(kernel, smem, granted[lane]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
   ConvConsts cc{u(aux), u(aux_inv_phat), u(aux_inv_phat_sh), u(phat_q), u(phat_sk), u(q),
                 u(q_wide), u(msk_wide), u(b_mod_q), u(b_mod_q_sh), u(w), u(w_sh), u(fq),
@@ -755,7 +997,7 @@ int fhe_base_conv(int lane, int per_thread, int kb, int k, int count, int dstart
   void* args[] = {&src_p, &txb_p, &out_p, &dig_p, &cc, &count, &dstart, &vec};
   const int groups = count / per_thread;
   const dim3 grid((groups + threads - 1) / threads);
-  const cudaError_t err = cudaLaunchKernel(kernel, grid, dim3(threads), args, lay.bytes(),
+  const cudaError_t err = cudaLaunchKernel(kernel, grid, dim3(threads), args, smem,
                                            static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -67,7 +67,7 @@ def _lib() -> ctypes.CDLL:
                                   + [_I] * 8 + [ctypes.c_uint, _P] + [_L] * 2
                                   + [_I, _P, _I, _P])
     lib.fhe_ks_inner.argtypes = ([_P] + [_L] * 3 + [_I] + [_P] + [_L] * 3 + [_I]
-                                 + [_P] * 7 + [_I] * 8 + [_P] * 3 + [_L] * 2 + [_P])
+                                 + [_P] * 7 + [_I] * 8 + [_P] * 3 + [_L] * 2 + [_I, _P])
     for f in (lib.fhe_ntt_forward, lib.fhe_ntt_inverse,
               lib.fhe_mul_by_ntt_operand, lib.fhe_tensor_product,
               lib.fhe_keyswitch, lib.fhe_ks_inner):
@@ -163,10 +163,8 @@ def regs_threads(n: int, name: str, split: int = 1) -> int:
 ROW_SPLIT = 2
 PRODUCT_CLUSTER = 4 * ROW_SPLIT
 KEYSWITCH_PAIRS = 4
-# tensor_product's Lift lane: the most source primes it lifts from, 16 at
-# a time (csrc/lift.cuh: kMaxLiftK, kLiftGroup), and the most threads a CTA
-# gives the lift
-LIFT_MAX_K = 32
+# tensor_product's Lift lane: the most threads a CTA gives the lift (which
+# loads its source rows 16 at a time, any number of them: csrc/lift.cuh)
 LIFT_THREADS = 256
 
 
@@ -222,15 +220,17 @@ def ks_inner_geometry(n: int, k: int, batch: int = 1,
     transform, grid (2, 2B, k); one padded row of shared memory per CTA,
     and with ``c0`` (the Galois lane adds phi_g(c0)) the c0 row staged
     behind it where both fit a block (n <= 16384; ``stage_c0``), else c0 is
-    read in place.  Raise where that does not fit the card."""
+    read in place; where one padded row does not fit (n = 65536), the
+    ``compact`` split's padded half row.  Raise where nothing fits the
+    card."""
     if not 1 <= 2 * batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y // 2}")
     staged = (staged_bytes(n, _padded(n)),) if c0 else ()
-    layout, smem = fit_smem(n, name, *staged, row_bytes(n, padded=True))
-    stage = bool(staged) and layout == 0
+    smem, compact = split_row_smem(n, name, *staged, row_bytes(n, padded=True))
     return {"grid": (ROW_SPLIT, 2 * batch, k), "cluster": (ROW_SPLIT, 1, 1),
             "ctas": ROW_SPLIT * 2 * batch * k, "ctas_per_row": ROW_SPLIT,
-            "threads": regs_threads(n, name, ROW_SPLIT), "smem": smem, "stage_c0": stage}
+            "threads": regs_threads(n, name, ROW_SPLIT), "smem": smem,
+            "stage_c0": bool(staged) and smem == staged[0], "compact": compact}
 
 
 def keyswitch_geometry(n: int, k: int, kd: int, batch: int = 1,
@@ -529,11 +529,8 @@ def _tensor_product_launch(x: torch.Tensor, y: torch.Tensor, tb: NTTTables,
 
 def _check_lift(sc: "_rns.SmMRqConsts", tb: NTTTables, tb_bsk: NTTTables) -> None:
     """sc lifts from the k primes of tb into the kb of tb_bsk, on their
-    device, and k is at most LIFT_MAX_K."""
+    device."""
     k, kb = sc.conv.p_src.shape[0], sc.conv.p_dst.shape[0]
-    if k > LIFT_MAX_K:
-        raise ValueError(f"tensor_product: the Lift lane lifts from at most {LIFT_MAX_K} "
-                         f"primes, got {k}")
     if (k, kb, tb.n) != (tb.k, tb_bsk.k, tb_bsk.n):
         raise ValueError(f"tensor_product: lift constants from {k} into {kb} primes, "
                          f"tables of {tb.k} and {tb_bsk.k} primes at n = {tb.n}, {tb_bsk.n}")
@@ -831,7 +828,8 @@ def _ks_inner_launch(dg: torch.Tensor, keys: torch.Tensor, tb: NTTTables,
                   dg.stride(1), dg_sb, dg_div, p(keys), keys.stride(0), keys.stride(1),
                   keys.stride(2), key_mod, p(out), p(tb.p), p(tb.mu), p(tb.ipsi_br),
                   p(tb.ipsi_br_shoup), p(tb.n_inv), p(tb.n_inv_shoup), tb.k, kd, batch,
-                  log2_exact(n), geo["threads"], geo["smem"], int(vec), *galois_args)
+                  log2_exact(n), geo["threads"], geo["smem"], int(vec), *galois_args,
+                  int(geo["compact"]))
     return out
 
 
@@ -864,14 +862,14 @@ def ks_inner_batch(dg: torch.Tensor, keys: torch.Tensor,
     keys: [k, kd, B, 2, n] per-element NTT-form keys, each [2, n] block
           contiguous
     Returns [k, 2, B, n]; every prime must be a 30-bit prime (Barrett); on
-    the card 32 <= n <= 32768 (``ks_inner_geometry``).
+    the card 32 <= n <= 65536 (``ks_inner_geometry``).
 
     With the B Galois ``elements`` of the key sets and c0 ([k, n] shared,
     or [k, B, n]), the Galois lane: keys pre-permuted as
     ``hoisted_galois_keys`` makes them, element b is
     phi_{g_b}(correction + (c0, 0)), the hoisted rotation, gathered in the
     NTT domain before the inverse (c0 staged in shared memory up to
-    n = 16384, read in place at n = 32768).  Launches count in
+    n = 16384, read in place above).  Launches count in
     ``launches`` and ``galois_launches`` by lane."""
     _check_ks_inner(dg, keys, tb, "ks_inner_batch")
     batch = keys.shape[2]

@@ -163,14 +163,19 @@ def _check_conv_input(x: torch.Tensor, rows: int, consts: torch.Tensor,
 
 
 # Bsk prime counts the base-conversion kernel takes (csrc/rns.cu: kMinKb,
-# kWideKb) and the most q primes its floor sums (kWideFloorK); the fixed
+# kDeepMaxKb) and the most q primes it takes (kDeepMaxK); the fixed
 # instances take up to CONV_FIXED_KB Bsk primes and floor from up to
-# CONV_FIXED_FLOOR_K q primes (kMaxKb, kMaxFloorK), the wide instance the
-# rest at one word per thread; and its lanes
-CONV_KB = (2, 33)
-CONV_MAX_FLOOR_K = 32
+# CONV_FIXED_FLOOR_K q primes (kMaxKb, kMaxFloorK), the wide instance up to
+# CONV_WIDE_KB and CONV_WIDE_FLOOR_K (kWideKb, kWideFloorK) at one word per
+# thread, the deep instance the rest at one word per thread and
+# CONV_DEEP_THREADS per CTA (kDeepThreads); and its lanes
+CONV_KB = (2, 112)
+CONV_MAX_K = 108
 CONV_FIXED_KB = 17
 CONV_FIXED_FLOOR_K = 16
+CONV_WIDE_KB = 33
+CONV_WIDE_FLOOR_K = 32
+CONV_DEEP_THREADS = 128
 CONV_LANES = {"sk": 0, "floor": 1, "floor_sk": 2}
 # SMs of an H100 SXM
 CARD_SMS = 132
@@ -183,7 +188,13 @@ def conv_wide(lane: str, kb: int, k: int) -> bool:
     return kb > CONV_FIXED_KB or (lane != "sk" and k > CONV_FIXED_FLOOR_K)
 
 
-def conv_geometry(count: int, lane: str, wide: bool = False) -> dict:
+def conv_deep(lane: str, kb: int, k: int) -> bool:
+    """True where such a call takes the deep instance: kb above
+    CONV_WIDE_KB, or a floor from more than CONV_WIDE_FLOOR_K q primes."""
+    return kb > CONV_WIDE_KB or (lane != "sk" and k > CONV_WIDE_FLOOR_K)
+
+
+def conv_geometry(count: int, lane: str, wide: bool = False, deep: bool = False) -> dict:
     """Launch shape of the base-conversion kernel (``csrc/rns.cu``
     base_conv_kernel) over rows of ``count`` words: ``per_thread``
     consecutive words of every row per thread, ``threads`` per CTA and
@@ -193,15 +204,17 @@ def conv_geometry(count: int, lane: str, wide: bool = False) -> dict:
     1 word at [5,3,8192] and [10,3,8192], 2 at [5,24,8192] and
     [10,24,8192], 128 threads at n = 256; 4 words were slower at all four
     B6 shapes).  The wide instance (``conv_wide``) takes one word per
-    thread: its registers hold up to 33 rows of digits."""
+    thread: its registers hold up to 33 rows of digits.  The deep instance
+    (``conv_deep``) takes one word per thread and CONV_DEEP_THREADS per
+    CTA: each thread's digits take a row of its shared memory."""
     if lane not in CONV_LANES:
         raise ValueError(f"unknown base-conversion lane {lane!r}")
     per_thread = 1
-    if (lane == "sk" and not wide and count % 2 == 0
+    if (lane == "sk" and not (wide or deep) and count % 2 == 0
             and count // (2 * 256) >= 2 * CARD_SMS):
         per_thread = 2
     groups = count // per_thread
-    threads = 256 if groups >= 256 * CARD_SMS else 128
+    threads = CONV_DEEP_THREADS if deep else 256 if groups >= 256 * CARD_SMS else 128
     return {"per_thread": per_thread, "threads": threads, "blocks": -(-groups // threads)}
 
 
@@ -236,10 +249,9 @@ def _conv_launch(lane: str, src: torch.Tensor, txb, sk, fc, digits,
         raise ValueError(f"{name}: the kernel takes {CONV_KB[0]} to {CONV_KB[1]} Bsk "
                          f"primes, got {kb}")
     k = src.shape[0] if lane != "sk" else sk.conv_q.p_dst.shape[0]
-    if lane != "sk" and k > CONV_MAX_FLOOR_K:
-        raise ValueError(f"{name}: the kernel floors from at most {CONV_MAX_FLOOR_K} q "
-                         f"primes, got {k}")
-    geo = conv_geometry(count, lane, conv_wide(lane, kb, k))
+    if k > CONV_MAX_K:
+        raise ValueError(f"{name}: the kernel takes at most {CONV_MAX_K} q primes, got {k}")
+    geo = conv_geometry(count, lane, conv_wide(lane, kb, k), conv_deep(lane, kb, k))
     v = geo["per_thread"]
     vec = conv_vec(v, *(x for x in (src, txb) if x is not None))
     out = torch.empty((rows_out, rows, n), dtype=torch.int32, device=src.device)

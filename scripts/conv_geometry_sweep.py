@@ -89,7 +89,7 @@ def main() -> int:
         for v, threads in shapes:
             forced = {"per_thread": v, "threads": threads,
                       "blocks": -(-count // (v * threads))}
-            rns_cuda.conv_geometry = lambda c, ln, wide=False, f=forced: f
+            rns_cuda.conv_geometry = lambda c, ln, wide=False, deep=False, f=forced: f
             try:
                 ok = same(kern(), plain())
                 torch.cuda.synchronize()

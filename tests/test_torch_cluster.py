@@ -381,11 +381,11 @@ GEOMETRY_OF = {"ntt_inverse": lambda n, batch=1: ntt_cuda.ntt_inverse_geometry(n
                                      (65536, "n=65536 needs")])
 def test_b2_and_b17_n_outside_32_to_32768_raises(name, n, match):
     """The register-blocked sweep takes n >= 32, and one padded row fits a
-    CTA up to n = 32768: B17/B18 raise outside, naming the function, before
-    any launch.  B2 takes n = 65536 on the compact split (a padded half row
-    per CTA), so its top case is the next ring, n = 131072, where it
-    raises."""
-    if name == "ntt_inverse" and n == 65536:
+    CTA up to n = 32768: below 32 B2 and B17/B18 raise, naming the
+    function, before any launch.  Both take n = 65536 on the compact split
+    (a padded half row per CTA), so their top case is the next ring,
+    n = 131072, where they raise."""
+    if n == 65536:
         assert_compact_form(GEOMETRY_OF[name](n), n, 0)
         n, match = 2 * n, "n=131072 needs"
     with pytest.raises(ValueError, match=f"{name}: .*{match}"):
@@ -449,6 +449,58 @@ def test_galois_lanes_stage_a_row_and_ks_inner_runs_at_n32768():
 
 
 N65536 = 65536
+
+
+@pytest.mark.parametrize("batch,name", [(1, "ks_inner_batch"), (8, "ks_inner_batch"),
+                                        (4 * 8, "ks_inner_grouped")])
+@pytest.mark.parametrize("c0", [False, True])
+def test_ks_inner_compact_split_at_n65536(batch, name, c0):
+    """B17/B18 at n = 65536, both lanes, for the hoisted rotations' B = 1
+    and 8 elements and the hoisted batch's S = 4 stacks x 8: the compact
+    split, a 135168-byte padded half row per CTA, c0 read in place (never
+    staged) and no scratch, in the Inner lane's grid; every n <= 32768
+    keeps its one padded row (and its staged c0 up to 16384), and
+    n = 131072 raises, naming the function."""
+    geo = ntt_cuda.ks_inner_geometry(N65536, 3, batch, name=name, c0=c0)
+    assert geo["smem"] == 135168 == 4 * padded(N65536 // 2)
+    assert not geo["stage_c0"] and "scratch" not in geo
+    assert geo["grid"] == (2, 2 * batch, 3) and geo["cluster"] == (2, 1, 1)
+    assert_compact_form(geo, N65536, 0)
+    for n in (256, 8192, 16384, 32768):
+        small = ntt_cuda.ks_inner_geometry(n, 3, batch, name=name, c0=c0)
+        assert not small["compact"] and small["stage_c0"] == (c0 and n <= 16384)
+        assert small["smem"] == (4 * (-(-padded(n) // 4) * 4 + n) if small["stage_c0"]
+                                 else 4 * padded(n))
+    with pytest.raises(ValueError, match=f"{name}: n=131072 needs"):
+        ntt_cuda.ks_inner_geometry(2 * N65536, 3, batch, name=name, c0=c0)
+
+
+@pytest.mark.parametrize("kb", [34, 63, 68])
+@pytest.mark.parametrize("lane", ["sk", "floor", "floor_sk"])
+def test_base_conversion_wide_instance_past_33_primes(lane, kb):
+    """The base conversion at kb = 34 (the first past the wide instance's
+    33), 63 (log_q = 1770) and 68 (log_q = 1920), each lane from k = kb - 4
+    q primes: the deep instance, one word per thread, 128 threads per CTA,
+    the grid over every word of [kb, 3, 65536], within the wrappers' caps
+    (csrc/rns.cu asserts at compile time that the deep instance's shared
+    memory fits a block there); the fixed instances (kb <= 17, a floor from
+    at most 16 q primes) and the wide one (kb <= 33, a floor from at most
+    32) keep their instance and shape."""
+    k, count = kb - 4, 3 * N65536
+    assert rns_cuda.conv_wide(lane, kb, k) and rns_cuda.conv_deep(lane, kb, k)
+    assert kb <= rns_cuda.CONV_KB[1] and k <= rns_cuda.CONV_MAX_K
+    geo = rns_cuda.conv_geometry(count, lane, wide=True, deep=True)
+    assert (geo["per_thread"], geo["threads"]) == (1, rns_cuda.CONV_DEEP_THREADS) == (1, 128)
+    assert geo["blocks"] * geo["threads"] == count
+    wide = rns_cuda.conv_geometry(count, lane, wide=True)
+    assert (wide["per_thread"], wide["threads"], wide["blocks"]) == (1, 256, count // 256)
+    for kb_fixed, k_fixed in ((5, 3), (17, 16)):
+        assert not rns_cuda.conv_wide(lane, kb_fixed, k_fixed)
+    for kb_wide, k_wide in ((18, 15), (33, 29), (33, 32)):
+        assert rns_cuda.conv_wide(lane, kb_wide, k_wide)
+        assert not rns_cuda.conv_deep(lane, kb_wide, k_wide)
+    assert rns_cuda.conv_deep(lane, 33, 33) == (lane != "sk")
+    assert rns_cuda.conv_geometry(count, lane) == rns_cuda.conv_geometry(count, lane, False, False)
 
 
 @pytest.mark.parametrize("k,kd,batch", [(3, 3, 1), (3, 3, 2), (30, 30, 1), (30, 30, 2)])

@@ -956,10 +956,12 @@ def test_floor_sk_kernel_matches_plain(dev, level, unaligned):
 # (k q primes, kb Bsk primes): the fixed instances' largest bases (kb = 16
 # and 17, a floor from 16 q primes), the wide instance just above them
 # (kb = 18; a floor from 17 q primes), the 128-bit n = 32768 set (k = 29,
-# kb = 32), the top of the JAX package's security table (k = 30, kb = 33)
-# and the floor's cap (32 q primes)
+# kb = 32), the top of the JAX package's security table (k = 30, kb = 33),
+# a floor from 32 q primes (the wide instance's cap), and the deep instance
+# from a floor from 33 (kb = 34) to the n = 65536 sets log_q = 1770 (k = 59,
+# kb = 63) and 1920 (k = 64, kb = 68)
 CONV_BASES = [(13, 16), (14, 17), (16, 17), (15, 18), (17, 18), (29, 32), (30, 33),
-              (32, 33)]
+              (32, 33), (33, 34), (59, 63), (64, 68)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -1022,11 +1024,11 @@ def test_base_conv_kernel_every_base_matches_plain(dev, k, kb, rows, inputs):
 
 
 @pytest.mark.parametrize("inputs", ["random", "p-1"])
-@pytest.mark.parametrize("log_q", [480, 510, 870])
+@pytest.mark.parametrize("log_q", [480, 510, 870, 1770])
 def test_lift_lane_past_16_primes_matches_plain(dev, log_q, inputs):
-    """tensor_product's Lift lane at n = 256 from k = 16, 17 and 29 q primes
-    (the lift loads them 16 at a time) against its plain twins, on random
-    residues and on every residue p - 1."""
+    """tensor_product's Lift lane at n = 256 from k = 16, 17, 29 and 59 q
+    primes (the lift loads them 16 at a time, in a loop over k) against its
+    plain twins, on random residues and on every residue p - 1."""
     ctx = make_context(_quiet_params(256, log_q, lambda_=0), device=dev)
     assert ctx.k == -(-log_q // 30)
     (tq, tbsk), sc = ctx.mul_levels[0], ctx.smq_levels[0]

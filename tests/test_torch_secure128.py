@@ -18,9 +18,9 @@ relinearization digits, the floor) and of the SmMRq lift are held against
 fhe_tpu/oracle.py's arbitrary-precision algorithms at kb = 32 and 33, on
 random residues, on every residue p - 1 and on the residues whose
 conversion digits are all p - 1 (the largest terms of the kernel's
-unreduced sums); the wrappers' limits raise
-above their caps, naming the function, and the launch shape of the fixed
-instances (kb <= 17) is as it was.  chip_smoke.py's secure128 phase and
+unreduced sums); the conversion's one cap left, its shared memory, raises
+naming the function, the Lift lane takes any k, and the launch shape of the
+fixed instances (kb <= 17) is as it was.  chip_smoke.py's secure128 phase and
 tests/test_torch_cuda.py hold the card against these twins.
 
 One module-scoped state: JAX's context, keys, ciphertexts and the two
@@ -208,33 +208,53 @@ def test_base_conversion_twins_match_the_oracle(log_q, kb, inputs):
 
 
 def test_conversion_wrappers_raise_above_their_caps():
-    """33 Bsk primes and a floor from 32 q primes are the base-conversion
-    kernel's caps: one more raises a ValueError naming the wrapper, before
-    any launch (the checks run on the host)."""
-    assert rns_cuda.CONV_KB == (2, 33) and rns_cuda.CONV_MAX_FLOOR_K == 32
-    ps = primes.find_ntt_primes(2048, 67)
-    sk = trns.make_sk(ps[30:63], ps[63], ps[:30], "cpu")          # kb = 34
-    x = torch.zeros((34, 3, 4), dtype=torch.int32)
-    with pytest.raises(ValueError, match="fast_bconv_sk_fused: the kernel takes 2 to 33"):
-        rns_cuda._conv_launch("sk", x, None, sk, None, None, 30, "fast_bconv_sk_fused")
-    fc = trns.make_fast_floor(ps[:33], ps[33:66], "cpu")          # k = 33, kb = 33
-    tx_q = torch.zeros((33, 3, 4), dtype=torch.int32)
-    tx_b = torch.zeros((33, 3, 4), dtype=torch.int32)
-    with pytest.raises(ValueError, match="fast_floor_fused: the kernel floors from at most 32"):
-        rns_cuda._conv_launch("floor", tx_q, tx_b, None, fc, None, 33, "fast_floor_fused")
+    """The base conversion takes 2 to 112 Bsk primes and at most 108 q
+    primes (csrc/rns.cu kDeepMaxKb and kDeepMaxK, where the deep instance's
+    shared memory still fits a block), which covers log_q = 1920 at
+    n = 65536 (k = 64, kb = 68): one more raises a ValueError naming the
+    wrapper, before any launch (the checks run on the host), as does a base
+    of one Bsk prime."""
+    assert rns_cuda.CONV_KB == (2, 112) and rns_cuda.CONV_MAX_K == 108
+    assert 68 <= rns_cuda.CONV_KB[1] and 64 <= rns_cuda.CONV_MAX_K
+    ps = primes.find_ntt_primes(2048, 222)
+    sk = trns.make_sk(ps[109:221], ps[221], ps[:3], "cpu")             # kb = 113
+    x = torch.zeros((113, 3, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="fast_bconv_sk_fused: the kernel takes 2 to 112 Bsk "
+                                         "primes, got 113"):
+        rns_cuda._conv_launch("sk", x, None, sk, None, None, 3, "fast_bconv_sk_fused")
+    fc = trns.make_fast_floor(ps[:109], ps[109:222], "cpu")            # k = 109, kb = 113
+    tx_q = torch.zeros((109, 3, 4), dtype=torch.int32)
+    tx_b = torch.zeros((113, 3, 4), dtype=torch.int32)
+    fc112 = trns.make_fast_floor(ps[:109], ps[109:221], "cpu")         # k = 109, kb = 112
+    with pytest.raises(ValueError, match="fast_floor_fused: the kernel takes at most 108 q "
+                                         "primes, got 109"):
+        rns_cuda._conv_launch("floor", tx_q, tx_b[:112], None, fc112, None, 112,
+                              "fast_floor_fused")
+    with pytest.raises(ValueError, match="fast_floor_fused: the kernel takes 2 to 112"):
+        rns_cuda._conv_launch("floor", tx_q, tx_b, None, fc, None, 113, "fast_floor_fused")
+    sk1 = trns.make_sk(ps[:0], ps[3], ps[:3], "cpu")                   # kb = 1
+    x1 = torch.zeros((1, 3, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="fast_bconv_sk_fused: the kernel takes 2 to 112 Bsk "
+                                         "primes, got 1"):
+        rns_cuda._conv_launch("sk", x1, None, sk1, None, None, 3, "fast_bconv_sk_fused")
 
 
 def test_lift_lane_raises_above_its_cap():
-    """tensor_product's Lift lane lifts from at most 32 q primes; 33 raise a
-    ValueError naming tensor_product, on the host."""
-    assert ntt_cuda.LIFT_MAX_K == 32
-    prm = make_scheme_params(SecurityParams(poly_degree=32, log_q=30 * 33, lambda_=0,
+    """tensor_product's Lift lane loads its source rows 16 at a time in a
+    loop over k at run time, so it has no cap left: at k = 64 (log_q =
+    1920, n = 32) its host checks pass and it returns both products, [64,
+    3, n] in q and [68, 3, n] in Bsk; lift constants that do not match the
+    tables still raise a ValueError naming tensor_product, on the host."""
+    assert not hasattr(ntt_cuda, "LIFT_MAX_K")
+    prm = make_scheme_params(SecurityParams(poly_degree=32, log_q=1920, lambda_=0,
                                             hamming_weight=4))
     ctx = make_context(prm, device="cpu")
     (tq, tbsk), sc = ctx.mul_levels[0], ctx.smq_levels[0]
-    x = torch.zeros((33, 2, 32), dtype=torch.int32)
-    with pytest.raises(ValueError, match="tensor_product: the Lift lane lifts from at most 32"):
-        ntt_cuda.tensor_product(x, x, tq, lift=(sc, tbsk))
+    x = torch.zeros((64, 2, 32), dtype=torch.int32)
+    tx_q, tx_bsk = ntt_cuda.tensor_product(x, x, tq, lift=(sc, tbsk))
+    assert tuple(tx_q.shape) == (64, 3, 32) and tuple(tx_bsk.shape) == (68, 3, 32)
+    with pytest.raises(ValueError, match="tensor_product: lift constants from 64 into 68"):
+        ntt_cuda.tensor_product(x[:63], x[:63], ctx.mul_levels[1][0], lift=(sc, tbsk))
 
 
 # (count, lane) -> (per_thread, threads, blocks) of the fixed instances, as
