@@ -73,8 +73,29 @@ Phases, each printing its own lines:
      (`n65536_launches` in the kernels line); the card equals the CPU
      plain path for encrypt_from_noise, multiply, decrypt and rotate_rows
      at every set, BGV's multiply at k = 3 and 30, and the hoisted calls;
+     and ks_omega = 2 at log_q = 120 (k = 4, kd = 2): multiply,
+     rotate_rows and rotate_rows_batch decode, card == CPU plain path;
      device and wall ms of the multiply, relinearize, rotate_rows, encrypt,
-     decrypt and the hoisted calls;
+     decrypt and the hoisted calls; then (phase n131072) the ring
+     n = 131072 on the quarter split (four CTAs a row) at log_q = 90, 900,
+     1770 and 3060 (k = 3, 30, 59 and 102, the largest set JAX takes
+     there), the same t, lambda_, h and seed: at k = 3 and 30 every
+     cluster kernel of the BFV path in every lane, single and B = 2, and
+     B14-B18, at k = 59 and 102 B4, B5, B6 (the deep instance), B7 and B8,
+     each equal to its plain twin (B7's twin 16 output primes at a time
+     at k = 59 and 102), with device ms and bounds; with the counts
+     zeroed, the BFV path through the facade at every set as at n = 65536,
+     the hoisted rotations, their batch and sum_slots at k = 3, and
+     ks_omega = 2 at log_q = 120, each decoded, each kernel of
+     N131072_KERNELS launched (`n131072_launches` in the kernels line);
+     card == CPU plain path for encrypt_from_noise, multiply, decrypt and
+     rotate_rows at k = 3 and 30 and at ks_omega = 2, and for the hoisted
+     calls at k = 3; device and wall ms of the ops, the card's peak memory.
+     The CPU plain path's half of every card == CPU check of phases
+     n32768 to n131072 runs in two spawned worker processes (CpuChecks), fed
+     with numpy copies of the card's keys, noise and inputs, beside the
+     later phases; its results are compared with the card's at the end
+     (`phase cpu_checks`: each check's CPU seconds by step);
   4. slice: the linear-ops main path through the FHE facade at n = 8192,
      log_q = 90 (k = 3), h = 64: keygen, encode, encrypt, add, add_plain and
      the 8-term resident plaintext multiply-accumulate, then decrypt and
@@ -294,12 +315,14 @@ nothing of fhe_tpu.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import math
 import os
 import re
 import statistics
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -1299,18 +1322,47 @@ def phase_kernels(gen: torch.Generator) -> dict:
     return results
 
 
-def bsk_case(gen: torch.Generator, ctx, level: int, batch: int | None, label: str):
+def dst_rows(consts, start: int, stop: int):
+    """Base-conversion constants (rns.BaseConvConsts, SmMRqConsts or
+    FastFloorConsts) for their destination primes start .. stop - 1: the
+    rows of every per-destination field (named *_dst, and dst_wide)."""
+    rows = {}
+    for f in dataclasses.fields(consts):
+        v = getattr(consts, f.name)
+        if dataclasses.is_dataclass(v):
+            rows[f.name] = dst_rows(v, start, stop)
+        elif f.name.endswith("_dst") or f.name == "dst_wide":
+            rows[f.name] = v[start:stop]
+    return dataclasses.replace(consts, **rows)
+
+
+def bsk_by_primes(ab, tx_q, sc, fc, tbsk, step: int) -> torch.Tensor:
+    """rns.bsk_branch_fused over ``step`` Bsk primes at a time: each output
+    prime's lift, product and floor are its own, so the same residues (the
+    twin's [kb, k, 4, n] int64 conversion terms take 46 GB at k = 102,
+    n = 131072)."""
+    return torch.cat([rns.bsk_branch_fused(ab, tx_q, dst_rows(sc, j, j + step),
+                                           dst_rows(fc, j, j + step),
+                                           table_rows(tbsk, j, j + step))
+                      for j in range(0, tbsk.k, step)])
+
+
+def bsk_case(gen: torch.Generator, ctx, level: int, batch: int | None, label: str,
+             step: int = 0):
     """A bsk_branch_fused case on ctx's level-L constants: the single
     kernel (batch None) or the batched one on views of a [B, k, 4, n]
-    stack, as multiply_batch passes them."""
+    stack, as multiply_batch passes them.  ``step``: the single kernel's
+    plain twin over that many Bsk primes at a time (bsk_by_primes)."""
     n, qs = ctx.n, ctx.ntt_q.primes[:ctx.k - level]
     k, tbsk = len(qs), ctx.mul_levels[level][1]
     consts = (ctx.smq_levels[level], ctx.floor_levels[level], tbsk)
     if batch is None:
         ab, tx_q = residues(gen, qs, 4, n), residues(gen, qs, 3, n)
-        return ("bsk_branch_fused", f"{label}: ab [{k},4,{n}], kb={tbsk.k}",
+        return ("bsk_branch_fused", f"{label}: ab [{k},4,{n}], kb={tbsk.k}"
+                + (f", plain {step} primes at a time" if step else ""),
                 lambda: rns_cuda.bsk_branch_fused(ab, tx_q, *consts),
-                lambda: rns.bsk_branch_fused(ab, tx_q, *consts),
+                lambda: (bsk_by_primes(ab, tx_q, *consts, step) if step
+                         else rns.bsk_branch_fused(ab, tx_q, *consts)),
                 bsk_branch_work(k, tbsk.k, 1, n))
     ab = residues(gen, qs, 4 * batch, n).view(k, batch, 4, n).transpose(0, 1)
     ab = ab.contiguous().permute(1, 2, 0, 3)
@@ -1382,12 +1434,31 @@ def product_case(gen: torch.Generator, ctx, level: int, kind: str, batch: int | 
             tensor_product_work(tb.k, batch, n))
 
 
+def table_rows(tb, start: int, stop: int):
+    """Row views of tb's primes start .. stop - 1."""
+    return dataclasses.replace(tb, **{f: getattr(tb, f)[start:stop] for f in plain_ntt.FIELDS},
+                               primes=tb.primes[start:stop])
+
+
+def by_primes(plain, step: int):
+    """plain(d, keys, tb, prereduced), a key switch's plain twin, over
+    ``step`` output primes at a time (the same residues; the twin's int64
+    products of all k x kd key rows take 65 GB at k = kd = 102,
+    n = 131072)."""
+    def run(d, keys, tb, prereduced):
+        return torch.cat([plain(d[i:i + step] if prereduced else d, keys[i:i + step],
+                                table_rows(tb, i, i + step), prereduced)
+                          for i in range(0, tb.k, step)])
+    return run
+
+
 def keyswitch_case(gen: torch.Generator, ctx, level: int, kd: int, batch: int | None,
-                   prereduced: bool, label: str):
+                   prereduced: bool, label: str, step: int = 0):
     """A keyswitch_fused case (batch None) or a keyswitch_fused_batch one on
     ctx's level-L tables (row views): keys in the stored [kd, k, 2, n] layout
     read through the prime-major view; digit j mod its own q_j ([kd, B, n]),
-    or per-prime residues ([k, kd, B, n]) in the prereduced lane."""
+    or per-prime residues ([k, kd, B, n]) in the prereduced lane.  ``step``:
+    the plain twin over that many output primes at a time (by_primes)."""
     tb, n = level_tables(ctx, level, "q"), ctx.n
     qs, k, rows = tb.primes, tb.k, batch or 1
     keys = torch.stack([residues(gen, qs, 2, n) for _ in range(kd)]).permute(1, 0, 2, 3)
@@ -1399,9 +1470,11 @@ def keyswitch_case(gen: torch.Generator, ctx, level: int, kd: int, batch: int | 
         d = d[..., 0, :]
     name = "keyswitch_fused" if batch is None else "keyswitch_fused_batch"
     lane = "_prereduced" if prereduced else ""
-    return (name + lane, f"{label}: d {list(d.shape)}, keys [{k},{kd},2,{n}] (kd={kd})",
+    plain = by_primes(getattr(plain_ntt, name), step) if step else getattr(plain_ntt, name)
+    return (name + lane, f"{label}: d {list(d.shape)}, keys [{k},{kd},2,{n}] (kd={kd})"
+            + (f", plain {step} primes at a time" if step else ""),
             lambda: getattr(ntt_cuda, name)(d, keys, tb, prereduced),
-            lambda: getattr(plain_ntt, name)(d, keys, tb, prereduced),
+            lambda: plain(d, keys, tb, prereduced),
             keyswitch_work(k, kd, rows, prereduced, n))
 
 
@@ -1674,9 +1747,11 @@ def phase_geometry() -> None:
     keyswitch_fused's Galois lane and a sum_slots stage's 3 elements) and at
     n = 16384 and 32768 (B4/B11 and B5 with a half row, B7/B12 and B8 in
     their wide form); keyswitch_fused at k = 8 (kd = 8, and the prereduced
-    kd = 4); and at n = 65536 the compact forms of the n65536 path's
-    kernels at k = 3, 30 and 59 (B17/B18 at k = 3 and 30), and the base
-    conversion's deep instance at [63,3,n] and [68,3,n]."""
+    kd = 4); at n = 65536 the compact forms of the n65536 path's kernels
+    at k = 3, 30 and 59 (B17/B18 at k = 3 and 30), and the base
+    conversion's deep instance at [63,3,n] and [68,3,n]; at n = 131072 the
+    quarter forms at k = 3, 30 and 102 and the deep instance at
+    [107,3,n]."""
     for n in (N, 16384, 32768):
         for name, geo in (("ntt_forward", ntt_cuda.ntt_forward_geometry(n, 3)),
                           ("ntt_forward keygen", ntt_cuda.ntt_forward_geometry(n, 3, 3)),
@@ -1706,8 +1781,8 @@ def phase_geometry() -> None:
                           ("decrypt_fused_batch",
                            decrypt_cuda.decrypt_geometry(n, 3, BATCH))):
             print(f"phase geometry {name} n={n}", json.dumps(geo))
-    n = 65536
-    for k, kb in ((3, 5), (30, 33), (59, 63)):
+    for n, k, kb in ((65536, 3, 5), (65536, 30, 33), (65536, 59, 63), (N131072, 3, 5),
+                     (N131072, 30, 33), (N131072, 102, 107)):
         hoisted = (() if k > 30 else (
             ("ks_inner_batch Galois lane", ntt_cuda.ks_inner_geometry(n, k, BATCH, c0=True)),
             ("ks_inner_grouped Galois lane",
@@ -1721,7 +1796,7 @@ def phase_geometry() -> None:
                           ("keyswitch_fused_batch", ntt_cuda.keyswitch_geometry(n, k, k, 2)),
                           ("decrypt_fused", decrypt_cuda.decrypt_geometry(n, k))):
             print(f"phase geometry {name} n={n} k={k}", json.dumps(geo))
-    for k, kb in ((59, 63), (64, 68)):
+    for n, k, kb in ((65536, 59, 63), (65536, 64, 68), (N131072, 102, 107)):
         geo = rns_cuda.conv_geometry(3 * n, "sk", rns_cuda.conv_wide("sk", kb, k),
                                      rns_cuda.conv_deep("sk", kb, k))
         print(f"phase geometry fast_bconv_sk_fused [{kb},3,{n}] -> [{k},3,{n}]", json.dumps(geo))
@@ -1807,63 +1882,195 @@ def n32768_cases(gen: torch.Generator, ctx) -> list:
             decrypt_case(gen, ctx.params, 0, 2, "n=32768")]
 
 
+# The CPU plain path's half of the card == CPU checks of the larger rings
+# (check_card_vs_cpu, check_bgv_multiply, check_hoisted_vs_cpu) runs in
+# CPU_WORKERS spawned worker processes, fed with numpy copies of the card's
+# keys, noise and inputs, while the card runs the phases after it; main()
+# compares their results with the card's (CPU_CHECKS.finish).  Each worker
+# takes CPU_WORKER_THREADS of the machine's 8 cores for PyTorch's CPU
+# operators: with one worker of 6 threads on an H100 box of 8 cores the
+# largest job (the k = 59 multiply and rotation at n = 65536) took 152 s,
+# and the script waited 226 s for the worker after its last phase.
+CPU_WORKERS = 2
+CPU_WORKER_THREADS = 3
+
+
+def to_numpy(obj):
+    """obj (a tensor, a scheme dataclass, or a list, tuple or dict of them)
+    with every tensor a numpy array on the host: what crosses to the CPU
+    worker and back, pickled by value."""
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu().numpy()
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_numpy(x) for x in obj)
+    if isinstance(obj, dict):
+        return {key: to_numpy(v) for key, v in obj.items()}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: to_numpy(getattr(obj, f.name))
+                                           for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def from_numpy(obj):
+    """to_numpy's inverse: every numpy array a CPU tensor."""
+    if isinstance(obj, np.ndarray):
+        return torch.from_numpy(obj)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(from_numpy(x) for x in obj)
+    if isinstance(obj, dict):
+        return {key: from_numpy(v) for key, v in obj.items()}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: from_numpy(getattr(obj, f.name))
+                                           for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def cpu_worker_init() -> None:
+    torch.set_num_threads(CPU_WORKER_THREADS)
+
+
+def cpu_job(fn_name: str, args: tuple) -> tuple[dict, dict]:
+    """In the worker: the plain-path function ``fn_name`` of this module on
+    args; returns its results (name -> value) and its seconds by step."""
+    results, steps = globals()[fn_name](*from_numpy(args))
+    return to_numpy(results), steps
+
+
+class CpuChecks:
+    """The jobs sent to the CPU worker and the card's results they must
+    equal."""
+
+    def __init__(self) -> None:
+        self.pool = None
+        self.jobs = []
+
+    def submit(self, label: str, fn_name: str, args: tuple, card: dict) -> None:
+        """Run fn_name(*args) on the CPU worker; its results must equal
+        ``card`` (name -> the card's result), key by key."""
+        if self.pool is None:
+            self.pool = multiprocessing.get_context("spawn").Pool(CPU_WORKERS,
+                                                                  initializer=cpu_worker_init)
+        self.jobs.append((label, self.pool.apply_async(cpu_job, (fn_name, to_numpy(args))),
+                          to_numpy(card)))
+
+    def finish(self) -> dict:
+        """Wait for every job and check its results against the card's;
+        returns each job's seconds by step, and the seconds waited here."""
+        t0 = time.perf_counter()
+        steps = {}
+        for label, job, card in self.jobs:
+            got, steps[label] = job.get()
+            for what, want in card.items():
+                check(same_arrays(got[what], want), f"{label} {what}: card != CPU plain path")
+        self.close()
+        return {"steps": steps, "wait_seconds": time.perf_counter() - t0}
+
+    def close(self, terminate: bool = False) -> None:
+        if self.pool is not None:
+            if terminate:
+                self.pool.terminate()
+            else:
+                self.pool.close()
+            self.pool.join()
+            self.pool = None
+        self.jobs = []
+
+
+CPU_CHECKS = CpuChecks()
+
+
+def same_arrays(a, b) -> bool:
+    """Two results of to_numpy (arrays, or lists of them) equal bit for bit."""
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_arrays(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def timed(steps: dict, what: str, fn):
+    t = time.perf_counter()
+    out = fn()
+    steps[what] = steps.get(what, 0.0) + time.perf_counter() - t
+    return out
+
+
+def cpu_bfv_path(prm, pk, sk, rlk, gk, pts, draws, levels) -> tuple[dict, dict]:
+    """check_card_vs_cpu's CPU side: encrypt_from_noise of the plaintexts
+    with their draws, the multiply at each of ``levels`` (after as many
+    mod_switch_to_next), its decrypt, and rotate_rows by 1 of the first
+    ciphertext, through the plain versions."""
+    cpu, steps = make_context(prm, device="cpu"), {}
+    enc = timed(steps, "encrypt_from_noise", lambda: [
+        bfv.encrypt_from_noise(cpu, pk, pt, *d) for pt, d in zip(pts, draws)])
+    out = {"encrypt_from_noise": [c.data for c in enc]}
+    cts = enc
+    for level in levels:
+        while cts[0].level < level:
+            cts = timed(steps, "mod_switch_to_next",
+                        lambda: [bfv.mod_switch_to_next(cpu, c) for c in cts])
+            out[f"mod_switch_to_next to level {cts[0].level}"] = [c.data for c in cts]
+        prod = timed(steps, f"multiply level {level}", lambda: bfv.multiply(cpu, *cts, rlk))
+        out[f"multiply at level {level}"] = prod.data
+        out[f"decrypt at level {level}"] = timed(steps, "decrypt",
+                                                 lambda: bfv.decrypt(cpu, prod, sk).data)
+    out["rotate_rows"] = timed(steps, "rotate_rows",
+                               lambda: bfv.rotate_rows(cpu, enc[0], 1, gk).data)
+    return out, steps
+
+
 def check_card_vs_cpu(fhe: FHE, pk: PublicKey, sk: SecretKey, rlk: RelinKeys,
                       gk: GaloisKeys, label: str, levels: tuple = (0,)) -> None:
     """fhe's keys and the same noise through the plain versions on the
-    CPU: encrypt_from_noise of VALS_32K, the multiply at each of ``levels``
-    (after as many mod_switch_to_next), its decrypt (which must decode
-    PRODUCT_32K) and rotate_rows by 1 equal the card's bit for bit."""
-    prm, n = fhe.ctx.params, fhe.ctx.n
-    cpu = make_context(prm, device="cpu")
-    sk_cpu, pk_cpu = SecretKey(data=sk.data.cpu()), PublicKey(data=pk.data.cpu())
-    rlk_cpu = RelinKeys(data=rlk.data.cpu())
-    gk_cpu = GaloisKeys(data={g: v.cpu() for g, v in gk.data.items()})
+    CPU (cpu_bfv_path, on the CPU worker): encrypt_from_noise of VALS_32K,
+    the multiply at each of ``levels`` (after as many mod_switch_to_next),
+    its decrypt (which must decode PRODUCT_32K) and rotate_rows by 1 equal
+    the card's bit for bit."""
+    n = fhe.ctx.n
     noise = torch.Generator(device="cuda").manual_seed(17)
     qs = fhe.ctx.ntt_q.p
-    enc = {"cuda": [], "cpu": []}
+    pts, draws, enc = [], [], []
     for v in VALS_32K:
-        draws = (sampling.ternary_rns(noise, qs, 1, n, prm.security.hamming_weight),
-                 sampling.gaussian_rns(noise, qs, 3.2, 1, n),
-                 sampling.gaussian_rns(noise, qs, 3.2, 1, n))
-        pt = fhe.encode(v)
-        enc["cuda"].append(bfv.encrypt_from_noise(fhe.ctx, pk, pt, *draws))
-        enc["cpu"].append(bfv.encrypt_from_noise(cpu, pk_cpu, Plaintext(data=pt.data.cpu()),
-                                                 *(d.cpu() for d in draws)))
-    check(same_cts(enc["cuda"], enc["cpu"]), f"{label} encrypt_from_noise: card != CPU")
+        draws.append((sampling.ternary_rns(noise, qs, 1, n, fhe.ctx.params.security.hamming_weight),
+                      sampling.gaussian_rns(noise, qs, 3.2, 1, n),
+                      sampling.gaussian_rns(noise, qs, 3.2, 1, n)))
+        pts.append(fhe.encode(v))
+        enc.append(bfv.encrypt_from_noise(fhe.ctx, pk, pts[-1], *draws[-1]))
+    card = {"encrypt_from_noise": [c.data for c in enc]}
     cts = enc
     for level in levels:
-        while cts["cuda"][0].level < level:
-            cts = {"cuda": [fhe.mod_switch_to_next(c) for c in cts["cuda"]],
-                   "cpu": [bfv.mod_switch_to_next(cpu, c) for c in cts["cpu"]]}
-            check(same_cts(cts["cuda"], cts["cpu"]), f"{label} mod_switch_to_next: card != CPU")
-        prod_card = fhe.multiply(*cts["cuda"], rlk)
-        prod_cpu = bfv.multiply(cpu, *cts["cpu"], rlk_cpu)
-        check(same_cts([prod_card], [prod_cpu]),
-              f"{label} multiply at level {level}: card != CPU plain path")
-        plain_card, plain_cpu = fhe.decrypt(prod_card, sk), bfv.decrypt(cpu, prod_cpu, sk_cpu)
-        check(torch.equal(plain_card.data.cpu(), plain_cpu.data)
-              and [int(v) for v in fhe.decode(plain_card)[:3]] == PRODUCT_32K,
-              f"{label} decrypt at level {level}: card != CPU plain path, or wrong product")
-    check(same_cts([fhe.rotate_rows(enc["cuda"][0], 1, gk)],
-                   [bfv.rotate_rows(cpu, enc["cpu"][0], 1, gk_cpu)]),
-          f"{label} rotate_rows: card != CPU plain path")
+        while cts[0].level < level:
+            cts = [fhe.mod_switch_to_next(c) for c in cts]
+            card[f"mod_switch_to_next to level {cts[0].level}"] = [c.data for c in cts]
+        prod = fhe.multiply(*cts, rlk)
+        plain = fhe.decrypt(prod, sk)
+        check([int(v) for v in fhe.decode(plain)[:3]] == PRODUCT_32K,
+              f"{label} decrypt at level {level}: wrong product")
+        card[f"multiply at level {level}"] = prod.data
+        card[f"decrypt at level {level}"] = plain.data
+    card["rotate_rows"] = fhe.rotate_rows(enc[0], 1, gk).data
+    CPU_CHECKS.submit(label, "cpu_bfv_path",
+                      (fhe.ctx.params, pk, sk, rlk, gk, pts, draws, levels), card)
+
+
+def cpu_bgv_multiply(prm, a, b, rlk) -> tuple[dict, dict]:
+    """check_bgv_multiply's CPU side."""
+    cpu, steps = make_context(prm, device="cpu"), {}
+    prod = timed(steps, "bgv multiply", lambda: bgv.multiply(cpu, a, b, rlk))
+    return {"BGV multiply": prod.data}, steps
 
 
 def check_bgv_multiply(prm, label: str) -> None:
     """BGV's multiply of VALS_32K at prm (B4, B7 and the plain q tables)
-    decodes PRODUCT_32K and equals the CPU plain path from the same keys
-    and ciphertexts."""
+    decodes PRODUCT_32K and equals the CPU plain path (cpu_bgv_multiply)
+    from the same keys and ciphertexts."""
     bfhe = FHE(prm, seed=11, scheme="bgv", device="cuda")
-    bcpu = make_context(prm, device="cpu")
     bpk, bsk = bfhe.keygen()
     brlk = bfhe.relinkey_gen(bsk)
     ba, bb = (bfhe.encrypt(bfhe.encode(v), bpk) for v in VALS_32K)
     bprod = bfhe.multiply(ba, bb, brlk)
-    to_cpu = lambda c: c.replace(data=c.data.cpu())
-    check(same_cts([bprod], [bgv.multiply(bcpu, to_cpu(ba), to_cpu(bb),
-                                          RelinKeys(data=brlk.data.cpu()))])
-          and [int(v) for v in bfhe.decode(bfhe.decrypt(bprod, bsk))[:3]] == PRODUCT_32K,
-          f"{label} BGV multiply: card != CPU plain path, or wrong product")
+    check([int(v) for v in bfhe.decode(bfhe.decrypt(bprod, bsk))[:3]] == PRODUCT_32K,
+          f"{label} BGV multiply: wrong product")
+    CPU_CHECKS.submit(f"{label} BGV", "cpu_bgv_multiply", (prm, ba, bb, brlk),
+                      {"BGV multiply": bprod.data})
 
 
 def phase_n32768(gen: torch.Generator) -> dict:
@@ -1997,12 +2204,16 @@ SK_DIGIT_SHAPES = ((0, 3, "random"), (0, 3, "every residue p - 1"),
                    (0, 3, "every digit b_i - 1"), (0, 6, "random"), (1, 3, "random"))
 
 
-def sk_digits_case(gen: torch.Generator, ctx, level: int, rows: int, inputs: str):
+def sk_digits_case(gen: torch.Generator, ctx, level: int, rows: int, inputs: str,
+                   cols: int = 0):
     """B6 with the digits lane from ctx's level-L Bsk base: [kb, rows, n]
     -> [k - L, rows, n] on ``inputs``: "random" residues, "every residue
     p - 1", or "every digit b_i - 1" (the aux residues whose digits
     [x_i * (B/b_i)^-1]_{b_i} are all b_i - 1, the largest terms of the
-    kernel's unreduced sums; the m_sk row at m_sk - 1)."""
+    kernel's unreduced sums; the m_sk row at m_sk - 1).  ``cols``: the
+    plain twin over that many coefficients at a time (it works coefficient
+    by coefficient; its [k, kb, rows, n] int64 terms take 34 GB at
+    k = 102, n = 131072)."""
     n = ctx.n
     sk, bsk, kl = ctx.sk_levels[level], ctx.mul_levels[level][1].primes, ctx.k - level
     if inputs == "random":
@@ -2014,11 +2225,14 @@ def sk_digits_case(gen: torch.Generator, ctx, level: int, rows: int, inputs: str
         xb = torch.stack([torch.full((rows, n), v, dtype=torch.int64, device="cuda")
                           for v in vals]).to(torch.int32)
     dig = digit_consts(ctx, level)
+    plain = lambda x: rns.fast_bconv_sk_digits(x, sk, dig[0])
     return ("fast_bconv_sk_fused",
             f"n={n}, level {level}: digits [{len(bsk)},{rows},{n}] -> [{kl},{rows},{n}], "
-            f"{inputs}",
+            f"{inputs}" + (f", plain {cols} coefficients at a time" if cols else ""),
             lambda: rns_cuda.fast_bconv_sk_fused(xb, sk, dig),
-            lambda: rns.fast_bconv_sk_digits(xb, sk, dig[0]),
+            lambda: (tuple(torch.cat(part, dim=-1) for part in zip(
+                *[plain(xb[..., c:c + cols]) for c in range(0, n, cols)]))
+                     if cols else plain(xb)),
             fast_bconv_sk_work(len(bsk), kl, rows, n, digits=True))
 
 
@@ -2146,17 +2360,23 @@ N65536_KERNELS = ("ntt_forward", "ntt_inverse", "mul_by_ntt_operand", "decrypt_f
                   "keyswitch_fused", "keyswitch_fused_galois", "tensor_product_batch",
                   "bsk_branch_fused_batch", "keyswitch_fused_batch", "ks_inner_batch",
                   "ks_inner_batch_galois", "ks_inner_grouped_galois", "automorphism_fused_sum")
-# the hoisted rotations' 8 steps at n = 65536
-HOIST_65536 = tuple(pow(3, s, 2 * 65536) for s in range(1, 9))
 
 
-def n65536_params(log_q: int):
-    return make_scheme_params(SecurityParams(poly_degree=65536, log_q=log_q, lambda_=0,
-                                             hamming_weight=16, plain_modulus=786433))
+def hoist_elements(n: int) -> tuple[int, ...]:
+    """The Galois elements of the hoisted rotations' 8 steps (STEPS) at n."""
+    return tuple(pow(3, s, 2 * n) for s in STEPS)
 
 
-def n65536_cases(gen: torch.Generator, ctx) -> list:
-    """Each kernel's n = 65536 form (the compact split) at ctx's shapes: B1
+def ring_params(n: int, log_q: int, **kw):
+    """The larger rings' sets (n = 65536 and 131072): t = 786433 (65537 is
+    not 1 mod 2n there), lambda_ = 0, h = 16."""
+    return make_scheme_params(SecurityParams(poly_degree=n, log_q=log_q, lambda_=0,
+                                             hamming_weight=16, plain_modulus=786433, **kw))
+
+
+def ring_cases(gen: torch.Generator, ctx) -> list:
+    """Each kernel's form at ctx's ring (the compact split at n = 65536, the
+    quarter split at 131072) at ctx's shapes: B1
     at [k,1,n] and keygen's [k,3,n]; B2 at [k,1,n], on rows off 16 bytes and
     mod t; B3/B13 (encrypt's pk * u, c = 2) single and B = 2; B4/B11, B5
     and B7/B12 (classic at kd = k) single and B = 2; B7's Galois lane at
@@ -2202,25 +2422,26 @@ def grouped_per_stack(dg, keys, tb, elements, c0) -> torch.Tensor:
                                                c0[:, c]) for c in range(dg.shape[2])], dim=2)
 
 
-def n65536_hoist_cases(gen: torch.Generator, ctx) -> list:
-    """The hoisted rotations' kernels at ctx's n = 65536 shapes: B17 on the
-    compact split, its Inner lane and its Galois lane against one shared
-    digit stack and E = 8 key sets (kd = k), a sum_slots stage (B17's Inner
-    lane against 3 key sets, then B15 on its rows), B18's Galois lane at
-    C x E = 4 x 8 (above k = 3 against ks_inner_batch's twin per stack,
-    grouped_per_stack), and B14 (B = 2, shared c0) and B16 (g = 3), which
-    take any n."""
+def ring_hoist_cases(gen: torch.Generator, ctx, key_sets: int = BATCH,
+                     stacks: int = C_HOIST) -> list:
+    """The hoisted rotations' kernels at ctx's shapes (n = 65536 and 131072):
+    B17 on the compact split, its Inner lane and its Galois lane against
+    one shared digit stack and E = ``key_sets`` key sets (kd = k), a
+    sum_slots stage (B17's Inner lane against 3 key sets, then B15 on its
+    rows), B18's Galois lane at C x E = ``stacks`` x ``key_sets`` (above
+    k = 3 against ks_inner_batch's twin per stack, grouped_per_stack), and
+    B14 (B = 2, shared c0) and B16 (g = 3), which take any n."""
     k, n = ctx.k, ctx.n
     tb, qs = level_tables(ctx, 0, "q"), ctx.ntt_q.primes
     label = f"n={n}, k={k}"
     per_stack = k > 3
-    cases = [ks_inner_case(gen, ctx, 0, k, 1, BATCH, False, label),
-             ks_inner_case(gen, ctx, 0, k, 1, BATCH, False, label, lane="galois"),
+    cases = [ks_inner_case(gen, ctx, 0, k, 1, key_sets, False, label),
+             ks_inner_case(gen, ctx, 0, k, 1, key_sets, False, label, lane="galois"),
              ks_inner_case(gen, ctx, 0, k, 1, 3, False, f"{label}, a sum_slots stage"),
-             ks_inner_case(gen, ctx, 0, k, C_HOIST, BATCH, True,
+             ks_inner_case(gen, ctx, 0, k, stacks, key_sets, True,
                            label + (", plain per stack" if per_stack else ""), lane="galois",
                            plain=grouped_per_stack if per_stack else None)]
-    hs3 = tuple(pow(g, -1, 2 * n) for g in HOIST_65536[:3])
+    hs3 = tuple(pow(g, -1, 2 * n) for g in hoist_elements(n)[:3])
     x_sum = residues(gen, qs, 2 * 3, n).view(k, 2, 3, n)
     c0_sum, base_sum = residues(gen, qs, 1, n)[:, 0], residues(gen, qs, 2, n)
     cases.append(("automorphism_fused_sum",
@@ -2244,6 +2465,23 @@ def n65536_hoist_cases(gen: torch.Generator, ctx) -> list:
     return cases
 
 
+def multiply_kernel_cases(gen: torch.Generator, ctx, step: int = 0) -> list:
+    """The multiply's cluster kernels at ctx's set: B4, B5, B7 at kd = k
+    (B5's and B7's plain twins ``step`` output primes at a time where
+    given) and B8."""
+    k, n = ctx.k, ctx.n
+    label = f"n={n}, k={k}"
+    s = residues(gen, ctx.ntt_q.primes, 1, n)
+    ct = residues(gen, ctx.ntt_q.primes, 2, n)
+    dec_args = (ct[:, 0:1], ct[:, 1:2], s, ctx.ntt_q, ctx.dec_levels[0])
+    return [product_case(gen, ctx, 0, "mul", None, label),
+            bsk_case(gen, ctx, 0, None, label, step),
+            keyswitch_case(gen, ctx, 0, k, None, False, label, step),
+            ("decrypt_fused", f"{label}: views of [{k},2,{n}], t={ctx.params.t}",
+             lambda: decrypt_cuda.decrypt_fused(*dec_args),
+             lambda: decrypt_cuda.decrypt_fused_plain(*dec_args), decrypt_work(k, 1, n))]
+
+
 def deep_cases(gen: torch.Generator, ctx59) -> list:
     """The multiply's kernels past 30 primes at n = 65536, log_q = 1770
     (ctx59: k = 59, kb = 63, kd = 59): B4, B5, B7 (kd = 59) and B8 on the
@@ -2254,18 +2492,8 @@ def deep_cases(gen: torch.Generator, ctx59) -> list:
     [60,3,n], and at [68,3,n] (log_q = 1920); the Floor and FloorSK (with
     digits) lanes from k = 59 and 64 q primes at n = 256 (kb = 62 and 68);
     the Lift lane from k = 59 at n = 256."""
-    k, n = ctx59.k, ctx59.n
-    label = f"n={n}, k={k}"
-    s = residues(gen, ctx59.ntt_q.primes, 1, n)
-    ct = residues(gen, ctx59.ntt_q.primes, 2, n)
-    dec_args = (ct[:, 0:1], ct[:, 1:2], s, ctx59.ntt_q, ctx59.dec_levels[0])
-    path = [product_case(gen, ctx59, 0, "mul", None, label),
-            bsk_case(gen, ctx59, 0, None, label),
-            keyswitch_case(gen, ctx59, 0, k, None, False, label),
-            ("decrypt_fused", f"{label}: views of [{k},2,{n}], t={ctx59.params.t}",
-             lambda: decrypt_cuda.decrypt_fused(*dec_args),
-             lambda: decrypt_cuda.decrypt_fused_plain(*dec_args), decrypt_work(k, 1, n))]
-    ctx64 = make_context(n65536_params(N65536_DEEPEST), device="cuda")
+    path = multiply_kernel_cases(gen, ctx59)
+    ctx64 = make_context(ring_params(65536, N65536_DEEPEST), device="cuda")
     small = [make_context(make_scheme_params(SecurityParams(
         poly_degree=256, log_q=log_q, lambda_=0, hamming_weight=16)), device="cuda")
         for log_q in (1770, N65536_DEEPEST)]
@@ -2288,15 +2516,15 @@ def deep_cases(gen: torch.Generator, ctx59) -> list:
     return cases + [lift_case(gen, small[0], 0, f"k={small[0].k}: ")]
 
 
-def n65536_hoisted_run(fhe: FHE, sk: SecretKey, pk: PublicKey, batch: bool) -> dict:
-    """The hoisted rotations through the facade at an n = 65536 set:
+def hoisted_run(fhe: FHE, sk: SecretKey, pk: PublicKey, batch: bool) -> dict:
+    """The hoisted rotations through the facade at a set of the larger rings:
     rotate_rows_hoisted of 8 steps, and with ``batch`` also
     rotate_rows_hoisted_batch of C_HOIST ciphertexts and sum_slots; each
     rotation decodes to its rotated row, element [c][e] of the batch equals
     the single hoisted call, and sum_slots decodes the sum in every slot."""
     n, label = fhe.ctx.n, f"n={fhe.ctx.n}, k={fhe.ctx.k}"
     dec = lambda c: [int(v) for v in fhe.decode(fhe.decrypt(c, sk))]
-    gk = fhe.galoiskey_gen(sk, elements=HOIST_65536)
+    gk = fhe.galoiskey_gen(sk, elements=hoist_elements(n))
     ct = fhe.encrypt(fhe.encode(VALS_H), pk)
     outs = fhe.rotate_rows_hoisted(ct, STEPS, gk)
     for s, out in zip(STEPS, outs):
@@ -2321,29 +2549,38 @@ def n65536_hoisted_run(fhe: FHE, sk: SecretKey, pk: PublicKey, batch: bool) -> d
     return run
 
 
+def cpu_hoisted(prm, elements, ct, gk, cts, gk_ss) -> tuple[dict, dict]:
+    """check_hoisted_vs_cpu's CPU side: apply_galois_hoisted of ct, and
+    where cts is given apply_galois_hoisted_batch of cts and sum_slots of
+    ct."""
+    cpu, steps = make_context(prm, device="cpu"), {}
+    out = {"rotate_rows_hoisted": timed(steps, "rotate_rows_hoisted", lambda: [
+        c.data for c in bfv.apply_galois_hoisted(cpu, ct, elements, gk)])}
+    if cts is not None:
+        out["rotate_rows_hoisted_batch"] = timed(steps, "rotate_rows_hoisted_batch", lambda: [
+            [c.data for c in row] for row in bfv.apply_galois_hoisted_batch(cpu, cts, elements,
+                                                                             gk)])
+        out["sum_slots"] = timed(steps, "sum_slots",
+                                 lambda: FHE(prm, device="cpu").sum_slots(ct, gk_ss).data)
+    return out, steps
+
+
 def check_hoisted_vs_cpu(fhe: FHE, run: dict) -> None:
-    """The card's hoisted calls of n65536_hoisted_run equal the CPU plain
-    path on the same ciphertexts and keys."""
-    cpu = make_context(fhe.ctx.params, device="cpu")
-    label = f"n={fhe.ctx.n}, k={fhe.ctx.k}"
-    to_cpu = lambda c: c.replace(data=c.data.cpu())
-    gk = GaloisKeys(data={g: v.cpu() for g, v in run["gk"].data.items()})
-    check(same_cts(run["outs"], bfv.apply_galois_hoisted(cpu, to_cpu(run["ct"]), HOIST_65536,
-                                                         gk)),
-          f"{label} rotate_rows_hoisted: card != CPU plain path")
+    """The card's hoisted calls of hoisted_run equal the CPU plain path
+    (cpu_hoisted, on the CPU worker) on the same ciphertexts and keys."""
+    label = f"n={fhe.ctx.n}, k={fhe.ctx.k} hoisted"
+    card = {"rotate_rows_hoisted": [c.data for c in run["outs"]]}
     if "outs_b" in run:
-        plain_b = bfv.apply_galois_hoisted_batch(cpu, [to_cpu(c) for c in run["cts"]],
-                                                 HOIST_65536, gk)
-        check(all(same_cts(a, b) for a, b in zip(run["outs_b"], plain_b)),
-              f"{label} rotate_rows_hoisted_batch: card != CPU plain path")
-        cpu_fhe = FHE(fhe.ctx.params, device="cpu")
-        gk_ss = GaloisKeys(data={g: v.cpu() for g, v in run["gk_ss"].data.items()})
-        check(same_cts([run["total"]], [cpu_fhe.sum_slots(to_cpu(run["ct"]), gk_ss)]),
-              f"{label} sum_slots: card != CPU plain path")
+        card["rotate_rows_hoisted_batch"] = [[c.data for c in row] for row in run["outs_b"]]
+        card["sum_slots"] = run["total"].data
+    CPU_CHECKS.submit(label, "cpu_hoisted",
+                      (fhe.ctx.params, hoist_elements(fhe.ctx.n), run["ct"], run["gk"],
+                       run.get("cts"), run.get("gk_ss")), card)
 
 
-def n65536_run(fhe: FHE) -> dict:
-    """The BFV path through the facade at one n = 65536 set: keygen, relin
+def ring_run(fhe: FHE) -> dict:
+    """The BFV path through the facade at one set of the larger rings
+    (n = 65536 and 131072): keygen, relin
     and Galois (3) keys, encrypt, multiply, multiply_batch at B = 2,
     multiply_no_relin then relinearize, rotate_rows by 1 and decrypt; each
     decoded, the batch and the relinearized product equal to the multiply."""
@@ -2369,67 +2606,127 @@ def n65536_run(fhe: FHE) -> dict:
     return dict(pk=pk, sk=sk, rlk=rlk, gk=gk, ca=ca, cb=cb, raw=raw, prod=prod)
 
 
+def ring_times(fhe: FHE, r: dict) -> dict:
+    """Device and wall ms of ring_run's ops at fhe's set."""
+    n, k = fhe.ctx.n, fhe.ctx.k
+    pt = fhe.encode(VALS_32K[0])
+    ops = (("multiply_relin", lambda: fhe.multiply(r["ca"], r["cb"], r["rlk"])),
+           ("relinearize", lambda: fhe.relinearize(r["raw"], r["rlk"])),
+           ("rotate_rows", lambda: fhe.rotate_rows(r["ca"], 1, r["gk"])),
+           ("encrypt", lambda: fhe.encrypt(pt, r["pk"])),
+           ("decrypt", lambda: fhe.decrypt(r["prod"], r["sk"])))
+    return {f"{op}_ms_n{n}_k{k}": {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
+            for op, fn in ops}
+
+
+def hoisted_times(fhe: FHE, h: dict) -> dict:
+    """Device and wall ms of hoisted_run's calls at fhe's set."""
+    n, k = fhe.ctx.n, fhe.ctx.k
+    ops = {"rotate_rows_hoisted_8": lambda: fhe.rotate_rows_hoisted(h["ct"], STEPS, h["gk"])}
+    if "cts" in h:
+        ops[f"rotate_rows_hoisted_batch_{C_HOIST}x8"] = \
+            lambda: fhe.rotate_rows_hoisted_batch(h["cts"], STEPS, h["gk"])
+        ops["sum_slots"] = lambda: fhe.sum_slots(h["ct"], h["gk_ss"])
+    return {f"{op}_ms_n{n}_k{k}": {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
+            for op, fn in ops.items()}
+
+
+# ks_omega = 2 on the split rings: log_q = 120 (k = 4, kd = 2), the kernels
+# it runs besides the classic path's (the prereduced lanes of B7 and B12,
+# and B14 and B16 as launches of their own)
+OMEGA_SPLIT_LOG_Q = 120
+OMEGA_SPLIT_KERNELS = ("keyswitch_fused_prereduced", "keyswitch_fused_batch_prereduced",
+                       "automorphism_single", "automorphism_fused")
+
+
+def omega2_run(n: int) -> dict:
+    """ks_omega = 2 at n (65536 on the compact split, 131072 on the quarter
+    split), log_q = OMEGA_SPLIT_LOG_Q (k = 4, kd = 2), ring_params' t,
+    lambda_ and h, seed 11, through the facade: keys, encrypt, multiply,
+    rotate_rows by 1 and rotate_rows_batch by 1 at B = 2, each decoded, the
+    batch element equal to the single rotation."""
+    fhe = FHE(ring_params(n, OMEGA_SPLIT_LOG_Q, ks_omega=2), seed=11, device="cuda")
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    gk = fhe.galoiskey_gen(sk, elements=(3,))
+    label = f"n={n}, k={fhe.ctx.k}, ks_omega=2"
+    check((fhe.ctx.k, rlk.data.shape[0]) == (4, 2), f"{label}: kd {rlk.data.shape[0]}")
+    ca, cb = (fhe.encrypt(fhe.encode(v), pk) for v in VALS_32K)
+    prod, rot = fhe.multiply(ca, cb, rlk), fhe.rotate_rows(ca, 1, gk)
+    rots = fhe.rotate_rows_batch([ca, cb], 1, gk)
+    dec = lambda ct, count=3: [int(v) for v in fhe.decode(fhe.decrypt(ct, sk))[:count]]
+    check(dec(prod) == PRODUCT_32K, f"{label} multiply decoded {dec(prod)}")
+    check(dec(rot, n // 2) == rotated(VALS_32K[0], 1, n), f"{label} rotate_rows decoded wrong")
+    check(torch.equal(rots[0].data, rot.data)
+          and dec(rots[1], n // 2) == rotated(VALS_32K[1], 1, n),
+          f"{label} rotate_rows_batch differs from rotate_rows or decoded wrong")
+    return dict(fhe=fhe, pk=pk, sk=sk, rlk=rlk, gk=gk, ca=ca, cb=cb, label=label)
+
+
+def omega2_times(o: dict) -> dict:
+    fhe, n = o["fhe"], o["fhe"].ctx.n
+    ops = (("multiply_relin", lambda: fhe.multiply(o["ca"], o["cb"], o["rlk"])),
+           ("rotate_rows", lambda: fhe.rotate_rows(o["ca"], 1, o["gk"])))
+    return {f"{op}_ms_omega2_n{n}_k{fhe.ctx.k}": {"device_ms": device_ms(fn),
+                                                 "wall_ms": wall_ms(fn)} for op, fn in ops}
+
+
 def phase_n65536(gen: torch.Generator) -> dict:
     """The ring n = 65536 on the card at the sets of N65536_LOG_Q: each
     kernel's compact form against its plain twin at k = 3 and 30
-    (n65536_cases), B17/B18, B14, B15 and B16 at k = 3 and 30
-    (n65536_hoist_cases), and at k = 59 the multiply's kernels, the deep
+    (ring_cases), B17/B18, B14, B15 and B16 at k = 3 and 30
+    (ring_hoist_cases), and at k = 59 the multiply's kernels, the deep
     base conversion and the Lift lane past 32 primes (deep_cases); then,
     with the counts zeroed, the BFV path through the facade at every set
-    (n65536_run), with the hoisted rotations, their batch and sum_slots at
-    k = 3 and the hoisted rotations at k = 30 (n65536_hoisted_run), every
-    kernel of N65536_KERNELS launched; the card == the CPU plain path from
-    the same keys and noise for encrypt_from_noise, the multiply, decrypt
-    and rotate_rows at every set, for BGV's multiply at k = 3 and 30, and
-    for the hoisted calls; device and wall ms of the multiply, relinearize,
-    rotate_rows, encrypt, decrypt and the hoisted calls; the phase's seconds
-    in its kernel cases, the path on the card and the CPU plain path's
-    checks.  Returns the path's launches."""
+    (ring_run), with the hoisted rotations, their batch and sum_slots at
+    k = 3 and the hoisted rotations at k = 30 (hoisted_run), and
+    ks_omega = 2 at log_q = 120 (omega2_run), every kernel of
+    N65536_KERNELS and OMEGA_SPLIT_KERNELS launched; the card == the CPU
+    plain path from the same keys and noise for encrypt_from_noise, the
+    multiply, decrypt and rotate_rows at every set and at ks_omega = 2, for
+    BGV's multiply at k = 3 and 30, and for the hoisted calls (their CPU
+    side on the CPU worker, CPU_CHECKS); device and wall ms of the
+    multiply, relinearize, rotate_rows, encrypt, decrypt and the hoisted
+    calls; the phase's seconds in its kernel cases, the path on the card
+    and the CPU checks' card side and hand-over.  Returns the path's
+    launches."""
     t0 = time.perf_counter()
-    fhes = [FHE(n65536_params(log_q), seed=11, device="cuda") for log_q in N65536_LOG_Q]
+    fhes = [FHE(ring_params(65536, log_q), seed=11, device="cuda") for log_q in N65536_LOG_Q]
     counts = [(f.ctx.k, f.ctx.mul_tables[1].k, f.ctx.params.t) for f in fhes]
     check(counts == [(3, 5, 786433), (30, 33, 786433), (59, 63, 786433)],
           f"n=65536: k, kb, t {counts}")
     for f in fhes[:2]:
-        run_cases(n65536_cases(gen, f.ctx) + n65536_hoist_cases(gen, f.ctx),
+        run_cases(ring_cases(gen, f.ctx) + ring_hoist_cases(gen, f.ctx),
                   "phase n65536 kernel")
     run_cases(deep_cases(gen, fhes[2].ctx), "phase n65536 kernel")
     t_cases = time.perf_counter() - t0
     reset_counts()
-    runs = [n65536_run(f) for f in fhes]
-    hoisted = [n65536_hoisted_run(f, r["sk"], r["pk"], batch=f.ctx.k == 3)
+    runs = [ring_run(f) for f in fhes]
+    hoisted = [hoisted_run(f, r["sk"], r["pk"], batch=f.ctx.k == 3)
                for f, r in zip(fhes[:2], runs)]
+    omega = omega2_run(65536)
     torch.cuda.synchronize()
     launches = read_counts()
-    t_path, t_cpu = time.perf_counter() - t0 - t_cases, 0.0
+    t_path, t_cpu = time.perf_counter() - t0 - t_cases, time.perf_counter()
     print("phase n65536 launches", json.dumps({k: v for k, v in launches.items() if v}))
-    for name in N65536_KERNELS:
+    for name in N65536_KERNELS + OMEGA_SPLIT_KERNELS:
         check(launches[name] > 0, f"{name} was never launched on the n=65536 path")
-    times = {}
     for fhe, r in zip(fhes, runs):
-        k, t = fhe.ctx.k, time.perf_counter()
+        k = fhe.ctx.k
         check_card_vs_cpu(fhe, r["pk"], r["sk"], r["rlk"], r["gk"], f"n=65536, k={k}")
         if k <= 30:
             check_bgv_multiply(fhe.ctx.params, f"n=65536, k={k}")
-        t_cpu += time.perf_counter() - t
-        pt = fhe.encode(VALS_32K[0])
-        for op, fn in (("multiply_relin", lambda: fhe.multiply(r["ca"], r["cb"], r["rlk"])),
-                       ("relinearize", lambda: fhe.relinearize(r["raw"], r["rlk"])),
-                       ("rotate_rows", lambda: fhe.rotate_rows(r["ca"], 1, r["gk"])),
-                       ("encrypt", lambda: fhe.encrypt(pt, r["pk"])),
-                       ("decrypt", lambda: fhe.decrypt(r["prod"], r["sk"]))):
-            times[f"{op}_ms_n65536_k{k}"] = {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
     for fhe, h in zip(fhes, hoisted):
-        k, t = fhe.ctx.k, time.perf_counter()
         check_hoisted_vs_cpu(fhe, h)
-        t_cpu += time.perf_counter() - t
-        ops = {"rotate_rows_hoisted_8": lambda: fhe.rotate_rows_hoisted(h["ct"], STEPS, h["gk"])}
-        if "cts" in h:
-            ops[f"rotate_rows_hoisted_batch_{C_HOIST}x8"] = \
-                lambda: fhe.rotate_rows_hoisted_batch(h["cts"], STEPS, h["gk"])
-            ops["sum_slots"] = lambda: fhe.sum_slots(h["ct"], h["gk_ss"])
-        for op, fn in ops.items():
-            times[f"{op}_ms_n65536_k{k}"] = {"device_ms": device_ms(fn), "wall_ms": wall_ms(fn)}
+    check_card_vs_cpu(omega["fhe"], omega["pk"], omega["sk"], omega["rlk"], omega["gk"],
+                      omega["label"])
+    t_cpu = time.perf_counter() - t_cpu
+    times = {}
+    for fhe, r in zip(fhes, runs):
+        times.update(ring_times(fhe, r))
+    for fhe, h in zip(fhes, hoisted):
+        times.update(hoisted_times(fhe, h))
+    times.update(omega2_times(omega))
     print("phase n65536 check: n=65536, t=786433, log_q=90 (k=3, kb=5, kd=3), 900 (k=30, "
           "kb=33, kd=30) and 1770 (k=59, kb=63, kd=59): B1, B2, B3/B13, B4/B11, B5, B7/B12 "
           "(classic, Galois, prereduced) and B8 on the compact split == their plain twins "
@@ -2441,11 +2738,97 @@ def phase_n65536(gen: torch.Generator) -> dict:
           f"multiply, multiply_batch (B=2), relinearize decoded {PRODUCT_32K}, rotate_rows "
           "by 1 decoded at every set, BGV's multiply at k=3 and 30; rotate_rows_hoisted "
           "(8 steps) at k=3 and 30, rotate_rows_hoisted_batch (4x8) and sum_slots at k=3 "
-          "decoded; card == CPU plain path for encrypt_from_noise, multiply, decrypt, "
-          "rotate_rows at every set, BGV's multiply, and the hoisted calls")
+          "decoded; ks_omega=2 at log_q=120 (k=4, kd=2): multiply, rotate_rows and "
+          "rotate_rows_batch decoded; card == CPU plain path (on the CPU worker, compared "
+          "at the end) for encrypt_from_noise, multiply, decrypt, rotate_rows at every set "
+          "and at ks_omega=2, BGV's multiply, and the hoisted calls")
     print("phase n65536", json.dumps({"card": card_name(), **times, "cases_seconds": t_cases,
                                       "path_seconds": t_path, "cpu_check_seconds": t_cpu,
                                       "seconds": time.perf_counter() - t0}))
+    return launches
+
+
+# the ring n = 131072 on the quarter split (four CTAs a row) at log_q = 90
+# (k = 3, kb = 5, kd = 3), 900 (k = 30, kb = 33), 1770 (k = 59, kb = 63)
+# and 3060 (k = 102, kb = 107: the largest set JAX's 30-bit primes give at
+# this ring), ring_params' t, lambda_ and h
+N131072 = 131072
+N131072_LOG_Q = (90, 900, 1770, 3060)
+N131072_KERNELS = N65536_KERNELS + OMEGA_SPLIT_KERNELS
+# the plain twins of B5 and B7 at k = 59 and 102 over this many output primes
+# at a time (B6's over n/8 coefficients)
+N131072_PLAIN_STEP = 16
+
+
+def phase_n131072(gen: torch.Generator) -> dict:
+    """The ring n = 131072 on the card at the sets of N131072_LOG_Q: each
+    kernel's quarter-split form against its plain twin at k = 3 and 30
+    (ring_cases: B1, B2, B3/B13, B4/B11, B5, B7/B12 in every lane and B8,
+    single and B = 2; ring_hoist_cases: B17's Inner and Galois lanes, a
+    sum_slots stage, B18's Galois lane, B14, B15 and B16, at k = 30 with
+    two key sets and two stacks), and at k = 59 and 102 the multiply's
+    kernels (B4, B5, B7 at kd = k, B8) and B6's deep instance at
+    [kb, 3, n]; then, with the counts zeroed, the BFV path through the
+    facade at every set (ring_run), the hoisted rotations, their batch and
+    sum_slots at k = 3 (hoisted_run) and ks_omega = 2 at log_q = 120
+    (omega2_run), every kernel of N131072_KERNELS launched; the card == the
+    CPU plain path (on the CPU worker) for encrypt_from_noise, the
+    multiply, decrypt and rotate_rows at k = 3 and 30 and at ks_omega = 2,
+    and for the hoisted calls at k = 3; device and wall ms of the ops; the
+    card's peak memory; the phase's seconds in its kernel cases, the path
+    and the CPU checks' card side and hand-over.  Returns the path's
+    launches."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    fhes = [FHE(ring_params(N131072, log_q), seed=11, device="cuda") for log_q in N131072_LOG_Q]
+    counts = [(f.ctx.k, f.ctx.mul_tables[1].k) for f in fhes]
+    check(counts == [(3, 5), (30, 33), (59, 63), (102, 107)], f"n=131072: k, kb {counts}")
+    tag = "phase n131072 kernel"
+    run_cases(ring_cases(gen, fhes[0].ctx) + ring_hoist_cases(gen, fhes[0].ctx), tag)
+    run_cases(ring_cases(gen, fhes[1].ctx), tag)
+    run_cases(ring_hoist_cases(gen, fhes[1].ctx, key_sets=2, stacks=2), tag)
+    for f in fhes[2:]:
+        run_cases(multiply_kernel_cases(gen, f.ctx, N131072_PLAIN_STEP)
+                  + [sk_digits_case(gen, f.ctx, 0, 3, "random", N131072 // 8)], tag)
+    t_cases = time.perf_counter() - t0
+    reset_counts()
+    runs = [ring_run(f) for f in fhes]
+    hoisted = hoisted_run(fhes[0], runs[0]["sk"], runs[0]["pk"], batch=True)
+    omega = omega2_run(N131072)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    t_path, t_cpu = time.perf_counter() - t0 - t_cases, time.perf_counter()
+    print("phase n131072 launches", json.dumps({k: v for k, v in launches.items() if v}))
+    for name in N131072_KERNELS:
+        check(launches[name] > 0, f"{name} was never launched on the n=131072 path")
+    for fhe, r in zip(fhes[:2], runs):
+        check_card_vs_cpu(fhe, r["pk"], r["sk"], r["rlk"], r["gk"], f"n={N131072}, k={fhe.ctx.k}")
+    check_hoisted_vs_cpu(fhes[0], hoisted)
+    check_card_vs_cpu(omega["fhe"], omega["pk"], omega["sk"], omega["rlk"], omega["gk"],
+                      omega["label"])
+    t_cpu = time.perf_counter() - t_cpu
+    times = {}
+    for fhe, r in zip(fhes, runs):
+        times.update(ring_times(fhe, r))
+    times.update(hoisted_times(fhes[0], hoisted))
+    times.update(omega2_times(omega))
+    print("phase n131072 check: n=131072, t=786433, log_q=90 (k=3, kb=5, kd=3), 900 (k=30, "
+          "kb=33, kd=30), 1770 (k=59, kb=63, kd=59) and 3060 (k=102, kb=107, kd=102): B1, "
+          "B2, B3/B13, B4/B11, B5, B7/B12 (classic, Galois, prereduced) and B8 on the quarter "
+          "split == their plain twins at k=3 and 30, B4, B5, B7, B8 and B6 (the deep "
+          "instance) at k=59 and 102; B17 (Inner and Galois lanes), a sum_slots stage, B18's "
+          "Galois lane, B14, B15 and B16 at k=3 and 30 == their plain twins; keys, encrypt, "
+          f"multiply, multiply_batch (B=2), relinearize decoded {PRODUCT_32K}, rotate_rows "
+          "by 1 decoded at every set; rotate_rows_hoisted (8 steps), "
+          "rotate_rows_hoisted_batch (4x8) and sum_slots at k=3 decoded; ks_omega=2 at "
+          "log_q=120 (k=4, kd=2): multiply, rotate_rows and rotate_rows_batch decoded; card "
+          "== CPU plain path (on the CPU worker, compared at the end) for "
+          "encrypt_from_noise, multiply, decrypt and rotate_rows at k=3 and 30 and at "
+          "ks_omega=2, and the hoisted calls at k=3")
+    print("phase n131072", json.dumps({
+        "card": card_name(), **times, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "cases_seconds": t_cases, "path_seconds": t_path, "cpu_check_seconds": t_cpu,
+        "seconds": time.perf_counter() - t0}))
     return launches
 
 
@@ -4347,19 +4730,23 @@ def main() -> int:
     phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    results = phase_kernels(gen)
-    phase_geometry()
-    phase_n16384()
-    launches = {"n32768": phase_n32768(gen), "secure128": phase_secure128(gen),
-                "n65536": phase_n65536(gen),
-                "slice": phase_slice(), "multiply": phase_multiply(),
-                "serving": phase_serving(), "hoisted": phase_hoisted(),
-                "omega": phase_omega(), "leveled": phase_leveled(),
-                "small": phase_small(), "roofline": phase_roofline(gen),
-                "bgv": phase_bgv(), "bootstrap": phase_bootstrap(gen),
-                "plain_ops": phase_plain_ops(gen), "mxu": phase_mxu(gen),
-                "examples": phase_examples(), "fuzz": phase_fuzz(),
-                "parallel": phase_parallel()}
+    try:
+        results = phase_kernels(gen)
+        phase_geometry()
+        phase_n16384()
+        launches = {"n32768": phase_n32768(gen), "secure128": phase_secure128(gen),
+                    "n65536": phase_n65536(gen), "n131072": phase_n131072(gen),
+                    "slice": phase_slice(), "multiply": phase_multiply(),
+                    "serving": phase_serving(), "hoisted": phase_hoisted(),
+                    "omega": phase_omega(), "leveled": phase_leveled(),
+                    "small": phase_small(), "roofline": phase_roofline(gen),
+                    "bgv": phase_bgv(), "bootstrap": phase_bootstrap(gen),
+                    "plain_ops": phase_plain_ops(gen), "mxu": phase_mxu(gen),
+                    "examples": phase_examples(), "fuzz": phase_fuzz(),
+                    "parallel": phase_parallel()}
+        print("phase cpu_checks", json.dumps(CPU_CHECKS.finish()))
+    finally:
+        CPU_CHECKS.close(terminate=True)
     rows = []
     for name, meta in KERNELS.items():
         r = results[name]
@@ -4370,7 +4757,7 @@ def main() -> int:
                      "bootstrap_launches": launches["bootstrap"][name],
                      **{f"{path}_launches": launches[path][name]
                         for path in ("plain_ops", "mxu", "examples", "fuzz", "parallel",
-                                     "n32768", "secure128", "n65536")},
+                                     "n32768", "secure128", "n65536", "n131072")},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,

@@ -217,19 +217,22 @@ decrypt_fused_kernel(const uint32_t* __restrict__ c0, const uint32_t* __restrict
 }
 
 // The compact form (n = 65536, where one padded row exceeds a block's
-// shared memory): each prime's row is split over a pair of CTAs on the
-// compact split of modmath.cuh, a padded half row each (132 KB).  Cluster
-// of C = 2P CTAs per ciphertext row b, P = min(k, 4) pairs (a portable
-// cluster of 8 at most), grid (C, batch); CTA 2q + h of pair q takes, with
-// its partner, the primes q, q + P, ... in ceil(k / P) rounds (a pair
-// without a prime in the last round takes the three cluster barriers of
-// the peers' transforms).  The inverse's last pass hands CTA h the columns
-// [h n/32, (h+1) n/32) of the row, element base + (g << (log n - 4)) of
-// column base, which it accumulates at g n/32 + base - h n/32 of its acc_t
-// and acc_g, n/2 words each at scratch + (b * C + rank) * n (and + n/2):
-// the same words from the same thread for every prime.  After the cluster
-// barrier, CTA `rank` owns coefficients [rank n / C, (rank + 1) n / C) and
-// sums the P partials of each (from the pairs' CTAs of its column half).
+// shared memory): each prime's row is split over a pair of CTAs (H = 2) on
+// the compact split of modmath.cuh, a padded half row each (132 KB); at
+// n = 131072 over four (H = 4, the quarter split), a padded quarter row
+// each.  Cluster of C = H P CTAs per ciphertext row b, P = min(k, 8 / H)
+// groups (a portable cluster of 8 at most), grid (C, batch); CTA H q + h
+// of group q takes, with its peers, the primes q, q + P, ... in
+// ceil(k / P) rounds (a group without a prime in the last round takes the
+// three cluster barriers of the peers' transforms).  The inverse's last
+// pass hands CTA h the columns [h n/16H, (h+1) n/16H) of the row, element
+// base + (g << (log n - 4)) of column base, which it accumulates at
+// g n/16H + base - h n/16H of its acc_t and acc_g, n/H words each at
+// scratch + (b * C + rank) * 2n/H (and + n/H): the same words from the
+// same thread for every prime.  After the cluster barrier, CTA `rank` owns
+// coefficients [rank n / C, (rank + 1) n / C) and sums the P partials of
+// each (from the groups' CTAs of its column share).
+template <int H>
 __global__ void __launch_bounds__(512)
 decrypt_fused_compact_kernel(const uint32_t* __restrict__ c0, const uint32_t* __restrict__ c1,
                              long long prime_stride, long long batch_stride,
@@ -250,21 +253,20 @@ decrypt_fused_compact_kernel(const uint32_t* __restrict__ c0, const uint32_t* __
   extern __shared__ uint32_t a[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
-  const int half = n / kRowSplit;
+  constexpr int logH = fhe::log2_of<H>();
+  const int half = n / H;                        // a CTA's share of the row
+  const int cta_words = n / (H / kRowSplit);     // a CTA's acc_t and acc_g
   const int rank = static_cast<int>(cluster.block_rank());
   const int csize = static_cast<int>(cluster.num_blocks());
-  const int pairs = csize / kRowSplit;
-  const int q = rank / kRowSplit, h = rank % kRowSplit;
+  const int pairs = csize / H;
+  const int q = rank / H, h = rank % H;
   const int b = blockIdx.y;
-  const int first = h * half;                 // a[]'s first position
-  const int logc = logn - fhe::kRegLog - 1;   // log2 of a CTA's columns, n/32
-  uint32_t* ours = scratch + static_cast<size_t>(b) * csize * n;
-  uint32_t* acc_t = ours + static_cast<size_t>(rank) * n;
+  const int first = h * half;                    // a[]'s first position
+  const int logc = logn - fhe::kRegLog - logH;   // log2 of a CTA's columns, n/16H
+  uint32_t* ours = scratch + static_cast<size_t>(b) * csize * cta_words;
+  uint32_t* acc_t = ours + static_cast<size_t>(rank) * cta_words;
   uint32_t* acc_g = acc_t + half;
-  static_assert(kRowSplit == 2, "the split below names both CTAs of a row");
-  const fhe::RowSplit<kRowSplit> split{{cluster.map_shared_rank(a, q * kRowSplit),
-                                        cluster.map_shared_rank(a, q * kRowSplit + 1)},
-                                       h};
+  const auto split = fhe::row_split<H>(cluster, a, q * H, h);
   auto sync = [&] { cluster.sync(); };
   const int rounds = (k + pairs - 1) / pairs;
   for (int m = 0; m < rounds; ++m) {
@@ -282,7 +284,7 @@ decrypt_fused_compact_kernel(const uint32_t* __restrict__ c0, const uint32_t* __
     const long long row = i * prime_stride + b * batch_stride;
     const uint32_t* c1r = c1 + row;
     const uint32_t* si = s + tab;
-    fhe::fwd_ntt_regs_split<kRowSplit, true>(
+    fhe::fwd_ntt_regs_split<H, true>(
         a, split, sync, logn, pi, psi + tab, psi_sh + tab,
         [&](auto& x, int base, int logs) {
 #pragma unroll
@@ -293,10 +295,10 @@ decrypt_fused_compact_kernel(const uint32_t* __restrict__ c0, const uint32_t* __
     const PrimeTerms pc{pi, gt_inv_phat[i], gt_inv_phat_sh[i], phat_t[i], phat_t_sh[i],
                         phat_g[i]};
     const uint32_t* c0r = c0 + row;
-    fhe::inv_ntt_regs_split<kRowSplit, true>(
+    fhe::inv_ntt_regs_split<H, true>(
         a, split, sync, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i],
         fhe::SmemLoadFrom{a, first}, [&](auto& x, int base, int logs) {
-          // a column group: base in [h n/32, (h+1) n/32), logs = log n - 4
+          // a column group: base in [h n/16H, (h+1) n/16H), logs = log n - 4
           const int col = base - (h << logc);
 #pragma unroll
           for (int g = 0; g < static_cast<int>(sizeof(x) / sizeof(x[0])); ++g) {
@@ -312,13 +314,13 @@ decrypt_fused_compact_kernel(const uint32_t* __restrict__ c0, const uint32_t* __
   const int hi = static_cast<int>((static_cast<long long>(rank + 1) << logn) / csize);
 #pragma unroll 4
   for (int j = lo + threadIdx.x; j < hi; j += blockDim.x) {
-    // coefficient j: column j mod n/16 of CTA hj of every pair, at e
-    const int cols = j & ((2 << logc) - 1);
+    // coefficient j: column j mod n/16 of CTA hj of every group, at e
+    const int cols = j & ((H << logc) - 1);
     const int hj = cols >> logc;
-    const int e = ((j >> (logc + 1)) << logc) + (cols & ((1 << logc) - 1));
+    const int e = ((j >> (logc + logH)) << logc) + (cols & ((1 << logc) - 1));
     uint32_t sum_t = 0, sum_g = 0;
     for (int c = 0; c < pairs; ++c) {
-      const uint32_t* their_t = ours + static_cast<size_t>(c * kRowSplit + hj) * n;
+      const uint32_t* their_t = ours + static_cast<size_t>(c * H + hj) * cta_words;
       sum_t = fhe::add_mod(sum_t, their_t[e], sc.t);
       sum_g = fhe::add_mod(sum_g, their_t[half + e], sc.gamma);
     }
@@ -335,8 +337,9 @@ decrypt_fused_compact_kernel(const uint32_t* __restrict__ c0, const uint32_t* __
 // decrypt_geometry): clusters of `cluster` CTAs (1 <= cluster <= min(k, 8)),
 // `threads` per CTA and `smem` bytes per CTA, at least the three padded rows
 // the kernel uses; a scratch buffer (2n words per CTA) picks the WIDE form,
-// which uses one; `compact` with a scratch buffer (n words per CTA) the
-// compact form, clusters of 2 min(k, 4) CTAs and a padded half row each.
+// which uses one; `compact` = H (2 or 4) with a scratch buffer (2n/H words
+// per CTA) the compact form, clusters of H min(k, 8/H) CTAs and a padded
+// 1/H row each.
 extern "C" int fhe_decrypt_fused(
     const void* c0, const void* c1, long long prime_stride, long long batch_stride,
     const void* s, void* out, const void* p,
@@ -351,17 +354,18 @@ extern "C" int fhe_decrypt_fused(
   const bool wide = scratch != nullptr;
   const int n = 1 << logn;
   if (logn <= fhe::kRegLog || cluster < 1 || cluster > 8
-      || (compact ? !wide || cluster % kRowSplit || cluster > kRowSplit * k
-                      || smem < 4 * fhe::padded(n / kRowSplit)
+      || (compact ? (compact != 2 && compact != 4) || !wide || cluster % compact
+                        || cluster > compact * k || smem < 4 * fhe::padded(n / compact)
                   : cluster > k || smem < (wide ? 1 : 3) * 4 * fhe::padded(n)))
     return static_cast<int>(cudaErrorInvalidValue);
   // each form keeps its own records
-  static std::atomic<size_t> granted[3][fhe::kMaxDevices];
-  static std::atomic<size_t> placed[3][fhe::kMaxDevices];
-  const int form = compact ? 2 : wide ? 1 : 0;
-  auto* fn = compact ? &decrypt_fused_compact_kernel
-             : wide  ? &decrypt_fused_kernel<true>
-                     : &decrypt_fused_kernel<false>;
+  static std::atomic<size_t> granted[4][fhe::kMaxDevices];
+  static std::atomic<size_t> placed[4][fhe::kMaxDevices];
+  const int form = compact == 4 ? 3 : compact ? 2 : wide ? 1 : 0;
+  auto* fn = compact == 4 ? &decrypt_fused_compact_kernel<4>
+             : compact    ? &decrypt_fused_compact_kernel<kRowSplit>
+             : wide       ? &decrypt_fused_kernel<true>
+                          : &decrypt_fused_kernel<false>;
   const void* kernel = reinterpret_cast<const void*>(fn);
   cudaError_t err = fhe::allow_smem(kernel, smem, granted[form]);
   if (err != cudaSuccess) return static_cast<int>(err);

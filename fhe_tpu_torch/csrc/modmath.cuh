@@ -244,10 +244,12 @@ __host__ __device__ constexpr int padded(int n) { return n + (n >> 5); }
 
 // The shared-memory words of the cluster tensor products (ntt.cu's
 // tensor_product and rns.cu's bsk_branch_fused) in each form: two padded
-// rows (0), a padded row and a padded half row (1, HALF), or the padded
-// half row alone (2, COMPACT).
+// rows (0), a padded row and a padded half row (1, HALF), the padded half
+// row alone (2, COMPACT) or the padded quarter row alone (3, QUARTER).
 __host__ __device__ constexpr int product_words(int form, int n) {
-  return form == 2 ? padded(n / 2) : padded(n) + padded(form == 1 ? n / 2 : n);
+  return form == 3   ? padded(n / 4)
+         : form == 2 ? padded(n / 2)
+                     : padded(n) + padded(form == 1 ? n / 2 : n);
 }
 
 // A group from, and to, a padded shared row.
@@ -438,6 +440,17 @@ struct RowSplit {
   int h;
 };
 
+// The RowSplit of CTA h of the H CTAs of `cluster` (cooperative groups),
+// ranks first .. first + H - 1, that share a row through their rows at `a`.
+template <int H, class Cluster>
+__device__ __forceinline__ RowSplit<H> row_split(Cluster cluster, uint32_t* a, int first, int h) {
+  RowSplit<H> sp;
+#pragma unroll
+  for (int c = 0; c < H; ++c) sp.peer[c] = cluster.map_shared_rank(a, first + c);
+  sp.h = h;
+  return sp;
+}
+
 // A group from the padded rows of the CTAs sharing a row: element j from
 // peer[(j >> shift) & (H - 1)].  The pointers are picked with constant
 // indices, so they stay in registers.
@@ -468,8 +481,10 @@ __device__ __forceinline__ auto split_load(const RowSplit<H>& sp, uint32_t* a, i
     return PeerLoad<H>{sp, shift};
 }
 
-// The compact split (n = 65536, where one padded row exceeds a block's
-// shared memory): CTA h's a[] holds only positions [h n/H, (h+1) n/H),
+// The compact split (n = 65536 with H = 2, where one padded row exceeds a
+// block's shared memory, and n = 131072 with H = 4, the quarter split, where
+// a padded half row does too): CTA h's a[] holds only positions
+// [h n/H, (h+1) n/H),
 // element j at padded_index(j - h n/H).  A group of the forward's first
 // pass and of the inverse's last (the top stages, across the row) is a
 // column, elements base + (i << logs) with base < n/G and span = n/H =
@@ -624,8 +639,13 @@ __device__ __forceinline__ void inv_ntt_regs_split(uint32_t* a, const RowSplit<H
   ntt_regs_pass<kRegLog, true>(logn, kRegLog - 1, p, w, w_sh, in, store, h, logH);
   if (logn < 2 * kRegLog) {
     if constexpr (H > 1) sync();
-    ntt_regs_any<true>(logn - kRegLog, logn, logn - 1, p, w, w_sh, by_position, scaled, h,
-                       logH);
+    // a group of the top pass spans the row's H CTAs: a row split four
+    // ways (n = 131072) is never this short
+    if constexpr (H <= 2)
+      ntt_regs_any<true>(logn - kRegLog, logn, logn - 1, p, w, w_sh, by_position, scaled, h,
+                         logH);
+    else
+      __trap();
     return;
   }
   int lo = kRegLog;                     // the lowest stage not yet run

@@ -52,7 +52,12 @@
 // at n = 65536, where one padded row takes 264 KB, every kernel here runs
 // on modmath.cuh's compact split (each CTA of a pair holds
 // only its half of the row, 132 KB), and what a CTA kept beside its working
-// row (B4's transformed half row, B7's partials) lies in global scratch.
+// row (B4's transformed half row, B7's partials) lies in global scratch; at
+// n = 131072, where a padded half row takes 264 KB, four CTAs share each
+// row (the quarter split, a padded quarter row each, 132 KB; the split is
+// each kernel's template parameter H), in clusters of 4 (ntt_forward,
+// ntt_inverse, mul_by_ntt_operand, ks_inner) or 8 (keyswitch_fused with two
+// digit groups; tensor_product in rounds, quarter.cuh).
 // The two kernels keep two bodies: with one
 // __device__ template for both, parameterised by the load and epilogue
 // hooks (a strided read and store here, the lift and the floor there),
@@ -135,27 +140,31 @@
 
 #include "lift.cuh"
 #include "modmath.cuh"
+#include "quarter.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 
-// CTAs per row of every cluster kernel here, per cluster of tensor_product
-// (one pair per input row x0, x1, y0, y1), and the most digit pairs of a
-// keyswitch_fused cluster (ops/ntt_cuda.py: ROW_SPLIT, PRODUCT_CLUSTER,
-// KEYSWITCH_PAIRS)
+// CTAs per row of every cluster kernel here up to n = 65536 (each kernel
+// takes it as its template parameter H: 2, or 4 on the quarter split at
+// n = 131072), per cluster of tensor_product (one pair per input row x0,
+// x1, y0, y1), and at most per cluster (the portable size: a
+// keyswitch_fused cluster holds up to kMaxCluster / H digit groups)
+// (ops/ntt_cuda.py: ROW_SPLIT, PRODUCT_CLUSTER, MAX_CLUSTER)
 constexpr int kRowSplit = 2;
 constexpr int kProductCluster = 4 * kRowSplit;
-constexpr int kKeyswitchPairs = 4;
+constexpr int kMaxCluster = 8;
 
-// Cluster (b, i) of 2 CTAs: y[i, b] = NTT(x[i, b]) for x, y [k, batch, n],
-// grid (2 * batch, k) in clusters of (2, 1, 1).  CTA h runs half of each
+// Cluster (b, i) of H CTAs: y[i, b] = NTT(x[i, b]) for x, y [k, batch, n],
+// grid (H * batch, k) in clusters of (H, 1, 1).  CTA h runs 1/H of each
 // pass (modmath.cuh's RowSplit note): it loads its columns of the row in the
-// first pass and stores positions [h n/2, (h+1) n/2), 16 consecutive words
+// first pass and stores positions [h n/H, (h+1) n/H), 16 consecutive words
 // per group, in the last.  Shared memory: one padded row, or with COMPACT
 // (n = 65536, where one padded row exceeds a block's shared memory) the
-// CTA's padded half row, the compact split of modmath.cuh.
-template <bool COMPACT>
+// CTA's padded half row, the compact split of modmath.cuh; at n = 131072
+// (H = 4, the quarter split) its padded quarter row.
+template <bool COMPACT, int H>
 __global__ void __launch_bounds__(512)
 ntt_forward_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                    const uint32_t* __restrict__ p, const uint32_t* __restrict__ psi,
@@ -163,17 +172,14 @@ ntt_forward_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   extern __shared__ uint32_t a[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
-  const int b = blockIdx.x / kRowSplit;
+  const int b = blockIdx.x / H;
   const int i = blockIdx.y;
   const size_t tab = static_cast<size_t>(i) * n;
   const size_t row = (static_cast<size_t>(i) * batch + b) * n;
   const uint32_t* src = x + row;
   uint32_t* dst = y + row;
-  static_assert(kRowSplit == 2, "the split below names both CTAs of a row");
-  const fhe::RowSplit<kRowSplit> split{
-      {cluster.map_shared_rank(a, 0), cluster.map_shared_rank(a, 1)},
-      static_cast<int>(cluster.block_rank())};
-  fhe::fwd_ntt_regs_split<kRowSplit, COMPACT>(
+  const auto split = fhe::row_split<H>(cluster, a, 0, static_cast<int>(cluster.block_rank()));
+  fhe::fwd_ntt_regs_split<H, COMPACT>(
       a, split, [&] { cluster.sync(); }, logn, p[i], psi + tab, psi_sh + tab,
       [&](auto& v, int base, int logs) {
 #pragma unroll
@@ -182,19 +188,20 @@ ntt_forward_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
       },
       // the last pass's group is consecutive (logs = 0, base a multiple of its size)
       [&](auto& v, int base, int) { fhe::store_run(dst, base, v); });
-  // the partner read this CTA's row in the second pass: neither leaves (and
-  // frees its shared memory) before both have
+  // the peers read this CTA's row in the second pass: none leaves (and
+  // frees its shared memory) before all have
   cluster.sync();
 }
 
-// Cluster (b, i) of 2 CTAs: y[i, b] = n^-1 INTT(x[i, b]) for x, y [k, batch,
-// n], grid (2 * batch, k) in clusters of (2, 1, 1): ntt_forward's mirror.
-// CTA h runs half of each pass (modmath.cuh's RowSplit note): it loads
-// positions [h n/2, (h+1) n/2), 16 consecutive words per group, in the
+// Cluster (b, i) of H CTAs: y[i, b] = n^-1 INTT(x[i, b]) for x, y [k, batch,
+// n], grid (H * batch, k) in clusters of (H, 1, 1): ntt_forward's mirror.
+// CTA h runs 1/H of each pass (modmath.cuh's RowSplit note): it loads
+// positions [h n/H, (h+1) n/H), 16 consecutive words per group, in the
 // first pass (16-byte loads where `vec`: x starts 16-byte aligned) and
 // stores its share of the row's columns, times n^-1, in the last.  Shared
-// memory: one padded row, or with COMPACT (n = 65536) the padded half row.
-template <bool COMPACT>
+// memory: one padded row, or with COMPACT (n = 65536) the padded half row
+// (n = 131072, H = 4: the padded quarter row).
+template <bool COMPACT, int H>
 __global__ void __launch_bounds__(512)
 ntt_inverse_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                    const uint32_t* __restrict__ p, const uint32_t* __restrict__ ipsi,
@@ -204,17 +211,14 @@ ntt_inverse_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   extern __shared__ uint32_t a[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
-  const int b = blockIdx.x / kRowSplit;
+  const int b = blockIdx.x / H;
   const int i = blockIdx.y;
   const size_t tab = static_cast<size_t>(i) * n;
   const size_t row = (static_cast<size_t>(i) * batch + b) * n;
   const uint32_t* src = x + row;
   uint32_t* dst = y + row;
-  static_assert(kRowSplit == 2, "the split below names both CTAs of a row");
-  const fhe::RowSplit<kRowSplit> split{
-      {cluster.map_shared_rank(a, 0), cluster.map_shared_rank(a, 1)},
-      static_cast<int>(cluster.block_rank())};
-  fhe::inv_ntt_regs_split<kRowSplit, COMPACT>(
+  const auto split = fhe::row_split<H>(cluster, a, 0, static_cast<int>(cluster.block_rank()));
+  fhe::inv_ntt_regs_split<H, COMPACT>(
       a, split, [&] { cluster.sync(); }, logn, p[i], ipsi + tab, ipsi_sh + tab, n_inv[i],
       n_inv_sh[i],
       // the first pass's group is consecutive (logs = 0, base a multiple of its size)
@@ -224,23 +228,24 @@ ntt_inverse_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
         for (int g = 0; g < static_cast<int>(sizeof(v) / sizeof(v[0])); ++g)
           dst[base + (g << logs)] = v[g];
       });
-  // the partner read this CTA's row in the last pass: neither leaves (and
-  // frees its shared memory) before both have
+  // the peers read this CTA's row in the last pass: none leaves (and frees
+  // its shared memory) before all have
   cluster.sync();
 }
 
-// Cluster (i, c, b) of 2 CTAs: out[i, c, b] = INTT(NTT(u[i, b]) . w[i, c]).
+// Cluster (i, c, b) of H CTAs: out[i, c, b] = INTT(NTT(u[i, b]) . w[i, c]).
 // Row (i, b) of u starts at u + i * u_sp + b * u_sb, so a view of one
 // ciphertext component, or the rows of a stack, is read in place; w is the
 // shared [k, num_c, n] operand, each row 16-byte aligned (the wrapper
-// checks); out is [k, num_c, B, n].  Grid (2, num_c * B, k) in clusters of
-// (2, 1, 1), blockIdx.y = c * B + b.  CTA h runs half of each pass of the
+// checks); out is [k, num_c, B, n].  Grid (H, num_c * B, k) in clusters of
+// (H, 1, 1), blockIdx.y = c * B + b.  CTA h runs 1/H of each pass of the
 // two transforms (the row split of modmath.cuh's RowSplit note) and keeps
-// positions [h n/2, (h+1) n/2) of NTT(u) between them, where it multiplies
+// positions [h n/H, (h+1) n/H) of NTT(u) between them, where it multiplies
 // them by w[i, c] in the forward's last pass.  Shared memory: one padded row,
 // or with COMPACT (n = 65536) the padded half row of those positions, which
-// is all the CTA keeps between the transforms.
-template <bool COMPACT>
+// is all the CTA keeps between the transforms (n = 131072, H = 4: the padded
+// quarter row).
+template <bool COMPACT, int H>
 __global__ void __launch_bounds__(512)
 mul_by_ntt_operand_kernel(const uint32_t* __restrict__ u, long long u_sp, long long u_sb,
                           const uint32_t* __restrict__ w, uint32_t* __restrict__ out,
@@ -263,13 +268,12 @@ mul_by_ntt_operand_kernel(const uint32_t* __restrict__ u, long long u_sp, long l
   const uint32_t pi = p[i];
   const uint32_t mui = mu[i];
   const size_t tab = static_cast<size_t>(i) * n;
-  const fhe::RowSplit<kRowSplit> split{
-      {cluster.map_shared_rank(a, 0), cluster.map_shared_rank(a, 1)}, h};
+  const auto split = fhe::row_split<H>(cluster, a, 0, h);
   auto sync = [&] { cluster.sync(); };
   const uint32_t* ur = u + i * u_sp + b * u_sb;
   const uint32_t* wr = w + (static_cast<size_t>(i) * num_c + c) * n;
-  const int first = COMPACT ? h * (n / kRowSplit) : 0;   // a[]'s first position
-  fhe::fwd_ntt_regs_split<kRowSplit, COMPACT>(
+  const int first = COMPACT ? h * (n / H) : 0;   // a[]'s first position
+  fhe::fwd_ntt_regs_split<H, COMPACT>(
       a, split, sync, logn, pi, psi + tab, psi_sh + tab,
       [&](auto& x, int base, int logs) {
 #pragma unroll
@@ -288,15 +292,15 @@ mul_by_ntt_operand_kernel(const uint32_t* __restrict__ u, long long u_sp, long l
           a[fhe::padded_index(base - first + g)] = fhe::mul_barrett(x[g], wv[g], pi, mui);
       });
   uint32_t* dst = out + (static_cast<size_t>(i) * gridDim.y + cb) * n;
-  fhe::inv_ntt_regs_split<kRowSplit, COMPACT>(
+  fhe::inv_ntt_regs_split<H, COMPACT>(
       a, split, sync, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i],
       fhe::own_load<COMPACT>(a, first), [&](auto& x, int base, int logs) {
 #pragma unroll
         for (int g = 0; g < static_cast<int>(sizeof(x) / sizeof(x[0])); ++g)
           dst[base + (g << logs)] = x[g];
       });
-  // the partner read this CTA's row in the inverse's last pass: neither
-  // leaves (and frees its shared memory) before both have
+  // the peers read this CTA's row in the inverse's last pass: none leaves
+  // (and frees its shared memory) before all have
   cluster.sync();
 }
 
@@ -488,6 +492,52 @@ tensor_product_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
   cluster.sync();
 }
 
+// tensor_product_kernel's QUARTER form (3; n = 131072, where even the
+// compact split's padded half row exceeds a block): the same product on
+// quarter.cuh's schedule, a portable cluster of 8 CTAs per (element, prime)
+// that shares each row over four CTAs (a padded quarter row each, 132 KB)
+// and runs the four input rows in two forward rounds and the three product
+// rows in two inverse rounds; the transformed rows go to `scratch`, 4n
+// words per cluster, that of cluster (b, z) at scratch + (z * B + b) * 4n.
+// tensor_product_kernel's parameters, so one launcher takes both; the
+// Plain lane only (the Lift lane runs at n < 1024).
+__global__ void __launch_bounds__(512)
+tensor_product_quarter_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                              long long s_p, long long s_c, long long s_b,
+                              uint32_t* __restrict__ out, const uint32_t* __restrict__ p,
+                              const uint32_t* __restrict__ mu,
+                              const uint32_t* __restrict__ psi,
+                              const uint32_t* __restrict__ psi_sh,
+                              const uint32_t* __restrict__ ipsi,
+                              const uint32_t* __restrict__ ipsi_sh,
+                              const uint32_t* __restrict__ n_inv,
+                              const uint32_t* __restrict__ n_inv_sh, int logn,
+                              const fhe::SmMRqOperands, const ProductTables,
+                              uint32_t* scratch) {
+  extern __shared__ uint32_t sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = 1 << logn;
+  const int b = blockIdx.y;
+  const int z = blockIdx.z;
+  const size_t tab = static_cast<size_t>(z) * n;
+  uint32_t* ours = scratch + (static_cast<size_t>(z) * gridDim.y + b) * 4 * n;
+  fhe::quarter_product(
+      cluster, sm, ours, logn, p[z], mu[z], psi + tab, psi_sh + tab, ipsi + tab, ipsi_sh + tab,
+      n_inv[z], n_inv_sh[z],
+      [&](int r, auto& v, int base, int logs) {
+        const uint32_t* src = (r < 2 ? x : y) + z * s_p + (r & 1) * s_c + b * s_b;
+#pragma unroll
+        for (int g = 0; g < static_cast<int>(sizeof(v) / sizeof(v[0])); ++g)
+          v[g] = src[base + (g << logs)];
+      },
+      [&](int r, auto& v, int base, int logs) {
+        uint32_t* dst = out + ((static_cast<size_t>(z) * 3 + r) * gridDim.y + b) * n;
+#pragma unroll
+        for (int g = 0; g < static_cast<int>(sizeof(v) / sizeof(v[0])); ++g)
+          dst[base + (g << logs)] = v[g];
+      });
+}
+
 // The lanes of keyswitch_kernel: Classic (digit j a residue mod its own
 // q_j, reduced mod p_i as it loads), Prereduced (per-prime residues, used as
 // they are) and Galois (a rotation: the digits of the un-permuted c1, each
@@ -585,8 +635,12 @@ __device__ __forceinline__ uint32_t coeff_source(uint32_t h, int x, int logn, bo
 // WIDE on the compact split (n = 65536, where the working row alone
 // exceeds a block): the working row is the CTA's padded half row (132 KB),
 // the scratch as WIDE's (n words per CTA: 63 MB at k = kd = 30, more than
-// L2).
-template <KsLane LANE, int FORM>
+// L2).  H: the CTAs that share a row, 2 above; at n = 131072 (the quarter
+// split, FORM 2 only) H = 4 and R = 2 (a cluster of 8): CTA 4r + h of digit
+// group r keeps positions [h n/4, (h+1) n/4) of both output rows' partial
+// sums, n/2 words of scratch per CTA (2n/H in every WIDE form), and group
+// c = 0, 1 sums and inverts output row c.
+template <KsLane LANE, int FORM, int H>
 __global__ void __launch_bounds__(512)
 keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
                  long long d_sb, const uint32_t* __restrict__ keys, long long key_sp,
@@ -600,31 +654,31 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
                  long long c0_sb, int vec, uint32_t* scratch) {
   constexpr bool WIDE = FORM >= 1, COMPACT = FORM == 2;
   constexpr bool staged = LANE == KsLane::Galois && !WIDE;
+  static_assert(H == kRowSplit || COMPACT, "four CTAs a row only on the compact split");
   extern __shared__ uint32_t sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << logn;
-  const int half = n / kRowSplit;
+  const int half = n / H;                     // a CTA's share of the row
+  const int cta_words = n / (H / kRowSplit);  // WIDE: a CTA's two partial rows
   const int rank = static_cast<int>(cluster.block_rank());
-  const int r = rank / kRowSplit, h = rank % kRowSplit;
+  const int r = rank / H, h = rank % H;
   const int b = blockIdx.y;
   const int i = blockIdx.z;
-  // the cluster's partials in global memory (WIDE), n words per CTA
-  uint32_t* ours = WIDE ? scratch + (static_cast<size_t>(i) * gridDim.y + b) * gridDim.x * n
-                        : nullptr;
-  // partial sum of output row c, own half, at part + c * part_row; position
-  // e of the half at part[at(e)]
+  // the cluster's partials in global memory (WIDE), cta_words per CTA
+  uint32_t* ours = WIDE
+                       ? scratch + (static_cast<size_t>(i) * gridDim.y + b) * gridDim.x * cta_words
+                       : nullptr;
+  // partial sum of output row c, own share, at part + c * part_row; position
+  // e of the share at part[at(e)]
   const int part_row = WIDE ? half : fhe::padded(half);
   auto at = [](int e) { return WIDE ? e : fhe::padded_index(e); };
   uint32_t* work = sm;                        // the sweeps' passes
-  uint32_t* part = WIDE ? ours + static_cast<size_t>(rank) * n : sm + fhe::padded(n);
+  uint32_t* part = WIDE ? ours + static_cast<size_t>(rank) * cta_words : sm + fhe::padded(n);
   uint32_t* stage = sm + stage_offset(2 * fhe::padded(n));  // Galois: the row gathered from
   const uint32_t pi = p[i];
   const uint32_t mui = mu[i];
   const size_t tab = static_cast<size_t>(i) * n;
-  static_assert(kRowSplit == 2, "the split below names both CTAs of a row");
-  const fhe::RowSplit<kRowSplit> split{{cluster.map_shared_rank(work, r * kRowSplit),
-                                        cluster.map_shared_rank(work, r * kRowSplit + 1)},
-                                       h};
+  const auto split = fhe::row_split<H>(cluster, work, r * H, h);
   auto sync = [&] { cluster.sync(); };
   const uint32_t* d_ib = d + i * d_sp + b * d_sb;
   const uint32_t* key_i = keys + i * key_sp;
@@ -648,7 +702,7 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
       __syncthreads();
     }
     const uint32_t qj = LANE == KsLane::Galois ? p[j] : 0;
-    fhe::fwd_ntt_regs_split<kRowSplit, COMPACT>(
+    fhe::fwd_ntt_regs_split<H, COMPACT>(
         work, split, sync, logn, pi, psi + tab, psi_sh + tab,
         [&](auto& x, int base, int logs) {
 #pragma unroll
@@ -699,10 +753,10 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
     for (int e = threadIdx.x; e < half; e += blockDim.x) {
       uint32_t s = 0;
 #pragma unroll
-      for (int q = 0; q < kKeyswitchPairs; ++q) {
+      for (int q = 0; q < kMaxCluster / H; ++q) {
         if (q >= summed) continue;
-        const int peer = q * kRowSplit + h;
-        const uint32_t* theirs = WIDE ? ours + static_cast<size_t>(peer) * n + r * half
+        const int peer = q * H + h;
+        const uint32_t* theirs = WIDE ? ours + static_cast<size_t>(peer) * cta_words + r * half
                                       : cluster.map_shared_rank(mine, peer);
         s = fhe::add_mod(s, theirs[at(e)], pi);
       }
@@ -711,7 +765,7 @@ keyswitch_kernel(const uint32_t* __restrict__ d, long long d_sp, long long d_sj,
     if (staged && add_c0) stage_wait();
     __syncthreads();
     uint32_t* dst = out + ((static_cast<size_t>(i) * 2 + r) * gridDim.y + b) * n;
-    fhe::inv_ntt_regs_split<kRowSplit, COMPACT>(
+    fhe::inv_ntt_regs_split<H, COMPACT>(
         work, split, sync, logn, pi, ipsi + tab, ipsi_sh + tab, n_inv[i], n_inv_sh[i],
         fhe::own_load<COMPACT>(work, COMPACT ? h * half : 0), [&](auto& x, int base, int logs) {
 #pragma unroll
@@ -836,8 +890,10 @@ __device__ __forceinline__ void gathered_products(
 // pass forms exactly those positions' sums, and its last reads the peer's
 // half through distributed shared memory.  The Galois lane's gather reads
 // its digit and key runs from global memory in every form, so only its slot
-// moves with the row; c0 is read in place (GaloisInPlace).
-template <InnerLane LANE, bool COMPACT>
+// moves with the row; c0 is read in place (GaloisInPlace).  At n = 131072
+// H = 4 CTAs share the row (the quarter split), a padded quarter row each,
+// in clusters of (4, 1, 1); H = 2 below.
+template <InnerLane LANE, bool COMPACT, int H>
 __global__ void __launch_bounds__(512)
 ks_inner_kernel(const uint32_t* __restrict__ dg, long long dg_sp, long long dg_sj,
                 long long dg_sb, int dg_div, const uint32_t* __restrict__ keys,
@@ -864,18 +920,15 @@ ks_inner_kernel(const uint32_t* __restrict__ dg, long long dg_sp, long long dg_s
   const int e = b % key_mod;                        // the element's key set
   const uint32_t* ke = keys + i * key_sp + c * n + e * key_se;
   uint32_t* dst = out + (static_cast<size_t>(i) * gridDim.y + cb) * n;
-  static_assert(kRowSplit == 2, "the split below names both CTAs of a row");
-  const fhe::RowSplit<kRowSplit> split{
-      {cluster.map_shared_rank(a, 0), cluster.map_shared_rank(a, 1)},
-      static_cast<int>(cluster.block_rank())};
-  const int first = COMPACT ? split.h * (n / kRowSplit) : 0;   // a[]'s first position
+  const auto split = fhe::row_split<H>(cluster, a, 0, static_cast<int>(cluster.block_rank()));
+  const int first = COMPACT ? split.h * (n / H) : 0;   // a[]'s first position
   const bool add_c0 = galois && c == 0;
   const uint32_t* c0 = galois ? go.c0 + i * go.c0_sp + (b / dg_div) * go.c0_ss : nullptr;
   uint32_t* c0s = a + stage_offset(fhe::padded(n));
   // copied while the first passes run; the cluster barrier before the last
   // pass publishes it
   if (staged && add_c0) stage_row(c0s, c0, n, vec);
-  fhe::inv_ntt_regs_split<kRowSplit, COMPACT>(
+  fhe::inv_ntt_regs_split<H, COMPACT>(
       a, split,
       [&] {
         if (staged && add_c0) stage_wait();
@@ -916,8 +969,8 @@ ks_inner_kernel(const uint32_t* __restrict__ dg, long long dg_sp, long long dg_s
           dst[pos] = val;
         }
       });
-  // the partner read this CTA's row in the last pass: neither leaves (and
-  // frees its shared memory) before both have
+  // the peers read this CTA's row in the last pass: none leaves (and frees
+  // its shared memory) before all have
   cluster.sync();
 }
 
@@ -936,15 +989,19 @@ cudaError_t launch_tensor_product(const void* x, const void* y, long long s_p, l
                                   int threads, int smem, const fhe::SmMRqOperands& lo,
                                   const ProductTables& tq, void* scratch,
                                   cudaStream_t stream) {
+  static_assert(FORM < 3 || LANE == ProductLane::Plain, "the Lift lane has no quarter form");
+  // the QUARTER form (3) is its own kernel with the same parameters
+  auto* const fn = FORM == 3 ? &tensor_product_quarter_kernel
+                             : &tensor_product_kernel<LANE, FORM < 3 ? FORM : 0>;
   const int n = 1 << logn;
   if (logn <= fhe::kRegLog || smem < 4 * fhe::product_words(FORM, n)
-      || (FORM == 2) != (scratch != nullptr)
+      || (FORM >= 2) != (scratch != nullptr)
       || (LANE == ProductLane::Lift
           && (lo.k < 1 || k <= lo.k || tq.p == nullptr)))
     return cudaErrorInvalidValue;
   static std::atomic<size_t> granted[fhe::kMaxDevices];
   static std::atomic<size_t> placed[fhe::kMaxDevices];
-  const void* kernel = reinterpret_cast<const void*>(tensor_product_kernel<LANE, FORM>);
+  const void* kernel = reinterpret_cast<const void*>(fn);
   cudaError_t err = fhe::allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
@@ -953,7 +1010,7 @@ cudaError_t launch_tensor_product(const void* x, const void* y, long long s_p, l
   err = fhe::check_cluster(kernel, cfg, placed);
   if (err != cudaSuccess) return err;
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  err = cudaLaunchKernelEx(&cfg, tensor_product_kernel<LANE, FORM>, c(x), c(y), s_p, s_c, s_b,
+  err = cudaLaunchKernelEx(&cfg, fn, c(x), c(y), s_p, s_c, s_b,
                            static_cast<uint32_t*>(out), c(p), c(mu), c(psi), c(psi_sh),
                            c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), logn, lo, tq,
                            static_cast<uint32_t*>(scratch));
@@ -961,7 +1018,7 @@ cudaError_t launch_tensor_product(const void* x, const void* y, long long s_p, l
   return cudaGetLastError();
 }
 
-template <KsLane LANE, int FORM>
+template <KsLane LANE, int FORM, int H = kRowSplit>
 cudaError_t launch_keyswitch(const void* d, long long d_sp, long long d_sj, long long d_sb,
                              const void* keys, long long key_sp, long long key_sj, void* out,
                              const void* p, const void* mu, const void* psi,
@@ -972,23 +1029,23 @@ cudaError_t launch_keyswitch(const void* d, long long d_sp, long long d_sj, long
                              int vec, void* scratch, cudaStream_t stream) {
   constexpr bool galois = LANE == KsLane::Galois;
   const int n = 1 << logn;
-  const int words = FORM == 2 ? fhe::padded(n / 2) : fhe::padded(n);   // a wide form's
-  if (logn <= fhe::kRegLog || kd < 1 || pairs < 2 || pairs > kKeyswitchPairs
+  const int words = FORM == 2 ? fhe::padded(n / H) : fhe::padded(n);   // a wide form's
+  if (logn <= fhe::kRegLog || kd < 1 || pairs < 2 || pairs * H > kMaxCluster
       || smem < (FORM ? 4 * words : lane_smem(2 * fhe::padded(n), n, galois))
       || (FORM && scratch == nullptr) || (galois && (kd > k || c0 == nullptr)))
     return cudaErrorInvalidValue;
   static std::atomic<size_t> granted[fhe::kMaxDevices];
   static std::atomic<size_t> placed[fhe::kMaxDevices];
-  const void* kernel = reinterpret_cast<const void*>(keyswitch_kernel<LANE, FORM>);
+  const void* kernel = reinterpret_cast<const void*>(keyswitch_kernel<LANE, FORM, H>);
   cudaError_t err = fhe::allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = fhe::cluster_config(
-      dim3(kRowSplit * pairs, batch, k), threads, smem, kRowSplit * pairs, stream, attr);
+      dim3(H * pairs, batch, k), threads, smem, H * pairs, stream, attr);
   err = fhe::check_cluster(kernel, cfg, placed);
   if (err != cudaSuccess) return err;
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  err = cudaLaunchKernelEx(&cfg, keyswitch_kernel<LANE, FORM>, c(d), d_sp, d_sj, d_sb,
+  err = cudaLaunchKernelEx(&cfg, keyswitch_kernel<LANE, FORM, H>, c(d), d_sp, d_sj, d_sb,
                            c(keys), key_sp, key_sj, static_cast<uint32_t*>(out), c(p), c(mu),
                            c(psi), c(psi_sh), c(ipsi), c(ipsi_sh), c(n_inv), c(n_inv_sh), kd, pairs,
                            logn, static_cast<uint32_t>(h_gal), c(c0), c0_sp, c0_sb, vec,
@@ -997,7 +1054,7 @@ cudaError_t launch_keyswitch(const void* d, long long d_sp, long long d_sj, long
   return cudaGetLastError();
 }
 
-template <InnerLane LANE, bool COMPACT>
+template <InnerLane LANE, bool COMPACT, int H = kRowSplit>
 cudaError_t launch_ks_inner(const void* dg, long long dg_sp, long long dg_sj,
                             long long dg_sb, int dg_div, const void* keys, long long key_sp,
                             long long key_sj, long long key_se, int key_mod, void* out,
@@ -1008,22 +1065,22 @@ cudaError_t launch_ks_inner(const void* dg, long long dg_sp, long long dg_sj,
   constexpr bool galois = LANE != InnerLane::Inner;
   const int n = 1 << logn;
   if (logn <= fhe::kRegLog || kd < 1
-      || smem < lane_smem(fhe::padded(COMPACT ? n / kRowSplit : n), n,
+      || smem < lane_smem(fhe::padded(COMPACT ? n / H : n), n,
                           LANE == InnerLane::Galois)
       || (galois && (go.gs == nullptr || go.hs == nullptr || go.c0 == nullptr)))
     return cudaErrorInvalidValue;
   static std::atomic<size_t> granted[fhe::kMaxDevices];
   static std::atomic<size_t> placed[fhe::kMaxDevices];
-  const void* kernel = reinterpret_cast<const void*>(ks_inner_kernel<LANE, COMPACT>);
+  const void* kernel = reinterpret_cast<const void*>(ks_inner_kernel<LANE, COMPACT, H>);
   cudaError_t err = fhe::allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = fhe::cluster_config(
-      dim3(kRowSplit, 2 * batch, k), threads, smem, kRowSplit, stream, attr);
+      dim3(H, 2 * batch, k), threads, smem, H, stream, attr);
   err = fhe::check_cluster(kernel, cfg, placed);
   if (err != cudaSuccess) return err;
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
-  err = cudaLaunchKernelEx(&cfg, ks_inner_kernel<LANE, COMPACT>, c(dg), dg_sp, dg_sj, dg_sb, dg_div,
+  err = cudaLaunchKernelEx(&cfg, ks_inner_kernel<LANE, COMPACT, H>, c(dg), dg_sp, dg_sj, dg_sb, dg_div,
                            c(keys), key_sp, key_sj, key_se, key_mod,
                            static_cast<uint32_t*>(out), c(p), c(mu), c(ipsi), c(ipsi_sh),
                            c(n_inv), c(n_inv_sh), kd, logn, vec, go);
@@ -1031,13 +1088,22 @@ cudaError_t launch_ks_inner(const void* dg, long long dg_sp, long long dg_sj,
   return cudaGetLastError();
 }
 
-// The launcher of keyswitch_fused's lane for its form (fhe_keyswitch).
+// The launcher of keyswitch_fused's lane for its form (fhe_keyswitch;
+// `compact`: 0, or the CTAs of the compact split).
 template <KsLane LANE>
-auto keyswitch_form(bool wide, bool compact) {
-  return compact ? &launch_keyswitch<LANE, 2>
-         : wide  ? &launch_keyswitch<LANE, 1>
-                 : &launch_keyswitch<LANE, 0>;
+auto keyswitch_form(bool wide, int compact) {
+  return compact == 4 ? &launch_keyswitch<LANE, 2, 4>
+         : compact    ? &launch_keyswitch<LANE, 2>
+         : wide       ? &launch_keyswitch<LANE, 1>
+                      : &launch_keyswitch<LANE, 0>;
 }
+
+// The instance of a kernel template for a C entry point's `compact`
+// argument: 0 (a padded row per CTA, a pair of CTAs a row), 2 (the compact
+// split over a pair) or 4 (over four CTAs, the quarter split); its index
+// into the entry point's records; and the CTAs that share a row.
+inline int split_form(int compact) { return compact == 4 ? 2 : compact ? 1 : 0; }
+inline int split_ctas(int compact) { return compact ? compact : kRowSplit; }
 
 }  // namespace
 
@@ -1050,25 +1116,30 @@ extern "C" {
 // least the padded rows the kernel uses, and keyswitch_fused's digit pairs.
 // `vec` (ntt_inverse, ks_inner) says that every input row starts 16-byte
 // aligned, so the first pass may load it in 16-byte words.  `compact`
-// (ntt_forward, ntt_inverse, mul_by_ntt_operand, ks_inner) picks the compact split:
-// a padded half row per CTA (n = 65536).
+// (ntt_forward, ntt_inverse, mul_by_ntt_operand, keyswitch_fused, ks_inner)
+// picks the compact split: 0 none, 2 a padded half row per CTA (n = 65536),
+// 4 a padded quarter row per CTA, four CTAs a row (n = 131072).
 int fhe_ntt_forward(const void* x, void* y, const void* p, const void* psi,
                     const void* psi_sh, int k, int batch, int logn, int threads, int smem,
                     int compact, void* stream) {
-  if (logn <= fhe::kRegLog || smem < 4 * fhe::padded((1 << logn) >> (compact ? 1 : 0)))
+  if (logn <= fhe::kRegLog || (compact != 0 && compact != 2 && compact != 4)
+      || smem < 4 * fhe::padded((1 << logn) / (compact ? compact : 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   // each instantiation keeps its own records
-  static std::atomic<size_t> granted[2][fhe::kMaxDevices];
-  static std::atomic<size_t> placed[2][fhe::kMaxDevices];
-  auto* fn = compact ? &ntt_forward_kernel<true> : &ntt_forward_kernel<false>;
+  static std::atomic<size_t> granted[3][fhe::kMaxDevices];
+  static std::atomic<size_t> placed[3][fhe::kMaxDevices];
+  const int form = split_form(compact), split = split_ctas(compact);
+  auto* fn = form == 2 ? &ntt_forward_kernel<true, 4>
+             : form    ? &ntt_forward_kernel<true, kRowSplit>
+                       : &ntt_forward_kernel<false, kRowSplit>;
   const void* kernel = reinterpret_cast<const void*>(fn);
-  cudaError_t err = fhe::allow_smem(kernel, smem, granted[compact != 0]);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted[form]);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = fhe::cluster_config(
-      dim3(kRowSplit * batch, k), threads, smem, kRowSplit,
+      dim3(split * batch, k), threads, smem, split,
       static_cast<cudaStream_t>(stream), attr);
-  err = fhe::check_cluster(kernel, cfg, placed[compact != 0]);
+  err = fhe::check_cluster(kernel, cfg, placed[form]);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
   err = cudaLaunchKernelEx(&cfg, fn, c(x), static_cast<uint32_t*>(y), c(p), c(psi), c(psi_sh),
@@ -1081,19 +1152,23 @@ int fhe_ntt_inverse(const void* x, void* y, const void* p, const void* ipsi,
                     const void* ipsi_sh, const void* n_inv, const void* n_inv_sh,
                     int k, int batch, int logn, int threads, int smem, int vec, int compact,
                     void* stream) {
-  if (logn <= fhe::kRegLog || smem < 4 * fhe::padded((1 << logn) >> (compact ? 1 : 0)))
+  if (logn <= fhe::kRegLog || (compact != 0 && compact != 2 && compact != 4)
+      || smem < 4 * fhe::padded((1 << logn) / (compact ? compact : 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  static std::atomic<size_t> granted[2][fhe::kMaxDevices];
-  static std::atomic<size_t> placed[2][fhe::kMaxDevices];
-  auto* fn = compact ? &ntt_inverse_kernel<true> : &ntt_inverse_kernel<false>;
+  static std::atomic<size_t> granted[3][fhe::kMaxDevices];
+  static std::atomic<size_t> placed[3][fhe::kMaxDevices];
+  const int form = split_form(compact), split = split_ctas(compact);
+  auto* fn = form == 2 ? &ntt_inverse_kernel<true, 4>
+             : form    ? &ntt_inverse_kernel<true, kRowSplit>
+                       : &ntt_inverse_kernel<false, kRowSplit>;
   const void* kernel = reinterpret_cast<const void*>(fn);
-  cudaError_t err = fhe::allow_smem(kernel, smem, granted[compact != 0]);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted[form]);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = fhe::cluster_config(
-      dim3(kRowSplit * batch, k), threads, smem, kRowSplit,
+      dim3(split * batch, k), threads, smem, split,
       static_cast<cudaStream_t>(stream), attr);
-  err = fhe::check_cluster(kernel, cfg, placed[compact != 0]);
+  err = fhe::check_cluster(kernel, cfg, placed[form]);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
   err = cudaLaunchKernelEx(&cfg, fn, c(x), static_cast<uint32_t*>(y), c(p), c(ipsi),
@@ -1108,20 +1183,23 @@ int fhe_mul_by_ntt_operand(const void* u, long long u_sp, long long u_sb, const 
                            const void* n_inv, const void* n_inv_sh, int k, int num_c,
                            int batch, int logn, int threads, int smem, int compact,
                            void* stream) {
-  if (logn <= fhe::kRegLog || smem < 4 * fhe::padded((1 << logn) >> (compact ? 1 : 0)))
+  if (logn <= fhe::kRegLog || (compact != 0 && compact != 2 && compact != 4)
+      || smem < 4 * fhe::padded((1 << logn) / (compact ? compact : 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  static std::atomic<size_t> granted[2][fhe::kMaxDevices];
-  static std::atomic<size_t> placed[2][fhe::kMaxDevices];
-  auto* fn = compact ? &mul_by_ntt_operand_kernel<true>
-                     : &mul_by_ntt_operand_kernel<false>;
+  static std::atomic<size_t> granted[3][fhe::kMaxDevices];
+  static std::atomic<size_t> placed[3][fhe::kMaxDevices];
+  const int form = split_form(compact), split = split_ctas(compact);
+  auto* fn = form == 2 ? &mul_by_ntt_operand_kernel<true, 4>
+             : form    ? &mul_by_ntt_operand_kernel<true, kRowSplit>
+                       : &mul_by_ntt_operand_kernel<false, kRowSplit>;
   const void* kernel = reinterpret_cast<const void*>(fn);
-  cudaError_t err = fhe::allow_smem(kernel, smem, granted[compact != 0]);
+  cudaError_t err = fhe::allow_smem(kernel, smem, granted[form]);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = fhe::cluster_config(
-      dim3(kRowSplit, num_c * batch, k), threads, smem, kRowSplit,
+      dim3(split, num_c * batch, k), threads, smem, split,
       static_cast<cudaStream_t>(stream), attr);
-  err = fhe::check_cluster(kernel, cfg, placed[compact != 0]);
+  err = fhe::check_cluster(kernel, cfg, placed[form]);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
   err = cudaLaunchKernelEx(&cfg, fn, c(u), u_sp, u_sb, c(w), static_cast<uint32_t*>(out),
@@ -1136,8 +1214,10 @@ int fhe_mul_by_ntt_operand(const void* u, long long u_sp, long long u_sb, const 
 // q tables (tq_*, table_ptrs' order); then k counts the lift_k q primes and
 // the Bsk primes of the tables p .. n_inv_sh.  form: the Plain lane's 0 (two
 // padded rows), 1 (half_row: only the CTA's half of the transformed row,
-// n = 32768) or 2 (compact: the compact working row, the transformed half
-// rows in `scratch`, n/2 words per CTA; n = 65536).
+// n = 32768), 2 (compact: the compact working row, the transformed half
+// rows in `scratch`, n/2 words per CTA; n = 65536) or 3 (quarter: the
+// padded quarter row, four CTAs a row, the transformed rows in `scratch`,
+// n/2 words per CTA; n = 131072).
 int fhe_tensor_product(const void* x, const void* y, long long s_p, long long s_c,
                        long long s_b, void* out, const void* p, const void* mu,
                        const void* psi, const void* psi_sh, const void* ipsi,
@@ -1159,9 +1239,10 @@ int fhe_tensor_product(const void* x, const void* y, long long s_p, long long s_
                               static_cast<uint32_t>(lift_inv_q_mt), lift_k};
   const ProductTables tq{c(tq_p), c(tq_mu), c(tq_psi), c(tq_psi_sh), c(tq_ipsi),
                          c(tq_ipsi_sh), c(tq_n_inv), c(tq_n_inv_sh)};
-  if ((lift_q != nullptr && form != 0) || form < 0 || form > 2)
+  if ((lift_q != nullptr && form != 0) || form < 0 || form > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   auto* launch = lift_q != nullptr ? &launch_tensor_product<ProductLane::Lift, 0>
+                 : form == 3       ? &launch_tensor_product<ProductLane::Plain, 3>
                  : form == 2       ? &launch_tensor_product<ProductLane::Plain, 2>
                  : form == 1       ? &launch_tensor_product<ProductLane::Plain, 1>
                                    : &launch_tensor_product<ProductLane::Plain, 0>;
@@ -1172,9 +1253,10 @@ int fhe_tensor_product(const void* x, const void* y, long long s_p, long long s_
 
 // keyswitch_fused's lanes: 0 Classic, 1 Prereduced, 2 Galois (h_gal =
 // g^-1 mod 2n, c0 of element b for prime i at c0 + i * c0_sp + b * c0_sb).
-// A scratch buffer (n words per CTA) picks the WIDE form: the partials in
-// it, one padded row of shared memory (n = 32768); with `compact` too, the
-// working row on the compact split, a padded half row (n = 65536).
+// A scratch buffer (2n/H words per CTA, H the CTAs a row) picks the WIDE
+// form: the partials in it, one padded row of shared memory (n = 32768);
+// with `compact` too, the working row on the compact split, a padded half
+// row (compact = 2, n = 65536) or quarter row (4, n = 131072).
 int fhe_keyswitch(const void* d, long long d_sp, long long d_sj, long long d_sb,
                   const void* keys, long long key_sp, long long key_sj, void* out,
                   const void* p, const void* mu, const void* psi, const void* psi_sh,
@@ -1184,7 +1266,8 @@ int fhe_keyswitch(const void* d, long long d_sp, long long d_sj, long long d_sb,
                   long long c0_sp, long long c0_sb, int vec, void* scratch, int compact,
                   void* stream) {
   const bool wide = scratch != nullptr;
-  if (compact && !wide) return static_cast<int>(cudaErrorInvalidValue);
+  if ((compact && !wide) || (compact != 0 && compact != 2 && compact != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto* launch = lane == 2   ? keyswitch_form<KsLane::Galois>(wide, compact)
                  : lane == 1 ? keyswitch_form<KsLane::Prereduced>(wide, compact)
                              : keyswitch_form<KsLane::Classic>(wide, compact);
@@ -1197,8 +1280,9 @@ int fhe_keyswitch(const void* d, long long d_sp, long long d_sj, long long d_sb,
 // ks_inner's lanes: 0 Inner, 1 Galois, 2 GaloisInPlace (gs, hs: the key
 // sets' Galois elements and their inverses mod 2n; c0 of digit stack s for
 // prime i at c0 + i * c0_sp + s * c0_ss; lane 1 stages it behind the padded
-// row in smem).  `compact` picks the compact split (n = 65536: a padded half
-// row per CTA), which lanes 0 and 2 take.
+// row in smem).  `compact` picks the compact split (2, n = 65536: a padded
+// half row per CTA; 4, n = 131072: a padded quarter row), which lanes 0 and
+// 2 take.
 int fhe_ks_inner(const void* dg, long long dg_sp, long long dg_sj, long long dg_sb,
                  int dg_div, const void* keys, long long key_sp, long long key_sj,
                  long long key_se, int key_mod, void* out, const void* p, const void* mu,
@@ -1209,12 +1293,15 @@ int fhe_ks_inner(const void* dg, long long dg_sp, long long dg_sj, long long dg_
                  void* stream) {
   auto c = [](const void* v) { return static_cast<const uint32_t*>(v); };
   const GaloisOperands go{c(gs), c(hs), c(c0), c0_sp, c0_ss};
-  if (compact && lane == 1) return static_cast<int>(cudaErrorInvalidValue);
-  auto* launch = lane == 2   ? compact ? &launch_ks_inner<InnerLane::GaloisInPlace, true>
-                                       : &launch_ks_inner<InnerLane::GaloisInPlace, false>
-                 : lane == 1 ? &launch_ks_inner<InnerLane::Galois, false>
-                 : compact   ? &launch_ks_inner<InnerLane::Inner, true>
-                             : &launch_ks_inner<InnerLane::Inner, false>;
+  if ((compact && lane == 1) || (compact != 0 && compact != 2 && compact != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* launch = lane == 2      ? compact == 4 ? &launch_ks_inner<InnerLane::GaloisInPlace, true, 4>
+                                  : compact    ? &launch_ks_inner<InnerLane::GaloisInPlace, true>
+                                               : &launch_ks_inner<InnerLane::GaloisInPlace, false>
+                 : lane == 1    ? &launch_ks_inner<InnerLane::Galois, false>
+                 : compact == 4 ? &launch_ks_inner<InnerLane::Inner, true, 4>
+                 : compact      ? &launch_ks_inner<InnerLane::Inner, true>
+                                : &launch_ks_inner<InnerLane::Inner, false>;
   return static_cast<int>(launch(dg, dg_sp, dg_sj, dg_sb, dg_div, keys, key_sp, key_sj,
                                  key_se, key_mod, out, p, mu, ipsi, ipsi_sh, n_inv, n_inv_sh,
                                  k, kd, batch, logn, threads, smem, vec, go,

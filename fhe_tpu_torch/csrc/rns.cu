@@ -20,7 +20,8 @@
 //      the t-scaled q-side product, its digits converted to c_j.
 // The lift and the Bsk product never leave shared memory (at n = 65536,
 // the compact form, the transformed half rows pass through a global
-// scratch buffer).  The TPU grid ran
+// scratch buffer; at n = 131072, the quarter form, four CTAs share each row
+// and the cluster runs its rows in rounds, csrc/quarter.cuh).  The TPU grid ran
 // the Bsk primes in order on one core.  Here each (b, j) is a thread-block
 // cluster of 8 CTAs, two per input row (kRowSplit), grid (8, B, kb): the two
 // CTAs of row r lift it and run its forward transform between them (the
@@ -94,6 +95,7 @@
 
 #include "lift.cuh"
 #include "modmath.cuh"
+#include "quarter.cuh"
 
 namespace {
 
@@ -118,6 +120,61 @@ __device__ __forceinline__ void fast_floor_step(uint32_t tx_i, uint32_t qi, uint
 __device__ __forceinline__ uint32_t fast_floor_close(uint32_t tx_c, uint32_t conv, uint32_t c,
                                                      uint32_t iq, uint32_t iq_sh) {
   return fhe::mul_shoup(fhe::sub_mod(tx_c, conv, c), iq, iq_sh, c);
+}
+
+// bsk_branch_fused's step 1 on a group of G coefficients: x[g] = the SmMRq
+// lift into c of element base + (g << logs) of the row at src, whose
+// residue mod source prime q_i lies at src + i * sp; lp, lp_sh: c's row of
+// the lift's [kb, k] tables.  A group at once, source prime by source
+// prime, so that a thread has a whole group's loads in flight.
+template <int G>
+__device__ __forceinline__ void lift_group(
+    uint32_t (&x)[G], const uint32_t* __restrict__ src, int sp, int base, int logs, int k,
+    const uint32_t* __restrict__ q, const uint32_t* __restrict__ mt_inv_phat,
+    const uint32_t* __restrict__ mt_inv_phat_sh, const uint32_t* __restrict__ lp,
+    const uint32_t* __restrict__ lp_sh, const uint32_t* __restrict__ phat_mt, uint32_t c,
+    uint32_t inv_q_mt, uint32_t qc, uint32_t qc_sh, uint32_t imt, uint32_t imt_sh) {
+  uint32_t conv[G], lane[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) conv[g] = lane[g] = 0;
+  for (int i = 0; i < k; ++i) {
+    const uint32_t* si = src + i * sp + base;
+    const uint32_t qi = q[i], w = mt_inv_phat[i], w_sh = mt_inv_phat_sh[i];
+    const uint32_t ph = lp[i], ph_sh = lp_sh[i], pm = phat_mt[i];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      fhe::sm_mrq_step(si[g << logs], qi, w, w_sh, ph, ph_sh, pm, c, conv[g], lane[g]);
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    x[g] = fhe::sm_mrq_close(conv[g], lane[g], inv_q_mt, c, qc, qc_sh, imt, imt_sh);
+}
+
+// bsk_branch_fused's step 3 on a group: dst[base + (g << logs)] = the
+// FastFloor of x[g] (product row r in c, times t) against the q-side
+// product row at tsrc (source prime q_i at tsrc + i * sp); fp, fp_sh: c's
+// row of the floor's [kb, k] table.
+template <int G>
+__device__ __forceinline__ void floor_group(
+    const uint32_t (&x)[G], const uint32_t* __restrict__ tsrc, int sp,
+    uint32_t* __restrict__ dst, int base, int logs, int k, const uint32_t* __restrict__ q,
+    const uint32_t* __restrict__ floor_inv_phat, const uint32_t* __restrict__ floor_inv_phat_sh,
+    const uint32_t* __restrict__ fp, const uint32_t* __restrict__ fp_sh, uint32_t c,
+    uint32_t iq, uint32_t iq_sh) {
+  uint32_t conv[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) conv[g] = 0;
+  for (int i = 0; i < k; ++i) {
+    const uint32_t* ti = tsrc + i * sp + base;
+    const uint32_t qi = q[i], w = floor_inv_phat[i], w_sh = floor_inv_phat_sh[i];
+    const uint32_t ph = fp[i], ph_sh = fp_sh[i];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      fast_floor_step(ti[g << logs], qi, w, w_sh, ph, ph_sh, c, conv[g]);
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    dst[base + (g << logs)] = fast_floor_close(x[g], conv[g], c, iq, iq_sh);
 }
 
 // ab: [k, 4, B, n] (a0, a1, b0, b1 in q), element (i, c, b, x) at
@@ -202,21 +259,8 @@ bsk_branch_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_
   const uint32_t* lp = lift_phat + j * k;
   const uint32_t* lp_sh = lift_phat_sh + j * k;
   auto lift = [&](auto& x, int base, int logs) {
-    constexpr int G = sizeof(x) / sizeof(x[0]);
-    uint32_t conv[G], lane[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) conv[g] = lane[g] = 0;
-    for (int i = 0; i < k; ++i) {
-      const uint32_t* si = src + i * ab_sp + base;
-      const uint32_t qi = q[i], w = mt_inv_phat[i], w_sh = mt_inv_phat_sh[i];
-      const uint32_t ph = lp[i], ph_sh = lp_sh[i], pm = phat_mt[i];
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-        fhe::sm_mrq_step(si[g << logs], qi, w, w_sh, ph, ph_sh, pm, c, conv[g], lane[g]);
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      x[g] = fhe::sm_mrq_close(conv[g], lane[g], inv_q_mt, c, qc, qc_sh, imt, imt_sh);
+    lift_group(x, src, ab_sp, base, logs, k, q, mt_inv_phat, mt_inv_phat_sh, lp, lp_sh, phat_mt,
+               c, inv_q_mt, qc, qc_sh, imt, imt_sh);
   };
   auto kept = [&] {
     if constexpr (COMPACT)   // the last pass's group is consecutive (logs = 0)
@@ -267,21 +311,8 @@ bsk_branch_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_
     const uint32_t* fp_sh = floor_phat_sh + j * k;
     uint32_t* dst = out + ((static_cast<size_t>(j) * 3 + r) * batch + b) * n;
     auto floored = [&](auto& x, int base, int logs) {
-      constexpr int G = sizeof(x) / sizeof(x[0]);
-      uint32_t conv[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) conv[g] = 0;
-      for (int i = 0; i < k; ++i) {
-        const uint32_t* ti = tsrc + i * tx_sp + base;
-        const uint32_t qi = q[i], w = floor_inv_phat[i], w_sh = floor_inv_phat_sh[i];
-        const uint32_t ph = fp[i], ph_sh = fp_sh[i];
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          fast_floor_step(ti[g << logs], qi, w, w_sh, ph, ph_sh, c, conv[g]);
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-        dst[base + (g << logs)] = fast_floor_close(x[g], conv[g], c, iq, iq_sh);
+      floor_group(x, tsrc, tx_sp, dst, base, logs, k, q, floor_inv_phat, floor_inv_phat_sh, fp,
+                  fp_sh, c, iq, iq_sh);
     };
     fhe::inv_ntt_regs_split<kRowSplit, COMPACT>(work, split, sync, logn, c, ipsi + tab,
                                                 ipsi_sh + tab, n_inv[j], n_inv_sh[j],
@@ -292,6 +323,72 @@ bsk_branch_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_
   // the peers read this CTA's rows above: no CTA leaves (and frees its
   // shared memory) before all have
   cluster.sync();
+}
+
+// bsk_branch_kernel's QUARTER form (3; n = 131072, where even the compact
+// split's padded half row exceeds a block): the same three steps on
+// quarter.cuh's schedule, a portable cluster of 8 CTAs per (element, Bsk
+// prime c_j) that shares each row over four CTAs (a padded quarter row
+// each), lifting input row r in the first pass of its forward transform
+// (two rounds of two rows) and flooring product row r in the last pass of
+// its inverse (two rounds); the transformed rows go to `scratch`, 4n words
+// per cluster, that of cluster (b, j) at scratch + (j * B + b) * 4n.
+// bsk_branch_kernel's parameters, so one entry point takes both.
+__global__ void __launch_bounds__(512)
+bsk_branch_quarter_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_sb,
+                          const uint32_t* __restrict__ txq, int tx_sp, int tx_sc, int tx_sb,
+                          uint32_t* __restrict__ out, const uint32_t* __restrict__ q,
+                          const uint32_t* __restrict__ mt_inv_phat,
+                          const uint32_t* __restrict__ mt_inv_phat_sh,
+                          const uint32_t* __restrict__ lift_phat,
+                          const uint32_t* __restrict__ lift_phat_sh,
+                          const uint32_t* __restrict__ phat_mt,
+                          const uint32_t* __restrict__ q_mod_c,
+                          const uint32_t* __restrict__ q_mod_c_sh,
+                          const uint32_t* __restrict__ inv_mt_c,
+                          const uint32_t* __restrict__ inv_mt_c_sh, uint32_t inv_q_mt,
+                          const uint32_t* __restrict__ floor_inv_phat,
+                          const uint32_t* __restrict__ floor_inv_phat_sh,
+                          const uint32_t* __restrict__ floor_phat,
+                          const uint32_t* __restrict__ floor_phat_sh,
+                          const uint32_t* __restrict__ inv_q_c,
+                          const uint32_t* __restrict__ inv_q_c_sh,
+                          const uint32_t* __restrict__ cp, const uint32_t* __restrict__ mu,
+                          const uint32_t* __restrict__ psi,
+                          const uint32_t* __restrict__ psi_sh,
+                          const uint32_t* __restrict__ ipsi,
+                          const uint32_t* __restrict__ ipsi_sh,
+                          const uint32_t* __restrict__ n_inv,
+                          const uint32_t* __restrict__ n_inv_sh, int k, int logn,
+                          uint32_t* scratch) {
+  extern __shared__ uint32_t sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = 1 << logn;
+  const int b = blockIdx.y;
+  const int j = blockIdx.z;
+  const int batch = gridDim.y;
+  const uint32_t c = cp[j];
+  const size_t tab = static_cast<size_t>(j) * n;
+  uint32_t* ours = scratch + (static_cast<size_t>(j) * batch + b) * 4 * n;
+  const uint32_t qc = q_mod_c[j], qc_sh = q_mod_c_sh[j];
+  const uint32_t imt = inv_mt_c[j], imt_sh = inv_mt_c_sh[j];
+  const uint32_t iq = inv_q_c[j], iq_sh = inv_q_c_sh[j];
+  const uint32_t* lp = lift_phat + j * k;
+  const uint32_t* lp_sh = lift_phat_sh + j * k;
+  const uint32_t* fp = floor_phat + j * k;
+  const uint32_t* fp_sh = floor_phat_sh + j * k;
+  fhe::quarter_product(
+      cluster, sm, ours, logn, c, mu[j], psi + tab, psi_sh + tab, ipsi + tab, ipsi_sh + tab,
+      n_inv[j], n_inv_sh[j],
+      [&](int r, auto& x, int base, int logs) {
+        lift_group(x, ab + r * ab_sc + b * ab_sb, ab_sp, base, logs, k, q, mt_inv_phat,
+                   mt_inv_phat_sh, lp, lp_sh, phat_mt, c, inv_q_mt, qc, qc_sh, imt, imt_sh);
+      },
+      [&](int r, auto& x, int base, int logs) {
+        floor_group(x, txq + r * tx_sc + b * tx_sb, tx_sp,
+                    out + ((static_cast<size_t>(j) * 3 + r) * batch + b) * n, base, logs, k, q,
+                    floor_inv_phat, floor_inv_phat_sh, fp, fp_sh, c, iq, iq_sh);
+      });
 }
 
 // The base-conversion kernel: fast_bconv_sk_fused (lane SK, with or without
@@ -910,7 +1007,8 @@ extern "C" {
 // bsk_branch_geometry): `threads` per CTA and `smem` bytes per CTA, at least
 // the rows the kernel's form uses (fhe::product_words): form 0 two padded
 // rows, 1 (half_row) a padded row and a padded half row, 2 (compact) a
-// padded half row, with `scratch` (n/2 words per CTA).
+// padded half row, 3 (quarter) a padded quarter row, with `scratch` in the
+// last two (n/2 words per CTA).
 int fhe_bsk_branch(const void* ab, int ab_sp, int ab_sc, int ab_sb, const void* txq,
                    int tx_sp, int tx_sc, int tx_sb,
                    void* out, const void* q,
@@ -925,14 +1023,16 @@ int fhe_bsk_branch(const void* ab, int ab_sp, int ab_sc, int ab_sb, const void* 
                    const void* n_inv_sh, int k, int kb, int batch, int logn, int threads,
                    int smem, int form, void* scratch, void* stream) {
   const int n = 1 << logn;
-  if (logn <= fhe::kRegLog || form < 0 || form > 2 || smem < 4 * fhe::product_words(form, n)
-      || (form == 2) != (scratch != nullptr))
+  if (logn <= fhe::kRegLog || form < 0 || form > 3 || smem < 4 * fhe::product_words(form, n)
+      || (form >= 2) != (scratch != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   // each instantiation keeps its own records (launch_tensor_product's way)
-  static std::atomic<size_t> granted[3][fhe::kMaxDevices];
-  static std::atomic<size_t> placed[3][fhe::kMaxDevices];
-  auto* fn = form == 2 ? &bsk_branch_kernel<2> : form == 1 ? &bsk_branch_kernel<1>
-                                                            : &bsk_branch_kernel<0>;
+  static std::atomic<size_t> granted[4][fhe::kMaxDevices];
+  static std::atomic<size_t> placed[4][fhe::kMaxDevices];
+  auto* fn = form == 3 ? &bsk_branch_quarter_kernel
+             : form == 2 ? &bsk_branch_kernel<2>
+             : form == 1 ? &bsk_branch_kernel<1>
+                         : &bsk_branch_kernel<0>;
   const void* kernel = reinterpret_cast<const void*>(fn);
   cudaError_t err = fhe::allow_smem(kernel, smem, granted[form]);
   if (err != cudaSuccess) return static_cast<int>(err);

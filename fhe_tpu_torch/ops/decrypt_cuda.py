@@ -18,9 +18,9 @@ from . import modmath as mm
 from . import ntt as _ntt
 from . import rns as _rns
 from .ntt import NTTTables
-from .ntt_cuda import (MAX_GRID_Y, ROW_SPLIT, check_aligned_tables, check_barrett,
-                       check_residues, fit_smem, log2_exact, on_card,
-                       regs_threads, row_bytes, scratch_for, table_ptrs)
+from .ntt_cuda import (COMPACT_SPLITS, MAX_CLUSTER, MAX_GRID_Y, check_aligned_tables,
+                       check_barrett, check_residues, compact_arg, fit_smem, log2_exact,
+                       on_card, regs_threads, row_bytes, scratch_for, table_ptrs)
 
 _P = ctypes.c_void_p
 _U = ctypes.c_uint32
@@ -37,10 +37,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-# the largest portable cluster
-MAX_CLUSTER = 8
-
-
 def decrypt_geometry(n: int, k: int, batch: int = 1) -> dict:
     """Launch shape of ``decrypt_fused`` for B = ``batch`` ciphertext rows
     over k primes: one cluster of C = min(k, 8) CTAs per row, CTA r taking
@@ -51,20 +47,24 @@ def decrypt_geometry(n: int, k: int, batch: int = 1) -> dict:
     the ``wide`` form: the working row alone, the accumulators in a global
     scratch buffer of 2n words per CTA (``scratch`` words in all).  Where
     the working row does not fit either (n = 65536), the ``compact`` form:
-    each prime's row split over a pair of CTAs (``ctas_per_row``), a padded
-    half row each, P = min(k, 4) pairs per cluster (C = 2P, portable), pair
-    q taking the primes q, q + P, ...; each CTA's accumulators are n words
-    of scratch (n/2 each).  Raise where nothing fits the card."""
+    each prime's row split over H = 2 CTAs (``ctas_per_row``), a padded
+    half row each, P = min(k, 8 / H) groups per cluster (C = H P,
+    portable), group q taking the primes q, q + P, ...; each CTA's
+    accumulators are 2n/H words of scratch (n/H each); at n = 131072, where
+    a padded half row does not fit, the same with H = 4 (the quarter split:
+    a padded quarter row per CTA, two groups per cluster).  Raise where
+    nothing fits the card."""
     name = "decrypt_fused"
     if k < 1 or not 1 <= batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: k={k}, batch {batch} outside 1..{MAX_GRID_Y}")
     row = row_bytes(n, padded=True)
-    layout, smem = fit_smem(n, name, 3 * row, row, row_bytes(n // ROW_SPLIT, padded=True))
-    compact = layout == 2
-    split = ROW_SPLIT if compact else 1
+    layout, smem = fit_smem(n, name, 3 * row, row,
+                            *(row_bytes(n // h, padded=True) for h in COMPACT_SPLITS))
+    compact = layout >= 2
+    split = COMPACT_SPLITS[layout - 2] if compact else 1
     c = split * min(k, MAX_CLUSTER // split)
     threads = regs_threads(n, name, split)
-    scratch = {0: 0, 1: 2 * n * c * batch, 2: n * c * batch}[layout]
+    scratch = 2 * n * c * batch // split if layout >= 1 else 0
     return {"grid": (c, batch), "cluster": (c, 1, 1), "ctas": c * batch,
             "ctas_per_row": split, "primes_per_cta": -(-k // (c // split)),
             "threads": threads, "smem": smem, "wide": layout >= 1, "compact": compact,
@@ -118,7 +118,7 @@ def decrypt_fused(c0: torch.Tensor, c1: torch.Tensor, s_ntt: torch.Tensor,
         dc.t, dc.gamma, dc.gamma_mu, dc.neg_inv_q_t, dc.neg_inv_q_t_shoup,
         dc.neg_inv_q_g, dc.inv_gamma_t, dc.inv_gamma_t_shoup, dc.gamma_mod_t,
         dc.one_shoup_t, k, batch, log2_exact(n), geo["cluster"][0], geo["threads"],
-        geo["smem"], None if scratch is None else p(scratch), int(geo["compact"]))
+        geo["smem"], None if scratch is None else p(scratch), compact_arg(geo))
     decrypt_fused.launches += 1
     return out
 

@@ -122,8 +122,8 @@ def row_bytes(n: int, padded: bool = False) -> int:
 def fit_smem(n: int, name: str, *layouts: int) -> tuple[int, int]:
     """The first of a kernel's shared-memory ``layouts`` (bytes per block,
     in its order of preference) that fits a block, as (index, bytes); raise,
-    naming the function and n, where none does (n = 131072: even the
-    compact split's padded half row takes 264 KB)."""
+    naming the function and n, where none does (n = 262144: even the
+    quarter split's padded quarter row takes 264 KB)."""
     for i, nbytes in enumerate(layouts):
         if nbytes <= MAX_SMEM:
             return i, nbytes
@@ -155,49 +155,63 @@ def regs_threads(n: int, name: str, split: int = 1) -> int:
 
 # the cluster kernels of csrc/ntt.cu and csrc/rns.cu: the CTAs of a cluster
 # that share a row's transforms, the tensor product's cluster, one pair of
-# CTAs per input row x0, x1, y0, y1, and the most digit pairs of a
-# keyswitch_fused cluster (kRowSplit, kProductCluster, kKeyswitchPairs).
-# Where one padded row exceeds a block (n = 65536), each CTA of a pair holds
-# only its own half of the row, padded (modmath.cuh's compact split:
-# ``compact`` in the geometries)
+# CTAs per input row x0, x1, y0, y1, and the most CTAs of a cluster (the
+# portable size; kRowSplit, kProductCluster, kMaxCluster), so at most
+# KEYSWITCH_PAIRS digit pairs in a keyswitch_fused cluster.  Where one
+# padded row exceeds a block (n = 65536), each CTA of a pair holds only its
+# own half of the row, padded (modmath.cuh's compact split: ``compact`` in
+# the geometries); where that half exceeds a block too (n = 131072), four
+# CTAs share the row, a padded quarter each (the quarter split:
+# ``ctas_per_row`` 4), the largest split (COMPACT_SPLITS)
 ROW_SPLIT = 2
 PRODUCT_CLUSTER = 4 * ROW_SPLIT
-KEYSWITCH_PAIRS = 4
+MAX_CLUSTER = 8
+KEYSWITCH_PAIRS = MAX_CLUSTER // ROW_SPLIT
+COMPACT_SPLITS = (2, 4)
 # tensor_product's Lift lane: the most threads a CTA gives the lift (which
 # loads its source rows 16 at a time, any number of them: csrc/lift.cuh)
 LIFT_THREADS = 256
 
 
-def split_row_smem(n: int, name: str, *full: int) -> tuple[int, bool]:
-    """Shared memory of a kernel whose CTAs split each row in pairs: the
-    first of its ``full`` layouts (bytes, in its order of preference) that
-    fits a block, else the compact split's padded half row; as (bytes,
-    compact).  Raise, naming the function, where nothing fits."""
-    layout, smem = fit_smem(n, name, *full, row_bytes(n // ROW_SPLIT, padded=True))
-    return smem, layout == len(full)
+def split_row_smem(n: int, name: str, *full: int) -> tuple[int, int]:
+    """Shared memory of a kernel whose CTAs split each row: the first of its
+    ``full`` layouts (bytes, in its order of preference; a pair of CTAs a
+    row) that fits a block, else the compact split's padded 1/H row for the
+    smallest H of COMPACT_SPLITS that fits; as (bytes, H), H = 0 for a full
+    layout.  Raise, naming the function, where nothing fits (n = 262144)."""
+    shares = [row_bytes(n // h, padded=True) for h in COMPACT_SPLITS]
+    layout, smem = fit_smem(n, name, *full, *shares)
+    return smem, 0 if layout < len(full) else COMPACT_SPLITS[layout - len(full)]
+
+
+def compact_arg(geo: dict) -> int:
+    """The C entry points' ``compact`` argument for a launch shape: 0, or
+    the CTAs of its compact split (2, or 4 on the quarter split)."""
+    return geo["ctas_per_row"] if geo["compact"] else 0
 
 
 def ntt_forward_geometry(n: int, k: int, batch: int = 1,
                          name: str = "ntt_forward") -> dict:
-    """Launch shape of ``ntt_forward`` for [k, batch, n]: one cluster of 2
+    """Launch shape of ``ntt_forward`` for [k, batch, n]: one cluster of H
     CTAs per (row, prime), which share the row's transform, the batch on
-    grid x; one padded row of shared memory per CTA, or where that does not
-    fit a block (n = 65536) the ``compact`` split, a padded half row each.
-    Raise where nothing fits the card."""
-    if not 1 <= ROW_SPLIT * batch <= MAX_GRID_X:
-        raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_X // ROW_SPLIT}")
-    threads = regs_threads(n, name, ROW_SPLIT)
-    smem, compact = split_row_smem(n, name, row_bytes(n, padded=True))
-    return {"grid": (ROW_SPLIT * batch, k), "cluster": (ROW_SPLIT, 1, 1),
-            "ctas": ROW_SPLIT * batch * k, "ctas_per_row": ROW_SPLIT,
-            "threads": threads, "smem": smem, "compact": compact}
+    grid x; H = 2 and one padded row of shared memory per CTA, or where that
+    does not fit a block (n = 65536) the ``compact`` split, a padded half
+    row each, and where that does not fit either (n = 131072) H = 4, a
+    padded quarter row each.  Raise where nothing fits the card."""
+    smem, split = split_row_smem(n, name, row_bytes(n, padded=True))
+    h = split or ROW_SPLIT
+    if not 1 <= h * batch <= MAX_GRID_X:
+        raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_X // h}")
+    threads = regs_threads(n, name, h)
+    return {"grid": (h * batch, k), "cluster": (h, 1, 1), "ctas": h * batch * k,
+            "ctas_per_row": h, "threads": threads, "smem": smem, "compact": bool(split)}
 
 
 def ntt_inverse_geometry(n: int, k: int, batch: int = 1) -> dict:
     """Launch shape of ``ntt_inverse`` for [k, batch, n]: ntt_forward's, the
-    mirror transform (a cluster of 2 CTAs per (row, prime), one padded row
-    each, or the compact split's half row).  Raise where nothing fits the
-    card."""
+    mirror transform (a cluster of H CTAs per (row, prime), one padded row
+    each, or the compact split's half or quarter row).  Raise where nothing
+    fits the card."""
     return ntt_forward_geometry(n, k, batch, "ntt_inverse")
 
 
@@ -215,74 +229,79 @@ def _padded(n: int) -> int:
 def ks_inner_geometry(n: int, k: int, batch: int = 1,
                       name: str = "ks_inner_batch", c0: bool = False) -> dict:
     """Launch shape of ``ks_inner_batch`` and ``ks_inner_grouped`` for B =
-    ``batch`` elements over k primes: one cluster of 2 CTAs per (element,
+    ``batch`` elements over k primes: one cluster of H CTAs per (element,
     output row, prime), which share that row's inner product and inverse
-    transform, grid (2, 2B, k); one padded row of shared memory per CTA,
-    and with ``c0`` (the Galois lane adds phi_g(c0)) the c0 row staged
-    behind it where both fit a block (n <= 16384; ``stage_c0``), else c0 is
-    read in place; where one padded row does not fit (n = 65536), the
-    ``compact`` split's padded half row.  Raise where nothing fits the
-    card."""
+    transform, grid (H, 2B, k); H = 2 and one padded row of shared memory
+    per CTA, and with ``c0`` (the Galois lane adds phi_g(c0)) the c0 row
+    staged behind it where both fit a block (n <= 16384; ``stage_c0``), else
+    c0 is read in place; where one padded row does not fit (n = 65536), the
+    ``compact`` split's padded half row, and at n = 131072 H = 4, a padded
+    quarter row each.  Raise where nothing fits the card."""
     if not 1 <= 2 * batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y // 2}")
     staged = (staged_bytes(n, _padded(n)),) if c0 else ()
-    smem, compact = split_row_smem(n, name, *staged, row_bytes(n, padded=True))
-    return {"grid": (ROW_SPLIT, 2 * batch, k), "cluster": (ROW_SPLIT, 1, 1),
-            "ctas": ROW_SPLIT * 2 * batch * k, "ctas_per_row": ROW_SPLIT,
-            "threads": regs_threads(n, name, ROW_SPLIT), "smem": smem,
-            "stage_c0": bool(staged) and smem == staged[0], "compact": compact}
+    smem, split = split_row_smem(n, name, *staged, row_bytes(n, padded=True))
+    h = split or ROW_SPLIT
+    return {"grid": (h, 2 * batch, k), "cluster": (h, 1, 1),
+            "ctas": h * 2 * batch * k, "ctas_per_row": h,
+            "threads": regs_threads(n, name, h), "smem": smem,
+            "stage_c0": bool(staged) and smem == staged[0], "compact": bool(split)}
 
 
 def keyswitch_geometry(n: int, k: int, kd: int, batch: int = 1,
                        name: str = "keyswitch_fused", galois: bool = False) -> dict:
     """Launch shape of ``keyswitch_fused`` (and ``_batch``, every lane) for
-    kd digits of B = ``batch`` elements over k primes: one cluster of 2R
-    CTAs per (element, prime), R = clamp(kd, 2, 4) digit pairs (two pairs at
-    least, one per output row; at most 8 CTAs, the portable cluster size);
-    pair r transforms digits r, r + R, ...; CTA 2r + h keeps the partial sums
-    of positions [h n/2, (h+1) n/2) of both output rows.  Shared memory:
-    two padded rows per CTA (the working row and the two partial half
-    rows), and with ``galois`` (the Galois lane) the staged row it gathers
-    from; where that does not fit a block (n = 32768), the ``wide`` form:
-    the working row alone, the partials in a global scratch buffer of n
-    words per CTA (``scratch`` words in all) and the Galois lane's rows read
-    in place; where the working row does not fit either (n = 65536), the
-    wide form on the ``compact`` split, a padded half row per CTA.  Raise
-    where nothing fits the card."""
+    kd digits of B = ``batch`` elements over k primes: one cluster of H R
+    CTAs per (element, prime), H = 2 CTAs a row and R = clamp(kd, 2, 4)
+    digit pairs (two at least, one per output row; at most 8 CTAs, the
+    portable cluster size); pair r transforms digits r, r + R, ...; CTA
+    H r + h keeps the partial sums of positions [h n/H, (h+1) n/H) of both
+    output rows.  Shared memory: two padded rows per CTA (the working row
+    and the two partial half rows), and with ``galois`` (the Galois lane)
+    the staged row it gathers from; where that does not fit a block
+    (n = 32768), the ``wide`` form: the working row alone, the partials in a
+    global scratch buffer of 2n/H words per CTA (``scratch`` words in all)
+    and the Galois lane's rows read in place; where the working row does
+    not fit either (n = 65536), the wide form on the ``compact`` split, a
+    padded half row per CTA; at n = 131072 on the quarter split, H = 4 and
+    R = 2 digit groups (a cluster of 8), a padded quarter row per CTA.
+    Raise where nothing fits the card."""
     if kd < 1:
         raise ValueError(f"{name}: kd={kd}, expected at least one digit")
     if not 1 <= batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y}")
-    pairs = min(max(kd, 2), KEYSWITCH_PAIRS)
-    threads = regs_threads(n, name, ROW_SPLIT)
     rows = 2 * _padded(n)
-    smem, compact = split_row_smem(n, name, staged_bytes(n, rows) if galois else 4 * rows,
-                                   row_bytes(n, padded=True))
+    smem, split = split_row_smem(n, name, staged_bytes(n, rows) if galois else 4 * rows,
+                                 row_bytes(n, padded=True))
+    h = split or ROW_SPLIT
+    pairs = min(max(kd, 2), MAX_CLUSTER // h)
+    threads = regs_threads(n, name, h)
     wide = smem < 4 * rows
-    ctas = ROW_SPLIT * pairs * batch * k
-    return {"grid": (ROW_SPLIT * pairs, batch, k), "cluster": (ROW_SPLIT * pairs, 1, 1),
-            "ctas": ctas, "pairs": pairs, "ctas_per_row": ROW_SPLIT, "threads": threads,
-            "smem": smem, "wide": wide, "compact": compact,
-            "scratch": ctas * n if wide else 0}
+    ctas = h * pairs * batch * k
+    return {"grid": (h * pairs, batch, k), "cluster": (h * pairs, 1, 1),
+            "ctas": ctas, "pairs": pairs, "ctas_per_row": h, "threads": threads,
+            "smem": smem, "wide": wide, "compact": bool(split),
+            "scratch": ctas * 2 * n // h if wide else 0}
 
 
 def mul_by_ntt_operand_geometry(n: int, k: int, c: int, batch: int = 1) -> dict:
     """Launch shape of ``mul_by_ntt_operand`` (and ``_batch``) for B =
     ``batch`` rows of u against c operand rows over k primes: one cluster
-    of 2 CTAs per (element, operand row, prime), which share the row's
-    forward transform, product and inverse transform; one padded row of
-    shared memory per CTA, or at n = 65536 the ``compact`` split's half row
-    (all a CTA keeps of NTT(u) between the transforms).  Raise where nothing
-    fits the card."""
+    of H CTAs per (element, operand row, prime), which share the row's
+    forward transform, product and inverse transform; H = 2 and one padded
+    row of shared memory per CTA, or at n = 65536 the ``compact`` split's
+    half row (all a CTA keeps of NTT(u) between the transforms), and at
+    n = 131072 H = 4, a padded quarter row each.  Raise where nothing fits
+    the card."""
     name = "mul_by_ntt_operand"
     if not 1 <= c * batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: {c} operand rows x batch {batch} outside "
                          f"1..{MAX_GRID_Y}")
-    threads = regs_threads(n, name, ROW_SPLIT)
-    smem, compact = split_row_smem(n, name, row_bytes(n, padded=True))
-    return {"grid": (ROW_SPLIT, c * batch, k), "cluster": (ROW_SPLIT, 1, 1),
-            "ctas": ROW_SPLIT * c * batch * k, "ctas_per_row": ROW_SPLIT,
-            "threads": threads, "smem": smem, "compact": compact}
+    smem, split = split_row_smem(n, name, row_bytes(n, padded=True))
+    h = split or ROW_SPLIT
+    return {"grid": (h, c * batch, k), "cluster": (h, 1, 1),
+            "ctas": h * c * batch * k, "ctas_per_row": h,
+            "threads": regs_threads(n, name, h), "smem": smem, "compact": bool(split)}
 
 
 def tensor_product_geometry(n: int, k: int, batch: int = 1,
@@ -299,31 +318,40 @@ def tensor_product_geometry(n: int, k: int, batch: int = 1,
     a padded row and a padded half row; where that does not fit either
     (n = 65536), the ``compact`` form: the working row is the compact
     split's padded half row, and the transformed half rows go to a global
-    scratch buffer of n/2 words per CTA (``scratch`` words in all).  The
-    Lift lane (``lift``) has a thread per coefficient of the CTA's half row,
-    up to LIFT_THREADS, for the lift before the first pass, and neither
-    form.  Raise where nothing fits the card."""
+    scratch buffer of n/2 words per CTA (``scratch`` words in all: the
+    cluster's four transformed rows); where a padded half row does not fit
+    either (n = 131072), the compact form on the quarter split
+    (``ctas_per_row`` 4; csrc/quarter.cuh): still a portable cluster of 8
+    per (element, prime), four CTAs a row, a padded quarter row each, the
+    four input rows in two forward rounds and the three product rows in two
+    inverse rounds, with the same scratch.  The Lift lane (``lift``) has a
+    thread per coefficient of the CTA's half row, up to LIFT_THREADS, for
+    the lift before the first pass, and none of these forms.  Raise where
+    nothing fits the card."""
     if not 1 <= batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y}")
-    threads = regs_threads(n, name, ROW_SPLIT)
+    forms = (() if lift else (row_bytes(n, True) + row_bytes(n // ROW_SPLIT, True),
+                              *(row_bytes(n // h, True) for h in COMPACT_SPLITS)))
+    layout, smem = fit_smem(n, name, 2 * row_bytes(n, padded=True), *forms)
+    h = COMPACT_SPLITS[-1] if layout == 3 else ROW_SPLIT
+    threads = regs_threads(n, name, h)
     if lift:
         threads = max(threads, min(n // ROW_SPLIT, LIFT_THREADS))
-    forms = (() if lift else (row_bytes(n, True) + row_bytes(n // ROW_SPLIT, True),
-                              row_bytes(n // ROW_SPLIT, True)))
-    layout, smem = fit_smem(n, name, 2 * row_bytes(n, padded=True), *forms)
     ctas = PRODUCT_CLUSTER * batch * k
     return {"grid": (PRODUCT_CLUSTER, batch, k), "cluster": (PRODUCT_CLUSTER, 1, 1),
             "ctas": ctas, "ctas_per_prime": PRODUCT_CLUSTER,
-            "ctas_per_row": ROW_SPLIT, "threads": threads, "smem": smem,
-            "half_row": layout == 1, "compact": layout == 2,
-            "scratch": ctas * (n // ROW_SPLIT) if layout == 2 else 0}
+            "ctas_per_row": h, "threads": threads, "smem": smem,
+            "half_row": layout == 1, "compact": layout >= 2,
+            "scratch": 4 * n * batch * k if layout >= 2 else 0}
 
 
 def product_form(geo: dict) -> int:
     """The form number the C entry points of the cluster tensor products
     take (csrc/modmath.cuh: product_words): 0 two padded rows, 1 the half
-    row, 2 compact."""
-    return 2 if geo["compact"] else int(geo["half_row"])
+    row, 2 compact, 3 compact on the quarter split."""
+    if geo["compact"]:
+        return 3 if geo["ctas_per_row"] == 4 else 2
+    return int(geo["half_row"])
 
 
 def scratch_for(geo: dict, device) -> torch.Tensor | None:
@@ -355,7 +383,7 @@ def table_ptrs(tb: NTTTables) -> list:
 def ntt_forward(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
     """[k, batch, n] forward NTT, natural -> bit-reversed order.  Any prime
     below 2^31 (Shoup twiddles: the q primes and the plaintext modulus t);
-    on the card 32 <= n <= 65536 (``ntt_forward_geometry``)."""
+    on the card 32 <= n <= 131072 (``ntt_forward_geometry``)."""
     check_residues(a, tb, "ntt_forward")
     if not on_card(a, "ntt_forward"):
         return _ntt.ntt_forward(a, tb)
@@ -366,7 +394,7 @@ def ntt_forward(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
     p = _build.ptr
     _build.launch(_lib().fhe_ntt_forward, "ntt_forward", a.device,
                   p(a), p(out), p(tb.p), p(tb.psi_br), p(tb.psi_br_shoup),
-                  k, batch, log2_exact(n), geo["threads"], geo["smem"], int(geo["compact"]))
+                  k, batch, log2_exact(n), geo["threads"], geo["smem"], compact_arg(geo))
     ntt_forward.launches += 1
     return out
 
@@ -384,7 +412,7 @@ def aligned(x: torch.Tensor, *strides: int) -> bool:
 
 def ntt_inverse(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
     """[k, batch, n] inverse NTT, bit-reversed -> natural order, times n^-1.
-    Any prime below 2^31, as ``ntt_forward``; on the card 32 <= n <= 65536
+    Any prime below 2^31, as ``ntt_forward``; on the card 32 <= n <= 131072
     (``ntt_inverse_geometry``).  An input that does not start 16-byte
     aligned is read a word at a time."""
     check_residues(a, tb, "ntt_inverse")
@@ -398,7 +426,7 @@ def ntt_inverse(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
     _build.launch(_lib().fhe_ntt_inverse, "ntt_inverse", a.device,
                   p(a), p(out), p(tb.p), p(tb.ipsi_br), p(tb.ipsi_br_shoup),
                   p(tb.n_inv), p(tb.n_inv_shoup), k, batch, log2_exact(n),
-                  geo["threads"], geo["smem"], int(aligned(a)), int(geo["compact"]))
+                  geo["threads"], geo["smem"], int(aligned(a)), compact_arg(geo))
     ntt_inverse.launches += 1
     return out
 
@@ -444,7 +472,7 @@ def _mul_by_ntt_operand_launch(u: torch.Tensor, w_ntt: torch.Tensor,
     _build.launch(_lib().fhe_mul_by_ntt_operand, name, u.device, p(u),
                   u.stride(0), u.stride(1), p(w_ntt), p(out), *table_ptrs(tb),
                   k, c, batch, log2_exact(n), geo["threads"], geo["smem"],
-                  int(geo["compact"]))
+                  compact_arg(geo))
     return out
 
 
@@ -542,7 +570,7 @@ def tensor_product(x: torch.Tensor, y: torch.Tensor, tb: NTTTables, lift=None):
     """(x0*y0, x0*y1 + x1*y0, x1*y1) of two [k, 2, n] coefficient-domain
     ciphertext halves; returns [k, 3, n].  With the multiply's tables
     (``ntt.build_mul_tables``) the result is t times the product.  Every
-    prime must be a 30-bit prime (Barrett); on the card 32 <= n <= 65536
+    prime must be a 30-bit prime (Barrett); on the card 32 <= n <= 131072
     (``tensor_product_geometry``).  x and y may be
     views with rows of n contiguous and equal strides (the halves of a
     lifted [k, 4, n] tensor: the kernel reads them in place).
@@ -684,7 +712,7 @@ def _keyswitch_launch(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables,
                   d.stride(-2), p(keys_t), keys_t.stride(0), keys_t.stride(1),
                   p(out), *table_ptrs(tb), tb.k, kd, batch, log2_exact(n),
                   geo["pairs"], geo["threads"], geo["smem"], lane, h, *c0_args, int(vec),
-                  None if scratch is None else p(scratch), int(geo["compact"]))
+                  None if scratch is None else p(scratch), compact_arg(geo))
     return out
 
 
@@ -829,7 +857,7 @@ def _ks_inner_launch(dg: torch.Tensor, keys: torch.Tensor, tb: NTTTables,
                   keys.stride(2), key_mod, p(out), p(tb.p), p(tb.mu), p(tb.ipsi_br),
                   p(tb.ipsi_br_shoup), p(tb.n_inv), p(tb.n_inv_shoup), tb.k, kd, batch,
                   log2_exact(n), geo["threads"], geo["smem"], int(vec), *galois_args,
-                  int(geo["compact"]))
+                  compact_arg(geo))
     return out
 
 

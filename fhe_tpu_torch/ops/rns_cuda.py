@@ -68,7 +68,9 @@ def bsk_branch_geometry(n: int, kb: int, batch: int = 1) -> dict:
     and forward transform and, for rows 0 to 2, its product row's inverse
     transform and floor; two padded rows of shared memory per CTA, at
     n = 32768 the ``half_row`` form, at n = 65536 the ``compact`` form with
-    its ``scratch`` words).  Raise where nothing fits the card."""
+    its ``scratch`` words, at n = 131072 the compact form on the quarter
+    split, four CTAs a row, csrc/quarter.cuh).  Raise where nothing fits the
+    card."""
     return tensor_product_geometry(n, kb, batch, "bsk_branch_fused")
 
 

@@ -205,6 +205,10 @@ def _digit_consts(ctx: SchemeContext, level: int) -> tuple[torch.Tensor, torch.T
     return ctx.inv_qhat_levels[level], ctx.inv_qhat_shoup_levels[level]
 
 
+# the gadget digits a key generator forms at a time
+KEYGEN_DIGITS = 16
+
+
 def _keyswitch_keygen_from_noise(ctx: SchemeContext, sk: SecretKey,
                                  target_ntt: torch.Tensor, a: torch.Tensor,
                                  e: torch.Tensor) -> torch.Tensor:
@@ -222,20 +226,30 @@ def _keyswitch_keygen_from_noise(ctx: SchemeContext, sk: SecretKey,
         raise ValueError(f"keyswitch key draws {list(a.shape)} and "
                          f"{list(e.shape)}, expected [{kd}, {k}, 1, {n}]")
     p3 = _p3(tb)
-    # every draw in one batched transform: [k, 2*kd, n]
-    x = ntt_cuda.ntt_forward(
-        torch.cat([a, e], dim=0)[:, :, 0].permute(1, 0, 2).contiguous(), tb)
-    a_ntt, e_ntt = x[:, :kd], x[:, kd:]
     s = sk.data[:k]
     q, omega = ctx.params.q, _omega(ctx)
     groups = [math.prod(tb.primes[j * omega:(j + 1) * omega]) for j in range(kd)]
     gadget = torch.tensor([[q // qj % qi for qj in groups] for qi in tb.primes],
                           dtype=torch.int64, device=tb.device)   # [k, kd]
-    b_ntt = mm.add_mod(
-        mm.sub_mod(e_ntt, _ntt.pointwise_mul(a_ntt, s.expand_as(a_ntt), tb), p3),
-        mm.mul_mod(target_ntt.expand_as(a_ntt), gadget[:, :, None], p3), p3)
-    data = torch.stack([b_ntt, a_ntt], dim=2)                    # [k, kd, 2, n]
-    return data.permute(1, 0, 2, 3).contiguous()
+    # KEYGEN_DIGITS digits at a time, each group's draws in one batched
+    # transform ([k, 2 * digits, n]): the int64 products of all kd digits
+    # at once take 60 GB at k = kd = 102, n = 131072.  Each group's keys are
+    # made in one block and the groups joined at the end: on the H100 a key
+    # written into a preallocated tensor moved the buffers of later
+    # launches, and the batched multiply at n = 8192 ran 4.8 % slower (its
+    # bsk_branch_fused launch is sensitive to where its buffers lie)
+    chunks = []
+    for j0 in range(0, kd, KEYGEN_DIGITS):
+        j1 = min(j0 + KEYGEN_DIGITS, kd)
+        x = ntt_cuda.ntt_forward(
+            torch.cat([a[j0:j1], e[j0:j1]], dim=0)[:, :, 0].permute(1, 0, 2).contiguous(), tb)
+        a_ntt, e_ntt = x[:, :j1 - j0], x[:, j1 - j0:]
+        b_ntt = mm.add_mod(
+            mm.sub_mod(e_ntt, _ntt.pointwise_mul(a_ntt, s.expand_as(a_ntt), tb), p3),
+            mm.mul_mod(target_ntt.expand_as(a_ntt), gadget[:, j0:j1, None], p3), p3)
+        data = torch.stack([b_ntt, a_ntt], dim=2)                # [k, digits, 2, n]
+        chunks.append(data.permute(1, 0, 2, 3).contiguous())
+    return chunks[0] if len(chunks) == 1 else torch.cat(chunks)
 
 
 def _keyswitch_draws(ctx: SchemeContext,

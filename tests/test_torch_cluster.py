@@ -13,9 +13,11 @@ and B5's CTAs per prime, B7's digit pairs per (element, prime), threads and
 shared memory per CTA, and the shared-memory checks that decide which n
 each kernel takes, with the forms that take n = 32768 where the n <= 16384
 layout does not fit a block (B4's and B5's half row, B7's and B8's wide
-form) and the compact split at n = 65536, where one padded row does not
+form), the compact split at n = 65536, where one padded row does not
 fit (a padded half row per CTA; B4's and B5's transformed half rows and
-B7's and B8's partials in global scratch).
+B7's and B8's partials in global scratch), and the quarter split at
+n = 131072, where a padded half row does not fit either (four CTAs a row,
+a padded quarter row each); n = 262144 raises, naming the function.
 tests/test_torch_cuda.py runs the kernels themselves."""
 
 import numpy as np
@@ -50,6 +52,19 @@ def assert_compact_form(geo: dict, n: int, scratch_per_cta: int) -> None:
     ``scratch_per_cta`` words of global scratch per CTA."""
     assert geo["compact"] and geo["ctas_per_row"] == 2 and geo["cluster"][0] <= 8
     assert geo["smem"] == 4 * padded(n // 2) <= MAX_SMEM < 4 * padded(n)
+    assert geo["threads"] == 512
+    assert geo.get("scratch", 0) == geo["ctas"] * scratch_per_cta
+    assert_owned_once(n, geo["ctas_per_row"])
+
+
+def assert_quarter_form(geo: dict, n: int, scratch_per_cta: int) -> None:
+    """The quarter split at n = 131072: four CTAs per row, each holding its
+    own quarter of the row in a padded quarter row (132 KB, where a padded
+    half row takes 264 KB), inside a block and a portable cluster, every
+    position owned by one CTA of the four, and ``scratch_per_cta`` words of
+    global scratch per CTA."""
+    assert geo["compact"] and geo["ctas_per_row"] == 4 and geo["cluster"][0] <= 8
+    assert geo["smem"] == 4 * padded(n // 4) <= MAX_SMEM < 4 * padded(n // 2)
     assert geo["threads"] == 512
     assert geo.get("scratch", 0) == geo["ctas"] * scratch_per_cta
     assert_owned_once(n, geo["ctas_per_row"])
@@ -106,7 +121,9 @@ def test_n32768_does_not_fit_either_kernel():
     n = 65536 neither form fits: both take the compact split (B5 its
     transformed half rows in scratch, n/2 words per CTA; B8 a pair of CTAs
     per prime, 2 min(k, 4) per cluster, its accumulators n words per CTA);
-    at n = 131072 each raises, naming the function."""
+    at n = 131072 the quarter split (B5 the same scratch, B8 four CTAs per
+    prime, 4 min(k, 2) per cluster, its accumulators n/2 words per CTA);
+    at n = 262144 each raises, naming the function."""
     n = 32768
     assert 2 * 4 * padded(n) > MAX_SMEM and 3 * 4 * padded(n) > MAX_SMEM
     assert_half_row_form(rns_cuda.bsk_branch_geometry(n, kb=5), n)
@@ -122,10 +139,15 @@ def test_n32768_does_not_fit_either_kernel():
         geo = decrypt_cuda.decrypt_geometry(65536, k=k)
         assert geo["cluster"] == (2 * min(k, 4), 1, 1)
         assert_compact_form(geo, 65536, 65536)
-    with pytest.raises(ValueError, match="bsk_branch_fused: n=131072 needs"):
-        rns_cuda.bsk_branch_geometry(131072, kb=5)
-    with pytest.raises(ValueError, match="decrypt_fused: n=131072 needs"):
-        decrypt_cuda.decrypt_geometry(131072, k=3)
+    assert_quarter_form(rns_cuda.bsk_branch_geometry(131072, kb=5), 131072, 65536)
+    for k in (1, 3, 8):
+        geo = decrypt_cuda.decrypt_geometry(131072, k=k)
+        assert geo["cluster"] == (4 * min(k, 2), 1, 1)
+        assert_quarter_form(geo, 131072, 65536)
+    with pytest.raises(ValueError, match="bsk_branch_fused: n=262144 needs"):
+        rns_cuda.bsk_branch_geometry(262144, kb=5)
+    with pytest.raises(ValueError, match="decrypt_fused: n=262144 needs"):
+        decrypt_cuda.decrypt_geometry(262144, k=3)
 
 
 @pytest.mark.parametrize("batch", [1, 8])
@@ -191,7 +213,9 @@ def test_n16384_fits_b3_b4_b5_and_b8_but_not_b4_at_n32768():
     its half of the transformed row (the multiply's and multiply_batch's
     shapes, k = 3); the Lift lane (n < 1024) has no half-row form; at
     n = 65536 B4 takes the compact form (the transformed half rows in
-    scratch), and at n = 131072 it raises, naming the function."""
+    scratch), at n = 131072 the compact form on the quarter split (the same
+    scratch: the cluster's four transformed rows), and at n = 262144 it
+    raises, naming the function."""
     assert ntt_cuda.mul_by_ntt_operand_geometry(16384, k=3, c=2)["smem"] == 67584
     assert ntt_cuda.tensor_product_geometry(16384, k=3)["smem"] == 135168
     assert rns_cuda.bsk_branch_geometry(16384, kb=5)["smem"] == 135168
@@ -205,8 +229,9 @@ def test_n16384_fits_b3_b4_b5_and_b8_but_not_b4_at_n32768():
     with pytest.raises(ValueError, match="tensor_product: n=32768 needs"):
         ntt_cuda.tensor_product_geometry(32768, k=3, lift=True)
     assert_compact_form(ntt_cuda.tensor_product_geometry(65536, k=3), 65536, 32768)
-    with pytest.raises(ValueError, match="tensor_product: n=131072 needs"):
-        ntt_cuda.tensor_product_geometry(131072, k=3)
+    assert_quarter_form(ntt_cuda.tensor_product_geometry(131072, k=3), 131072, 65536)
+    with pytest.raises(ValueError, match="tensor_product: n=262144 needs"):
+        ntt_cuda.tensor_product_geometry(262144, k=3)
     assert ntt_cuda.mul_by_ntt_operand_geometry(32768, k=3, c=2)["smem"] == 135168
 
 
@@ -300,8 +325,9 @@ def test_n32768_fits_b1_but_not_b7():
     [h n/2, (h+1) n/2) of both output rows) in a global scratch buffer, for
     the relinearization (kd = 3) and multiply_batch's B = 2 alike; at
     n = 65536 it takes the wide form on the compact split (a padded half
-    row per CTA, the same scratch), and at n = 131072 it raises, naming the
-    function."""
+    row per CTA, the same scratch), at n = 131072 the wide form on the
+    quarter split (two digit groups of four CTAs, n/2 words of scratch per
+    CTA), and at n = 262144 it raises, naming the function."""
     n = 32768
     assert ntt_cuda.ntt_forward_geometry(n, k=3)["smem"] == 135168
     assert ntt_cuda.keyswitch_geometry(16384, k=3, kd=3)["smem"] == 135168
@@ -314,8 +340,11 @@ def test_n32768_fits_b1_but_not_b7():
     geo = ntt_cuda.keyswitch_geometry(65536, k=3, kd=3)
     assert geo["wide"] and geo["cluster"] == (6, 1, 1)
     assert_compact_form(geo, 65536, 65536)
-    with pytest.raises(ValueError, match="keyswitch_fused: n=131072 needs"):
-        ntt_cuda.keyswitch_geometry(131072, k=3, kd=3)
+    geo = ntt_cuda.keyswitch_geometry(131072, k=3, kd=3)
+    assert geo["wide"] and geo["pairs"] == 2 and geo["cluster"] == (8, 1, 1)
+    assert_quarter_form(geo, 131072, 65536)
+    with pytest.raises(ValueError, match="keyswitch_fused: n=262144 needs"):
+        ntt_cuda.keyswitch_geometry(262144, k=3, kd=3)
 
 
 @pytest.mark.parametrize("n", [2, 16])
@@ -383,11 +412,13 @@ def test_b2_and_b17_n_outside_32_to_32768_raises(name, n, match):
     """The register-blocked sweep takes n >= 32, and one padded row fits a
     CTA up to n = 32768: below 32 B2 and B17/B18 raise, naming the
     function, before any launch.  Both take n = 65536 on the compact split
-    (a padded half row per CTA), so their top case is the next ring,
-    n = 131072, where they raise."""
+    (a padded half row per CTA) and n = 131072 on the quarter split (a
+    padded quarter row), so their top case is the ring after, n = 262144,
+    where they raise."""
     if n == 65536:
         assert_compact_form(GEOMETRY_OF[name](n), n, 0)
-        n, match = 2 * n, "n=131072 needs"
+        assert_quarter_form(GEOMETRY_OF[name](2 * n), 2 * n, 0)
+        n, match = 4 * n, "n=262144 needs"
     with pytest.raises(ValueError, match=f"{name}: .*{match}"):
         GEOMETRY_OF[name](n)
 
@@ -421,8 +452,9 @@ def test_galois_lanes_stage_a_row_and_ks_inner_runs_at_n32768():
     beside its two padded rows up to n = 16384; at n = 32768 it takes the
     classic lane's wide form (the working row alone, partials in global
     scratch) and reads the digit rows and c0 in place; at n = 65536 the
-    classic lane's wide form on the compact split, and at n = 131072 it
-    raises, naming the function; its classic lane keeps its shape.
+    classic lane's wide form on the compact split, at n = 131072 on the
+    quarter split, and at n = 262144 it raises, naming the function; its
+    classic lane keeps its shape.
     ks_inner's Galois lane stages c0 where it fits and reads it in place at
     n = 32768."""
     n = 16384
@@ -437,8 +469,11 @@ def test_galois_lanes_stage_a_row_and_ks_inner_runs_at_n32768():
     geo = ntt_cuda.keyswitch_geometry(65536, 3, 3, 2, "keyswitch_fused_batch", galois=True)
     assert geo == ntt_cuda.keyswitch_geometry(65536, 3, 3, 2)
     assert_compact_form(geo, 65536, 65536)
-    with pytest.raises(ValueError, match="keyswitch_fused_batch: n=131072 needs"):
-        ntt_cuda.keyswitch_geometry(131072, 3, 3, 2, "keyswitch_fused_batch", galois=True)
+    geo = ntt_cuda.keyswitch_geometry(131072, 3, 3, 2, "keyswitch_fused_batch", galois=True)
+    assert geo == ntt_cuda.keyswitch_geometry(131072, 3, 3, 2)
+    assert_quarter_form(geo, 131072, 65536)
+    with pytest.raises(ValueError, match="keyswitch_fused_batch: n=262144 needs"):
+        ntt_cuda.keyswitch_geometry(262144, 3, 3, 2, "keyswitch_fused_batch", galois=True)
     # ks_inner stages its c0 row where it fits (n <= 16384), and reads it in
     # place above
     geo = ntt_cuda.ks_inner_geometry(n, 3, 8, c0=True)
@@ -459,8 +494,9 @@ def test_ks_inner_compact_split_at_n65536(batch, name, c0):
     and 8 elements and the hoisted batch's S = 4 stacks x 8: the compact
     split, a 135168-byte padded half row per CTA, c0 read in place (never
     staged) and no scratch, in the Inner lane's grid; every n <= 32768
-    keeps its one padded row (and its staged c0 up to 16384), and
-    n = 131072 raises, naming the function."""
+    keeps its one padded row (and its staged c0 up to 16384); n = 131072
+    takes the quarter split (clusters of 4), and n = 262144 raises, naming
+    the function."""
     geo = ntt_cuda.ks_inner_geometry(N65536, 3, batch, name=name, c0=c0)
     assert geo["smem"] == 135168 == 4 * padded(N65536 // 2)
     assert not geo["stage_c0"] and "scratch" not in geo
@@ -471,8 +507,12 @@ def test_ks_inner_compact_split_at_n65536(batch, name, c0):
         assert not small["compact"] and small["stage_c0"] == (c0 and n <= 16384)
         assert small["smem"] == (4 * (-(-padded(n) // 4) * 4 + n) if small["stage_c0"]
                                  else 4 * padded(n))
-    with pytest.raises(ValueError, match=f"{name}: n=131072 needs"):
-        ntt_cuda.ks_inner_geometry(2 * N65536, 3, batch, name=name, c0=c0)
+    geo = ntt_cuda.ks_inner_geometry(2 * N65536, 3, batch, name=name, c0=c0)
+    assert geo["grid"] == (4, 2 * batch, 3) and geo["cluster"] == (4, 1, 1)
+    assert not geo["stage_c0"]
+    assert_quarter_form(geo, 2 * N65536, 0)
+    with pytest.raises(ValueError, match=f"{name}: n=262144 needs"):
+        ntt_cuda.ks_inner_geometry(4 * N65536, 3, batch, name=name, c0=c0)
 
 
 @pytest.mark.parametrize("kb", [34, 63, 68])
@@ -577,3 +617,171 @@ def test_decrypt_compact_accumulator_index(col):
     cols = j & ((2 << logc) - 1)
     word = (cols >> logc) * (n // 2) + ((j >> (logc + 1)) << logc) + (cols & ((1 << logc) - 1))
     assert np.array_equal(np.sort(word), j)
+
+
+# every geometry at n = 8192, 32768 and 65536 as the pair split returned it
+# before the quarter split was added (k = 3, and k = 30 at B = 2; B5 at
+# kb = 5 and 33; B7 also at the prereduced k = 4, kd = 2; B17 with 8
+# elements, and 32 with c0)
+GEOMETRY_TODAY = {
+    ('ntt_forward', 8192): [{'grid': (2, 3), 'cluster': (2, 1, 1), 'ctas': 6, 'ctas_per_row': 2, 'threads': 256, 'smem': 33792, 'compact': False}, {'grid': (4, 30), 'cluster': (2, 1, 1), 'ctas': 120, 'ctas_per_row': 2, 'threads': 256, 'smem': 33792, 'compact': False}],
+    ('ntt_forward', 32768): [{'grid': (2, 3), 'cluster': (2, 1, 1), 'ctas': 6, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'compact': False}, {'grid': (4, 30), 'cluster': (2, 1, 1), 'ctas': 120, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'compact': False}],
+    ('ntt_forward', 65536): [{'grid': (2, 3), 'cluster': (2, 1, 1), 'ctas': 6, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'compact': True}, {'grid': (4, 30), 'cluster': (2, 1, 1), 'ctas': 120, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'compact': True}],
+    ('ntt_inverse', 8192): [{'grid': (2, 3), 'cluster': (2, 1, 1), 'ctas': 6, 'ctas_per_row': 2, 'threads': 256, 'smem': 33792, 'compact': False}],
+    ('ntt_inverse', 32768): [{'grid': (2, 3), 'cluster': (2, 1, 1), 'ctas': 6, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'compact': False}],
+    ('ntt_inverse', 65536): [{'grid': (2, 3), 'cluster': (2, 1, 1), 'ctas': 6, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'compact': True}],
+    ('mul_by_ntt_operand', 8192): [{'grid': (2, 2, 3), 'cluster': (2, 1, 1), 'ctas': 12, 'ctas_per_row': 2, 'threads': 256, 'smem': 33792, 'compact': False}, {'grid': (2, 4, 30), 'cluster': (2, 1, 1), 'ctas': 240, 'ctas_per_row': 2, 'threads': 256, 'smem': 33792, 'compact': False}],
+    ('mul_by_ntt_operand', 32768): [{'grid': (2, 2, 3), 'cluster': (2, 1, 1), 'ctas': 12, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'compact': False}, {'grid': (2, 4, 30), 'cluster': (2, 1, 1), 'ctas': 240, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'compact': False}],
+    ('mul_by_ntt_operand', 65536): [{'grid': (2, 2, 3), 'cluster': (2, 1, 1), 'ctas': 12, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'compact': True}, {'grid': (2, 4, 30), 'cluster': (2, 1, 1), 'ctas': 240, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'compact': True}],
+    ('tensor_product', 8192): [{'grid': (8, 1, 3), 'cluster': (8, 1, 1), 'ctas': 24, 'ctas_per_prime': 8, 'ctas_per_row': 2, 'threads': 256, 'smem': 67584, 'half_row': False, 'compact': False, 'scratch': 0}, {'grid': (8, 2, 30), 'cluster': (8, 1, 1), 'ctas': 480, 'ctas_per_prime': 8, 'ctas_per_row': 2, 'threads': 256, 'smem': 67584, 'half_row': False, 'compact': False, 'scratch': 0}],
+    ('tensor_product', 32768): [{'grid': (8, 1, 3), 'cluster': (8, 1, 1), 'ctas': 24, 'ctas_per_prime': 8, 'ctas_per_row': 2, 'threads': 512, 'smem': 202752, 'half_row': True, 'compact': False, 'scratch': 0}, {'grid': (8, 2, 30), 'cluster': (8, 1, 1), 'ctas': 480, 'ctas_per_prime': 8, 'ctas_per_row': 2, 'threads': 512, 'smem': 202752, 'half_row': True, 'compact': False, 'scratch': 0}],
+    ('tensor_product', 65536): [{'grid': (8, 1, 3), 'cluster': (8, 1, 1), 'ctas': 24, 'ctas_per_prime': 8, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'half_row': False, 'compact': True, 'scratch': 786432}, {'grid': (8, 2, 30), 'cluster': (8, 1, 1), 'ctas': 480, 'ctas_per_prime': 8, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'half_row': False, 'compact': True, 'scratch': 15728640}],
+    ('bsk_branch_fused', 8192): [{'grid': (8, 1, 5), 'cluster': (8, 1, 1), 'ctas': 40, 'ctas_per_prime': 8, 'ctas_per_row': 2, 'threads': 256, 'smem': 67584, 'half_row': False, 'compact': False, 'scratch': 0}, {'grid': (8, 2, 33), 'cluster': (8, 1, 1), 'ctas': 528, 'ctas_per_prime': 8, 'ctas_per_row': 2, 'threads': 256, 'smem': 67584, 'half_row': False, 'compact': False, 'scratch': 0}],
+    ('bsk_branch_fused', 32768): [{'grid': (8, 1, 5), 'cluster': (8, 1, 1), 'ctas': 40, 'ctas_per_prime': 8, 'ctas_per_row': 2, 'threads': 512, 'smem': 202752, 'half_row': True, 'compact': False, 'scratch': 0}, {'grid': (8, 2, 33), 'cluster': (8, 1, 1), 'ctas': 528, 'ctas_per_prime': 8, 'ctas_per_row': 2, 'threads': 512, 'smem': 202752, 'half_row': True, 'compact': False, 'scratch': 0}],
+    ('bsk_branch_fused', 65536): [{'grid': (8, 1, 5), 'cluster': (8, 1, 1), 'ctas': 40, 'ctas_per_prime': 8, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'half_row': False, 'compact': True, 'scratch': 1310720}, {'grid': (8, 2, 33), 'cluster': (8, 1, 1), 'ctas': 528, 'ctas_per_prime': 8, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'half_row': False, 'compact': True, 'scratch': 17301504}],
+    ('keyswitch_fused', 8192): [{'grid': (6, 1, 3), 'cluster': (6, 1, 1), 'ctas': 18, 'pairs': 3, 'ctas_per_row': 2, 'threads': 256, 'smem': 67584, 'wide': False, 'compact': False, 'scratch': 0}, {'grid': (8, 2, 30), 'cluster': (8, 1, 1), 'ctas': 480, 'pairs': 4, 'ctas_per_row': 2, 'threads': 256, 'smem': 100352, 'wide': False, 'compact': False, 'scratch': 0}, {'grid': (4, 1, 4), 'cluster': (4, 1, 1), 'ctas': 16, 'pairs': 2, 'ctas_per_row': 2, 'threads': 256, 'smem': 67584, 'wide': False, 'compact': False, 'scratch': 0}],
+    ('keyswitch_fused', 32768): [{'grid': (6, 1, 3), 'cluster': (6, 1, 1), 'ctas': 18, 'pairs': 3, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'wide': True, 'compact': False, 'scratch': 589824}, {'grid': (8, 2, 30), 'cluster': (8, 1, 1), 'ctas': 480, 'pairs': 4, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'wide': True, 'compact': False, 'scratch': 15728640}, {'grid': (4, 1, 4), 'cluster': (4, 1, 1), 'ctas': 16, 'pairs': 2, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'wide': True, 'compact': False, 'scratch': 524288}],
+    ('keyswitch_fused', 65536): [{'grid': (6, 1, 3), 'cluster': (6, 1, 1), 'ctas': 18, 'pairs': 3, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'wide': True, 'compact': True, 'scratch': 1179648}, {'grid': (8, 2, 30), 'cluster': (8, 1, 1), 'ctas': 480, 'pairs': 4, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'wide': True, 'compact': True, 'scratch': 31457280}, {'grid': (4, 1, 4), 'cluster': (4, 1, 1), 'ctas': 16, 'pairs': 2, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'wide': True, 'compact': True, 'scratch': 1048576}],
+    ('ks_inner_batch', 8192): [{'grid': (2, 16, 3), 'cluster': (2, 1, 1), 'ctas': 96, 'ctas_per_row': 2, 'threads': 256, 'smem': 33792, 'stage_c0': False, 'compact': False}, {'grid': (2, 64, 3), 'cluster': (2, 1, 1), 'ctas': 384, 'ctas_per_row': 2, 'threads': 256, 'smem': 66560, 'stage_c0': True, 'compact': False}],
+    ('ks_inner_batch', 32768): [{'grid': (2, 16, 3), 'cluster': (2, 1, 1), 'ctas': 96, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'stage_c0': False, 'compact': False}, {'grid': (2, 64, 3), 'cluster': (2, 1, 1), 'ctas': 384, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'stage_c0': False, 'compact': False}],
+    ('ks_inner_batch', 65536): [{'grid': (2, 16, 3), 'cluster': (2, 1, 1), 'ctas': 96, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'stage_c0': False, 'compact': True}, {'grid': (2, 64, 3), 'cluster': (2, 1, 1), 'ctas': 384, 'ctas_per_row': 2, 'threads': 512, 'smem': 135168, 'stage_c0': False, 'compact': True}],
+    ('decrypt_fused', 8192): [{'grid': (3, 1), 'cluster': (3, 1, 1), 'ctas': 3, 'ctas_per_row': 1, 'primes_per_cta': 1, 'threads': 512, 'smem': 101376, 'wide': False, 'compact': False, 'scratch': 0}, {'grid': (8, 2), 'cluster': (8, 1, 1), 'ctas': 16, 'ctas_per_row': 1, 'primes_per_cta': 4, 'threads': 512, 'smem': 101376, 'wide': False, 'compact': False, 'scratch': 0}],
+    ('decrypt_fused', 32768): [{'grid': (3, 1), 'cluster': (3, 1, 1), 'ctas': 3, 'ctas_per_row': 1, 'primes_per_cta': 1, 'threads': 512, 'smem': 135168, 'wide': True, 'compact': False, 'scratch': 196608}, {'grid': (8, 2), 'cluster': (8, 1, 1), 'ctas': 16, 'ctas_per_row': 1, 'primes_per_cta': 4, 'threads': 512, 'smem': 135168, 'wide': True, 'compact': False, 'scratch': 1048576}],
+    ('decrypt_fused', 65536): [{'grid': (6, 1), 'cluster': (6, 1, 1), 'ctas': 6, 'ctas_per_row': 2, 'primes_per_cta': 1, 'threads': 512, 'smem': 135168, 'wide': True, 'compact': True, 'scratch': 393216}, {'grid': (8, 2), 'cluster': (8, 1, 1), 'ctas': 16, 'ctas_per_row': 2, 'primes_per_cta': 8, 'threads': 512, 'smem': 135168, 'wide': True, 'compact': True, 'scratch': 1048576}],
+}
+GEOMETRY_CALLS = {
+    "ntt_forward": lambda n: [ntt_cuda.ntt_forward_geometry(n, 3, 1),
+                              ntt_cuda.ntt_forward_geometry(n, 30, 2)],
+    "ntt_inverse": lambda n: [ntt_cuda.ntt_inverse_geometry(n, 3, 1)],
+    "mul_by_ntt_operand": lambda n: [ntt_cuda.mul_by_ntt_operand_geometry(n, 3, 2, 1),
+                                     ntt_cuda.mul_by_ntt_operand_geometry(n, 30, 2, 2)],
+    "tensor_product": lambda n: [ntt_cuda.tensor_product_geometry(n, 3, 1),
+                                 ntt_cuda.tensor_product_geometry(n, 30, 2)],
+    "bsk_branch_fused": lambda n: [rns_cuda.bsk_branch_geometry(n, 5, 1),
+                                   rns_cuda.bsk_branch_geometry(n, 33, 2)],
+    "keyswitch_fused": lambda n: [ntt_cuda.keyswitch_geometry(n, 3, 3, 1),
+                                  ntt_cuda.keyswitch_geometry(n, 30, 30, 2, galois=True),
+                                  ntt_cuda.keyswitch_geometry(n, 4, 2, 1)],
+    "ks_inner_batch": lambda n: [ntt_cuda.ks_inner_geometry(n, 3, 8),
+                                 ntt_cuda.ks_inner_geometry(n, 3, 32, c0=True)],
+    "decrypt_fused": lambda n: [decrypt_cuda.decrypt_geometry(n, 3, 1),
+                                decrypt_cuda.decrypt_geometry(n, 30, 2)],
+}
+N131072 = 131072
+
+
+@pytest.mark.parametrize("name,n", sorted(GEOMETRY_TODAY))
+def test_geometry_up_to_n65536_unchanged(name, n):
+    """The quarter split leaves every launch shape at n <= 65536 as it was:
+    each geometry at n = 8192, 32768 and 65536 equals its dict of before."""
+    assert GEOMETRY_CALLS[name](n) == GEOMETRY_TODAY[(name, n)]
+
+
+@pytest.mark.parametrize("name", sorted(GEOMETRY_CALLS))
+def test_n262144_raises_naming_the_function(name):
+    """At n = 262144 even the quarter split's padded quarter row takes
+    270336 bytes, more than a block: every cluster kernel's geometry raises
+    ValueError, naming the function and n."""
+    assert 4 * padded(262144 // 4) == 270336 > MAX_SMEM
+    with pytest.raises(ValueError, match=f"{name}: n=262144 needs 270336 bytes"):
+        GEOMETRY_CALLS[name](262144)
+
+
+@pytest.mark.parametrize("k,kd,batch", [(3, 3, 1), (3, 3, 2), (30, 30, 1), (30, 30, 2),
+                                        (59, 59, 1), (102, 102, 1), (4, 2, 1)])
+def test_n131072_quarter_forms(k, kd, batch):
+    """Every cluster kernel of the BFV path at n = 131072, at log_q = 90
+    (k = 3), 900 (k = kd = 30), 1770 (k = 59), 3060 (k = 102, the largest
+    set JAX takes there) and the ks_omega = 2 set's k = 4, kd = 2, single and
+    B = 2: B1, B2, B3 and B17/B18 in clusters of 4 on the quarter split (no
+    scratch); B4 and B5 in a portable cluster of 8, the four input rows in
+    rounds, the transformed rows in scratch (n/2 words per CTA); B7/B12
+    (every lane) in the wide form with R = 2 digit groups of four (a cluster
+    of 8, n/2 words of scratch per CTA); B8 four CTAs per prime, min(k, 2)
+    groups per cluster (n/2 words per CTA).  Every cluster is portable and
+    no block exceeds its shared memory.  B4's Lift lane has no such form."""
+    n = N131072
+    for geo in (ntt_cuda.ntt_forward_geometry(n, k, batch),
+                ntt_cuda.ntt_inverse_geometry(n, k, batch),
+                ntt_cuda.mul_by_ntt_operand_geometry(n, k, c=2, batch=batch),
+                ntt_cuda.ks_inner_geometry(n, k, batch),
+                ntt_cuda.ks_inner_geometry(n, k, batch, c0=True)):
+        assert geo["cluster"] == (4, 1, 1)
+        assert_quarter_form(geo, n, 0)
+    kb = len(make_scheme_params(SecurityParams(
+        poly_degree=n, log_q=30 * k, lambda_=0, hamming_weight=16,
+        plain_modulus=786433)).bsk_primes)
+    for geo in (ntt_cuda.tensor_product_geometry(n, k, batch),
+                rns_cuda.bsk_branch_geometry(n, kb, batch)):
+        assert not geo["half_row"] and geo["cluster"] == (8, 1, 1)
+        assert ntt_cuda.product_form(geo) == 3
+        assert_quarter_form(geo, n, n // 2)
+    for galois in (False, True):
+        geo = ntt_cuda.keyswitch_geometry(n, k, kd, batch, galois=galois)
+        assert geo["wide"] and geo["pairs"] == 2 and geo["cluster"] == (8, 1, 1)
+        assert_quarter_form(geo, n, n // 2)
+        # group r takes digits r, r + 2, ...: every digit once
+        taken = [list(range(r, kd, 2)) for r in range(2)]
+        assert sorted(j for ds in taken for j in ds) == list(range(kd))
+    geo = decrypt_cuda.decrypt_geometry(n, k, batch)
+    groups = min(k, 2)
+    assert geo["cluster"] == (4 * groups, 1, 1) and geo["grid"] == (4 * groups, batch)
+    assert geo["primes_per_cta"] == -(-k // groups)
+    assert_quarter_form(geo, n, n // 2)
+    for geo in (ntt_cuda.ntt_forward_geometry(n, k, batch),
+                ntt_cuda.keyswitch_geometry(n, k, kd, batch),
+                decrypt_cuda.decrypt_geometry(n, k, batch)):
+        assert ntt_cuda.compact_arg(geo) == 4
+    with pytest.raises(ValueError, match="tensor_product: n=131072 needs"):
+        ntt_cuda.tensor_product_geometry(n, k, lift=True)
+
+
+def test_n131072_scratch_of_the_k102_multiply():
+    """The global scratch of the k = 102 multiply's kernels at n = 131072
+    (log_q = 3060, kb = 107): B4 and B5 the cluster's four transformed rows,
+    4n words per (element, prime); B7 at kd = 102 n/2 words for each of 8
+    CTAs per prime, 214 MB; B8 n/2 words for each of its 8 CTAs."""
+    n, k, kb = N131072, 102, 107
+    assert ntt_cuda.keyswitch_geometry(n, k, k)["scratch"] * 4 == 8 * k * n // 2 * 4 == 213909504
+    assert ntt_cuda.tensor_product_geometry(n, k)["scratch"] == 4 * k * n
+    assert rns_cuda.bsk_branch_geometry(n, kb)["scratch"] == 4 * kb * n
+    assert decrypt_cuda.decrypt_geometry(n, k)["scratch"] == 8 * n // 2
+
+
+def test_n131072_sets_reach_the_largest_k_jax_takes():
+    """At n = 131072 the 30-bit primes p = 1 mod 2n give log_q up to 3060
+    (k = 102, kb = 107) and no further, in the port's params as in JAX's."""
+    prm = make_scheme_params(SecurityParams(poly_degree=N131072, log_q=3060, lambda_=0,
+                                            hamming_weight=16, plain_modulus=786433))
+    assert (prm.k, len(prm.bsk_primes)) == (102, 107)
+    with pytest.raises(ValueError, match="not enough 30-bit NTT primes"):
+        make_scheme_params(SecurityParams(poly_degree=N131072, log_q=3090, lambda_=0,
+                                          hamming_weight=16, plain_modulus=786433))
+
+
+@pytest.mark.parametrize("col", [0, 1, 1023, 1024, 2047, 2048, 6143, 8191])
+def test_decrypt_quarter_accumulator_index(col):
+    """B8 on the quarter split (H = 4) accumulates element base +
+    (g << (log n - 4)) of column base (the inverse's last pass; CTA h holds
+    columns [h n/64, (h+1) n/64)) at g n/64 + base - h n/64 of its
+    n/4-word accumulator, and its epilogue finds coefficient j at the same
+    word of CTA hj: the two index maps agree, and every coefficient of the
+    row has one (CTA, word)."""
+    n, log_h = N131072, 2
+    logc = n.bit_length() - 1 - 4 - log_h
+    h = col >> logc
+    seen = set()
+    for g in range(16):
+        j = col + (g << (logc + log_h))
+        e_pass = (g << logc) + col - (h << logc)
+        cols = j & ((4 << logc) - 1)
+        hj = cols >> logc
+        e_epi = ((j >> (logc + log_h)) << logc) + (cols & ((1 << logc) - 1))
+        assert (h, e_pass) == (hj, e_epi) and 0 <= e_pass < n // 4
+        seen.add((hj, e_epi))
+    assert len(seen) == 16
+    j = np.arange(n)
+    cols = j & ((4 << logc) - 1)
+    word = (cols >> logc) * (n // 4) + ((j >> (logc + log_h)) << logc) + (cols & ((1 << logc) - 1))
+    assert np.array_equal(np.sort(word), j)
+
