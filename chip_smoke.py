@@ -90,9 +90,24 @@ Phases, each printing its own lines:
      N131072_KERNELS launched (`n131072_launches` in the kernels line);
      card == CPU plain path for encrypt_from_noise, multiply, decrypt and
      rotate_rows at k = 3 and 30 and at ks_omega = 2, and for the hoisted
-     calls at k = 3; device and wall ms of the ops, the card's peak memory.
+     calls at k = 3; device and wall ms of the ops, the card's peak memory;
+     then (phase n262144) the column form of every cluster kernel (plain
+     launches that meet in global memory, csrc/column.cuh): forced
+     (ntt_cuda.forced_form) at n = 8192 and 131072, k = 3, it equals the
+     cluster forms bit for bit; at n = 262144, t = 5767169, log_q = 90 and
+     900 (k = 3 and 30) every kernel of the BFV path in every lane and
+     B14-B18 equal their plain twins, at log_q = 1560 (k = 52, JAX's
+     largest set there) B4, B5, B6, B7 and B8; with the counts zeroed, the
+     BFV path at k = 3 and 30 and the hoisted calls at k = 3, each decoded,
+     each kernel of N262144_KERNELS launched (`n262144_launches`), card ==
+     CPU plain path at both sets and for the hoisted calls; and (phase
+     n_large) n = 524288, 1048576 and 2097152 (t = 7340033, 23068673,
+     104857601): every kernel at k = 3 and the multiply's at each ring's
+     largest set (k = 26, 13, 4) equal their plain twins, the path at
+     log_q = 90, 90 and 120 decodes with each kernel of N_LARGE_KERNELS
+     launched (`n_large_launches`), card == CPU plain path at n = 2097152.
      The CPU plain path's half of every card == CPU check of phases
-     n32768 to n131072 runs in two spawned worker processes (CpuChecks), fed
+     n32768 to n_large runs in two spawned worker processes (CpuChecks), fed
      with numpy copies of the card's keys, noise and inputs, beside the
      later phases; its results are compared with the card's at the end
      (`phase cpu_checks`: each check's CPU seconds by step);
@@ -2832,6 +2847,176 @@ def phase_n131072(gen: torch.Generator) -> dict:
     return launches
 
 
+
+# the rings past n = 131072, where every cluster kernel runs in the column
+# form (csrc/column.cuh): a batching plain modulus at each (the smallest
+# prime t = 1 mod 2n above 2^22 that JAX's params take there), lambda_ = 0,
+# h = 16, seed 11
+N262144 = 262144
+LARGE_T = {262144: 5767169, 524288: 7340033, 1048576: 23068673, 2097152: 104857601}
+# log_q = 90 (k = 3, kb = 5, kd = 3) and 900 (k = 30, kb = 33) through the
+# facade; 1560 (k = 52, kb = 56: the largest set JAX's 30-bit primes give
+# at this ring) for the multiply's kernels
+N262144_LOG_Q = (90, 900, 1560)
+N262144_KERNELS = N65536_KERNELS
+# each larger ring: the log_q of its path (k = 3; at n = 2097152 its
+# largest set, k = 4, where t leaves k = 3 little noise budget) and of its
+# largest set (k = 26, 13, 4)
+N_LARGE = ((524288, 90, 780), (1048576, 90, 390), (2097152, 120, 120))
+N_LARGE_KERNELS = tuple(name for name in N65536_KERNELS if not name.startswith(
+    ("ks_inner", "automorphism")))
+
+
+def large_params(n: int, log_q: int):
+    """A set at the rings past 131072: LARGE_T's t, lambda_ = 0, h = 16."""
+    return make_scheme_params(SecurityParams(poly_degree=n, log_q=log_q, lambda_=0,
+                                             hamming_weight=16, plain_modulus=LARGE_T[n]))
+
+
+def column_vs_cluster_cases(gen: torch.Generator, ctx) -> list:
+    """ring_cases' kernel calls and ring_hoist_cases' B17/B18 calls at ctx's
+    ring (n = 8192 and 131072, where the cluster forms run) in the column
+    form, forced (ntt_cuda.forced_form), against the same calls in the
+    cluster form: the same bits."""
+    def forced(fn):
+        def run():
+            with ntt_cuda.forced_form("column"):
+                return fn()
+        return run
+    cases = ring_cases(gen, ctx) + ring_hoist_cases(gen, ctx, key_sets=2, stacks=2)[:4]
+    return [(name, f"{label}; column form == cluster form", forced(kern), kern, work)
+            for name, label, kern, _, work in cases]
+
+
+def free_card() -> None:
+    """Return the cached blocks of the state just dropped to the card."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_n262144(gen: torch.Generator) -> dict:
+    """The ring n = 262144 in the column form: first the column form forced
+    at n = 8192 and 131072 against the cluster forms there
+    (column_vs_cluster_cases, bit for bit); then each kernel's column form
+    against its plain twin at k = 3 and 30 (ring_cases, ring_hoist_cases)
+    and the multiply's kernels (B4, B5, B7 at kd = k, B8) and B6's deep
+    instance at k = 52 (the twins 16 primes, or n/8 coefficients, at a
+    time); then, with the counts zeroed, the BFV path through the facade at
+    log_q = 90 and 900 (ring_run) with the hoisted rotations, their batch
+    and sum_slots at k = 3 (hoisted_run), every kernel of N262144_KERNELS
+    launched; the card == the CPU plain path (on the CPU worker) for
+    encrypt_from_noise, the multiply, decrypt and rotate_rows at k = 3 and
+    30 and the hoisted calls at k = 3; device and wall ms of the ops; the
+    card's peak memory; the phase's seconds.  Returns the path's launches."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    for n in (N, N131072):
+        run_cases(column_vs_cluster_cases(gen, make_context(ring_params(n, 90), device="cuda")),
+                  "phase n262144 column==cluster")
+    t_forced = time.perf_counter() - t0
+    fhes = [FHE(large_params(N262144, log_q), seed=11, device="cuda")
+            for log_q in N262144_LOG_Q[:2]]
+    counts = [(f.ctx.k, f.ctx.mul_tables[1].k, f.ctx.params.t) for f in fhes]
+    check(counts == [(3, 5, 5767169), (30, 33, 5767169)], f"n=262144: k, kb, t {counts}")
+    tag = "phase n262144 kernel"
+    run_cases(ring_cases(gen, fhes[0].ctx) + ring_hoist_cases(gen, fhes[0].ctx), tag)
+    run_cases(ring_cases(gen, fhes[1].ctx), tag)
+    run_cases(ring_hoist_cases(gen, fhes[1].ctx, key_sets=2, stacks=2), tag)
+    ctx52 = make_context(large_params(N262144, N262144_LOG_Q[2]), device="cuda")
+    check((ctx52.k, ctx52.mul_tables[1].k) == (52, 56), f"n=262144: k, kb {ctx52.k}")
+    run_cases(multiply_kernel_cases(gen, ctx52, N131072_PLAIN_STEP)
+              + [sk_digits_case(gen, ctx52, 0, 3, "random", N262144 // 8)], tag)
+    del ctx52
+    free_card()
+    t_cases = time.perf_counter() - t0
+    reset_counts()
+    runs = [ring_run(f) for f in fhes]
+    hoisted = hoisted_run(fhes[0], runs[0]["sk"], runs[0]["pk"], batch=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    t_path, t_cpu = time.perf_counter() - t0 - t_cases, time.perf_counter()
+    print("phase n262144 launches", json.dumps({k: v for k, v in launches.items() if v}))
+    for name in N262144_KERNELS:
+        check(launches[name] > 0, f"{name} was never launched on the n=262144 path")
+    for fhe, r in zip(fhes, runs):
+        check_card_vs_cpu(fhe, r["pk"], r["sk"], r["rlk"], r["gk"], f"n={N262144}, k={fhe.ctx.k}")
+    check_hoisted_vs_cpu(fhes[0], hoisted)
+    t_cpu = time.perf_counter() - t_cpu
+    times = {}
+    for fhe, r in zip(fhes, runs):
+        times.update(ring_times(fhe, r))
+    times.update(hoisted_times(fhes[0], hoisted))
+    print("phase n262144 check: the column form forced at n=8192 and 131072 (k=3) == the "
+          "cluster forms for B1, B2, B3/B13, B4/B11, B5, B7/B12 (classic, Galois, "
+          "prereduced), B8 and B17/B18 (Inner and Galois lanes); n=262144, t=5767169, "
+          "log_q=90 (k=3, kb=5, kd=3) and 900 (k=30, kb=33, kd=30): every kernel's column "
+          "form == its plain twin, and at log_q=1560 (k=52, kb=56) B4, B5, B7, B8 and B6 (the "
+          f"deep instance); keys, encrypt, multiply, multiply_batch (B=2), relinearize "
+          f"decoded {PRODUCT_32K}, rotate_rows by 1 decoded at both sets; "
+          "rotate_rows_hoisted (8 steps), rotate_rows_hoisted_batch (4x8) and sum_slots at "
+          "k=3 decoded; card == CPU plain path (on the CPU worker, compared at the end) for "
+          "encrypt_from_noise, multiply, decrypt and rotate_rows at k=3 and 30, and the "
+          "hoisted calls at k=3")
+    print("phase n262144", json.dumps({
+        "card": card_name(), **times, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "forced_seconds": t_forced, "cases_seconds": t_cases, "path_seconds": t_path,
+        "cpu_check_seconds": t_cpu, "seconds": time.perf_counter() - t0}))
+    del fhes, runs, hoisted
+    free_card()
+    return launches
+
+
+def phase_n_large(gen: torch.Generator) -> dict:
+    """The rings n = 524288, 1048576 and 2097152 in the column form: at
+    each, every kernel's column form against its plain twin at k = 3
+    (ring_cases, and B17/B18 with two key sets and two stacks) and the
+    multiply's kernels at the ring's largest set (k = 26, 13, 4); then,
+    with the counts zeroed, the path at each ring's N_LARGE set through the
+    facade (ring_run: keys, encrypt, multiply, multiply_batch, relinearize,
+    rotate_rows, decrypt, decoded), every kernel of N_LARGE_KERNELS
+    launched; the card == the CPU plain path at n = 2097152, k = 4; device
+    and wall ms, peak memory and seconds.  Returns the path's launches."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tag = "phase n_large kernel"
+    for n, _, largest in N_LARGE:
+        ctx3 = make_context(large_params(n, 90), device="cuda")
+        run_cases(ring_cases(gen, ctx3)
+                  + ring_hoist_cases(gen, ctx3, key_sets=2, stacks=2)[:4], tag)
+        del ctx3
+        ctx = make_context(large_params(n, largest), device="cuda")
+        run_cases(multiply_kernel_cases(gen, ctx, N131072_PLAIN_STEP), tag)
+        del ctx
+        free_card()
+    t_cases = time.perf_counter() - t0
+    times = {}
+    launches = {}
+    for n, log_q, _ in N_LARGE:
+        fhe = FHE(large_params(n, log_q), seed=11, device="cuda")
+        reset_counts()
+        r = ring_run(fhe)
+        torch.cuda.synchronize()
+        for name, v in read_counts().items():
+            launches[name] = launches.get(name, 0) + v
+        if n == N_LARGE[-1][0]:
+            check_card_vs_cpu(fhe, r["pk"], r["sk"], r["rlk"], r["gk"], f"n={n}, k={fhe.ctx.k}")
+        times.update(ring_times(fhe, r))
+        del fhe, r
+        free_card()
+    print("phase n_large launches", json.dumps({k: v for k, v in launches.items() if v}))
+    for name in N_LARGE_KERNELS:
+        check(launches[name] > 0, f"{name} was never launched on the n_large path")
+    print("phase n_large check: n=524288 (t=7340033), 1048576 (t=23068673) and 2097152 "
+          "(t=104857601): every kernel's column form == its plain twin at k=3 (B1, B2, "
+          "B3/B13, B4/B11, B5, B7/B12 every lane, B8, B17/B18), and B4, B5, B7 and B8 at "
+          "k=26, 13 and 4; keys, encrypt, multiply, multiply_batch (B=2), relinearize "
+          f"decoded {PRODUCT_32K} and rotate_rows by 1 at log_q=90, 90 and 120 (k=3, 3, 4); "
+          "card == CPU plain path at n=2097152, k=4 (on the CPU worker)")
+    print("phase n_large", json.dumps({
+        "card": card_name(), **times, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "cases_seconds": t_cases, "seconds": time.perf_counter() - t0}))
+    return launches
+
 def run_slice(fhe: FHE):
     """The main path once: returns the decoded values and the state."""
     pk, sk = fhe.keygen()
@@ -4736,6 +4921,7 @@ def main() -> int:
         phase_n16384()
         launches = {"n32768": phase_n32768(gen), "secure128": phase_secure128(gen),
                     "n65536": phase_n65536(gen), "n131072": phase_n131072(gen),
+                    "n262144": phase_n262144(gen), "n_large": phase_n_large(gen),
                     "slice": phase_slice(), "multiply": phase_multiply(),
                     "serving": phase_serving(), "hoisted": phase_hoisted(),
                     "omega": phase_omega(), "leveled": phase_leveled(),
@@ -4757,7 +4943,8 @@ def main() -> int:
                      "bootstrap_launches": launches["bootstrap"][name],
                      **{f"{path}_launches": launches[path][name]
                         for path in ("plain_ops", "mxu", "examples", "fuzz", "parallel",
-                                     "n32768", "secure128", "n65536", "n131072")},
+                                     "n32768", "secure128", "n65536", "n131072",
+                                     "n262144", "n_large")},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,

@@ -47,6 +47,7 @@
 #include <atomic>
 #include <cstdint>
 
+#include "column.cuh"
 #include "modmath.cuh"
 
 namespace {
@@ -331,6 +332,53 @@ decrypt_fused_compact_kernel(const uint32_t* __restrict__ c0, const uint32_t* __
   cluster.sync();
 }
 
+// The column form (n >= 262144, csrc/column.cuh): ntt.cu's column launch
+// of c1 and its block_mul_kernel (w = s) leave the block stages of
+// NTT(c1_i) . s_i in x ([k, 1, B, n]); this launch runs, for a tile of
+// columns of ciphertext row b, each prime's last inverse stages, times
+// n^-1, adds c0 and folds the prime's two terms into the tile's acc_t and
+// acc_g (each word by one thread for every prime), then scales them.  One
+// launch of B n / W CTAs, no cluster, one write of [B, n].  Grid (b / C,
+// B); shared memory: the tile and its two accumulators, 3 W words.
+__global__ void __launch_bounds__(256)
+decrypt_column_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ c0,
+                      long long prime_stride, long long batch_stride,
+                      uint32_t* __restrict__ out, const uint32_t* __restrict__ p,
+                      const uint32_t* __restrict__ ipsi, const uint32_t* __restrict__ ipsi_sh,
+                      const uint32_t* __restrict__ n_inv,
+                      const uint32_t* __restrict__ n_inv_sh,
+                      const uint32_t* __restrict__ gt_inv_phat,
+                      const uint32_t* __restrict__ gt_inv_phat_sh,
+                      const uint32_t* __restrict__ phat_t,
+                      const uint32_t* __restrict__ phat_t_sh,
+                      const uint32_t* __restrict__ phat_g, DecryptScalars sc, int k, int logn,
+                      int logb, int logc) {
+  extern __shared__ uint32_t t[];
+  const int n = 1 << logn;
+  const int b = blockIdx.y, batch = gridDim.y;
+  const fhe::ColumnTile tile = fhe::column_tile(logn, logb, logc);
+  uint32_t* acc_t = t + tile.words();
+  uint32_t* acc_g = acc_t + tile.words();
+  for (int i = 0; i < k; ++i) {
+    const uint32_t pi = p[i], ni = n_inv[i], ni_sh = n_inv_sh[i];
+    const size_t tab = static_cast<size_t>(i) * n;
+    const uint32_t* xr = x + (static_cast<size_t>(i) * batch + b) * n;
+    const uint32_t* c0r = c0 + i * prime_stride + b * batch_stride;
+    const PrimeTerms pc{pi, gt_inv_phat[i], gt_inv_phat_sh[i], phat_t[i], phat_t_sh[i],
+                        phat_g[i]};
+    fhe::column_load(t, tile, [&](int j) { return xr[j]; });
+    fhe::column_inverse(t, tile, pi, ipsi + tab, ipsi_sh + tab);
+    fhe::column_store(t, tile, [&](int j, uint32_t v, int e) {
+      add_terms(fhe::add_mod(c0r[j], fhe::mul_shoup(v, ni, ni_sh, pi), pi), pc, sc, i == 0,
+                acc_t[e], acc_g[e]);
+    });
+    __syncthreads();    // the next prime's load overwrites the tile
+  }
+  fhe::column_store(t, tile, [&](int j, uint32_t, int e) {
+    out[static_cast<size_t>(b) * n + j] = scaled_message(acc_t[e], acc_g[e], sc);
+  });
+}
+
 }  // namespace
 
 // The launch geometry comes from the wrapper (ops/decrypt_cuda.py,
@@ -386,4 +434,29 @@ extern "C" int fhe_decrypt_fused(
       static_cast<uint32_t*>(scratch));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// decrypt_fused's column launch (ops/column_cuda.py gives its shape: a block
+// of 2^logb positions, tiles of 2^logc columns, `threads` per CTA); x the
+// block launch's [k, 1, B, n], the rest as fhe_decrypt_fused takes them.
+extern "C" int fhe_decrypt_column(
+    const void* x, const void* c0, long long prime_stride, long long batch_stride, void* out,
+    const void* p, const void* ipsi, const void* ipsi_sh, const void* n_inv,
+    const void* n_inv_sh, const void* gt_inv_phat, const void* gt_inv_phat_sh,
+    const void* phat_t, const void* phat_t_sh, const void* phat_g, uint32_t t, uint32_t gamma,
+    uint32_t gamma_mu, uint32_t neg_inv_q_t, uint32_t neg_inv_q_t_sh, uint32_t neg_inv_q_g,
+    uint32_t inv_gamma_t, uint32_t inv_gamma_t_sh, uint32_t gamma_mod_t, uint32_t one_sh_t,
+    int k, int batch, int logn, int logb, int logc, int threads, void* stream) {
+  if (!fhe::column_args_ok(logn, logb, logc) || k < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DecryptScalars sc{t, gamma, gamma_mu, neg_inv_q_t, neg_inv_q_t_sh,
+                          neg_inv_q_g, inv_gamma_t, inv_gamma_t_sh, gamma_mod_t,
+                          one_sh_t};
+  auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  return static_cast<int>(fhe::PlainLaunch<&decrypt_column_kernel>{}(
+      dim3(1 << (logb - logc), batch), threads, 3 * (4 << (logn - logb + logc)),
+      static_cast<cudaStream_t>(stream), u(x), u(c0), prime_stride, batch_stride,
+      static_cast<uint32_t*>(out), u(p), u(ipsi), u(ipsi_sh), u(n_inv), u(n_inv_sh),
+      u(gt_inv_phat), u(gt_inv_phat_sh), u(phat_t), u(phat_t_sh), u(phat_g), sc, k, logn, logb,
+      logc));
 }

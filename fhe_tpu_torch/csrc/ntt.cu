@@ -57,7 +57,10 @@
 // row (the quarter split, a padded quarter row each, 132 KB; the split is
 // each kernel's template parameter H), in clusters of 4 (ntt_forward,
 // ntt_inverse, mul_by_ntt_operand, ks_inner) or 8 (keyswitch_fused with two
-// digit groups; tensor_product in rounds, quarter.cuh).
+// digit groups; tensor_product in rounds, quarter.cuh).  From n = 262144,
+// where even a padded quarter row exceeds a block, each of them runs in the
+// column form (column.cuh, the kernels at the end of this file): plain
+// launches that meet in global memory, no cluster.
 // The two kernels keep two bodies: with one
 // __device__ template for both, parameterised by the load and epilogue
 // hooks (a strided read and store here, the lift and the floor there),
@@ -138,6 +141,7 @@
 #include <atomic>
 #include <cstdint>
 
+#include "column.cuh"
 #include "lift.cuh"
 #include "modmath.cuh"
 #include "quarter.cuh"
@@ -1105,6 +1109,378 @@ auto keyswitch_form(bool wide, int compact) {
 inline int split_form(int compact) { return compact == 4 ? 2 : compact ? 1 : 0; }
 inline int split_ctas(int compact) { return compact ? compact : kRowSplit; }
 
+// ---------------------------------------------------------------------------
+// The column form (column.cuh): each kernel above as a chain of ordinary
+// launches that meet in global memory, for n >= 262144, where no share of a
+// row that a cluster splits fits a block.  ntt_forward is a column launch
+// and a block launch (in place), ntt_inverse a block launch and a column
+// launch; mul_by_ntt_operand, tensor_product, keyswitch_fused (every lane)
+// and, with decrypt.cu's and rns.cu's column launches, decrypt_fused and
+// bsk_branch_fused are a forward column launch, a block launch that runs the
+// block's forward stages, the body and the block's inverse stages, and an
+// inverse column launch; ks_inner (both lanes) a block launch and an
+// inverse column launch.  The wrappers (ops/column_cuda.py) allocate the
+// rows between the launches.  New kernels: those above keep their code.
+
+// The loads of column_forward_kernel: Plain (the row as it is), Reduce
+// (keyswitch_fused's classic digits, reduced mod p_i) and Galois (its
+// Galois lane: digit c at phi's source, negated mod its own q_c where the
+// sign flips, then reduced: the bits of keyswitch_kernel's Galois load).
+enum class ColumnLane { Plain, Reduce, Galois };
+
+// The forward's column launch: y[i, y_off + c, b] = the top s stages of the
+// forward transform of row (i, c, b) of x, whose element j lies at x + i *
+// x_sp + c * x_sc + b * x_sb + j (x_sp = 0: the classic digits, one row for
+// every prime); y is [k, y_comps, B, n].  Grid (b / C, comps * B, k),
+// blockIdx.y = c * B + b, one tile of C columns per CTA (column.cuh), its
+// 2^s C words in shared memory.
+template <ColumnLane LANE>
+__global__ void __launch_bounds__(256)
+column_forward_kernel(const uint32_t* __restrict__ x, long long x_sp, long long x_sc,
+                      long long x_sb, int comps, uint32_t* __restrict__ y, int y_comps,
+                      int y_off, const uint32_t* __restrict__ p,
+                      const uint32_t* __restrict__ mu, const uint32_t* __restrict__ psi,
+                      const uint32_t* __restrict__ psi_sh, int logn, int logb, int logc,
+                      uint32_t h_gal) {
+  extern __shared__ uint32_t t[];
+  const int n = 1 << logn;
+  const int batch = gridDim.y / comps;
+  const int c = blockIdx.y / batch, b = blockIdx.y - c * batch;
+  const int i = blockIdx.z;
+  const uint32_t pi = p[i];
+  const uint32_t mui = LANE == ColumnLane::Plain ? 0 : mu[i];
+  const uint32_t qc = LANE == ColumnLane::Galois ? p[c] : 0;
+  const size_t tab = static_cast<size_t>(i) * n;
+  const uint32_t* xr = x + i * x_sp + c * x_sc + b * x_sb;
+  const fhe::ColumnTile tile = fhe::column_tile(logn, logb, logc);
+  fhe::column_load(t, tile, [&](int j) -> uint32_t {
+    if constexpr (LANE == ColumnLane::Plain) {
+      return xr[j];
+    } else if constexpr (LANE == ColumnLane::Reduce) {
+      return fhe::reduce_barrett(xr[j], pi, mui);
+    } else {
+      bool neg;
+      const uint32_t v = __ldg(xr + coeff_source(h_gal, j, logn, neg));
+      return fhe::reduce_barrett(neg ? fhe::neg_mod(v, qc) : v, pi, mui);
+    }
+  });
+  fhe::column_forward(t, tile, pi, psi + tab, psi_sh + tab);
+  uint32_t* yr = y + ((static_cast<size_t>(i) * y_comps + y_off + c) * batch + b) * n;
+  fhe::column_store(t, tile, [&](int j, uint32_t v, int) { yr[j] = v; });
+}
+
+// The inverse's column launch: y[i, c, b] = n^-1 (t n^-1 with the
+// multiply's tables) times the last s stages of the inverse transform of
+// row (i, c, b) of x; x, y [k, comps, B, n].  GALOIS (the Galois lanes of
+// keyswitch_fused and ks_inner): row c = 0 of element b is stored plus
+// phi_h(c0_b) (coeff_source; h = hs[b % h_mod], or h_gal where hs is null;
+// c0_b of prime i at c0 + i * c0_sp + (b / c0_div) * c0_sb).  Grid (b / C,
+// comps * B, k), one tile per CTA.
+template <bool GALOIS>
+__global__ void __launch_bounds__(256)
+column_inverse_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y, int comps,
+                      const uint32_t* __restrict__ p, const uint32_t* __restrict__ ipsi,
+                      const uint32_t* __restrict__ ipsi_sh,
+                      const uint32_t* __restrict__ n_inv,
+                      const uint32_t* __restrict__ n_inv_sh, int logn, int logb, int logc,
+                      const uint32_t* __restrict__ hs, uint32_t h_gal, int h_mod,
+                      const uint32_t* __restrict__ c0, long long c0_sp, long long c0_sb,
+                      int c0_div) {
+  extern __shared__ uint32_t t[];
+  const int n = 1 << logn;
+  const int batch = gridDim.y / comps;
+  const int c = blockIdx.y / batch, b = blockIdx.y - c * batch;
+  const int i = blockIdx.z;
+  const uint32_t pi = p[i], ni = n_inv[i], ni_sh = n_inv_sh[i];
+  const size_t tab = static_cast<size_t>(i) * n;
+  const size_t row = ((static_cast<size_t>(i) * comps + c) * batch + b) * n;
+  const fhe::ColumnTile tile = fhe::column_tile(logn, logb, logc);
+  fhe::column_load(t, tile, [&](int j) { return x[row + j]; });
+  fhe::column_inverse(t, tile, pi, ipsi + tab, ipsi_sh + tab);
+  const bool add_c0 = GALOIS && c == 0;
+  const uint32_t h = add_c0 ? (hs != nullptr ? __ldg(hs + b % h_mod) : h_gal) : 0;
+  const uint32_t* c0r = add_c0 ? c0 + i * c0_sp + (b / c0_div) * c0_sb : nullptr;
+  fhe::column_store(t, tile, [&](int j, uint32_t v, int) {
+    v = fhe::mul_shoup(v, ni, ni_sh, pi);
+    if (add_c0) {
+      bool neg;
+      const uint32_t w = __ldg(c0r + coeff_source(h, j, logn, neg));
+      v = fhe::add_mod(v, neg ? fhe::neg_mod(w, pi) : w, pi);
+    }
+    y[row + j] = v;
+  });
+}
+
+// A group of a row in global memory, element base + (g << logs), and to it.
+template <class V>
+__device__ __forceinline__ void row_group_load(V& v, const uint32_t* __restrict__ row, int base,
+                                               int logs) {
+#pragma unroll
+  for (int g = 0; g < static_cast<int>(sizeof(v) / sizeof(v[0])); ++g)
+    v[g] = row[base + (g << logs)];
+}
+template <class V>
+__device__ __forceinline__ void row_group_store(const V& v, uint32_t* __restrict__ row, int base,
+                                                int logs) {
+#pragma unroll
+  for (int g = 0; g < static_cast<int>(sizeof(v) / sizeof(v[0])); ++g)
+    row[base + (g << logs)] = v[g];
+}
+
+// ntt_forward's block launch, in place on y [k, B, n] after its column
+// launch: block h = blockIdx.x of row (i, b) through the forward stages
+// below the column ones.  Grid (n / b, B, k); one padded block row of
+// shared memory.
+__global__ void __launch_bounds__(512)
+block_forward_kernel(uint32_t* __restrict__ y, const uint32_t* __restrict__ p,
+                     const uint32_t* __restrict__ psi, const uint32_t* __restrict__ psi_sh,
+                     int logn, int logb) {
+  extern __shared__ uint32_t a[];
+  const int n = 1 << logn;
+  const int h = blockIdx.x, i = blockIdx.z;
+  const size_t tab = static_cast<size_t>(i) * n;
+  uint32_t* row = y + (static_cast<size_t>(i) * gridDim.y + blockIdx.y) * n;
+  fhe::block_forward(
+      a, logn, logb, h, p[i], psi + tab, psi_sh + tab,
+      [&](auto& v, int base, int logs) { row_group_load(v, row, base, logs); },
+      [&](auto& v, int base, int) { fhe::store_run(row, base, v); });
+}
+
+// ntt_inverse's block launch: block h of y[i, b] = the inverse stages below
+// the column ones of row (i, b) of x; x, y [k, B, n], the first pass's 16
+// consecutive words in 16-byte loads where `vec` (x starts 16-byte
+// aligned).  Grid (n / b, B, k); one padded block row.
+__global__ void __launch_bounds__(512)
+block_inverse_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+                     const uint32_t* __restrict__ p, const uint32_t* __restrict__ ipsi,
+                     const uint32_t* __restrict__ ipsi_sh, int logn, int logb, int vec) {
+  extern __shared__ uint32_t a[];
+  const int n = 1 << logn;
+  const int h = blockIdx.x, i = blockIdx.z;
+  const size_t tab = static_cast<size_t>(i) * n;
+  const size_t row = (static_cast<size_t>(i) * gridDim.y + blockIdx.y) * n;
+  const uint32_t* src = x + row;
+  fhe::block_inverse(
+      a, logn, logb, h, p[i], ipsi + tab, ipsi_sh + tab,
+      [&](auto& v, int base, int) { fhe::load_run(src, base, vec, v); },
+      [&](auto& v, int base, int logs) { row_group_store(v, y + row, base, logs); });
+}
+
+// mul_by_ntt_operand's block launch (and decrypt_fused's, w = s): block h of
+// out[i, c, b] = the block's forward stages of row (i, b) of u (the column
+// launch's [k, B, n]), times w[i, c] (Barrett, in the last pass, w's words
+// in 16-byte loads), then the block's inverse stages.  w [k, num_c, n]
+// with 16-byte aligned rows, out [k, num_c, B, n].  Grid (n / b, num_c * B,
+// k), blockIdx.y = c * B + b; one padded block row.
+__global__ void __launch_bounds__(512)
+block_mul_kernel(const uint32_t* __restrict__ u, const uint32_t* __restrict__ w,
+                 uint32_t* __restrict__ out, const uint32_t* __restrict__ p,
+                 const uint32_t* __restrict__ mu, const uint32_t* __restrict__ psi,
+                 const uint32_t* __restrict__ psi_sh, const uint32_t* __restrict__ ipsi,
+                 const uint32_t* __restrict__ ipsi_sh, int num_c, int logn, int logb) {
+  extern __shared__ uint32_t a[];
+  const int n = 1 << logn;
+  const int h = blockIdx.x, cb = blockIdx.y, i = blockIdx.z;
+  const int batch = gridDim.y / num_c;
+  const int c = cb / batch, b = cb - c * batch;
+  const uint32_t pi = p[i], mui = mu[i];
+  const size_t tab = static_cast<size_t>(i) * n;
+  const int first = h << logb;
+  const uint32_t* ur = u + (static_cast<size_t>(i) * batch + b) * n;
+  const uint32_t* wr = w + (static_cast<size_t>(i) * num_c + c) * n;
+  fhe::block_forward(
+      a, logn, logb, h, pi, psi + tab, psi_sh + tab,
+      [&](auto& x, int base, int logs) { row_group_load(x, ur, base, logs); },
+      [&](auto& x, int base, int) {
+        constexpr int G = sizeof(x) / sizeof(x[0]);
+        uint32_t wv[G];
+        fhe::load_twiddles(wr, base, wv);
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          a[fhe::padded_index(base - first + g)] = fhe::mul_barrett(x[g], wv[g], pi, mui);
+      });
+  uint32_t* dst = out + (static_cast<size_t>(i) * gridDim.y + cb) * n;
+  fhe::block_inverse(a, logn, logb, h, pi, ipsi + tab, ipsi_sh + tab, fhe::SmemLoadFrom{a, first},
+                     [&](auto& x, int base, int logs) { row_group_store(x, dst, base, logs); });
+}
+
+// tensor_product's block launch (and bsk_branch_fused's, on the Bsk
+// tables): block h of element b over prime i runs the block's forward
+// stages of the four rows x0, x1, y0, y1 of x ([k, 4, B, n], the column
+// launches'), each in a padded block row of its own; forms the product rows
+// c0 = x0 y0, c1 = x0 y1 + x1 y0, c2 = x1 y1 (Barrett) in place of the
+// first three, each position by one thread; and runs the block's inverse
+// stages of each into out [k, 3, B, n].  Grid (n / b, B, k); four padded
+// block rows of shared memory (135 KB at b = 8192).
+__global__ void __launch_bounds__(512)
+block_product_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                     const uint32_t* __restrict__ p, const uint32_t* __restrict__ mu,
+                     const uint32_t* __restrict__ psi, const uint32_t* __restrict__ psi_sh,
+                     const uint32_t* __restrict__ ipsi, const uint32_t* __restrict__ ipsi_sh,
+                     int logn, int logb) {
+  extern __shared__ uint32_t sm[];
+  const int n = 1 << logn, bs = 1 << logb;
+  const int words = fhe::padded(bs);
+  const int h = blockIdx.x, b = blockIdx.y, i = blockIdx.z;
+  const int batch = gridDim.y;
+  const uint32_t pi = p[i], mui = mu[i];
+  const size_t tab = static_cast<size_t>(i) * n;
+  const int first = h << logb;
+  for (int r = 0; r < 4; ++r) {
+    uint32_t* a = sm + r * words;
+    const uint32_t* src = x + ((static_cast<size_t>(i) * 4 + r) * batch + b) * n;
+    fhe::block_forward(a, logn, logb, h, pi, psi + tab, psi_sh + tab,
+                       [&](auto& v, int base, int logs) { row_group_load(v, src, base, logs); },
+                       fhe::SmemStoreFrom{a, first});
+  }
+  uint32_t* r0 = sm;
+  uint32_t* r1 = sm + words;
+  uint32_t* r2 = sm + 2 * words;
+  const uint32_t* r3 = sm + 3 * words;
+  for (int e = threadIdx.x; e < bs; e += blockDim.x) {
+    const int q = fhe::padded_index(e);
+    const uint32_t x0 = r0[q], x1 = r1[q], y0 = r2[q], y1 = r3[q];
+    r0[q] = fhe::mul_barrett(x0, y0, pi, mui);
+    r1[q] = fhe::add_mod(fhe::mul_barrett(x0, y1, pi, mui), fhe::mul_barrett(x1, y0, pi, mui), pi);
+    r2[q] = fhe::mul_barrett(x1, y1, pi, mui);
+  }
+  __syncthreads();
+  for (int r = 0; r < 3; ++r) {
+    uint32_t* a = sm + r * words;
+    uint32_t* dst = out + ((static_cast<size_t>(i) * 3 + r) * batch + b) * n;
+    fhe::block_inverse(a, logn, logb, h, pi, ipsi + tab, ipsi_sh + tab,
+                       fhe::SmemLoadFrom{a, first},
+                       [&](auto& v, int base, int logs) { row_group_store(v, dst, base, logs); });
+  }
+}
+
+// keyswitch_fused's block launch (every lane: the column launch has reduced
+// or gathered the digits): block h of element b over prime i.  For each
+// digit j, the block's forward stages of row (i, j, b) of x ([k, kd, B,
+// n]); the last pass's 16 consecutive positions times key[i, j, 0] and
+// key[i, j, 1] (16-byte loads; key element (i, j, c, x) at keys + i *
+// key_sp + j * key_sj + c * n + x) are added into the two partial rows.
+// Then the block's inverse stages of each partial row into out [k, 2, B,
+// n].  The forward's last pass and the inverse's first map the same
+// positions to the same thread, so each partial word is written and read
+// by one thread.  Mod-add is exact, so the digits' order gives the
+// reference's bits.  Grid (n / b, B, k); shared memory: the padded block
+// row and the two partial rows, unpadded (99 KB at b = 8192).
+__global__ void __launch_bounds__(512)
+block_keyswitch_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ keys,
+                       long long key_sp, long long key_sj, uint32_t* __restrict__ out,
+                       const uint32_t* __restrict__ p, const uint32_t* __restrict__ mu,
+                       const uint32_t* __restrict__ psi, const uint32_t* __restrict__ psi_sh,
+                       const uint32_t* __restrict__ ipsi,
+                       const uint32_t* __restrict__ ipsi_sh, int kd, int logn, int logb) {
+  extern __shared__ uint32_t sm[];
+  const int n = 1 << logn, bs = 1 << logb;
+  const int h = blockIdx.x, b = blockIdx.y, i = blockIdx.z;
+  const int batch = gridDim.y;
+  const uint32_t pi = p[i], mui = mu[i];
+  const size_t tab = static_cast<size_t>(i) * n;
+  const int first = h << logb;
+  uint32_t* a = sm;
+  uint32_t* part = sm + fhe::padded(bs);     // output row c's at part + c * bs
+  const uint32_t* key_i = keys + i * key_sp;
+  for (int j = 0; j < kd; ++j) {
+    const uint32_t* src = x + ((static_cast<size_t>(i) * kd + j) * batch + b) * n;
+    const uint32_t* k0 = key_i + j * key_sj;
+    const uint32_t* k1 = k0 + n;
+    const bool lead = j == 0;
+    fhe::block_forward(
+        a, logn, logb, h, pi, psi + tab, psi_sh + tab,
+        [&](auto& v, int base, int logs) { row_group_load(v, src, base, logs); },
+        [&](auto& v, int base, int) {
+          constexpr int G = sizeof(v) / sizeof(v[0]);
+          uint32_t* acc = part + (base - first);
+          uint32_t kv[G];
+          fhe::load_twiddles(k0, base, kv);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const uint32_t t = fhe::mul_barrett(v[g], kv[g], pi, mui);
+            acc[g] = lead ? t : fhe::add_mod(acc[g], t, pi);
+          }
+          fhe::load_twiddles(k1, base, kv);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const uint32_t t = fhe::mul_barrett(v[g], kv[g], pi, mui);
+            acc[bs + g] = lead ? t : fhe::add_mod(acc[bs + g], t, pi);
+          }
+        });
+  }
+  for (int c = 0; c < 2; ++c) {
+    const uint32_t* mine = part + c * bs;
+    uint32_t* dst = out + ((static_cast<size_t>(i) * 2 + c) * batch + b) * n;
+    fhe::block_inverse(
+        a, logn, logb, h, pi, ipsi + tab, ipsi_sh + tab,
+        [&](auto& v, int base, int) {
+#pragma unroll
+          for (int g = 0; g < static_cast<int>(sizeof(v) / sizeof(v[0])); ++g)
+            v[g] = mine[base - first + g];
+        },
+        [&](auto& v, int base, int logs) { row_group_store(v, dst, base, logs); });
+  }
+}
+
+// ks_inner's block launch (ks_inner_batch and ks_inner_grouped; GALOIS:
+// their Galois lane): block h of out[i, c, b] = the block's inverse stages
+// of sum_j dg[i, j, b / dg_div] . keys[i, j, b % key_mod, c], the sums
+// formed in the first pass as ks_inner_kernel forms them (GALOIS: gathered
+// by the element's automorphism, gathered_products, whose source block
+// lies anywhere in the row: it reads global memory); the inverse column
+// launch adds phi(c0).  Operands as ks_inner_kernel's; out [k, 2, B, n].
+// Grid (n / b, 2 B, k), blockIdx.y = c * B + b; one padded block row.
+template <bool GALOIS>
+__global__ void __launch_bounds__(512)
+block_inner_kernel(const uint32_t* __restrict__ dg, long long dg_sp, long long dg_sj,
+                   long long dg_sb, int dg_div, const uint32_t* __restrict__ keys,
+                   long long key_sp, long long key_sj, long long key_se, int key_mod,
+                   uint32_t* __restrict__ out, const uint32_t* __restrict__ p,
+                   const uint32_t* __restrict__ mu, const uint32_t* __restrict__ ipsi,
+                   const uint32_t* __restrict__ ipsi_sh, int kd, int logn, int logb, int vec,
+                   const uint32_t* __restrict__ gs) {
+  extern __shared__ uint32_t a[];
+  const int n = 1 << logn;
+  const int h = blockIdx.x, cb = blockIdx.y, i = blockIdx.z;
+  const int batch = gridDim.y / 2;
+  const int c = cb / batch, b = cb - c * batch;
+  const uint32_t pi = p[i], mui = mu[i];
+  const size_t tab = static_cast<size_t>(i) * n;
+  const int first = h << logb;
+  const uint32_t* dgb = dg + i * dg_sp + (b / dg_div) * dg_sb;
+  const int e = b % key_mod;
+  const uint32_t* ke = keys + i * key_sp + c * n + e * key_se;
+  uint32_t* dst = out + (static_cast<size_t>(i) * gridDim.y + cb) * n;
+  fhe::block_inverse(
+      a, logn, logb, h, pi, ipsi + tab, ipsi_sh + tab,
+      [&](auto& v, int base, int) {
+        constexpr int G = sizeof(v) / sizeof(v[0]);
+        if constexpr (GALOIS) {
+          gathered_products(v, base, logn, dgb, dg_sj, ke, key_sj, kd, __ldg(gs + e), vec, pi,
+                            mui, a + fhe::padded_index(base - first));
+        } else {
+#pragma unroll
+          for (int g = 0; g < G; ++g) v[g] = 0;
+          for (int j = 0; j < kd; ++j) {
+            uint32_t f[G], kv[G];
+            fhe::load_run(dgb + j * dg_sj, base, vec, f);
+            fhe::load_run(ke + j * key_sj, base, vec, kv);
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+              v[g] = fhe::add_mod(v[g], fhe::mul_barrett(f[g], kv[g], pi, mui), pi);
+          }
+        }
+      },
+      [&](auto& v, int base, int logs) { row_group_store(v, dst, base, logs); });
+}
+
+// The block launches' common checks: smem for `rows` padded block rows
+// and `words` more.
+inline bool block_args_ok(int logn, int logb, int smem, int rows, int words = 0) {
+  return fhe::column_args_ok(logn, logb, 0) && smem >= 4 * (rows * fhe::padded(1 << logb) + words);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1306,6 +1682,133 @@ int fhe_ks_inner(const void* dg, long long dg_sp, long long dg_sj, long long dg_
                                  key_se, key_mod, out, p, mu, ipsi, ipsi_sh, n_inv, n_inv_sh,
                                  k, kd, batch, logn, threads, smem, vec, go,
                                  static_cast<cudaStream_t>(stream)));
+}
+
+// The column form's launches (ops/column_cuda.py gives every shape): a
+// block of 2^logb positions, tiles of 2^logc columns, `threads` per CTA and
+// `smem` bytes (the block launches; a column launch's is its tile's words).
+// Residue rows [k, comps, B, n] between the launches are the wrapper's.
+
+// lane: 0 Plain, 1 Reduce, 2 Galois (h_gal = g^-1 mod 2n).
+int fhe_column_forward(int lane, const void* x, long long x_sp, long long x_sc, long long x_sb,
+                       int comps, void* y, int y_comps, int y_off, const void* p, const void* mu,
+                       const void* psi, const void* psi_sh, int k, int batch, int logn,
+                       int logb, int logc, int threads, unsigned h_gal, void* stream) {
+  if (!fhe::column_args_ok(logn, logb, logc) || lane < 0 || lane > 2 || comps < 1
+      || y_off + comps > y_comps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  const dim3 grid(1 << (logb - logc), comps * batch, k);
+  const int smem = 4 << (logn - logb + logc);
+  auto run = [&](auto launch) {
+    return launch(grid, threads, smem, static_cast<cudaStream_t>(stream), u(x), x_sp, x_sc,
+                  x_sb, comps, static_cast<uint32_t*>(y), y_comps, y_off, u(p), u(mu), u(psi),
+                  u(psi_sh), logn, logb, logc, static_cast<uint32_t>(h_gal));
+  };
+  return static_cast<int>(
+      lane == 2   ? run(fhe::PlainLaunch<&column_forward_kernel<ColumnLane::Galois>>{})
+      : lane == 1 ? run(fhe::PlainLaunch<&column_forward_kernel<ColumnLane::Reduce>>{})
+                  : run(fhe::PlainLaunch<&column_forward_kernel<ColumnLane::Plain>>{}));
+}
+
+// The Galois add where c0 is given (hs: [h_mod] inverses g^-1 mod 2n, or
+// null for h_gal alone).
+int fhe_column_inverse(const void* x, void* y, int comps, const void* p, const void* ipsi,
+                       const void* ipsi_sh, const void* n_inv, const void* n_inv_sh, int k,
+                       int batch, int logn, int logb, int logc, int threads, const void* hs,
+                       unsigned h_gal, int h_mod, const void* c0, long long c0_sp,
+                       long long c0_sb, int c0_div, void* stream) {
+  if (!fhe::column_args_ok(logn, logb, logc) || comps < 1
+      || (c0 != nullptr && (h_mod < 1 || c0_div < 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  const dim3 grid(1 << (logb - logc), comps * batch, k);
+  const int smem = 4 << (logn - logb + logc);
+  auto run = [&](auto launch) {
+    return launch(grid, threads, smem, static_cast<cudaStream_t>(stream), u(x),
+                  static_cast<uint32_t*>(y), comps, u(p), u(ipsi), u(ipsi_sh), u(n_inv),
+                  u(n_inv_sh), logn, logb, logc, u(hs), static_cast<uint32_t>(h_gal), h_mod,
+                  u(c0), c0_sp, c0_sb, c0_div);
+  };
+  return static_cast<int>(c0 != nullptr
+                              ? run(fhe::PlainLaunch<&column_inverse_kernel<true>>{})
+                              : run(fhe::PlainLaunch<&column_inverse_kernel<false>>{}));
+}
+
+int fhe_block_forward(void* y, const void* p, const void* psi, const void* psi_sh, int k,
+                      int batch, int logn, int logb, int threads, int smem, void* stream) {
+  if (!block_args_ok(logn, logb, smem, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  return static_cast<int>(fhe::PlainLaunch<&block_forward_kernel>{}(
+      dim3(1 << (logn - logb), batch, k), threads, smem, static_cast<cudaStream_t>(stream),
+      static_cast<uint32_t*>(y), u(p), u(psi), u(psi_sh), logn, logb));
+}
+
+int fhe_block_inverse(const void* x, int vec, void* y, const void* p, const void* ipsi,
+                      const void* ipsi_sh, int k, int batch, int logn, int logb, int threads,
+                      int smem, void* stream) {
+  if (!block_args_ok(logn, logb, smem, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  return static_cast<int>(fhe::PlainLaunch<&block_inverse_kernel>{}(
+      dim3(1 << (logn - logb), batch, k), threads, smem, static_cast<cudaStream_t>(stream),
+      u(x), static_cast<uint32_t*>(y), u(p), u(ipsi), u(ipsi_sh), logn, logb, vec));
+}
+
+int fhe_block_mul(const void* x, const void* w, void* y, const void* p, const void* mu,
+                  const void* psi, const void* psi_sh, const void* ipsi, const void* ipsi_sh,
+                  int k, int num_c, int batch, int logn, int logb, int threads, int smem,
+                  void* stream) {
+  if (!block_args_ok(logn, logb, smem, 1) || num_c < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  return static_cast<int>(fhe::PlainLaunch<&block_mul_kernel>{}(
+      dim3(1 << (logn - logb), num_c * batch, k), threads, smem,
+      static_cast<cudaStream_t>(stream), u(x), u(w), static_cast<uint32_t*>(y), u(p), u(mu),
+      u(psi), u(psi_sh), u(ipsi), u(ipsi_sh), num_c, logn, logb));
+}
+
+int fhe_block_product(const void* x, void* y, const void* p, const void* mu, const void* psi,
+                      const void* psi_sh, const void* ipsi, const void* ipsi_sh, int k,
+                      int batch, int logn, int logb, int threads, int smem, void* stream) {
+  if (!block_args_ok(logn, logb, smem, 4)) return static_cast<int>(cudaErrorInvalidValue);
+  auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  return static_cast<int>(fhe::PlainLaunch<&block_product_kernel>{}(
+      dim3(1 << (logn - logb), batch, k), threads, smem, static_cast<cudaStream_t>(stream),
+      u(x), static_cast<uint32_t*>(y), u(p), u(mu), u(psi), u(psi_sh), u(ipsi), u(ipsi_sh),
+      logn, logb));
+}
+
+int fhe_block_keyswitch(const void* x, const void* keys, long long key_sp, long long key_sj,
+                        void* y, const void* p, const void* mu, const void* psi,
+                        const void* psi_sh, const void* ipsi, const void* ipsi_sh, int k, int kd,
+                        int batch, int logn, int logb, int threads, int smem, void* stream) {
+  if (!block_args_ok(logn, logb, smem, 1, 2 << logb) || kd < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  return static_cast<int>(fhe::PlainLaunch<&block_keyswitch_kernel>{}(
+      dim3(1 << (logn - logb), batch, k), threads, smem, static_cast<cudaStream_t>(stream),
+      u(x), u(keys), key_sp, key_sj, static_cast<uint32_t*>(y), u(p), u(mu), u(psi), u(psi_sh),
+      u(ipsi), u(ipsi_sh), kd, logn, logb));
+}
+
+// lane: 0 Inner, 1 Galois (gs: the key sets' Galois elements).
+int fhe_block_inner(int lane, const void* dg, long long dg_sp, long long dg_sj, long long dg_sb,
+                    int dg_div, const void* keys, long long key_sp, long long key_sj,
+                    long long key_se, int key_mod, void* y, const void* p, const void* mu,
+                    const void* ipsi, const void* ipsi_sh, int k, int kd, int batch, int logn,
+                    int logb, int threads, int smem, int vec, const void* gs, void* stream) {
+  if (!block_args_ok(logn, logb, smem, 1) || kd < 1 || dg_div < 1 || key_mod < 1
+      || (lane != 0 && lane != 1) || (lane == 1 && gs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  auto run = [&](auto launch) {
+    return launch(dim3(1 << (logn - logb), 2 * batch, k), threads, smem,
+                  static_cast<cudaStream_t>(stream), u(dg), dg_sp, dg_sj, dg_sb, dg_div, u(keys),
+                  key_sp, key_sj, key_se, key_mod, static_cast<uint32_t*>(y), u(p), u(mu),
+                  u(ipsi), u(ipsi_sh), kd, logn, logb, vec, u(gs));
+  };
+  return static_cast<int>(lane == 1 ? run(fhe::PlainLaunch<&block_inner_kernel<true>>{})
+                                    : run(fhe::PlainLaunch<&block_inner_kernel<false>>{}));
 }
 
 }  // extern "C"

@@ -93,6 +93,7 @@
 #include <atomic>
 #include <cstdint>
 
+#include "column.cuh"
 #include "lift.cuh"
 #include "modmath.cuh"
 #include "quarter.cuh"
@@ -999,6 +1000,79 @@ const void* pick_conv_kernel(int lane, int per_thread, int kb, int k) {
   }
 }
 
+// bsk_branch_fused's column form (n >= 262144; csrc/column.cuh): three
+// launches that meet in global memory.  column_lift_kernel lifts each
+// coefficient of the four rows a0, a1, b0, b1 into the Bsk prime c_j
+// (lift.cuh, the steps lift_group runs) and runs the forward's column
+// stages; ntt.cu's block_product_kernel, on the Bsk tables, the block
+// stages, the product and the block's inverse stages; column_floor_kernel
+// the inverse's column stages, t n^-1 and the FastFloor against tx_q.
+
+// y[j, r, b] (y [kb, 4, B, n]) = the top forward stages of the lift into
+// c_j of row (r, b) of ab (ab's strides as bsk_branch_kernel's).  Grid
+// (b / C, 4 B, kb), blockIdx.y = r * B + b, one tile per CTA.
+__global__ void __launch_bounds__(256)
+column_lift_kernel(const uint32_t* __restrict__ ab, int ab_sp, int ab_sc, int ab_sb,
+                   uint32_t* __restrict__ y, const fhe::SmMRqOperands lo,
+                   const uint32_t* __restrict__ cp, const uint32_t* __restrict__ psi,
+                   const uint32_t* __restrict__ psi_sh, int logn, int logb, int logc) {
+  extern __shared__ uint32_t t[];
+  const int n = 1 << logn;
+  const int batch = gridDim.y / 4;
+  const int r = blockIdx.y / batch, b = blockIdx.y - r * batch;
+  const int j = blockIdx.z;
+  const uint32_t c = cp[j];
+  const size_t tab = static_cast<size_t>(j) * n;
+  const fhe::SmMRqLift lift(lo, j, c);
+  const uint32_t* src = ab + r * ab_sc + b * ab_sb;
+  const fhe::ColumnTile tile = fhe::column_tile(logn, logb, logc);
+  fhe::column_load(t, tile, [&](int x) { return lift.one(src + x, ab_sp); });
+  fhe::column_forward(t, tile, c, psi + tab, psi_sh + tab);
+  uint32_t* yr = y + ((static_cast<size_t>(j) * 4 + r) * batch + b) * n;
+  fhe::column_store(t, tile, [&](int x, uint32_t v, int) { yr[x] = v; });
+}
+
+// out[j, r, b] = FastFloor of t n^-1 times the last inverse stages of row
+// (j, r, b) of x (x, out [kb, 3, B, n]) against row (r, b) of tx_q (its
+// strides as bsk_branch_kernel's; floor_group's steps, one coefficient a
+// thread).  Grid (b / C, 3 B, kb), blockIdx.y = r * B + b.
+__global__ void __launch_bounds__(256)
+column_floor_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ txq, int tx_sp,
+                    int tx_sc, int tx_sb, uint32_t* __restrict__ out,
+                    const uint32_t* __restrict__ q,
+                    const uint32_t* __restrict__ floor_inv_phat,
+                    const uint32_t* __restrict__ floor_inv_phat_sh,
+                    const uint32_t* __restrict__ floor_phat,
+                    const uint32_t* __restrict__ floor_phat_sh,
+                    const uint32_t* __restrict__ inv_q_c,
+                    const uint32_t* __restrict__ inv_q_c_sh, const uint32_t* __restrict__ cp,
+                    const uint32_t* __restrict__ ipsi, const uint32_t* __restrict__ ipsi_sh,
+                    const uint32_t* __restrict__ n_inv, const uint32_t* __restrict__ n_inv_sh,
+                    int k, int logn, int logb, int logc) {
+  extern __shared__ uint32_t t[];
+  const int n = 1 << logn;
+  const int batch = gridDim.y / 3;
+  const int r = blockIdx.y / batch, b = blockIdx.y - r * batch;
+  const int j = blockIdx.z;
+  const uint32_t c = cp[j], ni = n_inv[j], ni_sh = n_inv_sh[j];
+  const uint32_t iq = inv_q_c[j], iq_sh = inv_q_c_sh[j];
+  const size_t tab = static_cast<size_t>(j) * n;
+  const size_t row = ((static_cast<size_t>(j) * 3 + r) * batch + b) * n;
+  const uint32_t* tsrc = txq + r * tx_sc + b * tx_sb;
+  const uint32_t* fp = floor_phat + j * k;
+  const uint32_t* fp_sh = floor_phat_sh + j * k;
+  const fhe::ColumnTile tile = fhe::column_tile(logn, logb, logc);
+  fhe::column_load(t, tile, [&](int e) { return x[row + e]; });
+  fhe::column_inverse(t, tile, c, ipsi + tab, ipsi_sh + tab);
+  fhe::column_store(t, tile, [&](int e, uint32_t v, int) {
+    uint32_t conv = 0;
+    for (int i = 0; i < k; ++i)
+      fast_floor_step(tsrc[i * tx_sp + e], q[i], floor_inv_phat[i], floor_inv_phat_sh[i], fp[i],
+                      fp_sh[i], c, conv);
+    out[row + e] = fast_floor_close(fhe::mul_shoup(v, ni, ni_sh, c), conv, c, iq, iq_sh);
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -1101,6 +1175,48 @@ int fhe_base_conv(int lane, int per_thread, int kb, int k, int count, int dstart
                                            static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+
+// bsk_branch_fused's column launches (ops/column_cuda.py gives every
+// shape: a block of 2^logb positions, tiles of 2^logc columns, `threads`
+// per CTA); the lift's and the floor's constants as fhe_bsk_branch takes
+// them.
+int fhe_column_lift(const void* ab, int ab_sp, int ab_sc, int ab_sb, void* y, const void* q,
+                    const void* mt_inv_phat, const void* mt_inv_phat_sh, const void* lift_phat,
+                    const void* lift_phat_sh, const void* phat_mt, const void* q_mod_c,
+                    const void* q_mod_c_sh, const void* inv_mt_c, const void* inv_mt_c_sh,
+                    uint32_t inv_q_mt, const void* cp, const void* psi, const void* psi_sh,
+                    int k, int kb, int batch, int logn, int logb, int logc, int threads,
+                    void* stream) {
+  if (!fhe::column_args_ok(logn, logb, logc) || k < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  const fhe::SmMRqOperands lo{u(q), u(mt_inv_phat), u(mt_inv_phat_sh), u(lift_phat),
+                              u(lift_phat_sh), u(phat_mt), u(q_mod_c), u(q_mod_c_sh),
+                              u(inv_mt_c), u(inv_mt_c_sh), inv_q_mt, k};
+  return static_cast<int>(fhe::PlainLaunch<&column_lift_kernel>{}(
+      dim3(1 << (logb - logc), 4 * batch, kb), threads, 4 << (logn - logb + logc),
+      static_cast<cudaStream_t>(stream), u(ab), ab_sp, ab_sc, ab_sb, static_cast<uint32_t*>(y),
+      lo, u(cp), u(psi), u(psi_sh), logn, logb, logc));
+}
+
+int fhe_column_floor(const void* x, const void* txq, int tx_sp, int tx_sc, int tx_sb, void* out,
+                     const void* q, const void* floor_inv_phat, const void* floor_inv_phat_sh,
+                     const void* floor_phat, const void* floor_phat_sh, const void* inv_q_c,
+                     const void* inv_q_c_sh, const void* cp, const void* ipsi,
+                     const void* ipsi_sh, const void* n_inv, const void* n_inv_sh, int k,
+                     int kb, int batch, int logn, int logb, int logc, int threads,
+                     void* stream) {
+  if (!fhe::column_args_ok(logn, logb, logc) || k < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  return static_cast<int>(fhe::PlainLaunch<&column_floor_kernel>{}(
+      dim3(1 << (logb - logc), 3 * batch, kb), threads, 4 << (logn - logb + logc),
+      static_cast<cudaStream_t>(stream), u(x), u(txq), tx_sp, tx_sc, tx_sb,
+      static_cast<uint32_t*>(out), u(q), u(floor_inv_phat), u(floor_inv_phat_sh), u(floor_phat),
+      u(floor_phat_sh), u(inv_q_c), u(inv_q_c_sh), u(cp), u(ipsi), u(ipsi_sh), u(n_inv),
+      u(n_inv_sh), k, logn, logb, logc));
 }
 
 }  // extern "C"

@@ -19,7 +19,8 @@ from . import ntt as _ntt
 from . import rns as _rns
 from .ntt import NTTTables
 from .ntt_cuda import (COMPACT_SPLITS, MAX_CLUSTER, MAX_GRID_Y, check_aligned_tables,
-                       check_barrett, check_residues, compact_arg, fit_smem, log2_exact,
+                       check_barrett, check_residues, column_block_mul, column_form,
+                       column_forward, column_geometry, compact_arg, fit_smem, log2_exact,
                        on_card, regs_threads, row_bytes, scratch_for, table_ptrs)
 
 _P = ctypes.c_void_p
@@ -33,7 +34,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("decrypt")
     lib.fhe_decrypt_fused.argtypes = ([_P] * 2 + [_L] * 2 + [_P] * 15 + [_U] * 10
                                       + [_I] * 6 + [_P, _I, _P])
-    lib.fhe_decrypt_fused.restype = ctypes.c_int
+    lib.fhe_decrypt_column.argtypes = ([_P, _P, _L, _L] + [_P] * 11 + [_U] * 10
+                                       + [_I] * 6 + [_P])
+    for f in (lib.fhe_decrypt_fused, lib.fhe_decrypt_column):
+        f.restype = ctypes.c_int
     return lib
 
 
@@ -52,11 +56,19 @@ def decrypt_geometry(n: int, k: int, batch: int = 1) -> dict:
     portable), group q taking the primes q, q + P, ...; each CTA's
     accumulators are 2n/H words of scratch (n/H each); at n = 131072, where
     a padded half row does not fit, the same with H = 4 (the quarter split:
-    a padded quarter row per CTA, two groups per cluster).  Raise where
-    nothing fits the card."""
+    a padded quarter row per CTA, two groups per cluster).  At n >= 262144
+    (or inside ``forced_form("column")``) the column form: c1's column launch, the block
+    launch of mul_by_ntt_operand with s (2 k B n words of scratch between
+    them), and a column launch that runs each prime's last inverse stages
+    for a tile of columns, adds c0 and folds the prime's terms into the
+    tile's accumulators, then scales them.  Raise where nothing fits the
+    card."""
     name = "decrypt_fused"
     if k < 1 or not 1 <= batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: k={k}, batch {batch} outside 1..{MAX_GRID_Y}")
+    if column_form(n):
+        return column_geometry(n, k, name, (("column", batch), ("mul", batch),
+                                            ("decrypt", batch)), 2 * k * batch * n)
     row = row_bytes(n, padded=True)
     layout, smem = fit_smem(n, name, 3 * row, row,
                             *(row_bytes(n // h, padded=True) for h in COMPACT_SPLITS))
@@ -107,6 +119,10 @@ def decrypt_fused(c0: torch.Tensor, c1: torch.Tensor, s_ntt: torch.Tensor,
         raise ValueError("decrypt_fused: s_ntt is not 16-byte aligned")
     k, batch, n = c0.shape
     geo = decrypt_geometry(n, k, batch)
+    if geo.get("column"):
+        out = column_decrypt(c0, c1, s_ntt, tb, dc, geo)
+        decrypt_fused.launches += 1
+        return out
     out = torch.empty((batch, n), dtype=torch.int32, device=c0.device)
     scratch = scratch_for(geo, c0.device)
     p = _build.ptr
@@ -124,3 +140,26 @@ def decrypt_fused(c0: torch.Tensor, c1: torch.Tensor, s_ntt: torch.Tensor,
 
 
 decrypt_fused.launches = 0
+
+
+def column_decrypt(c0: torch.Tensor, c1: torch.Tensor, s_ntt: torch.Tensor, tb: NTTTables,
+                   dc: _rns.DecryptConsts, geo: dict) -> torch.Tensor:
+    """``decrypt_fused`` in the column form ``geo``: c1's column launch and
+    the block launch of NTT(c1) . s (csrc/ntt.cu), then csrc/decrypt.cu's
+    column launch (the last inverse stages of every prime, c0, the exact
+    scaling); returns [B, n]."""
+    name = "decrypt_fused"
+    k, batch, n = c0.shape
+    fwd = torch.empty((k, batch, n), dtype=torch.int32, device=c0.device)
+    column_forward(c1, (c1.stride(0), 0, c1.stride(1)), 1, fwd, 0, tb, geo, name)
+    rows = column_block_mul(fwd, s_ntt, tb, geo, name)
+    out = torch.empty((batch, n), dtype=torch.int32, device=c0.device)
+    p = _build.ptr
+    _build.launch(
+        _lib().fhe_decrypt_column, name, c0.device, p(rows), p(c0), c0.stride(0), c0.stride(1),
+        p(out), p(tb.p), p(tb.ipsi_br), p(tb.ipsi_br_shoup), p(tb.n_inv), p(tb.n_inv_shoup),
+        p(dc.gt_inv_phat), p(dc.gt_inv_phat_shoup), p(dc.phat_mod_t), p(dc.phat_shoup_t),
+        p(dc.phat_mod_g), dc.t, dc.gamma, dc.gamma_mu, dc.neg_inv_q_t, dc.neg_inv_q_t_shoup,
+        dc.neg_inv_q_g, dc.inv_gamma_t, dc.inv_gamma_t_shoup, dc.gamma_mod_t, dc.one_shoup_t,
+        k, batch, geo["logn"], geo["logb"], geo["logc"], geo["steps"][2]["threads"])
+    return out

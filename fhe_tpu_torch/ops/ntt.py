@@ -207,6 +207,115 @@ def ntt_inverse(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
             ).to(torch.int32)
 
 
+# The column form of the kernels (csrc/column.cuh) as a plain model of its
+# index maps: a row of n = 2^L as 2^s blocks of b = n / 2^s positions.  The
+# column launches run the stages that pair elements of different blocks on
+# the columns (element j = c + i b is element i of column c), the block
+# launches the rest on each block.  Every function below takes and returns
+# int64 [k, B, n] residues; their stages are ntt_forward's and
+# ntt_inverse's butterflies, so a chain of them gives those transforms' bits.
+
+def _stage(x: torch.Tensor, dim: int, w: torch.Tensor, tb: NTTTables,
+           inverse: bool) -> torch.Tensor:
+    """One radix-2 stage on x, its pairs along ``dim``, w broadcast against
+    either half: Cooley-Tukey (u + v w, u - v w) or Gentleman-Sande
+    (u + v, (u - v) w)."""
+    u, v = x.select(dim, 0), x.select(dim, 1)
+    p = _p(tb, u.dim())
+    if inverse:
+        pair = (mm.add_mod(u, v, p), (mm.sub_mod(u, v, p) * w) % p)
+    else:
+        v = (v * w) % p
+        pair = (mm.add_mod(u, v, p), mm.sub_mod(u, v, p))
+    return torch.stack(pair, dim=dim)
+
+
+def _block_twiddles(table: torch.Tensor, s: int, level: int) -> torch.Tensor:
+    """A block stage's twiddles, 2^level groups a block: group g of block h
+    at (2^s + h) 2^level + g (the row's stage, m = 2^(s + level), group
+    h 2^level + g), as [k, 1, 2^s, 2^level, 1]."""
+    h = torch.arange(1 << s, device=table.device)
+    idx = (((1 << s) + h)[:, None] << level) + torch.arange(1 << level, device=table.device)
+    return table[:, idx].to(torch.int64)[:, None, :, :, None]
+
+
+def column_forward_stages(x: torch.Tensor, tb: NTTTables, s: int) -> torch.Tensor:
+    """The forward's column launch: stage l < s pairs element i of each
+    column with i + 2^(s-1-l) under psi_br[2^l + g], g = i >> (s - l)."""
+    k, batch, n = x.shape
+    for l in range(s):
+        w = tb.psi_br[:, 1 << l:2 << l].to(torch.int64).view(k, 1, 1 << l, 1, 1)
+        x = _stage(x.reshape(k, batch, 1 << l, 2, 1 << (s - 1 - l), n >> s), 3, w, tb, False)
+    return x.reshape(k, batch, n)
+
+
+def block_forward_stages(x: torch.Tensor, tb: NTTTables, s: int) -> torch.Tensor:
+    """The forward's block launch: each block of n / 2^s positions through
+    the stages below the column ones, distance b/2 down to 1."""
+    k, batch, n = x.shape
+    blk = n >> s
+    for l in range(blk.bit_length() - 1):
+        x = _stage(x.reshape(k, batch, 1 << s, 1 << l, 2, blk >> (l + 1)), 4,
+                   _block_twiddles(tb.psi_br, s, l), tb, False)
+    return x.reshape(k, batch, n)
+
+
+def block_inverse_stages(x: torch.Tensor, tb: NTTTables, s: int) -> torch.Tensor:
+    """The inverse's block launch: each block through the inverse stages of
+    distance 1 up to b/2."""
+    k, batch, n = x.shape
+    logb = (n >> s).bit_length() - 1
+    for q in range(logb):
+        level = logb - 1 - q
+        x = _stage(x.reshape(k, batch, 1 << s, 1 << level, 2, 1 << q), 4,
+                   _block_twiddles(tb.ipsi_br, s, level), tb, True)
+    return x.reshape(k, batch, n)
+
+
+def column_inverse_stages(x: torch.Tensor, tb: NTTTables, s: int) -> torch.Tensor:
+    """The inverse's column launch: stage l < s pairs element i of each
+    column with i + 2^l under ipsi_br[2^(s-1-l) + g], g = i >> (l + 1);
+    then times n^-1."""
+    k, batch, n = x.shape
+    for l in range(s):
+        m = 1 << (s - 1 - l)
+        w = tb.ipsi_br[:, m:2 * m].to(torch.int64).view(k, 1, m, 1, 1)
+        x = _stage(x.reshape(k, batch, m, 2, 1 << l, n >> s), 3, w, tb, True)
+    return (x.reshape(k, batch, n) * tb.n_inv.to(torch.int64).view(k, 1, 1)) % _p(tb, 3)
+
+
+def ntt_forward_columns(a: torch.Tensor, tb: NTTTables, s: int) -> torch.Tensor:
+    """``ntt_forward`` of [k, batch, n] as the column form runs it with s
+    column stages: the column launch, then the block launch."""
+    x = column_forward_stages(a.to(torch.int64), tb, s)
+    return block_forward_stages(x, tb, s).to(torch.int32)
+
+
+def ntt_inverse_columns(a: torch.Tensor, tb: NTTTables, s: int) -> torch.Tensor:
+    """``ntt_inverse`` of [k, batch, n] as the column form runs it: the
+    block launch, then the column launch."""
+    x = block_inverse_stages(a.to(torch.int64), tb, s)
+    return column_inverse_stages(x, tb, s).to(torch.int32)
+
+
+def keyswitch_columns(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables,
+                      s: int) -> torch.Tensor:
+    """keyswitch_fused_batch's classic lane as its column form chains it:
+    the column launch (each digit [kd, B, n] reduced mod p_i, its column
+    stages), the block launch (each digit's block stages, the sums of
+    digit x key[i, j, c] for c = 0, 1, their block inverse stages) and the
+    inverse column launch; returns [k, 2, B, n]."""
+    k, kd, _, n = keys_t.shape
+    batch = d.shape[-2]
+    dr = torch.remainder(d.to(torch.int64)[None], _p(tb, 4)).reshape(k, kd * batch, n)
+    f = block_forward_stages(column_forward_stages(dr, tb, s), tb, s)
+    prod = mm.mul_mod(f.view(k, kd, 1, batch, n), keys_t[:, :, :, None].to(torch.int64),
+                      _p(tb, 5))
+    acc = torch.remainder(prod.sum(1), _p(tb, 4)).reshape(k, 2 * batch, n)
+    out = column_inverse_stages(block_inverse_stages(acc, tb, s), tb, s)
+    return out.view(k, 2, batch, n).to(torch.int32)
+
+
 def pointwise_mul(a: torch.Tensor, b: torch.Tensor,
                   tb: NTTTables) -> torch.Tensor:
     """Hadamard product of [k, ..., n] NTT-domain residues."""

@@ -9,7 +9,8 @@ q -> Bsk, rns_pallas.py's ``sm_mrq_fused``, folded in), ``keyswitch_fused``
 each with its ``prereduced`` and Galois lanes), ``ks_inner_batch`` and
 ``ks_inner_grouped`` (each with its Galois lane) launch the hand-written
 CUDA kernels of ``csrc/ntt.cu`` (design and bound: the note at the top of
-that file; their launch shapes, all thread-block clusters:
+that file; their launch shapes, thread-block clusters up to n = 131072 and
+from n = 262144 the column form's chains of plain launches, csrc/column.cuh:
 ``ntt_forward_geometry``, ``ntt_inverse_geometry``,
 ``mul_by_ntt_operand_geometry``, ``tensor_product_geometry``,
 ``keyswitch_geometry`` and ``ks_inner_geometry``) for CUDA tensors and use
@@ -31,6 +32,7 @@ as uint32.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -68,9 +70,23 @@ def _lib() -> ctypes.CDLL:
                                   + [_I, _P, _I, _P])
     lib.fhe_ks_inner.argtypes = ([_P] + [_L] * 3 + [_I] + [_P] + [_L] * 3 + [_I]
                                  + [_P] * 7 + [_I] * 8 + [_P] * 3 + [_L] * 2 + [_I, _P])
+    lib.fhe_column_forward.argtypes = [_I, _P] + [_L] * 3 + [_I, _P, _I, _I] + [_P] * 4 \
+        + [_I] * 6 + [ctypes.c_uint, _P]
+    lib.fhe_column_inverse.argtypes = [_P, _P, _I] + [_P] * 5 + [_I] * 6 \
+        + [_P, ctypes.c_uint, _I, _P, _L, _L, _I, _P]
+    lib.fhe_block_forward.argtypes = [_P] * 4 + [_I] * 6 + [_P]
+    lib.fhe_block_inverse.argtypes = [_P, _I] + [_P] * 4 + [_I] * 6 + [_P]
+    lib.fhe_block_mul.argtypes = [_P] * 9 + [_I] * 7 + [_P]
+    lib.fhe_block_product.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+    lib.fhe_block_keyswitch.argtypes = [_P, _P, _L, _L] + [_P] * 7 + [_I] * 7 + [_P]
+    lib.fhe_block_inner.argtypes = ([_I, _P] + [_L] * 3 + [_I, _P] + [_L] * 3 + [_I]
+                                    + [_P] * 5 + [_I] * 8 + [_P] * 2)
     for f in (lib.fhe_ntt_forward, lib.fhe_ntt_inverse,
               lib.fhe_mul_by_ntt_operand, lib.fhe_tensor_product,
-              lib.fhe_keyswitch, lib.fhe_ks_inner):
+              lib.fhe_keyswitch, lib.fhe_ks_inner, lib.fhe_column_forward,
+              lib.fhe_column_inverse, lib.fhe_block_forward, lib.fhe_block_inverse,
+              lib.fhe_block_mul, lib.fhe_block_product, lib.fhe_block_keyswitch,
+              lib.fhe_block_inner):
         f.restype = ctypes.c_int
     return lib
 
@@ -122,8 +138,10 @@ def row_bytes(n: int, padded: bool = False) -> int:
 def fit_smem(n: int, name: str, *layouts: int) -> tuple[int, int]:
     """The first of a kernel's shared-memory ``layouts`` (bytes per block,
     in its order of preference) that fits a block, as (index, bytes); raise,
-    naming the function and n, where none does (n = 262144: even the
-    quarter split's padded quarter row takes 264 KB)."""
+    naming the function and n, where none does (the geometries take the
+    column form before that, where not even the quarter split's padded
+    quarter row fits: n >= 262144; only B4's Lift lane, n < 1024, has no
+    column form)."""
     for i, nbytes in enumerate(layouts):
         if nbytes <= MAX_SMEM:
             return i, nbytes
@@ -178,7 +196,8 @@ def split_row_smem(n: int, name: str, *full: int) -> tuple[int, int]:
     ``full`` layouts (bytes, in its order of preference; a pair of CTAs a
     row) that fits a block, else the compact split's padded 1/H row for the
     smallest H of COMPACT_SPLITS that fits; as (bytes, H), H = 0 for a full
-    layout.  Raise, naming the function, where nothing fits (n = 262144)."""
+    layout.  Raise, naming the function, where nothing fits (the callers
+    take the column form there first, ``column_form``)."""
     shares = [row_bytes(n // h, padded=True) for h in COMPACT_SPLITS]
     layout, smem = fit_smem(n, name, *full, *shares)
     return smem, 0 if layout < len(full) else COMPACT_SPLITS[layout - len(full)]
@@ -197,7 +216,12 @@ def ntt_forward_geometry(n: int, k: int, batch: int = 1,
     grid x; H = 2 and one padded row of shared memory per CTA, or where that
     does not fit a block (n = 65536) the ``compact`` split, a padded half
     row each, and where that does not fit either (n = 131072) H = 4, a
-    padded quarter row each.  Raise where nothing fits the card."""
+    padded quarter row each.  Where not even that fits (n >= 262144), or
+    inside ``forced_form("column")``, the column form (``column_geometry``): a column
+    launch into the output and a block launch in place.  Raise where
+    nothing fits the card."""
+    if column_form(n):
+        return column_geometry(n, k, name, (("column", batch), ("forward", batch)), 0)
     smem, split = split_row_smem(n, name, row_bytes(n, padded=True))
     h = split or ROW_SPLIT
     if not 1 <= h * batch <= MAX_GRID_X:
@@ -210,8 +234,12 @@ def ntt_forward_geometry(n: int, k: int, batch: int = 1,
 def ntt_inverse_geometry(n: int, k: int, batch: int = 1) -> dict:
     """Launch shape of ``ntt_inverse`` for [k, batch, n]: ntt_forward's, the
     mirror transform (a cluster of H CTAs per (row, prime), one padded row
-    each, or the compact split's half or quarter row).  Raise where nothing
-    fits the card."""
+    each, or the compact split's half or quarter row); in the column form a
+    block launch into k B n words of scratch, then a column launch.  Raise
+    where nothing fits the card."""
+    if column_form(n):
+        return column_geometry(n, k, "ntt_inverse", (("inverse", batch), ("column", batch)),
+                               k * batch * n)
     return ntt_forward_geometry(n, k, batch, "ntt_inverse")
 
 
@@ -236,9 +264,15 @@ def ks_inner_geometry(n: int, k: int, batch: int = 1,
     staged behind it where both fit a block (n <= 16384; ``stage_c0``), else
     c0 is read in place; where one padded row does not fit (n = 65536), the
     ``compact`` split's padded half row, and at n = 131072 H = 4, a padded
-    quarter row each.  Raise where nothing fits the card."""
+    quarter row each; at n >= 262144 (or inside ``forced_form("column")``) the column
+    form: a block launch (the inner products and the block's inverse
+    stages) into 2 k B n words of scratch and a column launch (with ``c0``
+    the add of phi(c0)).  Raise where nothing fits the card."""
     if not 1 <= 2 * batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y // 2}")
+    if column_form(n):
+        return column_geometry(n, k, name, (("inner", 2 * batch), ("column", 2 * batch)),
+                               2 * k * batch * n)
     staged = (staged_bytes(n, _padded(n)),) if c0 else ()
     smem, split = split_row_smem(n, name, *staged, row_bytes(n, padded=True))
     h = split or ROW_SPLIT
@@ -264,12 +298,20 @@ def keyswitch_geometry(n: int, k: int, kd: int, batch: int = 1,
     and the Galois lane's rows read in place; where the working row does
     not fit either (n = 65536), the wide form on the ``compact`` split, a
     padded half row per CTA; at n = 131072 on the quarter split, H = 4 and
-    R = 2 digit groups (a cluster of 8), a padded quarter row per CTA.
-    Raise where nothing fits the card."""
+    R = 2 digit groups (a cluster of 8), a padded quarter row per CTA.  At
+    n >= 262144 (or inside ``forced_form("column")``) the column form: the digits' column
+    launch into k kd B n words of scratch (the whole [k, kd, B, n] stack:
+    2.8 GB at n = 262144, k = kd = 52), the block launch (each digit's
+    forward stages times its keys, summed in two partial rows; their
+    inverse stages) into 2 k B n more, and the column launch (the Galois
+    lane's add of phi(c0)).  Raise where nothing fits the card."""
     if kd < 1:
         raise ValueError(f"{name}: kd={kd}, expected at least one digit")
     if not 1 <= batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y}")
+    if column_form(n):
+        return column_geometry(n, k, name, (("column", kd * batch), ("keyswitch", batch),
+                                            ("column", 2 * batch)), k * (kd + 2) * batch * n)
     rows = 2 * _padded(n)
     smem, split = split_row_smem(n, name, staged_bytes(n, rows) if galois else 4 * rows,
                                  row_bytes(n, padded=True))
@@ -291,12 +333,17 @@ def mul_by_ntt_operand_geometry(n: int, k: int, c: int, batch: int = 1) -> dict:
     forward transform, product and inverse transform; H = 2 and one padded
     row of shared memory per CTA, or at n = 65536 the ``compact`` split's
     half row (all a CTA keeps of NTT(u) between the transforms), and at
-    n = 131072 H = 4, a padded quarter row each.  Raise where nothing fits
-    the card."""
+    n = 131072 H = 4, a padded quarter row each; at n >= 262144 (or inside
+    ``forced_form("column")``) the column form: u's column launch, the block launch
+    (forward stages, times w, inverse stages) and the column launch, with
+    k (1 + c) B n words of scratch.  Raise where nothing fits the card."""
     name = "mul_by_ntt_operand"
     if not 1 <= c * batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: {c} operand rows x batch {batch} outside "
                          f"1..{MAX_GRID_Y}")
+    if column_form(n):
+        return column_geometry(n, k, name, (("column", batch), ("mul", c * batch),
+                                            ("column", c * batch)), k * (1 + c) * batch * n)
     smem, split = split_row_smem(n, name, row_bytes(n, padded=True))
     h = split or ROW_SPLIT
     return {"grid": (h, c * batch, k), "cluster": (h, 1, 1),
@@ -326,10 +373,18 @@ def tensor_product_geometry(n: int, k: int, batch: int = 1,
     four input rows in two forward rounds and the three product rows in two
     inverse rounds, with the same scratch.  The Lift lane (``lift``) has a
     thread per coefficient of the CTA's half row, up to LIFT_THREADS, for
-    the lift before the first pass, and none of these forms.  Raise where
-    nothing fits the card."""
+    the lift before the first pass, and none of these forms.  At
+    n >= 262144 (or inside ``forced_form("column")``) the column form: x's and y's column
+    launches into one [k, 4, B, n], the block launch (the four rows' forward
+    stages, the three product rows, their inverse stages) and the column
+    launch, with 7 k B n words of scratch; no cluster.  Raise where nothing
+    fits the card."""
     if not 1 <= batch <= MAX_GRID_Y:
         raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_Y}")
+    if not lift and column_form(n):
+        return column_geometry(n, k, name, (("column", 2 * batch), ("column", 2 * batch),
+                                            ("product", batch), ("column", 3 * batch)),
+                               7 * k * batch * n)
     forms = (() if lift else (row_bytes(n, True) + row_bytes(n // ROW_SPLIT, True),
                               *(row_bytes(n // h, True) for h in COMPACT_SPLITS)))
     layout, smem = fit_smem(n, name, 2 * row_bytes(n, padded=True), *forms)
@@ -362,6 +417,264 @@ def scratch_for(geo: dict, device) -> torch.Tensor | None:
     return torch.empty(geo["scratch"], dtype=torch.int32, device=device)
 
 
+# The column form (csrc/column.cuh): where no share of a row that a cluster
+# splits fits a block (n >= 262144: even a padded quarter row takes 264 KB),
+# each cluster kernel runs as a chain of ordinary launches that meet in
+# global memory: column launches, each CTA a tile of 2^COLUMN_TILE_LOG words
+# (adjacent columns of the top stages), COLUMN_THREADS threads; block
+# launches, each CTA a block of b = 2^COLUMN_BLOCK_LOG positions (n/2 below
+# n = 16384) through the stages inside it and the kernel's body.  The
+# block rows each block launch keeps in shared memory: padded, and
+# unpadded (keyswitch_fused's partial sums).
+COLUMN_BLOCK_LOG = 13
+COLUMN_TILE_LOG = 13
+COLUMN_THREADS = 256
+COLUMN_BLOCK_ROWS = {"forward": (1, 0), "inverse": (1, 0), "mul": (1, 0), "product": (4, 0),
+                     "keyswitch": (1, 2), "inner": (1, 0)}
+# the forms a geometry may be forced to take: its own choice (None) or the
+# column form; chip_smoke.py forces the column form where the cluster forms
+# run too, to hold the two against each other (the package never does)
+FORMS = (None, "column")
+_FORCED_FORM = [None]
+
+
+@contextlib.contextmanager
+def forced_form(form: str | None):
+    """Inside the block, every geometry takes ``form``, so the wrappers
+    launch that form (chip_smoke.py's comparison of the column form with
+    the cluster forms at n = 8192 and 131072); the form before is restored
+    on leaving it."""
+    if form not in FORMS:
+        raise ValueError(f"forced_form: {form!r}, expected one of {FORMS}")
+    before, _FORCED_FORM[0] = _FORCED_FORM[0], form
+    try:
+        yield
+    finally:
+        _FORCED_FORM[0] = before
+
+
+def column_form(n: int) -> bool:
+    """True where a cluster kernel runs in the column form: forced
+    (``forced_form``), or where not even the quarter split's padded
+    quarter row fits a block (n >= 262144)."""
+    return (_FORCED_FORM[0] == "column"
+            or row_bytes(n // COMPACT_SPLITS[-1], padded=True) > MAX_SMEM)
+
+
+def column_geometry(n: int, k: int, name: str, steps, scratch: int) -> dict:
+    """Launch shape of a kernel's column form at n over k primes: for each
+    of ``steps`` ((kind, rows per prime), in launch order; kind "column", or
+    "decrypt" for decrypt_fused's column launch, which keeps its two
+    accumulators beside the tile, or a block kind of COLUMN_BLOCK_ROWS) its
+    grid (tiles or blocks, rows, k), threads and shared memory; the block b,
+    the s column stages and the tile's 2^logc columns; ``scratch`` words of
+    rows between the launches.  Raise where the tile holds fewer than a
+    warp of columns (s > 8, past every ring the params take) or a grid's y
+    extent is exceeded."""
+    logn = log2_exact(n)
+    logb = min(COLUMN_BLOCK_LOG, logn - 1)
+    s = logn - logb
+    logc = min(logb, COLUMN_TILE_LOG - s)
+    if logb <= REG_LOG or logc < 5:
+        raise ValueError(f"{name}: n={n} has no column form")
+    tile = 4 << (s + logc)
+    launches = []
+    for kind, rows in steps:
+        if not 1 <= rows <= MAX_GRID_Y:
+            raise ValueError(f"{name}: {rows} rows per prime outside 1..{MAX_GRID_Y}")
+        if kind == "decrypt":       # one CTA per tile and row, every prime in turn
+            launches.append({"kind": kind, "grid": (1 << (logb - logc), rows),
+                             "threads": COLUMN_THREADS, "smem": 3 * tile})
+        elif kind == "column":
+            launches.append({"kind": kind, "grid": (1 << (logb - logc), rows, k),
+                             "threads": COLUMN_THREADS, "smem": tile})
+        else:
+            padded_rows, rows_plain = COLUMN_BLOCK_ROWS[kind]
+            launches.append({"kind": kind, "grid": (n >> logb, rows, k),
+                             "threads": regs_threads(1 << logb, name),
+                             "smem": padded_rows * row_bytes(1 << logb, padded=True)
+                             + rows_plain * row_bytes(1 << logb)})
+    smem = max(step["smem"] for step in launches)
+    if smem > MAX_SMEM:
+        raise ValueError(f"{name}: the column form at n={n} needs {smem} bytes of shared "
+                         "memory per block")
+    return {"column": True, "block": 1 << logb, "column_stages": s, "tile_columns": 1 << logc,
+            "logn": logn, "logb": logb, "logc": logc, "launches": len(launches),
+            "steps": tuple(launches), "smem": smem, "scratch": scratch}
+
+
+def _step(geo: dict, i: int) -> tuple[int, int]:
+    """(threads, smem) of launch i of a column form."""
+    return geo["steps"][i]["threads"], geo["steps"][i]["smem"]
+
+
+def column_forward(x: torch.Tensor, strides, comps: int, y: torch.Tensor, y_off: int,
+                   tb: NTTTables, geo: dict, name: str, lane: int = 0, h_gal: int = 0,
+                   step: int = 0) -> None:
+    """The forward's column launch ``step`` of a column form: row (i, c, b) of
+    x (element j at i * sp + c * sc + b * sb + j, ``strides`` = (sp, sc,
+    sb)), c < comps, through the top forward stages into row (i, y_off + c,
+    b) of y [k, C, B, n] (or [k, B, n]).  lane: 0 as it is, 1 reduced mod
+    p_i (keyswitch_fused's classic digits), 2 Galois (digit c at phi's
+    source, h_gal = g^-1 mod 2n, then reduced)."""
+    batch = y.shape[-2]
+    y_comps = y.shape[1] if y.dim() == 4 else 1
+    p = _build.ptr
+    _build.launch(_lib().fhe_column_forward, name, y.device, lane, p(x), *strides, comps, p(y),
+                  y_comps, y_off, p(tb.p), p(tb.mu), p(tb.psi_br), p(tb.psi_br_shoup), tb.k,
+                  batch, geo["logn"], geo["logb"], geo["logc"], _step(geo, step)[0], h_gal)
+
+
+def column_inverse(x: torch.Tensor, tb: NTTTables, geo: dict, name: str, step: int,
+                   galois: tuple | None = None) -> torch.Tensor:
+    """The inverse's column launch ``step``: x [k, C, B, n] (the block
+    launch's rows) through the last inverse stages, times n^-1, into a new
+    [k, C, B, n].  ``galois`` = (hs, h_gal, h_mod, c0, c0_sp, c0_sb, c0_div):
+    row 0 of element b plus phi_h(c0 of b / c0_div), h = hs[b % h_mod] (hs
+    a tensor, or None for h_gal)."""
+    k, comps, batch, _ = x.shape
+    out = torch.empty_like(x)
+    p = _build.ptr
+    if galois is None:
+        gal = (None, 0, 1, None, 0, 0, 1)
+    else:
+        hs, h_gal, h_mod, c0, c0_sp, c0_sb, c0_div = galois
+        gal = (None if hs is None else p(hs), h_gal, h_mod, p(c0), c0_sp, c0_sb, c0_div)
+    _build.launch(_lib().fhe_column_inverse, name, x.device, p(x), p(out), comps, p(tb.p),
+                  p(tb.ipsi_br), p(tb.ipsi_br_shoup), p(tb.n_inv), p(tb.n_inv_shoup), k, batch,
+                  geo["logn"], geo["logb"], geo["logc"], _step(geo, step)[0], *gal)
+    return out
+
+
+def _block_args(geo: dict, step: int, k: int, batch: int) -> tuple:
+    """(k, batch, log n, log b, threads, smem) of block launch ``step``."""
+    return (k, batch, geo["logn"], geo["logb"], *_step(geo, step))
+
+
+def column_ntt_forward(a: torch.Tensor, tb: NTTTables, geo: dict) -> torch.Tensor:
+    """``ntt_forward`` of a contiguous [k, B, n] in the column form ``geo``
+    (``ntt_forward_geometry``): the column launch into the output, then the
+    block launch in place."""
+    k, batch, _ = a.shape
+    out = torch.empty_like(a)
+    column_forward(a, (a.stride(0), 0, a.stride(1)), 1, out, 0, tb, geo, "ntt_forward")
+    p = _build.ptr
+    _build.launch(_lib().fhe_block_forward, "ntt_forward", a.device, p(out), p(tb.p),
+                  p(tb.psi_br), p(tb.psi_br_shoup), *_block_args(geo, 1, k, batch))
+    return out
+
+
+def column_ntt_inverse(a: torch.Tensor, tb: NTTTables, geo: dict) -> torch.Tensor:
+    """``ntt_inverse`` of a contiguous [k, B, n] in the column form: the
+    block launch into scratch (16-byte loads where a is aligned), then the
+    column launch."""
+    k, batch, n = a.shape
+    rows = torch.empty((k, 1, batch, n), dtype=torch.int32, device=a.device)
+    p = _build.ptr
+    _build.launch(_lib().fhe_block_inverse, "ntt_inverse", a.device, p(a), int(aligned(a)),
+                  p(rows), p(tb.p), p(tb.ipsi_br), p(tb.ipsi_br_shoup),
+                  *_block_args(geo, 0, k, batch))
+    return column_inverse(rows, tb, geo, "ntt_inverse", 1)[:, 0]
+
+
+def column_mul_by_ntt_operand(u: torch.Tensor, w_ntt: torch.Tensor, tb: NTTTables, geo: dict,
+                              name: str = "mul_by_ntt_operand") -> torch.Tensor:
+    """``mul_by_ntt_operand(_batch)``'s launch in the column form: u [k, B,
+    n] (rows of n contiguous) through the column launch, the block launch
+    (forward stages, times w [k, c, n], inverse stages) and the column
+    launch; returns [k, c, B, n]."""
+    fwd = torch.empty(u.shape, dtype=torch.int32, device=u.device)
+    column_forward(u, (u.stride(0), 0, u.stride(1)), 1, fwd, 0, tb, geo, name)
+    return column_inverse(column_block_mul(fwd, w_ntt, tb, geo, name), tb, geo, name, 2)
+
+
+def column_block_mul(fwd: torch.Tensor, w_ntt: torch.Tensor, tb: NTTTables, geo: dict,
+                     name: str) -> torch.Tensor:
+    """The block launch (step 1) of a column form's product with an NTT-form
+    operand (B3's, and B8's with w = s): fwd [k, B, n] after its column
+    launch -> the block stages of fwd . w_c, [k, c, B, n]."""
+    k, batch, n = fwd.shape
+    c = w_ntt.shape[1]
+    rows = torch.empty((k, c, batch, n), dtype=torch.int32, device=fwd.device)
+    p = _build.ptr
+    _build.launch(_lib().fhe_block_mul, name, fwd.device, p(fwd), p(w_ntt), p(rows),
+                  *table_ptrs(tb)[:6], k, c, batch, geo["logn"], geo["logb"], *_step(geo, 1))
+    return rows
+
+
+def column_product(x: torch.Tensor, y: torch.Tensor, tb: NTTTables, geo: dict,
+                   name: str) -> torch.Tensor:
+    """The cluster tensor product's launch in the column form: x, y [k, 2,
+    B, n] with equal strides through two column launches (x's rows and y's)
+    into one [k, 4, B, n], the block launch (``column_block_product``) and
+    the column launch; returns [k, 3, B, n]."""
+    k, _, batch, n = x.shape
+    fwd = torch.empty((k, 4, batch, n), dtype=torch.int32, device=x.device)
+    for off, z in ((0, x), (2, y)):
+        column_forward(z, z.stride()[:3], 2, fwd, off, tb, geo, name, step=off // 2)
+    return column_inverse(column_block_product(fwd, tb, geo, name, 2), tb, geo, name, 3)
+
+
+def column_block_product(fwd: torch.Tensor, tb: NTTTables, geo: dict, name: str,
+                         step: int) -> torch.Tensor:
+    """The block launch ``step`` of a column-form tensor product (B4's, and
+    B5's on the Bsk tables): fwd [k, 4, B, n] after its column launches ->
+    the block stages of the product rows, [k, 3, B, n]."""
+    k, _, batch, n = fwd.shape
+    rows = torch.empty((k, 3, batch, n), dtype=torch.int32, device=fwd.device)
+    p = _build.ptr
+    _build.launch(_lib().fhe_block_product, name, fwd.device, p(fwd), p(rows),
+                  *table_ptrs(tb)[:6], *_block_args(geo, step, k, batch))
+    return rows
+
+
+def column_keyswitch(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables, lane: int,
+                     geo: dict, name: str, g: int = 0,
+                     c0: torch.Tensor | None = None) -> torch.Tensor:
+    """``_keyswitch_launch`` in the column form: the digits' column launch
+    (lane 0 classic: reduced mod p_i; 1 prereduced: as they are; 2 Galois:
+    gathered by phi_g, then reduced) into [k, kd, B, n], the block launch
+    (each digit's forward stages times its two key rows, summed; the two
+    sums' inverse stages) and the column launch (Galois: plus phi_g(c0) on
+    row 0); returns [k, 2, B, n]."""
+    kd, batch, n = d.shape[-3:]
+    k = tb.k
+    h = pow(g, -1, 2 * n) if lane == 2 else 0
+    d_sp = d.stride(0) if lane == 1 else 0
+    fwd = torch.empty((k, kd, batch, n), dtype=torch.int32, device=d.device)
+    column_forward(d, (d_sp, d.stride(-3), d.stride(-2)), kd, fwd, 0, tb, geo, name,
+                   lane=(1, 0, 2)[lane], h_gal=h)
+    rows = torch.empty((k, 2, batch, n), dtype=torch.int32, device=d.device)
+    p = _build.ptr
+    _build.launch(_lib().fhe_block_keyswitch, name, d.device, p(fwd), p(keys_t),
+                  keys_t.stride(0), keys_t.stride(1), p(rows), *table_ptrs(tb)[:6], k, kd,
+                  batch, geo["logn"], geo["logb"], *_step(geo, 1))
+    galois = (None, h, 1, c0, c0.stride(0), c0.stride(1), 1) if lane == 2 else None
+    return column_inverse(rows, tb, geo, name, 2, galois)
+
+
+def column_ks_inner(dg: torch.Tensor, keys: torch.Tensor, tb: NTTTables, batch: int,
+                    dg_div: int, key_mod: int, geo: dict, name: str, vec: bool,
+                    galois: tuple | None = None) -> torch.Tensor:
+    """``_ks_inner_launch`` in the column form: the block launch (each
+    element's inner products, gathered by its automorphism in the Galois
+    lane, through the block's inverse stages) and the column launch (Galois:
+    plus phi(c0) on row 0).  galois = (gs, hs, c0, c0_sp, c0_ss)."""
+    k, kd, n = tb.k, dg.shape[1], tb.n
+    dg_sb = dg.stride(2) if dg.shape[2] > 1 else 0
+    rows = torch.empty((k, 2, batch, n), dtype=torch.int32, device=dg.device)
+    p = _build.ptr
+    _build.launch(_lib().fhe_block_inner, name, dg.device, int(galois is not None), p(dg),
+                  dg.stride(0), dg.stride(1), dg_sb, dg_div, p(keys), keys.stride(0),
+                  keys.stride(1), keys.stride(2), key_mod, p(rows), p(tb.p), p(tb.mu),
+                  p(tb.ipsi_br), p(tb.ipsi_br_shoup), k, kd, batch, geo["logn"], geo["logb"],
+                  *_step(geo, 0), int(vec), None if galois is None else p(galois[0]))
+    if galois is None:
+        return column_inverse(rows, tb, geo, name, 1)
+    _, hs, c0, c0_sp, c0_ss = galois
+    return column_inverse(rows, tb, geo, name, 1, (hs, 0, key_mod, c0, c0_sp, c0_ss, dg_div))
+
+
 def check_barrett(tb: NTTTables, name: str) -> None:
     """Raise unless every prime of tb is a 30-bit prime (mu != 0), as the
     kernels' Barrett products need."""
@@ -383,18 +696,21 @@ def table_ptrs(tb: NTTTables) -> list:
 def ntt_forward(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
     """[k, batch, n] forward NTT, natural -> bit-reversed order.  Any prime
     below 2^31 (Shoup twiddles: the q primes and the plaintext modulus t);
-    on the card 32 <= n <= 131072 (``ntt_forward_geometry``)."""
+    on the card n >= 32 (``ntt_forward_geometry``)."""
     check_residues(a, tb, "ntt_forward")
     if not on_card(a, "ntt_forward"):
         return _ntt.ntt_forward(a, tb)
     k, batch, n = a.shape
     geo = ntt_forward_geometry(n, k, batch)
     check_aligned_tables(tb, "ntt_forward")
-    out = torch.empty_like(a)
-    p = _build.ptr
-    _build.launch(_lib().fhe_ntt_forward, "ntt_forward", a.device,
-                  p(a), p(out), p(tb.p), p(tb.psi_br), p(tb.psi_br_shoup),
-                  k, batch, log2_exact(n), geo["threads"], geo["smem"], compact_arg(geo))
+    if geo.get("column"):
+        out = column_ntt_forward(a, tb, geo)
+    else:
+        out = torch.empty_like(a)
+        p = _build.ptr
+        _build.launch(_lib().fhe_ntt_forward, "ntt_forward", a.device,
+                      p(a), p(out), p(tb.p), p(tb.psi_br), p(tb.psi_br_shoup),
+                      k, batch, log2_exact(n), geo["threads"], geo["smem"], compact_arg(geo))
     ntt_forward.launches += 1
     return out
 
@@ -412,7 +728,7 @@ def aligned(x: torch.Tensor, *strides: int) -> bool:
 
 def ntt_inverse(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
     """[k, batch, n] inverse NTT, bit-reversed -> natural order, times n^-1.
-    Any prime below 2^31, as ``ntt_forward``; on the card 32 <= n <= 131072
+    Any prime below 2^31, as ``ntt_forward``; on the card n >= 32
     (``ntt_inverse_geometry``).  An input that does not start 16-byte
     aligned is read a word at a time."""
     check_residues(a, tb, "ntt_inverse")
@@ -421,12 +737,15 @@ def ntt_inverse(a: torch.Tensor, tb: NTTTables) -> torch.Tensor:
     k, batch, n = a.shape
     geo = ntt_inverse_geometry(n, k, batch)
     check_aligned_tables(tb, "ntt_inverse")
-    out = torch.empty_like(a)
-    p = _build.ptr
-    _build.launch(_lib().fhe_ntt_inverse, "ntt_inverse", a.device,
-                  p(a), p(out), p(tb.p), p(tb.ipsi_br), p(tb.ipsi_br_shoup),
-                  p(tb.n_inv), p(tb.n_inv_shoup), k, batch, log2_exact(n),
-                  geo["threads"], geo["smem"], int(aligned(a)), compact_arg(geo))
+    if geo.get("column"):
+        out = column_ntt_inverse(a, tb, geo)
+    else:
+        out = torch.empty_like(a)
+        p = _build.ptr
+        _build.launch(_lib().fhe_ntt_inverse, "ntt_inverse", a.device,
+                      p(a), p(out), p(tb.p), p(tb.ipsi_br), p(tb.ipsi_br_shoup),
+                      p(tb.n_inv), p(tb.n_inv_shoup), k, batch, log2_exact(n),
+                      geo["threads"], geo["smem"], int(aligned(a)), compact_arg(geo))
     ntt_inverse.launches += 1
     return out
 
@@ -467,6 +786,8 @@ def _mul_by_ntt_operand_launch(u: torch.Tensor, w_ntt: torch.Tensor,
     k, batch, n = u.shape
     c = w_ntt.shape[1]
     geo = mul_by_ntt_operand_geometry(n, k, c, batch)
+    if geo.get("column"):
+        return column_mul_by_ntt_operand(u, w_ntt, tb, geo, name)
     out = torch.empty((k, c, batch, n), dtype=torch.int32, device=u.device)
     p = _build.ptr
     _build.launch(_lib().fhe_mul_by_ntt_operand, name, u.device, p(u),
@@ -545,6 +866,8 @@ def _tensor_product_launch(x: torch.Tensor, y: torch.Tensor, tb: NTTTables,
     _, _, batch, n = x.shape
     k = sum(t.k for t in tabs)
     geo = tensor_product_geometry(n, k, batch, name, lift=lift is not None)
+    if geo.get("column"):
+        return column_product(x, y, tb, geo, name)
     out = torch.empty((k, 3, batch, n), dtype=torch.int32, device=x.device)
     scratch = scratch_for(geo, x.device)
     p = _build.ptr
@@ -570,7 +893,7 @@ def tensor_product(x: torch.Tensor, y: torch.Tensor, tb: NTTTables, lift=None):
     """(x0*y0, x0*y1 + x1*y0, x1*y1) of two [k, 2, n] coefficient-domain
     ciphertext halves; returns [k, 3, n].  With the multiply's tables
     (``ntt.build_mul_tables``) the result is t times the product.  Every
-    prime must be a 30-bit prime (Barrett); on the card 32 <= n <= 131072
+    prime must be a 30-bit prime (Barrett); on the card n >= 32
     (``tensor_product_geometry``).  x and y may be
     views with rows of n contiguous and equal strides (the halves of a
     lifted [k, 4, n] tensor: the kernel reads them in place).
@@ -698,6 +1021,8 @@ def _keyswitch_launch(d: torch.Tensor, keys_t: torch.Tensor, tb: NTTTables,
     geo = keyswitch_geometry(n, tb.k, kd, batch, name, galois=lane == 2)
     if keys_t.data_ptr() % 16 or keys_t.stride(0) % 4 or keys_t.stride(1) % 4:
         raise ValueError(f"{name}: keys_t rows are not 16-byte aligned")
+    if geo.get("column"):
+        return column_keyswitch(d, keys_t, tb, lane, geo, name, g, c0)
     out = torch.empty((tb.k, 2, batch, n), dtype=torch.int32, device=d.device)
     d_sp = d.stride(0) if lane == 1 else 0
     if lane == 2:
@@ -847,9 +1172,14 @@ def _ks_inner_launch(dg: torch.Tensor, keys: torch.Tensor, tb: NTTTables,
     if elements is not None:
         gs, hs = _galois_operands(elements, n, dg.device)
         c0_ss = c0.stride(1) if c0.dim() == 3 and c0.shape[1] > 1 else 0
+        if geo.get("column"):
+            return column_ks_inner(dg, keys, tb, batch, dg_div, key_mod, geo, name, vec,
+                                   (gs, hs, c0, c0.stride(0), c0_ss))
         if geo["stage_c0"]:
             vec = vec and aligned(c0, c0.stride(0), c0_ss)
         galois_args = (1 if geo["stage_c0"] else 2, p(gs), p(hs), p(c0), c0.stride(0), c0_ss)
+    elif geo.get("column"):
+        return column_ks_inner(dg, keys, tb, batch, dg_div, key_mod, geo, name, vec)
     else:
         galois_args = (0, None, None, None, 0, 0)
     _build.launch(_lib().fhe_ks_inner, name, dg.device, p(dg), dg.stride(0),
@@ -890,7 +1220,7 @@ def ks_inner_batch(dg: torch.Tensor, keys: torch.Tensor,
     keys: [k, kd, B, 2, n] per-element NTT-form keys, each [2, n] block
           contiguous
     Returns [k, 2, B, n]; every prime must be a 30-bit prime (Barrett); on
-    the card 32 <= n <= 65536 (``ks_inner_geometry``).
+    the card n >= 32 (``ks_inner_geometry``).
 
     With the B Galois ``elements`` of the key sets and c0 ([k, n] shared,
     or [k, B, n]), the Galois lane: keys pre-permuted as

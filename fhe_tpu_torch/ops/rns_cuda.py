@@ -23,9 +23,9 @@ import torch
 from . import _build
 from . import rns as _rns
 from .ntt import NTTTables
-from .ntt_cuda import (check_aligned_tables, check_barrett, check_views,
-                       log2_exact, on_card, product_form, scratch_for, table_ptrs,
-                       tensor_product_geometry)
+from .ntt_cuda import (check_aligned_tables, check_barrett, check_views, column_block_product,
+                       column_form, column_geometry, log2_exact, on_card,
+                       product_form, scratch_for, table_ptrs, tensor_product_geometry)
 
 _P = ctypes.c_void_p
 _U = ctypes.c_uint32
@@ -38,7 +38,9 @@ def _lib() -> ctypes.CDLL:
     lib.fhe_bsk_branch.argtypes = ([_P] + [_I] * 3 + [_P] + [_I] * 3 + [_P] * 11
                                    + [_U] + [_P] * 14 + [_I] * 7 + [_P] * 2)
     lib.fhe_base_conv.argtypes = [_I] * 8 + [_P] * 24 + [_U] * 3 + [_P]
-    for f in (lib.fhe_bsk_branch, lib.fhe_base_conv):
+    lib.fhe_column_lift.argtypes = [_P] + [_I] * 3 + [_P] * 11 + [_U] + [_P] * 3 + [_I] * 7 + [_P]
+    lib.fhe_column_floor.argtypes = [_P, _P] + [_I] * 3 + [_P] * 13 + [_I] * 7 + [_P]
+    for f in (lib.fhe_bsk_branch, lib.fhe_base_conv, lib.fhe_column_lift, lib.fhe_column_floor):
         f.restype = ctypes.c_int
     return lib
 
@@ -69,9 +71,48 @@ def bsk_branch_geometry(n: int, kb: int, batch: int = 1) -> dict:
     transform and floor; two padded rows of shared memory per CTA, at
     n = 32768 the ``half_row`` form, at n = 65536 the ``compact`` form with
     its ``scratch`` words, at n = 131072 the compact form on the quarter
-    split, four CTAs a row, csrc/quarter.cuh).  Raise where nothing fits the
-    card."""
-    return tensor_product_geometry(n, kb, batch, "bsk_branch_fused")
+    split, four CTAs a row, csrc/quarter.cuh).  At n >= 262144 (or inside
+    ``forced_form("column")``) the column form: the lift's column launch into [kb, 4,
+    B, n], tensor_product's block launch on the Bsk tables into [kb, 3, B,
+    n] (7 kb B n words of scratch) and the floor's column launch.  Raise
+    where nothing fits the card."""
+    name = "bsk_branch_fused"
+    if column_form(n):
+        return column_geometry(n, kb, name, (("column", 4 * batch), ("product", batch),
+                                             ("column", 3 * batch)), 7 * kb * batch * n)
+    return tensor_product_geometry(n, kb, batch, name)
+
+
+def column_bsk_branch(ab: torch.Tensor, tx_q: torch.Tensor, sc: _rns.SmMRqConsts,
+                      fc: _rns.FastFloorConsts, tb_bsk: NTTTables, geo: dict,
+                      name: str) -> torch.Tensor:
+    """``_bsk_branch_launch`` in the column form ``geo``: the lift of ab
+    [k, 4, B, n] into each Bsk prime with the forward's column stages
+    (csrc/rns.cu column_lift_kernel), the block launch of tensor_product on
+    the Bsk tables, and the inverse's column stages with the floor against
+    tx_q (column_floor_kernel); returns [kb, 3, B, n]."""
+    k, _, batch, n = ab.shape
+    kb = tb_bsk.k
+    logs = (geo["logn"], geo["logb"], geo["logc"])
+    fwd = torch.empty((kb, 4, batch, n), dtype=torch.int32, device=ab.device)
+    p = _build.ptr
+    _build.launch(
+        _lib().fhe_column_lift, name, ab.device, p(ab), *ab.stride()[:3], p(fwd),
+        p(sc.conv.p_src), p(sc.mt_times_inv_phat), p(sc.mt_times_inv_phat_shoup),
+        p(sc.conv.phat_mod_dst), p(sc.conv.phat_shoup_dst), p(sc.phat_mod_mt), p(sc.q_mod_dst),
+        p(sc.q_shoup_dst), p(sc.inv_mt_dst), p(sc.inv_mt_shoup_dst), sc.inv_q_mt,
+        p(tb_bsk.p), p(tb_bsk.psi_br), p(tb_bsk.psi_br_shoup), k, kb, batch, *logs,
+        geo["steps"][0]["threads"])
+    rows = column_block_product(fwd, tb_bsk, geo, name, 1)
+    out = torch.empty_like(rows)
+    _build.launch(
+        _lib().fhe_column_floor, name, ab.device, p(rows), p(tx_q), *tx_q.stride()[:3], p(out),
+        p(sc.conv.p_src), p(fc.conv.inv_phat), p(fc.conv.inv_phat_shoup),
+        p(fc.conv.phat_mod_dst), p(fc.conv.phat_shoup_dst), p(fc.inv_q_dst),
+        p(fc.inv_q_shoup_dst), p(tb_bsk.p), p(tb_bsk.ipsi_br), p(tb_bsk.ipsi_br_shoup),
+        p(tb_bsk.n_inv), p(tb_bsk.n_inv_shoup), k, kb, batch, *logs,
+        geo["steps"][2]["threads"])
+    return out
 
 
 def _bsk_branch_launch(ab: torch.Tensor, tx_q: torch.Tensor,
@@ -87,6 +128,8 @@ def _bsk_branch_launch(ab: torch.Tensor, tx_q: torch.Tensor,
     for x in (ab, tx_q):                   # the kernel indexes with 32-bit strides
         if sum((d - 1) * st for d, st in zip(x.shape, x.stride())) >= 1 << 31:
             raise ValueError(f"{name}: tensor too large for 32-bit offsets")
+    if geo.get("column"):
+        return column_bsk_branch(ab, tx_q, sc, fc, tb_bsk, geo, name)
     out = torch.empty((kb, 3, batch, n), dtype=torch.int32, device=ab.device)
     scratch = scratch_for(geo, ab.device)
     p = _build.ptr

@@ -17,7 +17,10 @@ form), the compact split at n = 65536, where one padded row does not
 fit (a padded half row per CTA; B4's and B5's transformed half rows and
 B7's and B8's partials in global scratch), and the quarter split at
 n = 131072, where a padded half row does not fit either (four CTAs a row,
-a padded quarter row each); n = 262144 raises, naming the function.
+a padded quarter row each); and from n = 262144, where no share of a row
+fits a block, the column form: ordinary launches that meet in global
+memory (csrc/column.cuh), up to n = 2097152, the largest ring the params
+take.
 tests/test_torch_cuda.py runs the kernels themselves."""
 
 import numpy as np
@@ -68,6 +71,31 @@ def assert_quarter_form(geo: dict, n: int, scratch_per_cta: int) -> None:
     assert geo["threads"] == 512
     assert geo.get("scratch", 0) == geo["ctas"] * scratch_per_cta
     assert_owned_once(n, geo["ctas_per_row"])
+
+
+def assert_column_form(geo: dict, n: int, k: int, launches: int, scratch: int) -> None:
+    """The column form at n: a block of b = 8192 positions (n/2 below
+    n = 16384), s = log2(n / b) column stages on tiles of 2^13 words (at
+    least a warp of adjacent columns), ``launches`` launches, none a
+    cluster, each inside a block's shared memory and the grid, over k
+    primes, and ``scratch`` words of rows between them."""
+    b = min(8192, n // 2)
+    s = (n // b).bit_length() - 1
+    assert geo["column"] and geo["block"] == b and geo["column_stages"] == s
+    assert geo["tile_columns"] == min(b, 8192 >> s) >= 32
+    assert geo["launches"] == len(geo["steps"]) == launches
+    assert geo["scratch"] == scratch
+    assert "cluster" not in geo
+    for step in geo["steps"]:
+        assert step["smem"] <= geo["smem"] <= MAX_SMEM
+        assert 32 <= step["threads"] <= 512 and step["grid"][1] <= 65535
+        if step["kind"] in ("column", "decrypt"):
+            tiles = step["grid"][0]
+            rows = 3 if step["kind"] == "decrypt" else 1     # the tile (and two accumulators)
+            assert tiles * geo["tile_columns"] == b and step["smem"] == 4 * rows * (n // tiles)
+        else:
+            assert step["grid"][0] == n // b and step["threads"] == min(b // 16, 512)
+        assert step["grid"][2:] in ((), (k,))
 
 
 def assert_half_row_form(geo: dict, n: int) -> None:
@@ -123,7 +151,8 @@ def test_n32768_does_not_fit_either_kernel():
     per prime, 2 min(k, 4) per cluster, its accumulators n words per CTA);
     at n = 131072 the quarter split (B5 the same scratch, B8 four CTAs per
     prime, 4 min(k, 2) per cluster, its accumulators n/2 words per CTA);
-    at n = 262144 each raises, naming the function."""
+    at n = 262144 each takes the column form (B5 three launches, its
+    [kb, 4 + 3, B, n] rows between them; B8 three, 2 k B n words)."""
     n = 32768
     assert 2 * 4 * padded(n) > MAX_SMEM and 3 * 4 * padded(n) > MAX_SMEM
     assert_half_row_form(rns_cuda.bsk_branch_geometry(n, kb=5), n)
@@ -144,10 +173,9 @@ def test_n32768_does_not_fit_either_kernel():
         geo = decrypt_cuda.decrypt_geometry(131072, k=k)
         assert geo["cluster"] == (4 * min(k, 2), 1, 1)
         assert_quarter_form(geo, 131072, 65536)
-    with pytest.raises(ValueError, match="bsk_branch_fused: n=262144 needs"):
-        rns_cuda.bsk_branch_geometry(262144, kb=5)
-    with pytest.raises(ValueError, match="decrypt_fused: n=262144 needs"):
-        decrypt_cuda.decrypt_geometry(262144, k=3)
+    n = 262144
+    assert_column_form(rns_cuda.bsk_branch_geometry(n, kb=5), n, 5, 3, 7 * 5 * n)
+    assert_column_form(decrypt_cuda.decrypt_geometry(n, k=3), n, 3, 3, 2 * 3 * n)
 
 
 @pytest.mark.parametrize("batch", [1, 8])
@@ -214,8 +242,8 @@ def test_n16384_fits_b3_b4_b5_and_b8_but_not_b4_at_n32768():
     shapes, k = 3); the Lift lane (n < 1024) has no half-row form; at
     n = 65536 B4 takes the compact form (the transformed half rows in
     scratch), at n = 131072 the compact form on the quarter split (the same
-    scratch: the cluster's four transformed rows), and at n = 262144 it
-    raises, naming the function."""
+    scratch: the cluster's four transformed rows), and at n = 262144 the
+    column form (four launches, no cluster; the Lift lane has none)."""
     assert ntt_cuda.mul_by_ntt_operand_geometry(16384, k=3, c=2)["smem"] == 67584
     assert ntt_cuda.tensor_product_geometry(16384, k=3)["smem"] == 135168
     assert rns_cuda.bsk_branch_geometry(16384, kb=5)["smem"] == 135168
@@ -230,8 +258,8 @@ def test_n16384_fits_b3_b4_b5_and_b8_but_not_b4_at_n32768():
         ntt_cuda.tensor_product_geometry(32768, k=3, lift=True)
     assert_compact_form(ntt_cuda.tensor_product_geometry(65536, k=3), 65536, 32768)
     assert_quarter_form(ntt_cuda.tensor_product_geometry(131072, k=3), 131072, 65536)
-    with pytest.raises(ValueError, match="tensor_product: n=262144 needs"):
-        ntt_cuda.tensor_product_geometry(262144, k=3)
+    assert_column_form(ntt_cuda.tensor_product_geometry(262144, k=3), 262144, 3, 4,
+                       7 * 3 * 262144)
     assert ntt_cuda.mul_by_ntt_operand_geometry(32768, k=3, c=2)["smem"] == 135168
 
 
@@ -327,7 +355,8 @@ def test_n32768_fits_b1_but_not_b7():
     n = 65536 it takes the wide form on the compact split (a padded half
     row per CTA, the same scratch), at n = 131072 the wide form on the
     quarter split (two digit groups of four CTAs, n/2 words of scratch per
-    CTA), and at n = 262144 it raises, naming the function."""
+    CTA), and at n = 262144 the column form (the kd digits' rows and the two
+    partial rows in scratch)."""
     n = 32768
     assert ntt_cuda.ntt_forward_geometry(n, k=3)["smem"] == 135168
     assert ntt_cuda.keyswitch_geometry(16384, k=3, kd=3)["smem"] == 135168
@@ -343,8 +372,8 @@ def test_n32768_fits_b1_but_not_b7():
     geo = ntt_cuda.keyswitch_geometry(131072, k=3, kd=3)
     assert geo["wide"] and geo["pairs"] == 2 and geo["cluster"] == (8, 1, 1)
     assert_quarter_form(geo, 131072, 65536)
-    with pytest.raises(ValueError, match="keyswitch_fused: n=262144 needs"):
-        ntt_cuda.keyswitch_geometry(262144, k=3, kd=3)
+    assert_column_form(ntt_cuda.keyswitch_geometry(262144, k=3, kd=3), 262144, 3, 3,
+                       3 * (3 + 2) * 262144)
 
 
 @pytest.mark.parametrize("n", [2, 16])
@@ -412,13 +441,17 @@ def test_b2_and_b17_n_outside_32_to_32768_raises(name, n, match):
     """The register-blocked sweep takes n >= 32, and one padded row fits a
     CTA up to n = 32768: below 32 B2 and B17/B18 raise, naming the
     function, before any launch.  Both take n = 65536 on the compact split
-    (a padded half row per CTA) and n = 131072 on the quarter split (a
-    padded quarter row), so their top case is the ring after, n = 262144,
-    where they raise."""
+    (a padded half row per CTA), n = 131072 on the quarter split (a padded
+    quarter row) and n = 262144 in the column form (two launches, 1 or 2
+    rows of scratch per input row); their top case is the ring past the
+    params', n = 4194304, where the column form's tile holds fewer than a
+    warp of columns and they raise."""
     if n == 65536:
         assert_compact_form(GEOMETRY_OF[name](n), n, 0)
         assert_quarter_form(GEOMETRY_OF[name](2 * n), 2 * n, 0)
-        n, match = 4 * n, "n=262144 needs"
+        rows = 1 if name == "ntt_inverse" else 2
+        assert_column_form(GEOMETRY_OF[name](4 * n), 4 * n, 3, 2, rows * 3 * 4 * n)
+        n, match = 64 * n, "n=4194304 has no column form"
     with pytest.raises(ValueError, match=f"{name}: .*{match}"):
         GEOMETRY_OF[name](n)
 
@@ -453,7 +486,7 @@ def test_galois_lanes_stage_a_row_and_ks_inner_runs_at_n32768():
     classic lane's wide form (the working row alone, partials in global
     scratch) and reads the digit rows and c0 in place; at n = 65536 the
     classic lane's wide form on the compact split, at n = 131072 on the
-    quarter split, and at n = 262144 it raises, naming the function; its
+    quarter split, and at n = 262144 the classic lane's column form; its
     classic lane keeps its shape.
     ks_inner's Galois lane stages c0 where it fits and reads it in place at
     n = 32768."""
@@ -472,8 +505,9 @@ def test_galois_lanes_stage_a_row_and_ks_inner_runs_at_n32768():
     geo = ntt_cuda.keyswitch_geometry(131072, 3, 3, 2, "keyswitch_fused_batch", galois=True)
     assert geo == ntt_cuda.keyswitch_geometry(131072, 3, 3, 2)
     assert_quarter_form(geo, 131072, 65536)
-    with pytest.raises(ValueError, match="keyswitch_fused_batch: n=262144 needs"):
-        ntt_cuda.keyswitch_geometry(262144, 3, 3, 2, "keyswitch_fused_batch", galois=True)
+    geo = ntt_cuda.keyswitch_geometry(262144, 3, 3, 2, "keyswitch_fused_batch", galois=True)
+    assert geo == ntt_cuda.keyswitch_geometry(262144, 3, 3, 2)
+    assert_column_form(geo, 262144, 3, 3, 3 * (3 + 2) * 2 * 262144)
     # ks_inner stages its c0 row where it fits (n <= 16384), and reads it in
     # place above
     geo = ntt_cuda.ks_inner_geometry(n, 3, 8, c0=True)
@@ -495,8 +529,8 @@ def test_ks_inner_compact_split_at_n65536(batch, name, c0):
     split, a 135168-byte padded half row per CTA, c0 read in place (never
     staged) and no scratch, in the Inner lane's grid; every n <= 32768
     keeps its one padded row (and its staged c0 up to 16384); n = 131072
-    takes the quarter split (clusters of 4), and n = 262144 raises, naming
-    the function."""
+    takes the quarter split (clusters of 4), and n = 262144 the column
+    form (the c0 add in its column launch)."""
     geo = ntt_cuda.ks_inner_geometry(N65536, 3, batch, name=name, c0=c0)
     assert geo["smem"] == 135168 == 4 * padded(N65536 // 2)
     assert not geo["stage_c0"] and "scratch" not in geo
@@ -511,8 +545,8 @@ def test_ks_inner_compact_split_at_n65536(batch, name, c0):
     assert geo["grid"] == (4, 2 * batch, 3) and geo["cluster"] == (4, 1, 1)
     assert not geo["stage_c0"]
     assert_quarter_form(geo, 2 * N65536, 0)
-    with pytest.raises(ValueError, match=f"{name}: n=262144 needs"):
-        ntt_cuda.ks_inner_geometry(4 * N65536, 3, batch, name=name, c0=c0)
+    geo = ntt_cuda.ks_inner_geometry(4 * N65536, 3, batch, name=name, c0=c0)
+    assert_column_form(geo, 4 * N65536, 3, 2, 2 * 3 * batch * 4 * N65536)
 
 
 @pytest.mark.parametrize("kb", [34, 63, 68])
@@ -677,14 +711,41 @@ def test_geometry_up_to_n65536_unchanged(name, n):
     assert GEOMETRY_CALLS[name](n) == GEOMETRY_TODAY[(name, n)]
 
 
+# each cluster kernel's column form (GEOMETRY_CALLS' shapes: k = 3 at B = 1
+# and k = 30 at B = 2, ...): its launches, and the scratch words between
+# them for k primes (kb = 5 and 33 for B5), B elements and n
+COLUMN_LAUNCHES = {"ntt_forward": (2, lambda k, b, n: 0),
+                   "ntt_inverse": (2, lambda k, b, n: k * b * n),
+                   "mul_by_ntt_operand": (3, lambda k, b, n: 3 * k * b * n),
+                   "tensor_product": (4, lambda k, b, n: 7 * k * b * n),
+                   "bsk_branch_fused": (3, lambda k, b, n: 7 * k * b * n),
+                   "keyswitch_fused": (3, None),
+                   "ks_inner_batch": (2, lambda k, b, n: 2 * k * b * n),
+                   "decrypt_fused": (3, lambda k, b, n: 2 * k * b * n)}
+LARGE_RINGS = (262144, 524288, 1048576, 2097152)
+
+
+@pytest.mark.parametrize("n", LARGE_RINGS)
 @pytest.mark.parametrize("name", sorted(GEOMETRY_CALLS))
-def test_n262144_raises_naming_the_function(name):
-    """At n = 262144 even the quarter split's padded quarter row takes
-    270336 bytes, more than a block: every cluster kernel's geometry raises
-    ValueError, naming the function and n."""
-    assert 4 * padded(262144 // 4) == 270336 > MAX_SMEM
-    with pytest.raises(ValueError, match=f"{name}: n=262144 needs 270336 bytes"):
-        GEOMETRY_CALLS[name](262144)
+def test_rings_past_n131072_take_the_column_form(name, n):
+    """From n = 262144 even the quarter split's padded quarter row exceeds
+    a block (270336 bytes at n = 262144), so every cluster kernel's
+    geometry returns the column form: a block of 8192 positions, its
+    launches (none a cluster), the scratch rows between them, and every
+    launch's shared memory within a block's."""
+    assert 4 * padded(n // 4) >= 270336 > MAX_SMEM
+    launches, scratch = COLUMN_LAUNCHES[name]
+    geos = GEOMETRY_CALLS[name](n)
+    shapes = {"keyswitch_fused": ((3, 3, 1), (30, 30, 2), (4, 2, 1)),
+              "ks_inner_batch": ((3, 3, 8), (3, 3, 32)),
+              "ntt_inverse": ((3, 3, 1),)}.get(name, ((3, 3, 1), (30, 30, 2)))
+    for geo, (k, kd, batch) in zip(geos, shapes):
+        if name == "bsk_branch_fused":
+            k = 5 if k == 3 else 33
+        words = (k * (kd + 2) * batch * n if name == "keyswitch_fused"
+                 else scratch(k, batch, n))
+        assert_column_form(geo, n, k, launches, words)
+    assert len(geos) == len(shapes)
 
 
 @pytest.mark.parametrize("k,kd,batch", [(3, 3, 1), (3, 3, 2), (30, 30, 1), (30, 30, 2),
@@ -785,3 +846,83 @@ def test_decrypt_quarter_accumulator_index(col):
     word = (cols >> logc) * (n // 4) + ((j >> (logc + log_h)) << logc) + (cols & ((1 << logc) - 1))
     assert np.array_equal(np.sort(word), j)
 
+
+
+# each ring past n = 131072 with a batching t (a prime, t = 1 mod 2n) and
+# the largest set JAX's 30-bit primes give there: (n, t, log_q, k, kb)
+LARGEST_SETS = ((262144, 5767169, 1560, 52, 56), (524288, 7340033, 780, 26, 29),
+                (1048576, 23068673, 390, 13, 16), (2097152, 104857601, 120, 4, 6))
+
+
+@pytest.mark.parametrize("n,t,log_q,k,kb", LARGEST_SETS)
+def test_every_geometry_takes_each_rings_largest_set(n, t, log_q, k, kb):
+    """At each ring's largest set (the port's params give the k and kb of
+    JAX's, and 30 bits more raise) every cluster kernel's geometry returns
+    a column-form launch shape at the multiply's and the rotation's shapes,
+    single and B = 2: B7/B12 with kd = k (the whole [k, kd, B, n] digit
+    stack in scratch, 2.84 GB at n = 262144, B = 1), B5 on the kb Bsk
+    primes."""
+    prm = make_scheme_params(SecurityParams(poly_degree=n, log_q=log_q, lambda_=0,
+                                            hamming_weight=16, plain_modulus=t))
+    assert (prm.k, len(prm.bsk_primes)) == (k, kb)
+    with pytest.raises(ValueError, match="not enough 30-bit NTT primes"):
+        make_scheme_params(SecurityParams(poly_degree=n, log_q=log_q + 30, lambda_=0,
+                                          hamming_weight=16, plain_modulus=t))
+    for batch in (1, 2):
+        shapes = ((ntt_cuda.ntt_forward_geometry(n, k, 3 * batch), k, 2, 0),
+                  (ntt_cuda.ntt_inverse_geometry(n, k, batch), k, 2, k * batch * n),
+                  (ntt_cuda.mul_by_ntt_operand_geometry(n, k, 2, batch), k, 3,
+                   3 * k * batch * n),
+                  (ntt_cuda.tensor_product_geometry(n, k, batch), k, 4, 7 * k * batch * n),
+                  (rns_cuda.bsk_branch_geometry(n, kb, batch), kb, 3, 7 * kb * batch * n),
+                  (ntt_cuda.keyswitch_geometry(n, k, k, batch), k, 3,
+                   k * (k + 2) * batch * n),
+                  (ntt_cuda.keyswitch_geometry(n, k, k, batch, galois=True), k, 3,
+                   k * (k + 2) * batch * n),
+                  (ntt_cuda.ks_inner_geometry(n, k, 8 * batch, c0=True), k, 2,
+                   2 * k * 8 * batch * n),
+                  (decrypt_cuda.decrypt_geometry(n, k, batch), k, 3, 2 * k * batch * n))
+        for geo, primes, launches, scratch in shapes:
+            assert_column_form(geo, n, primes, launches, scratch)
+    if n == 262144:         # the digits 2.84 GB, the two partial rows 109 MB
+        assert ntt_cuda.keyswitch_geometry(n, k, k)["scratch"] * 4 == 2944401408
+
+
+def test_n4194304_has_no_set():
+    """At n = 4194304 one 30-bit prime is 1 mod 2n (998244353), so no set
+    has the q and Bsk primes a multiply needs: the port's params raise as
+    JAX's do, with a batching t = 167772161, and the column form has no
+    shape there (the tile would hold fewer than a warp of columns)."""
+    from fhe_tpu import primes as jprimes
+    from fhe_tpu.params import SecurityParams as JSecurity
+    from fhe_tpu.params import make_scheme_params as jmake_params
+
+    from fhe_tpu_torch import primes as tprimes
+    n, t = 4194304, 167772161
+    assert tprimes.is_prime(t) and t % (2 * n) == 1
+    assert (list(tprimes.find_ntt_primes(n, 1)) == list(jprimes.find_ntt_primes(n, 1))
+            == [998244353])
+    for security, make in ((SecurityParams, make_scheme_params), (JSecurity, jmake_params)):
+        with pytest.raises(ValueError, match="not enough 30-bit NTT primes"):
+            make(security(poly_degree=n, log_q=30, lambda_=0, hamming_weight=16,
+                          plain_modulus=t))
+    with pytest.raises(ValueError, match="ntt_forward: n=4194304 has no column form"):
+        ntt_cuda.ntt_forward_geometry(n, 1)
+
+
+@pytest.mark.parametrize("name", sorted(GEOMETRY_CALLS))
+def test_forced_column_form_at_n8192(name):
+    """Inside ntt_cuda.forced_form("column") every geometry returns the
+    column form where the cluster forms fit (chip_smoke.py holds the two
+    against each other at n = 8192 and 131072: b = 4096, one column stage,
+    one tile a row), and on leaving it the cluster shape of before."""
+    n = 8192
+    with ntt_cuda.forced_form("column"):
+        for geo in GEOMETRY_CALLS[name](n):
+            assert geo["column"] and geo["block"] == 4096 and geo["column_stages"] == 1
+            assert geo["launches"] == COLUMN_LAUNCHES[name][0]
+            assert all(step["grid"][0] in (1, 2) for step in geo["steps"])
+    assert GEOMETRY_CALLS[name](n) == GEOMETRY_TODAY[(name, n)]
+    with pytest.raises(ValueError, match="forced_form: 'quarter'"):
+        with ntt_cuda.forced_form("quarter"):
+            pass
