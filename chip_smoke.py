@@ -105,9 +105,24 @@ Phases, each printing its own lines:
      104857601): every kernel at k = 3 and the multiply's at each ring's
      largest set (k = 26, 13, 4) equal their plain twins, the path at
      log_q = 90, 90 and 120 decodes with each kernel of N_LARGE_KERNELS
-     launched (`n_large_launches`), card == CPU plain path at n = 2097152.
+     launched (`n_large_launches`), card == CPU plain path at n = 2097152;
+     then (phase deep) the sets past the base conversion's deep instance
+     (108 q, 112 Bsk primes), in its tiled instance: forced at n = 256,
+     k = 5 (rows off 16 bytes too), then at n = 65536, log_q = 5790
+     (k = 193, kb = 201, kd = 193) B6 with the digits at [201,3,n] and
+     [201,6,n] and the multiply's B4, B5, B7 and B8, B5 at n = 1024,
+     kb = 415, and at n = 256, log_q = 12000 (k = 400, kb = 415) B4's Lift
+     lane and the FloorSK lane equal their plain twins; the SK, Floor and
+     FloorSK lanes alone at n = 8192 (k = 1539, kb = 1594) and 32768
+     (k = 384, kb = 399) on random and max-digit inputs equal theirs; forced
+     at kb = 63 and 68 the tiled instance equals the deep one (both
+     timed); with the counts zeroed, keys, encrypt, multiply and decrypt at
+     n = 65536, k = 193 and ring_run at n = 256, k = 400 decode, with both
+     tiled lanes launched (`deep_launches`; the kernels line's
+     fast_bconv_sk_fused_tiled and fast_floor_fused_tiled count the tiled
+     instance's kernel launches), card == CPU plain path at n = 256, k = 400.
      The CPU plain path's half of every card == CPU check of phases
-     n32768 to n_large runs in two spawned worker processes (CpuChecks), fed
+     n32768 to deep runs in two spawned worker processes (CpuChecks), fed
      with numpy copies of the card's keys, noise and inputs, beside the
      later phases; its results are compared with the card's at the end
      (`phase cpu_checks`: each check's CPU seconds by step);
@@ -331,6 +346,7 @@ nothing of fhe_tpu.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 import math
@@ -341,6 +357,7 @@ import multiprocessing
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 from pathlib import Path
@@ -499,6 +516,15 @@ KERNELS = {
     "fast_floor_fused": dict(fn=rns_cuda.fast_floor_fused,
                              source="fhe_tpu_torch/csrc/rns.cu",
                              replaces="fhe_tpu/ops/rns_pallas.py:147", path="small"),
+    # the base conversion's tiled instance past 108 q and 112 Bsk primes (two
+    # kernel launches a call, four for FloorSK), counted apart
+    "fast_bconv_sk_fused_tiled": dict(fn=rns_cuda.fast_bconv_sk_fused,
+                                      counter="tiled_launches",
+                                      source="fhe_tpu_torch/csrc/rns.cu",
+                                      replaces="fhe_tpu/ops/rns_pallas.py:310", path="deep"),
+    "fast_floor_fused_tiled": dict(fn=rns_cuda.fast_floor_fused, counter="tiled_launches",
+                                   source="fhe_tpu_torch/csrc/rns.cu",
+                                   replaces="fhe_tpu/ops/rns_pallas.py:147", path="deep"),
     "modmul_chain": dict(fn=ubench.modmul_chain, source="fhe_tpu_torch/csrc/ubench.cu",
                          replaces="fhe_tpu/utils/ubench.py:113", path="roofline"),
 }
@@ -1047,11 +1073,12 @@ def print_profiled(phase: str, ops: dict) -> None:
           json.dumps([name[:48] for name in names[first]]))
 
 
-def run_cases(cases: list, tag: str) -> dict:
+def run_cases(cases: list, tag: str, plain_timer=device_ms) -> dict:
     """Each case's kernel call against its plain call on the same inputs
-    (max_abs_err 0), then both device times and the bound of its work; one
-    line per case after ``tag``.  Returns each kernel's first row, its
-    max_abs_err the largest over its cases."""
+    (max_abs_err 0), then both device times (the plain one by
+    ``plain_timer``; None: not timed, plain_ms null) and the bound of its
+    work; one line per case after ``tag``.  Returns each kernel's first
+    row, its max_abs_err the largest over its cases."""
     results = {}
     for name, label, kern, plain, work in cases:
         got, want = flat(kern()), flat(plain())
@@ -1059,7 +1086,8 @@ def run_cases(cases: list, tag: str) -> dict:
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
         check(got.shape == want.shape and err == 0,
               f"{name} {label}: kernel differs from its plain version (max err {err})")
-        ms, plain_ms = device_ms(kern), device_ms(plain)
+        del got, want
+        ms, plain_ms = device_ms(kern), plain_timer and plain_timer(plain)
         b_ms, b_by = bound(*work)
         row = {"shape": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by}
@@ -3017,6 +3045,273 @@ def phase_n_large(gen: torch.Generator) -> dict:
         "cases_seconds": t_cases, "seconds": time.perf_counter() - t0}))
     return launches
 
+
+# The sets past the base conversion's deep instance (108 q, 112 Bsk primes),
+# which its tiled instance takes, at ring_params' t, lambda_ and h: the
+# largest at n = 65536 (log_q = 5790: k = 193, kb = 201) through the facade
+# and the multiply's kernels; n = 256, log_q = 12000 (k = 400, kb = 415) the
+# n < 1024 multiply, and n = 1024 at the same log_q for B5 at kb = 415;
+# the conversion's lanes alone at the largest sets of n = 8192 (log_q =
+# 46170: k = 1539, kb = 1594) and n = 32768 (11520: k = 384, kb = 399),
+# their plain twins DEEP_LANE_COLS coefficients at a time; and the deep
+# instance's largest sets at n = 65536 (log_q = 1770 and 1920: kb = 63, 68)
+# with the tiled instance forced against the deep one
+DEEP_LOG_Q = 5790
+DEEP_SMALL_LOG_Q = 12000
+DEEP_LANES = ((8192, 46170, 64), (32768, 11520, 1024))
+DEEP_AB_LOG_Q = (1770, 1920)
+# the kernels the deep path launches besides the tiled instance's lanes
+DEEP_KERNELS = ("ntt_forward", "ntt_inverse", "mul_by_ntt_operand", "decrypt_fused",
+                "tensor_product", "bsk_branch_fused", "fast_bconv_sk_fused", "keyswitch_fused",
+                "tensor_product_lift", "fast_floor_fused", "keyswitch_fused_galois")
+
+
+def by_columns(plain, cols: int):
+    """plain over ``cols`` coefficients (the last axis of each tensor
+    argument) at a time, the pieces joined: the conversions work coefficient
+    by coefficient, so the same residues (the twins' [k, kb, rows, n] int64
+    terms take 60 GB at k = 193, n = 65536, and 200 GB at k = 1539,
+    n = 8192)."""
+    def run(*args):
+        parts = [plain(*(a[..., c:c + cols] for a in args))
+                 for c in range(0, args[0].shape[-1], cols)]
+        if isinstance(parts[0], tuple):
+            return tuple(torch.cat(p, dim=-1) for p in zip(*parts))
+        return torch.cat(parts, dim=-1)
+    return run
+
+
+def const_rows(vals, rows: int, n: int) -> torch.Tensor:
+    """[len(vals), rows, n] residues, row i all vals[i]."""
+    return torch.tensor(vals, dtype=torch.int64, device="cuda").view(-1, 1, 1).expand(
+        -1, rows, n).to(torch.int32).contiguous()
+
+
+def max_digit_rows(moduli, rows: int, n: int) -> torch.Tensor:
+    """Residues whose conversion digits [x_i * (P/p_i)^-1]_{p_i} over the
+    base P of ``moduli`` are all p_i - 1: the largest terms of the kernels'
+    unreduced sums."""
+    big = math.prod(moduli)
+    return const_rows([(p - 1) * (big // p) % p for p in moduli], rows, n)
+
+
+def tiled_lane_cases(gen: torch.Generator, n: int, log_q: int, cols: int,
+                     inputs: str) -> list:
+    """The base conversion's lanes in the tiled instance from ring_params(n,
+    log_q)'s constants alone: SK with the digits [kb,3,n] -> [k,3,n], Floor
+    [k,3,n] + [kb,3,n] -> [kb,3,n] and FloorSK with the digits, on
+    ``inputs``: "random" residues or "max digits" (the m_sk row and t*x in
+    Bsk at p - 1); the plain twins ``cols`` coefficients at a time."""
+    prm = ring_params(n, log_q)
+    qs, bsk = prm.q_primes, prm.bsk_primes
+    k, kb = len(qs), len(bsk)
+    check(rns_cuda.conv_tiled("sk", kb, k), f"n={n}, k={k}, kb={kb}: not past the caps")
+    sk, fc = rns.make_sk(bsk[:-1], bsk[-1], qs, "cuda"), rns.make_fast_floor(qs, bsk, "cuda")
+    inv_qhat = [pow(math.prod(qs) // p, -1, p) for p in qs]
+    dig = (mm.u32_tensor(np.array(inv_qhat, np.uint32), "cuda"),
+           mm.u32_tensor(mm.shoup_array(inv_qhat, qs), "cuda"))
+    sk_twin = by_columns(lambda x: rns.fast_bconv_sk_digits(x, sk, dig[0]), cols)
+    floor_twin = by_columns(lambda a, b: rns.fast_floor(a, b, fc), cols)
+    floor_sk_twin = by_columns(lambda a, b: rns.fast_floor_sk(a, b, fc, sk, dig[0]), cols)
+    if inputs == "random":
+        x_bsk, tx_q, tx_b = (residues(gen, bsk, 3, n), residues(gen, qs, 3, n),
+                             residues(gen, bsk, 3, n))
+    else:
+        top = const_rows([p - 1 for p in bsk], 3, n)
+        x_bsk = torch.cat([max_digit_rows(bsk[:-1], 3, n), top[-1:]])
+        tx_q, tx_b = max_digit_rows(qs, 3, n), top
+    label = f"n={n}, {inputs}, plain {cols} coefficients at a time"
+    return [("fast_bconv_sk_fused_tiled", f"SK + digits [{kb},3,{n}] -> [{k},3,{n}], {label}",
+             lambda: rns_cuda.fast_bconv_sk_fused(x_bsk, sk, dig), lambda: sk_twin(x_bsk),
+             fast_bconv_sk_work(kb, k, 3, n, digits=True)),
+            ("fast_floor_fused_tiled",
+             f"floor [{k},3,{n}] + [{kb},3,{n}] -> [{kb},3,{n}], {label}",
+             lambda: rns_cuda.fast_floor_fused(tx_q, tx_b, fc), lambda: floor_twin(tx_q, tx_b),
+             fast_floor_work(k, kb, 3 * n)),
+            ("fast_floor_fused_tiled",
+             f"floor+SK + digits [{k},3,{n}] + [{kb},3,{n}] -> [{k},3,{n}], {label}",
+             lambda: rns_cuda.fast_floor_fused(tx_q, tx_b, fc, sk, dig),
+             lambda: floor_sk_twin(tx_q, tx_b), fast_floor_sk_work(k, kb, 3 * n, True))]
+
+
+def tiled_vs_deep_cases(gen: torch.Generator) -> list:
+    """B6 with the digits at [kb,3,65536] for kb = 63 and 68 (log_q = 1770
+    and 1920, the deep instance's) in the tiled instance, forced
+    (rns_cuda.forced_tiled), against the deep instance: the same bits, and
+    the deep instance's time in the plain column."""
+    out = []
+    for log_q in DEEP_AB_LOG_Q:
+        prm = ring_params(65536, log_q)
+        qs, bsk = prm.q_primes, prm.bsk_primes
+        k, kb = len(qs), len(bsk)
+        sk = rns.make_sk(bsk[:-1], bsk[-1], qs, "cuda")
+        inv_qhat = [pow(math.prod(qs) // p, -1, p) for p in qs]
+        dig = (mm.u32_tensor(np.array(inv_qhat, np.uint32), "cuda"),
+               mm.u32_tensor(mm.shoup_array(inv_qhat, qs), "cuda"))
+        x = residues(gen, bsk, 3, 65536)
+
+        def tiled(x=x, sk=sk, dig=dig):
+            with rns_cuda.forced_tiled():
+                return rns_cuda.fast_bconv_sk_fused(x, sk, dig)
+        out.append(("fast_bconv_sk_fused_tiled",
+                    f"forced tiled == deep instance (plain_ms: the deep instance's), digits "
+                    f"[{kb},3,65536] -> [{k},3,65536]", tiled,
+                    lambda x=x, sk=sk, dig=dig: rns_cuda.fast_bconv_sk_fused(x, sk, dig),
+                    fast_bconv_sk_work(kb, k, 3, 65536, digits=True)))
+    return out
+
+
+def forced_tiled_cases(gen: torch.Generator) -> list:
+    """The tiled instance forced (rns_cuda.forced_tiled) at the small path's
+    shapes (n = 256, k = 5, kb = 7): SK with the digits, Floor and FloorSK
+    with the digits against their plain twins, the floor lanes with t*x in
+    Bsk off a 16-byte boundary (read and written a word at a time)."""
+    ctx_s = make_context(params_small(), device="cuda")
+    n, qs, bsk = ctx_s.n, ctx_s.ntt_q.primes, ctx_s.params.bsk_primes
+    k, kb = len(qs), len(bsk)
+    sk, fc, dig = ctx_s.sk_c, ctx_s.floor_c, digit_consts(ctx_s)
+    x_bsk, tx_q = residues(gen, bsk, 3, n), residues(gen, qs, 3, n)
+    tx_b = offset_copy(residues(gen, bsk, 3, n))
+
+    def forced(fn):
+        def run():
+            with rns_cuda.forced_tiled():
+                return fn()
+        return run
+    shape = f"forced, n={n}: [{k},3,{n}] + [{kb},3,{n}] off 16 bytes"
+    return [("fast_bconv_sk_fused_tiled", f"forced, n={n}: SK + digits [{kb},3,{n}]",
+             forced(lambda: rns_cuda.fast_bconv_sk_fused(x_bsk, sk, dig)),
+             lambda: rns.fast_bconv_sk_digits(x_bsk, sk, dig[0]),
+             fast_bconv_sk_work(kb, k, 3, n, digits=True)),
+            ("fast_floor_fused_tiled", f"floor, {shape}",
+             forced(lambda: rns_cuda.fast_floor_fused(tx_q, tx_b, fc)),
+             lambda: rns.fast_floor(tx_q, tx_b, fc), fast_floor_work(k, kb, 3 * n)),
+            ("fast_floor_fused_tiled", f"floor+SK + digits, {shape}",
+             forced(lambda: rns_cuda.fast_floor_fused(tx_q, tx_b, fc, sk, dig)),
+             lambda: rns.fast_floor_sk(tx_q, tx_b, fc, sk, dig[0]),
+             fast_floor_sk_work(k, kb, 3 * n, True))]
+
+
+def bsk_consts(n: int, log_q: int):
+    """The level-0 constants bsk_case reads, built for ring_params(n, log_q)
+    alone (a context builds every level: minutes at k = 400)."""
+    prm = ring_params(n, log_q)
+    qs, bsk = prm.q_primes, prm.bsk_primes
+    tq, tbsk = plain_ntt.build_mul_tables(plain_ntt.build_tables(n, qs, "cuda"),
+                                          plain_ntt.build_tables(n, bsk, "cuda"), prm.t)
+    return types.SimpleNamespace(
+        n=n, k=len(qs), ntt_q=tq, mul_levels=[(tq, tbsk)],
+        smq_levels=[rns.make_sm_mrq(qs, bsk, prm.m_tilde, "cuda")],
+        floor_levels=[rns.make_fast_floor(qs, bsk, "cuda")])
+
+
+def deep_run(fhe: FHE) -> dict:
+    """The BFV path through the facade at the largest n = 65536 set: keygen,
+    relinearization keys, encrypt, multiply, decrypt, decoded, and
+    multiply_batch at B = 2 equal to the multiply."""
+    pk, sk = fhe.keygen()
+    rlk = fhe.relinkey_gen(sk)
+    ca, cb = (fhe.encrypt(fhe.encode(v), pk) for v in VALS_32K)
+    prod = fhe.multiply(ca, cb, rlk)
+    label = f"n={fhe.ctx.n}, k={fhe.ctx.k}"
+    got = [int(v) for v in fhe.decode(fhe.decrypt(prod, sk))[:3]]
+    check(got == PRODUCT_32K, f"{label} multiply decoded {got}")
+    check(all(torch.equal(c.data, prod.data) for c in fhe.multiply_batch([ca, cb], [cb, ca], rlk)),
+          f"{label} multiply_batch differs from the multiply")
+    return dict(pk=pk, sk=sk, rlk=rlk, ca=ca, cb=cb, prod=prod)
+
+
+def phase_deep(gen: torch.Generator) -> tuple[dict, dict]:
+    """The sets past the deep conversion instance's caps on the card, in the
+    tiled instance: first the tiled instance forced at n = 256, k = 5
+    (forced_tiled_cases); at n = 65536, log_q = 5790 (k = 193, kb = 201, kd = 193)
+    B6 with the digits at [201,3,n] (random and max digits) and [201,6,n],
+    and the multiply's cluster kernels B4, B5, B7 and B8 == their plain
+    twins; B5 at n = 1024, kb = 415; at n = 256, log_q = 12000 (k = 400,
+    kb = 415) B4's Lift lane and the FloorSK lane with the digits; the
+    lanes alone at n = 8192 (k = 1539) and 32768 (k = 384) (tiled_lane_cases);
+    the tiled instance forced against the deep one at kb = 63 and 68; then,
+    with the counts zeroed, the path: keys, encrypt, multiply, its batch,
+    decrypt at n = 65536, k = 193 (deep_run) and ring_run at n = 256, k = 400, decoded,
+    every kernel of DEEP_KERNELS and both tiled lanes launched; the card ==
+    the CPU plain path at n = 256, k = 400 (on the CPU worker); device and
+    wall ms of the multiply at both sets; peak memory and seconds.  The
+    plain twins are timed once (device_ms with one run), and not at all on
+    max-digit inputs.  Returns the path's launches and each tiled lane's
+    first row."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tag = "phase deep kernel"
+    once = functools.partial(device_ms, reps=1)
+    run_cases(forced_tiled_cases(gen), "phase deep forced")
+    fhe = FHE(ring_params(65536, DEEP_LOG_Q), seed=11, device="cuda")
+    ctx = fhe.ctx
+    check((ctx.k, ctx.mul_tables[1].k) == (193, 201), f"n=65536: k, kb {ctx.k}")
+    tiled = lambda case: (case[0] + "_tiled",) + case[1:]
+    results = run_cases([tiled(sk_digits_case(gen, ctx, 0, 3, "random", 4096)),
+                         tiled(sk_digits_case(gen, ctx, 0, 6, "random", 2048))], tag, once)
+    run_cases([tiled(sk_digits_case(gen, ctx, 0, 3, "every digit b_i - 1", 4096))], tag, None)
+    run_cases(multiply_kernel_cases(gen, ctx, N131072_PLAIN_STEP), tag, once)
+    free_card()
+    fhe_s = FHE(ring_params(256, DEEP_SMALL_LOG_Q), seed=11, device="cuda")
+    ctx_s = fhe_s.ctx
+    check((ctx_s.k, ctx_s.mul_tables[1].k) == (400, 415), f"n=256: k, kb {ctx_s.k}")
+    qs_s, bsk_s = ctx_s.ntt_q.primes, ctx_s.params.bsk_primes
+    tx_q, tx_b = residues(gen, qs_s, 3, 256), residues(gen, bsk_s, 3, 256)
+    fc_s, sk_s, dig_s = ctx_s.floor_c, ctx_s.sk_c, digit_consts(ctx_s)
+    small = [lift_case(gen, ctx_s, 0, "k=400: "),
+             ("fast_floor_fused_tiled", "floor+SK + digits, n=256: [400,3,256] + [415,3,256] "
+              "-> [400,3,256]", lambda: rns_cuda.fast_floor_fused(tx_q, tx_b, fc_s, sk_s, dig_s),
+              lambda: rns.fast_floor_sk(tx_q, tx_b, fc_s, sk_s, dig_s[0]),
+              fast_floor_sk_work(400, 415, 3 * 256, True))]
+    results.update({name: row for name, row in run_cases(small, tag, once).items()
+                    if name not in results})
+    run_cases([bsk_case(gen, bsk_consts(1024, DEEP_SMALL_LOG_Q), 0, None,
+                        "n=1024, k=400", N131072_PLAIN_STEP)], tag, once)
+    for n, log_q, cols in DEEP_LANES:
+        run_cases(tiled_lane_cases(gen, n, log_q, cols, "random"), tag, once)
+        run_cases(tiled_lane_cases(gen, n, log_q, cols, "max digits"), tag, None)
+        free_card()
+    run_cases(tiled_vs_deep_cases(gen), "phase deep tiled==deep")
+    free_card()
+    t_cases = time.perf_counter() - t0
+    reset_counts()
+    run = deep_run(fhe)
+    run_s = ring_run(fhe_s)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    t_path = time.perf_counter() - t0 - t_cases
+    print("phase deep launches", json.dumps({k: v for k, v in launches.items() if v}))
+    check_launched(launches, "deep", also=DEEP_KERNELS)
+    check_card_vs_cpu(fhe_s, run_s["pk"], run_s["sk"], run_s["rlk"], run_s["gk"],
+                      f"n=256, k={ctx_s.k}")
+    times = {f"multiply_relin_ms_n65536_k{ctx.k}": {
+        "device_ms": device_ms(lambda: fhe.multiply(run["ca"], run["cb"], run["rlk"]), 5),
+        "wall_ms": wall_ms(lambda: fhe.multiply(run["ca"], run["cb"], run["rlk"]), 3)},
+        f"multiply_relin_ms_n256_k{ctx_s.k}": {
+        "device_ms": device_ms(lambda: fhe_s.multiply(run_s["ca"], run_s["cb"], run_s["rlk"])),
+        "wall_ms": wall_ms(lambda: fhe_s.multiply(run_s["ca"], run_s["cb"], run_s["rlk"]))}}
+    print("phase deep check: the tiled base conversion at n=65536, t=786433, log_q=5790 "
+          "(k=193, kb=201, kd=193): B6 with digits at [201,3,n] (random, every digit "
+          "b_i - 1) and [201,6,n] == its plain twin, and B4, B5, B7 and B8 == their plain "
+          "twins; B5 at n=1024, kb=415; n=256, log_q=12000 (k=400, kb=415): B4's Lift lane "
+          "and the FloorSK lane with digits == their twins; the SK, Floor and FloorSK lanes "
+          "at n=8192 (k=1539, kb=1594) and n=32768 (k=384, kb=399) on random and max-digit "
+          "inputs == their twins; the tiled instance forced == the deep one at kb=63 and 68; "
+          f"keys, encrypt, multiply, decrypt at n=65536, k=193 decoded {PRODUCT_32K}, "
+          "multiply_batch (B=2) == the multiply; "
+          "ring_run at n=256, k=400 (multiply, multiply_batch, relinearize, rotate_rows) "
+          "decoded; card == CPU plain path at n=256, k=400 (on the CPU worker) for "
+          "encrypt_from_noise, multiply, decrypt and rotate_rows")
+    print("phase deep", json.dumps({
+        "card": card_name(), **times, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "cases_seconds": t_cases, "path_seconds": t_path,
+        "seconds": time.perf_counter() - t0}))
+    del fhe, fhe_s, run, run_s
+    free_card()
+    return launches, {name: row for name, row in results.items() if name.endswith("_tiled")}
+
+
 def run_slice(fhe: FHE):
     """The main path once: returns the decoded values and the state."""
     pk, sk = fhe.keygen()
@@ -4921,15 +5216,17 @@ def main() -> int:
         phase_n16384()
         launches = {"n32768": phase_n32768(gen), "secure128": phase_secure128(gen),
                     "n65536": phase_n65536(gen), "n131072": phase_n131072(gen),
-                    "n262144": phase_n262144(gen), "n_large": phase_n_large(gen),
-                    "slice": phase_slice(), "multiply": phase_multiply(),
-                    "serving": phase_serving(), "hoisted": phase_hoisted(),
-                    "omega": phase_omega(), "leveled": phase_leveled(),
-                    "small": phase_small(), "roofline": phase_roofline(gen),
-                    "bgv": phase_bgv(), "bootstrap": phase_bootstrap(gen),
-                    "plain_ops": phase_plain_ops(gen), "mxu": phase_mxu(gen),
-                    "examples": phase_examples(), "fuzz": phase_fuzz(),
-                    "parallel": phase_parallel()}
+                    "n262144": phase_n262144(gen), "n_large": phase_n_large(gen)}
+        launches["deep"], deep_rows = phase_deep(gen)
+        results.update(deep_rows)
+        launches |= {"slice": phase_slice(), "multiply": phase_multiply(),
+                     "serving": phase_serving(), "hoisted": phase_hoisted(),
+                     "omega": phase_omega(), "leveled": phase_leveled(),
+                     "small": phase_small(), "roofline": phase_roofline(gen),
+                     "bgv": phase_bgv(), "bootstrap": phase_bootstrap(gen),
+                     "plain_ops": phase_plain_ops(gen), "mxu": phase_mxu(gen),
+                     "examples": phase_examples(), "fuzz": phase_fuzz(),
+                     "parallel": phase_parallel()}
         print("phase cpu_checks", json.dumps(CPU_CHECKS.finish()))
     finally:
         CPU_CHECKS.close(terminate=True)
@@ -4944,7 +5241,7 @@ def main() -> int:
                      **{f"{path}_launches": launches[path][name]
                         for path in ("plain_ops", "mxu", "examples", "fuzz", "parallel",
                                      "n32768", "secure128", "n65536", "n131072",
-                                     "n262144", "n_large")},
+                                     "n262144", "n_large", "deep")},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,

@@ -48,7 +48,10 @@
 // log_q = 881: k = 30, kb = 33); past it a deep instance,
 // base_conv_deep_kernel, keeps a thread's digits in its own row of shared
 // memory and takes k and kb at run time up to kDeepMaxK and kDeepMaxKb
-// (log_q = 1920 at n = 65536 is k = 64, kb = 68).  The lanes are
+// (log_q = 1920 at n = 65536 is k = 64, kb = 68); past those, a tiled
+// instance runs each lane as a modular matrix product through global
+// scratch, with no cap (log_q = 5790 at n = 65536 is k = 193, kb = 201;
+// 46170 at n = 8192 is k = 1539, kb = 1594).  The lanes are
 // template parameters: SK (Bsk -> q; given the relinearization's inv_qhat it
 // also stores the gadget digits [c2_j * (q/q_j)^-1]_{q_j} of the c2 rows
 // beside them, which spares the multiply a chain of elementwise launches),
@@ -413,10 +416,11 @@ enum Lane : int { kLaneSK = 0, kLaneFloor = 1, kLaneFloorSK = 2 };
 // one word per thread) has room for kWideKb Bsk primes and takes kb at run
 // time; its floor loads the q rows in groups of kFold, up to kWideFloorK.
 // Past either, the deep instance takes up to kDeepMaxK q primes and
-// kDeepMaxKb Bsk primes (DeepSmem at these counts fits a block).
-// ops/rns_cuda.py (CONV_KB, CONV_MAX_FLOOR_K, CONV_FIXED_KB,
-// CONV_FIXED_FLOOR_K, CONV_DEEP_MAX_K, CONV_DEEP_MAX_KB) picks the instance
-// and checks a call against them.
+// kDeepMaxKb Bsk primes (DeepSmem at these counts fits a block), and past
+// those the tiled instance (conv_tiled_product_kernel) takes the rest.
+// ops/rns_cuda.py (CONV_MIN_KB, CONV_FIXED_KB, CONV_FIXED_FLOOR_K,
+// CONV_WIDE_KB, CONV_WIDE_FLOOR_K, CONV_DEEP_KB, CONV_DEEP_K) picks the
+// instance and checks a call against them.
 constexpr int kMinKb = 2;
 constexpr int kMaxKb = 17;
 constexpr int kMaxFloorK = 16;
@@ -1000,6 +1004,267 @@ const void* pick_conv_kernel(int lane, int per_thread, int kb, int k) {
   }
 }
 
+// The tiled instance of the base-conversion kernel's lanes, for the bases
+// past the deep instance (kb > kDeepMaxKb or k > kDeepMaxK, where the deep
+// instance's tables and digit rows no longer fit a block), and for any base
+// the wrapper forces onto it (ops/rns_cuda.py forced_tiled): k and kb at
+// run time with no cap, and shared memory that does not depend on them.
+// Each lane is a modular matrix product over each word e,
+//   conv[j, e] = sum_i y[i, e] * T[j, i] mod p_j,
+// with an epilogue: SK (y the l aux digits, T = phat_q [k, l]) subtracts the
+// centred alpha * B; Floor (y the digits of t*x in q, T = f_phat [kb, k])
+// takes (tx_c - conv) * q^-1.  alpha needs every aux digit of a word before
+// any destination prime (the deep instance kept them in the thread's own
+// row of shared memory, a row that grows with kb), so the lane runs as two
+// launches that meet in global memory: conv_tiled_digits_kernel forms each
+// word's digits once into scratch [rows, pitch] (SK: also the m_sk sum and
+// alpha [pitch]); conv_tiled_product_kernel runs the product on tiles of
+// kTileJ destination primes x kTileE words, the source digits and the table
+// slice streaming through shared memory kFold source primes at a time
+// (10 KB whatever k), each thread's kTileRegJ x kTileRegE unreduced 64-bit
+// sums in registers, folded with reduce_wide after every kFold terms (the
+// bound wide_dot relies on).  FloorSK is the floor into scratch [kb, pitch],
+// then SK's two launches from there: four launches.
+//
+// What bounds it: the product's k * l 64-bit multiply-adds a word (7.6 G
+// IMAD.WIDE for B6 at [201, 3, 65536]) and their folds, on the integer
+// pipes; the digits are read from L2 once per tile of primes (the CTAs of a
+// column of tiles run next to each other), the tables once per CTA.
+constexpr int kTileJ = 32;                 // destination primes per CTA
+constexpr int kTileE = 128;                // words per CTA
+constexpr int kTileRegJ = 4;               // a thread's primes
+constexpr int kTileRegE = 4;               // and words (one 16-byte word)
+constexpr int kTiledThreads = 256;
+constexpr int kTableStride = kTileJ + 4;   // a staged table row, 16-byte words, 2-way stores
+static_assert(kTileJ * kTileE == kTiledThreads * kTileRegJ * kTileRegE
+                  && kTileE / kTileRegE == 32,
+              "a warp covers a row of the tile, 4 words a thread");
+static_assert(kFold * kTileE / 4 == 2 * kTiledThreads && kFold * kTileJ == 2 * kTiledThreads,
+              "each thread stages two 16-byte digit words and two table words a chunk");
+
+// f(i, src[i * pitch + e]) for each of `rows` rows, the loads of a group of
+// 8 in flight at once (each_row with 64-bit row offsets).
+template <class F>
+__device__ __forceinline__ void each_row_pitched(const uint32_t* __restrict__ src, int rows,
+                                                 size_t pitch, int e, F f) {
+  constexpr int kGroup = 8;
+  for (int i0 = 0; i0 < rows; i0 += kGroup) {
+    uint32_t x[kGroup];
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i)
+      if (i0 + i < rows) x[i] = __ldg(src + (i0 + i) * pitch + e);
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i)
+      if (i0 + i < rows) f(i0 + i, x[i]);
+  }
+}
+
+// One word a thread, e < count.  Lane SK: src [kb, src_pitch] (the aux
+// rows, then the m_sk row) -> y [l, pitch] the aux digits
+// [x_i * (B/b_i)^-1]_{b_i}, and alpha[e] = (conv_sk - x_msk) * B^-1 mod m_sk
+// (the m_sk sum folded every kFold terms).  Lane Floor: src [k, src_pitch]
+// (t*x in q) -> y [k, pitch] the digits [x_i * (q/q_i)^-1]_{q_i}.
+template <int LaneT>
+__global__ void __launch_bounds__(kTiledThreads)
+conv_tiled_digits_kernel(const uint32_t* __restrict__ src, size_t src_pitch,
+                         uint32_t* __restrict__ y, uint32_t* __restrict__ alpha, size_t pitch,
+                         const ConvConsts cc, int count) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= count) return;
+  if constexpr (LaneT == kLaneSK) {
+    const int l = cc.kb - 1;
+    const uint4 mw = make_uint4(cc.m_sk, cc.msk_wide[0], cc.msk_wide[1], cc.msk_wide[2]);
+    uint64_t s = 0;
+    uint32_t xm = 0;
+    each_row_pitched(src, cc.kb, src_pitch, e, [&](int i, uint32_t x) {
+      if (i < l) {
+        const uint32_t d = fhe::mul_shoup(x, __ldg(cc.aux_inv_phat + i),
+                                          __ldg(cc.aux_inv_phat_sh + i), __ldg(cc.aux + i));
+        y[i * pitch + e] = d;
+        s += static_cast<uint64_t>(d) * __ldg(cc.phat_sk + i);
+        if (i % kFold == kFold - 1 && i + 1 < l) s = fhe::reduce_wide(s, mw);
+      } else {
+        xm = x;
+      }
+    });
+    alpha[e] = fhe::mul_shoup(fhe::sub_mod(fhe::reduce_wide(s, mw), xm, cc.m_sk), cc.inv_b,
+                              cc.inv_b_sh, cc.m_sk);
+  } else {
+    each_row_pitched(src, cc.k, src_pitch, e, [&](int i, uint32_t x) {
+      y[i * pitch + e] = fhe::mul_shoup(x, __ldg(cc.f_inv_phat + i), __ldg(cc.f_inv_phat_sh + i),
+                                        __ldg(cc.fq + i));
+    });
+  }
+}
+
+// The product launch's operands: the digits y [src_rows, pitch] (pitch a
+// multiple of kTileE), the table [dst_rows, src_rows] row-major, each
+// destination prime's quad constants (p, 2^32 mod p, Shoup, floor(2^32/p))
+// and scale (SK: B mod q_j; Floor: q^-1 mod c_j) with its Shoup companion;
+// SK: alpha [pitch] and, with dig, the relinearization digits' (q/q_j)^-1
+// mod q_j for the words from dstart on; Floor: txb [dst_rows, count].  out
+// rows are out_pitch words apart; `vec`: count and dstart are multiples of
+// 4 and out, dig and txb 16-byte aligned.
+struct TiledProduct {
+  const uint32_t* y;
+  const uint32_t* table;
+  const uint32_t* p;
+  const uint32_t* wide;
+  const uint32_t* scale;
+  const uint32_t* scale_sh;
+  const uint32_t* w;
+  const uint32_t* w_sh;
+  const uint32_t* alpha;
+  const uint32_t* txb;
+  uint32_t* out;
+  uint32_t* dig;
+  size_t pitch, out_pitch;
+  int src_rows, dst_rows, count, dstart;
+  uint32_t m_sk;
+  int vec;
+};
+
+// Block b: the tile of primes b % tiles_j (tiles_j = ceil(dst_rows /
+// kTileJ)) and of words b / tiles_j, so that the CTAs that read the same
+// digits run next to each other.  Thread t: primes jt .. jt + 3 (its warp's
+// four) and words et .. et + 3.
+template <int LaneT>
+__global__ void __launch_bounds__(kTiledThreads)
+conv_tiled_product_kernel(const TiledProduct a) {
+  __shared__ uint4 ds[kFold][kTileE / 4];
+  __shared__ __align__(16) uint32_t ts[kFold][kTableStride];
+  const int tid = threadIdx.x;
+  const int tiles_j = (a.dst_rows + kTileJ - 1) / kTileJ;
+  const int j0 = (blockIdx.x % tiles_j) * kTileJ;
+  const int e0 = (blockIdx.x / tiles_j) * kTileE;
+  const int pg = tid / 32, wq = tid % 32;
+  const int jt = j0 + pg * kTileRegJ, et = e0 + wq * kTileRegE;
+  uint4 pw[kTileRegJ];
+#pragma unroll
+  for (int r = 0; r < kTileRegJ; ++r) {
+    const int j = min(jt + r, a.dst_rows - 1);   // a prime past the last folds its own sums
+    pw[r] = make_uint4(__ldg(a.p + j), __ldg(a.wide + 3 * j), __ldg(a.wide + 3 * j + 1),
+                       __ldg(a.wide + 3 * j + 2));
+  }
+  // chunk i0's share of this thread: digit word q of the [kFold, kTileE]
+  // slice (row q / 32, 16-byte column q % 32) and table word q of the
+  // [kTileJ, kFold] slice (prime q / kFold, source prime q % kFold), q = tid
+  // and tid + 256; zero past the last source prime and destination prime
+  uint4 rd[2];
+  uint32_t rt[2];
+  auto load = [&](int i0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = tid + h * kTiledThreads;
+      const int row = i0 + q / 32, jj = q / kFold, ii = i0 + q % kFold;
+      rd[h] = row < a.src_rows
+                  ? __ldg(reinterpret_cast<const uint4*>(a.y + row * a.pitch + e0) + q % 32)
+                  : make_uint4(0, 0, 0, 0);
+      rt[h] = j0 + jj < a.dst_rows && ii < a.src_rows
+                  ? __ldg(a.table + static_cast<size_t>(j0 + jj) * a.src_rows + ii)
+                  : 0u;
+    }
+  };
+  uint64_t acc[kTileRegJ][kTileRegE];
+#pragma unroll
+  for (int r = 0; r < kTileRegJ; ++r)
+#pragma unroll
+    for (int v = 0; v < kTileRegE; ++v) acc[r][v] = 0;
+  const int chunks = (a.src_rows + kFold - 1) / kFold;
+  load(0);
+  for (int c = 0; c < chunks; ++c) {
+    __syncthreads();    // every thread has read the last chunk
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = tid + h * kTiledThreads;
+      ds[q / 32][q % 32] = rd[h];
+      ts[q % kFold][q / kFold] = rt[h];
+    }
+    __syncthreads();
+    if (c + 1 < chunks) load((c + 1) * kFold);    // in flight during the sums
+#pragma unroll
+    for (int i = 0; i < kFold; ++i) {
+      const uint4 dv = ds[i][wq];
+      const uint4 tv = *reinterpret_cast<const uint4*>(&ts[i][pg * kTileRegJ]);
+      const uint32_t dw[kTileRegE] = {dv.x, dv.y, dv.z, dv.w};
+      const uint32_t tw[kTileRegJ] = {tv.x, tv.y, tv.z, tv.w};
+#pragma unroll
+      for (int r = 0; r < kTileRegJ; ++r)
+#pragma unroll
+        for (int v = 0; v < kTileRegE; ++v) acc[r][v] += static_cast<uint64_t>(tw[r]) * dw[v];
+    }
+    if (c + 1 < chunks) {
+#pragma unroll
+      for (int r = 0; r < kTileRegJ; ++r)
+#pragma unroll
+        for (int v = 0; v < kTileRegE; ++v) acc[r][v] = fhe::reduce_wide(acc[r][v], pw[r]);
+    }
+  }
+  if (et >= a.count) return;
+  const int words = min(kTileRegE, a.count - et);
+  [[maybe_unused]] uint32_t al[kTileRegE];
+  if constexpr (LaneT == kLaneSK) {
+    const uint4 av = *reinterpret_cast<const uint4*>(a.alpha + et);
+    al[0] = av.x; al[1] = av.y; al[2] = av.z; al[3] = av.w;
+  }
+  const int dcount = a.count - a.dstart;
+#pragma unroll
+  for (int r = 0; r < kTileRegJ; ++r) {
+    const int j = jt + r;
+    if (j >= a.dst_rows) break;
+    const uint4 p4 = pw[r];
+    const uint32_t pj = p4.x, sc = __ldg(a.scale + j), sc_sh = __ldg(a.scale_sh + j);
+    uint32_t o[kTileRegE];
+    if constexpr (LaneT == kLaneSK) {
+      const uint32_t msk = a.m_sk;
+#pragma unroll
+      for (int v = 0; v < kTileRegE; ++v) {
+        // centred alpha mod q_j: alpha itself, or q_j - (m_sk - alpha)
+        const uint32_t aq = al[v] <= (msk >> 1) ? al[v] : pj - (msk - al[v]);
+        o[v] = fhe::sub_mod(fhe::reduce_wide(acc[r][v], p4), fhe::mul_shoup(aq, sc, sc_sh, pj),
+                            pj);
+      }
+    } else {
+      const uint32_t* xr = a.txb + static_cast<size_t>(j) * a.count + et;
+      uint32_t x[kTileRegE];
+      if (a.vec) {
+        const uint4 xv = *reinterpret_cast<const uint4*>(xr);
+        x[0] = xv.x; x[1] = xv.y; x[2] = xv.z; x[3] = xv.w;
+      } else {
+#pragma unroll
+        for (int v = 0; v < kTileRegE; ++v) x[v] = v < words ? xr[v] : 0u;
+      }
+#pragma unroll
+      for (int v = 0; v < kTileRegE; ++v)
+        o[v] = fhe::mul_shoup(fhe::sub_mod(x[v], fhe::reduce_wide(acc[r][v], p4), pj), sc, sc_sh,
+                              pj);
+    }
+    uint32_t* orow = a.out + j * a.out_pitch + et;
+    if (a.vec) {
+      *reinterpret_cast<uint4*>(orow) = make_uint4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int v = 0; v < kTileRegE; ++v)
+        if (v < words) orow[v] = o[v];
+    }
+    if constexpr (LaneT == kLaneSK) {
+      if (a.dig != nullptr && et + words > a.dstart) {
+        const uint32_t wj = __ldg(a.w + j), wj_sh = __ldg(a.w_sh + j);
+#pragma unroll
+        for (int v = 0; v < kTileRegE; ++v) o[v] = fhe::mul_shoup(o[v], wj, wj_sh, pj);
+        uint32_t* drow = a.dig + static_cast<size_t>(j) * dcount + (et - a.dstart);
+        if (a.vec) {
+          *reinterpret_cast<uint4*>(drow) = make_uint4(o[0], o[1], o[2], o[3]);
+        } else {
+#pragma unroll
+          for (int v = 0; v < kTileRegE; ++v)
+            if (v < words && et + v >= a.dstart) drow[v] = o[v];
+        }
+      }
+    }
+  }
+}
+
 // bsk_branch_fused's column form (n >= 262144; csrc/column.cuh): three
 // launches that meet in global memory.  column_lift_kernel lifts each
 // coefficient of the four rows a0, a1, b0, b1 into the Bsk prime c_j
@@ -1174,6 +1439,77 @@ int fhe_base_conv(int lane, int per_thread, int kb, int k, int count, int dstart
   const cudaError_t err = cudaLaunchKernel(kernel, grid, dim3(threads), args, smem,
                                            static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The lane's launches of the tiled instance (ops/rns_cuda.py
+// conv_tiled_geometry gives the same shapes): src, txb, out, dig and the
+// constants as fhe_base_conv takes them; pitch a multiple of kTileE, at
+// least count; scratch the lane's digits, in this order: the floor's
+// [k, pitch] (Floor, FloorSK), FloorSK's floored [kb, pitch], the aux
+// digits [kb - 1, pitch] and alpha [pitch] (SK, FloorSK).  Returns the
+// first failed launch's error.
+int fhe_base_conv_tiled(int lane, int kb, int k, int count, int dstart, int pitch, int vec,
+                        const void* src, const void* txb, void* out, void* dig, void* scratch,
+                        const void* aux, const void* aux_inv_phat, const void* aux_inv_phat_sh,
+                        const void* phat_q, const void* phat_sk, const void* q,
+                        const void* q_wide, const void* msk_wide, const void* b_mod_q,
+                        const void* b_mod_q_sh, const void* w, const void* w_sh, const void* fq,
+                        const void* f_inv_phat, const void* f_inv_phat_sh, const void* f_phat,
+                        const void* cp, const void* c_wide, const void* inv_q_c,
+                        const void* inv_q_c_sh, uint32_t m_sk, uint32_t inv_b,
+                        uint32_t inv_b_sh, void* stream) {
+  const bool sk = lane == kLaneSK || lane == kLaneFloorSK;
+  const bool fl = lane == kLaneFloor || lane == kLaneFloorSK;
+  if (!(sk || fl) || kb < kMinKb || k < 1 || count < 1 || pitch < count || pitch % kTileE
+      || scratch == nullptr || (fl && txb == nullptr) || (!sk && dig != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto u = [](const void* v) { return static_cast<const uint32_t*>(v); };
+  const ConvConsts cc{u(aux), u(aux_inv_phat), u(aux_inv_phat_sh), u(phat_q), u(phat_sk), u(q),
+                      u(q_wide), u(msk_wide), u(b_mod_q), u(b_mod_q_sh), u(w), u(w_sh), u(fq),
+                      u(f_inv_phat), u(f_inv_phat_sh), u(f_phat), u(cp), u(c_wide), u(inv_q_c),
+                      u(inv_q_c_sh), m_sk, inv_b, inv_b_sh, k, kb};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t wp = static_cast<size_t>(pitch);
+  uint32_t* next = static_cast<uint32_t*>(scratch);
+  auto take = [&](int rows) {
+    uint32_t* at = next;
+    next += rows * wp;
+    return at;
+  };
+  const dim3 digits_grid((count + kTiledThreads - 1) / kTiledThreads);
+  auto product_grid = [&](int dst_rows) {
+    return dim3(((dst_rows + kTileJ - 1) / kTileJ) * (pitch / kTileE));
+  };
+  const uint32_t* sk_src = u(src);
+  size_t sk_pitch = count;
+  if (fl) {
+    uint32_t* fy = take(k);
+    uint32_t* floored = lane == kLaneFloorSK ? take(kb) : static_cast<uint32_t*>(out);
+    conv_tiled_digits_kernel<kLaneFloor><<<digits_grid, kTiledThreads, 0, st>>>(
+        u(src), count, fy, nullptr, wp, cc, count);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const TiledProduct fp{fy, u(f_phat), u(cp), u(c_wide), u(inv_q_c), u(inv_q_c_sh), nullptr,
+                          nullptr, nullptr, u(txb), floored, nullptr, wp,
+                          lane == kLaneFloor ? static_cast<size_t>(count) : wp, k, kb, count,
+                          0, 0, vec};
+    conv_tiled_product_kernel<kLaneFloor><<<product_grid(kb), kTiledThreads, 0, st>>>(fp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || !sk) return static_cast<int>(err);
+    sk_src = floored;
+    sk_pitch = wp;
+  }
+  uint32_t* yd = take(kb - 1);
+  uint32_t* alpha = take(1);
+  conv_tiled_digits_kernel<kLaneSK><<<digits_grid, kTiledThreads, 0, st>>>(
+      sk_src, sk_pitch, yd, alpha, wp, cc, count);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const TiledProduct sp{yd, u(phat_q), u(q), u(q_wide), u(b_mod_q), u(b_mod_q_sh), u(w), u(w_sh),
+                        alpha, nullptr, static_cast<uint32_t*>(out), static_cast<uint32_t*>(dig),
+                        wp, static_cast<size_t>(count), kb - 1, k, count, dstart, m_sk, vec};
+  conv_tiled_product_kernel<kLaneSK><<<product_grid(k), kTiledThreads, 0, st>>>(sp);
   return static_cast<int>(cudaGetLastError());
 }
 

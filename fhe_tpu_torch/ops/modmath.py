@@ -31,9 +31,14 @@ def barrett_precompute(p: int) -> int:
 
 
 def shoup_array(vals, mods) -> np.ndarray:
-    """Elementwise host Shoup companions as uint32."""
-    return np.array([shoup_precompute(int(v), int(p))
-                     for v, p in zip(vals, mods)], dtype=np.uint32)
+    """Elementwise host Shoup companions as uint32 (numpy broadcasting of
+    vals against mods): ``shoup_precompute`` for each w < p < 2^32, exact
+    in uint64 since w * 2^32 < 2^64."""
+    w = np.asarray(vals, dtype=np.uint64)
+    p = np.asarray(mods, dtype=np.uint64)
+    if np.any(w >= p):
+        raise ValueError("shoup_array: every value must be below its modulus")
+    return ((w << np.uint64(32)) // p).astype(np.uint32)
 
 
 def resolve_device(device) -> torch.device:

@@ -78,21 +78,39 @@ def wide_consts(primes) -> np.ndarray:
                      for ri, p in zip(r, primes)], dtype=np.uint32).reshape(len(primes), 3)
 
 
+def phat_mod(src, dst) -> np.ndarray:
+    """[len(dst), len(src)] uint64: (P/p_i) mod c_j, P the product of src,
+    as the product of every other source prime: exclusive prefix and suffix
+    products mod c_j, each a scan of log2(len(src)) numpy steps (the
+    big-integer form, (P // p_i) % c_j, takes minutes at a thousand
+    primes).  Every factor is below 2^30, so each product fits in uint64."""
+    c = np.array(dst, dtype=np.uint64)[:, None]
+    k = len(src)
+    s = np.array(src, dtype=np.uint64)[None, :] % c
+    pre = np.ones((len(dst), k + 1), dtype=np.uint64)
+    suf = np.ones((len(dst), k + 1), dtype=np.uint64)
+    pre[:, 1:], suf[:, 1:] = s, s[:, ::-1]       # after the scans: of the m first / last
+    for x in (pre, suf):
+        d = 1
+        while d <= k:
+            x[:, d:] = x[:, d:] * x[:, :-d] % c
+            d *= 2
+    return pre[:, :k] * suf[:, k - 1::-1] % c
+
+
 @functools.lru_cache(maxsize=None)
 def _base_conv_host(src: tuple[int, ...], dst: tuple[int, ...]) -> dict:
     P = math.prod(src)
     inv_phat = [pow(P // p, -1, p) for p in src]
-    phat = [[(P // p) % c for p in src] for c in dst]
+    phat = phat_mod(src, dst)
     return dict(
         dst_wide=wide_consts(dst),
         p_src=np.array(src, dtype=np.uint32),
         inv_phat=np.array(inv_phat, dtype=np.uint32),
         inv_phat_shoup=mm.shoup_array(inv_phat, src),
         p_dst=np.array(dst, dtype=np.uint32),
-        phat_mod_dst=np.array(phat, dtype=np.uint32).reshape(len(dst), len(src)),
-        phat_shoup_dst=np.array(
-            [mm.shoup_array(row, [c] * len(src)) for row, c in zip(phat, dst)],
-            dtype=np.uint32).reshape(len(dst), len(src)),
+        phat_mod_dst=phat.astype(np.uint32),
+        phat_shoup_dst=mm.shoup_array(phat, np.array(dst, dtype=np.uint64)[:, None]),
     )
 
 
@@ -206,7 +224,8 @@ class FastFloorConsts:
 def make_fast_floor(src_primes, dst_primes, device="cuda") -> FastFloorConsts:
     src = tuple(int(p) for p in src_primes)
     dst = tuple(int(p) for p in dst_primes)
-    inv_q = [pow(math.prod(src), -1, c) for c in dst]
+    q = math.prod(src)
+    inv_q = [pow(q, -1, c) for c in dst]
     return FastFloorConsts(
         conv=make_base_conv(src, dst, device),
         inv_q_dst=mm.u32_tensor(np.array(inv_q, dtype=np.uint32), device),
@@ -296,6 +315,98 @@ def fast_floor_sk(tx_q: torch.Tensor, tx_bsk: torch.Tensor, fc: FastFloorConsts,
     if inv_qhat is None:
         return fast_bconv_sk(floored, sk)
     return fast_bconv_sk_digits(floored, sk, inv_qhat)
+
+
+TILED_FOLD = 16      # csrc/rns.cu kFold: the terms between two folds
+
+
+def _u64(x) -> np.ndarray:
+    """A tensor of residues (uint32 bits) as [rows, words] uint64: a [m]
+    tensor of per-prime constants becomes an [m, 1] column."""
+    x = (x.to(torch.int64) & 0xFFFFFFFF).cpu().numpy().astype(np.uint64)
+    return x.reshape(x.shape[0], -1)
+
+
+class _Sums:
+    """The largest unreduced 64-bit sum a tiled model formed, exactly."""
+
+    def __init__(self) -> None:
+        self.largest = 0
+
+    def add(self, acc: np.ndarray, terms: np.ndarray) -> np.ndarray:
+        """acc + the sum of terms over axis 1 (each term < 2^60), formed
+        from 32-bit halves so that a sum of 2^64 or more is seen, not
+        wrapped; raise where one is."""
+        lo = acc & 0xFFFFFFFF
+        hi = (acc >> np.uint64(32)) + (terms >> np.uint64(32)).sum(1)
+        lo = lo + (terms & 0xFFFFFFFF).sum(1)
+        hi = hi + (lo >> np.uint64(32))
+        if np.any(hi >= 1 << 32):
+            raise OverflowError("an unreduced sum of the tiled base conversion reached 2^64")
+        total = (hi << np.uint64(32)) | (lo & 0xFFFFFFFF)
+        self.largest = max(self.largest, int(total.max(initial=0)))
+        return total
+
+
+def _tiled_sums(y: np.ndarray, table: np.ndarray, p: np.ndarray, sums: _Sums,
+                fold: int) -> np.ndarray:
+    """sum_i table[:, i] * y[i] mod p ([J, words], p a [J, 1] column) in
+    the tiled order: the source rows ``fold`` at a time, each chunk's terms
+    added to the unreduced sums, which are reduced mod p_j (reduce_wide)
+    between chunks and after the last."""
+    acc = np.zeros((table.shape[0], y.shape[1]), dtype=np.uint64)
+    for i0 in range(0, y.shape[0], fold):
+        if i0:
+            acc %= p
+        acc = sums.add(acc, table[:, i0:i0 + fold, None] * y[None, i0:i0 + fold])
+    return acc % p
+
+
+def tiled_conv(lane: str, x: torch.Tensor, txb: torch.Tensor | None = None,
+               sk: SKConsts | None = None, fc: FastFloorConsts | None = None,
+               inv_qhat: torch.Tensor | None = None, fold: int = TILED_FOLD):
+    """A plain model of the CUDA tiled instance (csrc/rns.cu
+    conv_tiled_digits_kernel, conv_tiled_product_kernel) in its order of
+    work: the digits launch (SK: the aux digits, and alpha from the m_sk sum
+    folded every ``fold`` terms, before any destination prime), then the
+    product launch over the source rows ``fold`` at a time with a fold
+    between chunks; FloorSK is the floor into [kb, words], then SK's two
+    steps.  Lanes and arguments as ``fast_bconv_sk`` (lane "sk", x = x_bsk),
+    ``fast_floor`` ("floor", x = tx_q, txb = tx_bsk) and ``fast_floor_sk``
+    ("floor_sk"), on [rows, B, n] residues; with ``inv_qhat`` also the
+    digits of the c2 rows.  Returns (the result as the twin returns it, the
+    largest unreduced sum formed); raises OverflowError where a sum reaches
+    2^64."""
+    shape, sums = x.shape[1:], _Sums()
+    src = _u64(x)
+
+    def tensor(a: np.ndarray, *dims) -> torch.Tensor:
+        return torch.from_numpy(a.astype(np.int64)).to(torch.int32).view(-1, *dims)
+
+    if lane in ("floor", "floor_sk"):
+        q, c = _u64(fc.conv.p_src), _u64(fc.conv.p_dst)
+        conv = _tiled_sums(src * _u64(fc.conv.inv_phat) % q, _u64(fc.conv.phat_mod_dst), c,
+                           sums, fold)
+        src = (_u64(txb) + c - conv) % c * _u64(fc.inv_q_dst) % c
+        if lane == "floor":
+            return tensor(src, *shape), sums.largest
+    elif lane != "sk":
+        raise ValueError(f"unknown base-conversion lane {lane!r}")
+    l, msk = src.shape[0] - 1, np.uint64(sk.m_sk)
+    aux, qs = _u64(sk.conv_q.p_src), _u64(sk.conv_q.p_dst)
+    y = src[:l] * _u64(sk.conv_q.inv_phat) % aux
+    s = _tiled_sums(y, _u64(sk.conv_sk.phat_mod_dst), np.array([[msk]]), sums, fold)[0]
+    alpha = (s + msk - src[l]) % msk * np.uint64(sk.inv_B_sk) % msk
+    conv = _tiled_sums(y, _u64(sk.conv_q.phat_mod_dst), qs, sums, fold)
+    # centred alpha mod q_j: alpha itself, or q_j - (m_sk - alpha)
+    aq = np.where(alpha <= msk >> np.uint64(1), alpha, qs + alpha - msk)
+    out = (conv + qs - aq * _u64(sk.B_mod_q) % qs) % qs
+    if inv_qhat is None:
+        return tensor(out, *shape), sums.largest
+    k, rows = out.shape[0], shape[0]
+    c2 = out.reshape(k, 3, -1)[:, 2]
+    return ((tensor(out, *shape), tensor(c2 * _u64(inv_qhat) % qs, rows // 3, *shape[1:])),
+            sums.largest)
 
 
 def bsk_branch_fused_batch(ab: torch.Tensor, tx_q: torch.Tensor,

@@ -9,12 +9,17 @@ CUDA tensors and use the plain PyTorch versions of ``ops/rns.py``
 (``bsk_branch_fused``, ``bsk_branch_fused_batch``, ``fast_bconv_sk`` and
 ``fast_bconv_sk_digits``, ``fast_floor`` and ``fast_floor_sk``) for CPU
 tensors; any other device raises.  Each wrapper counts its kernel launches
-in ``<wrapper>.launches``.  The n < 1024 multiply's lift, rns_pallas.py's
-``sm_mrq_fused``, is the Lift lane of ``ntt_cuda.tensor_product``.
+in ``<wrapper>.launches``; a base conversion in the tiled instance (past
+the deep instance's 108 q and 112 Bsk primes) takes two or four launches a
+call, which ``fast_bconv_sk_fused.tiled_launches`` and
+``fast_floor_fused.tiled_launches`` count.  The n < 1024 multiply's lift,
+rns_pallas.py's ``sm_mrq_fused``, is the Lift lane of
+``ntt_cuda.tensor_product``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -38,9 +43,11 @@ def _lib() -> ctypes.CDLL:
     lib.fhe_bsk_branch.argtypes = ([_P] + [_I] * 3 + [_P] + [_I] * 3 + [_P] * 11
                                    + [_U] + [_P] * 14 + [_I] * 7 + [_P] * 2)
     lib.fhe_base_conv.argtypes = [_I] * 8 + [_P] * 24 + [_U] * 3 + [_P]
+    lib.fhe_base_conv_tiled.argtypes = [_I] * 7 + [_P] * 25 + [_U] * 3 + [_P]
     lib.fhe_column_lift.argtypes = [_P] + [_I] * 3 + [_P] * 11 + [_U] + [_P] * 3 + [_I] * 7 + [_P]
     lib.fhe_column_floor.argtypes = [_P, _P] + [_I] * 3 + [_P] * 13 + [_I] * 7 + [_P]
-    for f in (lib.fhe_bsk_branch, lib.fhe_base_conv, lib.fhe_column_lift, lib.fhe_column_floor):
+    for f in (lib.fhe_bsk_branch, lib.fhe_base_conv, lib.fhe_base_conv_tiled,
+              lib.fhe_column_lift, lib.fhe_column_floor):
         f.restype = ctypes.c_int
     return lib
 
@@ -207,23 +214,35 @@ def _check_conv_input(x: torch.Tensor, rows: int, consts: torch.Tensor,
         raise ValueError(f"{name}: tensor too large for 32-bit offsets")
 
 
-# Bsk prime counts the base-conversion kernel takes (csrc/rns.cu: kMinKb,
-# kDeepMaxKb) and the most q primes it takes (kDeepMaxK); the fixed
-# instances take up to CONV_FIXED_KB Bsk primes and floor from up to
-# CONV_FIXED_FLOOR_K q primes (kMaxKb, kMaxFloorK), the wide instance up to
-# CONV_WIDE_KB and CONV_WIDE_FLOOR_K (kWideKb, kWideFloorK) at one word per
-# thread, the deep instance the rest at one word per thread and
-# CONV_DEEP_THREADS per CTA (kDeepThreads); and its lanes
-CONV_KB = (2, 112)
-CONV_MAX_K = 108
+# The least Bsk prime count the base-conversion kernel takes (csrc/rns.cu:
+# kMinKb).  The fixed instances take up to CONV_FIXED_KB Bsk primes and
+# floor from up to CONV_FIXED_FLOOR_K q primes (kMaxKb, kMaxFloorK), the
+# wide instance up to CONV_WIDE_KB and CONV_WIDE_FLOOR_K (kWideKb,
+# kWideFloorK) at one word per thread, the deep instance up to CONV_DEEP_KB
+# Bsk and CONV_DEEP_K q primes (kDeepMaxKb, kDeepMaxK) at one word per thread
+# and CONV_DEEP_THREADS per CTA (kDeepThreads), and the tiled instance the
+# rest, with no cap; and its lanes
+CONV_MIN_KB = 2
 CONV_FIXED_KB = 17
 CONV_FIXED_FLOOR_K = 16
 CONV_WIDE_KB = 33
 CONV_WIDE_FLOOR_K = 32
+CONV_DEEP_KB = 112
+CONV_DEEP_K = 108
 CONV_DEEP_THREADS = 128
 CONV_LANES = {"sk": 0, "floor": 1, "floor_sk": 2}
 # SMs of an H100 SXM
 CARD_SMS = 132
+# The tiled instance (csrc/rns.cu kTileJ, kTileE, kTiledThreads, kFold,
+# kTableStride): tiles of CONV_TILE_PRIMES destination primes x
+# CONV_TILE_WORDS words, the source primes CONV_TILE_FOLD at a time through
+# CONV_TILED_SMEM bytes of static shared memory (the digits [16, 128] and
+# the table slice [16, 36]), whatever k and kb
+CONV_TILE_PRIMES = 32
+CONV_TILE_WORDS = 128
+CONV_TILE_FOLD = 16
+CONV_TILED_THREADS = 256
+CONV_TILED_SMEM = 4 * CONV_TILE_FOLD * (CONV_TILE_WORDS + CONV_TILE_PRIMES + 4)
 
 
 def conv_wide(lane: str, kb: int, k: int) -> bool:
@@ -237,6 +256,60 @@ def conv_deep(lane: str, kb: int, k: int) -> bool:
     """True where such a call takes the deep instance: kb above
     CONV_WIDE_KB, or a floor from more than CONV_WIDE_FLOOR_K q primes."""
     return kb > CONV_WIDE_KB or (lane != "sk" and k > CONV_WIDE_FLOOR_K)
+
+
+def conv_tiled(lane: str, kb: int, k: int) -> bool:
+    """True where such a call takes the tiled instance: kb above
+    CONV_DEEP_KB or k above CONV_DEEP_K (every lane stages a [k, kb] table
+    in the deep instance), or inside ``forced_tiled()``."""
+    if lane not in CONV_LANES:
+        raise ValueError(f"unknown base-conversion lane {lane!r}")
+    return _FORCED_TILED[0] or kb > CONV_DEEP_KB or k > CONV_DEEP_K
+
+
+_FORCED_TILED = [False]
+
+
+@contextlib.contextmanager
+def forced_tiled():
+    """Inside the block every base conversion takes the tiled instance
+    (chip_smoke.py's comparison of the tiled and deep instances at kb = 63
+    and 68); the choice before is restored on leaving it."""
+    before, _FORCED_TILED[0] = _FORCED_TILED[0], True
+    try:
+        yield
+    finally:
+        _FORCED_TILED[0] = before
+
+
+def conv_tiled_geometry(count: int, lane: str, kb: int, k: int) -> dict:
+    """Launch shape of the tiled instance (csrc/rns.cu
+    fhe_base_conv_tiled) over rows of ``count`` words: the scratch rows'
+    ``pitch`` (count rounded up to whole tiles of words), the ``steps`` in
+    order, each a ``digits`` launch (one word a thread, ``rows`` source
+    rows) or a ``product`` launch (CONV_TILE_PRIMES x CONV_TILE_WORDS tiles
+    of ``dst`` destination primes from ``src`` source digit rows; ``blocks``
+    = its prime tiles x word tiles), and the ``scratch`` words: SK its l aux
+    digit rows and alpha, Floor its k digit rows, FloorSK both and the
+    floored [kb, pitch] between them.  ``smem`` and ``threads`` are the same
+    at every k and kb."""
+    if lane not in CONV_LANES:
+        raise ValueError(f"unknown base-conversion lane {lane!r}")
+    if kb < CONV_MIN_KB or k < 1 or count < 1:
+        raise ValueError(f"conv_tiled_geometry: kb={kb}, k={k}, count={count}")
+    tiles_e = -(-count // CONV_TILE_WORDS)
+    pitch, l = tiles_e * CONV_TILE_WORDS, kb - 1
+    digits = lambda rows: {"kernel": "digits", "rows": rows,
+                           "blocks": -(-count // CONV_TILED_THREADS)}
+    product = lambda src, dst: {"kernel": "product", "src": src, "dst": dst,
+                                "blocks": -(-dst // CONV_TILE_PRIMES) * tiles_e}
+    floor = [digits(k), product(k, kb)]
+    sk = [digits(kb), product(l, k)]
+    steps = sk if lane == "sk" else floor if lane == "floor" else floor + sk
+    scratch_rows = ((k if lane != "sk" else 0) + (kb if lane == "floor_sk" else 0)
+                    + (l + 1 if lane != "floor" else 0))
+    return {"pitch": pitch, "threads": CONV_TILED_THREADS, "smem": CONV_TILED_SMEM,
+            "steps": steps, "scratch": scratch_rows * pitch}
 
 
 def conv_geometry(count: int, lane: str, wide: bool = False, deep: bool = False) -> dict:
@@ -283,22 +356,19 @@ def _check_digits(digits, k: int, rows: int, dev, name: str) -> None:
 
 def _conv_launch(lane: str, src: torch.Tensor, txb, sk, fc, digits,
                  rows_out: int, name: str):
-    """One base_conv_kernel launch over src [r, R, n] (and txb [kb, R, n]):
-    out [rows_out, R, n] and, with digits, d [k, R / 3, n]."""
+    """One base-conversion call over src [r, R, n] (and txb [kb, R, n]):
+    out [rows_out, R, n] and, with digits, d [k, R / 3, n]; and the tiled
+    instance's kernel launches it took (0 for one base_conv_kernel launch)."""
     _, rows, n = src.shape
     count = rows * n
     if rows_out * count >= 1 << 31:
         raise ValueError(f"{name}: tensor too large for 32-bit offsets")
     kb = fc.conv.p_dst.shape[0] if fc is not None else sk.conv_q.p_src.shape[0] + 1
-    if not CONV_KB[0] <= kb <= CONV_KB[1]:
-        raise ValueError(f"{name}: the kernel takes {CONV_KB[0]} to {CONV_KB[1]} Bsk "
-                         f"primes, got {kb}")
+    if kb < CONV_MIN_KB:
+        raise ValueError(f"{name}: the kernel takes at least {CONV_MIN_KB} Bsk primes, "
+                         f"got {kb}")
     k = src.shape[0] if lane != "sk" else sk.conv_q.p_dst.shape[0]
-    if k > CONV_MAX_K:
-        raise ValueError(f"{name}: the kernel takes at most {CONV_MAX_K} q primes, got {k}")
-    geo = conv_geometry(count, lane, conv_wide(lane, kb, k), conv_deep(lane, kb, k))
-    v = geo["per_thread"]
-    vec = conv_vec(v, *(x for x in (src, txb) if x is not None))
+    tiled = conv_tiled(lane, kb, k)
     out = torch.empty((rows_out, rows, n), dtype=torch.int32, device=src.device)
     d = None
     if digits is not None:
@@ -314,11 +384,26 @@ def _conv_launch(lane: str, src: torch.Tensor, txb, sk, fc, digits,
         p(fc.inv_q_dst), p(fc.inv_q_shoup_dst)]
     w_ptrs = [None, None] if digits is None else [p(digits[0]), p(digits[1])]
     scalars = (0, 0, 0) if sk is None else (sk.m_sk, sk.inv_B_sk, sk.inv_B_sk_shoup)
+    result = out if d is None else (out, d)
+    if tiled:
+        geo = conv_tiled_geometry(count, lane, kb, k)
+        scratch = torch.empty(geo["scratch"], dtype=torch.int32, device=src.device)
+        dstart = 2 * count // 3
+        vec = (count % 4 == 0 and dstart % 4 == 0
+               and conv_vec(4, *(x for x in (txb, out, d) if x is not None)))
+        _build.launch(
+            _lib().fhe_base_conv_tiled, name, src.device, CONV_LANES[lane], kb, k, count,
+            dstart, geo["pitch"], int(vec), p(src), p(txb), p(out), p(d), p(scratch),
+            *sk_ptrs, *w_ptrs, *fc_ptrs, *scalars)
+        return result, len(geo["steps"])
+    geo = conv_geometry(count, lane, conv_wide(lane, kb, k), conv_deep(lane, kb, k))
+    v = geo["per_thread"]
+    vec = conv_vec(v, *(x for x in (src, txb) if x is not None))
     _build.launch(
         _lib().fhe_base_conv, name, src.device, CONV_LANES[lane], v, kb, k, count,
         2 * count // 3, int(vec), geo["threads"], p(src), p(txb), p(out), p(d),
         *sk_ptrs, *w_ptrs, *fc_ptrs, *scalars)
-    return out if d is None else (out, d)
+    return result, 0
 
 
 def fast_bconv_sk_fused(x_bsk: torch.Tensor, sk: _rns.SKConsts, digits=None):
@@ -337,12 +422,14 @@ def fast_bconv_sk_fused(x_bsk: torch.Tensor, sk: _rns.SKConsts, digits=None):
         if digits is None:
             return _rns.fast_bconv_sk(x_bsk, sk)
         return _rns.fast_bconv_sk_digits(x_bsk, sk, digits[0])
-    out = _conv_launch("sk", x_bsk, None, sk, None, digits, k, "fast_bconv_sk_fused")
+    out, tiled = _conv_launch("sk", x_bsk, None, sk, None, digits, k, "fast_bconv_sk_fused")
     fast_bconv_sk_fused.launches += 1
+    fast_bconv_sk_fused.tiled_launches += tiled
     return out
 
 
 fast_bconv_sk_fused.launches = 0
+fast_bconv_sk_fused.tiled_launches = 0
 
 
 def fast_floor_fused(tx_q: torch.Tensor, tx_bsk: torch.Tensor,
@@ -379,11 +466,14 @@ def fast_floor_fused(tx_q: torch.Tensor, tx_bsk: torch.Tensor,
         return _rns.fast_floor_sk(tx_q, tx_bsk, fc, sk,
                                   None if digits is None else digits[0])
     if sk is None:
-        out = _conv_launch("floor", tx_q, tx_bsk, None, fc, None, l, "fast_floor_fused")
+        out, tiled = _conv_launch("floor", tx_q, tx_bsk, None, fc, None, l, "fast_floor_fused")
     else:
-        out = _conv_launch("floor_sk", tx_q, tx_bsk, sk, fc, digits, k, "fast_floor_fused")
+        out, tiled = _conv_launch("floor_sk", tx_q, tx_bsk, sk, fc, digits, k,
+                                  "fast_floor_fused")
     fast_floor_fused.launches += 1
+    fast_floor_fused.tiled_launches += tiled
     return out
 
 
 fast_floor_fused.launches = 0
+fast_floor_fused.tiled_launches = 0

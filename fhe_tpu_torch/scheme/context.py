@@ -178,13 +178,18 @@ def ks_group_conv_tables(primes: tuple[int, ...], omega: int) -> np.ndarray:
     scales the key error (noise.keyswitch_add)."""
     k = len(primes)
     kd = -(-k // omega)
-    cw = np.zeros((k, kd, omega), dtype=np.uint32)
-    for g in range(kd):
-        group = primes[g * omega: (g + 1) * omega]
-        q_group = math.prod(group)
-        for jl, pj in enumerate(group):
-            for i, pi in enumerate(primes):
-                cw[i, g, jl] = q_group // pj % pi
+    # member m of every group ([kd], 1 past the short last group) mod each prime
+    ps = np.array(primes, dtype=np.uint64)
+    members = np.ones(kd * omega, dtype=np.uint64)
+    members[:k] = ps
+    members = members.reshape(kd, omega)[None] % ps[:, None, None]   # [k, kd, omega]
+    cw = np.ones((k, kd, omega), dtype=np.uint64)
+    for jl in range(omega):
+        for m in range(omega):
+            if m != jl:
+                cw[:, :, jl] = cw[:, :, jl] * members[:, :, m] % ps[:, None]
+    cw[:, kd - 1, omega - (kd * omega - k):] = 0
+    cw = cw.astype(np.uint32)
     cw.flags.writeable = False
     return cw
 

@@ -555,14 +555,14 @@ def test_base_conversion_wide_instance_past_33_primes(lane, kb):
     """The base conversion at kb = 34 (the first past the wide instance's
     33), 63 (log_q = 1770) and 68 (log_q = 1920), each lane from k = kb - 4
     q primes: the deep instance, one word per thread, 128 threads per CTA,
-    the grid over every word of [kb, 3, 65536], within the wrappers' caps
+    the grid over every word of [kb, 3, 65536], not the tiled instance
     (csrc/rns.cu asserts at compile time that the deep instance's shared
-    memory fits a block there); the fixed instances (kb <= 17, a floor from
+    memory fits a block up to 108 q and 112 Bsk primes); the fixed instances (kb <= 17, a floor from
     at most 16 q primes) and the wide one (kb <= 33, a floor from at most
     32) keep their instance and shape."""
     k, count = kb - 4, 3 * N65536
     assert rns_cuda.conv_wide(lane, kb, k) and rns_cuda.conv_deep(lane, kb, k)
-    assert kb <= rns_cuda.CONV_KB[1] and k <= rns_cuda.CONV_MAX_K
+    assert not rns_cuda.conv_tiled(lane, kb, k)
     geo = rns_cuda.conv_geometry(count, lane, wide=True, deep=True)
     assert (geo["per_thread"], geo["threads"]) == (1, rns_cuda.CONV_DEEP_THREADS) == (1, 128)
     assert geo["blocks"] * geo["threads"] == count

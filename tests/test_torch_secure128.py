@@ -18,9 +18,10 @@ relinearization digits, the floor) and of the SmMRq lift are held against
 fhe_tpu/oracle.py's arbitrary-precision algorithms at kb = 32 and 33, on
 random residues, on every residue p - 1 and on the residues whose
 conversion digits are all p - 1 (the largest terms of the kernel's
-unreduced sums); the conversion's one cap left, its shared memory, raises
-naming the function, the Lift lane takes any k, and the launch shape of the
-fixed instances (kb <= 17) is as it was.  chip_smoke.py's secure128 phase and
+unreduced sums); the conversion takes any base past its deep instance in
+the tiled one and raises only on a base of one Bsk prime, the Lift lane
+takes any k, and the launch shape of the fixed instances (kb <= 17) is as
+it was.  chip_smoke.py's secure128 phase and
 tests/test_torch_cuda.py hold the card against these twins.
 
 One module-scoped state: JAX's context, keys, ciphertexts and the two
@@ -208,33 +209,32 @@ def test_base_conversion_twins_match_the_oracle(log_q, kb, inputs):
 
 
 def test_conversion_wrappers_raise_above_their_caps():
-    """The base conversion takes 2 to 112 Bsk primes and at most 108 q
-    primes (csrc/rns.cu kDeepMaxKb and kDeepMaxK, where the deep instance's
-    shared memory still fits a block), which covers log_q = 1920 at
-    n = 65536 (k = 64, kb = 68): one more raises a ValueError naming the
-    wrapper, before any launch (the checks run on the host), as does a base
-    of one Bsk prime."""
-    assert rns_cuda.CONV_KB == (2, 112) and rns_cuda.CONV_MAX_K == 108
-    assert 68 <= rns_cuda.CONV_KB[1] and 64 <= rns_cuda.CONV_MAX_K
-    ps = primes.find_ntt_primes(2048, 222)
-    sk = trns.make_sk(ps[109:221], ps[221], ps[:3], "cpu")             # kb = 113
-    x = torch.zeros((113, 3, 4), dtype=torch.int32)
-    with pytest.raises(ValueError, match="fast_bconv_sk_fused: the kernel takes 2 to 112 Bsk "
-                                         "primes, got 113"):
-        rns_cuda._conv_launch("sk", x, None, sk, None, None, 3, "fast_bconv_sk_fused")
-    fc = trns.make_fast_floor(ps[:109], ps[109:222], "cpu")            # k = 109, kb = 113
-    tx_q = torch.zeros((109, 3, 4), dtype=torch.int32)
-    tx_b = torch.zeros((113, 3, 4), dtype=torch.int32)
-    fc112 = trns.make_fast_floor(ps[:109], ps[109:221], "cpu")         # k = 109, kb = 112
-    with pytest.raises(ValueError, match="fast_floor_fused: the kernel takes at most 108 q "
-                                         "primes, got 109"):
-        rns_cuda._conv_launch("floor", tx_q, tx_b[:112], None, fc112, None, 112,
-                              "fast_floor_fused")
-    with pytest.raises(ValueError, match="fast_floor_fused: the kernel takes 2 to 112"):
-        rns_cuda._conv_launch("floor", tx_q, tx_b, None, fc, None, 113, "fast_floor_fused")
+    """The base conversion has no prime cap left: past the deep instance's
+    108 q and 112 Bsk primes (csrc/rns.cu kDeepMaxK, kDeepMaxKb, where its
+    shared memory still fits a block) the tiled instance takes the call,
+    k = 109 or kb = 113 in every lane, in two launches (four for FloorSK),
+    each product over whole tiles of destination primes and words; at the
+    caps the deep instance still does.  A base of one Bsk prime raises a
+    ValueError naming the wrapper, before any launch (the checks run on the
+    host)."""
+    assert not hasattr(rns_cuda, "CONV_MAX_K") and not hasattr(rns_cuda, "CONV_KB")
+    assert (rns_cuda.CONV_MIN_KB, rns_cuda.CONV_DEEP_KB, rns_cuda.CONV_DEEP_K) == (2, 112, 108)
+    for lane in rns_cuda.CONV_LANES:
+        assert rns_cuda.conv_tiled(lane, 113, 3) and rns_cuda.conv_tiled(lane, 113, 109)
+        assert rns_cuda.conv_tiled(lane, 112, 109) and not rns_cuda.conv_tiled(lane, 112, 108)
+        assert rns_cuda.conv_deep(lane, 112, 108) and not rns_cuda.conv_tiled(lane, 68, 64)
+    count = 3 * 4
+    for lane, (kb, k), launches in (("sk", (113, 3), 2), ("floor", (113, 109), 2),
+                                    ("floor_sk", (113, 109), 4)):
+        geo = rns_cuda.conv_tiled_geometry(count, lane, kb, k)
+        assert len(geo["steps"]) == launches and geo["pitch"] == rns_cuda.CONV_TILE_WORDS
+        for step in geo["steps"]:
+            if step["kernel"] == "product":
+                assert step["blocks"] == -(-step["dst"] // rns_cuda.CONV_TILE_PRIMES)
+    ps = primes.find_ntt_primes(2048, 4)
     sk1 = trns.make_sk(ps[:0], ps[3], ps[:3], "cpu")                   # kb = 1
     x1 = torch.zeros((1, 3, 4), dtype=torch.int32)
-    with pytest.raises(ValueError, match="fast_bconv_sk_fused: the kernel takes 2 to 112 Bsk "
+    with pytest.raises(ValueError, match="fast_bconv_sk_fused: the kernel takes at least 2 Bsk "
                                          "primes, got 1"):
         rns_cuda._conv_launch("sk", x1, None, sk1, None, None, 3, "fast_bconv_sk_fused")
 
