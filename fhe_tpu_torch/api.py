@@ -42,7 +42,19 @@ BFV bootstrapping (``scheme/bootstrap.py``; BGV raises NotImplementedError):
 The pipeline's final key-switching keys are made once per secret key and
 cached (evicted when the caller drops the key).  ``fhe.monitor`` (a
 ``utils.perf.PerformanceMonitor``) times every op under the JAX facade's
-names.
+names.  Its counts of ``plain_ntt_operand``, ``hoisted_galois_keys`` and
+``switch_relin_keys`` / ``switch_galois_keys`` are the misses of the
+plain-operand, hoisted-key and level-key caches.
+
+Tracing: run any ``torch.profiler`` session around the calls to see the
+program's ``fhe.*`` spans on the timeline of the card's kernels: each
+timed facade op, and inside them the scheme's steps (``fhe.mul.*`` of
+``multiply_batch``, ``fhe.plain.*`` of ``multiply_plain``, and in
+``sum_slots`` each ``fhe.sum_slots.stage`` with its ``fhe.hoisted.*``
+steps, then ``fhe.sum_slots.columns``).  With no session recording they
+cost a flag check each.  One-time work (the prime search, the tables, the
+CUDA context, the kernels' build and load, key material) is in the process
+record ``utils.perf.PROCESS``, which no ``monitor.reset()`` clears.
 
 Leveled use: ``mod_switch_to_next`` drops the last q prime with rounding
 (``mod_switch_to_level`` several), which keeps the noise of a deep circuit
@@ -76,7 +88,7 @@ from .scheme import encoder as _encoder
 from .scheme.context import SchemeContext, default_galois_elements, make_context
 from .scheme.types import (BootstrapKey, Ciphertext, GaloisKeys, LWECiphertext,
                            Plaintext, PublicKey, RelinKeys, SecretKey)
-from .utils.perf import PerformanceMonitor
+from .utils import perf
 
 
 class FHE:
@@ -108,7 +120,7 @@ class FHE:
         self._rlk_cache: dict = {}
         self._gal_cache: dict = {}
         self._bootstrap_ks_cache: dict = {}
-        self.monitor = PerformanceMonitor()
+        self.monitor = perf.PerformanceMonitor()
 
     # -- keys --
     def keygen(self) -> tuple[PublicKey, SecretKey]:
@@ -236,8 +248,9 @@ class FHE:
         """cache_operand=True computes the NTT-form operand once per
         (pt, level) and reuses it, so a K-term plaintext dot product on an
         NTT-form ciphertext costs no transform per term."""
-        op = self.plain_operand(pt, ct.level) if cache_operand else None
-        return self._scheme.multiply_plain(self.ctx, ct, pt, op)
+        with self.monitor.time("multiply_plain"):
+            op = self.plain_operand(pt, ct.level) if cache_operand else None
+            return self._scheme.multiply_plain(self.ctx, ct, pt, op)
 
     # -- rotations and key switching --
     def rotate_rows(self, ct: Ciphertext, steps: int,
@@ -287,12 +300,15 @@ class FHE:
                      level: int) -> torch.Tensor:
         """The pre-permuted key stack (bfv.hoisted_galois_keys) of the level,
         from the level's cached keys, cached per (level-0 keys, elements,
-        level) and evicted when the caller drops the keys."""
+        level) and evicted when the caller drops the keys.  A miss is key
+        material: the process record times it as ``keys.hoisted``, to the
+        card's end of the work."""
         ck = (id(gal_keys), elements, level)
         pre = self._hoist_cache.get(ck)
         if pre is None:
             gk = self._gal_at(gal_keys, level)
-            with self.monitor.time("hoisted_galois_keys"):
+            with (self.monitor.time("hoisted_galois_keys"),
+                  perf.PROCESS.time("keys.hoisted", sync=gk)):
                 pre = self._scheme.hoisted_galois_keys(self.ctx, gk, elements, level,
                                                        keys_at_level=True)
             self._hoist_cache[ck] = pre
@@ -355,12 +371,14 @@ class FHE:
             while step < half:
                 group = [j * step for j in (1, 2, 3) if j * step < half]
                 if len(group) > 1 and all(pow(3, s, m) in gal_keys.data for s in group):
-                    ct = self._rotate_accumulate(ct, group, gal_keys)
+                    with perf.span("sum_slots.stage"):
+                        ct = self._rotate_accumulate(ct, group, gal_keys)
                     step *= len(group) + 1
                 else:
                     ct = self.add(ct, self.rotate_rows(ct, step, gal_keys))
                     step *= 2
-            return self.add(ct, self.rotate_columns(ct, gal_keys))
+            with perf.span("sum_slots.columns"):
+                return self.add(ct, self.rotate_columns(ct, gal_keys))
 
     def _rotate_accumulate(self, ct: Ciphertext, steps_list,
                            gal_keys: GaloisKeys) -> Ciphertext:

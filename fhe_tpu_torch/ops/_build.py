@@ -6,7 +6,9 @@ parallel, one ``nvcc`` each, on the first call to ``load``; the libraries go
 into ``fhe_tpu_torch/_build/<hash>/``, where the hash covers every file in
 ``csrc/`` and the compiler flags, so an edited source rebuilds and an
 unchanged one is reused.  A missing ``nvcc`` or a failed build raises: there
-is no fallback.
+is no fallback.  The process record (``utils.perf.PROCESS``) times the load
+as ``kernels.load`` and, inside it, a build that ran ``nvcc`` as
+``kernels.build``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import tempfile
 from pathlib import Path
 
 import torch
+
+from ..utils.perf import PROCESS
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -60,33 +64,35 @@ def _build(out: Path) -> None:
     todo = [s for s in SOURCES if not (out / f"lib{s}.so").exists()]
     if not todo:
         return
-    nvcc = _nvcc()
-    procs = []
-    for name in todo:
-        fd, tmp = tempfile.mkstemp(prefix=f"lib{name}.", suffix=".so.tmp",
-                                   dir=out)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs.append((name, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = []
-    for name, tmp, proc in procs:
-        log, _ = proc.communicate()
-        (out / f"{name}.log").write_text(log)
-        if proc.returncode == 0:
-            os.replace(tmp, out / f"lib{name}.so")
-        else:
-            os.unlink(tmp)
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+    with PROCESS.time("kernels.build"):
+        nvcc = _nvcc()
+        procs = []
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(prefix=f"lib{name}.", suffix=".so.tmp",
+                                       dir=out)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            procs.append((name, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for name, tmp, proc in procs:
+            log, _ = proc.communicate()
+            (out / f"{name}.log").write_text(log)
+            if proc.returncode == 0:
+                os.replace(tmp, out / f"lib{name}.so")
+            else:
+                os.unlink(tmp)
+                failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
 
 
 @functools.lru_cache(maxsize=None)
 def _load_all() -> dict[str, ctypes.CDLL]:
-    out = build_dir()
-    _build(out)
-    return {s: ctypes.CDLL(str(out / f"lib{s}.so")) for s in SOURCES}
+    with PROCESS.time("kernels.load"):
+        out = build_dir()
+        _build(out)
+        return {s: ctypes.CDLL(str(out / f"lib{s}.so")) for s in SOURCES}
 
 
 def load(name: str) -> ctypes.CDLL:

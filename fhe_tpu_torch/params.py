@@ -19,6 +19,7 @@ import math
 import warnings
 
 from . import primes as _primes
+from .utils.perf import PROCESS
 
 PRIME_BITS = 30  # every RNS prime lives in (2**29, 2**30)
 M_TILDE = 1 << 16
@@ -95,7 +96,9 @@ def security_margin(security: SecurityParams) -> int | None:
 @functools.lru_cache(maxsize=None)
 def make_scheme_params(security: SecurityParams = SecurityParams()) -> SchemeParams:
     """Expand SecurityParams into a full plan: k = ceil(log_q / 30) q primes,
-    the smallest aux base with B*m_sk > 4*t*n*q, then m_sk and gamma."""
+    the smallest aux base with B*m_sk > 4*t*n*q, then m_sk and gamma.  The
+    process record (``utils.perf.PROCESS``) times the prime search as
+    ``tables.primes``."""
     n = security.poly_degree
     if n & (n - 1) or n < 8:
         raise ValueError("poly_degree must be a power of two >= 8")
@@ -122,9 +125,10 @@ def make_scheme_params(security: SecurityParams = SecurityParams()) -> SchemePar
     l = k
     while (1 << (29 * l + 29)) <= 4 * t * n * (1 << (PRIME_BITS * k)):
         l += 1
-    pool = _primes.find_ntt_primes(n, k + l + 1, bits=PRIME_BITS, exclude=(t,))
-    gamma = _primes.find_ntt_primes(
-        n, 1, bits=PRIME_BITS, exclude=tuple(pool) + (t,))[0]
+    with PROCESS.time("tables.primes"):
+        pool = _primes.find_ntt_primes(n, k + l + 1, bits=PRIME_BITS, exclude=(t,))
+        gamma = _primes.find_ntt_primes(
+            n, 1, bits=PRIME_BITS, exclude=tuple(pool) + (t,))[0]
     return SchemeParams(security=security, n=n, t=t,
                         q_primes=tuple(pool[:k]),
                         aux_primes=tuple(pool[k:k + l]),

@@ -55,6 +55,7 @@ from ..ops import poly as _poly
 from ..ops import rns as _rns
 from ..ops import rns_cuda
 from ..ops import sampling
+from ..utils import perf
 from . import noise as _noise
 from .context import SchemeContext, default_galois_elements, eval_perm_inv
 from .types import (Ciphertext, GaloisKeys, Plaintext, PublicKey, RelinKeys,
@@ -129,13 +130,17 @@ def _scale_by_delta(ctx: SchemeContext, pt: Plaintext, level: int = 0) -> torch.
 def keygen_from_noise(ctx: SchemeContext, s: torch.Tensor, a: torch.Tensor,
                       e: torch.Tensor) -> tuple[PublicKey, SecretKey]:
     """RLWE keypair from explicit draws, each a [k, 1, n] residue tensor:
-    s ternary, a uniform, e Gaussian.  pk = (e - a*s, a), NTT form."""
-    tb = ctx.ntt_q
-    x = ntt_cuda.ntt_forward(torch.cat([s, a, e], dim=1), tb)   # [k, 3, n]
-    s_ntt, a_ntt, e_ntt = x[:, 0:1], x[:, 1:2], x[:, 2:3]
-    b_ntt = mm.sub_mod(e_ntt, _ntt.pointwise_mul(a_ntt, s_ntt, tb), _p3(tb))
-    return (PublicKey(data=torch.cat([b_ntt, a_ntt], dim=1)),
-            SecretKey(data=s_ntt.contiguous()))
+    s ternary, a uniform, e Gaussian.  pk = (e - a*s, a), NTT form.  Timed
+    as ``keys.keygen`` in the process record (``utils.perf.PROCESS``), to
+    the card's end of the work, as are ``relinkey_gen`` (``keys.relin``)
+    and ``galoiskey_gen`` (``keys.galois``)."""
+    with perf.PROCESS.time("keys.keygen", sync=s):
+        tb = ctx.ntt_q
+        x = ntt_cuda.ntt_forward(torch.cat([s, a, e], dim=1), tb)   # [k, 3, n]
+        s_ntt, a_ntt, e_ntt = x[:, 0:1], x[:, 1:2], x[:, 2:3]
+        b_ntt = mm.sub_mod(e_ntt, _ntt.pointwise_mul(a_ntt, s_ntt, tb), _p3(tb))
+        return (PublicKey(data=torch.cat([b_ntt, a_ntt], dim=1)),
+                SecretKey(data=s_ntt.contiguous()))
 
 
 def _keygen_draws(ctx: SchemeContext, gen: torch.Generator) -> tuple:
@@ -277,7 +282,8 @@ def relinkey_gen_from_noise(ctx: SchemeContext, sk: SecretKey, a: torch.Tensor,
 def relinkey_gen(ctx: SchemeContext, gen: torch.Generator,
                  sk: SecretKey) -> RelinKeys:
     """Keys for s^2 -> s switching, with the port's samplers."""
-    return relinkey_gen_from_noise(ctx, sk, *_keyswitch_draws(ctx, gen))
+    with perf.PROCESS.time("keys.relin", sync=sk):
+        return relinkey_gen_from_noise(ctx, sk, *_keyswitch_draws(ctx, gen))
 
 
 def galoiskey_gen_from_noise(ctx: SchemeContext, sk: SecretKey, elements,
@@ -314,7 +320,8 @@ def _galois_draws(ctx: SchemeContext, gen: torch.Generator, elements) -> tuple:
 def galoiskey_gen(ctx: SchemeContext, gen: torch.Generator, sk: SecretKey,
                   elements=None) -> GaloisKeys:
     """Galois keys with the port's samplers (``_galois_draws``)."""
-    return galoiskey_gen_from_noise(ctx, sk, *_galois_draws(ctx, gen, elements))
+    with perf.PROCESS.time("keys.galois", sync=sk):
+        return galoiskey_gen_from_noise(ctx, sk, *_galois_draws(ctx, gen, elements))
 
 
 # ---------------------------------------------------------------------------
@@ -511,14 +518,19 @@ def multiply_plain(ctx: SchemeContext, ct: Ciphertext, pt: Plaintext,
     ``pt_ntt`` costs no transform at all: the pattern for plaintext dot
     products is to_ntt once, multiply and accumulate, to_coeff once."""
     tb = _tb(ctx, ct.level)
-    ct_ntt = to_ntt(ctx, ct)
-    if pt_ntt is None:
-        pt_ntt = plain_ntt_operand(ctx, pt, ct.level)
-    out = ct_ntt.replace(
-        data=_ntt.pointwise_mul(ct_ntt.data, pt_ntt.expand_as(ct_ntt.data), tb),
-        noise_budget=_b_of(ctx, ct.level, _noise.multiply_plain(
-            ctx.params, _v_of(ctx, ct))))
-    return out if ct.is_ntt_form else to_coeff(ctx, out)
+    with perf.span("plain.to_ntt"):
+        ct_ntt = to_ntt(ctx, ct)
+        if pt_ntt is None:
+            pt_ntt = plain_ntt_operand(ctx, pt, ct.level)
+    with perf.span("plain.mul"):
+        out = ct_ntt.replace(
+            data=_ntt.pointwise_mul(ct_ntt.data, pt_ntt.expand_as(ct_ntt.data), tb),
+            noise_budget=_b_of(ctx, ct.level, _noise.multiply_plain(
+                ctx.params, _v_of(ctx, ct))))
+    if ct.is_ntt_form:
+        return out
+    with perf.span("plain.to_coeff"):
+        return to_coeff(ctx, out)
 
 
 # ---------------------------------------------------------------------------
@@ -760,25 +772,33 @@ def multiply_batch(ctx: SchemeContext, cts_a: list, cts_b: list,
     if ctx.use_mxu:
         return [multiply(ctx, a, b, rlk, keys_at_level) for a, b in zip(cts_a, cts_b)]
     batch, n = len(cts_a), ctx.n
-    ab = torch.cat([torch.stack([to_coeff(ctx, a).data for a in cts_a]),
-                    torch.stack([to_coeff(ctx, b).data for b in cts_b])],
-                   dim=2).permute(1, 2, 0, 3)                    # [k-L, 4, B, n]
+    with perf.span("mul.stack"):
+        ab = torch.cat([torch.stack([to_coeff(ctx, a).data for a in cts_a]),
+                        torch.stack([to_coeff(ctx, b).data for b in cts_b])],
+                       dim=2).permute(1, 2, 0, 3)                # [k-L, 4, B, n]
     tq, tbsk = ctx.mul_levels[level]
-    tx_q = ntt_cuda.tensor_product_batch(ab[:, :2], ab[:, 2:], tq)
-    floored = rns_cuda.bsk_branch_fused_batch(
-        ab, tx_q, ctx.smq_levels[level], ctx.floor_levels[level], tbsk)  # [kb, 3, B, n]
-    out3, d = rns_cuda.fast_bconv_sk_fused(floored.view(tbsk.k, 3 * batch, n),
-                                           ctx.sk_levels[level], _digit_consts(ctx, level))
+    with perf.span("mul.products"):
+        tx_q = ntt_cuda.tensor_product_batch(ab[:, :2], ab[:, 2:], tq)
+    with perf.span("mul.behz"):
+        floored = rns_cuda.bsk_branch_fused_batch(
+            ab, tx_q, ctx.smq_levels[level], ctx.floor_levels[level], tbsk)  # [kb, 3, B, n]
+    with perf.span("mul.bconv"):
+        out3, d = rns_cuda.fast_bconv_sk_fused(floored.view(tbsk.k, 3 * batch, n),
+                                               ctx.sk_levels[level],
+                                               _digit_consts(ctx, level))
     out3 = out3.view(tq.k, 3, batch, n)
-    delta = _delta_from_digits(ctx, d, _keys_of(ctx, rlk.data, level, keys_at_level),
-                               level)                            # [k-L, 2, B, n]
-    data = mm.add_mod(out3[:, :2], delta, tq.p.view(-1, 1, 1, 1))
-    # the same two-step bookkeeping as multiply_no_relin -> relinearize (the
-    # budget <-> variance round trip clamps at the 0 floor)
-    budgets = [_keyswitch_budget(ctx, _noise.bfv_variance(
-        ctx.params, level, _multiply_budget(ctx, a, b)), level)
-        for a, b in zip(cts_a, cts_b)]
-    return _split_batch(data, budgets, level)
+    with perf.span("mul.relin"):
+        delta = _delta_from_digits(ctx, d, _keys_of(ctx, rlk.data, level, keys_at_level),
+                                   level)                        # [k-L, 2, B, n]
+    with perf.span("mul.add"):
+        data = mm.add_mod(out3[:, :2], delta, tq.p.view(-1, 1, 1, 1))
+    with perf.span("mul.split"):
+        # the same two-step bookkeeping as multiply_no_relin -> relinearize
+        # (the budget <-> variance round trip clamps at the 0 floor)
+        budgets = [_keyswitch_budget(ctx, _noise.bfv_variance(
+            ctx.params, level, _multiply_budget(ctx, a, b)), level)
+            for a, b in zip(cts_a, cts_b)]
+        return _split_batch(data, budgets, level)
 
 
 # ---------------------------------------------------------------------------
@@ -999,13 +1019,16 @@ def apply_galois_hoisted_sum(ctx: SchemeContext, ct: Ciphertext, elements,
         acc_v = _noise.add(acc_v, v_rot)
     if not elements:
         return ct.replace(noise_budget=_b_of(ctx, level, acc_v))
-    ct, d_ntt, keys = _hoisted_digits(ctx, ct, elements, gal_keys, pre_keys,
-                                      keys_at_level, bgv)
+    with perf.span("hoisted.digits"):
+        ct, d_ntt, keys = _hoisted_digits(ctx, ct, elements, gal_keys, pre_keys,
+                                          keys_at_level, bgv)
     tb = _tb(ctx, level)
-    delta = ntt_cuda.ks_inner_batch(d_ntt, keys, tb)
-    hs = tuple(pow(g, -1, 2 * ctx.n) for g in elements)
-    data = galois_cuda.automorphism_fused_sum(delta, hs, tb.p, ct.data[:, 0], ct.data)
-    return ct.replace(data=data, noise_budget=_b_of(ctx, level, acc_v))
+    with perf.span("hoisted.inner"):
+        delta = ntt_cuda.ks_inner_batch(d_ntt, keys, tb)
+    with perf.span("hoisted.accumulate"):
+        hs = tuple(pow(g, -1, 2 * ctx.n) for g in elements)
+        data = galois_cuda.automorphism_fused_sum(delta, hs, tb.p, ct.data[:, 0], ct.data)
+        return ct.replace(data=data, noise_budget=_b_of(ctx, level, acc_v))
 
 
 def apply_galois_hoisted_batch(ctx: SchemeContext, cts: list, elements,

@@ -30,8 +30,10 @@ from .. import primes as _primes
 from ..ops import modmath as mm
 from ..ops import ntt as _ntt
 from ..ops import ntt_mxu as _ntt_mxu
+from ..ops import _build
 from ..ops import rns as _rns
 from ..params import SchemeParams, SecurityParams, make_scheme_params
+from ..utils.perf import PROCESS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,13 +242,27 @@ def make_context(params: SchemeParams | None = None, device="cuda",
     """Build the constants on ``device`` (default the card).  ``use_mxu``
     routes the ciphertext multiply's tensor products through the four-step
     int8 GEMM engine (``ops/ntt_mxu.py``) and builds its tables; the JAX
-    package keeps it an explicit opt-in, as here."""
+    package keeps it an explicit opt-in, as here.  On the card it starts the
+    CUDA context and loads the kernels first (``ops/_build.py``).  The
+    process record (``utils.perf.PROCESS``) times each step."""
     dev = mm.resolve_device(device)
     if params is None:
         params = make_scheme_params(SecurityParams(**security_kw))
     omega = params.security.ks_omega
     if omega < 1:
         raise ValueError(f"ks_omega must be >= 1, got {omega}")
+    if dev.type == "cuda":
+        # the CUDA context and the kernels first, each in its own span of
+        # the process record, so that ``tables.context`` times the tables
+        with PROCESS.time("device.start"):
+            torch.cuda.synchronize(dev)
+        _build.load_all()
+    with PROCESS.time("tables.context"):
+        return _make_context(params, dev, omega, use_mxu)
+
+
+def _make_context(params: SchemeParams, dev: torch.device, omega: int,
+                  use_mxu: bool) -> SchemeContext:
     ntt_q = _ntt.build_tables(params.n, params.q_primes, dev)
     tq, tbsk = _ntt.build_mul_tables(
         ntt_q, _ntt.build_tables(params.n, params.bsk_primes, dev), params.t)

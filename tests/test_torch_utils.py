@@ -182,22 +182,23 @@ def test_port_file_loads_in_jax(tmp_path, jax_objs):
             list(out[name].data.values()) if name == "gk" else [out[name].data]))
 
 
-def test_performance_monitor_counts_and_means():
+def test_performance_monitor_counts_and_means(capsys):
     mon = perf.PerformanceMonitor()
     for _ in range(3):
         with mon.time("op", sync=[torch.zeros(4), {"x": Plaintext(data=torch.zeros(2))}]):
             sum(range(1000))
-    mon.start_timer("timed")
-    mon.stop_timer("timed")
-    mon.stop_timer("never_started")
-    mon.record_operation("counted")
+    with pytest.raises(RuntimeError), mon.time("raised"):
+        raise RuntimeError
     stats = mon.get_stats()
-    assert stats.counts == {"op": 3, "timed": 1, "counted": 1}
+    assert stats.counts == {"op": 3, "raised": 1}
     assert stats.mean_ms("op") == pytest.approx(stats.times_ms["op"] / 3)
     assert stats.mean_ms("op") > 0.0 and stats.mean_ms("missing") == 0.0
+    assert stats.alloc_bytes is None and stats.allocs is None      # no CUDA here
     mon.print_stats()
+    printed = capsys.readouterr().out
+    assert "op" in printed and "raised" in printed and "allocated" not in printed
     mon.reset()
-    assert mon.get_stats().counts == {}
+    assert mon.get_stats().counts == {} and mon.get_stats().times_ms == {}
 
 
 def test_checked_passes_on_valid_op(small):
